@@ -1,0 +1,128 @@
+"""The spin-0 curved-sky slice end to end: pixell_tpu_torch.curvedsky
+against pixell_tpu.curvedsky on the same numpy inputs.
+
+The grid is a full-sky Fejer-1 CAR map too coarse for direct quadrature at
+this lmax (2 lmax + 1 > ny), so map2alm runs the exact theta upsample.
+Tolerances, relative to the largest reference value:
+- float64: 1e-10 (same algorithms, other summation order and FFT library);
+- float32: 1e-4 (f32 Legendre recurrences in both, ~l*eps apart).
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from pixell_tpu import enmap as jenmap, curvedsky as jcurvedsky
+from pixell_tpu_torch import enmap, curvedsky, wcsutils
+
+LMAX = 16
+SHAPE = (20, 40)
+
+
+def geometry():
+	jshape, jwcs = jenmap.fullsky_geometry(shape=SHAPE, variant="fejer1")
+	shape, wcs = enmap.fullsky_geometry(shape=SHAPE, variant="fejer1")
+	assert shape == jshape == SHAPE
+	return jwcs, wcs
+
+
+def rel(got, want):
+	got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+	want = np.asarray(want)
+	assert got.shape == want.shape
+	return np.abs(got - want).max()/np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-10), (np.float32, 1e-4)])
+def test_roundtrip_matches_reference(dtype, tol):
+	jwcs, wcs = geometry()
+	tdt = torch.float64 if dtype == np.float64 else torch.float32
+	cdt = np.complex128 if dtype == np.float64 else np.complex64
+	alm = jcurvedsky.rand_alm(np.ones(LMAX + 1), lmax=LMAX, seed=4).astype(cdt)
+	jm = jcurvedsky.alm2map(alm, jenmap.zeros(SHAPE, jwcs, dtype), spin=[0])
+	m = curvedsky.alm2map(torch.from_numpy(alm), enmap.zeros(SHAPE, wcs, tdt), spin=[0])
+	assert m.dtype == tdt
+	assert rel(m.data, jm) <= tol
+	tm = enmap.ndmap(torch.from_numpy(np.array(jm)), wcs)
+	for niter in (0, 2):
+		ja = jcurvedsky.map2alm(jm, lmax=LMAX, spin=[0], niter=niter)
+		a = curvedsky.map2alm(tm, lmax=LMAX, spin=[0], niter=niter)
+		assert a.dtype == torch.from_numpy(np.zeros(1, cdt)).dtype
+		assert rel(a, ja) <= tol, niter
+		assert rel(a, alm) <= tol, niter   # exact quadrature recovers the input
+
+
+def test_accuracy_high_runs_float64_recurrence():
+	"""accuracy="high" on a float32 map: both packages run the Legendre
+	recurrence in float64, so they agree far below the f32 tolerance
+	(the maps are still rounded to float32: 1e-6)."""
+	jwcs, wcs = geometry()
+	alm = jcurvedsky.rand_alm(np.ones(LMAX + 1), lmax=LMAX, seed=5).astype(np.complex64)
+	jm = jcurvedsky.alm2map(alm, jenmap.zeros(SHAPE, jwcs, np.float32), spin=[0],
+		accuracy="high")
+	m = curvedsky.alm2map(torch.from_numpy(alm), enmap.zeros(SHAPE, wcs, torch.float32),
+		spin=[0], accuracy="high")
+	assert rel(m.data, jm) <= 1e-6
+
+
+def test_alm_services():
+	rng = np.random.default_rng(6)
+	ps = 1/(1 + np.arange(LMAX + 1.0))**2
+	alm = jcurvedsky.rand_alm(ps, lmax=LMAX, seed=7)
+	talm = curvedsky.rand_alm(ps, lmax=LMAX, seed=7)
+	np.testing.assert_array_equal(talm.numpy(), alm)     # same numpy draws
+	alm2 = jcurvedsky.rand_alm(ps, lmax=LMAX, seed=8)
+	np.testing.assert_allclose(curvedsky.alm2cl(talm).numpy(), np.asarray(jcurvedsky.alm2cl(alm)),
+		rtol=1e-12)
+	np.testing.assert_allclose(curvedsky.alm2cl(talm, torch.from_numpy(alm2)).numpy(),
+		np.asarray(jcurvedsky.alm2cl(alm, alm2)), rtol=1e-12, atol=1e-15)
+	fl = rng.uniform(0.5, 1.5, LMAX + 1)
+	np.testing.assert_allclose(curvedsky.almxfl(talm, fl).numpy(),
+		np.asarray(jcurvedsky.almxfl(alm, fl)), rtol=1e-14)
+	f = lambda l: np.exp(-l/10)
+	np.testing.assert_allclose(curvedsky.almxfl(talm, f).numpy(),
+		np.asarray(jcurvedsky.almxfl(alm, f)), rtol=1e-14)
+	# a rectangular layout goes through the general gather
+	rinfo = curvedsky.alm_info(lmax=LMAX, layout="rect")
+	jrinfo = jcurvedsky.alm_info(lmax=LMAX, layout="rect")
+	ralm = jcurvedsky.rand_alm(ps, ainfo=jrinfo, seed=9)
+	tr = curvedsky.rand_alm(ps, ainfo=rinfo, seed=9)
+	np.testing.assert_array_equal(tr.numpy(), ralm)
+	np.testing.assert_allclose(curvedsky.alm2cl(tr, ainfo=rinfo).numpy(),
+		np.asarray(jcurvedsky.alm2cl(ralm, ainfo=jrinfo)), rtol=1e-12)
+	np.testing.assert_allclose(curvedsky.almxfl(tr, fl, ainfo=rinfo).numpy(),
+		np.asarray(jcurvedsky.almxfl(ralm, fl, ainfo=jrinfo)), rtol=1e-14)
+
+
+def test_unported_options_raise():
+	_, wcs = geometry()
+	m = enmap.zeros(SHAPE, wcs)
+	alm = torch.zeros(curvedsky.alm_info(lmax=LMAX).nelem, dtype=torch.complex128)
+	for kw in [dict(deriv=True), dict(adjoint=True), dict(mesh=object())]:
+		with pytest.raises(NotImplementedError):
+			curvedsky.alm2map(alm, m, **kw)
+		with pytest.raises(NotImplementedError):
+			curvedsky.map2alm(m, lmax=LMAX, **kw)
+	with pytest.raises(NotImplementedError):
+		curvedsky.alm2map(torch.zeros((3, alm.shape[0]), dtype=alm.dtype),
+			enmap.zeros((3,) + SHAPE, wcs), spin=[0, 2])
+	plain = wcsutils.WCS.from_fields(["", ""], [0, 0], [1, 1], [1, 1])
+	with pytest.raises(NotImplementedError):
+		curvedsky.map2alm(enmap.zeros(SHAPE, plain), lmax=LMAX)
+
+
+def test_import_loads_no_jax():
+	"""The port imports torch and never jax or pixell_tpu."""
+	code = ("import sys, pixell_tpu_torch, pixell_tpu_torch.curvedsky, "
+		"pixell_tpu_torch.ops.sht_cuda; "
+		"bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+		"or m == 'pixell_tpu' or m.startswith('pixell_tpu.')]; "
+		"print(bad); sys.exit(1 if bad else 0)")
+	root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+	r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+		timeout=120, cwd=root)
+	assert r.returncode == 0, r.stdout + r.stderr
