@@ -1,5 +1,5 @@
 // Hand-written Hopper (sm_90a) kernels for the Legendre stage of the
-// spin-0 spherical harmonic transform. Four kernels, one recurrence:
+// spherical harmonic transform. Four kernels, one recurrence:
 //
 //   K1 sym_synthesis   replaces _synthesis_scan_pallas_sym
 //                      (pixell_tpu/ops/sht_pallas.py:1686, pallas_call :1755)
@@ -10,7 +10,16 @@
 //   K4 full_analysis   replaces _analysis_scan_pallas_full
 //                      (pixell_tpu/ops/sht_pallas.py:1954, pallas_call :2089)
 //
-// Each is templated on float (S = 60) and double (S = 850). The double
+// each in the four Legendre modes of the reference (K6, _make_funcs
+// sht_pallas.py:408): scalar emits lambda_lm; deriv [lambda, d lambda/d theta];
+// spin1 [w1, x1]; spin2 [w2, x2], the theta-functions of the spin-weighted
+// harmonics, evaluated per (l, m, theta) in registers from lambda_l and
+// lambda_{l-1} (formulas in pixell_tpu_torch/ops/sht_core.py mode_funcs).
+// The mode is a template parameter; this file is compiled once per mode
+// (-DLEGENDRE_MODE=0..3, in parallel), and each object exports the entry
+// points pt_<kernel>_<mode>. The Wigner mode (spin > 2, K7) is not here.
+//
+// Each kernel is templated on float (S = 60) and double (S = 850). The double
 // instantiation of K3/K4 is the near-pole pass that the TPU ran in
 // double-single arithmetic; Hopper has native f64, and nvcc's default FMA
 // contraction would silently break Dekker double-single sums anyway.
@@ -23,24 +32,38 @@
 // lambda_mm ~ sin^m(theta) cannot underflow near the poles; only levels 0
 // and -1 contribute above 2^-S. cos(theta) comes in two parts (hi + lo)
 // for float: a plain f32 cos has ~3e-8 absolute error near the poles, which
-// the recurrence amplifies by ~l^2. The coefficients a, b and the seeds are
-// tables computed outside with correctly rounded sqrt and divide. Build
+// the recurrence amplifies by ~l^2. The coefficients a, b, the mode
+// functions' e_lm = sqrt((l-m)(l+m)(2l+1)/(2l-1)) and the per-degree norms
+// are TABLES computed outside with correctly rounded sqrt and divide
+// (ops/sht_cuda.py coef_tables, l_tables) and staged in shared memory beside
+// a and b; the kernels do no sqrt or divide. The per-ring rows cos/sin,
+// 1/sin, 1/sin^2 and the pole flag come from float64 host maths. Build
 // WITHOUT --use_fast_math: approximate sqrt/divide are what broke the TPU
 // recurrence.
 //
-// What bounds these kernels on an H100: FP32 (or FP64) FMA and select work,
-// about 15 operations per (l, m, theta) triple, over a triangle of
-// ~lmax^2/2 (l, m) pairs per ring; device-memory traffic is O(lmax^2 + nm*nt)
-// (the coefficient and alm tables, the seeds, the output), far below it.
-// Design: one thread per (m, theta) keeps its recurrence state and its
-// accumulators in registers for the whole l-loop, which starts at the
-// block's smallest m, so the zero triangle l < m is skipped for free. A
-// block covers MY m rows x TX rings; per chunk of LC degrees it stages
-// a_lm, b_lm (and for synthesis the alm A[l, m, :]) in shared memory, since
-// they are the same for every ring of an m row. Warps never straddle two m
-// rows, so the seed branch at l = m is warp-uniform.
+// What bounds these kernels on an H100: FP32 (or FP64) arithmetic per
+// (l, m, theta) triple over a triangle of ~lmax^2/2 (l, m) pairs per ring:
+// ~7 operations for the recurrence step, 0 (scalar), ~8 (deriv), ~14
+// (spin1) or ~24 (spin2) for the mode functions, and 2-3 per function and
+// coefficient column for the accumulation (chip_smoke.py kernel_ops counts
+// them). Device-memory traffic is O(lmax^2 + nfun C nm nt) (the tables, the
+// alm, the seeds, the output), far below it.
+// Design: one thread per (m, theta) keeps its recurrence state, its ring
+// rows and its accumulators in registers for the whole l-loop, which starts
+// at the block's smallest m, so the zero triangle l < m is skipped for free.
+// A block covers MY m rows x TX rings; per chunk of LC degrees it stages
+// a_lm, b_lm, e_lm, the degree norms (and for synthesis the alm
+// A[l, m, :]) in shared memory, since they are the same for every ring of an
+// m row. All C coefficient columns of a block (C = 4 for a spin-2 block:
+// E and B, real and imaginary) share one recurrence pass. Warps never
+// straddle two m rows, so the seed branch at l = m is warp-uniform.
 //
-// Analysis reduces lambda * F over the rings of an m row at every l: a warp
+// Half-sky kernels: u_f(pi - theta) = PSIGN[f] (-1)^(l+m) u_f(theta)
+// (sht_pallas.py:61); PSIGN is (1) scalar, (1, -1) deriv, (-1, 1) spin1,
+// (1, -1) spin2. K1's mirror accumulator takes that sign; K2 reads the
+// even plane (north + south) where it is +1 and the odd plane where it is -1.
+//
+// Analysis reduces u_f * F over the rings of an m row at every l: a warp
 // shuffle butterfly, then the row's warps are summed from shared memory.
 // Each block writes one partial per (l, m, c) into its own plane of a
 // zero-initialized [planes, nl, nm, C] buffer, looping over the ring tiles
@@ -52,7 +75,34 @@
 
 #include <cuda_runtime.h>
 
+#ifndef LEGENDRE_MODE
+#define LEGENDRE_MODE 0
+#endif
+#if LEGENDRE_MODE == 0
+#define MODE_TAG scalar
+#elif LEGENDRE_MODE == 1
+#define MODE_TAG deriv
+#elif LEGENDRE_MODE == 2
+#define MODE_TAG spin1
+#elif LEGENDRE_MODE == 3
+#define MODE_TAG spin2
+#else
+#error "LEGENDRE_MODE must be 0 (scalar), 1 (deriv), 2 (spin1) or 3 (spin2)"
+#endif
+#define PT_PASTE2(a, b) a##_##b
+#define PT_PASTE(a, b) PT_PASTE2(a, b)
+#define PT_ENTRY(name) PT_PASTE(name, MODE_TAG)
+
 namespace {
+
+constexpr int SCALAR = 0, DERIV = 1, SPIN1 = 2, SPIN2 = 3;
+constexpr int MODE = LEGENDRE_MODE;
+constexpr int NFUN = MODE == SCALAR ? 1 : 2;
+
+// parity of mode function f under theta -> pi - theta
+__host__ __device__ constexpr int psign(int f) {
+  return MODE == SCALAR ? 1 : (MODE == SPIN1 ? (f == 0 ? -1 : 1) : (f == 0 ? 1 : -1));
+}
 
 constexpr int TX = 64;  // rings per m row in a block (two warps)
 constexpr int MY = 4;   // m rows per block
@@ -74,10 +124,11 @@ template <typename T> struct State {
   int lev;
 };
 
-// One recurrence step at degree l for row m. Returns the true lambda_lm.
+// One recurrence step at degree l for row m. Returns the true lambda_lm and
+// sets lam1 to the true lambda_{l-1,m} (zero at the seed l = m).
 template <typename T>
 __device__ __forceinline__ T step(State<T>& s, int l, int m, T a, T b, T x,
-                                  T xlo, T seedv, int seedl) {
+                                  T xlo, T seedv, int seedl, T& lam1) {
   T nw = a * ((x * s.curr + xlo * s.curr) - b * s.prev);
   T cz = s.curr;
   if (l == m) {  // seed; the stale previous value has another scale
@@ -88,6 +139,7 @@ __device__ __forceinline__ T step(State<T>& s, int l, int m, T a, T b, T x,
   s.prev = cz;
   s.curr = nw;
   const T fac = s.lev == 0 ? T(1) : (s.lev == -1 ? Scale<T>::invband() : T(0));
+  lam1 = cz * fac;
   return nw * fac;
 }
 
@@ -110,67 +162,162 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// Stage a_lm, b_lm (and A[l, m, :] when A is given) for degrees
-// l0 .. l0+LC-1 and the block's m rows; zero outside the table.
+// The per-ring rows of one thread's ring: cos, cos/sin, 1/sin, 1/sin^2,
+// the not-a-pole flag and the north/south pole flags.
+template <typename T> struct Ring {
+  T ct, ct_st, inv_st, inv_st2, notpole, pn, ps;
+};
+
+template <typename T>
+__device__ __forceinline__ Ring<T> load_ring(const T* __restrict__ cth,
+                                             const T* __restrict__ rows, int t,
+                                             int nt, bool valid) {
+  Ring<T> r{T(0), T(0), T(0), T(0), T(1), T(0), T(0)};
+  if (!valid) return r;
+  r.ct = cth[t];
+  if constexpr (MODE != SCALAR) {
+    r.ct_st = rows[t];
+    r.inv_st = rows[nt + t];
+    r.inv_st2 = rows[2 * nt + t];
+    r.notpole = rows[3 * nt + t];
+    const T pole = T(1) - r.notpole;
+    r.pn = r.ct > T(0) ? pole : T(0);
+    r.ps = r.ct < T(0) ? pole : T(0);
+  }
+  return r;
+}
+
+// Mode functions u[NFUN] at (l, m) on ring r from the true lambda_l (lam)
+// and lambda_{l-1} (lam1); e = e_lm, nrm and hp the degree's norm and half
+// pole factor (pixell_tpu/ops/sht_pallas.py _make_funcs :408-451). The 1/sin
+// terms vanish on pole rings (notpole = 0, inv_st = 0), where the limits at
+// m = 1 (deriv, spin1) or m = 2 (spin2) take their place.
+template <typename T>
+__device__ __forceinline__ void mode_funcs(T (&u)[NFUN], T lam, T lam1, int l,
+                                           int m, T e, T nrm, T hp,
+                                           const Ring<T>& r) {
+  if constexpr (MODE == SCALAR) {
+    u[0] = lam;
+    return;
+  }
+  const T lf = T(l);
+  const T sgl = (l & 1) ? T(-1) : T(1);
+  constexpr int MP = MODE == SPIN2 ? 2 : 1;  // the m of the pole limits
+  if constexpr (MODE == DERIV) {
+    T d = (lf * r.ct_st * lam - e * r.inv_st * lam1) * r.notpole;
+    if (m == MP && l >= MP) d += -nrm * hp * (r.pn + sgl * r.ps);
+    u[0] = lam;
+    u[NFUN - 1] = d;
+    return;
+  }
+  T w = T(0), x = T(0);
+  if (l >= MP) {
+    if constexpr (MODE == SPIN1) {
+      w = -nrm * (lf * r.ct_st * lam - e * r.inv_st * lam1) * r.notpole;
+      x = nrm * T(m) * r.inv_st * lam * r.notpole;
+    } else {
+      const T lmm = T(l - m * m);  // exact in integers, rounded once
+      w = nrm * (-(T(2) * lmm * r.inv_st2 + lf * (lf - T(1))) * lam +
+                 T(2) * e * r.ct * r.inv_st2 * lam1) * r.notpole;
+      x = T(2) * nrm * T(m) * r.inv_st2 * (-(lf - T(1)) * r.ct * lam + e * lam1) *
+          r.notpole;
+    }
+    if (m == MP) {
+      w += hp * (r.pn + sgl * r.ps);
+      x += hp * (-r.pn + sgl * r.ps);
+    }
+  }
+  u[0] = w;
+  u[NFUN - 1] = x;
+}
+
+// Shared-memory staging of one chunk of LC degrees for the block's m rows.
+template <typename T, int C> struct Stage {
+  T a[LC][MY], b[LC][MY], e[LC][MY];
+  T nrm[LC], hp[LC];
+  T A[LC][MY][C];
+};
+
+// Stage a_lm, b_lm, e_lm, the degree norms (and A[l, m, :] when A is given)
+// for degrees l0 .. l0+LC-1 and the block's m rows; zero outside the table.
+// ab [3, nl, nm] holds a, b and e; lt [2, nl] the norms nrm and hp.
 template <typename T, int C>
 __device__ __forceinline__ void stage(const T* __restrict__ ab,
-                                      const T* __restrict__ A, T (*sa)[MY],
-                                      T (*sb)[MY], T (*sA)[MY][C], int l0,
-                                      int m0, int nl, int nm, int tid) {
+                                      const T* __restrict__ lt,
+                                      const T* __restrict__ A, Stage<T, C>& sm,
+                                      int l0, int m0, int nl, int nm, int tid) {
   for (int i = tid; i < LC * MY; i += NTHREADS) {
     const int li = i / MY, mi = i % MY, l = l0 + li, mm = m0 + mi;
     const bool ok = l < nl && mm < nm;
     const size_t lm = (size_t)l * nm + mm;
-    sa[li][mi] = ok ? ab[lm] : T(0);
-    sb[li][mi] = ok ? ab[(size_t)nl * nm + lm] : T(0);
+    const size_t nlm = (size_t)nl * nm;
+    sm.a[li][mi] = ok ? ab[lm] : T(0);
+    sm.b[li][mi] = ok ? ab[nlm + lm] : T(0);
+    if constexpr (MODE != SCALAR) sm.e[li][mi] = ok ? ab[2 * nlm + lm] : T(0);
     if (A != nullptr) {
 #pragma unroll
-      for (int c = 0; c < C; ++c) sA[li][mi][c] = ok ? A[lm * C + c] : T(0);
+      for (int c = 0; c < C; ++c) sm.A[li][mi][c] = ok ? A[lm * C + c] : T(0);
+    }
+  }
+  if constexpr (MODE != SCALAR) {
+    for (int i = tid; i < LC; i += NTHREADS) {
+      const int l = l0 + i;
+      sm.nrm[i] = l < nl ? lt[l] : T(0);
+      sm.hp[i] = l < nl ? lt[nl + l] : T(0);
     }
   }
 }
 
-// K1 (SYM) / K3: G[c, m, t] = sum_l lambda_lm(theta_t) A[l, m, c].
-// A [nl, nm, C]; ab [2, nl, nm]; cth, ctl [nt]; sv, sl [nm, nt].
-// Full: out [C, nm, nt]. SYM: theta holds the northern rings of a
-// south-symmetric ring set and out is [C, 2, nm, nt] with plane 1 the mirror
-// ring, from lambda_lm(pi - theta) = (-1)^(l+m) lambda_lm(theta).
+// K1 (SYM) / K3: G[f, c, m, t] = sum_l u_f(l, m, theta_t) A[l, m, c].
+// A [nl, nm, C]; ab [3, nl, nm]; lt [2, nl]; cth, ctl [nt]; rows [4, nt];
+// sv, sl [nm, nt]. Full: out [NFUN, C, nm, nt]. SYM: theta holds the
+// northern rings of a south-symmetric ring set and out is
+// [NFUN, C, 2, nm, nt] with plane 1 the mirror ring.
 template <typename T, int C, bool SYM>
 __global__ void __launch_bounds__(NTHREADS)
 synthesis_kernel(const T* __restrict__ A, const T* __restrict__ ab,
-                 const T* __restrict__ cth, const T* __restrict__ ctl,
+                 const T* __restrict__ lt, const T* __restrict__ cth,
+                 const T* __restrict__ ctl, const T* __restrict__ rows,
                  const T* __restrict__ sv, const int* __restrict__ sl,
                  T* __restrict__ out, int nl, int nm, int nt) {
-  __shared__ T sa[LC][MY];
-  __shared__ T sb[LC][MY];
-  __shared__ T sA[LC][MY][C];
+  __shared__ Stage<T, C> sm;
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
   const int t = blockIdx.x * TX + tx;
   const int m0 = blockIdx.y * MY, m = m0 + ty;
   const bool valid = t < nt && m < nm;
   const size_t mt = (size_t)m * nt + t;
-  const T x = valid ? cth[t] : T(0);
+  const Ring<T> r = load_ring(cth, rows, t, nt, valid);
   const T xlo = valid ? ctl[t] : T(0);
   const T seedv = valid ? sv[mt] : T(0);
   const int seedl = valid ? sl[mt] : 0;
   State<T> s{T(0), T(0), 0};
-  T accN[C], accS[C];
+  T accN[NFUN][C], accS[NFUN][C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) accN[c] = accS[c] = T(0);
+  for (int f = 0; f < NFUN; ++f)
+#pragma unroll
+    for (int c = 0; c < C; ++c) accN[f][c] = accS[f][c] = T(0);
   for (int l0 = m0; l0 < nl; l0 += LC) {
     __syncthreads();
-    stage<T, C>(ab, A, sa, sb, sA, l0, m0, nl, nm, tid);
+    stage<T, C>(ab, lt, A, sm, l0, m0, nl, nm, tid);
     __syncthreads();
     const int n = min(LC, nl - l0);
     for (int i = 0; i < n; ++i) {
       const int l = l0 + i;
-      const T lam = step(s, l, m, sa[i][ty], sb[i][ty], x, xlo, seedv, seedl);
+      T lam1;
+      const T lam = step(s, l, m, sm.a[i][ty], sm.b[i][ty], r.ct, xlo, seedv, seedl, lam1);
+      T u[NFUN];
+      mode_funcs(u, lam, lam1, l, m, sm.e[i][ty], sm.nrm[i], sm.hp[i], r);
       const bool odd = (l + m) & 1;
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const T v = lam * sA[i][ty][c];
-        accN[c] += v;
-        if (SYM) accS[c] += odd ? -v : v;
+      for (int f = 0; f < NFUN; ++f) {
+        // the mirror ring's sign, PSIGN[f] (-1)^(l+m)
+        const bool plus = (psign(f) > 0) != odd;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const T v = u[f] * sm.A[i][ty][c];
+          accN[f][c] += v;
+          if (SYM) accS[f][c] += plus ? v : -v;
+        }
       }
       if ((l & 7) == 7) rescale(s);
     }
@@ -178,31 +325,35 @@ synthesis_kernel(const T* __restrict__ A, const T* __restrict__ ab,
   if (!valid) return;
   const size_t plane = (size_t)nm * nt;
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    if (SYM) {
-      out[(size_t)(2 * c) * plane + mt] = accN[c];
-      out[(size_t)(2 * c + 1) * plane + mt] = accS[c];
-    } else {
-      out[(size_t)c * plane + mt] = accN[c];
+  for (int f = 0; f < NFUN; ++f)
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const size_t fc = (size_t)f * C + c;
+      if (SYM) {
+        out[(2 * fc) * plane + mt] = accN[f][c];
+        out[(2 * fc + 1) * plane + mt] = accS[f][c];
+      } else {
+        out[fc * plane + mt] = accN[f][c];
+      }
     }
-  }
 }
 
 // K2 (SYM) / K4: part[g, l, m, c] += sum over the rings t of the tiles of
-// plane g of lambda_lm(theta_t) F[c, m, t]. Full: F [C, nm, nt]. SYM: F is
-// [C, 2, nm, nt] with the even (north + south) and odd (north - south)
-// combinations on the northern rings; (l, m) takes the even plane when
-// l + m is even. part [gridDim.x, nl, nm, C] must be zero on entry.
+// plane g of sum_f u_f(l, m, theta_t) F[f, c, m, t]. Full: F [NFUN, C, nm, nt].
+// SYM: F is [NFUN, C, 2, nm, nt] with the even (north + south) and odd
+// (north - south) combinations on the northern rings; function f of (l, m)
+// takes the even plane where PSIGN[f] (-1)^(l+m) = +1. part
+// [gridDim.x, nl, nm, C] must be zero on entry.
 template <typename T, int C, bool SYM>
 __global__ void __launch_bounds__(NTHREADS)
 analysis_kernel(const T* __restrict__ F, const T* __restrict__ ab,
-                const T* __restrict__ cth, const T* __restrict__ ctl,
+                const T* __restrict__ lt, const T* __restrict__ cth,
+                const T* __restrict__ ctl, const T* __restrict__ rows,
                 const T* __restrict__ sv, const int* __restrict__ sl,
                 T* __restrict__ part, int nl, int nm, int nt, int ntiles) {
   constexpr int NW = NTHREADS / 32;  // warps per block
   constexpr int WPR = TX / 32;       // warps per m row
-  __shared__ T sa[LC][MY];
-  __shared__ T sb[LC][MY];
+  __shared__ Stage<T, 1> sm;          // A is not staged: C = 1 keeps it small
   __shared__ T red[NW][LC][C];
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
   const int lane = tid & 31, warp = tid >> 5;
@@ -213,34 +364,44 @@ analysis_kernel(const T* __restrict__ F, const T* __restrict__ ab,
     const int t = tile * TX + tx;
     const bool valid = t < nt && m < nm;
     const size_t mt = (size_t)m * nt + t;
-    const T x = valid ? cth[t] : T(0);
+    const Ring<T> r = load_ring(cth, rows, t, nt, valid);
     const T xlo = valid ? ctl[t] : T(0);
     const T seedv = valid ? sv[mt] : T(0);
     const int seedl = valid ? sl[mt] : 0;
-    T fE[C], fO[C];
+    T fE[NFUN][C], fO[NFUN][C];
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      if (SYM) {
-        fE[c] = valid ? F[(size_t)(2 * c) * plane + mt] : T(0);
-        fO[c] = valid ? F[(size_t)(2 * c + 1) * plane + mt] : T(0);
-      } else {
-        fE[c] = valid ? F[(size_t)c * plane + mt] : T(0);
-        fO[c] = fE[c];
+    for (int f = 0; f < NFUN; ++f)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const size_t fc = (size_t)f * C + c;
+        if (SYM) {
+          fE[f][c] = valid ? F[(2 * fc) * plane + mt] : T(0);
+          fO[f][c] = valid ? F[(2 * fc + 1) * plane + mt] : T(0);
+        } else {
+          fE[f][c] = valid ? F[fc * plane + mt] : T(0);
+          fO[f][c] = fE[f][c];
+        }
       }
-    }
     State<T> s{T(0), T(0), 0};
     for (int l0 = m0; l0 < nl; l0 += LC) {
       __syncthreads();
-      stage<T, C>(ab, nullptr, sa, sb, nullptr, l0, m0, nl, nm, tid);
+      stage<T, 1>(ab, lt, nullptr, sm, l0, m0, nl, nm, tid);
       __syncthreads();
       const int n = min(LC, nl - l0);
       for (int i = 0; i < n; ++i) {
         const int l = l0 + i;
-        const T lam = step(s, l, m, sa[i][ty], sb[i][ty], x, xlo, seedv, seedl);
+        T lam1;
+        const T lam = step(s, l, m, sm.a[i][ty], sm.b[i][ty], r.ct, xlo, seedv, seedl, lam1);
+        T u[NFUN];
+        mode_funcs(u, lam, lam1, l, m, sm.e[i][ty], sm.nrm[i], sm.hp[i], r);
         const bool odd = (l + m) & 1;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          const T v = warp_sum(lam * (odd ? fO[c] : fE[c]));
+          T tot = T(0);
+#pragma unroll
+          for (int f = 0; f < NFUN; ++f)
+            tot += u[f] * (((psign(f) > 0) != odd) ? fE[f][c] : fO[f][c]);
+          const T v = warp_sum(tot);
           if (lane == 0) red[warp][i][c] = v;
         }
         if ((l & 7) == 7) rescale(s);
@@ -249,7 +410,7 @@ analysis_kernel(const T* __restrict__ F, const T* __restrict__ ab,
       // sum the warps of each m row; the same thread owns the same
       // (l, m, c) entry in every tile, so the += needs no atomics
       for (int i = tid; i < n * MY * C; i += NTHREADS) {
-        const int li = i / (MY * C), r = i % (MY * C), mi = r / C, c = r % C;
+        const int li = i / (MY * C), rr = i % (MY * C), mi = rr / C, c = rr % C;
         const int mm = m0 + mi;
         if (mm >= nm) continue;
         T v = T(0);
@@ -261,25 +422,27 @@ analysis_kernel(const T* __restrict__ F, const T* __restrict__ ab,
   }
 }
 
+#define KERNEL_ARGS(T)                                                           \
+  static_cast<const T*>(ab), static_cast<const T*>(lt),                          \
+      static_cast<const T*>(cth), static_cast<const T*>(ctl),                    \
+      static_cast<const T*>(rows), static_cast<const T*>(sv),                    \
+      static_cast<const int*>(sl)
+
 template <typename T, bool SYM>
-int launch_synthesis(int C, const void* A, const void* ab, const void* cth,
-                     const void* ctl, const void* sv, const void* sl, void* out,
-                     int nl, int nm, int nt, cudaStream_t st) {
+int launch_synthesis(int C, const void* A, const void* ab, const void* lt,
+                     const void* cth, const void* ctl, const void* rows,
+                     const void* sv, const void* sl, void* out, int nl, int nm,
+                     int nt, cudaStream_t st) {
   const dim3 block(TX, MY), grid((nt + TX - 1) / TX, (nm + MY - 1) / MY);
   if (grid.x == 0 || grid.y == 0 || nl == 0) return 0;
   const T* a = static_cast<const T*>(A);
-  const T* t = static_cast<const T*>(ab);
-  const T* h = static_cast<const T*>(cth);
-  const T* lo = static_cast<const T*>(ctl);
-  const T* v = static_cast<const T*>(sv);
-  const int* lv = static_cast<const int*>(sl);
   T* o = static_cast<T*>(out);
   switch (C) {
-    case 1:
-      synthesis_kernel<T, 1, SYM><<<grid, block, 0, st>>>(a, t, h, lo, v, lv, o, nl, nm, nt);
-      break;
     case 2:
-      synthesis_kernel<T, 2, SYM><<<grid, block, 0, st>>>(a, t, h, lo, v, lv, o, nl, nm, nt);
+      synthesis_kernel<T, 2, SYM><<<grid, block, 0, st>>>(a, KERNEL_ARGS(T), o, nl, nm, nt);
+      break;
+    case 4:
+      synthesis_kernel<T, 4, SYM><<<grid, block, 0, st>>>(a, KERNEL_ARGS(T), o, nl, nm, nt);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -288,26 +451,22 @@ int launch_synthesis(int C, const void* A, const void* ab, const void* cth,
 }
 
 template <typename T, bool SYM>
-int launch_analysis(int C, const void* F, const void* ab, const void* cth,
-                    const void* ctl, const void* sv, const void* sl, void* part,
-                    int nl, int nm, int nt, int nplanes, cudaStream_t st) {
+int launch_analysis(int C, const void* F, const void* ab, const void* lt,
+                    const void* cth, const void* ctl, const void* rows,
+                    const void* sv, const void* sl, void* part, int nl, int nm,
+                    int nt, int nplanes, cudaStream_t st) {
   const int ntiles = (nt + TX - 1) / TX;
   const dim3 block(TX, MY), grid(nplanes, (nm + MY - 1) / MY);
   if (ntiles == 0 || grid.y == 0 || nl == 0) return 0;
   if (nplanes < 1 || nplanes > ntiles) return (int)cudaErrorInvalidValue;
   const T* f = static_cast<const T*>(F);
-  const T* t = static_cast<const T*>(ab);
-  const T* h = static_cast<const T*>(cth);
-  const T* lo = static_cast<const T*>(ctl);
-  const T* v = static_cast<const T*>(sv);
-  const int* lv = static_cast<const int*>(sl);
   T* p = static_cast<T*>(part);
   switch (C) {
-    case 1:
-      analysis_kernel<T, 1, SYM><<<grid, block, 0, st>>>(f, t, h, lo, v, lv, p, nl, nm, nt, ntiles);
-      break;
     case 2:
-      analysis_kernel<T, 2, SYM><<<grid, block, 0, st>>>(f, t, h, lo, v, lv, p, nl, nm, nt, ntiles);
+      analysis_kernel<T, 2, SYM><<<grid, block, 0, st>>>(f, KERNEL_ARGS(T), p, nl, nm, nt, ntiles);
+      break;
+    case 4:
+      analysis_kernel<T, 4, SYM><<<grid, block, 0, st>>>(f, KERNEL_ARGS(T), p, nl, nm, nt, ntiles);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -317,29 +476,34 @@ int launch_analysis(int C, const void* F, const void* ab, const void* cth,
 
 }  // namespace
 
-// f64 selects the double instantiation; C (1 or 2) is the coefficient count.
-#define SYNTH_ENTRY(NAME, SYM)                                                 \
-  extern "C" int NAME(int f64, int C, const void* A, const void* ab,           \
-                      const void* cth, const void* ctl, const void* sv,        \
-                      const void* sl, void* out, int nl, int nm, int nt,       \
-                      void* stream) {                                          \
-    cudaStream_t st = static_cast<cudaStream_t>(stream);                       \
-    return f64 ? launch_synthesis<double, SYM>(C, A, ab, cth, ctl, sv, sl, out, \
-                                               nl, nm, nt, st)                 \
-               : launch_synthesis<float, SYM>(C, A, ab, cth, ctl, sv, sl, out,  \
-                                              nl, nm, nt, st);                 \
+// f64 selects the double instantiation; C (2 or 4) is the coefficient
+// count: a block's columns are (re, im) pairs, so C is always even. The
+// entry points are named pt_<kernel>_<mode>.
+#define SYNTH_ENTRY(NAME, SYM)                                                  \
+  extern "C" int PT_ENTRY(NAME)(int f64, int C, const void* A, const void* ab,  \
+                                const void* lt, const void* cth,                \
+                                const void* ctl, const void* rows,              \
+                                const void* sv, const void* sl, void* out,      \
+                                int nl, int nm, int nt, void* stream) {         \
+    cudaStream_t st = static_cast<cudaStream_t>(stream);                        \
+    return f64 ? launch_synthesis<double, SYM>(C, A, ab, lt, cth, ctl, rows, sv, \
+                                               sl, out, nl, nm, nt, st)         \
+               : launch_synthesis<float, SYM>(C, A, ab, lt, cth, ctl, rows, sv,  \
+                                              sl, out, nl, nm, nt, st);         \
   }
 
-#define ANAL_ENTRY(NAME, SYM)                                                  \
-  extern "C" int NAME(int f64, int C, const void* F, const void* ab,           \
-                      const void* cth, const void* ctl, const void* sv,        \
-                      const void* sl, void* part, int nl, int nm, int nt,      \
-                      int nplanes, void* stream) {                             \
-    cudaStream_t st = static_cast<cudaStream_t>(stream);                       \
-    return f64 ? launch_analysis<double, SYM>(C, F, ab, cth, ctl, sv, sl, part, \
-                                              nl, nm, nt, nplanes, st)         \
-               : launch_analysis<float, SYM>(C, F, ab, cth, ctl, sv, sl, part,  \
-                                             nl, nm, nt, nplanes, st);         \
+#define ANAL_ENTRY(NAME, SYM)                                                   \
+  extern "C" int PT_ENTRY(NAME)(int f64, int C, const void* F, const void* ab,  \
+                                const void* lt, const void* cth,                \
+                                const void* ctl, const void* rows,              \
+                                const void* sv, const void* sl, void* part,     \
+                                int nl, int nm, int nt, int nplanes,            \
+                                void* stream) {                                 \
+    cudaStream_t st = static_cast<cudaStream_t>(stream);                        \
+    return f64 ? launch_analysis<double, SYM>(C, F, ab, lt, cth, ctl, rows, sv,  \
+                                              sl, part, nl, nm, nt, nplanes, st) \
+               : launch_analysis<float, SYM>(C, F, ab, lt, cth, ctl, rows, sv,   \
+                                             sl, part, nl, nm, nt, nplanes, st); \
   }
 
 SYNTH_ENTRY(pt_sym_synthesis, true)
@@ -348,4 +512,4 @@ ANAL_ENTRY(pt_sym_analysis, true)
 ANAL_ENTRY(pt_full_analysis, false)
 
 // Kernel tile sizes, so the host can size the partial planes.
-extern "C" int pt_tile_theta() { return TX; }
+extern "C" int PT_ENTRY(pt_tile_theta)() { return TX; }

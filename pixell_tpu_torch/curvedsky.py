@@ -1,17 +1,20 @@
-"""Curved-sky harmonic analysis on ndmaps, spin 0 (counterpart of
-pixell_tpu/curvedsky.py).
+"""Curved-sky harmonic analysis on ndmaps, spin 0, 1 and 2 and
+derivatives (counterpart of pixell_tpu/curvedsky.py).
 
 Ports the map-level SHT path: alm_info (pixell_tpu/curvedsky.py:38),
 analyse_geometry (:327), ring reorientation (:400-419), alm2map (:505) and
-map2alm (:614) with the niter Jacobi loop and the exact 2d phase path
-(_analysis_linear :686-797, weighted, non-mesh), plus rand_alm (:253-302),
-alm2cl (:132) and almxfl (:160).
+map2alm (:614) with deriv=, the niter Jacobi loop and the exact 2d phase
+path (_analysis_linear :686-797, weighted, non-mesh), plus rand_alm
+(:253-302), rand_map (:304), get_lmax_from_map (:317), alm2cl (:132) and
+almxfl (:160).
 
-accuracy="high" runs the Legendre recurrence in float64 whatever the map's
-dtype. Theta banding (SYNTH_BAND_BYTES) is not ported: it was sized for a
-16 GB chip. Not ported yet, and raising NotImplementedError: spin != 0,
-deriv, adjoint, the "general" geometry method, map2alm on "cyl" geometries
-and mesh= (multi-device).
+The entry points that allocate (rand_alm, rand_alm_white, rand_map,
+prepare_alm) do so on device="cuda" unless told otherwise; alm2map and
+map2alm follow the map's device. accuracy="high" runs the Legendre
+recurrence in float64 whatever the map's dtype. Theta banding
+(SYNTH_BAND_BYTES) is not ported: it was sized for a 16 GB chip. Not ported
+yet, and raising NotImplementedError: spin > 2, adjoint, the "general"
+geometry method, map2alm on "cyl" geometries and mesh= (multi-device).
 """
 from __future__ import annotations
 import numpy as np
@@ -144,12 +147,12 @@ def _rand_alm_white_np(ainfo, pre, seed, dtype):
 	alm[..., i0] = alm[..., i0].real*np.sqrt(2)
 	return alm
 
-def rand_alm_white(ainfo, pre=None, seed=None, dtype=torch.complex128, device=None):
+def rand_alm_white(ainfo, pre=None, seed=None, dtype=torch.complex128, device="cuda"):
 	"""Unit-variance white alm [*pre, nelem] (pixell_tpu.curvedsky.rand_alm_white)."""
 	return torch.from_numpy(_rand_alm_white_np(ainfo, pre or (), seed, dtype)).to(device)
 
 def rand_alm(ps, ainfo=None, lmax=None, seed=None, dtype=torch.complex128,
-		return_ainfo=False, device=None):
+		return_ainfo=False, device="cuda"):
 	"""Gaussian alm with power spectrum ps [nl] or [ncomp, ncomp, nl]
 	(pixell_tpu.curvedsky.rand_alm)."""
 	ps = np.asarray(ps)
@@ -173,6 +176,21 @@ def rand_alm(ps, ainfo=None, lmax=None, seed=None, dtype=torch.complex128,
 	alm = np.ascontiguousarray(np.einsum("abi,bik->aik", Ll, av)).view(alm.dtype)[..., 0]
 	res = torch.from_numpy(alm[0] if oned else alm).to(device)
 	return (res, ainfo) if return_ainfo else res
+
+def rand_map(shape, wcs, ps, lmax=None, dtype=torch.float64, seed=None, spin=[0, 2],
+		method="auto", device="cuda"):
+	"""Random realization of ps directly in map space
+	(pixell_tpu.curvedsky.rand_map :304)."""
+	if lmax is None: lmax = get_lmax_from_map(Bunch(shape=shape, wcs=wcs))
+	cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+	alm = rand_alm(ps, lmax=lmax, seed=seed, dtype=cdt, device=device)
+	return alm2map(alm, enmap.zeros(shape, wcs, dtype, device), spin=spin, method=method)
+
+def get_lmax_from_map(m):
+	"""Nyquist-ish lmax for a cylindrical map geometry
+	(pixell_tpu.curvedsky.get_lmax_from_map :317)."""
+	res = np.min(np.abs(np.asarray(m.wcs.wcs.cdelt)))*utils.degree
+	return int(np.pi/res)
 
 
 # ---------------------------------------------------------------------------
@@ -251,13 +269,12 @@ def _leg_dtype(accuracy):
 		raise ValueError("accuracy must be None, 'fast', 'default' or 'high'")
 	return torch.float64 if accuracy == "high" else None
 
-def _not_ported(deriv=False, adjoint=False, mesh=None):
-	if deriv: raise NotImplementedError("deriv transforms are not ported yet")
+def _not_ported(adjoint=False, mesh=None):
 	if adjoint: raise NotImplementedError("adjoint transforms are not ported yet")
 	if mesh is not None: raise NotImplementedError("mesh= (multi-device) is not ported yet")
 
 
-def prepare_alm(alm=None, ainfo=None, lmax=None, pre=(), dtype=torch.float64, device=None):
+def prepare_alm(alm=None, ainfo=None, lmax=None, pre=(), dtype=torch.float64, device="cuda"):
 	"""Allocate alm (complex of dtype's precision) and get its layout info
 	(pixell_tpu.curvedsky.prepare_alm)."""
 	ctype = torch.complex64 if dtype in (torch.float32, torch.complex64) else torch.complex128
@@ -275,19 +292,25 @@ def alm2map(alm, map, spin=[0, 2], deriv=False, adjoint=False, copy=False,
 		method="auto", ainfo=None, pix_tol=1e-6, accuracy=None, mesh=None):
 	"""Spherical harmonic synthesis of alm [..., nalm] onto map's geometry
 	(pixell_tpu.curvedsky.alm2map :505). Writes the result into map (unless
-	copy) and returns it. accuracy="high" runs the recurrence in float64."""
-	_not_ported(deriv, adjoint, mesh)
+	copy) and returns it. With deriv, alm is [nalm] and map [2, ny, nx]
+	receives the gradient (d/ddec, d/dra). accuracy="high" runs the
+	recurrence in float64."""
+	_not_ported(adjoint, mesh)
 	alm = torch.as_tensor(alm, device=map.device)
 	if ainfo is None: ainfo = alm_info(nalm=alm.shape[-1])
 	minfo = analyse_geometry(map.shape, map.wcs, tol=pix_tol)
 	if method == "auto": method = minfo.case
 	if method not in ["2d", "cyl"]:
 		raise NotImplementedError("the '%s' geometry method is not ported yet" % method)
-	alm2 = alm if alm.ndim > 1 else alm[None]
+	alm2 = alm if (deriv or alm.ndim > 1) else alm[None]
 	d = sht.synthesis(alm2, minfo.theta, minfo.nphi, phi0=minfo.phi0,
-		lmax=ainfo.lmax, mmax=ainfo.mmax, spin=spin, map_dtype=map.dtype,
+		lmax=ainfo.lmax, mmax=ainfo.mmax, spin=spin, deriv=deriv, map_dtype=map.dtype,
 		leg_dtype=_leg_dtype(accuracy))
-	if alm.ndim == 1: d = d[..., 0, :, :]
+	if deriv:
+		# the engine gives (d/dtheta, d/dphi); the map holds (d/ddec, d/dra)
+		d = torch.stack([-d[..., 0, :, :], d[..., 1, :, :]], -3)
+	elif alm.ndim == 1:
+		d = d[..., 0, :, :]
 	d = _from_rings(d, minfo, map.shape[-1])
 	if copy: return enmap.ndmap(d, map.wcs)
 	map.data = d
@@ -299,35 +322,39 @@ def map2alm(map, alm=None, lmax=None, spin=[0, 2], deriv=False, adjoint=False,
 		accuracy=None, mesh=None):
 	"""Spherical harmonic analysis of map (pixell_tpu.curvedsky.map2alm :614):
 	exact quadrature on full-sky CC/F1 grids (theta-upsampled when the grid
-	is too coarse for lmax), refined by niter Jacobi iterations. Writes into
-	alm when given."""
-	_not_ported(deriv, adjoint, mesh)
+	is too coarse for lmax), refined by niter Jacobi iterations. With deriv,
+	map is the gradient [2, ny, nx] (d/ddec, d/dra) and the result one alm.
+	Writes into alm when given."""
+	_not_ported(adjoint, mesh)
 	if weights is not None: raise NotImplementedError("explicit weights are not ported yet")
-	out, ainfo = prepare_alm(alm, ainfo, lmax=lmax, pre=map.shape[:-2],
-		dtype=map.dtype, device=map.device)
+	out, ainfo = prepare_alm(alm, ainfo, lmax=lmax,
+		pre=map.shape[:-3] if deriv else map.shape[:-2], dtype=map.dtype, device=map.device)
 	minfo = analyse_geometry(map.shape, map.wcs, tol=pix_tol)
 	if method == "auto": method = minfo.case
 	if method != "2d":
 		raise NotImplementedError("map2alm on '%s' geometries is not ported yet" % method)
 	ldt = _leg_dtype(accuracy)
-	res = _analysis_2d(map.data, ainfo, minfo, spin, ldt)
+	res = _analysis_2d(map.data, ainfo, minfo, spin, deriv, ldt)
 	for it in range(niter):
 		approx = alm2map(res, enmap.zeros(map.shape, map.wcs, map.dtype, map.device),
-			spin=spin, ainfo=ainfo, accuracy=accuracy)
-		res = res + _analysis_2d(map.data - approx.data, ainfo, minfo, spin, ldt)
+			spin=spin, deriv=deriv, ainfo=ainfo, accuracy=accuracy)
+		res = res + _analysis_2d(map.data - approx.data, ainfo, minfo, spin, deriv, ldt)
 	if alm is None: return res.to(out.dtype)
 	out.copy_(res)
 	return out
 
 
-def _analysis_2d(arr, ainfo, minfo, spin, leg_dtype):
+def _analysis_2d(arr, ainfo, minfo, spin, deriv, leg_dtype):
 	"""map pixels -> alm on a 2d (full-sky quadrature) geometry
 	(pixell_tpu.curvedsky._analysis_linear, weighted phase path). Goes to
 	per-ring phases first, so the y padding, the exact theta upsample and the
 	quadrature run on the [nm]-wide spectrum and the ring FFT happens once."""
 	d = _to_rings(arr, minfo)
-	flat2d = d.ndim == 2
+	flat2d = (not deriv) and d.ndim == 2
 	if flat2d: d = d[None]
+	if deriv:
+		# (d/ddec, d/dra) back to (d/dtheta, d/dphi) (alm2_pre :816)
+		d = torch.stack([-d[..., 0, :, :], d[..., 1, :, :]], -3)
 	ny, nphi = d.shape[-2:]
 	ntfull = ny + minfo.ypad[0] + minfo.ypad[1]
 	F = sht.ring_analysis(d, minfo.phi0, ainfo.mmax+1)
@@ -337,10 +364,11 @@ def _analysis_2d(arr, ainfo, minfo, spin, leg_dtype):
 	if need > ntfull:
 		# a 2-3-5-7-smooth ring count keeps the torus FFT off Bluestein
 		ntu = enfft.fft_len(need + 2, direction="above")
-		F = sht.resample_theta_phase(F, minfo.variant, ntu, _comp_spins(spin, d.shape[-3]))
+		spins = [1, 0] if deriv else _comp_spins(spin, d.shape[-3])
+		F = sht.resample_theta_phase(F, minfo.variant, ntu, spins)
 		ntfull = ntu
 	theta_f = sht.ring_theta(minfo.variant, ntfull)
 	w = sht.ring_weights(minfo.variant, ntfull)
 	a = sht.analysis_phase(F, theta_f, ainfo.lmax, w, nphi, mmax=ainfo.mmax,
-		spin=spin, leg_dtype=leg_dtype)
+		spin=spin, deriv=deriv, leg_dtype=leg_dtype)
 	return a[..., 0, :] if flat2d else a

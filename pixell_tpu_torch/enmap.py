@@ -2,7 +2,8 @@
 pixell_tpu/enmap.py).
 
 Ports the core the curved-sky SHT path needs: the ndmap container
-(pixell_tpu/enmap.py:33), zeros/empty with an explicit device, samewcs
+(pixell_tpu/enmap.py:33), zeros/empty (on device="cuda" unless told
+otherwise; with no CUDA device they raise), samewcs
 (:319), pix2sky (:418), posaxes (:452) and fullsky_geometry (:1029).
 Geometry maths is host numpy; only the pixel data lives in a tensor.
 """
@@ -55,11 +56,11 @@ def samewcs(arr, *args):
 	return arr
 
 
-def zeros(shape, wcs=None, dtype=torch.float64, device=None):
+def zeros(shape, wcs=None, dtype=torch.float64, device="cuda"):
 	if wcs is None: wcs = wcsutils.WCS(naxis=2)
 	return ndmap(torch.zeros(shape, dtype=dtype, device=device), wcs)
 
-def empty(shape, wcs=None, dtype=torch.float64, device=None):
+def empty(shape, wcs=None, dtype=torch.float64, device="cuda"):
 	if wcs is None: wcs = wcsutils.WCS(naxis=2)
 	return ndmap(torch.empty(shape, dtype=dtype, device=device), wcs)
 

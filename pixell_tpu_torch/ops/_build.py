@@ -1,10 +1,12 @@
 """Build and load the CUDA kernels of pixell_tpu_torch/csrc.
 
-At first use, nvcc compiles every csrc/*.cu into one shared library with a
-plain C interface, in build/pixell_tpu_torch/<hash of sources and flags>/
-beside the package, and ctypes loads it. A changed source builds into a new
-directory; an unchanged one is reused. There is no fallback: a missing nvcc
-or a failed build raises.
+At first use, nvcc compiles every csrc/*.cu into an object -- legendre.cu
+once per Legendre mode (-DLEGENDRE_MODE=0..3) -- with all compilers started
+together, and links the objects into one shared library with a plain C
+interface, in build/pixell_tpu_torch/<hash of sources and flags>/ beside the
+package; ctypes loads it. A changed source builds into a new directory; an
+unchanged one is reused. There is no fallback: a missing nvcc or a failed
+build raises.
 """
 from __future__ import annotations
 import ctypes
@@ -18,7 +20,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pixell_tpu_torch"
 # no --use_fast_math: the recurrence needs correctly rounded arithmetic
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-	"-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+	"-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# sources compiled more than once, with these extra flags each time
+VARIANTS = {"legendre.cu": [["-DLEGENDRE_MODE=%d" % k] for k in range(4)]}
 
 
 def _sources():
@@ -28,6 +32,7 @@ def _sources():
 def build_dir():
 	"""The build directory for the current sources and flags."""
 	h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+	h.update(repr(sorted(VARIANTS.items())).encode())
 	for p in sorted(CSRC.iterdir()):
 		h.update(p.name.encode()); h.update(p.read_bytes())
 	return BUILD_ROOT / h.hexdigest()[:16]
@@ -39,19 +44,42 @@ def _nvcc():
 	raise RuntimeError("nvcc not found: the pixell_tpu_torch CUDA kernels cannot be built")
 
 
+def compile_commands(d, nvcc):
+	"""[(object path, nvcc command)] for every object of the library."""
+	out = []
+	for src in _sources():
+		for i, extra in enumerate(VARIANTS.get(src.name, [[]])):
+			obj = d/("%s.%d.o" % (src.stem, i))
+			out.append((obj, [nvcc] + NVCC_FLAGS + extra + ["-c", "-o", str(obj), str(src)]))
+	return out
+
+
 def load():
 	"""Build the kernel library if needed and return it as a ctypes.CDLL.
-	The compiler's output, including the per-kernel register and shared
+	The compilers' output, including the per-kernel register and shared
 	memory use that -Xptxas -v reports, is kept in build.log beside it."""
 	d = build_dir()
-	lib = d/"liblegendre.so"
+	lib = d/"libpixell_kernels.so"
 	if not lib.exists():
 		d.mkdir(parents=True, exist_ok=True)
-		tmp = d/("liblegendre.%d.so" % os.getpid())
-		cmd = [_nvcc()] + NVCC_FLAGS + ["-o", str(tmp)] + [str(s) for s in _sources()]
-		r = subprocess.run(cmd, capture_output=True, text=True)
-		(d/"build.log").write_text(" ".join(cmd) + "\n" + r.stdout + r.stderr)
-		if r.returncode != 0:
-			raise RuntimeError("nvcc failed (%d):\n%s" % (r.returncode, r.stderr[-6000:]))
+		nvcc = _nvcc()
+		cmds = compile_commands(d, nvcc)
+		procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+			text=True) for _, cmd in cmds]
+		logs, failed = [], []
+		for (obj, cmd), p in zip(cmds, procs):
+			out, _ = p.communicate()
+			logs.append(" ".join(cmd) + "\n" + out)
+			if p.returncode != 0: failed.append(out)
+		if not failed:
+			tmp = d/("libpixell_kernels.%d.so" % os.getpid())
+			cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
+				str(tmp)] + [str(obj) for obj, _ in cmds]
+			r = subprocess.run(cmd, capture_output=True, text=True)
+			logs.append(" ".join(cmd) + "\n" + r.stdout + r.stderr)
+			if r.returncode != 0: failed.append(r.stderr)
+		(d/"build.log").write_text("\n".join(logs))
+		if failed:
+			raise RuntimeError("nvcc failed:\n%s" % failed[0][-6000:])
 		os.replace(tmp, lib)
 	return ctypes.CDLL(str(lib))

@@ -1,17 +1,21 @@
 """Plain PyTorch scaled Legendre recurrence: the twin of every Legendre kernel.
 
-Counterpart of pixell_tpu/ops/sht_core.py, scalar (spin-0) mode only.
-The normalized associated Legendre values lambda_lm(theta) are carried for
-all (m, theta) at once through the three-term l-recurrence in a scaled
-representation lambda = val * 2^(S*level), S = 850 (f64) / 60 (f32), so
-that lambda_mm ~ sin^m(theta) cannot underflow near the poles. Only levels
-0 and -1 can contribute above 2^-S, so unscaling is a three-way select.
+Counterpart of pixell_tpu/ops/sht_core.py (the Legendre modes; the Wigner
+engine for spin > 2 is not ported). The normalized associated Legendre
+values lambda_lm(theta) are carried for all (m, theta) at once through the
+three-term l-recurrence in a scaled representation
+lambda = val * 2^(S*level), S = 850 (f64) / 60 (f32), so that
+lambda_mm ~ sin^m(theta) cannot underflow near the poles. Only levels 0 and
+-1 can contribute above 2^-S, so unscaling is a three-way select.
 
-Engine contract (nfun = 1 in scalar mode):
-  synthesis_scan(A[nl,nm,C], theta[nt]) -> G[1,C,nm,nt],
-      G[0,c,m,t] = sum_l lambda_lm(theta_t) A[l,m,c]
-  analysis_scan(F[1,C,nm,nt], theta[nt]) -> A[nl,nm,C],
-      A[l,m,c] = sum_t lambda_lm(theta_t) F[0,c,m,t]
+Modes (pixell_tpu.ops.sht_core.MODES): "scalar" emits u_0 = lambda;
+"deriv" [lambda, d lambda/d theta]; "spin1" [w1, x1]; "spin2" [w2, x2],
+the theta-functions of spin-weighted harmonics, closed forms of
+(lambda_l, lambda_{l-1}) (see mode_funcs). Engine contract, nfun = NFUN[mode]:
+  synthesis_scan(A[nl,nm,C], theta[nt]) -> G[nfun,C,nm,nt],
+      G[f,c,m,t] = sum_l u_f(l,m,theta_t) A[l,m,c]
+  analysis_scan(F[nfun,C,nm,nt], theta[nt]) -> A[nl,nm,C],
+      A[l,m,c] = sum_f sum_t u_f(l,m,theta_t) F[f,c,m,t]
 
 This module is what the SHT runs on CPU tensors, and what every CUDA kernel
 in csrc/legendre.cu is held against on the card. It is written for clarity:
@@ -22,6 +26,12 @@ import numpy as np
 import torch
 
 LBLOCK = 8  # the state is renormalized after every LBLOCK l-steps (l % 8 == 7)
+
+MODES = {"scalar": 0, "deriv": 1, "spin1": 2, "spin2": 3}
+NFUN = {"scalar": 1, "deriv": 2, "spin1": 2, "spin2": 2}
+# Parity of each mode function under theta -> pi - theta
+# (pixell_tpu/ops/sht_pallas.py:61): u_f(pi - theta) = PSIGN[f] (-1)^(l+m) u_f(theta)
+PSIGN = {"scalar": (1,), "deriv": (1, -1), "spin1": (-1, 1), "spin2": (1, -1)}
 
 
 def scale_log2(dtype):
@@ -35,19 +45,41 @@ def _np_dtype(dtype):
 	return np.float64 if dtype == torch.float64 else np.float32
 
 
+def check_mode(mode):
+	if mode not in MODES:
+		raise ValueError("unknown Legendre mode '%s'" % mode)
+
+
 class Geom:
 	"""Per-ring tables of the recurrence, all on one device:
 	ct/ct_lo [nt] (two-part cos theta; ct_lo is zero in f64),
-	seed_val [nm, nt] and seed_level [nm, nt] int32, the scaled lambda_mm."""
-	def __init__(self, ct, ct_lo, seed_val, seed_level):
+	seed_val [nm, nt] and seed_level [nm, nt] int32, the scaled lambda_mm,
+	and rows [4, nt], the rows the spin/derivative modes need: ct_st =
+	cos/sin, inv_st = 1/sin, inv_st2 = 1/sin^2 (all zero on a pole ring)
+	and notpole (0 on a pole ring, else 1)."""
+	def __init__(self, ct, ct_lo, seed_val, seed_level, rows):
 		self.ct, self.ct_lo = ct, ct_lo
 		self.seed_val, self.seed_level = seed_val, seed_level
+		self.rows = rows
+		self.ct_st, self.inv_st, self.inv_st2, self.notpole = rows
 	@property
 	def dtype(self): return self.ct.dtype
 	@property
 	def nm(self): return self.seed_val.shape[0]
 	@property
 	def nt(self): return self.seed_val.shape[1]
+
+
+def _sin_theta(theta, dtype):
+	"""(sin theta clamped to >= 0, pole mask) in float64. Pole detection
+	covers the input dtype's rounding of theta: in f32, sin(fl32(pi)) =
+	-8.7e-8 -- a ring that close to a pole is AT it
+	(pixell_tpu.ops.sht_core._prepare_geom :115)."""
+	th = np.asarray(theta, np.float64)
+	eps_pole = 1e-12 if dtype == torch.float64 else 1e-6
+	st = np.sin(th)
+	pole = np.abs(st) < eps_pole
+	return np.where(pole, 0.0, np.maximum(st, 0.0)), pole
 
 
 def scaled_seeds(theta, mmax, dtype):
@@ -63,13 +95,8 @@ def scaled_seeds(theta, mmax, dtype):
 	cost about three digits in float32."""
 	S = scale_log2(dtype)
 	band, invband = 2.0**S, 2.0**-S
-	th = np.asarray(theta, np.float64)
-	# pole detection covers the input dtype's rounding of theta: in f32,
-	# sin(fl32(pi)) = -8.7e-8 -- a ring that close to a pole is AT it
-	eps_pole = 1e-12 if dtype == torch.float64 else 1e-6
-	st = np.sin(th)
-	st = np.where(np.abs(st) < eps_pole, 0.0, np.maximum(st, 0.0))
-	nm, nt = mmax + 1, th.shape[0]
+	st, _ = _sin_theta(theta, dtype)
+	nm, nt = mmax + 1, st.shape[0]
 	vals = np.empty((nm, nt)); levs = np.empty((nm, nt), np.int32)
 	val = np.ones(nt); lev = np.zeros(nt, np.int32)
 	vals[0] = val; levs[0] = lev
@@ -98,6 +125,19 @@ def ct_parts(theta, dtype):
 	return ct, lo
 
 
+def mode_rows(theta, dtype):
+	"""(ct_st, inv_st, inv_st2, notpole) numpy rows from float64 host sin and
+	cos, rounded once to dtype (pixell_tpu.ops.sht_core._prepare_geom
+	:116-133). The 1/sin factors are zeroed on pole rings, whose limits the
+	mode functions add separately."""
+	st, pole = _sin_theta(theta, dtype)
+	ct64 = np.cos(np.asarray(theta, np.float64))
+	st_safe = np.where(pole, 1.0, st)
+	rows = (ct64/st_safe, np.where(pole, 0.0, 1/st_safe),
+		np.where(pole, 0.0, 1/(st_safe*st_safe)), np.where(pole, 0.0, 1.0))
+	return tuple(r.astype(_np_dtype(dtype)) for r in rows)
+
+
 def prepare_geom(theta, mmax, dtype, device=None):
 	"""Recurrence tables for concrete float64 ring colatitudes theta
 	(pixell_tpu.ops.sht_core._prepare_geom :100), built on the host and
@@ -107,16 +147,17 @@ def prepare_geom(theta, mmax, dtype, device=None):
 	ct, lo = ct_parts(theta, dtype)
 	sv, sl = scaled_seeds(theta, mmax, dtype)
 	f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-	return Geom(f(ct), f(lo), f(sv), f(sl))
+	return Geom(f(ct), f(lo), f(sv), f(sl), f(np.stack(mode_rows(theta, dtype))))
 
 
 def recur_ab(l, marr):
-	"""Recurrence coefficients a_lm, b_lm for degree l (a Python int) and the
-	m values marr, in marr's dtype (pixell_tpu/ops/sht_core.py:262-265):
+	"""Recurrence coefficients a_lm, b_lm for degree l (a Python int or a
+	tensor of degrees broadcasting against marr) and the m values marr, in
+	marr's dtype (pixell_tpu/ops/sht_core.py:262-265):
 	lambda_l = a ((cos theta) lambda_{l-1} - b lambda_{l-2}). Differences
 	are FACTORED ((l-m)(l+m)) to dodge the l^2 - m^2 cancellation; the
 	clamps keep rows with l < m finite and their state exactly 0."""
-	lf = torch.tensor(float(l), dtype=marr.dtype, device=marr.device)
+	lf = torch.as_tensor(l, dtype=marr.dtype, device=marr.device)
 	a = torch.sqrt(torch.clamp((2*lf - 1)*(2*lf + 1), min=0.0)
 		/ torch.clamp((lf - marr)*(lf + marr), min=0.25))
 	b = torch.sqrt(torch.clamp((lf - 1 - marr)*(lf - 1 + marr), min=0.0)
@@ -124,10 +165,78 @@ def recur_ab(l, marr):
 	return a, b
 
 
-def _scan(g, lmax, A=None, F=None):
-	"""The scaled recurrence over l = 0..lmax (pixell_tpu.ops.sht_core._scan_core
-	:221, scalar mode). Synthesis when A [nl, nm, C] is given (returns
-	[C, nm, nt]), else analysis of F [C, nm, nt] (returns [nl, nm, C])."""
+def recur_e(l, marr):
+	"""e_lm = sqrt((l^2 - m^2)(2l+1)/(2l-1)) of the mode functions, in marr's
+	dtype, zero for l < m (pixell_tpu/ops/sht_core.py:174). The difference
+	is FACTORED as (l-m)(l+m): the reference's f32 l*l - m*m is exact only
+	while l*l < 2^24, so the two give identical numbers up to l = 4096 and
+	the factored form stays within one rounding above it."""
+	lf = torch.as_tensor(l, dtype=marr.dtype, device=marr.device)
+	return torch.sqrt(torch.clamp((lf - marr)*(lf + marr)*(2*lf + 1), min=0.0)
+		/ torch.clamp(2*lf - 1, min=1.0))
+
+
+def l_norms(mode, l):
+	"""Per-degree factors (nrm, hp) of the mode functions for the degrees l
+	(a float tensor): nrm is sqrt(l(l+1)) for deriv, 1/sqrt(l(l+1)) for
+	spin1 and 1/sqrt((l-1)l(l+1)(l+2)) for spin2, each clamped as in
+	pixell_tpu/ops/sht_core.py:189-206; hp = sqrt((2l+1)/4pi)/2 weighs the
+	pole-row limits."""
+	if mode == "deriv":
+		nrm = torch.sqrt(torch.clamp(l*(l + 1), min=0.0))
+	elif mode == "spin1":
+		nrm = 1/torch.sqrt(torch.clamp(l*(l + 1), min=1.0))
+	else:
+		nrm = 1/torch.sqrt(torch.clamp((l - 1)*l*(l + 1)*(l + 2), min=1.0))
+	return nrm, torch.sqrt((2*l + 1)/(4*np.pi))/2
+
+
+def mode_funcs(mode, l, marr, g, lam, lam1):
+	"""Mode functions u_f(l, m, theta) as [nm, nt] tensors from the true
+	lambda_l (lam) and lambda_{l-1} (lam1) (pixell_tpu.ops.sht_core.
+	_funcs_at_l :168):
+	  deriv: [lam, dlam],  dlam = (l cos lam - e lam1)/sin
+	  spin1: w1 = -N1 dlam,  x1 = N1 (m/sin) lam
+	  spin2: w2 = N2 (-(2(l - m^2)/sin^2 + l(l-1)) lam + 2 e cos/sin^2 lam1)
+	         x2 = 2 N2 (m/sin^2) (-(l-1) cos lam + e lam1)
+	The 1/sin terms are zeroed on pole rings and replaced by their limits,
+	which are nonzero only at m = 1 (deriv, spin1) and m = 2 (spin2)."""
+	if mode == "scalar": return [lam]
+	dt, dev = lam.dtype, lam.device
+	lf = torch.tensor(float(l), dtype=dt, device=dev)
+	e = recur_e(lf, marr)[:, None]
+	nrm, hp = l_norms(mode, lf)
+	ct, cts, ist, ist2, npole = g.ct, g.ct_st, g.inv_st, g.inv_st2, g.notpole
+	north = (1 - npole)*(ct > 0)
+	south = (1 - npole)*(ct < 0)
+	sgl = 1.0 if l % 2 == 0 else -1.0
+	msel = (marr == (2 if mode == "spin2" else 1))[:, None]
+	zero = torch.zeros((), dtype=dt, device=dev)
+	if mode == "deriv":
+		dlam = (lf*cts*lam - e*ist*lam1)*npole
+		if l >= 1:
+			dlam = dlam + torch.where(msel, -nrm*hp*(north + sgl*south), zero)
+		return [lam, dlam]
+	if l < (1 if mode == "spin1" else 2):
+		return [torch.zeros_like(lam), torch.zeros_like(lam)]
+	wp = torch.where(msel, hp*(north + sgl*south), zero)
+	xp = torch.where(msel, hp*(-north + sgl*south), zero)
+	mcol = marr[:, None]
+	if mode == "spin1":
+		w = -nrm*(lf*cts*lam - e*ist*lam1)*npole
+		x = nrm*mcol*ist*lam*npole
+	else:
+		# l - m^2 in integers, rounded once (exact in f32 while m^2 < 2^24)
+		lmm = (l - torch.arange(marr.shape[0], device=dev)**2).to(dt)[:, None]
+		w = nrm*(-(2*lmm*ist2 + lf*(lf - 1))*lam + 2*e*ct*ist2*lam1)*npole
+		x = 2*nrm*mcol*ist2*(-(lf - 1)*ct*lam + e*lam1)*npole
+	return [w + wp, x + xp]
+
+
+def lambdas(g, lmax):
+	"""The scaled recurrence over l = 0..lmax (pixell_tpu.ops.sht_core.
+	_scan_core :221): yields (l, lambda_l, lambda_{l-1}), the true
+	(unscaled) values as [nm, nt] tensors."""
 	dt, dev = g.dtype, g.ct.device
 	nm, nt = g.nm, g.nt
 	S = scale_log2(dt)
@@ -139,10 +248,6 @@ def _scan(g, lmax, A=None, F=None):
 	prev = torch.zeros((nm, nt), dtype=dt, device=dev)
 	curr = torch.zeros_like(prev)
 	lev = torch.zeros((nm, nt), dtype=torch.int32, device=dev)
-	if A is not None:
-		out = torch.zeros((A.shape[-1], nm, nt), dtype=dt, device=dev)
-	else:
-		out = torch.zeros((lmax + 1, nm, F.shape[0]), dtype=dt, device=dev)
 	for l in range(lmax + 1):
 		a, b = recur_ab(l, marr)
 		new = a[:, None]*((x*curr + xlo*curr) - b[:, None]*prev)
@@ -153,41 +258,46 @@ def _scan(g, lmax, A=None, F=None):
 			curr[l] = 0
 		# unscale: only levels 0 and -1 can contribute
 		fac = torch.where(lev == 0, one, torch.where(lev == -1, fac_m1, zero))
-		lam = new*fac
+		yield l, new*fac, curr*fac
 		prev, curr = curr, new
-		if A is not None:
-			out += lam[None]*A[l].T[:, :, None]
-		else:
-			out[l] = torch.einsum("mt,cmt->mc", lam, F)
 		if l % LBLOCK == LBLOCK - 1:
 			big = torch.abs(curr) > band
 			prev = torch.where(big, prev*invband, prev)
 			curr = torch.where(big, curr*invband, curr)
 			lev = lev + big.to(torch.int32)
+
+
+def synthesis(A, g, lmax, mode="scalar"):
+	"""G[f,c,m,t] = sum_l u_f(l,m,theta_t) A[l,m,c] on prepared geometry g:
+	A [nl, nm, C] -> [nfun, C, nm, nt]."""
+	check_mode(mode)
+	A = A.to(g.dtype)
+	marr = torch.arange(g.nm, dtype=g.dtype, device=g.ct.device)
+	out = torch.zeros((NFUN[mode], A.shape[-1], g.nm, g.nt), dtype=g.dtype, device=g.ct.device)
+	for l, lam, lam1 in lambdas(g, lmax):
+		for f, u in enumerate(mode_funcs(mode, l, marr, g, lam, lam1)):
+			out[f] += u[None]*A[l].T[:, :, None]
+	return out
+
+def analysis(F, g, lmax, mode="scalar"):
+	"""A[l,m,c] = sum_f sum_t u_f(l,m,theta_t) F[f,c,m,t] on prepared
+	geometry g: F [nfun, C, nm, nt] -> [nl, nm, C]."""
+	check_mode(mode)
+	F = F.to(g.dtype)
+	marr = torch.arange(g.nm, dtype=g.dtype, device=g.ct.device)
+	out = torch.zeros((lmax + 1, g.nm, F.shape[1]), dtype=g.dtype, device=g.ct.device)
+	for l, lam, lam1 in lambdas(g, lmax):
+		for f, u in enumerate(mode_funcs(mode, l, marr, g, lam, lam1)):
+			out[l] += torch.einsum("mt,cmt->mc", u, F[f])
 	return out
 
 
-def synthesis(A, g, lmax):
-	"""G[c,m,t] = sum_l lambda_lm(theta_t) A[l,m,c] on prepared geometry g."""
-	return _scan(g, lmax, A=A.to(g.dtype))
-
-def analysis(F, g, lmax):
-	"""A[l,m,c] = sum_t lambda_lm(theta_t) F[c,m,t] on prepared geometry g."""
-	return _scan(g, lmax, F=F.to(g.dtype))
-
-
-def _check_mode(mode):
-	if mode != "scalar":
-		raise NotImplementedError("only the scalar (spin-0) Legendre mode is ported")
-
 def synthesis_scan(A, theta, lmax, mmax, mode="scalar", dtype=torch.float64):
-	"""G[0,c,m,t] = sum_l lambda_lm(theta_t) A[l,m,c]
+	"""G[f,c,m,t] = sum_l u_f(l,m,theta_t) A[l,m,c]
 	(pixell_tpu.ops.sht_core.synthesis_scan :318)."""
-	_check_mode(mode)
-	return synthesis(A, prepare_geom(theta, mmax, dtype, A.device), lmax)[None]
+	return synthesis(A, prepare_geom(theta, mmax, dtype, A.device), lmax, mode)
 
 def analysis_scan(F, theta, lmax, mmax, mode="scalar", dtype=torch.float64):
-	"""A[l,m,c] = sum_t lambda_lm(theta_t) F[0,c,m,t]
+	"""A[l,m,c] = sum_f sum_t u_f(l,m,theta_t) F[f,c,m,t]
 	(pixell_tpu.ops.sht_core.analysis_scan :323)."""
-	_check_mode(mode)
-	return analysis(F[0], prepare_geom(theta, mmax, dtype, F.device), lmax)
+	return analysis(F, prepare_geom(theta, mmax, dtype, F.device), lmax, mode)

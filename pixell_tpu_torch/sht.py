@@ -1,5 +1,5 @@
-"""Ring-based spherical harmonic transforms, spin 0 (counterpart of
-pixell_tpu/sht.py).
+"""Ring-based spherical harmonic transforms, spin 0, 1 and 2 and
+derivatives (counterpart of pixell_tpu/sht.py).
 
 Maps are [..., nt, nphi] tensors with rings at colatitudes theta[nt], each
 sampled at phi_j = phi0 + 2 pi j/nphi. The Legendre stage is
@@ -9,7 +9,7 @@ ring stage is torch.fft.
 alm are triangular m-major (healpy-compatible): index = m(2 lmax+1-m)/2 + l.
 The rectangular [nl, nm] view is an index gather with cached index
 tensors; the reference's pad/reshape fold is a TPU-only design and is not
-ported. Only spin-0 components are supported; a spin != 0 block raises
+ported. Spin > 2 (the reference's Wigner-d engine) raises
 NotImplementedError.
 """
 from __future__ import annotations
@@ -177,7 +177,9 @@ def alm2coef(alm, lmax, mmax=None):
 
 
 def _spin_blocks(spin, ncomp):
-	"""(spin, first, last) component blocks (pixell_tpu.sht._spin_blocks)."""
+	"""(spin, first, last) component blocks (pixell_tpu.sht._spin_blocks
+	:599): a spin-0 block is one component, a spin-s block two. Spin > 2
+	raises NotImplementedError (the Wigner-d engine is not ported)."""
 	blocks = []
 	i = 0; si = 0
 	spins = np.atleast_1d(spin).astype(int)
@@ -185,15 +187,15 @@ def _spin_blocks(spin, ncomp):
 		s = int(spins[min(si, len(spins)-1)])
 		step = 1 if s == 0 else 2
 		if i + step > ncomp: step, s = ncomp - i, 0
+		if s > 2: raise NotImplementedError("spin > 2 (the Wigner-d engine) is not ported")
 		blocks.append((s, i, i+step))
 		i += step; si += 1
 	return blocks
 
-def _spin0_blocks(spin, ncomp):
-	blocks = _spin_blocks(spin, ncomp)
-	if any(s != 0 for s, _, _ in blocks):
-		raise NotImplementedError("only spin-0 transforms are ported")
-	return blocks
+
+def _mul_i(z):
+	"""i*z (pixell_tpu.sht._mul_i :405)."""
+	return torch.complex(-z.imag, z.real)
 
 
 def _leg_dtype(dtype, leg_dtype=None):
@@ -206,29 +208,47 @@ def _leg_dtype(dtype, leg_dtype=None):
 # Transforms. alm: [..., ncomp, nalm] complex; maps [..., ncomp, nt, nphi].
 # ---------------------------------------------------------------------------
 def synthesis(alm, theta, nphi, phi0=0.0, lmax=None, mmax=None, spin=(0, 2),
-		map_dtype=None, leg_dtype=None):
+		deriv=False, map_dtype=None, leg_dtype=None):
 	"""alm [..., ncomp, nalm] -> map [..., ncomp, nt, nphi]
-	(pixell_tpu.sht.synthesis :617, spin-0 blocks). leg_dtype sets the
-	recurrence dtype (default: the map's)."""
+	(pixell_tpu.sht.synthesis :617). If deriv, alm is [nalm] and the
+	output is [2, nt, nphi], the (d/dtheta, d/dphi) derivatives of the
+	scalar synthesis. leg_dtype sets the recurrence dtype (default: the
+	map's)."""
 	theta = np.asarray(theta, np.float64)
 	if lmax is None: lmax = nalm2lmax(alm.shape[-1])
 	if mmax is None: mmax = lmax
 	rdt = _RDTYPE[alm.dtype]
 	if map_dtype is None: map_dtype = rdt
 	ldt = _leg_dtype(map_dtype, leg_dtype)
+	if deriv:
+		A = _c2coef(alm2rect(alm, lmax, mmax)[..., None, :, :])    # [nl, nm, 2]
+		G = sht_cuda.synthesis_scan(A, theta, lmax, mmax, "deriv", dtype=ldt)
+		Gc = _coef2c(G.to(rdt), 1)[..., 0, :, :]                    # [2(fun), nm, nt]
+		m = torch.arange(mmax+1, dtype=rdt, device=alm.device)[:, None]
+		G_dp = _mul_i(m*Gc[0])
+		return ring_synthesis(torch.stack([Gc[1], G_dp]), phi0, nphi).to(map_dtype)
 	outs = []
-	for s, i1, i2 in _spin0_blocks(spin, alm.shape[-2]):
+	for s, i1, i2 in _spin_blocks(spin, alm.shape[-2]):
 		A = alm2coef(alm[..., i1:i2, :], lmax, mmax)         # [nl, nm, 2k]
-		G = sht_cuda.synthesis_scan(A, theta, lmax, mmax, dtype=ldt)
-		Gc = _coef2c(G.to(rdt), i2-i1)[0]                     # [k, nm, nt]
-		outs.append(ring_synthesis(Gc, phi0, nphi))
+		if s == 0:
+			G = sht_cuda.synthesis_scan(A, theta, lmax, mmax, "scalar", dtype=ldt)
+			Gc = _coef2c(G.to(rdt), i2-i1)[0]                 # [k, nm, nt]
+			outs.append(ring_synthesis(Gc, phi0, nphi))
+			continue
+		G = sht_cuda.synthesis_scan(A, theta, lmax, mmax, "spin%d" % s, dtype=ldt)
+		Gc = _coef2c(G.to(rdt), 2)                            # [2(fun), 2(EB), nm, nt]
+		# P1_m = -(w a_E + i x a_B), P2_m = -(w a_B - i x a_E)
+		P1 = -(Gc[0, 0] + _mul_i(Gc[1, 1]))
+		P2 = -(Gc[0, 1] - _mul_i(Gc[1, 0]))
+		outs.append(ring_synthesis(torch.stack([P1, P2]), phi0, nphi))
 	return torch.cat(outs, -3).to(map_dtype)
 
 
-def adjoint_synthesis_phase(F, theta, lmax, mmax=None, spin=(0, 2),
+def adjoint_synthesis_phase(F, theta, lmax, mmax=None, spin=(0, 2), deriv=False,
 		alm_dtype=None, rect_out=False, m_degeneracy=True, leg_dtype=None):
 	"""Transpose of synthesis from the per-ring phases F[..., ncomp, nm, nt]
-	(pixell_tpu.sht.adjoint_synthesis_phase :734, spin-0 block).
+	(pixell_tpu.sht.adjoint_synthesis_phase :734); with deriv, F is
+	[2, nm, nt] (d/dtheta, d/dphi) and the result one alm.
 	m_degeneracy=False skips the real-map m > 0 doubling (for quadrature
 	analysis); rect_out returns [..., ncomp, nl, nm] instead of alm."""
 	theta = np.asarray(theta, np.float64)
@@ -237,31 +257,46 @@ def adjoint_synthesis_phase(F, theta, lmax, mmax=None, spin=(0, 2),
 	ldt = _leg_dtype(rdt, leg_dtype)
 	cdt = _CDTYPE[rdt] if alm_dtype is None else alm_dtype
 	fac = torch.where(torch.arange(mmax+1, device=F.device) == 0, 1.0, 2.0).to(rdt)
+	def finish(rect):
+		if m_degeneracy: rect = rect*fac
+		return rect if rect_out else rect2alm(rect, lmax, mmax)
+	if deriv:
+		m = torch.arange(mmax+1, dtype=rdt, device=F.device)[:, None]
+		# transpose of G_dp = i m G_s: F_s = -i m F_dp
+		Fc = torch.stack([-_mul_i(m*F[1]), F[0]])[:, None]      # [2(fun), 1, nm, nt]
+		Fr = torch.cat([Fc.real, Fc.imag], -3)                   # [2(fun), 2, nm, nt]
+		A = sht_cuda.analysis_scan(Fr, theta, lmax, mmax, "deriv", dtype=ldt).to(rdt)
+		return finish(torch.complex(A[..., 0], A[..., 1])).to(cdt)
 	outs = []
-	for s, i1, i2 in _spin0_blocks(spin, F.shape[-3]):
+	for s, i1, i2 in _spin_blocks(spin, F.shape[-3]):
 		Fm = F[..., i1:i2, :, :]                              # [k, nm, nt]
 		k = i2 - i1
-		Fr = torch.stack([Fm.real, Fm.imag], -3)              # [k, 2, nm, nt]
-		Fr = Fr.reshape(Fr.shape[:-4] + (1, 2*k) + tuple(Fr.shape[-2:]))
-		A = sht_cuda.analysis_scan(Fr, theta, lmax, mmax, dtype=ldt).to(rdt)
+		if s == 0:
+			Fr = torch.stack([Fm.real, Fm.imag], -3)          # [k, 2, nm, nt]
+			Fr = Fr.reshape(Fr.shape[:-4] + (1, 2*k) + tuple(Fr.shape[-2:]))
+			A = sht_cuda.analysis_scan(Fr, theta, lmax, mmax, "scalar", dtype=ldt).to(rdt)
+		else:
+			Qf, Uf = Fm[0], Fm[1]
+			# a_E = -sum w Q - i sum x U ;  a_B = -sum w U + i sum x Q
+			Fc = torch.stack([torch.stack([-Qf, -Uf]), torch.stack([-_mul_i(Uf), _mul_i(Qf)])])
+			Fr = torch.stack([Fc.real[:, 0], Fc.imag[:, 0], Fc.real[:, 1], Fc.imag[:, 1]], 1)
+			A = sht_cuda.analysis_scan(Fr, theta, lmax, mmax, "spin%d" % s, dtype=ldt).to(rdt)
 		A = A.reshape(A.shape[:-1] + (k, 2))
-		rect = torch.complex(A[..., 0], A[..., 1]).movedim(-1, -3)   # [k, nl, nm]
-		if m_degeneracy: rect = rect*fac
-		outs.append(rect if rect_out else rect2alm(rect, lmax, mmax))
+		outs.append(finish(torch.complex(A[..., 0], A[..., 1]).movedim(-1, -3)))   # [k, nl, nm]
 	return torch.cat(outs, -3 if rect_out else -2).to(cdt)
 
 
-def adjoint_synthesis(maps, theta, lmax, mmax=None, phi0=0.0, spin=(0, 2),
+def adjoint_synthesis(maps, theta, lmax, mmax=None, phi0=0.0, spin=(0, 2), deriv=False,
 		alm_dtype=None, m_degeneracy=True, leg_dtype=None):
 	"""Exact transpose of synthesis: map -> alm, no quadrature weights
 	(pixell_tpu.sht.adjoint_synthesis :723)."""
 	if mmax is None: mmax = lmax
 	F = ring_analysis(maps, phi0, mmax+1)
-	return adjoint_synthesis_phase(F, theta, lmax, mmax=mmax, spin=spin,
+	return adjoint_synthesis_phase(F, theta, lmax, mmax=mmax, spin=spin, deriv=deriv,
 		alm_dtype=alm_dtype, m_degeneracy=m_degeneracy, leg_dtype=leg_dtype)
 
 
-def analysis(maps, theta, lmax, weights, mmax=None, phi0=0.0, spin=(0, 2),
+def analysis(maps, theta, lmax, weights, mmax=None, phi0=0.0, spin=(0, 2), deriv=False,
 		alm_dtype=None, leg_dtype=None):
 	"""Quadrature analysis: ring weights times 2 pi/nphi, then the transpose
 	of synthesis without the m > 0 doubling (pixell_tpu.sht.analysis :807).
@@ -270,10 +305,10 @@ def analysis(maps, theta, lmax, weights, mmax=None, phi0=0.0, spin=(0, 2),
 	w = torch.as_tensor(np.asarray(weights)*(2*np.pi/nphi), dtype=maps.dtype,
 		device=maps.device)
 	return adjoint_synthesis(maps*w[:, None], theta, lmax, mmax=mmax, phi0=phi0,
-		spin=spin, alm_dtype=alm_dtype, m_degeneracy=False, leg_dtype=leg_dtype)
+		spin=spin, deriv=deriv, alm_dtype=alm_dtype, m_degeneracy=False, leg_dtype=leg_dtype)
 
 
-def analysis_phase(F, theta, lmax, weights, nphi, mmax=None, spin=(0, 2),
+def analysis_phase(F, theta, lmax, weights, nphi, mmax=None, spin=(0, 2), deriv=False,
 		alm_dtype=None, leg_dtype=None):
 	"""Quadrature analysis from phase coefficients F[..., ncomp, nm, nt]
 	(pixell_tpu.sht.analysis_phase :835); nphi is the ring length F came
@@ -281,7 +316,7 @@ def analysis_phase(F, theta, lmax, weights, nphi, mmax=None, spin=(0, 2),
 	if mmax is None: mmax = lmax
 	w = torch.as_tensor(np.asarray(weights)*(2*np.pi/nphi), dtype=F.real.dtype,
 		device=F.device)
-	return adjoint_synthesis_phase(F*w, theta, lmax, mmax=mmax, spin=spin,
+	return adjoint_synthesis_phase(F*w, theta, lmax, mmax=mmax, spin=spin, deriv=deriv,
 		alm_dtype=alm_dtype, m_degeneracy=False, leg_dtype=leg_dtype)
 
 

@@ -86,7 +86,7 @@ def test_ndmap_container():
 	m = enmap.zeros(shape, w, dtype=torch.float32, device="cpu")
 	assert m.shape == shape and m.dtype == torch.float32 and m.device.type == "cpu"
 	assert enmap.samewcs(torch.ones(shape), m).wcs is w
-	e = enmap.empty((2,) + shape, w)
+	e = enmap.empty((2,) + shape, w, device="cpu")
 	assert e.shape == (2,) + shape and e.dtype == torch.float64
 	assert np.asarray(m).shape == shape
 	np.testing.assert_allclose(m.pix2sky(np.array([[0.0], [0.0]])),

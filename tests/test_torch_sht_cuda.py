@@ -44,15 +44,21 @@ def test_host_preparation_matches_reference():
 	assert sht_cuda.detect_sym(big) is None and jpallas._detect_sym(big) is None
 	# within one f32 ulp: torch's sqrt and divide round correctly, XLA's CPU
 	# f32 ones are off by one ulp on a few entries
-	ab = sht_cuda.recur_ab_tables(40, 33, torch.float32)
-	np.testing.assert_allclose(ab.numpy(), np.asarray(jpallas._recur_ab_tables(40, 33)),
+	ab = sht_cuda.coef_tables(40, 33, torch.float32)
+	np.testing.assert_allclose(ab[:2].numpy(), np.asarray(jpallas._recur_ab_tables(40, 33)),
 		rtol=1.2e-7, atol=0)
-	# the table and the plain scan's per-step coefficients are the same numbers
+	# the tables and the plain scan's per-step coefficients are the same numbers
 	marr = torch.arange(33, dtype=torch.float64)
-	ab64 = sht_cuda.recur_ab_tables(40, 33, torch.float64)
+	ab64 = sht_cuda.coef_tables(40, 33, torch.float64)
 	for l in (0, 1, 7, 39):
 		a, b = sht_core.recur_ab(l, marr)
 		assert torch.equal(ab64[0, l], a) and torch.equal(ab64[1, l], b)
+		assert torch.equal(ab64[2, l], sht_core.recur_e(l, marr))
+	for mode in ("deriv", "spin1", "spin2"):
+		lt = sht_cuda.l_tables(40, mode, torch.float64)
+		for l in (0, 1, 2, 39):
+			nrm, hp = sht_core.l_norms(mode, torch.tensor(float(l), dtype=torch.float64))
+			assert lt[0, l] == nrm and lt[1, l] == hp
 
 
 @pytest.mark.parametrize("rings", ["F1-even", "F1-odd", "CC", "asym"])
@@ -71,8 +77,8 @@ def test_dispatch_matches_reference(rings, monkeypatch):
 	a64 = np.asarray(jcore.analysis_scan(jnp.asarray(F), theta, lmax, mmax, dtype=np.float64))
 	before = dict(sht_cuda.LAUNCHES)
 	for dt, tol in [(torch.float64, 1e-10), (torch.float32, 2e-5)]:
-		G = sht_cuda.kernel_synthesis(torch.from_numpy(A), theta, lmax, mmax, dt)
-		a = sht_cuda.kernel_analysis(torch.from_numpy(F), theta, lmax, mmax, dt)
+		G = sht_cuda.kernel_synthesis(torch.from_numpy(A), theta, lmax, mmax, dtype=dt)
+		a = sht_cuda.kernel_analysis(torch.from_numpy(F), theta, lmax, mmax, dtype=dt)
 		assert G.shape == G64.shape and G.dtype == dt
 		assert a.shape == a64.shape and a.dtype == dt
 		assert np.abs(G.double().numpy() - G64).max() <= tol*np.abs(G64).max(), (rings, dt)
@@ -92,14 +98,14 @@ def test_polar_pass_is_float64(monkeypatch):
 	nt = len(theta)
 	rng = np.random.default_rng(2)
 	A = torch.from_numpy(rng.standard_normal((lmax + 1, mmax + 1, 2)))
-	G32 = sht_cuda.kernel_synthesis(A, theta, lmax, mmax, torch.float32)[0]
+	G32 = sht_cuda.kernel_synthesis(A, theta, lmax, mmax, dtype=torch.float32)[0]
 	G64 = sht_core.synthesis_scan(A, theta, lmax, mmax, dtype=torch.float64)[0]
 	bulk = sht_core.synthesis_scan(A, theta, lmax, mmax, dtype=torch.float32)[0]
 	pol = np.r_[0:nn, nt-ns:nt]
 	assert torch.equal(G32[:, :9][..., pol], G64[:, :9][..., pol].float())
 	assert torch.equal(G32[:, 9:], bulk[:, 9:])
 	F = torch.from_numpy(rng.standard_normal((1, 2, mmax + 1, nt)))
-	a32 = sht_cuda.kernel_analysis(F, theta, lmax, mmax, torch.float32)
+	a32 = sht_cuda.kernel_analysis(F, theta, lmax, mmax, dtype=torch.float32)
 	Fp = F.clone(); Fp[..., nn:nt-ns] = 0; Fp[:, :, 9:] = 0
 	Fb = F.clone(); Fb[..., pol] = 0
 	want = sht_core.analysis_scan(Fb, theta, lmax, mmax, dtype=torch.float32) \
@@ -118,8 +124,8 @@ def test_other_devices_raise():
 	with pytest.raises(RuntimeError, match="no Legendre kernel"):
 		sht_cuda.analysis_scan(F, theta, 4, 4)
 	g = sht_cuda.geom(theta, 4, torch.float32, "meta")
-	for name, x in [("full_synthesis", A), ("sym_synthesis", A), ("full_analysis", F[0]),
-			("sym_analysis", torch.zeros((2, 2, 5, len(theta)), device="meta"))]:
+	for name, x in [("full_synthesis", A), ("sym_synthesis", A), ("full_analysis", F),
+			("sym_analysis", torch.zeros((1, 2, 2, 5, len(theta)), device="meta"))]:
 		with pytest.raises(RuntimeError, match="no Legendre kernel"):
 			getattr(sht_cuda, name)(x, g, 4)
 
@@ -133,4 +139,108 @@ def test_wrapper_checks():
 		sht_cuda.full_synthesis(torch.zeros((6, 5, 2)), g, 4)
 	with pytest.raises(ValueError):
 		sht_cuda.full_analysis(torch.zeros((2, 5, 3)), g, 4)
+	with pytest.raises(ValueError):   # spin2 takes two mode functions
+		sht_cuda.full_analysis(torch.zeros((1, 4, 5, len(theta))), g, 4, mode="spin2")
+	with pytest.raises(ValueError):
+		sht_cuda.sym_synthesis(torch.zeros((5, 5, 4)), g, 4, mode="spin3")
 	assert sht_cuda.geom(theta, 4, torch.float32, "cpu") is g   # cached per ring set
+	assert sht_cuda._col_chunks(4) == [(0, 4)] and sht_cuda._col_chunks(6) == [(0, 4), (4, 6)]
+	with pytest.raises(ValueError):   # no kernel takes an odd column count
+		sht_cuda._col_chunks(7)
+
+
+@pytest.mark.parametrize("mode", ["deriv", "spin1", "spin2"])
+def test_dispatch_spin_modes(mode, monkeypatch):
+	"""The dispatch in modes deriv, spin1 and spin2 (C = 4 columns) with the
+	plain kernels, on every ring set, against pixell_tpu.ops.sht_core's
+	float64 scan, with POLAR_AMP lowered so that both the bulk and the
+	near-pole pass run. The inputs are independent random values on every
+	ring, so north != +-south and a wrong PSIGN in the half-sky E/O fold or
+	mirror cannot cancel. The reference runs once on the union of the ring
+	sets (the scan is per ring; the analysis is linear, so each set's is
+	the union's with F zero elsewhere). Bounds as
+	test_dispatch_matches_reference: 1e-10 (f64); 2e-5 (f32), measured
+	<= 3e-6 here because the near-pole rings run in float64."""
+	monkeypatch.setattr(sht_cuda, "POLAR_AMP", 4.0)
+	sets = ring_sets()
+	union = np.concatenate(list(sets.values()))
+	lmax, mmax, C = LMAX, LMAX - 2, 4
+	nfun = sht_core.NFUN[mode]
+	rng = np.random.default_rng(7)
+	A = rng.standard_normal((lmax + 1, mmax + 1, C))
+	Fu = rng.standard_normal((nfun, C, mmax + 1, len(union)))
+	Gu = np.asarray(jcore.synthesis_scan(jnp.asarray(A), union, lmax, mmax, mode=mode,
+		dtype=np.float64))
+	i0 = 0
+	for name, theta in sets.items():
+		sl = slice(i0, i0 + len(theta)); i0 += len(theta)
+		G64, F = Gu[..., sl], Fu[..., sl]
+		Fz = np.zeros_like(Fu); Fz[..., sl] = F
+		a64 = np.asarray(jcore.analysis_scan(jnp.asarray(Fz), union, lmax, mmax, mode=mode,
+			dtype=np.float64))
+		for dt, tol in [(torch.float64, 1e-10), (torch.float32, 2e-5)]:
+			G = sht_cuda.kernel_synthesis(torch.from_numpy(A), theta, lmax, mmax, mode, dt)
+			a = sht_cuda.kernel_analysis(torch.from_numpy(np.ascontiguousarray(F)), theta, lmax,
+				mmax, mode, dt)
+			assert G.shape == G64.shape == (nfun, C, mmax + 1, len(theta)) and G.dtype == dt
+			assert a.shape == a64.shape and a.dtype == dt
+			assert np.abs(G.double().numpy() - G64).max() <= tol*np.abs(G64).max(), (name, dt)
+			assert np.abs(a.double().numpy() - a64).max() <= tol*np.abs(a64).max(), (name, dt)
+	# the plain versions are not kernel launches
+	assert all(v == 0 for v in sht_cuda.LAUNCHES_BY_MODE.values())
+
+
+@pytest.mark.parametrize("mode", ["deriv", "spin1", "spin2"])
+def test_half_sky_parity(mode):
+	"""K1/K2's plain versions against the full-sky scan on the mirrored
+	rings: the mirror plane of K1 is the synthesis at pi - theta, and K2 of
+	the even/odd planes equals the full analysis of north and south rings
+	given separately -- on random, asymmetric values (float64, 1e-12: the
+	same recurrence, mirrored exactly)."""
+	lmax, mmax, C = 20, 17, 4
+	th = (np.arange(22) + 0.5)*np.pi/44          # northern rings only
+	full = np.concatenate([th, np.pi - th[::-1]])
+	nfun, nh = sht_core.NFUN[mode], len(th)
+	rng = np.random.default_rng(11)
+	A = torch.from_numpy(rng.standard_normal((lmax + 1, mmax + 1, C)))
+	gN = sht_cuda.geom(th, mmax, torch.float64, "cpu")
+	gF = sht_cuda.geom(full, mmax, torch.float64, "cpu")
+	pair = sht_cuda.sym_synthesis(A, gN, lmax, mode)
+	G = sht_cuda.full_synthesis(A, gF, lmax, mode)
+	assert pair.shape == (nfun, C, 2, mmax + 1, nh)
+	scale = float(G.abs().max())
+	assert float((pair[:, :, 0] - G[..., :nh]).abs().max()) <= 1e-12*scale
+	assert float((pair[:, :, 1] - G[..., nh:].flip(-1)).abs().max()) <= 1e-12*scale
+	F = torch.from_numpy(rng.standard_normal((nfun, C, mmax + 1, 2*nh)))
+	north, south = F[..., :nh], F[..., nh:].flip(-1)
+	EO = torch.stack([north + south, north - south], 2)
+	a = sht_cuda.sym_analysis(EO, gN, lmax, mode)
+	want = sht_cuda.full_analysis(F, gF, lmax, mode)
+	assert float((a - want).abs().max()) <= 1e-12*float(want.abs().max())
+
+
+def test_polar_pass_spin2(monkeypatch):
+	"""In spin2 mode, the f32 dispatch overwrites the near-pole rings
+	(m < POLAR_MMAX) of both mode functions with the float64 pass, and adds
+	the near-pole rings' analysis contribution from the float64 pass."""
+	monkeypatch.setattr(sht_cuda, "POLAR_AMP", 4.0)
+	monkeypatch.setattr(sht_cuda, "POLAR_MMAX", 9)
+	theta = ring_sets()["CC"]
+	lmax = mmax = LMAX
+	nn, ns = sht_cuda.polar_counts(theta, lmax)
+	nt = len(theta)
+	pol = np.r_[0:nn, nt-ns:nt]
+	rng = np.random.default_rng(3)
+	A = torch.from_numpy(rng.standard_normal((lmax + 1, mmax + 1, 4)))
+	G32 = sht_cuda.kernel_synthesis(A, theta, lmax, mmax, "spin2", torch.float32)
+	G64 = sht_core.synthesis_scan(A, theta, lmax, mmax, "spin2", dtype=torch.float64)
+	bulk = sht_core.synthesis_scan(A, theta, lmax, mmax, "spin2", dtype=torch.float32)
+	assert torch.equal(G32[..., :9, :][..., pol], G64[..., :9, :][..., pol].float())
+	assert torch.equal(G32[..., 9:, :], bulk[..., 9:, :])
+	F = torch.from_numpy(rng.standard_normal((2, 4, mmax + 1, nt)))
+	a32 = sht_cuda.kernel_analysis(F, theta, lmax, mmax, "spin2", torch.float32)
+	Fp = F.clone(); Fp[..., nn:nt-ns] = 0; Fp[..., 9:, :] = 0
+	Fb = F.clone(); Fb[..., pol] = 0
+	want = sht_core.analysis_scan(Fb, theta, lmax, mmax, "spin2", dtype=torch.float32) \
+		+ sht_core.analysis_scan(Fp, theta, lmax, mmax, "spin2", dtype=torch.float64).float()
+	assert torch.allclose(a32, want, rtol=0, atol=1e-5*float(want.abs().max()))
