@@ -6,7 +6,10 @@ Run from the repository root with no arguments:
 
 It builds the hand-written kernels from pixell_tpu_torch/csrc with nvcc
 (legendre.cu once per Legendre mode and fma_peak.cu, all compilers started
-together) and prints each kernel's registers and spills, then:
+together) and prints each kernel's registers and spills, then runs the
+phases below (all of them with no arguments; --phases with a choice of
+k9,kernels,lstop,slice,timing runs those alone, for work on one phase, and
+gives no verdict):
 
 1. K9 phase: the FMA-peak kernel against its plain PyTorch chain on a small
    grid (the kernel rounds once per step, the chain twice: within
@@ -28,7 +31,18 @@ together) and prints each kernel's registers and spills, then:
    plain version, and the library yardstick: one torch.bmm over m with a
    precomputed mode-function table [nm, nfun*nt, nl], checked against the
    plain version (1e-4 in f32, 1e-10 in f64); and it computes each
-   kernel's bound.
+   kernel's bound. K3 and K4 in the wigner mode (K7; spin 3, C = 4) run the
+   same checks at the shapes the spin [0, 3] roundtrip gives them: the
+   float32 bulk (751 m rows; 900 rings for synthesis, the 1512 upsampled
+   rings less the near-pole ones for analysis) with the dead-tile table,
+   which must mark dead tiles, and the float64 near-pole pass (128 m rows,
+   46 / 78 rings).
+   lstop: K3 and K4 in scalar and spin2 mode at the lmax-2000 float32
+   shapes (2001 m rows; the map's 2160 rings for K3, the first 2048
+   upsampled bulk rings for K4), launched with the dead-tile table and
+   without: the table must mark dead tiles, the two results differ by at
+   most 1e-9 (scalar) or 1e-7 (spin2) of the largest value, and both times
+   are printed.
 3. slice phase, through pixell_tpu_torch.curvedsky, each path driven with
    the launch counts set to 0 just before it and read just after:
    rand_alm -> alm2map -> map2alm -> alm2map on full-sky Fejer-1 maps
@@ -37,21 +51,27 @@ together) and prints each kernel's registers and spills, then:
    - IQU, spin [0, 2], with a diagonal TQU spectrum, at lmax 750 (f32 and
      f64) and lmax 2000 (f32): alm within 5e-4 / 1e-10 / 2e-3;
    - spin [1] at lmax 750 (f32): alm within 5e-4;
+   - spin [0, 3] on a 3-component map, the spin-3 block through the wigner
+     mode of K3/K4, at lmax 750 (f32 and f64) and lmax 2000 (f32): alm
+     within 5e-4 / 1e-10 / 2e-3, with the launches of every kernel by mode
+     and dtype held against what the dispatch should give;
    every band-limited map roundtrip within 1e-3; deriv=True alm2map and
    map2alm at lmax 750 in f32 against the same on the card in f64 (1e-3);
-   and small transforms (spin 0, deriv, spin 1; lmax 48, f64) on the card
-   against the CPU (1e-10). Every kernel must have been launched, in its
-   path's mode, by the lmax-750 f32 path of that mode.
+   the wigner mode at spin 2 against the spin2 mode on the card at lmax 750
+   in f64 (1e-10); and small transforms (spin 0, deriv, spin 1, spin 3;
+   lmax 48, f64) on the card against the CPU (1e-10). Every kernel must have
+   been launched, in its path's mode, by the lmax-750 f32 path of that mode.
 4. timing: sequential roundtrips timed with CUDA events after warmup (40
-   spin-0 and 10 IQU at lmax 750, 5 spin-0 and 3 IQU at lmax 2000) and a
-   profiler breakdown of each: device time by kernel and the device's busy
-   share of the wall time.
+   spin-0, 10 IQU and 10 spin-[0, 3] at lmax 750; 5, 3 and 3 at lmax 2000)
+   and a profiler breakdown of each: device time by kernel and the device's
+   busy share of the wall time.
 
 It prints the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and yardstick, and as the last line
 {"ok": true, "device": {...}}. Any failure raises, and the exit code is then
 nonzero; without a CUDA device it exits with code 2.
 """
+import argparse
 import json
 import os
 import re
@@ -73,7 +93,8 @@ REPLACES = {
 	"full_analysis": "pixell_tpu/ops/sht_pallas.py:2089",
 	"fma_peak": "scripts/vpu_peak.py:58",
 }
-MODES = ("scalar", "deriv", "spin1", "spin2")
+MODES = ("scalar", "deriv", "spin1", "spin2", "wigner")   # in the build's order
+WIGNER_SPIN = 3   # the spin the wigner mode is driven with
 # NVIDIA H100 SXM data sheet: FP32 and FP64 outside the tensor cores, HBM3
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES = 3.35e12
@@ -229,9 +250,9 @@ def fma_phase():
 # ---------------------------------------------------------------------------
 # 2. kernels against their plain versions
 # ---------------------------------------------------------------------------
-def kernel_cases():
+def kernel_cases(mode):
 	"""(kernel, label, lmax, mmax, theta, dtype of the main path) for the
-	lmax-750 roundtrip's shapes and a small ragged shape."""
+	lmax-750 roundtrip's shapes and a small ragged shape, in mode."""
 	from pixell_tpu_torch import sht
 	from pixell_tpu_torch.ops import sht_cuda
 	lmax = 750
@@ -248,6 +269,16 @@ def kernel_cases():
 	rag_sym = sht.ring_theta("F1", 53)[:27]
 	pm = sht_cuda.POLAR_MMAX - 1
 	f32, f64 = torch.float32, torch.float64
+	if mode == "wigner":   # K3/K4 only: the float32 bulk and the near-pole pass
+		pm = max(sht_cuda.POLAR_MMAX, WIGNER_SPIN + 1) - 1
+		return [
+			("full_synthesis", "lmax750-bulk", lmax, lmax, th_syn, f32),
+			("full_analysis", "lmax750-bulk", lmax, lmax, bulk_ana, f32),
+			("full_synthesis", "lmax750-polar", lmax, pm, pol_syn, f64),
+			("full_analysis", "lmax750-polar", lmax, pm, pol_ana, f64),
+			("full_synthesis", "ragged", 37, 29, ragged, f32),
+			("full_analysis", "ragged", 37, 29, ragged, f32),
+		]
 	return [
 		("sym_synthesis", "lmax750", lmax, lmax, th_syn[:450], f32),
 		("sym_analysis", "lmax750", lmax, lmax, bulk_ana[:nh_ana], f32),
@@ -261,7 +292,12 @@ def kernel_cases():
 
 
 def ncoef(mode):
-	return 4 if mode == "spin2" else 2
+	return 4 if mode in ("spin2", "wigner") else 2
+
+
+def mode_spin(mode):
+	"""The spin a geometry is prepared with: the wigner mode's, else None."""
+	return WIGNER_SPIN if mode == "wigner" else None
 
 
 def kernel_input(name, mode, lmax, mmax, nt, seed):
@@ -281,15 +317,22 @@ def kernel_input(name, mode, lmax, mmax, nt, seed):
 # (with lambda_{l-1}'s unscaling), and per coefficient column the
 # accumulation: a multiply-add per function for synthesis (plus the
 # mirror's add in the half-sky kernel), a multiply-add per function and
-# one reduction add for analysis
+# one reduction add for analysis. The wigner mode steps a second branch
+# with the offset's multiply-add on both (7 + 2*2) and combines the two
+# into w and x (5). With a dead-tile table, only the triples of live
+# blocks count: the others are not computed.
 STEP_OPS = 7
-MODE_OPS = {"scalar": 0, "deriv": 7, "spin1": 12, "spin2": 25}
+MODE_OPS = {"scalar": 0, "deriv": 7, "spin1": 12, "spin2": 25, "wigner": 16}
 
 
-def kernel_ops(name, mode, lmax, mmax, nt, C):
+def kernel_ops(name, mode, lmax, mmax, nt, C, dead=None):
+	from pixell_tpu_torch.ops import sht_cuda
 	from pixell_tpu_torch.ops.sht_core import NFUN
 	nf = NFUN[mode]
-	triples = nt*sum(lmax + 1 - m for m in range(mmax + 1))
+	rings = np.full(mmax + 1, nt) if dead is None else \
+		sht_cuda.live_mask(dead, mmax + 1, nt).sum(1).cpu().numpy()
+	first = np.maximum(np.arange(mmax + 1), mode_spin(mode) or 0)   # each row's seed degree
+	triples = int((rings*np.maximum(lmax + 1 - first, 0)).sum())
 	if name.endswith("synthesis"):
 		acc = C*nf*(3 if name.startswith("sym") else 2)
 	else:
@@ -305,21 +348,22 @@ def kernel_bytes(name, mode, lmax, mmax, nt, C, esize):
 	planes = 2 if name.startswith("sym") else 1
 	alm = nl*nm*C*esize
 	rings = nf*C*planes*nm*nt*esize
-	tables = (2 if mode == "scalar" else 3)*nl*nm*esize + (0 if mode == "scalar" else 2*nl*esize)
-	geom = (2 + (0 if mode == "scalar" else 4))*nt*esize + nm*nt*(esize + 4)
+	legendre = mode not in ("scalar", "wigner")   # the modes with degree norms and ring rows
+	tables = (2 if mode == "scalar" else 3)*nl*nm*esize + (2*nl*esize if legendre else 0)
+	geom = (2 + (4 if legendre else 0))*nt*esize \
+		+ (2 if mode == "wigner" else 1)*nm*nt*(esize + 4)
 	return alm + rings + tables + geom
 
 
 def mode_table(theta, mmax, lmax, mode, dtype, device):
 	"""u_f(l, m, theta_t) as [nm, nfun*nt, nl] in dtype, from the float64
-	plain recurrence and mode functions (sht_core.lambdas, mode_funcs)."""
+	plain recurrence and mode functions (sht_core.mode_values)."""
 	from pixell_tpu_torch.ops import sht_core, sht_cuda
-	g = sht_cuda.geom(theta, mmax, torch.float64, device)
+	g = sht_cuda.geom(theta, mmax, torch.float64, device, mode_spin(mode))
 	nf = sht_core.NFUN[mode]
 	T = torch.zeros((g.nm, nf, g.nt, lmax + 1), dtype=dtype, device=device)
-	marr = torch.arange(g.nm, dtype=torch.float64, device=device)
-	for l, lam, lam1 in sht_core.lambdas(g, lmax):
-		for f, u in enumerate(sht_core.mode_funcs(mode, l, marr, g, lam, lam1)):
+	for l, us in sht_core.mode_values(mode, g, lmax):
+		for f, u in enumerate(us):
 			T[:, f, :, l] = u
 	return T.view(g.nm, nf*g.nt, lmax + 1)
 
@@ -336,7 +380,7 @@ def library_call(name, mode, x, theta, mmax, lmax):
 	from pixell_tpu_torch.ops.sht_core import NFUN
 	nf, nl, nm, nt = NFUN[mode], lmax + 1, mmax + 1, len(theta)
 	T = mode_table(theta, mmax, lmax, mode, x.dtype, x.device)  # [nm, nf*nt, nl]
-	psign = sht_cuda._psign(mode, x.dtype, x.device)
+	psign = sht_cuda._psign(mode, x.dtype, x.device) if name.startswith("sym") else None
 	if name.endswith("synthesis"):
 		C = x.shape[-1]
 		if name.startswith("sym"):
@@ -372,10 +416,11 @@ def library_ms(name, mode, x, theta, mmax, lmax, ref):
 	return ms, err
 
 
-def f32_kept(theta, lmax, mmax, device):
+def f32_kept(theta, lmax, mmax, device, s=None):
 	"""[nm, nt] mask of the (m, ring) entries that the float32 main path
 	keeps from a float32 kernel on the rings theta: all but the near-pole
-	rings for m < POLAR_MMAX, which the float64 pass overwrites (synthesis)
+	rings for m < POLAR_MMAX (in the wigner mode at spin s, m <
+	max(POLAR_MMAX, s + 1)), which the float64 pass overwrites (synthesis)
 	or which never reach a float32 kernel (analysis); nothing where every
 	ring is near a pole, since such a ring set runs wholly in float64."""
 	from pixell_tpu_torch.ops import sht_cuda
@@ -383,7 +428,8 @@ def f32_kept(theta, lmax, mmax, device):
 	tcut = sht_cuda.POLAR_AMP/max(lmax, 1)
 	polar = torch.from_numpy((th < tcut) | (th > np.pi - tcut)).to(device)
 	if bool(polar.all()): return torch.zeros((mmax + 1, len(th)), dtype=torch.bool, device=device)
-	high_m = torch.arange(mmax + 1, device=device)[:, None] >= sht_cuda.POLAR_MMAX
+	mp = sht_cuda.POLAR_MMAX if s is None else max(sht_cuda.POLAR_MMAX, s + 1)
+	high_m = torch.arange(mmax + 1, device=device)[:, None] >= mp
 	return high_m | ~polar[None, :]
 
 
@@ -404,18 +450,28 @@ def kernel_phase():
 	dev = torch.device("cuda")
 	records = {}
 	for mode in MODES:
-		for i, (name, label, lmax, mmax, theta, main_dt) in enumerate(kernel_cases()):
+		s = mode_spin(mode)
+		for i, (name, label, lmax, mmax, theta, main_dt) in enumerate(kernel_cases(mode)):
 			kern, plain = getattr(sht_cuda, name), sht_cuda.PLAIN[name]
 			C = ncoef(mode)
 			x = torch.from_numpy(kernel_input(name, mode, lmax, mmax, len(theta), i)).to(dev)
-			g64 = sht_cuda.geom(theta, mmax, torch.float64, dev)
+			g64 = sht_cuda.geom(theta, mmax, torch.float64, dev, s)
 			ref = plain(x, g64, lmax, mode)
 			torch.cuda.synchronize()
+			# the float32 bulk launches carry the dead-tile table, as on the main path
+			dead = None
+			if label.endswith("bulk"):
+				dead = sht_cuda.dead_tiles(theta, lmax, mmax, s or 0, dev)
+				if dead is None:
+					raise RuntimeError("%s %s %s: no dead tile in the table" % (name, mode, label))
+				print("dead tiles %s %s %s: %d of %d blocks" % (name, mode, label, int(dead.sum()),
+					dead.numel()))
 			out = {}
 			for dt in (torch.float32, torch.float64):
-				g = sht_cuda.geom(theta, mmax, dt, dev)
+				g = sht_cuda.geom(theta, mmax, dt, dev, s)
 				xd = x.to(dt)
-				k = kern(xd, g, lmax, mode)
+				args = (xd, g, lmax, mode) + ((dead,) if dt == torch.float32 and dead is not None else ())
+				k = kern(*args)
 				torch.cuda.synchronize()   # a fault shows here, at its kernel
 				if not bool(torch.isfinite(k).all()):
 					raise RuntimeError("%s %s %s %s: non-finite output" % (name, mode, label, dt))
@@ -428,13 +484,13 @@ def kernel_phase():
 					tol, perr = (1e-11 if mode == "scalar" else 1e-10), 0.0
 					ok = err <= tol
 				else:
-					p = plain(xd, g, lmax, mode)
+					p = plain(*args)
 					perr = relerr(p, ref)
 					tol = 2*perr + 1e-6
 					ok = err <= tol
 					# the same rule on the entries the f32 path keeps, where the
 					# plain version's own error is small
-					ke = kept_err(name, k, p, ref, f32_kept(theta, lmax, mmax, dev))
+					ke = kept_err(name, k, p, ref, f32_kept(theta, lmax, mmax, dev, s))
 					if ke is None:
 						kept = "; kept entries: none, the main path runs these in float64"
 					else:
@@ -447,13 +503,14 @@ def kernel_phase():
 				if not ok:
 					raise RuntimeError("%s %s %s %s: kernel disagrees with its plain version"
 						% (name, mode, label, dt))
-				out[dt] = (xd, g, k)
+				out[dt] = (args, k)
 			if not label.startswith("lmax750"): continue
-			xd, g, k = out[main_dt]
+			args, k = out[main_dt]
+			xd = args[0]
 			nt = len(theta)
-			b_ms, b_by = bound(kernel_ops(name, mode, lmax, mmax, nt, C),
+			b_ms, b_by = bound(kernel_ops(name, mode, lmax, mmax, nt, C, dead),
 				kernel_bytes(name, mode, lmax, mmax, nt, C, xd.element_size()), main_dt)
-			run = lambda: kern(xd, g, lmax, mode)
+			run = lambda: kern(*args)
 			ms, how = kernel_ms(run, 20, name.split("_")[1] + "_kernel")
 			lib_ms, lib_err = library_ms(name, mode, xd, theta, mmax, lmax, ref)
 			lib_tol = 1e-4 if main_dt == torch.float32 else 1e-10
@@ -462,11 +519,13 @@ def kernel_phase():
 			if not lib_err <= lib_tol:
 				raise RuntimeError("%s %s: the library yardstick computes another function"
 					% (name, mode))
-			rec = {"name": "%s[%s]" % (name, mode), "route": "cuda", "source": LEGENDRE_SOURCE,
+			tag = mode if mode != "wigner" else "wigner, %s" % (
+				"f32 bulk" if label.endswith("bulk") else "f64 near-pole")
+			rec = {"name": "%s[%s]" % (name, tag), "route": "cuda", "source": LEGENDRE_SOURCE,
 				"replaces": REPLACES[name], "mode": mode,
 				"max_abs_err": float((k.double() - ref).abs().max()),
 				"ms": ms, "ms_from": how, "call_ms": cuda_ms(run, 20),
-				"plain_ms": cuda_ms(lambda: plain(xd, g, lmax, mode), 2),
+				"plain_ms": cuda_ms(lambda: plain(*args), 2),
 				"bound_ms": b_ms, "bound_by": b_by,
 				"library_ms": lib_ms, "library_rel_err": lib_err,
 				"shape": "lmax %d, nm %d, nt %d, C %d, %s" % (lmax, mmax + 1, nt, C,
@@ -475,8 +534,48 @@ def kernel_phase():
 				"bound %.4f ms (%s, %.1f %% of it reached), torch.bmm %.4f ms" % (name, mode,
 				rec["shape"], rec["ms"], how, rec["call_ms"], rec["plain_ms"], b_ms, b_by,
 				100*b_ms/rec["ms"], lib_ms))
-			records[(name, mode)] = rec
+			records[(name, mode, str(main_dt)[6:])] = rec
 	return records
+
+
+def lstop_phase():
+	"""K3/K4's dead-tile skip at the lmax-2000 float32 shapes: the same
+	launch with the table and without."""
+	from pixell_tpu_torch import sht, fft
+	from pixell_tpu_torch.ops import sht_cuda
+	dev = torch.device("cuda")
+	lmax = 2000
+	th_up = sht.ring_theta("F1", fft.fft_len(2*lmax + 3, direction="above"))
+	nn, ns = sht_cuda.polar_counts(th_up, lmax)
+	shapes = {"full_synthesis": sht.ring_theta("F1", 2160),
+		"full_analysis": th_up[nn:len(th_up)-ns][:sht_cuda.TCHUNK]}
+	for mode, tol in (("scalar", 1e-9), ("spin2", 1e-7)):
+		for i, (name, theta) in enumerate(shapes.items()):
+			kern, C, nt = getattr(sht_cuda, name), ncoef(mode), len(theta)
+			x = torch.from_numpy(kernel_input(name, mode, lmax, lmax, nt, 40 + i)).to(dev,
+				torch.float32)
+			g = sht_cuda.geom(theta, lmax, torch.float32, dev)
+			dead = sht_cuda.dead_tiles(theta, lmax, lmax, 0, dev)
+			if dead is None:
+				raise RuntimeError("lstop %s %s: no dead tile at lmax %d" % (name, mode, lmax))
+			skip, full = kern(x, g, lmax, mode, dead), kern(x, g, lmax, mode, None)
+			torch.cuda.synchronize()
+			err = relerr(skip, full)
+			kname = name.split("_")[1] + "_kernel"
+			ms_skip, how_skip = kernel_ms(lambda: kern(x, g, lmax, mode, dead), 5, kname)
+			ms_full, how_full = kernel_ms(lambda: kern(x, g, lmax, mode, None), 5, kname)
+			b_skip, _ = bound(kernel_ops(name, mode, lmax, lmax, nt, C, dead),
+				kernel_bytes(name, mode, lmax, lmax, nt, C, 4), torch.float32)
+			b_full, _ = bound(kernel_ops(name, mode, lmax, lmax, nt, C),
+				kernel_bytes(name, mode, lmax, lmax, nt, C, 4), torch.float32)
+			ok = err <= tol
+			print("lstop  %-14s %-6s lmax %d, nm %d, nt %d, C %d, f32: %d of %d blocks dead; "
+				"with the table %.4f ms (%s; bound %.4f), without %.4f ms (%s; bound %.4f); "
+				"difference %.3e of the largest value (bound %.0e) %s" % (name, mode, lmax,
+				lmax + 1, nt, C, int(dead.sum()), dead.numel(), ms_skip, how_skip, b_skip, ms_full,
+				how_full, b_full, err, tol, "ok" if ok else "FAIL"))
+			if not ok:
+				raise RuntimeError("lstop %s %s: the skipped tiles are not negligible" % (name, mode))
 
 
 # ---------------------------------------------------------------------------
@@ -485,7 +584,7 @@ def kernel_phase():
 def spectrum(lmax, spin):
 	"""A diagonal spectrum [ncomp, ncomp, nl] for the components of spin:
 	flat, without the l < s modes a spin-s field cannot carry."""
-	comps = [0] if list(spin) == [0] else ([0, 2, 2] if list(spin) == [0, 2] else [1, 1])
+	comps = [c for s in spin for c in ([0] if s == 0 else [s, s])]
 	ps = np.zeros((len(comps), len(comps), lmax + 1))
 	for i, s in enumerate(comps): ps[i, i, s:] = 1.0/(1 + i)
 	return ps
@@ -534,10 +633,12 @@ def deriv_pair(lmax, shape, dtype, device="cuda", seed=2):
 	return d.data, a
 
 
-def drive(label, mode, fn, kernels):
+def drive(label, mode, fn, kernels, want=None):
 	"""Run fn with every launch count set to 0 just before and read just
 	after; every kernel in kernels must have launched in mode. The counts
-	include K9's, which no SHT path calls."""
+	include K9's, which no SHT path calls. want, if given, is every nonzero
+	count the path should give, {(kernel, mode, dtype): launches}; the
+	counts by dtype, in all modes, must equal it."""
 	from pixell_tpu_torch.ops import sht_cuda, fma_peak
 	sht_cuda.reset_launches()
 	fma_peak.LAUNCHES["fma_peak"] = 0
@@ -548,7 +649,54 @@ def drive(label, mode, fn, kernels):
 	missing = [k for k in kernels if counts[k] == 0]
 	if missing:
 		raise RuntimeError("kernels not launched by the %s path: %s" % (label, missing))
+	by_dtype = {k: n for k, n in sht_cuda.LAUNCHES_BY_DTYPE.items() if n}
+	if want is not None:
+		print("launches by (kernel, mode, dtype): %s" % by_dtype)
+		if by_dtype != want:
+			raise RuntimeError("the %s path should launch %s" % (label, want))
+	counts.update({(k, dt): n for (k, md, dt), n in by_dtype.items() if md == mode})
 	return counts, out
+
+
+def wigner_launches(lmax, nt_map):
+	"""{(kernel, mode, dtype): launches} of one float32 spin [0, 3] roundtrip
+	(alm2map, map2alm, alm2map) on nt_map Fejer-1 rings, after the dispatch:
+	the spin-3 block runs K3/K4 in wigner mode, float32 with one float64
+	near-pole pass each, its analysis in TCHUNK chunks of the upsampled bulk
+	rings; the spin-0 block runs as in the spin-0 roundtrip."""
+	from pixell_tpu_torch import sht, fft
+	from pixell_tpu_torch.ops import sht_cuda
+	nt_up = fft.fft_len(2*lmax + 3, direction="above")
+	nn, ns = sht_cuda.polar_counts(sht.ring_theta("F1", nt_up), lmax)
+	chunks = -(-(nt_up - nn - ns)//sht_cuda.TCHUNK)
+	want = {("full_synthesis", "wigner", "float32"): 2, ("full_synthesis", "wigner", "float64"): 2,
+		("full_analysis", "wigner", "float32"): chunks, ("full_analysis", "wigner", "float64"): 1,
+		("full_synthesis", "scalar", "float64"): 2, ("full_analysis", "scalar", "float64"): 1}
+	if nt_map <= 2*sht_cuda.SYM_MAX_NH: want[("sym_synthesis", "scalar", "float32")] = 2
+	else: want[("full_synthesis", "scalar", "float32")] = 2
+	if nt_up - nn - ns <= 2*sht_cuda.SYM_MAX_NH: want[("sym_analysis", "scalar", "float32")] = 1
+	else: want[("full_analysis", "scalar", "float32")] = chunks
+	return want
+
+
+def wigner_against_spin2(lmax, nt):
+	"""The wigner mode at spin 2 against the spin2 mode, which reaches w and
+	x by another route, on the card in float64 (the engine entry points:
+	K3/K4 against K1/K2)."""
+	from pixell_tpu_torch import sht
+	from pixell_tpu_torch.ops import sht_cuda
+	theta = sht.ring_theta("F1", nt)
+	rng = np.random.default_rng(12)
+	A = torch.from_numpy(rng.standard_normal((lmax + 1, lmax + 1, 4))).cuda()
+	F = torch.from_numpy(rng.standard_normal((2, 4, lmax + 1, nt))).cuda()
+	f64 = torch.float64
+	e = (relerr(sht_cuda.synthesis_scan(A, theta, lmax, lmax, "wigner", f64, 2),
+			sht_cuda.synthesis_scan(A, theta, lmax, lmax, "spin2", f64)),
+		relerr(sht_cuda.analysis_scan(F, theta, lmax, lmax, "wigner", f64, 2),
+			sht_cuda.analysis_scan(F, theta, lmax, lmax, "spin2", f64)))
+	print("wigner at spin 2 against the spin2 mode, lmax %d, %d rings, f64 on the card: "
+		"synthesis rel err %.3e, analysis rel err %.3e (bound 1e-10)" % ((lmax, nt) + e))
+	if not max(e) <= 1e-10: raise RuntimeError("the wigner mode at spin 2 is not the spin2 mode")
 
 
 def slice_phase():
@@ -585,6 +733,15 @@ def slice_phase():
 	counts, (d32, a32) = drive("deriv lmax-750 f32", "deriv",
 		lambda: deriv_pair(750, (900, 1800), f32), allk)
 	launches["deriv"] = counts
+	counts, _ = drive("spin-[0, 3] lmax-750 f32 roundtrip", "wigner",
+		lambda: roundtrip(750, (900, 1800), f32, 5e-4, spin=(0, WIGNER_SPIN)),
+		("full_synthesis", "full_analysis"), wigner_launches(750, 900))
+	launches["wigner"] = counts
+	roundtrip(750, (900, 1800), f64, 1e-10, spin=(0, WIGNER_SPIN))
+	drive("spin-[0, 3] lmax-2000 f32 roundtrip", "wigner",
+		lambda: roundtrip(2000, (2160, 4320), f32, 2e-3, spin=(0, WIGNER_SPIN)),
+		("full_synthesis", "full_analysis"), wigner_launches(2000, 2160))
+	wigner_against_spin2(750, 900)
 	d64, a64 = deriv_pair(750, (900, 1800), f64)
 	e = (relerr(d32, d64), relerr(a32, a64))
 	print("deriv lmax 750 f32 against f64 on the card: gradient map rel err %.3e, "
@@ -595,6 +752,8 @@ def slice_phase():
 			("spin 0", lambda dev: roundtrip(48, (60, 120), f64, 1e-10, device=dev, seed=1)),
 			("spin 1", lambda dev: roundtrip(48, (60, 120), f64, 1e-10, spin=(1,), device=dev,
 				seed=1)),
+			("spin 3", lambda dev: roundtrip(48, (60, 120), f64, 1e-10, spin=(WIGNER_SPIN,),
+				device=dev, seed=1)),
 			("deriv", lambda dev: deriv_pair(48, (60, 120), f64, device=dev))]:
 		(xc, ac), (xh, ah) = fn("cuda"), fn("cpu")
 		e = max(relerr(xc.cpu(), xh), relerr(ac.cpu(), ah))
@@ -666,7 +825,15 @@ def profile_roundtrips(lmax, shape, nrep=3, spin=(0,)):
 	print(ka.table(sort_by=key, row_limit=14, max_name_column_width=56))
 
 
+PHASES = ("k9", "kernels", "lstop", "slice", "timing")
+
+
 def main():
+	ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+	ap.add_argument("--phases", default=",".join(PHASES),
+		help="comma-separated choice of %s (default: all)" % ", ".join(PHASES))
+	phases = ap.parse_args().phases.split(",")
+	if not set(phases) <= set(PHASES): ap.error("unknown phase in %s" % phases)
 	if not torch.cuda.is_available():
 		print("chip_smoke: no CUDA device", file=sys.stderr)
 		return 2
@@ -682,23 +849,40 @@ def main():
 	sht_cuda.library()
 	print("kernel build + load: %.1f s" % (time.perf_counter() - h0))
 	print_build_summary((_build.build_dir()/"build.log").read_text())
-	records = fma_phase()
-	print("phase K9 done at %.1f s" % (time.perf_counter() - t_start))
-	kernel_records = kernel_phase()
-	print("phase kernels done at %.1f s" % (time.perf_counter() - t_start))
-	launches = slice_phase()
-	print("phase slice done at %.1f s" % (time.perf_counter() - t_start))
-	time_roundtrips(750, (900, 1800), 40)
-	time_roundtrips(2000, (2160, 4320), 5)
-	time_roundtrips(750, (900, 1800), 10, spin=(0, 2))
-	time_roundtrips(2000, (2160, 4320), 3, spin=(0, 2))
-	profile_roundtrips(750, (900, 1800))
-	profile_roundtrips(2000, (2160, 4320))
-	profile_roundtrips(750, (900, 1800), 1, spin=(0, 2))
-	profile_roundtrips(2000, (2160, 4320), 1, spin=(0, 2))
-	print("phase timing done at %.1f s" % (time.perf_counter() - t_start))
-	for (name, mode), rec in kernel_records.items():
-		rec["launches"] = launches[mode][name]
+	records, kernel_records, launches = [], {}, {}
+	if "k9" in phases:
+		records = fma_phase()
+		print("phase K9 done at %.1f s" % (time.perf_counter() - t_start))
+	if "kernels" in phases:
+		kernel_records = kernel_phase()
+		print("phase kernels done at %.1f s" % (time.perf_counter() - t_start))
+	if "lstop" in phases:
+		lstop_phase()
+		print("phase lstop done at %.1f s" % (time.perf_counter() - t_start))
+	if "slice" in phases:
+		launches = slice_phase()
+		print("phase slice done at %.1f s" % (time.perf_counter() - t_start))
+	if "timing" in phases:
+		w = (0, WIGNER_SPIN)
+		time_roundtrips(750, (900, 1800), 40)
+		time_roundtrips(2000, (2160, 4320), 5)
+		time_roundtrips(750, (900, 1800), 10, spin=(0, 2))
+		time_roundtrips(2000, (2160, 4320), 3, spin=(0, 2))
+		time_roundtrips(750, (900, 1800), 10, spin=w)
+		time_roundtrips(2000, (2160, 4320), 3, spin=w)
+		profile_roundtrips(750, (900, 1800))
+		profile_roundtrips(2000, (2160, 4320))
+		profile_roundtrips(750, (900, 1800), 1, spin=(0, 2))
+		profile_roundtrips(2000, (2160, 4320), 1, spin=(0, 2))
+		profile_roundtrips(750, (900, 1800), 1, spin=w)
+		profile_roundtrips(2000, (2160, 4320), 1, spin=w)
+		print("phase timing done at %.1f s" % (time.perf_counter() - t_start))
+	if set(phases) != set(PHASES):
+		print("chip_smoke: phases %s only: no verdict" % phases)
+		return 1
+	for (name, mode, dt), rec in kernel_records.items():
+		# the wigner records are one per dtype: the float32 bulk, the float64 pass
+		rec["launches"] = launches[mode][(name, dt) if mode == "wigner" else name]
 	for rec in records:   # K9: summed over every driven path
 		rec["launches"] = sum(c["fma_peak"] for c in launches.values())
 	records = list(kernel_records.values()) + records

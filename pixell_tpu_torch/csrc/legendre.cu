@@ -15,9 +15,32 @@
 // spin1 [w1, x1]; spin2 [w2, x2], the theta-functions of the spin-weighted
 // harmonics, evaluated per (l, m, theta) in registers from lambda_l and
 // lambda_{l-1} (formulas in pixell_tpu_torch/ops/sht_core.py mode_funcs).
-// The mode is a template parameter; this file is compiled once per mode
-// (-DLEGENDRE_MODE=0..3, in parallel), and each object exports the entry
-// points pt_<kernel>_<mode>. The Wigner mode (spin > 2, K7) is not here.
+// The mode is a compile-time constant; this file is compiled once per mode
+// (-DLEGENDRE_MODE=0..4, in parallel), and each object exports the entry
+// points pt_<kernel>_<mode>.
+//
+// K7, the fifth mode, wigner (any spin s; K3 and K4 only, as the reference
+// has no half-sky form of it), replaces mode="wigner" of the full kernels,
+// driven by wigner_synthesis_scan_pallas (sht_pallas.py:2165) and
+// wigner_analysis_scan_pallas (:2221). The spin-weighted theta-functions are
+//   w = (lam_p + (-1)^s lam_m)/2,  x = (lam_p - (-1)^s lam_m)/2
+// with lam_p = (-1)^m sqrt((2l+1)/4pi) d^l_{-m,s}(theta) and lam_m its
+// s -> -s partner, both from the recurrence
+//   lam_l = a_lm ((cos theta +- c_lm) lam_{l-1} - b_lm lam_{l-2}),
+// seeded at l = max(m, s). The TPU ran one branch per pass and combined the
+// two results afterwards; here one thread carries BOTH branches' states,
+// reads the one staged (a, b, c) row with +c and -c, forms w and x in
+// registers and accumulates them as the spin-2 mode does: half the launches,
+// one read of the alm, and no combine pass over the ring data. It is bound
+// like the other modes, by arithmetic: ~23 operations per (l, m, theta)
+// triple for the two steps and the combination, before the accumulation.
+//
+// Dead tiles (the reference's lstop, _dead_table sht_pallas.py:677): K3/K4
+// take a table [m blocks, ring tiles] of blocks that lie beyond the horizon
+// of their rings, m_lo - s > lmax max(sin theta) + slack, where every value
+// is below ~1e-12. A dead synthesis block writes zeros and runs no l-loop;
+// analysis skips a dead ring tile in its plane loop. The exit is uniform over
+// the block, so the barriers stay safe. A null table skips nothing.
 //
 // Each kernel is templated on float (S = 60) and double (S = 850). The double
 // instantiation of K3/K4 is the near-pole pass that the TPU ran in
@@ -86,8 +109,10 @@
 #define MODE_TAG spin1
 #elif LEGENDRE_MODE == 3
 #define MODE_TAG spin2
+#elif LEGENDRE_MODE == 4
+#define MODE_TAG wigner
 #else
-#error "LEGENDRE_MODE must be 0 (scalar), 1 (deriv), 2 (spin1) or 3 (spin2)"
+#error "LEGENDRE_MODE must be 0 (scalar), 1 (deriv), 2 (spin1), 3 (spin2) or 4 (wigner)"
 #endif
 #define PT_PASTE2(a, b) a##_##b
 #define PT_PASTE(a, b) PT_PASTE2(a, b)
@@ -95,9 +120,10 @@
 
 namespace {
 
-constexpr int SCALAR = 0, DERIV = 1, SPIN1 = 2, SPIN2 = 3;
+constexpr int SCALAR = 0, DERIV = 1, SPIN1 = 2, SPIN2 = 3, WIGNER = 4;
 constexpr int MODE = LEGENDRE_MODE;
 constexpr int NFUN = MODE == SCALAR ? 1 : 2;
+constexpr int NBR = MODE == WIGNER ? 2 : 1;  // recurrence branches per thread
 
 // parity of mode function f under theta -> pi - theta
 __host__ __device__ constexpr int psign(int f) {
@@ -124,14 +150,18 @@ template <typename T> struct State {
   int lev;
 };
 
-// One recurrence step at degree l for row m. Returns the true lambda_lm and
-// sets lam1 to the true lambda_{l-1,m} (zero at the seed l = m).
+// One recurrence step at degree l for a row seeded at degree lseed (m; in
+// wigner mode max(m, s)). Returns the true lambda_l and sets lam1 to the true
+// lambda_{l-1} (zero at the seed). cadd is the wigner mode's offset on
+// cos(theta), +c or -c by branch.
 template <typename T>
-__device__ __forceinline__ T step(State<T>& s, int l, int m, T a, T b, T x,
-                                  T xlo, T seedv, int seedl, T& lam1) {
-  T nw = a * ((x * s.curr + xlo * s.curr) - b * s.prev);
+__device__ __forceinline__ T step(State<T>& s, int l, int lseed, T a, T b, T x,
+                                  T xlo, T cadd, T seedv, int seedl, T& lam1) {
+  T t = x * s.curr + xlo * s.curr;
+  if constexpr (MODE == WIGNER) t += cadd * s.curr;
+  T nw = a * (t - b * s.prev);
   T cz = s.curr;
-  if (l == m) {  // seed; the stale previous value has another scale
+  if (l == lseed) {  // seed; the stale previous value has another scale
     nw = seedv;
     s.lev = seedl;
     cz = T(0);
@@ -231,6 +261,65 @@ __device__ __forceinline__ void mode_funcs(T (&u)[NFUN], T lam, T lam1, int l,
   u[NFUN - 1] = x;
 }
 
+// One thread's recurrence: the state and seed of each branch.
+template <typename T> struct Recur {
+  State<T> s[NBR];
+  T seedv[NBR];
+  int seedl[NBR];
+  int lseed;
+};
+
+// sv, sl [NBR, nm, nt]: the seeds of entry mt = m nt + t, zero where invalid.
+template <typename T>
+__device__ __forceinline__ Recur<T> load_recur(const T* __restrict__ sv,
+                                               const int* __restrict__ sl,
+                                               size_t mt, size_t plane, int m,
+                                               int spin, bool valid) {
+  Recur<T> rc;
+#pragma unroll
+  for (int br = 0; br < NBR; ++br) {
+    rc.s[br] = State<T>{T(0), T(0), 0};
+    rc.seedv[br] = valid ? sv[br * plane + mt] : T(0);
+    rc.seedl[br] = valid ? sl[br * plane + mt] : 0;
+  }
+  rc.lseed = MODE == WIGNER ? max(m, spin) : m;
+  return rc;
+}
+
+// Advance the recurrence to degree l and evaluate the mode functions u[NFUN]
+// there. a, b, e are the staged coefficients of (l, m): e is e_lm, or c_lm in
+// wigner mode, where sgs = (-1)^s.
+template <typename T>
+__device__ __forceinline__ void advance(T (&u)[NFUN], Recur<T>& rc, int l, int m,
+                                        T a, T b, T e, T nrm, T hp,
+                                        const Ring<T>& r, T xlo, T sgs) {
+  T lam1;
+  if constexpr (MODE == WIGNER) {
+    const T lp = step(rc.s[0], l, rc.lseed, a, b, r.ct, xlo, e, rc.seedv[0],
+                      rc.seedl[0], lam1);
+    const T lm = sgs * step(rc.s[NBR - 1], l, rc.lseed, a, b, r.ct, xlo, -e,
+                            rc.seedv[NBR - 1], rc.seedl[NBR - 1], lam1);
+    u[0] = T(0.5) * (lp + lm);
+    u[NFUN - 1] = T(0.5) * (lp - lm);
+  } else {
+    const T lam = step(rc.s[0], l, rc.lseed, a, b, r.ct, xlo, T(0), rc.seedv[0],
+                       rc.seedl[0], lam1);
+    mode_funcs(u, lam, lam1, l, m, e, nrm, hp, r);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void rescale(Recur<T>& rc) {
+#pragma unroll
+  for (int br = 0; br < NBR; ++br) rescale(rc.s[br]);
+}
+
+// True where the dead-tile table marks block (mb, tb) of ntb ring tiles.
+__device__ __forceinline__ bool is_dead(const int* __restrict__ dead, int mb,
+                                        int tb, int ntb) {
+  return dead != nullptr && dead[(size_t)mb * ntb + tb] != 0;
+}
+
 // Shared-memory staging of one chunk of LC degrees for the block's m rows.
 template <typename T, int C> struct Stage {
   T a[LC][MY], b[LC][MY], e[LC][MY];
@@ -240,7 +329,8 @@ template <typename T, int C> struct Stage {
 
 // Stage a_lm, b_lm, e_lm, the degree norms (and A[l, m, :] when A is given)
 // for degrees l0 .. l0+LC-1 and the block's m rows; zero outside the table.
-// ab [3, nl, nm] holds a, b and e; lt [2, nl] the norms nrm and hp.
+// ab [3, nl, nm] holds a, b and e (wigner: a, b and c, staged as e); lt
+// [2, nl] the norms nrm and hp, which the scalar and wigner modes do not read.
 template <typename T, int C>
 __device__ __forceinline__ void stage(const T* __restrict__ ab,
                                       const T* __restrict__ lt,
@@ -259,7 +349,7 @@ __device__ __forceinline__ void stage(const T* __restrict__ ab,
       for (int c = 0; c < C; ++c) sm.A[li][mi][c] = ok ? A[lm * C + c] : T(0);
     }
   }
-  if constexpr (MODE != SCALAR) {
+  if constexpr (MODE != SCALAR && MODE != WIGNER) {
     for (int i = tid; i < LC; i += NTHREADS) {
       const int l = l0 + i;
       sm.nrm[i] = l < nl ? lt[l] : T(0);
@@ -270,43 +360,48 @@ __device__ __forceinline__ void stage(const T* __restrict__ ab,
 
 // K1 (SYM) / K3: G[f, c, m, t] = sum_l u_f(l, m, theta_t) A[l, m, c].
 // A [nl, nm, C]; ab [3, nl, nm]; lt [2, nl]; cth, ctl [nt]; rows [4, nt];
-// sv, sl [nm, nt]. Full: out [NFUN, C, nm, nt]. SYM: theta holds the
+// sv, sl [NBR, nm, nt]. Full: out [NFUN, C, nm, nt]. SYM: theta holds the
 // northern rings of a south-symmetric ring set and out is
-// [NFUN, C, 2, nm, nt] with plane 1 the mirror ring.
+// [NFUN, C, 2, nm, nt] with plane 1 the mirror ring. spin is the wigner
+// mode's s; dead the dead-tile table [gridDim.y, gridDim.x] or null.
 template <typename T, int C, bool SYM>
 __global__ void __launch_bounds__(NTHREADS)
 synthesis_kernel(const T* __restrict__ A, const T* __restrict__ ab,
                  const T* __restrict__ lt, const T* __restrict__ cth,
                  const T* __restrict__ ctl, const T* __restrict__ rows,
                  const T* __restrict__ sv, const int* __restrict__ sl,
-                 T* __restrict__ out, int nl, int nm, int nt) {
+                 T* __restrict__ out, int nl, int nm, int nt, int spin,
+                 const int* __restrict__ dead) {
   __shared__ Stage<T, C> sm;
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
   const int t = blockIdx.x * TX + tx;
   const int m0 = blockIdx.y * MY, m = m0 + ty;
   const bool valid = t < nt && m < nm;
+  const size_t plane = (size_t)nm * nt;
   const size_t mt = (size_t)m * nt + t;
   const Ring<T> r = load_ring(cth, rows, t, nt, valid);
   const T xlo = valid ? ctl[t] : T(0);
-  const T seedv = valid ? sv[mt] : T(0);
-  const int seedl = valid ? sl[mt] : 0;
-  State<T> s{T(0), T(0), 0};
+  const T sgs = (spin & 1) ? T(-1) : T(1);
+  Recur<T> rc = load_recur(sv, sl, mt, plane, m, spin, valid);
   T accN[NFUN][C], accS[NFUN][C];
 #pragma unroll
   for (int f = 0; f < NFUN; ++f)
 #pragma unroll
     for (int c = 0; c < C; ++c) accN[f][c] = accS[f][c] = T(0);
-  for (int l0 = m0; l0 < nl; l0 += LC) {
+  // the state is zero below the block's first seed; a dead block runs no loop
+  const int lbeg = is_dead(dead, blockIdx.y, blockIdx.x, gridDim.x)
+                       ? nl
+                       : (MODE == WIGNER ? max(m0, spin) : m0);
+  for (int l0 = lbeg; l0 < nl; l0 += LC) {
     __syncthreads();
     stage<T, C>(ab, lt, A, sm, l0, m0, nl, nm, tid);
     __syncthreads();
     const int n = min(LC, nl - l0);
     for (int i = 0; i < n; ++i) {
       const int l = l0 + i;
-      T lam1;
-      const T lam = step(s, l, m, sm.a[i][ty], sm.b[i][ty], r.ct, xlo, seedv, seedl, lam1);
       T u[NFUN];
-      mode_funcs(u, lam, lam1, l, m, sm.e[i][ty], sm.nrm[i], sm.hp[i], r);
+      advance(u, rc, l, m, sm.a[i][ty], sm.b[i][ty], sm.e[i][ty], sm.nrm[i], sm.hp[i], r,
+              xlo, sgs);
       const bool odd = (l + m) & 1;
 #pragma unroll
       for (int f = 0; f < NFUN; ++f) {
@@ -319,11 +414,10 @@ synthesis_kernel(const T* __restrict__ A, const T* __restrict__ ab,
           if (SYM) accS[f][c] += plus ? v : -v;
         }
       }
-      if ((l & 7) == 7) rescale(s);
+      if ((l & 7) == 7) rescale(rc);
     }
   }
   if (!valid) return;
-  const size_t plane = (size_t)nm * nt;
 #pragma unroll
   for (int f = 0; f < NFUN; ++f)
 #pragma unroll
@@ -343,14 +437,16 @@ synthesis_kernel(const T* __restrict__ A, const T* __restrict__ ab,
 // SYM: F is [NFUN, C, 2, nm, nt] with the even (north + south) and odd
 // (north - south) combinations on the northern rings; function f of (l, m)
 // takes the even plane where PSIGN[f] (-1)^(l+m) = +1. part
-// [gridDim.x, nl, nm, C] must be zero on entry.
+// [gridDim.x, nl, nm, C] must be zero on entry. spin is the wigner mode's s;
+// dead the dead-tile table [gridDim.y, ntiles] or null.
 template <typename T, int C, bool SYM>
 __global__ void __launch_bounds__(NTHREADS)
 analysis_kernel(const T* __restrict__ F, const T* __restrict__ ab,
                 const T* __restrict__ lt, const T* __restrict__ cth,
                 const T* __restrict__ ctl, const T* __restrict__ rows,
                 const T* __restrict__ sv, const int* __restrict__ sl,
-                T* __restrict__ part, int nl, int nm, int nt, int ntiles) {
+                T* __restrict__ part, int nl, int nm, int nt, int ntiles,
+                int spin, const int* __restrict__ dead) {
   constexpr int NW = NTHREADS / 32;  // warps per block
   constexpr int WPR = TX / 32;       // warps per m row
   __shared__ Stage<T, 1> sm;          // A is not staged: C = 1 keeps it small
@@ -359,15 +455,17 @@ analysis_kernel(const T* __restrict__ F, const T* __restrict__ ab,
   const int lane = tid & 31, warp = tid >> 5;
   const int m0 = blockIdx.y * MY, m = m0 + ty;
   const size_t plane = (size_t)nm * nt;
+  const T sgs = (spin & 1) ? T(-1) : T(1);
+  const int lbeg = MODE == WIGNER ? max(m0, spin) : m0;
   T* __restrict__ dst = part + (size_t)blockIdx.x * nl * nm * C;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    if (is_dead(dead, blockIdx.y, tile, ntiles)) continue;
     const int t = tile * TX + tx;
     const bool valid = t < nt && m < nm;
     const size_t mt = (size_t)m * nt + t;
     const Ring<T> r = load_ring(cth, rows, t, nt, valid);
     const T xlo = valid ? ctl[t] : T(0);
-    const T seedv = valid ? sv[mt] : T(0);
-    const int seedl = valid ? sl[mt] : 0;
+    Recur<T> rc = load_recur(sv, sl, mt, plane, m, spin, valid);
     T fE[NFUN][C], fO[NFUN][C];
 #pragma unroll
     for (int f = 0; f < NFUN; ++f)
@@ -382,18 +480,16 @@ analysis_kernel(const T* __restrict__ F, const T* __restrict__ ab,
           fO[f][c] = fE[f][c];
         }
       }
-    State<T> s{T(0), T(0), 0};
-    for (int l0 = m0; l0 < nl; l0 += LC) {
+    for (int l0 = lbeg; l0 < nl; l0 += LC) {
       __syncthreads();
       stage<T, 1>(ab, lt, nullptr, sm, l0, m0, nl, nm, tid);
       __syncthreads();
       const int n = min(LC, nl - l0);
       for (int i = 0; i < n; ++i) {
         const int l = l0 + i;
-        T lam1;
-        const T lam = step(s, l, m, sm.a[i][ty], sm.b[i][ty], r.ct, xlo, seedv, seedl, lam1);
         T u[NFUN];
-        mode_funcs(u, lam, lam1, l, m, sm.e[i][ty], sm.nrm[i], sm.hp[i], r);
+        advance(u, rc, l, m, sm.a[i][ty], sm.b[i][ty], sm.e[i][ty], sm.nrm[i], sm.hp[i], r,
+                xlo, sgs);
         const bool odd = (l + m) & 1;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
@@ -404,7 +500,7 @@ analysis_kernel(const T* __restrict__ F, const T* __restrict__ ab,
           const T v = warp_sum(tot);
           if (lane == 0) red[warp][i][c] = v;
         }
-        if ((l & 7) == 7) rescale(s);
+        if ((l & 7) == 7) rescale(rc);
       }
       __syncthreads();
       // sum the warps of each m row; the same thread owns the same
@@ -432,17 +528,20 @@ template <typename T, bool SYM>
 int launch_synthesis(int C, const void* A, const void* ab, const void* lt,
                      const void* cth, const void* ctl, const void* rows,
                      const void* sv, const void* sl, void* out, int nl, int nm,
-                     int nt, cudaStream_t st) {
+                     int nt, int spin, const void* dead, cudaStream_t st) {
   const dim3 block(TX, MY), grid((nt + TX - 1) / TX, (nm + MY - 1) / MY);
   if (grid.x == 0 || grid.y == 0 || nl == 0) return 0;
   const T* a = static_cast<const T*>(A);
   T* o = static_cast<T*>(out);
+  const int* dd = static_cast<const int*>(dead);
   switch (C) {
     case 2:
-      synthesis_kernel<T, 2, SYM><<<grid, block, 0, st>>>(a, KERNEL_ARGS(T), o, nl, nm, nt);
+      synthesis_kernel<T, 2, SYM><<<grid, block, 0, st>>>(a, KERNEL_ARGS(T), o, nl, nm, nt,
+                                                          spin, dd);
       break;
     case 4:
-      synthesis_kernel<T, 4, SYM><<<grid, block, 0, st>>>(a, KERNEL_ARGS(T), o, nl, nm, nt);
+      synthesis_kernel<T, 4, SYM><<<grid, block, 0, st>>>(a, KERNEL_ARGS(T), o, nl, nm, nt,
+                                                          spin, dd);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -454,19 +553,23 @@ template <typename T, bool SYM>
 int launch_analysis(int C, const void* F, const void* ab, const void* lt,
                     const void* cth, const void* ctl, const void* rows,
                     const void* sv, const void* sl, void* part, int nl, int nm,
-                    int nt, int nplanes, cudaStream_t st) {
+                    int nt, int nplanes, int spin, const void* dead,
+                    cudaStream_t st) {
   const int ntiles = (nt + TX - 1) / TX;
   const dim3 block(TX, MY), grid(nplanes, (nm + MY - 1) / MY);
   if (ntiles == 0 || grid.y == 0 || nl == 0) return 0;
   if (nplanes < 1 || nplanes > ntiles) return (int)cudaErrorInvalidValue;
   const T* f = static_cast<const T*>(F);
   T* p = static_cast<T*>(part);
+  const int* dd = static_cast<const int*>(dead);
   switch (C) {
     case 2:
-      analysis_kernel<T, 2, SYM><<<grid, block, 0, st>>>(f, KERNEL_ARGS(T), p, nl, nm, nt, ntiles);
+      analysis_kernel<T, 2, SYM><<<grid, block, 0, st>>>(f, KERNEL_ARGS(T), p, nl, nm, nt,
+                                                         ntiles, spin, dd);
       break;
     case 4:
-      analysis_kernel<T, 4, SYM><<<grid, block, 0, st>>>(f, KERNEL_ARGS(T), p, nl, nm, nt, ntiles);
+      analysis_kernel<T, 4, SYM><<<grid, block, 0, st>>>(f, KERNEL_ARGS(T), p, nl, nm, nt,
+                                                         ntiles, spin, dd);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -477,19 +580,23 @@ int launch_analysis(int C, const void* F, const void* ab, const void* lt,
 }  // namespace
 
 // f64 selects the double instantiation; C (2 or 4) is the coefficient
-// count: a block's columns are (re, im) pairs, so C is always even. The
-// entry points are named pt_<kernel>_<mode>.
+// count: a block's columns are (re, im) pairs, so C is always even. spin is
+// read in wigner mode only; dead is the dead-tile table (int [m blocks, ring
+// tiles], 1 = skip) or null. The entry points are named pt_<kernel>_<mode>.
 #define SYNTH_ENTRY(NAME, SYM)                                                  \
   extern "C" int PT_ENTRY(NAME)(int f64, int C, const void* A, const void* ab,  \
                                 const void* lt, const void* cth,                \
                                 const void* ctl, const void* rows,              \
                                 const void* sv, const void* sl, void* out,      \
-                                int nl, int nm, int nt, void* stream) {         \
+                                int nl, int nm, int nt, int spin,               \
+                                const void* dead, void* stream) {               \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                        \
     return f64 ? launch_synthesis<double, SYM>(C, A, ab, lt, cth, ctl, rows, sv, \
-                                               sl, out, nl, nm, nt, st)         \
+                                               sl, out, nl, nm, nt, spin, dead,  \
+                                               st)                              \
                : launch_synthesis<float, SYM>(C, A, ab, lt, cth, ctl, rows, sv,  \
-                                              sl, out, nl, nm, nt, st);         \
+                                              sl, out, nl, nm, nt, spin, dead,   \
+                                              st);                              \
   }
 
 #define ANAL_ENTRY(NAME, SYM)                                                   \
@@ -497,19 +604,25 @@ int launch_analysis(int C, const void* F, const void* ab, const void* lt,
                                 const void* lt, const void* cth,                \
                                 const void* ctl, const void* rows,              \
                                 const void* sv, const void* sl, void* part,     \
-                                int nl, int nm, int nt, int nplanes,            \
-                                void* stream) {                                 \
+                                int nl, int nm, int nt, int nplanes, int spin,  \
+                                const void* dead, void* stream) {               \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                        \
     return f64 ? launch_analysis<double, SYM>(C, F, ab, lt, cth, ctl, rows, sv,  \
-                                              sl, part, nl, nm, nt, nplanes, st) \
+                                              sl, part, nl, nm, nt, nplanes,     \
+                                              spin, dead, st)                   \
                : launch_analysis<float, SYM>(C, F, ab, lt, cth, ctl, rows, sv,   \
-                                             sl, part, nl, nm, nt, nplanes, st); \
+                                             sl, part, nl, nm, nt, nplanes,      \
+                                             spin, dead, st);                   \
   }
 
+#if LEGENDRE_MODE != 4  // the wigner mode has no half-sky kernels
 SYNTH_ENTRY(pt_sym_synthesis, true)
-SYNTH_ENTRY(pt_full_synthesis, false)
 ANAL_ENTRY(pt_sym_analysis, true)
+#endif
+SYNTH_ENTRY(pt_full_synthesis, false)
 ANAL_ENTRY(pt_full_analysis, false)
 
-// Kernel tile sizes, so the host can size the partial planes.
+// Kernel tile sizes, so the host can size the partial planes and the
+// dead-tile table.
 extern "C" int PT_ENTRY(pt_tile_theta)() { return TX; }
+extern "C" int PT_ENTRY(pt_tile_m)() { return MY; }

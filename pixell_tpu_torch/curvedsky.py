@@ -1,5 +1,5 @@
-"""Curved-sky harmonic analysis on ndmaps, spin 0, 1 and 2 and
-derivatives (counterpart of pixell_tpu/curvedsky.py).
+"""Curved-sky harmonic analysis on ndmaps, any spin and derivatives
+(counterpart of pixell_tpu/curvedsky.py).
 
 Ports the map-level SHT path: alm_info (pixell_tpu/curvedsky.py:38),
 analyse_geometry (:327), ring reorientation (:400-419), alm2map (:505) and
@@ -13,7 +13,7 @@ prepare_alm) do so on device="cuda" unless told otherwise; alm2map and
 map2alm follow the map's device. accuracy="high" runs the Legendre
 recurrence in float64 whatever the map's dtype. Theta banding
 (SYNTH_BAND_BYTES) is not ported: it was sized for a 16 GB chip. Not ported
-yet, and raising NotImplementedError: spin > 2, adjoint, the "general"
+yet, and raising NotImplementedError: adjoint, the "general"
 geometry method, map2alm on "cyl" geometries and mesh= (multi-device).
 """
 from __future__ import annotations

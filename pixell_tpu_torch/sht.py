@@ -1,5 +1,5 @@
-"""Ring-based spherical harmonic transforms, spin 0, 1 and 2 and
-derivatives (counterpart of pixell_tpu/sht.py).
+"""Ring-based spherical harmonic transforms, any spin and derivatives
+(counterpart of pixell_tpu/sht.py).
 
 Maps are [..., nt, nphi] tensors with rings at colatitudes theta[nt], each
 sampled at phi_j = phi0 + 2 pi j/nphi. The Legendre stage is
@@ -9,8 +9,8 @@ ring stage is torch.fft.
 alm are triangular m-major (healpy-compatible): index = m(2 lmax+1-m)/2 + l.
 The rectangular [nl, nm] view is an index gather with cached index
 tensors; the reference's pad/reshape fold is a TPU-only design and is not
-ported. Spin > 2 (the reference's Wigner-d engine) raises
-NotImplementedError.
+ported. Spins 1 and 2 use closed-form mode functions of the Legendre
+recurrence; higher spins the Wigner-d engine (ops.sht_core wigner_values).
 """
 from __future__ import annotations
 import functools
@@ -178,8 +178,7 @@ def alm2coef(alm, lmax, mmax=None):
 
 def _spin_blocks(spin, ncomp):
 	"""(spin, first, last) component blocks (pixell_tpu.sht._spin_blocks
-	:599): a spin-0 block is one component, a spin-s block two. Spin > 2
-	raises NotImplementedError (the Wigner-d engine is not ported)."""
+	:599): a spin-0 block is one component, a spin-s block two."""
 	blocks = []
 	i = 0; si = 0
 	spins = np.atleast_1d(spin).astype(int)
@@ -187,7 +186,6 @@ def _spin_blocks(spin, ncomp):
 		s = int(spins[min(si, len(spins)-1)])
 		step = 1 if s == 0 else 2
 		if i + step > ncomp: step, s = ncomp - i, 0
-		if s > 2: raise NotImplementedError("spin > 2 (the Wigner-d engine) is not ported")
 		blocks.append((s, i, i+step))
 		i += step; si += 1
 	return blocks
@@ -196,6 +194,12 @@ def _spin_blocks(spin, ncomp):
 def _mul_i(z):
 	"""i*z (pixell_tpu.sht._mul_i :405)."""
 	return torch.complex(-z.imag, z.real)
+
+
+def _spin_mode(s):
+	"""(engine mode, its spin argument) of a spin-s block: the closed-form
+	modes for s = 1, 2, the Wigner-d engine above."""
+	return ("spin%d" % s, None) if s <= 2 else ("wigner", s)
 
 
 def _leg_dtype(dtype, leg_dtype=None):
@@ -235,7 +239,8 @@ def synthesis(alm, theta, nphi, phi0=0.0, lmax=None, mmax=None, spin=(0, 2),
 			Gc = _coef2c(G.to(rdt), i2-i1)[0]                 # [k, nm, nt]
 			outs.append(ring_synthesis(Gc, phi0, nphi))
 			continue
-		G = sht_cuda.synthesis_scan(A, theta, lmax, mmax, "spin%d" % s, dtype=ldt)
+		mode, ws = _spin_mode(s)
+		G = sht_cuda.synthesis_scan(A, theta, lmax, mmax, mode, dtype=ldt, s=ws)
 		Gc = _coef2c(G.to(rdt), 2)                            # [2(fun), 2(EB), nm, nt]
 		# P1_m = -(w a_E + i x a_B), P2_m = -(w a_B - i x a_E)
 		P1 = -(Gc[0, 0] + _mul_i(Gc[1, 1]))
@@ -280,7 +285,8 @@ def adjoint_synthesis_phase(F, theta, lmax, mmax=None, spin=(0, 2), deriv=False,
 			# a_E = -sum w Q - i sum x U ;  a_B = -sum w U + i sum x Q
 			Fc = torch.stack([torch.stack([-Qf, -Uf]), torch.stack([-_mul_i(Uf), _mul_i(Qf)])])
 			Fr = torch.stack([Fc.real[:, 0], Fc.imag[:, 0], Fc.real[:, 1], Fc.imag[:, 1]], 1)
-			A = sht_cuda.analysis_scan(Fr, theta, lmax, mmax, "spin%d" % s, dtype=ldt).to(rdt)
+			mode, ws = _spin_mode(s)
+			A = sht_cuda.analysis_scan(Fr, theta, lmax, mmax, mode, dtype=ldt, s=ws).to(rdt)
 		A = A.reshape(A.shape[:-1] + (k, 2))
 		outs.append(finish(torch.complex(A[..., 0], A[..., 1]).movedim(-1, -3)))   # [k, nl, nm]
 	return torch.cat(outs, -3 if rect_out else -2).to(cdt)

@@ -110,9 +110,6 @@ def test_unported_options_raise():
 			curvedsky.alm2map(alm, m, **kw)
 		with pytest.raises(NotImplementedError):
 			curvedsky.map2alm(m, lmax=LMAX, **kw)
-	with pytest.raises(NotImplementedError):   # spin > 2: the Wigner engine
-		curvedsky.alm2map(torch.zeros((3, alm.shape[0]), dtype=alm.dtype),
-			enmap.zeros((3,) + SHAPE, wcs, device="cpu"), spin=[0, 3])
 	plain = wcsutils.WCS.from_fields(["", ""], [0, 0], [1, 1], [1, 1])
 	with pytest.raises(NotImplementedError):
 		curvedsky.map2alm(enmap.zeros(SHAPE, plain, device="cpu"), lmax=LMAX)

@@ -100,9 +100,6 @@ def test_spin0_transforms():
 	F = sht.ring_analysis(m, phi0, mmax + 1)
 	close(sht.analysis_phase(F, theta, lmax, w, nphi, mmax=mmax, spin=[0]),
 		jsht.analysis_phase(F.numpy(), theta, lmax, w, nphi, mmax=mmax, spin=[0]))
-	with pytest.raises(NotImplementedError):   # spin > 2: the Wigner engine
-		sht.synthesis(torch.zeros((3, sht.nalm(lmax)), dtype=torch.complex128), theta, nphi,
-			spin=[0, 3])
 
 
 def spin_setup(ncomp, lmax=15, mmax=12, nt=34):
