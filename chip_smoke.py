@@ -5,11 +5,11 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from pixell_tpu_torch/csrc with nvcc
-(legendre.cu once per Legendre mode and fma_peak.cu, all compilers started
-together) and prints each kernel's registers and spills, then runs the
-phases below (all of them with no arguments; --phases with a choice of
-k9,kernels,lstop,slice,timing runs those alone, for work on one phase, and
-gives no verdict):
+(legendre.cu once per mode, blockleg.cu once per Legendre mode and
+fma_peak.cu, all compilers started together) and prints each kernel's
+registers and spills, then runs the phases below (all of them with no
+arguments; --phases with a choice of k9,kernels,lstop,slice,blocked,timing
+runs those alone, for work on one phase, and gives no verdict):
 
 1. K9 phase: the FMA-peak kernel against its plain PyTorch chain on a small
    grid (the kernel rounds once per step, the chain twice: within
@@ -61,7 +61,29 @@ gives no verdict):
    in f64 (1e-10); and small transforms (spin 0, deriv, spin 1, spin 3;
    lmax 48, f64) on the card against the CPU (1e-10). Every kernel must have
    been launched, in its path's mode, by the lmax-750 f32 path of that mode.
-4. timing: sequential roundtrips timed with CUDA events after warmup (40
+4. blocked phase, the block-Legendre split (K8: blk_synthesis and
+   blk_analysis, csrc/blockleg.cu; K3/K4's stop degrees and state handoff)
+   at lmax = mmax = 2000, float32:
+   - per mode (scalar and deriv and spin1 with C = 2, spin2 with C = 4), on
+     the first 2048 bulk rings of the 4032 upsampled Fejer-1 rings: K3 and
+     K4 with the split's stop degrees and the state handed over, and the
+     block kernels resumed from that state, each against its plain version
+     in float64 (within twice the float32 plain version's own error plus
+     2e-6; the state compared unscaled); prefix plus suffix against K3/K4
+     run to the end (0 < difference < 3e-5 scalar, 5e-5 deriv and spin1,
+     2e-4 spin2, of the largest value; tiles without a suffix, and degrees
+     below every handoff, bit-identical); the times of the block kernels,
+     of the dumping K3/K4 and of K3/K4 run to the end, and the block
+     kernels' bound;
+   - through curvedsky under `with sht.blocked():`, each call beside the
+     same call outside it (same bounds; CUDA-event times of both): map2alm
+     of full-sky 2160x4320 maps, spin 0, IQU, spin 1 and deriv, with the
+     alm roundtrip held to 5e-4 (spin 0) / 2e-3; alm2map, spin 0, IQU,
+     spin 1 and deriv, onto the declination band -63..+23 degrees of that
+     grid (rows 324:1356, 1032 rings, not south-symmetric). The block
+     kernels must launch in each call's mode inside the context, not at all
+     outside it, and not at lmax 750.
+5. timing: sequential roundtrips timed with CUDA events after warmup (40
    spin-0, 10 IQU and 10 spin-[0, 3] at lmax 750; 5, 3 and 3 at lmax 2000)
    and a profiler breakdown of each: device time by kernel and the device's
    busy share of the wall time.
@@ -84,6 +106,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LEGENDRE_SOURCE = "pixell_tpu_torch/csrc/legendre.cu"
+BLOCKLEG_SOURCE = "pixell_tpu_torch/csrc/blockleg.cu"
 FMA_SOURCE = "pixell_tpu_torch/csrc/fma_peak.cu"
 # the TPU kernel each CUDA kernel replaces: its pallas_call site
 REPLACES = {
@@ -92,6 +115,9 @@ REPLACES = {
 	"full_synthesis": "pixell_tpu/ops/sht_pallas.py:1668",
 	"full_analysis": "pixell_tpu/ops/sht_pallas.py:2089",
 	"fma_peak": "scripts/vpu_peak.py:58",
+	# the scalar and the stream kernels of the block-Legendre split
+	"blk_synthesis": ("pixell_tpu/ops/sht_pallas.py:997", "pixell_tpu/ops/sht_pallas.py:1145"),
+	"blk_analysis": ("pixell_tpu/ops/sht_pallas.py:1319", "pixell_tpu/ops/sht_pallas.py:1457"),
 }
 MODES = ("scalar", "deriv", "spin1", "spin2", "wigner")   # in the build's order
 WIGNER_SPIN = 3   # the spin the wigner mode is driven with
@@ -184,15 +210,17 @@ def print_build_summary(log):
 	for line in log.splitlines():
 		m = re.search(r"-DLEGENDRE_MODE=(\d)", line)
 		if line.startswith(("nvcc", "/")) and " -c " in line:
-			obj = ("legendre." + MODES[int(m.group(1))]) if m else \
-				os.path.basename(line.split()[-1])
+			src = os.path.basename(line.split()[-1])
+			obj = ("%s.%s" % (src.split(".")[0], MODES[int(m.group(1))])) if m else src
 		m = re.search(r"Compiling entry function '([^']+)'", line)
 		if m:
 			k = re.search(r"(synthesis|analysis)_kernelI([fd])Li(\d+)ELb([01])", m.group(1))
 			f = re.search(r"fma_peak_kernelI([fd])", m.group(1))
+			b = re.search(r"blk_(synthesis|analysis)_kernelILi(\d+)E", m.group(1))
 			entry = ("%s<%s,C=%s,%s>" % (k.group(1), k.group(2), k.group(3),
 				"sym" if k.group(4) == "1" else "full")) if k else \
-				("fma_peak<%s>" % f.group(1) if f else m.group(1)[:60])
+				("fma_peak<%s>" % f.group(1) if f else
+				("blk_%s<C=%s>" % b.groups() if b else m.group(1)[:60]))
 		m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
 		if m: spill = int(m.group(1)) + int(m.group(2))
 		m = re.search(r"Used (\d+) registers", line)
@@ -319,7 +347,7 @@ def kernel_input(name, mode, lmax, mmax, nt, seed):
 # mirror's add in the half-sky kernel), a multiply-add per function and
 # one reduction add for analysis. The wigner mode steps a second branch
 # with the offset's multiply-add on both (7 + 2*2) and combines the two
-# into w and x (5). With a dead-tile table, only the triples of live
+# into w and x (5). With dead-tile stops, only the triples of live
 # blocks count: the others are not computed.
 STEP_OPS = 7
 MODE_OPS = {"scalar": 0, "deriv": 7, "spin1": 12, "spin2": 25, "wigner": 16}
@@ -461,10 +489,10 @@ def kernel_phase():
 			# the float32 bulk launches carry the dead-tile table, as on the main path
 			dead = None
 			if label.endswith("bulk"):
-				dead = sht_cuda.dead_tiles(theta, lmax, mmax, s or 0, dev)
+				dead = sht_cuda.dead_stops(theta, lmax, mmax, s or 0, dev)
 				if dead is None:
 					raise RuntimeError("%s %s %s: no dead tile in the table" % (name, mode, label))
-				print("dead tiles %s %s %s: %d of %d blocks" % (name, mode, label, int(dead.sum()),
+				print("dead tiles %s %s %s: %d of %d blocks" % (name, mode, label, int((dead == 0).sum()),
 					dead.numel()))
 			out = {}
 			for dt in (torch.float32, torch.float64):
@@ -555,7 +583,7 @@ def lstop_phase():
 			x = torch.from_numpy(kernel_input(name, mode, lmax, lmax, nt, 40 + i)).to(dev,
 				torch.float32)
 			g = sht_cuda.geom(theta, lmax, torch.float32, dev)
-			dead = sht_cuda.dead_tiles(theta, lmax, lmax, 0, dev)
+			dead = sht_cuda.dead_stops(theta, lmax, lmax, 0, dev)
 			if dead is None:
 				raise RuntimeError("lstop %s %s: no dead tile at lmax %d" % (name, mode, lmax))
 			skip, full = kern(x, g, lmax, mode, dead), kern(x, g, lmax, mode, None)
@@ -572,7 +600,7 @@ def lstop_phase():
 			print("lstop  %-14s %-6s lmax %d, nm %d, nt %d, C %d, f32: %d of %d blocks dead; "
 				"with the table %.4f ms (%s; bound %.4f), without %.4f ms (%s; bound %.4f); "
 				"difference %.3e of the largest value (bound %.0e) %s" % (name, mode, lmax,
-				lmax + 1, nt, C, int(dead.sum()), dead.numel(), ms_skip, how_skip, b_skip, ms_full,
+				lmax + 1, nt, C, int((dead == 0).sum()), dead.numel(), ms_skip, how_skip, b_skip, ms_full,
 				how_full, b_full, err, tol, "ok" if ok else "FAIL"))
 			if not ok:
 				raise RuntimeError("lstop %s %s: the skipped tiles are not negligible" % (name, mode))
@@ -702,7 +730,7 @@ def wigner_against_spin2(lmax, nt):
 def slice_phase():
 	from pixell_tpu_torch import sht, fft
 	from pixell_tpu_torch.ops import sht_cuda
-	allk = sht_cuda.KERNELS
+	allk = sht_cuda.LEGENDRE_KERNELS
 	f32, f64 = torch.float32, torch.float64
 	launches = {}
 	counts, _ = drive("spin-0 lmax-750 f32 roundtrip", "scalar",
@@ -763,7 +791,272 @@ def slice_phase():
 
 
 # ---------------------------------------------------------------------------
-# 4. timing
+# 4. the block-Legendre split
+# ---------------------------------------------------------------------------
+# split against unsplit, of the largest value: the bounds of the reference's
+# tests/test_pallas.py test_blocked_legendre_split
+BLK_TOL = {"scalar": 3e-5, "deriv": 5e-5, "spin1": 5e-5, "spin2": 2e-4}
+BLK_LMAX = 2000
+BAND_ROWS = slice(324, 1356)   # declinations -63 .. +23 degrees of the 2160-row grid
+
+
+def blk_counts(tab, lmax, nm):
+	"""(m rows x degrees, m rows x blocks) the block kernels run on the
+	tiles of tab: every degree from its tile's first block to lmax."""
+	from pixell_tpu_torch.ops import sht_cuda
+	start = tab.start.cpu().numpy().astype(np.int64)
+	nlb = -(-(lmax + 1)//sht_cuda.BLK_LB)
+	rows = np.minimum(tab.tile_m, nm - np.arange(start.shape[0])*tab.tile_m)[:, None]
+	deg = np.maximum(lmax + 1 - start*sht_cuda.BLK_LB, 0)
+	return int((rows*deg).sum()), int((rows*np.maximum(nlb - start, 0)).sum())
+
+
+def blk_ops(name, mode, tab, lmax, nm, C):
+	"""Operations of a block kernel's own arithmetic (an FMA counts 2). Per
+	m row and degree, at each of the 128 nodes: the two chain steps (6) and,
+	per column and stream, two fold FMAs (synthesis) or the two weighted
+	products and their sums (6, analysis) plus the node sum's add. Per m row
+	and block: the node -> ring product of the fold rows and the four chain
+	ends over the tile's rings (synthesis), or the ring -> node contraction
+	of the weighted fields and the chain-end product (analysis), 2 x rows x
+	128 x tile_t, and the emission from the state (a few per ring, counted
+	as 4 per row)."""
+	from pixell_tpu_torch.ops import sht_cuda, sht_core
+	NS, JP = len(sht_core.BLK_FAM[mode]), sht_cuda.BLK_JP
+	mdeg, mblk = blk_counts(tab, lmax, nm)
+	rows = 2*NS*C + 4
+	if name == "blk_synthesis":
+		return mdeg*JP*(6 + 4*NS*C) + mblk*tab.tile_t*rows*(2*JP + 4)
+	return mdeg*JP*(6 + 6*NS*C + C) + mblk*tab.tile_t*rows*(2*JP + 4)
+
+
+def blk_bytes(name, mode, tab, lmax, nm, nt, C):
+	"""Each input read once and each output written once, in float32."""
+	from pixell_tpu_torch.ops import sht_core
+	nl, nf, NS = lmax + 1, sht_core.NFUN[mode], len(sht_core.BLK_FAM[mode])
+	tables = (2 + (NS if mode != "scalar" else 0))*nl*nm + tab.start.numel() \
+		+ tab.ctv.numel() + tab.W.numel() + (0 if mode == "scalar" else 4*nt)
+	return 4*(nl*nm*C + nf*C*nm*nt + 3*nm*nt + tables)
+
+
+def blocked_share(theta, lmax, tab, lstop):
+	"""The share of the live (l, m, theta) triples of K3/K4 on the rings
+	theta that the split hands to the block kernels."""
+	from pixell_tpu_torch.ops import sht_cuda
+	nm, nt = lmax + 1, len(theta)
+	stop = sht_cuda.stop_entries(lstop, nm, nt).cpu().numpy().astype(np.int64)
+	dead = sht_cuda.dead_stops(theta, lmax, lmax, 0, "cpu")
+	live = np.ones((nm, nt), bool) if dead is None else sht_cuda.live_mask(dead, nm, nt).numpy()
+	m = np.arange(nm)[:, None]
+	total = (np.maximum(lmax + 1 - m, 0)*live).sum()
+	suffix = (np.maximum(lmax + 1 - np.maximum(stop, m), 0)*(stop > 0)).sum()
+	return float(suffix)/float(total)
+
+
+def unscaled(state, S):
+	"""The true (prev, curr) of a scaled state [3, nm, nt], in float64."""
+	return state[:2].double()*torch.exp2(S*state[2].double())
+
+
+def held(label, err, perr, floor=2e-6):
+	"""A float32 kernel's error against the float64 plain version beside the
+	float32 plain version's: within twice that plus floor."""
+	tol = 2*perr + floor
+	ok = err <= tol
+	print("blocked %s: rel err %.3e (plain %.3e, bound %.3e) %s" % (label, err, perr, tol,
+		"ok" if ok else "FAIL"))
+	if not ok: raise RuntimeError("blocked %s: kernel disagrees with its plain version" % label)
+
+
+def blocked_kernels(mode, theta, records):
+	"""K3/K4 with the handoff and the block kernels in mode on the rings
+	theta at BLK_LMAX, float32, against their plain versions and against
+	the unsplit kernels; adds the block kernels' records."""
+	from pixell_tpu_torch.ops import sht_cuda, sht_core
+	dev = torch.device("cuda")
+	lmax, C, nt = BLK_LMAX, ncoef(mode), len(theta)
+	nl = nm = lmax + 1
+	f32, f64 = torch.float32, torch.float64
+	split = sht_cuda.blk_tables(theta, lmax, lmax, dev)
+	if split is None: raise RuntimeError("blocked: no tile with a blocked suffix at lmax %d" % lmax)
+	tab, lstop = split
+	nlb = -(-nl//sht_cuda.BLK_LB)
+	stop = sht_cuda.stop_entries(lstop, nm, nt)
+	handed = (stop > 0) & (stop < nl)          # entries whose state is handed over
+	if mode == "scalar":
+		print("blocked tiles of %d x %d at lmax %d on %d rings: %d of %d with a suffix, first "
+			"blocks %d..%d of %d; the block kernels take %.1f %% of the live (l, m, theta) triples"
+			% (tab.tile_m, tab.tile_t, lmax, nt, int((tab.start < nlb).sum()), tab.start.numel(),
+			int(tab.start.min()), int(tab.start[tab.start < nlb].max()), nlb,
+			100*blocked_share(theta, lmax, tab, lstop.cpu())))
+	g32, g64 = sht_cuda.geom(theta, lmax, f32, dev), sht_cuda.geom(theta, lmax, f64, dev)
+	dead = sht_cuda.dead_stops(theta, lmax, lmax, 0, dev)
+	tab64 = sht_core.BlkTables(tab.start, tab.ctv.double(),
+		torch.from_numpy(sht_cuda.blk_node_tables(theta, tab.tile_t)[1]).to(dev), tab.tile_m, tab.tile_t)
+	for i, name in enumerate(("full_synthesis", "full_analysis")):
+		syn = name.endswith("synthesis")
+		kern, blk = getattr(sht_cuda, name), getattr(sht_cuda, "blk_" + name.split("_")[1])
+		plain, blk_plain = sht_cuda.PLAIN[name], sht_cuda.PLAIN[blk.__name__]
+		x = torch.from_numpy(kernel_input(name, mode, lmax, lmax, nt, 70 + i)).to(dev)
+		x32 = x.float()
+		# the stepwise prefix and the state it hands over
+		k1, kstate = kern(x32, g32, lmax, mode, lstop, True)
+		torch.cuda.synchronize()
+		p1, pstate = plain(x32, g32, lmax, mode, lstop, True)
+		r1, rstate = plain(x, g64, lmax, mode, lstop, True)
+		tag = "%s %s" % (name, mode)
+		held("%s prefix" % tag, relerr(k1, r1), relerr(p1, r1))
+		S32, S64 = sht_core.scale_log2(f32), sht_core.scale_log2(f64)
+		rs = unscaled(rstate, S64)[:, handed]
+		held("%s state handed over (unscaled; %d entries)" % (tag, int(handed.sum())),
+			relerr(unscaled(kstate, S32)[:, handed], rs), relerr(unscaled(pstate, S32)[:, handed], rs))
+		if not bool(((kstate[2] >= -2) & (kstate[2] <= 0))[handed].all()):
+			raise RuntimeError("blocked %s: a handed-over level outside -2..0" % tag)
+		# the block kernel from that state
+		k2 = blk(x32, kstate, tab, g32, lmax, mode)
+		torch.cuda.synchronize()
+		if not bool(torch.isfinite(k2).all()): raise RuntimeError("blocked blk_%s: non-finite" % tag)
+		p2 = blk_plain(x32, kstate, tab, g32, lmax, mode)
+		r2 = blk_plain(x, kstate.double(), tab64, g64, lmax, mode)
+		held("%s %s suffix from that state" % (blk.__name__, mode), relerr(k2, r2), relerr(p2, r2))
+		# prefix + suffix against the unsplit kernel
+		full, split = kern(x32, g32, lmax, mode, dead), k1 + k2
+		err = relerr(split, full)
+		if syn:   # entries of tiles without a suffix
+			exact = torch.equal(split[..., ~handed], full[..., ~handed])
+		else:     # degrees below every tile's handoff
+			first = int(tab.start.min())*sht_cuda.BLK_LB
+			exact = torch.equal(split[:first], full[:first])
+		ok = 0 < err < BLK_TOL[mode] and exact
+		print("blocked %s split against unsplit: difference %.3e of the largest value (bounds 0 < . "
+			"< %.0e); %s bit-identical: %s %s" % (tag, err, BLK_TOL[mode],
+			"tiles without a suffix" if syn else "degrees below every handoff", exact,
+			"ok" if ok else "FAIL"))
+		if not ok: raise RuntimeError("blocked %s: split and unsplit kernels disagree" % tag)
+		# times: the block kernel, the dumping K3/K4, K3/K4 to the end
+		kname = name.split("_")[1] + "_kernel"
+		ms_blk, how = kernel_ms(lambda: blk(x32, kstate, tab, g32, lmax, mode), 5, "blk_" + kname)
+		ms_pre, _ = kernel_ms(lambda: kern(x32, g32, lmax, mode, lstop, True), 5, kname)
+		ms_full, _ = kernel_ms(lambda: kern(x32, g32, lmax, mode, dead), 5, kname)
+		plain_ms = cuda_ms(lambda: blk_plain(x32, kstate, tab, g32, lmax, mode), 1)
+		b_ms, b_by = bound(blk_ops(blk.__name__, mode, tab, lmax, nm, C),
+			blk_bytes(blk.__name__, mode, tab, lmax, nm, nt, C), f32)
+		rec = {"name": "%s[%s]" % (blk.__name__, mode), "route": "cuda", "source": BLOCKLEG_SOURCE,
+			"replaces": REPLACES[blk.__name__][0 if mode == "scalar" else 1], "mode": mode,
+			"max_abs_err": float((k2.double() - r2).abs().max()), "ms": ms_blk, "ms_from": how,
+			"plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+			"stepwise_suffix_ms": ms_full - ms_pre, "prefix_ms": ms_pre, "unsplit_ms": ms_full,
+			"shape": "lmax %d, nm %d, nt %d, C %d, float32" % (lmax, nm, nt, C)}
+		print("time   %-14s %-6s %s: kernel %.4f ms (%s), plain %.2f ms, bound %.4f ms (%s, %.1f %% "
+			"of it reached); no library call; %s with the handoff %.4f ms, to the end %.4f ms: "
+			"the same suffix stepwise %.4f ms, split %.4f ms against unsplit %.4f ms" % (
+			blk.__name__, mode, rec["shape"], ms_blk, how, plain_ms, b_ms, b_by, 100*b_ms/ms_blk,
+			name, ms_pre, ms_full, ms_full - ms_pre, ms_pre + ms_blk, ms_full))
+		records[(blk.__name__, mode)] = rec
+
+
+def blk_drive(label, fn, modes, blocked=True):
+	"""Run fn under sht.blocked() (or outside it) with the launch counts set
+	to 0 just before and read just after. Inside, both block kernels' counts
+	by mode are returned and each mode of modes must have launched the kernel
+	given with it; outside, no block kernel may launch."""
+	from pixell_tpu_torch import sht
+	from pixell_tpu_torch.ops import sht_cuda
+	sht_cuda.reset_launches()
+	with sht.blocked(blocked):
+		out = fn()
+	torch.cuda.synchronize()
+	counts = {(k, md): n for (k, md), n in sht_cuda.LAUNCHES_BY_MODE.items()
+		if k in sht_cuda.BLK_KERNELS and n}
+	print("launches of the block kernels in %s, %s sht.blocked(): %s" % (label,
+		"under" if blocked else "outside", counts))
+	if not blocked:
+		if counts: raise RuntimeError("%s: block kernels launched outside sht.blocked()" % label)
+	else:
+		missing = [km for km in modes if not counts.get(km)]
+		if missing: raise RuntimeError("%s: not launched under sht.blocked(): %s" % (label, missing))
+	return counts, out
+
+
+def blocked_paths():
+	"""The curvedsky calls that take the split, under sht.blocked() and
+	outside it. Returns the block kernels' launches by (kernel, mode)."""
+	from pixell_tpu_torch import enmap, curvedsky, sht
+	lmax, f32 = BLK_LMAX, torch.float32
+	shape, wcs = enmap.fullsky_geometry(shape=(2160, 4320), variant="fejer1")
+	bshape, bwcs = enmap.slice_geometry(shape, wcs, (BAND_ROWS, slice(None)))
+	minfo = curvedsky.analyse_geometry(bshape, bwcs)
+	dec = np.degrees(np.pi/2 - minfo.theta)
+	print("band geometry %s: case %s, ypad %s, declination %.2f .. %.2f degrees" % (bshape,
+		minfo.case, minfo.ypad, dec.min(), dec.max()))
+	if minfo.case != "2d" or minfo.ypad[0] <= 0 or len(minfo.theta) != 1032:
+		raise RuntimeError("the band is not a 2d geometry of 1032 rings inside the full grid")
+	total = {}
+	def both(label, fn, modes, tol, ref=None, ref_tol=None):
+		"""fn under blocked() and outside: launches, difference, times."""
+		counts, a = blk_drive(label, fn, modes)
+		_, b = blk_drive(label, fn, modes, blocked=False)
+		for km, n in counts.items(): total[km] = total.get(km, 0) + n
+		if tuple(a.shape) != tuple(b.shape) or not bool(torch.isfinite(a).all()):
+			raise RuntimeError("%s: bad output under sht.blocked()" % label)
+		err = relerr(a, b)
+		with sht.blocked(): ms_on = cuda_ms(fn, 2)
+		ms_off = cuda_ms(fn, 2)
+		msg = "blocked path %s: %.3f ms under sht.blocked(), %.3f ms outside; difference %.3e of " \
+			"the largest value (bounds 0 < . < %.0e)" % (label, ms_on, ms_off, err, tol)
+		ok = 0 < err < tol
+		if ref is not None:
+			rerr = relerr(a, ref)
+			msg += "; alm roundtrip rel err %.3e (bound %.0e)" % (rerr, ref_tol)
+			ok = ok and rerr <= ref_tol
+		print(msg, "ok" if ok else "FAIL")
+		if not ok: raise RuntimeError("blocked path %s outside its bounds" % label)
+	def data(x): return x.data if isinstance(x, enmap.ndmap) else x
+	cases = [("spin 0", (0,), "scalar", ["scalar"], 5e-4), ("IQU", (0, 2), "spin2", ["scalar", "spin2"], 2e-3),
+		("spin 1", (1,), "spin1", ["spin1"], 2e-3)]
+	for label, spin, mode, modes, rt_tol in cases:
+		alm = curvedsky.rand_alm(spectrum(lmax, spin), lmax=lmax, seed=5, dtype=torch.complex64)
+		if list(spin) == [0]: alm = alm[0]
+		pre = () if alm.ndim == 1 else (alm.shape[0],)
+		m = curvedsky.alm2map(alm, enmap.zeros(pre + shape, wcs, f32), spin=list(spin))
+		both("map2alm %s full sky" % label, lambda: curvedsky.map2alm(m, lmax=lmax, spin=list(spin)),
+			[("blk_analysis", md) for md in modes], BLK_TOL[mode], alm, rt_tol)
+		both("alm2map %s band" % label, lambda: data(curvedsky.alm2map(alm,
+			enmap.zeros(pre + bshape, bwcs, f32), spin=list(spin))),
+			[("blk_synthesis", md) for md in modes], BLK_TOL[mode])
+	alm = curvedsky.rand_alm(np.ones(lmax + 1), lmax=lmax, seed=6, dtype=torch.complex64)
+	grad = curvedsky.alm2map(alm, enmap.zeros((2,) + shape, wcs, f32), deriv=True)
+	both("map2alm deriv full sky", lambda: curvedsky.map2alm(grad, lmax=lmax, deriv=True),
+		[("blk_analysis", "deriv")], BLK_TOL["deriv"])
+	both("alm2map deriv band", lambda: data(curvedsky.alm2map(alm,
+		enmap.zeros((2,) + bshape, bwcs, f32), deriv=True)), [("blk_synthesis", "deriv")],
+		BLK_TOL["deriv"])
+	# below BLK_MINL, and on symmetric ring sets, nothing changes
+	counts, _ = blk_drive("the spin-0 lmax-750 roundtrip", lambda: roundtrip(750, (900, 1800), f32,
+		1e-4), [])
+	if counts: raise RuntimeError("block kernels launched at lmax 750")
+	return total
+
+
+def blocked_phase():
+	from pixell_tpu_torch import sht, fft
+	from pixell_tpu_torch.ops import sht_cuda
+	th_up = sht.ring_theta("F1", fft.fft_len(2*BLK_LMAX + 3, direction="above"))
+	nn, ns = sht_cuda.polar_counts(th_up, BLK_LMAX)
+	theta = th_up[nn:len(th_up) - ns][:sht_cuda.TCHUNK]
+	records = {}
+	for mode in ("scalar", "deriv", "spin1", "spin2"):
+		blocked_kernels(mode, theta, records)
+	launches = blocked_paths()
+	for (name, mode), rec in records.items():
+		rec["launches"] = launches.get((name, mode), 0)
+		if rec["launches"] == 0:
+			raise RuntimeError("%s in %s mode was not launched by the blocked paths" % (name, mode))
+	return records
+
+
+# ---------------------------------------------------------------------------
+# 5. timing
 # ---------------------------------------------------------------------------
 def roundtrip_step(lmax, shape, spin):
 	"""arr -> alm2map(map2alm(arr)) at lmax on the full-sky F1 map, f32."""
@@ -825,7 +1118,7 @@ def profile_roundtrips(lmax, shape, nrep=3, spin=(0,)):
 	print(ka.table(sort_by=key, row_limit=14, max_name_column_width=56))
 
 
-PHASES = ("k9", "kernels", "lstop", "slice", "timing")
+PHASES = ("k9", "kernels", "lstop", "slice", "blocked", "timing")
 
 
 def main():
@@ -849,7 +1142,7 @@ def main():
 	sht_cuda.library()
 	print("kernel build + load: %.1f s" % (time.perf_counter() - h0))
 	print_build_summary((_build.build_dir()/"build.log").read_text())
-	records, kernel_records, launches = [], {}, {}
+	records, kernel_records, launches, blk_records = [], {}, {}, {}
 	if "k9" in phases:
 		records = fma_phase()
 		print("phase K9 done at %.1f s" % (time.perf_counter() - t_start))
@@ -862,6 +1155,9 @@ def main():
 	if "slice" in phases:
 		launches = slice_phase()
 		print("phase slice done at %.1f s" % (time.perf_counter() - t_start))
+	if "blocked" in phases:
+		blk_records = blocked_phase()
+		print("phase blocked done at %.1f s" % (time.perf_counter() - t_start))
 	if "timing" in phases:
 		w = (0, WIGNER_SPIN)
 		time_roundtrips(750, (900, 1800), 40)
@@ -885,7 +1181,7 @@ def main():
 		rec["launches"] = launches[mode][(name, dt) if mode == "wigner" else name]
 	for rec in records:   # K9: summed over every driven path
 		rec["launches"] = sum(c["fma_peak"] for c in launches.values())
-	records = list(kernel_records.values()) + records
+	records = list(kernel_records.values()) + list(blk_records.values()) + records
 	print(card_line())
 	print(json.dumps({"kernels": records}))
 	print(json.dumps({"ok": True, "device": {"platform": "gpu",

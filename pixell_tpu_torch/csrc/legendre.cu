@@ -35,12 +35,20 @@
 // like the other modes, by arithmetic: ~23 operations per (l, m, theta)
 // triple for the two steps and the combination, before the accumulation.
 //
-// Dead tiles (the reference's lstop, _dead_table sht_pallas.py:677): K3/K4
-// take a table [m blocks, ring tiles] of blocks that lie beyond the horizon
-// of their rings, m_lo - s > lmax max(sin theta) + slack, where every value
-// is below ~1e-12. A dead synthesis block writes zeros and runs no l-loop;
-// analysis skips a dead ring tile in its plane loop. The exit is uniform over
-// the block, so the barriers stay safe. A null table skips nothing.
+// Stop degrees (the reference's lstop): K3/K4 take a table [m blocks, ring
+// tiles] of the degree before which each block's l-loop ends; a null table
+// runs every block to the end. 0 marks a dead block (_dead_table
+// sht_pallas.py:677), one beyond the horizon of its rings,
+// m_lo - s > lmax max(sin theta) + slack, where every value is below ~1e-12:
+// a dead synthesis block writes zeros and runs no l-loop, analysis skips a
+// dead ring tile in its plane loop. The exit is uniform over the block, so
+// the barriers stay safe.
+// State handoff (the reference's dump_state, sht_pallas.py:1546-1549,
+// :1619-1625, :2040-2046; Legendre modes): with a state buffer [3, nm, nt], each
+// thread writes its scaled recurrence state (prev, curr, level as a number)
+// as it leaves its loop. The block-Legendre kernels (blockleg.cu) resume from
+// it; their stop degrees are multiples of 8, so the state is handed over
+// just renormalized.
 //
 // Each kernel is templated on float (S = 60) and double (S = 850). The double
 // instantiation of K3/K4 is the near-pole pass that the TPU ran in
@@ -314,10 +322,21 @@ __device__ __forceinline__ void rescale(Recur<T>& rc) {
   for (int br = 0; br < NBR; ++br) rescale(rc.s[br]);
 }
 
-// True where the dead-tile table marks block (mb, tb) of ntb ring tiles.
-__device__ __forceinline__ bool is_dead(const int* __restrict__ dead, int mb,
-                                        int tb, int ntb) {
-  return dead != nullptr && dead[(size_t)mb * ntb + tb] != 0;
+// The degree before which block (mb, tb) of ntb ring tiles ends its l-loop:
+// its entry of the stop table, at most nl; nl without a table.
+__device__ __forceinline__ int stop_degree(const int* __restrict__ lstop, int mb,
+                                           int tb, int ntb, int nl) {
+  return lstop == nullptr ? nl : min(nl, lstop[(size_t)mb * ntb + tb]);
+}
+
+// Hand the recurrence state of entry mt over: state [3, nm, nt] holds prev,
+// curr and the level. The wigner mode has two states and hands over none.
+template <typename T>
+__device__ __forceinline__ void dump_state(T* __restrict__ state, size_t mt,
+                                           size_t plane, const State<T>& s) {
+  state[mt] = s.prev;
+  state[plane + mt] = s.curr;
+  state[2 * plane + mt] = T(s.lev);
 }
 
 // Shared-memory staging of one chunk of LC degrees for the block's m rows.
@@ -363,7 +382,8 @@ __device__ __forceinline__ void stage(const T* __restrict__ ab,
 // sv, sl [NBR, nm, nt]. Full: out [NFUN, C, nm, nt]. SYM: theta holds the
 // northern rings of a south-symmetric ring set and out is
 // [NFUN, C, 2, nm, nt] with plane 1 the mirror ring. spin is the wigner
-// mode's s; dead the dead-tile table [gridDim.y, gridDim.x] or null.
+// mode's s; lstop the stop degrees [gridDim.y, gridDim.x] or null; state
+// [3, nm, nt], if not null, receives each entry's state where its loop ended.
 template <typename T, int C, bool SYM>
 __global__ void __launch_bounds__(NTHREADS)
 synthesis_kernel(const T* __restrict__ A, const T* __restrict__ ab,
@@ -371,7 +391,7 @@ synthesis_kernel(const T* __restrict__ A, const T* __restrict__ ab,
                  const T* __restrict__ ctl, const T* __restrict__ rows,
                  const T* __restrict__ sv, const int* __restrict__ sl,
                  T* __restrict__ out, int nl, int nm, int nt, int spin,
-                 const int* __restrict__ dead) {
+                 const int* __restrict__ lstop, T* __restrict__ state) {
   __shared__ Stage<T, C> sm;
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
   const int t = blockIdx.x * TX + tx;
@@ -389,14 +409,14 @@ synthesis_kernel(const T* __restrict__ A, const T* __restrict__ ab,
 #pragma unroll
     for (int c = 0; c < C; ++c) accN[f][c] = accS[f][c] = T(0);
   // the state is zero below the block's first seed; a dead block runs no loop
-  const int lbeg = is_dead(dead, blockIdx.y, blockIdx.x, gridDim.x)
-                       ? nl
-                       : (MODE == WIGNER ? max(m0, spin) : m0);
-  for (int l0 = lbeg; l0 < nl; l0 += LC) {
+  const int lbeg = MODE == WIGNER ? max(m0, spin) : m0;
+  // the half-sky kernel takes no stops
+  const int lend = SYM ? nl : stop_degree(lstop, blockIdx.y, blockIdx.x, gridDim.x, nl);
+  for (int l0 = lbeg; l0 < lend; l0 += LC) {
     __syncthreads();
     stage<T, C>(ab, lt, A, sm, l0, m0, nl, nm, tid);
     __syncthreads();
-    const int n = min(LC, nl - l0);
+    const int n = min(LC, lend - l0);
     for (int i = 0; i < n; ++i) {
       const int l = l0 + i;
       T u[NFUN];
@@ -418,6 +438,9 @@ synthesis_kernel(const T* __restrict__ A, const T* __restrict__ ab,
     }
   }
   if (!valid) return;
+  if constexpr (!SYM && MODE != WIGNER) {
+    if (state != nullptr) dump_state(state, mt, plane, rc.s[0]);
+  }
 #pragma unroll
   for (int f = 0; f < NFUN; ++f)
 #pragma unroll
@@ -438,7 +461,8 @@ synthesis_kernel(const T* __restrict__ A, const T* __restrict__ ab,
 // (north - south) combinations on the northern rings; function f of (l, m)
 // takes the even plane where PSIGN[f] (-1)^(l+m) = +1. part
 // [gridDim.x, nl, nm, C] must be zero on entry. spin is the wigner mode's s;
-// dead the dead-tile table [gridDim.y, ntiles] or null.
+// lstop the stop degrees [gridDim.y, ntiles] or null; state [3, nm, nt], if
+// not null, receives each entry's state where its loop ended.
 template <typename T, int C, bool SYM>
 __global__ void __launch_bounds__(NTHREADS)
 analysis_kernel(const T* __restrict__ F, const T* __restrict__ ab,
@@ -446,7 +470,7 @@ analysis_kernel(const T* __restrict__ F, const T* __restrict__ ab,
                 const T* __restrict__ ctl, const T* __restrict__ rows,
                 const T* __restrict__ sv, const int* __restrict__ sl,
                 T* __restrict__ part, int nl, int nm, int nt, int ntiles,
-                int spin, const int* __restrict__ dead) {
+                int spin, const int* __restrict__ lstop, T* __restrict__ state) {
   constexpr int NW = NTHREADS / 32;  // warps per block
   constexpr int WPR = TX / 32;       // warps per m row
   __shared__ Stage<T, 1> sm;          // A is not staged: C = 1 keeps it small
@@ -459,7 +483,7 @@ analysis_kernel(const T* __restrict__ F, const T* __restrict__ ab,
   const int lbeg = MODE == WIGNER ? max(m0, spin) : m0;
   T* __restrict__ dst = part + (size_t)blockIdx.x * nl * nm * C;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    if (is_dead(dead, blockIdx.y, tile, ntiles)) continue;
+    const int lend = SYM ? nl : stop_degree(lstop, blockIdx.y, tile, ntiles, nl);
     const int t = tile * TX + tx;
     const bool valid = t < nt && m < nm;
     const size_t mt = (size_t)m * nt + t;
@@ -480,11 +504,11 @@ analysis_kernel(const T* __restrict__ F, const T* __restrict__ ab,
           fO[f][c] = fE[f][c];
         }
       }
-    for (int l0 = lbeg; l0 < nl; l0 += LC) {
+    for (int l0 = lbeg; l0 < lend; l0 += LC) {
       __syncthreads();
       stage<T, 1>(ab, lt, nullptr, sm, l0, m0, nl, nm, tid);
       __syncthreads();
-      const int n = min(LC, nl - l0);
+      const int n = min(LC, lend - l0);
       for (int i = 0; i < n; ++i) {
         const int l = l0 + i;
         T u[NFUN];
@@ -515,6 +539,9 @@ analysis_kernel(const T* __restrict__ F, const T* __restrict__ ab,
         dst[((size_t)(l0 + li) * nm + mm) * C + c] += v;
       }
     }
+    if constexpr (!SYM && MODE != WIGNER) {
+      if (state != nullptr && valid) dump_state(state, mt, plane, rc.s[0]);
+    }
   }
 }
 
@@ -528,20 +555,22 @@ template <typename T, bool SYM>
 int launch_synthesis(int C, const void* A, const void* ab, const void* lt,
                      const void* cth, const void* ctl, const void* rows,
                      const void* sv, const void* sl, void* out, int nl, int nm,
-                     int nt, int spin, const void* dead, cudaStream_t st) {
+                     int nt, int spin, const void* lstop, void* state,
+                     cudaStream_t st) {
   const dim3 block(TX, MY), grid((nt + TX - 1) / TX, (nm + MY - 1) / MY);
   if (grid.x == 0 || grid.y == 0 || nl == 0) return 0;
   const T* a = static_cast<const T*>(A);
   T* o = static_cast<T*>(out);
-  const int* dd = static_cast<const int*>(dead);
+  const int* dd = static_cast<const int*>(lstop);
+  T* ss = static_cast<T*>(state);
   switch (C) {
     case 2:
       synthesis_kernel<T, 2, SYM><<<grid, block, 0, st>>>(a, KERNEL_ARGS(T), o, nl, nm, nt,
-                                                          spin, dd);
+                                                          spin, dd, ss);
       break;
     case 4:
       synthesis_kernel<T, 4, SYM><<<grid, block, 0, st>>>(a, KERNEL_ARGS(T), o, nl, nm, nt,
-                                                          spin, dd);
+                                                          spin, dd, ss);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -553,23 +582,24 @@ template <typename T, bool SYM>
 int launch_analysis(int C, const void* F, const void* ab, const void* lt,
                     const void* cth, const void* ctl, const void* rows,
                     const void* sv, const void* sl, void* part, int nl, int nm,
-                    int nt, int nplanes, int spin, const void* dead,
-                    cudaStream_t st) {
+                    int nt, int nplanes, int spin, const void* lstop,
+                    void* state, cudaStream_t st) {
   const int ntiles = (nt + TX - 1) / TX;
   const dim3 block(TX, MY), grid(nplanes, (nm + MY - 1) / MY);
   if (ntiles == 0 || grid.y == 0 || nl == 0) return 0;
   if (nplanes < 1 || nplanes > ntiles) return (int)cudaErrorInvalidValue;
   const T* f = static_cast<const T*>(F);
   T* p = static_cast<T*>(part);
-  const int* dd = static_cast<const int*>(dead);
+  const int* dd = static_cast<const int*>(lstop);
+  T* ss = static_cast<T*>(state);
   switch (C) {
     case 2:
       analysis_kernel<T, 2, SYM><<<grid, block, 0, st>>>(f, KERNEL_ARGS(T), p, nl, nm, nt,
-                                                         ntiles, spin, dd);
+                                                         ntiles, spin, dd, ss);
       break;
     case 4:
       analysis_kernel<T, 4, SYM><<<grid, block, 0, st>>>(f, KERNEL_ARGS(T), p, nl, nm, nt,
-                                                         ntiles, spin, dd);
+                                                         ntiles, spin, dd, ss);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -581,22 +611,25 @@ int launch_analysis(int C, const void* F, const void* ab, const void* lt,
 
 // f64 selects the double instantiation; C (2 or 4) is the coefficient
 // count: a block's columns are (re, im) pairs, so C is always even. spin is
-// read in wigner mode only; dead is the dead-tile table (int [m blocks, ring
-// tiles], 1 = skip) or null. The entry points are named pt_<kernel>_<mode>.
+// read in wigner mode only; lstop is the table of stop degrees (int
+// [m blocks, ring tiles], 0 = skip) or null; state the handoff buffer
+// [3, nm, nt] of the working type or null (read by the full kernels in the
+// Legendre modes only). The entry points are named pt_<kernel>_<mode>.
 #define SYNTH_ENTRY(NAME, SYM)                                                  \
   extern "C" int PT_ENTRY(NAME)(int f64, int C, const void* A, const void* ab,  \
                                 const void* lt, const void* cth,                \
                                 const void* ctl, const void* rows,              \
                                 const void* sv, const void* sl, void* out,      \
                                 int nl, int nm, int nt, int spin,               \
-                                const void* dead, void* stream) {               \
+                                const void* lstop, void* state,                 \
+                                void* stream) {                                 \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                        \
     return f64 ? launch_synthesis<double, SYM>(C, A, ab, lt, cth, ctl, rows, sv, \
-                                               sl, out, nl, nm, nt, spin, dead,  \
-                                               st)                              \
+                                               sl, out, nl, nm, nt, spin, lstop, \
+                                               state, st)                       \
                : launch_synthesis<float, SYM>(C, A, ab, lt, cth, ctl, rows, sv,  \
-                                              sl, out, nl, nm, nt, spin, dead,   \
-                                              st);                              \
+                                              sl, out, nl, nm, nt, spin, lstop,  \
+                                              state, st);                       \
   }
 
 #define ANAL_ENTRY(NAME, SYM)                                                   \
@@ -605,14 +638,14 @@ int launch_analysis(int C, const void* F, const void* ab, const void* lt,
                                 const void* ctl, const void* rows,              \
                                 const void* sv, const void* sl, void* part,     \
                                 int nl, int nm, int nt, int nplanes, int spin,  \
-                                const void* dead, void* stream) {               \
+                                const void* lstop, void* state, void* stream) { \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                        \
     return f64 ? launch_analysis<double, SYM>(C, F, ab, lt, cth, ctl, rows, sv,  \
                                               sl, part, nl, nm, nt, nplanes,     \
-                                              spin, dead, st)                   \
+                                              spin, lstop, state, st)           \
                : launch_analysis<float, SYM>(C, F, ab, lt, cth, ctl, rows, sv,   \
                                              sl, part, nl, nm, nt, nplanes,      \
-                                             spin, dead, st);                   \
+                                             spin, lstop, state, st);           \
   }
 
 #if LEGENDRE_MODE != 4  // the wigner mode has no half-sky kernels

@@ -4,7 +4,8 @@ pixell_tpu/enmap.py).
 Ports the core the curved-sky SHT path needs: the ndmap container
 (pixell_tpu/enmap.py:33), zeros/empty (on device="cuda" unless told
 otherwise; with no CUDA device they raise), samewcs
-(:319), pix2sky (:418), posaxes (:452) and fullsky_geometry (:1029).
+(:319), pix2sky (:418), posaxes (:452), slice_geometry (:791) and
+fullsky_geometry (:1029).
 Geometry maths is host numpy; only the pixel data lives in a tensor.
 """
 from __future__ import annotations
@@ -88,6 +89,30 @@ def posaxes(shape, wcs, safe=True, corner=False):
 	dec = pix2sky(shape, wcs, np.array([y, y*0]), safe=safe, corner=corner)[0]
 	ra = pix2sky(shape, wcs, np.array([x*0, x]), safe=safe, corner=corner)[1]
 	return dec, ra
+
+
+def slice_geometry(shape, wcs, sel, nowrap=False):
+	"""The geometry of map[..., sel[0], sel[1]]: sel is a y slice or a tuple
+	of (y, x) slices, with steps if wanted (pixell_tpu.enmap.slice_geometry
+	:791). With nowrap the slices are taken as they stand, so starts and
+	stops may lie outside the map."""
+	wcs = wcs.deepcopy()
+	pre, shape = shape[:-2], shape[-2:]
+	if not isinstance(sel, tuple): sel = (sel,)
+	oshape = list(shape)
+	for i, s in enumerate(list(sel)[:2]):   # sel is (y, x); the wcs axes are (x, y)
+		if s is None: raise ValueError("newaxis not supported in slice_geometry")
+		if nowrap:
+			step = s.step if s.step is not None else 1
+			start = s.start if s.start is not None else (0 if step > 0 else shape[i] - 1)
+			stop = s.stop if s.stop is not None else (shape[i] if step > 0 else -1)
+		else:
+			start, stop, step = s.indices(shape[i])
+		oshape[i] = len(range(start, stop, step))
+		# the new 0-based pixel p_new = (p_old - start)/step
+		wcs.wcs.crpix[1 - i] = (wcs.wcs.crpix[1 - i] - 1 - start)/step + 1
+		wcs.wcs.cdelt[1 - i] = wcs.wcs.cdelt[1 - i]*step
+	return tuple(pre) + tuple(oshape), wcs
 
 
 def fullsky_geometry(res=None, shape=None, dims=(), proj="car", variant="fejer1"):

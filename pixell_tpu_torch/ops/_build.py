@@ -1,8 +1,8 @@
 """Build and load the CUDA kernels of pixell_tpu_torch/csrc.
 
 At first use, nvcc compiles every csrc/*.cu into an object -- legendre.cu
-once per Legendre mode (-DLEGENDRE_MODE=0..4) -- with all compilers started
-together, and links the objects into one shared library with a plain C
+once per mode (-DLEGENDRE_MODE=0..4), blockleg.cu once per Legendre mode
+(0..3) -- with all compilers started together, and links the objects into one shared library with a plain C
 interface, in build/pixell_tpu_torch/<hash of sources and flags>/ beside the
 package; ctypes loads it. A changed source builds into a new directory; an
 unchanged one is reused. There is no fallback: a missing nvcc or a failed
@@ -22,7 +22,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pixell_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 	"-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # sources compiled more than once, with these extra flags each time
-VARIANTS = {"legendre.cu": [["-DLEGENDRE_MODE=%d" % k] for k in range(5)]}
+VARIANTS = {"legendre.cu": [["-DLEGENDRE_MODE=%d" % k] for k in range(5)],
+	"blockleg.cu": [["-DLEGENDRE_MODE=%d" % k] for k in range(4)]}
 
 
 def _sources():

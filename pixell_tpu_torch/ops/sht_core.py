@@ -20,8 +20,10 @@ prepared with that s. Engine contract, nfun = NFUN[mode]:
       A[l,m,c] = sum_f sum_t u_f(l,m,theta_t) F[f,c,m,t]
 
 This module is what the SHT runs on CPU tensors, and what every CUDA kernel
-in csrc/legendre.cu is held against on the card. It is written for clarity:
-a Python loop over l with whole-[nm, nt] tensor operations.
+in csrc/legendre.cu and csrc/blockleg.cu is held against on the card. It is
+written for clarity: a Python loop over l with whole-[nm, nt] tensor
+operations. The block-Legendre split's plain versions (blk_synthesis,
+blk_analysis) are at the end.
 """
 from __future__ import annotations
 import numpy as np
@@ -240,10 +242,14 @@ def mode_funcs(mode, l, marr, g, lam, lam1):
 	return [w + wp, x + xp]
 
 
-def lambdas(g, lmax):
+def lambdas(g, lmax, stop=None, state=None):
 	"""The scaled recurrence over l = 0..lmax (pixell_tpu.ops.sht_core.
 	_scan_core :221): yields (l, lambda_l, lambda_{l-1}), the true
-	(unscaled) values as [nm, nt] tensors."""
+	(unscaled) values as [nm, nt] tensors. With stop [nm, nt] (integer stop
+	degrees) and state [3, nm, nt] (zeros), the scaled state (prev, curr,
+	level) of each entry is written into state as it stands after degree
+	min(stop, lmax + 1) - 1, renormalization included: the handoff to the
+	block-Legendre kernels (pixell_tpu.ops.sht_pallas dump_state :1546)."""
 	dt, dev = g.dtype, g.ct.device
 	nm, nt = g.nm, g.nt
 	S = scale_log2(dt)
@@ -255,6 +261,10 @@ def lambdas(g, lmax):
 	prev = torch.zeros((nm, nt), dtype=dt, device=dev)
 	curr = torch.zeros_like(prev)
 	lev = torch.zeros((nm, nt), dtype=torch.int32, device=dev)
+	def dump(sel):
+		for i, v in enumerate((prev, curr, lev.to(dt))):
+			state[i] = torch.where(sel, v, state[i])
+	stops = set() if state is None else set(torch.unique(stop).tolist())
 	for l in range(lmax + 1):
 		a, b = recur_ab(l, marr)
 		new = a[:, None]*((x*curr + xlo*curr) - b[:, None]*prev)
@@ -272,6 +282,8 @@ def lambdas(g, lmax):
 			prev = torch.where(big, prev*invband, prev)
 			curr = torch.where(big, curr*invband, curr)
 			lev = lev + big.to(torch.int32)
+		if l + 1 in stops and l < lmax: dump(stop == l + 1)
+	if state is not None: dump(stop > lmax)
 
 
 # ---------------------------------------------------------------------------
@@ -415,45 +427,272 @@ def wigner_values(g, lmax):
 			lev = lev + big.to(torch.int32)
 
 
-def mode_values(mode, g, lmax):
-	"""Yields (l, [u_f as [nm, nt] tensors]) for l = 0..lmax in any mode."""
+def mode_values(mode, g, lmax, stop=None, state=None):
+	"""Yields (l, [u_f as [nm, nt] tensors]) for l = 0..lmax in any mode;
+	stop and state as in lambdas (the Legendre modes only)."""
 	if (mode == "wigner") != (g.s is not None):
 		raise ValueError("mode '%s' on a geometry prepared %s a spin" % (mode,
 			"without" if g.s is None else "with"))
 	if mode == "wigner":
+		if state is not None: raise ValueError("the wigner mode hands over no state")
 		yield from wigner_values(g, lmax)
 		return
 	marr = torch.arange(g.nm, dtype=g.dtype, device=g.ct.device)
-	for l, lam, lam1 in lambdas(g, lmax):
+	for l, lam, lam1 in lambdas(g, lmax, stop, state):
 		yield l, mode_funcs(mode, l, marr, g, lam, lam1)
 
 
-def synthesis(A, g, lmax, mode="scalar", live=None):
+def _state_buffer(g, stop, dump_state):
+	if not dump_state: return None
+	if stop is None: raise ValueError("dump_state needs the stop degrees")
+	return torch.zeros((3, g.nm, g.nt), dtype=g.dtype, device=g.ct.device)
+
+
+def synthesis(A, g, lmax, mode="scalar", stop=None, dump_state=False):
 	"""G[f,c,m,t] = sum_l u_f(l,m,theta_t) A[l,m,c] on prepared geometry g:
-	A [nl, nm, C] -> [nfun, C, nm, nt]. live [nm, nt] bool, if given, marks
-	the entries to compute; the others come out 0 (the kernels' dead-tile
-	skip)."""
+	A [nl, nm, C] -> [nfun, C, nm, nt]. stop [nm, nt] (integers), if given,
+	ends the sum of entry (m, t) before degree stop[m, t]: 0 leaves it 0 (the
+	kernels' dead-tile skip), lmax + 1 or more runs it to the end. With
+	dump_state, returns (G, state): the scaled recurrence state
+	[3, nm, nt] (prev, curr, level) of each entry where its sum ended."""
 	check_mode(mode)
 	A = A.to(g.dtype)
 	out = torch.zeros((NFUN[mode], A.shape[-1], g.nm, g.nt), dtype=g.dtype, device=g.ct.device)
-	for l, us in mode_values(mode, g, lmax):
+	state = _state_buffer(g, stop, dump_state)
+	for l, us in mode_values(mode, g, lmax, stop, state):
 		for f, u in enumerate(us):
+			if stop is not None: u = u*(stop > l)
 			out[f] += u[None]*A[l].T[:, :, None]
-	return out if live is None else out*live
+	return (out, state) if dump_state else out
 
-def analysis(F, g, lmax, mode="scalar", live=None):
+def analysis(F, g, lmax, mode="scalar", stop=None, dump_state=False):
 	"""A[l,m,c] = sum_f sum_t u_f(l,m,theta_t) F[f,c,m,t] on prepared
-	geometry g: F [nfun, C, nm, nt] -> [nl, nm, C]. live [nm, nt] bool, if
-	given, marks the entries of F that are read (the kernels' dead-tile
-	skip)."""
+	geometry g: F [nfun, C, nm, nt] -> [nl, nm, C]. stop [nm, nt]
+	(integers), if given, leaves entry (m, t) out of every degree from
+	stop[m, t] on: 0 never reads it (the kernels' dead-tile skip). With
+	dump_state, returns (A, state) as synthesis does."""
 	check_mode(mode)
 	F = F.to(g.dtype)
-	if live is not None: F = F*live
 	out = torch.zeros((lmax + 1, g.nm, F.shape[1]), dtype=g.dtype, device=g.ct.device)
-	for l, us in mode_values(mode, g, lmax):
+	state = _state_buffer(g, stop, dump_state)
+	for l, us in mode_values(mode, g, lmax, stop, state):
 		for f, u in enumerate(us):
+			if stop is not None: u = u*(stop > l)
 			out[l] += torch.einsum("mt,cmt->mc", u, F[f])
-	return out
+	return (out, state) if dump_state else out
+
+
+# ---------------------------------------------------------------------------
+# The block-Legendre split (pixell_tpu/ops/sht_pallas.py:556-610). Within a
+# block of BLK_LB degrees that holds no seed, the scaled recurrence is linear
+# in the state (curr, prev) at the block's entry,
+#   P_{l0+k} = gA_k(cos theta) curr + gB_k(cos theta) prev,
+# with gA_k, gB_k polynomials of degree <= k + 1 in cos theta that obey the
+# recurrence themselves from (gA, gB) = (1, 0), (0, 1). They are carried as
+# VALUES at the BLK_JP Chebyshev nodes of a ring tile's cos theta interval,
+# where their sums against the alm (synthesis) or the ring data (analysis)
+# fold, and one node -> ring product per block with the Lagrange basis W
+# takes them to the tile's rings. The stepwise scan runs each tile up to its
+# handoff degree and dumps its state (synthesis / analysis with stop and
+# dump_state); blk_synthesis / blk_analysis resume from there. The state is
+# the float32 kernels', scaled by 2^(BLK_S level), in whatever dtype the
+# twin computes.
+# ---------------------------------------------------------------------------
+BLK_LB = 112   # degrees per block: a multiple of LBLOCK, at most BLK_JP - 2
+BLK_JP = 128   # Chebyshev nodes per ring tile
+BLK_S = 60     # scale_log2 of the float32 state the block path resumes from
+# Coefficient streams of each mode (_blk_mode_spec :774): 0 weighs lambda_l
+# (the current chain value), 1 lambda_{l-1} (the previous one).
+BLK_FAM = {"scalar": (0,), "deriv": (0, 0, 1), "spin1": (0, 1, 0), "spin2": (0, 0, 1, 0)}
+
+
+class BlkTables:
+	"""Per-ring-set tables of the block-Legendre kernels, all on one device:
+	start [nmb, ntb] int32, the first BLK_LB-block each (m tile, ring tile)
+	runs blocked (ceil(nl/BLK_LB) or more: none); ctv [ntb, BLK_JP], cos
+	theta at each ring tile's nodes; W [ntb, BLK_JP, tile_t], W[n, j, t] =
+	l_j(x_t), the Lagrange basis through the nodes at the tile's rings (zero
+	on padding rings), and WT, its transpose [ntb, tile_t, BLK_JP]."""
+	def __init__(self, start, ctv, W, tile_m, tile_t):
+		self.start, self.ctv, self.W = start, ctv, W
+		self.WT = W.transpose(1, 2).contiguous()
+		self.tile_m, self.tile_t = int(tile_m), int(tile_t)
+
+
+def blk_stream_tables(nl, nm, mode, dtype, device=None):
+	"""[NS, nl, nm]: the (l, m) coefficient streams c_s of a mode, whose mode
+	functions separate as u_f = sum_s c_s(l, m) x (lambda_l or lambda_{l-1})
+	x a ring factor (blk_combine) (pixell_tpu.ops.sht_pallas.
+	_spin2_stream_tables :723, _deriv_stream_tables :748,
+	_spin1_stream_tables :760); scalar is one stream of ones. e_lm is
+	factored, as recur_e."""
+	l = torch.arange(nl, dtype=dtype, device=device)[:, None]
+	m = torch.arange(nm, dtype=dtype, device=device)[None, :]
+	ones = torch.ones((nl, nm), dtype=dtype, device=device)
+	if mode == "scalar": return ones[None].clone()
+	e = recur_e(l, m)
+	if mode == "deriv": return torch.stack([ones, l*ones, -e])
+	nrm = l_norms(mode, l)[0]
+	if mode == "spin1":
+		valid = (l >= 1).to(dtype)
+		return torch.stack([-nrm*l*valid*ones, nrm*e*valid, nrm*valid*ones])
+	if mode != "spin2": raise ValueError("no block-Legendre streams in mode '%s'" % mode)
+	valid = (l >= 2).to(dtype)
+	return torch.stack([-nrm*l*(l - 1)*valid*ones, -2*nrm*(l - m*m)*valid,
+		2*nrm*e*valid, -2*nrm*(l - 1)*valid*ones])
+
+
+def blk_combine(mode, ts, ct, cts, ist, ist2, marr):
+	"""The mode functions' sums [nfun] from the interpolated stream sums
+	ts[s] and the ring factors (_blk_mode_spec synth_combine :786-802)."""
+	if mode == "scalar": return [ts[0]]
+	if mode == "deriv": return [ts[0], cts*ts[1] + ist*ts[2]]
+	if mode == "spin1": return [cts*ts[0] + ist*ts[1], marr*(ist*ts[2])]
+	ctist2 = ct*ist2
+	return [ts[0] + ist2*ts[1] + ctist2*ts[2], marr*(ctist2*ts[3] + ist2*ts[2])]
+
+
+def blk_fields(mode, F0, F1, ct, cts, ist, ist2, marr):
+	"""The ring-weighted fields [NS] the streams contract against in
+	analysis, the transpose of blk_combine (_blk_mode_spec anal_fields
+	:790-804). F0, F1: the data of the mode's first and last function."""
+	if mode == "scalar": return [F0]
+	if mode == "deriv": return [F0, cts*F1, ist*F1]
+	if mode == "spin1": return [cts*F0, ist*F0, marr*(ist*F1)]
+	return [F0, ist2*F0, ist2*(ct*F0 + marr*F1), (marr*ct)*(ist2*F1)]
+
+
+class _BlkRun:
+	"""What blk_synthesis and blk_analysis share: the padded tables and
+	state, one block's node chains, and the state's step over a block."""
+	def __init__(self, state, tab, g, nl, mode):
+		if mode not in BLK_FAM: raise ValueError("no block-Legendre path in mode '%s'" % mode)
+		self.dt, self.dev = state.dtype, state.device
+		self.mode, self.fam = mode, BLK_FAM[mode]
+		self.nm, self.nt, self.nl = g.nm, g.nt, nl
+		self.nmb, self.ntb = tab.start.shape
+		self.TM, self.TT = tab.tile_m, tab.tile_t
+		self.nmp, self.ntp = self.nmb*self.TM, self.ntb*self.TT
+		if self.nmp < g.nm or self.ntp < g.nt or tuple(state.shape) != (3, g.nm, g.nt):
+			raise ValueError("block tables or state of another grid")
+		self.nlb = -(-nl//BLK_LB)
+		nlp = self.nlb*BLK_LB
+		dt, dev = self.dt, self.dev
+		self.W, self.ctv = tab.W.to(dt), tab.ctv.to(dt)[None]          # [ntb, JP, TT], [1, ntb, JP]
+		# the first block of each (m, ring tile)
+		self.start = tab.start.to(dev).repeat_interleave(self.TM, 0)[:, :, None]
+		self.first = int(tab.start.min())
+		# [..., nl, nm] tables zero padded to whole blocks and tiles: a = 0 ends the chains
+		lm = lambda t: torch.nn.functional.pad(t, (0, self.nmp - g.nm, 0, nlp - nl))
+		l = torch.arange(nl, dtype=dt, device=dev)[:, None]
+		m = torch.arange(g.nm, dtype=dt, device=dev)[None, :]
+		self.a, self.b = (lm(t) for t in recur_ab(l, m))
+		self.cs = lm(blk_stream_tables(nl, g.nm, mode, dt, dev))         # [NS, nlp, nmp]
+		self.pad_lm = lm
+		prev, curr, lev = (self.tiles(t) for t in state)
+		self.prev, self.curr, self.lev = prev.clone(), curr.clone(), lev.clone()
+		ring = lambda r: torch.nn.functional.pad(r.to(dt), (0, self.ntp - g.nt)).view(self.ntb, self.TT)
+		self.rings = (ring(g.ct), ring(g.ct_st), ring(g.inv_st), ring(g.inv_st2),
+			torch.arange(self.nmp, dtype=dt, device=dev)[:, None, None])
+
+	def tiles(self, x):
+		"""[..., nm, nt] -> [..., nmp, ntb, TT], zero padded."""
+		x = torch.nn.functional.pad(x.to(self.dt), (0, self.ntp - self.nt, 0, self.nmp - self.nm))
+		return x.view(x.shape[:-1] + (self.ntb, self.TT))
+
+	def factors(self):
+		"""(curr fac, prev fac): the state unscaled by its level, 0, -1 or -2."""
+		one = torch.ones((), dtype=self.dt, device=self.dev)
+		fac = torch.where(self.lev == 0, one, torch.where(self.lev == -1, one*2.0**-BLK_S,
+			torch.where(self.lev == -2, one*2.0**(-2*BLK_S), one*0)))
+		return self.curr*fac, self.prev*fac
+
+	def chains(self, il):
+		"""Yields (l, gA_c, gA_p, gB_c, gB_p), the chain values [nmp, ntb, JP]
+		after the step to each degree l of block il."""
+		shape = (self.nmp, self.ntb, BLK_JP)
+		gAc, gBp = (torch.ones(shape, dtype=self.dt, device=self.dev) for _ in range(2))
+		gAp, gBc = (torch.zeros(shape, dtype=self.dt, device=self.dev) for _ in range(2))
+		for l in range(il*BLK_LB, (il + 1)*BLK_LB):
+			a, b = self.a[l][:, None, None], self.b[l][:, None, None]
+			gAp, gAc = gAc, a*(self.ctv*gAc - b*gAp)
+			gBp, gBc = gBc, a*(self.ctv*gBc - b*gBp)
+			self.ends = (gAc, gAp, gBc, gBp)
+			yield l, gAc, gAp, gBc, gBp
+
+	def to_rings(self, L):
+		"""[..., nmp, ntb, JP] node values -> [..., nmp, ntb, TT] ring values."""
+		return torch.einsum("...mnj,njt->...mnt", L, self.W)
+
+	def step_state(self, il):
+		"""Carry the state of the tiles running block il over it."""
+		E = self.to_rings(torch.stack(self.ends))
+		ncurr = E[0]*self.curr + E[2]*self.prev
+		nprev = E[1]*self.curr + E[3]*self.prev
+		big = torch.abs(ncurr) > 2.0**BLK_S
+		act = self.start <= il
+		self.prev = torch.where(act, torch.where(big, nprev*2.0**-BLK_S, nprev), self.prev)
+		self.curr = torch.where(act, torch.where(big, ncurr*2.0**-BLK_S, ncurr), self.curr)
+		self.lev = torch.where(act, self.lev + big.to(self.dt), self.lev)
+
+
+def blk_synthesis(A, state, tab, g, lmax, mode="scalar"):
+	"""The synthesis sum over the blocked suffix of degrees: for entry
+	(m, t) of a tile with tab.start < ceil(nl/BLK_LB), the degrees from
+	BLK_LB tab.start on, resumed from state [3, nm, nt] as the stepwise scan
+	dumped it there. A [nl, nm, C] -> [nfun, C, nm, nt], zero on the other
+	tiles. The twin of the kernels that replace _synth_blk_call
+	(pixell_tpu/ops/sht_pallas.py:888) and _synth_blk_call_streams (:1032)."""
+	run = _BlkRun(state, tab, g, lmax + 1, mode)
+	nfun, NS, C = NFUN[mode], len(run.fam), A.shape[-1]
+	Ap = run.pad_lm(A.to(run.dt).permute(2, 0, 1))                         # [C, nlp, nmp]
+	out = torch.zeros((nfun, C, run.nmp, run.ntb, run.TT), dtype=run.dt, device=run.dev)
+	for il in range(run.first, run.nlb):
+		FA = torch.zeros((C, NS, run.nmp, run.ntb, BLK_JP), dtype=run.dt, device=run.dev)
+		FB = torch.zeros_like(FA)
+		for l, gAc, gAp, gBc, gBp in run.chains(il):
+			for s, prevfam in enumerate(run.fam):
+				asn = (Ap[:, l]*run.cs[s, l])[:, :, None, None]         # [C, nmp, 1, 1]
+				FA[:, s] += asn*(gAp if prevfam else gAc)
+				FB[:, s] += asn*(gBp if prevfam else gBc)
+		currf, prevf = run.factors()
+		ts = run.to_rings(FA)*currf + run.to_rings(FB)*prevf           # [C, NS, nmp, ntb, TT]
+		act = run.start <= il
+		for f, o in enumerate(blk_combine(mode, [ts[:, s] for s in range(NS)], *run.rings)):
+			out[f] += torch.where(act, o, torch.zeros((), dtype=run.dt, device=run.dev))
+		run.step_state(il)
+	return out.view(nfun, C, run.nmp, run.ntp)[:, :, :run.nm, :run.nt]
+
+
+def blk_analysis(F, state, tab, g, lmax, mode="scalar"):
+	"""The analysis sums of the blocked suffix: for every degree l, the
+	rings of the tiles that run l's block blocked (BLK_LB tab.start <= l),
+	resumed from state as the stepwise scan dumped it. F [nfun, C, nm, nt]
+	-> [nl, nm, C], zero below every tile's first block. The twin of the
+	kernels that replace _anal_blk_call (pixell_tpu/ops/sht_pallas.py:1220)
+	and _anal_blk_call_streams (:1350)."""
+	run = _BlkRun(state, tab, g, lmax + 1, mode)
+	nfun, NS, C = NFUN[mode], len(run.fam), F.shape[1]
+	Fp = run.tiles(F)                                                   # [nfun, C, nmp, ntb, TT]
+	out = torch.zeros((run.nlb*BLK_LB, run.nmp, C), dtype=run.dt, device=run.dev)
+	zero = torch.zeros((), dtype=run.dt, device=run.dev)
+	for il in range(run.first, run.nlb):
+		act = run.start <= il
+		G = torch.stack(blk_fields(mode, Fp[0], Fp[nfun - 1], *run.rings), 1)   # [C, NS, ...]
+		currf, prevf = run.factors()
+		# contract the rings first: Wc[m, j] = sum_t curr fac G(m, t) W(j, t)
+		Wc = torch.einsum("csmnt,njt->csmnj", currf*G, run.W)
+		Wp = torch.einsum("csmnt,njt->csmnj", prevf*G, run.W)
+		for l, gAc, gAp, gBc, gBp in run.chains(il):
+			tot = 0
+			for s, prevfam in enumerate(run.fam):
+				cl = run.cs[s, l][:, None, None]
+				tot = tot + (gAp if prevfam else gAc)*(cl*Wc[:, s]) \
+					+ (gBp if prevfam else gBc)*(cl*Wp[:, s])
+			# the chains of a tile still below its seeds overflow: select, not multiply
+			out[l] = torch.where(act, tot, zero).sum((-1, -2)).T
+		run.step_state(il)
+	return out[:run.nl, :run.nm]
 
 
 def synthesis_scan(A, theta, lmax, mmax, mode="scalar", dtype=torch.float64):

@@ -11,9 +11,26 @@ and spin2 (K6):
 
 and K3/K4 also in the wigner mode (K7, any spin s; wigner_synthesis_scan_pallas
 sht_pallas.py:2165, wigner_analysis_scan_pallas :2221), on a geometry prepared
-with that s. K3/K4 take a table of dead tiles (the reference's lstop,
-_dead_table sht_pallas.py:677): blocks beyond the horizon of their rings,
-which they skip.
+with that s. K3/K4 take a table of stop degrees, one per block (the
+reference's lstop): 0 for a dead block beyond the horizon of its rings
+(_dead_table sht_pallas.py:677), which they skip, and in float32 Legendre
+modes any multiple of 8 at which the block ends early and hands its
+recurrence state over (dump_state, sht_pallas.py:1546).
+
+The block-Legendre split (K8, sht_pallas.py:556-610) is in csrc/blockleg.cu,
+in the four Legendre modes:
+
+  blk_synthesis   K8a/K8b, replaces _synth_blk_call (sht_pallas.py:888) and
+                  _synth_blk_call_streams (:1032)
+  blk_analysis    K8c/K8d, replaces _anal_blk_call (:1220) and
+                  _anal_blk_call_streams (:1350)
+
+They resume from the state K3/K4 dumped and run the oscillatory suffix of
+each (m tile, ring tile) 112 degrees at a time. blocked_synthesis /
+blocked_analysis drive the split (_synthesis_scan_pallas_blocked :1178,
+_analysis_scan_pallas_blocked :1491); the dispatch takes it for float32
+Legendre-mode launches of K3/K4 at lmax >= BLK_MINL while BLK_ENABLE is set
+(pixell_tpu_torch.sht.blocked()), which it is not by default.
 
 Each wrapper takes prepared tables (sht_core.Geom plus the coefficient
 tables built here), checks its arguments, and launches its kernel on a CUDA
@@ -35,7 +52,7 @@ _analysis_sym_entry :1825), with its thresholds, in every mode:
   - float64: K1-K4 in float64, with no polar split.
   - wigner mode (wigner_synthesis_scan_pallas :2165, wigner_analysis_scan_pallas
     :2221): always K3/K4, the near-pole pass for m < max(POLAR_MMAX, s + 1).
-  - the dead-tile table goes to every float32 launch of K3/K4, with the
+  - the dead-tile stops go to every float32 launch of K3/K4, with the
     mode's s (0 for the Legendre modes). The float64 launches compute every
     tile: the skipped terms, ~1e-12 of the peak and up to ~1e-7 in spin 2,
     are above what a float64 transform promises.
@@ -56,7 +73,17 @@ MAX_PLANES = 8      # partial-sum planes per analysis kernel launch
 KERNEL_C = (4, 2)   # coefficient columns a kernel instantiation takes
 TILE_M, TILE_T = 4, 64   # m rows and rings of a kernel block (csrc/legendre.cu MY, TX)
 
-KERNELS = ("sym_synthesis", "sym_analysis", "full_synthesis", "full_analysis")
+# The block-Legendre split (pixell_tpu/ops/sht_pallas.py:587-610)
+BLK_LB, BLK_JP = sht_core.BLK_LB, sht_core.BLK_JP   # degrees per block, nodes per ring tile
+BLK_GMAX = 3.0      # growth bits a block may have at its tile's worst corner
+BLK_MINL = 1024     # the split engages from this lmax on
+BLK_ENABLE = False  # set by pixell_tpu_torch.sht.blocked()
+BLK_TILE_M, BLK_TILE_T = 4, 256   # m rows and rings of a block-kernel tile (csrc/blockleg.cu BM, BT)
+BLK_SMIN = 0.5      # the split keeps to ring tiles with sin(theta) >= BLK_SMIN (blk_polar_tiles)
+
+LEGENDRE_KERNELS = ("sym_synthesis", "sym_analysis", "full_synthesis", "full_analysis")
+BLK_KERNELS = ("blk_synthesis", "blk_analysis")
+KERNELS = LEGENDRE_KERNELS + BLK_KERNELS
 LAUNCHES = {name: 0 for name in KERNELS}
 LAUNCHES_BY_MODE = {(name, mode): 0 for name in KERNELS for mode in sht_core.MODES}
 LAUNCHES_BY_DTYPE = {k + (dt,): 0 for k in LAUNCHES_BY_MODE for dt in ("float32", "float64")}
@@ -141,22 +168,171 @@ def dead_table(theta, lmax, mmax, tile_m, tile_t, s=0):
 @functools.lru_cache(maxsize=32)
 def _dead_cached(theta_bytes, lmax, mmax, s, device):
 	dead = dead_table(np.frombuffer(theta_bytes, np.float64), lmax, mmax, TILE_M, TILE_T, s)
-	return torch.from_numpy(dead.astype(np.int32)).to(device) if dead.any() else None
+	if not dead.any(): return None
+	return torch.from_numpy(np.where(dead, 0, lmax + 1).astype(np.int32)).to(device)
 
 
-def dead_tiles(theta, lmax, mmax, s, device):
-	"""The dead-tile table of K3/K4's own blocks for the rings theta, as an
-	int32 tensor [ceil(nm/TILE_M), ceil(nt/TILE_T)] on device (1 = dead), or
-	None where no tile is dead (pixell_tpu.ops.sht_pallas._dead_lstop :704).
+def dead_stops(theta, lmax, mmax, s, device):
+	"""The stop degrees that make K3/K4 skip their dead blocks on the rings
+	theta: an int32 tensor [ceil(nm/TILE_M), ceil(nt/TILE_T)] on device, 0
+	for a dead block and lmax + 1 (run to the end) for the others, or None
+	where no block is dead (pixell_tpu.ops.sht_pallas._dead_lstop :704).
 	Cached per ring set."""
 	th = np.ascontiguousarray(theta, np.float64)
 	return _dead_cached(th.tobytes(), int(lmax), int(mmax), int(s), torch.device(device))
 
 
-def live_mask(dead, nm, nt):
-	"""[nm, nt] bool from a dead-tile table: the entries K3/K4 compute."""
-	full = dead.repeat_interleave(TILE_M, 0).repeat_interleave(TILE_T, 1)
-	return full[:nm, :nt] == 0
+def stop_entries(lstop, nm, nt):
+	"""[nm, nt] int32 from a table of stop degrees per block: each entry's."""
+	return lstop.repeat_interleave(TILE_M, 0).repeat_interleave(TILE_T, 1)[:nm, :nt]
+
+
+def live_mask(lstop, nm, nt):
+	"""[nm, nt] bool from a table of stop degrees: the entries K3/K4 compute."""
+	return stop_entries(lstop, nm, nt) > 0
+
+
+# ---------------------------------------------------------------------------
+# Host tables of the block-Legendre split
+# ---------------------------------------------------------------------------
+def blk_start_table(theta, lmax, mmax, tile_m, tile_t):
+	"""[ceil(nm/tile_m), ceil(nt/tile_t)] int32: per tile of tile_m m rows by
+	tile_t rings, the first BLK_LB-degree block from which every block up to
+	lmax is eligible for the block kernels; nlb = ceil(nl/BLK_LB) where none
+	is (pixell_tpu.ops.sht_pallas._blk_start_table :621). A block starting at
+	l0 is eligible when it holds no seed (l0 > the tile's largest m, l0 >= 2)
+	and the recurrence's dominant root, at the tile's worst corner (largest
+	m, largest |cos theta|), grows by at most BLK_GMAX bits over the block:
+	the tile is then oscillatory there, the node series stay O(1) and their
+	evaluation error ~BLK_JP eps. A tile straddling the turning point is
+	not: its series would span 2^G and swamp its small values. Tiles with a
+	pole ring are never eligible: the block kernels have no pole terms."""
+	th = np.asarray(theta, np.float64)
+	nt, nm, nl = len(th), mmax + 1, lmax + 1
+	nmb, ntb, nlb = -(-nm//tile_m), -(-nt//tile_t), -(-nl//BLK_LB)
+	ct = np.zeros(ntb*tile_t)
+	ct[:nt] = np.cos(th)
+	cta = np.abs(ct).reshape(ntb, tile_t).max(1)[:, None]
+	stp = np.ones(ntb*tile_t)
+	stp[:nt] = np.abs(np.sin(th))
+	has_pole = (stp < 1e-6).reshape(ntb, tile_t).any(1)
+	ls = np.arange(nlb*BLK_LB, dtype=np.float64)
+	l0s = np.arange(nlb)*BLK_LB
+	start = np.full((nmb, ntb), nlb, np.int32)
+	for imb in range(nmb):
+		m_hi = min((imb + 1)*tile_m, nm) - 1
+		a = np.sqrt(np.maximum((2*ls - 1)*(2*ls + 1), 0.0)
+			/ np.maximum((ls - m_hi)*(ls + m_hi), 0.25))
+		b = np.sqrt(np.maximum((ls - 1 - m_hi)*(ls - 1 + m_hi), 0.0)
+			/ np.maximum((2*ls - 3)*(2*ls - 1), 1.0))
+		# log2 of the dominant root of z^2 - a c z + a b per degree, [ntb, nlp]
+		disc = (a*cta)**2 - 4*a*b
+		z = np.where(disc > 0, (a*cta + np.sqrt(np.maximum(disc, 0.0)))/2, 1.0)
+		gb = np.log2(np.maximum(z, 1.0)).reshape(ntb, nlb, BLK_LB).sum(2)
+		ok = (gb <= BLK_GMAX) & (l0s > m_hi) & (l0s >= 2)
+		# the first block of the trailing run of eligible ones
+		bad = ~ok[:, ::-1]
+		start[imb] = np.where(bad.any(1), nlb - np.argmax(bad, 1), 0)
+	start[:, has_pole] = nlb
+	return start
+
+
+def blk_polar_tiles(theta, tile_t):
+	"""[ceil(nt/tile_t)] bool: the ring tiles of tile_t rings that hold a ring
+	with sin theta < BLK_SMIN, which the port never runs blocked. A bound the
+	reference's 128-row m tiles did not need: towards a pole the recurrence's
+	roots meet and the node series grow algebraically, by min(BLK_LB,
+	1/sin theta), at any m, so the blocked evaluation's error grows as
+	1/sin^2 theta (measured on an H100 at lmax 2000: 4e-6/sin^2 theta of the
+	largest value, at the tile's most polar ring), and the node -> ring
+	product spreads it over the whole tile. With tiles of a few m rows the
+	root bound of blk_start_table alone passes such tiles at low m; with
+	BLK_SMIN the error stays below 2e-5."""
+	st = np.abs(np.sin(np.asarray(theta, np.float64)))
+	return np.array([st[i:i + tile_t].min() < BLK_SMIN for i in range(0, len(st), tile_t)])
+
+
+def blk_split(start, dead, lmax):
+	"""(start, stop): the block kernels' start table with the dead tiles
+	taken out, and the stop degree of the stepwise kernel per tile: 0 on a
+	dead tile (neither kernel runs it), else BLK_LB start, which is past lmax
+	where the tile has no blocked suffix
+	(pixell_tpu.ops.sht_pallas._synthesis_scan_pallas_blocked :1189-1197)."""
+	nlb = -(-(lmax + 1)//BLK_LB)
+	start = np.where(dead, nlb, start).astype(np.int32)
+	return start, np.where(dead, 0, start*BLK_LB).astype(np.int32)
+
+
+def lagrange_basis(xn, x):
+	"""[len(xn), len(x)] float64: l_j(x_t), the Lagrange basis through the
+	nodes xn at the points x, in barycentric form."""
+	d = xn[:, None] - xn[None, :]
+	np.fill_diagonal(d, 1.0)
+	w = 1/np.prod(d, 1)
+	diff = x[None, :] - xn[:, None]
+	hit = diff == 0
+	terms = w[:, None]/np.where(hit, 1.0, diff)
+	L = terms/terms.sum(0)
+	at_node = hit.any(0)
+	L[:, at_node] = hit[:, at_node]
+	return L
+
+
+def blk_node_tables(theta, tile_t):
+	"""(ctv [ntb, BLK_JP], W [ntb, BLK_JP, tile_t]) float64 numpy: per ring
+	tile the Chebyshev-Gauss nodes of its rings' cos theta interval, as the
+	float32 numbers the kernels evaluate their chains at, and W[n, j, t] =
+	l_j(cos theta_t), the Lagrange basis through exactly those numbers at the
+	tile's rings, zero on padding rings (pixell_tpu.ops.sht_pallas.
+	_blk_node_tables :847). Built in float64 from the exact cos theta: the
+	node -> ring product then interpolates every polynomial of degree < BLK_JP
+	exactly, whatever the rounding of the nodes. (The reference forms W for
+	the ideal nodes in a float32 recurrence, the TPU having no float64.)"""
+	ct = np.cos(np.asarray(theta, np.float64))
+	nt = len(ct)
+	ntb = -(-nt//tile_t)
+	xn = np.cos(np.pi*(np.arange(BLK_JP) + 0.5)/BLK_JP)
+	ctv = np.zeros((ntb, BLK_JP))
+	W = np.zeros((ntb, BLK_JP, tile_t))
+	for n in range(ntb):
+		c = ct[n*tile_t:(n + 1)*tile_t]
+		c0 = (c.max() + c.min())/2
+		# wide enough that float32 keeps the nodes apart
+		h = max((c.max() - c.min())/2, 1e-3)
+		ctv[n] = (c0 + h*xn).astype(np.float32)
+		W[n, :, :len(c)] = lagrange_basis((ctv[n] - c0)/h, (c - c0)/h)
+	return ctv, W
+
+
+@functools.lru_cache(maxsize=16)
+def _blk_cached(theta_bytes, lmax, mmax, device):
+	theta = np.frombuffer(theta_bytes, np.float64)
+	start = blk_start_table(theta, lmax, mmax, BLK_TILE_M, BLK_TILE_T)
+	start[:, blk_polar_tiles(theta, BLK_TILE_T)] = -(-(lmax + 1)//BLK_LB)
+	start, stop = blk_split(start, dead_table(theta, lmax, mmax, BLK_TILE_M, BLK_TILE_T), lmax)
+	nosuffix = start*BLK_LB > lmax
+	if nosuffix.all(): return None
+	# K3/K4's own blocks: each takes its tile's stop degree; in a tile without
+	# a suffix it skips if dead, as on the unsplit path
+	rm, rt = BLK_TILE_M//TILE_M, BLK_TILE_T//TILE_T
+	dead = dead_table(theta, lmax, mmax, TILE_M, TILE_T)
+	spread = lambda x: np.repeat(np.repeat(x, rm, 0), rt, 1)[:dead.shape[0], :dead.shape[1]]
+	lstop = np.where(spread(nosuffix), np.where(dead, 0, lmax + 1), spread(stop)).astype(np.int32)
+	ctv, W = blk_node_tables(theta, BLK_TILE_T)
+	f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+	tab = sht_core.BlkTables(f(start), f(ctv.astype(np.float32)), f(W.astype(np.float32)),
+		BLK_TILE_M, BLK_TILE_T)
+	return tab, f(lstop)
+
+
+def blk_tables(theta, lmax, mmax, device):
+	"""(tables of the block kernels, stop degrees of K3/K4's blocks) for the
+	split on the rings theta in float32, or None where no tile has a blocked
+	suffix. Cached per ring set."""
+	if BLK_TILE_M % TILE_M or BLK_TILE_T % TILE_T:
+		raise RuntimeError("a block-kernel tile must be whole K3/K4 blocks")
+	th = np.ascontiguousarray(theta, np.float64)
+	return _blk_cached(th.tobytes(), int(lmax), int(mmax), torch.device(device))
 
 
 @functools.lru_cache(maxsize=8)
@@ -168,6 +344,11 @@ def _coef_cached(nl, nm, dtype, device, s=None):
 @functools.lru_cache(maxsize=16)
 def _lt_cached(nl, mode, dtype, device):
 	return l_tables(nl, mode, dtype, device)
+
+
+@functools.lru_cache(maxsize=8)
+def _streams_cached(nl, nm, mode, device):
+	return sht_core.blk_stream_tables(nl, nm, mode, torch.float32, device).contiguous()
 
 
 @functools.lru_cache(maxsize=16)
@@ -194,17 +375,26 @@ def library():
 	lib = _build.load()
 	P, I = ctypes.c_void_p, ctypes.c_int
 	for mode in sht_core.MODES:
-		for name in KERNELS:
+		for name in LEGENDRE_KERNELS:
 			if mode == "wigner" and name.startswith("sym"): continue   # no half-sky form
 			fn = getattr(lib, "pt_%s_%s" % (name, mode))
-			# (f64, C), 9 pointers, (nl, nm, nt[, nplanes], s), the dead table, the stream
-			fn.argtypes = [I, I] + [P]*9 + [I]*(4 if name.endswith("synthesis") else 5) + [P, P]
+			# (f64, C), 9 pointers, (nl, nm, nt[, nplanes], s), the stop degrees,
+			# the state, the stream
+			fn.argtypes = [I, I] + [P]*9 + [I]*(4 if name.endswith("synthesis") else 5) + [P]*3
 			fn.restype = I
-	for fn, want in ((lib.pt_tile_theta_scalar, TILE_T), (lib.pt_tile_m_scalar, TILE_M)):
+		if mode not in sht_core.BLK_FAM: continue
+		for name in BLK_KERNELS:
+			fn = getattr(lib, "pt_%s_%s" % (name, mode))
+			# C, 10 pointers, (nl, nm, nt[, nplanes]), the stream
+			fn.argtypes = [I] + [P]*10 + [I]*(3 if name.endswith("synthesis") else 4) + [P]
+			fn.restype = I
+	for fn, want in ((lib.pt_tile_theta_scalar, TILE_T), (lib.pt_tile_m_scalar, TILE_M),
+			(lib.pt_blk_tile_theta_scalar, BLK_TILE_T), (lib.pt_blk_tile_m_scalar, BLK_TILE_M),
+			(lib.pt_blk_degrees_scalar, BLK_LB), (lib.pt_blk_nodes_scalar, BLK_JP)):
 		fn.argtypes, fn.restype = [], I
 		if fn() != want:
-			raise RuntimeError("the built kernels' block is not TILE_M x TILE_T = %d x %d"
-				% (TILE_M, TILE_T))
+			raise RuntimeError("the built kernels' tiles are not the dispatch's (%d, not %d)"
+				% (fn(), want))
 	return lib
 
 
@@ -235,7 +425,7 @@ def _ptrs(g, ab, lt):
 def _launch(name, mode, device, f64, *args):
 	# the C entry points launch on the thread's current device
 	with torch.cuda.device(device):
-		err = getattr(library(), "pt_%s_%s" % (name, mode))(int(f64), *args)
+		err = getattr(library(), "pt_%s_%s" % (name, mode))(*args)
 	if err != 0:
 		raise RuntimeError("%s (%s) kernel launch failed: CUDA error %d" % (name, mode, err))
 	LAUNCHES[name] += 1
@@ -243,19 +433,23 @@ def _launch(name, mode, device, f64, *args):
 	LAUNCHES_BY_DTYPE[(name, mode, "float64" if f64 else "float32")] += 1
 
 
-def _mode_args(g, nl, mode, dead, device):
-	"""(ab, lt, s, dead pointer) of a launch in mode on geometry g, after
-	checking that the geometry fits the mode and the dead table the grid."""
+def _mode_args(g, nl, mode, lstop, device, dump_state=False):
+	"""(ab, lt, s, stop-degree pointer) of a launch in mode on geometry g,
+	after checking that the geometry fits the mode, the stop degrees the grid
+	and a state handoff its launch."""
 	if (mode == "wigner") != (g.s is not None):
 		raise ValueError("mode '%s' on a geometry prepared %s a spin" % (mode,
 			"without" if g.s is None else "with"))
-	if dead is not None:
+	if lstop is not None:
 		want = (-(-g.nm//TILE_M), -(-g.nt//TILE_T))
-		if dead.dtype != torch.int32 or dead.device != device or tuple(dead.shape) != want \
-				or not dead.is_contiguous():
-			raise ValueError("dead-tile table: need contiguous int32 %s on %s" % (want, device))
+		if lstop.dtype != torch.int32 or lstop.device != device or tuple(lstop.shape) != want \
+				or not lstop.is_contiguous():
+			raise ValueError("stop degrees: need contiguous int32 %s on %s" % (want, device))
+	if dump_state and (lstop is None or mode == "wigner" or g.dtype != torch.float32):
+		raise ValueError("the state is handed over by float32 Legendre-mode launches "
+			"with stop degrees only")
 	return (_coef_cached(nl, g.nm, g.dtype, device, g.s), _lt_cached(nl, mode, g.dtype, device),
-		0 if g.s is None else int(g.s), 0 if dead is None else dead.data_ptr())
+		0 if g.s is None else int(g.s), 0 if lstop is None else lstop.data_ptr())
 
 
 def _col_chunks(C):
@@ -270,36 +464,53 @@ def _col_chunks(C):
 	return out
 
 
-def _synthesis_launch(name, A, g, lmax, mode, out_shape_of, dead=None):
+def _new_state(g, dump_state, device):
+	"""(state [3, nm, nt] for the kernel to fill, its pointer), or (None, 0)."""
+	if not dump_state: return None, 0
+	state = torch.zeros((3, g.nm, g.nt), dtype=g.dtype, device=device)
+	return state, state.data_ptr()
+
+
+def _synthesis_launch(name, A, g, lmax, mode, out_shape_of, lstop=None, dump_state=False):
 	nl, nm, C = A.shape
-	ab, lt, s, dead_ptr = _mode_args(g, nl, mode, dead, A.device)
+	ab, lt, s, stop_ptr = _mode_args(g, nl, mode, lstop, A.device, dump_state)
 	stream = torch.cuda.current_stream(A.device).cuda_stream
+	state, state_ptr = _new_state(g, dump_state, A.device)
 	outs = []
 	for c0, c1 in _col_chunks(C):
 		Ac = A[..., c0:c1].contiguous()
 		out = torch.empty(out_shape_of(c1 - c0), dtype=g.dtype, device=A.device)
-		_launch(name, mode, A.device, g.dtype == torch.float64, c1 - c0, Ac.data_ptr(),
-			*_ptrs(g, ab, lt), out.data_ptr(), nl, nm, g.nt, s, dead_ptr, stream)
+		# every launch of the columns ends in the same state: the first writes it
+		_launch(name, mode, A.device, g.dtype == torch.float64, int(g.dtype == torch.float64),
+			c1 - c0, Ac.data_ptr(), *_ptrs(g, ab, lt), out.data_ptr(), nl, nm, g.nt, s, stop_ptr,
+			state_ptr if c0 == 0 else 0, stream)
 		outs.append(out)
-	return torch.cat(outs, 1)
+	G = torch.cat(outs, 1)
+	return (G, state) if dump_state else G
 
 
-def _analysis_launch(name, F, g, lmax, mode, dead=None):
+def _planes(ntiles):
+	"""Partial-sum planes for ntiles ring tiles: each loops over an equal share."""
+	return -(-ntiles//(-(-ntiles//MAX_PLANES)))
+
+
+def _analysis_launch(name, F, g, lmax, mode, lstop=None, dump_state=False):
 	C = F.shape[1]
 	nl, nm = lmax + 1, g.nm
-	ab, lt, s, dead_ptr = _mode_args(g, nl, mode, dead, F.device)
+	ab, lt, s, stop_ptr = _mode_args(g, nl, mode, lstop, F.device, dump_state)
 	stream = torch.cuda.current_stream(F.device).cuda_stream
-	ntiles = -(-g.nt//TILE_T)
-	# each plane loops over an equal share of the ring tiles
-	nplanes = -(-ntiles//(-(-ntiles//MAX_PLANES)))
+	state, state_ptr = _new_state(g, dump_state, F.device)
+	nplanes = _planes(-(-g.nt//TILE_T))
 	outs = []
 	for c0, c1 in _col_chunks(C):
 		Fc = F[:, c0:c1].contiguous()
 		part = torch.zeros((nplanes, nl, nm, c1 - c0), dtype=g.dtype, device=F.device)
-		_launch(name, mode, F.device, g.dtype == torch.float64, c1 - c0, Fc.data_ptr(),
-			*_ptrs(g, ab, lt), part.data_ptr(), nl, nm, g.nt, nplanes, s, dead_ptr, stream)
+		_launch(name, mode, F.device, g.dtype == torch.float64, int(g.dtype == torch.float64),
+			c1 - c0, Fc.data_ptr(), *_ptrs(g, ab, lt), part.data_ptr(), nl, nm, g.nt, nplanes, s,
+			stop_ptr, state_ptr if c0 == 0 else 0, stream)
 		outs.append(part.sum(0))
-	return torch.cat(outs, -1)
+	A = torch.cat(outs, -1)
+	return (A, state) if dump_state else A
 
 
 def _parity(nl, nm, dtype, device):
@@ -335,19 +546,20 @@ def _sym_analysis_plain(EO, g, lmax, mode="scalar"):
 	lodd = _parity(lmax + 1, g.nm, torch.int64, EO.device)[..., None] < 0
 	return torch.where(lodd, R[..., C:], R[..., :C])
 
-def _full_synthesis_plain(A, g, lmax, mode="scalar", dead=None):
+def _full_synthesis_plain(A, g, lmax, mode="scalar", lstop=None, dump_state=False):
 	return sht_core.synthesis(A, g, lmax, mode,
-		None if dead is None else live_mask(dead, g.nm, g.nt))
+		None if lstop is None else stop_entries(lstop, g.nm, g.nt), dump_state)
 
-def _full_analysis_plain(F, g, lmax, mode="scalar", dead=None):
+def _full_analysis_plain(F, g, lmax, mode="scalar", lstop=None, dump_state=False):
 	return sht_core.analysis(F, g, lmax, mode,
-		None if dead is None else live_mask(dead, g.nm, g.nt))
+		None if lstop is None else stop_entries(lstop, g.nm, g.nt), dump_state)
 
-# The plain PyTorch version of each kernel, on the same arguments (mode and
-# dead table included). The wrappers use it for CPU tensors; it runs on any
-# device.
+# The plain PyTorch version of each kernel, on the same arguments (mode,
+# stop degrees and tables included). The wrappers use it for CPU tensors; it
+# runs on any device.
 PLAIN = {"sym_synthesis": _sym_synthesis_plain, "sym_analysis": _sym_analysis_plain,
-	"full_synthesis": _full_synthesis_plain, "full_analysis": _full_analysis_plain}
+	"full_synthesis": _full_synthesis_plain, "full_analysis": _full_analysis_plain,
+	"blk_synthesis": sht_core.blk_synthesis, "blk_analysis": sht_core.blk_analysis}
 
 
 def _check_sym_mode(mode):
@@ -367,17 +579,20 @@ def sym_synthesis(A, g, lmax, mode="scalar"):
 		lambda c: (NFUN[mode], c, 2, g.nm, g.nt))
 
 
-def full_synthesis(A, g, lmax, mode="scalar", dead=None):
+def full_synthesis(A, g, lmax, mode="scalar", lstop=None, dump_state=False):
 	"""K3 (K7 in wigner mode, on a geometry prepared with the spin):
-	synthesis on any ring set. A [nl, nm, C] -> [nfun, C, nm, nt]. dead, a
-	table from dead_tiles, marks blocks to skip, whose output is 0; None
-	skips nothing."""
+	synthesis on any ring set. A [nl, nm, C] -> [nfun, C, nm, nt]. lstop, a
+	table of stop degrees per block (dead_stops, blk_tables), ends a block's
+	sum before its degree: 0 skips the block, whose output is 0; None runs
+	every block to the end. With dump_state (float32 Legendre modes, stop
+	degrees multiples of 8) returns (G, state): the recurrence state
+	[3, nm, nt] (prev, curr, level) where each entry's sum ended."""
 	sht_core.check_mode(mode)
 	nl, C = lmax + 1, A.shape[-1]
 	_check(A, g, (nl, g.nm, C), "full_synthesis")
-	if not _on_card(A): return PLAIN["full_synthesis"](A, g, lmax, mode, dead)
+	if not _on_card(A): return PLAIN["full_synthesis"](A, g, lmax, mode, lstop, dump_state)
 	return _synthesis_launch("full_synthesis", A, g, lmax, mode,
-		lambda c: (NFUN[mode], c, g.nm, g.nt), dead)
+		lambda c: (NFUN[mode], c, g.nm, g.nt), lstop, dump_state)
 
 
 def sym_analysis(EO, g, lmax, mode="scalar"):
@@ -392,15 +607,83 @@ def sym_analysis(EO, g, lmax, mode="scalar"):
 	return _analysis_launch("sym_analysis", EO, g, lmax, mode)
 
 
-def full_analysis(F, g, lmax, mode="scalar", dead=None):
+def full_analysis(F, g, lmax, mode="scalar", lstop=None, dump_state=False):
 	"""K4 (K7 in wigner mode, on a geometry prepared with the spin): analysis
-	on any ring set. F [nfun, C, nm, nt] -> [nl, nm, C]. dead, a table from
-	dead_tiles, marks blocks whose rings are not read; None skips nothing."""
+	on any ring set. F [nfun, C, nm, nt] -> [nl, nm, C]. lstop, a table of
+	stop degrees per block (dead_stops, blk_tables), leaves a block's rings
+	out of every degree from its stop on: 0 never reads them; None reads all.
+	With dump_state returns (A, state) as full_synthesis does."""
 	sht_core.check_mode(mode)
 	C = F.shape[1]
 	_check(F, g, (NFUN[mode], C, g.nm, g.nt), "full_analysis")
-	if not _on_card(F): return PLAIN["full_analysis"](F, g, lmax, mode, dead)
-	return _analysis_launch("full_analysis", F, g, lmax, mode, dead)
+	if not _on_card(F): return PLAIN["full_analysis"](F, g, lmax, mode, lstop, dump_state)
+	return _analysis_launch("full_analysis", F, g, lmax, mode, lstop, dump_state)
+
+
+def _blk_args(x, state, tab, g, nl, mode, what):
+	"""The pointers of a block-kernel launch after its checks: the tables
+	a, b and the mode's streams, the state, start table, nodes, W or its
+	transpose, cos theta and the ring rows."""
+	if mode not in sht_core.BLK_FAM:
+		raise ValueError("no block-Legendre kernel in mode '%s'" % mode)
+	if g.dtype != torch.float32 or g.s is not None:
+		raise TypeError("%s: the block kernels run in float32 Legendre modes only" % what)
+	_check(state, g, (3, g.nm, g.nt), what + " state")
+	want = (-(-g.nm//BLK_TILE_M), -(-g.nt//BLK_TILE_T))
+	if (tab.tile_m, tab.tile_t) != (BLK_TILE_M, BLK_TILE_T) or tuple(tab.start.shape) != want:
+		raise ValueError("%s: tables of another tiling or grid" % what)
+	for t, dt in ((tab.start, torch.int32), (tab.ctv, torch.float32), (tab.W, torch.float32),
+			(tab.WT, torch.float32), (state, torch.float32)):
+		if t.dtype != dt or t.device != x.device or not t.is_contiguous():
+			raise ValueError("%s: tables must be contiguous %s tensors on %s" % (what, dt, x.device))
+	W = tab.W if what == "blk_synthesis" else tab.WT
+	ab = _coef_cached(nl, g.nm, g.dtype, x.device)
+	cs = _streams_cached(nl, g.nm, mode, x.device)
+	return [ab.data_ptr(), cs.data_ptr(), state.data_ptr(), tab.start.data_ptr(),
+		tab.ctv.data_ptr(), W.data_ptr(), g.ct.data_ptr(), g.rows.data_ptr()]
+
+
+def blk_synthesis(A, state, tab, g, lmax, mode="scalar"):
+	"""K8a (scalar) / K8b (deriv, spin1, spin2): the synthesis sum over the
+	blocked suffix of every tile that has one, resumed from the state
+	full_synthesis dumped. A [nl, nm, C], state [3, nm, nt], tab a
+	sht_core.BlkTables -> [nfun, C, nm, nt], zero on tiles without a
+	suffix."""
+	nl, C = lmax + 1, A.shape[-1]
+	_check(A, g, (nl, g.nm, C), "blk_synthesis")
+	if not _on_card(A): return PLAIN["blk_synthesis"](A, state, tab, g, lmax, mode)
+	ptrs = _blk_args(A, state, tab, g, nl, mode, "blk_synthesis")
+	stream = torch.cuda.current_stream(A.device).cuda_stream
+	outs = []
+	for c0, c1 in _col_chunks(C):
+		Ac = A[..., c0:c1].contiguous()
+		out = torch.zeros((NFUN[mode], c1 - c0, g.nm, g.nt), dtype=g.dtype, device=A.device)
+		_launch("blk_synthesis", mode, A.device, False, c1 - c0, Ac.data_ptr(), *ptrs,
+			out.data_ptr(), nl, g.nm, g.nt, stream)
+		outs.append(out)
+	return torch.cat(outs, 1)
+
+
+def blk_analysis(F, state, tab, g, lmax, mode="scalar"):
+	"""K8c (scalar) / K8d (deriv, spin1, spin2): the analysis sums of the
+	blocked suffix, resumed from the state full_analysis dumped.
+	F [nfun, C, nm, nt] -> [nl, nm, C], zero below every tile's first
+	block."""
+	C = F.shape[1]
+	nl = lmax + 1
+	_check(F, g, (NFUN[mode], C, g.nm, g.nt), "blk_analysis")
+	if not _on_card(F): return PLAIN["blk_analysis"](F, state, tab, g, lmax, mode)
+	ptrs = _blk_args(F, state, tab, g, nl, mode, "blk_analysis")
+	stream = torch.cuda.current_stream(F.device).cuda_stream
+	nplanes = _planes(-(-g.nt//BLK_TILE_T))
+	outs = []
+	for c0, c1 in _col_chunks(C):
+		Fc = F[:, c0:c1].contiguous()
+		part = torch.zeros((nplanes, nl, g.nm, c1 - c0), dtype=g.dtype, device=F.device)
+		_launch("blk_analysis", mode, F.device, False, c1 - c0, Fc.data_ptr(), *ptrs,
+			part.data_ptr(), nl, g.nm, g.nt, nplanes, stream)
+		outs.append(part.sum(0))
+	return torch.cat(outs, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -466,20 +749,61 @@ def kernel_synthesis(A, theta, lmax, mmax, mode="scalar", dtype=torch.float32, s
 	return G
 
 
-def _f32_dead(theta, lmax, mmax, dtype, s, device):
-	"""The dead-tile table for a K3/K4 launch in dtype: float32 only."""
+def _f32_stops(theta, lmax, mmax, dtype, s, device):
+	"""The dead-tile stops for a K3/K4 launch in dtype: float32 only."""
 	if dtype != torch.float32: return None
-	return dead_tiles(theta, lmax, mmax, 0 if s is None else s, device)
+	return dead_stops(theta, lmax, mmax, 0 if s is None else s, device)
+
+
+def blk_ok(mode, dtype, lmax):
+	"""Whether a K3/K4 launch takes the block-Legendre split
+	(pixell_tpu.ops.sht_pallas._blk_ok :615): enabled, float32, a Legendre
+	mode, lmax >= BLK_MINL."""
+	return bool(BLK_ENABLE) and dtype == torch.float32 and mode in sht_core.BLK_FAM \
+		and lmax >= BLK_MINL
+
+
+def blocked_synthesis(A, theta, lmax, mmax, mode="scalar"):
+	"""K3 up to each tile's handoff degree, then the block kernel over the
+	suffix, in float32: A [nl, nm, C] -> [nfun, C, nm, nt]
+	(pixell_tpu.ops.sht_pallas._synthesis_scan_pallas_blocked :1178). Plain
+	K3 with the dead-tile stops where no tile has a suffix."""
+	dt = torch.float32
+	A = A.to(dt).contiguous()
+	g = geom(theta, mmax, dt, A.device)
+	split = blk_tables(theta, lmax, mmax, A.device)
+	if split is None:
+		return full_synthesis(A, g, lmax, mode, _f32_stops(theta, lmax, mmax, dt, None, A.device))
+	tab, lstop = split
+	G, state = full_synthesis(A, g, lmax, mode, lstop, dump_state=True)
+	return G + blk_synthesis(A, state, tab, g, lmax, mode)
+
+
+def blocked_analysis(F, theta, lmax, mmax, mode="scalar"):
+	"""K4 up to each tile's handoff degree, then the block kernel over the
+	suffix, in float32: F [nfun, C, nm, nt] -> [nl, nm, C]
+	(pixell_tpu.ops.sht_pallas._analysis_scan_pallas_blocked :1491)."""
+	dt = torch.float32
+	F = F.to(dt).contiguous()
+	g = geom(theta, mmax, dt, F.device)
+	split = blk_tables(theta, lmax, mmax, F.device)
+	if split is None:
+		return full_analysis(F, g, lmax, mode, _f32_stops(theta, lmax, mmax, dt, None, F.device))
+	tab, lstop = split
+	out, state = full_analysis(F, g, lmax, mode, lstop, dump_state=True)
+	return out + blk_analysis(F, state, tab, g, lmax, mode)
 
 
 def _synth_rings(A, theta, lmax, mmax, mode, dtype, s=None):
-	"""[nfun, C, nm, nt] through K1 (symmetric ring set, Legendre modes) or K3."""
+	"""[nfun, C, nm, nt] through K1 (symmetric ring set, Legendre modes) or K3,
+	split with the block kernel where blk_ok."""
 	A = A.to(dtype).contiguous()
 	nt = len(theta)
 	nh = None if mode == "wigner" else detect_sym(theta)
 	if nh is None:
+		if blk_ok(mode, dtype, lmax): return blocked_synthesis(A, theta, lmax, mmax, mode)
 		return full_synthesis(A, geom(theta, mmax, dtype, A.device, s), lmax, mode,
-			_f32_dead(theta, lmax, mmax, dtype, s, A.device))
+			_f32_stops(theta, lmax, mmax, dtype, s, A.device))
 	pair = sym_synthesis(A, geom(theta[:nh], mmax, dtype, A.device), lmax, mode)
 	return torch.cat([pair[:, :, 0], pair[:, :, 1, :, :nt - nh].flip(-1)], -1)
 
@@ -529,8 +853,10 @@ def _anal_rings(F, theta, lmax, mmax, mode, dtype, s=None):
 		Fc, th = F[..., i0:i1].contiguous(), theta[i0:i1]
 		if nh is not None:
 			part = sym_analysis(Fc, geom(th, mmax, dtype, F.device), lmax, mode)
+		elif blk_ok(mode, dtype, lmax):
+			part = blocked_analysis(Fc, th, lmax, mmax, mode)
 		else:
 			part = full_analysis(Fc, geom(th, mmax, dtype, F.device, s), lmax, mode,
-				_f32_dead(th, lmax, mmax, dtype, s, F.device))
+				_f32_stops(th, lmax, mmax, dtype, s, F.device))
 		out = part if out is None else out + part
 	return out

@@ -13,6 +13,7 @@ ported. Spins 1 and 2 use closed-form mode functions of the Legendre
 recurrence; higher spins the Wigner-d engine (ops.sht_core wigner_values).
 """
 from __future__ import annotations
+import contextlib
 import functools
 import numpy as np
 import torch
@@ -21,6 +22,24 @@ from .ops import sht_cuda
 
 _CDTYPE = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 _RDTYPE = {torch.complex64: torch.float32, torch.complex128: torch.float64}
+
+
+@contextlib.contextmanager
+def blocked(enable=True):
+	"""Scope the block-Legendre split (pixell_tpu.sht.blocked :62): inside,
+	the float32 scalar, deriv, spin-1 and spin-2 transforms at lmax >=
+	ops.sht_cuda.BLK_MINL on ring sets that take K3/K4 (not south-symmetric,
+	or more than 2 SYM_MAX_NH rings) run each tile's oscillatory degrees 112
+	at a time, as value series at 128 Chebyshev nodes plus one node -> ring
+	product, instead of stepwise. Off by default:
+
+	    with sht.blocked():
+	        alm = curvedsky.map2alm(map, lmax=2000)
+	"""
+	old = sht_cuda.BLK_ENABLE
+	sht_cuda.BLK_ENABLE = bool(enable)
+	try: yield
+	finally: sht_cuda.BLK_ENABLE = old
 
 
 # ---------------------------------------------------------------------------

@@ -189,9 +189,9 @@ def test_wigner_polar_split(monkeypatch):
 	calls = []
 	def spy(name):
 		kern = getattr(sht_cuda, name)
-		def wrapped(x, g, lmax, mode="scalar", dead=None):
+		def wrapped(x, g, lmax, mode="scalar", lstop=None):
 			calls.append((name, g.dtype, g.nt, g.nm - 1, g.s))
-			return kern(x, g, lmax, mode, dead)
+			return kern(x, g, lmax, mode, lstop)
 		monkeypatch.setattr(sht_cuda, name, wrapped)
 	spy("full_synthesis"); spy("full_analysis")
 	s, lmax = 3, 64
@@ -235,28 +235,32 @@ def test_dead_table_matches_reference(s):
 			assert mine.dtype == bool and np.array_equal(mine, ref)
 	# the port's own blocks: dead tiles already at lmax 750 on 900 rings
 	th = sht.ring_theta("F1", 900)
-	dead = sht_cuda.dead_tiles(th, 750, 750, s, "cpu")
-	assert dead.dtype == torch.int32
-	assert tuple(dead.shape) == (-(-751//sht_cuda.TILE_M), -(-900//sht_cuda.TILE_T))
-	assert 0 < int(dead.sum()) < dead.numel()//2
-	live = sht_cuda.live_mask(dead, 751, 900)
+	# as stop degrees: 0 on a dead block, lmax + 1 (run to the end) elsewhere
+	lstop = sht_cuda.dead_stops(th, 750, 750, s, "cpu")
+	assert lstop.dtype == torch.int32 and set(lstop.unique().tolist()) == {0, 751}
+	assert tuple(lstop.shape) == (-(-751//sht_cuda.TILE_M), -(-900//sht_cuda.TILE_T))
+	assert 0 < int((lstop == 0).sum()) < lstop.numel()//2
+	assert np.array_equal(lstop.numpy() == 0,
+		sht_cuda.dead_table(th, 750, 750, sht_cuda.TILE_M, sht_cuda.TILE_T, s))
+	live = sht_cuda.live_mask(lstop, 751, 900)
 	assert tuple(live.shape) == (751, 900) and not bool(live[700, 0])
 	assert bool(live[:60].all()) and bool(live[:, 384:512].all())
-	assert sht_cuda.dead_tiles(th[300:600], 750, 750, s, "cpu") is None   # equatorial rings
+	assert torch.equal(sht_cuda.stop_entries(lstop, 751, 900) > 0, live)
+	assert sht_cuda.dead_stops(th[300:600], 750, 750, s, "cpu") is None   # equatorial rings
 
 
 @pytest.mark.parametrize("mode,tol", [("scalar", 1e-9), ("spin2", 1e-7), ("wigner", 1e-7)])
 def test_dead_tile_skip_is_negligible(mode, tol):
-	"""K3/K4's plain versions with the dead-tile table and without, in
-	float32 as the main path launches them: the skipped tiles hold less than
-	the bound, and the live ones are untouched."""
+	"""K3/K4's plain versions with the dead tiles' stop degrees and without,
+	in float32 as the main path launches them: the skipped tiles hold less
+	than the bound, and the live ones are untouched."""
 	lmax, C = 300, 2
 	s = 3 if mode == "wigner" else None
 	theta = (np.arange(2*lmax + 2) + 0.5)*np.pi/(2*lmax + 2)
 	theta = theta[:-3]
 	nt = len(theta)
-	dead = sht_cuda.dead_tiles(theta, lmax, lmax, s or 0, "cpu")
-	assert dead is not None and int(dead.sum()) > 0
+	dead = sht_cuda.dead_stops(theta, lmax, lmax, s or 0, "cpu")
+	assert dead is not None and int((dead == 0).sum()) > 0
 	g = sht_cuda.geom(theta, lmax, torch.float32, "cpu", s)
 	rng = np.random.default_rng(0)
 	nfun = sht_core.NFUN[mode]
