@@ -1,5 +1,5 @@
 // Hand-written Hopper (sm_90a) kernels for the Legendre stage of the
-// spherical harmonic transform. Four kernels, one recurrence:
+// spherical harmonic transform. Five kernels, one recurrence:
 //
 //   K1 sym_synthesis   replaces _synthesis_scan_pallas_sym
 //                      (pixell_tpu/ops/sht_pallas.py:1686, pallas_call :1755)
@@ -10,6 +10,10 @@
 //   K4 full_analysis   replaces _analysis_scan_pallas_full
 //                      (pixell_tpu/ops/sht_pallas.py:1954, pallas_call :2089)
 //
+// and a fifth, polar_analysis, K4's float64 near-pole pass redesigned for
+// this card (design below, before polar_analysis_kernel), which the float32
+// dispatch launches for the near-pole rings of every analysis in place of
+// the float64 instantiation of K4;
 // each in the four Legendre modes of the reference (K6, _make_funcs
 // sht_pallas.py:408): scalar emits lambda_lm; deriv [lambda, d lambda/d theta];
 // spin1 [w1, x1]; spin2 [w2, x2], the theta-functions of the spin-weighted
@@ -545,6 +549,271 @@ analysis_kernel(const T* __restrict__ F, const T* __restrict__ ab,
   }
 }
 
+// K4's float64 near-pole pass, redesigned for Hopper (polar_analysis_kernel):
+// out[l, m, c] = sum_t sum_f u_f(l, m, theta_t) F[f, c, m, t] on a small ring
+// set near the poles (78 rings at lmax 750) for m < 128, in float64 only. The
+// work is tiny (~10 us of FP64 at the data-sheet rate for spin2); what bounds
+// it is the latency of ~lmax dependent recurrence steps per entry, with one
+// warp of such chains per SM sub-partition. analysis_kernel's layout (4 m
+// rows x 64 rings per block, one warp butterfly per degree and column)
+// filled 64 of 132 SMs, left 39 % of its lanes idle on 78 rings and spent 5
+// shuffle rounds per degree and column. Here:
+//   - one block per m row (128 blocks), so each (l, m, c) has one owner: no
+//     partial planes, no atomics, no zero-initialized buffer; the block
+//     writes its rows l < its seed degree as zeros itself;
+//   - warps 0-3 (producers) are one ring each of a PTILE-ring tile and run
+//     nothing but the recurrence (polar_step), PLC degrees at a time, each
+//     step's coefficients read before the previous step's stores; they hand
+//     lambda_l (and lambda_{l-1}; wigner: w and x) over through a shared
+//     tile U[PLC][2][PTILE];
+//   - warps 4-7 (reducers) own (l, c) outputs: thread (li, part) evaluates
+//     the mode functions of its degree on PTILE/PPARTS rings of the tile
+//     (ring rows and F staged once per tile) and sums them against F with two
+//     partial sums per column; the PPARTS parts of a degree meet in two
+//     shuffle rounds, once per chunk and not once per degree;
+//   - U is double-buffered (the coefficients triple-buffered), so the
+//     reducers work on chunk k while the producers run chunk k + 1: one
+//     barrier per chunk, and a chunk takes the longer of the two; the
+//     reducers also stage the coefficients, loading each chunk's from device
+//     memory two chunks ahead;
+//   - more than PTILE rings loop over ring tiles inside the block, each tile
+//     adding into the block's own output rows (read back by the same thread);
+//     warps and reducer iterations with no ring of the tile are skipped.
+// Shared memory is dynamic (~152 KB in spin2: U 130 KB). U's degree rows are
+// padded to PPARTS mod 16 doubles, so the reducers' loads (16/PPARTS degrees
+// x PPARTS rings per half-warp) hit distinct banks; F is stored as column
+// pairs, so consecutive rings read contiguous 16-byte pairs.
+constexpr int PTILE = 128;             // rings per tile: one producer thread each
+constexpr int PLC = 32;                // degrees per chunk
+constexpr int PPARTS = PTILE / PLC;    // reducer threads per degree
+constexpr int PTHREADS = 2 * PTILE;    // producers, then reducers
+// a degree row of U, padded so that the reducers' loads of one half-warp
+// (16 / PPARTS degrees x PPARTS rings) fall in distinct banks
+constexpr int PROW = NFUN * PTILE + PPARTS;
+static_assert(PLC * PPARTS == PTILE && PPARTS <= 16 && PROW % 16 == PPARTS,
+              "reducer layout");
+
+template <int C> struct PolarSmem {
+  double U[2][PLC][PROW];         // what the producers hand over, double-buffered
+  double2 F[NFUN][C / 2][PTILE];  // the tile's ring data, as column pairs
+  double ring[7][PTILE];          // the tile's ring rows (Ring), for the reducers
+  double cs[3][5][PLC];           // a, b, e (wigner: c), nrm, hp of a chunk
+};
+
+// Coefficient e = q PLC + i of a chunk starting at degree l0 (q: a, b, e or
+// the wigner mode's c, nrm, hp; i: the degree in the chunk); zero below the
+// seed degree lbeg, where the state stays zero, and from nl on.
+__device__ __forceinline__ double polar_coef(const double* __restrict__ ab,
+                                             const double* __restrict__ lt, int l0, int lbeg,
+                                             int m, int nl, int nm, int e) {
+  const int q = e / PLC, l = l0 + e % PLC;
+  const size_t nlm = (size_t)nl * nm, lm = (size_t)l * nm + m;
+  if (l < lbeg || l >= nl) return 0.0;
+  if (q < 2) return ab[q * nlm + lm];
+  if (q == 2) return MODE != SCALAR ? ab[2 * nlm + lm] : 0.0;
+  return lt[(q - 3) * nl + l];
+}
+// a reducer thread stages coefficients rid and rid + PTILE of each chunk
+constexpr int PCOEF = (5 * PLC + PTILE - 1) / PTILE;
+
+// One step of the near-pole recurrence at degree l: step() without the low
+// part of cos theta, which is zero in float64 (x: cos theta; cadd: the
+// wigner mode's +c or -c). Returns the true lambda_l and sets lam1 to the
+// true lambda_{l-1}, as step() does, and rounds as it does.
+__device__ __forceinline__ double polar_step(State<double>& s, int l, int lseed, double a,
+                                             double b, double x, double cadd, double seedv,
+                                             int seedl, double& lam1) {
+  double t = x * s.curr;
+  if constexpr (MODE == WIGNER) t = fma(cadd, s.curr, t);
+  double nw = a * (t - b * s.prev);
+  double cz = s.curr;
+  if (l == lseed) {  // seed; the stale previous value has another scale
+    nw = seedv;
+    s.lev = seedl;
+    cz = 0.0;
+  }
+  s.prev = cz;
+  s.curr = nw;
+  const double fac = s.lev == 0 ? 1.0 : (s.lev == -1 ? Scale<double>::invband() : 0.0);
+  lam1 = cz * fac;
+  return nw * fac;
+}
+
+// F [NFUN, C, nm, nt] -> out[l, m, c] at column stride ldo (>= C), for the m
+// row of this block; out's rows l < the seed degree are written as zeros.
+// ab [3, nl, nm]; lt [2, nl]; cth [nt]; rows [4, nt]; sv, sl [NBR, nm, nt];
+// spin is the wigner mode's s.
+template <int C>
+__global__ void __launch_bounds__(PTHREADS, 1)
+polar_analysis_kernel(const double* __restrict__ F, const double* __restrict__ ab,
+                      const double* __restrict__ lt, const double* __restrict__ cth,
+                      const double* __restrict__ rows, const double* __restrict__ sv,
+                      const int* __restrict__ sl, double* __restrict__ out, int ldo, int nl,
+                      int nm, int nt, int spin) {
+  // the Legendre spin modes hand lambda_l and lambda_{l-1} over and the
+  // reducers evaluate the mode functions; scalar hands lambda_l, wigner w, x
+  constexpr bool SPLIT = MODE == DERIV || MODE == SPIN1 || MODE == SPIN2;
+  extern __shared__ __align__(16) unsigned char polar_raw[];
+  PolarSmem<C>& sm = *reinterpret_cast<PolarSmem<C>*>(polar_raw);
+  const int tid = threadIdx.x, m = blockIdx.x;
+  const bool producer = tid < PTILE;
+  const int rid = tid - PTILE;                  // reducer index
+  const int li = rid / PPARTS, part = rid % PPARTS;
+  const size_t plane = (size_t)nm * nt;
+  const double sgs = (spin & 1) ? -1.0 : 1.0;
+  const int lbeg = MODE == WIGNER ? max(m, spin) : m;
+  // chunks start at multiples of 8 from below the seed, so that the
+  // renormalization every 8 degrees falls on fixed steps of the unrolled
+  // chunk and no step but every eighth ends in a branch
+  const int l8 = lbeg & ~7;
+  const int ntiles = (nt + PTILE - 1) / PTILE;
+  const int nch = nl > lbeg ? (nl - l8 + PLC - 1) / PLC : 0;
+  const int lz = ntiles == 0 ? nl : min(lbeg, nl);
+  for (int i = tid; i < lz * C; i += PTHREADS)
+    out[((size_t)(i / C) * nm + m) * ldo + i % C] = 0.0;
+  if (nch == 0) return;
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int t = tile * PTILE + tid;
+    const bool valid = producer && t < nt;
+    const double x = valid ? cth[t] : 0.0;
+    Recur<double> rc = load_recur(sv, sl, (size_t)m * nt + t, plane, m, spin, valid);
+    // a reducer's coefficients of the chunk after next, loaded from device
+    // memory one iteration before they are staged, so their latency overlaps
+    // the reduction instead of stalling it
+    double kv[PCOEF];
+    if (!producer) {
+      for (int i = rid; i < NFUN * (C / 2) * PTILE; i += PTILE) {
+        const int rr = i % PTILE, fc = i / PTILE, f = fc / (C / 2), cp = fc % (C / 2);
+        const int tt = tile * PTILE + rr;
+        const size_t at = ((size_t)(f * C + 2 * cp) * nm + m) * nt + tt;
+        sm.F[f][cp][rr] = tt < nt ? make_double2(F[at], F[at + plane]) : make_double2(0.0, 0.0);
+      }
+      if (SPLIT) {
+        const int tt = tile * PTILE + rid;
+        const Ring<double> q = load_ring(cth, rows, tt, nt, tt < nt);
+        sm.ring[0][rid] = q.ct, sm.ring[1][rid] = q.ct_st, sm.ring[2][rid] = q.inv_st;
+        sm.ring[3][rid] = q.inv_st2, sm.ring[4][rid] = q.notpole, sm.ring[5][rid] = q.pn;
+        sm.ring[6][rid] = q.ps;
+      }
+#pragma unroll
+      for (int k = 0; k < PCOEF; ++k) {
+        const int e = rid + k * PTILE;
+        if (e < 5 * PLC) {
+          sm.cs[0][e / PLC][e % PLC] = polar_coef(ab, lt, l8, lbeg, m, nl, nm, e);
+          kv[k] = polar_coef(ab, lt, l8 + PLC, lbeg, m, nl, nm, e);
+        }
+      }
+    }
+    __syncthreads();
+    // rings of this tile; a producer warp with none of them skips its steps
+    const int nvalid = min(PTILE, nt - tile * PTILE);
+    const bool live = (tid & ~31) < nvalid;
+    for (int it = 0; it <= nch; ++it) {
+      if (producer) {
+        if (it < nch && live) {
+          const int l0 = l8 + it * PLC, n = min(PLC, nl - l0);
+          const double(&cs)[5][PLC] = sm.cs[it % 3];
+          double(&U)[PLC][PROW] = sm.U[it & 1];
+          // a step's coefficients a, b (and the wigner mode's c)
+          auto coef = [&](int i, double (&k)[3]) {
+#pragma unroll
+            for (int q = 0; q < 3; ++q) k[q] = cs[q][i];
+          };
+          auto produce = [&](int i, const double (&k)[3]) {
+            const int l = l0 + i;
+            double lam1;
+            if constexpr (MODE == WIGNER) {
+              const double lp = polar_step(rc.s[0], l, rc.lseed, k[0], k[1], x, k[2],
+                                           rc.seedv[0], rc.seedl[0], lam1);
+              const double lm = sgs * polar_step(rc.s[NBR - 1], l, rc.lseed, k[0], k[1], x, -k[2],
+                                                 rc.seedv[NBR - 1], rc.seedl[NBR - 1], lam1);
+              U[i][tid] = 0.5 * (lp + lm);
+              U[i][PTILE + tid] = 0.5 * (lp - lm);
+            } else {
+              U[i][tid] = polar_step(rc.s[0], l, rc.lseed, k[0], k[1], x, 0.0, rc.seedv[0],
+                                     rc.seedl[0], lam1);
+              if constexpr (SPLIT) U[i][PTILE + tid] = lam1;
+            }
+            if ((i & 7) == 7) rescale(rc);  // l & 7, as l0 is a multiple of 8
+          };
+          double k[3], kn[3];
+          if (n == PLC) {
+            // unrolled, and each step's coefficients loaded before the
+            // previous step's stores to U, across which the compiler may not
+            // move them: the chain then never waits on shared memory
+            coef(0, kn);
+#pragma unroll
+            for (int i = 0; i < PLC; ++i) {
+#pragma unroll
+              for (int q = 0; q < 3; ++q) k[q] = kn[q];
+              if (i + 1 < PLC) coef(i + 1, kn);
+              produce(i, k);
+            }
+          } else {  // the last, partial chunk
+            for (int i = 0; i < n; ++i) {
+              coef(i, k);
+              produce(i, k);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < PCOEF; ++k) {
+          const int e = rid + k * PTILE;
+          if (e < 5 * PLC) {
+            if (it + 1 < nch) sm.cs[(it + 1) % 3][e / PLC][e % PLC] = kv[k];
+            if (it + 2 < nch) kv[k] = polar_coef(ab, lt, l8 + (it + 2) * PLC, lbeg, m, nl, nm, e);
+          }
+        }
+        if (it >= 1) {
+          const int l0 = l8 + (it - 1) * PLC, l = l0 + li;
+          const double(&cs)[5][PLC] = sm.cs[(it - 1) % 3];
+          const double* __restrict__ U = sm.U[(it - 1) & 1][li];
+          double acc[2][C];
+#pragma unroll
+          for (int c = 0; c < C; ++c) acc[0][c] = acc[1][c] = 0.0;
+#pragma unroll
+          for (int j = 0; j < PTILE / PPARTS; ++j) {
+            if (PPARTS * j >= nvalid) break;  // the rest of the tile is padding
+            const int tt = part + PPARTS * j;
+            double u[NFUN];
+            if constexpr (SPLIT) {
+              const Ring<double> q{sm.ring[0][tt], sm.ring[1][tt], sm.ring[2][tt],
+                                   sm.ring[3][tt], sm.ring[4][tt], sm.ring[5][tt],
+                                   sm.ring[6][tt]};
+              mode_funcs(u, U[tt], U[PTILE + tt], l, m, cs[2][li], cs[3][li], cs[4][li], q);
+            } else {
+#pragma unroll
+              for (int f = 0; f < NFUN; ++f) u[f] = U[f * PTILE + tt];
+            }
+#pragma unroll
+            for (int f = 0; f < NFUN; ++f) {
+#pragma unroll
+              for (int cp = 0; cp < C / 2; ++cp) {
+                const double2 v = sm.F[f][cp][tt];
+                acc[j & 1][2 * cp] = fma(u[f], v.x, acc[j & 1][2 * cp]);
+                acc[j & 1][2 * cp + 1] = fma(u[f], v.y, acc[j & 1][2 * cp + 1]);
+              }
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            double v = acc[0][c] + acc[1][c];
+#pragma unroll
+            for (int o = PPARTS / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+            // the same thread owns the same (l, m, c) in every tile
+            if (part == 0 && l >= lbeg && l < nl) {
+              double* dst = out + ((size_t)(l0 + li) * nm + m) * ldo + c;
+              *dst = tile == 0 ? v : *dst + v;
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
 #define KERNEL_ARGS(T)                                                           \
   static_cast<const T*>(ab), static_cast<const T*>(lt),                          \
       static_cast<const T*>(cth), static_cast<const T*>(ctl),                    \
@@ -607,6 +876,24 @@ int launch_analysis(int C, const void* F, const void* ab, const void* lt,
   return (int)cudaGetLastError();
 }
 
+template <int C>
+int launch_polar(const void* F, const void* ab, const void* lt, const void* cth,
+                 const void* rows, const void* sv, const void* sl, void* out, int ldo,
+                 int nl, int nm, int nt, int spin, cudaStream_t st) {
+  if (nm == 0 || nl == 0) return 0;
+  if (ldo < C) return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(PolarSmem<C>);
+  cudaError_t e = cudaFuncSetAttribute(polar_analysis_kernel<C>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  polar_analysis_kernel<C><<<nm, PTHREADS, smem, st>>>(
+      static_cast<const double*>(F), static_cast<const double*>(ab),
+      static_cast<const double*>(lt), static_cast<const double*>(cth),
+      static_cast<const double*>(rows), static_cast<const double*>(sv),
+      static_cast<const int*>(sl), static_cast<double*>(out), ldo, nl, nm, nt, spin);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // f64 selects the double instantiation; C (2 or 4) is the coefficient
@@ -654,6 +941,26 @@ ANAL_ENTRY(pt_sym_analysis, true)
 #endif
 SYNTH_ENTRY(pt_full_synthesis, false)
 ANAL_ENTRY(pt_full_analysis, false)
+
+// K4's float64 near-pole pass (polar_analysis_kernel), every mode: C (2 or 4)
+// columns of F [NFUN, C, nm, nt], written at column stride ldo into out
+// [nl, nm, ldo]; no stop degrees, no state, and no low part of cos theta
+// (zero in float64).
+extern "C" int PT_ENTRY(pt_polar_analysis)(int C, const void* F, const void* ab,
+                                           const void* lt, const void* cth,
+                                           const void* rows, const void* sv,
+                                           const void* sl, void* out, int ldo, int nl,
+                                           int nm, int nt, int spin, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 2:
+      return launch_polar<2>(F, ab, lt, cth, rows, sv, sl, out, ldo, nl, nm, nt, spin, st);
+    case 4:
+      return launch_polar<4>(F, ab, lt, cth, rows, sv, sl, out, ldo, nl, nm, nt, spin, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 
 // Kernel tile sizes, so the host can size the partial planes and the
 // dead-tile table.

@@ -8,10 +8,15 @@ path (_analysis_linear :686-797, weighted, non-mesh), plus rand_alm
 (:253-302), rand_map (:304), get_lmax_from_map (:317), alm2cl (:132) and
 almxfl (:160).
 
-The entry points that allocate (rand_alm, rand_alm_white, rand_map,
-prepare_alm) do so on device="cuda" unless told otherwise; alm2map and
-map2alm follow the map's device. accuracy="high" runs the Legendre
-recurrence in float64 whatever the map's dtype. Theta banding
+Every public function takes the reference's parameters in the
+reference's order; the port's own extras come last and are keyword-only.
+Parameters that mean nothing on the card (verbose, nthread, epsilon,
+locinfo, tweak) are accepted and ignored, as is m_major, which the
+reference ignores too (its alm are m-major either way). The entry points
+that allocate (rand_alm, rand_alm_white, rand_map, prepare_alm) do so on
+device="cuda" unless told otherwise; alm2map and map2alm follow the map's
+device. accuracy="high" runs the Legendre recurrence in float64 whatever
+the map's dtype. Theta banding
 (SYNTH_BAND_BYTES) is not ported: it was sized for a 16 GB chip. Not ported
 yet, and raising NotImplementedError: adjoint, the "general"
 geometry method, map2alm on "cyl" geometries and mesh= (multi-device).
@@ -86,10 +91,11 @@ class alm_info:
 		out = rect.new_zeros(rect.shape[:-2] + (self.nelem,))
 		out[..., torch.from_numpy(idx[lv, mv]).to(rect.device)] = rect[..., lv, mv]
 		return out
-	def alm2cl(self, alm, alm2=None):
+	def alm2cl(self, alm, alm2=None, dtype=None):
+		"""Cross spectra; dtype is accepted and ignored, as in the reference."""
 		return alm2cl(alm, alm2=alm2, ainfo=self)
-	def lmul(self, alm, lmat):
-		return lmul(alm, lmat, ainfo=self)
+	def lmul(self, alm, lmat, out=None):
+		return lmul(alm, lmat, ainfo=self, out=out)
 	def __repr__(self):
 		return "alm_info(lmax=%s,mmax=%s)" % (str(self.lmax), str(self.mmax))
 
@@ -106,9 +112,9 @@ def alm2cl(alm, alm2=None, ainfo=None):
 	l = torch.arange(ainfo.lmax+1, device=alm.device, dtype=rdt)
 	return cl/(2*l+1)
 
-def lmul(alm, lmat, ainfo=None):
+def lmul(alm, lmat, ainfo=None, out=None):
 	"""Multiply alm by a per-l scalar [nl] or matrix [a, b, nl]
-	(pixell_tpu.curvedsky.lmul)."""
+	(pixell_tpu.curvedsky.lmul); into out when given."""
 	if ainfo is None: ainfo = alm_info(nalm=alm.shape[-1])
 	lmat = torch.as_tensor(lmat, device=alm.device)
 	rect = ainfo._rect(alm)
@@ -119,14 +125,19 @@ def lmul(alm, lmat, ainfo=None):
 		res = rect*lmat[..., :nl][..., :, None]
 	else:
 		res = torch.einsum("ab...l,b...lm->a...lm", lmat[..., :nl].to(rect.dtype), rect)
-	return ainfo._unrect(res).to(alm.dtype)
+	res = ainfo._unrect(res).to(alm.dtype)
+	if out is None: return res
+	if tuple(out.shape) != tuple(res.shape):
+		raise ValueError("out has shape %s, the result %s" % (tuple(out.shape), tuple(res.shape)))
+	return out.copy_(res)
 
-def almxfl(alm, lfilter=None, ainfo=None):
-	"""Filter alm by a function or array of l (pixell_tpu.curvedsky.almxfl)."""
+def almxfl(alm, lfilter=None, ainfo=None, out=None):
+	"""Filter alm by a function or array of l (pixell_tpu.curvedsky.almxfl);
+	into out when given."""
 	if ainfo is None: ainfo = alm_info(nalm=alm.shape[-1])
 	if callable(lfilter):
 		lfilter = lfilter(np.arange(ainfo.lmax+1).astype(float))
-	return lmul(alm, lfilter, ainfo=ainfo)
+	return lmul(alm, lfilter, ainfo=ainfo, out=out)
 
 
 # ---------------------------------------------------------------------------
@@ -147,12 +158,15 @@ def _rand_alm_white_np(ainfo, pre, seed, dtype):
 	alm[..., i0] = alm[..., i0].real*np.sqrt(2)
 	return alm
 
-def rand_alm_white(ainfo, pre=None, seed=None, dtype=torch.complex128, device="cuda"):
-	"""Unit-variance white alm [*pre, nelem] (pixell_tpu.curvedsky.rand_alm_white)."""
-	return torch.from_numpy(_rand_alm_white_np(ainfo, pre or (), seed, dtype)).to(device)
+def rand_alm_white(ainfo, pre=None, seed=None, m_major=True, return_ainfo=False,
+		dtype=torch.complex128, *, device="cuda"):
+	"""Unit-variance white alm [*pre, nelem] (pixell_tpu.curvedsky.rand_alm_white);
+	(alm, ainfo) with return_ainfo."""
+	alm = torch.from_numpy(_rand_alm_white_np(ainfo, pre or (), seed, dtype)).to(device)
+	return (alm, ainfo) if return_ainfo else alm
 
-def rand_alm(ps, ainfo=None, lmax=None, seed=None, dtype=torch.complex128,
-		return_ainfo=False, device="cuda"):
+def rand_alm(ps, ainfo=None, lmax=None, seed=None, dtype=torch.complex128, m_major=True,
+		return_ainfo=False, *, device="cuda"):
 	"""Gaussian alm with power spectrum ps [nl] or [ncomp, ncomp, nl]
 	(pixell_tpu.curvedsky.rand_alm)."""
 	ps = np.asarray(ps)
@@ -178,7 +192,7 @@ def rand_alm(ps, ainfo=None, lmax=None, seed=None, dtype=torch.complex128,
 	return (res, ainfo) if return_ainfo else res
 
 def rand_map(shape, wcs, ps, lmax=None, dtype=torch.float64, seed=None, spin=[0, 2],
-		method="auto", device="cuda"):
+		method="auto", verbose=False, *, device="cuda"):
 	"""Random realization of ps directly in map space
 	(pixell_tpu.curvedsky.rand_map :304)."""
 	if lmax is None: lmax = get_lmax_from_map(Bunch(shape=shape, wcs=wcs))
@@ -274,7 +288,7 @@ def _not_ported(adjoint=False, mesh=None):
 	if mesh is not None: raise NotImplementedError("mesh= (multi-device) is not ported yet")
 
 
-def prepare_alm(alm=None, ainfo=None, lmax=None, pre=(), dtype=torch.float64, device="cuda"):
+def prepare_alm(alm=None, ainfo=None, lmax=None, pre=(), dtype=torch.float64, *, device="cuda"):
 	"""Allocate alm (complex of dtype's precision) and get its layout info
 	(pixell_tpu.curvedsky.prepare_alm)."""
 	ctype = torch.complex64 if dtype in (torch.float32, torch.complex64) else torch.complex128
@@ -289,7 +303,8 @@ def prepare_alm(alm=None, ainfo=None, lmax=None, pre=(), dtype=torch.float64, de
 
 
 def alm2map(alm, map, spin=[0, 2], deriv=False, adjoint=False, copy=False,
-		method="auto", ainfo=None, pix_tol=1e-6, accuracy=None, mesh=None):
+		method="auto", ainfo=None, verbose=False, nthread=None, epsilon=None,
+		pix_tol=1e-6, locinfo=None, tweak=False, accuracy=None, mesh=None):
 	"""Spherical harmonic synthesis of alm [..., nalm] onto map's geometry
 	(pixell_tpu.curvedsky.alm2map :505). Writes the result into map (unless
 	copy) and returns it. With deriv, alm is [nalm] and map [2, ny, nx]
@@ -318,13 +333,15 @@ def alm2map(alm, map, spin=[0, 2], deriv=False, adjoint=False, copy=False,
 
 
 def map2alm(map, alm=None, lmax=None, spin=[0, 2], deriv=False, adjoint=False,
-		method="auto", ainfo=None, niter=0, pix_tol=1e-6, weights=None,
-		accuracy=None, mesh=None):
+		copy=False, method="auto", ainfo=None, verbose=False, nthread=None,
+		niter=0, epsilon=None, pix_tol=1e-6, weights=None, locinfo=None,
+		tweak=False, accuracy=None, mesh=None):
 	"""Spherical harmonic analysis of map (pixell_tpu.curvedsky.map2alm :614):
 	exact quadrature on full-sky CC/F1 grids (theta-upsampled when the grid
 	is too coarse for lmax), refined by niter Jacobi iterations. With deriv,
 	map is the gradient [2, ny, nx] (d/ddec, d/dra) and the result one alm.
-	Writes into alm when given."""
+	Writes into alm when given, or with copy into a copy of it, leaving alm
+	as it was."""
 	_not_ported(adjoint, mesh)
 	if weights is not None: raise NotImplementedError("explicit weights are not ported yet")
 	out, ainfo = prepare_alm(alm, ainfo, lmax=lmax,
@@ -340,6 +357,7 @@ def map2alm(map, alm=None, lmax=None, spin=[0, 2], deriv=False, adjoint=False,
 			spin=spin, deriv=deriv, ainfo=ainfo, accuracy=accuracy)
 		res = res + _analysis_2d(map.data - approx.data, ainfo, minfo, spin, deriv, ldt)
 	if alm is None: return res.to(out.dtype)
+	if copy: out = out.clone()
 	out.copy_(res)
 	return out
 

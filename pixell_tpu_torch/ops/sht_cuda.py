@@ -17,6 +17,11 @@ reference's lstop): 0 for a dead block beyond the horizon of its rings
 modes any multiple of 8 at which the block ends early and hands its
 recurrence state over (dump_state, sht_pallas.py:1546).
 
+  polar_analysis  K4's float64 near-pole pass, redesigned for the card
+                  (one block per m row, the ring sum in shared memory), in
+                  every mode: the counterpart of the float64 analysis that
+                  _maybe_polar_analysis (sht_pallas.py:1797) runs through K4
+
 The block-Legendre split (K8, sht_pallas.py:556-610) is in csrc/blockleg.cu,
 in the four Legendre modes:
 
@@ -46,12 +51,15 @@ analysis_scan_pallas_chunked :2108, _maybe_polar_analysis :1797,
 _analysis_sym_entry :1825), with its thresholds, in every mode:
   - float32: bulk rings use K1/K2 when the ring set is south-symmetric with
     at most 2*SYM_MAX_NH rings, else K3/K4 in float32. The rings within
-    POLAR_AMP/lmax of a pole, for m < POLAR_MMAX, then run through K3/K4 in
-    float64 (the TPU ran them in double-single): synthesis overwrites those
-    rings, analysis adds their contribution.
+    POLAR_AMP/lmax of a pole, for m < POLAR_MMAX, then run in float64 (the
+    TPU ran them in double-single): synthesis through K3, which overwrites
+    those rings, analysis through polar_analysis, whose contribution is
+    added. A ring set that lies wholly near the poles runs in float64
+    through K1-K4.
   - float64: K1-K4 in float64, with no polar split.
   - wigner mode (wigner_synthesis_scan_pallas :2165, wigner_analysis_scan_pallas
-    :2221): always K3/K4, the near-pole pass for m < max(POLAR_MMAX, s + 1).
+    :2221): always K3/K4, the near-pole pass (K3, polar_analysis) for
+    m < max(POLAR_MMAX, s + 1).
   - the dead-tile stops go to every float32 launch of K3/K4, with the
     mode's s (0 for the Legendre modes). The float64 launches compute every
     tile: the skipped terms, ~1e-12 of the peak and up to ~1e-7 in spin 2,
@@ -83,7 +91,7 @@ BLK_SMIN = 0.5      # the split keeps to ring tiles with sin(theta) >= BLK_SMIN 
 
 LEGENDRE_KERNELS = ("sym_synthesis", "sym_analysis", "full_synthesis", "full_analysis")
 BLK_KERNELS = ("blk_synthesis", "blk_analysis")
-KERNELS = LEGENDRE_KERNELS + BLK_KERNELS
+KERNELS = LEGENDRE_KERNELS + ("polar_analysis",) + BLK_KERNELS
 LAUNCHES = {name: 0 for name in KERNELS}
 LAUNCHES_BY_MODE = {(name, mode): 0 for name in KERNELS for mode in sht_core.MODES}
 LAUNCHES_BY_DTYPE = {k + (dt,): 0 for k in LAUNCHES_BY_MODE for dt in ("float32", "float64")}
@@ -382,6 +390,10 @@ def library():
 			# the state, the stream
 			fn.argtypes = [I, I] + [P]*9 + [I]*(4 if name.endswith("synthesis") else 5) + [P]*3
 			fn.restype = I
+		fn = getattr(lib, "pt_polar_analysis_%s" % mode)
+		# C, 8 pointers, (ldo, nl, nm, nt, s), the stream
+		fn.argtypes = [I] + [P]*8 + [I]*5 + [P]
+		fn.restype = I
 		if mode not in sht_core.BLK_FAM: continue
 		for name in BLK_KERNELS:
 			fn = getattr(lib, "pt_%s_%s" % (name, mode))
@@ -554,11 +566,15 @@ def _full_analysis_plain(F, g, lmax, mode="scalar", lstop=None, dump_state=False
 	return sht_core.analysis(F, g, lmax, mode,
 		None if lstop is None else stop_entries(lstop, g.nm, g.nt), dump_state)
 
+def _polar_analysis_plain(F, g, lmax, mode="scalar"):
+	return sht_core.analysis(F, g, lmax, mode)
+
 # The plain PyTorch version of each kernel, on the same arguments (mode,
 # stop degrees and tables included). The wrappers use it for CPU tensors; it
 # runs on any device.
 PLAIN = {"sym_synthesis": _sym_synthesis_plain, "sym_analysis": _sym_analysis_plain,
 	"full_synthesis": _full_synthesis_plain, "full_analysis": _full_analysis_plain,
+	"polar_analysis": _polar_analysis_plain,
 	"blk_synthesis": sht_core.blk_synthesis, "blk_analysis": sht_core.blk_analysis}
 
 
@@ -618,6 +634,35 @@ def full_analysis(F, g, lmax, mode="scalar", lstop=None, dump_state=False):
 	_check(F, g, (NFUN[mode], C, g.nm, g.nt), "full_analysis")
 	if not _on_card(F): return PLAIN["full_analysis"](F, g, lmax, mode, lstop, dump_state)
 	return _analysis_launch("full_analysis", F, g, lmax, mode, lstop, dump_state)
+
+
+def polar_analysis(F, g, lmax, mode="scalar"):
+	"""K4's float64 near-pole pass, redesigned (csrc/legendre.cu
+	polar_analysis_kernel; K7 in wigner mode, on a geometry prepared with the
+	spin): analysis in float64 on any ring set, meant for the few rings near
+	the poles. F [nfun, C, nm, nt] float64, contiguous -> [nl, nm, C]
+	float64. It takes no stop degrees and hands no state over."""
+	sht_core.check_mode(mode)
+	if F.dtype != torch.float64 or g.dtype != torch.float64:
+		raise TypeError("polar_analysis runs in float64 only, not on %s data and a %s geometry"
+			% (F.dtype, g.dtype))
+	C = F.shape[1] if F.ndim == 4 else -1
+	_check(F, g, (NFUN[mode], C, g.nm, g.nt), "polar_analysis")
+	if not F.is_contiguous(): raise ValueError("polar_analysis: F must be contiguous")
+	if not _on_card(F): return PLAIN["polar_analysis"](F, g, lmax, mode)
+	nl = lmax + 1
+	ab, lt, s, _ = _mode_args(g, nl, mode, None, F.device)
+	stream = torch.cuda.current_stream(F.device).cuda_stream
+	out = torch.empty((nl, g.nm, C), dtype=torch.float64, device=F.device)
+	for c0, c1 in _col_chunks(C):
+		Fc = F if c1 - c0 == C else F[:, c0:c1].contiguous()
+		# each launch writes its columns of out, every row of them
+		# float64 has no low part of cos theta: the kernel takes none
+		_launch("polar_analysis", mode, F.device, True, c1 - c0, Fc.data_ptr(), ab.data_ptr(),
+			lt.data_ptr(), g.ct.data_ptr(), g.rows.data_ptr(), g.seed_val.data_ptr(),
+			g.seed_level.data_ptr(), out.data_ptr() + c0*out.element_size(), C, nl, g.nm, g.nt, s,
+			stream)
+	return out
 
 
 def _blk_args(x, state, tab, g, nl, mode, what):
@@ -827,7 +872,7 @@ def kernel_analysis(F, theta, lmax, mmax, mode="scalar", dtype=torch.float32, s=
 	out = _anal_rings(F[..., nn:nt-ns], theta[nn:nt-ns], lmax, mmax, mode, dtype, s)
 	# near-pole rings contribute through a float64 pass, for m < Mp
 	Fp = torch.cat([F[..., :nn], F[..., nt-ns:]], -1)[..., :Mp, :]
-	pol = full_analysis(Fp.to(torch.float64).contiguous(),
+	pol = polar_analysis(Fp.to(torch.float64).contiguous(),
 		geom(pth, Mp - 1, torch.float64, F.device, s), lmax, mode)
 	out[:, :Mp] += pol.to(dtype)
 	return out

@@ -231,7 +231,7 @@ def _leg_dtype(dtype, leg_dtype=None):
 # Transforms. alm: [..., ncomp, nalm] complex; maps [..., ncomp, nt, nphi].
 # ---------------------------------------------------------------------------
 def synthesis(alm, theta, nphi, phi0=0.0, lmax=None, mmax=None, spin=(0, 2),
-		deriv=False, map_dtype=None, leg_dtype=None):
+		deriv=False, map_dtype=None, *, leg_dtype=None):
 	"""alm [..., ncomp, nalm] -> map [..., ncomp, nt, nphi]
 	(pixell_tpu.sht.synthesis :617). If deriv, alm is [nalm] and the
 	output is [2, nt, nphi], the (d/dtheta, d/dphi) derivatives of the
@@ -269,7 +269,7 @@ def synthesis(alm, theta, nphi, phi0=0.0, lmax=None, mmax=None, spin=(0, 2),
 
 
 def adjoint_synthesis_phase(F, theta, lmax, mmax=None, spin=(0, 2), deriv=False,
-		alm_dtype=None, rect_out=False, m_degeneracy=True, leg_dtype=None):
+		alm_dtype=None, rect_out=False, m_degeneracy=True, *, leg_dtype=None):
 	"""Transpose of synthesis from the per-ring phases F[..., ncomp, nm, nt]
 	(pixell_tpu.sht.adjoint_synthesis_phase :734); with deriv, F is
 	[2, nm, nt] (d/dtheta, d/dphi) and the result one alm.
@@ -312,7 +312,7 @@ def adjoint_synthesis_phase(F, theta, lmax, mmax=None, spin=(0, 2), deriv=False,
 
 
 def adjoint_synthesis(maps, theta, lmax, mmax=None, phi0=0.0, spin=(0, 2), deriv=False,
-		alm_dtype=None, m_degeneracy=True, leg_dtype=None):
+		alm_dtype=None, m_degeneracy=True, *, leg_dtype=None):
 	"""Exact transpose of synthesis: map -> alm, no quadrature weights
 	(pixell_tpu.sht.adjoint_synthesis :723)."""
 	if mmax is None: mmax = lmax
@@ -322,7 +322,7 @@ def adjoint_synthesis(maps, theta, lmax, mmax=None, phi0=0.0, spin=(0, 2), deriv
 
 
 def analysis(maps, theta, lmax, weights, mmax=None, phi0=0.0, spin=(0, 2), deriv=False,
-		alm_dtype=None, leg_dtype=None):
+		alm_dtype=None, *, leg_dtype=None):
 	"""Quadrature analysis: ring weights times 2 pi/nphi, then the transpose
 	of synthesis without the m > 0 doubling (pixell_tpu.sht.analysis :807).
 	Exact for band-limited maps on full-sky CC/F1 grids."""
@@ -334,7 +334,7 @@ def analysis(maps, theta, lmax, weights, mmax=None, phi0=0.0, spin=(0, 2), deriv
 
 
 def analysis_phase(F, theta, lmax, weights, nphi, mmax=None, spin=(0, 2), deriv=False,
-		alm_dtype=None, leg_dtype=None):
+		alm_dtype=None, *, leg_dtype=None):
 	"""Quadrature analysis from phase coefficients F[..., ncomp, nm, nt]
 	(pixell_tpu.sht.analysis_phase :835); nphi is the ring length F came
 	from."""

@@ -1,0 +1,131 @@
+"""The public signatures of pixell_tpu_torch.curvedsky and .sht against
+pixell_tpu's: every public name both modules define takes the reference's
+parameters, by name and in order, and the port's own extras (device=,
+leg_dtype=) come after them and are keyword-only, so a call written for
+the reference means the same in the port. Then the calls themselves: map2alm
+and rand_alm with every argument by position, as the reference allows, and
+the out= and copy= arguments, held against the reference at lmax 16 in
+float64 (1e-10 of the largest value; rand_alm draws the same numpy numbers,
+so exactly).
+"""
+import inspect
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from pixell_tpu import curvedsky as jcurvedsky, sht as jsht, enmap as jenmap
+from pixell_tpu_torch import curvedsky, sht, enmap
+
+LMAX = 16
+SHAPE = (20, 40)
+PAIRS = {"curvedsky": (jcurvedsky, curvedsky), "sht": (jsht, sht)}
+
+
+def shared_names():
+	"""(module, name) for every public callable both modules define, and
+	(module, "class.method") for the public methods of shared classes."""
+	out = []
+	for mod, (ref, port) in PAIRS.items():
+		for name in sorted(dir(port)):
+			if name.startswith("_") or not hasattr(ref, name): continue
+			r, p = getattr(ref, name), getattr(port, name)
+			if inspect.ismodule(p) or not callable(p) or not callable(r): continue
+			out.append((mod, name))
+			if inspect.isclass(p) and inspect.isclass(r):
+				out += [(mod, "%s.%s" % (name, m)) for m, _ in inspect.getmembers(p, inspect.isfunction)
+					if not m.startswith("_") and callable(getattr(r, m, None))]
+	return out
+
+
+def lookup(module, name):
+	obj = module
+	for part in name.split("."): obj = getattr(obj, part)
+	return obj
+
+
+@pytest.mark.parametrize("mod,name", shared_names(), ids=lambda x: x)
+def test_reference_parameters_come_first(mod, name):
+	ref, port = PAIRS[mod]
+	rp = list(inspect.signature(lookup(ref, name)).parameters.values())
+	pp = list(inspect.signature(lookup(port, name)).parameters.values())
+	assert [p.name for p in pp[:len(rp)]] == [p.name for p in rp]
+	assert [p.kind for p in pp[:len(rp)]] == [p.kind for p in rp]
+	# the port's own parameters take no position a reference call could fill
+	extra = pp[len(rp):]
+	assert all(p.kind in (p.KEYWORD_ONLY, p.VAR_KEYWORD) for p in extra), [p.name for p in extra]
+
+
+def test_the_check_covers_the_entry_points():
+	names = {n for _, n in shared_names()}
+	assert {"alm2map", "map2alm", "rand_alm", "rand_alm_white", "rand_map", "lmul", "almxfl",
+		"alm_info.lmul", "alm_info.alm2cl", "prepare_alm", "synthesis", "analysis"} <= names
+
+
+def geometry():
+	jshape, jwcs = jenmap.fullsky_geometry(shape=SHAPE, variant="fejer1")
+	shape, wcs = enmap.fullsky_geometry(shape=SHAPE, variant="fejer1")
+	return jwcs, wcs
+
+
+def rel(got, want):
+	got, want = np.asarray(got), np.asarray(want)
+	assert got.shape == want.shape
+	return np.abs(got - want).max()/np.abs(want).max()
+
+
+def test_positional_calls_match_reference():
+	"""rand_alm(ps, ainfo, lmax, seed, dtype, m_major, return_ainfo) and
+	map2alm(map, alm, lmax, spin, deriv, adjoint, copy, method, ainfo,
+	verbose, nthread, niter) by position, as the reference takes them."""
+	jwcs, wcs = geometry()
+	ps = np.zeros((3, 3, LMAX + 1)); ps[0, 0] = 1; ps[1, 1, 2:] = ps[2, 2, 2:] = 0.5
+	ja, jinfo = jcurvedsky.rand_alm(ps, None, LMAX, 3, np.complex128, True, True)
+	a, info = curvedsky.rand_alm(ps, None, LMAX, 3, torch.complex128, True, True, device="cpu")
+	np.testing.assert_array_equal(a.numpy(), ja)
+	assert (info.lmax, info.mmax, info.nelem) == (jinfo.lmax, jinfo.mmax, jinfo.nelem)
+	jm = jcurvedsky.alm2map(ja, jenmap.zeros((3,) + SHAPE, jwcs), [0, 2], False, False, False,
+		"auto", None, False, None, None, 1e-6)
+	m = curvedsky.alm2map(a, enmap.zeros((3,) + SHAPE, wcs, device="cpu"), [0, 2], False, False,
+		False, "auto", None, False, None, None, 1e-6)
+	assert rel(m.data, jm) <= 1e-10
+	tm = enmap.ndmap(torch.from_numpy(np.array(jm)), wcs)
+	for niter in (0, 1):
+		jr = jcurvedsky.map2alm(jm, None, LMAX, [0, 2], False, False, False, "auto", None, False,
+			None, niter)
+		r = curvedsky.map2alm(tm, None, LMAX, [0, 2], False, False, False, "auto", None, False,
+			None, niter)
+		assert rel(r, jr) <= 1e-10, niter
+		assert rel(r, ja) <= 1e-10, niter
+
+
+def test_out_and_copy():
+	"""out= writes into the given tensor and returns it; map2alm writes into
+	a given alm, and with copy=True into a copy, leaving alm as it was."""
+	jwcs, wcs = geometry()
+	ja = jcurvedsky.rand_alm(np.ones(LMAX + 1), lmax=LMAX, seed=4)
+	a = torch.from_numpy(ja.copy())
+	fl = 1/(1 + np.arange(LMAX + 1.0))
+	ainfo = curvedsky.alm_info(lmax=LMAX)
+	want = np.asarray(jcurvedsky.almxfl(ja, fl))
+	for call in (lambda out: curvedsky.almxfl(a, fl, None, out),
+			lambda out: curvedsky.lmul(a, fl, None, out),
+			lambda out: ainfo.lmul(a, fl, out)):
+		out = torch.zeros_like(a)
+		assert call(out) is out
+		assert rel(out, want) <= 1e-14
+	with pytest.raises(ValueError):
+		curvedsky.lmul(a, fl, out=torch.zeros(3, dtype=a.dtype))
+	jm = jcurvedsky.alm2map(ja, jenmap.zeros(SHAPE, jwcs), spin=[0])
+	tm = enmap.ndmap(torch.from_numpy(np.array(jm)), wcs)
+	given = torch.zeros_like(a)
+	r = curvedsky.map2alm(tm, given, spin=[0], copy=True)
+	assert r is not given and bool((given == 0).all()) and rel(r, ja) <= 1e-10
+	r = curvedsky.map2alm(tm, given, spin=[0])
+	assert r is given and rel(given, ja) <= 1e-10
+	# rand_alm_white: the reference's positions, and its ainfo back
+	w, winfo = curvedsky.rand_alm_white(ainfo, (2,), 5, True, True, torch.complex128, device="cpu")
+	jw, _ = jcurvedsky.rand_alm_white(ainfo, (2,), 5, True, True, np.complex128)
+	assert winfo is ainfo
+	np.testing.assert_array_equal(w.numpy(), jw)

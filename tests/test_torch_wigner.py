@@ -189,11 +189,11 @@ def test_wigner_polar_split(monkeypatch):
 	calls = []
 	def spy(name):
 		kern = getattr(sht_cuda, name)
-		def wrapped(x, g, lmax, mode="scalar", lstop=None):
+		def wrapped(x, g, *args, **kw):
 			calls.append((name, g.dtype, g.nt, g.nm - 1, g.s))
-			return kern(x, g, lmax, mode, lstop)
+			return kern(x, g, *args, **kw)
 		monkeypatch.setattr(sht_cuda, name, wrapped)
-	spy("full_synthesis"); spy("full_analysis")
+	spy("full_synthesis"); spy("full_analysis"); spy("polar_analysis")
 	s, lmax = 3, 64
 	theta, A, F = scan_inputs(lmax, 2*lmax + 2, 0, C=2)
 	nt = len(theta)
@@ -209,8 +209,9 @@ def test_wigner_polar_split(monkeypatch):
 	calls.clear()
 	a = sht_cuda.kernel_analysis(torch.from_numpy(F).float(), theta, lmax, lmax, "wigner", f32, s)
 	assert relerr(a, jcore.wigner_analysis_scan(F, theta, lmax, lmax, s)) < 2e-5
+	# the near-pole pass goes through the redesigned float64 kernel, not K4
 	assert calls == [("full_analysis", f32, nt - nn - ns, lmax, s),
-		("full_analysis", f64, nn + ns, Mp - 1, s)]
+		("polar_analysis", f64, nn + ns, Mp - 1, s)]
 	# a large spin widens the near-pole pass to s + 1 rows
 	assert sht_cuda._polar_split(theta, lmax, lmax, 40)[2] == 41 == jpallas._wigner_polar_mmax(lmax, 40)
 	assert sht_cuda._polar_split(theta, 20, 20, 40)[2] == 21 == jpallas._wigner_polar_mmax(20, 40)
