@@ -37,15 +37,19 @@ runs those alone, for work on one phase, and gives no verdict):
    rings less the near-pole ones for analysis) with the dead-tile table,
    which must mark dead tiles, and the float64 near-pole pass (128 m rows,
    46 / 78 rings).
-   polar_analysis, K4's float64 near-pole pass redesigned (csrc/legendre.cu
-   polar_analysis_kernel), in every mode on the input of K4's float64
-   near-pole case, within the same float64 bounds; its time beside the K4
-   launch it replaced on the main path, both from this run ("replaced_ms"),
-   and its bound and yardstick (those of K4 on that input). In every mode
-   also on the 202 near-pole rings of a 3929-ring Clenshaw-Curtis map at
-   lmax 750, poles included, and 130 m rows with 6 columns: the ring-tile
-   loop, the pole limits, a ragged m count and two launches into one
-   output.
+   polar_analysis and polar_synthesis, K4's and K3's float64 near-pole
+   passes redesigned (csrc/legendre.cu polar_analysis_kernel,
+   polar_synthesis_kernel), in every mode on the input of K4's and K3's
+   float64 near-pole cases, within the same float64 bounds; each one's time
+   beside the K4 or K3 launch it replaced on the main path, both from this
+   run ("replaced_ms"), and its bound and yardstick
+   (those of K4 or K3 on that input). In every mode also on the 202
+   near-pole rings of a 3929-ring Clenshaw-Curtis map at lmax 750, poles
+   included, and 130 m rows with 6 columns: the ring-tile loop, the pole
+   limits, a ragged m count and two launches into one output; and at the
+   lmax-2000 roundtrips' near-pole shapes (the 2160-ring map's near-pole
+   rings for synthesis, the upsampled map's for analysis; 128 m rows, or
+   max(128, s + 1) in the wigner mode).
    lstop: K3 and K4 in scalar and spin2 mode at the lmax-2000 float32
    shapes (2001 m rows; the map's 2160 rings for K3, the first 2048
    upsampled bulk rings for K4), launched with the dead-tile table and
@@ -64,8 +68,9 @@ runs those alone, for work on one phase, and gives no verdict):
      mode of K3/K4, at lmax 750 (f32 and f64) and lmax 2000 (f32): alm
      within 5e-4 / 1e-10 / 2e-3, with the launches of every kernel by mode
      and dtype held against what the dispatch should give;
-   every f32 path runs its near-pole analysis through polar_analysis in
-   float64 and K4 in float64 never;
+   every f32 path runs its near-pole rings through polar_synthesis (one
+   launch per alm2map in its mode) and polar_analysis in float64, and K3
+   and K4 in float64 never;
    every band-limited map roundtrip within 1e-3; deriv=True alm2map and
    map2alm at lmax 750 in f32 against the same on the card in f64 (1e-3);
    the wigner mode at spin 2 against the spin2 mode on the card at lmax 750
@@ -125,8 +130,9 @@ REPLACES = {
 	"sym_analysis": "pixell_tpu/ops/sht_pallas.py:1928",
 	"full_synthesis": "pixell_tpu/ops/sht_pallas.py:1668",
 	"full_analysis": "pixell_tpu/ops/sht_pallas.py:2089",
-	# K4's float64 near-pole pass, redesigned
+	# K4's and K3's float64 near-pole passes, redesigned
 	"polar_analysis": "pixell_tpu/ops/sht_pallas.py:2089",
+	"polar_synthesis": "pixell_tpu/ops/sht_pallas.py:1668",
 	"fma_peak": "scripts/vpu_peak.py:58",
 	# the scalar and the stream kernels of the block-Legendre split
 	"blk_synthesis": ("pixell_tpu/ops/sht_pallas.py:997", "pixell_tpu/ops/sht_pallas.py:1145"),
@@ -230,12 +236,12 @@ def print_build_summary(log):
 			k = re.search(r"(synthesis|analysis)_kernelI([fd])Li(\d+)ELb([01])", m.group(1))
 			f = re.search(r"fma_peak_kernelI([fd])", m.group(1))
 			b = re.search(r"blk_(synthesis|analysis)_kernelILi(\d+)E", m.group(1))
-			p = re.search(r"polar_analysis_kernelILi(\d+)E", m.group(1))
+			p = re.search(r"polar_(analysis|synthesis)_kernelILi(\d+)E", m.group(1))
 			entry = ("%s<%s,C=%s,%s>" % (k.group(1), k.group(2), k.group(3),
 				"sym" if k.group(4) == "1" else "full")) if k else \
 				("fma_peak<%s>" % f.group(1) if f else
 				("blk_%s<C=%s>" % b.groups() if b else
-				("polar_analysis<d,C=%s>" % p.group(1) if p else m.group(1)[:60])))
+				("polar_%s<d,C=%s>" % p.groups() if p else m.group(1)[:60])))
 		m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
 		if m: spill = int(m.group(1)) + int(m.group(2))
 		m = re.search(r"Used (\d+) registers", line)
@@ -578,71 +584,86 @@ def kernel_phase():
 				rec["shape"], rec["ms"], how, rec["call_ms"], rec["plain_ms"], b_ms, b_by,
 				100*b_ms/rec["ms"], lib_ms))
 			records[(name, mode, str(main_dt)[6:])] = rec
-			if name == "full_analysis" and label == "lmax750-polar":
-				records[("polar_analysis", mode, "float64")] = polar_record(mode, args, k, ref, rec)
-		polar_tiles(mode)
+			if label == "lmax750-polar":
+				pname = "polar_" + name.split("_")[1]
+				records[(pname, mode, "float64")] = polar_record(pname, mode, args, k, ref, rec)
+		for pname in sht_cuda.POLAR_KERNELS: polar_shapes(pname, mode)
 	return records
 
 
-def polar_check(mode, label, kp, ref):
-	"""Hold a polar_analysis result against the float64 plain version:
-	1e-11 (scalar) or 1e-10 (the other modes) of the largest value."""
+def polar_check(pname, mode, label, kp, ref):
+	"""Hold a polar_analysis or polar_synthesis result against the float64
+	plain version: 1e-11 (scalar) or 1e-10 (the other modes) of the largest
+	value."""
 	if not bool(torch.isfinite(kp).all()) or tuple(kp.shape) != tuple(ref.shape):
-		raise RuntimeError("polar_analysis %s %s: bad output %s" % (mode, label, tuple(kp.shape)))
+		raise RuntimeError("%s %s %s: bad output %s" % (pname, mode, label, tuple(kp.shape)))
 	err, tol = relerr(kp, ref), (1e-11 if mode == "scalar" else 1e-10)
-	print("kernel polar_analysis %-6s %-13s float64: rel err %.3e (bound %.0e) %s" % (mode, label,
+	print("kernel %-15s %-6s %-13s float64: rel err %.3e (bound %.0e) %s" % (pname, mode, label,
 		err, tol, "ok" if err <= tol else "FAIL"))
 	if not err <= tol:
-		raise RuntimeError("polar_analysis %s %s: kernel disagrees with its plain version"
-			% (mode, label))
+		raise RuntimeError("%s %s %s: kernel disagrees with its plain version"
+			% (pname, mode, label))
 
 
-def polar_record(mode, args, k_old, ref, old):
-	"""polar_analysis on the input and geometry of K4's float64 near-pole
-	record old (the lmax-750 shape): parity, time, bound, and the time of
-	the K4 launch it replaces on the main path, both measured in this run.
-	The plain version and the torch.bmm yardstick compute the same function
-	on the same input as old's, and were timed there."""
+def polar_record(pname, mode, args, k_old, ref, old):
+	"""pname (polar_analysis or polar_synthesis) on the input and geometry
+	of K4's or K3's float64 near-pole record old (the lmax-750 shape):
+	parity, time, bound, and the time of the K4 or K3 launch it replaces on
+	the main path, both measured in this run. The plain
+	version and the torch.bmm yardstick compute the same function on the
+	same input as old's, and were timed there."""
 	from pixell_tpu_torch.ops import sht_cuda
-	kern = sht_cuda.polar_analysis
+	kern = getattr(sht_cuda, pname)
 	kp = kern(*args)
 	torch.cuda.synchronize()
-	polar_check(mode, "lmax750-polar", kp, ref)
+	polar_check(pname, mode, "lmax750-polar", kp, ref)
 	run = lambda: kern(*args)
-	ms, how = kernel_ms(run, 20, "polar_analysis_kernel")
-	rec = dict(old, name="polar_analysis[%s]" % (mode if mode != "wigner" else
-		"wigner, f64 near-pole"), replaces=REPLACES["polar_analysis"],
-		max_abs_err=float((kp - ref).abs().max()), ms=ms, ms_from=how, call_ms=cuda_ms(run, 20),
-		replaced_ms=old["ms"], replaced_kernel="full_analysis (analysis_kernel<double,C,false>)",
+	ms, how = kernel_ms(run, 20, pname + "_kernel")
+	syn = pname == "polar_synthesis"
+	k34 = "K3" if syn else "K4"
+	rec = dict(old, name="%s[%s]" % (pname, mode if mode != "wigner" else "wigner, f64 near-pole"),
+		replaces=REPLACES[pname], max_abs_err=float((kp - ref).abs().max()), ms=ms, ms_from=how,
+		call_ms=cuda_ms(run, 20), replaced_ms=old["ms"],
+		replaced_kernel="%s (%s_kernel<double,C,false>)" % (old["name"].split("[")[0],
+			"synthesis" if syn else "analysis"),
 		diff_to_replaced=relerr(kp, k_old), plain_ms_from="timed with %s" % old["name"])
-	print("time   polar_analysis %-6s %s: kernel %.4f ms (%s; wrapper call %.4f ms), plain %.2f ms, "
-		"bound %.4f ms (%s, %.1f %% of it reached), torch.bmm %.4f ms; the K4 launch it replaces "
-		"%.4f ms (%.2fx), results %.3e apart" % (mode, rec["shape"], ms, how, rec["call_ms"],
-		rec["plain_ms"], rec["bound_ms"], rec["bound_by"], 100*rec["bound_ms"]/ms, rec["library_ms"],
-		old["ms"], old["ms"]/ms, rec["diff_to_replaced"]))
+	print("time   %-15s %-6s %s: kernel %.4f ms (%s; wrapper call %.4f ms), plain %.2f ms, "
+		"bound %.4f ms (%s, %.1f %% of it reached), torch.bmm %.4f ms; the %s launch it replaces "
+		"%.4f ms (%.2fx: %s), results %.3e apart" % (pname, mode, rec["shape"], ms, how,
+		rec["call_ms"], rec["plain_ms"], rec["bound_ms"], rec["bound_by"], 100*rec["bound_ms"]/ms,
+		rec["library_ms"], k34, old["ms"], old["ms"]/ms, "faster" if ms < old["ms"] else "NOT faster",
+		rec["diff_to_replaced"]))
 	return rec
 
 
-def polar_tiles(mode):
-	"""polar_analysis where its ring-tile loop runs and no tiling divides
-	the m rows: the 202 near-pole rings of a 3929-ring Clenshaw-Curtis map
-	at lmax 750, the poles among them (where the spin modes take their
-	limits), 130 m rows, and 6 columns, which take two launches (4 + 2) into
-	one output."""
-	from pixell_tpu_torch import sht
+def polar_shapes(pname, mode):
+	"""pname (polar_analysis or polar_synthesis) against its float64 plain
+	version at two more shapes. (1) Where its ring-tile loop runs and no
+	tiling divides the m rows: the 202 near-pole rings of a 3929-ring
+	Clenshaw-Curtis map at lmax 750, the poles among them (where the spin
+	modes take their limits), 130 m rows, and 6 columns, which take two
+	launches (4 + 2) into one output. (2) The lmax-2000 main path's: the
+	near-pole rings of the 2160-ring Fejer-1 map (synthesis) or of its
+	upsampled rings (analysis), the near-pole m rows, the mode's columns."""
+	from pixell_tpu_torch import sht, fft
 	from pixell_tpu_torch.ops import sht_cuda
-	dev, lmax, mmax = torch.device("cuda"), 750, 129
-	th = sht.ring_theta("CC", 3929)
-	nn, ns = sht_cuda.polar_counts(th, lmax)
-	theta = np.concatenate([th[:nn], th[len(th)-ns:]])
-	rng = np.random.default_rng(60)
-	nf = sht_cuda.NFUN[mode]
-	x = torch.from_numpy(rng.standard_normal((nf, 6, mmax + 1, len(theta)))).to(dev)
-	g = sht_cuda.geom(theta, mmax, torch.float64, dev, mode_spin(mode))
-	ref = sht_cuda.PLAIN["polar_analysis"](x, g, lmax, mode)
-	kp = sht_cuda.polar_analysis(x, g, lmax, mode)
-	torch.cuda.synchronize()
-	polar_check(mode, "nt%d-nm%d" % (len(theta), mmax + 1), kp, ref)
+	s = mode_spin(mode)
+	cc = sht.ring_theta("CC", 3929)
+	syn = pname == "polar_synthesis"
+	f1 = sht.ring_theta("F1", 2160 if syn else fft.fft_len(2*2000 + 3, direction="above"))
+	pm = (sht_cuda.POLAR_MMAX if s is None else max(sht_cuda.POLAR_MMAX, s + 1)) - 1
+	for i, (th, lmax, mmax, C) in enumerate(((cc, 750, 129, 6), (f1, 2000, pm, ncoef(mode)))):
+		nn, ns = sht_cuda.polar_counts(th, lmax)
+		theta = np.concatenate([th[:nn], th[len(th)-ns:]])
+		rng = np.random.default_rng(60 + i)
+		nf = sht_cuda.NFUN[mode]
+		shape = (lmax + 1, mmax + 1, C) if syn else (nf, C, mmax + 1, len(theta))
+		x = torch.from_numpy(rng.standard_normal(shape)).cuda()
+		g = sht_cuda.geom(theta, mmax, torch.float64, x.device, s)
+		ref = sht_cuda.PLAIN[pname](x, g, lmax, mode)
+		kp = getattr(sht_cuda, pname)(x, g, lmax, mode)
+		torch.cuda.synchronize()
+		polar_check(pname, mode, "lmax%d-nt%d-nm%d" % (lmax, len(theta), mmax + 1), kp, ref)
 
 
 def lstop_phase():
@@ -740,13 +761,15 @@ def deriv_pair(lmax, shape, dtype, device="cuda", seed=2):
 	return d.data, a
 
 
-def drive(label, mode, fn, kernels, want=None):
+def drive(label, mode, fn, kernels, want=None, alm2maps=2):
 	"""Run the float32 path fn with every launch count set to 0 just before
 	and read just after; every kernel in kernels must have launched in mode,
-	and K4 in no mode in float64: the near-pole analysis is polar_analysis's.
-	The counts include K9's, which no SHT path calls. want, if given, is
-	every nonzero count the path should give, {(kernel, mode, dtype):
-	launches}; the counts by dtype, in all modes, must equal it."""
+	and K3 and K4 in no mode in float64: the near-pole passes are
+	polar_synthesis's (one launch in mode for each of the path's alm2maps)
+	and polar_analysis's. The counts include K9's, which no SHT path calls.
+	want, if given, is every nonzero count the path should give, {(kernel,
+	mode, dtype): launches}; the counts by dtype, in all modes, must equal
+	it."""
 	from pixell_tpu_torch.ops import sht_cuda, fma_peak
 	sht_cuda.reset_launches()
 	fma_peak.LAUNCHES["fma_peak"] = 0
@@ -758,9 +781,13 @@ def drive(label, mode, fn, kernels, want=None):
 	if missing:
 		raise RuntimeError("kernels not launched by the %s path: %s" % (label, missing))
 	by_dtype = {k: n for k, n in sht_cuda.LAUNCHES_BY_DTYPE.items() if n}
-	k4_64 = {k: n for k, n in by_dtype.items() if k[0] == "full_analysis" and k[2] == "float64"}
-	if k4_64:
-		raise RuntimeError("the %s path ran K4 in float64 (%s), not polar_analysis" % (label, k4_64))
+	k34_64 = {k: n for k, n in by_dtype.items() if k[0].startswith("full") and k[2] == "float64"}
+	if k34_64:
+		raise RuntimeError("the %s path ran K3/K4 in float64 (%s), not polar_synthesis and "
+			"polar_analysis" % (label, k34_64))
+	if counts["polar_synthesis"] != alm2maps:
+		raise RuntimeError("the %s path launched polar_synthesis %d times in %s mode, not once for "
+			"each of its %d alm2map calls" % (label, counts["polar_synthesis"], mode, alm2maps))
 	if want is not None:
 		print("launches by (kernel, mode, dtype): %s" % by_dtype)
 		if by_dtype != want:
@@ -773,7 +800,7 @@ def wigner_launches(lmax, nt_map):
 	"""{(kernel, mode, dtype): launches} of one float32 spin [0, 3] roundtrip
 	(alm2map, map2alm, alm2map) on nt_map Fejer-1 rings, after the dispatch:
 	the spin-3 block runs K3/K4 in wigner mode, float32 with one float64
-	near-pole pass each (K3 for synthesis, polar_analysis for analysis), its
+	near-pole pass each (polar_synthesis, polar_analysis), its
 	analysis in TCHUNK chunks of the upsampled bulk rings; the spin-0 block
 	runs as in the spin-0 roundtrip."""
 	from pixell_tpu_torch import sht, fft
@@ -781,9 +808,9 @@ def wigner_launches(lmax, nt_map):
 	nt_up = fft.fft_len(2*lmax + 3, direction="above")
 	nn, ns = sht_cuda.polar_counts(sht.ring_theta("F1", nt_up), lmax)
 	chunks = -(-(nt_up - nn - ns)//sht_cuda.TCHUNK)
-	want = {("full_synthesis", "wigner", "float32"): 2, ("full_synthesis", "wigner", "float64"): 2,
+	want = {("full_synthesis", "wigner", "float32"): 2, ("polar_synthesis", "wigner", "float64"): 2,
 		("full_analysis", "wigner", "float32"): chunks, ("polar_analysis", "wigner", "float64"): 1,
-		("full_synthesis", "scalar", "float64"): 2, ("polar_analysis", "scalar", "float64"): 1}
+		("polar_synthesis", "scalar", "float64"): 2, ("polar_analysis", "scalar", "float64"): 1}
 	if nt_map <= 2*sht_cuda.SYM_MAX_NH: want[("sym_synthesis", "scalar", "float32")] = 2
 	else: want[("full_synthesis", "scalar", "float32")] = 2
 	if nt_up - nn - ns <= 2*sht_cuda.SYM_MAX_NH: want[("sym_analysis", "scalar", "float32")] = 1
@@ -814,9 +841,9 @@ def wigner_against_spin2(lmax, nt):
 def slice_phase():
 	from pixell_tpu_torch import sht, fft
 	from pixell_tpu_torch.ops import sht_cuda
-	# at lmax 750 the float32 bulk takes K1/K2, the near-pole rings K3 and
-	# polar_analysis in float64
-	allk = ("sym_synthesis", "sym_analysis", "full_synthesis", "polar_analysis")
+	# at lmax 750 the float32 bulk takes K1/K2, the near-pole rings
+	# polar_synthesis and polar_analysis in float64
+	allk = ("sym_synthesis", "sym_analysis", "polar_synthesis", "polar_analysis")
 	f32, f64 = torch.float32, torch.float64
 	launches = {}
 	counts, _ = drive("spin-0 lmax-750 f32 roundtrip", "scalar",
@@ -831,7 +858,7 @@ def slice_phase():
 	# more than 2*SYM_MAX_NH upsampled rings: the analysis runs K4, not K2
 	counts, _ = drive("IQU lmax-2000 f32 roundtrip", "spin2",
 		lambda: roundtrip(2000, (2160, 4320), f32, 2e-3, spin=(0, 2)),
-		("sym_synthesis", "full_synthesis", "full_analysis", "polar_analysis"))
+		("sym_synthesis", "polar_synthesis", "full_analysis", "polar_analysis"))
 	launches["spin2 lmax 2000"] = counts
 	# K4's f32 bulk: the upsampled rings minus the near-pole ones, in
 	# TCHUNK chunks; one float64 near-pole launch of polar_analysis
@@ -846,9 +873,9 @@ def slice_phase():
 		lambda: roundtrip(750, (900, 1800), f32, 5e-4, spin=(1,)), allk)
 	launches["spin1"] = counts
 	counts, (d32, a32) = drive("deriv lmax-750 f32", "deriv",
-		lambda: deriv_pair(750, (900, 1800), f32), allk)
+		lambda: deriv_pair(750, (900, 1800), f32), allk, alm2maps=1)
 	launches["deriv"] = counts
-	wk = ("full_synthesis", "full_analysis", "polar_analysis")
+	wk = ("full_synthesis", "full_analysis", "polar_synthesis", "polar_analysis")
 	counts, _ = drive("spin-[0, 3] lmax-750 f32 roundtrip", "wigner",
 		lambda: roundtrip(750, (900, 1800), f32, 5e-4, spin=(0, WIGNER_SPIN)), wk,
 		wigner_launches(750, 900))
@@ -1266,7 +1293,8 @@ def main():
 		return 1
 	for (name, mode, dt), rec in kernel_records.items():
 		# launches of the record's kernel, mode and dtype by the path of that
-		# mode: 0 for K4's float64 records, whose launch polar_analysis took over
+		# mode: 0 for K3's and K4's float64 records, whose launches polar_synthesis and
+		# polar_analysis took over
 		rec["launches"] = launches[mode].get((name, dt), 0)
 	for rec in records:   # K9: summed over every driven path
 		rec["launches"] = sum(c["fma_peak"] for c in launches.values())

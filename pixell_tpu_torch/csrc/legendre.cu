@@ -10,10 +10,13 @@
 //   K4 full_analysis   replaces _analysis_scan_pallas_full
 //                      (pixell_tpu/ops/sht_pallas.py:1954, pallas_call :2089)
 //
-// and a fifth, polar_analysis, K4's float64 near-pole pass redesigned for
-// this card (design below, before polar_analysis_kernel), which the float32
-// dispatch launches for the near-pole rings of every analysis in place of
-// the float64 instantiation of K4;
+// and two float64 near-pole passes redesigned for this card, which the
+// float32 dispatch launches for the near-pole rings of every transform in
+// place of the float64 instantiations of K3 and K4:
+//
+//   polar_analysis   K4's (design below, before polar_analysis_kernel)
+//   polar_synthesis  K3's (design before polar_synthesis_kernel)
+//
 // each in the four Legendre modes of the reference (K6, _make_funcs
 // sht_pallas.py:408): scalar emits lambda_lm; deriv [lambda, d lambda/d theta];
 // spin1 [w1, x1]; spin2 [w2, x2], the theta-functions of the spin-weighted
@@ -233,8 +236,12 @@ __device__ __forceinline__ Ring<T> load_ring(const T* __restrict__ cth,
 // and lambda_{l-1} (lam1); e = e_lm, nrm and hp the degree's norm and half
 // pole factor (pixell_tpu/ops/sht_pallas.py _make_funcs :408-451). The 1/sin
 // terms vanish on pole rings (notpole = 0, inv_st = 0), where the limits at
-// m = 1 (deriv, spin1) or m = 2 (spin2) take their place.
-template <typename T>
+// m = 1 (deriv, spin1) or m = 2 (spin2) take their place. With SEL the
+// conditions are selects instead of branches (the pole term then adds a
+// zero where it does not apply; the values are the same), so that a caller
+// that evaluates several degrees can interleave them: the near-pole
+// kernels' consumers. K1-K4 keep the branches, which are faster there.
+template <bool SEL = false, typename T>
 __device__ __forceinline__ void mode_funcs(T (&u)[NFUN], T lam, T lam1, int l,
                                            int m, T e, T nrm, T hp,
                                            const Ring<T>& r) {
@@ -245,15 +252,17 @@ __device__ __forceinline__ void mode_funcs(T (&u)[NFUN], T lam, T lam1, int l,
   const T lf = T(l);
   const T sgl = (l & 1) ? T(-1) : T(1);
   constexpr int MP = MODE == SPIN2 ? 2 : 1;  // the m of the pole limits
+  const bool high = l >= MP, pole = m == MP && high;
+  const T hps = SEL && !pole ? T(0) : hp;    // the pole term's factor
   if constexpr (MODE == DERIV) {
     T d = (lf * r.ct_st * lam - e * r.inv_st * lam1) * r.notpole;
-    if (m == MP && l >= MP) d += -nrm * hp * (r.pn + sgl * r.ps);
+    if (SEL || pole) d += -nrm * hps * (r.pn + sgl * r.ps);
     u[0] = lam;
     u[NFUN - 1] = d;
     return;
   }
   T w = T(0), x = T(0);
-  if (l >= MP) {
+  if (SEL || high) {
     if constexpr (MODE == SPIN1) {
       w = -nrm * (lf * r.ct_st * lam - e * r.inv_st * lam1) * r.notpole;
       x = nrm * T(m) * r.inv_st * lam * r.notpole;
@@ -264,13 +273,13 @@ __device__ __forceinline__ void mode_funcs(T (&u)[NFUN], T lam, T lam1, int l,
       x = T(2) * nrm * T(m) * r.inv_st2 * (-(lf - T(1)) * r.ct * lam + e * lam1) *
           r.notpole;
     }
-    if (m == MP) {
-      w += hp * (r.pn + sgl * r.ps);
-      x += hp * (-r.pn + sgl * r.ps);
+    if (SEL || m == MP) {
+      w += hps * (r.pn + sgl * r.ps);
+      x += hps * (-r.pn + sgl * r.ps);
     }
   }
-  u[0] = w;
-  u[NFUN - 1] = x;
+  u[0] = SEL && !high ? T(0) : w;
+  u[NFUN - 1] = SEL && !high ? T(0) : x;
 }
 
 // One thread's recurrence: the state and seed of each branch.
@@ -562,13 +571,15 @@ analysis_kernel(const T* __restrict__ F, const T* __restrict__ ab,
 //     partial planes, no atomics, no zero-initialized buffer; the block
 //     writes its rows l < its seed degree as zeros itself;
 //   - warps 0-3 (producers) are one ring each of a PTILE-ring tile and run
-//     nothing but the recurrence (polar_step), PLC degrees at a time, each
-//     step's coefficients read before the previous step's stores; they hand
-//     lambda_l (and lambda_{l-1}; wigner: w and x) over through a shared
-//     tile U[PLC][2][PTILE];
+//     nothing but the recurrence (polar_produce, shared with
+//     polar_synthesis_kernel), PLC degrees at a time, each step's
+//     coefficients read PLOOK steps ahead and the seed test only in the
+//     first chunk; they hand lambda_l (and lambda_{l-1}; wigner: w and x)
+//     over through a shared tile U[PLC][2][PTILE];
 //   - warps 4-7 (reducers) own (l, c) outputs: thread (li, part) evaluates
-//     the mode functions of its degree on PTILE/PPARTS rings of the tile
-//     (ring rows and F staged once per tile) and sums them against F with two
+//     the mode functions (their select form) of its degree on PTILE/PPARTS
+//     rings of the tile (ring rows and F staged once per tile) and sums
+//     them against F with two
 //     partial sums per column; the PPARTS parts of a degree meet in two
 //     shuffle rounds, once per chunk and not once per degree;
 //   - U is double-buffered (the coefficients triple-buffered), so the
@@ -619,7 +630,9 @@ constexpr int PCOEF = (5 * PLC + PTILE - 1) / PTILE;
 // One step of the near-pole recurrence at degree l: step() without the low
 // part of cos theta, which is zero in float64 (x: cos theta; cadd: the
 // wigner mode's +c or -c). Returns the true lambda_l and sets lam1 to the
-// true lambda_{l-1}, as step() does, and rounds as it does.
+// true lambda_{l-1}, as step() does, and rounds as it does. Without SEED
+// the step leaves out the seed test: for the degrees past the seed.
+template <bool SEED = true>
 __device__ __forceinline__ double polar_step(State<double>& s, int l, int lseed, double a,
                                              double b, double x, double cadd, double seedv,
                                              int seedl, double& lam1) {
@@ -627,7 +640,7 @@ __device__ __forceinline__ double polar_step(State<double>& s, int l, int lseed,
   if constexpr (MODE == WIGNER) t = fma(cadd, s.curr, t);
   double nw = a * (t - b * s.prev);
   double cz = s.curr;
-  if (l == lseed) {  // seed; the stale previous value has another scale
+  if (SEED && l == lseed) {  // seed; the stale previous value has another scale
     nw = seedv;
     s.lev = seedl;
     cz = 0.0;
@@ -637,6 +650,73 @@ __device__ __forceinline__ double polar_step(State<double>& s, int l, int lseed,
   const double fac = s.lev == 0 ? 1.0 : (s.lev == -1 ? Scale<double>::invband() : 0.0);
   lam1 = cz * fac;
   return nw * fac;
+}
+
+// the Legendre spin modes hand lambda_l and lambda_{l-1} over and the
+// consumers evaluate the mode functions; scalar hands lambda_l, wigner w, x
+constexpr bool POLAR_SPLIT = MODE == DERIV || MODE == SPIN1 || MODE == SPIN2;
+constexpr int PLOOK = 4;  // steps a producer loads its coefficients ahead
+
+// The producer half of both near-pole kernels: thread tid, one ring of a
+// TW-ring tile at cos theta = x, advances its recurrence over the n degrees
+// of the chunk starting at l0 (a multiple of 8; with SEED the chunk that
+// holds the seed degree, the first, else one past it: its steps then skip
+// the seed test, which would sit on the recurrence's chain) and hands the results over
+// through the shared tile U (rows of stride ROW): lambda_l at U[i][tid] and,
+// in the spin modes, lambda_{l-1} at U[i][TW + tid]; in wigner mode w and x
+// there (sgs = (-1)^s). cs holds the chunk's coefficients a, b and e (wigner:
+// c).
+template <bool SEED, int TW, int ROW>
+__device__ __forceinline__ void polar_produce(Recur<double>& rc, double x, double sgs,
+                                              const double (&cs)[5][PLC],
+                                              double (&U)[PLC][ROW], int l0, int n, int tid) {
+  // a step's coefficients a, b (and the wigner mode's c)
+  auto coef = [&](int i, double (&k)[3]) {
+#pragma unroll
+    for (int q = 0; q < 3; ++q) k[q] = cs[q][i];
+  };
+  auto produce = [&](int i, const double (&k)[3]) {
+    const int l = l0 + i;
+    double lam1;
+    if constexpr (MODE == WIGNER) {
+      const double lp = polar_step<SEED>(rc.s[0], l, rc.lseed, k[0], k[1], x, k[2],
+                                         rc.seedv[0], rc.seedl[0], lam1);
+      const double lm = sgs * polar_step<SEED>(rc.s[NBR - 1], l, rc.lseed, k[0], k[1], x,
+                                               -k[2], rc.seedv[NBR - 1], rc.seedl[NBR - 1],
+                                               lam1);
+      U[i][tid] = 0.5 * (lp + lm);
+      U[i][TW + tid] = 0.5 * (lp - lm);
+    } else {
+      U[i][tid] = polar_step<SEED>(rc.s[0], l, rc.lseed, k[0], k[1], x, 0.0, rc.seedv[0],
+                                   rc.seedl[0], lam1);
+      if constexpr (POLAR_SPLIT) U[i][TW + tid] = lam1;
+    }
+    if ((i & 7) == 7) rescale(rc);  // l & 7, as l0 is a multiple of 8
+  };
+  if (n == PLC) {
+    // unrolled, and each step's coefficients loaded PLOOK steps ahead into
+    // registers: the compiler may not move the loads across the stores to
+    // U, and a shared-memory load takes longer than a step (two dependent
+    // FP64 operations of ~8 cycles), so with less lookahead the chain
+    // waits on shared memory
+    double kb[PLOOK][3];
+#pragma unroll
+    for (int j = 0; j < PLOOK; ++j) coef(j, kb[j]);
+#pragma unroll
+    for (int i = 0; i < PLC; ++i) {
+      double k[3];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) k[q] = kb[i % PLOOK][q];
+      if (i + PLOOK < PLC) coef(i + PLOOK, kb[i % PLOOK]);
+      produce(i, k);
+    }
+  } else {  // the last, partial chunk
+    for (int i = 0; i < n; ++i) {
+      double k[3];
+      coef(i, k);
+      produce(i, k);
+    }
+  }
 }
 
 // F [NFUN, C, nm, nt] -> out[l, m, c] at column stride ldo (>= C), for the m
@@ -650,9 +730,7 @@ polar_analysis_kernel(const double* __restrict__ F, const double* __restrict__ a
                       const double* __restrict__ rows, const double* __restrict__ sv,
                       const int* __restrict__ sl, double* __restrict__ out, int ldo, int nl,
                       int nm, int nt, int spin) {
-  // the Legendre spin modes hand lambda_l and lambda_{l-1} over and the
-  // reducers evaluate the mode functions; scalar hands lambda_l, wigner w, x
-  constexpr bool SPLIT = MODE == DERIV || MODE == SPIN1 || MODE == SPIN2;
+  constexpr bool SPLIT = POLAR_SPLIT;
   extern __shared__ __align__(16) unsigned char polar_raw[];
   PolarSmem<C>& sm = *reinterpret_cast<PolarSmem<C>*>(polar_raw);
   const int tid = threadIdx.x, m = blockIdx.x;
@@ -712,49 +790,11 @@ polar_analysis_kernel(const double* __restrict__ F, const double* __restrict__ a
       if (producer) {
         if (it < nch && live) {
           const int l0 = l8 + it * PLC, n = min(PLC, nl - l0);
-          const double(&cs)[5][PLC] = sm.cs[it % 3];
-          double(&U)[PLC][PROW] = sm.U[it & 1];
-          // a step's coefficients a, b (and the wigner mode's c)
-          auto coef = [&](int i, double (&k)[3]) {
-#pragma unroll
-            for (int q = 0; q < 3; ++q) k[q] = cs[q][i];
-          };
-          auto produce = [&](int i, const double (&k)[3]) {
-            const int l = l0 + i;
-            double lam1;
-            if constexpr (MODE == WIGNER) {
-              const double lp = polar_step(rc.s[0], l, rc.lseed, k[0], k[1], x, k[2],
-                                           rc.seedv[0], rc.seedl[0], lam1);
-              const double lm = sgs * polar_step(rc.s[NBR - 1], l, rc.lseed, k[0], k[1], x, -k[2],
-                                                 rc.seedv[NBR - 1], rc.seedl[NBR - 1], lam1);
-              U[i][tid] = 0.5 * (lp + lm);
-              U[i][PTILE + tid] = 0.5 * (lp - lm);
-            } else {
-              U[i][tid] = polar_step(rc.s[0], l, rc.lseed, k[0], k[1], x, 0.0, rc.seedv[0],
-                                     rc.seedl[0], lam1);
-              if constexpr (SPLIT) U[i][PTILE + tid] = lam1;
-            }
-            if ((i & 7) == 7) rescale(rc);  // l & 7, as l0 is a multiple of 8
-          };
-          double k[3], kn[3];
-          if (n == PLC) {
-            // unrolled, and each step's coefficients loaded before the
-            // previous step's stores to U, across which the compiler may not
-            // move them: the chain then never waits on shared memory
-            coef(0, kn);
-#pragma unroll
-            for (int i = 0; i < PLC; ++i) {
-#pragma unroll
-              for (int q = 0; q < 3; ++q) k[q] = kn[q];
-              if (i + 1 < PLC) coef(i + 1, kn);
-              produce(i, k);
-            }
-          } else {  // the last, partial chunk
-            for (int i = 0; i < n; ++i) {
-              coef(i, k);
-              produce(i, k);
-            }
-          }
+          if (it == 0)
+            polar_produce<true, PTILE, PROW>(rc, x, sgs, sm.cs[0], sm.U[0], l0, n, tid);
+          else
+            polar_produce<false, PTILE, PROW>(rc, x, sgs, sm.cs[it % 3], sm.U[it & 1], l0, n,
+                                              tid);
         }
       } else {
 #pragma unroll
@@ -781,7 +821,8 @@ polar_analysis_kernel(const double* __restrict__ F, const double* __restrict__ a
               const Ring<double> q{sm.ring[0][tt], sm.ring[1][tt], sm.ring[2][tt],
                                    sm.ring[3][tt], sm.ring[4][tt], sm.ring[5][tt],
                                    sm.ring[6][tt]};
-              mode_funcs(u, U[tt], U[PTILE + tt], l, m, cs[2][li], cs[3][li], cs[4][li], q);
+              mode_funcs<true>(u, U[tt], U[PTILE + tt], l, m, cs[2][li], cs[3][li], cs[4][li],
+                               q);
             } else {
 #pragma unroll
               for (int f = 0; f < NFUN; ++f) u[f] = U[f * PTILE + tt];
@@ -814,7 +855,227 @@ polar_analysis_kernel(const double* __restrict__ F, const double* __restrict__ a
   }
 }
 
-#define KERNEL_ARGS(T)                                                           \
+// K3's float64 near-pole pass, redesigned for Hopper (polar_synthesis_kernel):
+// G[f, c, m, t] = sum_l u_f(l, m, theta_t) A[l, m, c] on a small ring set
+// near the poles (46 rings at lmax 750) for m < 128, in float64 only. What
+// bounds it is, as for polar_analysis, the latency of ~lmax dependent
+// recurrence steps per (m, ring), not the number of rings (two dependent
+// FP64 operations a step). In spin2 the consumers' FP64 arithmetic comes
+// close to it (~25 operations per (l, m, theta) for the mode functions, 8
+// FMAs for the 2 x 4 sums). synthesis_kernel ran 32 blocks of 4 m rows x 64
+// rings (18 of 64 lanes idle on 46 rings), put the mode functions and
+// accumulations on the recurrence's chain and stalled every block on two
+// barriers and an unprefetched staging per 32 degrees. Here:
+//   - one block per m row (128 blocks), each output (f, c, m, t) with one
+//     owner; a row whose seed degree exceeds lmax is written as zeros;
+//   - warps 0-1 (producers) are one ring each of an STILE-ring tile and run
+//     nothing but the recurrence (polar_produce, shared with
+//     polar_analysis_kernel: coefficients loaded PLOOK steps ahead, the
+//     seed test only in the first chunk, so that neither sits on the chain);
+//   - warps 2-7 (consumers) own (ring, degree part) pairs: lane = 4 r + p
+//     takes degrees p, p + 4, ... of each chunk on ring r of its group of 8,
+//     evaluates the mode functions there from its ring rows (loaded once per
+//     tile into registers) and the handed-over values, and accumulates
+//     u_f A[l, m, c] into registers kept across all chunks; A is staged per
+//     chunk, and the lanes of a degree read the same entry (a broadcast).
+//     A full chunk's degrees are unrolled without a branch between them (the
+//     mode functions in their select form), so that their independent
+//     arithmetic interleaves. The 4 parts of a ring meet in two shuffle
+//     rounds once per tile;
+//   - U is double-buffered and the coefficients and A triple-buffered, each
+//     consumer loading its share of a chunk from device memory two chunks
+//     ahead; chunks start at multiples of 8 (the renormalization falls on
+//     fixed steps); more than STILE rings loop over ring tiles in the block.
+// Shared memory is dynamic (~73 KB in spin2, U 66 KB). U's rows are padded to
+// 4 mod 16 doubles, so a half-warp's loads (4 degrees x 4 rings) fall in
+// distinct banks.
+constexpr int STILE = 64;                          // rings per tile: one producer thread each
+constexpr int SCONS = 192;                         // consumer threads: 6 warps
+constexpr int STHREADS = STILE + SCONS;
+constexpr int SPARTS = 4;                          // degree parts of a ring
+constexpr int SRPW = 32 / SPARTS;                  // rings of a consumer warp's group
+constexpr int SGROUPS = STILE / SRPW;              // ring groups of a tile
+constexpr int SSLOTS = (SGROUPS + SCONS / 32 - 1) / (SCONS / 32);  // groups per consumer warp
+constexpr int SROW = NFUN * STILE + 4;             // a degree row of U
+static_assert(STILE % 32 == 0 && SCONS % 32 == 0 && SROW % 16 == 4 && PLC % SPARTS == 0,
+              "consumer layout");
+
+template <int C> struct PolarSynthSmem {
+  double U[2][PLC][SROW];  // what the producers hand over, double-buffered
+  double cs[3][5][PLC];    // a, b, e (wigner: c), nrm, hp of a chunk
+  double A[3][PLC][C];     // A[l, m, :] of a chunk
+};
+
+// Staged value e of the chunk starting at l0: coefficient e (polar_coef) for
+// e < 5 PLC, else A[l0 + i, m, c] with e - 5 PLC = i C + c, zero outside
+// lbeg <= l < nl. A's columns are at stride lda.
+template <int C>
+__device__ __forceinline__ double synth_stage_value(const double* __restrict__ ab,
+                                                    const double* __restrict__ lt,
+                                                    const double* __restrict__ A, int lda,
+                                                    int l0, int lbeg, int m, int nl, int nm,
+                                                    int e) {
+  if (e < 5 * PLC) return polar_coef(ab, lt, l0, lbeg, m, nl, nm, e);
+  e -= 5 * PLC;
+  const int l = l0 + e / C;
+  return l >= lbeg && l < nl ? A[((size_t)l * nm + m) * lda + e % C] : 0.0;
+}
+
+template <int C>
+__device__ __forceinline__ void synth_stage_store(PolarSynthSmem<C>& sm, int buf, int e,
+                                                  double v) {
+  if (e < 5 * PLC) {
+    sm.cs[buf][e / PLC][e % PLC] = v;
+  } else {
+    e -= 5 * PLC;
+    sm.A[buf][e / C][e % C] = v;
+  }
+}
+
+// A [nl, nm, lda] (columns 0..C-1 read) -> out[f, c, m, t] at out +
+// ((f ldo + c) nm + m) nt + t, for the m row of this block. ab [3, nl, nm];
+// lt [2, nl]; cth [nt]; rows [4, nt]; sv, sl [NBR, nm, nt]; spin is the
+// wigner mode's s.
+template <int C>
+__global__ void __launch_bounds__(STHREADS, 1)
+polar_synthesis_kernel(const double* __restrict__ A, const double* __restrict__ ab,
+                       const double* __restrict__ lt, const double* __restrict__ cth,
+                       const double* __restrict__ rows, const double* __restrict__ sv,
+                       const int* __restrict__ sl, double* __restrict__ out, int lda, int ldo,
+                       int nl, int nm, int nt, int spin) {
+  constexpr int NST = 5 * PLC + PLC * C;            // values staged per chunk
+  constexpr int KST = (NST + SCONS - 1) / SCONS;    // of them per consumer
+  extern __shared__ __align__(16) unsigned char polar_raw[];
+  PolarSynthSmem<C>& sm = *reinterpret_cast<PolarSynthSmem<C>*>(polar_raw);
+  const int tid = threadIdx.x, m = blockIdx.x;
+  const bool producer = tid < STILE;
+  const int cid = tid - STILE, cw = cid >> 5;       // consumer index and warp
+  const int lane = tid & 31, part = lane % SPARTS, r = lane / SPARTS;
+  const size_t plane = (size_t)nm * nt;
+  const double sgs = (spin & 1) ? -1.0 : 1.0;
+  const int lbeg = MODE == WIGNER ? max(m, spin) : m;
+  const int l8 = lbeg & ~7;  // chunks start at multiples of 8, as in polar_analysis
+  const int nch = nl > lbeg ? (nl - l8 + PLC - 1) / PLC : 0;
+  double* __restrict__ orow = out + (size_t)m * nt;
+  const size_t fstride = (size_t)ldo * plane;       // from function f to f + 1
+  if (nch == 0) {  // the seed lies beyond lmax: the row is zero
+    for (int i = tid; i < NFUN * C * nt; i += STHREADS)
+      orow[(i / (C * nt)) * fstride + (i / nt % C) * plane + i % nt] = 0.0;
+    return;
+  }
+  const int ntiles = (nt + STILE - 1) / STILE;
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int t0 = tile * STILE, nvalid = min(STILE, nt - t0);
+    const int t = t0 + tid;
+    const bool valid = producer && t < nt;
+    const double x = valid ? cth[t] : 0.0;
+    Recur<double> rc = load_recur(sv, sl, (size_t)m * nt + t, plane, m, spin, valid);
+    // a consumer's slots: ring groups cw, cw + 6, ...; a slot is live when its
+    // group holds a ring of the tile (the same for the whole warp)
+    bool slive[SSLOTS];
+    Ring<double> ring[SSLOTS];
+    double acc[SSLOTS][NFUN][C];
+    double kv[KST];  // a consumer's share of the chunk after next
+#pragma unroll
+    for (int s = 0; s < SSLOTS; ++s) {
+      const int g = cw + s * (SCONS / 32);
+      slive[s] = !producer && g < SGROUPS && g * SRPW < nvalid;
+      const int tt = t0 + g * SRPW + r;
+      ring[s] = load_ring(cth, rows, tt, nt, slive[s] && tt < nt);
+#pragma unroll
+      for (int f = 0; f < NFUN; ++f)
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[s][f][c] = 0.0;
+    }
+    if (!producer) {
+#pragma unroll
+      for (int k = 0; k < KST; ++k) {
+        const int e = cid + k * SCONS;
+        if (e < NST) {
+          synth_stage_store(sm, 0, e, synth_stage_value<C>(ab, lt, A, lda, l8, lbeg, m, nl, nm, e));
+          kv[k] = synth_stage_value<C>(ab, lt, A, lda, l8 + PLC, lbeg, m, nl, nm, e);
+        }
+      }
+    }
+    __syncthreads();
+    // a producer warp with no ring of this tile skips its steps
+    const bool live = (tid & ~31) < nvalid;
+    for (int it = 0; it <= nch; ++it) {
+      if (producer) {
+        if (it < nch && live) {
+          const int l0 = l8 + it * PLC, n = min(PLC, nl - l0);
+          if (it == 0)
+            polar_produce<true, STILE, SROW>(rc, x, sgs, sm.cs[0], sm.U[0], l0, n, tid);
+          else
+            polar_produce<false, STILE, SROW>(rc, x, sgs, sm.cs[it % 3], sm.U[it & 1], l0, n,
+                                              tid);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < KST; ++k) {
+          const int e = cid + k * SCONS;
+          if (e < NST) {
+            if (it + 1 < nch) synth_stage_store(sm, (it + 1) % 3, e, kv[k]);
+            if (it + 2 < nch)
+              kv[k] = synth_stage_value<C>(ab, lt, A, lda, l8 + (it + 2) * PLC, lbeg, m, nl, nm, e);
+          }
+        }
+        if (it >= 1) {
+          const int l0 = l8 + (it - 1) * PLC, n = min(PLC, nl - l0);
+          const double(&cs)[5][PLC] = sm.cs[(it - 1) % 3];
+          const double(&Ac)[PLC][C] = sm.A[(it - 1) % 3];
+          const double(&U)[PLC][SROW] = sm.U[(it - 1) & 1];
+#pragma unroll
+          for (int s = 0; s < SSLOTS; ++s) {
+            if (!slive[s]) continue;  // warp-uniform, once per slot and chunk
+            const int tt = (cw + s * (SCONS / 32)) * SRPW + r;
+            // degree i of the chunk into the slot's sums
+            auto consume = [&](int i) {
+              double u[NFUN];
+              if constexpr (POLAR_SPLIT) {
+                mode_funcs<true>(u, U[i][tt], U[i][STILE + tt], l0 + i, m, cs[2][i], cs[3][i],
+                           cs[4][i], ring[s]);
+              } else {
+#pragma unroll
+                for (int f = 0; f < NFUN; ++f) u[f] = U[i][f * STILE + tt];
+              }
+#pragma unroll
+              for (int f = 0; f < NFUN; ++f)
+#pragma unroll
+                for (int c = 0; c < C; ++c) acc[s][f][c] = fma(u[f], Ac[i][c], acc[s][f][c]);
+            };
+            if (n == PLC) {
+              // no test between the degrees, so that the compiler can
+              // interleave their independent mode functions
+#pragma unroll
+              for (int k = 0; k < PLC / SPARTS; ++k) consume(SPARTS * k + part);
+            } else {  // the last, partial chunk
+              for (int i = part; i < n; i += SPARTS) consume(i);
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+    // the parts of each ring meet; part 0 writes the ring's outputs
+#pragma unroll
+    for (int s = 0; s < SSLOTS; ++s) {
+      if (!slive[s]) continue;  // warp-uniform: the shuffles see every lane
+      const int tt = t0 + (cw + s * (SCONS / 32)) * SRPW + r;
+#pragma unroll
+      for (int f = 0; f < NFUN; ++f)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          double v = acc[s][f][c];
+#pragma unroll
+          for (int o = SPARTS / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+          if (part == 0 && tt < nt) orow[f * fstride + c * plane + tt] = v;
+        }
+    }
+  }
+}
+
+#define KERNEL_ARGS(T)                                                         \
   static_cast<const T*>(ab), static_cast<const T*>(lt),                          \
       static_cast<const T*>(cth), static_cast<const T*>(ctl),                    \
       static_cast<const T*>(rows), static_cast<const T*>(sv),                    \
@@ -894,6 +1155,24 @@ int launch_polar(const void* F, const void* ab, const void* lt, const void* cth,
   return (int)cudaGetLastError();
 }
 
+template <int C>
+int launch_polar_synthesis(const void* A, const void* ab, const void* lt, const void* cth,
+                           const void* rows, const void* sv, const void* sl, void* out,
+                           int lda, int ldo, int nl, int nm, int nt, int spin, cudaStream_t st) {
+  if (nm == 0 || nt == 0) return 0;  // no output entry to write
+  if (lda < C || ldo < C) return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(PolarSynthSmem<C>);
+  cudaError_t e = cudaFuncSetAttribute(polar_synthesis_kernel<C>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  polar_synthesis_kernel<C><<<nm, STHREADS, smem, st>>>(
+      static_cast<const double*>(A), static_cast<const double*>(ab),
+      static_cast<const double*>(lt), static_cast<const double*>(cth),
+      static_cast<const double*>(rows), static_cast<const double*>(sv),
+      static_cast<const int*>(sl), static_cast<double*>(out), lda, ldo, nl, nm, nt, spin);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // f64 selects the double instantiation; C (2 or 4) is the coefficient
@@ -957,6 +1236,29 @@ extern "C" int PT_ENTRY(pt_polar_analysis)(int C, const void* F, const void* ab,
       return launch_polar<2>(F, ab, lt, cth, rows, sv, sl, out, ldo, nl, nm, nt, spin, st);
     case 4:
       return launch_polar<4>(F, ab, lt, cth, rows, sv, sl, out, ldo, nl, nm, nt, spin, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K3's float64 near-pole pass (polar_synthesis_kernel), every mode: C (2 or
+// 4) columns of A [nl, nm, lda] (from its pointer on, at column stride lda)
+// into out [NFUN, ldo, nm, nt] (from its pointer on: the columns of a launch
+// start there), every entry of those C columns written; no stop degrees, no
+// state, and no low part of cos theta.
+extern "C" int PT_ENTRY(pt_polar_synthesis)(int C, const void* A, const void* ab,
+                                            const void* lt, const void* cth,
+                                            const void* rows, const void* sv,
+                                            const void* sl, void* out, int lda, int ldo,
+                                            int nl, int nm, int nt, int spin, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 2:
+      return launch_polar_synthesis<2>(A, ab, lt, cth, rows, sv, sl, out, lda, ldo, nl, nm, nt,
+                                       spin, st);
+    case 4:
+      return launch_polar_synthesis<4>(A, ab, lt, cth, rows, sv, sl, out, lda, ldo, nl, nm, nt,
+                                       spin, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -3,8 +3,9 @@
 
 Ports the map-level SHT path: alm_info (pixell_tpu/curvedsky.py:38),
 analyse_geometry (:327), ring reorientation (:400-419), alm2map (:505) and
-map2alm (:614) with deriv=, the niter Jacobi loop and the exact 2d phase
-path (_analysis_linear :686-797, weighted, non-mesh), plus rand_alm
+map2alm (:614) with deriv=, weights=, the niter Jacobi loop, the exact 2d
+phase path and the ring-edge quadrature of "cyl" geometries
+(_analysis_linear :686-813, weighted, non-mesh), plus rand_alm
 (:253-302), rand_map (:304), get_lmax_from_map (:317), alm2cl (:132) and
 almxfl (:160).
 
@@ -19,7 +20,7 @@ device. accuracy="high" runs the Legendre recurrence in float64 whatever
 the map's dtype. Theta banding
 (SYNTH_BAND_BYTES) is not ported: it was sized for a 16 GB chip. Not ported
 yet, and raising NotImplementedError: adjoint, the "general"
-geometry method, map2alm on "cyl" geometries and mesh= (multi-device).
+geometry method and mesh= (multi-device).
 """
 from __future__ import annotations
 import numpy as np
@@ -288,17 +289,23 @@ def _not_ported(adjoint=False, mesh=None):
 	if mesh is not None: raise NotImplementedError("mesh= (multi-device) is not ported yet")
 
 
+def _ctype(dtype):
+	"""The complex dtype of dtype's precision."""
+	return torch.complex64 if dtype in (torch.float32, torch.complex64) else torch.complex128
+
+def _ainfo_of(alm, ainfo, lmax):
+	"""The layout of alm, or of the alm prepare_alm would allocate."""
+	if ainfo is not None: return ainfo
+	if alm is not None: return alm_info(nalm=alm.shape[-1])
+	if lmax is None: raise ValueError("prepare_alm needs alm, ainfo or lmax")
+	return alm_info(lmax=lmax)
+
 def prepare_alm(alm=None, ainfo=None, lmax=None, pre=(), dtype=torch.float64, *, device="cuda"):
 	"""Allocate alm (complex of dtype's precision) and get its layout info
 	(pixell_tpu.curvedsky.prepare_alm)."""
-	ctype = torch.complex64 if dtype in (torch.float32, torch.complex64) else torch.complex128
+	ainfo = _ainfo_of(alm, ainfo, lmax)
 	if alm is None:
-		if ainfo is None:
-			if lmax is None: raise ValueError("prepare_alm needs alm, ainfo or lmax")
-			ainfo = alm_info(lmax=lmax)
-		alm = torch.zeros(tuple(pre) + (ainfo.nelem,), dtype=ctype, device=device)
-	elif ainfo is None:
-		ainfo = alm_info(nalm=alm.shape[-1])
+		alm = torch.zeros(tuple(pre) + (ainfo.nelem,), dtype=_ctype(dtype), device=device)
 	return alm, ainfo
 
 
@@ -337,42 +344,65 @@ def map2alm(map, alm=None, lmax=None, spin=[0, 2], deriv=False, adjoint=False,
 		niter=0, epsilon=None, pix_tol=1e-6, weights=None, locinfo=None,
 		tweak=False, accuracy=None, mesh=None):
 	"""Spherical harmonic analysis of map (pixell_tpu.curvedsky.map2alm :614):
-	exact quadrature on full-sky CC/F1 grids (theta-upsampled when the grid
-	is too coarse for lmax), refined by niter Jacobi iterations. With deriv,
-	map is the gradient [2, ny, nx] (d/ddec, d/dra) and the result one alm.
-	Writes into alm when given, or with copy into a copy of it, leaving alm
-	as it was."""
+	with weights (per ring, in the map's row order), quadrature with them on
+	the map's rings; else exact quadrature on 2d (CC/F1) grids
+	(theta-upsampled when the grid is too coarse for lmax) and ring-edge
+	weights on other cylindrical ("cyl") geometries; refined by niter Jacobi
+	iterations. With deriv, map is the gradient [2, ny, nx] (d/ddec, d/dra)
+	and the result one alm. Writes into alm when given, or with copy into a
+	copy of it, leaving alm as it was."""
 	_not_ported(adjoint, mesh)
-	if weights is not None: raise NotImplementedError("explicit weights are not ported yet")
-	out, ainfo = prepare_alm(alm, ainfo, lmax=lmax,
-		pre=map.shape[:-3] if deriv else map.shape[:-2], dtype=map.dtype, device=map.device)
+	ainfo = _ainfo_of(alm, ainfo, lmax)
 	minfo = analyse_geometry(map.shape, map.wcs, tol=pix_tol)
 	if method == "auto": method = minfo.case
-	if method != "2d":
+	if method not in ["2d", "cyl"]:
 		raise NotImplementedError("map2alm on '%s' geometries is not ported yet" % method)
 	ldt = _leg_dtype(accuracy)
-	res = _analysis_2d(map.data, ainfo, minfo, spin, deriv, ldt)
+	res = _analysis_linear(map.data, ainfo, minfo, spin, deriv, ldt, weights)
 	for it in range(niter):
 		approx = alm2map(res, enmap.zeros(map.shape, map.wcs, map.dtype, map.device),
 			spin=spin, deriv=deriv, ainfo=ainfo, accuracy=accuracy)
-		res = res + _analysis_2d(map.data - approx.data, ainfo, minfo, spin, deriv, ldt)
-	if alm is None: return res.to(out.dtype)
-	if copy: out = out.clone()
-	out.copy_(res)
-	return out
+		res = res + _analysis_linear(map.data - approx.data, ainfo, minfo, spin, deriv, ldt,
+			weights)
+	if alm is None: return res.to(_ctype(map.dtype))
+	if copy: alm = alm.clone()
+	alm.copy_(res)
+	return alm
 
 
-def _analysis_2d(arr, ainfo, minfo, spin, deriv, leg_dtype):
-	"""map pixels -> alm on a 2d (full-sky quadrature) geometry
-	(pixell_tpu.curvedsky._analysis_linear, weighted phase path). Goes to
-	per-ring phases first, so the y padding, the exact theta upsample and the
-	quadrature run on the [nm]-wide spectrum and the ring FFT happens once."""
+def _edge_weights(theta):
+	"""Ring weights |cos(edge_i) - cos(edge_i+1)| from the ring midpoints,
+	for rings that are no quadrature grid (pixell_tpu.curvedsky.
+	_analysis_linear :798-808)."""
+	th = np.asarray(theta)
+	if len(th) > 1:
+		edges = np.concatenate([[max(th[0]-(th[1]-th[0])/2, 0)], (th[1:]+th[:-1])/2,
+			[min(th[-1]+(th[-1]-th[-2])/2, np.pi)]])
+	else:
+		edges = np.array([0, np.pi])
+	return np.abs(np.cos(edges[:-1]) - np.cos(edges[1:]))
+
+
+def _analysis_linear(arr, ainfo, minfo, spin, deriv, leg_dtype, weights=None):
+	"""map pixels -> alm on a 2d or cyl geometry (pixell_tpu.curvedsky.
+	_analysis_linear :686-813, weighted, non-mesh), by minfo.case as the
+	reference decides. With weights, or on a cyl geometry with its ring-edge
+	weights, quadrature on the map's own rings. On a 2d (full-sky
+	quadrature) geometry it goes to per-ring phases first, so the y padding,
+	the exact theta upsample and the quadrature run on the [nm]-wide
+	spectrum and the ring FFT happens once."""
 	d = _to_rings(arr, minfo)
 	flat2d = (not deriv) and d.ndim == 2
 	if flat2d: d = d[None]
 	if deriv:
 		# (d/ddec, d/dra) back to (d/dtheta, d/dphi) (alm2_pre :816)
 		d = torch.stack([-d[..., 0, :, :], d[..., 1, :, :]], -3)
+	if weights is not None or minfo.case != "2d":
+		if weights is None: w = _edge_weights(minfo.theta)
+		else: w = np.asarray(weights)[::-1] if minfo.flip[0] else weights
+		a = sht.analysis(d, minfo.theta, ainfo.lmax, w, mmax=ainfo.mmax, phi0=minfo.phi0,
+			spin=spin, deriv=deriv, leg_dtype=leg_dtype)
+		return a[..., 0, :] if flat2d else a
 	ny, nphi = d.shape[-2:]
 	ntfull = ny + minfo.ypad[0] + minfo.ypad[1]
 	F = sht.ring_analysis(d, minfo.phi0, ainfo.mmax+1)

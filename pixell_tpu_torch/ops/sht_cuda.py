@@ -21,6 +21,11 @@ recurrence state over (dump_state, sht_pallas.py:1546).
                   (one block per m row, the ring sum in shared memory), in
                   every mode: the counterpart of the float64 analysis that
                   _maybe_polar_analysis (sht_pallas.py:1797) runs through K4
+  polar_synthesis K3's float64 near-pole pass, redesigned the same way (one
+                  block per m row, the recurrence apart from the sums), in
+                  every mode: the counterpart of the float64 synthesis that
+                  synthesis_scan_pallas (:498-528) and
+                  wigner_synthesis_scan_pallas (:2165-2190) run through K3
 
 The block-Legendre split (K8, sht_pallas.py:556-610) is in csrc/blockleg.cu,
 in the four Legendre modes:
@@ -52,13 +57,14 @@ _analysis_sym_entry :1825), with its thresholds, in every mode:
   - float32: bulk rings use K1/K2 when the ring set is south-symmetric with
     at most 2*SYM_MAX_NH rings, else K3/K4 in float32. The rings within
     POLAR_AMP/lmax of a pole, for m < POLAR_MMAX, then run in float64 (the
-    TPU ran them in double-single): synthesis through K3, which overwrites
-    those rings, analysis through polar_analysis, whose contribution is
-    added. A ring set that lies wholly near the poles runs in float64
+    TPU ran them in double-single): synthesis through polar_synthesis, which
+    overwrites those rings, analysis through polar_analysis, whose
+    contribution is added. A ring set that lies wholly near the poles runs in float64
     through K1-K4.
   - float64: K1-K4 in float64, with no polar split.
   - wigner mode (wigner_synthesis_scan_pallas :2165, wigner_analysis_scan_pallas
-    :2221): always K3/K4, the near-pole pass (K3, polar_analysis) for
+    :2221): always K3/K4, the near-pole pass (polar_synthesis,
+    polar_analysis) for
     m < max(POLAR_MMAX, s + 1).
   - the dead-tile stops go to every float32 launch of K3/K4, with the
     mode's s (0 for the Legendre modes). The float64 launches compute every
@@ -91,7 +97,8 @@ BLK_SMIN = 0.5      # the split keeps to ring tiles with sin(theta) >= BLK_SMIN 
 
 LEGENDRE_KERNELS = ("sym_synthesis", "sym_analysis", "full_synthesis", "full_analysis")
 BLK_KERNELS = ("blk_synthesis", "blk_analysis")
-KERNELS = LEGENDRE_KERNELS + ("polar_analysis",) + BLK_KERNELS
+POLAR_KERNELS = ("polar_analysis", "polar_synthesis")
+KERNELS = LEGENDRE_KERNELS + POLAR_KERNELS + BLK_KERNELS
 LAUNCHES = {name: 0 for name in KERNELS}
 LAUNCHES_BY_MODE = {(name, mode): 0 for name in KERNELS for mode in sht_core.MODES}
 LAUNCHES_BY_DTYPE = {k + (dt,): 0 for k in LAUNCHES_BY_MODE for dt in ("float32", "float64")}
@@ -394,6 +401,10 @@ def library():
 		# C, 8 pointers, (ldo, nl, nm, nt, s), the stream
 		fn.argtypes = [I] + [P]*8 + [I]*5 + [P]
 		fn.restype = I
+		fn = getattr(lib, "pt_polar_synthesis_%s" % mode)
+		# C, 8 pointers, (lda, ldo, nl, nm, nt, s), the stream
+		fn.argtypes = [I] + [P]*8 + [I]*6 + [P]
+		fn.restype = I
 		if mode not in sht_core.BLK_FAM: continue
 		for name in BLK_KERNELS:
 			fn = getattr(lib, "pt_%s_%s" % (name, mode))
@@ -569,12 +580,15 @@ def _full_analysis_plain(F, g, lmax, mode="scalar", lstop=None, dump_state=False
 def _polar_analysis_plain(F, g, lmax, mode="scalar"):
 	return sht_core.analysis(F, g, lmax, mode)
 
+def _polar_synthesis_plain(A, g, lmax, mode="scalar"):
+	return sht_core.synthesis(A, g, lmax, mode)
+
 # The plain PyTorch version of each kernel, on the same arguments (mode,
 # stop degrees and tables included). The wrappers use it for CPU tensors; it
 # runs on any device.
 PLAIN = {"sym_synthesis": _sym_synthesis_plain, "sym_analysis": _sym_analysis_plain,
 	"full_synthesis": _full_synthesis_plain, "full_analysis": _full_analysis_plain,
-	"polar_analysis": _polar_analysis_plain,
+	"polar_analysis": _polar_analysis_plain, "polar_synthesis": _polar_synthesis_plain,
 	"blk_synthesis": sht_core.blk_synthesis, "blk_analysis": sht_core.blk_analysis}
 
 
@@ -636,6 +650,16 @@ def full_analysis(F, g, lmax, mode="scalar", lstop=None, dump_state=False):
 	return _analysis_launch("full_analysis", F, g, lmax, mode, lstop, dump_state)
 
 
+def _polar_check(x, g, shape, what):
+	"""The checks of a near-pole kernel's input x: float64 data and
+	geometry, the mode's shape, contiguous."""
+	if x.dtype != torch.float64 or g.dtype != torch.float64:
+		raise TypeError("%s runs in float64 only, not on %s data and a %s geometry"
+			% (what, x.dtype, g.dtype))
+	_check(x, g, shape, what)
+	if not x.is_contiguous(): raise ValueError("%s: the input must be contiguous" % what)
+
+
 def polar_analysis(F, g, lmax, mode="scalar"):
 	"""K4's float64 near-pole pass, redesigned (csrc/legendre.cu
 	polar_analysis_kernel; K7 in wigner mode, on a geometry prepared with the
@@ -643,12 +667,8 @@ def polar_analysis(F, g, lmax, mode="scalar"):
 	the poles. F [nfun, C, nm, nt] float64, contiguous -> [nl, nm, C]
 	float64. It takes no stop degrees and hands no state over."""
 	sht_core.check_mode(mode)
-	if F.dtype != torch.float64 or g.dtype != torch.float64:
-		raise TypeError("polar_analysis runs in float64 only, not on %s data and a %s geometry"
-			% (F.dtype, g.dtype))
 	C = F.shape[1] if F.ndim == 4 else -1
-	_check(F, g, (NFUN[mode], C, g.nm, g.nt), "polar_analysis")
-	if not F.is_contiguous(): raise ValueError("polar_analysis: F must be contiguous")
+	_polar_check(F, g, (NFUN[mode], C, g.nm, g.nt), "polar_analysis")
 	if not _on_card(F): return PLAIN["polar_analysis"](F, g, lmax, mode)
 	nl = lmax + 1
 	ab, lt, s, _ = _mode_args(g, nl, mode, None, F.device)
@@ -661,6 +681,30 @@ def polar_analysis(F, g, lmax, mode="scalar"):
 		_launch("polar_analysis", mode, F.device, True, c1 - c0, Fc.data_ptr(), ab.data_ptr(),
 			lt.data_ptr(), g.ct.data_ptr(), g.rows.data_ptr(), g.seed_val.data_ptr(),
 			g.seed_level.data_ptr(), out.data_ptr() + c0*out.element_size(), C, nl, g.nm, g.nt, s,
+			stream)
+	return out
+
+
+def polar_synthesis(A, g, lmax, mode="scalar"):
+	"""K3's float64 near-pole pass, redesigned (csrc/legendre.cu
+	polar_synthesis_kernel; K7 in wigner mode, on a geometry prepared with
+	the spin): synthesis in float64 on any ring set, meant for the few rings
+	near the poles. A [nl, nm, C] float64, contiguous -> [nfun, C, nm, nt]
+	float64. It takes no stop degrees and hands no state over."""
+	sht_core.check_mode(mode)
+	C = A.shape[-1] if A.ndim == 3 else -1
+	_polar_check(A, g, (lmax + 1, g.nm, C), "polar_synthesis")
+	if not _on_card(A): return PLAIN["polar_synthesis"](A, g, lmax, mode)
+	nl = lmax + 1
+	ab, lt, s, _ = _mode_args(g, nl, mode, None, A.device)
+	stream = torch.cuda.current_stream(A.device).cuda_stream
+	out = torch.empty((NFUN[mode], C, g.nm, g.nt), dtype=torch.float64, device=A.device)
+	esize = out.element_size()
+	for c0, c1 in _col_chunks(C):
+		# each launch reads its columns of A and writes every entry of them in out
+		_launch("polar_synthesis", mode, A.device, True, c1 - c0, A.data_ptr() + c0*esize,
+			ab.data_ptr(), lt.data_ptr(), g.ct.data_ptr(), g.rows.data_ptr(), g.seed_val.data_ptr(),
+			g.seed_level.data_ptr(), out.data_ptr() + c0*g.nm*g.nt*esize, C, C, nl, g.nm, g.nt, s,
 			stream)
 	return out
 
@@ -787,7 +831,7 @@ def kernel_synthesis(A, theta, lmax, mmax, mode="scalar", dtype=torch.float32, s
 	if nn or ns:
 		# overwrite the near-pole rings, for m < Mp, with a float64 pass: the
 		# recurrence amplifies f32 rounding there by ~min(l, 1/theta)^2
-		pol = full_synthesis(A[:, :Mp].to(torch.float64).contiguous(),
+		pol = polar_synthesis(A[:, :Mp].to(torch.float64).contiguous(),
 			geom(pth, Mp - 1, torch.float64, A.device, s), lmax, mode).to(dtype)
 		G[..., :Mp, :nn] = pol[..., :nn]
 		G[..., :Mp, nt-ns:] = pol[..., nn:]

@@ -133,8 +133,14 @@ def ring_theta(variant, n):
 # ---------------------------------------------------------------------------
 def _phase_ramp(nm, phi0, cdtype, sign, device):
 	"""exp(sign i m phi0), m = 0..nm-1, evaluated on the host in float64: a
-	working-precision m*phi0 product carries ~1e-3 rad of error at m ~ 1e4."""
-	ph = sign*np.arange(nm)*float(phi0)
+	working-precision m*phi0 product carries ~1e-3 rad of error at m ~ 1e4.
+	Cached per arguments, so the host -> device copy happens once; callers
+	must not write into it."""
+	return _phase_ramp_cached(int(nm), float(phi0), cdtype, int(sign), torch.device(device))
+
+@functools.lru_cache(maxsize=32)
+def _phase_ramp_cached(nm, phi0, cdtype, sign, device):
+	ph = sign*np.arange(nm)*phi0
 	return torch.from_numpy(np.cos(ph) + 1j*np.sin(ph)).to(device=device, dtype=cdtype)
 
 
@@ -321,14 +327,28 @@ def adjoint_synthesis(maps, theta, lmax, mmax=None, phi0=0.0, spin=(0, 2), deriv
 		alm_dtype=alm_dtype, m_degeneracy=m_degeneracy, leg_dtype=leg_dtype)
 
 
+def _ring_weights_on(weights, nphi, dtype, device):
+	"""weights[nt] * 2 pi/nphi as a dtype tensor on device, computed on the
+	host as the reference does, and cached per weights, nphi, dtype and
+	device, so the host -> device copy happens once; callers must not write
+	into it."""
+	w = np.ascontiguousarray(weights)
+	return _ring_weights_cached(w.tobytes(), w.dtype.str, w.shape, int(nphi), dtype,
+		torch.device(device))
+
+@functools.lru_cache(maxsize=32)
+def _ring_weights_cached(wbytes, wdtype, wshape, nphi, dtype, device):
+	w = np.frombuffer(wbytes, wdtype).reshape(wshape)
+	return torch.as_tensor(w*(2*np.pi/nphi), dtype=dtype, device=device)
+
+
 def analysis(maps, theta, lmax, weights, mmax=None, phi0=0.0, spin=(0, 2), deriv=False,
 		alm_dtype=None, *, leg_dtype=None):
 	"""Quadrature analysis: ring weights times 2 pi/nphi, then the transpose
 	of synthesis without the m > 0 doubling (pixell_tpu.sht.analysis :807).
 	Exact for band-limited maps on full-sky CC/F1 grids."""
 	nphi = maps.shape[-1]
-	w = torch.as_tensor(np.asarray(weights)*(2*np.pi/nphi), dtype=maps.dtype,
-		device=maps.device)
+	w = _ring_weights_on(weights, nphi, maps.dtype, maps.device)
 	return adjoint_synthesis(maps*w[:, None], theta, lmax, mmax=mmax, phi0=phi0,
 		spin=spin, deriv=deriv, alm_dtype=alm_dtype, m_degeneracy=False, leg_dtype=leg_dtype)
 
@@ -339,8 +359,7 @@ def analysis_phase(F, theta, lmax, weights, nphi, mmax=None, spin=(0, 2), deriv=
 	(pixell_tpu.sht.analysis_phase :835); nphi is the ring length F came
 	from."""
 	if mmax is None: mmax = lmax
-	w = torch.as_tensor(np.asarray(weights)*(2*np.pi/nphi), dtype=F.real.dtype,
-		device=F.device)
+	w = _ring_weights_on(weights, nphi, F.real.dtype, F.device)
 	return adjoint_synthesis_phase(F*w, theta, lmax, mmax=mmax, spin=spin, deriv=deriv,
 		alm_dtype=alm_dtype, m_degeneracy=False, leg_dtype=leg_dtype)
 
@@ -365,22 +384,29 @@ def resample_theta_phase(F, variant, nt_out, spins):
 	return parts[0] if len(parts) == 1 else torch.cat(parts, -2)
 
 
+@functools.lru_cache(maxsize=32)
+def _resample_tables(m0, nm, spins, rdt, cdt, NT_in, NT_out, device):
+	"""The host-built factors of _resample_theta_phase, cached so that their
+	host -> device copies happen once (callers must not write into them):
+	(-1)^m [nm, 1], (-1)^s [nspin, 1, 1], and the half-sample shift ramps
+	exp(-+ i pi k/NT) of the Fejer-1 torus for NT_in and NT_out."""
+	m = np.arange(m0, m0 + nm)
+	sgn_m = torch.as_tensor(np.where(m % 2 == 0, 1.0, -1.0), dtype=rdt, device=device)[:, None]
+	sgn_s = torch.as_tensor([(-1.0)**s for s in spins], dtype=rdt, device=device)[:, None, None]
+	ramp = lambda n, sign: torch.from_numpy(np.exp(sign*1j*np.pi*np.fft.fftfreq(n))).to(device, cdt)
+	return sgn_m, sgn_s, ramp(NT_in, -1), ramp(NT_out, 1)
+
+
 def _resample_theta_phase(F, variant, nt_out, spins, m0):
 	nm, nt = F.shape[-2:]
-	rdt = F.real.dtype
-	m = np.arange(m0, m0 + nm)
-	sgn_m = torch.as_tensor(np.where(m % 2 == 0, 1.0, -1.0), dtype=rdt, device=F.device)[:, None]
-	sgn_s = torch.as_tensor([(-1.0)**s for s in spins], dtype=rdt, device=F.device)[:, None, None]
-	if variant in ["F1", "FEJER1"]:
-		mirror = F.flip(-1)*sgn_m*sgn_s
-		NT_in, NT_out = 2*nt, 2*nt_out
-	else:  # CC: pole rows are shared
-		mirror = F[..., 1:-1].flip(-1)*sgn_m*sgn_s
-		NT_in, NT_out = 2*(nt-1), 2*(nt_out-1)
+	f1 = variant in ["F1", "FEJER1"]
+	# CC: pole rows are shared
+	NT_in, NT_out = (2*nt, 2*nt_out) if f1 else (2*(nt-1), 2*(nt_out-1))
+	sgn_m, sgn_s, ramp_in, ramp_out = _resample_tables(int(m0), int(nm), spins, F.real.dtype,
+		F.dtype, NT_in, NT_out, F.device)
+	mirror = (F if f1 else F[..., 1:-1]).flip(-1)*sgn_m*sgn_s
 	ft = torch.fft.fft(torch.cat([F, mirror], -1), dim=-1)
-	if variant in ["F1", "FEJER1"]:
-		ft = ft*torch.from_numpy(np.exp(-1j*np.pi*np.fft.fftfreq(NT_in))).to(ft.device, ft.dtype)
+	if f1: ft = ft*ramp_in
 	ft = enfft.resample(ft, NT_out, axes=(-1,))/NT_in*NT_out
-	if variant in ["F1", "FEJER1"]:
-		ft = ft*torch.from_numpy(np.exp(1j*np.pi*np.fft.fftfreq(NT_out))).to(ft.device, ft.dtype)
+	if f1: ft = ft*ramp_out
 	return torch.fft.ifft(ft, dim=-1)[..., :nt_out]

@@ -193,7 +193,7 @@ def test_wigner_polar_split(monkeypatch):
 			calls.append((name, g.dtype, g.nt, g.nm - 1, g.s))
 			return kern(x, g, *args, **kw)
 		monkeypatch.setattr(sht_cuda, name, wrapped)
-	spy("full_synthesis"); spy("full_analysis"); spy("polar_analysis")
+	spy("full_synthesis"); spy("full_analysis"); spy("polar_analysis"); spy("polar_synthesis")
 	s, lmax = 3, 64
 	theta, A, F = scan_inputs(lmax, 2*lmax + 2, 0, C=2)
 	nt = len(theta)
@@ -205,11 +205,12 @@ def test_wigner_polar_split(monkeypatch):
 	G = sht_cuda.kernel_synthesis(torch.from_numpy(A).float(), theta, lmax, lmax, "wigner", f32, s)
 	assert G.dtype == f32
 	assert relerr(G, jcore.wigner_synthesis_scan(A, theta, lmax, lmax, s)) < 2e-5
-	assert calls == [("full_synthesis", f32, nt, lmax, s), ("full_synthesis", f64, nn + ns, Mp - 1, s)]
+	# the near-pole pass goes through the redesigned float64 kernel, not K3
+	assert calls == [("full_synthesis", f32, nt, lmax, s), ("polar_synthesis", f64, nn + ns, Mp - 1, s)]
 	calls.clear()
 	a = sht_cuda.kernel_analysis(torch.from_numpy(F).float(), theta, lmax, lmax, "wigner", f32, s)
 	assert relerr(a, jcore.wigner_analysis_scan(F, theta, lmax, lmax, s)) < 2e-5
-	# the near-pole pass goes through the redesigned float64 kernel, not K4
+	# and through the redesigned float64 kernel, not K4
 	assert calls == [("full_analysis", f32, nt - nn - ns, lmax, s),
 		("polar_analysis", f64, nn + ns, Mp - 1, s)]
 	# a large spin widens the near-pole pass to s + 1 rows
