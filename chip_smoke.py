@@ -9,7 +9,8 @@ It builds the hand-written kernels from pixell_tpu_torch/csrc with nvcc
 fma_peak.cu, all compilers started together) and prints each kernel's
 registers and spills, then runs the phases below (all of them with no
 arguments; --phases with a choice of k9,kernels,lstop,slice,blocked,timing
-runs those alone, for work on one phase, and gives no verdict):
+runs those alone, for work on one phase, and gives no verdict; the phase
+"variants", 6. below, runs only when named):
 
 1. K9 phase: the FMA-peak kernel against its plain PyTorch chain on a small
    grid (the kernel rounds once per step, the chain twice: within
@@ -50,12 +51,26 @@ runs those alone, for work on one phase, and gives no verdict):
    lmax-2000 roundtrips' near-pole shapes (the 2160-ring map's near-pole
    rings for synthesis, the upsampled map's for analysis; 128 m rows, or
    max(128, s + 1) in the wigner mode).
-   lstop: K3 and K4 in scalar and spin2 mode at the lmax-2000 float32
-   shapes (2001 m rows; the map's 2160 rings for K3, the first 2048
-   upsampled bulk rings for K4), launched with the dead-tile table and
-   without: the table must mark dead tiles, the two results differ by at
-   most 1e-9 (scalar) or 1e-7 (spin2) of the largest value, and both times
-   are printed.
+   Every float32 launch of K2 and K4 runs bulk_analysis_kernel, their
+   float32 bulk redesigned (csrc/legendre.cu), held to the float32 rule
+   above in all five modes, also on a ragged shape of several ring tiles
+   and partial-sum planes (lmax 300, 203 m rows, 333 rings); at the
+   lmax-750 shapes its record carries the time of the float32
+   analysis_kernel it replaced ("replaced_ms", sht_cuda.replaced_analysis,
+   held to the same rule), which is listed too, as a comparison only.
+   lstop: K3 and K4 at the lmax-2000 float32 shapes (2001 m rows; the
+   map's 2160 rings for K3 in scalar and spin2 mode; for K4 the two chunks
+   of 2048 and 1906 upsampled bulk rings that the main path gives it, the
+   first in scalar, spin2 and wigner mode, the second in scalar and
+   wigner), launched with the dead-tile table and without: the table must
+   mark dead tiles, the two results differ by at most 1e-9 (scalar) or 1e-7
+   (spin2, wigner) of the largest value, and both times are printed; for
+   K4 both with bulk_analysis_kernel and with the analysis_kernel it
+   replaced. The bulk kernel with the table is held to the float32 rule
+   above against the float64 plain version, and the replaced kernel's
+   result must lie within the same bound of it. On the first chunk, K4's
+   bound and the torch.bmm yardstick, taken over m in chunks of 64 rows
+   (the whole mode table does not fit in memory) with the times summed.
 3. slice phase, through pixell_tpu_torch.curvedsky, each path driven with
    the launch counts set to 0 just before it and read just after:
    rand_alm -> alm2map -> map2alm -> alm2map on full-sky Fejer-1 maps
@@ -70,7 +85,8 @@ runs those alone, for work on one phase, and gives no verdict):
      and dtype held against what the dispatch should give;
    every f32 path runs its near-pole rings through polar_synthesis (one
    launch per alm2map in its mode) and polar_analysis in float64, and K3
-   and K4 in float64 never;
+   and K4 in float64 never; its K2/K4 launches run bulk_analysis_kernel,
+   never the float32 analysis_kernel;
    every band-limited map roundtrip within 1e-3; deriv=True alm2map and
    map2alm at lmax 750 in f32 against the same on the card in f64 (1e-3);
    the wigner mode at spin 2 against the spin2 mode on the card at lmax 750
@@ -103,6 +119,13 @@ runs those alone, for work on one phase, and gives no verdict):
    spin-0, 10 IQU and 10 spin-[0, 3] at lmax 750; 5, 3 and 3 at lmax 2000)
    and a profiler breakdown of each: device time by kernel and the device's
    busy share of the wall time.
+6. variants (only with --phases variants): bulk_analysis_kernel's design
+   choices measured. legendre.cu is copied under build/variants/ once per
+   edit of BULK_VARIANTS (two or four rings a thread everywhere, the first
+   group's test written gl0 == l8), each copy built (all started together)
+   and its bulk kernels' registers and spills printed; at the main path's
+   K2 and K4 shapes each build's result must lie within 1e-6 of the
+   committed build's, and its device time is printed beside that build's.
 
 It prints the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and yardstick, and as the last line
@@ -177,9 +200,10 @@ def _device_key(ka):
 
 def kernel_device_ms(fn, n, name, tries=4):
 	"""(ms, launches traced): the device time of one launch of the kernel
-	whose name contains name, from the profiler over n calls of fn (each
-	launching it once) after one warmup: the kernel's own time, without the
-	gaps where the card waits for the host between launches. It is the mean
+	whose name matches the regular expression name, from the profiler over
+	n calls of fn (each launching it once) after one warmup: the kernel's
+	own time, without the gaps where the card waits for the host between
+	launches. It is the mean
 	over the launches the trace holds, since the profiler has been seen to
 	drop a device event of a session (one of 20). Small torch operations
 	open and close each session. A trace with fewer than half the launches
@@ -195,7 +219,7 @@ def kernel_device_ms(fn, n, name, tries=4):
 			torch.ones(1, device="cuda").add_(1)
 			torch.cuda.synchronize()
 		ka = prof.key_averages()
-		events = [e for e in ka if name in e.key]
+		events = [e for e in ka if re.search(name, e.key)]
 		count = sum(e.count for e in events)
 		if count > n:
 			raise RuntimeError("profiler: %d launches of %s for %d calls of one" % (count, name, n))
@@ -214,6 +238,19 @@ def kernel_ms(fn, n, name):
 	return r[0], "profiler, %d of %d launches traced" % (r[1], n)
 
 
+def kernel_pattern(name, dtype=torch.float32, replaced=False):
+	"""The regular expression that picks the CUDA kernel the wrapper name
+	(sym_analysis, full_synthesis, ...) launches in dtype out of the
+	profiler's kernel names, mangled or not: the float32 analysis launches
+	run bulk_analysis_kernel, unless replaced (sht_cuda.replaced_analysis),
+	the others analysis_kernel or synthesis_kernel, not the polar_ or blk_
+	kernels of the same stem."""
+	from pixell_tpu_torch.ops import sht_cuda
+	if name in sht_cuda.BULK_KERNELS and dtype == torch.float32 and not replaced:
+		return "bulk_analysis_kernel"
+	return r"(?<![A-Za-z_])%s_kernel" % name.split("_")[1]
+
+
 def bound(ops, nbytes, dtype):
 	"""(least time in ms, what bounds it): operations over the data-sheet
 	peak for dtype, or bytes over the memory rate, whichever is larger."""
@@ -221,11 +258,12 @@ def bound(ops, nbytes, dtype):
 	return 1e3*max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def print_build_summary(log):
+def print_build_summary(log, only=None):
 	"""One line per compiled kernel from the build log's ptxas -v output:
-	object, kernel, registers and spill bytes."""
+	object, kernel, registers and spill bytes; with only, a regular
+	expression, the kernels whose printed name it matches alone."""
 	obj, entry, spill = "?", None, None
-	worst = 0
+	worst, spilled = 0, {}
 	for line in log.splitlines():
 		m = re.search(r"-DLEGENDRE_MODE=(\d)", line)
 		if line.startswith(("nvcc", "/")) and " -c " in line:
@@ -237,20 +275,28 @@ def print_build_summary(log):
 			f = re.search(r"fma_peak_kernelI([fd])", m.group(1))
 			b = re.search(r"blk_(synthesis|analysis)_kernelILi(\d+)E", m.group(1))
 			p = re.search(r"polar_(analysis|synthesis)_kernelILi(\d+)E", m.group(1))
+			u = re.search(r"bulk_analysis_kernelILi(\d+)ELb([01])ELi(\d+)ELb([01])ELb([01])E",
+				m.group(1))
 			entry = ("%s<%s,C=%s,%s>" % (k.group(1), k.group(2), k.group(3),
 				"sym" if k.group(4) == "1" else "full")) if k else \
 				("fma_peak<%s>" % f.group(1) if f else
 				("blk_%s<C=%s>" % b.groups() if b else
-				("polar_%s<d,C=%s>" % p.groups() if p else m.group(1)[:60])))
+				("polar_%s<d,C=%s>" % p.groups() if p else
+				("bulk_analysis<C=%s,%s,R=%s%s%s>" % (u.group(1), "sym" if u.group(2) == "1" else
+				"full", u.group(3), ",stops" if u.group(4) == "1" else "",
+				",dump" if u.group(5) == "1" else "") if u else m.group(1)[:60]))))
 		m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
 		if m: spill = int(m.group(1)) + int(m.group(2))
 		m = re.search(r"Used (\d+) registers", line)
-		if m and entry is not None:
-			print("ptxas: %-16s %-28s %3s registers, %d bytes spilled" % (obj, entry,
+		if m and entry is not None and (only is None or re.search(only, entry)):
+			print("ptxas: %-16s %-36s %3s registers, %d bytes spilled" % (obj, entry,
 				m.group(1), spill or 0))
 			worst = max(worst, spill or 0)
+			n, k = spilled.get(obj.split(".")[0], (0, 0))
+			spilled[obj.split(".")[0]] = (n + 1, k + bool(spill))
 			entry = None
-	print("ptxas: largest spill of any kernel: %d bytes" % worst)
+	print("ptxas: largest spill of any kernel: %d bytes; kernels that spill, by source: %s" % (
+		worst, ", ".join("%s %d of %d" % (src, k, n) for src, (n, k) in sorted(spilled.items()))))
 
 
 # ---------------------------------------------------------------------------
@@ -316,6 +362,10 @@ def kernel_cases(mode):
 	rng = np.random.default_rng(3)
 	ragged = np.sort(rng.uniform(0.05, 3.1, 53))
 	rag_sym = sht.ring_theta("F1", 53)[:27]
+	# several ring tiles and partial-sum planes, nm not a multiple of the m
+	# tile, nt not of R x 32, every ring in the bulk (theta > POLAR_AMP/300)
+	tiles_full = np.sort(rng.uniform(0.25, np.pi - 0.25, 333))
+	tiles_sym = sht.ring_theta("F1", 900)[60:393]
 	pm = sht_cuda.POLAR_MMAX - 1
 	f32, f64 = torch.float32, torch.float64
 	if mode == "wigner":   # K3/K4 only: the float32 bulk and the near-pole pass
@@ -327,6 +377,7 @@ def kernel_cases(mode):
 			("full_analysis", "lmax750-polar", lmax, pm, pol_ana, f64),
 			("full_synthesis", "ragged", 37, 29, ragged, f32),
 			("full_analysis", "ragged", 37, 29, ragged, f32),
+			("full_analysis", "ragged-tiles", 300, 202, tiles_full, f32),
 		]
 	return [
 		("sym_synthesis", "lmax750", lmax, lmax, th_syn[:450], f32),
@@ -337,6 +388,8 @@ def kernel_cases(mode):
 		("sym_analysis", "ragged", 37, 29, rag_sym, f32),
 		("full_synthesis", "ragged", 37, 29, ragged, f32),
 		("full_analysis", "ragged", 37, 29, ragged, f32),
+		("sym_analysis", "ragged-tiles", 300, 202, tiles_sym, f32),
+		("full_analysis", "ragged-tiles", 300, 202, tiles_full, f32),
 	]
 
 
@@ -560,7 +613,7 @@ def kernel_phase():
 			b_ms, b_by = bound(kernel_ops(name, mode, lmax, mmax, nt, C, dead),
 				kernel_bytes(name, mode, lmax, mmax, nt, C, xd.element_size()), main_dt)
 			run = lambda: kern(*args)
-			ms, how = kernel_ms(run, 20, name.split("_")[1] + "_kernel")
+			ms, how = kernel_ms(run, 20, kernel_pattern(name, main_dt))
 			lib_ms, lib_err = library_ms(name, mode, xd, theta, mmax, lmax, ref)
 			lib_tol = 1e-4 if main_dt == torch.float32 else 1e-10
 			print("library %-14s %-6s: torch.bmm over the mode-function table %.4f ms, "
@@ -570,7 +623,9 @@ def kernel_phase():
 					% (name, mode))
 			tag = mode if mode != "wigner" else "wigner, %s" % (
 				"f32 bulk" if label.endswith("bulk") else "f64 near-pole")
-			rec = {"name": "%s[%s]" % (name, tag), "route": "cuda", "source": LEGENDRE_SOURCE,
+			bulk = name in sht_cuda.BULK_KERNELS and main_dt == torch.float32
+			kname = sht_cuda.BULK_KERNELS[name] if bulk else name
+			rec = {"name": "%s[%s]" % (kname, tag), "route": "cuda", "source": LEGENDRE_SOURCE,
 				"replaces": REPLACES[name], "mode": mode,
 				"max_abs_err": float((k.double() - ref).abs().max()),
 				"ms": ms, "ms_from": how, "call_ms": cuda_ms(run, 20),
@@ -583,12 +638,47 @@ def kernel_phase():
 				"bound %.4f ms (%s, %.1f %% of it reached), torch.bmm %.4f ms" % (name, mode,
 				rec["shape"], rec["ms"], how, rec["call_ms"], rec["plain_ms"], b_ms, b_by,
 				100*b_ms/rec["ms"], lib_ms))
-			records[(name, mode, str(main_dt)[6:])] = rec
+			records[(kname, mode, str(main_dt)[6:])] = rec
+			if bulk:
+				records[(name, mode, "float32")] = replaced_record(name, mode, args, k, ref, rec)
 			if label == "lmax750-polar":
 				pname = "polar_" + name.split("_")[1]
 				records[(pname, mode, "float64")] = polar_record(pname, mode, args, k, ref, rec)
 		for pname in sht_cuda.POLAR_KERNELS: polar_shapes(pname, mode)
 	return records
+
+
+def replaced_record(name, mode, args, k_new, ref, new):
+	"""The float32 analysis_kernel that bulk_analysis_kernel replaced in the
+	launches of name (sht_cuda.replaced_analysis), on the input and geometry
+	of the bulk kernel's record new: held to the same rule against the
+	float64 plain version, timed in this run, and its time written into new
+	as replaced_ms. Returns its own record, a comparison only: no path
+	launches it."""
+	from pixell_tpu_torch.ops import sht_cuda
+	run = lambda: sht_cuda.replaced_analysis(name, *args)
+	k = run()
+	torch.cuda.synchronize()
+	p = sht_cuda.PLAIN[name](*args)
+	err, perr = relerr(k, ref), relerr(p, ref)
+	ok = bool(torch.isfinite(k).all()) and err <= 2*perr + 1e-6
+	print("kernel %-14s %-6s replaced float32 analysis_kernel: rel err %.3e (plain %.3e, "
+		"bound %.3e) %s" % (name, mode, err, perr, 2*perr + 1e-6, "ok" if ok else "FAIL"))
+	if not ok: raise RuntimeError("%s %s: the replaced kernel disagrees with its plain version"
+		% (name, mode))
+	ms, how = kernel_ms(run, 20, kernel_pattern(name, torch.float32, replaced=True))
+	old_name = "analysis_kernel<float,C,%s>" % ("true" if name.startswith("sym") else "false")
+	new.update(replaced_ms=ms, replaced_kernel=old_name, diff_to_replaced=relerr(k_new, k))
+	rec = dict(new, name=new["name"].replace(sht_cuda.BULK_KERNELS[name], name),
+		max_abs_err=float((k.double() - ref).abs().max()), ms=ms, ms_from=how,
+		call_ms=cuda_ms(run, 20), comparison_only=True, replaced_by=new["name"])
+	for key in ("replaced_ms", "replaced_kernel", "diff_to_replaced"): rec.pop(key)
+	print("time   %-14s %-6s %s: bulk_analysis_kernel %.4f ms, the float32 analysis_kernel it "
+		"replaced %.4f ms (%.2fx: %s), results %.3e apart; bound %.4f ms (%.1f %% / %.1f %% of it "
+		"reached)" % (name, mode, new["shape"], new["ms"], ms, ms/new["ms"],
+		"faster" if new["ms"] < ms else "NOT faster", new["diff_to_replaced"], new["bound_ms"],
+		100*new["bound_ms"]/new["ms"], 100*new["bound_ms"]/ms))
+	return rec
 
 
 def polar_check(pname, mode, label, kp, ref):
@@ -666,44 +756,151 @@ def polar_shapes(pname, mode):
 		polar_check(pname, mode, "lmax%d-nt%d-nm%d" % (lmax, len(theta), mmax + 1), kp, ref)
 
 
+def chunked_library_ms(mode, x, theta, lmax, mchunk=64):
+	"""(ms, rel err) of the library yardstick of K4 at a shape whose
+	mode-function table [nm, nfun*nt, nl] does not fit in memory whole:
+	torch.bmm over m in chunks of mchunk rows, the times of the chunks
+	summed. Each chunk multiplies a table of its own shape; the table is
+	that of the first chunk (m < mchunk), built once, whose product is held
+	against the float64 plain version on those rows. The values do not
+	change a dense product's time."""
+	from pixell_tpu_torch.ops import sht_cuda
+	from pixell_tpu_torch.ops.sht_core import NFUN
+	nf, nm, nt, C = NFUN[mode], x.shape[2], x.shape[3], x.shape[1]
+	T = mode_table(theta, mchunk - 1, lmax, mode, x.dtype, x.device).transpose(1, 2)
+	B = x.permute(2, 0, 3, 1).reshape(nm, nf*nt, C)
+	x64 = x[:, :, :mchunk].double().contiguous()
+	ref = sht_cuda.PLAIN["full_analysis"](x64, sht_cuda.geom(theta, mchunk - 1, torch.float64,
+		x.device, mode_spin(mode)), lmax, mode)
+	err = relerr(torch.bmm(T, B[:mchunk].contiguous()).transpose(0, 1), ref)
+	ms = 0.0
+	for m0 in range(0, nm, mchunk):
+		Bc = B[m0:m0 + mchunk].contiguous()
+		Tc = T[:len(Bc)]
+		ms += cuda_ms(lambda: torch.bmm(Tc, Bc), 3)
+	del T, B
+	torch.cuda.empty_cache()
+	return ms, err
+
+
+def timed_once(fn):
+	"""(fn(), ms): one call, timed with CUDA events, without warmup (for
+	the plain versions, whose seconds dwarf a first call's set-up)."""
+	t0 = torch.cuda.Event(enable_timing=True)
+	t1 = torch.cuda.Event(enable_timing=True)
+	t0.record()
+	out = fn()
+	t1.record()
+	torch.cuda.synchronize()
+	return out, t0.elapsed_time(t1)
+
+
 def lstop_phase():
 	"""K3/K4's dead-tile skip at the lmax-2000 float32 shapes: the same
-	launch with the table and without."""
+	launch with the table and without; for K4 both with bulk_analysis_kernel
+	and with the float32 analysis_kernel it replaced, and the bulk kernel
+	held against the float64 plain version on both chunks of the upsampled
+	bulk rings; on the first chunk its bound and the chunked torch.bmm
+	yardstick. Returns K4's records (first chunk) by mode."""
 	from pixell_tpu_torch import sht, fft
 	from pixell_tpu_torch.ops import sht_cuda
 	dev = torch.device("cuda")
 	lmax = 2000
 	th_up = sht.ring_theta("F1", fft.fft_len(2*lmax + 3, direction="above"))
 	nn, ns = sht_cuda.polar_counts(th_up, lmax)
-	shapes = {"full_synthesis": sht.ring_theta("F1", 2160),
-		"full_analysis": th_up[nn:len(th_up)-ns][:sht_cuda.TCHUNK]}
-	for mode, tol in (("scalar", 1e-9), ("spin2", 1e-7)):
-		for i, (name, theta) in enumerate(shapes.items()):
+	bulk = th_up[nn:len(th_up)-ns]
+	rings = {"map": sht.ring_theta("F1", 2160), "chunk 1": bulk[:sht_cuda.TCHUNK],
+		"chunk 2": bulk[sht_cuda.TCHUNK:]}
+	seeds = {"map": 40, "chunk 1": 41, "chunk 2": 42}
+	# (mode, bound on the skip's difference, [(kernel, ring set)]): the map's
+	# rings for K3, the two chunks K4's bulk takes on the main path
+	cases = (("scalar", 1e-9, (("full_synthesis", "map"), ("full_analysis", "chunk 1"),
+			("full_analysis", "chunk 2"))),
+		("spin2", 1e-7, (("full_synthesis", "map"), ("full_analysis", "chunk 1"))),
+		("wigner", 1e-7, (("full_analysis", "chunk 1"), ("full_analysis", "chunk 2"))))
+	records = {}
+	for mode, tol, runs_of_mode in cases:
+		s = mode_spin(mode)
+		for name, where in runs_of_mode:
+			theta = rings[where]
 			kern, C, nt = getattr(sht_cuda, name), ncoef(mode), len(theta)
-			x = torch.from_numpy(kernel_input(name, mode, lmax, lmax, nt, 40 + i)).to(dev,
+			x = torch.from_numpy(kernel_input(name, mode, lmax, lmax, nt, seeds[where])).to(dev,
 				torch.float32)
-			g = sht_cuda.geom(theta, lmax, torch.float32, dev)
-			dead = sht_cuda.dead_stops(theta, lmax, lmax, 0, dev)
+			g = sht_cuda.geom(theta, lmax, torch.float32, dev, s)
+			dead = sht_cuda.dead_stops(theta, lmax, lmax, s or 0, dev)
 			if dead is None:
 				raise RuntimeError("lstop %s %s: no dead tile at lmax %d" % (name, mode, lmax))
-			skip, full = kern(x, g, lmax, mode, dead), kern(x, g, lmax, mode, None)
-			torch.cuda.synchronize()
-			err = relerr(skip, full)
-			kname = name.split("_")[1] + "_kernel"
-			ms_skip, how_skip = kernel_ms(lambda: kern(x, g, lmax, mode, dead), 5, kname)
-			ms_full, how_full = kernel_ms(lambda: kern(x, g, lmax, mode, None), 5, kname)
-			b_skip, _ = bound(kernel_ops(name, mode, lmax, lmax, nt, C, dead),
+			runs = [(kern, kernel_pattern(name), "")]
+			if name in sht_cuda.BULK_KERNELS:
+				runs.append((lambda *a, n=name: sht_cuda.replaced_analysis(n, *a),
+					kernel_pattern(name, replaced=True), " (replaced analysis_kernel)"))
+			b_skip, b_by = bound(kernel_ops(name, mode, lmax, lmax, nt, C, dead),
 				kernel_bytes(name, mode, lmax, lmax, nt, C, 4), torch.float32)
 			b_full, _ = bound(kernel_ops(name, mode, lmax, lmax, nt, C),
 				kernel_bytes(name, mode, lmax, lmax, nt, C, 4), torch.float32)
-			ok = err <= tol
-			print("lstop  %-14s %-6s lmax %d, nm %d, nt %d, C %d, f32: %d of %d blocks dead; "
-				"with the table %.4f ms (%s; bound %.4f), without %.4f ms (%s; bound %.4f); "
-				"difference %.3e of the largest value (bound %.0e) %s" % (name, mode, lmax,
-				lmax + 1, nt, C, int((dead == 0).sum()), dead.numel(), ms_skip, how_skip, b_skip, ms_full,
-				how_full, b_full, err, tol, "ok" if ok else "FAIL"))
+			times, outs = [], []
+			for fn, pat, what in runs:
+				skip, full = fn(x, g, lmax, mode, dead), fn(x, g, lmax, mode, None)
+				torch.cuda.synchronize()
+				err = relerr(skip, full)
+				ms_skip, how_skip = kernel_ms(lambda: fn(x, g, lmax, mode, dead), 5, pat)
+				ms_full, how_full = kernel_ms(lambda: fn(x, g, lmax, mode, None), 5, pat)
+				ok = err <= tol and bool(torch.isfinite(skip).all())
+				print("lstop  %-14s %-6s%s lmax %d, nm %d, nt %d (%s), C %d, f32: %d of %d blocks "
+					"dead; with the table %.4f ms (%s; bound %.4f), without %.4f ms (%s; bound %.4f); "
+					"difference %.3e of the largest value (bound %.0e) %s" % (name, mode, what, lmax,
+					lmax + 1, nt, where, C, int((dead == 0).sum()), dead.numel(), ms_skip, how_skip,
+					b_skip, ms_full, how_full, b_full, err, tol, "ok" if ok else "FAIL"))
+				if not ok:
+					raise RuntimeError("lstop %s %s: the skipped tiles are not negligible" % (name, mode))
+				times.append((ms_skip, how_skip, ms_full))
+				outs.append(skip)
+			if name not in sht_cuda.BULK_KERNELS: continue
+			# the bulk kernel against the float64 plain version, by the kernel
+			# phase's float32 rule; the replaced kernel's results within the same bound
+			ref = sht_cuda.PLAIN[name](x.double(), sht_cuda.geom(theta, lmax, torch.float64, dev, s),
+				lmax, mode, dead)
+			p, plain_ms = timed_once(lambda: sht_cuda.PLAIN[name](x, g, lmax, mode, dead))
+			err, perr, old_err = relerr(outs[0], ref), relerr(p, ref), relerr(outs[1], ref)
+			diff, rtol = relerr(outs[0], outs[1]), 2*relerr(p, ref) + 1e-6
+			ke = kept_err(name, outs[0], p, ref, f32_kept(theta, lmax, lmax, dev, s))
+			ok = err <= rtol and diff <= rtol and (ke is None or ke[0] <= 2*ke[1] + 1e-6)
+			print("kernel %-14s %-6s lmax %d, nm %d, nt %d (%s), f32, dead-tile table: "
+				"bulk_analysis_kernel rel err %.3e (plain %.3e, bound %.3e)%s; the replaced "
+				"analysis_kernel %.3e, %.3e from the bulk kernel's (bound %.3e) %s" % (name, mode,
+				lmax, lmax + 1, nt, where, err, perr, rtol, "" if ke is None else
+				"; kept entries %.3e (plain %.3e)" % ke, old_err, diff, rtol, "ok" if ok else "FAIL"))
 			if not ok:
-				raise RuntimeError("lstop %s %s: the skipped tiles are not negligible" % (name, mode))
+				raise RuntimeError("%s %s at lmax %d (%s): the bulk kernel disagrees with the float64 "
+					"plain version or with the kernel it replaced" % (name, mode, lmax, where))
+			if where != "chunk 1": continue
+			(ms, how, ms_nodead), (old_ms, _, old_nodead) = times
+			lib_ms, lib_err = chunked_library_ms(mode, x, theta, lmax)
+			print("library %-14s %-6s lmax %d: torch.bmm over m in chunks of 64 rows %.4f ms, rel err "
+				"%.3e against the float64 plain version on the first chunk (bound 1e-4)" % (name, mode,
+				lmax, lib_ms, lib_err))
+			if not lib_err <= 1e-4:
+				raise RuntimeError("%s %s: the chunked yardstick computes another function" % (name, mode))
+			bname = sht_cuda.BULK_KERNELS[name]
+			records[mode] = {"name": "%s[%s, lmax-2000 chunk]" % (bname, mode), "route": "cuda",
+				"source": LEGENDRE_SOURCE, "replaces": REPLACES[name], "mode": mode,
+				"max_abs_err": float((outs[0].double() - ref).abs().max()), "rel_err": err,
+				"plain_rel_err": perr, "ms": ms, "ms_from": how,
+				"call_ms": cuda_ms(lambda: kern(x, g, lmax, mode, dead), 5),
+				"ms_without_dead_table": ms_nodead, "plain_ms": plain_ms, "bound_ms": b_skip,
+				"bound_by": b_by, "library_ms": lib_ms,
+				"library_from": "torch.bmm over m in chunks of 64 rows, times summed",
+				"library_rel_err": lib_err, "replaced_ms": old_ms,
+				"replaced_ms_without_dead_table": old_nodead, "replaced_rel_err": old_err,
+				"diff_to_replaced": diff,
+				"shape": "lmax %d, nm %d, nt %d, C %d, float32, dead-tile table" % (lmax, lmax + 1,
+				nt, C)}
+			print("time   %-14s %-6s lmax-2000 chunk: bulk_analysis_kernel %.4f ms (%s; wrapper call "
+				"%.4f ms), replaced analysis_kernel %.4f ms (%.2fx: %s), bound %.4f ms (%.1f %% / "
+				"%.1f %% of it reached), plain %.2f ms, torch.bmm in chunks %.4f ms" % (name, mode, ms,
+				how, records[mode]["call_ms"], old_ms, old_ms/ms, "faster" if ms < old_ms else
+				"NOT faster", b_skip, 100*b_skip/ms, 100*b_skip/old_ms, plain_ms, lib_ms))
+	return records
 
 
 # ---------------------------------------------------------------------------
@@ -785,6 +982,10 @@ def drive(label, mode, fn, kernels, want=None, alm2maps=2):
 	if k34_64:
 		raise RuntimeError("the %s path ran K3/K4 in float64 (%s), not polar_synthesis and "
 			"polar_analysis" % (label, k34_64))
+	old32 = {k: n for k, n in by_dtype.items() if k[0] in sht_cuda.BULK_KERNELS and k[2] == "float32"}
+	if old32:
+		raise RuntimeError("the %s path ran the float32 analysis_kernel (%s), not "
+			"bulk_analysis_kernel" % (label, old32))
 	if counts["polar_synthesis"] != alm2maps:
 		raise RuntimeError("the %s path launched polar_synthesis %d times in %s mode, not once for "
 			"each of its %d alm2map calls" % (label, counts["polar_synthesis"], mode, alm2maps))
@@ -809,12 +1010,12 @@ def wigner_launches(lmax, nt_map):
 	nn, ns = sht_cuda.polar_counts(sht.ring_theta("F1", nt_up), lmax)
 	chunks = -(-(nt_up - nn - ns)//sht_cuda.TCHUNK)
 	want = {("full_synthesis", "wigner", "float32"): 2, ("polar_synthesis", "wigner", "float64"): 2,
-		("full_analysis", "wigner", "float32"): chunks, ("polar_analysis", "wigner", "float64"): 1,
+		("full_bulk_analysis", "wigner", "float32"): chunks, ("polar_analysis", "wigner", "float64"): 1,
 		("polar_synthesis", "scalar", "float64"): 2, ("polar_analysis", "scalar", "float64"): 1}
 	if nt_map <= 2*sht_cuda.SYM_MAX_NH: want[("sym_synthesis", "scalar", "float32")] = 2
 	else: want[("full_synthesis", "scalar", "float32")] = 2
-	if nt_up - nn - ns <= 2*sht_cuda.SYM_MAX_NH: want[("sym_analysis", "scalar", "float32")] = 1
-	else: want[("full_analysis", "scalar", "float32")] = chunks
+	if nt_up - nn - ns <= 2*sht_cuda.SYM_MAX_NH: want[("sym_bulk_analysis", "scalar", "float32")] = 1
+	else: want[("full_bulk_analysis", "scalar", "float32")] = chunks
 	return want
 
 
@@ -843,47 +1044,53 @@ def slice_phase():
 	from pixell_tpu_torch.ops import sht_cuda
 	# at lmax 750 the float32 bulk takes K1/K2, the near-pole rings
 	# polar_synthesis and polar_analysis in float64
-	allk = ("sym_synthesis", "sym_analysis", "polar_synthesis", "polar_analysis")
+	allk = ("sym_synthesis", "sym_bulk_analysis", "polar_synthesis", "polar_analysis")
 	f32, f64 = torch.float32, torch.float64
 	launches = {}
 	counts, _ = drive("spin-0 lmax-750 f32 roundtrip", "scalar",
 		lambda: roundtrip(750, (900, 1800), f32, 1e-4), allk)
 	launches["scalar"] = counts
 	roundtrip(750, (900, 1800), f64, 1e-10)
-	roundtrip(2000, (2160, 4320), f32, 5e-4)
+	# more than 2*SYM_MAX_NH upsampled rings: the analysis runs K4, not K2
+	counts, _ = drive("spin-0 lmax-2000 f32 roundtrip", "scalar",
+		lambda: roundtrip(2000, (2160, 4320), f32, 5e-4),
+		("sym_synthesis", "polar_synthesis", "full_bulk_analysis", "polar_analysis"))
+	launches["scalar lmax 2000"] = counts
 	counts, _ = drive("IQU lmax-750 f32 roundtrip", "spin2",
 		lambda: roundtrip(750, (900, 1800), f32, 5e-4, spin=(0, 2)), allk)
 	launches["spin2"] = counts
 	roundtrip(750, (900, 1800), f64, 1e-10, spin=(0, 2))
-	# more than 2*SYM_MAX_NH upsampled rings: the analysis runs K4, not K2
 	counts, _ = drive("IQU lmax-2000 f32 roundtrip", "spin2",
 		lambda: roundtrip(2000, (2160, 4320), f32, 2e-3, spin=(0, 2)),
-		("sym_synthesis", "polar_synthesis", "full_analysis", "polar_analysis"))
+		("sym_synthesis", "polar_synthesis", "full_bulk_analysis", "polar_analysis"))
 	launches["spin2 lmax 2000"] = counts
 	# K4's f32 bulk: the upsampled rings minus the near-pole ones, in
 	# TCHUNK chunks; one float64 near-pole launch of polar_analysis
 	nt_up = fft.fft_len(2*2000 + 3, direction="above")
 	nn, ns = sht_cuda.polar_counts(sht.ring_theta("F1", nt_up), 2000)
 	want = -(-(nt_up - nn - ns)//sht_cuda.TCHUNK)
-	if (counts["full_analysis"], counts["polar_analysis"]) != (want, 1):
-		raise RuntimeError("spin2 analysis launches at lmax 2000: K4 %d, polar_analysis %d; "
-			"expected %d (f32 bulk chunks) and 1 (the near-pole pass)" % (counts["full_analysis"],
-			counts["polar_analysis"], want))
+	for md in ("scalar", "spin2"):
+		c = launches["%s lmax 2000" % md]
+		if (c["full_bulk_analysis"], c["polar_analysis"]) != (want, 1):
+			raise RuntimeError("%s analysis launches at lmax 2000: K4's bulk %d, polar_analysis %d; "
+				"expected %d (f32 bulk chunks) and 1 (the near-pole pass)" % (md,
+				c["full_bulk_analysis"], c["polar_analysis"], want))
 	counts, _ = drive("spin-1 lmax-750 f32 roundtrip", "spin1",
 		lambda: roundtrip(750, (900, 1800), f32, 5e-4, spin=(1,)), allk)
 	launches["spin1"] = counts
 	counts, (d32, a32) = drive("deriv lmax-750 f32", "deriv",
 		lambda: deriv_pair(750, (900, 1800), f32), allk, alm2maps=1)
 	launches["deriv"] = counts
-	wk = ("full_synthesis", "full_analysis", "polar_synthesis", "polar_analysis")
+	wk = ("full_synthesis", "full_bulk_analysis", "polar_synthesis", "polar_analysis")
 	counts, _ = drive("spin-[0, 3] lmax-750 f32 roundtrip", "wigner",
 		lambda: roundtrip(750, (900, 1800), f32, 5e-4, spin=(0, WIGNER_SPIN)), wk,
 		wigner_launches(750, 900))
 	launches["wigner"] = counts
 	roundtrip(750, (900, 1800), f64, 1e-10, spin=(0, WIGNER_SPIN))
-	drive("spin-[0, 3] lmax-2000 f32 roundtrip", "wigner",
+	counts, _ = drive("spin-[0, 3] lmax-2000 f32 roundtrip", "wigner",
 		lambda: roundtrip(2000, (2160, 4320), f32, 2e-3, spin=(0, WIGNER_SPIN)), wk,
 		wigner_launches(2000, 2160))
+	launches["wigner lmax 2000"] = counts
 	wigner_against_spin2(750, 900)
 	d64, a64 = deriv_pair(750, (900, 1800), f64)
 	e = (relerr(d32, d64), relerr(a32, a64))
@@ -1049,8 +1256,9 @@ def blocked_kernels(mode, theta, records):
 			"ok" if ok else "FAIL"))
 		if not ok: raise RuntimeError("blocked %s: split and unsplit kernels disagree" % tag)
 		# times: the block kernel, the dumping K3/K4, K3/K4 to the end
-		kname = name.split("_")[1] + "_kernel"
-		ms_blk, how = kernel_ms(lambda: blk(x32, kstate, tab, g32, lmax, mode), 5, "blk_" + kname)
+		kname = kernel_pattern(name)
+		ms_blk, how = kernel_ms(lambda: blk(x32, kstate, tab, g32, lmax, mode), 5,
+			"blk_%s_kernel" % name.split("_")[1])
 		ms_pre, _ = kernel_ms(lambda: kern(x32, g32, lmax, mode, lstop, True), 5, kname)
 		ms_full, _ = kernel_ms(lambda: kern(x32, g32, lmax, mode, dead), 5, kname)
 		plain_ms = cuda_ms(lambda: blk_plain(x32, kstate, tab, g32, lmax, mode), 1)
@@ -1233,15 +1441,110 @@ def profile_roundtrips(lmax, shape, nrep=3, spin=(0,)):
 	print(ka.table(sort_by=key, row_limit=14, max_name_column_width=56))
 
 
+# ---------------------------------------------------------------------------
+# 6. variants of bulk_analysis_kernel (only on request)
+# ---------------------------------------------------------------------------
+# Edits of csrc/legendre.cu, each undoing one choice of bulk_analysis_kernel:
+# its rings a thread (bulk_rings: four in the full scalar form, else two) and
+# the way its first-group test is written.
+BULK_VARIANTS = {
+	"R = 2": ("return MODE == SCALAR && !SYM ? 4 : 2;", "return 2;"),
+	"R = 4": ("return MODE == SCALAR && !SYM ? 4 : 2;", "return 4;"),
+	"gl0 == l8": ("else if (gl0 < l8 + BG)", "else if (gl0 == l8)"),
+}
+
+
+def variant_sources(label, old, new):
+	"""A copy of the kernel sources with old replaced by new in legendre.cu,
+	in a directory of its own under build/."""
+	from pixell_tpu_torch.ops import _build
+	d = _build.BUILD_ROOT.parent/"variants"/re.sub(r"\W+", "_", label).strip("_")
+	d.mkdir(parents=True, exist_ok=True)
+	for p in _build.CSRC.glob("*.cu"):
+		text = p.read_text()
+		if p.name == "legendre.cu":
+			if text.count(old) != 1: raise RuntimeError("variant %s: its edit does not apply" % label)
+			text = text.replace(old, new)
+		(d/p.name).write_text(text)
+	return d
+
+
+class use_library:
+	"""Within the block, sht_cuda launches from the library built from csrc."""
+	def __init__(self, csrc): self.csrc = csrc
+	def __enter__(self):
+		from pixell_tpu_torch.ops import sht_cuda
+		self.lib = sht_cuda.library
+		sht_cuda.library = lambda: self.lib(self.csrc)
+	def __exit__(self, *exc):
+		from pixell_tpu_torch.ops import sht_cuda
+		sht_cuda.library = self.lib
+
+
+def variants_phase():
+	"""bulk_analysis_kernel's design choices, measured: the sources built
+	once per edit of BULK_VARIANTS (all builds started together), and each
+	build's bulk kernel run at the main path's shapes (K2 at lmax 750 in
+	the four Legendre modes; K4 in wigner mode at lmax 750 and on the first
+	lmax-2000 chunk in scalar and spin2, with the dead-tile table): its
+	result within 1e-6 of the largest value of the committed build's, and
+	its device time beside the committed build's."""
+	from concurrent.futures import ThreadPoolExecutor
+	from pixell_tpu_torch import sht, fft
+	from pixell_tpu_torch.ops import sht_cuda, _build
+	dev = torch.device("cuda")
+	builds = {label: variant_sources(label, *edit) for label, edit in BULK_VARIANTS.items()}
+	h0 = time.perf_counter()
+	with ThreadPoolExecutor(len(builds)) as ex:
+		list(ex.map(sht_cuda.library, builds.values()))
+	print("variants: %d builds in %.1f s" % (len(builds), time.perf_counter() - h0))
+	for label, d in builds.items():
+		print("variant %s:" % label)
+		print_build_summary((_build.build_dir(d)/"build.log").read_text(), only="bulk_analysis")
+	builds = {"committed": _build.CSRC, **builds}
+	th = sht.ring_theta("F1", 1512)
+	nn, ns = sht_cuda.polar_counts(th, 750)
+	b750 = th[nn:len(th)-ns]
+	th = sht.ring_theta("F1", fft.fft_len(2*2000 + 3, direction="above"))
+	nn, ns = sht_cuda.polar_counts(th, 2000)
+	b2000 = th[nn:len(th)-ns][:sht_cuda.TCHUNK]
+	cases = [("sym_analysis", mode, 750, b750[:sht_cuda.detect_sym(b750)])
+		for mode in ("scalar", "deriv", "spin1", "spin2")] + [
+		("full_analysis", "wigner", 750, b750), ("full_analysis", "scalar", 2000, b2000),
+		("full_analysis", "spin2", 2000, b2000)]
+	for i, (name, mode, lmax, theta) in enumerate(cases):
+		s = mode_spin(mode)
+		x = torch.from_numpy(kernel_input(name, mode, lmax, lmax, len(theta), 70 + i)).to(dev,
+			torch.float32)
+		g = sht_cuda.geom(theta, lmax, torch.float32, dev, s)
+		args = (x, g, lmax, mode)
+		if name == "full_analysis": args += (sht_cuda.dead_stops(theta, lmax, lmax, s or 0, dev),)
+		kern = getattr(sht_cuda, name)
+		line, ref = [], None
+		for label, d in builds.items():
+			with use_library(d):
+				out = kern(*args)
+				torch.cuda.synchronize()
+				ms, how = kernel_ms(lambda: kern(*args), 20, "bulk_analysis_kernel")
+			ref = out if ref is None else ref
+			diff = relerr(out, ref)
+			line.append("%s %.4f ms (%s), %.1e apart" % (label, ms, how, diff))
+			if not diff <= 1e-6:
+				raise RuntimeError("variant %s of %s %s computes another function" % (label, name, mode))
+		print("variant %s %s lmax %d, nt %d: %s" % (name, mode, lmax, len(theta), "; ".join(line)))
+
+
 PHASES = ("k9", "kernels", "lstop", "slice", "blocked", "timing")
+EXTRA_PHASES = ("variants",)   # run only when named
 
 
 def main():
 	ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 	ap.add_argument("--phases", default=",".join(PHASES),
-		help="comma-separated choice of %s (default: all)" % ", ".join(PHASES))
+		help="comma-separated choice of %s (default: all but %s)" % (", ".join(PHASES + EXTRA_PHASES),
+		", ".join(EXTRA_PHASES)))
 	phases = ap.parse_args().phases.split(",")
-	if not set(phases) <= set(PHASES): ap.error("unknown phase in %s" % phases)
+	if not set(phases) <= set(PHASES + EXTRA_PHASES): ap.error("unknown phase in %s" % phases)
 	if not torch.cuda.is_available():
 		print("chip_smoke: no CUDA device", file=sys.stderr)
 		return 2
@@ -1257,7 +1560,7 @@ def main():
 	sht_cuda.library()
 	print("kernel build + load: %.1f s" % (time.perf_counter() - h0))
 	print_build_summary((_build.build_dir()/"build.log").read_text())
-	records, kernel_records, launches, blk_records = [], {}, {}, {}
+	records, kernel_records, launches, blk_records, lstop_records = [], {}, {}, {}, {}
 	if "k9" in phases:
 		records = fma_phase()
 		print("phase K9 done at %.1f s" % (time.perf_counter() - t_start))
@@ -1265,7 +1568,7 @@ def main():
 		kernel_records = kernel_phase()
 		print("phase kernels done at %.1f s" % (time.perf_counter() - t_start))
 	if "lstop" in phases:
-		lstop_phase()
+		lstop_records = lstop_phase()
 		print("phase lstop done at %.1f s" % (time.perf_counter() - t_start))
 	if "slice" in phases:
 		launches = slice_phase()
@@ -1288,6 +1591,9 @@ def main():
 		profile_roundtrips(750, (900, 1800), 1, spin=w)
 		profile_roundtrips(2000, (2160, 4320), 1, spin=w)
 		print("phase timing done at %.1f s" % (time.perf_counter() - t_start))
+	if "variants" in phases:
+		variants_phase()
+		print("phase variants done at %.1f s" % (time.perf_counter() - t_start))
 	if set(phases) != set(PHASES):
 		print("chip_smoke: phases %s only: no verdict" % phases)
 		return 1
@@ -1296,9 +1602,13 @@ def main():
 		# mode: 0 for K3's and K4's float64 records, whose launches polar_synthesis and
 		# polar_analysis took over
 		rec["launches"] = launches[mode].get((name, dt), 0)
+	for mode, rec in lstop_records.items():
+		# K4's bulk at the lmax-2000 chunk: its launches in that roundtrip
+		rec["launches"] = launches["%s lmax 2000" % mode][("full_bulk_analysis", "float32")]
 	for rec in records:   # K9: summed over every driven path
 		rec["launches"] = sum(c["fma_peak"] for c in launches.values())
-	records = list(kernel_records.values()) + list(blk_records.values()) + records
+	records = list(kernel_records.values()) + list(lstop_records.values()) \
+		+ list(blk_records.values()) + records
 	print(card_line())
 	print(json.dumps({"kernels": records}))
 	print(json.dumps({"ok": True, "device": {"platform": "gpu",

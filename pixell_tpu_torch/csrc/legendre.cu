@@ -10,6 +10,11 @@
 //   K4 full_analysis   replaces _analysis_scan_pallas_full
 //                      (pixell_tpu/ops/sht_pallas.py:1954, pallas_call :2089)
 //
+// the float32 bulk of K2 and K4 redesigned for this card, which every
+// float32 launch of K2 and K4 runs (analysis_kernel keeps float64):
+//
+//   bulk_analysis    K2's and K4's (design before bulk_analysis_kernel)
+//
 // and two float64 near-pole passes redesigned for this card, which the
 // float32 dispatch launches for the near-pole rings of every transform in
 // place of the float64 instantiations of K3 and K4:
@@ -112,6 +117,8 @@
 // synchronize, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #ifndef LEGENDRE_MODE
 #define LEGENDRE_MODE 0
@@ -554,6 +561,331 @@ analysis_kernel(const T* __restrict__ F, const T* __restrict__ ab,
     }
     if constexpr (!SYM && MODE != WIGNER) {
       if (state != nullptr && valid) dump_state(state, mt, plane, rc.s[0]);
+    }
+  }
+}
+
+// K2 / K4's float32 bulk, redesigned for Hopper (bulk_analysis_kernel): the
+// function of analysis_kernel<float, C, SYM> on the same arguments, which
+// every float32 launch of K2 and K4 now takes (analysis_kernel stays for
+// float64). analysis_kernel reduced u_f F over a warp's rings at every
+// degree and column: 5 shuffle rounds (a quarter of the FP32 rate) and a
+// shared-memory write, ~50 FMA slots per (l, m, theta) triple in scalar
+// mode and ~100 in spin2, where the recurrence takes 7. Here:
+//   - a thread carries R rings of one m row (R = 2: a warp is one m row of
+//     a 64-ring tile; R = 4, the full scalar form: a half-warp is), R
+//     independent recurrences whose products it sums itself;
+//   - it keeps the sums of a group of BG = 8 degrees, the renormalization
+//     period, in registers, and the row's lanes meet once per group in a
+//     reduce-scatter butterfly: each round halves the values a lane holds
+//     (8 C values: 4 C + 2 C + ... shuffles), so that each lane is left with
+//     whole sums of its own (degree, column) entries, which it adds into the
+//     partial plane itself: ~1 shuffle per degree and column where
+//     analysis_kernel took 5, and no shared-memory staging of the sums and
+//     no second barrier per chunk;
+//   - a block is one tile of the stop table (MY m rows x TX rings), so the
+//     stop degree stays uniform over it; the coefficients of a chunk of BLC
+//     degrees are staged in shared memory, double-buffered, each thread
+//     loading its share of the next chunk into registers before the current
+//     chunk's work, with one barrier per chunk;
+//   - degree groups start at multiples of 8 below the block's first seed,
+//     so a group never straddles a renormalization or a handoff stop (both
+//     multiples of 8); a group cut by the stop runs its degrees under a
+//     uniform test, so each ring's loop and dumped state end at the stop;
+//   - on the half-sky form the even/odd planes are swapped once per tile on
+//     odd m rows, so a degree's plane follows from its place in the group
+//     at compile time;
+//   - the seed test and the level's scale factor leave the steps: all
+//     seeds of a block fall in its first group, and the factor changes only
+//     there and at a renormalization, the group's last step;
+//   - STOPS and DUMP are template parameters: launches without a stop table
+//     or a state handoff carry neither in registers.
+// The partial planes stay: one block per stop tile gives ~nm nt / 256
+// blocks, where a block owning every ring tile of its m rows would give
+// nm / MY (188 at lmax 750), too few warps to hide the recurrence's latency.
+constexpr int BLC = 32;  // degrees staged per chunk
+constexpr int BG = 8;    // degrees reduced together: the renormalization period
+// Rings per thread: four in the full scalar form (four rings halve the
+// butterfly per triple; measured faster on the lmax-2000 chunks of K4, many
+// waves of blocks deep), else two (measured faster in every other form and
+// mode at the main path's shapes). Measured by chip_smoke.py --phases
+// variants, which builds both; the numbers are in PERF.md section 6.
+template <bool SYM> constexpr int bulk_rings() { return MODE == SCALAR && !SYM ? 4 : 2; }
+
+// The factor that unscales a state at level lev (step()'s fac).
+__device__ __forceinline__ float level_factor(int lev) {
+  return lev == 0 ? 1.f : (lev == -1 ? Scale<float>::invband() : 0.f);
+}
+
+// step() for the bulk kernel: the level's factor fac is kept by the caller,
+// since it changes only at the seed and at a renormalization; without SEED
+// the step has no seed test (the degrees past every seed of the block).
+template <bool SEED>
+__device__ __forceinline__ float bulk_step(State<float>& s, float& fac, int l, int lseed,
+                                           float a, float b, float x, float xlo, float cadd,
+                                           float seedv, int seedl, float& lam1) {
+  float t = x * s.curr + xlo * s.curr;
+  if constexpr (MODE == WIGNER) t += cadd * s.curr;
+  float nw = a * (t - b * s.prev);
+  float cz = s.curr;
+  if (SEED && l == lseed) {  // seed; the stale previous value has another scale
+    nw = seedv;
+    s.lev = seedl;
+    cz = 0.f;
+    fac = level_factor(seedl);
+  }
+  s.prev = cz;
+  s.curr = nw;
+  lam1 = cz * fac;
+  return nw * fac;
+}
+
+// advance() for the bulk kernel, with each branch's level factor fac[br].
+template <bool SEED>
+__device__ __forceinline__ void bulk_advance(float (&u)[NFUN], Recur<float>& rc,
+                                             float (&fac)[NBR], int l, int m, float a, float b,
+                                             float e, float nrm, float hp, const Ring<float>& r,
+                                             float xlo, float sgs) {
+  float lam1;
+  if constexpr (MODE == WIGNER) {
+    const float lp = bulk_step<SEED>(rc.s[0], fac[0], l, rc.lseed, a, b, r.ct, xlo, e,
+                                     rc.seedv[0], rc.seedl[0], lam1);
+    const float lm = sgs * bulk_step<SEED>(rc.s[NBR - 1], fac[NBR - 1], l, rc.lseed, a, b, r.ct,
+                                           xlo, -e, rc.seedv[NBR - 1], rc.seedl[NBR - 1], lam1);
+    u[0] = 0.5f * (lp + lm);
+    u[NFUN - 1] = 0.5f * (lp - lm);
+  } else {
+    const float lam = bulk_step<SEED>(rc.s[0], fac[0], l, rc.lseed, a, b, r.ct, xlo, 0.f,
+                                      rc.seedv[0], rc.seedl[0], lam1);
+    mode_funcs(u, lam, lam1, l, m, e, nrm, hp, r);
+  }
+}
+
+struct BulkStage {
+  float a[2][MY][BLC], b[2][MY][BLC], e[2][MY][BLC];  // e: the wigner mode's c
+  float nrm[2][BLC], hp[2][BLC];
+};
+// the coefficients a mode stages per chunk: a, b (e: all but scalar), and
+// the degree norms in the Legendre spin modes
+constexpr int BULK_NQ = MODE == SCALAR ? 2 : 3;
+constexpr bool BULK_NORMS = MODE != SCALAR && MODE != WIGNER;
+constexpr int BULK_NV = BULK_NQ * MY * BLC + (BULK_NORMS ? 2 * BLC : 0);
+
+// Value k of the chunk starting at degree l0 for the block's m rows from m0:
+// a, b, e [q][row][i] then nrm, hp [i]; zero from nl on and for rows >= nm.
+__device__ __forceinline__ float bulk_coef(const float* __restrict__ ab,
+                                           const float* __restrict__ lt, int l0, int m0,
+                                           int nl, int nm, int k) {
+  constexpr int QS = MY * BLC;
+  if (k < BULK_NQ * QS) {
+    const int q = k / QS, row = (k % QS) / BLC, l = l0 + k % BLC, mm = m0 + row;
+    return l < nl && mm < nm ? ab[((size_t)q * nl + l) * nm + mm] : 0.f;
+  }
+  k -= BULK_NQ * QS;
+  const int l = l0 + k % BLC;
+  return l < nl ? lt[(k / BLC) * nl + l] : 0.f;
+}
+
+__device__ __forceinline__ void bulk_store(BulkStage& sm, int buf, int k, float v) {
+  constexpr int QS = MY * BLC;
+  if (k < BULK_NQ * QS) {
+    const int q = k / QS, row = (k % QS) / BLC, i = k % BLC;
+    (q == 0 ? sm.a : q == 1 ? sm.b : sm.e)[buf][row][i] = v;
+    return;
+  }
+  k -= BULK_NQ * QS;
+  (k < BLC ? sm.nrm : sm.hp)[buf][k % BLC] = v;
+}
+
+// Reduce-scatter over the lanes xor O, O/2, .., 1 of N values w[0..N): each
+// round with N > 1 keeps the half of the values that the lane's bit O
+// selects and adds the partner's copy of it; with one value left, the
+// rounds are a plain butterfly. The lane is left with N / (2 O) values (at
+// least one), whole sums over the lanes, in w[0..).
+template <int N, int O, int NW>
+__device__ __forceinline__ void reduce_scatter(float (&w)[NW], int lane) {
+  if constexpr (O > 0) {
+    if constexpr (N > 1) {
+      const bool up = (lane & O) != 0;
+#pragma unroll
+      for (int j = 0; j < N / 2; ++j) {
+        const float send = up ? w[j] : w[j + N / 2];
+        const float keep = up ? w[j + N / 2] : w[j];
+        w[j] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      reduce_scatter<N / 2, O / 2>(w, lane);
+    } else {
+      w[0] += __shfl_xor_sync(0xffffffffu, w[0], O);
+      reduce_scatter<1, O / 2>(w, lane);
+    }
+  }
+}
+
+// part[g, l, m, c] += sum over the rings t of the tiles of plane g of
+// sum_f u_f(l, m, theta_t) F[f, c, m, t]: analysis_kernel's arguments and
+// layouts (float only); lstop is read when STOPS, state written when DUMP.
+// No minimum of blocks an SM in the launch bounds: capped at 128 registers
+// (four blocks) the C = 4 forms of the spin modes spill up to 320 bytes.
+template <int C, bool SYM, int R, bool STOPS, bool DUMP>
+__global__ void __launch_bounds__(MY * TX / R)
+bulk_analysis_kernel(const float* __restrict__ F, const float* __restrict__ ab,
+                     const float* __restrict__ lt, const float* __restrict__ cth,
+                     const float* __restrict__ ctl, const float* __restrict__ rows,
+                     const float* __restrict__ sv, const int* __restrict__ sl,
+                     float* __restrict__ part, int nl, int nm, int nt, int ntiles,
+                     int spin, const int* __restrict__ lstop, float* __restrict__ state) {
+  constexpr int LPR = TX / R;           // lanes of an m row
+  constexpr int THREADS = MY * LPR;
+  constexpr int KST = (BULK_NV + THREADS - 1) / THREADS;  // staged values per thread
+  static_assert(BLC % BG == 0, "a chunk holds whole groups");
+  constexpr int NV = BG * C;            // sums of a group
+  constexpr int PER = NV >= LPR ? NV / LPR : 1;   // entries a lane is left with
+  constexpr int DUP = NV >= LPR ? 1 : LPR / NV;   // lanes left with the same entry
+  static_assert(LPR == 32 || LPR == 16, "a row is a warp or a half-warp");
+  __shared__ BulkStage sm;
+  const int tid = threadIdx.x, row = tid / LPR, rl = tid % LPR;
+  const int m0 = blockIdx.y * MY, m = m0 + row;
+  const size_t plane = (size_t)nm * nt;
+  const float sgs = (spin & 1) ? -1.f : 1.f;
+  const int lbeg = MODE == WIGNER ? max(m0, spin) : m0;
+  const int l8 = lbeg & ~7;  // groups start at multiples of 8
+  // the lane's entries of a group after the butterfly: base .. base + PER - 1
+  const bool writer = rl % DUP == 0;
+  const int base = rl / DUP * PER;
+  float* __restrict__ dst = part + (size_t)blockIdx.x * nl * nm * C;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int lend = STOPS ? stop_degree(lstop, blockIdx.y, tile, ntiles, nl) : nl;
+    if (lend <= l8) continue;  // a dead tile, uniform over the block
+    const int nch = (lend - l8 + BLC - 1) / BLC;
+    Ring<float> ring[R];
+    float xlo[R];
+    Recur<float> rc[R];
+    float fac[R][NBR];  // each state's level factor: 1 at level 0
+    float fE[R][NFUN][C], fO[R][NFUN][C];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int t = tile * TX + rl + LPR * r;
+      const bool valid = t < nt && m < nm;
+      const size_t mt = (size_t)m * nt + t;
+      ring[r] = load_ring(cth, rows, t, nt, valid);
+      xlo[r] = valid ? ctl[t] : 0.f;
+      rc[r] = load_recur(sv, sl, mt, plane, m, spin, valid);
+#pragma unroll
+      for (int br = 0; br < NBR; ++br) fac[r][br] = 1.f;
+#pragma unroll
+      for (int f = 0; f < NFUN; ++f)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const size_t fc = (size_t)f * C + c;
+          if (SYM) {
+            const float ev = valid ? F[(2 * fc) * plane + mt] : 0.f;
+            const float od = valid ? F[(2 * fc + 1) * plane + mt] : 0.f;
+            // on odd m rows (l + m) is odd at even l: swap the planes, so
+            // that degree i of a group reads fO where i is odd
+            fE[r][f][c] = (m & 1) ? od : ev;
+            fO[r][f][c] = (m & 1) ? ev : od;
+          } else {
+            fE[r][f][c] = valid ? F[fc * plane + mt] : 0.f;
+          }
+        }
+    }
+    // the staging pipeline: chunk 0 into buffer 0, chunk 1 into registers
+    float kv[KST];
+#pragma unroll
+    for (int k = 0; k < KST; ++k) {
+      const int e = tid + k * THREADS;
+      if (e < BULK_NV) {
+        bulk_store(sm, 0, e, bulk_coef(ab, lt, l8, m0, nl, nm, e));
+        kv[k] = bulk_coef(ab, lt, l8 + BLC, m0, nl, nm, e);
+      }
+    }
+    __syncthreads();
+    for (int ch = 0; ch < nch; ++ch) {
+      const int buf = ch & 1, lc0 = l8 + ch * BLC;
+      // one group of BG degrees from degree gl0 (chunk index gi0); TAIL: the
+      // group the stop cuts, its degrees under a uniform test; SEED: the
+      // first group, which holds every seed of the block's rows (they lie
+      // within 3 degrees of lbeg, and the first group starts at most 7 below
+      // it; a group cut by a stop needs no other case)
+      auto group = [&](int gl0, int gi0, auto tail, auto seed) {
+        constexpr bool TAIL = decltype(tail)::value, SEED = decltype(seed)::value;
+        float w[NV];
+#pragma unroll
+        for (int j = 0; j < NV; ++j) w[j] = 0.f;
+#pragma unroll
+        for (int i = 0; i < BG; ++i) {
+          const int l = gl0 + i, li = gi0 + i;
+          if (TAIL && l >= lend) break;
+          const float a = sm.a[buf][row][li], b = sm.b[buf][row][li];
+          const float e = MODE != SCALAR ? sm.e[buf][row][li] : 0.f;
+          const float nrm = BULK_NORMS ? sm.nrm[buf][li] : 0.f;
+          const float hp = BULK_NORMS ? sm.hp[buf][li] : 0.f;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            float u[NFUN];
+            bulk_advance<SEED>(u, rc[r], fac[r], l, m, a, b, e, nrm, hp, ring[r], xlo[r], sgs);
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+              float tot = w[i * C + c];
+#pragma unroll
+              for (int f = 0; f < NFUN; ++f) {
+                // the even plane where PSIGN[f] (-1)^(l+m) = +1; l + m has
+                // the parity of i after the swap (SYM only)
+                const bool even = !SYM || ((psign(f) > 0) != (i & 1));
+                tot = fmaf(u[f], even ? fE[r][f][c] : fO[r][f][c], tot);
+              }
+              w[i * C + c] = tot;
+            }
+          }
+          if (!TAIL && i == BG - 1) {  // l = 7 mod 8: renormalize
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              rescale(rc[r]);
+#pragma unroll
+              for (int br = 0; br < NBR; ++br) fac[r][br] = level_factor(rc[r].s[br].lev);
+            }
+          }
+        }
+        reduce_scatter<NV, LPR / 2>(w, rl);
+        if (writer && m < nm) {
+#pragma unroll
+          for (int k = 0; k < PER; ++k) {
+            const int d = (base + k) / C, c = (base + k) % C, l = gl0 + d;
+            // the same thread owns the same (l, m, c) in every tile of the plane
+            if (l < lend) dst[((size_t)l * nm + m) * C + c] += w[k];
+          }
+        }
+      };
+      for (int g = 0; g < BLC / BG; ++g) {
+        const int gl0 = lc0 + g * BG;
+        if (gl0 >= lend) break;
+        // gl0 < l8 + BG, not the equivalent gl0 == l8: with the latter nvcc's
+        // code was measured slower on an H100 in deriv and spin2
+        // (chip_smoke.py --phases variants; PERF.md section 6)
+        if (gl0 + BG > lend)
+          group(gl0, g * BG, std::true_type{}, std::true_type{});
+        else if (gl0 < l8 + BG)
+          group(gl0, g * BG, std::false_type{}, std::true_type{});
+        else
+          group(gl0, g * BG, std::false_type{}, std::false_type{});
+      }
+      // the next chunk into the other buffer, the one after into registers
+#pragma unroll
+      for (int k = 0; k < KST; ++k) {
+        const int e = tid + k * THREADS;
+        if (e < BULK_NV) {
+          if (ch + 1 < nch) bulk_store(sm, buf ^ 1, e, kv[k]);
+          if (ch + 2 < nch) kv[k] = bulk_coef(ab, lt, l8 + (ch + 2) * BLC, m0, nl, nm, e);
+        }
+      }
+      __syncthreads();
+    }
+    if constexpr (DUMP && MODE != WIGNER) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int t = tile * TX + rl + LPR * r;
+        if (t < nt && m < nm) dump_state(state, (size_t)m * nt + t, plane, rc[r].s[0]);
+      }
     }
   }
 }
@@ -1137,6 +1469,42 @@ int launch_analysis(int C, const void* F, const void* ab, const void* lt,
   return (int)cudaGetLastError();
 }
 
+// The float32 bulk of K2 / K4 (bulk_analysis_kernel): analysis_kernel's
+// grid of partial planes, with the instantiation that carries a stop table
+// and a state only where the launch gives them.
+template <int C, bool SYM>
+int launch_bulk(const void* F, const void* ab, const void* lt, const void* cth,
+                const void* ctl, const void* rows, const void* sv, const void* sl, void* part,
+                int nl, int nm, int nt, int nplanes, int spin, const void* lstop, void* state,
+                cudaStream_t st) {
+  constexpr int R = bulk_rings<SYM>();
+  const int ntiles = (nt + TX - 1) / TX;
+  const dim3 block(MY * TX / R), grid(nplanes, (nm + MY - 1) / MY);
+  if (ntiles == 0 || grid.y == 0 || nl == 0) return 0;
+  if (nplanes < 1 || nplanes > ntiles) return (int)cudaErrorInvalidValue;
+  // a state is handed over only at stop degrees, and only by the full form
+  if (state != nullptr && (SYM || lstop == nullptr)) return (int)cudaErrorInvalidValue;
+  if (SYM && lstop != nullptr) return (int)cudaErrorInvalidValue;
+  const float* f = static_cast<const float*>(F);
+  float* p = static_cast<float*>(part);
+  const int* dd = static_cast<const int*>(lstop);
+  float* ss = static_cast<float*>(state);
+  if constexpr (SYM) {
+    bulk_analysis_kernel<C, true, R, false, false><<<grid, block, 0, st>>>(
+        f, KERNEL_ARGS(float), p, nl, nm, nt, ntiles, spin, nullptr, nullptr);
+  } else if (lstop == nullptr) {
+    bulk_analysis_kernel<C, false, R, false, false><<<grid, block, 0, st>>>(
+        f, KERNEL_ARGS(float), p, nl, nm, nt, ntiles, spin, nullptr, nullptr);
+  } else if (state == nullptr) {
+    bulk_analysis_kernel<C, false, R, true, false><<<grid, block, 0, st>>>(
+        f, KERNEL_ARGS(float), p, nl, nm, nt, ntiles, spin, dd, nullptr);
+  } else {
+    bulk_analysis_kernel<C, false, R, true, true><<<grid, block, 0, st>>>(
+        f, KERNEL_ARGS(float), p, nl, nm, nt, ntiles, spin, dd, ss);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <int C>
 int launch_polar(const void* F, const void* ab, const void* lt, const void* cth,
                  const void* rows, const void* sv, const void* sl, void* out, int ldo,
@@ -1214,12 +1582,36 @@ int launch_polar_synthesis(const void* A, const void* ab, const void* lt, const 
                                              spin, lstop, state, st);           \
   }
 
+// K2 / K4's float32 bulk (bulk_analysis_kernel): analysis_kernel's
+// arguments without f64; C is 2 or 4; the half-sky form takes no stop
+// degrees or state, the full form a state only with stop degrees.
+#define BULK_ENTRY(NAME, SYM)                                                      \
+  extern "C" int PT_ENTRY(NAME)(int C, const void* F, const void* ab, const void* lt, \
+                                const void* cth, const void* ctl, const void* rows,   \
+                                const void* sv, const void* sl, void* part, int nl,   \
+                                int nm, int nt, int nplanes, int spin,                \
+                                const void* lstop, void* state, void* stream) {       \
+    cudaStream_t st = static_cast<cudaStream_t>(stream);                              \
+    switch (C) {                                                                      \
+      case 2:                                                                         \
+        return launch_bulk<2, SYM>(F, ab, lt, cth, ctl, rows, sv, sl, part, nl, nm, nt, \
+                                   nplanes, spin, lstop, state, st);                  \
+      case 4:                                                                         \
+        return launch_bulk<4, SYM>(F, ab, lt, cth, ctl, rows, sv, sl, part, nl, nm, nt, \
+                                   nplanes, spin, lstop, state, st);                  \
+      default:                                                                        \
+        return (int)cudaErrorInvalidValue;                                            \
+    }                                                                                 \
+  }
+
 #if LEGENDRE_MODE != 4  // the wigner mode has no half-sky kernels
 SYNTH_ENTRY(pt_sym_synthesis, true)
 ANAL_ENTRY(pt_sym_analysis, true)
+BULK_ENTRY(pt_sym_bulk_analysis, true)
 #endif
 SYNTH_ENTRY(pt_full_synthesis, false)
 ANAL_ENTRY(pt_full_analysis, false)
+BULK_ENTRY(pt_full_bulk_analysis, false)
 
 // K4's float64 near-pole pass (polar_analysis_kernel), every mode: C (2 or 4)
 // columns of F [NFUN, C, nm, nt], written at column stride ldo into out
@@ -1268,3 +1660,4 @@ extern "C" int PT_ENTRY(pt_polar_synthesis)(int C, const void* A, const void* ab
 // dead-tile table.
 extern "C" int PT_ENTRY(pt_tile_theta)() { return TX; }
 extern "C" int PT_ENTRY(pt_tile_m)() { return MY; }
+

@@ -26,15 +26,15 @@ VARIANTS = {"legendre.cu": [["-DLEGENDRE_MODE=%d" % k] for k in range(5)],
 	"blockleg.cu": [["-DLEGENDRE_MODE=%d" % k] for k in range(4)]}
 
 
-def _sources():
-	return sorted(CSRC.glob("*.cu"))
+def _sources(csrc=CSRC):
+	return sorted(csrc.glob("*.cu"))
 
 
-def build_dir():
-	"""The build directory for the current sources and flags."""
+def build_dir(csrc=CSRC):
+	"""The build directory for the sources in csrc and the flags."""
 	h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
 	h.update(repr(sorted(VARIANTS.items())).encode())
-	for p in sorted(CSRC.iterdir()):
+	for p in sorted(csrc.iterdir()):
 		h.update(p.name.encode()); h.update(p.read_bytes())
 	return BUILD_ROOT / h.hexdigest()[:16]
 
@@ -45,26 +45,27 @@ def _nvcc():
 	raise RuntimeError("nvcc not found: the pixell_tpu_torch CUDA kernels cannot be built")
 
 
-def compile_commands(d, nvcc):
+def compile_commands(d, nvcc, csrc=CSRC):
 	"""[(object path, nvcc command)] for every object of the library."""
 	out = []
-	for src in _sources():
+	for src in _sources(csrc):
 		for i, extra in enumerate(VARIANTS.get(src.name, [[]])):
 			obj = d/("%s.%d.o" % (src.stem, i))
 			out.append((obj, [nvcc] + NVCC_FLAGS + extra + ["-c", "-o", str(obj), str(src)]))
 	return out
 
 
-def load():
-	"""Build the kernel library if needed and return it as a ctypes.CDLL.
-	The compilers' output, including the per-kernel register and shared
-	memory use that -Xptxas -v reports, is kept in build.log beside it."""
-	d = build_dir()
+def load(csrc=CSRC):
+	"""Build the kernel library of the sources in csrc (by default the
+	package's) if needed and return it as a ctypes.CDLL. The compilers'
+	output, including the per-kernel register and shared memory use that
+	-Xptxas -v reports, is kept in build.log beside it."""
+	d = build_dir(csrc)
 	lib = d/"libpixell_kernels.so"
 	if not lib.exists():
 		d.mkdir(parents=True, exist_ok=True)
 		nvcc = _nvcc()
-		cmds = compile_commands(d, nvcc)
+		cmds = compile_commands(d, nvcc, csrc)
 		procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
 			text=True) for _, cmd in cmds]
 		logs, failed = [], []

@@ -17,6 +17,13 @@ reference's lstop): 0 for a dead block beyond the horizon of its rings
 modes any multiple of 8 at which the block ends early and hands its
 recurrence state over (dump_state, sht_pallas.py:1546).
 
+The float32 launches of K2 and K4 run bulk_analysis_kernel, their float32
+bulk redesigned for the card (several rings a thread, the degree sums
+reduced 8 degrees at a time by a reduce-scatter butterfly): the entry
+points sym_bulk_analysis and full_bulk_analysis, counted under those names.
+sym_analysis / full_analysis keep analysis_kernel for float64, and
+replaced_analysis reaches its float32 instantiation for timing only.
+
   polar_analysis  K4's float64 near-pole pass, redesigned for the card
                   (one block per m row, the ring sum in shared memory), in
                   every mode: the counterpart of the float64 analysis that
@@ -96,9 +103,11 @@ BLK_TILE_M, BLK_TILE_T = 4, 256   # m rows and rings of a block-kernel tile (csr
 BLK_SMIN = 0.5      # the split keeps to ring tiles with sin(theta) >= BLK_SMIN (blk_polar_tiles)
 
 LEGENDRE_KERNELS = ("sym_synthesis", "sym_analysis", "full_synthesis", "full_analysis")
+# the float32 bulk of K2 / K4, which every float32 sym_analysis / full_analysis launches
+BULK_KERNELS = {"sym_analysis": "sym_bulk_analysis", "full_analysis": "full_bulk_analysis"}
 BLK_KERNELS = ("blk_synthesis", "blk_analysis")
 POLAR_KERNELS = ("polar_analysis", "polar_synthesis")
-KERNELS = LEGENDRE_KERNELS + POLAR_KERNELS + BLK_KERNELS
+KERNELS = LEGENDRE_KERNELS + tuple(BULK_KERNELS.values()) + POLAR_KERNELS + BLK_KERNELS
 LAUNCHES = {name: 0 for name in KERNELS}
 LAUNCHES_BY_MODE = {(name, mode): 0 for name in KERNELS for mode in sht_core.MODES}
 LAUNCHES_BY_DTYPE = {k + (dt,): 0 for k in LAUNCHES_BY_MODE for dt in ("float32", "float64")}
@@ -385,9 +394,10 @@ def geom(theta, mmax, dtype, device, s=None):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 @functools.lru_cache(maxsize=None)
-def library():
-	"""The built kernel library, with argument types declared."""
-	lib = _build.load()
+def library(csrc=_build.CSRC):
+	"""The kernel library built from csrc (by default the package's
+	sources), with argument types declared."""
+	lib = _build.load(csrc)
 	P, I = ctypes.c_void_p, ctypes.c_int
 	for mode in sht_core.MODES:
 		for name in LEGENDRE_KERNELS:
@@ -396,6 +406,12 @@ def library():
 			# (f64, C), 9 pointers, (nl, nm, nt[, nplanes], s), the stop degrees,
 			# the state, the stream
 			fn.argtypes = [I, I] + [P]*9 + [I]*(4 if name.endswith("synthesis") else 5) + [P]*3
+			fn.restype = I
+		for name in BULK_KERNELS.values():
+			if mode == "wigner" and name.startswith("sym"): continue
+			fn = getattr(lib, "pt_%s_%s" % (name, mode))
+			# C, 9 pointers, (nl, nm, nt, nplanes, s), the stop degrees, the state, the stream
+			fn.argtypes = [I] + [P]*9 + [I]*5 + [P]*3
 			fn.restype = I
 		fn = getattr(lib, "pt_polar_analysis_%s" % mode)
 		# C, 8 pointers, (ldo, nl, nm, nt, s), the stream
@@ -443,6 +459,11 @@ def _check(x, g, shape, what):
 def _ptrs(g, ab, lt):
 	return [ab.data_ptr(), lt.data_ptr(), g.ct.data_ptr(), g.ct_lo.data_ptr(),
 		g.rows.data_ptr(), g.seed_val.data_ptr(), g.seed_level.data_ptr()]
+
+
+def _stream(x):
+	"""The current CUDA stream of x's device, as the entry points take it."""
+	return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _launch(name, mode, device, f64, *args):
@@ -497,7 +518,7 @@ def _new_state(g, dump_state, device):
 def _synthesis_launch(name, A, g, lmax, mode, out_shape_of, lstop=None, dump_state=False):
 	nl, nm, C = A.shape
 	ab, lt, s, stop_ptr = _mode_args(g, nl, mode, lstop, A.device, dump_state)
-	stream = torch.cuda.current_stream(A.device).cuda_stream
+	stream = _stream(A)
 	state, state_ptr = _new_state(g, dump_state, A.device)
 	outs = []
 	for c0, c1 in _col_chunks(C):
@@ -517,20 +538,28 @@ def _planes(ntiles):
 	return -(-ntiles//(-(-ntiles//MAX_PLANES)))
 
 
+# Set only inside replaced_analysis: float32 launches run analysis_kernel.
+_REPLACED = False
+
+
 def _analysis_launch(name, F, g, lmax, mode, lstop=None, dump_state=False):
+	"""K2 / K4 on the card: a float32 launch runs the bulk kernel
+	(BULK_KERNELS[name]), a float64 one analysis_kernel."""
 	C = F.shape[1]
 	nl, nm = lmax + 1, g.nm
 	ab, lt, s, stop_ptr = _mode_args(g, nl, mode, lstop, F.device, dump_state)
-	stream = torch.cuda.current_stream(F.device).cuda_stream
+	stream = _stream(F)
 	state, state_ptr = _new_state(g, dump_state, F.device)
 	nplanes = _planes(-(-g.nt//TILE_T))
+	f64 = g.dtype == torch.float64
+	# the entry point and its leading arguments: the bulk kernel takes no f64 flag
+	entry, lead = (name, (int(f64),)) if f64 or _REPLACED else (BULK_KERNELS[name], ())
 	outs = []
 	for c0, c1 in _col_chunks(C):
 		Fc = F[:, c0:c1].contiguous()
 		part = torch.zeros((nplanes, nl, nm, c1 - c0), dtype=g.dtype, device=F.device)
-		_launch(name, mode, F.device, g.dtype == torch.float64, int(g.dtype == torch.float64),
-			c1 - c0, Fc.data_ptr(), *_ptrs(g, ab, lt), part.data_ptr(), nl, nm, g.nt, nplanes, s,
-			stop_ptr, state_ptr if c0 == 0 else 0, stream)
+		_launch(entry, mode, F.device, f64, *lead, c1 - c0, Fc.data_ptr(), *_ptrs(g, ab, lt),
+			part.data_ptr(), nl, nm, g.nt, nplanes, s, stop_ptr, state_ptr if c0 == 0 else 0, stream)
 		outs.append(part.sum(0))
 	A = torch.cat(outs, -1)
 	return (A, state) if dump_state else A
@@ -650,6 +679,21 @@ def full_analysis(F, g, lmax, mode="scalar", lstop=None, dump_state=False):
 	return _analysis_launch("full_analysis", F, g, lmax, mode, lstop, dump_state)
 
 
+def replaced_analysis(name, F, g, *args, **kw):
+	"""sym_analysis or full_analysis (name) with its float32 launches on
+	the analysis_kernel that bulk_analysis_kernel replaced there; kept so
+	that chip_smoke.py can time the two side by side. No dispatch path
+	calls it."""
+	global _REPLACED
+	if g.dtype != torch.float32 or not _on_card(F):
+		raise ValueError("the replaced kernel took float32 launches on the card only")
+	_REPLACED = True
+	try:
+		return {"sym_analysis": sym_analysis, "full_analysis": full_analysis}[name](F, g, *args, **kw)
+	finally:
+		_REPLACED = False
+
+
 def _polar_check(x, g, shape, what):
 	"""The checks of a near-pole kernel's input x: float64 data and
 	geometry, the mode's shape, contiguous."""
@@ -672,7 +716,7 @@ def polar_analysis(F, g, lmax, mode="scalar"):
 	if not _on_card(F): return PLAIN["polar_analysis"](F, g, lmax, mode)
 	nl = lmax + 1
 	ab, lt, s, _ = _mode_args(g, nl, mode, None, F.device)
-	stream = torch.cuda.current_stream(F.device).cuda_stream
+	stream = _stream(F)
 	out = torch.empty((nl, g.nm, C), dtype=torch.float64, device=F.device)
 	for c0, c1 in _col_chunks(C):
 		Fc = F if c1 - c0 == C else F[:, c0:c1].contiguous()
@@ -697,7 +741,7 @@ def polar_synthesis(A, g, lmax, mode="scalar"):
 	if not _on_card(A): return PLAIN["polar_synthesis"](A, g, lmax, mode)
 	nl = lmax + 1
 	ab, lt, s, _ = _mode_args(g, nl, mode, None, A.device)
-	stream = torch.cuda.current_stream(A.device).cuda_stream
+	stream = _stream(A)
 	out = torch.empty((NFUN[mode], C, g.nm, g.nt), dtype=torch.float64, device=A.device)
 	esize = out.element_size()
 	for c0, c1 in _col_chunks(C):
@@ -742,7 +786,7 @@ def blk_synthesis(A, state, tab, g, lmax, mode="scalar"):
 	_check(A, g, (nl, g.nm, C), "blk_synthesis")
 	if not _on_card(A): return PLAIN["blk_synthesis"](A, state, tab, g, lmax, mode)
 	ptrs = _blk_args(A, state, tab, g, nl, mode, "blk_synthesis")
-	stream = torch.cuda.current_stream(A.device).cuda_stream
+	stream = _stream(A)
 	outs = []
 	for c0, c1 in _col_chunks(C):
 		Ac = A[..., c0:c1].contiguous()
@@ -763,7 +807,7 @@ def blk_analysis(F, state, tab, g, lmax, mode="scalar"):
 	_check(F, g, (NFUN[mode], C, g.nm, g.nt), "blk_analysis")
 	if not _on_card(F): return PLAIN["blk_analysis"](F, state, tab, g, lmax, mode)
 	ptrs = _blk_args(F, state, tab, g, nl, mode, "blk_analysis")
-	stream = torch.cuda.current_stream(F.device).cuda_stream
+	stream = _stream(F)
 	nplanes = _planes(-(-g.nt//BLK_TILE_T))
 	outs = []
 	for c0, c1 in _col_chunks(C):
