@@ -51,26 +51,26 @@ runs those alone, for work on one phase, and gives no verdict; the phase
    lmax-2000 roundtrips' near-pole shapes (the 2160-ring map's near-pole
    rings for synthesis, the upsampled map's for analysis; 128 m rows, or
    max(128, s + 1) in the wigner mode).
-   Every float32 launch of K2 and K4 runs bulk_analysis_kernel, their
-   float32 bulk redesigned (csrc/legendre.cu), held to the float32 rule
-   above in all five modes, also on a ragged shape of several ring tiles
-   and partial-sum planes (lmax 300, 203 m rows, 333 rings); at the
-   lmax-750 shapes its record carries the time of the float32
-   analysis_kernel it replaced ("replaced_ms", sht_cuda.replaced_analysis,
-   held to the same rule), which is listed too, as a comparison only.
-   lstop: K3 and K4 at the lmax-2000 float32 shapes (2001 m rows; the
-   map's 2160 rings for K3 in scalar and spin2 mode; for K4 the two chunks
-   of 2048 and 1906 upsampled bulk rings that the main path gives it, the
-   first in scalar, spin2 and wigner mode, the second in scalar and
-   wigner), launched with the dead-tile table and without: the table must
-   mark dead tiles, the two results differ by at most 1e-9 (scalar) or 1e-7
-   (spin2, wigner) of the largest value, and both times are printed; for
-   K4 both with bulk_analysis_kernel and with the analysis_kernel it
-   replaced. The bulk kernel with the table is held to the float32 rule
-   above against the float64 plain version, and the replaced kernel's
-   result must lie within the same bound of it. On the first chunk, K4's
-   bound and the torch.bmm yardstick, taken over m in chunks of 64 rows
-   (the whole mode table does not fit in memory) with the times summed.
+   Every float32 launch of K1-K4 runs their float32 bulk redesigned
+   (csrc/legendre.cu bulk_synthesis_kernel, bulk_analysis_kernel; the
+   float32 cases above), held to the float32 rule above in all five modes,
+   also on a ragged shape of several ring tiles and partial-sum planes
+   (lmax 300, 203 m rows, 333 rings, for the half-sky forms 333 northern
+   rings). K1 at the lmax-750 shape takes the dead-tile table as on the
+   main path, and its time without the table is printed beside.
+   lstop: the bulk kernels at the lmax-2000 float32 shapes (2001 m rows):
+   K1 on the map's 1080 northern rings (scalar, spin2), K3 on its 2160
+   rings (scalar, spin2, wigner), K4 on the two chunks of 2048 and 1906
+   upsampled bulk rings that the main path gives it (the first in scalar,
+   spin2 and wigner mode, the second in scalar and wigner), each launched
+   with the dead-tile table and without: the table must mark dead tiles,
+   the two results differ by at most 1e-9 (scalar) or 1e-7 (spin2, wigner)
+   of the largest value, and both times are printed. Each launch with the
+   table is held to the float32 rule above against the float64 plain
+   version. For the main path's launches (K1 scalar and spin2, K3 wigner,
+   K4 on the first chunk) the bound and the torch.bmm yardstick, taken
+   over m in chunks of 64 rows (the whole mode table does not fit in
+   memory) with the times summed.
 3. slice phase, through pixell_tpu_torch.curvedsky, each path driven with
    the launch counts set to 0 just before it and read just after:
    rand_alm -> alm2map -> map2alm -> alm2map on full-sky Fejer-1 maps
@@ -85,8 +85,8 @@ runs those alone, for work on one phase, and gives no verdict; the phase
      and dtype held against what the dispatch should give;
    every f32 path runs its near-pole rings through polar_synthesis (one
    launch per alm2map in its mode) and polar_analysis in float64, and K3
-   and K4 in float64 never; its K2/K4 launches run bulk_analysis_kernel,
-   never the float32 analysis_kernel;
+   and K4 in float64 never; its K1-K4 launches run the bulk kernels
+   (sht_cuda.BULK_KERNELS), never another float32 kernel;
    every band-limited map roundtrip within 1e-3; deriv=True alm2map and
    map2alm at lmax 750 in f32 against the same on the card in f64 (1e-3);
    the wigner mode at spin 2 against the spin2 mode on the card at lmax 750
@@ -119,13 +119,18 @@ runs those alone, for work on one phase, and gives no verdict; the phase
    spin-0, 10 IQU and 10 spin-[0, 3] at lmax 750; 5, 3 and 3 at lmax 2000)
    and a profiler breakdown of each: device time by kernel and the device's
    busy share of the wall time.
-6. variants (only with --phases variants): bulk_analysis_kernel's design
+6. variants (only with --phases variants): the bulk kernels' design
    choices measured. legendre.cu is copied under build/variants/ once per
-   edit of BULK_VARIANTS (two or four rings a thread everywhere, the first
-   group's test written gl0 == l8), each copy built (all started together)
-   and its bulk kernels' registers and spills printed; at the main path's
-   K2 and K4 shapes each build's result must lie within 1e-6 of the
-   committed build's, and its device time is printed beside that build's.
+   edit of BULK_VARIANTS (two or four rings a thread everywhere in
+   bulk_analysis_kernel, one or two in bulk_synthesis_kernel; the first group's
+   test written gl0 == l8; north and mirror sums in the half-sky
+   synthesis), each copy built (all started together) and its bulk
+   kernels' registers and spills printed; at the main path's K1-K4 shapes
+   each build's analysis result must lie within 1e-6 of the committed
+   build's and its synthesis result within the float32 rule above (on the
+   entries the main path keeps), and its device time is printed beside the
+   committed build's. Run it alone: late in a long process the profiler
+   drops device events, and the times fall back to CUDA events.
 
 It prints the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and yardstick, and as the last line
@@ -231,24 +236,26 @@ def kernel_device_ms(fn, n, name, tries=4):
 
 def kernel_ms(fn, n, name):
 	"""(kernel ms, how it was timed): the profiler's device time, or where
-	the profiler gives no usable trace, CUDA events around n calls, which
-	include the host's gaps between launches and so bound it from above."""
+	the profiler gives no usable trace, or a time above the CUDA events
+	around n calls (which include the host's gaps between launches and so
+	bound it from above), the time of those events."""
+	ev = cuda_ms(fn, n)
 	r = kernel_device_ms(fn, n, name)
-	if r is None: return cuda_ms(fn, n), "cuda events"
+	if r is None: return ev, "cuda events"
+	if r[0] > ev: return ev, "cuda events; the profiler's %.4f ms exceeded them" % r[0]
 	return r[0], "profiler, %d of %d launches traced" % (r[1], n)
 
 
-def kernel_pattern(name, dtype=torch.float32, replaced=False):
+def kernel_pattern(name, dtype=torch.float32):
 	"""The regular expression that picks the CUDA kernel the wrapper name
 	(sym_analysis, full_synthesis, ...) launches in dtype out of the
-	profiler's kernel names, mangled or not: the float32 analysis launches
-	run bulk_analysis_kernel, unless replaced (sht_cuda.replaced_analysis),
-	the others analysis_kernel or synthesis_kernel, not the polar_ or blk_
+	profiler's kernel names, mangled or not: the float32 launches run
+	bulk_analysis_kernel or bulk_synthesis_kernel, the float64 ones
+	analysis_kernel or synthesis_kernel, not the bulk_, polar_ or blk_
 	kernels of the same stem."""
-	from pixell_tpu_torch.ops import sht_cuda
-	if name in sht_cuda.BULK_KERNELS and dtype == torch.float32 and not replaced:
-		return "bulk_analysis_kernel"
-	return r"(?<![A-Za-z_])%s_kernel" % name.split("_")[1]
+	stem = name.split("_")[1]
+	if dtype == torch.float32: return "bulk_%s_kernel" % stem
+	return r"(?<![A-Za-z_])%s_kernel" % stem
 
 
 def bound(ops, nbytes, dtype):
@@ -275,16 +282,16 @@ def print_build_summary(log, only=None):
 			f = re.search(r"fma_peak_kernelI([fd])", m.group(1))
 			b = re.search(r"blk_(synthesis|analysis)_kernelILi(\d+)E", m.group(1))
 			p = re.search(r"polar_(analysis|synthesis)_kernelILi(\d+)E", m.group(1))
-			u = re.search(r"bulk_analysis_kernelILi(\d+)ELb([01])ELi(\d+)ELb([01])ELb([01])E",
+			u = re.search(r"bulk_(analysis|synthesis)_kernelILi(\d+)ELb([01])ELi(\d+)ELb([01])ELb([01])E",
 				m.group(1))
 			entry = ("%s<%s,C=%s,%s>" % (k.group(1), k.group(2), k.group(3),
 				"sym" if k.group(4) == "1" else "full")) if k else \
 				("fma_peak<%s>" % f.group(1) if f else
 				("blk_%s<C=%s>" % b.groups() if b else
 				("polar_%s<d,C=%s>" % p.groups() if p else
-				("bulk_analysis<C=%s,%s,R=%s%s%s>" % (u.group(1), "sym" if u.group(2) == "1" else
-				"full", u.group(3), ",stops" if u.group(4) == "1" else "",
-				",dump" if u.group(5) == "1" else "") if u else m.group(1)[:60]))))
+				("bulk_%s<C=%s,%s,R=%s%s%s>" % (u.group(1), u.group(2), "sym" if u.group(3) == "1" else
+				"full", u.group(4), ",stops" if u.group(5) == "1" else "",
+				",dump" if u.group(6) == "1" else "") if u else m.group(1)[:60]))))
 		m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
 		if m: spill = int(m.group(1)) + int(m.group(2))
 		m = re.search(r"Used (\d+) registers", line)
@@ -363,7 +370,8 @@ def kernel_cases(mode):
 	ragged = np.sort(rng.uniform(0.05, 3.1, 53))
 	rag_sym = sht.ring_theta("F1", 53)[:27]
 	# several ring tiles and partial-sum planes, nm not a multiple of the m
-	# tile, nt not of R x 32, every ring in the bulk (theta > POLAR_AMP/300)
+	# tile, nt not of R x 32, every ring in the bulk (theta > POLAR_AMP/300);
+	# for the half-sky forms 333 northern rings
 	tiles_full = np.sort(rng.uniform(0.25, np.pi - 0.25, 333))
 	tiles_sym = sht.ring_theta("F1", 900)[60:393]
 	pm = sht_cuda.POLAR_MMAX - 1
@@ -377,6 +385,7 @@ def kernel_cases(mode):
 			("full_analysis", "lmax750-polar", lmax, pm, pol_ana, f64),
 			("full_synthesis", "ragged", 37, 29, ragged, f32),
 			("full_analysis", "ragged", 37, 29, ragged, f32),
+			("full_synthesis", "ragged-tiles", 300, 202, tiles_full, f32),
 			("full_analysis", "ragged-tiles", 300, 202, tiles_full, f32),
 		]
 	return [
@@ -388,7 +397,9 @@ def kernel_cases(mode):
 		("sym_analysis", "ragged", 37, 29, rag_sym, f32),
 		("full_synthesis", "ragged", 37, 29, ragged, f32),
 		("full_analysis", "ragged", 37, 29, ragged, f32),
+		("sym_synthesis", "ragged-tiles", 300, 202, tiles_sym, f32),
 		("sym_analysis", "ragged-tiles", 300, 202, tiles_sym, f32),
+		("full_synthesis", "ragged-tiles", 300, 202, tiles_full, f32),
 		("full_analysis", "ragged-tiles", 300, 202, tiles_full, f32),
 	]
 
@@ -417,9 +428,10 @@ def kernel_input(name, mode, lmax, mmax, nt, seed):
 # operations per (l, m, theta) triple of the kernels' own arithmetic (an FMA
 # counts 2): the recurrence step and its unscaling, the mode functions
 # (with lambda_{l-1}'s unscaling), and per coefficient column the
-# accumulation: a multiply-add per function for synthesis (plus the
-# mirror's add in the half-sky kernel), a multiply-add per function and
-# one reduction add for analysis. The wigner mode steps a second branch
+# accumulation: a multiply-add per function for synthesis (the half-sky
+# kernel's mirror ring too: its even-l and odd-l sums meet once per (m,
+# ring), O(nm nt), not counted), a multiply-add per function and one
+# reduction add for analysis. The wigner mode steps a second branch
 # with the offset's multiply-add on both (7 + 2*2) and combines the two
 # into w and x (5). With dead-tile stops, only the triples of live
 # blocks count: the others are not computed.
@@ -436,7 +448,7 @@ def kernel_ops(name, mode, lmax, mmax, nt, C, dead=None):
 	first = np.maximum(np.arange(mmax + 1), mode_spin(mode) or 0)   # each row's seed degree
 	triples = int((rings*np.maximum(lmax + 1 - first, 0)).sum())
 	if name.endswith("synthesis"):
-		acc = C*nf*(3 if name.startswith("sym") else 2)
+		acc = 2*C*nf
 	else:
 		acc = C*(2*nf + 1)
 	return triples*(STEP_OPS + MODE_OPS[mode] + acc)
@@ -471,19 +483,28 @@ def mode_table(theta, mmax, lmax, mode, dtype, device):
 
 
 def library_call(name, mode, x, theta, mmax, lmax):
-	"""(fn, to_kernel_layout): one torch.bmm over m computing the kernel's
-	function from a precomputed mode-function table, and the map of its
-	result onto the kernel's output. Half-sky synthesis multiplies by
-	[A, (-1)^(l+m) A] for both hemispheres (the mirror plane's PSIGN[f] is
-	applied outside the call); half-sky analysis by the planes each
-	function reads at even and at odd l+m (the choice per (l, m) is made
-	outside). The table and operands are built outside the timing."""
+	"""(T, B, to_kernel_layout): torch.bmm(T, B), one batched product over m,
+	computes the kernel's function from a precomputed mode-function table T,
+	and the map of its result onto the kernel's output
+	(library_operand). Built outside the timing."""
+	T = mode_table(theta, mmax, lmax, mode, x.dtype, x.device)  # [nm, nf*nt, nl]
+	B, layout = library_operand(name, mode, x, len(theta))
+	return (T if name.endswith("synthesis") else T.transpose(1, 2)), B, layout
+
+
+def library_operand(name, mode, x, nt):
+	"""(B, to_kernel_layout): the operand of the library yardstick's product
+	over the m rows of the kernel input x, and the map of the product onto
+	the kernel's output. Half-sky synthesis multiplies by [A, (-1)^(l+m) A]
+	for both hemispheres (the mirror plane's PSIGN[f] is applied outside the
+	product); half-sky analysis by the planes each function reads at even
+	and at odd l+m (the choice per (l, m) is made outside)."""
 	from pixell_tpu_torch.ops import sht_cuda
 	from pixell_tpu_torch.ops.sht_core import NFUN
-	nf, nl, nm, nt = NFUN[mode], lmax + 1, mmax + 1, len(theta)
-	T = mode_table(theta, mmax, lmax, mode, x.dtype, x.device)  # [nm, nf*nt, nl]
+	nf = NFUN[mode]
 	psign = sht_cuda._psign(mode, x.dtype, x.device) if name.startswith("sym") else None
 	if name.endswith("synthesis"):
+		nl, nm = x.shape[:2]
 		C = x.shape[-1]
 		if name.startswith("sym"):
 			sgn = sht_cuda._parity(nl, nm, x.dtype, x.device)[..., None]
@@ -494,26 +515,28 @@ def library_call(name, mode, x, theta, mmax, lmax):
 		else:
 			B = x.permute(1, 0, 2).contiguous()                          # [nm, nl, C]
 			layout = lambda Y: Y.view(nm, nf, nt, C).permute(1, 3, 0, 2)  # [nf, C, nm, nt]
-		return (lambda: torch.bmm(T, B)), layout
-	C = x.shape[1]
+		return B, layout
+	C, nm = x.shape[1], x.shape[-2]
 	if name.startswith("sym"):
 		F = sht_cuda._even_odd(x, mode)                                  # [nf, 2C, nm, nt]
-		lodd = sht_cuda._parity(nl, nm, torch.int64, x.device)[..., None] < 0
-		layout = lambda Y: torch.where(lodd, Y.transpose(0, 1)[..., C:], Y.transpose(0, 1)[..., :C])
+		def layout(Y):
+			Y = Y.transpose(0, 1)                                          # [nl, nm, 2C]
+			lodd = sht_cuda._parity(Y.shape[0], nm, torch.int64, x.device)[..., None] < 0
+			return torch.where(lodd, Y[..., C:], Y[..., :C])
 	else:
 		F = x
 		layout = lambda Y: Y.transpose(0, 1)                             # [nl, nm, C]
 	B = F.permute(2, 0, 3, 1).reshape(nm, nf*nt, F.shape[1]).contiguous()
-	Tt = T.transpose(1, 2)                                              # [nm, nl, nf*nt]
-	return (lambda: torch.bmm(Tt, B)), layout
+	return B, layout
 
 
 def library_ms(name, mode, x, theta, mmax, lmax, ref):
 	"""(ms, rel err against ref) of the library yardstick; TF32 is off."""
-	fn, layout = library_call(name, mode, x, theta, mmax, lmax)
+	T, B, layout = library_call(name, mode, x, theta, mmax, lmax)
+	fn = lambda: torch.bmm(T, B)
 	err = relerr(layout(fn()), ref)
 	ms = cuda_ms(fn, 20)
-	del fn
+	del T, B
 	torch.cuda.empty_cache()
 	return ms, err
 
@@ -560,9 +583,10 @@ def kernel_phase():
 			g64 = sht_cuda.geom(theta, mmax, torch.float64, dev, s)
 			ref = plain(x, g64, lmax, mode)
 			torch.cuda.synchronize()
-			# the float32 bulk launches carry the dead-tile table, as on the main path
+			# the float32 launches of K1, K3 and K4 at the main path's shapes carry
+			# the dead-tile table, as on the main path
 			dead = None
-			if label.endswith("bulk"):
+			if main_dt == torch.float32 and label.startswith("lmax750") and name != "sym_analysis":
 				dead = sht_cuda.dead_stops(theta, lmax, mmax, s or 0, dev)
 				if dead is None:
 					raise RuntimeError("%s %s %s: no dead tile in the table" % (name, mode, label))
@@ -623,62 +647,30 @@ def kernel_phase():
 					% (name, mode))
 			tag = mode if mode != "wigner" else "wigner, %s" % (
 				"f32 bulk" if label.endswith("bulk") else "f64 near-pole")
-			bulk = name in sht_cuda.BULK_KERNELS and main_dt == torch.float32
-			kname = sht_cuda.BULK_KERNELS[name] if bulk else name
+			kname = sht_cuda.BULK_KERNELS[name] if main_dt == torch.float32 else name
 			rec = {"name": "%s[%s]" % (kname, tag), "route": "cuda", "source": LEGENDRE_SOURCE,
 				"replaces": REPLACES[name], "mode": mode,
 				"max_abs_err": float((k.double() - ref).abs().max()),
 				"ms": ms, "ms_from": how, "call_ms": cuda_ms(run, 20),
-				"plain_ms": cuda_ms(lambda: plain(*args), 2),
+				"plain_ms": timed_once(lambda: plain(*args))[1],
 				"bound_ms": b_ms, "bound_by": b_by,
 				"library_ms": lib_ms, "library_rel_err": lib_err,
-				"shape": "lmax %d, nm %d, nt %d, C %d, %s" % (lmax, mmax + 1, nt, C,
-					str(main_dt)[6:])}
-			print("time   %-14s %-6s %s: kernel %.4f ms (%s; wrapper call %.4f ms), plain %.2f ms, "
+				"shape": "lmax %d, nm %d, nt %d, C %d, %s%s" % (lmax, mmax + 1, nt, C,
+					str(main_dt)[6:], "" if dead is None else ", dead-tile table")}
+			if dead is not None:   # the same launch without the table
+				rec["ms_without_dead_table"] = kernel_ms(lambda: kern(*args[:4]), 20,
+					kernel_pattern(name, main_dt))[0]
+			print("time   %-14s %-6s %s: kernel %.4f ms (%s; wrapper call %.4f ms%s), plain %.2f ms, "
 				"bound %.4f ms (%s, %.1f %% of it reached), torch.bmm %.4f ms" % (name, mode,
-				rec["shape"], rec["ms"], how, rec["call_ms"], rec["plain_ms"], b_ms, b_by,
-				100*b_ms/rec["ms"], lib_ms))
+				rec["shape"], rec["ms"], how, rec["call_ms"], "" if dead is None else
+				"; without the table %.4f ms" % rec["ms_without_dead_table"], rec["plain_ms"], b_ms,
+				b_by, 100*b_ms/rec["ms"], lib_ms))
 			records[(kname, mode, str(main_dt)[6:])] = rec
-			if bulk:
-				records[(name, mode, "float32")] = replaced_record(name, mode, args, k, ref, rec)
 			if label == "lmax750-polar":
 				pname = "polar_" + name.split("_")[1]
 				records[(pname, mode, "float64")] = polar_record(pname, mode, args, k, ref, rec)
 		for pname in sht_cuda.POLAR_KERNELS: polar_shapes(pname, mode)
 	return records
-
-
-def replaced_record(name, mode, args, k_new, ref, new):
-	"""The float32 analysis_kernel that bulk_analysis_kernel replaced in the
-	launches of name (sht_cuda.replaced_analysis), on the input and geometry
-	of the bulk kernel's record new: held to the same rule against the
-	float64 plain version, timed in this run, and its time written into new
-	as replaced_ms. Returns its own record, a comparison only: no path
-	launches it."""
-	from pixell_tpu_torch.ops import sht_cuda
-	run = lambda: sht_cuda.replaced_analysis(name, *args)
-	k = run()
-	torch.cuda.synchronize()
-	p = sht_cuda.PLAIN[name](*args)
-	err, perr = relerr(k, ref), relerr(p, ref)
-	ok = bool(torch.isfinite(k).all()) and err <= 2*perr + 1e-6
-	print("kernel %-14s %-6s replaced float32 analysis_kernel: rel err %.3e (plain %.3e, "
-		"bound %.3e) %s" % (name, mode, err, perr, 2*perr + 1e-6, "ok" if ok else "FAIL"))
-	if not ok: raise RuntimeError("%s %s: the replaced kernel disagrees with its plain version"
-		% (name, mode))
-	ms, how = kernel_ms(run, 20, kernel_pattern(name, torch.float32, replaced=True))
-	old_name = "analysis_kernel<float,C,%s>" % ("true" if name.startswith("sym") else "false")
-	new.update(replaced_ms=ms, replaced_kernel=old_name, diff_to_replaced=relerr(k_new, k))
-	rec = dict(new, name=new["name"].replace(sht_cuda.BULK_KERNELS[name], name),
-		max_abs_err=float((k.double() - ref).abs().max()), ms=ms, ms_from=how,
-		call_ms=cuda_ms(run, 20), comparison_only=True, replaced_by=new["name"])
-	for key in ("replaced_ms", "replaced_kernel", "diff_to_replaced"): rec.pop(key)
-	print("time   %-14s %-6s %s: bulk_analysis_kernel %.4f ms, the float32 analysis_kernel it "
-		"replaced %.4f ms (%.2fx: %s), results %.3e apart; bound %.4f ms (%.1f %% / %.1f %% of it "
-		"reached)" % (name, mode, new["shape"], new["ms"], ms, ms/new["ms"],
-		"faster" if new["ms"] < ms else "NOT faster", new["diff_to_replaced"], new["bound_ms"],
-		100*new["bound_ms"]/new["ms"], 100*new["bound_ms"]/ms))
-	return rec
 
 
 def polar_check(pname, mode, label, kp, ref):
@@ -756,8 +748,8 @@ def polar_shapes(pname, mode):
 		polar_check(pname, mode, "lmax%d-nt%d-nm%d" % (lmax, len(theta), mmax + 1), kp, ref)
 
 
-def chunked_library_ms(mode, x, theta, lmax, mchunk=64):
-	"""(ms, rel err) of the library yardstick of K4 at a shape whose
+def chunked_library_ms(name, mode, x, theta, lmax, mchunk=64):
+	"""(ms, rel err) of the library yardstick of kernel name at a shape whose
 	mode-function table [nm, nfun*nt, nl] does not fit in memory whole:
 	torch.bmm over m in chunks of mchunk rows, the times of the chunks
 	summed. Each chunk multiplies a table of its own shape; the table is
@@ -765,20 +757,19 @@ def chunked_library_ms(mode, x, theta, lmax, mchunk=64):
 	against the float64 plain version on those rows. The values do not
 	change a dense product's time."""
 	from pixell_tpu_torch.ops import sht_cuda
-	from pixell_tpu_torch.ops.sht_core import NFUN
-	nf, nm, nt, C = NFUN[mode], x.shape[2], x.shape[3], x.shape[1]
-	T = mode_table(theta, mchunk - 1, lmax, mode, x.dtype, x.device).transpose(1, 2)
-	B = x.permute(2, 0, 3, 1).reshape(nm, nf*nt, C)
-	x64 = x[:, :, :mchunk].double().contiguous()
-	ref = sht_cuda.PLAIN["full_analysis"](x64, sht_cuda.geom(theta, mchunk - 1, torch.float64,
+	syn = name.endswith("synthesis")
+	head = lambda a: (a[:, :mchunk] if syn else a[..., :mchunk, :]).contiguous()
+	T, Bh, layout = library_call(name, mode, head(x), theta, mchunk - 1, lmax)
+	ref = sht_cuda.PLAIN[name](head(x).double(), sht_cuda.geom(theta, mchunk - 1, torch.float64,
 		x.device, mode_spin(mode)), lmax, mode)
-	err = relerr(torch.bmm(T, B[:mchunk].contiguous()).transpose(0, 1), ref)
+	err = relerr(layout(torch.bmm(T, Bh)), ref)
+	B, _ = library_operand(name, mode, x, len(theta))
 	ms = 0.0
-	for m0 in range(0, nm, mchunk):
+	for m0 in range(0, B.shape[0], mchunk):
 		Bc = B[m0:m0 + mchunk].contiguous()
 		Tc = T[:len(Bc)]
 		ms += cuda_ms(lambda: torch.bmm(Tc, Bc), 3)
-	del T, B
+	del T, Bh, B
 	torch.cuda.empty_cache()
 	return ms, err
 
@@ -796,12 +787,14 @@ def timed_once(fn):
 
 
 def lstop_phase():
-	"""K3/K4's dead-tile skip at the lmax-2000 float32 shapes: the same
-	launch with the table and without; for K4 both with bulk_analysis_kernel
-	and with the float32 analysis_kernel it replaced, and the bulk kernel
-	held against the float64 plain version on both chunks of the upsampled
-	bulk rings; on the first chunk its bound and the chunked torch.bmm
-	yardstick. Returns K4's records (first chunk) by mode."""
+	"""The dead-tile skip at the lmax-2000 float32 shapes, the same launch
+	with the table and without: K1 on the map's 1080 northern rings and K3
+	on its 2160 rings (scalar, spin2; K3 also wigner), K4 on the two chunks
+	of the upsampled bulk rings. Each is held against the float64 plain
+	version by the kernel phase's float32 rule. The main path's launches (K1
+	scalar and spin2, K3 wigner, K4 on the first chunk) get their bound and
+	the chunked torch.bmm yardstick. Returns their records, each with the
+	path whose launches it reports: {key: (record, path label, kernel)}."""
 	from pixell_tpu_torch import sht, fft
 	from pixell_tpu_torch.ops import sht_cuda
 	dev = torch.device("cuda")
@@ -809,97 +802,87 @@ def lstop_phase():
 	th_up = sht.ring_theta("F1", fft.fft_len(2*lmax + 3, direction="above"))
 	nn, ns = sht_cuda.polar_counts(th_up, lmax)
 	bulk = th_up[nn:len(th_up)-ns]
-	rings = {"map": sht.ring_theta("F1", 2160), "chunk 1": bulk[:sht_cuda.TCHUNK],
-		"chunk 2": bulk[sht_cuda.TCHUNK:]}
-	seeds = {"map": 40, "chunk 1": 41, "chunk 2": 42}
-	# (mode, bound on the skip's difference, [(kernel, ring set)]): the map's
-	# rings for K3, the two chunks K4's bulk takes on the main path
-	cases = (("scalar", 1e-9, (("full_synthesis", "map"), ("full_analysis", "chunk 1"),
-			("full_analysis", "chunk 2"))),
-		("spin2", 1e-7, (("full_synthesis", "map"), ("full_analysis", "chunk 1"))),
-		("wigner", 1e-7, (("full_analysis", "chunk 1"), ("full_analysis", "chunk 2"))))
+	th_map = sht.ring_theta("F1", 2160)
+	rings = {"map": th_map, "north": th_map[:sht_cuda.detect_sym(th_map)],
+		"chunk 1": bulk[:sht_cuda.TCHUNK], "chunk 2": bulk[sht_cuda.TCHUNK:]}
+	seeds = {"map": 40, "north": 43, "chunk 1": 41, "chunk 2": 42}
+	# (mode, bound on the skip's difference, [(kernel, ring set, path of the
+	# main path's launches or None)]): K1 on the map's northern rings, K3 on
+	# the map's rings, K4 on the two chunks its bulk takes on the main path
+	cases = (("scalar", 1e-9, (("sym_synthesis", "north", "scalar lmax 2000"),
+			("full_synthesis", "map", None), ("full_analysis", "chunk 1", "scalar lmax 2000"),
+			("full_analysis", "chunk 2", None))),
+		("spin2", 1e-7, (("sym_synthesis", "north", "spin2 lmax 2000"), ("full_synthesis", "map", None),
+			("full_analysis", "chunk 1", "spin2 lmax 2000"))),
+		("wigner", 1e-7, (("full_synthesis", "map", "wigner lmax 2000"),
+			("full_analysis", "chunk 1", "wigner lmax 2000"), ("full_analysis", "chunk 2", None))))
 	records = {}
 	for mode, tol, runs_of_mode in cases:
 		s = mode_spin(mode)
-		for name, where in runs_of_mode:
+		for name, where, path in runs_of_mode:
 			theta = rings[where]
 			kern, C, nt = getattr(sht_cuda, name), ncoef(mode), len(theta)
+			bname, pat = sht_cuda.BULK_KERNELS[name], kernel_pattern(name)
 			x = torch.from_numpy(kernel_input(name, mode, lmax, lmax, nt, seeds[where])).to(dev,
 				torch.float32)
 			g = sht_cuda.geom(theta, lmax, torch.float32, dev, s)
 			dead = sht_cuda.dead_stops(theta, lmax, lmax, s or 0, dev)
 			if dead is None:
 				raise RuntimeError("lstop %s %s: no dead tile at lmax %d" % (name, mode, lmax))
-			runs = [(kern, kernel_pattern(name), "")]
-			if name in sht_cuda.BULK_KERNELS:
-				runs.append((lambda *a, n=name: sht_cuda.replaced_analysis(n, *a),
-					kernel_pattern(name, replaced=True), " (replaced analysis_kernel)"))
 			b_skip, b_by = bound(kernel_ops(name, mode, lmax, lmax, nt, C, dead),
 				kernel_bytes(name, mode, lmax, lmax, nt, C, 4), torch.float32)
 			b_full, _ = bound(kernel_ops(name, mode, lmax, lmax, nt, C),
 				kernel_bytes(name, mode, lmax, lmax, nt, C, 4), torch.float32)
-			times, outs = [], []
-			for fn, pat, what in runs:
-				skip, full = fn(x, g, lmax, mode, dead), fn(x, g, lmax, mode, None)
-				torch.cuda.synchronize()
-				err = relerr(skip, full)
-				ms_skip, how_skip = kernel_ms(lambda: fn(x, g, lmax, mode, dead), 5, pat)
-				ms_full, how_full = kernel_ms(lambda: fn(x, g, lmax, mode, None), 5, pat)
-				ok = err <= tol and bool(torch.isfinite(skip).all())
-				print("lstop  %-14s %-6s%s lmax %d, nm %d, nt %d (%s), C %d, f32: %d of %d blocks "
-					"dead; with the table %.4f ms (%s; bound %.4f), without %.4f ms (%s; bound %.4f); "
-					"difference %.3e of the largest value (bound %.0e) %s" % (name, mode, what, lmax,
-					lmax + 1, nt, where, C, int((dead == 0).sum()), dead.numel(), ms_skip, how_skip,
-					b_skip, ms_full, how_full, b_full, err, tol, "ok" if ok else "FAIL"))
-				if not ok:
-					raise RuntimeError("lstop %s %s: the skipped tiles are not negligible" % (name, mode))
-				times.append((ms_skip, how_skip, ms_full))
-				outs.append(skip)
-			if name not in sht_cuda.BULK_KERNELS: continue
-			# the bulk kernel against the float64 plain version, by the kernel
-			# phase's float32 rule; the replaced kernel's results within the same bound
+			skip, full = kern(x, g, lmax, mode, dead), kern(x, g, lmax, mode, None)
+			torch.cuda.synchronize()
+			diff = relerr(skip, full)
+			ms, how = kernel_ms(lambda: kern(x, g, lmax, mode, dead), 5, pat)
+			ms_nodead, how_nodead = kernel_ms(lambda: kern(x, g, lmax, mode, None), 5, pat)
+			ok = diff <= tol and bool(torch.isfinite(skip).all())
+			print("lstop  %-14s %-6s lmax %d, nm %d, nt %d (%s), C %d, f32: %d of %d blocks dead; "
+				"with the table %.4f ms (%s; bound %.4f), without %.4f ms (%s; bound %.4f); "
+				"difference %.3e of the largest value (bound %.0e) %s" % (name, mode, lmax, lmax + 1,
+				nt, where, C, int((dead == 0).sum()), dead.numel(), ms, how, b_skip, ms_nodead,
+				how_nodead, b_full, diff, tol, "ok" if ok else "FAIL"))
+			if not ok:
+				raise RuntimeError("lstop %s %s: the skipped tiles are not negligible" % (name, mode))
+			# against the float64 plain version, by the kernel phase's float32 rule
 			ref = sht_cuda.PLAIN[name](x.double(), sht_cuda.geom(theta, lmax, torch.float64, dev, s),
 				lmax, mode, dead)
 			p, plain_ms = timed_once(lambda: sht_cuda.PLAIN[name](x, g, lmax, mode, dead))
-			err, perr, old_err = relerr(outs[0], ref), relerr(p, ref), relerr(outs[1], ref)
-			diff, rtol = relerr(outs[0], outs[1]), 2*relerr(p, ref) + 1e-6
-			ke = kept_err(name, outs[0], p, ref, f32_kept(theta, lmax, lmax, dev, s))
-			ok = err <= rtol and diff <= rtol and (ke is None or ke[0] <= 2*ke[1] + 1e-6)
-			print("kernel %-14s %-6s lmax %d, nm %d, nt %d (%s), f32, dead-tile table: "
-				"bulk_analysis_kernel rel err %.3e (plain %.3e, bound %.3e)%s; the replaced "
-				"analysis_kernel %.3e, %.3e from the bulk kernel's (bound %.3e) %s" % (name, mode,
-				lmax, lmax + 1, nt, where, err, perr, rtol, "" if ke is None else
-				"; kept entries %.3e (plain %.3e)" % ke, old_err, diff, rtol, "ok" if ok else "FAIL"))
+			err, perr = relerr(skip, ref), relerr(p, ref)
+			rtol = 2*perr + 1e-6
+			ke = kept_err(name, skip, p, ref, f32_kept(theta, lmax, lmax, dev, s))
+			ok = err <= rtol and (ke is None or ke[0] <= 2*ke[1] + 1e-6)
+			print("kernel %-14s %-6s lmax %d, nm %d, nt %d (%s), f32, dead-tile table: %s rel err "
+				"%.3e (plain %.3e, bound %.3e)%s %s" % (name, mode, lmax, lmax + 1, nt, where, pat, err,
+				perr, rtol, "" if ke is None else "; kept entries %.3e (plain %.3e)" % ke,
+				"ok" if ok else "FAIL"))
 			if not ok:
 				raise RuntimeError("%s %s at lmax %d (%s): the bulk kernel disagrees with the float64 "
-					"plain version or with the kernel it replaced" % (name, mode, lmax, where))
-			if where != "chunk 1": continue
-			(ms, how, ms_nodead), (old_ms, _, old_nodead) = times
-			lib_ms, lib_err = chunked_library_ms(mode, x, theta, lmax)
-			print("library %-14s %-6s lmax %d: torch.bmm over m in chunks of 64 rows %.4f ms, rel err "
-				"%.3e against the float64 plain version on the first chunk (bound 1e-4)" % (name, mode,
-				lmax, lib_ms, lib_err))
+					"plain version" % (name, mode, lmax, where))
+			if path is None: continue
+			lib_ms, lib_err = chunked_library_ms(name, mode, x, theta, lmax)
+			print("library %-14s %-6s lmax %d (%s): torch.bmm over m in chunks of 64 rows %.4f ms, "
+				"rel err %.3e against the float64 plain version on the first chunk (bound 1e-4)" % (
+				name, mode, lmax, where, lib_ms, lib_err))
 			if not lib_err <= 1e-4:
 				raise RuntimeError("%s %s: the chunked yardstick computes another function" % (name, mode))
-			bname = sht_cuda.BULK_KERNELS[name]
-			records[mode] = {"name": "%s[%s, lmax-2000 chunk]" % (bname, mode), "route": "cuda",
+			rec = {"name": "%s[%s, lmax-2000 %s]" % (bname, mode, where), "route": "cuda",
 				"source": LEGENDRE_SOURCE, "replaces": REPLACES[name], "mode": mode,
-				"max_abs_err": float((outs[0].double() - ref).abs().max()), "rel_err": err,
+				"max_abs_err": float((skip.double() - ref).abs().max()), "rel_err": err,
 				"plain_rel_err": perr, "ms": ms, "ms_from": how,
 				"call_ms": cuda_ms(lambda: kern(x, g, lmax, mode, dead), 5),
 				"ms_without_dead_table": ms_nodead, "plain_ms": plain_ms, "bound_ms": b_skip,
 				"bound_by": b_by, "library_ms": lib_ms,
 				"library_from": "torch.bmm over m in chunks of 64 rows, times summed",
-				"library_rel_err": lib_err, "replaced_ms": old_ms,
-				"replaced_ms_without_dead_table": old_nodead, "replaced_rel_err": old_err,
-				"diff_to_replaced": diff,
+				"library_rel_err": lib_err,
 				"shape": "lmax %d, nm %d, nt %d, C %d, float32, dead-tile table" % (lmax, lmax + 1,
 				nt, C)}
-			print("time   %-14s %-6s lmax-2000 chunk: bulk_analysis_kernel %.4f ms (%s; wrapper call "
-				"%.4f ms), replaced analysis_kernel %.4f ms (%.2fx: %s), bound %.4f ms (%.1f %% / "
-				"%.1f %% of it reached), plain %.2f ms, torch.bmm in chunks %.4f ms" % (name, mode, ms,
-				how, records[mode]["call_ms"], old_ms, old_ms/ms, "faster" if ms < old_ms else
-				"NOT faster", b_skip, 100*b_skip/ms, 100*b_skip/old_ms, plain_ms, lib_ms))
+			print("time   %-14s %-6s lmax-2000 %s: %s %.4f ms (%s; wrapper call %.4f ms), bound %.4f ms "
+				"(%.1f %% of it reached), plain %.2f ms, torch.bmm in chunks %.4f ms" % (name, mode,
+				where, bname, ms, how, rec["call_ms"], b_skip, 100*b_skip/ms, plain_ms, lib_ms))
+			records[(name, mode)] = (rec, path, bname)
 	return records
 
 
@@ -984,8 +967,8 @@ def drive(label, mode, fn, kernels, want=None, alm2maps=2):
 			"polar_analysis" % (label, k34_64))
 	old32 = {k: n for k, n in by_dtype.items() if k[0] in sht_cuda.BULK_KERNELS and k[2] == "float32"}
 	if old32:
-		raise RuntimeError("the %s path ran the float32 analysis_kernel (%s), not "
-			"bulk_analysis_kernel" % (label, old32))
+		raise RuntimeError("the %s path ran a float32 launch outside the bulk kernels (%s)"
+			% (label, old32))
 	if counts["polar_synthesis"] != alm2maps:
 		raise RuntimeError("the %s path launched polar_synthesis %d times in %s mode, not once for "
 			"each of its %d alm2map calls" % (label, counts["polar_synthesis"], mode, alm2maps))
@@ -1009,11 +992,11 @@ def wigner_launches(lmax, nt_map):
 	nt_up = fft.fft_len(2*lmax + 3, direction="above")
 	nn, ns = sht_cuda.polar_counts(sht.ring_theta("F1", nt_up), lmax)
 	chunks = -(-(nt_up - nn - ns)//sht_cuda.TCHUNK)
-	want = {("full_synthesis", "wigner", "float32"): 2, ("polar_synthesis", "wigner", "float64"): 2,
+	want = {("full_bulk_synthesis", "wigner", "float32"): 2, ("polar_synthesis", "wigner", "float64"): 2,
 		("full_bulk_analysis", "wigner", "float32"): chunks, ("polar_analysis", "wigner", "float64"): 1,
 		("polar_synthesis", "scalar", "float64"): 2, ("polar_analysis", "scalar", "float64"): 1}
-	if nt_map <= 2*sht_cuda.SYM_MAX_NH: want[("sym_synthesis", "scalar", "float32")] = 2
-	else: want[("full_synthesis", "scalar", "float32")] = 2
+	if nt_map <= 2*sht_cuda.SYM_MAX_NH: want[("sym_bulk_synthesis", "scalar", "float32")] = 2
+	else: want[("full_bulk_synthesis", "scalar", "float32")] = 2
 	if nt_up - nn - ns <= 2*sht_cuda.SYM_MAX_NH: want[("sym_bulk_analysis", "scalar", "float32")] = 1
 	else: want[("full_bulk_analysis", "scalar", "float32")] = chunks
 	return want
@@ -1044,7 +1027,7 @@ def slice_phase():
 	from pixell_tpu_torch.ops import sht_cuda
 	# at lmax 750 the float32 bulk takes K1/K2, the near-pole rings
 	# polar_synthesis and polar_analysis in float64
-	allk = ("sym_synthesis", "sym_bulk_analysis", "polar_synthesis", "polar_analysis")
+	allk = ("sym_bulk_synthesis", "sym_bulk_analysis", "polar_synthesis", "polar_analysis")
 	f32, f64 = torch.float32, torch.float64
 	launches = {}
 	counts, _ = drive("spin-0 lmax-750 f32 roundtrip", "scalar",
@@ -1054,7 +1037,7 @@ def slice_phase():
 	# more than 2*SYM_MAX_NH upsampled rings: the analysis runs K4, not K2
 	counts, _ = drive("spin-0 lmax-2000 f32 roundtrip", "scalar",
 		lambda: roundtrip(2000, (2160, 4320), f32, 5e-4),
-		("sym_synthesis", "polar_synthesis", "full_bulk_analysis", "polar_analysis"))
+		("sym_bulk_synthesis", "polar_synthesis", "full_bulk_analysis", "polar_analysis"))
 	launches["scalar lmax 2000"] = counts
 	counts, _ = drive("IQU lmax-750 f32 roundtrip", "spin2",
 		lambda: roundtrip(750, (900, 1800), f32, 5e-4, spin=(0, 2)), allk)
@@ -1062,7 +1045,7 @@ def slice_phase():
 	roundtrip(750, (900, 1800), f64, 1e-10, spin=(0, 2))
 	counts, _ = drive("IQU lmax-2000 f32 roundtrip", "spin2",
 		lambda: roundtrip(2000, (2160, 4320), f32, 2e-3, spin=(0, 2)),
-		("sym_synthesis", "polar_synthesis", "full_bulk_analysis", "polar_analysis"))
+		("sym_bulk_synthesis", "polar_synthesis", "full_bulk_analysis", "polar_analysis"))
 	launches["spin2 lmax 2000"] = counts
 	# K4's f32 bulk: the upsampled rings minus the near-pole ones, in
 	# TCHUNK chunks; one float64 near-pole launch of polar_analysis
@@ -1081,7 +1064,7 @@ def slice_phase():
 	counts, (d32, a32) = drive("deriv lmax-750 f32", "deriv",
 		lambda: deriv_pair(750, (900, 1800), f32), allk, alm2maps=1)
 	launches["deriv"] = counts
-	wk = ("full_synthesis", "full_bulk_analysis", "polar_synthesis", "polar_analysis")
+	wk = ("full_bulk_synthesis", "full_bulk_analysis", "polar_synthesis", "polar_analysis")
 	counts, _ = drive("spin-[0, 3] lmax-750 f32 roundtrip", "wigner",
 		lambda: roundtrip(750, (900, 1800), f32, 5e-4, spin=(0, WIGNER_SPIN)), wk,
 		wigner_launches(750, 900))
@@ -1444,26 +1427,33 @@ def profile_roundtrips(lmax, shape, nrep=3, spin=(0,)):
 # ---------------------------------------------------------------------------
 # 6. variants of bulk_analysis_kernel (only on request)
 # ---------------------------------------------------------------------------
-# Edits of csrc/legendre.cu, each undoing one choice of bulk_analysis_kernel:
-# its rings a thread (bulk_rings: four in the full scalar form, else two) and
-# the way its first-group test is written.
+# Edits of csrc/legendre.cu, each undoing one choice of bulk_analysis_kernel
+# (its rings a thread, bulk_rings: four in the full scalar form, else two),
+# of bulk_synthesis_kernel (its rings a thread, SYNTH_RINGS: two in scalar
+# mode, else one; the half-sky form's even-l and odd-l sums, against north
+# and mirror sums) or of both (the way their first-group test is written).
+# An edit applies wherever its text appears.
 BULK_VARIANTS = {
 	"R = 2": ("return MODE == SCALAR && !SYM ? 4 : 2;", "return 2;"),
 	"R = 4": ("return MODE == SCALAR && !SYM ? 4 : 2;", "return 4;"),
 	"gl0 == l8": ("else if (gl0 < l8 + BG)", "else if (gl0 == l8)"),
+	"synthesis R = 1": ("SYNTH_RINGS = MODE == SCALAR ? 2 : 1;", "SYNTH_RINGS = 1;"),
+	"synthesis R = 2": ("SYNTH_RINGS = MODE == SCALAR ? 2 : 1;", "SYNTH_RINGS = 2;"),
+	"north/mirror sums": ("constexpr bool SYNTH_EVEN_ODD = true;", "constexpr bool SYNTH_EVEN_ODD = false;"),
 }
 
 
 def variant_sources(label, old, new):
-	"""A copy of the kernel sources with old replaced by new in legendre.cu,
-	in a directory of its own under build/."""
+	"""A copy of the kernel sources with old replaced by new in legendre.cu
+	(every occurrence, at least one), in a directory of its own under
+	build/."""
 	from pixell_tpu_torch.ops import _build
 	d = _build.BUILD_ROOT.parent/"variants"/re.sub(r"\W+", "_", label).strip("_")
 	d.mkdir(parents=True, exist_ok=True)
 	for p in _build.CSRC.glob("*.cu"):
 		text = p.read_text()
 		if p.name == "legendre.cu":
-			if text.count(old) != 1: raise RuntimeError("variant %s: its edit does not apply" % label)
+			if old not in text: raise RuntimeError("variant %s: its edit does not apply" % label)
 			text = text.replace(old, new)
 		(d/p.name).write_text(text)
 	return d
@@ -1482,13 +1472,19 @@ class use_library:
 
 
 def variants_phase():
-	"""bulk_analysis_kernel's design choices, measured: the sources built
-	once per edit of BULK_VARIANTS (all builds started together), and each
-	build's bulk kernel run at the main path's shapes (K2 at lmax 750 in
-	the four Legendre modes; K4 in wigner mode at lmax 750 and on the first
-	lmax-2000 chunk in scalar and spin2, with the dead-tile table): its
-	result within 1e-6 of the largest value of the committed build's, and
-	its device time beside the committed build's."""
+	"""The bulk kernels' design choices, measured: the sources built once
+	per edit of BULK_VARIANTS (all builds started together), and each
+	build's bulk kernels run at the main path's shapes (K1 and K2 at lmax
+	750 in the four Legendre modes; K3 and K4 in wigner mode at lmax 750;
+	K1 on the lmax-2000 map's northern rings and K4 on the first lmax-2000
+	chunk in scalar and spin2; K1, K3 and K4 with the dead-tile table), its
+	device time beside the committed build's. An analysis result must lie
+	within 1e-6 of the largest value of the committed build's. A synthesis
+	result is held, on the entries the float32 main path keeps (f32_kept),
+	to the kernel phase's float32 rule against the float64 plain version:
+	the variants sum in other orders (north and mirror sums, not even and
+	odd ones), and in the spin modes the sums of one parity are larger
+	than their total, so their rounding moves it by more than 1e-6."""
 	from concurrent.futures import ThreadPoolExecutor
 	from pixell_tpu_torch import sht, fft
 	from pixell_tpu_torch.ops import sht_cuda, _build
@@ -1500,7 +1496,7 @@ def variants_phase():
 	print("variants: %d builds in %.1f s" % (len(builds), time.perf_counter() - h0))
 	for label, d in builds.items():
 		print("variant %s:" % label)
-		print_build_summary((_build.build_dir(d)/"build.log").read_text(), only="bulk_analysis")
+		print_build_summary((_build.build_dir(d)/"build.log").read_text(), only="bulk_")
 	builds = {"committed": _build.CSRC, **builds}
 	th = sht.ring_theta("F1", 1512)
 	nn, ns = sht_cuda.polar_counts(th, 750)
@@ -1508,28 +1504,38 @@ def variants_phase():
 	th = sht.ring_theta("F1", fft.fft_len(2*2000 + 3, direction="above"))
 	nn, ns = sht_cuda.polar_counts(th, 2000)
 	b2000 = th[nn:len(th)-ns][:sht_cuda.TCHUNK]
-	cases = [("sym_analysis", mode, 750, b750[:sht_cuda.detect_sym(b750)])
-		for mode in ("scalar", "deriv", "spin1", "spin2")] + [
-		("full_analysis", "wigner", 750, b750), ("full_analysis", "scalar", 2000, b2000),
-		("full_analysis", "spin2", 2000, b2000)]
+	m750, m2000 = sht.ring_theta("F1", 900), sht.ring_theta("F1", 2160)
+	legendre = ("scalar", "deriv", "spin1", "spin2")
+	cases = [("sym_synthesis", mode, 750, m750[:450]) for mode in legendre] + [
+		("sym_analysis", mode, 750, b750[:sht_cuda.detect_sym(b750)]) for mode in legendre] + [
+		("full_synthesis", "wigner", 750, m750), ("full_analysis", "wigner", 750, b750),
+		("sym_synthesis", "scalar", 2000, m2000[:1080]), ("full_analysis", "scalar", 2000, b2000),
+		("sym_synthesis", "spin2", 2000, m2000[:1080]), ("full_analysis", "spin2", 2000, b2000)]
 	for i, (name, mode, lmax, theta) in enumerate(cases):
 		s = mode_spin(mode)
 		x = torch.from_numpy(kernel_input(name, mode, lmax, lmax, len(theta), 70 + i)).to(dev,
 			torch.float32)
 		g = sht_cuda.geom(theta, lmax, torch.float32, dev, s)
 		args = (x, g, lmax, mode)
-		if name == "full_analysis": args += (sht_cuda.dead_stops(theta, lmax, lmax, s or 0, dev),)
+		if name != "sym_analysis": args += (sht_cuda.dead_stops(theta, lmax, lmax, s or 0, dev),)
 		kern = getattr(sht_cuda, name)
-		line, ref = [], None
+		syn = name.endswith("synthesis")
+		if syn:   # the float32 rule on the kept entries
+			kept = f32_kept(theta, lmax, lmax, dev, s)
+			ref64 = sht_cuda.PLAIN[name](x.double(), sht_cuda.geom(theta, lmax, torch.float64, dev, s),
+				*args[2:])[..., kept]
+			tol = 2*relerr(sht_cuda.PLAIN[name](*args)[..., kept], ref64) + 1e-6
+		line, first = [], None
 		for label, d in builds.items():
 			with use_library(d):
 				out = kern(*args)
 				torch.cuda.synchronize()
-				ms, how = kernel_ms(lambda: kern(*args), 20, "bulk_analysis_kernel")
-			ref = out if ref is None else ref
-			diff = relerr(out, ref)
+				ms, how = kernel_ms(lambda: kern(*args), 20, kernel_pattern(name))
+			first = out if first is None else first
+			diff = relerr(out, first)
+			ok = relerr(out[..., kept], ref64) <= tol if syn else diff <= 1e-6
 			line.append("%s %.4f ms (%s), %.1e apart" % (label, ms, how, diff))
-			if not diff <= 1e-6:
+			if not ok:
 				raise RuntimeError("variant %s of %s %s computes another function" % (label, name, mode))
 		print("variant %s %s lmax %d, nt %d: %s" % (name, mode, lmax, len(theta), "; ".join(line)))
 
@@ -1602,12 +1608,12 @@ def main():
 		# mode: 0 for K3's and K4's float64 records, whose launches polar_synthesis and
 		# polar_analysis took over
 		rec["launches"] = launches[mode].get((name, dt), 0)
-	for mode, rec in lstop_records.items():
-		# K4's bulk at the lmax-2000 chunk: its launches in that roundtrip
-		rec["launches"] = launches["%s lmax 2000" % mode][("full_bulk_analysis", "float32")]
+	for rec, path, bname in lstop_records.values():
+		# the lmax-2000 launches: their count in that roundtrip
+		rec["launches"] = launches[path].get((bname, "float32"), 0)
 	for rec in records:   # K9: summed over every driven path
 		rec["launches"] = sum(c["fma_peak"] for c in launches.values())
-	records = list(kernel_records.values()) + list(lstop_records.values()) \
+	records = list(kernel_records.values()) + [r[0] for r in lstop_records.values()] \
 		+ list(blk_records.values()) + records
 	print(card_line())
 	print(json.dumps({"kernels": records}))

@@ -10,10 +10,12 @@
 //   K4 full_analysis   replaces _analysis_scan_pallas_full
 //                      (pixell_tpu/ops/sht_pallas.py:1954, pallas_call :2089)
 //
-// the float32 bulk of K2 and K4 redesigned for this card, which every
-// float32 launch of K2 and K4 runs (analysis_kernel keeps float64):
+// The kernels K1-K4 of that list (synthesis_kernel, analysis_kernel) are
+// compiled for float64 only. Every float32 launch of K1-K4 runs their float32
+// bulk, redesigned for this card:
 //
 //   bulk_analysis    K2's and K4's (design before bulk_analysis_kernel)
+//   bulk_synthesis   K1's and K3's (design before bulk_synthesis_kernel)
 //
 // and two float64 near-pole passes redesigned for this card, which the
 // float32 dispatch launches for the near-pole rings of every transform in
@@ -47,9 +49,10 @@
 // like the other modes, by arithmetic: ~23 operations per (l, m, theta)
 // triple for the two steps and the combination, before the accumulation.
 //
-// Stop degrees (the reference's lstop): K3/K4 take a table [m blocks, ring
-// tiles] of the degree before which each block's l-loop ends; a null table
-// runs every block to the end. 0 marks a dead block (_dead_table
+// Stop degrees (the reference's lstop): K3/K4 and the float32 K1 take a
+// table [m blocks, ring tiles] of the degree before which each block's
+// l-loop ends (K1's from its northern rings); a null table runs every block
+// to the end. 0 marks a dead block (_dead_table
 // sht_pallas.py:677), one beyond the horizon of its rings,
 // m_lo - s > lmax max(sin theta) + slack, where every value is below ~1e-12:
 // a dead synthesis block writes zeros and runs no l-loop, analysis skips a
@@ -62,10 +65,10 @@
 // it; their stop degrees are multiples of 8, so the state is handed over
 // just renormalized.
 //
-// Each kernel is templated on float (S = 60) and double (S = 850). The double
-// instantiation of K3/K4 is the near-pole pass that the TPU ran in
-// double-single arithmetic; Hopper has native f64, and nvcc's default FMA
-// contraction would silently break Dekker double-single sums anyway.
+// The state scale is S = 60 in float32 and S = 850 in float64. The float64
+// K3/K4 is the near-pole pass that the TPU ran in double-single arithmetic;
+// Hopper has native f64, and nvcc's default FMA contraction would silently
+// break Dekker double-single sums anyway.
 //
 // Maths (the plain PyTorch twin is pixell_tpu_torch/ops/sht_core.py):
 // the normalized associated Legendre values lambda_lm(theta) obey
@@ -87,9 +90,9 @@
 // What bounds these kernels on an H100: FP32 (or FP64) arithmetic per
 // (l, m, theta) triple over a triangle of ~lmax^2/2 (l, m) pairs per ring:
 // ~7 operations for the recurrence step, 0 (scalar), ~8 (deriv), ~14
-// (spin1) or ~24 (spin2) for the mode functions, and 2-3 per function and
-// coefficient column for the accumulation (chip_smoke.py kernel_ops counts
-// them). Device-memory traffic is O(lmax^2 + nfun C nm nt) (the tables, the
+// (spin1) or ~24 (spin2) for the mode functions, and 2 per function and
+// coefficient column for the accumulation, plus one reduction add per
+// column in analysis (chip_smoke.py kernel_ops counts them). Device-memory traffic is O(lmax^2 + nfun C nm nt) (the tables, the
 // alm, the seeds, the output), far below it.
 // Design: one thread per (m, theta) keeps its recurrence state, its ring
 // rows and its accumulators in registers for the whole l-loop, which starts
@@ -430,8 +433,7 @@ synthesis_kernel(const T* __restrict__ A, const T* __restrict__ ab,
     for (int c = 0; c < C; ++c) accN[f][c] = accS[f][c] = T(0);
   // the state is zero below the block's first seed; a dead block runs no loop
   const int lbeg = MODE == WIGNER ? max(m0, spin) : m0;
-  // the half-sky kernel takes no stops
-  const int lend = SYM ? nl : stop_degree(lstop, blockIdx.y, blockIdx.x, gridDim.x, nl);
+  const int lend = stop_degree(lstop, blockIdx.y, blockIdx.x, gridDim.x, nl);
   for (int l0 = lbeg; l0 < lend; l0 += LC) {
     __syncthreads();
     stage<T, C>(ab, lt, A, sm, l0, m0, nl, nm, tid);
@@ -565,10 +567,10 @@ analysis_kernel(const T* __restrict__ F, const T* __restrict__ ab,
   }
 }
 
-// K2 / K4's float32 bulk, redesigned for Hopper (bulk_analysis_kernel): the
-// function of analysis_kernel<float, C, SYM> on the same arguments, which
-// every float32 launch of K2 and K4 now takes (analysis_kernel stays for
-// float64). analysis_kernel reduced u_f F over a warp's rings at every
+// K2 / K4's float32 bulk, redesigned for Hopper (bulk_analysis_kernel):
+// analysis_kernel's function on the same arguments, in float32, which every
+// float32 launch of K2 and K4 takes (analysis_kernel is built for float64
+// only). In float32 analysis_kernel reduced u_f F over a warp's rings at every
 // degree and column: 5 shuffle rounds (a quarter of the FP32 rate) and a
 // shared-memory write, ~50 FMA slots per (l, m, theta) triple in scalar
 // mode and ~100 in spin2, where the recurrence takes 7. Here:
@@ -887,6 +889,278 @@ bulk_analysis_kernel(const float* __restrict__ F, const float* __restrict__ ab,
         if (t < nt && m < nm) dump_state(state, (size_t)m * nt + t, plane, rc[r].s[0]);
       }
     }
+  }
+}
+
+// K1 / K3's float32 bulk, redesigned for Hopper (bulk_synthesis_kernel):
+// synthesis_kernel's function on the same arguments, in float32, which every
+// float32 launch of K1 and K3 (and K7's synthesis) takes (synthesis_kernel
+// is built for float64 only). In float32 synthesis_kernel ran one ring a
+// thread, ~25 instruction slots per (l, m, theta) triple in scalar
+// mode and ~65 in spin2 where the arithmetic needs ~10 and ~37: the seed
+// test and level select in every step, 3-5 shared-memory loads of the
+// coefficients and C of the alm per triple that no other ring shared, and
+// in the half-sky form a multiply, an add and a select-add per function and
+// column for the mirror ring. Here:
+//   - a thread carries R rings of one m row, whose independent recurrences
+//     hide each other's latency: two in scalar mode (a warp is one m row of
+//     a 64-ring tile), one in the spin modes, whose mode functions' registers
+//     would otherwise leave too few warps (half a row a warp);
+//   - the coefficients and A of a degree are staged per m row as one record
+//     (a, b, e, the norms, A[l, m, 0..C)), which the thread reads with 128-bit
+//     shared-memory loads: one a degree in scalar mode at C = 2, where
+//     separate loads took three, and each serves the thread's R rings;
+//   - degree groups of BG = 8 start at multiples of 8 below the block's
+//     first seed, so that the first group alone carries the seed test and
+//     the level's factor changes only there and at a renormalization, the
+//     group's last step (bulk_step, shared with bulk_analysis_kernel); a
+//     group cut by the stop runs its degrees under a uniform test;
+//   - in the half-sky form a degree's parity is known at compile time inside
+//     a group: one FMA into the even-l or the odd-l sum E, O per function and
+//     column, and once after the loop N = E + O and the mirror
+//     S = PSIGN[f] (-1)^m (E - O);
+//   - a block is one tile of the stop table (MY m rows x TX rings, the
+//     half-sky form too, from the dead-tile table of its northern rings):
+//     a dead tile writes zeros; the coefficients and A of a chunk of BLC
+//     degrees are staged in shared memory, double-buffered, each thread
+//     loading its share of the next chunk into registers before the current
+//     chunk's work, with one barrier per chunk;
+//   - STOPS and DUMP are template parameters: launches without a stop table
+//     or a state handoff carry neither; with DUMP each ring's state is
+//     written where its own loop ended, by the same arithmetic as without,
+//     so the blocked split stays bit-identical below its handoffs.
+// Rings per thread: two in scalar mode, else one (chip_smoke.py --phases
+// variants builds one and two everywhere; PERF.md section 6).
+constexpr int SYNTH_RINGS = MODE == SCALAR ? 2 : 1;
+// even/odd sums in the half-sky form, not north and mirror sums (measured by
+// chip_smoke.py --phases variants)
+constexpr bool SYNTH_EVEN_ODD = true;
+// The record a thread reads per degree, staged per (m row, degree) of a
+// chunk: the coefficients a, b (e: e_lm, the wigner mode's c), the degree
+// norms nrm, hp (the Legendre spin modes), then A[l, m, 0..C), padded to
+// whole float4s, so that a degree takes W / 4 128-bit shared-memory loads.
+template <int C> struct SynthRec {
+  static constexpr int NC = BULK_NQ + (BULK_NORMS ? 2 : 0);  // coefficients
+  static constexpr int W = (NC + C + 3) / 4 * 4;              // floats
+};
+
+template <int C> struct SynthStage {
+  alignas(16) float rec[2][MY][BLC][SynthRec<C>::W];
+};
+
+// Value k of the chunk starting at degree l0 for the block's m rows from m0:
+// a, b, e [q][i][row] (row fastest, so that neighbouring threads read
+// neighbouring addresses), then nrm, hp [i], then A [i][row][c]; zero from
+// nl on and for rows >= nm.
+template <int C>
+__device__ __forceinline__ float synth_coef(const float* __restrict__ ab,
+                                            const float* __restrict__ lt,
+                                            const float* __restrict__ A, int l0, int m0, int nl,
+                                            int nm, int k) {
+  constexpr int QS = MY * BLC;
+  if (k < BULK_NQ * QS) {
+    const int q = k / QS, l = l0 + (k / MY) % BLC, mm = m0 + k % MY;
+    return l < nl && mm < nm ? ab[((size_t)q * nl + l) * nm + mm] : 0.f;
+  }
+  k -= BULK_NQ * QS;
+  if (BULK_NORMS) {
+    if (k < 2 * BLC) {
+      const int l = l0 + k % BLC;
+      return l < nl ? lt[(k / BLC) * nl + l] : 0.f;
+    }
+    k -= 2 * BLC;
+  }
+  const int l = l0 + k / (MY * C), j = k % (MY * C), mm = m0 + j / C;
+  return l < nl && mm < nm ? A[((size_t)l * nm + m0) * C + j] : 0.f;
+}
+
+// Store value k (synth_coef's order) into the records of buffer buf; a
+// degree norm goes into the record of every row.
+template <int C>
+__device__ __forceinline__ void synth_store(SynthStage<C>& sm, int buf, int k, float v) {
+  constexpr int QS = MY * BLC, NC = SynthRec<C>::NC;
+  if (k < BULK_NQ * QS) {
+    sm.rec[buf][k % MY][(k / MY) % BLC][k / QS] = v;
+    return;
+  }
+  k -= BULK_NQ * QS;
+  if (BULK_NORMS) {
+    if (k < 2 * BLC) {
+#pragma unroll
+      for (int row = 0; row < MY; ++row) sm.rec[buf][row][k % BLC][BULK_NQ + k / BLC] = v;
+      return;
+    }
+    k -= 2 * BLC;
+  }
+  const int j = k % (MY * C);
+  sm.rec[buf][j / C][k / (MY * C)][NC + j % C] = v;
+}
+
+// G[f, c, m, t] = sum_l u_f(l, m, theta_t) A[l, m, c]: synthesis_kernel's
+// arguments and layouts (float only); lstop is read when STOPS (the half-sky
+// form's table is that of its northern rings), state written when DUMP.
+template <int C, bool SYM, int R, bool STOPS, bool DUMP>
+__global__ void __launch_bounds__(MY * TX / R)
+bulk_synthesis_kernel(const float* __restrict__ A, const float* __restrict__ ab,
+                      const float* __restrict__ lt, const float* __restrict__ cth,
+                      const float* __restrict__ ctl, const float* __restrict__ rows,
+                      const float* __restrict__ sv, const int* __restrict__ sl,
+                      float* __restrict__ out, int nl, int nm, int nt, int spin,
+                      const int* __restrict__ lstop, float* __restrict__ state) {
+  constexpr int LPR = TX / R;           // threads of an m row
+  constexpr int THREADS = MY * LPR;
+  constexpr int NV = BULK_NV + MY * BLC * C;  // staged per chunk: the coefficients, then A
+  constexpr int KST = (NV + THREADS - 1) / THREADS;  // staged values per thread
+  constexpr int NP = SYM ? 2 : 1;       // sums per function and column
+  static_assert(BLC % BG == 0, "a chunk holds whole groups");
+  __shared__ SynthStage<C> sm;
+  const int tid = threadIdx.x, row = tid / LPR, rl = tid % LPR;
+  const int tile = blockIdx.x, m0 = blockIdx.y * MY, m = m0 + row;
+  const size_t plane = (size_t)nm * nt;
+  const float sgs = (spin & 1) ? -1.f : 1.f;
+  const int lbeg = MODE == WIGNER ? max(m0, spin) : m0;
+  const int l8 = lbeg & ~7;  // groups start at multiples of 8
+  const int lend = STOPS ? stop_degree(lstop, blockIdx.y, tile, gridDim.x, nl) : nl;
+  // a dead tile (or one whose stop comes before any group) runs no chunk
+  const int nch = lend > l8 ? (lend - l8 + BLC - 1) / BLC : 0;
+  Ring<float> ring[R];
+  float xlo[R];
+  Recur<float> rc[R];
+  float fac[R][NBR];  // each state's level factor: 1 at level 0
+  // SYM: the even-l and odd-l sums E, O (SYNTH_EVEN_ODD), or the north and
+  // mirror sums; full: one sum
+  float acc[R][NFUN][C][NP];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int t = tile * TX + rl + LPR * r;
+    const bool valid = t < nt && m < nm;
+    ring[r] = load_ring(cth, rows, t, nt, valid);
+    xlo[r] = valid ? ctl[t] : 0.f;
+    rc[r] = load_recur(sv, sl, (size_t)m * nt + t, plane, m, spin, valid);
+#pragma unroll
+    for (int br = 0; br < NBR; ++br) fac[r][br] = 1.f;
+#pragma unroll
+    for (int f = 0; f < NFUN; ++f)
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int p = 0; p < NP; ++p) acc[r][f][c][p] = 0.f;
+  }
+  if (nch > 0) {  // uniform over the block
+    // the staging pipeline: chunk 0 into buffer 0, chunk 1 into registers
+    float kv[KST];
+#pragma unroll
+    for (int k = 0; k < KST; ++k) {
+      const int e = tid + k * THREADS;
+      if (e < NV) {
+        synth_store(sm, 0, e, synth_coef<C>(ab, lt, A, l8, m0, nl, nm, e));
+        kv[k] = synth_coef<C>(ab, lt, A, l8 + BLC, m0, nl, nm, e);
+      }
+    }
+    __syncthreads();
+    for (int ch = 0; ch < nch; ++ch) {
+      const int buf = ch & 1, lc0 = l8 + ch * BLC;
+      // one group of BG degrees from degree gl0 (chunk index gi0); TAIL: the
+      // group the stop cuts, its degrees under a uniform test; SEED: the
+      // first group, which holds every seed of the block's rows
+      auto group = [&](int gl0, int gi0, auto tail, auto seed) {
+        constexpr bool TAIL = decltype(tail)::value, SEED = decltype(seed)::value;
+#pragma unroll
+        for (int i = 0; i < BG; ++i) {
+          const int l = gl0 + i, li = gi0 + i;
+          if (TAIL && l >= lend) break;
+          // the degree's record in W / 4 128-bit loads
+          constexpr int W = SynthRec<C>::W, NC = SynthRec<C>::NC;
+          float rv[W];
+#pragma unroll
+          for (int j = 0; j < W; j += 4) {
+            const float4 q = *reinterpret_cast<const float4*>(&sm.rec[buf][row][li][j]);
+            rv[j] = q.x, rv[j + 1] = q.y, rv[j + 2] = q.z, rv[j + 3] = q.w;
+          }
+          const float a = rv[0], b = rv[1];
+          const float e = MODE != SCALAR ? rv[2] : 0.f;
+          const float nrm = BULK_NORMS ? rv[BULK_NQ] : 0.f;
+          const float hp = BULK_NORMS ? rv[BULK_NQ + 1] : 0.f;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            float u[NFUN];
+            bulk_advance<SEED>(u, rc[r], fac[r], l, m, a, b, e, nrm, hp, ring[r], xlo[r], sgs);
+#pragma unroll
+            for (int f = 0; f < NFUN; ++f)
+#pragma unroll
+              for (int c = 0; c < C; ++c) {
+                if constexpr (SYM && SYNTH_EVEN_ODD) {
+                  // l has the parity of i: gl0 is a multiple of 8
+                  acc[r][f][c][i & 1] = fmaf(u[f], rv[NC + c], acc[r][f][c][i & 1]);
+                } else if constexpr (SYM) {
+                  // the mirror ring's sign, PSIGN[f] (-1)^(l+m)
+                  const float v = u[f] * rv[NC + c];
+                  const bool plus = (psign(f) > 0) != (((i + m) & 1) != 0);
+                  acc[r][f][c][0] += v;
+                  acc[r][f][c][1] += plus ? v : -v;
+                } else {
+                  acc[r][f][c][0] = fmaf(u[f], rv[NC + c], acc[r][f][c][0]);
+                }
+              }
+          }
+          if (!TAIL && i == BG - 1) {  // l = 7 mod 8: renormalize
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              rescale(rc[r]);
+#pragma unroll
+              for (int br = 0; br < NBR; ++br) fac[r][br] = level_factor(rc[r].s[br].lev);
+            }
+          }
+        }
+      };
+      for (int g = 0; g < BLC / BG; ++g) {
+        const int gl0 = lc0 + g * BG;
+        if (gl0 >= lend) break;
+        // gl0 < l8 + BG rather than gl0 == l8, as in bulk_analysis_kernel
+        if (gl0 + BG > lend)
+          group(gl0, g * BG, std::true_type{}, std::true_type{});
+        else if (gl0 < l8 + BG)
+          group(gl0, g * BG, std::false_type{}, std::true_type{});
+        else
+          group(gl0, g * BG, std::false_type{}, std::false_type{});
+      }
+      // the next chunk into the other buffer, the one after into registers
+#pragma unroll
+      for (int k = 0; k < KST; ++k) {
+        const int e = tid + k * THREADS;
+        if (e < NV) {
+          if (ch + 1 < nch) synth_store(sm, buf ^ 1, e, kv[k]);
+          if (ch + 2 < nch) kv[k] = synth_coef<C>(ab, lt, A, l8 + (ch + 2) * BLC, m0, nl, nm, e);
+        }
+      }
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int t = tile * TX + rl + LPR * r;
+    if (t >= nt || m >= nm) continue;
+    const size_t mt = (size_t)m * nt + t;
+    if constexpr (DUMP && MODE != WIGNER) dump_state(state, mt, plane, rc[r].s[0]);
+#pragma unroll
+    for (int f = 0; f < NFUN; ++f)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const size_t fc = (size_t)f * C + c;
+        if constexpr (SYM) {
+          float north = acc[r][f][c][0], mirror = acc[r][f][c][1];
+          if constexpr (SYNTH_EVEN_ODD) {
+            // N = E + O; S = PSIGN[f] (-1)^m (E - O)
+            const float d = north - mirror;
+            north += mirror;
+            mirror = (psign(f) > 0) == ((m & 1) == 0) ? d : -d;
+          }
+          out[(2 * fc) * plane + mt] = north;
+          out[(2 * fc + 1) * plane + mt] = mirror;
+        } else {
+          out[fc * plane + mt] = acc[r][f][c][0];
+        }
+      }
   }
 }
 
@@ -1413,12 +1687,15 @@ polar_synthesis_kernel(const double* __restrict__ A, const double* __restrict__ 
       static_cast<const T*>(rows), static_cast<const T*>(sv),                    \
       static_cast<const int*>(sl)
 
-template <typename T, bool SYM>
+// synthesis_kernel / analysis_kernel: float64 only (float32 launches take
+// the bulk kernels)
+template <bool SYM>
 int launch_synthesis(int C, const void* A, const void* ab, const void* lt,
                      const void* cth, const void* ctl, const void* rows,
                      const void* sv, const void* sl, void* out, int nl, int nm,
                      int nt, int spin, const void* lstop, void* state,
                      cudaStream_t st) {
+  using T = double;
   const dim3 block(TX, MY), grid((nt + TX - 1) / TX, (nm + MY - 1) / MY);
   if (grid.x == 0 || grid.y == 0 || nl == 0) return 0;
   const T* a = static_cast<const T*>(A);
@@ -1440,12 +1717,13 @@ int launch_synthesis(int C, const void* A, const void* ab, const void* lt,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool SYM>
+template <bool SYM>
 int launch_analysis(int C, const void* F, const void* ab, const void* lt,
                     const void* cth, const void* ctl, const void* rows,
                     const void* sv, const void* sl, void* part, int nl, int nm,
                     int nt, int nplanes, int spin, const void* lstop,
                     void* state, cudaStream_t st) {
+  using T = double;
   const int ntiles = (nt + TX - 1) / TX;
   const dim3 block(TX, MY), grid(nplanes, (nm + MY - 1) / MY);
   if (ntiles == 0 || grid.y == 0 || nl == 0) return 0;
@@ -1505,6 +1783,36 @@ int launch_bulk(const void* F, const void* ab, const void* lt, const void* cth,
   return (int)cudaGetLastError();
 }
 
+// The float32 bulk of K1 / K3 (bulk_synthesis_kernel): one block per tile
+// of the stop table, with the instantiation that carries a stop table and a
+// state only where the launch gives them.
+template <int C, bool SYM>
+int launch_bulk_synthesis(const void* A, const void* ab, const void* lt, const void* cth,
+                          const void* ctl, const void* rows, const void* sv, const void* sl,
+                          void* out, int nl, int nm, int nt, int spin, const void* lstop,
+                          void* state, cudaStream_t st) {
+  constexpr int R = SYNTH_RINGS;
+  const dim3 block(MY * TX / R), grid((nt + TX - 1) / TX, (nm + MY - 1) / MY);
+  if (grid.x == 0 || grid.y == 0 || nl == 0) return 0;
+  // a state is handed over only at stop degrees, and only by the full form
+  if (state != nullptr && (SYM || lstop == nullptr)) return (int)cudaErrorInvalidValue;
+  const float* a = static_cast<const float*>(A);
+  float* o = static_cast<float*>(out);
+  const int* dd = static_cast<const int*>(lstop);
+  float* ss = static_cast<float*>(state);
+  if (lstop == nullptr) {
+    bulk_synthesis_kernel<C, SYM, R, false, false><<<grid, block, 0, st>>>(
+        a, KERNEL_ARGS(float), o, nl, nm, nt, spin, nullptr, nullptr);
+  } else if (state == nullptr) {
+    bulk_synthesis_kernel<C, SYM, R, true, false><<<grid, block, 0, st>>>(
+        a, KERNEL_ARGS(float), o, nl, nm, nt, spin, dd, nullptr);
+  } else if constexpr (!SYM) {
+    bulk_synthesis_kernel<C, false, R, true, true><<<grid, block, 0, st>>>(
+        a, KERNEL_ARGS(float), o, nl, nm, nt, spin, dd, ss);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <int C>
 int launch_polar(const void* F, const void* ab, const void* lt, const void* cth,
                  const void* rows, const void* sv, const void* sl, void* out, int ldo,
@@ -1543,48 +1851,36 @@ int launch_polar_synthesis(const void* A, const void* ab, const void* lt, const 
 
 }  // namespace
 
-// f64 selects the double instantiation; C (2 or 4) is the coefficient
-// count: a block's columns are (re, im) pairs, so C is always even. spin is
-// read in wigner mode only; lstop is the table of stop degrees (int
-// [m blocks, ring tiles], 0 = skip) or null; state the handoff buffer
-// [3, nm, nt] of the working type or null (read by the full kernels in the
-// Legendre modes only). The entry points are named pt_<kernel>_<mode>.
-#define SYNTH_ENTRY(NAME, SYM)                                                  \
-  extern "C" int PT_ENTRY(NAME)(int f64, int C, const void* A, const void* ab,  \
-                                const void* lt, const void* cth,                \
-                                const void* ctl, const void* rows,              \
-                                const void* sv, const void* sl, void* out,      \
-                                int nl, int nm, int nt, int spin,               \
-                                const void* lstop, void* state,                 \
-                                void* stream) {                                 \
-    cudaStream_t st = static_cast<cudaStream_t>(stream);                        \
-    return f64 ? launch_synthesis<double, SYM>(C, A, ab, lt, cth, ctl, rows, sv, \
-                                               sl, out, nl, nm, nt, spin, lstop, \
-                                               state, st)                       \
-               : launch_synthesis<float, SYM>(C, A, ab, lt, cth, ctl, rows, sv,  \
-                                              sl, out, nl, nm, nt, spin, lstop,  \
-                                              state, st);                       \
+// synthesis_kernel / analysis_kernel, float64 only: C (2 or 4) is the
+// coefficient count: a block's columns are (re, im) pairs, so C is always
+// even. spin is read in wigner mode only; lstop is the table of stop degrees
+// (int [m blocks, ring tiles], 0 = skip) or null; state the handoff buffer
+// [3, nm, nt] or null (read by the full kernels in the Legendre modes only).
+// The entry points are named pt_<kernel>_<mode>.
+#define SYNTH_ENTRY(NAME, SYM)                                                         \
+  extern "C" int PT_ENTRY(NAME)(int C, const void* A, const void* ab, const void* lt,  \
+                                const void* cth, const void* ctl, const void* rows,    \
+                                const void* sv, const void* sl, void* out, int nl,     \
+                                int nm, int nt, int spin, const void* lstop,           \
+                                void* state, void* stream) {                           \
+    return launch_synthesis<SYM>(C, A, ab, lt, cth, ctl, rows, sv, sl, out, nl, nm, nt, \
+                                 spin, lstop, state, static_cast<cudaStream_t>(stream)); \
   }
 
-#define ANAL_ENTRY(NAME, SYM)                                                   \
-  extern "C" int PT_ENTRY(NAME)(int f64, int C, const void* F, const void* ab,  \
-                                const void* lt, const void* cth,                \
-                                const void* ctl, const void* rows,              \
-                                const void* sv, const void* sl, void* part,     \
-                                int nl, int nm, int nt, int nplanes, int spin,  \
-                                const void* lstop, void* state, void* stream) { \
-    cudaStream_t st = static_cast<cudaStream_t>(stream);                        \
-    return f64 ? launch_analysis<double, SYM>(C, F, ab, lt, cth, ctl, rows, sv,  \
-                                              sl, part, nl, nm, nt, nplanes,     \
-                                              spin, lstop, state, st)           \
-               : launch_analysis<float, SYM>(C, F, ab, lt, cth, ctl, rows, sv,   \
-                                             sl, part, nl, nm, nt, nplanes,      \
-                                             spin, lstop, state, st);           \
+#define ANAL_ENTRY(NAME, SYM)                                                          \
+  extern "C" int PT_ENTRY(NAME)(int C, const void* F, const void* ab, const void* lt,  \
+                                const void* cth, const void* ctl, const void* rows,    \
+                                const void* sv, const void* sl, void* part, int nl,    \
+                                int nm, int nt, int nplanes, int spin,                 \
+                                const void* lstop, void* state, void* stream) {        \
+    return launch_analysis<SYM>(C, F, ab, lt, cth, ctl, rows, sv, sl, part, nl, nm, nt, \
+                                nplanes, spin, lstop, state,                           \
+                                static_cast<cudaStream_t>(stream));                    \
   }
 
 // K2 / K4's float32 bulk (bulk_analysis_kernel): analysis_kernel's
-// arguments without f64; C is 2 or 4; the half-sky form takes no stop
-// degrees or state, the full form a state only with stop degrees.
+// arguments; C is 2 or 4; the half-sky form takes no stop degrees or state,
+// the full form a state only with stop degrees.
 #define BULK_ENTRY(NAME, SYM)                                                      \
   extern "C" int PT_ENTRY(NAME)(int C, const void* F, const void* ab, const void* lt, \
                                 const void* cth, const void* ctl, const void* rows,   \
@@ -1604,14 +1900,38 @@ int launch_polar_synthesis(const void* A, const void* ab, const void* lt, const 
     }                                                                                 \
   }
 
+// K1 / K3's float32 bulk (bulk_synthesis_kernel): synthesis_kernel's
+// arguments; C is 2 or 4; both forms take stop degrees, the full form a
+// state with them.
+#define BULK_SYNTH_ENTRY(NAME, SYM)                                                   \
+  extern "C" int PT_ENTRY(NAME)(int C, const void* A, const void* ab, const void* lt, \
+                                const void* cth, const void* ctl, const void* rows,   \
+                                const void* sv, const void* sl, void* out, int nl,    \
+                                int nm, int nt, int spin, const void* lstop,          \
+                                void* state, void* stream) {                          \
+    cudaStream_t st = static_cast<cudaStream_t>(stream);                              \
+    switch (C) {                                                                      \
+      case 2:                                                                         \
+        return launch_bulk_synthesis<2, SYM>(A, ab, lt, cth, ctl, rows, sv, sl, out, nl, \
+                                             nm, nt, spin, lstop, state, st);         \
+      case 4:                                                                         \
+        return launch_bulk_synthesis<4, SYM>(A, ab, lt, cth, ctl, rows, sv, sl, out, nl, \
+                                             nm, nt, spin, lstop, state, st);         \
+      default:                                                                        \
+        return (int)cudaErrorInvalidValue;                                            \
+    }                                                                                 \
+  }
+
 #if LEGENDRE_MODE != 4  // the wigner mode has no half-sky kernels
 SYNTH_ENTRY(pt_sym_synthesis, true)
 ANAL_ENTRY(pt_sym_analysis, true)
 BULK_ENTRY(pt_sym_bulk_analysis, true)
+BULK_SYNTH_ENTRY(pt_sym_bulk_synthesis, true)
 #endif
 SYNTH_ENTRY(pt_full_synthesis, false)
 ANAL_ENTRY(pt_full_analysis, false)
 BULK_ENTRY(pt_full_bulk_analysis, false)
+BULK_SYNTH_ENTRY(pt_full_bulk_synthesis, false)
 
 // K4's float64 near-pole pass (polar_analysis_kernel), every mode: C (2 or 4)
 // columns of F [NFUN, C, nm, nt], written at column stride ldo into out

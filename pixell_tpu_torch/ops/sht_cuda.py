@@ -11,18 +11,20 @@ and spin2 (K6):
 
 and K3/K4 also in the wigner mode (K7, any spin s; wigner_synthesis_scan_pallas
 sht_pallas.py:2165, wigner_analysis_scan_pallas :2221), on a geometry prepared
-with that s. K3/K4 take a table of stop degrees, one per block (the
-reference's lstop): 0 for a dead block beyond the horizon of its rings
-(_dead_table sht_pallas.py:677), which they skip, and in float32 Legendre
-modes any multiple of 8 at which the block ends early and hands its
-recurrence state over (dump_state, sht_pallas.py:1546).
+with that s. K1, K3 and K4 take a table of stop degrees, one per block (the
+reference's lstop, which only its K3/K4 take): 0 for a dead block beyond
+the horizon of its rings (_dead_table sht_pallas.py:677), which they skip,
+and for K3/K4 in float32 Legendre modes any multiple of 8 at which the
+block ends early and hands its recurrence state over (dump_state,
+sht_pallas.py:1546).
 
-The float32 launches of K2 and K4 run bulk_analysis_kernel, their float32
-bulk redesigned for the card (several rings a thread, the degree sums
-reduced 8 degrees at a time by a reduce-scatter butterfly): the entry
-points sym_bulk_analysis and full_bulk_analysis, counted under those names.
-sym_analysis / full_analysis keep analysis_kernel for float64, and
-replaced_analysis reaches its float32 instantiation for timing only.
+The float32 launches of K1-K4 run their float32 bulk, redesigned for the
+card (several rings a thread, the seed test and level factor out of the
+steps): K2 and K4 bulk_analysis_kernel (the degree sums reduced 8 degrees
+at a time by a reduce-scatter butterfly), K1 and K3 bulk_synthesis_kernel
+(K1 with even-l and odd-l sums in place of a mirror sum): the entry points
+of BULK_KERNELS, counted under those names. The four names above keep
+synthesis_kernel / analysis_kernel, built for float64 only.
 
   polar_analysis  K4's float64 near-pole pass, redesigned for the card
                   (one block per m row, the ring sum in shared memory), in
@@ -73,7 +75,8 @@ _analysis_sym_entry :1825), with its thresholds, in every mode:
     :2221): always K3/K4, the near-pole pass (polar_synthesis,
     polar_analysis) for
     m < max(POLAR_MMAX, s + 1).
-  - the dead-tile stops go to every float32 launch of K3/K4, with the
+  - the dead-tile stops go to every float32 launch of K1, K3 and K4 (K1's
+    from its northern rings, whose mirrors share their sin theta), with the
     mode's s (0 for the Legendre modes). The float64 launches compute every
     tile: the skipped terms, ~1e-12 of the peak and up to ~1e-7 in spin 2,
     are above what a float64 transform promises.
@@ -103,8 +106,9 @@ BLK_TILE_M, BLK_TILE_T = 4, 256   # m rows and rings of a block-kernel tile (csr
 BLK_SMIN = 0.5      # the split keeps to ring tiles with sin(theta) >= BLK_SMIN (blk_polar_tiles)
 
 LEGENDRE_KERNELS = ("sym_synthesis", "sym_analysis", "full_synthesis", "full_analysis")
-# the float32 bulk of K2 / K4, which every float32 sym_analysis / full_analysis launches
-BULK_KERNELS = {"sym_analysis": "sym_bulk_analysis", "full_analysis": "full_bulk_analysis"}
+# the float32 bulk of K1-K4, which every float32 launch of the wrapper of that name runs
+BULK_KERNELS = {"sym_synthesis": "sym_bulk_synthesis", "full_synthesis": "full_bulk_synthesis",
+	"sym_analysis": "sym_bulk_analysis", "full_analysis": "full_bulk_analysis"}
 BLK_KERNELS = ("blk_synthesis", "blk_analysis")
 POLAR_KERNELS = ("polar_analysis", "polar_synthesis")
 KERNELS = LEGENDRE_KERNELS + tuple(BULK_KERNELS.values()) + POLAR_KERNELS + BLK_KERNELS
@@ -197,7 +201,7 @@ def _dead_cached(theta_bytes, lmax, mmax, s, device):
 
 
 def dead_stops(theta, lmax, mmax, s, device):
-	"""The stop degrees that make K3/K4 skip their dead blocks on the rings
+	"""The stop degrees that make K1/K3/K4 skip their dead blocks on the rings
 	theta: an int32 tensor [ceil(nm/TILE_M), ceil(nt/TILE_T)] on device, 0
 	for a dead block and lmax + 1 (run to the end) for the others, or None
 	where no block is dead (pixell_tpu.ops.sht_pallas._dead_lstop :704).
@@ -400,18 +404,12 @@ def library(csrc=_build.CSRC):
 	lib = _build.load(csrc)
 	P, I = ctypes.c_void_p, ctypes.c_int
 	for mode in sht_core.MODES:
-		for name in LEGENDRE_KERNELS:
+		for name in LEGENDRE_KERNELS + tuple(BULK_KERNELS.values()):
 			if mode == "wigner" and name.startswith("sym"): continue   # no half-sky form
 			fn = getattr(lib, "pt_%s_%s" % (name, mode))
-			# (f64, C), 9 pointers, (nl, nm, nt[, nplanes], s), the stop degrees,
-			# the state, the stream
-			fn.argtypes = [I, I] + [P]*9 + [I]*(4 if name.endswith("synthesis") else 5) + [P]*3
-			fn.restype = I
-		for name in BULK_KERNELS.values():
-			if mode == "wigner" and name.startswith("sym"): continue
-			fn = getattr(lib, "pt_%s_%s" % (name, mode))
-			# C, 9 pointers, (nl, nm, nt, nplanes, s), the stop degrees, the state, the stream
-			fn.argtypes = [I] + [P]*9 + [I]*5 + [P]*3
+			# C, 9 pointers, (nl, nm, nt[, nplanes], s), the stop degrees, the state,
+			# the stream
+			fn.argtypes = [I] + [P]*9 + [I]*(4 if name.endswith("synthesis") else 5) + [P]*3
 			fn.restype = I
 		fn = getattr(lib, "pt_polar_analysis_%s" % mode)
 		# C, 8 pointers, (ldo, nl, nm, nt, s), the stream
@@ -516,30 +514,29 @@ def _new_state(g, dump_state, device):
 
 
 def _synthesis_launch(name, A, g, lmax, mode, out_shape_of, lstop=None, dump_state=False):
+	"""K1 / K3 on the card: a float32 launch runs the bulk kernel
+	(BULK_KERNELS[name]), a float64 one synthesis_kernel."""
 	nl, nm, C = A.shape
 	ab, lt, s, stop_ptr = _mode_args(g, nl, mode, lstop, A.device, dump_state)
 	stream = _stream(A)
 	state, state_ptr = _new_state(g, dump_state, A.device)
+	f64 = g.dtype == torch.float64
+	entry = name if f64 else BULK_KERNELS[name]
 	outs = []
 	for c0, c1 in _col_chunks(C):
 		Ac = A[..., c0:c1].contiguous()
 		out = torch.empty(out_shape_of(c1 - c0), dtype=g.dtype, device=A.device)
 		# every launch of the columns ends in the same state: the first writes it
-		_launch(name, mode, A.device, g.dtype == torch.float64, int(g.dtype == torch.float64),
-			c1 - c0, Ac.data_ptr(), *_ptrs(g, ab, lt), out.data_ptr(), nl, nm, g.nt, s, stop_ptr,
-			state_ptr if c0 == 0 else 0, stream)
+		_launch(entry, mode, A.device, f64, c1 - c0, Ac.data_ptr(), *_ptrs(g, ab, lt),
+			out.data_ptr(), nl, nm, g.nt, s, stop_ptr, state_ptr if c0 == 0 else 0, stream)
 		outs.append(out)
-	G = torch.cat(outs, 1)
+	G = outs[0] if len(outs) == 1 else torch.cat(outs, 1)
 	return (G, state) if dump_state else G
 
 
 def _planes(ntiles):
 	"""Partial-sum planes for ntiles ring tiles: each loops over an equal share."""
 	return -(-ntiles//(-(-ntiles//MAX_PLANES)))
-
-
-# Set only inside replaced_analysis: float32 launches run analysis_kernel.
-_REPLACED = False
 
 
 def _analysis_launch(name, F, g, lmax, mode, lstop=None, dump_state=False):
@@ -552,13 +549,12 @@ def _analysis_launch(name, F, g, lmax, mode, lstop=None, dump_state=False):
 	state, state_ptr = _new_state(g, dump_state, F.device)
 	nplanes = _planes(-(-g.nt//TILE_T))
 	f64 = g.dtype == torch.float64
-	# the entry point and its leading arguments: the bulk kernel takes no f64 flag
-	entry, lead = (name, (int(f64),)) if f64 or _REPLACED else (BULK_KERNELS[name], ())
+	entry = name if f64 else BULK_KERNELS[name]
 	outs = []
 	for c0, c1 in _col_chunks(C):
 		Fc = F[:, c0:c1].contiguous()
 		part = torch.zeros((nplanes, nl, nm, c1 - c0), dtype=g.dtype, device=F.device)
-		_launch(entry, mode, F.device, f64, *lead, c1 - c0, Fc.data_ptr(), *_ptrs(g, ab, lt),
+		_launch(entry, mode, F.device, f64, c1 - c0, Fc.data_ptr(), *_ptrs(g, ab, lt),
 			part.data_ptr(), nl, nm, g.nt, nplanes, s, stop_ptr, state_ptr if c0 == 0 else 0, stream)
 		outs.append(part.sum(0))
 	A = torch.cat(outs, -1)
@@ -575,11 +571,13 @@ def _psign(mode, dtype, device):
 	return torch.tensor(PSIGN[mode], dtype=dtype, device=device)
 
 
-def _sym_synthesis_plain(A, g, lmax, mode="scalar"):
+def _sym_synthesis_plain(A, g, lmax, mode="scalar", lstop=None):
 	C = A.shape[-1]
 	sgn = _parity(lmax + 1, g.nm, A.dtype, A.device)[..., None]
-	# one pass: the mirror ring is sum_l PSIGN[f] (-1)^(l+m) u_f A
-	G = sht_core.synthesis(torch.cat([A, A*sgn], -1), g, lmax, mode)   # [nfun, 2C, nm, nh]
+	# one pass: the mirror ring is sum_l PSIGN[f] (-1)^(l+m) u_f A; a mirror
+	# ring stops where its northern ring does
+	G = sht_core.synthesis(torch.cat([A, A*sgn], -1), g, lmax, mode,
+		None if lstop is None else stop_entries(lstop, g.nm, g.nt))   # [nfun, 2C, nm, nh]
 	mirror = G[:, C:]*_psign(mode, G.dtype, G.device)[:, None, None, None]
 	return torch.stack([G[:, :C], mirror], 2)
 
@@ -626,16 +624,20 @@ def _check_sym_mode(mode):
 	if mode not in PSIGN: raise ValueError("the half-sky kernels have no '%s' mode" % mode)
 
 
-def sym_synthesis(A, g, lmax, mode="scalar"):
+def sym_synthesis(A, g, lmax, mode="scalar", lstop=None):
 	"""K1: half-sky synthesis. A [nl, nm, C] on the northern rings of g ->
 	[nfun, C, 2, nm, nh]: plane 0 is ring t, plane 1 its mirror
-	pi - theta_t, from u_f(pi - theta) = PSIGN[f] (-1)^(l+m) u_f(theta)."""
+	pi - theta_t, from u_f(pi - theta) = PSIGN[f] (-1)^(l+m) u_f(theta).
+	lstop, a table of stop degrees per block of the northern rings
+	(dead_stops), ends the sums of a block and of its mirror before its
+	degree: 0 skips the block, whose outputs are 0; None runs every block to
+	the end."""
 	_check_sym_mode(mode)
 	nl, C = lmax + 1, A.shape[-1]
 	_check(A, g, (nl, g.nm, C), "sym_synthesis")
-	if not _on_card(A): return PLAIN["sym_synthesis"](A, g, lmax, mode)
+	if not _on_card(A): return PLAIN["sym_synthesis"](A, g, lmax, mode, lstop)
 	return _synthesis_launch("sym_synthesis", A, g, lmax, mode,
-		lambda c: (NFUN[mode], c, 2, g.nm, g.nt))
+		lambda c: (NFUN[mode], c, 2, g.nm, g.nt), lstop)
 
 
 def full_synthesis(A, g, lmax, mode="scalar", lstop=None, dump_state=False):
@@ -677,21 +679,6 @@ def full_analysis(F, g, lmax, mode="scalar", lstop=None, dump_state=False):
 	_check(F, g, (NFUN[mode], C, g.nm, g.nt), "full_analysis")
 	if not _on_card(F): return PLAIN["full_analysis"](F, g, lmax, mode, lstop, dump_state)
 	return _analysis_launch("full_analysis", F, g, lmax, mode, lstop, dump_state)
-
-
-def replaced_analysis(name, F, g, *args, **kw):
-	"""sym_analysis or full_analysis (name) with its float32 launches on
-	the analysis_kernel that bulk_analysis_kernel replaced there; kept so
-	that chip_smoke.py can time the two side by side. No dispatch path
-	calls it."""
-	global _REPLACED
-	if g.dtype != torch.float32 or not _on_card(F):
-		raise ValueError("the replaced kernel took float32 launches on the card only")
-	_REPLACED = True
-	try:
-		return {"sym_analysis": sym_analysis, "full_analysis": full_analysis}[name](F, g, *args, **kw)
-	finally:
-		_REPLACED = False
 
 
 def _polar_check(x, g, shape, what):
@@ -883,7 +870,7 @@ def kernel_synthesis(A, theta, lmax, mmax, mode="scalar", dtype=torch.float32, s
 
 
 def _f32_stops(theta, lmax, mmax, dtype, s, device):
-	"""The dead-tile stops for a K3/K4 launch in dtype: float32 only."""
+	"""The dead-tile stops for a K1/K3/K4 launch in dtype: float32 only."""
 	if dtype != torch.float32: return None
 	return dead_stops(theta, lmax, mmax, 0 if s is None else s, device)
 
@@ -937,7 +924,9 @@ def _synth_rings(A, theta, lmax, mmax, mode, dtype, s=None):
 		if blk_ok(mode, dtype, lmax): return blocked_synthesis(A, theta, lmax, mmax, mode)
 		return full_synthesis(A, geom(theta, mmax, dtype, A.device, s), lmax, mode,
 			_f32_stops(theta, lmax, mmax, dtype, s, A.device))
-	pair = sym_synthesis(A, geom(theta[:nh], mmax, dtype, A.device), lmax, mode)
+	north = theta[:nh]
+	pair = sym_synthesis(A, geom(north, mmax, dtype, A.device), lmax, mode,
+		_f32_stops(north, lmax, mmax, dtype, None, A.device))
 	return torch.cat([pair[:, :, 0], pair[:, :, 1, :, :nt - nh].flip(-1)], -1)
 
 

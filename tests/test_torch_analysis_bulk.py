@@ -1,6 +1,6 @@
 """The float32 bulk of K2/K4 (pixell_tpu_torch.ops.sht_cuda: sym_analysis and
 full_analysis, which launch csrc/legendre.cu's bulk_analysis_kernel in
-float32 and analysis_kernel in float64) on the CPU.
+float32 and analysis_kernel, built for float64 only, in float64) on the CPU.
 
 - The dispatch: with the launches recorded instead of run, every float32
   launch of sym_analysis / full_analysis, in every mode, with and without
@@ -65,7 +65,7 @@ def test_f32_launches_reach_bulk_kernel(mode, launches):
 	point with (C, F, 7 tables, part, nl, nm, nt, nplanes, s, stops, state,
 	stream), one launch per column chunk (6 columns: 4 + 2), the stop table
 	and the state where given (the state on the first chunk only); in
-	float64 analysis_kernel's entry with its f64 flag."""
+	float64 analysis_kernel's entry with the same arguments."""
 	s, nf = spin_of(mode), sht_core.NFUN[mode]
 	theta = rings(150)   # three ring tiles
 	g32 = sht_cuda.geom(theta, MMAX, torch.float32, "cpu", s)
@@ -93,39 +93,13 @@ def test_f32_launches_reach_bulk_kernel(mode, launches):
 		launches.clear()
 		getattr(sht_cuda, name)(x.double(), g64, LMAX, mode)
 		assert [c[:3] for c in launches] == [(name, mode, True)]*2
-		assert all(c[3][0] == 1 for c in launches)
-
-
-@pytest.mark.parametrize("mode", MODES)
-def test_replaced_analysis_reaches_analysis_kernel(mode, launches):
-	"""replaced_analysis, the timing comparison: the float32 launches of
-	sym_analysis / full_analysis on analysis_kernel's entry point (its f64
-	flag 0), with the same arguments otherwise (the partial planes aside); after it, the same call
-	reaches the bulk kernel again. Float64 input is refused."""
-	s, nf = spin_of(mode), sht_core.NFUN[mode]
-	theta = rings(70)
-	g32 = sht_cuda.geom(theta, MMAX, torch.float32, "cpu", s)
-	lstop = torch.full((-(-(MMAX + 1)//sht_cuda.TILE_M), 2), 16, dtype=torch.int32)
-	calls = [("full_analysis", torch.zeros((nf, 4, MMAX + 1, len(theta))), (lstop,))]
-	if mode != "wigner":
-		calls.append(("sym_analysis", torch.zeros((nf, 4, 2, MMAX + 1, len(theta))), ()))
-	for name, x, extra in calls:
-		launches.clear()
-		sht_cuda.replaced_analysis(name, x, g32, LMAX, mode, *extra)
-		getattr(sht_cuda, name)(x, g32, LMAX, mode, *extra)
-		(old, _, f64, old_args), (new, _, _, new_args) = launches
-		assert (old, new, f64) == (name, sht_cuda.BULK_KERNELS[name], False)
-		# the same arguments, but for the partial planes, allocated per call
-		assert old_args[0] == 0 and old_args[1:10] + old_args[11:] == new_args[:9] + new_args[10:]
-	with pytest.raises(ValueError):
-		sht_cuda.replaced_analysis("full_analysis", calls[0][1].double(),
-			sht_cuda.geom(theta, MMAX, torch.float64, "cpu", s), LMAX, mode)
+		assert [(len(c[3]), c[3][0]) for c in launches] == [(18, 4), (18, 2)]
 
 
 def test_bulk_variants_build_from_edited_copies(tmp_path, monkeypatch):
 	"""chip_smoke.py's variants phase: each edit of BULK_VARIANTS applies
-	once to csrc/legendre.cu, and the edited copy builds into a directory
-	of its own, from its own sources."""
+	to csrc/legendre.cu, and the edited copy builds into a directory of its
+	own, from its own sources."""
 	import chip_smoke
 	from pixell_tpu_torch.ops import _build
 	monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path/"build"/"pixell_tpu_torch")
