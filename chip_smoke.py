@@ -8,9 +8,9 @@ It builds the hand-written kernels from pixell_tpu_torch/csrc with nvcc
 (legendre.cu once per mode, blockleg.cu once per Legendre mode and
 fma_peak.cu, all compilers started together) and prints each kernel's
 registers and spills, then runs the phases below (all of them with no
-arguments; --phases with a choice of k9,kernels,lstop,slice,blocked,timing
-runs those alone, for work on one phase, and gives no verdict; the phase
-"variants", 6. below, runs only when named):
+arguments; --phases with a choice of k9,kernels,lstop,slice,adjoint,blocked,
+timing runs those alone, for work on one phase, and gives no verdict; the
+phase "variants", 6. below, runs only when named):
 
 1. K9 phase: the FMA-peak kernel against its plain PyTorch chain on a small
    grid (the kernel rounds once per step, the chain twice: within
@@ -58,6 +58,11 @@ runs those alone, for work on one phase, and gives no verdict; the phase
    (lmax 300, 203 m rows, 333 rings, for the half-sky forms 333 northern
    rings). K1 at the lmax-750 shape takes the dead-tile table as on the
    main path, and its time without the table is printed beside.
+   The float64 K1 and K2 at the float64 lmax-750 path's shapes (K1 on the
+   map's 450 northern rings, K2 on the 756 northern upsampled rings; scalar
+   and spin2) against the float64 plain version, with their times, bound
+   over the FP64 peak, float64 torch.bmm yardstick and launches per
+   float64 roundtrip (printed, "f64 row").
    lstop: the bulk kernels at the lmax-2000 float32 shapes (2001 m rows):
    K1 on the map's 1080 northern rings (scalar, spin2), K3 on its 2160
    rings (scalar, spin2, wigner), K4 on the two chunks of 2048 and 1906
@@ -115,6 +120,23 @@ runs those alone, for work on one phase, and gives no verdict; the phase
      grid (rows 324:1356, 1032 rings, not south-symmetric). The block
      kernels must launch in each call's mode inside the context, not at all
      outside it, and not at lmax 750.
+   adjoint (run after slice): alm2map_adjoint and map2alm_adjoint through
+   pixell_tpu_torch.curvedsky at lmax 750 on the 900x1800 Fejer-1 map (spin
+   0, IQU, spin [0, 3], deriv) and at lmax 2000 on 2160x4320 (spin 0, IQU),
+   each path with the launch counts set to 0 just before and read just
+   after: in float64 the dot-product identities <map2alm(m), a> =
+   <m, map2alm_adjoint(a)> and <alm2map(a), m> = <a, alm2map_adjoint(m)>
+   within 1e-10 relative (alm inner product sum Re Re + Im Im); in float32
+   each output within the cell's forward guard of the float64 one (1e-4
+   spin 0, 5e-4 the others at lmax 750; 5e-4, 2e-3 at lmax 2000), only the
+   float32 bulk kernels and the float64 near-pole passes launched, and at
+   lmax 2000 map2alm_adjoint's K3 float32 bulk on the 4032 upsampled rings
+   with its stops (its peak device memory printed; that launch alone held
+   to the float32 rule against the float64 plain version, with its time,
+   bound and chunked torch.bmm yardstick, "K3 row"); then 10 x
+   (alm2map_adjoint + map2alm_adjoint) at lmax 750, spin 0 and IQU, and one
+   at lmax 2000, spin 0, timed with CUDA events beside the forward
+   roundtrip of the same cell, each with its device busy share.
 5. timing: sequential roundtrips timed with CUDA events after warmup (40
    spin-0, 10 IQU and 10 spin-[0, 3] at lmax 750; 5, 3 and 3 at lmax 2000)
    and a profiler breakdown of each: device time by kernel and the device's
@@ -670,7 +692,52 @@ def kernel_phase():
 				pname = "polar_" + name.split("_")[1]
 				records[(pname, mode, "float64")] = polar_record(pname, mode, args, k, ref, rec)
 		for pname in sht_cuda.POLAR_KERNELS: polar_shapes(pname, mode)
+	f64_sym_rows()
 	return records
+
+
+def f64_sym_rows():
+	"""K1 and K2 in float64 at the shapes the float64 lmax-750 roundtrip
+	gives them (no near-pole split in float64): K1 (synthesis_kernel<double,
+	C,true>) on the map's 450 northern rings and K2 (analysis_kernel<double,
+	C,true>) on the 756 northern rings of the 1512 upsampled ones, nm 751,
+	scalar (C = 2) and spin2 (C = 4). Each against the float64 plain version
+	(1e-11 / 1e-10 of the largest value), its time (profiler), the plain
+	version's, the bound over the FP64 peak and the float64 torch.bmm
+	yardstick, and its launches in one float64 roundtrip of the mode's path
+	(spin 0; IQU)."""
+	from pixell_tpu_torch import sht
+	from pixell_tpu_torch.ops import sht_cuda
+	dev, f64, lmax = torch.device("cuda"), torch.float64, 750
+	counts = {}
+	for mode, spin in (("scalar", (0,)), ("spin2", (0, 2))):
+		sht_cuda.reset_launches()
+		roundtrip(lmax, (900, 1800), f64, 1e-10, spin=spin, seed=7)
+		counts[mode] = dict(sht_cuda.LAUNCHES_BY_DTYPE)
+	rings = {"sym_synthesis": sht.ring_theta("F1", 900)[:450], "sym_analysis": sht.ring_theta("F1", 1512)[:756]}
+	for mode in ("scalar", "spin2"):
+		for i, (name, theta) in enumerate(rings.items()):
+			kern, plain, C, nt = getattr(sht_cuda, name), sht_cuda.PLAIN[name], ncoef(mode), len(theta)
+			x = torch.from_numpy(kernel_input(name, mode, lmax, lmax, nt, 80 + i)).to(dev)
+			g = sht_cuda.geom(theta, lmax, f64, dev)
+			ref, plain_ms = timed_once(lambda: plain(x, g, lmax, mode))
+			k = kern(x, g, lmax, mode)
+			torch.cuda.synchronize()
+			err, tol = relerr(k, ref), (1e-11 if mode == "scalar" else 1e-10)
+			if not (err <= tol and bool(torch.isfinite(k).all())):
+				raise RuntimeError("%s %s float64 at lmax 750: rel err %.3e against the plain version"
+					% (name, mode, err))
+			ms, how = kernel_ms(lambda: kern(x, g, lmax, mode), 20, kernel_pattern(name, f64))
+			b_ms, b_by = bound(kernel_ops(name, mode, lmax, lmax, nt, C),
+				kernel_bytes(name, mode, lmax, lmax, nt, C, 8), f64)
+			lib_ms, lib_err = library_ms(name, mode, x, theta, lmax, lmax, ref)
+			if not lib_err <= 1e-10:
+				raise RuntimeError("%s %s: the float64 yardstick computes another function" % (name, mode))
+			print("f64 row %-13s %-6s lmax %d, nm %d, nt %d, C %d: kernel %s_kernel<double> %.4f ms (%s), "
+				"rel err %.3e (bound %.0e), plain %.2f ms, bound %.4f ms (%s, %.1f %% of it reached), "
+				"torch.bmm f64 %.4f ms (rel err %.3e); launches per float64 roundtrip %d" % (name, mode,
+				lmax, lmax + 1, nt, C, name.split("_")[1], ms, how, err, tol, plain_ms, b_ms, b_by,
+				100*b_ms/ms, lib_ms, lib_err, counts[mode][(name, mode, "float64")]))
 
 
 def polar_check(pname, mode, label, kp, ref):
@@ -1403,15 +1470,14 @@ def time_roundtrips(lmax, shape, nrep, spin=(0,)):
 	return ms
 
 
-def profile_roundtrips(lmax, shape, nrep=3, spin=(0,)):
-	"""Device time by kernel over nrep roundtrips, and the device's busy
-	share of the host wall time (the rest is the device waiting on the host)."""
+def profiled(fn, rows):
+	"""(wall ms, device busy ms) of one call of fn under the profiler, whose
+	device time by kernel it prints (rows rows); the rest of the wall time is
+	the device waiting on the host."""
 	from torch.profiler import profile, ProfilerActivity
-	step, arr = roundtrip_step(lmax, shape, spin)
 	with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
 		h0 = time.perf_counter()
-		y = arr
-		for _ in range(nrep): y = step(y)
+		fn()
 		torch.cuda.synchronize()
 		wall = time.perf_counter() - h0
 	ka = prof.key_averages()
@@ -1419,9 +1485,20 @@ def profile_roundtrips(lmax, shape, nrep=3, spin=(0,)):
 	# device-side events only, as the profiler's own "Self CUDA time total"
 	busy = sum(getattr(e, key) for e in ka if e.device_type == torch.autograd.DeviceType.CUDA
 		and not getattr(e, "is_user_annotation", False))/1e3
+	print(ka.table(sort_by=key, row_limit=rows, max_name_column_width=56))
+	return wall*1e3, busy
+
+
+def profile_roundtrips(lmax, shape, nrep=3, spin=(0,)):
+	"""Device time by kernel over nrep roundtrips, and the device's busy
+	share of the host wall time."""
+	step, arr = roundtrip_step(lmax, shape, spin)
+	def steps():
+		y = arr
+		for _ in range(nrep): y = step(y)
+	wall, busy = profiled(steps, 14)
 	print("profile: %d x lmax-%d spin %s f32 roundtrip: wall %.3f ms, device busy %.3f ms "
-		"(%.1f %%)" % (nrep, lmax, list(spin), wall*1e3, busy, 100*busy/(wall*1e3)))
-	print(ka.table(sort_by=key, row_limit=14, max_name_column_width=56))
+		"(%.1f %%)" % (nrep, lmax, list(spin), wall, busy, 100*busy/wall))
 
 
 # ---------------------------------------------------------------------------
@@ -1540,7 +1617,212 @@ def variants_phase():
 		print("variant %s %s lmax %d, nt %d: %s" % (name, mode, lmax, len(theta), "; ".join(line)))
 
 
-PHASES = ("k9", "kernels", "lstop", "slice", "blocked", "timing")
+# ---------------------------------------------------------------------------
+# 7. the adjoint transforms
+# ---------------------------------------------------------------------------
+# float32 adjoint outputs against float64 ones, of the largest value: the
+# forward guards of the cells, (spin 0, IQU and the other spins) by lmax
+ADJ_TOL = {750: (1e-4, 5e-4), 2000: (5e-4, 2e-3)}
+ADJ_CASES = {"spin 0": ((0,), False), "IQU": ((0, 2), False), "spin [0, 3]": ((0, WIGNER_SPIN), False),
+	"deriv": ((0,), True)}
+
+
+def alm_dot(x, y):
+	"""sum Re(x) Re(y) + Im(x) Im(y) over the stored entries (the reference's
+	vjp convention), or the plain sum of products of two real maps, in
+	float64."""
+	x, y = x.to(torch.complex128 if x.is_complex() else torch.float64), \
+		y.to(torch.complex128 if y.is_complex() else torch.float64)
+	if x.is_complex(): return float((x.real*y.real).sum() + (x.imag*y.imag).sum())
+	return float((x*y).sum())
+
+
+def adjoint_inputs(lmax, shape, label, seed):
+	"""(alm b, map m = alm2map(b), wcs, spin, deriv) in float64 on the card:
+	b drawn with the cell's diagonal spectrum (deriv: one alm, flat), m its
+	band-limited map on the full-sky Fejer-1 geometry."""
+	from pixell_tpu_torch import enmap, curvedsky
+	spin, deriv = ADJ_CASES[label]
+	gshape, wcs = enmap.fullsky_geometry(shape=shape, variant="fejer1")
+	ps = np.ones(lmax + 1) if deriv else spectrum(lmax, spin)
+	b = curvedsky.rand_alm(ps, lmax=lmax, seed=seed, device="cuda")
+	if list(spin) == [0] and not deriv: b = b[0]
+	pre = (2,) if deriv else (() if b.ndim == 1 else (b.shape[0],))
+	m = curvedsky.alm2map(b, enmap.zeros(pre + gshape, wcs, torch.float64), spin=list(spin),
+		deriv=deriv)
+	return b, m.data, wcs, list(spin), deriv
+
+
+def adjoint_drive(label, fn, rings=None):
+	"""A float32 adjoint call fn with every launch count set to 0 just
+	before and read just after: it must launch, and only the float32 bulk
+	kernels (sht_cuda.BULK_KERNELS) and polar_synthesis / polar_analysis in
+	float64, never K3/K4 in float64 nor any other kernel. With rings, the
+	ring counts of its full_synthesis calls (dtype, rings, with stops) are
+	recorded into that list. Returns (launches by (kernel, mode, dtype),
+	fn's result, peak device memory in GiB)."""
+	from pixell_tpu_torch.ops import sht_cuda, fma_peak
+	full = sht_cuda.full_synthesis
+	if rings is not None:
+		def recorder(A, g, lmax, mode="scalar", lstop=None, dump_state=False):
+			rings.append((str(A.dtype)[6:], g.nt, lstop is not None))
+			return full(A, g, lmax, mode, lstop, dump_state)
+		sht_cuda.full_synthesis = recorder
+	sht_cuda.reset_launches()
+	fma_peak.LAUNCHES["fma_peak"] = 0
+	torch.cuda.synchronize()
+	torch.cuda.reset_peak_memory_stats()
+	try:
+		out = fn()
+		torch.cuda.synchronize()
+	finally:
+		sht_cuda.full_synthesis = full
+	peak = torch.cuda.max_memory_allocated()/2**30
+	by_dtype = {k: n for k, n in sht_cuda.LAUNCHES_BY_DTYPE.items() if n}
+	print("launches in the %s: %s (peak device memory %.2f GiB)" % (label, by_dtype, peak))
+	bulk = set(sht_cuda.BULK_KERNELS.values())
+	bad = {k: n for k, n in by_dtype.items() if not ((k[0] in bulk and k[2] == "float32")
+		or (k[0] in sht_cuda.POLAR_KERNELS and k[2] == "float64"))}
+	if not by_dtype or bad or fma_peak.LAUNCHES["fma_peak"]:
+		raise RuntimeError("the %s launched %s: only the float32 bulk kernels and the float64 near-pole "
+			"passes may run on a float32 path" % (label, bad or "nothing"))
+	return by_dtype, out, peak
+
+
+def adjoint_cell(lmax, shape, label, seed):
+	"""One cell of the adjoint phase: in float64 the dot-product identities
+	<map2alm(m), b> = <m, map2alm_adjoint(b)> and <alm2map(b), m> =
+	<b, alm2map_adjoint(m)> with m = alm2map(b) (no cancellation in either
+	product), within 1e-10 relative; in float32 both adjoint entries on the
+	same inputs, their launches checked (adjoint_drive) and their outputs
+	held to the cell's forward guard against the float64 ones. Returns the
+	float32 calls' launches and the ring records of map2alm_adjoint's
+	full_synthesis calls."""
+	from pixell_tpu_torch import enmap, curvedsky
+	b, m, wcs, spin, deriv = adjoint_inputs(lmax, shape, label, seed)
+	ainfo = curvedsky.alm_info(lmax=lmax)
+	f32, f64 = torch.float32, torch.float64
+	zeros = lambda dt: enmap.zeros(tuple(m.shape), wcs, dt)
+	fwd = curvedsky.map2alm(enmap.ndmap(m, wcs), lmax=lmax, spin=spin, deriv=deriv)
+	back = curvedsky.map2alm_adjoint(b, zeros(f64), spin=spin, deriv=deriv).data
+	a_back = curvedsky.alm2map_adjoint(enmap.ndmap(m, wcs), spin=spin, deriv=deriv, ainfo=ainfo)
+	torch.cuda.synchronize()
+	for name, x, want in (("map2alm_adjoint", back, tuple(m.shape)), ("alm2map_adjoint", a_back,
+			tuple(b.shape))):
+		if tuple(x.shape) != want or not bool(torch.isfinite(x).all()):
+			raise RuntimeError("%s %s lmax %d: bad output %s" % (name, label, lmax, tuple(x.shape)))
+	dots = ((alm_dot(fwd, b), alm_dot(m, back)), (alm_dot(m, m), alm_dot(b, a_back)))
+	errs = [abs(l - r)/abs(l) for l, r in dots]
+	print("adjoint %-11s lmax %d f64 on the card: <map2alm(m), a> %.15e, <m, map2alm_adjoint(a)> %.15e, "
+		"rel diff %.3e; <alm2map(a), m> %.15e, <a, alm2map_adjoint(m)> %.15e, rel diff %.3e (bound "
+		"1e-10)" % (label, lmax, dots[0][0], dots[0][1], errs[0], dots[1][0], dots[1][1], errs[1]))
+	if not max(errs) <= 1e-10:
+		raise RuntimeError("adjoint %s lmax %d: the pair is not adjoint on the card" % (label, lmax))
+	m32, b32 = m.to(f32), b.to(torch.complex64)
+	rings = []
+	launches = {}
+	launches["alm2map_adjoint"], a32, _ = adjoint_drive("alm2map_adjoint %s lmax %d f32" % (label, lmax),
+		lambda: curvedsky.alm2map_adjoint(enmap.ndmap(m32, wcs), spin=spin, deriv=deriv, ainfo=ainfo))
+	launches["map2alm_adjoint"], back32, peak = adjoint_drive("map2alm_adjoint %s lmax %d f32" % (label,
+		lmax), lambda: curvedsky.map2alm_adjoint(b32, zeros(f32), spin=spin, deriv=deriv).data, rings)
+	tol = ADJ_TOL[lmax][0 if label == "spin 0" else 1]
+	e = (relerr(a32, a_back), relerr(back32, back))
+	print("adjoint %-11s lmax %d f32 against f64 on the card: alm2map_adjoint rel err %.3e, "
+		"map2alm_adjoint rel err %.3e (bound %.0e)" % (label, lmax, e[0], e[1], tol))
+	if not max(e) <= tol:
+		raise RuntimeError("adjoint %s lmax %d: float32 outside its bound" % (label, lmax))
+	return launches, rings, peak
+
+
+def k3_upsampled(nt_up):
+	"""K3's float32 bulk at the shape map2alm_adjoint gives it at lmax 2000:
+	all nt_up upsampled Fejer-1 rings, nm 2001, scalar (C = 2), with the
+	dead-tile table (and without, for the time): held to the float32 rule
+	against the float64 plain version, its time, the plain version's, its
+	bound and the chunked torch.bmm yardstick (printed, "K3 row")."""
+	from pixell_tpu_torch import sht
+	from pixell_tpu_torch.ops import sht_cuda
+	dev, lmax, mode, name = torch.device("cuda"), 2000, "scalar", "full_synthesis"
+	theta = sht.ring_theta("F1", nt_up)
+	x = torch.from_numpy(kernel_input(name, mode, lmax, lmax, nt_up, 44)).to(dev, torch.float32)
+	g = sht_cuda.geom(theta, lmax, torch.float32, dev)
+	dead = sht_cuda.dead_stops(theta, lmax, lmax, 0, dev)
+	k = sht_cuda.full_synthesis(x, g, lmax, mode, dead)
+	ref = sht_cuda.PLAIN[name](x.double(), sht_cuda.geom(theta, lmax, torch.float64, dev), lmax, mode, dead)
+	p, plain_ms = timed_once(lambda: sht_cuda.PLAIN[name](x, g, lmax, mode, dead))
+	ke = kept_err(name, k, p, ref, f32_kept(theta, lmax, lmax, dev))
+	if not ke[0] <= 2*ke[1] + 1e-6:
+		raise RuntimeError("K3 on the %d upsampled rings disagrees with the float64 plain version" % nt_up)
+	pat = kernel_pattern(name)
+	ms, how = kernel_ms(lambda: sht_cuda.full_synthesis(x, g, lmax, mode, dead), 5, pat)
+	ms_nodead = kernel_ms(lambda: sht_cuda.full_synthesis(x, g, lmax, mode, None), 5, pat)[0]
+	b_ms, b_by = bound(kernel_ops(name, mode, lmax, lmax, nt_up, 2, dead),
+		kernel_bytes(name, mode, lmax, lmax, nt_up, 2, 4), torch.float32)
+	lib_ms, lib_err = chunked_library_ms(name, mode, x, theta, lmax)
+	print("K3 row full_bulk_synthesis scalar lmax %d, nm %d, nt %d, C 2, f32, dead-tile table (%d of %d "
+		"blocks dead): kernel %.4f ms (%s; without the table %.4f ms), kept entries rel err %.3e (plain "
+		"%.3e), plain %.2f ms, bound %.4f ms (%s, %.1f %% of it reached), torch.bmm in chunks %.4f ms "
+		"(rel err %.3e)" % (lmax, lmax + 1, nt_up, int((dead == 0).sum()), dead.numel(), ms, how, ms_nodead,
+		ke[0], ke[1], plain_ms, b_ms, b_by, 100*b_ms/ms, lib_ms, lib_err))
+
+
+def adjoint_timing(lmax, shape, spin, nrep):
+	"""nrep x (alm2map_adjoint + map2alm_adjoint) in float32, CUDA events
+	after warmup, beside nrep forward roundtrips (map2alm + alm2map) of the
+	same cell timed the same way in the same call, and each one's device
+	busy share from one profiled step."""
+	from pixell_tpu_torch import enmap, curvedsky
+	step, arr = roundtrip_step(lmax, shape, spin)
+	gshape, wcs = enmap.fullsky_geometry(shape=shape, variant="fejer1")
+	ainfo = curvedsky.alm_info(lmax=lmax)
+	alm = curvedsky.map2alm(enmap.ndmap(arr, wcs), lmax=lmax, spin=list(spin))
+	out = enmap.zeros(tuple(arr.shape), wcs, torch.float32)
+	def adj():
+		a = curvedsky.alm2map_adjoint(enmap.ndmap(arr, wcs), spin=list(spin), ainfo=ainfo)
+		return curvedsky.map2alm_adjoint(alm, out, spin=list(spin)).data, a
+	res = {}
+	for name, fn in (("adjoint", adj), ("forward", lambda: step(arr))):
+		ms = cuda_ms(fn, nrep)
+		wall, busy = profiled(fn, 10)
+		res[name] = (ms, busy, 100*busy/wall)
+	print("adjoint timing: %d x lmax-%d spin %s f32: alm2map_adjoint + map2alm_adjoint %.4f ms each "
+		"(device busy %.3f ms, %.1f %% of one profiled pair); the forward roundtrip map2alm + alm2map "
+		"%.4f ms each (device busy %.3f ms, %.1f %%)" % ((nrep, lmax, list(spin)) + res["adjoint"]
+		+ res["forward"]))
+
+
+def adjoint_phase():
+	"""The adjoint transforms through pixell_tpu_torch.curvedsky at full
+	width: alm2map_adjoint and map2alm_adjoint at lmax 750 on the 900x1800
+	Fejer-1 map (spin 0, IQU, spin [0, 3], deriv) and at lmax 2000 on
+	2160x4320 (spin 0, IQU): adjointness in float64, float32 against
+	float64, launches, and map2alm_adjoint's float32 K3 bulk
+	(full_bulk_synthesis) on the 4032 upsampled rings at lmax 2000; then the
+	timings beside the forward roundtrips. Returns the launches of each
+	float32 call by (cell, entry)."""
+	from pixell_tpu_torch import fft
+	out = {}
+	for i, label in enumerate(ADJ_CASES):
+		launches, _, _ = adjoint_cell(750, (900, 1800), label, 30 + i)
+		for entry, c in launches.items(): out[(label + " lmax 750", entry)] = c
+	nt_up = fft.fft_len(2*2000 + 3, direction="above")
+	for i, label in enumerate(("spin 0", "IQU")):
+		launches, rings, peak = adjoint_cell(2000, (2160, 4320), label, 40 + i)
+		for entry, c in launches.items(): out[(label + " lmax 2000", entry)] = c
+		k3 = [r for r in rings if r == ("float32", nt_up, True)]
+		print("map2alm_adjoint %s lmax 2000 f32: full_synthesis calls (dtype, rings, stops) %s; peak "
+			"device memory %.2f GiB" % (label, rings, peak))
+		if not k3 or not any(k[0] == "full_bulk_synthesis" for k in launches["map2alm_adjoint"]):
+			raise RuntimeError("map2alm_adjoint %s at lmax 2000 did not run the float32 K3 bulk on the %d "
+				"upsampled rings" % (label, nt_up))
+	k3_upsampled(nt_up)
+	adjoint_timing(750, (900, 1800), (0,), 10)
+	adjoint_timing(750, (900, 1800), (0, 2), 10)
+	adjoint_timing(2000, (2160, 4320), (0,), 1)
+	return out
+
+
+PHASES = ("k9", "kernels", "lstop", "slice", "adjoint", "blocked", "timing")
 EXTRA_PHASES = ("variants",)   # run only when named
 
 
@@ -1579,6 +1861,9 @@ def main():
 	if "slice" in phases:
 		launches = slice_phase()
 		print("phase slice done at %.1f s" % (time.perf_counter() - t_start))
+	if "adjoint" in phases:
+		adjoint_phase()
+		print("phase adjoint done at %.1f s" % (time.perf_counter() - t_start))
 	if "blocked" in phases:
 		blk_records = blocked_phase()
 		print("phase blocked done at %.1f s" % (time.perf_counter() - t_start))

@@ -14,4 +14,5 @@ from . import wcsutils
 from . import enmap
 from . import fft
 from . import sht
+from . import powspec
 from . import curvedsky

@@ -5,9 +5,13 @@ Ports the map-level SHT path: alm_info (pixell_tpu/curvedsky.py:38),
 analyse_geometry (:327), ring reorientation (:400-419), alm2map (:505) and
 map2alm (:614) with deriv=, weights=, the niter Jacobi loop, the exact 2d
 phase path and the ring-edge quadrature of "cyl" geometries
-(_analysis_linear :686-813, weighted, non-mesh), plus rand_alm
-(:253-302), rand_map (:304), get_lmax_from_map (:317), alm2cl (:132) and
-almxfl (:160).
+(_analysis_linear :686-813, non-mesh), their adjoints (adjoint=True,
+alm2map_adjoint :604, map2alm_adjoint :661; the transpose of map2alm is
+written out by hand, where the reference takes jax.vjp), plus rand_alm
+(:253-302), rand_map (:304), get_lmax_from_map (:317), alm2cl (:132),
+almxfl (:160), filter (:168), transfer_alm (:213), the geometry, layout,
+profile, inverse and buffer helpers (:377-394, :1004-1037, :1152-1359) and
+the per-method entry points (:1365-1447).
 
 Every public function takes the reference's parameters in the
 reference's order; the port's own extras come last and are keyword-only.
@@ -15,17 +19,17 @@ Parameters that mean nothing on the card (verbose, nthread, epsilon,
 locinfo, tweak) are accepted and ignored, as is m_major, which the
 reference ignores too (its alm are m-major either way). The entry points
 that allocate (rand_alm, rand_alm_white, rand_map, prepare_alm) do so on
-device="cuda" unless told otherwise; alm2map and map2alm follow the map's
+device="cuda" unless told otherwise; the transforms follow the map's
 device. accuracy="high" runs the Legendre recurrence in float64 whatever
-the map's dtype. Theta banding
-(SYNTH_BAND_BYTES) is not ported: it was sized for a 16 GB chip. Not ported
-yet, and raising NotImplementedError: adjoint, the "general"
-geometry method and mesh= (multi-device).
+the map's dtype (sht.accuracy). Theta banding (SYNTH_BAND_BYTES) is not
+ported: it was sized for a 16 GB chip. Not ported yet, and raising
+NotImplementedError: the "general" geometry method and mesh=
+(multi-device); rotate_alm, prof2alm and the HEALPix helpers are absent.
 """
 from __future__ import annotations
 import numpy as np
 import torch
-from . import enmap, wcsutils, utils, sht
+from . import enmap, wcsutils, utils, sht, powspec
 from . import fft as enfft
 from .bunch import Bunch
 
@@ -92,6 +96,21 @@ class alm_info:
 		out = rect.new_zeros(rect.shape[:-2] + (self.nelem,))
 		out[..., torch.from_numpy(idx[lv, mv]).to(rect.device)] = rect[..., lv, mv]
 		return out
+	def get_map(self):
+		"""[nelem_valid, {l, m}]: the (l, m) of each valid entry, in
+		(l-major) row order of the rect view (pixell_tpu.curvedsky.
+		alm_info.get_map :72)."""
+		l = np.arange(self.lmax+1)[:, None]
+		m = np.arange(self.mmax+1)[None, :]
+		return np.stack([l + 0*m, 0*l + m], -1)[l >= m]
+	def transpose_alm(self, alm, out=None):
+		"""alm [..., nelem] -> [..., nelem_valid] in l-major order
+		(pixell_tpu.curvedsky.alm_info.transpose_alm :112); into out when
+		given."""
+		rect = self._rect(torch.as_tensor(alm))
+		lv, mv = np.nonzero(np.arange(self.lmax+1)[:, None] >= np.arange(self.mmax+1)[None, :])
+		res = rect[..., torch.from_numpy(lv).to(rect.device), torch.from_numpy(mv).to(rect.device)]
+		return res if out is None else out.copy_(res)
 	def alm2cl(self, alm, alm2=None, dtype=None):
 		"""Cross spectra; dtype is accepted and ignored, as in the reference."""
 		return alm2cl(alm, alm2=alm2, ainfo=self)
@@ -279,14 +298,17 @@ def _comp_spins(spin, ncomp):
 # ---------------------------------------------------------------------------
 # Map-level transforms
 # ---------------------------------------------------------------------------
-def _leg_dtype(accuracy):
-	if accuracy not in (None, "fast", "default", "high"):
-		raise ValueError("accuracy must be None, 'fast', 'default' or 'high'")
-	return torch.float64 if accuracy == "high" else None
-
-def _not_ported(adjoint=False, mesh=None):
-	if adjoint: raise NotImplementedError("adjoint transforms are not ported yet")
+def _not_ported(mesh=None):
 	if mesh is not None: raise NotImplementedError("mesh= (multi-device) is not ported yet")
+
+
+def _method(method, minfo):
+	"""The method a transform runs: minfo's case for "auto"; "general"
+	raises."""
+	if method == "auto": method = get_method(None, None, minfo=minfo)
+	if method not in ["2d", "cyl"]:
+		raise NotImplementedError("the '%s' geometry method is not ported yet" % method)
+	return method
 
 
 def _ctype(dtype):
@@ -309,6 +331,18 @@ def prepare_alm(alm=None, ainfo=None, lmax=None, pre=(), dtype=torch.float64, *,
 	return alm, ainfo
 
 
+def _into_alm(res, alm, copy, dtype):
+	"""res, the alm a transform computed: as a new tensor of dtype's complex
+	precision when alm is None, else written into alm (into a copy of it
+	with copy) and returned."""
+	if alm is None: return res.to(_ctype(dtype))
+	if tuple(alm.shape) != tuple(res.shape):
+		raise ValueError("alm has shape %s, the transform gives %s" % (tuple(alm.shape),
+			tuple(res.shape)))
+	if copy: alm = alm.clone()
+	return alm.copy_(res)
+
+
 def alm2map(alm, map, spin=[0, 2], deriv=False, adjoint=False, copy=False,
 		method="auto", ainfo=None, verbose=False, nthread=None, epsilon=None,
 		pix_tol=1e-6, locinfo=None, tweak=False, accuracy=None, mesh=None):
@@ -316,27 +350,44 @@ def alm2map(alm, map, spin=[0, 2], deriv=False, adjoint=False, copy=False,
 	(pixell_tpu.curvedsky.alm2map :505). Writes the result into map (unless
 	copy) and returns it. With deriv, alm is [nalm] and map [2, ny, nx]
 	receives the gradient (d/ddec, d/dra). accuracy="high" runs the
-	recurrence in float64."""
-	_not_ported(adjoint, mesh)
+	recurrence in float64. With adjoint, its transpose: reads map, writes
+	alm (unless copy) and returns it, as alm2map_adjoint."""
+	_not_ported(mesh)
 	alm = torch.as_tensor(alm, device=map.device)
 	if ainfo is None: ainfo = alm_info(nalm=alm.shape[-1])
 	minfo = analyse_geometry(map.shape, map.wcs, tol=pix_tol)
-	if method == "auto": method = minfo.case
-	if method not in ["2d", "cyl"]:
-		raise NotImplementedError("the '%s' geometry method is not ported yet" % method)
-	alm2 = alm if (deriv or alm.ndim > 1) else alm[None]
-	d = sht.synthesis(alm2, minfo.theta, minfo.nphi, phi0=minfo.phi0,
-		lmax=ainfo.lmax, mmax=ainfo.mmax, spin=spin, deriv=deriv, map_dtype=map.dtype,
-		leg_dtype=_leg_dtype(accuracy))
+	_method(method, minfo)
+	with sht.accuracy(accuracy):
+		if adjoint:
+			res = _analysis_linear(map.data, ainfo, minfo, spin, deriv, weighted=False)
+			return _into_alm(res, alm, copy, map.dtype)
+		alm2 = alm if (deriv or alm.ndim > 1) else alm[None]
+		d = sht.synthesis(alm2, minfo.theta, minfo.nphi, phi0=minfo.phi0,
+			lmax=ainfo.lmax, mmax=ainfo.mmax, spin=spin, deriv=deriv, map_dtype=map.dtype)
 	if deriv:
-		# the engine gives (d/dtheta, d/dphi); the map holds (d/ddec, d/dra)
-		d = torch.stack([-d[..., 0, :, :], d[..., 1, :, :]], -3)
+		d = alm2_pre(d, deriv)
 	elif alm.ndim == 1:
 		d = d[..., 0, :, :]
 	d = _from_rings(d, minfo, map.shape[-1])
 	if copy: return enmap.ndmap(d, map.wcs)
 	map.data = d
 	return map
+
+
+def alm2map_adjoint(map, alm=None, spin=[0, 2], deriv=False, copy=False,
+		method="auto", ainfo=None, verbose=False, nthread=None, epsilon=None,
+		pix_tol=1e-6, locinfo=None, accuracy=None):
+	"""Adjoint of alm2map (pixell_tpu.curvedsky.alm2map_adjoint :604): map ->
+	alm, the transpose of synthesis on the map's own rings, no quadrature
+	weights. lmax is the map's (get_lmax_from_map) unless alm or ainfo say
+	otherwise; into alm when given, as alm2map(adjoint=True)."""
+	ainfo = _ainfo_of(alm, ainfo, get_lmax_from_map(map))
+	minfo = analyse_geometry(map.shape, map.wcs, tol=pix_tol)
+	_method(method, minfo)
+	with sht.accuracy(accuracy):
+		res = _analysis_linear(map.data, ainfo, minfo, spin, deriv, weighted=False)
+	if alm is not None: alm = torch.as_tensor(alm, device=map.device)
+	return _into_alm(res, alm, copy, map.dtype)
 
 
 def map2alm(map, alm=None, lmax=None, spin=[0, 2], deriv=False, adjoint=False,
@@ -350,24 +401,38 @@ def map2alm(map, alm=None, lmax=None, spin=[0, 2], deriv=False, adjoint=False,
 	weights on other cylindrical ("cyl") geometries; refined by niter Jacobi
 	iterations. With deriv, map is the gradient [2, ny, nx] (d/ddec, d/dra)
 	and the result one alm. Writes into alm when given, or with copy into a
-	copy of it, leaving alm as it was."""
-	_not_ported(adjoint, mesh)
-	ainfo = _ainfo_of(alm, ainfo, lmax)
+	copy of it, leaving alm as it was. With adjoint, its transpose: reads
+	alm, writes map and returns it, as map2alm_adjoint (weights and niter
+	are ignored then, as in the reference)."""
+	_not_ported(mesh)
 	minfo = analyse_geometry(map.shape, map.wcs, tol=pix_tol)
-	if method == "auto": method = minfo.case
-	if method not in ["2d", "cyl"]:
-		raise NotImplementedError("map2alm on '%s' geometries is not ported yet" % method)
-	ldt = _leg_dtype(accuracy)
-	res = _analysis_linear(map.data, ainfo, minfo, spin, deriv, ldt, weights)
-	for it in range(niter):
-		approx = alm2map(res, enmap.zeros(map.shape, map.wcs, map.dtype, map.device),
-			spin=spin, deriv=deriv, ainfo=ainfo, accuracy=accuracy)
-		res = res + _analysis_linear(map.data - approx.data, ainfo, minfo, spin, deriv, ldt,
-			weights)
-	if alm is None: return res.to(_ctype(map.dtype))
-	if copy: alm = alm.clone()
-	alm.copy_(res)
-	return alm
+	_method(method, minfo)
+	if adjoint:
+		with sht.accuracy(accuracy):
+			return _adjoint_map2alm(alm, map, ainfo, minfo, spin, deriv)
+	ainfo = _ainfo_of(alm, ainfo, lmax)
+	with sht.accuracy(accuracy):
+		res = _analysis_linear(map.data, ainfo, minfo, spin, deriv, weights=weights)
+		for it in range(niter):
+			approx = alm2map(res, enmap.zeros(map.shape, map.wcs, map.dtype, map.device),
+				spin=spin, deriv=deriv, ainfo=ainfo)
+			res = res + _analysis_linear(map.data - approx.data, ainfo, minfo, spin, deriv,
+				weights=weights)
+	return _into_alm(res, alm, copy, map.dtype)
+
+
+def map2alm_adjoint(alm, map, lmax=None, spin=[0, 2], deriv=False,
+		accuracy=None, **kw):
+	"""Adjoint of map2alm (pixell_tpu.curvedsky.map2alm_adjoint :661): alm ->
+	map, the exact transpose of the quadrature analysis of map's geometry
+	(without weights= or niter). Writes into map and returns it. ainfo
+	comes from kw or from alm; with alm None and lmax given, a zero alm."""
+	minfo = analyse_geometry(map.shape, map.wcs, tol=kw.get("pix_tol", 1e-6))
+	_method(kw.get("method", "auto"), minfo)
+	if lmax is not None and alm is None:
+		alm, _ = prepare_alm(None, None, lmax=lmax, dtype=map.dtype, device=map.device)
+	with sht.accuracy(accuracy):
+		return _adjoint_map2alm(alm, map, kw.get("ainfo"), minfo, spin, deriv)
 
 
 def _edge_weights(theta):
@@ -383,40 +448,482 @@ def _edge_weights(theta):
 	return np.abs(np.cos(edges[:-1]) - np.cos(edges[1:]))
 
 
-def _analysis_linear(arr, ainfo, minfo, spin, deriv, leg_dtype, weights=None):
+def alm2_pre(d, deriv):
+	"""For deriv transforms, (d/ddec, d/dra) <-> (d/dtheta, d/dphi)
+	(pixell_tpu.curvedsky.alm2_pre :816); its own transpose and inverse."""
+	if not deriv: return d
+	return torch.stack([-d[..., 0, :, :], d[..., 1, :, :]], -3)
+
+
+def _upsampled_rings(minfo, lmax, ntfull):
+	"""The ring count the 2d analysis runs its quadrature on: ntfull, or
+	where 2 lmax + 1 > ntfull, the 2-3-5-7-smooth count above 2 lmax + 2
+	(which keeps the torus FFT off Bluestein)."""
+	need = 2*lmax + 1
+	return enfft.fft_len(need + 2, direction="above") if need > ntfull else ntfull
+
+
+def _analysis_linear(arr, ainfo, minfo, spin, deriv, weighted=True, weights=None):
 	"""map pixels -> alm on a 2d or cyl geometry (pixell_tpu.curvedsky.
-	_analysis_linear :686-813, weighted, non-mesh), by minfo.case as the
-	reference decides. With weights, or on a cyl geometry with its ring-edge
-	weights, quadrature on the map's own rings. On a 2d (full-sky
-	quadrature) geometry it goes to per-ring phases first, so the y padding,
-	the exact theta upsample and the quadrature run on the [nm]-wide
-	spectrum and the ring FFT happens once."""
+	_analysis_linear :686-813, non-mesh), by minfo.case as the reference
+	decides. Unweighted, the transpose of synthesis on the map's own rings
+	(alm2map's adjoint). With weights, or on a cyl geometry with its
+	ring-edge weights, quadrature on the map's own rings. On a 2d
+	(full-sky quadrature) geometry it goes to per-ring phases first, so the
+	y padding, the exact theta upsample and the quadrature run on the
+	[nm]-wide spectrum and the ring FFT happens once."""
 	d = _to_rings(arr, minfo)
 	flat2d = (not deriv) and d.ndim == 2
 	if flat2d: d = d[None]
-	if deriv:
-		# (d/ddec, d/dra) back to (d/dtheta, d/dphi) (alm2_pre :816)
-		d = torch.stack([-d[..., 0, :, :], d[..., 1, :, :]], -3)
-	if weights is not None or minfo.case != "2d":
+	d = alm2_pre(d, deriv)
+	if not weighted:
+		a = sht.adjoint_synthesis(d, minfo.theta, ainfo.lmax, mmax=ainfo.mmax, phi0=minfo.phi0,
+			spin=spin, deriv=deriv)
+	elif weights is not None or minfo.case != "2d":
 		if weights is None: w = _edge_weights(minfo.theta)
 		else: w = np.asarray(weights)[::-1] if minfo.flip[0] else weights
 		a = sht.analysis(d, minfo.theta, ainfo.lmax, w, mmax=ainfo.mmax, phi0=minfo.phi0,
-			spin=spin, deriv=deriv, leg_dtype=leg_dtype)
-		return a[..., 0, :] if flat2d else a
-	ny, nphi = d.shape[-2:]
-	ntfull = ny + minfo.ypad[0] + minfo.ypad[1]
-	F = sht.ring_analysis(d, minfo.phi0, ainfo.mmax+1)
-	if minfo.ypad[0] or minfo.ypad[1]:
-		F = torch.nn.functional.pad(F, (int(minfo.ypad[0]), int(minfo.ypad[1])))
-	need = 2*ainfo.lmax + 1
-	if need > ntfull:
-		# a 2-3-5-7-smooth ring count keeps the torus FFT off Bluestein
-		ntu = enfft.fft_len(need + 2, direction="above")
-		spins = [1, 0] if deriv else _comp_spins(spin, d.shape[-3])
-		F = sht.resample_theta_phase(F, minfo.variant, ntu, spins)
-		ntfull = ntu
-	theta_f = sht.ring_theta(minfo.variant, ntfull)
-	w = sht.ring_weights(minfo.variant, ntfull)
-	a = sht.analysis_phase(F, theta_f, ainfo.lmax, w, nphi, mmax=ainfo.mmax,
-		spin=spin, deriv=deriv, leg_dtype=leg_dtype)
+			spin=spin, deriv=deriv)
+	else:
+		ny, nphi = d.shape[-2:]
+		ntfull = ny + minfo.ypad[0] + minfo.ypad[1]
+		F = sht.ring_analysis(d, minfo.phi0, ainfo.mmax+1)
+		if minfo.ypad[0] or minfo.ypad[1]:
+			F = torch.nn.functional.pad(F, (int(minfo.ypad[0]), int(minfo.ypad[1])))
+		ntu = _upsampled_rings(minfo, ainfo.lmax, ntfull)
+		if ntu != ntfull:
+			spins = [1, 0] if deriv else _comp_spins(spin, d.shape[-3])
+			F = sht.resample_theta_phase(F, minfo.variant, ntu, spins)
+		a = sht.analysis_phase(F, sht.ring_theta(minfo.variant, ntu), ainfo.lmax,
+			sht.ring_weights(minfo.variant, ntu), nphi, mmax=ainfo.mmax, spin=spin, deriv=deriv)
 	return a[..., 0, :] if flat2d else a
+
+
+def _adjoint_map2alm(alm, map, ainfo, minfo, spin, deriv):
+	"""map2alm with adjoint=True: reads alm, writes map's pixels and returns
+	map. The exact transpose of _analysis_linear(weighted=True) without
+	weights (pixell_tpu.curvedsky._adjoint_map2alm :821, there jax.vjp),
+	written out step by step: each stage of the analysis, taken back in
+	the reverse order. On a cyl geometry, adjoint_analysis on the map's own
+	rings with their edge weights. On a 2d geometry, the m > 0 alm halved
+	(the transpose of ring_analysis is ring_synthesis of the halved
+	phases), the Legendre synthesis to per-ring phases on the quadrature
+	rings, their weights, the conjugate transpose of the theta upsample,
+	the y padding cropped, and ring_synthesis. Then alm2_pre and
+	_from_rings, the transposes of alm2_pre and _to_rings."""
+	alm = torch.as_tensor(alm, device=map.device)
+	if ainfo is None: ainfo = alm_info(nalm=alm.shape[-1])
+	lmax, mmax = ainfo.lmax, ainfo.mmax
+	a = alm.to(_ctype(map.dtype))
+	flat2d = (not deriv) and map.ndim == 2
+	if flat2d: a = a[None]
+	if minfo.case != "2d":
+		d = sht.adjoint_analysis(a, minfo.theta, minfo.nphi, _edge_weights(minfo.theta),
+			phi0=minfo.phi0, lmax=lmax, mmax=mmax, spin=spin, deriv=deriv, map_dtype=map.dtype)
+	else:
+		y0, y1 = int(minfo.ypad[0]), int(minfo.ypad[1])
+		ntfull = map.shape[-2] + y0 + y1
+		ntu = _upsampled_rings(minfo, lmax, ntfull)
+		G = sht.synthesis_phase(sht._undo_m_degeneracy(a, lmax, mmax),
+			sht.ring_theta(minfo.variant, ntu), lmax, mmax, spin=spin, deriv=deriv)
+		G = G*sht._ring_weights_on(sht.ring_weights(minfo.variant, ntu), minfo.nphi,
+			G.real.dtype, G.device)
+		if ntu != ntfull:
+			spins = [1, 0] if deriv else _comp_spins(spin, G.shape[-3])
+			G = sht.resample_theta_phase_adjoint(G, minfo.variant, ntfull, spins)
+		d = sht.ring_synthesis(G[..., y0:ntfull - y1], minfo.phi0, minfo.nphi).to(map.dtype)
+	d = alm2_pre(d, deriv)
+	if flat2d: d = d[0]
+	map.data = _from_rings(d, minfo, map.shape[-1])
+	return map
+
+
+# ---------------------------------------------------------------------------
+# Geometry and layout helpers (pixell_tpu/curvedsky.py:168-248, :377-394)
+# ---------------------------------------------------------------------------
+def get_method(shape, wcs, minfo=None, pix_tol=1e-6):
+	"""The method map2alm and alm2map take on this geometry: "2d", "cyl" or
+	"general" (pixell_tpu.curvedsky.get_method :377)."""
+	if minfo is None: minfo = analyse_geometry(shape, wcs, tol=pix_tol)
+	return minfo.case if minfo.case != "partial" else "cyl"
+
+
+def quad_weights(shape, wcs, pix_tol=1e-6):
+	"""Quadrature weights per map row times 2 pi/nphi, on 2d geometries
+	(pixell_tpu.curvedsky.quad_weights :382); numpy."""
+	minfo = analyse_geometry(shape, wcs, tol=pix_tol)
+	if minfo.case != "2d":
+		raise ValueError("Quadrature weights not available for geometry %s,%s"
+			% (str(shape), str(wcs)))
+	nfull = shape[-2] + minfo.ypad[0] + minfo.ypad[1]
+	w = sht.ring_weights(minfo.variant, nfull)[minfo.ypad[0]:nfull-minfo.ypad[1]]
+	if minfo.flip[0]: w = w[::-1]
+	return w*(2*np.pi)/minfo.nphi
+
+
+def filter(imap, lfilter, ainfo=None, lmax=None):
+	"""Filter a map by a function or array of l: map2alm, almxfl, alm2map
+	(pixell_tpu.curvedsky.filter :168). Returns a new map."""
+	if lmax is None: lmax = get_lmax_from_map(imap)
+	alm = map2alm(imap, lmax=lmax, ainfo=ainfo)
+	alm = almxfl(alm, lfilter, ainfo=alm_info(lmax=lmax) if ainfo is None else ainfo)
+	return alm2map(alm, enmap.zeros(imap.shape, imap.wcs, imap.dtype, imap.device))
+
+
+def _op_replace(a, b): return b
+
+def transfer_alm(iainfo, alm, oainfo, out=None, op=_op_replace):
+	"""alm in the layout iainfo -> the layout oainfo (pixell_tpu.curvedsky.
+	transfer_alm :213): the entries both hold are op(out's, alm's), by
+	default alm's; the others are out's, or zero. Into out when given.
+	Identical layouts give a copy: the reference returns its input aliased
+	there (its :225-229), which a mutable tensor must not be."""
+	alm = torch.as_tensor(alm)
+	if out is None and op is _op_replace and iainfo.lmax == oainfo.lmax \
+			and iainfo.mmax == oainfo.mmax and iainfo.stride == oainfo.stride \
+			and np.array_equal(iainfo.mstart, oainfo.mstart):
+		return alm.clone()
+	lmax, mmax = min(iainfo.lmax, oainfo.lmax), min(iainfo.mmax, oainfo.mmax)
+	lv, mv = np.nonzero(np.arange(lmax+1)[:, None] >= np.arange(mmax+1)[None, :])
+	ii = torch.from_numpy(iainfo.mstart[mv] + lv*iainfo.stride).to(alm.device)
+	oi = torch.from_numpy(oainfo.mstart[mv] + lv*oainfo.stride).to(alm.device)
+	if out is None: out = alm.new_zeros(alm.shape[:-1] + (oainfo.nelem,))
+	out[..., oi] = op(out[..., oi], alm[..., ii]).to(out.dtype)
+	return out
+
+
+def alm_complex2real(alm, ainfo=None):
+	"""Complex alm -> the real layout: the m = 0 real parts, then the m > 0
+	entries' interleaved real and imaginary parts times sqrt(2)
+	(pixell_tpu.curvedsky.alm_complex2real :1226)."""
+	alm = torch.as_tensor(alm)
+	if ainfo is None: ainfo = alm_info(nalm=alm.shape[-1])
+	i = int(ainfo.mstart[1] + 1)
+	rest = torch.view_as_real(alm[..., i:].contiguous()).reshape(alm.shape[:-1] + (-1,))
+	return torch.cat([alm[..., :i].real, 2**0.5*rest], -1)
+
+
+def alm_real2complex(ralm, ainfo=None):
+	"""Inverse of alm_complex2real (pixell_tpu.curvedsky.alm_real2complex
+	:1237)."""
+	ralm = torch.as_tensor(ralm)
+	if ainfo is None:
+		ainfo = alm_info(lmax=int(utils.nint((ralm.shape[-1] - 1)**0.5)) - 1)
+	i = int(ainfo.mstart[1] + 1)
+	pairs = ralm[..., i:].reshape(ralm.shape[:-1] + (-1, 2)).contiguous()
+	return torch.cat([ralm[..., :i].to(_ctype(ralm.dtype)), torch.view_as_complex(pairs)/2**0.5], -1)
+
+
+def get_ring_info(theta_or_shape, wcs=None):
+	"""Ring structure of a cylindrical geometry, or of explicit colatitudes
+	(pixell_tpu.curvedsky.get_ring_info :1152)."""
+	if wcs is not None:
+		minfo = analyse_geometry(theta_or_shape, wcs)
+		theta = np.asarray(minfo.theta)
+		nphi = np.full(len(theta), minfo.nphi, int)
+		phi0 = np.full(len(theta), minfo.phi0)
+	else:
+		theta = np.asarray(theta_or_shape)
+		nphi = None; phi0 = None
+	return Bunch(theta=theta, nphi=nphi, phi0=phi0, nring=len(theta))
+
+
+def get_ring_info_radial(r):
+	"""Ring info with one pixel per ring, for mmax = 0 transforms
+	(pixell_tpu.curvedsky.get_ring_info_radial :1302)."""
+	theta = np.asarray(r, np.float64)
+	n = len(theta)
+	return Bunch(theta=theta, nphi=np.ones(n, np.uint64), phi0=np.zeros(n),
+		offsets=np.arange(n, dtype=np.uint64), stride=np.ones(n, np.int32), npix=n, nrow=n)
+
+
+def apply_minfo_theta_lim(minfo, theta_min=None, theta_max=None):
+	"""A ring info restricted to theta_min <= theta <= theta_max
+	(pixell_tpu.curvedsky.apply_minfo_theta_lim :1290)."""
+	if theta_min is None and theta_max is None: return minfo
+	mask = np.full(len(minfo.theta), True, bool)
+	if theta_min is not None: mask &= minfo.theta >= theta_min
+	if theta_max is not None: mask &= minfo.theta <= theta_max
+	res = minfo.copy()
+	for key in ["theta", "nphi", "phi0", "offsets"]:
+		if key in res: res[key] = res[key][mask]
+	return res
+
+
+def get_ducc_geo(wcs, shape=None, tol=1e-6):
+	"""Bunch(name, phi0) of the full-sky ring grid a geometry lies on ("CC"
+	or "F1"), or None (pixell_tpu.curvedsky.get_ducc_geo :1311)."""
+	if shape is None: shape = (2, 2)
+	minfo = analyse_geometry(shape, wcs, tol=tol)
+	if minfo.case != "2d" or minfo.variant is None: return None
+	return Bunch(name=minfo.variant, phi0=float(minfo.phi0))
+
+
+def get_ducc_maxlmax(name, ny):
+	"""The largest lmax a ring layout of ny rings supports exactly
+	(pixell_tpu.curvedsky.get_ducc_maxlmax :1324)."""
+	if name == "CC": return ny - 2
+	if name == "DH": return (ny - 2)//2
+	if name == "F2": return (ny - 1)//2
+	return ny - 1
+
+
+class ShapeError(ValueError): pass
+
+
+def dangerous_dtype(dtype):
+	"""Whether dtype is not in native byte order (pixell_tpu.curvedsky.
+	dangerous_dtype); torch dtypes always are."""
+	if isinstance(dtype, torch.dtype): return False
+	return np.dtype(dtype).byteorder not in "=|"
+
+
+def prepare_raw(alm, map, ainfo=None, lmax=None, deriv=False, verbose=False,
+		nthread=None, pixdims=2, convert_alm=False):
+	"""(alm, map, ainfo) with the missing alm allocated, on map's device
+	(pixell_tpu.curvedsky.prepare_raw :1449)."""
+	if alm is None and map is None:
+		raise ValueError("prepare_raw needs at least one of alm, map")
+	if alm is not None:
+		ainfo = ainfo or alm_info(nalm=alm.shape[-1], lmax=lmax)
+	else:
+		alm, ainfo = prepare_alm(None, ainfo, lmax=lmax, pre=tuple(map.shape[:-pixdims]),
+			device=map.device)
+	return alm, map, ainfo
+
+
+def pad_spectrum(ps, lmax):
+	"""A power spectrum zero-extended (or cut) to lmax (pixell_tpu.
+	curvedsky.pad_spectrum :1180); numpy."""
+	ps = np.asarray(ps)
+	ops = np.zeros(ps.shape[:-1] + (lmax+1,), ps.dtype)
+	n = min(ps.shape[-1], lmax+1)
+	ops[..., :n] = ps[..., :n]
+	return ops
+
+
+def prepare_ps(ps, ainfo=None, lmax=None):
+	"""(ps as [ncomp, ncomp, nl], its alm_info) (pixell_tpu.curvedsky.
+	prepare_ps :1188); a [nspec, nl] spectrum is expanded in the diagonal
+	order."""
+	ps = np.asarray(ps)
+	if ainfo is None:
+		if lmax is None: lmax = ps.shape[-1] - 1
+		if lmax > ps.shape[-1] - 1: ps = pad_spectrum(ps, lmax)
+		ainfo = alm_info(lmax)
+	if ps.ndim == 1: wps = ps[None, None]
+	elif ps.ndim == 2: wps = powspec.sym_expand(ps, scheme="diag")
+	elif ps.ndim == 3: wps = ps
+	else: raise ValueError("power spectrum must be [nl], [nspec,nl] or [ncomp,ncomp,nl]")
+	return wps, ainfo
+
+
+# ---------------------------------------------------------------------------
+# 1D profile transforms (pixell_tpu/curvedsky.py:1004-1037), host numpy
+# ---------------------------------------------------------------------------
+def _legendre_p(lmax, x):
+	"""P_l(x) [nl, ...] for l = 0..lmax at the points x, by the m = 0
+	recurrence."""
+	x = np.asarray(x, np.float64)
+	res = np.empty((lmax+1,) + x.shape)
+	res[0] = 1
+	if lmax >= 1: res[1] = x
+	for l in range(2, lmax+1):
+		res[l] = ((2*l-1)*x*res[l-1] - (l-1)*res[l-2])/l
+	return res
+
+
+def profile2harm(br, r, lmax=None, oversample=1, left=None, right=None):
+	"""Radial profile br(r) (r in radians from the centre) -> b_l = 2 pi int
+	br(theta) P_l(cos theta) sin theta dtheta, by Gauss-Legendre quadrature
+	(pixell_tpu.curvedsky.profile2harm :1015)."""
+	br = np.asarray(br); r = np.asarray(r)
+	if lmax is None: lmax = 2*len(r)
+	nq = int((lmax + 1)*max(oversample, 1))
+	x, w = np.polynomial.legendre.leggauss(nq)
+	bq = np.interp(np.arccos(x), r, br, left=left if left is not None else br[0],
+		right=right if right is not None else 0)
+	return 2*np.pi*np.einsum("q,lq,q->l", w, _legendre_p(lmax, x), bq)
+
+
+def harm2profile(bl, r):
+	"""Inverse of profile2harm: b(theta) = sum_l (2l+1)/(4 pi) b_l
+	P_l(cos theta) (pixell_tpu.curvedsky.harm2profile :1030)."""
+	bl = np.asarray(bl)
+	lmax = bl.shape[-1]-1
+	l = np.arange(lmax+1)
+	return np.einsum("...l,l,lq->...q", bl, (2*l+1)/(4*np.pi), _legendre_p(lmax, np.cos(np.asarray(r))))
+
+
+# ---------------------------------------------------------------------------
+# Inverses of a forward operator (pixell_tpu/curvedsky.py:1332-1359)
+# ---------------------------------------------------------------------------
+def jacobi_inverse(forward, approx_backward, y, niter=0):
+	"""x from y = forward(x) by Jacobi iteration on approx_backward
+	(pixell_tpu.curvedsky.jacobi_inverse :1332)."""
+	x = approx_backward(y)
+	for i in range(niter):
+		x = x - approx_backward(forward(x) - y)
+	return x
+
+
+def _host(x):
+	"""A tensor or ndmap as a numpy array on the host."""
+	if isinstance(x, enmap.ndmap): x = x.data
+	if isinstance(x, torch.Tensor): return x.detach().cpu().numpy()
+	return np.asarray(x)
+
+
+def minres_inverse(forward, approx_backward, y, epsilon=1e-6, maxiter=100,
+		zip=None, unzip=None, verbose=False):
+	"""Maximum-likelihood x from y = forward(x): Minres on the normal
+	equations approx_backward(forward(x)) = approx_backward(y)
+	(pixell_tpu.curvedsky.minres_inverse :1340). The solver runs on the
+	host with numpy vectors, as in the reference; zip maps an x (as numpy)
+	to a vector, unzip a vector back to an x. By default unzip gives a
+	tensor of approx_backward(y)'s shape, dtype and device, so that forward
+	and approx_backward see tensors."""
+	x0 = approx_backward(y)
+	if zip is None: zip = lambda x: np.asarray(x).reshape(-1)
+	if unzip is None:
+		like = x0.data if isinstance(x0, enmap.ndmap) else x0
+		shape = tuple(like.shape)
+		if isinstance(like, torch.Tensor):
+			unzip = lambda v: torch.as_tensor(np.asarray(v).reshape(shape)).to(like.device, like.dtype)
+		else:
+			unzip = lambda v: np.asarray(v).reshape(shape)
+	b = zip(_host(x0))
+	def A(v):
+		return zip(_host(approx_backward(forward(unzip(np.asarray(v))))))
+	solver = utils.Minres(A, b)
+	while solver.err > epsilon and solver.i < maxiter:
+		solver.step()
+		if verbose: print("minres %4d %15.7e" % (solver.i, solver.err))
+	return unzip(np.asarray(solver.x))
+
+
+# ---------------------------------------------------------------------------
+# Flips and padding of map buffers (pixell_tpu/curvedsky.py:1250-1288)
+# ---------------------------------------------------------------------------
+def flip2slice(flips):
+	res = (Ellipsis,)
+	for flip in flips:
+		res = res + (slice(None, None, 1 - 2*int(flip)),)
+	return res
+
+
+def flip_geometry(shape, wcs, flips):
+	return enmap.slice_geometry(shape, wcs, flip2slice(flips)[1:])
+
+
+def flip_array(arr, flips):
+	"""arr with its last len(flips) axes reversed where flips says so; an
+	ndmap keeps a wcs that follows (arr[flip2slice(flips)] in the
+	reference, whose negative steps torch tensors do not take)."""
+	data = arr.data if isinstance(arr, enmap.ndmap) else torch.as_tensor(arr)
+	dims = [i - len(flips) for i, f in enumerate(flips) if f]
+	res = data.flip(dims) if dims else data
+	if isinstance(arr, enmap.ndmap):
+		return enmap.ndmap(res, flip_geometry(arr.shape, arr.wcs, flips)[1])
+	return res
+
+
+def pad_geometry(shape, wcs, pad):
+	pad = np.asarray(pad, int)
+	h = int(pad[0, 0] + shape[-2] + pad[1, 0])
+	w = int(pad[0, 1] + shape[-1] + pad[1, 1])
+	wcs = wcs.deepcopy()
+	wcs.wcs.crpix = np.asarray(wcs.wcs.crpix) + pad[0, ::-1]
+	return tuple(shape[:-2]) + (h, w), wcs
+
+
+def map2buffer(map, flip, pad, obuf=False):
+	"""map flipped and zero padded into a buffer map of the padded geometry
+	(pixell_tpu.curvedsky.map2buffer :1270); with obuf, the buffer left
+	zero."""
+	pad = np.asarray(pad, int)
+	shape, wcs = pad_geometry(*flip_geometry(map.shape, map.wcs, flip), pad)
+	buf = enmap.zeros(shape, wcs, map.dtype, map.device)
+	if not obuf:
+		buf.data[..., pad[0, 0]:shape[-2]-pad[1, 0], pad[0, 1]:shape[-1]-pad[1, 1]] = \
+			flip_array(map, flip).data
+	return buf
+
+
+def buffer2map(map, flip, pad):
+	"""Inverse of map2buffer (pixell_tpu.curvedsky.buffer2map :1283): the
+	padding cropped, then the flips undone."""
+	pad = np.asarray(pad, int)
+	ny, nx = map.shape[-2:]
+	sel = (slice(pad[0, 0], ny-pad[1, 0]), slice(pad[0, 1], nx-pad[1, 1]))
+	shape, wcs = enmap.slice_geometry(map.shape, map.wcs, sel)
+	return flip_array(enmap.ndmap(map.data[(Ellipsis,) + sel], wcs), flip)
+
+
+# ---------------------------------------------------------------------------
+# Per-method entry points (pixell_tpu/curvedsky.py:1365-1447): routers into
+# alm2map and map2alm with the method fixed. The "general" ones raise until
+# that method is ported.
+# ---------------------------------------------------------------------------
+def alm2map_2d(alm, map, ainfo=None, minfo=None, spin=[0, 2], deriv=False,
+		copy=False, verbose=False, adjoint=False, nthread=None, pix_tol=1e-6):
+	return alm2map(alm, map, spin=spin, deriv=deriv, adjoint=adjoint, copy=copy, method="2d",
+		ainfo=ainfo, verbose=verbose)
+
+def alm2map_cyl(alm, map, ainfo=None, minfo=None, spin=[0, 2], deriv=False,
+		copy=False, verbose=False, adjoint=False, nthread=None, pix_tol=1e-6):
+	return alm2map(alm, map, spin=spin, deriv=deriv, adjoint=adjoint, copy=copy, method="cyl",
+		ainfo=ainfo, verbose=verbose)
+
+def alm2map_general(alm, map, ainfo=None, spin=[0, 2], deriv=False, copy=False,
+		verbose=False, adjoint=False, nthread=None, locinfo=None, epsilon=None):
+	return alm2map(alm, map, spin=spin, deriv=deriv, adjoint=adjoint, copy=copy,
+		method="general", ainfo=ainfo, verbose=verbose)
+
+def map2alm_2d(map, alm=None, ainfo=None, minfo=None, lmax=None, spin=[0, 2],
+		deriv=False, copy=False, verbose=False, adjoint=False, nthread=None,
+		pix_tol=1e-6):
+	return map2alm(map, alm=alm, lmax=lmax, spin=spin, deriv=deriv, adjoint=adjoint, copy=copy,
+		method="2d", ainfo=ainfo, verbose=verbose)
+
+def map2alm_cyl(map, alm=None, ainfo=None, minfo=None, lmax=None, spin=[0, 2],
+		weights=None, deriv=False, copy=False, verbose=False, adjoint=False,
+		nthread=None, pix_tol=1e-6, niter=0):
+	return map2alm(map, alm=alm, lmax=lmax, spin=spin, deriv=deriv, adjoint=adjoint, copy=copy,
+		method="cyl", ainfo=ainfo, verbose=verbose, niter=niter, weights=weights)
+
+def map2alm_general(map, alm=None, ainfo=None, minfo=None, lmax=None,
+		spin=[0, 2], weights=None, deriv=False, copy=False, verbose=False,
+		adjoint=False, nthread=None, locinfo=None, epsilon=None, niter=0):
+	return map2alm(map, alm=alm, lmax=lmax, spin=spin, deriv=deriv, adjoint=adjoint, copy=copy,
+		method="general", ainfo=ainfo, verbose=verbose, niter=niter)
+
+def alm2map_raw_2d(alm, map, ainfo=None, spin=[0, 2], deriv=False, copy=False,
+		verbose=False, adjoint=False, nthread=None):
+	"""alm2map_2d without the case analysis's extras; the map must be a
+	full-sky CC/F1 ring buffer (pixell_tpu.curvedsky.alm2map_raw_2d)."""
+	return alm2map_2d(alm, map, ainfo=ainfo, spin=spin, deriv=deriv, copy=copy, adjoint=adjoint)
+
+def alm2map_raw_cyl(alm, map, ainfo=None, minfo=None, spin=[0, 2], deriv=False,
+		copy=False, verbose=False, adjoint=False, nthread=None):
+	return alm2map_cyl(alm, map, ainfo=ainfo, spin=spin, deriv=deriv, copy=copy, adjoint=adjoint)
+
+def alm2map_raw_general(alm, map, loc, ainfo=None, spin=[0, 2], deriv=False,
+		copy=False, verbose=False, adjoint=False, nthread=None, epsilon=None):
+	raise NotImplementedError("the 'general' geometry method is not ported yet")
+
+def map2alm_raw_2d(map, alm=None, ainfo=None, lmax=None, spin=[0, 2],
+		deriv=False, copy=False, verbose=False, adjoint=False, nthread=None):
+	return map2alm_2d(map, alm=alm, ainfo=ainfo, lmax=lmax, spin=spin, deriv=deriv, copy=copy,
+		adjoint=adjoint)
+
+def map2alm_raw_cyl(map, alm=None, ainfo=None, lmax=None, spin=[0, 2],
+		weights=None, deriv=False, copy=False, verbose=False, adjoint=False,
+		niter=0, nthread=None):
+	return map2alm_cyl(map, alm=alm, ainfo=ainfo, lmax=lmax, spin=spin, weights=weights,
+		deriv=deriv, copy=copy, adjoint=adjoint, niter=niter)
+
+def map2alm_raw_general(map, loc, alm=None, ainfo=None, lmax=None, spin=[0, 2],
+		weights=None, deriv=False, copy=False, verbose=False, adjoint=False,
+		nthread=None, niter=0, epsilon=None):
+	raise NotImplementedError("the 'general' geometry method is not ported yet")

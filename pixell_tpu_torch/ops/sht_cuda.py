@@ -144,36 +144,76 @@ def polar_counts(theta, lmax):
 	return int(np.searchsorted(th, tcut)), int(np.sum(th > np.pi - tcut))
 
 
+_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def host_coef(nl, nm, ndt):
+	"""[3, nl, nm] numpy ndt: a_lm, b_lm and e_lm by the formulas of
+	sht_core.recur_ab and recur_e, evaluated in ndt with numpy's IEEE
+	(correctly rounded) sqrt and divide."""
+	l = np.arange(nl, dtype=ndt)[:, None]
+	m = np.arange(nm, dtype=ndt)[None, :]
+	a = np.sqrt(np.maximum((2*l - 1)*(2*l + 1), 0)/np.maximum((l - m)*(l + m), 0.25))
+	b = np.sqrt(np.maximum((l - 1 - m)*(l - 1 + m), 0)/np.maximum((2*l - 3)*(2*l - 1), 1))
+	e = np.sqrt(np.maximum((l - m)*(l + m)*(2*l + 1), 0)/np.maximum(2*l - 1, 1))
+	return np.stack([a, b, e])
+
+
+def host_wigner(nl, nm, s):
+	"""[3, nl, nm] float64 numpy: a, b, c of the Wigner-d recurrence at spin s
+	by the formulas of sht_core.wigner_abc."""
+	l = np.arange(nl, dtype=np.float64)[:, None]
+	m = np.arange(nm, dtype=np.float64)[None, :]
+	sf = float(s)
+	def v(lv):
+		num = np.maximum((lv - m)*(lv + m)*(lv - sf)*(lv + sf), 0)
+		den = np.maximum(lv*np.sqrt(np.maximum(4*lv*lv - 1, 0)), 1)
+		return np.sqrt(num)/den
+	vl = v(l)
+	a = np.where(vl > 0, 1/np.maximum(vl, 1e-30), 0)
+	c = m*sf/np.maximum((l - 1)*l, 1)
+	live = l > np.maximum(m, sf)
+	return np.stack([np.where(live, t, 0) for t in (a, v(l - 1), c)])
+
+
+def host_l_norms(mode, nl, ndt):
+	"""[2, nl] numpy ndt: nrm and hp of the mode functions by the formulas of
+	sht_core.l_norms."""
+	l = np.arange(nl, dtype=ndt)
+	if mode == "deriv":
+		nrm = np.sqrt(np.maximum(l*(l + 1), 0))
+	elif mode == "spin1":
+		nrm = 1/np.sqrt(np.maximum(l*(l + 1), 1))
+	else:
+		nrm = 1/np.sqrt(np.maximum((l - 1)*l*(l + 1)*(l + 2), 1))
+	return np.stack([nrm, np.sqrt((2*l + 1)/(4*np.pi))/2])
+
+
 def coef_tables(nl, nm, dtype, device=None):
 	"""[3, nl, nm]: the recurrence coefficients a_lm, b_lm and the mode
-	functions' e_lm, computed outside the kernels with correctly rounded
-	sqrt and divide by the plain scan's own formulas (sht_core.recur_ab,
-	recur_e; pixell_tpu.ops.sht_pallas._recur_ab_tables :88)."""
-	l = torch.arange(nl, dtype=dtype, device=device)[:, None]
-	m = torch.arange(nm, dtype=dtype, device=device)[None, :]
-	a, b = sht_core.recur_ab(l, m)
-	return torch.stack([a, b, sht_core.recur_e(l, m)]).contiguous()
+	functions' e_lm (pixell_tpu.ops.sht_pallas._recur_ab_tables :88),
+	computed on the host in dtype by numpy (host_coef), whose sqrt and
+	divide are correctly rounded, and copied to device."""
+	return torch.from_numpy(host_coef(nl, nm, _NP_DTYPE[dtype])).to(device)
 
 
 def wigner_tables(nl, nm, s, dtype, device=None):
 	"""[3, nl, nm]: a = 1/v(l), b = v(l-1) and c = m s/((l-1) l) of the
 	Wigner-d recurrence for spin s (sht_core.wigner_abc; pixell_tpu.ops.
 	sht_pallas._wigner_ab_tables :108), zero for l <= max(m, s). The two
-	branches share a and b and take +c and -c. Computed in float64 and
-	rounded once to dtype: near the poles the recurrence amplifies the
-	rounding of c by ~l^2, so the float64 near-pole pass reads float64
-	tables."""
-	l = torch.arange(nl, dtype=torch.float64, device=device)[:, None]
-	m = torch.arange(nm, dtype=torch.float64, device=device)[None, :]
-	return torch.stack(sht_core.wigner_abc(l, m, s)).to(dtype).contiguous()
+	branches share a and b and take +c and -c. Computed on the host in
+	float64 by numpy (host_wigner) and rounded once to dtype: near the poles
+	the recurrence amplifies the rounding of c by ~l^2, so the float64
+	near-pole pass reads float64 tables."""
+	return torch.from_numpy(host_wigner(nl, nm, s).astype(_NP_DTYPE[dtype])).to(device)
 
 
 def l_tables(nl, mode, dtype, device=None):
 	"""[2, nl]: the per-degree norm and half pole factor of the mode
-	functions (sht_core.l_norms); zeros in the scalar and wigner modes, which
-	read none."""
+	functions (sht_core.l_norms), computed on the host in dtype by numpy
+	(host_l_norms); zeros in the scalar and wigner modes, which read none."""
 	if mode in ("scalar", "wigner"): return torch.zeros((2, nl), dtype=dtype, device=device)
-	return torch.stack(sht_core.l_norms(mode, torch.arange(nl, dtype=dtype, device=device)))
+	return torch.from_numpy(host_l_norms(mode, nl, _NP_DTYPE[dtype])).to(device)
 
 
 def dead_table(theta, lmax, mmax, tile_m, tile_t, s=0):

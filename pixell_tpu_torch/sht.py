@@ -24,6 +24,29 @@ _CDTYPE = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 _RDTYPE = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 
 
+ACCURACY_HIGH = False   # set by accuracy("high"): the recurrence runs in float64
+
+
+@contextlib.contextmanager
+def accuracy(mode):
+	"""Scope the default of the transforms' accuracy (pixell_tpu.sht.accuracy
+	:48): mode None keeps the current one, "fast" or "default" runs the
+	Legendre recurrence in the map's dtype, "high" in float64 whatever the
+	map's dtype. curvedsky's accuracy= arguments set it for their call;
+	inside, every transform whose leg_dtype is not given follows it:
+
+	    with sht.accuracy("high"):
+	        alm = curvedsky.map2alm(map, lmax=2000)
+	"""
+	global ACCURACY_HIGH
+	if mode not in (None, "fast", "default", "high"):
+		raise ValueError("accuracy must be None, 'fast', 'default' or 'high'")
+	old = ACCURACY_HIGH
+	ACCURACY_HIGH = old if mode is None else (mode == "high")
+	try: yield
+	finally: ACCURACY_HIGH = old
+
+
 @contextlib.contextmanager
 def blocked(enable=True):
 	"""Scope the block-Legendre split (pixell_tpu.sht.blocked :62): inside,
@@ -228,9 +251,10 @@ def _spin_mode(s):
 
 
 def _leg_dtype(dtype, leg_dtype=None):
-	"""Recurrence dtype: leg_dtype if given, else the map's real dtype."""
+	"""Recurrence dtype: leg_dtype if given, else float64 under
+	accuracy("high"), else the map's real dtype."""
 	if leg_dtype is not None: return leg_dtype
-	return torch.float64 if dtype == torch.float64 else torch.float32
+	return torch.float64 if (dtype == torch.float64 or ACCURACY_HIGH) else torch.float32
 
 
 # ---------------------------------------------------------------------------
@@ -243,35 +267,43 @@ def synthesis(alm, theta, nphi, phi0=0.0, lmax=None, mmax=None, spin=(0, 2),
 	output is [2, nt, nphi], the (d/dtheta, d/dphi) derivatives of the
 	scalar synthesis. leg_dtype sets the recurrence dtype (default: the
 	map's)."""
+	if map_dtype is None: map_dtype = _RDTYPE[alm.dtype]
+	G = synthesis_phase(alm, theta, lmax, mmax, spin, deriv,
+		leg_dtype=_leg_dtype(map_dtype, leg_dtype))
+	return ring_synthesis(G, phi0, nphi).to(map_dtype)
+
+
+def synthesis_phase(alm, theta, lmax=None, mmax=None, spin=(0, 2), deriv=False, *,
+		leg_dtype=None):
+	"""The Legendre stage of synthesis: alm [..., ncomp, nalm] -> per-ring
+	phases G[..., ncomp, nm, nt] (complex, alm's precision), with
+	synthesis = ring_synthesis(synthesis_phase(...)); with deriv, alm is
+	[nalm] and G [2, nm, nt] (d/dtheta, d/dphi). The counterpart of
+	adjoint_synthesis_phase, through the same kernels."""
 	theta = np.asarray(theta, np.float64)
 	if lmax is None: lmax = nalm2lmax(alm.shape[-1])
 	if mmax is None: mmax = lmax
 	rdt = _RDTYPE[alm.dtype]
-	if map_dtype is None: map_dtype = rdt
-	ldt = _leg_dtype(map_dtype, leg_dtype)
+	ldt = _leg_dtype(rdt, leg_dtype)
 	if deriv:
 		A = _c2coef(alm2rect(alm, lmax, mmax)[..., None, :, :])    # [nl, nm, 2]
 		G = sht_cuda.synthesis_scan(A, theta, lmax, mmax, "deriv", dtype=ldt)
 		Gc = _coef2c(G.to(rdt), 1)[..., 0, :, :]                    # [2(fun), nm, nt]
 		m = torch.arange(mmax+1, dtype=rdt, device=alm.device)[:, None]
-		G_dp = _mul_i(m*Gc[0])
-		return ring_synthesis(torch.stack([Gc[1], G_dp]), phi0, nphi).to(map_dtype)
+		return torch.stack([Gc[1], _mul_i(m*Gc[0])])
 	outs = []
 	for s, i1, i2 in _spin_blocks(spin, alm.shape[-2]):
 		A = alm2coef(alm[..., i1:i2, :], lmax, mmax)         # [nl, nm, 2k]
 		if s == 0:
 			G = sht_cuda.synthesis_scan(A, theta, lmax, mmax, "scalar", dtype=ldt)
-			Gc = _coef2c(G.to(rdt), i2-i1)[0]                 # [k, nm, nt]
-			outs.append(ring_synthesis(Gc, phi0, nphi))
+			outs.append(_coef2c(G.to(rdt), i2-i1)[0])          # [k, nm, nt]
 			continue
 		mode, ws = _spin_mode(s)
 		G = sht_cuda.synthesis_scan(A, theta, lmax, mmax, mode, dtype=ldt, s=ws)
 		Gc = _coef2c(G.to(rdt), 2)                            # [2(fun), 2(EB), nm, nt]
 		# P1_m = -(w a_E + i x a_B), P2_m = -(w a_B - i x a_E)
-		P1 = -(Gc[0, 0] + _mul_i(Gc[1, 1]))
-		P2 = -(Gc[0, 1] - _mul_i(Gc[1, 0]))
-		outs.append(ring_synthesis(torch.stack([P1, P2]), phi0, nphi))
-	return torch.cat(outs, -3).to(map_dtype)
+		outs.append(torch.stack([-(Gc[0, 0] + _mul_i(Gc[1, 1])), -(Gc[0, 1] - _mul_i(Gc[1, 0]))]))
+	return torch.cat(outs, -3)
 
 
 def adjoint_synthesis_phase(F, theta, lmax, mmax=None, spin=(0, 2), deriv=False,
@@ -364,6 +396,26 @@ def analysis_phase(F, theta, lmax, weights, nphi, mmax=None, spin=(0, 2), deriv=
 		alm_dtype=alm_dtype, m_degeneracy=False, leg_dtype=leg_dtype)
 
 
+def _undo_m_degeneracy(alm, lmax, mmax):
+	"""alm [..., nalm] with the m > 0 entries halved (pixell_tpu.sht.
+	_undo_m_degeneracy :825): the m = 0 block is the first lmax + 1 entries
+	of the triangular layout."""
+	n = nalm(lmax, mmax)
+	fac = torch.where(torch.arange(n, device=alm.device) <= lmax, 1.0, 0.5)
+	return alm*fac.to(_RDTYPE[alm.dtype])
+
+
+def adjoint_analysis(alm, theta, nphi, weights, phi0=0.0, lmax=None, mmax=None,
+		spin=(0, 2), deriv=False, map_dtype=None, *, leg_dtype=None):
+	"""Transpose of analysis: the m > 0 alm halved, synthesis, then the ring
+	weights times 2 pi/nphi (pixell_tpu.sht.adjoint_analysis :973)."""
+	if lmax is None: lmax = nalm2lmax(alm.shape[-1])
+	if mmax is None: mmax = lmax
+	maps = synthesis(_undo_m_degeneracy(alm, lmax, mmax), theta, nphi, phi0=phi0, lmax=lmax,
+		mmax=mmax, spin=spin, deriv=deriv, map_dtype=map_dtype, leg_dtype=leg_dtype)
+	return maps*_ring_weights_on(weights, nphi, maps.dtype, maps.device)[:, None]
+
+
 # ---------------------------------------------------------------------------
 # Exact theta resampling of phase coefficients on the torus
 # (pixell_tpu/sht.py:921-970, FFT chain)
@@ -410,3 +462,89 @@ def _resample_theta_phase(F, variant, nt_out, spins, m0):
 	ft = enfft.resample(ft, NT_out, axes=(-1,))/NT_in*NT_out
 	if f1: ft = ft*ramp_out
 	return torch.fft.ifft(ft, dim=-1)[..., :nt_out]
+
+
+def resample_theta_phase_adjoint(G, variant, nt_in, spins):
+	"""The transpose of resample_theta_phase(F, variant, nt_out, spins) for F
+	with nt_in rings: G[..., ncomp, nm, nt_out] -> [..., ncomp, nm, nt_in].
+	The resample is complex-linear, so its transpose over the real and
+	imaginary parts is its conjugate transpose: Re<resample(F), G> =
+	Re<F, resample_theta_phase_adjoint(G)>. Each step of the FFT chain is
+	taken back in the reverse order, in the same m chunks."""
+	nm = G.shape[-2]
+	variant = variant.upper()
+	spins = tuple(int(s) for s in spins)
+	parts = [_resample_theta_phase_adjoint(G[..., i0:i0+MCHUNK_RESAMPLE, :], variant,
+		int(nt_in), spins, i0) for i0 in range(0, nm, MCHUNK_RESAMPLE)]
+	return parts[0] if len(parts) == 1 else torch.cat(parts, -2)
+
+
+def _resample_t(ft, n_old):
+	"""The transpose of fft.resample(fa, ft.shape[-1]) along the last axis
+	for fa of n_old samples: ft[..., n_new] -> [..., n_old]. A padded
+	even-length Nyquist bin, split in two halves, takes back their mean; a
+	truncated one gives its sum to both bins it came from."""
+	n_new = ft.shape[-1]
+	if n_new == n_old: return ft
+	if n_new > n_old:
+		nh, keep_lo = n_old//2, (n_old + 1)//2
+		if n_old % 2: return torch.cat([ft[..., :keep_lo], ft[..., n_new-(n_old-keep_lo):]], -1)
+		nyq = (ft[..., nh:nh+1] + ft[..., n_new-nh:n_new-nh+1])/2
+		return torch.cat([ft[..., :nh], nyq, ft[..., n_new-nh+1:]], -1)
+	nh_new, keep_lo = n_new//2, (n_new + 1)//2
+	out = ft.new_zeros(ft.shape[:-1] + (n_old,))
+	out[..., :keep_lo] = ft[..., :keep_lo]
+	out[..., n_old-nh_new:] = ft[..., keep_lo:]
+	if n_new % 2 == 0: out[..., nh_new] += ft[..., keep_lo]
+	return out
+
+
+def _resample_theta_phase_adjoint(G, variant, nt, spins, m0):
+	nm, nt_out = G.shape[-2:]
+	f1 = variant in ["F1", "FEJER1"]
+	NT_in, NT_out = (2*nt, 2*nt_out) if f1 else (2*(nt-1), 2*(nt_out-1))
+	sgn_m, sgn_s, ramp_in, ramp_out = _resample_tables(int(m0), int(nm), spins, G.real.dtype,
+		G.dtype, NT_in, NT_out, G.device)
+	# [..., :nt_out] of an ifft, back: zero padding, then fft/NT_out
+	ft = torch.fft.fft(torch.nn.functional.pad(G, (0, NT_out - nt_out)), dim=-1)/NT_out
+	if f1: ft = ft*ramp_out.conj()
+	ft = _resample_t(ft, NT_in)/NT_in*NT_out
+	if f1: ft = ft*ramp_in.conj()
+	X = torch.fft.ifft(ft, dim=-1)*NT_in
+	# the torus concatenation, back: the mirrored half folds onto the rows it came from
+	back = X[..., nt:].flip(-1)*sgn_m*sgn_s
+	F = X[..., :nt]
+	if f1: return F + back
+	return torch.cat([F[..., :1], F[..., 1:-1] + back, F[..., -1:]], -1)
+
+
+# ---------------------------------------------------------------------------
+# Exact theta resampling of maps on the torus (pixell_tpu/sht.py:991-1037)
+# ---------------------------------------------------------------------------
+def _torus_extend(maps, variant, spins):
+	"""maps [..., ncomp, nt, nphi] on a full-sky CC/F1 grid -> (torus
+	[..., ncomp, NT, nphi] complex, theta uniform over [0, 2 pi), nphi)
+	(pixell_tpu.sht._torus_extend :991): the southern extension is the map
+	shifted by pi in phi, times (-1)^s per component."""
+	nphi = maps.shape[-1]
+	fphi = torch.fft.fft(maps, dim=-1)
+	phase = torch.from_numpy(np.where(np.arange(nphi) % 2 == 0, 1.0, -1.0)).to(fphi.device,
+		fphi.real.dtype)
+	sgn = torch.tensor([(-1.0)**s for s in spins], dtype=fphi.real.dtype,
+		device=fphi.device)[:, None, None]
+	rows = fphi if variant.upper() in ["F1", "FEJER1"] else fphi[..., 1:-1, :]   # CC: poles shared
+	torus_f = torch.cat([fphi, rows.flip(-2)*phase*sgn], -2)
+	return torch.fft.ifft(torus_f, dim=-1), nphi
+
+
+def resample_theta(maps, variant, nt_out, spins, phase_only=False):
+	"""Exactly resample a full-sky CC/F1 ring map [..., ncomp, nt, nphi] to
+	nt_out rings of the same variant, band-limited to lmax < NT/2 on the
+	torus (pixell_tpu.sht.resample_theta :1007): resample_theta_phase on the
+	rings' full phi spectrum, whose index k takes the place of m (the phi ->
+	phi + pi shift of the torus extension is (-1)^k). phase_only is accepted
+	and ignored, as in the reference."""
+	F = torch.fft.fft(maps, dim=-1).movedim(-1, -2)
+	G = resample_theta_phase(F, variant, nt_out, spins)
+	res = torch.fft.ifft(G.movedim(-2, -1), dim=-1)
+	return res if maps.is_complex() else res.real.to(maps.dtype)

@@ -1,8 +1,9 @@
 """Constants and small host-side helpers (counterpart of pixell_tpu/utils.py).
 
-Only what the spin-0 curved-sky path needs: the angle constants, nint,
-rewind/unwind for the pixel<->sky conversions, and eigpow for rand_alm.
-All of it is numpy: geometry and random draws are host work.
+Only what the curved-sky path needs: the angle constants, nint,
+rewind/unwind for the pixel<->sky conversions, eigpow for rand_alm and the
+Minres solver of curvedsky.minres_inverse. All of it is numpy: geometry,
+random draws and that solver's vectors are host work.
 """
 from __future__ import annotations
 import numpy as np
@@ -64,3 +65,44 @@ def eigpow(A, e, axes=[-2, -1], rlim=None, alim=None):
 	Ep = np.where(mask, 0.0, sgn*Ez**e)
 	res = np.einsum("...ij,...j,...kj->...ik", V, Ep, V)
 	return np.moveaxis(res, (-2, -1), (ax1, ax2))
+
+
+class Minres:
+	"""Minimum-residual solver for a symmetric, possibly indefinite, linear
+	operator A on numpy vectors (pixell_tpu.utils.Minres :665): step()
+	improves x; err is |r|/|b|."""
+	def __init__(self, A, b, x0=None, dot=None):
+		self.A = A
+		if dot is None:
+			dot = lambda a, b: float(np.sum(np.conj(np.asarray(a))*np.asarray(b)).real)
+		self.dot = dot
+		self.b = np.asarray(b)
+		self.x = np.zeros_like(self.b) if x0 is None else np.asarray(x0).copy()
+		self.r = self.b - A(self.x) if x0 is not None else self.b.copy()
+		self.p0 = self.r.copy()
+		self.s0 = A(self.p0)
+		self.p1 = None; self.s1 = None
+		self.i = 0
+		self.bnorm = self.dot(self.b, self.b)**0.5
+		self.err = 1.0
+	def step(self):
+		ss = self.dot(self.s0, self.s0)
+		alpha = self.dot(self.r, self.s0)/ss
+		self.x = self.x + alpha*self.p0
+		self.r = self.r - alpha*self.s0
+		p2, s2 = self.p1, self.s1
+		self.p1, self.s1 = self.p0, self.s0
+		p0 = self.s1.copy()
+		s0 = self.A(p0)
+		beta1 = self.dot(s0, self.s1)/ss
+		p0 = p0 - beta1*self.p1
+		s0 = s0 - beta1*self.s1
+		if p2 is not None:
+			ss2 = self.dot(s2, s2)
+			beta2 = self.dot(self.A(self.s1), s2)/ss2
+			p0 = p0 - beta2*p2
+			s0 = s0 - beta2*s2
+		self.p0, self.s0 = p0, s0
+		self.i += 1
+		self.err = self.dot(self.r, self.r)**0.5/max(self.bnorm, 1e-300)
+		return self.x

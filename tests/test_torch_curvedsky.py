@@ -105,14 +105,19 @@ def test_unported_options_raise():
 	_, wcs = geometry()
 	m = enmap.zeros(SHAPE, wcs, device="cpu")
 	alm = torch.zeros(curvedsky.alm_info(lmax=LMAX).nelem, dtype=torch.complex128)
-	for kw in [dict(adjoint=True), dict(mesh=object())]:
+	for kw in [dict(mesh=object()), dict(method="general")]:
 		with pytest.raises(NotImplementedError):
 			curvedsky.alm2map(alm, m, **kw)
 		with pytest.raises(NotImplementedError):
 			curvedsky.map2alm(m, lmax=LMAX, **kw)
 	plain = wcsutils.WCS.from_fields(["", ""], [0, 0], [1, 1], [1, 1])
-	with pytest.raises(NotImplementedError):
-		curvedsky.map2alm(enmap.zeros(SHAPE, plain, device="cpu"), lmax=LMAX)
+	pm = enmap.zeros(SHAPE, plain, device="cpu")
+	for call in (lambda: curvedsky.map2alm(pm, lmax=LMAX), lambda: curvedsky.alm2map(alm, pm),
+			lambda: curvedsky.alm2map_adjoint(pm), lambda: curvedsky.map2alm_adjoint(alm, pm),
+			lambda: curvedsky.alm2map(alm, m, adjoint=True, method="general"),
+			lambda: curvedsky.alm2map_general(alm, m), lambda: curvedsky.map2alm_general(m, lmax=LMAX)):
+		with pytest.raises(NotImplementedError):
+			call()
 
 
 def test_import_loads_no_jax():

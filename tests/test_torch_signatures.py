@@ -32,6 +32,8 @@ def shared_names():
 			if name.startswith("_") or not hasattr(ref, name): continue
 			r, p = getattr(ref, name), getattr(port, name)
 			if inspect.ismodule(p) or not callable(p) or not callable(r): continue
+			# an exception class has no signature of its own to compare
+			if inspect.isclass(p) and issubclass(p, BaseException): continue
 			out.append((mod, name))
 			if inspect.isclass(p) and inspect.isclass(r):
 				out += [(mod, "%s.%s" % (name, m)) for m, _ in inspect.getmembers(p, inspect.isfunction)
