@@ -111,7 +111,17 @@ phase "variants", 6. below, runs only when named):
      2e-4 spin2, of the largest value; tiles without a suffix, and degrees
      below every handoff, bit-identical); the times of the block kernels,
      of the dumping K3/K4 and of K3/K4 run to the end, and the block
-     kernels' bound;
+     kernels' bound over the FP32 peak, for blk_analysis (its products in
+     3xTF32 on the tensor cores) also the tensor-core bound: the build's
+     FP32 operations over the FP32 peak plus 3 x the products' FLOPs over
+     495 TFLOP/s; the library yardstick: torch.bmm over m of K3's / K4's
+     mode table masked to each entry's blocked suffix (TF32 off), in
+     chunks of 64 m rows with the times summed, its first chunk held
+     within 1e-4 of the float64 plain block kernel resumed from the
+     float64 state; before all that, every blk_analysis_kernel
+     instantiation's registers and spills (ptxas -v) and the count of
+     tensor-core instructions (HMMA, HGMMA) in its SASS (cuobjdump -sass):
+     a spill or a count of 0 fails;
    - through curvedsky under `with sht.blocked():`, each call beside the
      same call outside it (same bounds; CUDA-event times of both): map2alm
      of full-sky 2160x4320 maps, spin 0, IQU, spin 1 and deriv, with the
@@ -163,6 +173,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -190,9 +201,11 @@ REPLACES = {
 }
 MODES = ("scalar", "deriv", "spin1", "spin2", "wigner")   # in the build's order
 WIGNER_SPIN = 3   # the spin the wigner mode is driven with
-# NVIDIA H100 SXM data sheet: FP32 and FP64 outside the tensor cores, HBM3
+# NVIDIA H100 SXM data sheet: FP32 and FP64 outside the tensor cores, HBM3;
+# dense TF32 on the tensor cores
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES = 3.35e12
+PEAK_TF32 = 495e12
 
 
 def card_line():
@@ -290,9 +303,10 @@ def bound(ops, nbytes, dtype):
 def print_build_summary(log, only=None):
 	"""One line per compiled kernel from the build log's ptxas -v output:
 	object, kernel, registers and spill bytes; with only, a regular
-	expression, the kernels whose printed name it matches alone."""
+	expression, the kernels whose printed name it matches alone. Returns
+	those lines' (object, kernel, registers, spill bytes)."""
 	obj, entry, spill = "?", None, None
-	worst, spilled = 0, {}
+	worst, spilled, rows = 0, {}, []
 	for line in log.splitlines():
 		m = re.search(r"-DLEGENDRE_MODE=(\d)", line)
 		if line.startswith(("nvcc", "/")) and " -c " in line:
@@ -320,12 +334,14 @@ def print_build_summary(log, only=None):
 		if m and entry is not None and (only is None or re.search(only, entry)):
 			print("ptxas: %-16s %-36s %3s registers, %d bytes spilled" % (obj, entry,
 				m.group(1), spill or 0))
+			rows.append((obj, entry, int(m.group(1)), spill or 0))
 			worst = max(worst, spill or 0)
 			n, k = spilled.get(obj.split(".")[0], (0, 0))
 			spilled[obj.split(".")[0]] = (n + 1, k + bool(spill))
 			entry = None
 	print("ptxas: largest spill of any kernel: %d bytes; kernels that spill, by source: %s" % (
 		worst, ", ".join("%s %d of %d" % (src, k, n) for src, (n, k) in sorted(spilled.items()))))
+	return rows
 
 
 # ---------------------------------------------------------------------------
@@ -830,15 +846,21 @@ def chunked_library_ms(name, mode, x, theta, lmax, mchunk=64):
 	ref = sht_cuda.PLAIN[name](head(x).double(), sht_cuda.geom(theta, mchunk - 1, torch.float64,
 		x.device, mode_spin(mode)), lmax, mode)
 	err = relerr(layout(torch.bmm(T, Bh)), ref)
-	B, _ = library_operand(name, mode, x, len(theta))
+	ms = chunked_bmm_ms(T, library_operand(name, mode, x, len(theta))[0], mchunk)
+	del T, Bh
+	torch.cuda.empty_cache()
+	return ms, err
+
+
+def chunked_bmm_ms(T, B, mchunk):
+	"""The summed times of torch.bmm(T, B chunk) over B's m rows in chunks of
+	mchunk, T the table of one chunk."""
 	ms = 0.0
 	for m0 in range(0, B.shape[0], mchunk):
 		Bc = B[m0:m0 + mchunk].contiguous()
 		Tc = T[:len(Bc)]
 		ms += cuda_ms(lambda: torch.bmm(Tc, Bc), 3)
-	del T, Bh, B
-	torch.cuda.empty_cache()
-	return ms, err
+	return ms
 
 
 def timed_once(fn):
@@ -1202,6 +1224,93 @@ def blk_ops(name, mode, tab, lmax, nm, C):
 	return mdeg*JP*(6 + 6*NS*C + C) + mblk*tab.tile_t*rows*(2*JP + 4)
 
 
+def blk_tc_bound(mode, tab, lmax, nm, C):
+	"""(least ms, FP32 operations, TF32 product FLOPs) of blk_analysis with
+	its products on the tensor cores in 3xTF32: the build (the two chain
+	steps, 6 per node and degree) over the FP32 peak, plus three times the
+	products' FLOPs over the dense TF32 peak. The products: per m row and
+	block the ring -> node contraction of the 2 NS C weighted fields and
+	the chain-end product of the four ends, 2 x rows x 128 x tile_t; per m
+	row and degree the node sums of the 2 x 128 chain values against the NS
+	C columns, 2 x 256 x NS C."""
+	from pixell_tpu_torch.ops import sht_cuda, sht_core
+	NS, JP = len(sht_core.BLK_FAM[mode]), sht_cuda.BLK_JP
+	mdeg, mblk = blk_counts(tab, lmax, nm)
+	build = mdeg*JP*6
+	prod = mblk*tab.tile_t*JP*2*(2*NS*C + 4) + mdeg*2*2*JP*NS*C
+	return 1e3*(build/PEAK_FLOPS[torch.float32] + 3*prod/PEAK_TF32), build, prod
+
+
+def blk_library_ms(name, mode, x, theta, tab, tab64, state64, lmax, mchunk=64):
+	"""(ms, rel err) of the block kernels' library yardstick: the torch.bmm
+	over m of K3's or K4's (name's) precomputed mode table, masked to each
+	(m, ring)'s blocked suffix (degrees l >= BLK_LB start of its tile, none
+	where the tile has none), TF32 off, over m in chunks of mchunk rows with
+	the times summed, as chunked_library_ms. The first chunk's product is
+	held against the float64 plain block kernel resumed from state64 (the
+	float64 scan's state, unscaled, at level 0) on those rows."""
+	from pixell_tpu_torch.ops import sht_cuda, sht_core
+	syn, nt, dev, nl = name.endswith("synthesis"), len(theta), x.device, lmax + 1
+	head = lambda a: (a[:, :mchunk] if syn else a[..., :mchunk, :]).contiguous()
+	T = mode_table(theta, mchunk - 1, lmax, mode, x.dtype, dev)          # [mchunk, nf*nt, nl]
+	nf = T.shape[1]//nt
+	start = tab.start[:mchunk//tab.tile_m].long().repeat_interleave(tab.tile_m, 0)
+	lfirst = (sht_cuda.BLK_LB*start).repeat_interleave(tab.tile_t, 1)[:, :nt]   # [mchunk, nt]
+	keep = torch.arange(nl, device=dev)[None, None, :] >= lfirst[:, :, None]
+	T.view(mchunk, nf, nt, nl).mul_(keep[:, None])
+	del keep
+	if not syn: T = T.transpose(1, 2)
+	Bh, layout = library_operand(name, mode, head(x), nt)
+	tabh = sht_core.BlkTables(tab.start[:mchunk//tab.tile_m].contiguous(), tab64.ctv, tab64.W,
+		tab.tile_m, tab.tile_t)
+	g64h = sht_cuda.geom(theta, mchunk - 1, torch.float64, dev)
+	ref = sht_cuda.PLAIN["blk_" + name.split("_")[1]](head(x).double(),
+		state64[:, :mchunk].contiguous(), tabh, g64h, lmax, mode)
+	err = relerr(layout(torch.bmm(T, Bh)), ref)
+	ms = chunked_bmm_ms(T, library_operand(name, mode, x, nt)[0], mchunk)
+	del T, Bh
+	torch.cuda.empty_cache()
+	return ms, err
+
+
+def blk_build_check():
+	"""Registers and spills (ptxas -v) of every blk_analysis_kernel
+	instantiation, and the count of its tensor-core instructions (HMMA,
+	HGMMA) in cuobjdump -sass of the built objects. Raises on a spill or a
+	count of 0. Returns {mode: (C, registers, spill bytes, count), ...}."""
+	from pixell_tpu_torch.ops import _build
+	d = _build.build_dir()
+	rows = print_build_summary((d/"build.log").read_text(), only="blk_analysis")
+	tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+	counts = {}
+	for k, mode in enumerate(MODES[:4]):
+		r = subprocess.run([tool, "-sass", str(d/("blockleg.%d.o" % k))], capture_output=True,
+			text=True, check=True)
+		fn = None
+		for line in r.stdout.splitlines():
+			m = re.search(r"Function : (\S+)", line)
+			if m:
+				c = re.search(r"blk_analysis_kernelILi(\d+)E", m.group(1))
+				fn = (mode, int(c.group(1))) if c else None
+				if fn: counts.setdefault(fn, 0)
+			elif fn and re.search(r"\bHG?MMA\.", line):
+				counts[fn] += 1
+	out = {}
+	for obj, entry, regs, spill in rows:
+		c = int(re.search(r"C=(\d+)", entry).group(1))
+		mode = obj.split(".")[1]
+		n = counts.get((mode, c), 0)
+		out.setdefault(mode, []).append((c, regs, spill, n))
+		print("blk_analysis_kernel<C=%d> %s: %d registers, %d bytes spilled, %d tensor-core (HMMA/HGMMA) "
+			"instructions in its SASS" % (c, mode, regs, spill, n))
+		if spill or not n:
+			raise RuntimeError("blk_analysis_kernel<C=%d> %s: %d bytes spilled, %d HMMA" % (c, mode, spill, n))
+	if len(rows) != 8 or len(counts) != 8:
+		raise RuntimeError("blk_analysis_kernel: %d ptxas entries and %d SASS functions, not 8"
+			% (len(rows), len(counts)))
+	return out
+
+
 def blk_bytes(name, mode, tab, lmax, nm, nt, C):
 	"""Each input read once and each output written once, in float32."""
 	from pixell_tpu_torch.ops import sht_core
@@ -1312,19 +1421,32 @@ def blocked_kernels(mode, theta, records):
 		ms_pre, _ = kernel_ms(lambda: kern(x32, g32, lmax, mode, lstop, True), 5, kname)
 		ms_full, _ = kernel_ms(lambda: kern(x32, g32, lmax, mode, dead), 5, kname)
 		plain_ms = cuda_ms(lambda: blk_plain(x32, kstate, tab, g32, lmax, mode), 1)
-		b_ms, b_by = bound(blk_ops(blk.__name__, mode, tab, lmax, nm, C),
-			blk_bytes(blk.__name__, mode, tab, lmax, nm, nt, C), f32)
+		nbytes = blk_bytes(blk.__name__, mode, tab, lmax, nm, nt, C)
+		b_ms, b_by = bound(blk_ops(blk.__name__, mode, tab, lmax, nm, C), nbytes, f32)
+		# the float64 state, unscaled, at level 0
+		state64 = torch.cat([unscaled(rstate, S64), torch.zeros_like(rstate[:1])])
+		lib_ms, lib_err = blk_library_ms(name, mode, x32, theta, tab, tab64, state64, lmax)
+		if lib_err > 1e-4:
+			raise RuntimeError("blocked %s: the library yardstick is off by %.3e" % (tag, lib_err))
 		rec = {"name": "%s[%s]" % (blk.__name__, mode), "route": "cuda", "source": BLOCKLEG_SOURCE,
 			"replaces": REPLACES[blk.__name__][0 if mode == "scalar" else 1], "mode": mode,
 			"max_abs_err": float((k2.double() - r2).abs().max()), "ms": ms_blk, "ms_from": how,
-			"plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+			"plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
 			"stepwise_suffix_ms": ms_full - ms_pre, "prefix_ms": ms_pre, "unsplit_ms": ms_full,
 			"shape": "lmax %d, nm %d, nt %d, C %d, float32" % (lmax, nm, nt, C)}
-		print("time   %-14s %-6s %s: kernel %.4f ms (%s), plain %.2f ms, bound %.4f ms (%s, %.1f %% "
-			"of it reached); no library call; %s with the handoff %.4f ms, to the end %.4f ms: "
-			"the same suffix stepwise %.4f ms, split %.4f ms against unsplit %.4f ms" % (
-			blk.__name__, mode, rec["shape"], ms_blk, how, plain_ms, b_ms, b_by, 100*b_ms/ms_blk,
-			name, ms_pre, ms_full, ms_full - ms_pre, ms_pre + ms_blk, ms_full))
+		tc = ""
+		if not syn:   # the tensor-core bound beside the FP32 one
+			tc_ms, build, prod = blk_tc_bound(mode, tab, lmax, nm, C)
+			rec["bound_tc_ms"] = max(tc_ms, 1e3*nbytes/PEAK_BYTES)
+			tc = "; with the products in 3xTF32 on the tensor cores %.4f ms (%.3g FP32 operations of " \
+				"the build, %.3g TF32 product FLOPs x 3; %.1f %% of it reached)" % (rec["bound_tc_ms"],
+				build, prod, 100*rec["bound_tc_ms"]/ms_blk)
+		print("time   %-14s %-6s %s: kernel %.4f ms (%s), plain %.2f ms, FP32 bound %.4f ms (%s, %.1f %% "
+			"of it reached)%s; torch.bmm of the masked mode table in chunks %.4f ms (rel err %.3e); %s "
+			"with the handoff %.4f ms, to the end %.4f ms: the same suffix stepwise %.4f ms, split %.4f ms "
+			"against unsplit %.4f ms" % (blk.__name__, mode, rec["shape"], ms_blk, how, plain_ms, b_ms, b_by,
+			100*b_ms/ms_blk, tc, lib_ms, lib_err, name, ms_pre, ms_full, ms_full - ms_pre, ms_pre + ms_blk,
+			ms_full))
 		records[(blk.__name__, mode)] = rec
 
 
@@ -1417,12 +1539,15 @@ def blocked_phase():
 	th_up = sht.ring_theta("F1", fft.fft_len(2*BLK_LMAX + 3, direction="above"))
 	nn, ns = sht_cuda.polar_counts(th_up, BLK_LMAX)
 	theta = th_up[nn:len(th_up) - ns][:sht_cuda.TCHUNK]
+	build = blk_build_check()
 	records = {}
 	for mode in ("scalar", "deriv", "spin1", "spin2"):
 		blocked_kernels(mode, theta, records)
 	launches = blocked_paths()
 	for (name, mode), rec in records.items():
 		rec["launches"] = launches.get((name, mode), 0)
+		if name == "blk_analysis":   # (C, registers, spill bytes, tensor-core instructions)
+			rec["ptxas_sass"] = build[mode]
 		if rec["launches"] == 0:
 			raise RuntimeError("%s in %s mode was not launched by the blocked paths" % (name, mode))
 	return records
@@ -1615,6 +1740,96 @@ def variants_phase():
 			if not ok:
 				raise RuntimeError("variant %s of %s %s computes another function" % (label, name, mode))
 		print("variant %s %s lmax %d, nt %d: %s" % (name, mode, lmax, len(theta), "; ".join(line)))
+
+
+# ---------------------------------------------------------------------------
+# 6b. where blk_analysis_kernel's time goes (only with --phases blkprobe)
+# ---------------------------------------------------------------------------
+# A copy of blockleg.cu in which thread 0 of every block reads clock64() at
+# the points below, just after each block-wide barrier of
+# blk_analysis_kernel, and adds the cycles since the point before to that
+# point's phase; at the end each block adds its sums to a __device__ array
+# that pt_blk_probe_<mode> reads and clears. A phase is thus the time from
+# one barrier to the next as thread 0 sees it, waits included. Each entry:
+# (phase, text of the source, True to insert after it, False before it).
+BLK_PROBES = (
+	("block start", "      stage_ab(sa, sb, ab, l0, m0, nl, nm, tid, ANT);\n", False),
+	("tables, W slab", "        if (il > first) {\n", False),
+	("state step", "        {  // X: thread (m row, ring) of the slab\n", False),
+	("X", "        {  // Wc|Wp += X W^T", False),
+	("contraction", "        __syncthreads();  // the slabs are read\n", True),
+	("Wc|Wp", "      if constexpr (HAS_PREV) {\n", False),
+	("build", "        {  // warp (m row, half)", False),
+	("node sums", "        // the degrees' sums: thread (degree, m row, column)\n", False),
+	("weighting", "          if (HAS_PREV && k + 1 < LBK) op[((k + 1) * BM + mi) * C + c] = vp;\n        }\n",
+		True),
+	("ends", "      // ---- 3. the block's sums to the partial plane ----\n", False),
+	("to plane", "        *o = store ? v : *o + v;\n      }\n", True))
+
+
+def blk_probe_sources():
+	"""The kernel sources with blk_analysis_kernel probed (BLK_PROBES), in a
+	directory of their own under build/."""
+	from pixell_tpu_torch.ops import _build
+	d = _build.BUILD_ROOT.parent/"variants"/"blk_probe"
+	d.mkdir(parents=True, exist_ok=True)
+	n = len(BLK_PROBES)
+	for p in _build.CSRC.glob("*.cu"):
+		text = p.read_text()
+		if p.name == "blockleg.cu":
+			for i, (_, at, after) in enumerate(BLK_PROBES):
+				if text.count(at) != 1: raise RuntimeError("probe %d: its place is not unique" % i)
+				k = text.index(at) + (len(at) if after else 0)
+				text = text[:k] + "PT_PROBE(%d);\n" % i + text[k:]
+			at = "  const bool store = ntiles <= (int)gridDim.x;"
+			text = text.replace(at, "  unsigned long long pt_t = clock64(), pt_sum[%d] = {0};\n%s" % (n, at))
+			k = text.index("\n}\n", text.index("PT_PROBE(%d)" % (n - 1)))
+			text = text[:k] + "\n  if (threadIdx.x == 0)\n    for (int i = 0; i < %d; ++i) atomicAdd(&pt_probe[i], " \
+				"pt_sum[i]);" % n + text[k:]
+			text = text.replace("namespace {\n", "namespace {\n__device__ unsigned long long pt_probe[%d];\n"
+				"#define PT_PROBE(i) { const unsigned long long t = clock64(); pt_sum[i] += t - pt_t; pt_t = t; }\n"
+				% n, 1)
+			text += '\nextern "C" int PT_ENTRY(pt_blk_probe)(unsigned long long* out) {\n' \
+				"  cudaMemcpyFromSymbol(out, pt_probe, sizeof(pt_probe));\n" \
+				"  unsigned long long zero[%d] = {0};\n  cudaMemcpyToSymbol(pt_probe, zero, sizeof(zero));\n" \
+				"  return (int)cudaGetLastError();\n}\n" % n
+		(d/p.name).write_text(text)
+	return d
+
+
+def blk_probe_phase():
+	"""blk_analysis at the blocked phase's shapes (lmax 2000, the first 2048
+	bulk upsampled rings, from K4's handed-over state) in each mode from the
+	probed build: the share of each phase in thread 0's cycles, and the
+	probed kernel's time (CUDA events; the probes cost a little)."""
+	import ctypes
+	from pixell_tpu_torch import sht, fft
+	from pixell_tpu_torch.ops import sht_cuda
+	dev = torch.device("cuda")
+	d = blk_probe_sources()
+	lib = sht_cuda.library(d)
+	th_up = sht.ring_theta("F1", fft.fft_len(2*BLK_LMAX + 3, direction="above"))
+	nn, ns = sht_cuda.polar_counts(th_up, BLK_LMAX)
+	theta = th_up[nn:len(th_up) - ns][:sht_cuda.TCHUNK]
+	tab, lstop = sht_cuda.blk_tables(theta, BLK_LMAX, BLK_LMAX, dev)
+	g = sht_cuda.geom(theta, BLK_LMAX, torch.float32, dev)
+	buf = (ctypes.c_ulonglong*len(BLK_PROBES))()
+	for i, mode in enumerate(("scalar", "deriv", "spin1", "spin2")):
+		read = getattr(lib, "pt_blk_probe_%s" % mode)
+		read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+		x = torch.from_numpy(kernel_input("full_analysis", mode, BLK_LMAX, BLK_LMAX, len(theta),
+			71 + i)).to(dev, torch.float32)
+		with use_library(d):
+			_, state = sht_cuda.full_analysis(x, g, BLK_LMAX, mode, lstop, True)
+			fn = lambda: sht_cuda.blk_analysis(x, state, tab, g, BLK_LMAX, mode)
+			fn()
+			torch.cuda.synchronize()
+			read(buf)
+			ms = cuda_ms(fn, 3)
+			read(buf)
+		tot = sum(buf)
+		print("blkprobe blk_analysis %s (probed build) %.4f ms per call; thread 0's cycles by phase: %s" % (
+			mode, ms, ", ".join("%s %.1f %%" % (name, 100*c/tot) for (name, _, _), c in zip(BLK_PROBES, buf))))
 
 
 # ---------------------------------------------------------------------------
@@ -1823,7 +2038,7 @@ def adjoint_phase():
 
 
 PHASES = ("k9", "kernels", "lstop", "slice", "adjoint", "blocked", "timing")
-EXTRA_PHASES = ("variants",)   # run only when named
+EXTRA_PHASES = ("variants", "blkprobe")   # run only when named
 
 
 def main():
@@ -1885,6 +2100,9 @@ def main():
 	if "variants" in phases:
 		variants_phase()
 		print("phase variants done at %.1f s" % (time.perf_counter() - t_start))
+	if "blkprobe" in phases:
+		blk_probe_phase()
+		print("phase blkprobe done at %.1f s" % (time.perf_counter() - t_start))
 	if set(phases) != set(PHASES):
 		print("chip_smoke: phases %s only: no verdict" % phases)
 		return 1

@@ -42,7 +42,9 @@ in the four Legendre modes:
   blk_synthesis   K8a/K8b, replaces _synth_blk_call (sht_pallas.py:888) and
                   _synth_blk_call_streams (:1032)
   blk_analysis    K8c/K8d, replaces _anal_blk_call (:1220) and
-                  _anal_blk_call_streams (:1350)
+                  _anal_blk_call_streams (:1350); redesigned with its
+                  ring -> node, node-sum and chain-end products on the
+                  tensor cores in 3xTF32 (W's split: tf32_split)
 
 They resume from the state K3/K4 dumped and run the oscillatory suffix of
 each (m tile, ring tile) 112 degrees at a time. blocked_synthesis /
@@ -372,6 +374,20 @@ def blk_node_tables(theta, tile_t):
 	return ctv, W
 
 
+def tf32_split(x):
+	"""[2, ...] float32 numpy: x in float32 as the sum of two TF32 numbers
+	(10 mantissa bits, rounded to nearest, ties to even), hi = tf32(x) and
+	lo = tf32(x - hi): the operands of the analysis kernel's 3xTF32
+	products, whose lo x lo term is 2^-22 of x's."""
+	def tf32(v):
+		u = np.ascontiguousarray(v, np.float32).view(np.uint32).astype(np.uint64)
+		u = (u + 0xFFF + ((u >> 13) & 1)) & 0xFFFFE000
+		return u.astype(np.uint32).view(np.float32)
+	x = np.asarray(x, np.float32)
+	hi = tf32(x)
+	return np.stack([hi, tf32(x - hi)])
+
+
 @functools.lru_cache(maxsize=16)
 def _blk_cached(theta_bytes, lmax, mmax, device):
 	theta = np.frombuffer(theta_bytes, np.float64)
@@ -389,7 +405,7 @@ def _blk_cached(theta_bytes, lmax, mmax, device):
 	ctv, W = blk_node_tables(theta, BLK_TILE_T)
 	f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
 	tab = sht_core.BlkTables(f(start), f(ctv.astype(np.float32)), f(W.astype(np.float32)),
-		BLK_TILE_M, BLK_TILE_T)
+		BLK_TILE_M, BLK_TILE_T, f(tf32_split(W)))
 	return tab, f(lstop)
 
 
@@ -782,8 +798,8 @@ def polar_synthesis(A, g, lmax, mode="scalar"):
 
 def _blk_args(x, state, tab, g, nl, mode, what):
 	"""The pointers of a block-kernel launch after its checks: the tables
-	a, b and the mode's streams, the state, start table, nodes, W or its
-	transpose, cos theta and the ring rows."""
+	a, b and the mode's streams, the state, start table, nodes, W
+	(synthesis) or its TF32 split (analysis), cos theta and the ring rows."""
 	if mode not in sht_core.BLK_FAM:
 		raise ValueError("no block-Legendre kernel in mode '%s'" % mode)
 	if g.dtype != torch.float32 or g.s is not None:
@@ -792,11 +808,17 @@ def _blk_args(x, state, tab, g, nl, mode, what):
 	want = (-(-g.nm//BLK_TILE_M), -(-g.nt//BLK_TILE_T))
 	if (tab.tile_m, tab.tile_t) != (BLK_TILE_M, BLK_TILE_T) or tuple(tab.start.shape) != want:
 		raise ValueError("%s: tables of another tiling or grid" % what)
+	ana = what == "blk_analysis"
+	if ana and tab.Wtf32 is None:
+		raise ValueError("%s: tables without W's TF32 split (Wtf32)" % what)
 	for t, dt in ((tab.start, torch.int32), (tab.ctv, torch.float32), (tab.W, torch.float32),
-			(tab.WT, torch.float32), (state, torch.float32)):
+			(state, torch.float32)) + (((tab.Wtf32, torch.float32),) if ana else ()):
 		if t.dtype != dt or t.device != x.device or not t.is_contiguous():
 			raise ValueError("%s: tables must be contiguous %s tensors on %s" % (what, dt, x.device))
-	W = tab.W if what == "blk_synthesis" else tab.WT
+	if tuple(tab.ctv.shape) != (want[1], BLK_JP) or tuple(tab.W.shape) != (want[1], BLK_JP, BLK_TILE_T) \
+			or (ana and tuple(tab.Wtf32.shape) != (2, want[1], BLK_JP, BLK_TILE_T)):
+		raise ValueError("%s: node tables of another shape" % what)
+	W = tab.Wtf32 if ana else tab.W
 	ab = _coef_cached(nl, g.nm, g.dtype, x.device)
 	cs = _streams_cached(nl, g.nm, mode, x.device)
 	return [ab.data_ptr(), cs.data_ptr(), state.data_ptr(), tab.start.data_ptr(),
@@ -828,7 +850,7 @@ def blk_analysis(F, state, tab, g, lmax, mode="scalar"):
 	"""K8c (scalar) / K8d (deriv, spin1, spin2): the analysis sums of the
 	blocked suffix, resumed from the state full_analysis dumped.
 	F [nfun, C, nm, nt] -> [nl, nm, C], zero below every tile's first
-	block."""
+	block. The kernel's products run in 3xTF32 from tab.Wtf32."""
 	C = F.shape[1]
 	nl = lmax + 1
 	_check(F, g, (NFUN[mode], C, g.nm, g.nt), "blk_analysis")
