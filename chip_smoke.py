@@ -7,10 +7,15 @@ Run from the repository root with no arguments:
 It builds the hand-written kernels from pixell_tpu_torch/csrc with nvcc
 (legendre.cu once per mode, blockleg.cu once per Legendre mode and
 fma_peak.cu, all compilers started together) and prints each kernel's
-registers and spills, then runs the phases below (all of them with no
-arguments; --phases with a choice of k9,kernels,lstop,slice,adjoint,blocked,
-timing runs those alone, for work on one phase, and gives no verdict; the
-phase "variants", 6. below, runs only when named):
+registers and spills (every float64 instantiation of the bulk kernels must
+be built, and none may spill), then runs the phases below (all of them with
+no arguments; --phases with a choice of k9,kernels,lstop,slice,adjoint,
+blocked,timing runs those alone, for work on one phase, and gives no
+verdict; the phase "variants", 6. below, runs only when named). With
+--parent DIR, a directory holding a parent tree's legendre.cu (for example
+unpacked with git archive under build/), that file is built beside the
+package's, and the kernels and variants phases run its kernels beside
+this tree's (below):
 
 1. K9 phase: the FMA-peak kernel against its plain PyTorch chain on a small
    grid (the kernel rounds once per step, the chain twice: within
@@ -58,11 +63,22 @@ phase "variants", 6. below, runs only when named):
    (lmax 300, 203 m rows, 333 rings, for the half-sky forms 333 northern
    rings). K1 at the lmax-750 shape takes the dead-tile table as on the
    main path, and its time without the table is printed beside.
-   The float64 K1 and K2 at the float64 lmax-750 path's shapes (K1 on the
-   map's 450 northern rings, K2 on the 756 northern upsampled rings; scalar
-   and spin2) against the float64 plain version, with their times, bound
-   over the FP64 peak, float64 torch.bmm yardstick and launches per
-   float64 roundtrip (printed, "f64 row").
+   Every launch of K1-K4 in float64 runs bulk_synthesis_kernel<double> and
+   bulk_analysis_kernel<double> (the float64 cases above). The float64
+   rows: each at the shapes where the float64 paths launch it (f64_row_cases:
+   K1 on the map's northern rings at lmax 750 and 2000, K2 on the 756
+   northern upsampled rings at lmax 750, K4 on the first 2048-ring chunk of
+   the 4032 upsampled rings and K3 on all 4032 at lmax 2000, K3 / K4 in
+   wigner mode on 900 / 1512 rings at lmax 750), in every mode against the
+   float64 plain version (1e-11 / 1e-10), at lmax 750 with 2 and with 4
+   coefficient columns (every float64 instantiation), and in scalar and
+   spin2 (wigner) with its time, the plain version's, the bound over the
+   FP64 peak and beside it the bound with the accumulation on the FP64
+   tensor cores (dmma_bound), the float64 torch.bmm yardstick and its
+   launches per call of the float64 path (printed, "f64 row"); with
+   --parent also the time of the float64 kernel the parent launched on the
+   same input (its float64 bulk kernel, or before them its synthesis_kernel
+   or analysis_kernel) and the two results' distance.
    lstop: the bulk kernels at the lmax-2000 float32 shapes (2001 m rows):
    K1 on the map's 1080 northern rings (scalar, spin2), K3 on its 2160
    rings (scalar, spin2, wigner), K4 on the two chunks of 2048 and 1906
@@ -89,9 +105,12 @@ phase "variants", 6. below, runs only when named):
      within 5e-4 / 1e-10 / 2e-3, with the launches of every kernel by mode
      and dtype held against what the dispatch should give;
    every f32 path runs its near-pole rings through polar_synthesis (one
-   launch per alm2map in its mode) and polar_analysis in float64, and K3
-   and K4 in float64 never; its K1-K4 launches run the bulk kernels
-   (sht_cuda.BULK_KERNELS), never another float32 kernel;
+   launch per alm2map in its mode) and polar_analysis in float64, and
+   K1-K4 in float64 never; its K1-K4 launches run the float32 entries
+   (sht_cuda.BULK_KERNELS); every f64 roundtrip (spin 0, IQU, spin [0, 3]
+   at lmax 750, spin 0 and IQU at lmax 2000) launches exactly the float64
+   entries (sht_cuda.BULK_F64) the dispatch should give (f64_launches),
+   and no other kernel;
    every band-limited map roundtrip within 1e-3; deriv=True alm2map and
    map2alm at lmax 750 in f32 against the same on the card in f64 (1e-3);
    the wigner mode at spin 2 against the spin2 mode on the card at lmax 750
@@ -136,7 +155,9 @@ phase "variants", 6. below, runs only when named):
    each path with the launch counts set to 0 just before and read just
    after: in float64 the dot-product identities <map2alm(m), a> =
    <m, map2alm_adjoint(a)> and <alm2map(a), m> = <a, alm2map_adjoint(m)>
-   within 1e-10 relative (alm inner product sum Re Re + Im Im); in float32
+   within 1e-10 relative (alm inner product sum Re Re + Im Im), each
+   float64 adjoint call launching only the float64 entries of K1-K4 (at
+   lmax 2000 map2alm_adjoint K3's, on the 4032 upsampled rings); in float32
    each output within the cell's forward guard of the float64 one (1e-4
    spin 0, 5e-4 the others at lmax 750; 5e-4, 2e-3 at lmax 2000), only the
    float32 bulk kernels and the float64 near-pole passes launched, and at
@@ -150,19 +171,27 @@ phase "variants", 6. below, runs only when named):
 5. timing: sequential roundtrips timed with CUDA events after warmup (40
    spin-0, 10 IQU and 10 spin-[0, 3] at lmax 750; 5, 3 and 3 at lmax 2000)
    and a profiler breakdown of each: device time by kernel and the device's
-   busy share of the wall time.
+   busy share of the wall time; in float64 10 spin-0 and 10 IQU at lmax 750
+   and 3 spin-0 at lmax 2000, each with its busy share from one profiled
+   roundtrip and the alm after the roundtrips within 1e-10 of before (with
+   --parent, twice, each time followed by the same with the parent's float64
+   kernels).
 6. variants (only with --phases variants): the bulk kernels' design
    choices measured. legendre.cu is copied under build/variants/ once per
-   edit of BULK_VARIANTS (two or four rings a thread everywhere in
-   bulk_analysis_kernel, one or two in bulk_synthesis_kernel; the first group's
-   test written gl0 == l8; north and mirror sums in the half-sky
-   synthesis), each copy built (all started together) and its bulk
-   kernels' registers and spills printed; at the main path's K1-K4 shapes
-   each build's analysis result must lie within 1e-6 of the committed
-   build's and its synthesis result within the float32 rule above (on the
-   entries the main path keeps), and its device time is printed beside the
-   committed build's. Run it alone: late in a long process the profiler
-   drops device events, and the times fall back to CUDA events.
+   edit of BULK_VARIANTS (two or four rings a
+   thread everywhere in the float32 bulk_analysis_kernel, one or two in
+   its float64 instantiations and in bulk_synthesis_kernel in either type;
+   the first group's test written gl0 == l8; north and mirror sums in the
+   half-sky synthesis), each copy built (all started together) and its
+   bulk kernels' registers and spills printed; at the main path's float32
+   K1-K4 shapes each build's analysis result must lie within 1e-6 of the
+   committed build's and its synthesis result within the float32 rule
+   above (on the entries the main path keeps), at the float64 rows' shapes
+   within 1e-12 of the committed build's, and its device time is printed
+   beside the committed build's; with --parent the parent's kernels too,
+   float32 within 1e-6 of the committed build's and float64 within 1e-10.
+   Run it alone: late in a long process the profiler drops device events,
+   and the times fall back to CUDA events.
 
 It prints the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and yardstick, and as the last line
@@ -202,10 +231,11 @@ REPLACES = {
 MODES = ("scalar", "deriv", "spin1", "spin2", "wigner")   # in the build's order
 WIGNER_SPIN = 3   # the spin the wigner mode is driven with
 # NVIDIA H100 SXM data sheet: FP32 and FP64 outside the tensor cores, HBM3;
-# dense TF32 on the tensor cores
+# dense TF32 and FP64 on the tensor cores
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES = 3.35e12
 PEAK_TF32 = 495e12
+PEAK_DMMA = 67e12
 
 
 def card_line():
@@ -284,13 +314,23 @@ def kernel_ms(fn, n, name):
 def kernel_pattern(name, dtype=torch.float32):
 	"""The regular expression that picks the CUDA kernel the wrapper name
 	(sym_analysis, full_synthesis, ...) launches in dtype out of the
-	profiler's kernel names, mangled or not: the float32 launches run
-	bulk_analysis_kernel or bulk_synthesis_kernel, the float64 ones
-	analysis_kernel or synthesis_kernel, not the bulk_, polar_ or blk_
-	kernels of the same stem."""
+	profiler's kernel names, demangled or not: bulk_analysis_kernel or
+	bulk_synthesis_kernel in float32, bulk_analysis_kernel_f64 or
+	bulk_synthesis_kernel_f64 in float64."""
 	stem = name.split("_")[1]
-	if dtype == torch.float32: return "bulk_%s_kernel" % stem
-	return r"(?<![A-Za-z_])%s_kernel" % stem
+	if dtype == torch.float32: return r"bulk_%s_kernel(<\d|ILi)" % stem
+	return "bulk_%s_kernel_f64" % stem
+
+
+def parent_pattern(name, lib):
+	"""kernel_pattern of the float64 kernel the parent library lib
+	(parent_library) launches for the wrapper name: its float64 bulk kernel
+	where it has one, else synthesis_kernel or analysis_kernel, not the
+	bulk_, polar_ or blk_ kernels of the same stem."""
+	from pixell_tpu_torch.ops import sht_cuda
+	entry = sht_cuda.BULK_F64[name]
+	if lib.f64_entry[entry] == entry: return kernel_pattern(name, torch.float64)
+	return r"(?<![A-Za-z_])%s_kernel" % name.split("_")[1]
 
 
 def bound(ops, nbytes, dtype):
@@ -298,6 +338,15 @@ def bound(ops, nbytes, dtype):
 	peak for dtype, or bytes over the memory rate, whichever is larger."""
 	t_ops, t_bytes = ops/PEAK_FLOPS[dtype], nbytes/PEAK_BYTES
 	return 1e3*max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def dmma_bound(name, mode, lmax, mmax, nt, C, nbytes):
+	"""The least ms of a float64 kernel with its accumulation, a product
+	batched over m, on the FP64 tensor cores: the recurrence and the mode
+	functions over the FP64 peak plus the accumulation over PEAK_DMMA, or
+	the bytes over the memory rate, whichever is larger."""
+	other, acc = kernel_ops(name, mode, lmax, mmax, nt, C, split=True)
+	return 1e3*max(other/PEAK_FLOPS[torch.float64] + acc/PEAK_DMMA, nbytes/PEAK_BYTES)
 
 
 def print_build_summary(log, only=None):
@@ -314,20 +363,17 @@ def print_build_summary(log, only=None):
 			obj = ("%s.%s" % (src.split(".")[0], MODES[int(m.group(1))])) if m else src
 		m = re.search(r"Compiling entry function '([^']+)'", line)
 		if m:
-			k = re.search(r"(synthesis|analysis)_kernelI([fd])Li(\d+)ELb([01])", m.group(1))
 			f = re.search(r"fma_peak_kernelI([fd])", m.group(1))
 			b = re.search(r"blk_(synthesis|analysis)_kernelILi(\d+)E", m.group(1))
 			p = re.search(r"polar_(analysis|synthesis)_kernelILi(\d+)E", m.group(1))
-			u = re.search(r"bulk_(analysis|synthesis)_kernelILi(\d+)ELb([01])ELi(\d+)ELb([01])ELb([01])E",
-				m.group(1))
-			entry = ("%s<%s,C=%s,%s>" % (k.group(1), k.group(2), k.group(3),
-				"sym" if k.group(4) == "1" else "full")) if k else \
-				("fma_peak<%s>" % f.group(1) if f else
+			u = re.search(r"bulk_(analysis|synthesis)_kernel(_f64)?ILi(\d+)ELb([01])ELi(\d+)E(Lb([01])ELb"
+				r"([01])E)?", m.group(1))
+			entry = ("fma_peak<%s>" % f.group(1) if f else
 				("blk_%s<C=%s>" % b.groups() if b else
 				("polar_%s<d,C=%s>" % p.groups() if p else
-				("bulk_%s<C=%s,%s,R=%s%s%s>" % (u.group(1), u.group(2), "sym" if u.group(3) == "1" else
-				"full", u.group(4), ",stops" if u.group(5) == "1" else "",
-				",dump" if u.group(6) == "1" else "") if u else m.group(1)[:60]))))
+				("bulk_%s%s<C=%s,%s,R=%s%s%s>" % (u.group(1), u.group(2) or "", u.group(3), "sym" if
+				u.group(4) == "1" else "full", u.group(5), ",stops" if u.group(7) == "1" else "",
+				",dump" if u.group(8) == "1" else "") if u else m.group(1)[:60]))))
 		m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
 		if m: spill = int(m.group(1)) + int(m.group(2))
 		m = re.search(r"Used (\d+) registers", line)
@@ -342,6 +388,26 @@ def print_build_summary(log, only=None):
 	print("ptxas: largest spill of any kernel: %d bytes; kernels that spill, by source: %s" % (
 		worst, ", ".join("%s %d of %d" % (src, k, n) for src, (n, k) in sorted(spilled.items()))))
 	return rows
+
+
+# float64 instantiations of the bulk kernels (bulk_synthesis_kernel_f64,
+# bulk_analysis_kernel_f64): each kernel in both forms at C = 2 and 4 in the
+# four Legendre modes, in the full form in wigner mode
+F64_INSTANTIATIONS = 2*(4*2*2 + 2)
+
+
+def f64_build_check(rows):
+	"""The float64 bulk kernels among print_build_summary's rows: all
+	F64_INSTANTIATIONS of them, none spilling. Raises otherwise."""
+	f64 = [r for r in rows if r[1].startswith("bulk_") and "_f64<" in r[1]]
+	regs = [r[2] for r in f64] or [0]
+	spilled = [r for r in f64 if r[3]]
+	print("ptxas: %d float64 bulk instantiations (of %d), %d..%d registers, %d spilling%s" % (len(f64),
+		F64_INSTANTIATIONS, min(regs), max(regs), len(spilled), "".join("; %s %s %d bytes" % (o, e, b)
+		for o, e, _, b in spilled)))
+	if len(f64) != F64_INSTANTIATIONS or spilled:
+		raise RuntimeError("the float64 bulk kernels: %d instantiations built, %d spill"
+			% (len(f64), len(spilled)))
 
 
 # ---------------------------------------------------------------------------
@@ -451,45 +517,46 @@ def mode_spin(mode):
 	return WIGNER_SPIN if mode == "wigner" else None
 
 
-def kernel_input(name, mode, lmax, mmax, nt, seed):
-	"""Random input of kernel name in mode: independent north and south
-	values, so a wrong hemisphere sign cannot cancel."""
+def kernel_input(name, mode, lmax, mmax, nt, seed, C=None):
+	"""Random input of kernel name in mode with C coefficient columns (by
+	default ncoef's): independent north and south values, so a wrong
+	hemisphere sign cannot cancel."""
 	from pixell_tpu_torch.ops.sht_core import NFUN
 	rng = np.random.default_rng(seed)
-	nl, nm, nf, C = lmax + 1, mmax + 1, NFUN[mode], ncoef(mode)
+	nl, nm, nf, C = lmax + 1, mmax + 1, NFUN[mode], C or ncoef(mode)
 	if name.endswith("synthesis"): shape = (nl, nm, C)
 	elif name == "sym_analysis": shape = (nf, C, 2, nm, nt)
 	else: shape = (nf, C, nm, nt)
 	return rng.standard_normal(shape)
 
 
-# operations per (l, m, theta) triple of the kernels' own arithmetic (an FMA
-# counts 2): the recurrence step and its unscaling, the mode functions
-# (with lambda_{l-1}'s unscaling), and per coefficient column the
-# accumulation: a multiply-add per function for synthesis (the half-sky
-# kernel's mirror ring too: its even-l and odd-l sums meet once per (m,
-# ring), O(nm nt), not counted), a multiply-add per function and one
-# reduction add for analysis. The wigner mode steps a second branch
-# with the offset's multiply-add on both (7 + 2*2) and combines the two
-# into w and x (5). With dead-tile stops, only the triples of live
+# operations per (l, m, theta) triple of the function (an FMA counts 2):
+# the recurrence step and its unscaling, the mode functions (with
+# lambda_{l-1}'s unscaling), and per coefficient column the accumulation,
+# a multiply-add per function, in synthesis the sum over l, in analysis
+# over theta (not counted: the half-sky synthesis's even-l and odd-l sums,
+# which meet once per (m, ring), and the adds that combine the analysis
+# kernels' per-thread partial sums, an artefact of how they split the sum
+# over threads). The wigner mode steps a second
+# branch with the offset's multiply-add on both (7 + 2*2) and combines the
+# two into w and x (5). With dead-tile stops, only the triples of live
 # blocks count: the others are not computed.
 STEP_OPS = 7
 MODE_OPS = {"scalar": 0, "deriv": 7, "spin1": 12, "spin2": 25, "wigner": 16}
 
 
-def kernel_ops(name, mode, lmax, mmax, nt, C, dead=None):
+def kernel_ops(name, mode, lmax, mmax, nt, C, dead=None, split=False):
+	"""The operations of kernel name (either form of synthesis or
+	analysis) in mode: their sum, or with split (recurrence and mode
+	functions, accumulation)."""
 	from pixell_tpu_torch.ops import sht_cuda
 	from pixell_tpu_torch.ops.sht_core import NFUN
-	nf = NFUN[mode]
 	rings = np.full(mmax + 1, nt) if dead is None else \
 		sht_cuda.live_mask(dead, mmax + 1, nt).sum(1).cpu().numpy()
 	first = np.maximum(np.arange(mmax + 1), mode_spin(mode) or 0)   # each row's seed degree
 	triples = int((rings*np.maximum(lmax + 1 - first, 0)).sum())
-	if name.endswith("synthesis"):
-		acc = 2*C*nf
-	else:
-		acc = C*(2*nf + 1)
-	return triples*(STEP_OPS + MODE_OPS[mode] + acc)
+	ops = (triples*(STEP_OPS + MODE_OPS[mode]), triples*2*C*NFUN[mode])
+	return ops if split else sum(ops)
 
 
 def kernel_bytes(name, mode, lmax, mmax, nt, C, esize):
@@ -608,7 +675,10 @@ def kept_err(name, k, p, ref, kept):
 	return relerr(k, ref), relerr(p, ref)
 
 
-def kernel_phase():
+def kernel_phase(parent=None):
+	"""The kernel phase (2. above); parent, the parent tree's library, or
+	None. Returns (records of the lmax-750 cases, records of the float64
+	rows)."""
 	from pixell_tpu_torch.ops import sht_cuda
 	dev = torch.device("cuda")
 	records = {}
@@ -685,7 +755,7 @@ def kernel_phase():
 					% (name, mode))
 			tag = mode if mode != "wigner" else "wigner, %s" % (
 				"f32 bulk" if label.endswith("bulk") else "f64 near-pole")
-			kname = sht_cuda.BULK_KERNELS[name] if main_dt == torch.float32 else name
+			kname = (sht_cuda.BULK_KERNELS if main_dt == torch.float32 else sht_cuda.BULK_F64)[name]
 			rec = {"name": "%s[%s]" % (kname, tag), "route": "cuda", "source": LEGENDRE_SOURCE,
 				"replaces": REPLACES[name], "mode": mode,
 				"max_abs_err": float((k.double() - ref).abs().max()),
@@ -695,65 +765,141 @@ def kernel_phase():
 				"library_ms": lib_ms, "library_rel_err": lib_err,
 				"shape": "lmax %d, nm %d, nt %d, C %d, %s%s" % (lmax, mmax + 1, nt, C,
 					str(main_dt)[6:], "" if dead is None else ", dead-tile table")}
+			if main_dt == torch.float64:
+				rec["bound_dmma_ms"] = dmma_bound(name, mode, lmax, mmax, nt, C,
+					kernel_bytes(name, mode, lmax, mmax, nt, C, 8))
 			if dead is not None:   # the same launch without the table
 				rec["ms_without_dead_table"] = kernel_ms(lambda: kern(*args[:4]), 20,
 					kernel_pattern(name, main_dt))[0]
 			print("time   %-14s %-6s %s: kernel %.4f ms (%s; wrapper call %.4f ms%s), plain %.2f ms, "
-				"bound %.4f ms (%s, %.1f %% of it reached), torch.bmm %.4f ms" % (name, mode,
+				"bound %.4f ms (%s, %.1f %% of it reached%s), torch.bmm %.4f ms" % (name, mode,
 				rec["shape"], rec["ms"], how, rec["call_ms"], "" if dead is None else
 				"; without the table %.4f ms" % rec["ms_without_dead_table"], rec["plain_ms"], b_ms,
-				b_by, 100*b_ms/rec["ms"], lib_ms))
+				b_by, 100*b_ms/rec["ms"], "" if dead is not None or main_dt == torch.float32 else
+				"; with the accumulation on the FP64 tensor cores %.4f ms, %.1f %%" % (
+				rec["bound_dmma_ms"], 100*rec["bound_dmma_ms"]/rec["ms"]), lib_ms))
 			records[(kname, mode, str(main_dt)[6:])] = rec
 			if label == "lmax750-polar":
 				pname = "polar_" + name.split("_")[1]
 				records[(pname, mode, "float64")] = polar_record(pname, mode, args, k, ref, rec)
 		for pname in sht_cuda.POLAR_KERNELS: polar_shapes(pname, mode)
-	f64_sym_rows()
-	return records
+	return records, f64_rows(parent)
 
 
-def f64_sym_rows():
-	"""K1 and K2 in float64 at the shapes the float64 lmax-750 roundtrip
-	gives them (no near-pole split in float64): K1 (synthesis_kernel<double,
-	C,true>) on the map's 450 northern rings and K2 (analysis_kernel<double,
-	C,true>) on the 756 northern rings of the 1512 upsampled ones, nm 751,
-	scalar (C = 2) and spin2 (C = 4). Each against the float64 plain version
-	(1e-11 / 1e-10 of the largest value), its time (profiler), the plain
-	version's, the bound over the FP64 peak and the float64 torch.bmm
-	yardstick, and its launches in one float64 roundtrip of the mode's path
-	(spin 0; IQU)."""
-	from pixell_tpu_torch import sht
+# the float64 paths whose launches the float64 rows report, by (wrapper,
+# lmax) and mode: the roundtrips of the slice phase, and map2alm_adjoint for
+# K3 at lmax 2000 (the adjoint phase)
+F64_PATH_SPINS = {"scalar": "spin 0", "spin2": "IQU", "wigner": "spin [0, 3]"}
+
+
+def f64_path(name, lmax, mode):
+	"""The label of the float64 path (drive64) whose launches the row of
+	name at lmax in mode reports."""
+	if name == "full_synthesis" and lmax == 2000:
+		return "f64 map2alm_adjoint %s lmax %d" % (F64_PATH_SPINS[mode], lmax)
+	return "f64 %s lmax %d roundtrip" % (F64_PATH_SPINS[mode], lmax)
+
+
+def f64_row_cases():
+	"""[(wrapper, lmax, rings, (mode, C) held, modes timed)]: the shapes at
+	which the float64 paths launch K1-K4 (no near-pole split in float64).
+	K1 on the map's northern rings (900 x 1800 at lmax 750, 2160 x 4320 at
+	lmax 2000); K2 on the northern 756 of the 1512 upsampled rings at lmax
+	750; at lmax 2000 the 4032 upsampled rings are more than 2 SYM_MAX_NH,
+	so K4 takes them in TCHUNK chunks (the first: 2048 rings) and
+	map2alm_adjoint K3 on all of them; K3 / K4 in wigner mode (spin [0, 3])
+	on the map's 900 and the 1512 upsampled rings at lmax 750. Every mode
+	the path can give the kernel there is held, at lmax 750 at C = 2 and 4
+	(the column chunks of the wrappers: every float64 instantiation), at
+	lmax 2000 at ncoef's C; scalar and spin2 (wigner for the wigner rows)
+	are timed, at ncoef's C."""
+	from pixell_tpu_torch import sht, fft
 	from pixell_tpu_torch.ops import sht_cuda
-	dev, f64, lmax = torch.device("cuda"), torch.float64, 750
-	counts = {}
-	for mode, spin in (("scalar", (0,)), ("spin2", (0, 2))):
-		sht_cuda.reset_launches()
-		roundtrip(lmax, (900, 1800), f64, 1e-10, spin=spin, seed=7)
-		counts[mode] = dict(sht_cuda.LAUNCHES_BY_DTYPE)
-	rings = {"sym_synthesis": sht.ring_theta("F1", 900)[:450], "sym_analysis": sht.ring_theta("F1", 1512)[:756]}
-	for mode in ("scalar", "spin2"):
-		for i, (name, theta) in enumerate(rings.items()):
-			kern, plain, C, nt = getattr(sht_cuda, name), sht_cuda.PLAIN[name], ncoef(mode), len(theta)
-			x = torch.from_numpy(kernel_input(name, mode, lmax, lmax, nt, 80 + i)).to(dev)
-			g = sht_cuda.geom(theta, lmax, f64, dev)
+	up = lambda lmax: sht.ring_theta("F1", fft.fft_len(2*lmax + 3, direction="above"))
+	m750, m2000 = sht.ring_theta("F1", 900), sht.ring_theta("F1", 2160)
+	timed = ("scalar", "spin2")
+	both = lambda modes: [(mode, C) for mode in modes for C in (2, 4)]
+	one = lambda modes: [(mode, ncoef(mode)) for mode in modes]
+	return [
+		("sym_synthesis", 750, m750[:sht_cuda.detect_sym(m750)], both(MODES[:4]), timed),
+		("sym_analysis", 750, up(750)[:sht_cuda.detect_sym(up(750))], both(MODES[:4]), timed),
+		("full_synthesis", 750, m750, both(MODES), ("wigner",)),
+		("full_analysis", 750, up(750), both(MODES), ("wigner",)),
+		("sym_synthesis", 2000, m2000[:sht_cuda.detect_sym(m2000)], one(MODES[:4]), timed),
+		("full_analysis", 2000, up(2000)[:sht_cuda.TCHUNK], one(MODES), timed),
+		("full_synthesis", 2000, up(2000), one(MODES), timed),
+	]
+
+
+def f64_rows(parent=None):
+	"""The float64 kernels (bulk_synthesis_kernel<double>,
+	bulk_analysis_kernel<double>) at the shapes of f64_row_cases: in every
+	mode held there against the float64 plain version (1e-11 scalar, 1e-10
+	the spin modes, of the largest value); in the timed modes also the
+	kernel's time (profiler), the plain version's, the bound over the FP64
+	peak and the float64 torch.bmm yardstick (at lmax 2000 over m in chunks
+	of 64 rows); with parent, the parent tree's library (parent_library),
+	the time of the kernel it launched on the same input and the two
+	results' distance. Returns the timed rows' records by (wrapper, mode,
+	lmax, rings); their launches are those of the float64 path f64_path
+	names."""
+	from pixell_tpu_torch.ops import sht_cuda
+	dev, f64 = torch.device("cuda"), torch.float64
+	records = {}
+	for i, (name, lmax, theta, held, timed) in enumerate(f64_row_cases()):
+		kern, plain, nt = getattr(sht_cuda, name), sht_cuda.PLAIN[name], len(theta)
+		for mode, C in held:
+			s = mode_spin(mode)
+			x = torch.from_numpy(kernel_input(name, mode, lmax, lmax, nt, 80 + i, C)).to(dev)
+			g = sht_cuda.geom(theta, lmax, f64, dev, s)
 			ref, plain_ms = timed_once(lambda: plain(x, g, lmax, mode))
 			k = kern(x, g, lmax, mode)
 			torch.cuda.synchronize()
 			err, tol = relerr(k, ref), (1e-11 if mode == "scalar" else 1e-10)
-			if not (err <= tol and bool(torch.isfinite(k).all())):
-				raise RuntimeError("%s %s float64 at lmax 750: rel err %.3e against the plain version"
-					% (name, mode, err))
-			ms, how = kernel_ms(lambda: kern(x, g, lmax, mode), 20, kernel_pattern(name, f64))
-			b_ms, b_by = bound(kernel_ops(name, mode, lmax, lmax, nt, C),
-				kernel_bytes(name, mode, lmax, lmax, nt, C, 8), f64)
-			lib_ms, lib_err = library_ms(name, mode, x, theta, lmax, lmax, ref)
+			ok = err <= tol and bool(torch.isfinite(k).all()) and tuple(k.shape) == tuple(ref.shape)
+			shape = "lmax %d, nm %d, nt %d, C %d, float64" % (lmax, lmax + 1, nt, C)
+			print("f64 kernel %-14s %-6s %s: rel err %.3e (bound %.0e) %s" % (name, mode, shape, err, tol,
+				"ok" if ok else "FAIL"))
+			if not ok:
+				raise RuntimeError("%s %s float64 at lmax %d, %d rings: the kernel disagrees with its "
+					"plain version" % (name, mode, lmax, nt))
+			if mode not in timed or C != ncoef(mode): continue
+			run, n = (lambda: kern(x, g, lmax, mode)), (20 if lmax < 1000 else 5)
+			ms, how = kernel_ms(run, n, kernel_pattern(name, f64))
+			nbytes = kernel_bytes(name, mode, lmax, lmax, nt, C, 8)
+			b_ms, b_by = bound(kernel_ops(name, mode, lmax, lmax, nt, C), nbytes, f64)
+			dm_ms = dmma_bound(name, mode, lmax, lmax, nt, C, nbytes)
+			if lmax < 1000:
+				lib_ms, lib_err = library_ms(name, mode, x, theta, lmax, lmax, ref)
+			else:
+				lib_ms, lib_err = chunked_library_ms(name, mode, x, theta, lmax)
 			if not lib_err <= 1e-10:
 				raise RuntimeError("%s %s: the float64 yardstick computes another function" % (name, mode))
-			print("f64 row %-13s %-6s lmax %d, nm %d, nt %d, C %d: kernel %s_kernel<double> %.4f ms (%s), "
-				"rel err %.3e (bound %.0e), plain %.2f ms, bound %.4f ms (%s, %.1f %% of it reached), "
-				"torch.bmm f64 %.4f ms (rel err %.3e); launches per float64 roundtrip %d" % (name, mode,
-				lmax, lmax + 1, nt, C, name.split("_")[1], ms, how, err, tol, plain_ms, b_ms, b_by,
-				100*b_ms/ms, lib_ms, lib_err, counts[mode][(name, mode, "float64")]))
+			entry = sht_cuda.BULK_F64[name]
+			rec = {"name": "%s[%s, lmax %d, nt %d]" % (entry, mode, lmax, nt), "route": "cuda",
+				"source": LEGENDRE_SOURCE, "replaces": REPLACES[name], "mode": mode,
+				"max_abs_err": float((k - ref).abs().max()), "rel_err": err, "ms": ms, "ms_from": how,
+				"call_ms": cuda_ms(run, n), "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+				"bound_dmma_ms": dm_ms, "library_ms": lib_ms, "library_rel_err": lib_err, "shape": shape,
+				"path": f64_path(name, lmax, mode)}
+			old = ""
+			if parent is not None:
+				with parent_kernels(parent):
+					ko = kern(x, g, lmax, mode)
+					torch.cuda.synchronize()
+					rec["old_ms"], rec["old_ms_from"] = kernel_ms(run, n, parent_pattern(name, parent))
+				rec["diff_to_old"] = relerr(k, ko)
+				old = "; the parent's %s %.4f ms (%s; %.2fx), results %.3e apart" % (
+					parent.f64_entry[entry], rec["old_ms"], rec["old_ms_from"], rec["old_ms"]/ms,
+					rec["diff_to_old"])
+			print("f64 row %-14s %-6s %s: %s %.4f ms (%s; wrapper call %.4f ms), plain %.2f ms, bound %.4f "
+				"ms (%s, %.1f %% of it reached; with the accumulation on the FP64 tensor cores %.4f ms, "
+				"%.1f %%), torch.bmm f64 %.4f ms (rel err %.3e)%s" % (name, mode, shape, entry, ms, how,
+				rec["call_ms"], plain_ms, b_ms, b_by, 100*b_ms/ms, dm_ms, 100*dm_ms/ms, lib_ms, lib_err, old))
+			records[(name, mode, lmax, nt)] = rec
+			del x, k, ref
+			torch.cuda.empty_cache()
+	return records
 
 
 def polar_check(pname, mode, label, kp, ref):
@@ -789,7 +935,7 @@ def polar_record(pname, mode, args, k_old, ref, old):
 	rec = dict(old, name="%s[%s]" % (pname, mode if mode != "wigner" else "wigner, f64 near-pole"),
 		replaces=REPLACES[pname], max_abs_err=float((kp - ref).abs().max()), ms=ms, ms_from=how,
 		call_ms=cuda_ms(run, 20), replaced_ms=old["ms"],
-		replaced_kernel="%s (%s_kernel<double,C,false>)" % (old["name"].split("[")[0],
+		replaced_kernel="%s (bulk_%s_kernel<double,C,false>)" % (old["name"].split("[")[0],
 			"synthesis" if syn else "analysis"),
 		diff_to_replaced=relerr(kp, k_old), plain_ms_from="timed with %s" % old["name"])
 	print("time   %-15s %-6s %s: kernel %.4f ms (%s; wrapper call %.4f ms), plain %.2f ms, "
@@ -1033,7 +1179,7 @@ def deriv_pair(lmax, shape, dtype, device="cuda", seed=2):
 def drive(label, mode, fn, kernels, want=None, alm2maps=2):
 	"""Run the float32 path fn with every launch count set to 0 just before
 	and read just after; every kernel in kernels must have launched in mode,
-	and K3 and K4 in no mode in float64: the near-pole passes are
+	and K1-K4 in no mode in float64: the near-pole passes are
 	polar_synthesis's (one launch in mode for each of the path's alm2maps)
 	and polar_analysis's. The counts include K9's, which no SHT path calls.
 	want, if given, is every nonzero count the path should give, {(kernel,
@@ -1050,14 +1196,10 @@ def drive(label, mode, fn, kernels, want=None, alm2maps=2):
 	if missing:
 		raise RuntimeError("kernels not launched by the %s path: %s" % (label, missing))
 	by_dtype = {k: n for k, n in sht_cuda.LAUNCHES_BY_DTYPE.items() if n}
-	k34_64 = {k: n for k, n in by_dtype.items() if k[0].startswith("full") and k[2] == "float64"}
-	if k34_64:
-		raise RuntimeError("the %s path ran K3/K4 in float64 (%s), not polar_synthesis and "
-			"polar_analysis" % (label, k34_64))
-	old32 = {k: n for k, n in by_dtype.items() if k[0] in sht_cuda.BULK_KERNELS and k[2] == "float32"}
-	if old32:
-		raise RuntimeError("the %s path ran a float32 launch outside the bulk kernels (%s)"
-			% (label, old32))
+	k64 = {k: n for k, n in by_dtype.items() if k[0] in sht_cuda.BULK_F64.values()}
+	if k64:
+		raise RuntimeError("the %s path ran K1-K4 in float64 (%s), not polar_synthesis and "
+			"polar_analysis" % (label, k64))
 	if counts["polar_synthesis"] != alm2maps:
 		raise RuntimeError("the %s path launched polar_synthesis %d times in %s mode, not once for "
 			"each of its %d alm2map calls" % (label, counts["polar_synthesis"], mode, alm2maps))
@@ -1091,6 +1233,49 @@ def wigner_launches(lmax, nt_map):
 	return want
 
 
+def f64_launches(lmax, nt_map, spin):
+	"""{(kernel, mode, dtype): launches} of one float64 roundtrip (alm2map,
+	map2alm, alm2map) of the spins spin on nt_map Fejer-1 rings, after the
+	dispatch: no near-pole pass; each spin block's synthesis through K1 on
+	the map's northern rings (K3 on all of them in wigner mode, or where
+	they are more than 2 SYM_MAX_NH), its analysis through K2 on the
+	northern upsampled rings (K4 in TCHUNK chunks in wigner mode, or where
+	they are more than 2 SYM_MAX_NH); the float64 entries (BULK_F64) only."""
+	from pixell_tpu_torch import fft
+	from pixell_tpu_torch.ops import sht_cuda
+	nt_up = fft.fft_len(2*lmax + 3, direction="above")
+	want = {}
+	for s in spin:
+		mode = {0: "scalar", 1: "spin1", 2: "spin2"}.get(s, "wigner")
+		half = lambda nt: mode != "wigner" and nt <= 2*sht_cuda.SYM_MAX_NH
+		syn = "sym_synthesis" if half(nt_map) else "full_synthesis"
+		ana, n = ("sym_analysis", 1) if half(nt_up) else ("full_analysis", -(-nt_up//sht_cuda.TCHUNK))
+		want[(sht_cuda.BULK_F64[syn], mode, "float64")] = 2
+		want[(sht_cuda.BULK_F64[ana], mode, "float64")] = n
+	return want
+
+
+def drive64(label, fn, want=None):
+	"""Run the float64 path fn with every launch count set to 0 just before
+	and read just after: it must launch, and only the float64 entries of
+	K1-K4 (sht_cuda.BULK_F64); with want, {(kernel, mode, dtype): launches},
+	exactly those. Returns (its launches by (kernel, mode, dtype), fn's
+	result)."""
+	from pixell_tpu_torch.ops import sht_cuda, fma_peak
+	sht_cuda.reset_launches()
+	fma_peak.LAUNCHES["fma_peak"] = 0
+	out = fn()
+	torch.cuda.synchronize()
+	by_dtype = {k: n for k, n in sht_cuda.LAUNCHES_BY_DTYPE.items() if n}
+	print("launches in the %s: %s" % (label, by_dtype))
+	f64 = set(sht_cuda.BULK_F64.values())
+	bad = {k: n for k, n in by_dtype.items() if not (k[0] in f64 and k[2] == "float64")}
+	if not by_dtype or bad or fma_peak.LAUNCHES["fma_peak"] or (want is not None and by_dtype != want):
+		raise RuntimeError("the %s launched %s; a float64 path launches the float64 entries of K1-K4 "
+			"only%s" % (label, by_dtype, "" if want is None else ", here %s" % want))
+	return by_dtype, out
+
+
 def wigner_against_spin2(lmax, nt):
 	"""The wigner mode at spin 2 against the spin2 mode, which reaches w and
 	x by another route, on the card in float64 (the engine entry points:
@@ -1112,17 +1297,26 @@ def wigner_against_spin2(lmax, nt):
 
 
 def slice_phase():
+	"""The slice phase (3. above). Returns (the float32 paths' launches by
+	mode, the float64 paths' by label)."""
 	from pixell_tpu_torch import sht, fft
 	from pixell_tpu_torch.ops import sht_cuda
 	# at lmax 750 the float32 bulk takes K1/K2, the near-pole rings
 	# polar_synthesis and polar_analysis in float64
 	allk = ("sym_bulk_synthesis", "sym_bulk_analysis", "polar_synthesis", "polar_analysis")
 	f32, f64 = torch.float32, torch.float64
-	launches = {}
+	launches, launches64 = {}, {}
+	def rt64(lmax, shape, spin):
+		label = "f64 %s lmax %d roundtrip" % ({(0,): "spin 0", (0, 2): "IQU"}.get(spin, "spin %s"
+			% list(spin)), lmax)
+		launches64[label] = drive64(label, lambda: roundtrip(lmax, shape, f64, 1e-10, spin=spin),
+			f64_launches(lmax, shape[0], spin))[0]
 	counts, _ = drive("spin-0 lmax-750 f32 roundtrip", "scalar",
 		lambda: roundtrip(750, (900, 1800), f32, 1e-4), allk)
 	launches["scalar"] = counts
-	roundtrip(750, (900, 1800), f64, 1e-10)
+	rt64(750, (900, 1800), (0,))
+	rt64(2000, (2160, 4320), (0,))
+	rt64(2000, (2160, 4320), (0, 2))
 	# more than 2*SYM_MAX_NH upsampled rings: the analysis runs K4, not K2
 	counts, _ = drive("spin-0 lmax-2000 f32 roundtrip", "scalar",
 		lambda: roundtrip(2000, (2160, 4320), f32, 5e-4),
@@ -1131,7 +1325,7 @@ def slice_phase():
 	counts, _ = drive("IQU lmax-750 f32 roundtrip", "spin2",
 		lambda: roundtrip(750, (900, 1800), f32, 5e-4, spin=(0, 2)), allk)
 	launches["spin2"] = counts
-	roundtrip(750, (900, 1800), f64, 1e-10, spin=(0, 2))
+	rt64(750, (900, 1800), (0, 2))
 	counts, _ = drive("IQU lmax-2000 f32 roundtrip", "spin2",
 		lambda: roundtrip(2000, (2160, 4320), f32, 2e-3, spin=(0, 2)),
 		("sym_bulk_synthesis", "polar_synthesis", "full_bulk_analysis", "polar_analysis"))
@@ -1158,7 +1352,7 @@ def slice_phase():
 		lambda: roundtrip(750, (900, 1800), f32, 5e-4, spin=(0, WIGNER_SPIN)), wk,
 		wigner_launches(750, 900))
 	launches["wigner"] = counts
-	roundtrip(750, (900, 1800), f64, 1e-10, spin=(0, WIGNER_SPIN))
+	rt64(750, (900, 1800), (0, WIGNER_SPIN))
 	counts, _ = drive("spin-[0, 3] lmax-2000 f32 roundtrip", "wigner",
 		lambda: roundtrip(2000, (2160, 4320), f32, 2e-3, spin=(0, WIGNER_SPIN)), wk,
 		wigner_launches(2000, 2160))
@@ -1181,7 +1375,7 @@ def slice_phase():
 		e = max(relerr(xc.cpu(), xh), relerr(ac.cpu(), ah))
 		print("card vs cpu, %s at lmax 48 f64: rel err %.3e (bound 1e-10)" % (label, e))
 		if not e <= 1e-10: raise RuntimeError("card and CPU paths disagree (%s)" % label)
-	return launches
+	return launches, launches64
 
 
 # ---------------------------------------------------------------------------
@@ -1556,27 +1750,31 @@ def blocked_phase():
 # ---------------------------------------------------------------------------
 # 5. timing
 # ---------------------------------------------------------------------------
-def roundtrip_step(lmax, shape, spin):
-	"""arr -> alm2map(map2alm(arr)) at lmax on the full-sky F1 map, f32."""
+def roundtrip_step(lmax, shape, spin, dtype=torch.float32):
+	"""arr -> alm2map(map2alm(arr)) at lmax on the full-sky F1 map, in
+	dtype; also returns the map2alm of a map."""
 	from pixell_tpu_torch import enmap, curvedsky
 	gshape, wcs = enmap.fullsky_geometry(shape=shape, variant="fejer1")
 	mshape = gshape if list(spin) == [0] else (3,) + gshape
 	ainfo = curvedsky.alm_info(lmax=lmax)
+	def analyse(arr):
+		return curvedsky.map2alm(enmap.ndmap(arr, wcs), lmax=lmax, spin=list(spin))
 	def step(arr):
-		alm = curvedsky.map2alm(enmap.ndmap(arr, wcs), lmax=lmax, spin=list(spin))
-		return curvedsky.alm2map(alm, enmap.zeros(mshape, wcs, torch.float32),
+		return curvedsky.alm2map(analyse(arr), enmap.zeros(mshape, wcs, dtype),
 			spin=list(spin), ainfo=ainfo).data
 	rng = np.random.default_rng(0)
-	arr = torch.from_numpy(rng.standard_normal(mshape).astype(np.float32)).cuda()
+	arr = torch.from_numpy(rng.standard_normal(mshape)).to("cuda", dtype)
 	arr = step(step(arr))   # warmup; the result is band-limited
 	torch.cuda.synchronize()
-	return step, arr
+	return step, arr, analyse
 
 
-def time_roundtrips(lmax, shape, nrep, spin=(0,)):
+def time_roundtrips(lmax, shape, nrep, spin=(0,), dtype=torch.float32, tag=""):
 	"""nrep sequential roundtrips, timed with CUDA events (and the host
-	clock) after warmup; checks the band-limited map comes back."""
-	step, arr = roundtrip_step(lmax, shape, spin)
+	clock) after warmup; checks the band-limited map comes back (float32:
+	within 1e-3), in float64 its alm (within 1e-10), and prints the
+	device's busy share of one profiled roundtrip. tag marks the lines."""
+	step, arr, analyse = roundtrip_step(lmax, shape, spin, dtype)
 	t0 = torch.cuda.Event(enable_timing=True)
 	t1 = torch.cuda.Event(enable_timing=True)
 	h0 = time.perf_counter()
@@ -1588,10 +1786,18 @@ def time_roundtrips(lmax, shape, nrep, spin=(0,)):
 	host = time.perf_counter() - h0
 	ms = t0.elapsed_time(t1)
 	rel = relerr(x, arr)
-	print("timing: %d x lmax-%d spin %s f32 roundtrip = %.3f ms (%.4f ms each; host clock "
-		"%.3f ms); drift after %d roundtrips %.3e" % (nrep, lmax, list(spin), ms, ms/nrep,
+	dt = str(dtype)[6:]
+	print("timing%s: %d x lmax-%d spin %s %s roundtrip = %.3f ms (%.4f ms each; host clock "
+		"%.3f ms); drift after %d roundtrips %.3e" % (tag, nrep, lmax, list(spin), dt, ms, ms/nrep,
 		host*1e3, nrep, rel))
 	if not rel < 1e-3: raise RuntimeError("timed roundtrips drifted: %g" % rel)
+	if dtype == torch.float64:
+		ealm = relerr(analyse(x), analyse(arr))
+		wall, busy = profiled(lambda: step(arr), 10)
+		print("timing%s: lmax-%d spin %s f64: alm after %d roundtrips rel err %.3e (bound 1e-10); one "
+			"profiled roundtrip: wall %.3f ms, device busy %.3f ms (%.1f %%)" % (tag, lmax, list(spin),
+			nrep, ealm, wall, busy, 100*busy/wall))
+		if not ealm <= 1e-10: raise RuntimeError("the float64 roundtrips moved the alm by %g" % ealm)
 	return ms
 
 
@@ -1617,7 +1823,7 @@ def profiled(fn, rows):
 def profile_roundtrips(lmax, shape, nrep=3, spin=(0,)):
 	"""Device time by kernel over nrep roundtrips, and the device's busy
 	share of the host wall time."""
-	step, arr = roundtrip_step(lmax, shape, spin)
+	step, arr, _ = roundtrip_step(lmax, shape, spin)
 	def steps():
 		y = arr
 		for _ in range(nrep): y = step(y)
@@ -1630,18 +1836,37 @@ def profile_roundtrips(lmax, shape, nrep=3, spin=(0,)):
 # 6. variants of bulk_analysis_kernel (only on request)
 # ---------------------------------------------------------------------------
 # Edits of csrc/legendre.cu, each undoing one choice of bulk_analysis_kernel
-# (its rings a thread, bulk_rings: four in the full scalar form, else two),
-# of bulk_synthesis_kernel (its rings a thread, SYNTH_RINGS: two in scalar
-# mode, else one; the half-sky form's even-l and odd-l sums, against north
-# and mirror sums) or of both (the way their first-group test is written).
-# An edit applies wherever its text appears.
+# (its rings a thread: float32 four in the full scalar form, else two), of
+# bulk_synthesis_kernel (its rings a thread: float32 two in scalar mode,
+# else one; the half-sky form's even-l and odd-l sums, against north and
+# mirror sums), of their float64 instantiations (rings a thread and the
+# launch bounds' minimum of blocks an SM, which caps their registers:
+# f64_analysis_rings .. f64_synthesis_blocks) or of both kernels (the way
+# their first-group test is written). An edit applies wherever its text
+# appears; the labels of edits that touch the float64 instantiations alone
+# start with "f64".
+F32_ANA = "constexpr int f32_analysis_rings(bool SYM) { return %s; }"
+F32_SYN = "constexpr int f32_synthesis_rings() { return %s; }"
+F64_ANA = "constexpr int f64_analysis_rings(int C) { return %s; }"
+F64_ANA_B = "constexpr int f64_analysis_blocks(int C) { return %s; }"
+F64_SYN = "constexpr int f64_synthesis_rings(int C) { return %s; }"
+F64_SYN_B = "constexpr int f64_synthesis_blocks(int C) { return %s; }"
+F64_SYN_RB = F64_SYN + "\n__host__ __device__ " + F64_SYN_B   # the two lines together
 BULK_VARIANTS = {
-	"R = 2": ("return MODE == SCALAR && !SYM ? 4 : 2;", "return 2;"),
-	"R = 4": ("return MODE == SCALAR && !SYM ? 4 : 2;", "return 4;"),
+	"R = 2": (F32_ANA % "MODE == SCALAR && !SYM ? 4 : 2", F32_ANA % "2"),
+	"R = 4": (F32_ANA % "MODE == SCALAR && !SYM ? 4 : 2", F32_ANA % "4"),
 	"gl0 == l8": ("else if (gl0 < l8 + BG)", "else if (gl0 == l8)"),
-	"synthesis R = 1": ("SYNTH_RINGS = MODE == SCALAR ? 2 : 1;", "SYNTH_RINGS = 1;"),
-	"synthesis R = 2": ("SYNTH_RINGS = MODE == SCALAR ? 2 : 1;", "SYNTH_RINGS = 2;"),
+	"synthesis R = 1": (F32_SYN % "MODE == SCALAR ? 2 : 1", F32_SYN % "1"),
+	"synthesis R = 2": (F32_SYN % "MODE == SCALAR ? 2 : 1", F32_SYN % "2"),
 	"north/mirror sums": ("constexpr bool SYNTH_EVEN_ODD = true;", "constexpr bool SYNTH_EVEN_ODD = false;"),
+	"f64 R = 1": (F64_ANA % "MODE == DERIV && C == 4 ? 1 : 2", F64_ANA % "1"),
+	"f64 analysis 3 blocks": (F64_ANA_B % "MODE == DERIV && C == 2 ? 3 : 1", F64_ANA_B % "3"),
+	"f64 analysis uncapped": (F64_ANA_B % "MODE == DERIV && C == 2 ? 3 : 1", F64_ANA_B % "1"),
+	"f64 synthesis R = 2": (F64_SYN_RB % ("MODE == SCALAR || (MODE == SPIN1 && C == 4) ? 2 : 1",
+		"MODE == SCALAR || (MODE == SPIN1 && C == 4) ? 1 : 2"), F64_SYN_RB % ("2", "1")),
+	"f64 synthesis R = 1 at 2 blocks": (F64_SYN_RB % ("MODE == SCALAR || (MODE == SPIN1 && C == 4) ? 2 : 1",
+		"MODE == SCALAR || (MODE == SPIN1 && C == 4) ? 1 : 2"), F64_SYN_RB % ("MODE == SCALAR ? 2 : 1",
+		"MODE == SCALAR ? 1 : 2")),
 }
 
 
@@ -1673,33 +1898,87 @@ class use_library:
 		sht_cuda.library = self.lib
 
 
-def variants_phase():
+def parent_library(csrc):
+	"""The kernel library built from a parent tree's legendre.cu in the
+	directory csrc (--parent), with the entry points that parent_kernels
+	calls declared: the float32 bulk entries and the float64 ones the
+	parent has. lib.f64_entry maps each float64 bulk entry of this tree
+	(sym_bulk_synthesis_f64, ...) to the parent's: the same, or in a parent
+	that predates them the entry of synthesis_kernel / analysis_kernel
+	named after the wrapper (sym_synthesis, ...)."""
+	import ctypes
+	from pathlib import Path
+	from pixell_tpu_torch.ops import sht_core, sht_cuda, _build
+	lib = _build.load(Path(csrc).resolve())
+	lib.f64_entry = {entry: entry if hasattr(lib, "pt_%s_scalar" % entry) else name
+		for name, entry in sht_cuda.BULK_F64.items()}
+	P, I = ctypes.c_void_p, ctypes.c_int
+	for mode in sht_core.MODES:
+		for name in tuple(sht_cuda.BULK_KERNELS.values()) + tuple(lib.f64_entry.values()):
+			if mode == "wigner" and name.startswith("sym"): continue
+			fn = getattr(lib, "pt_%s_%s" % (name, mode))
+			fn.argtypes = [I] + [P]*9 + [I]*(4 if "synthesis" in name else 5) + [P]*3
+			fn.restype = I
+	return lib
+
+
+class parent_kernels:
+	"""Within the block, sht_cuda's launches run the kernels of the parent
+	library lib (parent_library), uncounted: a float32 launch the entry of
+	the same name, a float64 one the parent's entry (lib.f64_entry)."""
+	def __init__(self, lib): self.lib = lib
+	def __enter__(self):
+		from pixell_tpu_torch.ops import sht_cuda
+		self.launch = sht_cuda._launch
+		def launch(name, mode, device, f64, *args):
+			with torch.cuda.device(device):
+				err = getattr(self.lib, "pt_%s_%s" % (self.lib.f64_entry.get(name, name), mode))(*args)
+			if err != 0:
+				raise RuntimeError("the parent's %s (%s) launch failed: CUDA error %d" % (name, mode, err))
+		sht_cuda._launch = launch
+	def __exit__(self, *exc):
+		from pixell_tpu_torch.ops import sht_cuda
+		sht_cuda._launch = self.launch
+
+
+def variants_phase(parent=None):
 	"""The bulk kernels' design choices, measured: the sources built once
 	per edit of BULK_VARIANTS (all builds started together), and each
-	build's bulk kernels run at the main path's shapes (K1 and K2 at lmax
-	750 in the four Legendre modes; K3 and K4 in wigner mode at lmax 750;
-	K1 on the lmax-2000 map's northern rings and K4 on the first lmax-2000
-	chunk in scalar and spin2; K1, K3 and K4 with the dead-tile table), its
-	device time beside the committed build's. An analysis result must lie
-	within 1e-6 of the largest value of the committed build's. A synthesis
-	result is held, on the entries the float32 main path keeps (f32_kept),
-	to the kernel phase's float32 rule against the float64 plain version:
-	the variants sum in other orders (north and mirror sums, not even and
-	odd ones), and in the spin modes the sums of one parity are larger
-	than their total, so their rounding moves it by more than 1e-6."""
+	build's bulk kernels run at the main path's
+	shapes, in float32 (K1 and K2 at lmax 750 in the four Legendre modes;
+	K3 and K4 in wigner mode at lmax 750; K1 on the lmax-2000 map's northern
+	rings and K4 on the first lmax-2000 chunk in scalar and spin2; K1, K3
+	and K4 with the dead-tile table) and at the float64 rows' shapes
+	(f64_row_cases: at lmax 750 in every mode the rows hold, at lmax 2000
+	in the modes they time), its device time beside the committed build's.
+	A float32 analysis result must lie within 1e-6 of the largest value of
+	the committed build's. A float32 synthesis result is held, on
+	the entries the float32 main path keeps (f32_kept), to the kernel
+	phase's float32 rule against the float64 plain version: the variants
+	sum in other orders (north and mirror sums, not even and odd ones), and
+	in the spin modes the sums of one parity are larger than their total,
+	so their rounding moves it by more than 1e-6. A float64 result must lie
+	within 1e-12 of the committed build's. With parent, the parent tree's
+	library (parent_library), its kernels run beside them: in float32 within
+	1e-6 of the committed build's (the float32 instantiations compute what
+	they computed), in float64 (its synthesis_kernel / analysis_kernel)
+	within 1e-10. An edit labelled "f64" leaves the float32 code as it is,
+	and skips the float32 cases."""
 	from concurrent.futures import ThreadPoolExecutor
 	from pixell_tpu_torch import sht, fft
 	from pixell_tpu_torch.ops import sht_cuda, _build
 	dev = torch.device("cuda")
-	builds = {label: variant_sources(label, *edit) for label, edit in BULK_VARIANTS.items()}
+	builds = {label: variant_sources(label, old, new) for label, (old, new) in BULK_VARIANTS.items()}
 	h0 = time.perf_counter()
-	with ThreadPoolExecutor(len(builds)) as ex:
+	with ThreadPoolExecutor(max(len(builds), 1)) as ex:
 		list(ex.map(sht_cuda.library, builds.values()))
 	print("variants: %d builds in %.1f s" % (len(builds), time.perf_counter() - h0))
 	for label, d in builds.items():
 		print("variant %s:" % label)
 		print_build_summary((_build.build_dir(d)/"build.log").read_text(), only="bulk_")
-	builds = {"committed": _build.CSRC, **builds}
+	runs = {"committed": lambda: use_library(_build.CSRC)}
+	runs.update({label: (lambda d=d: use_library(d)) for label, d in builds.items()})
+	if parent is not None: runs["parent"] = lambda: parent_kernels(parent)
 	th = sht.ring_theta("F1", 1512)
 	nn, ns = sht_cuda.polar_counts(th, 750)
 	b750 = th[nn:len(th)-ns]
@@ -1708,38 +1987,52 @@ def variants_phase():
 	b2000 = th[nn:len(th)-ns][:sht_cuda.TCHUNK]
 	m750, m2000 = sht.ring_theta("F1", 900), sht.ring_theta("F1", 2160)
 	legendre = ("scalar", "deriv", "spin1", "spin2")
-	cases = [("sym_synthesis", mode, 750, m750[:450]) for mode in legendre] + [
-		("sym_analysis", mode, 750, b750[:sht_cuda.detect_sym(b750)]) for mode in legendre] + [
-		("full_synthesis", "wigner", 750, m750), ("full_analysis", "wigner", 750, b750),
-		("sym_synthesis", "scalar", 2000, m2000[:1080]), ("full_analysis", "scalar", 2000, b2000),
-		("sym_synthesis", "spin2", 2000, m2000[:1080]), ("full_analysis", "spin2", 2000, b2000)]
-	for i, (name, mode, lmax, theta) in enumerate(cases):
+	f32, f64 = torch.float32, torch.float64
+	cases = [("sym_synthesis", mode, 750, m750[:450], f32) for mode in legendre] + [
+		("sym_analysis", mode, 750, b750[:sht_cuda.detect_sym(b750)], f32) for mode in legendre] + [
+		("full_synthesis", "wigner", 750, m750, f32), ("full_analysis", "wigner", 750, b750, f32),
+		("sym_synthesis", "scalar", 2000, m2000[:1080], f32), ("full_analysis", "scalar", 2000, b2000, f32),
+		("sym_synthesis", "spin2", 2000, m2000[:1080], f32), ("full_analysis", "spin2", 2000, b2000, f32)]
+	cases += [(name, mode, lmax, theta, f64) for name, lmax, theta, held, timed in f64_row_cases()
+		for mode, C in held if C == ncoef(mode) and (lmax < 1000 or mode in timed)]
+	for i, (name, mode, lmax, theta, dt) in enumerate(cases):
 		s = mode_spin(mode)
-		x = torch.from_numpy(kernel_input(name, mode, lmax, lmax, len(theta), 70 + i)).to(dev,
-			torch.float32)
-		g = sht_cuda.geom(theta, lmax, torch.float32, dev, s)
+		x = torch.from_numpy(kernel_input(name, mode, lmax, lmax, len(theta), 70 + i)).to(dev, dt)
+		g = sht_cuda.geom(theta, lmax, dt, dev, s)
 		args = (x, g, lmax, mode)
-		if name != "sym_analysis": args += (sht_cuda.dead_stops(theta, lmax, lmax, s or 0, dev),)
+		if name != "sym_analysis" and dt == f32:
+			args += (sht_cuda.dead_stops(theta, lmax, lmax, s or 0, dev),)
 		kern = getattr(sht_cuda, name)
-		syn = name.endswith("synthesis")
+		syn = name.endswith("synthesis") and dt == f32
 		if syn:   # the float32 rule on the kept entries
 			kept = f32_kept(theta, lmax, lmax, dev, s)
-			ref64 = sht_cuda.PLAIN[name](x.double(), sht_cuda.geom(theta, lmax, torch.float64, dev, s),
+			ref64 = sht_cuda.PLAIN[name](x.double(), sht_cuda.geom(theta, lmax, f64, dev, s),
 				*args[2:])[..., kept]
 			tol = 2*relerr(sht_cuda.PLAIN[name](*args)[..., kept], ref64) + 1e-6
 		line, first = [], None
-		for label, d in builds.items():
-			with use_library(d):
+		n = 20 if lmax < 1000 else 5
+		for label, context in runs.items():
+			old = label == "parent"
+			if dt == f32 and label.startswith("f64"): continue   # float32 code unchanged
+			with context():
 				out = kern(*args)
 				torch.cuda.synchronize()
-				ms, how = kernel_ms(lambda: kern(*args), 20, kernel_pattern(name))
+				ms, how = kernel_ms(lambda: kern(*args), n, parent_pattern(name, parent) if old and dt == f64
+					else kernel_pattern(name, dt))
 			first = out if first is None else first
 			diff = relerr(out, first)
-			ok = relerr(out[..., kept], ref64) <= tol if syn else diff <= 1e-6
+			if dt == f64: ok = diff <= (1e-10 if old else 1e-12)
+			elif syn and not old: ok = relerr(out[..., kept], ref64) <= tol
+			else: ok = diff <= 1e-6
 			line.append("%s %.4f ms (%s), %.1e apart" % (label, ms, how, diff))
 			if not ok:
-				raise RuntimeError("variant %s of %s %s computes another function" % (label, name, mode))
-		print("variant %s %s lmax %d, nt %d: %s" % (name, mode, lmax, len(theta), "; ".join(line)))
+				raise RuntimeError("variant %s of %s %s %s computes another function" % (label, name, mode,
+					str(dt)[6:]))
+			del out
+		print("variant %s %s lmax %d, nt %d, %s: %s" % (name, mode, lmax, len(theta), str(dt)[6:],
+			"; ".join(line)))
+		del first, x
+		torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1911,17 +2204,19 @@ def adjoint_cell(lmax, shape, label, seed):
 	product), within 1e-10 relative; in float32 both adjoint entries on the
 	same inputs, their launches checked (adjoint_drive) and their outputs
 	held to the cell's forward guard against the float64 ones. Returns the
-	float32 calls' launches and the ring records of map2alm_adjoint's
-	full_synthesis calls."""
+	launches of the float64 (drive64) and float32 adjoint calls, and the
+	ring records of map2alm_adjoint's full_synthesis calls."""
 	from pixell_tpu_torch import enmap, curvedsky
 	b, m, wcs, spin, deriv = adjoint_inputs(lmax, shape, label, seed)
 	ainfo = curvedsky.alm_info(lmax=lmax)
 	f32, f64 = torch.float32, torch.float64
 	zeros = lambda dt: enmap.zeros(tuple(m.shape), wcs, dt)
+	launches = {}
 	fwd = curvedsky.map2alm(enmap.ndmap(m, wcs), lmax=lmax, spin=spin, deriv=deriv)
-	back = curvedsky.map2alm_adjoint(b, zeros(f64), spin=spin, deriv=deriv).data
-	a_back = curvedsky.alm2map_adjoint(enmap.ndmap(m, wcs), spin=spin, deriv=deriv, ainfo=ainfo)
-	torch.cuda.synchronize()
+	launches["map2alm_adjoint f64"], back = drive64("map2alm_adjoint %s lmax %d f64" % (label, lmax),
+		lambda: curvedsky.map2alm_adjoint(b, zeros(f64), spin=spin, deriv=deriv).data)
+	launches["alm2map_adjoint f64"], a_back = drive64("alm2map_adjoint %s lmax %d f64" % (label, lmax),
+		lambda: curvedsky.alm2map_adjoint(enmap.ndmap(m, wcs), spin=spin, deriv=deriv, ainfo=ainfo))
 	for name, x, want in (("map2alm_adjoint", back, tuple(m.shape)), ("alm2map_adjoint", a_back,
 			tuple(b.shape))):
 		if tuple(x.shape) != want or not bool(torch.isfinite(x).all()):
@@ -1935,7 +2230,6 @@ def adjoint_cell(lmax, shape, label, seed):
 		raise RuntimeError("adjoint %s lmax %d: the pair is not adjoint on the card" % (label, lmax))
 	m32, b32 = m.to(f32), b.to(torch.complex64)
 	rings = []
-	launches = {}
 	launches["alm2map_adjoint"], a32, _ = adjoint_drive("alm2map_adjoint %s lmax %d f32" % (label, lmax),
 		lambda: curvedsky.alm2map_adjoint(enmap.ndmap(m32, wcs), spin=spin, deriv=deriv, ainfo=ainfo))
 	launches["map2alm_adjoint"], back32, peak = adjoint_drive("map2alm_adjoint %s lmax %d f32" % (label,
@@ -1987,7 +2281,7 @@ def adjoint_timing(lmax, shape, spin, nrep):
 	same cell timed the same way in the same call, and each one's device
 	busy share from one profiled step."""
 	from pixell_tpu_torch import enmap, curvedsky
-	step, arr = roundtrip_step(lmax, shape, spin)
+	step, arr, _ = roundtrip_step(lmax, shape, spin)
 	gshape, wcs = enmap.fullsky_geometry(shape=shape, variant="fejer1")
 	ainfo = curvedsky.alm_info(lmax=lmax)
 	alm = curvedsky.map2alm(enmap.ndmap(arr, wcs), lmax=lmax, spin=list(spin))
@@ -2014,16 +2308,24 @@ def adjoint_phase():
 	float64, launches, and map2alm_adjoint's float32 K3 bulk
 	(full_bulk_synthesis) on the 4032 upsampled rings at lmax 2000; then the
 	timings beside the forward roundtrips. Returns the launches of each
-	float32 call by (cell, entry)."""
+	call by (cell, entry), and those of the float64 calls by path label
+	(f64_path)."""
 	from pixell_tpu_torch import fft
-	out = {}
+	out, launches64 = {}, {}
+	def keep(launches, label, lmax):
+		for entry, c in launches.items():
+			out[("%s lmax %d" % (label, lmax), entry)] = c
+			if entry.endswith("f64"):
+				launches64["f64 %s %s lmax %d" % (entry.split()[0], label, lmax)] = c
 	for i, label in enumerate(ADJ_CASES):
-		launches, _, _ = adjoint_cell(750, (900, 1800), label, 30 + i)
-		for entry, c in launches.items(): out[(label + " lmax 750", entry)] = c
+		keep(adjoint_cell(750, (900, 1800), label, 30 + i)[0], label, 750)
 	nt_up = fft.fft_len(2*2000 + 3, direction="above")
 	for i, label in enumerate(("spin 0", "IQU")):
 		launches, rings, peak = adjoint_cell(2000, (2160, 4320), label, 40 + i)
-		for entry, c in launches.items(): out[(label + " lmax 2000", entry)] = c
+		keep(launches, label, 2000)
+		if not any(k[0] == "full_bulk_synthesis_f64" for k in launches["map2alm_adjoint f64"]):
+			raise RuntimeError("map2alm_adjoint %s at lmax 2000 in float64 did not run K3's float64 entry"
+				% label)
 		k3 = [r for r in rings if r == ("float32", nt_up, True)]
 		print("map2alm_adjoint %s lmax 2000 f32: full_synthesis calls (dtype, rings, stops) %s; peak "
 			"device memory %.2f GiB" % (label, rings, peak))
@@ -2034,7 +2336,7 @@ def adjoint_phase():
 	adjoint_timing(750, (900, 1800), (0,), 10)
 	adjoint_timing(750, (900, 1800), (0, 2), 10)
 	adjoint_timing(2000, (2160, 4320), (0,), 1)
-	return out
+	return out, launches64
 
 
 PHASES = ("k9", "kernels", "lstop", "slice", "adjoint", "blocked", "timing")
@@ -2046,12 +2348,17 @@ def main():
 	ap.add_argument("--phases", default=",".join(PHASES),
 		help="comma-separated choice of %s (default: all but %s)" % (", ".join(PHASES + EXTRA_PHASES),
 		", ".join(EXTRA_PHASES)))
-	phases = ap.parse_args().phases.split(",")
+	ap.add_argument("--parent", default=None, help="a directory holding a parent tree's legendre.cu: the "
+		"kernels phase times the float64 kernels it launched beside the float64 rows, and the variants "
+		"phase holds its float32 kernels against this tree's")
+	args = ap.parse_args()
+	phases = args.phases.split(",")
 	if not set(phases) <= set(PHASES + EXTRA_PHASES): ap.error("unknown phase in %s" % phases)
 	if not torch.cuda.is_available():
 		print("chip_smoke: no CUDA device", file=sys.stderr)
 		return 2
 	sys.path.insert(0, ROOT)
+	from concurrent.futures import ThreadPoolExecutor
 	from pixell_tpu_torch.ops import sht_cuda, _build
 	t_start = time.perf_counter()
 	print(card_line())
@@ -2060,36 +2367,50 @@ def main():
 	torch.backends.cuda.matmul.allow_tf32 = False
 	torch.backends.cudnn.allow_tf32 = False
 	h0 = time.perf_counter()
-	sht_cuda.library()
-	print("kernel build + load: %.1f s" % (time.perf_counter() - h0))
-	print_build_summary((_build.build_dir()/"build.log").read_text())
-	records, kernel_records, launches, blk_records, lstop_records = [], {}, {}, {}, {}
+	with ThreadPoolExecutor(2) as ex:   # the parent's build beside this tree's
+		lib = ex.submit(sht_cuda.library)
+		parent = None if args.parent is None else ex.submit(parent_library, args.parent)
+		lib.result()
+		parent = parent and parent.result()
+	print("kernel build + load: %.1f s%s" % (time.perf_counter() - h0, "" if parent is None else
+		" (with the parent's legendre.cu from %s)" % args.parent))
+	f64_build_check(print_build_summary((_build.build_dir()/"build.log").read_text()))
+	records, kernel_records, f64_records, launches, launches64 = [], {}, {}, {}, {}
+	blk_records, lstop_records = {}, {}
 	if "k9" in phases:
 		records = fma_phase()
 		print("phase K9 done at %.1f s" % (time.perf_counter() - t_start))
 	if "kernels" in phases:
-		kernel_records = kernel_phase()
+		kernel_records, f64_records = kernel_phase(parent)
 		print("phase kernels done at %.1f s" % (time.perf_counter() - t_start))
 	if "lstop" in phases:
 		lstop_records = lstop_phase()
 		print("phase lstop done at %.1f s" % (time.perf_counter() - t_start))
 	if "slice" in phases:
-		launches = slice_phase()
+		launches, launches64 = slice_phase()
 		print("phase slice done at %.1f s" % (time.perf_counter() - t_start))
 	if "adjoint" in phases:
-		adjoint_phase()
+		launches64.update(adjoint_phase()[1])
 		print("phase adjoint done at %.1f s" % (time.perf_counter() - t_start))
 	if "blocked" in phases:
 		blk_records = blocked_phase()
 		print("phase blocked done at %.1f s" % (time.perf_counter() - t_start))
 	if "timing" in phases:
-		w = (0, WIGNER_SPIN)
+		w, f64 = (0, WIGNER_SPIN), torch.float64
 		time_roundtrips(750, (900, 1800), 40)
 		time_roundtrips(2000, (2160, 4320), 5)
 		time_roundtrips(750, (900, 1800), 10, spin=(0, 2))
 		time_roundtrips(2000, (2160, 4320), 3, spin=(0, 2))
 		time_roundtrips(750, (900, 1800), 10, spin=w)
 		time_roundtrips(2000, (2160, 4320), 3, spin=w)
+		for lmax, shape, nrep, spin in ((750, (900, 1800), 10, (0,)), (750, (900, 1800), 10, (0, 2)),
+				(2000, (2160, 4320), 3, (0,))):
+			# with a parent, its float64 kernels on the same roundtrips, in turns
+			for turn in range(1 if parent is None else 2):
+				time_roundtrips(lmax, shape, nrep, spin, f64)
+				if parent is not None:
+					with parent_kernels(parent):
+						time_roundtrips(lmax, shape, nrep, spin, f64, " (the parent's kernels)")
 		profile_roundtrips(750, (900, 1800))
 		profile_roundtrips(2000, (2160, 4320))
 		profile_roundtrips(750, (900, 1800), 1, spin=(0, 2))
@@ -2098,26 +2419,35 @@ def main():
 		profile_roundtrips(2000, (2160, 4320), 1, spin=w)
 		print("phase timing done at %.1f s" % (time.perf_counter() - t_start))
 	if "variants" in phases:
-		variants_phase()
+		variants_phase(parent)
 		print("phase variants done at %.1f s" % (time.perf_counter() - t_start))
 	if "blkprobe" in phases:
 		blk_probe_phase()
 		print("phase blkprobe done at %.1f s" % (time.perf_counter() - t_start))
+	# the float64 rows' launches: their kernel's in mode by the float64 path
+	# they report (f64_path)
+	for (name, mode, lmax, nt), rec in f64_records.items():
+		c = launches64.get(rec["path"])
+		rec["launches"] = None if c is None else c.get((sht_cuda.BULK_F64[name], mode, "float64"), 0)
+		print("f64 row %s: launches per call of the %s: %s" % (rec["name"], rec["path"],
+			"not driven" if c is None else rec["launches"]))
+		if c is not None and not rec["launches"]:
+			raise RuntimeError("%s: not launched by the %s" % (rec["name"], rec["path"]))
 	if set(phases) != set(PHASES):
 		print("chip_smoke: phases %s only: no verdict" % phases)
 		return 1
 	for (name, mode, dt), rec in kernel_records.items():
-		# launches of the record's kernel, mode and dtype by the path of that
-		# mode: 0 for K3's and K4's float64 records, whose launches polar_synthesis and
-		# polar_analysis took over
+		# launches of the record's kernel, mode and dtype by the float32 path
+		# of that mode: 0 for the float64 near-pole records, whose launches
+		# polar_synthesis and polar_analysis took over on that path
 		rec["launches"] = launches[mode].get((name, dt), 0)
 	for rec, path, bname in lstop_records.values():
 		# the lmax-2000 launches: their count in that roundtrip
 		rec["launches"] = launches[path].get((bname, "float32"), 0)
 	for rec in records:   # K9: summed over every driven path
 		rec["launches"] = sum(c["fma_peak"] for c in launches.values())
-	records = list(kernel_records.values()) + [r[0] for r in lstop_records.values()] \
-		+ list(blk_records.values()) + records
+	records = list(kernel_records.values()) + list(f64_records.values()) \
+		+ [r[0] for r in lstop_records.values()] + list(blk_records.values()) + records
 	print(card_line())
 	print(json.dumps({"kernels": records}))
 	print(json.dumps({"ok": True, "device": {"platform": "gpu",

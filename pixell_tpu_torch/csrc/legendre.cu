@@ -10,16 +10,16 @@
 //   K4 full_analysis   replaces _analysis_scan_pallas_full
 //                      (pixell_tpu/ops/sht_pallas.py:1954, pallas_call :2089)
 //
-// The kernels K1-K4 of that list (synthesis_kernel, analysis_kernel) are
-// compiled for float64 only. Every float32 launch of K1-K4 runs their float32
-// bulk, redesigned for this card:
+// Every launch of K1-K4, float32 or float64, runs one of two kernels
+// redesigned for this card, each templated on the element type:
 //
 //   bulk_analysis    K2's and K4's (design before bulk_analysis_kernel)
 //   bulk_synthesis   K1's and K3's (design before bulk_synthesis_kernel)
 //
-// and two float64 near-pole passes redesigned for this card, which the
-// float32 dispatch launches for the near-pole rings of every transform in
-// place of the float64 instantiations of K3 and K4:
+// with entry points pt_<form>_bulk_<kernel>_<mode> (float) and
+// pt_<form>_bulk_<kernel>_f64_<mode> (double). Two float64 near-pole passes,
+// also redesigned for this card, take the near-pole rings of every float32
+// transform, which the TPU ran in double-single arithmetic through K3/K4:
 //
 //   polar_analysis   K4's (design below, before polar_analysis_kernel)
 //   polar_synthesis  K3's (design before polar_synthesis_kernel)
@@ -65,10 +65,11 @@
 // it; their stop degrees are multiples of 8, so the state is handed over
 // just renormalized.
 //
-// The state scale is S = 60 in float32 and S = 850 in float64. The float64
-// K3/K4 is the near-pole pass that the TPU ran in double-single arithmetic;
-// Hopper has native f64, and nvcc's default FMA contraction would silently
-// break Dekker double-single sums anyway.
+// The state scale is S = 60 in float32 and S = 850 in float64. Where the TPU
+// ran double-single arithmetic, Hopper has native f64 (and nvcc's default
+// FMA contraction would silently break Dekker double-single sums anyway).
+// Float64 launches take no stop degrees and hand no state over: the terms a
+// dead tile skips lie above what a float64 transform promises.
 //
 // Maths (the plain PyTorch twin is pixell_tpu_torch/ops/sht_core.py):
 // the normalized associated Legendre values lambda_lm(theta) obey
@@ -78,7 +79,7 @@
 // lambda_mm ~ sin^m(theta) cannot underflow near the poles; only levels 0
 // and -1 contribute above 2^-S. cos(theta) comes in two parts (hi + lo)
 // for float: a plain f32 cos has ~3e-8 absolute error near the poles, which
-// the recurrence amplifies by ~l^2. The coefficients a, b, the mode
+// the recurrence amplifies by ~l^2 (float64 has no low part). The coefficients a, b, the mode
 // functions' e_lm = sqrt((l-m)(l+m)(2l+1)/(2l-1)) and the per-degree norms
 // are TABLES computed outside with correctly rounded sqrt and divide
 // (ops/sht_cuda.py coef_tables, l_tables) and staged in shared memory beside
@@ -92,27 +93,27 @@
 // ~7 operations for the recurrence step, 0 (scalar), ~8 (deriv), ~14
 // (spin1) or ~24 (spin2) for the mode functions, and 2 per function and
 // coefficient column for the accumulation, plus one reduction add per
-// column in analysis (chip_smoke.py kernel_ops counts them). Device-memory traffic is O(lmax^2 + nfun C nm nt) (the tables, the
-// alm, the seeds, the output), far below it.
-// Design: one thread per (m, theta) keeps its recurrence state, its ring
-// rows and its accumulators in registers for the whole l-loop, which starts
-// at the block's smallest m, so the zero triangle l < m is skipped for free.
-// A block covers MY m rows x TX rings; per chunk of LC degrees it stages
-// a_lm, b_lm, e_lm, the degree norms (and for synthesis the alm
-// A[l, m, :]) in shared memory, since they are the same for every ring of an
-// m row. All C coefficient columns of a block (C = 4 for a spin-2 block:
-// E and B, real and imaginary) share one recurrence pass. Warps never
-// straddle two m rows, so the seed branch at l = m is warp-uniform.
+// column in analysis (chip_smoke.py kernel_ops counts them). Device-memory
+// traffic is O(lmax^2 + nfun C nm nt) (the tables, the alm, the seeds, the
+// output), far below it.
+// Design of K1-K4: a thread keeps the recurrence states of its rings of one
+// m row, their ring rows and its accumulators in registers for the whole
+// l-loop, which starts at the block's smallest m, so the zero triangle
+// l < m is skipped for free. A block covers MY m rows; per chunk of BLC
+// degrees it stages a_lm, b_lm, e_lm, the degree norms (and for synthesis
+// the alm A[l, m, :]) in shared memory, since they are the same for every
+// ring of an m row. All C coefficient columns of a block (C = 4 for a
+// spin-2 block: E and B, real and imaginary) share one recurrence pass.
+// Warps never straddle two m rows, so the seed branch at l = m is
+// warp-uniform.
 //
 // Half-sky kernels: u_f(pi - theta) = PSIGN[f] (-1)^(l+m) u_f(theta)
 // (sht_pallas.py:61); PSIGN is (1) scalar, (1, -1) deriv, (-1, 1) spin1,
-// (1, -1) spin2. K1's mirror accumulator takes that sign; K2 reads the
-// even plane (north + south) where it is +1 and the odd plane where it is -1.
+// (1, -1) spin2. K1's mirror ring takes that sign; K2 reads the even plane
+// (north + south) where it is +1 and the odd plane where it is -1.
 //
-// Analysis reduces u_f * F over the rings of an m row at every l: a warp
-// shuffle butterfly, then the row's warps are summed from shared memory.
-// Each block writes one partial per (l, m, c) into its own plane of a
-// zero-initialized [planes, nl, nm, C] buffer, looping over the ring tiles
+// Analysis writes one partial per (l, m, c) and block into its own plane of
+// a zero-initialized [planes, nl, nm, C] buffer, looping over the ring tiles
 // that belong to that plane; the planes are summed afterwards in a
 // deterministic second pass. No atomics: results are reproducible.
 //
@@ -155,10 +156,15 @@ __host__ __device__ constexpr int psign(int f) {
   return MODE == SCALAR ? 1 : (MODE == SPIN1 ? (f == 0 ? -1 : 1) : (f == 0 ? 1 : -1));
 }
 
-constexpr int TX = 64;  // rings per m row in a block (two warps)
-constexpr int MY = 4;   // m rows per block
-constexpr int LC = 32;  // degrees staged in shared memory per chunk
-constexpr int NTHREADS = TX * MY;
+constexpr int TX = 64;  // rings of a block's tile: the stop table's (TILE_T)
+constexpr int MY = 4;   // m rows of a block's tile (TILE_M)
+
+// float32 runs its recurrence on cos theta in two parts (hi + lo); float64
+// has no low part
+template <typename T> constexpr bool HAS_LO = std::is_same_v<T, float>;
+
+__device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
 
 template <typename T> struct Scale;
 template <> struct Scale<float> {
@@ -175,29 +181,6 @@ template <typename T> struct State {
   int lev;
 };
 
-// One recurrence step at degree l for a row seeded at degree lseed (m; in
-// wigner mode max(m, s)). Returns the true lambda_l and sets lam1 to the true
-// lambda_{l-1} (zero at the seed). cadd is the wigner mode's offset on
-// cos(theta), +c or -c by branch.
-template <typename T>
-__device__ __forceinline__ T step(State<T>& s, int l, int lseed, T a, T b, T x,
-                                  T xlo, T cadd, T seedv, int seedl, T& lam1) {
-  T t = x * s.curr + xlo * s.curr;
-  if constexpr (MODE == WIGNER) t += cadd * s.curr;
-  T nw = a * (t - b * s.prev);
-  T cz = s.curr;
-  if (l == lseed) {  // seed; the stale previous value has another scale
-    nw = seedv;
-    s.lev = seedl;
-    cz = T(0);
-  }
-  s.prev = cz;
-  s.curr = nw;
-  const T fac = s.lev == 0 ? T(1) : (s.lev == -1 ? Scale<T>::invband() : T(0));
-  lam1 = cz * fac;
-  return nw * fac;
-}
-
 __device__ __forceinline__ float absval(float v) { return fabsf(v); }
 __device__ __forceinline__ double absval(double v) { return fabs(v); }
 
@@ -208,13 +191,6 @@ __device__ __forceinline__ void rescale(State<T>& s) {
     s.curr *= Scale<T>::invband();
     s.lev += 1;
   }
-}
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // The per-ring rows of one thread's ring: cos, cos/sin, 1/sin, 1/sin^2,
@@ -317,28 +293,6 @@ __device__ __forceinline__ Recur<T> load_recur(const T* __restrict__ sv,
   return rc;
 }
 
-// Advance the recurrence to degree l and evaluate the mode functions u[NFUN]
-// there. a, b, e are the staged coefficients of (l, m): e is e_lm, or c_lm in
-// wigner mode, where sgs = (-1)^s.
-template <typename T>
-__device__ __forceinline__ void advance(T (&u)[NFUN], Recur<T>& rc, int l, int m,
-                                        T a, T b, T e, T nrm, T hp,
-                                        const Ring<T>& r, T xlo, T sgs) {
-  T lam1;
-  if constexpr (MODE == WIGNER) {
-    const T lp = step(rc.s[0], l, rc.lseed, a, b, r.ct, xlo, e, rc.seedv[0],
-                      rc.seedl[0], lam1);
-    const T lm = sgs * step(rc.s[NBR - 1], l, rc.lseed, a, b, r.ct, xlo, -e,
-                            rc.seedv[NBR - 1], rc.seedl[NBR - 1], lam1);
-    u[0] = T(0.5) * (lp + lm);
-    u[NFUN - 1] = T(0.5) * (lp - lm);
-  } else {
-    const T lam = step(rc.s[0], l, rc.lseed, a, b, r.ct, xlo, T(0), rc.seedv[0],
-                       rc.seedl[0], lam1);
-    mode_funcs(u, lam, lam1, l, m, e, nrm, hp, r);
-  }
-}
-
 template <typename T>
 __device__ __forceinline__ void rescale(Recur<T>& rc) {
 #pragma unroll
@@ -362,221 +316,19 @@ __device__ __forceinline__ void dump_state(T* __restrict__ state, size_t mt,
   state[2 * plane + mt] = T(s.lev);
 }
 
-// Shared-memory staging of one chunk of LC degrees for the block's m rows.
-template <typename T, int C> struct Stage {
-  T a[LC][MY], b[LC][MY], e[LC][MY];
-  T nrm[LC], hp[LC];
-  T A[LC][MY][C];
-};
-
-// Stage a_lm, b_lm, e_lm, the degree norms (and A[l, m, :] when A is given)
-// for degrees l0 .. l0+LC-1 and the block's m rows; zero outside the table.
-// ab [3, nl, nm] holds a, b and e (wigner: a, b and c, staged as e); lt
-// [2, nl] the norms nrm and hp, which the scalar and wigner modes do not read.
-template <typename T, int C>
-__device__ __forceinline__ void stage(const T* __restrict__ ab,
-                                      const T* __restrict__ lt,
-                                      const T* __restrict__ A, Stage<T, C>& sm,
-                                      int l0, int m0, int nl, int nm, int tid) {
-  for (int i = tid; i < LC * MY; i += NTHREADS) {
-    const int li = i / MY, mi = i % MY, l = l0 + li, mm = m0 + mi;
-    const bool ok = l < nl && mm < nm;
-    const size_t lm = (size_t)l * nm + mm;
-    const size_t nlm = (size_t)nl * nm;
-    sm.a[li][mi] = ok ? ab[lm] : T(0);
-    sm.b[li][mi] = ok ? ab[nlm + lm] : T(0);
-    if constexpr (MODE != SCALAR) sm.e[li][mi] = ok ? ab[2 * nlm + lm] : T(0);
-    if (A != nullptr) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) sm.A[li][mi][c] = ok ? A[lm * C + c] : T(0);
-    }
-  }
-  if constexpr (MODE != SCALAR && MODE != WIGNER) {
-    for (int i = tid; i < LC; i += NTHREADS) {
-      const int l = l0 + i;
-      sm.nrm[i] = l < nl ? lt[l] : T(0);
-      sm.hp[i] = l < nl ? lt[nl + l] : T(0);
-    }
-  }
-}
-
-// K1 (SYM) / K3: G[f, c, m, t] = sum_l u_f(l, m, theta_t) A[l, m, c].
-// A [nl, nm, C]; ab [3, nl, nm]; lt [2, nl]; cth, ctl [nt]; rows [4, nt];
-// sv, sl [NBR, nm, nt]. Full: out [NFUN, C, nm, nt]. SYM: theta holds the
-// northern rings of a south-symmetric ring set and out is
-// [NFUN, C, 2, nm, nt] with plane 1 the mirror ring. spin is the wigner
-// mode's s; lstop the stop degrees [gridDim.y, gridDim.x] or null; state
-// [3, nm, nt], if not null, receives each entry's state where its loop ended.
-template <typename T, int C, bool SYM>
-__global__ void __launch_bounds__(NTHREADS)
-synthesis_kernel(const T* __restrict__ A, const T* __restrict__ ab,
-                 const T* __restrict__ lt, const T* __restrict__ cth,
-                 const T* __restrict__ ctl, const T* __restrict__ rows,
-                 const T* __restrict__ sv, const int* __restrict__ sl,
-                 T* __restrict__ out, int nl, int nm, int nt, int spin,
-                 const int* __restrict__ lstop, T* __restrict__ state) {
-  __shared__ Stage<T, C> sm;
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
-  const int t = blockIdx.x * TX + tx;
-  const int m0 = blockIdx.y * MY, m = m0 + ty;
-  const bool valid = t < nt && m < nm;
-  const size_t plane = (size_t)nm * nt;
-  const size_t mt = (size_t)m * nt + t;
-  const Ring<T> r = load_ring(cth, rows, t, nt, valid);
-  const T xlo = valid ? ctl[t] : T(0);
-  const T sgs = (spin & 1) ? T(-1) : T(1);
-  Recur<T> rc = load_recur(sv, sl, mt, plane, m, spin, valid);
-  T accN[NFUN][C], accS[NFUN][C];
-#pragma unroll
-  for (int f = 0; f < NFUN; ++f)
-#pragma unroll
-    for (int c = 0; c < C; ++c) accN[f][c] = accS[f][c] = T(0);
-  // the state is zero below the block's first seed; a dead block runs no loop
-  const int lbeg = MODE == WIGNER ? max(m0, spin) : m0;
-  const int lend = stop_degree(lstop, blockIdx.y, blockIdx.x, gridDim.x, nl);
-  for (int l0 = lbeg; l0 < lend; l0 += LC) {
-    __syncthreads();
-    stage<T, C>(ab, lt, A, sm, l0, m0, nl, nm, tid);
-    __syncthreads();
-    const int n = min(LC, lend - l0);
-    for (int i = 0; i < n; ++i) {
-      const int l = l0 + i;
-      T u[NFUN];
-      advance(u, rc, l, m, sm.a[i][ty], sm.b[i][ty], sm.e[i][ty], sm.nrm[i], sm.hp[i], r,
-              xlo, sgs);
-      const bool odd = (l + m) & 1;
-#pragma unroll
-      for (int f = 0; f < NFUN; ++f) {
-        // the mirror ring's sign, PSIGN[f] (-1)^(l+m)
-        const bool plus = (psign(f) > 0) != odd;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const T v = u[f] * sm.A[i][ty][c];
-          accN[f][c] += v;
-          if (SYM) accS[f][c] += plus ? v : -v;
-        }
-      }
-      if ((l & 7) == 7) rescale(rc);
-    }
-  }
-  if (!valid) return;
-  if constexpr (!SYM && MODE != WIGNER) {
-    if (state != nullptr) dump_state(state, mt, plane, rc.s[0]);
-  }
-#pragma unroll
-  for (int f = 0; f < NFUN; ++f)
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const size_t fc = (size_t)f * C + c;
-      if (SYM) {
-        out[(2 * fc) * plane + mt] = accN[f][c];
-        out[(2 * fc + 1) * plane + mt] = accS[f][c];
-      } else {
-        out[fc * plane + mt] = accN[f][c];
-      }
-    }
-}
-
-// K2 (SYM) / K4: part[g, l, m, c] += sum over the rings t of the tiles of
-// plane g of sum_f u_f(l, m, theta_t) F[f, c, m, t]. Full: F [NFUN, C, nm, nt].
-// SYM: F is [NFUN, C, 2, nm, nt] with the even (north + south) and odd
-// (north - south) combinations on the northern rings; function f of (l, m)
-// takes the even plane where PSIGN[f] (-1)^(l+m) = +1. part
-// [gridDim.x, nl, nm, C] must be zero on entry. spin is the wigner mode's s;
-// lstop the stop degrees [gridDim.y, ntiles] or null; state [3, nm, nt], if
-// not null, receives each entry's state where its loop ended.
-template <typename T, int C, bool SYM>
-__global__ void __launch_bounds__(NTHREADS)
-analysis_kernel(const T* __restrict__ F, const T* __restrict__ ab,
-                const T* __restrict__ lt, const T* __restrict__ cth,
-                const T* __restrict__ ctl, const T* __restrict__ rows,
-                const T* __restrict__ sv, const int* __restrict__ sl,
-                T* __restrict__ part, int nl, int nm, int nt, int ntiles,
-                int spin, const int* __restrict__ lstop, T* __restrict__ state) {
-  constexpr int NW = NTHREADS / 32;  // warps per block
-  constexpr int WPR = TX / 32;       // warps per m row
-  __shared__ Stage<T, 1> sm;          // A is not staged: C = 1 keeps it small
-  __shared__ T red[NW][LC][C];
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int m0 = blockIdx.y * MY, m = m0 + ty;
-  const size_t plane = (size_t)nm * nt;
-  const T sgs = (spin & 1) ? T(-1) : T(1);
-  const int lbeg = MODE == WIGNER ? max(m0, spin) : m0;
-  T* __restrict__ dst = part + (size_t)blockIdx.x * nl * nm * C;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int lend = SYM ? nl : stop_degree(lstop, blockIdx.y, tile, ntiles, nl);
-    const int t = tile * TX + tx;
-    const bool valid = t < nt && m < nm;
-    const size_t mt = (size_t)m * nt + t;
-    const Ring<T> r = load_ring(cth, rows, t, nt, valid);
-    const T xlo = valid ? ctl[t] : T(0);
-    Recur<T> rc = load_recur(sv, sl, mt, plane, m, spin, valid);
-    T fE[NFUN][C], fO[NFUN][C];
-#pragma unroll
-    for (int f = 0; f < NFUN; ++f)
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const size_t fc = (size_t)f * C + c;
-        if (SYM) {
-          fE[f][c] = valid ? F[(2 * fc) * plane + mt] : T(0);
-          fO[f][c] = valid ? F[(2 * fc + 1) * plane + mt] : T(0);
-        } else {
-          fE[f][c] = valid ? F[fc * plane + mt] : T(0);
-          fO[f][c] = fE[f][c];
-        }
-      }
-    for (int l0 = lbeg; l0 < lend; l0 += LC) {
-      __syncthreads();
-      stage<T, 1>(ab, lt, nullptr, sm, l0, m0, nl, nm, tid);
-      __syncthreads();
-      const int n = min(LC, lend - l0);
-      for (int i = 0; i < n; ++i) {
-        const int l = l0 + i;
-        T u[NFUN];
-        advance(u, rc, l, m, sm.a[i][ty], sm.b[i][ty], sm.e[i][ty], sm.nrm[i], sm.hp[i], r,
-                xlo, sgs);
-        const bool odd = (l + m) & 1;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          T tot = T(0);
-#pragma unroll
-          for (int f = 0; f < NFUN; ++f)
-            tot += u[f] * (((psign(f) > 0) != odd) ? fE[f][c] : fO[f][c]);
-          const T v = warp_sum(tot);
-          if (lane == 0) red[warp][i][c] = v;
-        }
-        if ((l & 7) == 7) rescale(rc);
-      }
-      __syncthreads();
-      // sum the warps of each m row; the same thread owns the same
-      // (l, m, c) entry in every tile, so the += needs no atomics
-      for (int i = tid; i < n * MY * C; i += NTHREADS) {
-        const int li = i / (MY * C), rr = i % (MY * C), mi = rr / C, c = rr % C;
-        const int mm = m0 + mi;
-        if (mm >= nm) continue;
-        T v = T(0);
-#pragma unroll
-        for (int w = 0; w < WPR; ++w) v += red[mi * WPR + w][li][c];
-        dst[((size_t)(l0 + li) * nm + mm) * C + c] += v;
-      }
-    }
-    if constexpr (!SYM && MODE != WIGNER) {
-      if (state != nullptr && valid) dump_state(state, mt, plane, rc.s[0]);
-    }
-  }
-}
-
-// K2 / K4's float32 bulk, redesigned for Hopper (bulk_analysis_kernel):
-// analysis_kernel's function on the same arguments, in float32, which every
-// float32 launch of K2 and K4 takes (analysis_kernel is built for float64
-// only). In float32 analysis_kernel reduced u_f F over a warp's rings at every
-// degree and column: 5 shuffle rounds (a quarter of the FP32 rate) and a
-// shared-memory write, ~50 FMA slots per (l, m, theta) triple in scalar
-// mode and ~100 in spin2, where the recurrence takes 7. Here:
+// K2 / K4, redesigned for Hopper (bulk_analysis_kernel), in float32 and in
+// float64: every launch of K2 and K4 takes it. It replaced analysis_kernel,
+// one ring a thread, which reduced u_f F over a warp's rings at every degree
+// and column: 5 shuffle rounds (a quarter of the FP32 rate; in float64 each
+// round two 32-bit shuffles) and a shared-memory write, ~50 FMA slots per
+// (l, m, theta) triple in scalar mode and ~100 in spin2, where the
+// recurrence takes 7, and a barrier and a second pass over the row's warps
+// per 32 degrees. Here:
 //   - a thread carries R rings of one m row (R = 2: a warp is one m row of
-//     a 64-ring tile; R = 4, the full scalar form: a half-warp is), R
-//     independent recurrences whose products it sums itself;
+//     a 64-ring tile; R = 4, the full float32 scalar form: a half-warp is;
+//     R = 1, the float64 deriv mode at C = 4 (f64_analysis_rings): a warp
+//     is one m row of a 32-ring tile), R independent recurrences whose
+//     products it sums itself;
 //   - it keeps the sums of a group of BG = 8 degrees, the renormalization
 //     period, in registers, and the row's lanes meet once per group in a
 //     reduce-scatter butterfly: each round halves the values a lane holds
@@ -585,11 +337,12 @@ analysis_kernel(const T* __restrict__ F, const T* __restrict__ ab,
 //     partial plane itself: ~1 shuffle per degree and column where
 //     analysis_kernel took 5, and no shared-memory staging of the sums and
 //     no second barrier per chunk;
-//   - a block is one tile of the stop table (MY m rows x TX rings), so the
-//     stop degree stays uniform over it; the coefficients of a chunk of BLC
-//     degrees are staged in shared memory, double-buffered, each thread
-//     loading its share of the next chunk into registers before the current
-//     chunk's work, with one barrier per chunk;
+//   - a block is one tile of the stop table (MY m rows x TX rings; at R = 1,
+//     without a stop table, MY x 32), so the stop degree stays uniform over
+//     it; the coefficients of a chunk of BLC degrees are staged in
+//     shared memory, double-buffered, each thread loading its share of the
+//     next chunk into registers before the current chunk's work, with one
+//     barrier per chunk;
 //   - degree groups start at multiples of 8 below the block's first seed,
 //     so a group never straddles a renormalization or a handoff stop (both
 //     multiples of 8); a group cut by the stop runs its degrees under a
@@ -601,40 +354,69 @@ analysis_kernel(const T* __restrict__ F, const T* __restrict__ ab,
 //     seeds of a block fall in its first group, and the factor changes only
 //     there and at a renormalization, the group's last step;
 //   - STOPS and DUMP are template parameters: launches without a stop table
-//     or a state handoff carry neither in registers.
+//     or a state handoff carry neither in registers; float64 launches take
+//     neither.
 // The partial planes stay: one block per stop tile gives ~nm nt / 256
 // blocks, where a block owning every ring tile of its m rows would give
 // nm / MY (188 at lmax 750), too few warps to hide the recurrence's latency.
 constexpr int BLC = 32;  // degrees staged per chunk
 constexpr int BG = 8;    // degrees reduced together: the renormalization period
-// Rings per thread: four in the full scalar form (four rings halve the
-// butterfly per triple; measured faster on the lmax-2000 chunks of K4, many
-// waves of blocks deep), else two (measured faster in every other form and
-// mode at the main path's shapes). Measured by chip_smoke.py --phases
-// variants, which builds both; the numbers are in PERF.md section 6.
-template <bool SYM> constexpr int bulk_rings() { return MODE == SCALAR && !SYM ? 4 : 2; }
+// Rings per thread, float32: analysis four in the full scalar form (four
+// rings halve the butterfly per triple; measured faster on the lmax-2000
+// chunks of K4, many waves of blocks deep), else two (measured faster in
+// every other form and mode at the main path's shapes); synthesis two in
+// scalar mode, else one. Float64, by mode and coefficient count C: the
+// rings a thread and the blocks an SM that its kernels' launch bounds ask
+// for, which caps their registers at 65536 / (threads x blocks) (1: no
+// cap; the float32 kernels' bounds give the threads alone), chosen among
+// the settings that do not spill: analysis two rings (one in deriv at
+// C = 4, which spills 16 bytes at two), three blocks in deriv at C = 2;
+// synthesis two rings in scalar mode and in spin1 at C = 4 (which spills
+// at the cap below), else one ring at two blocks, 128 registers. Measured by
+// chip_smoke.py --phases variants, which builds the alternatives
+// (BULK_VARIANTS edits these lines); the numbers are in PERF.md section 6.
+__host__ __device__ constexpr int f32_analysis_rings(bool SYM) { return MODE == SCALAR && !SYM ? 4 : 2; }
+__host__ __device__ constexpr int f32_synthesis_rings() { return MODE == SCALAR ? 2 : 1; }
+__host__ __device__ constexpr int f64_analysis_rings(int C) { return MODE == DERIV && C == 4 ? 1 : 2; }
+__host__ __device__ constexpr int f64_analysis_blocks(int C) { return MODE == DERIV && C == 2 ? 3 : 1; }
+__host__ __device__ constexpr int f64_synthesis_rings(int C) { return MODE == SCALAR || (MODE == SPIN1 && C == 4) ? 2 : 1; }
+__host__ __device__ constexpr int f64_synthesis_blocks(int C) { return MODE == SCALAR || (MODE == SPIN1 && C == 4) ? 1 : 2; }
+template <typename T, int C, bool SYM> constexpr int bulk_rings() {
+  return HAS_LO<T> ? f32_analysis_rings(SYM) : f64_analysis_rings(C);
+}
+// The lanes of an m row at R rings a thread in bulk_analysis_kernel: a
+// warp, or at R = 4 a half-warp; a block's tile is MY rows x (lanes R)
+// rings.
+__host__ __device__ constexpr int anal_lanes(int R) { return R == 1 ? 32 : TX / R; }
 
-// The factor that unscales a state at level lev (step()'s fac).
-__device__ __forceinline__ float level_factor(int lev) {
-  return lev == 0 ? 1.f : (lev == -1 ? Scale<float>::invband() : 0.f);
+// The factor that unscales a state at level lev: only levels 0 and -1
+// contribute above 2^-S.
+template <typename T>
+__device__ __forceinline__ T level_factor(int lev) {
+  return lev == 0 ? T(1) : (lev == -1 ? Scale<T>::invband() : T(0));
 }
 
-// step() for the bulk kernel: the level's factor fac is kept by the caller,
-// since it changes only at the seed and at a renormalization; without SEED
-// the step has no seed test (the degrees past every seed of the block).
-template <bool SEED>
-__device__ __forceinline__ float bulk_step(State<float>& s, float& fac, int l, int lseed,
-                                           float a, float b, float x, float xlo, float cadd,
-                                           float seedv, int seedl, float& lam1) {
-  float t = x * s.curr + xlo * s.curr;
+// One recurrence step at degree l for a row seeded at degree lseed (m; in
+// wigner mode max(m, s)). Returns the true lambda_l and sets lam1 to the true
+// lambda_{l-1} (zero at the seed). cadd is the wigner mode's offset on
+// cos(theta), +c or -c by branch; xlo the low part of cos theta (float).
+// The level's factor fac is kept by the caller, since it changes only at
+// the seed and at a renormalization; without SEED the step has no seed test
+// (the degrees past every seed of the block).
+template <bool SEED, typename T>
+__device__ __forceinline__ T bulk_step(State<T>& s, T& fac, int l, int lseed, T a, T b, T x,
+                                       T xlo, T cadd, T seedv, int seedl, T& lam1) {
+  T t;
+  if constexpr (HAS_LO<T>) t = x * s.curr + xlo * s.curr;
+  else t = x * s.curr;
   if constexpr (MODE == WIGNER) t += cadd * s.curr;
-  float nw = a * (t - b * s.prev);
-  float cz = s.curr;
+  T nw = a * (t - b * s.prev);
+  T cz = s.curr;
   if (SEED && l == lseed) {  // seed; the stale previous value has another scale
     nw = seedv;
     s.lev = seedl;
-    cz = 0.f;
-    fac = level_factor(seedl);
+    cz = T(0);
+    fac = level_factor<T>(seedl);
   }
   s.prev = cz;
   s.curr = nw;
@@ -642,30 +424,39 @@ __device__ __forceinline__ float bulk_step(State<float>& s, float& fac, int l, i
   return nw * fac;
 }
 
-// advance() for the bulk kernel, with each branch's level factor fac[br].
-template <bool SEED>
-__device__ __forceinline__ void bulk_advance(float (&u)[NFUN], Recur<float>& rc,
-                                             float (&fac)[NBR], int l, int m, float a, float b,
-                                             float e, float nrm, float hp, const Ring<float>& r,
-                                             float xlo, float sgs) {
-  float lam1;
+// Advance the recurrence to degree l and evaluate the mode functions u[NFUN]
+// there, with each branch's level factor fac[br]. a, b, e are the staged
+// coefficients of (l, m): e is e_lm, or c_lm in wigner mode, where sgs =
+// (-1)^s.
+template <bool SEED, typename T>
+__device__ __forceinline__ void bulk_advance(T (&u)[NFUN], Recur<T>& rc, T (&fac)[NBR], int l,
+                                             int m, T a, T b, T e, T nrm, T hp, const Ring<T>& r,
+                                             T xlo, T sgs) {
+  T lam1;
   if constexpr (MODE == WIGNER) {
-    const float lp = bulk_step<SEED>(rc.s[0], fac[0], l, rc.lseed, a, b, r.ct, xlo, e,
-                                     rc.seedv[0], rc.seedl[0], lam1);
-    const float lm = sgs * bulk_step<SEED>(rc.s[NBR - 1], fac[NBR - 1], l, rc.lseed, a, b, r.ct,
-                                           xlo, -e, rc.seedv[NBR - 1], rc.seedl[NBR - 1], lam1);
-    u[0] = 0.5f * (lp + lm);
-    u[NFUN - 1] = 0.5f * (lp - lm);
+    const T lp = bulk_step<SEED>(rc.s[0], fac[0], l, rc.lseed, a, b, r.ct, xlo, e, rc.seedv[0],
+                                 rc.seedl[0], lam1);
+    const T lm = sgs * bulk_step<SEED>(rc.s[NBR - 1], fac[NBR - 1], l, rc.lseed, a, b, r.ct, xlo,
+                                       -e, rc.seedv[NBR - 1], rc.seedl[NBR - 1], lam1);
+    u[0] = T(0.5) * (lp + lm);
+    u[NFUN - 1] = T(0.5) * (lp - lm);
   } else {
-    const float lam = bulk_step<SEED>(rc.s[0], fac[0], l, rc.lseed, a, b, r.ct, xlo, 0.f,
-                                      rc.seedv[0], rc.seedl[0], lam1);
+    const T lam = bulk_step<SEED>(rc.s[0], fac[0], l, rc.lseed, a, b, r.ct, xlo, T(0),
+                                  rc.seedv[0], rc.seedl[0], lam1);
     mode_funcs(u, lam, lam1, l, m, e, nrm, hp, r);
   }
 }
 
-struct BulkStage {
-  float a[2][MY][BLC], b[2][MY][BLC], e[2][MY][BLC];  // e: the wigner mode's c
-  float nrm[2][BLC], hp[2][BLC];
+// The low part of cos theta of ring t: float only.
+template <typename T>
+__device__ __forceinline__ T ct_low(const T* __restrict__ ctl, int t, bool valid) {
+  if constexpr (HAS_LO<T>) return valid ? ctl[t] : T(0);
+  else return T(0);
+}
+
+template <typename T> struct BulkStage {
+  T a[2][MY][BLC], b[2][MY][BLC], e[2][MY][BLC];  // e: the wigner mode's c
+  T nrm[2][BLC], hp[2][BLC];
 };
 // the coefficients a mode stages per chunk: a, b (e: all but scalar), and
 // the degree norms in the Legendre spin modes
@@ -675,20 +466,21 @@ constexpr int BULK_NV = BULK_NQ * MY * BLC + (BULK_NORMS ? 2 * BLC : 0);
 
 // Value k of the chunk starting at degree l0 for the block's m rows from m0:
 // a, b, e [q][row][i] then nrm, hp [i]; zero from nl on and for rows >= nm.
-__device__ __forceinline__ float bulk_coef(const float* __restrict__ ab,
-                                           const float* __restrict__ lt, int l0, int m0,
-                                           int nl, int nm, int k) {
+template <typename T>
+__device__ __forceinline__ T bulk_coef(const T* __restrict__ ab, const T* __restrict__ lt,
+                                       int l0, int m0, int nl, int nm, int k) {
   constexpr int QS = MY * BLC;
   if (k < BULK_NQ * QS) {
     const int q = k / QS, row = (k % QS) / BLC, l = l0 + k % BLC, mm = m0 + row;
-    return l < nl && mm < nm ? ab[((size_t)q * nl + l) * nm + mm] : 0.f;
+    return l < nl && mm < nm ? ab[((size_t)q * nl + l) * nm + mm] : T(0);
   }
   k -= BULK_NQ * QS;
   const int l = l0 + k % BLC;
-  return l < nl ? lt[(k / BLC) * nl + l] : 0.f;
+  return l < nl ? lt[(k / BLC) * nl + l] : T(0);
 }
 
-__device__ __forceinline__ void bulk_store(BulkStage& sm, int buf, int k, float v) {
+template <typename T>
+__device__ __forceinline__ void bulk_store(BulkStage<T>& sm, int buf, int k, T v) {
   constexpr int QS = MY * BLC;
   if (k < BULK_NQ * QS) {
     const int q = k / QS, row = (k % QS) / BLC, i = k % BLC;
@@ -704,15 +496,15 @@ __device__ __forceinline__ void bulk_store(BulkStage& sm, int buf, int k, float 
 // selects and adds the partner's copy of it; with one value left, the
 // rounds are a plain butterfly. The lane is left with N / (2 O) values (at
 // least one), whole sums over the lanes, in w[0..).
-template <int N, int O, int NW>
-__device__ __forceinline__ void reduce_scatter(float (&w)[NW], int lane) {
+template <int N, int O, typename T, int NW>
+__device__ __forceinline__ void reduce_scatter(T (&w)[NW], int lane) {
   if constexpr (O > 0) {
     if constexpr (N > 1) {
       const bool up = (lane & O) != 0;
 #pragma unroll
       for (int j = 0; j < N / 2; ++j) {
-        const float send = up ? w[j] : w[j + N / 2];
-        const float keep = up ? w[j + N / 2] : w[j];
+        const T send = up ? w[j] : w[j + N / 2];
+        const T keep = up ? w[j + N / 2] : w[j];
         w[j] = keep + __shfl_xor_sync(0xffffffffu, send, O);
       }
       reduce_scatter<N / 2, O / 2>(w, lane);
@@ -723,20 +515,28 @@ __device__ __forceinline__ void reduce_scatter(float (&w)[NW], int lane) {
   }
 }
 
-// part[g, l, m, c] += sum over the rings t of the tiles of plane g of
-// sum_f u_f(l, m, theta_t) F[f, c, m, t]: analysis_kernel's arguments and
-// layouts (float only); lstop is read when STOPS, state written when DUMP.
-// No minimum of blocks an SM in the launch bounds: capped at 128 registers
-// (four blocks) the C = 4 forms of the spin modes spill up to 320 bytes.
-template <int C, bool SYM, int R, bool STOPS, bool DUMP>
-__global__ void __launch_bounds__(MY * TX / R)
-bulk_analysis_kernel(const float* __restrict__ F, const float* __restrict__ ab,
-                     const float* __restrict__ lt, const float* __restrict__ cth,
-                     const float* __restrict__ ctl, const float* __restrict__ rows,
-                     const float* __restrict__ sv, const int* __restrict__ sl,
-                     float* __restrict__ part, int nl, int nm, int nt, int ntiles,
-                     int spin, const int* __restrict__ lstop, float* __restrict__ state) {
-  constexpr int LPR = TX / R;           // lanes of an m row
+// K2 (SYM) / K4: part[g, l, m, c] += sum over the rings t of the tiles of
+// plane g of sum_f u_f(l, m, theta_t) F[f, c, m, t]. Full: F [NFUN, C, nm, nt].
+// SYM: F is [NFUN, C, 2, nm, nt] with the even (north + south) and odd
+// (north - south) combinations on the northern rings; function f of (l, m)
+// takes the even plane where PSIGN[f] (-1)^(l+m) = +1. part
+// [gridDim.x, nl, nm, C] must be zero on entry; ntiles counts the kernel's
+// ring tiles (anal_lanes(R) R rings). ab [3, nl, nm]; lt [2, nl]; cth, ctl
+// [nt]; rows [4, nt]; sv, sl [NBR, nm, nt]; spin is the wigner mode's s.
+// lstop, the stop degrees [gridDim.y, ntiles], is read when STOPS, state
+// [3, nm, nt] written when DUMP (each entry's state where its loop ended).
+// The body of the kernels bulk_analysis_kernel (float) and
+// bulk_analysis_kernel_f64 (double), below.
+template <typename T, int C, bool SYM, int R, bool STOPS, bool DUMP>
+__device__ __forceinline__ void
+bulk_analysis(const T* __restrict__ F, const T* __restrict__ ab,
+              const T* __restrict__ lt, const T* __restrict__ cth,
+              const T* __restrict__ ctl, const T* __restrict__ rows,
+              const T* __restrict__ sv, const int* __restrict__ sl,
+              T* __restrict__ part, int nl, int nm, int nt, int ntiles,
+              int spin, const int* __restrict__ lstop, T* __restrict__ state) {
+  constexpr int LPR = anal_lanes(R);    // lanes of an m row
+  constexpr int TW = LPR * R;           // rings of a tile
   constexpr int THREADS = MY * LPR;
   constexpr int KST = (BULK_NV + THREADS - 1) / THREADS;  // staged values per thread
   static_assert(BLC % BG == 0, "a chunk holds whole groups");
@@ -744,55 +544,56 @@ bulk_analysis_kernel(const float* __restrict__ F, const float* __restrict__ ab,
   constexpr int PER = NV >= LPR ? NV / LPR : 1;   // entries a lane is left with
   constexpr int DUP = NV >= LPR ? 1 : LPR / NV;   // lanes left with the same entry
   static_assert(LPR == 32 || LPR == 16, "a row is a warp or a half-warp");
-  __shared__ BulkStage sm;
+  static_assert(!STOPS || TW == TX, "a block with stop degrees is one tile of the stop table");
+  __shared__ BulkStage<T> sm;
   const int tid = threadIdx.x, row = tid / LPR, rl = tid % LPR;
   const int m0 = blockIdx.y * MY, m = m0 + row;
   const size_t plane = (size_t)nm * nt;
-  const float sgs = (spin & 1) ? -1.f : 1.f;
+  const T sgs = (spin & 1) ? T(-1) : T(1);
   const int lbeg = MODE == WIGNER ? max(m0, spin) : m0;
   const int l8 = lbeg & ~7;  // groups start at multiples of 8
   // the lane's entries of a group after the butterfly: base .. base + PER - 1
   const bool writer = rl % DUP == 0;
   const int base = rl / DUP * PER;
-  float* __restrict__ dst = part + (size_t)blockIdx.x * nl * nm * C;
+  T* __restrict__ dst = part + (size_t)blockIdx.x * nl * nm * C;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int lend = STOPS ? stop_degree(lstop, blockIdx.y, tile, ntiles, nl) : nl;
     if (lend <= l8) continue;  // a dead tile, uniform over the block
     const int nch = (lend - l8 + BLC - 1) / BLC;
-    Ring<float> ring[R];
-    float xlo[R];
-    Recur<float> rc[R];
-    float fac[R][NBR];  // each state's level factor: 1 at level 0
-    float fE[R][NFUN][C], fO[R][NFUN][C];
+    Ring<T> ring[R];
+    T xlo[R];
+    Recur<T> rc[R];
+    T fac[R][NBR];  // each state's level factor: 1 at level 0
+    T fE[R][NFUN][C], fO[R][NFUN][C];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const int t = tile * TX + rl + LPR * r;
+      const int t = tile * TW + rl + LPR * r;
       const bool valid = t < nt && m < nm;
       const size_t mt = (size_t)m * nt + t;
       ring[r] = load_ring(cth, rows, t, nt, valid);
-      xlo[r] = valid ? ctl[t] : 0.f;
+      xlo[r] = ct_low(ctl, t, valid);
       rc[r] = load_recur(sv, sl, mt, plane, m, spin, valid);
 #pragma unroll
-      for (int br = 0; br < NBR; ++br) fac[r][br] = 1.f;
+      for (int br = 0; br < NBR; ++br) fac[r][br] = T(1);
 #pragma unroll
       for (int f = 0; f < NFUN; ++f)
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           const size_t fc = (size_t)f * C + c;
           if (SYM) {
-            const float ev = valid ? F[(2 * fc) * plane + mt] : 0.f;
-            const float od = valid ? F[(2 * fc + 1) * plane + mt] : 0.f;
+            const T ev = valid ? F[(2 * fc) * plane + mt] : T(0);
+            const T od = valid ? F[(2 * fc + 1) * plane + mt] : T(0);
             // on odd m rows (l + m) is odd at even l: swap the planes, so
             // that degree i of a group reads fO where i is odd
             fE[r][f][c] = (m & 1) ? od : ev;
             fO[r][f][c] = (m & 1) ? ev : od;
           } else {
-            fE[r][f][c] = valid ? F[fc * plane + mt] : 0.f;
+            fE[r][f][c] = valid ? F[fc * plane + mt] : T(0);
           }
         }
     }
     // the staging pipeline: chunk 0 into buffer 0, chunk 1 into registers
-    float kv[KST];
+    T kv[KST];
 #pragma unroll
     for (int k = 0; k < KST; ++k) {
       const int e = tid + k * THREADS;
@@ -811,30 +612,30 @@ bulk_analysis_kernel(const float* __restrict__ F, const float* __restrict__ ab,
       // it; a group cut by a stop needs no other case)
       auto group = [&](int gl0, int gi0, auto tail, auto seed) {
         constexpr bool TAIL = decltype(tail)::value, SEED = decltype(seed)::value;
-        float w[NV];
+        T w[NV];
 #pragma unroll
-        for (int j = 0; j < NV; ++j) w[j] = 0.f;
+        for (int j = 0; j < NV; ++j) w[j] = T(0);
 #pragma unroll
         for (int i = 0; i < BG; ++i) {
           const int l = gl0 + i, li = gi0 + i;
           if (TAIL && l >= lend) break;
-          const float a = sm.a[buf][row][li], b = sm.b[buf][row][li];
-          const float e = MODE != SCALAR ? sm.e[buf][row][li] : 0.f;
-          const float nrm = BULK_NORMS ? sm.nrm[buf][li] : 0.f;
-          const float hp = BULK_NORMS ? sm.hp[buf][li] : 0.f;
+          const T a = sm.a[buf][row][li], b = sm.b[buf][row][li];
+          const T e = MODE != SCALAR ? sm.e[buf][row][li] : T(0);
+          const T nrm = BULK_NORMS ? sm.nrm[buf][li] : T(0);
+          const T hp = BULK_NORMS ? sm.hp[buf][li] : T(0);
 #pragma unroll
           for (int r = 0; r < R; ++r) {
-            float u[NFUN];
+            T u[NFUN];
             bulk_advance<SEED>(u, rc[r], fac[r], l, m, a, b, e, nrm, hp, ring[r], xlo[r], sgs);
 #pragma unroll
             for (int c = 0; c < C; ++c) {
-              float tot = w[i * C + c];
+              T tot = w[i * C + c];
 #pragma unroll
               for (int f = 0; f < NFUN; ++f) {
                 // the even plane where PSIGN[f] (-1)^(l+m) = +1; l + m has
                 // the parity of i after the swap (SYM only)
                 const bool even = !SYM || ((psign(f) > 0) != (i & 1));
-                tot = fmaf(u[f], even ? fE[r][f][c] : fO[r][f][c], tot);
+                tot = fma_t(u[f], even ? fE[r][f][c] : fO[r][f][c], tot);
               }
               w[i * C + c] = tot;
             }
@@ -844,7 +645,7 @@ bulk_analysis_kernel(const float* __restrict__ F, const float* __restrict__ ab,
             for (int r = 0; r < R; ++r) {
               rescale(rc[r]);
 #pragma unroll
-              for (int br = 0; br < NBR; ++br) fac[r][br] = level_factor(rc[r].s[br].lev);
+              for (int br = 0; br < NBR; ++br) fac[r][br] = level_factor<T>(rc[r].s[br].lev);
             }
           }
         }
@@ -885,31 +686,56 @@ bulk_analysis_kernel(const float* __restrict__ F, const float* __restrict__ ab,
     if constexpr (DUMP && MODE != WIGNER) {
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const int t = tile * TX + rl + LPR * r;
+        const int t = tile * TW + rl + LPR * r;
         if (t < nt && m < nm) dump_state(state, (size_t)m * nt + t, plane, rc[r].s[0]);
       }
     }
   }
 }
 
-// K1 / K3's float32 bulk, redesigned for Hopper (bulk_synthesis_kernel):
-// synthesis_kernel's function on the same arguments, in float32, which every
-// float32 launch of K1 and K3 (and K7's synthesis) takes (synthesis_kernel
-// is built for float64 only). In float32 synthesis_kernel ran one ring a
-// thread, ~25 instruction slots per (l, m, theta) triple in scalar
-// mode and ~65 in spin2 where the arithmetic needs ~10 and ~37: the seed
-// test and level select in every step, 3-5 shared-memory loads of the
-// coefficients and C of the alm per triple that no other ring shared, and
-// in the half-sky form a multiply, an add and a select-add per function and
-// column for the mirror ring. Here:
+#define BULK_PARAMS(T)                                                                     \
+  const T *__restrict__ X, const T *__restrict__ ab, const T *__restrict__ lt,             \
+      const T *__restrict__ cth, const T *__restrict__ ctl, const T *__restrict__ rows,    \
+      const T *__restrict__ sv, const int *__restrict__ sl, T *__restrict__ Y
+#define BULK_PASS X, ab, lt, cth, ctl, rows, sv, sl, Y
+
+// The float kernel: no minimum of blocks an SM in its launch bounds (capped
+// at 128 registers, four blocks, its C = 4 forms of the spin modes spill up
+// to 320 bytes). The double kernel takes no stop table and hands no state
+// over, and its bounds ask for f64_analysis_blocks blocks an SM.
+template <int C, bool SYM, int R, bool STOPS, bool DUMP>
+__global__ void __launch_bounds__(MY * anal_lanes(R))
+bulk_analysis_kernel(BULK_PARAMS(float), int nl, int nm, int nt, int ntiles, int spin,
+                     const int* __restrict__ lstop, float* __restrict__ state) {
+  bulk_analysis<float, C, SYM, R, STOPS, DUMP>(BULK_PASS, nl, nm, nt, ntiles, spin, lstop, state);
+}
+
+template <int C, bool SYM, int R>
+__global__ void __launch_bounds__(MY * anal_lanes(R), f64_analysis_blocks(C))
+bulk_analysis_kernel_f64(BULK_PARAMS(double), int nl, int nm, int nt, int ntiles, int spin) {
+  bulk_analysis<double, C, SYM, R, false, false>(BULK_PASS, nl, nm, nt, ntiles, spin, nullptr,
+                                                 nullptr);
+}
+
+// K1 / K3, redesigned for Hopper (bulk_synthesis_kernel), in float32 and in
+// float64: every launch of K1 and K3 (and K7's synthesis) takes it. It
+// replaced synthesis_kernel, one ring a thread, ~25 instruction slots per
+// (l, m, theta) triple in scalar mode and ~65 in spin2 where the arithmetic
+// needs ~10 and ~37: the seed test and level select in every step, 3-5
+// shared-memory loads of the coefficients and C of the alm per triple that
+// no other ring shared, in the half-sky form a multiply, an add and a
+// select-add per function and column for the mirror ring, and two barriers
+// per 32 degrees around an unbuffered staging. Here:
 //   - a thread carries R rings of one m row, whose independent recurrences
 //     hide each other's latency: two in scalar mode (a warp is one m row of
 //     a 64-ring tile), one in the spin modes, whose mode functions' registers
-//     would otherwise leave too few warps (half a row a warp);
+//     would otherwise leave too few warps (half a row a warp; float64:
+//     f64_synthesis_rings);
 //   - the coefficients and A of a degree are staged per m row as one record
 //     (a, b, e, the norms, A[l, m, 0..C)), which the thread reads with 128-bit
-//     shared-memory loads: one a degree in scalar mode at C = 2, where
-//     separate loads took three, and each serves the thread's R rings;
+//     shared-memory loads (four floats or two doubles each): one a degree in
+//     float32 scalar mode at C = 2, where separate loads took three, and each
+//     serves the thread's R rings;
 //   - degree groups of BG = 8 start at multiples of 8 below the block's
 //     first seed, so that the first group alone carries the seed test and
 //     the level's factor changes only there and at a renormalization, the
@@ -928,57 +754,70 @@ bulk_analysis_kernel(const float* __restrict__ F, const float* __restrict__ ab,
 //   - STOPS and DUMP are template parameters: launches without a stop table
 //     or a state handoff carry neither; with DUMP each ring's state is
 //     written where its own loop ended, by the same arithmetic as without,
-//     so the blocked split stays bit-identical below its handoffs.
-// Rings per thread: two in scalar mode, else one (chip_smoke.py --phases
-// variants builds one and two everywhere; PERF.md section 6).
-constexpr int SYNTH_RINGS = MODE == SCALAR ? 2 : 1;
+//     so the blocked split stays bit-identical below its handoffs. Float64
+//     launches take neither.
+// Rings per thread: see f32_synthesis_rings.
+template <typename T, int C> constexpr int synth_rings() {
+  return HAS_LO<T> ? f32_synthesis_rings() : f64_synthesis_rings(C);
+}
 // even/odd sums in the half-sky form, not north and mirror sums (measured by
 // chip_smoke.py --phases variants)
 constexpr bool SYNTH_EVEN_ODD = true;
 // The record a thread reads per degree, staged per (m row, degree) of a
 // chunk: the coefficients a, b (e: e_lm, the wigner mode's c), the degree
 // norms nrm, hp (the Legendre spin modes), then A[l, m, 0..C), padded to
-// whole float4s, so that a degree takes W / 4 128-bit shared-memory loads.
-template <int C> struct SynthRec {
+// whole 16-byte vectors of VEC values, so that a degree takes W / VEC
+// 128-bit shared-memory loads.
+template <typename T, int C> struct SynthRec {
+  static constexpr int VEC = 16 / sizeof(T);
   static constexpr int NC = BULK_NQ + (BULK_NORMS ? 2 : 0);  // coefficients
-  static constexpr int W = (NC + C + 3) / 4 * 4;              // floats
+  static constexpr int W = (NC + C + VEC - 1) / VEC * VEC;     // values
 };
 
-template <int C> struct SynthStage {
-  alignas(16) float rec[2][MY][BLC][SynthRec<C>::W];
+template <typename T, int C> struct SynthStage {
+  alignas(16) T rec[2][MY][BLC][SynthRec<T, C>::W];
 };
+
+// One 128-bit shared-memory load into v[0..16 / sizeof(T)).
+__device__ __forceinline__ void load16(const float* p, float* v) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+}
+__device__ __forceinline__ void load16(const double* p, double* v) {
+  const double2 q = *reinterpret_cast<const double2*>(p);
+  v[0] = q.x, v[1] = q.y;
+}
 
 // Value k of the chunk starting at degree l0 for the block's m rows from m0:
 // a, b, e [q][i][row] (row fastest, so that neighbouring threads read
 // neighbouring addresses), then nrm, hp [i], then A [i][row][c]; zero from
 // nl on and for rows >= nm.
-template <int C>
-__device__ __forceinline__ float synth_coef(const float* __restrict__ ab,
-                                            const float* __restrict__ lt,
-                                            const float* __restrict__ A, int l0, int m0, int nl,
-                                            int nm, int k) {
+template <int C, typename T>
+__device__ __forceinline__ T synth_coef(const T* __restrict__ ab, const T* __restrict__ lt,
+                                        const T* __restrict__ A, int l0, int m0, int nl, int nm,
+                                        int k) {
   constexpr int QS = MY * BLC;
   if (k < BULK_NQ * QS) {
     const int q = k / QS, l = l0 + (k / MY) % BLC, mm = m0 + k % MY;
-    return l < nl && mm < nm ? ab[((size_t)q * nl + l) * nm + mm] : 0.f;
+    return l < nl && mm < nm ? ab[((size_t)q * nl + l) * nm + mm] : T(0);
   }
   k -= BULK_NQ * QS;
   if (BULK_NORMS) {
     if (k < 2 * BLC) {
       const int l = l0 + k % BLC;
-      return l < nl ? lt[(k / BLC) * nl + l] : 0.f;
+      return l < nl ? lt[(k / BLC) * nl + l] : T(0);
     }
     k -= 2 * BLC;
   }
   const int l = l0 + k / (MY * C), j = k % (MY * C), mm = m0 + j / C;
-  return l < nl && mm < nm ? A[((size_t)l * nm + m0) * C + j] : 0.f;
+  return l < nl && mm < nm ? A[((size_t)l * nm + m0) * C + j] : T(0);
 }
 
 // Store value k (synth_coef's order) into the records of buffer buf; a
 // degree norm goes into the record of every row.
-template <int C>
-__device__ __forceinline__ void synth_store(SynthStage<C>& sm, int buf, int k, float v) {
-  constexpr int QS = MY * BLC, NC = SynthRec<C>::NC;
+template <typename T, int C>
+__device__ __forceinline__ void synth_store(SynthStage<T, C>& sm, int buf, int k, T v) {
+  constexpr int QS = MY * BLC, NC = SynthRec<T, C>::NC;
   if (k < BULK_NQ * QS) {
     sm.rec[buf][k % MY][(k / MY) % BLC][k / QS] = v;
     return;
@@ -996,59 +835,66 @@ __device__ __forceinline__ void synth_store(SynthStage<C>& sm, int buf, int k, f
   sm.rec[buf][j / C][k / (MY * C)][NC + j % C] = v;
 }
 
-// G[f, c, m, t] = sum_l u_f(l, m, theta_t) A[l, m, c]: synthesis_kernel's
-// arguments and layouts (float only); lstop is read when STOPS (the half-sky
-// form's table is that of its northern rings), state written when DUMP.
-template <int C, bool SYM, int R, bool STOPS, bool DUMP>
-__global__ void __launch_bounds__(MY * TX / R)
-bulk_synthesis_kernel(const float* __restrict__ A, const float* __restrict__ ab,
-                      const float* __restrict__ lt, const float* __restrict__ cth,
-                      const float* __restrict__ ctl, const float* __restrict__ rows,
-                      const float* __restrict__ sv, const int* __restrict__ sl,
-                      float* __restrict__ out, int nl, int nm, int nt, int spin,
-                      const int* __restrict__ lstop, float* __restrict__ state) {
+// K1 (SYM) / K3: G[f, c, m, t] = sum_l u_f(l, m, theta_t) A[l, m, c].
+// A [nl, nm, C]; ab [3, nl, nm]; lt [2, nl]; cth, ctl [nt]; rows [4, nt];
+// sv, sl [NBR, nm, nt]. Full: out [NFUN, C, nm, nt]. SYM: theta holds the
+// northern rings of a south-symmetric ring set and out is
+// [NFUN, C, 2, nm, nt] with plane 1 the mirror ring. spin is the wigner
+// mode's s; lstop, the stop degrees [gridDim.y, gridDim.x] (the half-sky
+// form's those of its northern rings), is read when STOPS, state [3, nm, nt]
+// written when DUMP (each entry's state where its loop ended). The body of
+// the kernels bulk_synthesis_kernel (float) and bulk_synthesis_kernel_f64
+// (double), below.
+template <typename T, int C, bool SYM, int R, bool STOPS, bool DUMP>
+__device__ __forceinline__ void
+bulk_synthesis(const T* __restrict__ A, const T* __restrict__ ab,
+               const T* __restrict__ lt, const T* __restrict__ cth,
+               const T* __restrict__ ctl, const T* __restrict__ rows,
+               const T* __restrict__ sv, const int* __restrict__ sl,
+               T* __restrict__ out, int nl, int nm, int nt, int spin,
+               const int* __restrict__ lstop, T* __restrict__ state) {
   constexpr int LPR = TX / R;           // threads of an m row
   constexpr int THREADS = MY * LPR;
   constexpr int NV = BULK_NV + MY * BLC * C;  // staged per chunk: the coefficients, then A
   constexpr int KST = (NV + THREADS - 1) / THREADS;  // staged values per thread
   constexpr int NP = SYM ? 2 : 1;       // sums per function and column
   static_assert(BLC % BG == 0, "a chunk holds whole groups");
-  __shared__ SynthStage<C> sm;
+  __shared__ SynthStage<T, C> sm;
   const int tid = threadIdx.x, row = tid / LPR, rl = tid % LPR;
   const int tile = blockIdx.x, m0 = blockIdx.y * MY, m = m0 + row;
   const size_t plane = (size_t)nm * nt;
-  const float sgs = (spin & 1) ? -1.f : 1.f;
+  const T sgs = (spin & 1) ? T(-1) : T(1);
   const int lbeg = MODE == WIGNER ? max(m0, spin) : m0;
   const int l8 = lbeg & ~7;  // groups start at multiples of 8
   const int lend = STOPS ? stop_degree(lstop, blockIdx.y, tile, gridDim.x, nl) : nl;
   // a dead tile (or one whose stop comes before any group) runs no chunk
   const int nch = lend > l8 ? (lend - l8 + BLC - 1) / BLC : 0;
-  Ring<float> ring[R];
-  float xlo[R];
-  Recur<float> rc[R];
-  float fac[R][NBR];  // each state's level factor: 1 at level 0
+  Ring<T> ring[R];
+  T xlo[R];
+  Recur<T> rc[R];
+  T fac[R][NBR];  // each state's level factor: 1 at level 0
   // SYM: the even-l and odd-l sums E, O (SYNTH_EVEN_ODD), or the north and
   // mirror sums; full: one sum
-  float acc[R][NFUN][C][NP];
+  T acc[R][NFUN][C][NP];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int t = tile * TX + rl + LPR * r;
     const bool valid = t < nt && m < nm;
     ring[r] = load_ring(cth, rows, t, nt, valid);
-    xlo[r] = valid ? ctl[t] : 0.f;
+    xlo[r] = ct_low(ctl, t, valid);
     rc[r] = load_recur(sv, sl, (size_t)m * nt + t, plane, m, spin, valid);
 #pragma unroll
-    for (int br = 0; br < NBR; ++br) fac[r][br] = 1.f;
+    for (int br = 0; br < NBR; ++br) fac[r][br] = T(1);
 #pragma unroll
     for (int f = 0; f < NFUN; ++f)
 #pragma unroll
       for (int c = 0; c < C; ++c)
 #pragma unroll
-        for (int p = 0; p < NP; ++p) acc[r][f][c][p] = 0.f;
+        for (int p = 0; p < NP; ++p) acc[r][f][c][p] = T(0);
   }
   if (nch > 0) {  // uniform over the block
     // the staging pipeline: chunk 0 into buffer 0, chunk 1 into registers
-    float kv[KST];
+    T kv[KST];
 #pragma unroll
     for (int k = 0; k < KST; ++k) {
       const int e = tid + k * THREADS;
@@ -1069,21 +915,19 @@ bulk_synthesis_kernel(const float* __restrict__ A, const float* __restrict__ ab,
         for (int i = 0; i < BG; ++i) {
           const int l = gl0 + i, li = gi0 + i;
           if (TAIL && l >= lend) break;
-          // the degree's record in W / 4 128-bit loads
-          constexpr int W = SynthRec<C>::W, NC = SynthRec<C>::NC;
-          float rv[W];
+          // the degree's record in W / VEC 128-bit loads
+          constexpr int W = SynthRec<T, C>::W, NC = SynthRec<T, C>::NC;
+          constexpr int VEC = SynthRec<T, C>::VEC;
+          T rv[W];
 #pragma unroll
-          for (int j = 0; j < W; j += 4) {
-            const float4 q = *reinterpret_cast<const float4*>(&sm.rec[buf][row][li][j]);
-            rv[j] = q.x, rv[j + 1] = q.y, rv[j + 2] = q.z, rv[j + 3] = q.w;
-          }
-          const float a = rv[0], b = rv[1];
-          const float e = MODE != SCALAR ? rv[2] : 0.f;
-          const float nrm = BULK_NORMS ? rv[BULK_NQ] : 0.f;
-          const float hp = BULK_NORMS ? rv[BULK_NQ + 1] : 0.f;
+          for (int j = 0; j < W; j += VEC) load16(&sm.rec[buf][row][li][j], &rv[j]);
+          const T a = rv[0], b = rv[1];
+          const T e = MODE != SCALAR ? rv[2] : T(0);
+          const T nrm = BULK_NORMS ? rv[BULK_NQ] : T(0);
+          const T hp = BULK_NORMS ? rv[BULK_NQ + 1] : T(0);
 #pragma unroll
           for (int r = 0; r < R; ++r) {
-            float u[NFUN];
+            T u[NFUN];
             bulk_advance<SEED>(u, rc[r], fac[r], l, m, a, b, e, nrm, hp, ring[r], xlo[r], sgs);
 #pragma unroll
             for (int f = 0; f < NFUN; ++f)
@@ -1091,15 +935,15 @@ bulk_synthesis_kernel(const float* __restrict__ A, const float* __restrict__ ab,
               for (int c = 0; c < C; ++c) {
                 if constexpr (SYM && SYNTH_EVEN_ODD) {
                   // l has the parity of i: gl0 is a multiple of 8
-                  acc[r][f][c][i & 1] = fmaf(u[f], rv[NC + c], acc[r][f][c][i & 1]);
+                  acc[r][f][c][i & 1] = fma_t(u[f], rv[NC + c], acc[r][f][c][i & 1]);
                 } else if constexpr (SYM) {
                   // the mirror ring's sign, PSIGN[f] (-1)^(l+m)
-                  const float v = u[f] * rv[NC + c];
+                  const T v = u[f] * rv[NC + c];
                   const bool plus = (psign(f) > 0) != (((i + m) & 1) != 0);
                   acc[r][f][c][0] += v;
                   acc[r][f][c][1] += plus ? v : -v;
                 } else {
-                  acc[r][f][c][0] = fmaf(u[f], rv[NC + c], acc[r][f][c][0]);
+                  acc[r][f][c][0] = fma_t(u[f], rv[NC + c], acc[r][f][c][0]);
                 }
               }
           }
@@ -1108,7 +952,7 @@ bulk_synthesis_kernel(const float* __restrict__ A, const float* __restrict__ ab,
             for (int r = 0; r < R; ++r) {
               rescale(rc[r]);
 #pragma unroll
-              for (int br = 0; br < NBR; ++br) fac[r][br] = level_factor(rc[r].s[br].lev);
+              for (int br = 0; br < NBR; ++br) fac[r][br] = level_factor<T>(rc[r].s[br].lev);
             }
           }
         }
@@ -1148,10 +992,10 @@ bulk_synthesis_kernel(const float* __restrict__ A, const float* __restrict__ ab,
       for (int c = 0; c < C; ++c) {
         const size_t fc = (size_t)f * C + c;
         if constexpr (SYM) {
-          float north = acc[r][f][c][0], mirror = acc[r][f][c][1];
+          T north = acc[r][f][c][0], mirror = acc[r][f][c][1];
           if constexpr (SYNTH_EVEN_ODD) {
             // N = E + O; S = PSIGN[f] (-1)^m (E - O)
-            const float d = north - mirror;
+            const T d = north - mirror;
             north += mirror;
             mirror = (psign(f) > 0) == ((m & 1) == 0) ? d : -d;
           }
@@ -1162,6 +1006,22 @@ bulk_synthesis_kernel(const float* __restrict__ A, const float* __restrict__ ab,
         }
       }
   }
+}
+
+// The float kernel's launch bounds give the threads alone; the double
+// kernel takes no stop table and hands no state over, and its bounds ask
+// for f64_synthesis_blocks blocks an SM.
+template <int C, bool SYM, int R, bool STOPS, bool DUMP>
+__global__ void __launch_bounds__(MY * TX / R)
+bulk_synthesis_kernel(BULK_PARAMS(float), int nl, int nm, int nt, int spin,
+                      const int* __restrict__ lstop, float* __restrict__ state) {
+  bulk_synthesis<float, C, SYM, R, STOPS, DUMP>(BULK_PASS, nl, nm, nt, spin, lstop, state);
+}
+
+template <int C, bool SYM, int R>
+__global__ void __launch_bounds__(MY * TX / R, f64_synthesis_blocks(C))
+bulk_synthesis_kernel_f64(BULK_PARAMS(double), int nl, int nm, int nt, int spin) {
+  bulk_synthesis<double, C, SYM, R, false, false>(BULK_PASS, nl, nm, nt, spin, nullptr, nullptr);
 }
 
 // K4's float64 near-pole pass, redesigned for Hopper (polar_analysis_kernel):
@@ -1233,11 +1093,11 @@ __device__ __forceinline__ double polar_coef(const double* __restrict__ ab,
 // a reducer thread stages coefficients rid and rid + PTILE of each chunk
 constexpr int PCOEF = (5 * PLC + PTILE - 1) / PTILE;
 
-// One step of the near-pole recurrence at degree l: step() without the low
-// part of cos theta, which is zero in float64 (x: cos theta; cadd: the
-// wigner mode's +c or -c). Returns the true lambda_l and sets lam1 to the
-// true lambda_{l-1}, as step() does, and rounds as it does. Without SEED
-// the step leaves out the seed test: for the degrees past the seed.
+// One step of the near-pole recurrence at degree l: bulk_step<double> with
+// the level factor computed in the step (x: cos theta; cadd: the wigner
+// mode's +c or -c). Returns the true lambda_l and sets lam1 to the true
+// lambda_{l-1}, as bulk_step does, and rounds as it does. Without SEED the
+// step leaves out the seed test: for the degrees past the seed.
 template <bool SEED = true>
 __device__ __forceinline__ double polar_step(State<double>& s, int l, int lseed, double a,
                                              double b, double x, double cadd, double seedv,
@@ -1687,128 +1547,78 @@ polar_synthesis_kernel(const double* __restrict__ A, const double* __restrict__ 
       static_cast<const T*>(rows), static_cast<const T*>(sv),                    \
       static_cast<const int*>(sl)
 
-// synthesis_kernel / analysis_kernel: float64 only (float32 launches take
-// the bulk kernels)
-template <bool SYM>
-int launch_synthesis(int C, const void* A, const void* ab, const void* lt,
-                     const void* cth, const void* ctl, const void* rows,
-                     const void* sv, const void* sl, void* out, int nl, int nm,
-                     int nt, int spin, const void* lstop, void* state,
-                     cudaStream_t st) {
-  using T = double;
-  const dim3 block(TX, MY), grid((nt + TX - 1) / TX, (nm + MY - 1) / MY);
-  if (grid.x == 0 || grid.y == 0 || nl == 0) return 0;
-  const T* a = static_cast<const T*>(A);
-  T* o = static_cast<T*>(out);
-  const int* dd = static_cast<const int*>(lstop);
-  T* ss = static_cast<T*>(state);
-  switch (C) {
-    case 2:
-      synthesis_kernel<T, 2, SYM><<<grid, block, 0, st>>>(a, KERNEL_ARGS(T), o, nl, nm, nt,
-                                                          spin, dd, ss);
-      break;
-    case 4:
-      synthesis_kernel<T, 4, SYM><<<grid, block, 0, st>>>(a, KERNEL_ARGS(T), o, nl, nm, nt,
-                                                          spin, dd, ss);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-template <bool SYM>
-int launch_analysis(int C, const void* F, const void* ab, const void* lt,
-                    const void* cth, const void* ctl, const void* rows,
-                    const void* sv, const void* sl, void* part, int nl, int nm,
-                    int nt, int nplanes, int spin, const void* lstop,
-                    void* state, cudaStream_t st) {
-  using T = double;
-  const int ntiles = (nt + TX - 1) / TX;
-  const dim3 block(TX, MY), grid(nplanes, (nm + MY - 1) / MY);
-  if (ntiles == 0 || grid.y == 0 || nl == 0) return 0;
-  if (nplanes < 1 || nplanes > ntiles) return (int)cudaErrorInvalidValue;
-  const T* f = static_cast<const T*>(F);
-  T* p = static_cast<T*>(part);
-  const int* dd = static_cast<const int*>(lstop);
-  T* ss = static_cast<T*>(state);
-  switch (C) {
-    case 2:
-      analysis_kernel<T, 2, SYM><<<grid, block, 0, st>>>(f, KERNEL_ARGS(T), p, nl, nm, nt,
-                                                         ntiles, spin, dd, ss);
-      break;
-    case 4:
-      analysis_kernel<T, 4, SYM><<<grid, block, 0, st>>>(f, KERNEL_ARGS(T), p, nl, nm, nt,
-                                                         ntiles, spin, dd, ss);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-// The float32 bulk of K2 / K4 (bulk_analysis_kernel): analysis_kernel's
-// grid of partial planes, with the instantiation that carries a stop table
-// and a state only where the launch gives them.
-template <int C, bool SYM>
+// K2 / K4 (bulk_analysis_kernel) in T: the grid of partial planes, with the
+// instantiation that carries a stop table and a state only where the launch
+// gives them (float only).
+template <typename T, int C, bool SYM>
 int launch_bulk(const void* F, const void* ab, const void* lt, const void* cth,
                 const void* ctl, const void* rows, const void* sv, const void* sl, void* part,
                 int nl, int nm, int nt, int nplanes, int spin, const void* lstop, void* state,
                 cudaStream_t st) {
-  constexpr int R = bulk_rings<SYM>();
-  const int ntiles = (nt + TX - 1) / TX;
-  const dim3 block(MY * TX / R), grid(nplanes, (nm + MY - 1) / MY);
+  constexpr int R = bulk_rings<T, C, SYM>();
+  constexpr int LPR = anal_lanes(R), TW = LPR * R;
+  const int ntiles = (nt + TX - 1) / TX;  // the host's tiles, which it sizes the planes by
+  const dim3 block(MY * LPR), grid(nplanes, (nm + MY - 1) / MY);
   if (ntiles == 0 || grid.y == 0 || nl == 0) return 0;
   if (nplanes < 1 || nplanes > ntiles) return (int)cudaErrorInvalidValue;
   // a state is handed over only at stop degrees, and only by the full form
   if (state != nullptr && (SYM || lstop == nullptr)) return (int)cudaErrorInvalidValue;
   if (SYM && lstop != nullptr) return (int)cudaErrorInvalidValue;
-  const float* f = static_cast<const float*>(F);
-  float* p = static_cast<float*>(part);
+  const int nbt = (nt + TW - 1) / TW;     // the kernel's tiles
+  const T* f = static_cast<const T*>(F);
+  T* p = static_cast<T*>(part);
   const int* dd = static_cast<const int*>(lstop);
-  float* ss = static_cast<float*>(state);
-  if constexpr (SYM) {
+  T* ss = static_cast<T*>(state);
+  if constexpr (!HAS_LO<T>) {  // float64: no stop degrees, no state
+    if (lstop != nullptr) return (int)cudaErrorInvalidValue;
+    bulk_analysis_kernel_f64<C, SYM, R><<<grid, block, 0, st>>>(f, KERNEL_ARGS(T), p, nl, nm, nt,
+                                                                 nbt, spin);
+  } else if constexpr (SYM) {
     bulk_analysis_kernel<C, true, R, false, false><<<grid, block, 0, st>>>(
-        f, KERNEL_ARGS(float), p, nl, nm, nt, ntiles, spin, nullptr, nullptr);
+        f, KERNEL_ARGS(T), p, nl, nm, nt, nbt, spin, nullptr, nullptr);
   } else if (lstop == nullptr) {
     bulk_analysis_kernel<C, false, R, false, false><<<grid, block, 0, st>>>(
-        f, KERNEL_ARGS(float), p, nl, nm, nt, ntiles, spin, nullptr, nullptr);
+        f, KERNEL_ARGS(T), p, nl, nm, nt, nbt, spin, nullptr, nullptr);
   } else if (state == nullptr) {
     bulk_analysis_kernel<C, false, R, true, false><<<grid, block, 0, st>>>(
-        f, KERNEL_ARGS(float), p, nl, nm, nt, ntiles, spin, dd, nullptr);
+        f, KERNEL_ARGS(T), p, nl, nm, nt, nbt, spin, dd, nullptr);
   } else {
     bulk_analysis_kernel<C, false, R, true, true><<<grid, block, 0, st>>>(
-        f, KERNEL_ARGS(float), p, nl, nm, nt, ntiles, spin, dd, ss);
+        f, KERNEL_ARGS(T), p, nl, nm, nt, nbt, spin, dd, ss);
   }
   return (int)cudaGetLastError();
 }
 
-// The float32 bulk of K1 / K3 (bulk_synthesis_kernel): one block per tile
-// of the stop table, with the instantiation that carries a stop table and a
-// state only where the launch gives them.
-template <int C, bool SYM>
+// K1 / K3 (bulk_synthesis_kernel) in T: one block per tile of the stop
+// table, with the instantiation that carries a stop table and a state only
+// where the launch gives them (float only).
+template <typename T, int C, bool SYM>
 int launch_bulk_synthesis(const void* A, const void* ab, const void* lt, const void* cth,
                           const void* ctl, const void* rows, const void* sv, const void* sl,
                           void* out, int nl, int nm, int nt, int spin, const void* lstop,
                           void* state, cudaStream_t st) {
-  constexpr int R = SYNTH_RINGS;
+  constexpr int R = synth_rings<T, C>();
   const dim3 block(MY * TX / R), grid((nt + TX - 1) / TX, (nm + MY - 1) / MY);
   if (grid.x == 0 || grid.y == 0 || nl == 0) return 0;
   // a state is handed over only at stop degrees, and only by the full form
   if (state != nullptr && (SYM || lstop == nullptr)) return (int)cudaErrorInvalidValue;
-  const float* a = static_cast<const float*>(A);
-  float* o = static_cast<float*>(out);
+  const T* a = static_cast<const T*>(A);
+  T* o = static_cast<T*>(out);
   const int* dd = static_cast<const int*>(lstop);
-  float* ss = static_cast<float*>(state);
-  if (lstop == nullptr) {
+  T* ss = static_cast<T*>(state);
+  if constexpr (!HAS_LO<T>) {  // float64: no stop degrees, no state
+    if (lstop != nullptr) return (int)cudaErrorInvalidValue;
+    bulk_synthesis_kernel_f64<C, SYM, R><<<grid, block, 0, st>>>(a, KERNEL_ARGS(T), o, nl, nm, nt,
+                                                                  spin);
+  } else if (lstop == nullptr) {
     bulk_synthesis_kernel<C, SYM, R, false, false><<<grid, block, 0, st>>>(
-        a, KERNEL_ARGS(float), o, nl, nm, nt, spin, nullptr, nullptr);
+        a, KERNEL_ARGS(T), o, nl, nm, nt, spin, nullptr, nullptr);
   } else if (state == nullptr) {
     bulk_synthesis_kernel<C, SYM, R, true, false><<<grid, block, 0, st>>>(
-        a, KERNEL_ARGS(float), o, nl, nm, nt, spin, dd, nullptr);
+        a, KERNEL_ARGS(T), o, nl, nm, nt, spin, dd, nullptr);
   } else if constexpr (!SYM) {
     bulk_synthesis_kernel<C, false, R, true, true><<<grid, block, 0, st>>>(
-        a, KERNEL_ARGS(float), o, nl, nm, nt, spin, dd, ss);
+        a, KERNEL_ARGS(T), o, nl, nm, nt, spin, dd, ss);
   }
   return (int)cudaGetLastError();
 }
@@ -1851,37 +1661,14 @@ int launch_polar_synthesis(const void* A, const void* ab, const void* lt, const 
 
 }  // namespace
 
-// synthesis_kernel / analysis_kernel, float64 only: C (2 or 4) is the
-// coefficient count: a block's columns are (re, im) pairs, so C is always
-// even. spin is read in wigner mode only; lstop is the table of stop degrees
-// (int [m blocks, ring tiles], 0 = skip) or null; state the handoff buffer
-// [3, nm, nt] or null (read by the full kernels in the Legendre modes only).
-// The entry points are named pt_<kernel>_<mode>.
-#define SYNTH_ENTRY(NAME, SYM)                                                         \
-  extern "C" int PT_ENTRY(NAME)(int C, const void* A, const void* ab, const void* lt,  \
-                                const void* cth, const void* ctl, const void* rows,    \
-                                const void* sv, const void* sl, void* out, int nl,     \
-                                int nm, int nt, int spin, const void* lstop,           \
-                                void* state, void* stream) {                           \
-    return launch_synthesis<SYM>(C, A, ab, lt, cth, ctl, rows, sv, sl, out, nl, nm, nt, \
-                                 spin, lstop, state, static_cast<cudaStream_t>(stream)); \
-  }
-
-#define ANAL_ENTRY(NAME, SYM)                                                          \
-  extern "C" int PT_ENTRY(NAME)(int C, const void* F, const void* ab, const void* lt,  \
-                                const void* cth, const void* ctl, const void* rows,    \
-                                const void* sv, const void* sl, void* part, int nl,    \
-                                int nm, int nt, int nplanes, int spin,                 \
-                                const void* lstop, void* state, void* stream) {        \
-    return launch_analysis<SYM>(C, F, ab, lt, cth, ctl, rows, sv, sl, part, nl, nm, nt, \
-                                nplanes, spin, lstop, state,                           \
-                                static_cast<cudaStream_t>(stream));                    \
-  }
-
-// K2 / K4's float32 bulk (bulk_analysis_kernel): analysis_kernel's
-// arguments; C is 2 or 4; the half-sky form takes no stop degrees or state,
-// the full form a state only with stop degrees.
-#define BULK_ENTRY(NAME, SYM)                                                      \
+// K2 / K4 (bulk_analysis_kernel) in T: C (2 or 4) is the coefficient
+// count: a block's columns are (re, im) pairs, so C is always even. spin is
+// read in wigner mode only; lstop is the table of stop degrees (int [m
+// blocks, ring tiles of TX], 0 = skip) or null, state the handoff buffer
+// [3, nm, nt] or null: the half-sky form takes neither, the full form a
+// state only with stop degrees, float64 neither. The entry points are named
+// pt_<kernel>_<mode>.
+#define BULK_ENTRY(NAME, T, SYM)                                                   \
   extern "C" int PT_ENTRY(NAME)(int C, const void* F, const void* ab, const void* lt, \
                                 const void* cth, const void* ctl, const void* rows,   \
                                 const void* sv, const void* sl, void* part, int nl,   \
@@ -1890,20 +1677,19 @@ int launch_polar_synthesis(const void* A, const void* ab, const void* lt, const 
     cudaStream_t st = static_cast<cudaStream_t>(stream);                              \
     switch (C) {                                                                      \
       case 2:                                                                         \
-        return launch_bulk<2, SYM>(F, ab, lt, cth, ctl, rows, sv, sl, part, nl, nm, nt, \
-                                   nplanes, spin, lstop, state, st);                  \
+        return launch_bulk<T, 2, SYM>(F, ab, lt, cth, ctl, rows, sv, sl, part, nl, nm, \
+                                      nt, nplanes, spin, lstop, state, st);           \
       case 4:                                                                         \
-        return launch_bulk<4, SYM>(F, ab, lt, cth, ctl, rows, sv, sl, part, nl, nm, nt, \
-                                   nplanes, spin, lstop, state, st);                  \
+        return launch_bulk<T, 4, SYM>(F, ab, lt, cth, ctl, rows, sv, sl, part, nl, nm, \
+                                      nt, nplanes, spin, lstop, state, st);           \
       default:                                                                        \
         return (int)cudaErrorInvalidValue;                                            \
     }                                                                                 \
   }
 
-// K1 / K3's float32 bulk (bulk_synthesis_kernel): synthesis_kernel's
-// arguments; C is 2 or 4; both forms take stop degrees, the full form a
-// state with them.
-#define BULK_SYNTH_ENTRY(NAME, SYM)                                                   \
+// K1 / K3 (bulk_synthesis_kernel) in T: C is 2 or 4; in float both forms
+// take stop degrees, the full form a state with them; float64 neither.
+#define BULK_SYNTH_ENTRY(NAME, T, SYM)                                                \
   extern "C" int PT_ENTRY(NAME)(int C, const void* A, const void* ab, const void* lt, \
                                 const void* cth, const void* ctl, const void* rows,   \
                                 const void* sv, const void* sl, void* out, int nl,    \
@@ -1912,26 +1698,26 @@ int launch_polar_synthesis(const void* A, const void* ab, const void* lt, const 
     cudaStream_t st = static_cast<cudaStream_t>(stream);                              \
     switch (C) {                                                                      \
       case 2:                                                                         \
-        return launch_bulk_synthesis<2, SYM>(A, ab, lt, cth, ctl, rows, sv, sl, out, nl, \
-                                             nm, nt, spin, lstop, state, st);         \
+        return launch_bulk_synthesis<T, 2, SYM>(A, ab, lt, cth, ctl, rows, sv, sl, out,  \
+                                                nl, nm, nt, spin, lstop, state, st);  \
       case 4:                                                                         \
-        return launch_bulk_synthesis<4, SYM>(A, ab, lt, cth, ctl, rows, sv, sl, out, nl, \
-                                             nm, nt, spin, lstop, state, st);         \
+        return launch_bulk_synthesis<T, 4, SYM>(A, ab, lt, cth, ctl, rows, sv, sl, out,  \
+                                                nl, nm, nt, spin, lstop, state, st);  \
       default:                                                                        \
         return (int)cudaErrorInvalidValue;                                            \
     }                                                                                 \
   }
 
 #if LEGENDRE_MODE != 4  // the wigner mode has no half-sky kernels
-SYNTH_ENTRY(pt_sym_synthesis, true)
-ANAL_ENTRY(pt_sym_analysis, true)
-BULK_ENTRY(pt_sym_bulk_analysis, true)
-BULK_SYNTH_ENTRY(pt_sym_bulk_synthesis, true)
+BULK_ENTRY(pt_sym_bulk_analysis, float, true)
+BULK_SYNTH_ENTRY(pt_sym_bulk_synthesis, float, true)
+BULK_ENTRY(pt_sym_bulk_analysis_f64, double, true)
+BULK_SYNTH_ENTRY(pt_sym_bulk_synthesis_f64, double, true)
 #endif
-SYNTH_ENTRY(pt_full_synthesis, false)
-ANAL_ENTRY(pt_full_analysis, false)
-BULK_ENTRY(pt_full_bulk_analysis, false)
-BULK_SYNTH_ENTRY(pt_full_bulk_synthesis, false)
+BULK_ENTRY(pt_full_bulk_analysis, float, false)
+BULK_SYNTH_ENTRY(pt_full_bulk_synthesis, float, false)
+BULK_ENTRY(pt_full_bulk_analysis_f64, double, false)
+BULK_SYNTH_ENTRY(pt_full_bulk_synthesis_f64, double, false)
 
 // K4's float64 near-pole pass (polar_analysis_kernel), every mode: C (2 or 4)
 // columns of F [NFUN, C, nm, nt], written at column stride ldo into out

@@ -18,13 +18,14 @@ and for K3/K4 in float32 Legendre modes any multiple of 8 at which the
 block ends early and hands its recurrence state over (dump_state,
 sht_pallas.py:1546).
 
-The float32 launches of K1-K4 run their float32 bulk, redesigned for the
-card (several rings a thread, the seed test and level factor out of the
-steps): K2 and K4 bulk_analysis_kernel (the degree sums reduced 8 degrees
-at a time by a reduce-scatter butterfly), K1 and K3 bulk_synthesis_kernel
-(K1 with even-l and odd-l sums in place of a mirror sum): the entry points
-of BULK_KERNELS, counted under those names. The four names above keep
-synthesis_kernel / analysis_kernel, built for float64 only.
+Every launch of K1-K4 runs a kernel redesigned for the card (several rings
+a thread, the seed test and level factor out of the steps), templated on
+the element type: K2 and K4 bulk_analysis_kernel (the degree sums reduced
+8 degrees at a time by a reduce-scatter butterfly), K1 and K3
+bulk_synthesis_kernel (K1 with even-l and odd-l sums in place of a mirror
+sum). A float32 launch of the wrapper name runs the entry point
+BULK_KERNELS[name], a float64 one BULK_F64[name], each counted under its
+entry's name.
 
   polar_analysis  K4's float64 near-pole pass, redesigned for the card
                   (one block per m row, the ring sum in shared memory), in
@@ -72,7 +73,7 @@ _analysis_sym_entry :1825), with its thresholds, in every mode:
     overwrites those rings, analysis through polar_analysis, whose
     contribution is added. A ring set that lies wholly near the poles runs in float64
     through K1-K4.
-  - float64: K1-K4 in float64, with no polar split.
+  - float64: K1-K4 in float64 (BULK_F64), with no polar split.
   - wigner mode (wigner_synthesis_scan_pallas :2165, wigner_analysis_scan_pallas
     :2221): always K3/K4, the near-pole pass (polar_synthesis,
     polar_analysis) for
@@ -107,13 +108,14 @@ BLK_ENABLE = False  # set by pixell_tpu_torch.sht.blocked()
 BLK_TILE_M, BLK_TILE_T = 4, 256   # m rows and rings of a block-kernel tile (csrc/blockleg.cu BM, BT)
 BLK_SMIN = 0.5      # the split keeps to ring tiles with sin(theta) >= BLK_SMIN (blk_polar_tiles)
 
-LEGENDRE_KERNELS = ("sym_synthesis", "sym_analysis", "full_synthesis", "full_analysis")
-# the float32 bulk of K1-K4, which every float32 launch of the wrapper of that name runs
+# the entry points of K1-K4 by wrapper name: bulk_synthesis_kernel and
+# bulk_analysis_kernel, float32 (BULK_KERNELS) and float64 (BULK_F64)
 BULK_KERNELS = {"sym_synthesis": "sym_bulk_synthesis", "full_synthesis": "full_bulk_synthesis",
 	"sym_analysis": "sym_bulk_analysis", "full_analysis": "full_bulk_analysis"}
+BULK_F64 = {name: entry + "_f64" for name, entry in BULK_KERNELS.items()}
 BLK_KERNELS = ("blk_synthesis", "blk_analysis")
 POLAR_KERNELS = ("polar_analysis", "polar_synthesis")
-KERNELS = LEGENDRE_KERNELS + tuple(BULK_KERNELS.values()) + POLAR_KERNELS + BLK_KERNELS
+KERNELS = tuple(BULK_KERNELS.values()) + tuple(BULK_F64.values()) + POLAR_KERNELS + BLK_KERNELS
 LAUNCHES = {name: 0 for name in KERNELS}
 LAUNCHES_BY_MODE = {(name, mode): 0 for name in KERNELS for mode in sht_core.MODES}
 LAUNCHES_BY_DTYPE = {k + (dt,): 0 for k in LAUNCHES_BY_MODE for dt in ("float32", "float64")}
@@ -460,12 +462,12 @@ def library(csrc=_build.CSRC):
 	lib = _build.load(csrc)
 	P, I = ctypes.c_void_p, ctypes.c_int
 	for mode in sht_core.MODES:
-		for name in LEGENDRE_KERNELS + tuple(BULK_KERNELS.values()):
+		for name in tuple(BULK_KERNELS.values()) + tuple(BULK_F64.values()):
 			if mode == "wigner" and name.startswith("sym"): continue   # no half-sky form
 			fn = getattr(lib, "pt_%s_%s" % (name, mode))
 			# C, 9 pointers, (nl, nm, nt[, nplanes], s), the stop degrees, the state,
 			# the stream
-			fn.argtypes = [I] + [P]*9 + [I]*(4 if name.endswith("synthesis") else 5) + [P]*3
+			fn.argtypes = [I] + [P]*9 + [I]*(4 if "synthesis" in name else 5) + [P]*3
 			fn.restype = I
 		fn = getattr(lib, "pt_polar_analysis_%s" % mode)
 		# C, 8 pointers, (ldo, nl, nm, nt, s), the stream
@@ -546,6 +548,8 @@ def _mode_args(g, nl, mode, lstop, device, dump_state=False):
 	if dump_state and (lstop is None or mode == "wigner" or g.dtype != torch.float32):
 		raise ValueError("the state is handed over by float32 Legendre-mode launches "
 			"with stop degrees only")
+	if lstop is not None and g.dtype != torch.float32:
+		raise ValueError("stop degrees are taken by float32 launches only")
 	return (_coef_cached(nl, g.nm, g.dtype, device, g.s), _lt_cached(nl, mode, g.dtype, device),
 		0 if g.s is None else int(g.s), 0 if lstop is None else lstop.data_ptr())
 
@@ -570,14 +574,14 @@ def _new_state(g, dump_state, device):
 
 
 def _synthesis_launch(name, A, g, lmax, mode, out_shape_of, lstop=None, dump_state=False):
-	"""K1 / K3 on the card: a float32 launch runs the bulk kernel
-	(BULK_KERNELS[name]), a float64 one synthesis_kernel."""
+	"""K1 / K3 on the card: bulk_synthesis_kernel, its float32 entry
+	(BULK_KERNELS[name]) or its float64 one (BULK_F64[name])."""
 	nl, nm, C = A.shape
 	ab, lt, s, stop_ptr = _mode_args(g, nl, mode, lstop, A.device, dump_state)
 	stream = _stream(A)
 	state, state_ptr = _new_state(g, dump_state, A.device)
 	f64 = g.dtype == torch.float64
-	entry = name if f64 else BULK_KERNELS[name]
+	entry = (BULK_F64 if f64 else BULK_KERNELS)[name]
 	outs = []
 	for c0, c1 in _col_chunks(C):
 		Ac = A[..., c0:c1].contiguous()
@@ -596,8 +600,8 @@ def _planes(ntiles):
 
 
 def _analysis_launch(name, F, g, lmax, mode, lstop=None, dump_state=False):
-	"""K2 / K4 on the card: a float32 launch runs the bulk kernel
-	(BULK_KERNELS[name]), a float64 one analysis_kernel."""
+	"""K2 / K4 on the card: bulk_analysis_kernel, its float32 entry
+	(BULK_KERNELS[name]) or its float64 one (BULK_F64[name])."""
 	C = F.shape[1]
 	nl, nm = lmax + 1, g.nm
 	ab, lt, s, stop_ptr = _mode_args(g, nl, mode, lstop, F.device, dump_state)
@@ -605,7 +609,7 @@ def _analysis_launch(name, F, g, lmax, mode, lstop=None, dump_state=False):
 	state, state_ptr = _new_state(g, dump_state, F.device)
 	nplanes = _planes(-(-g.nt//TILE_T))
 	f64 = g.dtype == torch.float64
-	entry = name if f64 else BULK_KERNELS[name]
+	entry = (BULK_F64 if f64 else BULK_KERNELS)[name]
 	outs = []
 	for c0, c1 in _col_chunks(C):
 		Fc = F[:, c0:c1].contiguous()
@@ -685,9 +689,9 @@ def sym_synthesis(A, g, lmax, mode="scalar", lstop=None):
 	[nfun, C, 2, nm, nh]: plane 0 is ring t, plane 1 its mirror
 	pi - theta_t, from u_f(pi - theta) = PSIGN[f] (-1)^(l+m) u_f(theta).
 	lstop, a table of stop degrees per block of the northern rings
-	(dead_stops), ends the sums of a block and of its mirror before its
-	degree: 0 skips the block, whose outputs are 0; None runs every block to
-	the end."""
+	(dead_stops; float32 only on the card), ends the sums of a block and of
+	its mirror before its degree: 0 skips the block, whose outputs are 0;
+	None runs every block to the end."""
 	_check_sym_mode(mode)
 	nl, C = lmax + 1, A.shape[-1]
 	_check(A, g, (nl, g.nm, C), "sym_synthesis")
@@ -699,11 +703,12 @@ def sym_synthesis(A, g, lmax, mode="scalar", lstop=None):
 def full_synthesis(A, g, lmax, mode="scalar", lstop=None, dump_state=False):
 	"""K3 (K7 in wigner mode, on a geometry prepared with the spin):
 	synthesis on any ring set. A [nl, nm, C] -> [nfun, C, nm, nt]. lstop, a
-	table of stop degrees per block (dead_stops, blk_tables), ends a block's
-	sum before its degree: 0 skips the block, whose output is 0; None runs
-	every block to the end. With dump_state (float32 Legendre modes, stop
-	degrees multiples of 8) returns (G, state): the recurrence state
-	[3, nm, nt] (prev, curr, level) where each entry's sum ended."""
+	table of stop degrees per block (dead_stops, blk_tables; float32 only on
+	the card), ends a block's sum before its degree: 0 skips the block,
+	whose output is 0; None runs every block to the end. With dump_state
+	(float32 Legendre modes, stop degrees multiples of 8) returns (G,
+	state): the recurrence state [3, nm, nt] (prev, curr, level) where each
+	entry's sum ended."""
 	sht_core.check_mode(mode)
 	nl, C = lmax + 1, A.shape[-1]
 	_check(A, g, (nl, g.nm, C), "full_synthesis")
@@ -727,9 +732,9 @@ def sym_analysis(EO, g, lmax, mode="scalar"):
 def full_analysis(F, g, lmax, mode="scalar", lstop=None, dump_state=False):
 	"""K4 (K7 in wigner mode, on a geometry prepared with the spin): analysis
 	on any ring set. F [nfun, C, nm, nt] -> [nl, nm, C]. lstop, a table of
-	stop degrees per block (dead_stops, blk_tables), leaves a block's rings
-	out of every degree from its stop on: 0 never reads them; None reads all.
-	With dump_state returns (A, state) as full_synthesis does."""
+	stop degrees per block (dead_stops, blk_tables; float32 only on the
+	card), leaves a block's rings out of every degree from its stop on: 0
+	never reads them; None reads all. With dump_state returns (A, state) as full_synthesis does."""
 	sht_core.check_mode(mode)
 	C = F.shape[1]
 	_check(F, g, (NFUN[mode], C, g.nm, g.nt), "full_analysis")

@@ -1,13 +1,14 @@
 """The float32 bulk of K2/K4 (pixell_tpu_torch.ops.sht_cuda: sym_analysis and
-full_analysis, which launch csrc/legendre.cu's bulk_analysis_kernel in
-float32 and analysis_kernel, built for float64 only, in float64) on the CPU.
+full_analysis, which launch csrc/legendre.cu's bulk_analysis_kernel, its
+float instantiations in float32 and its double ones in float64) on the
+CPU.
 
 - The dispatch: with the launches recorded instead of run, every float32
   launch of sym_analysis / full_analysis, in every mode, with and without
   stop degrees and with the state handoff, and on the paths that reach them
   (kernel_analysis at both ring-set kinds, sht.blocked()), goes to the bulk
   kernel's entry point with the arguments it takes; float64 launches go to
-  analysis_kernel.
+  its float64 entry (tests/test_torch_f64_bulk.py tests those further).
 - The function: kernel_analysis, whose CPU path runs the kernels' plain
   versions, against pixell_tpu's scan on a ring set whose bulk is
   south-symmetric (K2) and on one that is not (K4), within 2e-5 (float32,
@@ -65,7 +66,7 @@ def test_f32_launches_reach_bulk_kernel(mode, launches):
 	point with (C, F, 7 tables, part, nl, nm, nt, nplanes, s, stops, state,
 	stream), one launch per column chunk (6 columns: 4 + 2), the stop table
 	and the state where given (the state on the first chunk only); in
-	float64 analysis_kernel's entry with the same arguments."""
+	float64 its float64 entry with the same arguments."""
 	s, nf = spin_of(mode), sht_core.NFUN[mode]
 	theta = rings(150)   # three ring tiles
 	g32 = sht_cuda.geom(theta, MMAX, torch.float32, "cpu", s)
@@ -92,7 +93,7 @@ def test_f32_launches_reach_bulk_kernel(mode, launches):
 		assert (launches[0][3][16] != 0) == dump and launches[1][3][16] == 0
 		launches.clear()
 		getattr(sht_cuda, name)(x.double(), g64, LMAX, mode)
-		assert [c[:3] for c in launches] == [(name, mode, True)]*2
+		assert [c[:3] for c in launches] == [(sht_cuda.BULK_F64[name], mode, True)]*2
 		assert [(len(c[3]), c[3][0]) for c in launches] == [(18, 4), (18, 2)]
 
 
@@ -120,7 +121,7 @@ def test_dispatch_paths_reach_bulk_kernel(mode, launches, monkeypatch):
 	"""kernel_analysis in float32: on a south-symmetric ring set the bulk
 	rings take the half-sky bulk kernel (in wigner mode the full one), on
 	one that is not the full bulk kernel in TCHUNK chunks; the near-pole
-	rings polar_analysis. The float32 analysis_kernel is never launched."""
+	rings polar_analysis. No float64 entry of K2/K4 is launched."""
 	monkeypatch.setattr(sht_cuda, "POLAR_AMP", 4.0)
 	monkeypatch.setattr(sht_cuda, "TCHUNK", 64)
 	s, nf, C = spin_of(mode), sht_core.NFUN[mode], ncol(mode)

@@ -1,14 +1,15 @@
 """The float32 bulk of K1/K3 (pixell_tpu_torch.ops.sht_cuda: sym_synthesis and
-full_synthesis, which launch csrc/legendre.cu's bulk_synthesis_kernel in
-float32 and synthesis_kernel, built for float64 only, in float64) on the CPU.
+full_synthesis, which launch csrc/legendre.cu's bulk_synthesis_kernel, its
+float instantiations in float32 and its double ones in float64) on the
+CPU.
 
 - The dispatch: with the launches recorded instead of run, every float32
   launch of sym_synthesis / full_synthesis, in every mode, with and without
   stop degrees and with the state handoff, and on the paths that reach them
   (kernel_synthesis at both ring-set kinds, sht.blocked()), goes to the bulk
   kernel's entry point with the arguments it takes, the dead-tile table
-  where the ring set has dead tiles; float64 launches go to
-  synthesis_kernel.
+  where the ring set has dead tiles; float64 launches go to its float64
+  entry (tests/test_torch_f64_bulk.py tests those further).
 - The half-sky form's even/odd split: the north plane is E + O and the
   mirror plane PSIGN[f] (-1)^m (E - O), E and O the sums over even and odd
   l, which the kernel accumulates apart.
@@ -41,8 +42,8 @@ def test_f32_launches_reach_bulk_kernel(mode, launches):
 	"""sym_synthesis and full_synthesis in float32: the bulk kernel's entry
 	point with (C, A, 7 tables, out, nl, nm, nt, s, stops, state, stream),
 	one launch per column chunk (6 columns: 4 + 2), the stop table and the
-	state where given (the state on the first chunk only); in float64
-	synthesis_kernel's entry with the same arguments."""
+	state where given (the state on the first chunk only); in float64 its
+	float64 entry with the same arguments."""
 	s, nf = spin_of(mode), sht_core.NFUN[mode]
 	theta = rings(150)   # three ring tiles
 	g32 = sht_cuda.geom(theta, MMAX, torch.float32, "cpu", s)
@@ -70,7 +71,7 @@ def test_f32_launches_reach_bulk_kernel(mode, launches):
 		assert (launches[0][3][15] != 0) == dump and launches[1][3][15] == 0
 		launches.clear()
 		getattr(sht_cuda, name)(A.double(), g64, LMAX, mode)
-		assert [c[:3] for c in launches] == [(name, mode, True)]*2
+		assert [c[:3] for c in launches] == [(sht_cuda.BULK_F64[name], mode, True)]*2
 		assert [(len(c[3]), c[3][0]) for c in launches] == [(17, 4), (17, 2)]
 
 
@@ -186,12 +187,16 @@ def test_sym_dead_table_matches_reference(mode):
 
 def test_sym_stop_table_checked(launches):
 	"""On the card, sym_synthesis takes a stop table of its northern rings'
-	tiles only: contiguous int32 [m blocks, ring tiles]."""
+	tiles only: contiguous int32 [m blocks, ring tiles], in float32 (a
+	float64 launch takes none)."""
 	north = north_rings()
-	g = sht_cuda.geom(north, 20, torch.float64, "cpu")
-	A = torch.zeros((21, 21, 2), dtype=torch.float64)
+	g = sht_cuda.geom(north, 20, torch.float32, "cpu")
+	A = torch.zeros((21, 21, 2), dtype=torch.float32)
 	for bad in (torch.zeros((6, 2), dtype=torch.int64), torch.zeros((5, 2), dtype=torch.int32)):
 		with pytest.raises(ValueError):
 			sht_cuda.sym_synthesis(A, g, 20, "scalar", bad)
+	with pytest.raises(ValueError):
+		sht_cuda.sym_synthesis(A.double(), sht_cuda.geom(north, 20, torch.float64, "cpu"), 20, "scalar",
+			torch.zeros((6, 2), dtype=torch.int32))
 	sht_cuda.sym_synthesis(A, g, 20, "scalar", torch.zeros((6, 2), dtype=torch.int32))
-	assert [c[0] for c in launches] == ["sym_synthesis"]
+	assert [c[0] for c in launches] == ["sym_bulk_synthesis"]
