@@ -12,10 +12,11 @@ be built, and none may spill), then runs the phases below (all of them with
 no arguments; --phases with a choice of k9,kernels,lstop,slice,adjoint,
 blocked,timing runs those alone, for work on one phase, and gives no
 verdict; the phase "variants", 6. below, runs only when named). With
---parent DIR, a directory holding a parent tree's legendre.cu (for example
-unpacked with git archive under build/), that file is built beside the
-package's, and the kernels and variants phases run its kernels beside
-this tree's (below):
+--parent DIR, a directory holding a parent tree's legendre.cu and / or
+blockleg.cu (for example unpacked with git archive under build/), those
+files are built beside the package's: the kernels, variants and timing
+phases run the parent's legendre.cu kernels beside this tree's, the
+blocked phase its blk_synthesis_kernel (below):
 
 1. K9 phase: the FMA-peak kernel against its plain PyTorch chain on a small
    grid (the kernel rounds once per step, the chain twice: within
@@ -130,17 +131,24 @@ this tree's (below):
      2e-4 spin2, of the largest value; tiles without a suffix, and degrees
      below every handoff, bit-identical); the times of the block kernels,
      of the dumping K3/K4 and of K3/K4 run to the end, and the block
-     kernels' bound over the FP32 peak, for blk_analysis (its products in
-     3xTF32 on the tensor cores) also the tensor-core bound: the build's
-     FP32 operations over the FP32 peak plus 3 x the products' FLOPs over
-     495 TFLOP/s; the library yardstick: torch.bmm over m of K3's / K4's
-     mode table masked to each entry's blocked suffix (TF32 off), in
-     chunks of 64 m rows with the times summed, its first chunk held
+     kernels' bound over the FP32 peak and beside it the tensor-core bound
+     (both kernels put their products on the tensor cores in 3xTF32): the
+     FP32 operations (the build) over the FP32 peak plus 3 x the products'
+     FLOPs over 495 TFLOP/s (blk_tc_bound); with --parent, the parent's
+     blk_synthesis_kernel on the same inputs, held to the same rule and
+     timed in turns with this tree's; the library yardstick: torch.bmm
+     over m of K3's / K4's mode table masked to each entry's blocked
+     suffix (TF32 off), in chunks of 64 m rows with the times summed, its
+     first chunk held
      within 1e-4 of the float64 plain block kernel resumed from the
-     float64 state; before all that, every blk_analysis_kernel
-     instantiation's registers and spills (ptxas -v) and the count of
-     tensor-core instructions (HMMA, HGMMA) in its SASS (cuobjdump -sass):
-     a spill or a count of 0 fails;
+     float64 state; before all that, every blk_synthesis_kernel and
+     blk_analysis_kernel instantiation's registers and spills (ptxas -v),
+     the count of tensor-core instructions (HMMA, HGMMA) in its SASS
+     (cuobjdump -sass) and blk_synthesis_kernel's dynamic shared memory: a
+     spill, a count of 0 or fewer than the 16 instantiations fails; and
+     both kernels in every mode at C = 2 and 4 on a small case (lmax 335,
+     16 m rows, 512 rings) against the float64 plain version, by the
+     float32 rule above (blk_every_instantiation);
    - through curvedsky under `with sht.blocked():`, each call beside the
      same call outside it (same bounds; CUDA-event times of both): map2alm
      of full-sky 2160x4320 maps, spin 0, IQU, spin 1 and deriv, with the
@@ -1418,20 +1426,27 @@ def blk_ops(name, mode, tab, lmax, nm, C):
 	return mdeg*JP*(6 + 6*NS*C + C) + mblk*tab.tile_t*rows*(2*JP + 4)
 
 
-def blk_tc_bound(mode, tab, lmax, nm, C):
-	"""(least ms, FP32 operations, TF32 product FLOPs) of blk_analysis with
-	its products on the tensor cores in 3xTF32: the build (the two chain
-	steps, 6 per node and degree) over the FP32 peak, plus three times the
-	products' FLOPs over the dense TF32 peak. The products: per m row and
-	block the ring -> node contraction of the 2 NS C weighted fields and
-	the chain-end product of the four ends, 2 x rows x 128 x tile_t; per m
-	row and degree the node sums of the 2 x 128 chain values against the NS
-	C columns, 2 x 256 x NS C."""
+def blk_tc_bound(name, mode, tab, lmax, nm, C):
+	"""(least ms, FP32 operations, TF32 product FLOPs) of a block kernel
+	with its products on the tensor cores in 3xTF32: the FP32 operations
+	over the FP32 peak, plus three times the products' FLOPs over the dense
+	TF32 peak. blk_synthesis: the build (the two chain steps, 6, and the
+	folds, 4 NS C, per node and degree) in FP32; the node -> ring product
+	of the 2 NS C fold rows and the four chain ends, 2 x rows x 128 x
+	tile_t per m row and block, on the tensor cores. blk_analysis: the two
+	chain steps in FP32; on the tensor cores, per m row and block the ring
+	-> node contraction of the 2 NS C weighted fields and the chain-end
+	product, 2 x rows x 128 x tile_t, and per m row and degree the node sums
+	of the 2 x 128 chain values against the NS C columns, 2 x 256 x NS C."""
 	from pixell_tpu_torch.ops import sht_cuda, sht_core
 	NS, JP = len(sht_core.BLK_FAM[mode]), sht_cuda.BLK_JP
 	mdeg, mblk = blk_counts(tab, lmax, nm)
-	build = mdeg*JP*6
-	prod = mblk*tab.tile_t*JP*2*(2*NS*C + 4) + mdeg*2*2*JP*NS*C
+	prod = mblk*tab.tile_t*JP*2*(2*NS*C + 4)
+	if name == "blk_synthesis":
+		build = mdeg*JP*(6 + 4*NS*C)
+	else:
+		build = mdeg*JP*6
+		prod += mdeg*2*2*JP*NS*C
 	return 1e3*(build/PEAK_FLOPS[torch.float32] + 3*prod/PEAK_TF32), build, prod
 
 
@@ -1468,13 +1483,17 @@ def blk_library_ms(name, mode, x, theta, tab, tab64, state64, lmax, mchunk=64):
 
 
 def blk_build_check():
-	"""Registers and spills (ptxas -v) of every blk_analysis_kernel
-	instantiation, and the count of its tensor-core instructions (HMMA,
-	HGMMA) in cuobjdump -sass of the built objects. Raises on a spill or a
-	count of 0. Returns {mode: (C, registers, spill bytes, count), ...}."""
-	from pixell_tpu_torch.ops import _build
+	"""Registers and spills (ptxas -v) of every blk_synthesis_kernel and
+	blk_analysis_kernel instantiation, the count of its tensor-core
+	instructions (HMMA, HGMMA) in cuobjdump -sass of the built objects, and
+	the synthesis kernel's dynamic shared memory. Raises on a spill, a count
+	of 0 or a missing instantiation. Returns {(kernel, mode): [(C,
+	registers, spill bytes, count), ...]} and {(mode, C): shared memory
+	bytes of blk_synthesis_kernel}."""
+	import ctypes
+	from pixell_tpu_torch.ops import _build, sht_cuda
 	d = _build.build_dir()
-	rows = print_build_summary((d/"build.log").read_text(), only="blk_analysis")
+	rows = print_build_summary((d/"build.log").read_text(), only="blk_")
 	tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
 	counts = {}
 	for k, mode in enumerate(MODES[:4]):
@@ -1484,25 +1503,37 @@ def blk_build_check():
 		for line in r.stdout.splitlines():
 			m = re.search(r"Function : (\S+)", line)
 			if m:
-				c = re.search(r"blk_analysis_kernelILi(\d+)E", m.group(1))
-				fn = (mode, int(c.group(1))) if c else None
+				c = re.search(r"blk_(synthesis|analysis)_kernelILi(\d+)E", m.group(1))
+				fn = ("blk_" + c.group(1), mode, int(c.group(2))) if c else None
 				if fn: counts.setdefault(fn, 0)
 			elif fn and re.search(r"\bHG?MMA\.", line):
 				counts[fn] += 1
-	out = {}
+	out, smem = {}, {}
+	lib = sht_cuda.library()
 	for obj, entry, regs, spill in rows:
 		c = int(re.search(r"C=(\d+)", entry).group(1))
-		mode = obj.split(".")[1]
-		n = counts.get((mode, c), 0)
-		out.setdefault(mode, []).append((c, regs, spill, n))
-		print("blk_analysis_kernel<C=%d> %s: %d registers, %d bytes spilled, %d tensor-core (HMMA/HGMMA) "
-			"instructions in its SASS" % (c, mode, regs, spill, n))
+		kernel, mode = entry.split("<")[0], obj.split(".")[1]
+		n = counts.get((kernel, mode, c), 0)
+		out.setdefault((kernel, mode), []).append((c, regs, spill, n))
+		extra = ""
+		if kernel == "blk_synthesis":
+			fn = getattr(lib, "pt_blk_synthesis_smem_%s" % mode)
+			fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+			smem[(mode, c)] = fn(c)
+			extra = ", %d bytes of dynamic shared memory" % smem[(mode, c)]
+		print("%s_kernel<C=%d> %s: %d registers, %d bytes spilled, %d tensor-core (HMMA/HGMMA) "
+			"instructions in its SASS%s" % (kernel, c, mode, regs, spill, n, extra))
 		if spill or not n:
-			raise RuntimeError("blk_analysis_kernel<C=%d> %s: %d bytes spilled, %d HMMA" % (c, mode, spill, n))
-	if len(rows) != 8 or len(counts) != 8:
-		raise RuntimeError("blk_analysis_kernel: %d ptxas entries and %d SASS functions, not 8"
-			% (len(rows), len(counts)))
-	return out
+			raise RuntimeError("%s_kernel<C=%d> %s: %d bytes spilled, %d HMMA/HGMMA" % (kernel, c, mode,
+				spill, n))
+		if kernel == "blk_synthesis" and regs != 65536//512:
+			# its setmaxnreg split (PREGS, CREGS) assumes the whole register file at launch
+			raise RuntimeError("blk_synthesis_kernel<C=%d> %s: %d registers a thread at launch, not %d" % (
+				c, mode, regs, 65536//512))
+	if len(rows) != 16 or len(counts) != 16:
+		raise RuntimeError("blockleg.cu: %d ptxas entries and %d SASS functions of the block kernels, "
+			"not 16" % (len(rows), len(counts)))
+	return out, smem
 
 
 def blk_bytes(name, mode, tab, lmax, nm, nt, C):
@@ -1543,10 +1574,51 @@ def held(label, err, perr, floor=2e-6):
 	if not ok: raise RuntimeError("blocked %s: kernel disagrees with its plain version" % label)
 
 
-def blocked_kernels(mode, theta, records):
+def blk_every_instantiation():
+	"""blk_synthesis and blk_analysis in every Legendre mode at C = 2 and 4
+	(every instantiation, where the main shapes take one C a mode) on a
+	small case: lmax 335, 16 m rows, two ring tiles of 256 mid-latitude
+	rings starting at blocks 1 and 2, random alm or maps and a random O(1)
+	state at levels 0 and -1; each within twice the float32 plain
+	version's error against the float64 one, plus 2e-6."""
+	from pixell_tpu_torch.ops import sht_cuda, sht_core
+	dev = torch.device("cuda")
+	LB = sht_cuda.BLK_LB
+	lmax, mmax, nt = 3*LB - 1, 15, 2*sht_cuda.BLK_TILE_T
+	theta = np.linspace(0.9, 2.2, nt)
+	ctv, W = sht_cuda.blk_node_tables(theta, sht_cuda.BLK_TILE_T)
+	start = np.array([[1, 2]]*(-(-(mmax + 1)//sht_cuda.BLK_TILE_M)), np.int32)
+	f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+	tab = sht_core.BlkTables(f(start), f(ctv.astype(np.float32)), f(W.astype(np.float32)),
+		sht_cuda.BLK_TILE_M, sht_cuda.BLK_TILE_T, f(sht_cuda.tf32_split(W)), f(sht_cuda.blk_w_fragments(W)))
+	tab64 = sht_core.BlkTables(tab.start, f(ctv), f(W), tab.tile_m, tab.tile_t)
+	g32 = sht_cuda.geom(theta, mmax, torch.float32, dev)
+	g64 = sht_cuda.geom(theta, mmax, torch.float64, dev)
+	for k, mode in enumerate(("scalar", "deriv", "spin1", "spin2")):
+		for C in (2, 4):
+			rng = np.random.default_rng(80 + 2*k + C)
+			state = np.zeros((3, mmax + 1, nt), np.float32)
+			state[:2] = rng.standard_normal((2, mmax + 1, nt))
+			state[2] = -rng.integers(0, 2, (mmax + 1, nt))
+			st = f(state)
+			for name, shape in (("blk_synthesis", (lmax + 1, mmax + 1, C)),
+					("blk_analysis", (sht_core.NFUN[mode], C, mmax + 1, nt))):
+				x = f(rng.standard_normal(shape).astype(np.float32))
+				k1 = getattr(sht_cuda, name)(x, st, tab, g32, lmax, mode)
+				torch.cuda.synchronize()
+				plain = sht_cuda.PLAIN[name]
+				ref = plain(x.double(), st.double(), tab64, g64, lmax, mode)
+				held("%s %s at C = %d, small case" % (name, mode, C), relerr(k1, ref),
+					relerr(plain(x, st, tab, g32, lmax, mode), ref))
+
+
+def blocked_kernels(mode, theta, records, parent=None):
 	"""K3/K4 with the handoff and the block kernels in mode on the rings
 	theta at BLK_LMAX, float32, against their plain versions and against
-	the unsplit kernels; adds the block kernels' records."""
+	the unsplit kernels; adds the block kernels' records. With parent, a
+	parent library with blk_synthesis entries (parent_library), its
+	blk_synthesis_kernel runs on the same inputs: held to the same rule and
+	timed beside this tree's, in turns."""
 	from pixell_tpu_torch.ops import sht_cuda, sht_core
 	dev = torch.device("cuda")
 	lmax, C, nt = BLK_LMAX, ncoef(mode), len(theta)
@@ -1628,13 +1700,14 @@ def blocked_kernels(mode, theta, records):
 			"plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
 			"stepwise_suffix_ms": ms_full - ms_pre, "prefix_ms": ms_pre, "unsplit_ms": ms_full,
 			"shape": "lmax %d, nm %d, nt %d, C %d, float32" % (lmax, nm, nt, C)}
-		tc = ""
-		if not syn:   # the tensor-core bound beside the FP32 one
-			tc_ms, build, prod = blk_tc_bound(mode, tab, lmax, nm, C)
-			rec["bound_tc_ms"] = max(tc_ms, 1e3*nbytes/PEAK_BYTES)
-			tc = "; with the products in 3xTF32 on the tensor cores %.4f ms (%.3g FP32 operations of " \
-				"the build, %.3g TF32 product FLOPs x 3; %.1f %% of it reached)" % (rec["bound_tc_ms"],
-				build, prod, 100*rec["bound_tc_ms"]/ms_blk)
+		# the tensor-core bound beside the FP32 one
+		tc_ms, build, prod = blk_tc_bound(blk.__name__, mode, tab, lmax, nm, C)
+		rec["bound_tc_ms"] = max(tc_ms, 1e3*nbytes/PEAK_BYTES)
+		tc = "; with the products in 3xTF32 on the tensor cores %.4f ms (%.3g FP32 operations of " \
+			"the build, %.3g TF32 product FLOPs x 3; %.1f %% of it reached)" % (rec["bound_tc_ms"],
+			build, prod, 100*rec["bound_tc_ms"]/ms_blk)
+		if syn and parent is not None:
+			rec.update(blk_parent_row(parent, mode, x32, kstate, tab, g32, lmax, k2, r2, p2, ms_blk))
 		print("time   %-14s %-6s %s: kernel %.4f ms (%s), plain %.2f ms, FP32 bound %.4f ms (%s, %.1f %% "
 			"of it reached)%s; torch.bmm of the masked mode table in chunks %.4f ms (rel err %.3e); %s "
 			"with the handoff %.4f ms, to the end %.4f ms: the same suffix stepwise %.4f ms, split %.4f ms "
@@ -1642,6 +1715,38 @@ def blocked_kernels(mode, theta, records):
 			100*b_ms/ms_blk, tc, lib_ms, lib_err, name, ms_pre, ms_full, ms_full - ms_pre, ms_pre + ms_blk,
 			ms_full))
 		records[(blk.__name__, mode)] = rec
+
+
+def blk_parent_row(lib, mode, x, state, tab, g, lmax, k2, r2, p2, ms_new):
+	"""The parent's blk_synthesis_kernel (lib, parent_library) on the
+	inputs this tree's ran on (x, state, tab with W as the parent reads
+	it): held to the float32 rule against the float64 plain version r2 (p2
+	the float32 plain version's result), then timed in turns with this
+	tree's (ms_new its first time). Returns the record's parent keys."""
+	from pixell_tpu_torch.ops import sht_cuda
+	nl, nm, nt, C = lmax + 1, g.nm, g.nt, x.shape[-1]
+	ab = sht_cuda._coef_cached(nl, nm, torch.float32, x.device)
+	cs = sht_cuda._streams_cached(nl, nm, mode, x.device)
+	out = torch.zeros_like(k2)
+	fn = getattr(lib, "pt_blk_synthesis_%s" % mode)
+	def old():
+		err = fn(C, x.data_ptr(), ab.data_ptr(), cs.data_ptr(), state.data_ptr(), tab.start.data_ptr(),
+			tab.ctv.data_ptr(), tab.W.data_ptr(), g.ct.data_ptr(), g.rows.data_ptr(), out.data_ptr(), nl,
+			nm, nt, torch.cuda.current_stream().cuda_stream)
+		if err: raise RuntimeError("the parent's blk_synthesis (%s) launch failed: CUDA error %d" % (mode, err))
+	old()
+	torch.cuda.synchronize()
+	held("parent's blk_synthesis %s" % mode, relerr(out, r2), relerr(p2, r2))
+	name = "blk_synthesis_kernel"
+	new = lambda: sht_cuda.blk_synthesis(x, state, tab, g, lmax, mode)
+	ms_old, how = kernel_ms(old, 5, name)
+	ms_new2, _ = kernel_ms(new, 5, name)
+	ms_old2, _ = kernel_ms(old, 5, name)
+	print("time   blk_synthesis  %-6s this tree %.4f, %.4f ms; the parent's kernel %.4f, %.4f ms (%s; in turns: "
+		"this, parent, this, parent): %.2fx" % (mode, ms_new, ms_new2, ms_old, ms_old2, how,
+		(ms_old + ms_old2)/(ms_new + ms_new2)))
+	return {"parent_ms": [ms_old, ms_old2], "ms_again": ms_new2, "parent_max_abs_err": float(
+		(out.double() - r2).abs().max())}
 
 
 def blk_drive(label, fn, modes, blocked=True):
@@ -1727,21 +1832,26 @@ def blocked_paths():
 	return total
 
 
-def blocked_phase():
+def blocked_phase(parent=None):
+	"""The blocked phase (4. above); parent, a parent library with
+	blk_synthesis entries, or None."""
 	from pixell_tpu_torch import sht, fft
 	from pixell_tpu_torch.ops import sht_cuda
 	th_up = sht.ring_theta("F1", fft.fft_len(2*BLK_LMAX + 3, direction="above"))
 	nn, ns = sht_cuda.polar_counts(th_up, BLK_LMAX)
 	theta = th_up[nn:len(th_up) - ns][:sht_cuda.TCHUNK]
-	build = blk_build_check()
+	build, smem = blk_build_check()
+	blk_every_instantiation()
 	records = {}
 	for mode in ("scalar", "deriv", "spin1", "spin2"):
-		blocked_kernels(mode, theta, records)
+		blocked_kernels(mode, theta, records, parent)
 	launches = blocked_paths()
 	for (name, mode), rec in records.items():
 		rec["launches"] = launches.get((name, mode), 0)
-		if name == "blk_analysis":   # (C, registers, spill bytes, tensor-core instructions)
-			rec["ptxas_sass"] = build[mode]
+		# (C, registers, spill bytes, tensor-core instructions)
+		rec["ptxas_sass"] = build[(name, mode)]
+		if name == "blk_synthesis":
+			rec["smem_bytes"] = {c: smem[(mode, c)] for c in (2, 4)}
 		if rec["launches"] == 0:
 			raise RuntimeError("%s in %s mode was not launched by the blocked paths" % (name, mode))
 	return records
@@ -1899,10 +2009,12 @@ class use_library:
 
 
 def parent_library(csrc):
-	"""The kernel library built from a parent tree's legendre.cu in the
-	directory csrc (--parent), with the entry points that parent_kernels
-	calls declared: the float32 bulk entries and the float64 ones the
-	parent has. lib.f64_entry maps each float64 bulk entry of this tree
+	"""The kernel library built from a parent tree's legendre.cu and / or
+	blockleg.cu in the directory csrc (--parent), with the entry points
+	that parent_kernels and blocked_kernels call declared: the float32 bulk
+	entries and the float64 ones the parent has, and its blk_synthesis
+	entries. lib.has_legendre and lib.has_blk say which sources it held.
+	lib.f64_entry maps each float64 bulk entry of this tree
 	(sym_bulk_synthesis_f64, ...) to the parent's: the same, or in a parent
 	that predates them the entry of synthesis_kernel / analysis_kernel
 	named after the wrapper (sym_synthesis, ...)."""
@@ -1910,9 +2022,16 @@ def parent_library(csrc):
 	from pathlib import Path
 	from pixell_tpu_torch.ops import sht_core, sht_cuda, _build
 	lib = _build.load(Path(csrc).resolve())
+	lib.has_legendre = hasattr(lib, "pt_%s_scalar" % sht_cuda.BULK_KERNELS["sym_synthesis"])
+	lib.has_blk = hasattr(lib, "pt_blk_synthesis_scalar")
+	P, I = ctypes.c_void_p, ctypes.c_int
+	for mode in sht_core.BLK_FAM if lib.has_blk else ():
+		# C, 10 pointers, (nl, nm, nt), the stream
+		fn = getattr(lib, "pt_blk_synthesis_%s" % mode)
+		fn.argtypes, fn.restype = [I] + [P]*10 + [I]*3 + [P], I
+	if not lib.has_legendre: return lib
 	lib.f64_entry = {entry: entry if hasattr(lib, "pt_%s_scalar" % entry) else name
 		for name, entry in sht_cuda.BULK_F64.items()}
-	P, I = ctypes.c_void_p, ctypes.c_int
 	for mode in sht_core.MODES:
 		for name in tuple(sht_cuda.BULK_KERNELS.values()) + tuple(lib.f64_entry.values()):
 			if mode == "wigner" and name.startswith("sym"): continue
@@ -2060,9 +2179,53 @@ BLK_PROBES = (
 	("to plane", "        *o = store ? v : *o + v;\n      }\n", True))
 
 
+# The same for blk_synthesis_kernel's two roles: thread 0 of the producers
+# and thread 0 of the consumers each add the cycles since its point before
+# to the phase of its points below (the first four the producer's, the
+# rest the consumer's), from the role's start, waits included.
+SYN_PROBES = (
+	("producer: build", "    if (z + 1 < nz) put((z + 1) & 1);\n", False),
+	("producer: tables, slab barrier", "    named_sync(BAR_PROD, SP);  // the next slab is in; this one is read\n",
+		True),
+	("producer: waiting for the consumers",
+		"    if (z >= NZ) named_sync(BAR_EMPTY, SNT);  // the consumers have read the round before\n", True),
+	("producer: hand-over", "    named_arrive(BAR_FULL, SNT);\n    reset();\n", True),
+	("consumer: waiting for W", "  mbar_wait(wbar, 0);  // W is in\n", True),
+	("consumer: waiting for the round", "      named_sync(BAR_FULL, SNT);  // the round's folds are in\n", True),
+	("consumer: products", "        syn_product<N>(d, wf + i * KSTEPS * FRAG, fh, fl);\n", True),
+	("consumer: epilogue", "#undef PT_D\n", True))
+
+
+def syn_probed(text):
+	"""blockleg.cu's text with blk_synthesis_kernel probed (SYN_PROBES) and
+	the entry pt_blk_syn_probe_<mode>, which reads and clears the sums."""
+	def put(text, at, new):
+		if text.count(at) != 1: raise RuntimeError("synthesis probe: %r is not one place" % at)
+		return text.replace(at, new)
+	text = put(text, "  const int nz = S::PASSES * (nlb - first) * NZ;  // slabs in all\n",
+		"  const int nz = S::PASSES * (nlb - first) * NZ;  // slabs in all\n  PT_SYN_START\n")
+	text = put(text, "  mbar_wait(wbar, 0);  // W is in\n", "  PT_SYN_START\n  mbar_wait(wbar, 0);  // W is in\n")
+	for i, (_, at, after) in enumerate(SYN_PROBES):
+		probe = "PT_SYN(%d);\n" % (i % 4)
+		text = put(text, at, at + probe if after else probe + at)
+	# each role's sums, once, at its end
+	text = put(text, "PT_SYN(3);\n  }\n}\n", "PT_SYN(3);\n  }\n  PT_SYN_FLUSH(p == 0, 0)\n}\n")
+	text = put(text, "  }\n}\n\ntemplate <int C>\n__global__ void __launch_bounds__(SNT, 1)",
+		"  }\n  PT_SYN_FLUSH(ct == 0, 4)\n}\n\ntemplate <int C>\n__global__ void __launch_bounds__(SNT, 1)")
+	text = text.replace("namespace {\n", "namespace {\n__device__ unsigned long long pt_syn[8];\n"
+		"#define PT_SYN_START unsigned long long pt_t = clock64(), pt_s[4] = {0, 0, 0, 0};\n"
+		"#define PT_SYN(i) { const unsigned long long t = clock64(); pt_s[i] += t - pt_t; pt_t = t; }\n"
+		"#define PT_SYN_FLUSH(lead, base) if (lead) for (int i = 0; i < 4; ++i) atomicAdd(&pt_syn[(base) + i], "
+		"pt_s[i]);\n", 1)
+	return text + '\nextern "C" int PT_ENTRY(pt_blk_syn_probe)(unsigned long long* out) {\n' \
+		"  cudaMemcpyFromSymbol(out, pt_syn, sizeof(pt_syn));\n  unsigned long long zero[8] = {0};\n" \
+		"  cudaMemcpyToSymbol(pt_syn, zero, sizeof(zero));\n  return (int)cudaGetLastError();\n}\n"
+
+
 def blk_probe_sources():
-	"""The kernel sources with blk_analysis_kernel probed (BLK_PROBES), in a
-	directory of their own under build/."""
+	"""The kernel sources with blk_analysis_kernel probed (BLK_PROBES) and
+	blk_synthesis_kernel probed (SYN_PROBES), in a directory of their own
+	under build/."""
 	from pixell_tpu_torch.ops import _build
 	d = _build.BUILD_ROOT.parent/"variants"/"blk_probe"
 	d.mkdir(parents=True, exist_ok=True)
@@ -2086,15 +2249,18 @@ def blk_probe_sources():
 				"  cudaMemcpyFromSymbol(out, pt_probe, sizeof(pt_probe));\n" \
 				"  unsigned long long zero[%d] = {0};\n  cudaMemcpyToSymbol(pt_probe, zero, sizeof(zero));\n" \
 				"  return (int)cudaGetLastError();\n}\n" % n
+			text = syn_probed(text)
 		(d/p.name).write_text(text)
 	return d
 
 
 def blk_probe_phase():
-	"""blk_analysis at the blocked phase's shapes (lmax 2000, the first 2048
-	bulk upsampled rings, from K4's handed-over state) in each mode from the
-	probed build: the share of each phase in thread 0's cycles, and the
-	probed kernel's time (CUDA events; the probes cost a little)."""
+	"""blk_analysis and blk_synthesis at the blocked phase's shapes (lmax
+	2000, the first 2048 bulk upsampled rings, from K4's or K3's handed-over
+	state) in each mode from the probed build: the share of each phase in
+	thread 0's cycles (blk_synthesis: in each role's, and its cycles per
+	round), and the probed kernel's time (CUDA events; the probes cost a
+	little)."""
 	import ctypes
 	from pixell_tpu_torch import sht, fft
 	from pixell_tpu_torch.ops import sht_cuda
@@ -2123,6 +2289,29 @@ def blk_probe_phase():
 		tot = sum(buf)
 		print("blkprobe blk_analysis %s (probed build) %.4f ms per call; thread 0's cycles by phase: %s" % (
 			mode, ms, ", ".join("%s %.1f %%" % (name, 100*c/tot) for (name, _, _), c in zip(BLK_PROBES, buf))))
+	sbuf = (ctypes.c_ulonglong*8)()
+	nlb = -(-(BLK_LMAX + 1)//sht_cuda.BLK_LB)
+	for i, mode in enumerate(("scalar", "deriv", "spin1", "spin2")):
+		read = getattr(lib, "pt_blk_syn_probe_%s" % mode)
+		read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+		x = torch.from_numpy(kernel_input("full_synthesis", mode, BLK_LMAX, BLK_LMAX, len(theta),
+			70 + i)).to(dev, torch.float32)
+		C = x.shape[-1]
+		# rounds of the 4 calls between the reads (cuda_ms warms up once)
+		rounds = 4*int((nlb - tab.start.long()).clamp(min=0).sum())*(C//2)
+		with use_library(d):
+			_, state = sht_cuda.full_synthesis(x, g, BLK_LMAX, mode, lstop, True)
+			fn = lambda: sht_cuda.blk_synthesis(x, state, tab, g, BLK_LMAX, mode)
+			fn()
+			torch.cuda.synchronize()
+			read(sbuf)
+			ms = cuda_ms(fn, 3)
+			read(sbuf)
+		for r, role in ((0, "producer"), (4, "consumer")):
+			tot = sum(sbuf[r:r + 4])
+			print("blkprobe blk_synthesis %s C=%d (probed build) %.4f ms per call; the %s's thread 0: %.0f cycles "
+				"per round, by phase: %s" % (mode, C, ms, role, tot/rounds, ", ".join("%s %.1f %%" % (
+				name.split(": ")[1], 100*c/tot) for (name, _, _), c in zip(SYN_PROBES[r:r + 4], sbuf[r:r + 4]))))
 
 
 # ---------------------------------------------------------------------------
@@ -2348,9 +2537,10 @@ def main():
 	ap.add_argument("--phases", default=",".join(PHASES),
 		help="comma-separated choice of %s (default: all but %s)" % (", ".join(PHASES + EXTRA_PHASES),
 		", ".join(EXTRA_PHASES)))
-	ap.add_argument("--parent", default=None, help="a directory holding a parent tree's legendre.cu: the "
-		"kernels phase times the float64 kernels it launched beside the float64 rows, and the variants "
-		"phase holds its float32 kernels against this tree's")
+	ap.add_argument("--parent", default=None, help="a directory holding a parent tree's legendre.cu and / or "
+		"blockleg.cu: the kernels phase times the float64 kernels it launched beside the float64 rows, the "
+		"variants phase holds its float32 kernels against this tree's, and the blocked phase times its "
+		"blk_synthesis_kernel beside this tree's")
 	args = ap.parse_args()
 	phases = args.phases.split(",")
 	if not set(phases) <= set(PHASES + EXTRA_PHASES): ap.error("unknown phase in %s" % phases)
@@ -2373,7 +2563,12 @@ def main():
 		lib.result()
 		parent = parent and parent.result()
 	print("kernel build + load: %.1f s%s" % (time.perf_counter() - h0, "" if parent is None else
-		" (with the parent's legendre.cu from %s)" % args.parent))
+		" (with the parent's %s from %s)" % (" and ".join(f for f, has in (("legendre.cu",
+		parent.has_legendre), ("blockleg.cu", parent.has_blk)) if has), args.parent)))
+	# the parent's legendre.cu serves the kernels, timing and variants phases, its
+	# blockleg.cu the blocked phase
+	blk_parent = parent if parent is not None and parent.has_blk else None
+	parent = parent if parent is not None and parent.has_legendre else None
 	f64_build_check(print_build_summary((_build.build_dir()/"build.log").read_text()))
 	records, kernel_records, f64_records, launches, launches64 = [], {}, {}, {}, {}
 	blk_records, lstop_records = {}, {}
@@ -2393,7 +2588,7 @@ def main():
 		launches64.update(adjoint_phase()[1])
 		print("phase adjoint done at %.1f s" % (time.perf_counter() - t_start))
 	if "blocked" in phases:
-		blk_records = blocked_phase()
+		blk_records = blocked_phase(blk_parent)
 		print("phase blocked done at %.1f s" % (time.perf_counter() - t_start))
 	if "timing" in phases:
 		w, f64 = (0, WIGNER_SPIN), torch.float64

@@ -37,23 +37,17 @@
 // value. Scalar is one stream with coefficient 1.
 //
 // What bounds these kernels on an H100. Per m row and 112-degree block the
-// build costs 128 x 112 x 6 FP32 operations; the rest is products: the node
+// build costs 128 x 112 x 6 FP32 operations (synthesis adds its folds, 4 NS
+// C per node and degree); the rest is products: the node
 // -> ring product 2 x (2 NS C + 4) x 128 x BT (synthesis), and in analysis
 // the ring -> node contraction 2 x 2 NS C x 128 x BT, the per-degree node
 // sums 2 x 2 x 128 x NS C x 112 and the chain-end product 2 x 4 x 128 x BT.
 // The TPU gave the products to its matrix unit at full float32 precision
 // (Precision.HIGHEST, :970-979). No --use_fast_math.
-// blk_synthesis_kernel: one CUDA block owns one (m tile, ring tile) pair of
-// BM = 4 m rows by BT = 256 rings and loops over its 112-degree blocks from
-// its start block to the last, with the recurrence state of its 1024
-// entries in registers (the TPU's sequential third grid axis and its VMEM
-// scratch). Each of the 512 threads plays two parts: in the build it owns
-// one (m row, node), in the product and the state update two (m row, ring)
-// entries, the same ring in two m rows, so one W value serves both. a, b,
-// the alm times the stream coefficients and the node folds live in dynamic
-// shared memory (up to ~104 KB, spin2 with C = 4); W is read from global
-// memory, where all m tiles of a ring tile share it through L2. The
-// products run on the CUDA cores with FP32 FMAs.
+// blk_synthesis_kernel puts its node -> ring product on the tensor cores in
+// 3xTF32 (wgmma, W resident in shared memory, the folds handed over by
+// producer warpgroups that build the next round meanwhile): see its
+// comment.
 // blk_analysis_kernel puts its three products on the tensor cores in
 // 3xTF32 (mma.sync, float32 accuracy at a third of the TF32 rate) and keeps
 // only the build on the CUDA cores: see its comment. Like K4 it writes
@@ -101,11 +95,7 @@ constexpr int LBK = 112;  // degrees per block
 constexpr int JP = 128;   // Chebyshev nodes per ring tile
 constexpr int BM = 4;     // m rows per tile
 constexpr int BT = 256;   // rings per tile
-constexpr int NTHREADS = BM * JP;            // one thread per (m row, node)
-constexpr int EPT = BM * BT / NTHREADS;      // (m row, ring) entries per thread
-static_assert(NTHREADS % BT == 0 && EPT * (NTHREADS / BT) == BM &&
-                  JP == 128 && BT % 4 == 0,
-              "tile sizes");
+static_assert(JP == 128 && BT % 64 == 0 && BM == 4, "tile sizes");
 
 __device__ __forceinline__ float band() { return 0x1p60f; }
 __device__ __forceinline__ float invband() { return 0x1p-60f; }
@@ -122,19 +112,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One thread's two parts.
-struct Who {
-  int tid, mi, j;  // the node part: m row and node
-  int t;           // the ring part: ring in the tile, in m rows emi(0..EPT-1)
-  __device__ __forceinline__ Who() {
-    tid = threadIdx.x;
-    mi = tid / JP;
-    j = tid % JP;
-    t = tid % BT;
-  }
-  __device__ __forceinline__ int emi(int e) const { return tid / BT + e * (NTHREADS / BT); }
-};
-
 // One step of the two value chains at a node: gX_n = a (ct gX_c - b gX_p).
 __device__ __forceinline__ void chain_step(float& gAc, float& gAp, float& gBc, float& gBp,
                                            float a, float b, float ct) {
@@ -146,32 +123,11 @@ __device__ __forceinline__ void chain_step(float& gAc, float& gAp, float& gBc, f
   gBc = gBn;
 }
 
-// The recurrence state of one thread's ring entries.
-struct Entries {
-  float prev[EPT], curr[EPT];
-  int lev[EPT];
-};
-
-// state [3, nm, nt]: prev, curr, level as a number; zero outside the grid.
-__device__ __forceinline__ void load_entries(Entries& s, const float* __restrict__ state,
-                                             const Who& w, int m0, int t0, int nm, int nt) {
-  const size_t plane = (size_t)nm * nt;
-#pragma unroll
-  for (int e = 0; e < EPT; ++e) {
-    const int m = m0 + w.emi(e), t = t0 + w.t;
-    const bool valid = m < nm && t < nt;
-    const size_t mt = (size_t)m * nt + t;
-    s.prev[e] = valid ? state[mt] : 0.0f;
-    s.curr[e] = valid ? state[plane + mt] : 0.0f;
-    s.lev[e] = valid ? (int)state[2 * plane + mt] : 0;
-  }
-}
-
 // Stage a_lm, b_lm of degrees l0 .. l0+LBK-1 for the tile's m rows into
 // sa, sb [LBK][BM]; zero outside the tables, which ends the chains there.
 __device__ __forceinline__ void stage_ab(float* sa, float* sb, const float* __restrict__ ab,
                                          int l0, int m0, int nl, int nm, int tid,
-                                         int nthreads = NTHREADS) {
+                                         int nthreads) {
   const size_t nlm = (size_t)nl * nm;
   for (int i = tid; i < LBK * BM; i += nthreads) {
     const int l = l0 + i / BM, m = m0 + i % BM;
@@ -179,52 +135,6 @@ __device__ __forceinline__ void stage_ab(float* sa, float* sb, const float* __re
     const size_t lm = (size_t)l * nm + m;
     sa[i] = ok ? ab[lm] : 0.0f;
     sb[i] = ok ? ab[nlm + lm] : 0.0f;
-  }
-}
-
-// acc[e][r] = sum_j L[row0 + r][emi(e)][j] W[j][t] for the thread's ring
-// entries: the node -> ring product, FP32 FMAs. sL [rows][BM][JP] in shared
-// memory, Wt the tile's W [JP][BT] in global memory.
-template <int NR>
-__device__ __forceinline__ void to_rings(float (&acc)[EPT][NR], const float* sL, int row0,
-                                         const float* __restrict__ Wt, const Who& w) {
-#pragma unroll
-  for (int e = 0; e < EPT; ++e)
-#pragma unroll
-    for (int r = 0; r < NR; ++r) acc[e][r] = 0.0f;
-  for (int j = 0; j < JP; j += 4) {
-    float wv[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) wv[q] = Wt[(size_t)(j + q) * BT + w.t];
-#pragma unroll
-    for (int e = 0; e < EPT; ++e)
-#pragma unroll
-      for (int r = 0; r < NR; ++r) {
-        const float4 l = *reinterpret_cast<const float4*>(
-            &sL[((size_t)(row0 + r) * BM + w.emi(e)) * JP + j]);
-        acc[e][r] = fmaf(l.x, wv[0], acc[e][r]);
-        acc[e][r] = fmaf(l.y, wv[1], acc[e][r]);
-        acc[e][r] = fmaf(l.z, wv[2], acc[e][r]);
-        acc[e][r] = fmaf(l.w, wv[3], acc[e][r]);
-      }
-  }
-}
-
-// Carry the state over a block: E holds the chains' end values at the
-// entry's ring, rows (gA_c, gA_p, gB_c, gB_p); then renormalize
-// (sht_pallas.py:990-992).
-__device__ __forceinline__ void step_state(Entries& s, const float (&E)[EPT][4]) {
-#pragma unroll
-  for (int e = 0; e < EPT; ++e) {
-    float nc = E[e][0] * s.curr[e] + E[e][2] * s.prev[e];
-    float np = E[e][1] * s.curr[e] + E[e][3] * s.prev[e];
-    if (fabsf(nc) > band()) {
-      np *= invband();
-      nc *= invband();
-      s.lev[e] += 1;
-    }
-    s.prev[e] = np;
-    s.curr[e] = nc;
   }
 }
 
@@ -288,147 +198,6 @@ __device__ __forceinline__ void fields(float (&g)[NS], float F0, float F1, const
     g[1] = r.ist2 * F0;
     g[2] = r.ist2 * (r.ct * F0 + mf * F1);
     g[NS - 1] = (mf * r.ct) * (r.ist2 * F1);
-  }
-}
-
-// Shared memory of the synthesis kernel, in floats.
-template <int C> struct SynthSmem {
-  static constexpr int NROWS = 2 * NS * C + 4;  // fold rows, then the chains' ends
-  static constexpr int A = 0;                   // a [LBK][BM]
-  static constexpr int B = A + LBK * BM;        // b [LBK][BM]
-  static constexpr int AS = B + LBK * BM;       // alm x stream [LBK][BM][C*NS]
-  static constexpr int L = AS + LBK * BM * C * NS;  // folds [NROWS][BM][JP]
-  static constexpr int SIZE = L + NROWS * BM * JP;
-};
-
-// K8a (scalar) / K8b: out[f, c, m, t] = sum over the degrees l >= LBK
-// start[mb, tb] of u_f(l, m, theta_t) A[l, m, c], resumed from state.
-// A [nl, nm, C]; ab [3, nl, nm] (a, b; the third table is not read);
-// cs [NS, nl, nm]; state [3, nm, nt]; start [gridDim.y, gridDim.x];
-// ctv [gridDim.x, JP]; W [gridDim.x, JP, BT]; cth [nt]; rows [4, nt];
-// out [NFUN, C, nm, nt], written only on tiles with a blocked suffix.
-template <int C>
-__global__ void __launch_bounds__(NTHREADS)
-blk_synthesis_kernel(const float* __restrict__ A, const float* __restrict__ ab,
-                     const float* __restrict__ cs, const float* __restrict__ state,
-                     const int* __restrict__ start, const float* __restrict__ ctv,
-                     const float* __restrict__ W, const float* __restrict__ cth,
-                     const float* __restrict__ rows, float* __restrict__ out, int nl, int nm,
-                     int nt) {
-  using S = SynthSmem<C>;
-  extern __shared__ __align__(16) float smem[];
-  float* sa = smem + S::A;
-  float* sb = smem + S::B;
-  float* sAS = smem + S::AS;
-  float* sL = smem + S::L;
-  const int tb = blockIdx.x, mb = blockIdx.y;
-  const int nlb = (nl + LBK - 1) / LBK;
-  const int first = start[(size_t)mb * gridDim.x + tb];
-  if (first >= nlb) return;  // uniform over the block
-  const Who w;
-  const int m0 = mb * BM, t0 = tb * BT;
-  const float* __restrict__ Wt = W + (size_t)tb * JP * BT;
-  const float ctj = ctv[(size_t)tb * JP + w.j];
-  const RingRow ring = load_row(cth, rows, t0 + w.t, nt);
-  const size_t nlm = (size_t)nl * nm;
-  Entries st;
-  load_entries(st, state, w, m0, t0, nm, nt);
-  float acc[EPT][NFUN][C];
-#pragma unroll
-  for (int e = 0; e < EPT; ++e)
-#pragma unroll
-    for (int f = 0; f < NFUN; ++f)
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[e][f][c] = 0.0f;
-
-  for (int il = first; il < nlb; ++il) {
-    const int l0 = il * LBK;
-    // no barrier needed here: the staged tables were last read in the build
-    // of the block before, which ended at a barrier, and the folds are not
-    // written before the next one
-    stage_ab(sa, sb, ab, l0, m0, nl, nm, w.tid);
-    for (int i = w.tid; i < LBK * BM * C * NS; i += NTHREADS) {
-      const int s = i % NS, c = (i / NS) % C, km = i / (NS * C);
-      const int l = l0 + km / BM, m = m0 + km % BM;
-      const bool ok = l < nl && m < nm;
-      const size_t lm = (size_t)l * nm + m;
-      float v = ok ? A[lm * C + c] : 0.0f;
-      if constexpr (MODE != SCALAR) v *= ok ? cs[s * nlm + lm] : 0.0f;
-      sAS[i] = v;
-    }
-    __syncthreads();
-    {  // build: the two value chains at this thread's node, and their folds
-      float gAc = 1.0f, gAp = 0.0f, gBc = 0.0f, gBp = 1.0f;
-      float fA[C * NS], fB[C * NS];
-#pragma unroll
-      for (int i = 0; i < C * NS; ++i) fA[i] = fB[i] = 0.0f;
-      for (int k = 0; k < LBK; ++k) {
-        const float a = sa[k * BM + w.mi], b = sb[k * BM + w.mi];
-        const float gAn = a * (ctj * gAc - b * gAp);
-        const float gBn = a * (ctj * gBc - b * gBp);
-        gAp = gAc; gAc = gAn;
-        gBp = gBc; gBc = gBn;
-        const float* as = &sAS[(k * BM + w.mi) * C * NS];
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-#pragma unroll
-          for (int s = 0; s < NS; ++s) {
-            const float asn = as[c * NS + s];
-            fA[c * NS + s] = fmaf(asn, fam_prev(s) ? gAp : gAc, fA[c * NS + s]);
-            fB[c * NS + s] = fmaf(asn, fam_prev(s) ? gBp : gBc, fB[c * NS + s]);
-          }
-      }
-      // fold rows of column c: its NS curr-family rows, then its NS prev-family rows
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-#pragma unroll
-        for (int s = 0; s < NS; ++s) {
-          sL[((c * 2 * NS + s) * BM + w.mi) * JP + w.j] = fA[c * NS + s];
-          sL[((c * 2 * NS + NS + s) * BM + w.mi) * JP + w.j] = fB[c * NS + s];
-        }
-      const int r0 = 2 * NS * C;
-      sL[((r0 + 0) * BM + w.mi) * JP + w.j] = gAc;
-      sL[((r0 + 1) * BM + w.mi) * JP + w.j] = gAp;
-      sL[((r0 + 2) * BM + w.mi) * JP + w.j] = gBc;
-      sL[((r0 + 3) * BM + w.mi) * JP + w.j] = gBp;
-    }
-    __syncthreads();
-    // interpolate to the rings, emit from the entry state, then step it
-    float currf[EPT], prevf[EPT];
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) {
-      const float fac = level_factor(st.lev[e]);
-      currf[e] = st.curr[e] * fac;
-      prevf[e] = st.prev[e] * fac;
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      float E[EPT][2 * NS];
-      to_rings<2 * NS>(E, sL, c * 2 * NS, Wt, w);
-#pragma unroll
-      for (int e = 0; e < EPT; ++e) {
-        float ts[NS], u[NFUN];
-#pragma unroll
-        for (int s = 0; s < NS; ++s) ts[s] = E[e][s] * currf[e] + E[e][NS + s] * prevf[e];
-        combine<MODE>(u, ts, ring, float(m0 + w.emi(e)));
-#pragma unroll
-        for (int f = 0; f < NFUN; ++f) acc[e][f][c] += u[f];
-      }
-    }
-    float E2[EPT][4];
-    to_rings<4>(E2, sL, 2 * NS * C, Wt, w);
-    step_state(st, E2);
-  }
-  const size_t plane = (size_t)nm * nt;
-#pragma unroll
-  for (int e = 0; e < EPT; ++e) {
-    const int m = m0 + w.emi(e), t = t0 + w.t;
-    if (m >= nm || t >= nt) continue;
-#pragma unroll
-    for (int f = 0; f < NFUN; ++f)
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        out[((size_t)f * C + c) * plane + (size_t)m * nt + t] = acc[e][f][c];
   }
 }
 
@@ -909,9 +678,564 @@ blk_analysis_kernel(const float* __restrict__ F, const float* __restrict__ ab,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The synthesis kernel: the node -> ring product on the tensor cores (wgmma,
+// 3xTF32), the build in producer warpgroups beside it
+// ---------------------------------------------------------------------------
+// K8a (scalar) / K8b: out[f, c, m, t] = sum over the degrees l >= LBK
+// start[mb, tb] of u_f(l, m, theta_t) A[l, m, c], resumed from state.
+// A [nl, nm, C]; ab [3, nl, nm] (a, b; the third table is not read);
+// cs [NS, nl, nm]; state [3, nm, nt]; start [gridDim.y, gridDim.x];
+// ctv [gridDim.x, JP]; Wf [gridDim.x, BT / 64, JP / 8, 128, 4], W in the
+// order of the wgmma A fragments (ops/sht_cuda.py blk_w_fragments); cth
+// [nt]; rows [4, nt]; out [NFUN, C, nm, nt], written only on tiles with a
+// blocked suffix.
+//
+// One block of 512 threads owns BM = 4 m rows by BT = 256 rings and runs
+// C / 2 passes over their 112-degree blocks, two columns each; a round is
+// one block of one pass. (At C = 4 the second pass steps the chains again,
+// 6 of the 6 + 4 NS C operations per node and degree, and holds two
+// columns' sums in registers where one pass would hold four.)
+// - Warpgroups 0 and 1, the producers: thread p steps the two value chains
+//   at node p % 128 for two m rows and folds them against the round's alm x
+//   stream coefficients (FP32 FMAs), in registers; its tables arrive by
+//   cp.async a slab of degrees ahead. It then waits until the consumers
+//   have read the round before, writes the fold rows and the chains' four
+//   ends into the fold buffer, split into TF32 hi and lo, and goes on with
+//   the next round's build while the consumers work.
+// - Warpgroups 2 and 3, the consumers, own 128 rings each as two 64-ring
+//   tiles. Per tile, D [64 rings x N] = W^T [64 x 128 nodes] B [128 x N]
+//   over the N = BM R columns (m row, row type), R = 2 NS 2 fold rows and
+//   the four ends: 16 k-steps of three wgmma.m64nNk8 (lo hi, hi lo, hi hi),
+//   A = W^T from registers, split there from float32, B = the folds from
+//   shared memory. The epilogue stays in the accumulators: emission from the
+//   state, combine, the state step and its renormalization, in FP32.
+//   Column n = 8 (r / 2) + 2 mi + (r & 1) holds row type r of m row mi, so
+//   lane 4 g + q's accumulators (columns 8 i + 2 q + {0, 1}, rings g and
+//   g + 8 of its warp's 16) hold every row its two (m row q, ring) entries
+//   need.
+// W [256 x 128] float32 stays in shared memory for the block's life (128
+// KB, one bulk TMA copy; in fragment order each thread reads a float4 per
+// k-step, conflict-free). Split W would take 256 KB, and streaming it per
+// degree block would read 256 KB from L2 per block and degree block.
+// What bounds it: the build's FP32 FMAs (the producers) against the
+// products' TF32 issue (the consumers), overlapped; one block per SM. It
+// reaches 43-51 % of that bound on an NVIDIA H100 80GB HBM3 at 700 W, both
+// roles busy through every round (PERF.md section 6, rows K8a/K8b).
+constexpr int SPW = 2;                 // producer warpgroups
+constexpr int SP = SPW * JP;           // producer threads: node j, m rows PM (p / JP) ..
+constexpr int PM = BM / SPW;           // m rows of a producer thread
+constexpr int SCW = 2;                 // consumer warpgroups
+constexpr int SNT = SP + 128 * SCW;    // threads of the synthesis kernel
+constexpr int STILES = BT / 64 / SCW;  // 64-ring tiles of a consumer warpgroup
+constexpr int KSTEPS = JP / 8;         // k-steps of a product (wgmma k = 8 TF32)
+constexpr int FRAG = 128 * 4;          // floats of one k-step's A fragments of a tile
+constexpr int BAR_FULL = 1, BAR_EMPTY = 2, BAR_PROD = 3;  // named barriers
+// Registers of a producer and a consumer thread (setmaxnreg). The launch
+// gives every thread 65536 / SNT (ptxas allocates that much once the kernel
+// holds setmaxnreg; chip_smoke.py checks it), and a consumer's increase
+// waits for registers the producers released in the same block: the two
+// must balance, or the consumers never start.
+constexpr int PREGS = 112, CREGS = 144;
+static_assert(SP * PREGS + (SNT - SP) * CREGS == 65536 && PREGS % 8 == 0 && CREGS % 8 == 0,
+              "register file");
+static_assert(PM * SPW == BM && PM == 2 && STILES * SCW * 64 == BT, "synthesis tiles");
+
+// Shared memory of the synthesis kernel, in floats.
+template <int C> struct SynthSmem {
+  static constexpr int CP = 2;                   // columns per pass
+  static constexpr int PASSES = C / CP;          // passes over the blocks of degrees
+  static constexpr int NSC = NS * CP;            // (column, stream) pairs of a pass
+  static constexpr int R = 2 * NSC + 4;          // row types of an m row: folds, chains' ends
+  static constexpr int N = BM * R;               // columns of the product
+  static constexpr int KSTR = 4 * N + 4;         // floats per quad of nodes of the fold buffer,
+                                                 // padded: the producer's stores hit 32 banks
+  static constexpr int WF = 0;                   // W [BT / 64][KSTEPS][128][4]
+  static constexpr int FH = WF + BT * JP;        // folds hi [JP / 4][KSTR]: per quad of nodes,
+  static constexpr int FL = FH + JP / 4 * KSTR;  //   per column its 4 nodes; folds lo
+  static constexpr int KS = NSC <= 2 ? 28 : 16;  // degrees per slab of the tables (the longer
+                                                 // slab where its registers allow)
+  static constexpr int NZ = LBK / KS;            // slabs per block of degrees
+  static constexpr int SLAB = 2 * KS * BM + KS * BM * NSC;  // a, b [KS][BM]; alm x stream
+                                                            // [KS][BM][NSC]
+  static constexpr int NV = (KS * BM * NSC + SP - 1) / SP;  // alm x stream entries a thread
+                                                            // stages per slab, at most
+  static constexpr int SL = FL + JP / 4 * KSTR;  // two slab buffers
+  static constexpr int RAW = SL + 2 * SLAB;      // alm, stream [2][NV][SP] on their way in
+  static constexpr int BAR = RAW + 2 * NV * SP;  // the mbarrier of W's copy
+  static constexpr int SIZE = BAR + 2;
+  static_assert(C % CP == 0 && N % 8 == 0 && N <= 256, "wgmma n");
+  static_assert(LBK % KS == 0 && 2 * KS * BM <= SP, "slabs");
+  static_assert(SIZE * 4 <= 232448, "shared memory");
+  static_assert(FH % 4 == 0 && FL % 4 == 0 && SL % 4 == 0 && SLAB % 4 == 0 && BAR % 2 == 0,
+                "alignment");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// bytes from global to shared memory by the TMA, completing on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// shared memory written by threads, made visible to the tensor cores' reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// (no memory clobbers: the operands in shared memory are fenced by the
+// barriers around them, and loads of W may move across these)
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N));
+}
+
+// keeps the compiler from moving accesses of x across the asm around it
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+// The descriptor of a K-major operand in shared memory without swizzle:
+// 8 x 16-byte core matrices, kstride bytes apart along K and 128 bytes
+// apart along N.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t kstride) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(kstride >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+// d += a b: wgmma.m64nNk8, TF32 operands, float32 accumulators; a the A
+// fragment in registers (lane 4 g + q of warp w: rows 16 w + g, + 8, of
+// columns q, q + 4), b the descriptor of B [8 x N].
+template <int N> struct Wgmma;
+template <> struct Wgmma<32> {
+  __device__ static __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<64> {
+  __device__ static __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<80> {
+  __device__ static __forceinline__ void mma(float (&d)[40], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// x rounded to TF32 (to nearest, ties away from zero, as cvt.rna) by
+// integer arithmetic, and hi, lo of x: cvt.rna.tf32.f32 spends five
+// instructions on its checks for infinities and NaN, which W and the folds
+// never hold
+__device__ __forceinline__ uint32_t tf32_near(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void split_near(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_near(x);
+  lo = tf32_near(x - __uint_as_float(hi));
+}
+
+// d = W^T B over the JP nodes for one 64-ring tile, in 3xTF32: wf the
+// thread's float4 of k-step 0 in the tile's A fragments (k-step s at wf +
+// s FRAG), fh and fl the fold buffer's hi and lo. A k-step's fragments are
+// split in registers and stay there until its wgmmas are done: two k-steps
+// in flight. (Four took more registers and were no faster on the card.)
+template <int N>
+__device__ __forceinline__ void syn_product(float (&d)[N / 2], const float* wf, uint32_t fh,
+                                            uint32_t fl) {
+  constexpr uint32_t KB = (4 * N + 4) * 4;  // bytes from a quad of nodes to the next
+  constexpr int DEPTH = 2;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.0f;
+  fence_operands(d);
+  uint32_t ah[DEPTH][4], al[DEPTH][4];
+  float4 wn = *reinterpret_cast<const float4*>(wf);
+#pragma unroll 1
+  for (int s0 = 0; s0 < KSTEPS; s0 += DEPTH)
+#pragma unroll
+    for (int b = 0; b < DEPTH; ++b) {
+      const int s = s0 + b;
+      const float4 w = wn;
+      if (s + 1 < KSTEPS) wn = *reinterpret_cast<const float4*>(wf + (s + 1) * FRAG);
+      if (s0 > 0) wgmma_wait<DEPTH - 1>();  // k-step s - DEPTH is done with these registers
+      split_near(w.x, ah[b][0], al[b][0]);
+      split_near(w.y, ah[b][1], al[b][1]);
+      split_near(w.z, ah[b][2], al[b][2]);
+      split_near(w.w, ah[b][3], al[b][3]);
+      const uint64_t dh = smem_desc(fh + 2 * s * KB, KB), dl = smem_desc(fl + 2 * s * KB, KB);
+      wgmma_fence();
+      Wgmma<N>::mma(d, al[b], dh);
+      Wgmma<N>::mma(d, ah[b], dl);
+      Wgmma<N>::mma(d, ah[b], dh);
+      wgmma_commit();
+    }
+  wgmma_wait<0>();
+  fence_operands(d);
+}
+
+// 4 bytes from global to shared memory, not through registers; zeros
+// where ok is false (src is then not read)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// The producer: thread p, node j = p % JP and m rows PM (p / JP) .. + PM -
+// 1, builds every round's folds and hands them over (see
+// blk_synthesis_kernel). Its tables come in slabs of KS degrees,
+// double-buffered: each thread starts the copies of its share of the next
+// slab (cp.async) before it steps through this one, and weighs the alm by
+// the streams after.
+template <int C>
+__device__ __forceinline__ void syn_build(float* smem, const float* __restrict__ A,
+                                          const float* __restrict__ ab,
+                                          const float* __restrict__ cs, float ctj, int p,
+                                          int first, int nlb, int m0, int nl, int nm) {
+  using S = SynthSmem<C>;
+  constexpr int NSC = S::NSC, KS = S::KS, NZ = S::NZ, NV = S::NV;
+  const int j = p % JP, mi0 = PM * (p / JP);
+  const size_t nlm = (size_t)nl * nm;
+  const int nz = S::PASSES * (nlb - first) * NZ;  // slabs in all
+  float* raw = smem + S::RAW + p;  // this thread's alm [NV] and streams [NV], SP apart
+  // The slabs in order: the passes over the columns from c0 = CP pass, each
+  // over the blocks from first, each in NZ slabs of KS degrees from l0.
+  // fetch(z) starts the copies of slab z, the next one in that order: a
+  // and b straight to the slab buffer, the alm and streams to raw.
+  int l0 = first * LBK, c0 = 0;
+  auto fetch = [&](int z) {
+    if (p < 2 * KS * BM) {
+      const int e = p % (KS * BM), l = l0 + e / BM, m = m0 + e % BM;
+      const bool ok = l < nl && m < nm;
+      cp_async4(smem + S::SL + (z & 1) * S::SLAB + p,
+                ok ? ab + (p < KS * BM ? 0 : nlm) + (size_t)l * nm + m : ab, ok);
+    }
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int i = p + SP * v, u = i % NSC, km = i / NSC;
+      if (i >= KS * BM * NSC) break;
+      const int l = l0 + km / BM, m = m0 + km % BM;
+      const bool ok = l < nl && m < nm;
+      const size_t lm = (size_t)l * nm + m;
+      cp_async4(raw + SP * v, ok ? A + lm * C + c0 + u / NS : A, ok);
+      if constexpr (MODE != SCALAR) cp_async4(raw + SP * (NV + v), ok ? cs + (u % NS) * nlm + lm : cs, ok);
+    }
+    l0 += KS;
+    if (l0 >= nlb * LBK) {
+      l0 = first * LBK;
+      c0 += S::CP;
+    }
+  };
+  // the copies are in (this thread's own: no barrier); weigh the alm
+  auto put = [&](int buf) {
+    cp_async_wait_all();
+    float* t = smem + S::SL + buf * S::SLAB + 2 * KS * BM + p;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      if (p + SP * v >= KS * BM * NSC) break;
+      t[SP * v] = MODE == SCALAR ? raw[SP * v] : raw[SP * v] * raw[SP * (NV + v)];
+    }
+  };
+  fetch(0);
+  put(0);
+  named_sync(BAR_PROD, SP);
+  float gAc[PM], gAp[PM], gBc[PM], gBp[PM], fA[PM][NSC], fB[PM][NSC];
+  auto reset = [&]() {
+#pragma unroll
+    for (int i = 0; i < PM; ++i) {
+      gAc[i] = gBp[i] = 1.0f;
+      gAp[i] = gBc[i] = 0.0f;
+#pragma unroll
+      for (int u = 0; u < NSC; ++u) fA[i][u] = fB[i][u] = 0.0f;
+    }
+  };
+  reset();
+  float* fh = smem + S::FH + (j >> 2) * S::KSTR + (j & 3);
+  float* fl = smem + S::FL + (j >> 2) * S::KSTR + (j & 3);
+  for (int z = 0; z < nz; ++z) {
+    if (z + 1 < nz) fetch(z + 1);  // in flight while this slab is stepped
+    const float* t = smem + S::SL + (z & 1) * S::SLAB;
+    const float* tas = t + 2 * KS * BM + mi0 * NSC;
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      const float2 a2 = *reinterpret_cast<const float2*>(t + k * BM + mi0);
+      const float2 b2 = *reinterpret_cast<const float2*>(t + KS * BM + k * BM + mi0);
+      const float av[PM] = {a2.x, a2.y}, bv[PM] = {b2.x, b2.y};
+#pragma unroll
+      for (int i = 0; i < PM; ++i) {
+        chain_step(gAc[i], gAp[i], gBc[i], gBp[i], av[i], bv[i], ctj);
+        const float* as = tas + (k * BM + i) * NSC;
+#pragma unroll
+        for (int u = 0; u < NSC; u += 2) {
+          const float2 v = *reinterpret_cast<const float2*>(as + u);
+          const bool p0 = fam_prev(u % NS), p1 = fam_prev((u + 1) % NS);
+          fA[i][u] = fmaf(v.x, p0 ? gAp[i] : gAc[i], fA[i][u]);
+          fB[i][u] = fmaf(v.x, p0 ? gBp[i] : gBc[i], fB[i][u]);
+          fA[i][u + 1] = fmaf(v.y, p1 ? gAp[i] : gAc[i], fA[i][u + 1]);
+          fB[i][u + 1] = fmaf(v.y, p1 ? gBp[i] : gBc[i], fB[i][u + 1]);
+        }
+      }
+    }
+    if (z + 1 < nz) put((z + 1) & 1);
+    named_sync(BAR_PROD, SP);  // the next slab is in; this one is read
+    if (z % NZ != NZ - 1) continue;
+    // the round is built: hand it over. Row type r of m row mi: column c's
+    // NS curr-family folds (chain A), its NS prev-family folds (chain B),
+    // then the ends gA_c, gA_p, gB_c, gB_p
+    if (z >= NZ) named_sync(BAR_EMPTY, SNT);  // the consumers have read the round before
+#pragma unroll
+    for (int i = 0; i < PM; ++i)
+#pragma unroll
+      for (int r = 0; r < S::R; ++r) {
+        const int c = r / (2 * NS), w = r % (2 * NS), e = r - 2 * NSC;
+        const float v = r < 2 * NSC ? (w < NS ? fA[i][c * NS + w] : fB[i][c * NS + w - NS])
+                                    : (e == 0 ? gAc[i] : e == 1 ? gAp[i] : e == 2 ? gBc[i] : gBp[i]);
+        const int n = 8 * (r >> 1) + 2 * (mi0 + i) + (r & 1);
+        uint32_t vh, vl;
+        split_near(v, vh, vl);
+        fh[4 * n] = __uint_as_float(vh);
+        fl[4 * n] = __uint_as_float(vl);
+      }
+    fence_async_shared();
+    named_arrive(BAR_FULL, SNT);
+    reset();
+  }
+}
+
+// The ring factors combine reads, loaded where they are used: held across
+// the block loop they would take registers the accumulators need.
+__device__ __forceinline__ float ld_now(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ RingRow ring_now(const float* __restrict__ cth,
+                                            const float* __restrict__ rows, int t, int nt) {
+  RingRow r{0.0f, 0.0f, 0.0f, 0.0f};
+  if (t < nt) {
+    if constexpr (MODE == DERIV || MODE == SPIN1) {
+      r.cts = ld_now(rows + t);
+      r.ist = ld_now(rows + nt + t);
+    } else if constexpr (MODE == SPIN2) {
+      r.ct = ld_now(cth + t);
+      r.ist2 = ld_now(rows + 2 * nt + t);
+    }
+  }
+  return r;
+}
+
+// A consumer thread: ct in 0..255 over the two consumer warpgroups (see
+// blk_synthesis_kernel). Its entries (i, e): m row q, ring 64 (STILES cw +
+// i) + 16 wq + g + 8 e of the tile. A pass over the blocks takes CP columns
+// from the state at the first block.
+template <int C>
+__device__ __forceinline__ void syn_consume(float* smem, const float* __restrict__ state,
+                                            const float* __restrict__ cth,
+                                            const float* __restrict__ rows,
+                                            float* __restrict__ out, uint32_t wbar, int ct,
+                                            int first, int nlb, int m0, int t0, int nm, int nt) {
+  using S = SynthSmem<C>;
+  constexpr int N = S::N, NSC = S::NSC, CP = S::CP;
+  const int cw = ct >> 7, wq = (ct >> 5) & 3, lane = ct & 31, g = lane >> 2, q = lane & 3;
+  const int m = m0 + q;
+  const size_t plane = (size_t)nm * nt;
+  const float* wf = smem + S::WF + STILES * cw * KSTEPS * FRAG + (wq * 32 + lane) * 4;
+  const uint32_t fh = smem_u32(smem + S::FH), fl = smem_u32(smem + S::FL);
+  const int rounds = S::PASSES * (nlb - first);
+  mbar_wait(wbar, 0);  // W is in
+  int round = 0;
+  for (int p = 0; p < S::PASSES; ++p) {
+    float prev[STILES][2], curr[STILES][2], acc[STILES][2][NFUN][CP];
+    int lev[STILES][2];
+#pragma unroll
+    for (int i = 0; i < STILES; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int t = t0 + 64 * (STILES * cw + i) + 16 * wq + g + 8 * e;
+        const bool valid = m < nm && t < nt;
+        const size_t mt = (size_t)m * nt + t;
+        prev[i][e] = valid ? state[mt] : 0.0f;
+        curr[i][e] = valid ? state[plane + mt] : 0.0f;
+        lev[i][e] = valid ? (int)state[2 * plane + mt] : 0;
+#pragma unroll
+        for (int f = 0; f < NFUN; ++f)
+#pragma unroll
+          for (int cc = 0; cc < CP; ++cc) acc[i][e][f][cc] = 0.0f;
+      }
+    for (int il = first; il < nlb; ++il, ++round) {
+      named_sync(BAR_FULL, SNT);  // the round's folds are in
+#pragma unroll
+      for (int i = 0; i < STILES; ++i) {
+        float d[N / 2];
+        syn_product<N>(d, wf + i * KSTEPS * FRAG, fh, fl);
+        if (i == STILES - 1 && round + 1 < rounds) named_arrive(BAR_EMPTY, SNT);
+        // row type r of entry e: accumulator 4 (r / 2) + 2 e + (r & 1)
+#define PT_D(r, e) d[4 * ((r) >> 1) + 2 * (e) + ((r)&1)]
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const RingRow ring =
+              ring_now(cth, rows, t0 + 64 * (STILES * cw + i) + 16 * wq + g + 8 * e, nt);
+          const float fac = level_factor(lev[i][e]);
+          const float cf = curr[i][e] * fac, pf = prev[i][e] * fac;
+#pragma unroll
+          for (int cc = 0; cc < CP; ++cc) {
+            float ts[NS], u[NFUN];
+#pragma unroll
+            for (int s = 0; s < NS; ++s)
+              ts[s] = PT_D(cc * 2 * NS + s, e) * cf + PT_D(cc * 2 * NS + NS + s, e) * pf;
+            combine<MODE>(u, ts, ring, float(m));
+#pragma unroll
+            for (int f = 0; f < NFUN; ++f) acc[i][e][f][cc] += u[f];
+          }
+          // the state step over the block, renormalized
+          constexpr int r0 = 2 * NSC;
+          float nc = PT_D(r0, e) * curr[i][e] + PT_D(r0 + 2, e) * prev[i][e];
+          float np = PT_D(r0 + 1, e) * curr[i][e] + PT_D(r0 + 3, e) * prev[i][e];
+          if (fabsf(nc) > band()) {
+            np *= invband();
+            nc *= invband();
+            lev[i][e] += 1;
+          }
+          prev[i][e] = np;
+          curr[i][e] = nc;
+        }
+#undef PT_D
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < STILES; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int t = t0 + 64 * (STILES * cw + i) + 16 * wq + g + 8 * e;
+        if (m >= nm || t >= nt) continue;
+#pragma unroll
+        for (int f = 0; f < NFUN; ++f)
+#pragma unroll
+          for (int cc = 0; cc < CP; ++cc)
+            out[((size_t)f * C + p * CP + cc) * plane + (size_t)m * nt + t] = acc[i][e][f][cc];
+      }
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(SNT, 1)
+blk_synthesis_kernel(const float* __restrict__ A, const float* __restrict__ ab,
+                     const float* __restrict__ cs, const float* __restrict__ state,
+                     const int* __restrict__ start, const float* __restrict__ ctv,
+                     const float* __restrict__ Wf, const float* __restrict__ cth,
+                     const float* __restrict__ rows, float* __restrict__ out, int nl, int nm,
+                     int nt) {
+  using S = SynthSmem<C>;
+  extern __shared__ __align__(16) float syn_smem[];
+  const int tb = blockIdx.x, mb = blockIdx.y;
+  const int nlb = (nl + LBK - 1) / LBK;
+  const int first = start[(size_t)mb * gridDim.x + tb];
+  if (first >= nlb) return;  // uniform over the block
+  const int tid = threadIdx.x;
+  const int m0 = mb * BM, t0 = tb * BT;
+  const uint32_t wbar = smem_u32(syn_smem + S::BAR);
+  if (tid == 0) mbar_init(wbar, 1);
+  __syncthreads();
+  if (tid == 0) {  // W of the ring tile, by the TMA, once
+    constexpr uint32_t BYTES = BT * JP * sizeof(float);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(wbar),
+                 "r"(BYTES)
+                 : "memory");
+    constexpr uint32_t PART = BYTES / 4;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      bulk_load(smem_u32(syn_smem + S::WF) + k * PART,
+                reinterpret_cast<const char*>(Wf + (size_t)tb * BT * JP) + k * PART, PART, wbar);
+  }
+  // registers: the launch gives each thread 128; the producers hand 16 of
+  // theirs to the consumers, whose accumulators, A fragments and entries
+  // would spill at 128 (spin2 at C = 4)
+  if (tid < SP) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PREGS) : "memory");
+    syn_build<C>(syn_smem, A, ab, cs, ctv[(size_t)tb * JP + tid % JP], tid, first, nlb, m0, nl, nm);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CREGS) : "memory");
+    syn_consume<C>(syn_smem, state, cth, rows, out, wbar, tid - SP, first, nlb, m0, t0, nm, nt);
+  }
+}
+
 template <int C>
 int launch_blk_synthesis(const float* A, const float* ab, const float* cs, const float* state,
-                         const int* start, const float* ctv, const float* W, const float* cth,
+                         const int* start, const float* ctv, const float* Wf, const float* cth,
                          const float* rows, float* out, int nl, int nm, int nt,
                          cudaStream_t st) {
   const size_t bytes = SynthSmem<C>::SIZE * sizeof(float);
@@ -919,8 +1243,8 @@ int launch_blk_synthesis(const float* A, const float* ab, const float* cs, const
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((nt + BT - 1) / BT, (nm + BM - 1) / BM);
-  blk_synthesis_kernel<C><<<grid, NTHREADS, bytes, st>>>(A, ab, cs, state, start, ctv, W, cth,
-                                                         rows, out, nl, nm, nt);
+  blk_synthesis_kernel<C><<<grid, SNT, bytes, st>>>(A, ab, cs, state, start, ctv, Wf, cth, rows,
+                                                    out, nl, nm, nt);
   return (int)cudaGetLastError();
 }
 
@@ -949,7 +1273,7 @@ int launch_blk_analysis(const float* F, const float* ab, const float* cs, const 
 // (int32); the shapes are those of the kernels' comments.
 extern "C" int PT_ENTRY(pt_blk_synthesis)(int C, const void* A, const void* ab, const void* cs,
                                           const void* state, const void* start,
-                                          const void* ctv, const void* W, const void* cth,
+                                          const void* ctv, const void* Wf, const void* cth,
                                           const void* rows, void* out, int nl, int nm, int nt,
                                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -958,10 +1282,10 @@ extern "C" int PT_ENTRY(pt_blk_synthesis)(int C, const void* A, const void* ab, 
   float* o = static_cast<float*>(out);
   switch (C) {
     case 2:
-      return launch_blk_synthesis<2>(FP(A), FP(ab), FP(cs), FP(state), s0, FP(ctv), FP(W),
+      return launch_blk_synthesis<2>(FP(A), FP(ab), FP(cs), FP(state), s0, FP(ctv), FP(Wf),
                                      FP(cth), FP(rows), o, nl, nm, nt, st);
     case 4:
-      return launch_blk_synthesis<4>(FP(A), FP(ab), FP(cs), FP(state), s0, FP(ctv), FP(W),
+      return launch_blk_synthesis<4>(FP(A), FP(ab), FP(cs), FP(state), s0, FP(ctv), FP(Wf),
                                      FP(cth), FP(rows), o, nl, nm, nt, st);
     default:
       return (int)cudaErrorInvalidValue;
@@ -987,6 +1311,13 @@ extern "C" int PT_ENTRY(pt_blk_analysis)(int C, const void* F, const void* ab, c
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The synthesis kernel's dynamic shared memory in bytes at C columns (2 or
+// 4), or -1.
+extern "C" int PT_ENTRY(pt_blk_synthesis_smem)(int C) {
+  return C == 2 ? (int)(SynthSmem<2>::SIZE * sizeof(float))
+                : (C == 4 ? (int)(SynthSmem<4>::SIZE * sizeof(float)) : -1);
 }
 
 // Tile sizes, so the host can size the tables and the partial planes.

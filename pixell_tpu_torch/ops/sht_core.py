@@ -512,11 +512,14 @@ class BlkTables:
 	runs blocked (ceil(nl/BLK_LB) or more: none); ctv [ntb, BLK_JP], cos
 	theta at each ring tile's nodes; W [ntb, BLK_JP, tile_t], W[n, j, t] =
 	l_j(x_t), the Lagrange basis through the nodes at the tile's rings (zero
-	on padding rings); and for the analysis kernel Wtf32 [2, ntb, BLK_JP,
+	on padding rings); for the analysis kernel Wtf32 [2, ntb, BLK_JP,
 	tile_t], W in float32 split into TF32 hi and lo (ops/sht_cuda.py
-	tf32_split), or None (the plain versions do not read it)."""
-	def __init__(self, start, ctv, W, tile_m, tile_t, Wtf32=None):
-		self.start, self.ctv, self.W, self.Wtf32 = start, ctv, W, Wtf32
+	tf32_split), and for the synthesis kernel Wfrag [ntb, tile_t//64,
+	BLK_JP//8, 128, 4], W in the order of its wgmma A fragments
+	(ops/sht_cuda.py blk_w_fragments); either may be None (the plain
+	versions read neither)."""
+	def __init__(self, start, ctv, W, tile_m, tile_t, Wtf32=None, Wfrag=None):
+		self.start, self.ctv, self.W, self.Wtf32, self.Wfrag = start, ctv, W, Wtf32, Wfrag
 		self.tile_m, self.tile_t = int(tile_m), int(tile_t)
 
 

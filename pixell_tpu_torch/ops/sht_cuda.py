@@ -41,7 +41,9 @@ The block-Legendre split (K8, sht_pallas.py:556-610) is in csrc/blockleg.cu,
 in the four Legendre modes:
 
   blk_synthesis   K8a/K8b, replaces _synth_blk_call (sht_pallas.py:888) and
-                  _synth_blk_call_streams (:1032)
+                  _synth_blk_call_streams (:1032); redesigned with its
+                  node -> ring product on the tensor cores in 3xTF32
+                  (wgmma; W in fragment order: blk_w_fragments)
   blk_analysis    K8c/K8d, replaces _anal_blk_call (:1220) and
                   _anal_blk_call_streams (:1350); redesigned with its
                   ring -> node, node-sum and chain-end products on the
@@ -390,6 +392,21 @@ def tf32_split(x):
 	return np.stack([hi, tf32(x - hi)])
 
 
+def blk_w_fragments(W):
+	"""[ntb, tile_t//64, BLK_JP//8, 128, 4] float32 numpy: W [ntb, BLK_JP,
+	tile_t] in the order blk_synthesis_kernel reads it as the A operand of
+	its node -> ring product (rings as rows, nodes as the reduced axis), one
+	64-ring tile and k-step of 8 nodes at a time: lane 4 g + q of warp w
+	holds (W[8 s + q, t], W[8 s + q, t + 8], W[8 s + q + 4, t], W[8 s + q +
+	4, t + 8]) at t = 64 T + 16 w + g, the wgmma A fragment of rows t, t + 8
+	and columns q, q + 4. The kernel splits it into TF32 hi and lo itself."""
+	W = np.asarray(W, np.float32)
+	ntb, jp, tt = W.shape
+	# j = 8 s + 4 kh + q, t = 64 T + 16 w + 8 th + g -> [n, T, s, w, g, q, kh, th]
+	Wr = W.reshape(ntb, jp//8, 2, 4, tt//64, 4, 2, 8)
+	return np.ascontiguousarray(Wr.transpose(0, 4, 1, 5, 7, 3, 2, 6)).reshape(ntb, tt//64, jp//8, 128, 4)
+
+
 @functools.lru_cache(maxsize=16)
 def _blk_cached(theta_bytes, lmax, mmax, device):
 	theta = np.frombuffer(theta_bytes, np.float64)
@@ -407,7 +424,7 @@ def _blk_cached(theta_bytes, lmax, mmax, device):
 	ctv, W = blk_node_tables(theta, BLK_TILE_T)
 	f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
 	tab = sht_core.BlkTables(f(start), f(ctv.astype(np.float32)), f(W.astype(np.float32)),
-		BLK_TILE_M, BLK_TILE_T, f(tf32_split(W)))
+		BLK_TILE_M, BLK_TILE_T, f(tf32_split(W)), f(blk_w_fragments(W)))
 	return tab, f(lstop)
 
 
@@ -803,8 +820,9 @@ def polar_synthesis(A, g, lmax, mode="scalar"):
 
 def _blk_args(x, state, tab, g, nl, mode, what):
 	"""The pointers of a block-kernel launch after its checks: the tables
-	a, b and the mode's streams, the state, start table, nodes, W
-	(synthesis) or its TF32 split (analysis), cos theta and the ring rows."""
+	a, b and the mode's streams, the state, start table, nodes, W in
+	fragment order (synthesis, tab.Wfrag) or its TF32 split (analysis,
+	tab.Wtf32), cos theta and the ring rows."""
 	if mode not in sht_core.BLK_FAM:
 		raise ValueError("no block-Legendre kernel in mode '%s'" % mode)
 	if g.dtype != torch.float32 or g.s is not None:
@@ -813,17 +831,20 @@ def _blk_args(x, state, tab, g, nl, mode, what):
 	want = (-(-g.nm//BLK_TILE_M), -(-g.nt//BLK_TILE_T))
 	if (tab.tile_m, tab.tile_t) != (BLK_TILE_M, BLK_TILE_T) or tuple(tab.start.shape) != want:
 		raise ValueError("%s: tables of another tiling or grid" % what)
-	ana = what == "blk_analysis"
-	if ana and tab.Wtf32 is None:
-		raise ValueError("%s: tables without W's TF32 split (Wtf32)" % what)
+	if what == "blk_analysis":
+		W, wname, wshape = tab.Wtf32, "W's TF32 split (Wtf32)", (2, want[1], BLK_JP, BLK_TILE_T)
+	else:
+		W, wname, wshape = tab.Wfrag, "W in fragment order (Wfrag)", \
+			(want[1], BLK_TILE_T//64, BLK_JP//8, 128, 4)
+	if W is None:
+		raise ValueError("%s: tables without %s" % (what, wname))
 	for t, dt in ((tab.start, torch.int32), (tab.ctv, torch.float32), (tab.W, torch.float32),
-			(state, torch.float32)) + (((tab.Wtf32, torch.float32),) if ana else ()):
+			(state, torch.float32), (W, torch.float32)):
 		if t.dtype != dt or t.device != x.device or not t.is_contiguous():
 			raise ValueError("%s: tables must be contiguous %s tensors on %s" % (what, dt, x.device))
 	if tuple(tab.ctv.shape) != (want[1], BLK_JP) or tuple(tab.W.shape) != (want[1], BLK_JP, BLK_TILE_T) \
-			or (ana and tuple(tab.Wtf32.shape) != (2, want[1], BLK_JP, BLK_TILE_T)):
+			or tuple(W.shape) != wshape:
 		raise ValueError("%s: node tables of another shape" % what)
-	W = tab.Wtf32 if ana else tab.W
 	ab = _coef_cached(nl, g.nm, g.dtype, x.device)
 	cs = _streams_cached(nl, g.nm, mode, x.device)
 	return [ab.data_ptr(), cs.data_ptr(), state.data_ptr(), tab.start.data_ptr(),
@@ -835,7 +856,8 @@ def blk_synthesis(A, state, tab, g, lmax, mode="scalar"):
 	blocked suffix of every tile that has one, resumed from the state
 	full_synthesis dumped. A [nl, nm, C], state [3, nm, nt], tab a
 	sht_core.BlkTables -> [nfun, C, nm, nt], zero on tiles without a
-	suffix."""
+	suffix. The kernel's node -> ring product runs in 3xTF32 on the tensor
+	cores from tab.Wfrag."""
 	nl, C = lmax + 1, A.shape[-1]
 	_check(A, g, (nl, g.nm, C), "blk_synthesis")
 	if not _on_card(A): return PLAIN["blk_synthesis"](A, state, tab, g, lmax, mode)
