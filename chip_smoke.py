@@ -5,13 +5,14 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from pixell_tpu_torch/csrc with nvcc
-(legendre.cu once per mode, blockleg.cu once per Legendre mode and
-fma_peak.cu, all compilers started together) and prints each kernel's
-registers and spills (every float64 instantiation of the bulk kernels must
-be built, and none may spill), then runs the phases below (all of them with
-no arguments; --phases with a choice of k9,kernels,lstop,slice,adjoint,
-blocked,timing runs those alone, for work on one phase, and gives no
-verdict; the phase "variants", 6. below, runs only when named). With
+(legendre.cu once per mode, blockleg.cu once per Legendre mode, fma_peak.cu
+and nufft.cu, all compilers started together) and prints each kernel's
+registers and spills (every float64 instantiation of the bulk kernels and
+all eight of K10 / K11 must be built, and none of them may spill), then
+runs the phases below (all of them with no arguments; --phases with a
+choice of k9,kernels,lstop,slice,adjoint,blocked,timing,general runs those
+alone, for work on one phase, and gives no verdict; the phase "variants",
+6. below, runs only when named). With
 --parent DIR, a directory holding a parent tree's legendre.cu and / or
 blockleg.cu (for example unpacked with git archive under build/), those
 files are built beside the package's: the kernels, variants and timing
@@ -200,6 +201,29 @@ blocked phase its blk_synthesis_kernel (below):
    float32 within 1e-6 of the committed build's and float64 within 1e-10.
    Run it alone: late in a long process the profiler drops device events,
    and the times fall back to CUDA events.
+7. general: the general-position method (the torus NUFFT) at lmax 2000,
+   float64 and float32, each path driven with the launch counts at 0 just
+   before and read just after (its Legendre launches those of its dtype,
+   its point-stage kernel launched): K10 (u2nu_points) and K11
+   (nu2u_spread, csrc/nufft.cu) in all eight instantiations on a small
+   case against their twins (1e-12 / 1e-5 of the largest value);
+   synthesis_general of IQU at the 9,331,200 pixel centres of the
+   2160x4320 F1 map displaced by 2.5 arcmin rms (from a seed), against a
+   direct sum at 256 of them (each point the ring of its own theta through
+   sht.synthesis_phase in float64, summed over m at its phi): 1e-9 / 5e-4;
+   alm2map with method="general" on the undisplaced map against the 2d
+   path in float64: the same bounds; adjoint_synthesis_general on the
+   displaced points, <A x, y> = <x, A^T y> in float64 within 1e-10 and
+   float32 against float64 within 5e-4; rotate_alm of spin 0 and IQU by
+   the Galactic -> Equatorial Euler angles and back: float64 within 1e-9;
+   K10 and K11 at the rotation's shape (16,020,006 points, an 8064^2 fine
+   grid, w = 11 in float64, 7 in float32) against their twins (1e-12 /
+   1e-5; K11 in float32 by the float32 rule against the float64 twin, its
+   cells at the pulled-back poles summing ~10^4 contributions in the
+   atomics' changing order), timed beside them with their bounds; then
+   synthesis_general, adjoint_synthesis_general and rotate_alm (IQU and
+   spin 0) timed with CUDA events after warm-up, each with its device
+   busy share, launches by mode and dtype and peak memory.
 
 It prints the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and yardstick, and as the last line
@@ -222,6 +246,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 LEGENDRE_SOURCE = "pixell_tpu_torch/csrc/legendre.cu"
 BLOCKLEG_SOURCE = "pixell_tpu_torch/csrc/blockleg.cu"
 FMA_SOURCE = "pixell_tpu_torch/csrc/fma_peak.cu"
+NUFFT_SOURCE = "pixell_tpu_torch/csrc/nufft.cu"
 # the TPU kernel each CUDA kernel replaces: its pallas_call site
 REPLACES = {
 	"sym_synthesis": "pixell_tpu/ops/sht_pallas.py:1755",
@@ -235,6 +260,9 @@ REPLACES = {
 	# the scalar and the stream kernels of the block-Legendre split
 	"blk_synthesis": ("pixell_tpu/ops/sht_pallas.py:997", "pixell_tpu/ops/sht_pallas.py:1145"),
 	"blk_analysis": ("pixell_tpu/ops/sht_pallas.py:1319", "pixell_tpu/ops/sht_pallas.py:1457"),
+	# new kernels of the port: the reference's point stage runs in XLA, no pallas_call
+	"u2nu_points": "pixell_tpu/fft.py:391",
+	"nu2u_spread": "pixell_tpu/fft.py:610",
 }
 MODES = ("scalar", "deriv", "spin1", "spin2", "wigner")   # in the build's order
 WIGNER_SPIN = 3   # the spin the wigner mode is driven with
@@ -376,7 +404,9 @@ def print_build_summary(log, only=None):
 			p = re.search(r"polar_(analysis|synthesis)_kernelILi(\d+)E", m.group(1))
 			u = re.search(r"bulk_(analysis|synthesis)_kernel(_f64)?ILi(\d+)ELb([01])ELi(\d+)E(Lb([01])ELb"
 				r"([01])E)?", m.group(1))
+			n = re.search(r"(u2nu_points|nu2u_spread)_kernelI([fd])Lb([01])E", m.group(1))
 			entry = ("fma_peak<%s>" % f.group(1) if f else
+				"%s<%s,%s>" % (n.group(1), n.group(2), "complex" if n.group(3) == "1" else "real") if n else
 				("blk_%s<C=%s>" % b.groups() if b else
 				("polar_%s<d,C=%s>" % p.groups() if p else
 				("bulk_%s%s<C=%s,%s,R=%s%s%s>" % (u.group(1), u.group(2) or "", u.group(3), "sym" if
@@ -2528,7 +2558,385 @@ def adjoint_phase():
 	return out, launches64
 
 
-PHASES = ("k9", "kernels", "lstop", "slice", "adjoint", "blocked", "timing")
+# ---------------------------------------------------------------------------
+# 7. general: the torus NUFFT (K10, K11) and what runs on it
+# ---------------------------------------------------------------------------
+GEN_LMAX = 2000
+GEN_SHAPE = (2160, 4320)       # the F1 map whose pixel centres are the points
+GEN_DISP = 2.5/60*np.pi/180    # rms of the points' displacement (2.5 arcmin)
+GEN_TOL = {torch.float64: 1e-9, torch.float32: 5e-4}   # of the largest value
+GEN_ADJ_TOL = 1e-10            # adjointness, relative, f64
+GEN_NREF = 256                 # points held against the direct sum
+NUFFT_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}   # K10 / K11 against the twin
+GEN_LAUNCHES = {}              # NUFFT launches of the general paths, by (name, dtype, kind)
+# zyz Euler angles (psi, theta, phi) of the Galactic -> Equatorial rotation: the
+# galactic north pole goes to (RA 192.85948, dec 27.12825 deg), the celestial
+# pole lies at galactic longitude 122.93192 deg (J2000)
+EULER_GAL2EQU = tuple(np.deg2rad([180 - 122.93192, 90 - 27.12825, 192.85948]))
+ES_OPS = 8                     # operations counted per ES weight (sqrt, exp and six)
+DEV = "cuda"
+
+
+def nufft_build_check(rows):
+	"""K10 and K11 among print_build_summary's rows: u2nu_points and
+	nu2u_spread, each in float and double, real and complex (8), none
+	spilling. Raises otherwise."""
+	got = [r for r in rows if r[1].startswith(("u2nu_points<", "nu2u_spread<"))]
+	print("ptxas: %d NUFFT point-stage instantiations (of 8): %s" % (len(got), ", ".join(
+		"%s %d registers, %d bytes spilled" % (e, n, b) for _, e, n, b in got)))
+	if len(got) != 8 or any(r[3] for r in got):
+		raise RuntimeError("K10 / K11: %d instantiations built, %d spill" % (len(got),
+			sum(bool(r[3]) for r in got)))
+
+
+def nufft_ops(npt, C, w):
+	"""Operations of one K10 or K11 call: per point and real component 2 w^2
+	(a multiply-add per tap, FMA = 2), and 2 w ES weights of ES_OPS each."""
+	return npt*(2*w*w*C + 2*w*ES_OPS)
+
+
+def nufft_cells(coords, nfine, per, w, dtype):
+	"""The fine-grid cells that the points' w x w windows reach, counted
+	from this run's coordinates: each window's first row and column placed
+	as nufft_core.taps places them (the fraction in dtype), then the marks
+	widened by w along each axis with the periodic wrap. Points with
+	colatitude in [0, pi] reach only about half of the torus's rows."""
+	from pixell_tpu_torch.ops import nufft_core
+	mark = torch.zeros(tuple(nfine), dtype=torch.bool, device=coords.device)
+	first = [torch.remainder(b + torch.floor(f.to(dtype) - w/2).long() + 1, n) for (b, f), n in
+		zip(nufft_core.split_positions(coords, nfine, per), nfine)]
+	mark[first[0], first[1]] = True
+	del first
+	for ax in (0, 1):
+		reach = mark.clone()
+		for j in range(1, w): reach |= torch.roll(mark, j, ax)
+		mark = reach
+	return int(mark.sum())
+
+
+def nufft_bytes(npt, C, ncells, esize):
+	"""Bytes of one call: the ncells fine-grid cells the windows reach once
+	(K10 reads them, K11 writes them; the zero fill of K11's grid is a
+	separate memset outside the kernel's time), the float64 coordinates and
+	the values once (C real components)."""
+	return ncells*C*esize + npt*16 + npt*C*esize
+
+
+def nufft_every_instantiation():
+	"""K10 and K11 in every instantiation (float, double; real, complex) on a
+	small ragged case (C = 3, a 90 x 126 fine grid, 3001 points, coordinates
+	outside one period, w = 7 and 16) against their twins on the card, within
+	NUFFT_TOL of the largest value."""
+	from pixell_tpu_torch.ops import nufft_cuda
+	rng = np.random.default_rng(7)
+	co = torch.from_numpy(np.stack([rng.uniform(-7, 13, 3001), rng.uniform(-5, 11, 3001)], -1)).to(DEV)
+	per = (2*np.pi, 5.0)
+	for dt in (torch.float32, torch.float64):
+		for cplx in (False, True):
+			for w in (7, 16):
+				f = torch.from_numpy(rng.standard_normal((3, 90, 126, 2))).to(DEV, dt)
+				f = torch.view_as_complex(f) if cplx else f[..., 0].contiguous()
+				k = nufft_cuda.u2nu_points(f, co, per, w, 2.3*w)
+				p = nufft_cuda.PLAIN["u2nu_points"](f, co, per, w, 2.3*w)
+				ks = nufft_cuda.nu2u_spread(p, co, (90, 126), per, w, 2.3*w)
+				ps = nufft_cuda.PLAIN["nu2u_spread"](p, co, (90, 126), per, w, 2.3*w)
+				e = (relerr(k, p), relerr(ks, ps))
+				print("K10 / K11 %s %s w %d small case against the twins: %.3e / %.3e (bound %.0e)"
+					% (str(dt)[6:], "complex" if cplx else "real", w, e[0], e[1], NUFFT_TOL[dt]))
+				if not max(e) <= NUFFT_TOL[dt]:
+					raise RuntimeError("K10 / K11 disagree with their twins on the small case")
+
+
+def gen_drive(label, fn, kernels):
+	"""Run the path fn with every launch count (sht_cuda's, nufft_cuda's)
+	set to 0 just before and read just after. Its Legendre launches must be
+	those of its dtype (float64: the float64 entries of K1-K4 only; float32:
+	the float32 bulk kernels and the float64 near-pole passes), and each of
+	kernels, (name, dtype, kind) of nufft_cuda, launched. Returns
+	(Legendre launches, NUFFT launches, fn's result, peak device memory in
+	GiB)."""
+	from pixell_tpu_torch.ops import sht_cuda, nufft_cuda
+	sht_cuda.reset_launches()
+	nufft_cuda.reset_launches()
+	torch.cuda.synchronize()
+	torch.cuda.reset_peak_memory_stats()
+	out = fn()
+	torch.cuda.synchronize()
+	peak = torch.cuda.max_memory_allocated()/2**30
+	leg = {k: n for k, n in sht_cuda.LAUNCHES_BY_DTYPE.items() if n}
+	nu = {k: n for k, n in nufft_cuda.LAUNCHES_BY_DTYPE.items() if n}
+	for k, n in nu.items(): GEN_LAUNCHES[k] = GEN_LAUNCHES.get(k, 0) + n
+	print("launches in the %s: Legendre %s, NUFFT %s (peak device memory %.2f GiB)" % (label, leg, nu,
+		peak))
+	f64 = kernels[0][1] == "float64"
+	bulk = set((sht_cuda.BULK_F64 if f64 else sht_cuda.BULK_KERNELS).values())
+	bad = {k: n for k, n in leg.items() if not ((k[0] in bulk and k[2] == kernels[0][1])
+		or (not f64 and k[0] in sht_cuda.POLAR_KERNELS and k[2] == "float64"))}
+	if not leg or bad or any(not nu.get(k) for k in kernels):
+		raise RuntimeError("the %s launched Legendre %s, NUFFT %s: expected its dtype's kernels and %s"
+			% (label, leg, nu, kernels))
+	return leg, nu, out, peak
+
+
+def gen_points(seed, displaced=True):
+	"""(colat, phi) [npix, 2] float64 on the card: the pixel centres of the
+	GEN_SHAPE F1 map, displaced by GEN_DISP rms (a Gaussian step in each of
+	the two directions, the phi step over sin(theta)), folded back into
+	[0, pi] across the poles."""
+	from pixell_tpu_torch import enmap, curvedsky
+	shape, wcs = enmap.fullsky_geometry(shape=GEN_SHAPE, variant="fejer1")
+	loc = torch.from_numpy(curvedsky.calc_locinfo(shape, wcs).loc).to(DEV)
+	if not displaced: return loc
+	g = torch.Generator(device=DEV).manual_seed(seed)
+	d = torch.randn(loc.shape, generator=g, device=DEV, dtype=torch.float64)*(GEN_DISP/np.sqrt(2))
+	th = loc[:, 0] + d[:, 0]
+	ph = loc[:, 1] + d[:, 1]/torch.sin(loc[:, 0])
+	over = (th < 0) | (th > np.pi)
+	th = torch.where(th < 0, -th, torch.where(th > np.pi, 2*np.pi - th, th))
+	ph = torch.remainder(ph + np.pi*over, 2*np.pi)
+	return torch.stack([th, ph], -1).contiguous()
+
+
+def direct_sum(alm, loc, lmax, spin):
+	"""alm [ncomp, nalm] (complex128) at loc [n, 2]: each point the one ring
+	of its own theta through sht.synthesis_phase in float64 on the card,
+	summed over m at its phi (m > 0 twice)."""
+	from pixell_tpu_torch import sht
+	order = torch.argsort(loc[:, 0])
+	th = loc[order, 0].cpu().numpy()
+	G = sht.synthesis_phase(alm, th, lmax, lmax, spin=spin)          # [ncomp, nm, n]
+	m = torch.arange(lmax + 1, device=G.device, dtype=torch.float64)
+	ph = torch.exp(1j*m[:, None]*loc[order, 1][None, :])
+	eps = torch.where(m == 0, 1.0, 2.0)[:, None]
+	vals = ((G*ph).real*eps).sum(-2)
+	out = torch.empty_like(vals)
+	out[..., order] = vals
+	return out
+
+
+def gen_alm(seed, spin, dtype=torch.complex128):
+	from pixell_tpu_torch import curvedsky
+	alm = curvedsky.rand_alm(spectrum(GEN_LMAX, spin), lmax=GEN_LMAX, seed=seed, device=DEV).to(dtype)
+	return alm[0] if list(spin) == [0] else alm
+
+
+def gen_synthesis(alm, loc, spin, label):
+	"""synthesis_general of alm (f64) and of its f32 copy at loc, each path
+	driven alone (gen_drive), held against the direct sum at GEN_NREF of the
+	points. Returns {dtype: values}."""
+	from pixell_tpu_torch import curvedsky
+	rng = np.random.default_rng(11)
+	sub = torch.from_numpy(rng.choice(loc.shape[0], GEN_NREF, replace=False)).to(DEV)
+	ref = direct_sum(alm, loc[sub], GEN_LMAX, spin)
+	out = {}
+	for dt, a in ((torch.float64, alm), (torch.float32, alm.to(torch.complex64))):
+		kind = ("u2nu_points", str(dt)[6:], "real")
+		_, _, v, peak = gen_drive("synthesis_general %s lmax %d %s" % (label, GEN_LMAX, str(dt)[6:]),
+			lambda: curvedsky.synthesis_general(a, loc, lmax=GEN_LMAX, spin=spin), [kind])
+		if tuple(v.shape) != tuple(alm.shape[:-1]) + (loc.shape[0],) or not bool(torch.isfinite(v).all()):
+			raise RuntimeError("synthesis_general %s: bad output %s" % (label, tuple(v.shape)))
+		e = relerr(v[..., sub], ref)
+		print("synthesis_general %s lmax %d %s at %d points (%d displaced by %.1f arcmin rms): against the "
+			"direct sum at %d of them rel err %.3e (bound %.0e)" % (label, GEN_LMAX, str(dt)[6:],
+			loc.shape[0], loc.shape[0], GEN_DISP/np.pi*180*60, GEN_NREF, e, GEN_TOL[dt]))
+		if not e <= GEN_TOL[dt]:
+			raise RuntimeError("synthesis_general %s %s outside its bound" % (label, str(dt)[6:]))
+		out[dt] = v
+	return out
+
+
+def gen_undisplaced(alm, spin, label):
+	"""alm2map with method="general" on the GEN_SHAPE F1 map (the
+	undisplaced pixel centres) in f64 and f32, against alm2map on the 2d
+	path in f64."""
+	from pixell_tpu_torch import enmap, curvedsky
+	shape, wcs = enmap.fullsky_geometry(shape=GEN_SHAPE, variant="fejer1")
+	pre = tuple(alm.shape[:-1])
+	ref = curvedsky.alm2map(alm, enmap.zeros(pre + shape, wcs, torch.float64), spin=spin).data
+	for dt in (torch.float64, torch.float32):
+		a = alm if dt == torch.float64 else alm.to(torch.complex64)
+		kind = ("u2nu_points", str(dt)[6:], "real")
+		_, _, m, _ = gen_drive("alm2map general %s %s" % (label, str(dt)[6:]), lambda: curvedsky.alm2map(
+			a, enmap.zeros(pre + shape, wcs, dt), spin=spin, method="general").data, [kind])
+		e = relerr(m, ref)
+		print("alm2map method general %s lmax %d %s on the %dx%d F1 map against the 2d path in f64: rel err "
+			"%.3e (bound %.0e)" % (label, GEN_LMAX, str(dt)[6:], shape[0], shape[1], e, GEN_TOL[dt]))
+		if not e <= GEN_TOL[dt]:
+			raise RuntimeError("alm2map general %s %s outside its bound" % (label, str(dt)[6:]))
+
+
+def gen_adjoint(alm, loc, vals, spin, label):
+	"""adjoint_synthesis_general at loc: <A x, y> = <x, A^T y> in f64 with x
+	= alm, A x = vals, y a seeded random field, within GEN_ADJ_TOL; the f32
+	adjoint against the f64 one within the f32 guard."""
+	from pixell_tpu_torch import curvedsky
+	g = torch.Generator(device=DEV).manual_seed(5)
+	y = torch.randn(vals.shape, generator=g, device=DEV, dtype=torch.float64)
+	out = {}
+	for dt in (torch.float64, torch.float32):
+		kind = ("nu2u_spread", str(dt)[6:], "real")
+		_, _, out[dt], _ = gen_drive("adjoint_synthesis_general %s %s" % (label, str(dt)[6:]),
+			lambda: curvedsky.adjoint_synthesis_general(y.to(dt), loc, lmax=GEN_LMAX, spin=spin), [kind])
+	lhs, rhs = float((vals*y).sum()), alm_dot(alm, out[torch.float64])
+	e32 = relerr(out[torch.float32], out[torch.float64])
+	print("adjoint_synthesis_general %s lmax %d at %d points: <A x, y> %.15e, <x, A^T y> %.15e, rel diff "
+		"%.3e (bound %.0e); f32 against f64 rel err %.3e (bound %.0e)" % (label, GEN_LMAX, loc.shape[0],
+		lhs, rhs, abs(lhs - rhs)/abs(lhs), GEN_ADJ_TOL, e32, GEN_TOL[torch.float32]))
+	if not (abs(lhs - rhs) <= GEN_ADJ_TOL*abs(lhs) and e32 <= GEN_TOL[torch.float32]):
+		raise RuntimeError("adjoint_synthesis_general %s outside its bounds" % label)
+
+
+def gen_rotate(alm, label):
+	"""rotate_alm by EULER_GAL2EQU and back by the inverse angles: f64
+	within GEN_TOL of the alm's largest value (and f32's error printed)."""
+	from pixell_tpu_torch import curvedsky
+	psi, theta, phi = EULER_GAL2EQU
+	for dt, a in ((torch.float64, alm), (torch.float32, alm.to(torch.complex64))):
+		kind = ("u2nu_points", str(dt)[6:], "real")
+		_, _, r, _ = gen_drive("rotate_alm %s lmax %d %s" % (label, GEN_LMAX, str(dt)[6:]),
+			lambda: curvedsky.rotate_alm(a, psi, theta, phi), [kind])
+		back = curvedsky.rotate_alm(r, -phi, -theta, -psi)
+		e = relerr(back, a)
+		print("rotate_alm %s lmax %d %s: Galactic -> Equatorial and back, rel err %.3e%s" % (label, GEN_LMAX,
+			str(dt)[6:], e, " (bound %.0e)" % GEN_TOL[dt] if dt == torch.float64 else ""))
+		if dt == torch.float64 and not e <= GEN_TOL[dt]:
+			raise RuntimeError("rotate_alm %s outside its bound" % label)
+
+
+def gen_kernels(records, launches):
+	"""K10 and K11 at the shape rotate_alm gives them at lmax 2000: the
+	16,020,006 pulled-back points of the 4003 x 4002 F1 grid on the 8064^2
+	real fine grid of a spin-0 SynthesisPlan (w = 11 in f64, 7 in f32),
+	each against its twin on the card, timed beside it, with its bound
+	(nufft_ops, and nufft_bytes of the cells nufft_cells counts). K11 spreads K10's output. Each within NUFFT_TOL of the twin, but K11 in
+	float32: there the cells at the pulled-back poles (where a ring's 4002
+	points crowd into a few fine pixels) sum ~10^4 contributions, whose
+	float32 sums the atomics take in a changing order, so it is held to the
+	float32 rule of the kernels phase against the float64 twin on the same
+	inputs (twice the float32 twin's own error plus 1e-6). Appends one
+	record per kernel and dtype, with its launches in the general paths
+	(launches, by (name, dtype, kind))."""
+	from pixell_tpu_torch import curvedsky
+	from pixell_tpu_torch.ops import nufft_cuda
+	loc = curvedsky._rotated_grid(GEN_LMAX, EULER_GAL2EQU[1], DEV)[0]
+	npt = loc.shape[0]
+	for dt in (torch.float64, torch.float32):
+		plan = curvedsky.SynthesisPlan(gen_alm(21, (0,), torch.complex128 if dt == torch.float64 else
+			torch.complex64), lmax=GEN_LMAX, spin=(0,))
+		up = plan.uplan
+		fine, nfine, w, beta, per = up.fine, up.nfine, up.w, up.beta, (2*np.pi, 2*np.pi)
+		del plan
+		k = nufft_cuda.u2nu_points(fine, loc, per, w, beta)
+		p, plain_ms = timed_once(lambda: nufft_cuda.PLAIN["u2nu_points"](fine, loc, per, w, beta))
+		ks = nufft_cuda.nu2u_spread(p, loc, nfine, per, w, beta)
+		ps, plain_s_ms = timed_once(lambda: nufft_cuda.PLAIN["nu2u_spread"](p, loc, nfine, per, w, beta))
+		errs = (relerr(k, p), relerr(ks, ps))
+		rule, f32_rule = "", {}
+		if dt == torch.float32:
+			p64 = nufft_cuda.PLAIN["nu2u_spread"](p.double(), loc, nfine, per, w, beta)
+			e_k, e_p = relerr(ks, p64), relerr(ps, p64)
+			f32_rule = {"max_abs_err_vs_f64": e_k, "f32_twin_err_vs_f64": e_p, "err_bound": 2*e_p + 1e-6,
+				"err_rule": "against the float64 twin within twice the float32 twin's own error plus 1e-6; "
+				"max_abs_err (against the float32 twin) is not held to NUFFT_TOL"}
+			rule = "; against the float64 twin %.3e, the float32 twin's own %.3e (bound %.3e)" % (e_k, e_p,
+				2*e_p + 1e-6)
+			if not e_k <= 2*e_p + 1e-6:
+				raise RuntimeError("nu2u_spread float32 outside the float32 rule at the rotation's shape")
+			del p64
+		del ps
+		ms = kernel_ms(lambda: nufft_cuda.u2nu_points(fine, loc, per, w, beta), 5, "u2nu_points_kernel")
+		ms_s = kernel_ms(lambda: nufft_cuda.nu2u_spread(p, loc, nfine, per, w, beta), 5, "nu2u_spread_kernel")
+		ncells = nufft_cells(loc, nfine, per, w, dt)
+		b = bound(nufft_ops(npt, 1, w), nufft_bytes(npt, 1, ncells, fine.element_size()), dt)
+		print("K10 / K11 %s bound: the windows reach %d of the %d fine-grid cells (%.1f %%)" % (
+			str(dt)[6:], ncells, nfine[0]*nfine[1], 100*ncells/(nfine[0]*nfine[1])))
+		tag = str(dt)[6:]
+		for name, err, (kms, how), pms in (("u2nu_points", errs[0], ms, plain_ms),
+				("nu2u_spread", errs[1], ms_s, plain_s_ms)):
+			f32_spread = name == "nu2u_spread" and dt == torch.float32
+			print("%s row %s lmax %d: %d points, fine %dx%d, w %d, C 1 real: kernel %.4f ms (%s), rel err "
+				"against the twin %.3e (%s), plain %.2f ms, bound %.4f ms (%s, %.1f %% of it reached), "
+				"launches in the general paths %d" % (("K10" if name == "u2nu_points" else "K11"), tag,
+				GEN_LMAX, npt, nfine[0], nfine[1], w, kms, how, err, rule[2:] if f32_spread else "bound %.0e"
+				% NUFFT_TOL[dt], pms, b[0], b[1], 100*b[0]/kms, launches.get((name, tag, "real"), 0)))
+			if not (f32_spread or err <= NUFFT_TOL[dt]):
+				raise RuntimeError("%s %s disagrees with its twin at the rotation's shape" % (name, tag))
+			records.append({"name": "%s[%s, rotate_alm lmax %d]" % (name, tag, GEN_LMAX), "route": "cuda",
+				"source": NUFFT_SOURCE, "replaces": REPLACES[name],
+				"launches": launches.get((name, tag, "real"), 0), "max_abs_err": err, "ms": kms,
+				"plain_ms": pms, "bound_ms": b[0], "bound_by": b[1], "library_ms": None, "ms_from": how,
+				"shape": "npt %d, fine %dx%d (%d cells reached), w %d, C 1 real" % (npt, nfine[0], nfine[1],
+				ncells, w), **(f32_rule if f32_spread else {})})
+		del fine, up, k, p, ks
+		torch.cuda.empty_cache()
+
+
+def gen_timing(label, fn, nrep):
+	"""fn timed with CUDA events after warm-up (nrep calls), its device busy
+	share from one profiled call, its launches and peak memory (one driven
+	call)."""
+	from pixell_tpu_torch.ops import sht_cuda, nufft_cuda
+	sht_cuda.reset_launches()
+	nufft_cuda.reset_launches()
+	torch.cuda.reset_peak_memory_stats()
+	fn()
+	torch.cuda.synchronize()
+	peak = torch.cuda.max_memory_allocated()/2**30
+	modes = {k: n for k, n in sht_cuda.LAUNCHES_BY_MODE.items() if n}
+	dts = {k: n for k, n in sht_cuda.LAUNCHES_BY_DTYPE.items() if n}
+	nu = {k: n for k, n in nufft_cuda.LAUNCHES_BY_DTYPE.items() if n}
+	ms = cuda_ms(fn, nrep)
+	wall, busy = profiled(fn, 8)
+	print("general timing: %s: %.4f ms per call (CUDA events, %d calls after warm-up); device busy %.3f "
+		"ms, %.1f %% of one profiled call (%.3f ms); peak device memory %.2f GiB; launches by mode %s, by "
+		"dtype %s, NUFFT %s" % (label, ms, nrep, busy, 100*busy/wall, wall, peak, modes, dts, nu))
+
+
+def general_phase():
+	"""The general method at lmax 2000 (GEN_LMAX), f64 and f32: K10 and K11
+	in every instantiation on a small case; synthesis_general of IQU at the
+	displaced pixel centres of the 2160 x 4320 F1 map (against the direct
+	sum), alm2map with method="general" on the undisplaced map (against the
+	2d path), adjoint_synthesis_general on the displaced points
+	(adjointness, f32 against f64), rotate_alm of spin 0 and IQU (there and
+	back); K10 / K11 at the rotation's shape against their twins, timed,
+	with their bounds; then the end-to-end times. Returns the records of
+	K10 and K11."""
+	from pixell_tpu_torch import curvedsky
+	nufft_every_instantiation()
+	GEN_LAUNCHES.clear()
+	iqu = gen_alm(31, (0, 2))
+	loc = gen_points(3)
+	vals = gen_synthesis(iqu, loc, [0, 2], "IQU")
+	gen_undisplaced(iqu, [0, 2], "IQU")
+	gen_adjoint(iqu, loc, vals[torch.float64], [0, 2], "IQU")
+	del vals
+	gen_rotate(gen_alm(32, (0,)), "spin 0")
+	gen_rotate(iqu, "IQU")
+	torch.cuda.empty_cache()
+	print("NUFFT launches in the general paths (each driven with the counts at 0): %s" % GEN_LAUNCHES)
+	records = []
+	gen_kernels(records, dict(GEN_LAUNCHES))
+	for r in records:
+		if not r["launches"]:
+			raise RuntimeError("%s: not launched by the general paths" % r["name"])
+	psi, theta, phi = EULER_GAL2EQU
+	y = torch.randn(iqu.shape[:-1] + (loc.shape[0],), device=DEV, dtype=torch.float64)
+	for dt in (torch.float64, torch.float32):
+		a, tag = (iqu, "f64") if dt == torch.float64 else (iqu.to(torch.complex64), "f32")
+		yd = y.to(dt)
+		gen_timing("synthesis_general IQU lmax %d %s, %d displaced points" % (GEN_LMAX, tag, loc.shape[0]),
+			lambda: curvedsky.synthesis_general(a, loc, lmax=GEN_LMAX, spin=[0, 2]), 3)
+		gen_timing("adjoint_synthesis_general IQU lmax %d %s, same points" % (GEN_LMAX, tag),
+			lambda: curvedsky.adjoint_synthesis_general(yd, loc, lmax=GEN_LMAX, spin=[0, 2]), 3)
+		gen_timing("rotate_alm IQU lmax %d %s" % (GEN_LMAX, tag),
+			lambda: curvedsky.rotate_alm(a, psi, theta, phi), 3)
+		gen_timing("rotate_alm spin 0 lmax %d %s" % (GEN_LMAX, tag),
+			lambda: curvedsky.rotate_alm(a[0], psi, theta, phi), 3)
+	return records
+
+
+PHASES = ("k9", "kernels", "lstop", "slice", "adjoint", "blocked", "timing", "general")
 EXTRA_PHASES = ("variants", "blkprobe")   # run only when named
 
 
@@ -2569,9 +2977,11 @@ def main():
 	# blockleg.cu the blocked phase
 	blk_parent = parent if parent is not None and parent.has_blk else None
 	parent = parent if parent is not None and parent.has_legendre else None
-	f64_build_check(print_build_summary((_build.build_dir()/"build.log").read_text()))
+	build_rows = print_build_summary((_build.build_dir()/"build.log").read_text())
+	f64_build_check(build_rows)
+	nufft_build_check(build_rows)
 	records, kernel_records, f64_records, launches, launches64 = [], {}, {}, {}, {}
-	blk_records, lstop_records = {}, {}
+	blk_records, lstop_records, gen_records = {}, {}, []
 	if "k9" in phases:
 		records = fma_phase()
 		print("phase K9 done at %.1f s" % (time.perf_counter() - t_start))
@@ -2613,6 +3023,9 @@ def main():
 		profile_roundtrips(750, (900, 1800), 1, spin=w)
 		profile_roundtrips(2000, (2160, 4320), 1, spin=w)
 		print("phase timing done at %.1f s" % (time.perf_counter() - t_start))
+	if "general" in phases:
+		gen_records = general_phase()
+		print("phase general done at %.1f s" % (time.perf_counter() - t_start))
 	if "variants" in phases:
 		variants_phase(parent)
 		print("phase variants done at %.1f s" % (time.perf_counter() - t_start))
@@ -2642,7 +3055,7 @@ def main():
 	for rec in records:   # K9: summed over every driven path
 		rec["launches"] = sum(c["fma_peak"] for c in launches.values())
 	records = list(kernel_records.values()) + list(f64_records.values()) \
-		+ [r[0] for r in lstop_records.values()] + list(blk_records.values()) + records
+		+ [r[0] for r in lstop_records.values()] + list(blk_records.values()) + gen_records + records
 	print(card_line())
 	print(json.dumps({"kernels": records}))
 	print(json.dumps({"ok": True, "device": {"platform": "gpu",

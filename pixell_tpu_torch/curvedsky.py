@@ -7,7 +7,12 @@ map2alm (:614) with deriv=, weights=, the niter Jacobi loop, the exact 2d
 phase path and the ring-edge quadrature of "cyl" geometries
 (_analysis_linear :686-813, non-mesh), their adjoints (adjoint=True,
 alm2map_adjoint :604, map2alm_adjoint :661; the transpose of map2alm is
-written out by hand, where the reference takes jax.vjp), plus rand_alm
+written out by hand, where the reference takes jax.vjp), the general
+method (:848-1002: the torus NUFFT synthesis SynthesisPlan,
+synthesis_general, alm2map_pos and adjoint_synthesis_general, written out
+as the transpose stage by stage, behind the "general" branches of
+alm2map, map2alm and their adjoints), rotate_alm (:1087), prof2alm
+(:1039) and prof2alm_radial (:1070), plus rand_alm
 (:253-302), rand_map (:304), get_lmax_from_map (:317), alm2cl (:132),
 almxfl (:160), filter (:168), transfer_alm (:213), the geometry, layout,
 profile, inverse and buffer helpers (:377-394, :1004-1037, :1152-1359) and
@@ -18,20 +23,24 @@ reference's order; the port's own extras come last and are keyword-only.
 Parameters that mean nothing on the card (verbose, nthread, epsilon,
 locinfo, tweak) are accepted and ignored, as is m_major, which the
 reference ignores too (its alm are m-major either way). The entry points
-that allocate (rand_alm, rand_alm_white, rand_map, prepare_alm) do so on
-device="cuda" unless told otherwise; the transforms follow the map's
-device. accuracy="high" runs the Legendre recurrence in float64 whatever
-the map's dtype (sht.accuracy). Theta banding (SYNTH_BAND_BYTES) is not
-ported: it was sized for a 16 GB chip. Not ported yet, and raising
-NotImplementedError: the "general" geometry method and mesh=
-(multi-device); rotate_alm, prof2alm and the HEALPix helpers are absent.
+that allocate or take numpy inputs (rand_alm, rand_alm_white, rand_map,
+prepare_alm, the general-position functions, rotate_alm, prof2alm,
+prof2alm_radial) put them on device="cuda" unless told otherwise; the
+transforms follow the map's device, or the alm's. accuracy="high" runs the
+Legendre recurrence in float64 whatever the map's dtype (sht.accuracy).
+Theta banding (SYNTH_BAND_BYTES) is not ported: it was sized for a 16 GB
+chip. Not ported yet, and raising NotImplementedError: mesh=
+(multi-device), deriv=True in the general method's analysis (as in the
+reference); the HEALPix helpers are absent.
 """
 from __future__ import annotations
+import functools
 import numpy as np
 import torch
 from . import enmap, wcsutils, utils, sht, powspec
 from . import fft as enfft
 from .bunch import Bunch
+from .ops import nufft_cuda
 
 _NP_CDTYPE = {torch.complex64: np.complex64, torch.complex128: np.complex128}
 
@@ -303,11 +312,11 @@ def _not_ported(mesh=None):
 
 
 def _method(method, minfo):
-	"""The method a transform runs: minfo's case for "auto"; "general"
-	raises."""
+	"""The method a transform runs: minfo's case for "auto", else method
+	("2d", "cyl" or "general")."""
 	if method == "auto": method = get_method(None, None, minfo=minfo)
-	if method not in ["2d", "cyl"]:
-		raise NotImplementedError("the '%s' geometry method is not ported yet" % method)
+	if method not in ["2d", "cyl", "general"]:
+		raise ValueError("unknown geometry method '%s'" % method)
 	return method
 
 
@@ -356,11 +365,15 @@ def alm2map(alm, map, spin=[0, 2], deriv=False, adjoint=False, copy=False,
 	alm = torch.as_tensor(alm, device=map.device)
 	if ainfo is None: ainfo = alm_info(nalm=alm.shape[-1])
 	minfo = analyse_geometry(map.shape, map.wcs, tol=pix_tol)
-	_method(method, minfo)
+	method = _method(method, minfo)
 	with sht.accuracy(accuracy):
 		if adjoint:
-			res = _analysis_linear(map.data, ainfo, minfo, spin, deriv, weighted=False)
+			res = _analysis(map.data, map.wcs, ainfo, minfo, method, spin, deriv, weighted=False,
+				epsilon=epsilon, locinfo=locinfo)
 			return _into_alm(res, alm, copy, map.dtype)
+		if method == "general":
+			return alm2map_pos(alm, loc=_locinfo_loc(map, locinfo), ainfo=ainfo, map=map, spin=spin,
+				deriv=deriv, copy=copy, epsilon=epsilon)
 		alm2 = alm if (deriv or alm.ndim > 1) else alm[None]
 		d = sht.synthesis(alm2, minfo.theta, minfo.nphi, phi0=minfo.phi0,
 			lmax=ainfo.lmax, mmax=ainfo.mmax, spin=spin, deriv=deriv, map_dtype=map.dtype)
@@ -383,9 +396,10 @@ def alm2map_adjoint(map, alm=None, spin=[0, 2], deriv=False, copy=False,
 	otherwise; into alm when given, as alm2map(adjoint=True)."""
 	ainfo = _ainfo_of(alm, ainfo, get_lmax_from_map(map))
 	minfo = analyse_geometry(map.shape, map.wcs, tol=pix_tol)
-	_method(method, minfo)
+	method = _method(method, minfo)
 	with sht.accuracy(accuracy):
-		res = _analysis_linear(map.data, ainfo, minfo, spin, deriv, weighted=False)
+		res = _analysis(map.data, map.wcs, ainfo, minfo, method, spin, deriv, weighted=False,
+			epsilon=epsilon, locinfo=locinfo)
 	if alm is not None: alm = torch.as_tensor(alm, device=map.device)
 	return _into_alm(res, alm, copy, map.dtype)
 
@@ -406,18 +420,19 @@ def map2alm(map, alm=None, lmax=None, spin=[0, 2], deriv=False, adjoint=False,
 	are ignored then, as in the reference)."""
 	_not_ported(mesh)
 	minfo = analyse_geometry(map.shape, map.wcs, tol=pix_tol)
-	_method(method, minfo)
+	method = _method(method, minfo)
 	if adjoint:
 		with sht.accuracy(accuracy):
-			return _adjoint_map2alm(alm, map, ainfo, minfo, spin, deriv)
+			return _adjoint_map2alm(alm, map, ainfo, minfo, spin, deriv, method, locinfo)
 	ainfo = _ainfo_of(alm, ainfo, lmax)
+	run = lambda d: _analysis(d, map.wcs, ainfo, minfo, method, spin, deriv, weights=weights,
+		epsilon=epsilon, locinfo=locinfo)
 	with sht.accuracy(accuracy):
-		res = _analysis_linear(map.data, ainfo, minfo, spin, deriv, weights=weights)
+		res = run(map.data)
 		for it in range(niter):
 			approx = alm2map(res, enmap.zeros(map.shape, map.wcs, map.dtype, map.device),
-				spin=spin, deriv=deriv, ainfo=ainfo)
-			res = res + _analysis_linear(map.data - approx.data, ainfo, minfo, spin, deriv,
-				weights=weights)
+				spin=spin, deriv=deriv, ainfo=ainfo, method=method, epsilon=epsilon, locinfo=locinfo)
+			res = res + run(map.data - approx.data)
 	return _into_alm(res, alm, copy, map.dtype)
 
 
@@ -428,11 +443,12 @@ def map2alm_adjoint(alm, map, lmax=None, spin=[0, 2], deriv=False,
 	(without weights= or niter). Writes into map and returns it. ainfo
 	comes from kw or from alm; with alm None and lmax given, a zero alm."""
 	minfo = analyse_geometry(map.shape, map.wcs, tol=kw.get("pix_tol", 1e-6))
-	_method(kw.get("method", "auto"), minfo)
+	method = _method(kw.get("method", "auto"), minfo)
 	if lmax is not None and alm is None:
 		alm, _ = prepare_alm(None, None, lmax=lmax, dtype=map.dtype, device=map.device)
 	with sht.accuracy(accuracy):
-		return _adjoint_map2alm(alm, map, kw.get("ainfo"), minfo, spin, deriv)
+		return _adjoint_map2alm(alm, map, kw.get("ainfo"), minfo, spin, deriv, method,
+			kw.get("locinfo"))
 
 
 def _edge_weights(theta):
@@ -461,6 +477,16 @@ def _upsampled_rings(minfo, lmax, ntfull):
 	(which keeps the torus FFT off Bluestein)."""
 	need = 2*lmax + 1
 	return enfft.fft_len(need + 2, direction="above") if need > ntfull else ntfull
+
+
+def _analysis(d, wcs, ainfo, minfo, method, spin, deriv, weighted=True, weights=None,
+		epsilon=None, locinfo=None):
+	"""map pixels d -> alm by method (pixell_tpu.curvedsky._map2alm_core
+	:683): the general method's weighted adjoint NUFFT synthesis (weights=
+	is not used there, as in the reference), else _analysis_linear."""
+	if method == "general":
+		return _map2alm_general(enmap.ndmap(d, wcs), ainfo, spin, deriv, weighted, epsilon, locinfo)
+	return _analysis_linear(d, ainfo, minfo, spin, deriv, weighted=weighted, weights=weights)
 
 
 def _analysis_linear(arr, ainfo, minfo, spin, deriv, weighted=True, weights=None):
@@ -499,7 +525,7 @@ def _analysis_linear(arr, ainfo, minfo, spin, deriv, weighted=True, weights=None
 	return a[..., 0, :] if flat2d else a
 
 
-def _adjoint_map2alm(alm, map, ainfo, minfo, spin, deriv):
+def _adjoint_map2alm(alm, map, ainfo, minfo, spin, deriv, method="auto", locinfo=None):
 	"""map2alm with adjoint=True: reads alm, writes map's pixels and returns
 	map. The exact transpose of _analysis_linear(weighted=True) without
 	weights (pixell_tpu.curvedsky._adjoint_map2alm :821, there jax.vjp),
@@ -510,9 +536,12 @@ def _adjoint_map2alm(alm, map, ainfo, minfo, spin, deriv):
 	phases), the Legendre synthesis to per-ring phases on the quadrature
 	rings, their weights, the conjugate transpose of the theta upsample,
 	the y padding cropped, and ring_synthesis. Then alm2_pre and
-	_from_rings, the transposes of alm2_pre and _to_rings."""
+	_from_rings, the transposes of alm2_pre and _to_rings. The general
+	method: _adjoint_map2alm_general."""
 	alm = torch.as_tensor(alm, device=map.device)
 	if ainfo is None: ainfo = alm_info(nalm=alm.shape[-1])
+	if _method(method, minfo) == "general":
+		return _adjoint_map2alm_general(alm, map, ainfo, spin, deriv, locinfo)
 	lmax, mmax = ainfo.lmax, ainfo.mmax
 	a = alm.to(_ctype(map.dtype))
 	flat2d = (not deriv) and map.ndim == 2
@@ -535,6 +564,199 @@ def _adjoint_map2alm(alm, map, ainfo, minfo, spin, deriv):
 	d = alm2_pre(d, deriv)
 	if flat2d: d = d[0]
 	map.data = _from_rings(d, minfo, map.shape[-1])
+	return map
+
+
+# ---------------------------------------------------------------------------
+# General positions: the torus NUFFT (pixell_tpu/curvedsky.py:848-1002)
+# ---------------------------------------------------------------------------
+def _pos2loc(pos):
+	"""[{dec, ra}, ...] -> [npt, {colat, ra mod 2 pi}], numpy or tensor as
+	pos is."""
+	if isinstance(pos, torch.Tensor):
+		return torch.stack([np.pi/2 - pos[0].reshape(-1), torch.remainder(pos[1].reshape(-1),
+			2*np.pi)], -1)
+	pos = np.asarray(pos)
+	return np.stack([np.pi/2 - pos[0].reshape(-1), pos[1].reshape(-1) % (2*np.pi)], -1)
+
+
+def _locinfo_loc(map, locinfo=None):
+	"""(colat, ra) [npix, 2] of map's pixels, float64 on map's device and
+	cached per geometry (_general_tables), or locinfo's."""
+	if locinfo is not None: return locinfo.loc if hasattr(locinfo, "loc") else locinfo
+	return _general_tables(map.shape[-2:], map.wcs, map.device)[0]
+
+
+def calc_locinfo(shape, wcs, bsize=1000):
+	"""Per-pixel (colat, ra) of a geometry for the general method
+	(pixell_tpu.curvedsky.calc_locinfo :854), numpy."""
+	return Bunch(loc=_pos2loc(enmap._posmap_np(shape, wcs, safe=False)),
+		mask=np.ones(shape[-2:], bool).reshape(-1))
+
+
+def _torus_shape(lmax, mmax):
+	"""(Nt, Np) of the general method's torus: the rings k 2 pi/Nt,
+	k = 0 .. Nt/2, cover [0, pi], poles included, with Np (even, so the
+	mirror is an exact shift by pi) samples each."""
+	return 2*enfft.fft_len(lmax + 2, "above"), 2*enfft.fft_len(max(mmax + 1, 2), "above")
+
+
+def _torus_theta(Nt):
+	return np.arange(Nt//2 + 1)*2*np.pi/Nt
+
+
+def _torus_sign(spins, dtype, device):
+	"""(-1)^s per component [ncomp, 1, 1]: the sign of a spin-s field on the
+	torus's mirrored half."""
+	return torch.tensor([(-1.0)**s for s in spins], dtype=dtype, device=device)[:, None, None]
+
+
+class SynthesisPlan:
+	"""General-position synthesis of one alm set at point sets given later
+	(pixell_tpu.curvedsky.SynthesisPlan :860): sht.synthesis onto the
+	torus's Nt/2 + 1 rings over [0, pi], the rings 1 .. Nt/2 - 1 mirrored
+	onto (2 pi - theta, phi + pi) with the sign (-1)^s per component, the
+	torus's 2d FFT and the real-output fine grid of fft.u2nu_plan, built
+	once and kept on the device; eval(loc) runs only the point stage (K10)."""
+	def __init__(self, alm, lmax=None, mmax=None, spin=(0, 2), deriv=False, epsilon=None, *,
+			device="cuda"):
+		alm = enfft._tensor(alm, device)
+		if lmax is None: lmax = nalm2lmax(alm.shape[-1])
+		if mmax is None: mmax = lmax
+		rdt = torch.float32 if alm.dtype == torch.complex64 else torch.float64
+		if epsilon is None: epsilon = 1e-6 if rdt == torch.float32 else 1e-10
+		Nt, Np = _torus_shape(lmax, mmax)
+		alm2 = alm if (deriv or alm.ndim > 1) else alm[None]
+		ncomp = 2 if deriv else alm2.shape[-2]
+		spins = [1, 0] if deriv else _comp_spins(spin, ncomp)
+		grid = sht.synthesis(alm2, _torus_theta(Nt), Np, phi0=0.0, lmax=lmax, mmax=mmax,
+			spin=spin if not deriv else (0,), deriv=deriv, map_dtype=rdt)
+		mirror = grid[..., 1:Nt//2, :].flip(-2).roll(Np//2, -1)*_torus_sign(spins, rdt, grid.device)
+		torus = torch.cat([grid, mirror], -2).reshape(-1, Nt, Np)
+		del grid, mirror
+		fgrid = torch.fft.fftn(torus, dim=(-2, -1))/(Nt*Np)
+		del torus
+		self.uplan = enfft.u2nu_plan(fgrid, axes=(-2, -1), periodicity=2*np.pi, epsilon=epsilon,
+			complex=False)
+		self.pre = (tuple(alm2.shape[:-1]) if deriv else tuple(alm2.shape[:-2])) + (ncomp,)
+		self.rdt = rdt
+		self._flat1d = alm.ndim == 1 and not deriv
+
+	def eval(self, loc):
+		"""loc [npt, 2] = (colat, phi) in radians -> values [..., npt]."""
+		loc = enfft._coords64(loc, self.uplan.fine.device)
+		out = self.uplan._eval_coords(loc).reshape(self.pre + (loc.shape[0],)).to(self.rdt)
+		return out[..., 0, :] if self._flat1d else out
+
+
+def synthesis_general(alm, loc, lmax=None, mmax=None, spin=(0, 2), deriv=False, epsilon=None, *,
+		device="cuda"):
+	"""The spherical harmonic expansion alm [..., ncomp, nalm] at arbitrary
+	positions loc [npt, {colat, phi}] -> [..., ncomp, npt] (deriv: the
+	(d/dtheta, d/dphi) pair [2, npt] of one alm), by the torus NUFFT
+	(pixell_tpu.curvedsky.synthesis_general :915). To evaluate the same alm
+	at several point sets, build a SynthesisPlan."""
+	return SynthesisPlan(alm, lmax=lmax, mmax=mmax, spin=spin, deriv=deriv, epsilon=epsilon,
+		device=device).eval(loc)
+
+
+def alm2map_pos(alm, pos=None, loc=None, ainfo=None, map=None, spin=[0, 2], deriv=False,
+		copy=False, verbose=False, adjoint=False, nthread=None, epsilon=None, map_shape=None,
+		map_wcs=None, *, device="cuda"):
+	"""alm2map at arbitrary positions (pixell_tpu.curvedsky.alm2map_pos
+	:941): pos [{dec, ra}, ...] or loc [..., {colat, ra}] -> values
+	[..., *pos.shape[1:]] (or loc's point shape); deriv gives (d/ddec,
+	d/dra). With map, the values are written into map (into a copy with
+	copy) as its pixels. adjoint=True, which the reference ignores, raises:
+	the transpose is adjoint_synthesis_general."""
+	if adjoint: raise NotImplementedError("alm2map_pos(adjoint=True): use adjoint_synthesis_general")
+	alm = enfft._tensor(alm, map.device if map is not None else device)
+	if ainfo is None: ainfo = alm_info(nalm=alm.shape[-1])
+	if loc is None:
+		oshape = tuple(pos.shape[1:])
+		loc = _pos2loc(pos)
+	else:
+		oshape = tuple(loc.shape[:-1])
+		loc = loc.reshape(-1, 2)
+	vals = synthesis_general(alm, loc, lmax=ainfo.lmax, mmax=ainfo.mmax, spin=spin, deriv=deriv,
+		epsilon=epsilon)
+	if deriv: vals = torch.stack([-vals[..., 0, :], vals[..., 1, :]], -2)
+	if map is None: return vals.reshape(vals.shape[:-1] + oshape)
+	d = vals.reshape(vals.shape[:-1] + tuple(map.shape[-2:])).to(map.dtype)
+	if copy: return enmap.ndmap(d, map.wcs)
+	map.data = d
+	return map
+
+
+def adjoint_synthesis_general(vals, loc, lmax=None, mmax=None, spin=(0, 2), epsilon=None, *,
+		device="cuda"):
+	"""The exact transpose of synthesis_general over the real and imaginary
+	parts of the alm (the reference's jax.vjp convention;
+	pixell_tpu.curvedsky.adjoint_synthesis_general :955): vals [..., npt]
+	real at loc -> alm [..., nalm], with the real-map m > 0 doubling of
+	sht.adjoint_synthesis. Written out stage by stage: K11 spreads the
+	values onto the real fine grid; the fine-grid build's transpose (FFT,
+	correction, the zero-pad's transpose) and the inverse of the torus FFT
+	give the torus; its mirrored rows fold back onto rows 1 .. Nt/2 - 1,
+	un-rolled and signed; then sht.adjoint_synthesis on the Nt/2 + 1 rings."""
+	vals = enfft._tensor(vals, device)
+	if mmax is None: mmax = lmax
+	rdt = vals.dtype
+	if epsilon is None: epsilon = 1e-6 if rdt == torch.float32 else 1e-10
+	w, beta = enfft._es_params(epsilon)
+	Nt, Np = _torus_shape(lmax, mmax)
+	pre = tuple(vals.shape[:-1])
+	flat = vals.reshape(-1, vals.shape[-1]).contiguous()
+	R = nufft_cuda.nu2u_spread(flat, enfft._coords64(loc, vals.device), enfft._fine_shape((Nt, Np)),
+		(2*np.pi, 2*np.pi), w, beta)
+	torus = torch.stack([torch.fft.ifftn(enfft._u2nu_fine_t(R[i], (Nt, Np), w, beta, True, True)).real
+		for i in range(R.shape[0])])
+	del R
+	torus = torus.reshape(pre + (Nt, Np)) if pre else torus
+	ncomp = torus.shape[-3]
+	nh = Nt//2
+	grid = torus[..., :nh+1, :].clone()
+	grid[..., 1:nh, :] += (torus[..., nh+1:, :]*_torus_sign(_comp_spins(spin, ncomp), rdt,
+		torus.device)).flip(-2).roll(Np//2, -1)
+	del torus
+	alm = sht.adjoint_synthesis(grid, _torus_theta(Nt), lmax, mmax=mmax, phi0=0.0, spin=spin)
+	return alm.reshape(pre + (alm.shape[-1],))
+
+
+def _general_tables(shape, wcs, device):
+	"""(loc [npix, 2] float64, pixel areas [npix] float64) of a geometry on
+	device, cached so that the host work and the copies happen once per
+	geometry (callers must not write into them)."""
+	return _general_tables_cached(tuple(shape), wcs.deepcopy(), torch.device(device))
+
+@functools.lru_cache(maxsize=4)
+def _general_tables_cached(shape, wcs, device):
+	return (torch.from_numpy(calc_locinfo(shape, wcs).loc).to(device),
+		torch.from_numpy(enmap._pixsizemap_np(shape, wcs).reshape(-1)).to(device))
+
+
+def _map2alm_general(map, ainfo, spin, deriv, weighted, epsilon, locinfo=None):
+	"""General-geometry analysis (pixell_tpu.curvedsky._map2alm_general
+	:980): adjoint_synthesis_general of the pixels, with weighted, times
+	the pixel areas and the m > 0 alm halved."""
+	if deriv: raise NotImplementedError("deriv=True not supported for the general method analysis")
+	loc, area = _locinfo_loc(map, locinfo), _general_tables(map.shape[-2:], map.wcs, map.device)[1]
+	arr = map.data.reshape(map.shape[:-2] + (-1,))
+	if weighted: arr = arr*area.to(arr.dtype)
+	a = adjoint_synthesis_general(arr, loc, lmax=ainfo.lmax, mmax=ainfo.mmax, spin=spin,
+		epsilon=epsilon)
+	return sht._undo_m_degeneracy(a, ainfo.lmax, ainfo.mmax) if weighted else a
+
+
+def _adjoint_map2alm_general(alm, map, ainfo, spin, deriv, locinfo=None):
+	"""map2alm(adjoint=True) on the general method: the transpose of the
+	weighted _map2alm_general, the m > 0 alm halved, synthesis_general at
+	the pixels, times the pixel areas. Writes map's pixels and returns map."""
+	if deriv: raise NotImplementedError("deriv=True not supported for the general method analysis")
+	loc, area = _locinfo_loc(map, locinfo), _general_tables(map.shape[-2:], map.wcs, map.device)[1]
+	a = sht._undo_m_degeneracy(alm.to(_ctype(map.dtype)), ainfo.lmax, ainfo.mmax)
+	vals = synthesis_general(a, loc, lmax=ainfo.lmax, mmax=ainfo.mmax, spin=spin)
+	map.data = (vals*area.to(vals.dtype)).reshape(vals.shape[:-1] + tuple(map.shape[-2:])).to(map.dtype)
 	return map
 
 
@@ -756,6 +978,110 @@ def harm2profile(bl, r):
 
 
 # ---------------------------------------------------------------------------
+# alm rotation and oriented profiles (pixell_tpu/curvedsky.py:1039-1134)
+# ---------------------------------------------------------------------------
+def _zrot(a, ainfo, ang):
+	"""a_lm e^{-i m ang}: the map rotated by ang about the z axis, the phases
+	in complex128 (pixell_tpu.curvedsky.rotate_alm's zrot)."""
+	if ang == 0: return a
+	phase = torch.from_numpy(np.exp(-1j*np.arange(ainfo.mmax+1)*ang)).to(a.device)
+	return ainfo._unrect(ainfo._rect(a).to(torch.complex128)*phase).to(a.dtype)
+
+
+def _rotated_grid(lmax, theta, device):
+	"""(loc [nt*nphi, 2] float64 on device, F1 colatitudes [nt], weights
+	[nt], nt, nphi): the F1 grid of nt = 2 lmax + 3 rings of nphi =
+	2 (lmax + 1) pixels that analyses band limit lmax exactly, each point
+	pulled back through Ry(theta) (n_old = Ry(-theta) n_new), in float64 on
+	device."""
+	nt, nphi = 2*lmax + 3, 2*(lmax + 1)
+	thq, wq = sht.ring_theta("F1", nt), sht.ring_weights("F1", nt)
+	th = torch.from_numpy(thq).to(device)[:, None]
+	ph = (2*np.pi/nphi)*torch.arange(nphi, dtype=torch.float64, device=device)[None, :]
+	x, y, z = torch.sin(th)*torch.cos(ph), torch.sin(th)*torch.sin(ph), torch.cos(th)
+	cb, sb = np.cos(theta), np.sin(theta)
+	x2, z2 = cb*x - sb*z, sb*x + cb*z
+	th_old = torch.arccos(torch.clamp(z2, -1, 1))
+	ph_old = torch.remainder(torch.atan2(y.expand_as(x2), x2), 2*np.pi)
+	return torch.stack([th_old.reshape(-1), ph_old.reshape(-1)], -1), thq, wq, nt, nphi
+
+
+def rotate_alm(alm, psi, theta, phi, ainfo=None, lmax=None, method="auto", nthread=None,
+		inplace=False, *, device="cuda"):
+	"""Rotate alm [..., nalm] by the zyz Euler angles (psi, theta, phi): the
+	harmonic coefficients of the map rotated by Rz(phi) Ry(theta) Rz(psi)
+	(pixell_tpu.curvedsky.rotate_alm :1087). The z rotations are phases;
+	Ry(theta) evaluates the field at the pulled-back points of the F1 grid
+	that analyses lmax exactly (synthesis_general, each component as a
+	scalar) and analyses that grid. method and inplace are accepted and
+	ignored, as in the reference."""
+	a0 = enfft._tensor(alm, device)
+	if ainfo is None: ainfo = alm_info(nalm=a0.shape[-1], lmax=lmax)
+	lmax = ainfo.lmax
+	a = _zrot(a0, ainfo, psi)
+	if theta != 0:
+		loc, thq, wq, nt, nphi = _rotated_grid(lmax, theta, a.device)
+		vals = synthesis_general(a, loc, lmax=lmax, mmax=ainfo.mmax, spin=(0,))
+		del loc
+		grid = vals.reshape(vals.shape[:-1] + (nt, nphi))
+		if grid.ndim == 2: grid = grid[None]
+		a = sht.analysis(grid, thq, lmax, wq, mmax=ainfo.mmax, phi0=0.0, spin=(0,))
+		if a0.ndim == 1: a = a[0]
+		a = a.to(a0.dtype)
+	return _zrot(a, ainfo, phi)
+
+
+def prof2alm(profile, dir=[0, np.pi/2], spin=0, geometry="CC", nthread=None, norot=False, *,
+		device="cuda"):
+	"""The alm of an azimuthally symmetric field of the given spin whose
+	theta profile [..., n] is sampled on the rings of geometry ("CC", "F1"
+	or "F2"), centred on dir = [ra, dec] (pixell_tpu.curvedsky.prof2alm
+	:1039): an mmax = 0 quadrature analysis on those rings (spin 0: one
+	component; else two, [..., 2, n]), in float64 on device, then
+	rotate_alm to dir unless norot."""
+	profile = np.asarray(profile, np.float64)
+	n = profile.shape[-1]
+	geo = geometry.upper()
+	lmax = get_ducc_maxlmax(geo, n)
+	theta = sht.ring_theta(geo if geo in ["CC", "F1", "F2"] else "CC", n)
+	w = sht.ring_weights(geo, n)
+	ncomp = 1 if spin == 0 else 2
+	prof = profile.reshape((-1, ncomp, n, 1)) if profile.ndim > 1 else profile.reshape((1, 1, n, 1))
+	nalm = sht.nalm(lmax)
+	outs = []
+	for sub in prof:
+		a0 = sht.analysis(torch.from_numpy(np.ascontiguousarray(sub)).to(device), theta, lmax, w,
+			mmax=0, spin=[spin])
+		full = a0.new_zeros(a0.shape[:-1] + (nalm,))
+		full[..., :lmax+1] = a0
+		outs.append(full)
+	alm = torch.cat(outs, 0)
+	alm = alm.reshape(profile.shape[:-1] + (nalm,)) if profile.ndim > 1 else alm.reshape(-1, nalm)[0]
+	if not norot:
+		ra, dec = dir[0], dir[1]
+		if not (np.abs(dec - np.pi/2) < 1e-12 and np.abs(ra) < 1e-12):
+			alm = rotate_alm(alm, 0.0, np.pi/2 - dec, ra)
+	return alm
+
+
+def prof2alm_radial(br, r, lmax=None, pos=None, ainfo=None, *, device="cuda"):
+	"""The alm of the azimuthally symmetric radial profile br(r) (r in
+	radians from the centre) centred on pos = [dec, ra], the north pole by
+	default (pixell_tpu.curvedsky.prof2alm_radial :1070): profile2harm's
+	b_l on the m = 0 entries, then rotate_alm. complex128 on device."""
+	bl = profile2harm(br, r, lmax=lmax)
+	lmax = len(bl)-1
+	if ainfo is None: ainfo = alm_info(lmax=lmax)
+	alm = np.zeros(ainfo.nelem, np.complex128)
+	l = np.arange(lmax+1)
+	alm[ainfo.lm2ind(l, 0*l)] = bl*np.sqrt((2*l+1)/(4*np.pi))
+	alm = torch.from_numpy(alm).to(device)
+	if pos is not None:
+		alm = rotate_alm(alm, 0.0, np.pi/2-pos[0], pos[1], ainfo=ainfo)
+	return alm
+
+
+# ---------------------------------------------------------------------------
 # Inverses of a forward operator (pixell_tpu/curvedsky.py:1332-1359)
 # ---------------------------------------------------------------------------
 def jacobi_inverse(forward, approx_backward, y, niter=0):
@@ -862,8 +1188,8 @@ def buffer2map(map, flip, pad):
 
 # ---------------------------------------------------------------------------
 # Per-method entry points (pixell_tpu/curvedsky.py:1365-1447): routers into
-# alm2map and map2alm with the method fixed. The "general" ones raise until
-# that method is ported.
+# alm2map and map2alm with the method fixed; the raw general ones call
+# synthesis_general and adjoint_synthesis_general directly.
 # ---------------------------------------------------------------------------
 def alm2map_2d(alm, map, ainfo=None, minfo=None, spin=[0, 2], deriv=False,
 		copy=False, verbose=False, adjoint=False, nthread=None, pix_tol=1e-6):
@@ -908,9 +1234,32 @@ def alm2map_raw_cyl(alm, map, ainfo=None, minfo=None, spin=[0, 2], deriv=False,
 		copy=False, verbose=False, adjoint=False, nthread=None):
 	return alm2map_cyl(alm, map, ainfo=ainfo, spin=spin, deriv=deriv, copy=copy, adjoint=adjoint)
 
+def _general_lm(ainfo, alm=None, lmax=None):
+	"""(lmax, mmax) of a raw general call: ainfo's, else alm's layout or lmax."""
+	if ainfo is None: ainfo = alm_info(nalm=alm.shape[-1]) if alm is not None else alm_info(lmax=lmax)
+	return ainfo.lmax, ainfo.mmax
+
+
 def alm2map_raw_general(alm, map, loc, ainfo=None, spin=[0, 2], deriv=False,
 		copy=False, verbose=False, adjoint=False, nthread=None, epsilon=None):
-	raise NotImplementedError("the 'general' geometry method is not ported yet")
+	"""Pointwise synthesis at loc [npix, {colat, phi}] (pixell_tpu.curvedsky.
+	alm2map_raw_general :1414, whose call passes ainfo= to synthesis_general,
+	which takes no such parameter, and raises TypeError): synthesis_general
+	with lmax and mmax from ainfo (or alm), deriv as (d/dtheta, d/dphi).
+	With map, the values become its pixels (in a copy with copy); with
+	adjoint, adjoint_synthesis_general of map's pixels."""
+	if adjoint:
+		return map2alm_raw_general(map, loc, alm=alm, ainfo=ainfo, spin=spin, deriv=deriv, copy=copy,
+			epsilon=epsilon)
+	alm = torch.as_tensor(alm)
+	lmax, mmax = _general_lm(ainfo, alm)
+	res = synthesis_general(alm, loc, lmax=lmax, mmax=mmax, spin=spin, deriv=deriv, epsilon=epsilon)
+	if map is None: return res
+	d = res.reshape(map.shape).to(map.dtype)
+	if not isinstance(map, enmap.ndmap): return d if copy else map.copy_(d)
+	if copy: return enmap.ndmap(d, map.wcs)
+	map.data = d
+	return map
 
 def map2alm_raw_2d(map, alm=None, ainfo=None, lmax=None, spin=[0, 2],
 		deriv=False, copy=False, verbose=False, adjoint=False, nthread=None):
@@ -926,4 +1275,20 @@ def map2alm_raw_cyl(map, alm=None, ainfo=None, lmax=None, spin=[0, 2],
 def map2alm_raw_general(map, loc, alm=None, ainfo=None, lmax=None, spin=[0, 2],
 		weights=None, deriv=False, copy=False, verbose=False, adjoint=False,
 		nthread=None, niter=0, epsilon=None):
-	raise NotImplementedError("the 'general' geometry method is not ported yet")
+	"""adjoint_synthesis_general of the pixels (times weights, per point)
+	at loc (pixell_tpu.curvedsky.map2alm_raw_general :1435, whose call
+	raises TypeError as alm2map_raw_general's does), lmax and mmax from
+	ainfo, alm or lmax; into alm when given (a copy with copy). niter is
+	accepted and ignored, as in the reference; with adjoint,
+	alm2map_raw_general."""
+	if adjoint:
+		return alm2map_raw_general(alm, map, loc, ainfo=ainfo, spin=spin, deriv=deriv, copy=copy,
+			epsilon=epsilon)
+	if deriv: raise NotImplementedError("deriv=True not supported for the general method analysis")
+	data = map.data if isinstance(map, enmap.ndmap) else torch.as_tensor(map)
+	vals = data.reshape(data.shape[:-2] + (-1,)) if data.ndim >= 2 else data
+	if weights is not None: vals = vals*torch.as_tensor(weights, device=vals.device).reshape(-1)
+	lmax, mmax = _general_lm(ainfo, alm, lmax)
+	res = adjoint_synthesis_general(vals, loc, lmax=lmax, mmax=mmax, spin=spin, epsilon=epsilon)
+	if alm is not None: alm = torch.as_tensor(alm, device=res.device)
+	return _into_alm(res, alm, copy, vals.dtype)

@@ -4,8 +4,9 @@ pixell_tpu/enmap.py).
 Ports the core the curved-sky SHT path needs: the ndmap container
 (pixell_tpu/enmap.py:33), zeros/empty (on device="cuda" unless told
 otherwise; with no CUDA device they raise), samewcs
-(:319), pix2sky (:418), posaxes (:452), slice_geometry (:791) and
-fullsky_geometry (:1029).
+(:319), pix2sky (:418), posaxes (:452), posmap (:460), pixsizemap (:641)
+on the geometries the port takes (separable CAR and plain), slice_geometry
+(:791) and fullsky_geometry (:1029).
 Geometry maths is host numpy; only the pixel data lives in a tensor.
 """
 from __future__ import annotations
@@ -135,3 +136,54 @@ def fullsky_geometry(res=None, shape=None, dims=(), proj="car", variant="fejer1"
 	wcs = wcsutils.WCS.from_fields(["RA---CAR", "DEC--CAR"],
 		[res[1]/2/utils.degree, 0], [nx//2+0.5, (ny+1)/2], [-360./nx, 180./(ny-yo)])
 	return tuple(dims) + (int(ny), int(nx)), wcs
+
+
+def _torch_dtype(dtype):
+	if isinstance(dtype, torch.dtype): return dtype
+	return {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}[np.dtype(dtype)]
+
+
+def _posmap_np(shape, wcs, safe=True, corner=False, separable="auto"):
+	"""posmap's [{dec, ra}, ny, nx] as float64 numpy."""
+	if separable == "auto": separable = wcsutils.is_separable(wcs)
+	if separable:
+		dec, ra = posaxes(shape, wcs, safe=safe, corner=corner)
+		res = np.empty((2,) + tuple(shape[-2:]))
+		res[0] = dec[:, None]
+		res[1] = ra[None, :]
+		return res
+	return np.asarray(pix2sky(shape, wcs, np.mgrid[:shape[-2], :shape[-1]], safe, corner), float)
+
+
+def posmap(shape, wcs, safe=True, corner=False, separable="auto", dtype=np.float64, bsize=1e6,
+		bcheck=False, *, device="cuda"):
+	"""The sky coordinates [{dec, ra}, ny, nx] of each pixel, in radians, as
+	an ndmap on device (pixell_tpu.enmap.posmap :460). bsize and bcheck are
+	accepted and ignored."""
+	res = torch.from_numpy(_posmap_np(shape, wcs, safe, corner, separable))
+	return ndmap(res.to(device=device, dtype=_torch_dtype(dtype)), wcs)
+
+
+def _pixsizemap_np(shape, wcs, separable="auto", broadcastable=False):
+	"""pixsizemap's areas as float64 numpy: exact per row on separable
+	cylindrical geometries (the sin(dec) difference of the row's edges times
+	the pixel width), the constant |cdelt_x cdelt_y| on plain ones."""
+	if separable == "auto": separable = wcsutils.is_separable(wcs)
+	if wcsutils.is_plain(wcs):
+		return np.full((1, 1) if broadcastable else tuple(shape[-2:]),
+			np.abs(wcs.wcs.cdelt[0]*wcs.wcs.cdelt[1]))
+	if not separable:
+		raise NotImplementedError("pixsizemap of a non-separable geometry is not ported")
+	y = np.arange(shape[-2], dtype=float)
+	edge = lambda dy: np.clip(pix2sky(shape, wcs, np.array([y + dy, y*0]), safe=False)[0],
+		-np.pi/2, np.pi/2)
+	col = np.abs(np.sin(edge(0.5)) - np.sin(edge(-0.5)))[:, None]*abs(wcs.wcs.cdelt[0])*utils.degree
+	return col if broadcastable else np.broadcast_to(col, tuple(shape[-2:])).copy()
+
+
+def pixsizemap(shape, wcs, separable="auto", broadcastable=False, *, device="cuda"):
+	"""The area of each pixel in steradians, as a float64 ndmap on device
+	(pixell_tpu.enmap.pixsizemap :641); with broadcastable, [ny, 1] (plain:
+	[1, 1])."""
+	return ndmap(torch.from_numpy(_pixsizemap_np(shape, wcs, separable, broadcastable)).to(device),
+		wcs)

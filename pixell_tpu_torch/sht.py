@@ -479,26 +479,6 @@ def resample_theta_phase_adjoint(G, variant, nt_in, spins):
 	return parts[0] if len(parts) == 1 else torch.cat(parts, -2)
 
 
-def _resample_t(ft, n_old):
-	"""The transpose of fft.resample(fa, ft.shape[-1]) along the last axis
-	for fa of n_old samples: ft[..., n_new] -> [..., n_old]. A padded
-	even-length Nyquist bin, split in two halves, takes back their mean; a
-	truncated one gives its sum to both bins it came from."""
-	n_new = ft.shape[-1]
-	if n_new == n_old: return ft
-	if n_new > n_old:
-		nh, keep_lo = n_old//2, (n_old + 1)//2
-		if n_old % 2: return torch.cat([ft[..., :keep_lo], ft[..., n_new-(n_old-keep_lo):]], -1)
-		nyq = (ft[..., nh:nh+1] + ft[..., n_new-nh:n_new-nh+1])/2
-		return torch.cat([ft[..., :nh], nyq, ft[..., n_new-nh+1:]], -1)
-	nh_new, keep_lo = n_new//2, (n_new + 1)//2
-	out = ft.new_zeros(ft.shape[:-1] + (n_old,))
-	out[..., :keep_lo] = ft[..., :keep_lo]
-	out[..., n_old-nh_new:] = ft[..., keep_lo:]
-	if n_new % 2 == 0: out[..., nh_new] += ft[..., keep_lo]
-	return out
-
-
 def _resample_theta_phase_adjoint(G, variant, nt, spins, m0):
 	nm, nt_out = G.shape[-2:]
 	f1 = variant in ["F1", "FEJER1"]
@@ -508,7 +488,7 @@ def _resample_theta_phase_adjoint(G, variant, nt, spins, m0):
 	# [..., :nt_out] of an ifft, back: zero padding, then fft/NT_out
 	ft = torch.fft.fft(torch.nn.functional.pad(G, (0, NT_out - nt_out)), dim=-1)/NT_out
 	if f1: ft = ft*ramp_out.conj()
-	ft = _resample_t(ft, NT_in)/NT_in*NT_out
+	ft = enfft._resample_t(ft, NT_in)/NT_in*NT_out
 	if f1: ft = ft*ramp_in.conj()
 	X = torch.fft.ifft(ft, dim=-1)*NT_in
 	# the torus concatenation, back: the mirrored half folds onto the rows it came from

@@ -238,7 +238,8 @@ def test_flip_and_pad_helpers():
 
 def test_per_method_entry_points():
 	"""The *_2d / *_cyl / *_raw_* routers give what alm2map and map2alm give;
-	the "general" ones raise."""
+	the raw "general" ones what synthesis_general and
+	adjoint_synthesis_general give at the pixels' positions."""
 	geos = geometries()
 	a = torch.from_numpy(rand_alm(LMAX, (3,), seed=12))
 	for name, synth, anal, rsynth, ranal in (
@@ -259,10 +260,13 @@ def test_per_method_entry_points():
 			curvedsky.alm2map_adjoint(want, ainfo=curvedsky.alm_info(lmax=LMAX)))
 		assert torch.equal(anal(zeros(), a, adjoint=True).data, curvedsky.map2alm_adjoint(a, zeros()).data)
 	shape, _, wcs = geos["F1"]
-	for call in (lambda: curvedsky.alm2map_raw_general(a, None, None),
-			lambda: curvedsky.map2alm_raw_general(None, None)):
-		with pytest.raises(NotImplementedError):
-			call()
+	loc = curvedsky.calc_locinfo(shape, wcs).loc
+	want = curvedsky.synthesis_general(a, loc, lmax=LMAX, device="cpu")
+	assert torch.equal(curvedsky.alm2map_raw_general(a, None, loc), want)
+	m = curvedsky.alm2map_raw_general(a, enmap.zeros((3,) + shape, wcs, device="cpu"), loc)
+	assert torch.equal(m.data, want.reshape((3,) + shape))
+	assert torch.equal(curvedsky.map2alm_raw_general(m, loc, lmax=LMAX),
+		curvedsky.adjoint_synthesis_general(want, loc, lmax=LMAX, device="cpu"))
 	alm, m, info = curvedsky.prepare_raw(None, enmap.zeros((3,) + shape, wcs, device="cpu"), lmax=LMAX)
 	jalm, _, jinfo = jcurvedsky.prepare_raw(None, np.zeros((3,) + shape), lmax=LMAX)
 	assert alm.shape == jalm.shape and alm.device.type == "cpu" and info.nelem == jinfo.nelem
