@@ -8,16 +8,17 @@ It builds the hand-written kernels from pixell_tpu_torch/csrc with nvcc
 (legendre.cu once per mode, blockleg.cu once per Legendre mode, fma_peak.cu
 and nufft.cu, all compilers started together) and prints each kernel's
 registers and spills (every float64 instantiation of the bulk kernels and
-all eight of K10 / K11 must be built, and none of them may spill), then
-runs the phases below (all of them with no arguments; --phases with a
+all twelve of K10 / K11 / K12 must be built, and none of them may spill),
+then runs the phases below (all of them with no arguments; --phases with a
 choice of k9,kernels,lstop,slice,adjoint,blocked,timing,general runs those
-alone, for work on one phase, and gives no verdict; the phase "variants",
-6. below, runs only when named). With
---parent DIR, a directory holding a parent tree's legendre.cu and / or
-blockleg.cu (for example unpacked with git archive under build/), those
-files are built beside the package's: the kernels, variants and timing
-phases run the parent's legendre.cu kernels beside this tree's, the
-blocked phase its blk_synthesis_kernel (below):
+alone, for work on one phase, and gives no verdict; the phases
+"variants", 6. below, and "blkprobe" run only when named). With
+--parent DIR, a directory holding a parent tree's legendre.cu, blockleg.cu
+and / or nufft.cu (for example unpacked with git archive under build/),
+those files are built beside the package's: the kernels, variants and
+timing phases run the parent's legendre.cu kernels beside this tree's, the
+blocked phase its blk_synthesis_kernel, the general phase its unbinned
+K10 / K11 (below):
 
 1. K9 phase: the FMA-peak kernel against its plain PyTorch chain on a small
    grid (the kernel rounds once per step, the chain twice: within
@@ -204,9 +205,17 @@ blocked phase its blk_synthesis_kernel (below):
 7. general: the general-position method (the torus NUFFT) at lmax 2000,
    float64 and float32, each path driven with the launch counts at 0 just
    before and read just after (its Legendre launches those of its dtype,
-   its point-stage kernel launched): K10 (u2nu_points) and K11
-   (nu2u_spread, csrc/nufft.cu) in all eight instantiations on a small
-   case against their twins (1e-12 / 1e-5 of the largest value);
+   its point-stage kernel launched). First the SASS that K11's design
+   rests on (nufft_sass_check: what atomicAdd on a shared float and double
+   compiles to, from a probe; per K10 / K11 instantiation its shared and
+   global atomics, shared loads and stores, and no shared atomics). K10
+   (u2nu_points) and K11 (nu2u_spread, csrc/nufft.cu, the points binned by
+   fine-grid tile with ops/nufft_core.py bin_points, whose result on the
+   card must equal the CPU's) in all eight instantiations against their
+   twins (1e-12 / 1e-5 of the largest value) on a small ragged case (C = 3,
+   a 90 x 126 grid, w = 7 and 16) and on a pile-up (5000 of 6000 points in
+   one place on a 256 x 256 grid, several subproblems of one tile; K11 in
+   float32 there by the float32 rule below);
    synthesis_general of IQU at the 9,331,200 pixel centres of the
    2160x4320 F1 map displaced by 2.5 arcmin rms (from a seed), against a
    direct sum at 256 of them (each point the ring of its own theta through
@@ -217,13 +226,22 @@ blocked phase its blk_synthesis_kernel (below):
    float32 against float64 within 5e-4; rotate_alm of spin 0 and IQU by
    the Galactic -> Equatorial Euler angles and back: float64 within 1e-9;
    K10 and K11 at the rotation's shape (16,020,006 points, an 8064^2 fine
-   grid, w = 11 in float64, 7 in float32) against their twins (1e-12 /
-   1e-5; K11 in float32 by the float32 rule against the float64 twin, its
-   cells at the pulled-back poles summing ~10^4 contributions in the
-   atomics' changing order), timed beside them with their bounds; then
-   synthesis_general, adjoint_synthesis_general and rotate_alm (IQU and
-   spin 0) timed with CUDA events after warm-up, each with its device
-   busy share, launches by mode and dtype and peak memory.
+   grid, w = 11 in float64, 7 in float32) and K11 at the adjoint's (IQU
+   values, C = 3, at the 9,331,200 displaced points) against their twins
+   (1e-12 / 1e-5; K11 in float32 by the float32 rule against the float64
+   twin, its cells at the pulled-back poles summing ~10^4 contributions in
+   the atomics' changing order), timed beside them with their bounds: the
+   kernel's device time, the wrapper's with the points' bins cached and
+   with the binning, the binning's alone; K12 (tile_keys) at the
+   rotation's shape against its twin (equal keys), timed, with its bound;
+   with --parent, the parent's unbinned K10 / K11 on the same inputs,
+   timed in turns with this tree's ("old_ms"); then synthesis_general,
+   adjoint_synthesis_general and rotate_alm (IQU and spin 0) timed with
+   CUDA events after warm-up, at points whose bins are cached and at new
+   points (the caches emptied before each call), each with its device
+   busy share, launches by mode and dtype and peak memory. Every general
+   path, driven with the bins' cache emptied just before, must bin
+   through K12.
 
 It prints the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and yardstick, and as the last line
@@ -263,6 +281,9 @@ REPLACES = {
 	# new kernels of the port: the reference's point stage runs in XLA, no pallas_call
 	"u2nu_points": "pixell_tpu/fft.py:391",
 	"nu2u_spread": "pixell_tpu/fft.py:610",
+	# the binning's keys: each point's first tap from the split position, the split of
+	# _u2nu_2d_core_split (the reference does not bin)
+	"tile_keys": "pixell_tpu/fft.py:391",
 }
 MODES = ("scalar", "deriv", "spin1", "spin2", "wigner")   # in the build's order
 WIGNER_SPIN = 3   # the spin the wigner mode is driven with
@@ -405,8 +426,10 @@ def print_build_summary(log, only=None):
 			u = re.search(r"bulk_(analysis|synthesis)_kernel(_f64)?ILi(\d+)ELb([01])ELi(\d+)E(Lb([01])ELb"
 				r"([01])E)?", m.group(1))
 			n = re.search(r"(u2nu_points|nu2u_spread)_kernelI([fd])Lb([01])E", m.group(1))
+			k = re.search(r"tile_keys_kernelI([fd])([si])E", m.group(1))
 			entry = ("fma_peak<%s>" % f.group(1) if f else
 				"%s<%s,%s>" % (n.group(1), n.group(2), "complex" if n.group(3) == "1" else "real") if n else
+				"tile_keys<%s,%s>" % (k.group(1), "int16" if k.group(2) == "s" else "int32") if k else
 				("blk_%s<C=%s>" % b.groups() if b else
 				("polar_%s<d,C=%s>" % p.groups() if p else
 				("bulk_%s%s<C=%s,%s,R=%s%s%s>" % (u.group(1), u.group(2) or "", u.group(3), "sym" if
@@ -2040,10 +2063,11 @@ class use_library:
 
 def parent_library(csrc):
 	"""The kernel library built from a parent tree's legendre.cu and / or
-	blockleg.cu in the directory csrc (--parent), with the entry points
-	that parent_kernels and blocked_kernels call declared: the float32 bulk
-	entries and the float64 ones the parent has, and its blk_synthesis
-	entries. lib.has_legendre and lib.has_blk say which sources it held.
+	blockleg.cu and / or nufft.cu in the directory csrc (--parent), with
+	the entry points that parent_kernels, blocked_kernels and parent_nufft
+	call declared: the float32 bulk entries and the float64 ones the parent
+	has, its blk_synthesis entries, its unbinned K10 / K11. lib.has_legendre,
+	lib.has_blk and lib.has_nufft say which sources it held.
 	lib.f64_entry maps each float64 bulk entry of this tree
 	(sym_bulk_synthesis_f64, ...) to the parent's: the same, or in a parent
 	that predates them the entry of synthesis_kernel / analysis_kernel
@@ -2054,7 +2078,19 @@ def parent_library(csrc):
 	lib = _build.load(Path(csrc).resolve())
 	lib.has_legendre = hasattr(lib, "pt_%s_scalar" % sht_cuda.BULK_KERNELS["sym_synthesis"])
 	lib.has_blk = hasattr(lib, "pt_blk_synthesis_scalar")
+	lib.has_nufft = hasattr(lib, "pt_u2nu_points")
 	P, I = ctypes.c_void_p, ctypes.c_int
+	if lib.has_nufft and not hasattr(lib, "pt_nufft_smem_bytes"):
+		# the unbinned K10 / K11 of a parent before the binned ones: f64, complex, in, coords,
+		# out, C, nfy, nfx, npt, pery, perx, w, beta, stream
+		for fn in (lib.pt_u2nu_points, lib.pt_nu2u_spread):
+			fn.argtypes = [I, I, P, P, P, I, I, I, ctypes.c_longlong, ctypes.c_double, ctypes.c_double, I,
+				ctypes.c_double, P]
+			fn.restype = I
+	elif lib.has_nufft:
+		print("--parent: its nufft.cu has the binned entry points; only the unbinned K10 / K11 of a parent "
+			"before them are timed, so its K10 / K11 are not")
+		lib.has_nufft = False
 	for mode in sht_core.BLK_FAM if lib.has_blk else ():
 		# C, 10 pointers, (nl, nm, nt), the stream
 		fn = getattr(lib, "pt_blk_synthesis_%s" % mode)
@@ -2578,14 +2614,15 @@ DEV = "cuda"
 
 
 def nufft_build_check(rows):
-	"""K10 and K11 among print_build_summary's rows: u2nu_points and
-	nu2u_spread, each in float and double, real and complex (8), none
-	spilling. Raises otherwise."""
-	got = [r for r in rows if r[1].startswith(("u2nu_points<", "nu2u_spread<"))]
-	print("ptxas: %d NUFFT point-stage instantiations (of 8): %s" % (len(got), ", ".join(
+	"""K10, K11 and K12 among print_build_summary's rows: u2nu_points and
+	nu2u_spread, each in float and double, real and complex (8), and
+	tile_keys in float and double, int16 and int32 keys (4), none spilling.
+	Raises otherwise."""
+	got = [r for r in rows if r[1].startswith(("u2nu_points<", "nu2u_spread<", "tile_keys<"))]
+	print("ptxas: %d NUFFT instantiations (of 12): %s" % (len(got), ", ".join(
 		"%s %d registers, %d bytes spilled" % (e, n, b) for _, e, n, b in got)))
-	if len(got) != 8 or any(r[3] for r in got):
-		raise RuntimeError("K10 / K11: %d instantiations built, %d spill" % (len(got),
+	if len(got) != 12 or any(r[3] for r in got):
+		raise RuntimeError("K10 / K11 / K12: %d instantiations built, %d spill" % (len(got),
 			sum(bool(r[3]) for r in got)))
 
 
@@ -2622,29 +2659,122 @@ def nufft_bytes(npt, C, ncells, esize):
 	return ncells*C*esize + npt*16 + npt*C*esize
 
 
+def nufft_sass_check():
+	"""What csrc/nufft.cu's K11 design rests on, read from cuobjdump -sass:
+	the instructions that atomicAdd on a shared-memory float and double
+	compiles to on this card's target (a probe built beside the library),
+	and per K10 / K11 instantiation its shared-memory atomics (none
+	expected: raises otherwise), global atomics, shared loads and stores."""
+	from pixell_tpu_torch.ops import _build
+	d = _build.build_dir()
+	tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+	probe = d/"shared_atomic_probe.cu"
+	probe.write_text("template <typename T> __global__ void shared_add(T* out, T v) {\n"
+		"  __shared__ T s[64];\n  s[threadIdx.x] = T(0);\n  __syncthreads();\n"
+		"  atomicAdd(&s[(threadIdx.x * 7) % 64], v);\n  __syncthreads();\n"
+		"  out[threadIdx.x] = s[threadIdx.x];\n}\n"
+		"template __global__ void shared_add<float>(float*, float);\n"
+		"template __global__ void shared_add<double>(double*, double);\n")
+	subprocess.run([_build._nvcc(), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-o",
+		str(d/"shared_atomic_probe.cubin"), str(probe)], check=True, capture_output=True)
+	for obj, what in ((d/"shared_atomic_probe.cubin", r"shared_add"), (d/"nufft.0.o",
+			r"(u2nu_points|nu2u_spread)_kernel")):
+		r = subprocess.run([tool, "-sass", str(obj)], capture_output=True, text=True, check=True)
+		fn, ops = None, {}
+		for line in r.stdout.splitlines():
+			m = re.search(r"Function : (\S+)", line)
+			if m:
+				fn = m.group(1) if re.search(what, m.group(1)) else None
+				if fn: ops[fn] = {}
+				continue
+			m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", line)
+			if fn and m:
+				op = m.group(1)
+				if op.startswith(("ATOMS", "ATOM", "RED", "LDS", "STS", "BSSY")):
+					ops[fn][op] = ops[fn].get(op, 0) + 1
+		for fn, o in ops.items():
+			print("SASS %s: %s" % (fn, ", ".join("%s %d" % kv for kv in sorted(o.items())) or "none of "
+				"ATOMS/ATOM/RED/LDS/STS"))
+			if what != r"shared_add" and any(k.startswith("ATOMS") for k in o):
+				raise RuntimeError("%s: shared-memory atomics in a NUFFT kernel" % fn)
+
+
+def nufft_binning_agrees(co, nfine, per, w):
+	"""The binning the wrappers do on the card against its plain version on
+	the CPU, on the same points, in float32 and float64: K12's keys
+	(tile_keys) equal to its twin's, and bin_points on them the same
+	permutation and subproblems as the twin's bin_points."""
+	from pixell_tpu_torch.ops import nufft_core, nufft_cuda
+	for dt in (torch.float32, torch.float64):
+		keys = nufft_cuda.tile_keys(co, nfine, per, w, dt, nufft_cuda.TILE)
+		a = nufft_core.bin_points(co, nfine, per, w, dt, nufft_cuda.TILE, nufft_cuda.CAP, keys=keys)
+		b = nufft_core.bin_points(co.cpu(), nfine, per, w, dt, nufft_cuda.TILE, nufft_cuda.CAP)
+		if not (torch.equal(keys.cpu(), nufft_core.tile_keys(co.cpu(), nfine, per, w, dt, nufft_cuda.TILE))
+				and torch.equal(a.perm.cpu(), b.perm) and torch.equal(a.subs.cpu(), b.subs)):
+			raise RuntimeError("the binning on the card differs from the CPU's (%d points, %s)" % (
+				co.shape[0], dt))
+	print("K12 keys and bin_points on the card equal the CPU's: %d points, fine %dx%d, w %d, float32 and "
+		"float64" % (co.shape[0], nfine[0], nfine[1], w))
+
+
 def nufft_every_instantiation():
-	"""K10 and K11 in every instantiation (float, double; real, complex) on a
-	small ragged case (C = 3, a 90 x 126 fine grid, 3001 points, coordinates
-	outside one period, w = 7 and 16) against their twins on the card, within
-	NUFFT_TOL of the largest value."""
+	"""K10 and K11 in every instantiation (float, double; real, complex)
+	against their twins on the card, within NUFFT_TOL of the largest value:
+	a small ragged case (C = 3, a 90 x 126 fine grid, smaller than a padded
+	tile at w = 16, 3001 points, coordinates outside one period, w = 7 and
+	16), and a pile-up (C = 3, a 256 x 256 grid, w = 11: 6000 points, 5000 of
+	them within 0.01 fine pixels of one place, several subproblems of one
+	tile). The binning on the card against the CPU's on both."""
 	from pixell_tpu_torch.ops import nufft_cuda
 	rng = np.random.default_rng(7)
-	co = torch.from_numpy(np.stack([rng.uniform(-7, 13, 3001), rng.uniform(-5, 11, 3001)], -1)).to(DEV)
+	ragged = torch.from_numpy(np.stack([rng.uniform(-7, 13, 3001), rng.uniform(-5, 11, 3001)],
+		-1)).to(DEV)
+	pile = np.stack([rng.uniform(-7, 13, 6000), rng.uniform(-5, 11, 6000)], -1)
+	pile[:5000] = [1.0, 2.0] + rng.uniform(0, 0.01/256, (5000, 2))*[2*np.pi, 5.0]
+	pile = torch.from_numpy(pile).to(DEV)
 	per = (2*np.pi, 5.0)
+	nufft_binning_agrees(ragged, (90, 126), per, 16)
+	nufft_binning_agrees(pile, (256, 256), per, 11)
 	for dt in (torch.float32, torch.float64):
 		for cplx in (False, True):
-			for w in (7, 16):
-				f = torch.from_numpy(rng.standard_normal((3, 90, 126, 2))).to(DEV, dt)
+			for co, n, w, label in ((ragged, (90, 126), 7, "small case"), (ragged, (90, 126), 16,
+					"small case"), (pile, (256, 256), 11, "pile-up")):
+				f = torch.from_numpy(rng.standard_normal((3,) + n + (2,))).to(DEV, dt)
 				f = torch.view_as_complex(f) if cplx else f[..., 0].contiguous()
 				k = nufft_cuda.u2nu_points(f, co, per, w, 2.3*w)
 				p = nufft_cuda.PLAIN["u2nu_points"](f, co, per, w, 2.3*w)
-				ks = nufft_cuda.nu2u_spread(p, co, (90, 126), per, w, 2.3*w)
-				ps = nufft_cuda.PLAIN["nu2u_spread"](p, co, (90, 126), per, w, 2.3*w)
+				ks = nufft_cuda.nu2u_spread(p, co, n, per, w, 2.3*w)
+				ps = nufft_cuda.PLAIN["nu2u_spread"](p, co, n, per, w, 2.3*w)
 				e = (relerr(k, p), relerr(ks, ps))
-				print("K10 / K11 %s %s w %d small case against the twins: %.3e / %.3e (bound %.0e)"
-					% (str(dt)[6:], "complex" if cplx else "real", w, e[0], e[1], NUFFT_TOL[dt]))
+				rule = ""
+				if dt == torch.float32 and label == "pile-up":
+					# 5000 near-equal contributions to a cell, summed in f32 in two orders: K11 is
+					# held to the float32 rule against the float64 twin
+					p64 = nufft_cuda.PLAIN["nu2u_spread"](p.to(torch.complex128 if cplx else torch.float64),
+						co, n, per, w, 2.3*w)
+					e_k, e_p = relerr(ks, p64), relerr(ps, p64)
+					rule = "; K11 against the float64 twin %.3e, the float32 twin's own %.3e (bound %.3e)" % (
+						e_k, e_p, 2*e_p + 1e-6)
+					e = (e[0], 0.0 if e_k <= 2*e_p + 1e-6 else np.inf)
+				print("K10 / K11 %s %s w %d %s against the twins: %.3e / %.3e (bound %.0e)%s"
+					% (str(dt)[6:], "complex" if cplx else "real", w, label, relerr(k, p), relerr(ks, ps),
+					NUFFT_TOL[dt], rule))
 				if not max(e) <= NUFFT_TOL[dt]:
-					raise RuntimeError("K10 / K11 disagree with their twins on the small case")
+					raise RuntimeError("K10 / K11 disagree with their twins on the %s" % label)
+
+
+def parent_nufft(lib, name, x, coords, nfine, per, w, beta):
+	"""The parent's unbinned K10 (name "u2nu_points") or K11 ("nu2u_spread")
+	on the wrapper's arguments, uncounted: its output."""
+	f64 = (x.real.dtype if x.is_complex() else x.dtype) == torch.float64
+	out = x.new_empty((x.shape[0], coords.shape[0])) if name == "u2nu_points" else \
+		x.new_zeros((x.shape[0], int(nfine[0]), int(nfine[1])))
+	err = getattr(lib, "pt_" + name)(int(f64), int(x.is_complex()), x.data_ptr(), coords.data_ptr(),
+		out.data_ptr(), x.shape[0], int(nfine[0]), int(nfine[1]), coords.shape[0], float(per[0]),
+		float(per[1]), int(w), float(beta), torch.cuda.current_stream().cuda_stream)
+	if err != 0:
+		raise RuntimeError("the parent's %s launch failed: CUDA error %d" % (name, err))
+	return out
 
 
 def gen_drive(label, fn, kernels):
@@ -2654,10 +2784,12 @@ def gen_drive(label, fn, kernels):
 	the float32 bulk kernels and the float64 near-pole passes), and each of
 	kernels, (name, dtype, kind) of nufft_cuda, launched. Returns
 	(Legendre launches, NUFFT launches, fn's result, peak device memory in
-	GiB)."""
+	GiB). The bins' cache is emptied before the run, and the binning's keys
+	must come from K12 (tile_keys) in the same dtype."""
 	from pixell_tpu_torch.ops import sht_cuda, nufft_cuda
 	sht_cuda.reset_launches()
 	nufft_cuda.reset_launches()
+	nufft_cuda.clear_bins()
 	torch.cuda.synchronize()
 	torch.cuda.reset_peak_memory_stats()
 	out = fn()
@@ -2672,9 +2804,10 @@ def gen_drive(label, fn, kernels):
 	bulk = set((sht_cuda.BULK_F64 if f64 else sht_cuda.BULK_KERNELS).values())
 	bad = {k: n for k, n in leg.items() if not ((k[0] in bulk and k[2] == kernels[0][1])
 		or (not f64 and k[0] in sht_cuda.POLAR_KERNELS and k[2] == "float64"))}
-	if not leg or bad or any(not nu.get(k) for k in kernels):
-		raise RuntimeError("the %s launched Legendre %s, NUFFT %s: expected its dtype's kernels and %s"
-			% (label, leg, nu, kernels))
+	keys = any(k[0] == "tile_keys" and k[1] == kernels[0][1] for k in nu)
+	if not leg or bad or any(not nu.get(k) for k in kernels) or not keys:
+		raise RuntimeError("the %s launched Legendre %s, NUFFT %s: expected its dtype's kernels, %s and "
+			"tile_keys" % (label, leg, nu, kernels))
 	return leg, nu, out, peak
 
 
@@ -2803,96 +2936,194 @@ def gen_rotate(alm, label):
 			raise RuntimeError("rotate_alm %s outside its bound" % label)
 
 
-def gen_kernels(records, launches):
-	"""K10 and K11 at the shape rotate_alm gives them at lmax 2000: the
-	16,020,006 pulled-back points of the 4003 x 4002 F1 grid on the 8064^2
-	real fine grid of a spin-0 SynthesisPlan (w = 11 in f64, 7 in f32),
-	each against its twin on the card, timed beside it, with its bound
-	(nufft_ops, and nufft_bytes of the cells nufft_cells counts). K11 spreads K10's output. Each within NUFFT_TOL of the twin, but K11 in
-	float32: there the cells at the pulled-back poles (where a ring's 4002
-	points crowd into a few fine pixels) sum ~10^4 contributions, whose
-	float32 sums the atomics take in a changing order, so it is held to the
-	float32 rule of the kernels phase against the float64 twin on the same
-	inputs (twice the float32 twin's own error plus 1e-6). Appends one
-	record per kernel and dtype, with its launches in the general paths
-	(launches, by (name, dtype, kind))."""
-	from pixell_tpu_torch import curvedsky
+def nufft_row(name, dt, shape, x, loc, nfine, w, beta, plain, plain_ms, launches, parent=None,
+		p64=None):
+	"""One K10 / K11 record at the shape named shape: the wrapper name on x
+	(K10 the fine grid, K11 the values) at loc (periods 2 pi) against the
+	twin's output plain, within NUFFT_TOL; timed: the kernel's device time
+	(profiler), the wrapper's (CUDA events; for K11 the zero fill with it)
+	with the points' bins cached and with the bins' cache emptied before
+	each call, and the binning's alone (K12's keys and bin_points on them,
+	as the wrapper bins; CUDA events); its bound
+	(nufft_ops, nufft_bytes of the cells nufft_cells counts). K11 in
+	float32 is held to the float32 rule against the float64 twin's output
+	p64 instead: the cells at the pulled-back poles sum ~10^4 contributions,
+	whose float32 sums the twin and the kernel take in other orders. With
+	parent (parent_library), the parent's unbinned kernel on the same
+	inputs, timed in turns with this tree's (new, old, new, old), and the
+	distance of the two results. Returns the record."""
+	from pixell_tpu_torch.ops import nufft_core, nufft_cuda
+	per = (2*np.pi, 2*np.pi)
+	tag = str(dt)[6:]
+	C = x.shape[0]
+	if name == "u2nu_points": fn = lambda: nufft_cuda.u2nu_points(x, loc, per, w, beta)
+	else: fn = lambda: nufft_cuda.nu2u_spread(x, loc, nfine, per, w, beta)
+	k = fn()
+	err = relerr(k, plain)
+	f32_rule, rule = {}, "bound %.0e" % NUFFT_TOL[dt]
+	if p64 is not None:
+		e_k, e_p = relerr(k, p64), relerr(plain, p64)
+		f32_rule = {"max_abs_err_vs_f64": e_k, "f32_twin_err_vs_f64": e_p, "err_bound": 2*e_p + 1e-6,
+			"err_rule": "against the float64 twin within twice the float32 twin's own error plus 1e-6; "
+			"max_abs_err (against the float32 twin) is not held to NUFFT_TOL"}
+		rule = "against the float64 twin %.3e, the float32 twin's own %.3e (bound %.3e)" % (e_k, e_p,
+			2*e_p + 1e-6)
+		if not e_k <= 2*e_p + 1e-6:
+			raise RuntimeError("%s float32 outside the float32 rule at %s" % (name, shape))
+	elif not err <= NUFFT_TOL[dt]:
+		raise RuntimeError("%s %s disagrees with its twin at %s" % (name, tag, shape))
+	pattern = name + "_kernel"
+	ms, how = kernel_ms(fn, 5, pattern)
+	old, old_line = {}, ""
+	if parent is not None:
+		pfn = lambda: parent_nufft(parent, name, x, loc, nfine, per, w, beta)
+		po = pfn()
+		same = bool(torch.equal(k, po))
+		d = relerr(k, po)
+		o1 = kernel_ms(pfn, 5, pattern)
+		n2 = kernel_ms(fn, 5, pattern)
+		o2 = kernel_ms(pfn, 5, pattern)
+		old = {"old_ms": o1[0], "old_ms_again": o2[0], "ms_again": n2[0], "old_ms_from": o1[1],
+			"vs_old_rel_diff": d, "bit_identical_to_old": same}
+		old_line = "; the parent's unbinned kernel %.4f, %.4f ms (this kernel again %.4f), results %s (rel diff " \
+			"%.3e)" % (o1[0], o2[0], n2[0], "bit-identical" if same else "differ", d)
+		del po
+	del k
+	wrapper_ms = cuda_ms(fn, 5)
+	wrapper_bin_ms = cuda_ms(lambda: (nufft_cuda.clear_bins(), fn()), 5)
+	bin_ms = cuda_ms(lambda: nufft_core.bin_points(loc, nfine, per, w, dt, nufft_cuda.TILE, nufft_cuda.CAP,
+		keys=nufft_cuda.tile_keys(loc, nfine, per, w, dt, nufft_cuda.TILE)), 5)
+	ncells = nufft_cells(loc, nfine, per, w, dt)
+	esize = 8 if dt == torch.float64 else 4
+	npt = loc.shape[0]
+	b = bound(nufft_ops(npt, C, w), nufft_bytes(npt, C, ncells, esize), dt)
+	n = launches.get((name, tag, "real"), 0)
+	print("%s row %s %s: %d points, fine %dx%d (%d cells reached, %.1f %%), w %d, C %d real: kernel %.4f ms "
+		"(%s), wrapper %.4f ms (CUDA events, bins cached; with the binning %.4f ms, the binning alone %.4f ms), "
+		"rel err against the twin %.3e (%s), "
+		"plain %.2f ms, bound %.4f ms (%s, %.1f %% of it reached)%s, launches in the general paths %d" % (
+		"K10" if name == "u2nu_points" else "K11", tag, shape, npt, nfine[0], nfine[1], ncells,
+		100*ncells/(nfine[0]*nfine[1]), w, C, ms, how, wrapper_ms, wrapper_bin_ms, bin_ms, err, rule, plain_ms,
+		b[0], b[1], 100*b[0]/ms, old_line, n))
+	return {"name": "%s[%s, %s]" % (name, tag, shape), "route": "cuda", "source": NUFFT_SOURCE,
+		"replaces": REPLACES[name], "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+		"bound_ms": b[0], "bound_by": b[1], "library_ms": None, "ms_from": how, "wrapper_ms": wrapper_ms,
+		"wrapper_bin_ms": wrapper_bin_ms, "bin_ms": bin_ms, **old, "shape": "npt %d, fine %dx%d (%d cells "
+		"reached), w %d, C %d real" % (npt, nfine[0], nfine[1], ncells, w, C), **f32_rule}
+
+
+def keys_row(dt, shape, loc, nfine, w, launches):
+	"""The K12 record at the shape named shape: tile_keys on the card
+	against its twin on the card (equal keys: max_abs_err 0), its device
+	time (profiler), the twin's, and its bound: the coordinates read and
+	the keys written over the memory rate, or ~20 operations a point (two
+	axes of a division, three floors, four additions and subtractions, a
+	product and a cast) over the dtype's peak."""
+	from pixell_tpu_torch.ops import nufft_core, nufft_cuda
+	per = (2*np.pi, 2*np.pi)
+	tag = str(dt)[6:]
+	fn = lambda: nufft_cuda.tile_keys(loc, nfine, per, w, dt, nufft_cuda.TILE)
+	k = fn()
+	p, plain_ms = timed_once(lambda: nufft_core.tile_keys(loc, nfine, per, w, dt, nufft_cuda.TILE))
+	err = float((k.long() - p.long()).abs().max())
+	if err != 0:
+		raise RuntimeError("tile_keys %s disagrees with its twin at %s" % (tag, shape))
+	ms, how = kernel_ms(fn, 5, "tile_keys_kernel")
+	npt = loc.shape[0]
+	b = bound(20*npt, npt*(16 + k.element_size()), dt)
+	n = sum(c for key, c in launches.items() if key[0] == "tile_keys" and key[1] == tag)
+	print("K12 row %s %s: %d points, fine %dx%d, %s keys: kernel %.4f ms (%s), equal to the twin, plain %.2f "
+		"ms, bound %.4f ms (%s, %.1f %% of it reached), launches in the general paths %d" % (tag, shape, npt,
+		nfine[0], nfine[1], str(k.dtype)[6:], ms, how, plain_ms, b[0], b[1], 100*b[0]/ms, n))
+	return {"name": "tile_keys[%s, %s]" % (tag, shape), "route": "cuda", "source": NUFFT_SOURCE,
+		"replaces": REPLACES["tile_keys"], "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+		"bound_ms": b[0], "bound_by": b[1], "library_ms": None, "ms_from": how,
+		"shape": "npt %d, fine %dx%d, %s keys" % (npt, nfine[0], nfine[1], str(k.dtype)[6:])}
+
+
+def gen_kernels(records, launches, parent=None):
+	"""K10 and K11 at the shapes the general paths give them at lmax 2000,
+	each a nufft_row record (with its launches in the general paths,
+	launches by (name, dtype, kind)): at rotate_alm's, the 16,020,006
+	pulled-back points of the 4003 x 4002 F1 grid on the 8064^2 real fine
+	grid of a spin-0 SynthesisPlan (w = 11 in f64, 7 in f32), K11 spreading
+	K10's output; and K11 at adjoint_synthesis_general's, IQU (C = 3) values
+	from a seed at the 9,331,200 displaced points of gen_points on the
+	fine grid of the 4032^2 torus (w = 11 in f64, 7 in f32: epsilon 1e-10 /
+	1e-6). Before them, bin_points on the card against the CPU's on the
+	first million of the rotation's points."""
+	from pixell_tpu_torch import curvedsky, fft as enfft
 	from pixell_tpu_torch.ops import nufft_cuda
 	loc = curvedsky._rotated_grid(GEN_LMAX, EULER_GAL2EQU[1], DEV)[0]
-	npt = loc.shape[0]
+	per = (2*np.pi, 2*np.pi)
 	for dt in (torch.float64, torch.float32):
 		plan = curvedsky.SynthesisPlan(gen_alm(21, (0,), torch.complex128 if dt == torch.float64 else
 			torch.complex64), lmax=GEN_LMAX, spin=(0,))
 		up = plan.uplan
-		fine, nfine, w, beta, per = up.fine, up.nfine, up.w, up.beta, (2*np.pi, 2*np.pi)
+		fine, nfine, w, beta = up.fine, up.nfine, up.w, up.beta
 		del plan
-		k = nufft_cuda.u2nu_points(fine, loc, per, w, beta)
+		if dt == torch.float64: nufft_binning_agrees(loc[:10**6].contiguous(), nfine, per, w)
+		records.append(keys_row(dt, "rotate_alm lmax %d" % GEN_LMAX, loc, nfine, w, launches))
 		p, plain_ms = timed_once(lambda: nufft_cuda.PLAIN["u2nu_points"](fine, loc, per, w, beta))
-		ks = nufft_cuda.nu2u_spread(p, loc, nfine, per, w, beta)
+		records.append(nufft_row("u2nu_points", dt, "rotate_alm lmax %d" % GEN_LMAX, fine, loc, nfine, w,
+			beta, p, plain_ms, launches, parent))
 		ps, plain_s_ms = timed_once(lambda: nufft_cuda.PLAIN["nu2u_spread"](p, loc, nfine, per, w, beta))
-		errs = (relerr(k, p), relerr(ks, ps))
-		rule, f32_rule = "", {}
-		if dt == torch.float32:
-			p64 = nufft_cuda.PLAIN["nu2u_spread"](p.double(), loc, nfine, per, w, beta)
-			e_k, e_p = relerr(ks, p64), relerr(ps, p64)
-			f32_rule = {"max_abs_err_vs_f64": e_k, "f32_twin_err_vs_f64": e_p, "err_bound": 2*e_p + 1e-6,
-				"err_rule": "against the float64 twin within twice the float32 twin's own error plus 1e-6; "
-				"max_abs_err (against the float32 twin) is not held to NUFFT_TOL"}
-			rule = "; against the float64 twin %.3e, the float32 twin's own %.3e (bound %.3e)" % (e_k, e_p,
-				2*e_p + 1e-6)
-			if not e_k <= 2*e_p + 1e-6:
-				raise RuntimeError("nu2u_spread float32 outside the float32 rule at the rotation's shape")
-			del p64
-		del ps
-		ms = kernel_ms(lambda: nufft_cuda.u2nu_points(fine, loc, per, w, beta), 5, "u2nu_points_kernel")
-		ms_s = kernel_ms(lambda: nufft_cuda.nu2u_spread(p, loc, nfine, per, w, beta), 5, "nu2u_spread_kernel")
-		ncells = nufft_cells(loc, nfine, per, w, dt)
-		b = bound(nufft_ops(npt, 1, w), nufft_bytes(npt, 1, ncells, fine.element_size()), dt)
-		print("K10 / K11 %s bound: the windows reach %d of the %d fine-grid cells (%.1f %%)" % (
-			str(dt)[6:], ncells, nfine[0]*nfine[1], 100*ncells/(nfine[0]*nfine[1])))
-		tag = str(dt)[6:]
-		for name, err, (kms, how), pms in (("u2nu_points", errs[0], ms, plain_ms),
-				("nu2u_spread", errs[1], ms_s, plain_s_ms)):
-			f32_spread = name == "nu2u_spread" and dt == torch.float32
-			print("%s row %s lmax %d: %d points, fine %dx%d, w %d, C 1 real: kernel %.4f ms (%s), rel err "
-				"against the twin %.3e (%s), plain %.2f ms, bound %.4f ms (%s, %.1f %% of it reached), "
-				"launches in the general paths %d" % (("K10" if name == "u2nu_points" else "K11"), tag,
-				GEN_LMAX, npt, nfine[0], nfine[1], w, kms, how, err, rule[2:] if f32_spread else "bound %.0e"
-				% NUFFT_TOL[dt], pms, b[0], b[1], 100*b[0]/kms, launches.get((name, tag, "real"), 0)))
-			if not (f32_spread or err <= NUFFT_TOL[dt]):
-				raise RuntimeError("%s %s disagrees with its twin at the rotation's shape" % (name, tag))
-			records.append({"name": "%s[%s, rotate_alm lmax %d]" % (name, tag, GEN_LMAX), "route": "cuda",
-				"source": NUFFT_SOURCE, "replaces": REPLACES[name],
-				"launches": launches.get((name, tag, "real"), 0), "max_abs_err": err, "ms": kms,
-				"plain_ms": pms, "bound_ms": b[0], "bound_by": b[1], "library_ms": None, "ms_from": how,
-				"shape": "npt %d, fine %dx%d (%d cells reached), w %d, C 1 real" % (npt, nfine[0], nfine[1],
-				ncells, w), **(f32_rule if f32_spread else {})})
-		del fine, up, k, p, ks
+		p64 = None if dt == torch.float64 else nufft_cuda.PLAIN["nu2u_spread"](p.double(), loc, nfine, per,
+			w, beta)
+		del fine, up
+		records.append(nufft_row("nu2u_spread", dt, "rotate_alm lmax %d" % GEN_LMAX, p, loc, nfine, w,
+			beta, ps, plain_s_ms, launches, parent, p64))
+		del p, ps, p64
+		torch.cuda.empty_cache()
+	del loc
+	loc = gen_points(3)
+	nfine = enfft._fine_shape(curvedsky._torus_shape(GEN_LMAX, GEN_LMAX))
+	g = torch.Generator(device=DEV).manual_seed(5)
+	y = torch.randn((3, loc.shape[0]), generator=g, device=DEV, dtype=torch.float64)
+	for dt in (torch.float64, torch.float32):
+		w, beta = enfft._es_params(1e-10 if dt == torch.float64 else 1e-6)
+		v = y.to(dt)
+		ps, plain_ms = timed_once(lambda: nufft_cuda.PLAIN["nu2u_spread"](v, loc, nfine, per, w, beta))
+		p64 = None if dt == torch.float64 else nufft_cuda.PLAIN["nu2u_spread"](y, loc, nfine, per, w, beta)
+		records.append(nufft_row("nu2u_spread", dt, "adjoint_synthesis_general IQU lmax %d" % GEN_LMAX, v,
+			loc, nfine, w, beta, ps, plain_ms, launches, parent, p64))
+		del ps, p64, v
 		torch.cuda.empty_cache()
 
 
 def gen_timing(label, fn, nrep):
-	"""fn timed with CUDA events after warm-up (nrep calls), its device busy
+	"""fn timed with CUDA events after warm-up (nrep calls), at its points
+	with their bins (and rotate_alm's its grid) cached and again at new
+	points: with those caches emptied before each call; its device busy
 	share from one profiled call, its launches and peak memory (one driven
-	call)."""
+	call, the caches emptied before it)."""
+	from pixell_tpu_torch import curvedsky
 	from pixell_tpu_torch.ops import sht_cuda, nufft_cuda
+
+	def cold():
+		nufft_cuda.clear_bins()
+		curvedsky._rotated_grid.cache_clear()
+		return fn()
 	sht_cuda.reset_launches()
 	nufft_cuda.reset_launches()
+	torch.cuda.synchronize()
 	torch.cuda.reset_peak_memory_stats()
-	fn()
+	cold()
 	torch.cuda.synchronize()
 	peak = torch.cuda.max_memory_allocated()/2**30
 	modes = {k: n for k, n in sht_cuda.LAUNCHES_BY_MODE.items() if n}
 	dts = {k: n for k, n in sht_cuda.LAUNCHES_BY_DTYPE.items() if n}
 	nu = {k: n for k, n in nufft_cuda.LAUNCHES_BY_DTYPE.items() if n}
 	ms = cuda_ms(fn, nrep)
+	ms_cold = cuda_ms(cold, nrep)
 	wall, busy = profiled(fn, 8)
-	print("general timing: %s: %.4f ms per call (CUDA events, %d calls after warm-up); device busy %.3f "
-		"ms, %.1f %% of one profiled call (%.3f ms); peak device memory %.2f GiB; launches by mode %s, by "
-		"dtype %s, NUFFT %s" % (label, ms, nrep, busy, 100*busy/wall, wall, peak, modes, dts, nu))
+	print("general timing: %s: %.4f ms per call (CUDA events, %d calls after warm-up, bins cached), %.4f ms "
+		"at new points; device busy %.3f ms, %.1f %% of one profiled call (%.3f ms); peak device memory %.2f "
+		"GiB; launches by mode %s, by dtype %s, NUFFT %s" % (label, ms, nrep, ms_cold, busy, 100*busy/wall,
+		wall, peak, modes, dts, nu))
 
 
-def general_phase():
+def general_phase(parent=None):
 	"""The general method at lmax 2000 (GEN_LMAX), f64 and f32: K10 and K11
 	in every instantiation on a small case; synthesis_general of IQU at the
 	displaced pixel centres of the 2160 x 4320 F1 map (against the direct
@@ -2903,6 +3134,7 @@ def general_phase():
 	with their bounds; then the end-to-end times. Returns the records of
 	K10 and K11."""
 	from pixell_tpu_torch import curvedsky
+	nufft_sass_check()
 	nufft_every_instantiation()
 	GEN_LAUNCHES.clear()
 	iqu = gen_alm(31, (0, 2))
@@ -2916,7 +3148,7 @@ def general_phase():
 	torch.cuda.empty_cache()
 	print("NUFFT launches in the general paths (each driven with the counts at 0): %s" % GEN_LAUNCHES)
 	records = []
-	gen_kernels(records, dict(GEN_LAUNCHES))
+	gen_kernels(records, dict(GEN_LAUNCHES), parent)
 	for r in records:
 		if not r["launches"]:
 			raise RuntimeError("%s: not launched by the general paths" % r["name"])
@@ -2945,10 +3177,10 @@ def main():
 	ap.add_argument("--phases", default=",".join(PHASES),
 		help="comma-separated choice of %s (default: all but %s)" % (", ".join(PHASES + EXTRA_PHASES),
 		", ".join(EXTRA_PHASES)))
-	ap.add_argument("--parent", default=None, help="a directory holding a parent tree's legendre.cu and / or "
-		"blockleg.cu: the kernels phase times the float64 kernels it launched beside the float64 rows, the "
-		"variants phase holds its float32 kernels against this tree's, and the blocked phase times its "
-		"blk_synthesis_kernel beside this tree's")
+	ap.add_argument("--parent", default=None, help="a directory holding a parent tree's legendre.cu, "
+		"blockleg.cu and / or nufft.cu: the kernels phase times the float64 kernels it launched beside the "
+		"float64 rows, the variants phase holds its float32 kernels against this tree's, the blocked phase "
+		"times its blk_synthesis_kernel beside this tree's, and the general phase its unbinned K10 / K11")
 	args = ap.parse_args()
 	phases = args.phases.split(",")
 	if not set(phases) <= set(PHASES + EXTRA_PHASES): ap.error("unknown phase in %s" % phases)
@@ -2972,10 +3204,12 @@ def main():
 		parent = parent and parent.result()
 	print("kernel build + load: %.1f s%s" % (time.perf_counter() - h0, "" if parent is None else
 		" (with the parent's %s from %s)" % (" and ".join(f for f, has in (("legendre.cu",
-		parent.has_legendre), ("blockleg.cu", parent.has_blk)) if has), args.parent)))
+		parent.has_legendre), ("blockleg.cu", parent.has_blk), ("nufft.cu", parent.has_nufft)) if has),
+		args.parent)))
 	# the parent's legendre.cu serves the kernels, timing and variants phases, its
 	# blockleg.cu the blocked phase
 	blk_parent = parent if parent is not None and parent.has_blk else None
+	nufft_parent = parent if parent is not None and parent.has_nufft else None
 	parent = parent if parent is not None and parent.has_legendre else None
 	build_rows = print_build_summary((_build.build_dir()/"build.log").read_text())
 	f64_build_check(build_rows)
@@ -3024,7 +3258,7 @@ def main():
 		profile_roundtrips(2000, (2160, 4320), 1, spin=w)
 		print("phase timing done at %.1f s" % (time.perf_counter() - t_start))
 	if "general" in phases:
-		gen_records = general_phase()
+		gen_records = general_phase(nufft_parent)
 		print("phase general done at %.1f s" % (time.perf_counter() - t_start))
 	if "variants" in phases:
 		variants_phase(parent)

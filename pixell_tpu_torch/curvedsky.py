@@ -988,12 +988,15 @@ def _zrot(a, ainfo, ang):
 	return ainfo._unrect(ainfo._rect(a).to(torch.complex128)*phase).to(a.dtype)
 
 
+@functools.lru_cache(maxsize=1)
 def _rotated_grid(lmax, theta, device):
 	"""(loc [nt*nphi, 2] float64 on device, F1 colatitudes [nt], weights
 	[nt], nt, nphi): the F1 grid of nt = 2 lmax + 3 rings of nphi =
 	2 (lmax + 1) pixels that analyses band limit lmax exactly, each point
 	pulled back through Ry(theta) (n_old = Ry(-theta) n_new), in float64 on
-	device."""
+	device. Cached for the last rotation, so that rotating several alm by
+	the same angles builds and bins its points once (callers must not write
+	into them)."""
 	nt, nphi = 2*lmax + 3, 2*(lmax + 1)
 	thq, wq = sht.ring_theta("F1", nt), sht.ring_weights("F1", nt)
 	th = torch.from_numpy(thq).to(device)[:, None]
@@ -1020,7 +1023,7 @@ def rotate_alm(alm, psi, theta, phi, ainfo=None, lmax=None, method="auto", nthre
 	lmax = ainfo.lmax
 	a = _zrot(a0, ainfo, psi)
 	if theta != 0:
-		loc, thq, wq, nt, nphi = _rotated_grid(lmax, theta, a.device)
+		loc, thq, wq, nt, nphi = _rotated_grid(lmax, float(theta), a.device)
 		vals = synthesis_general(a, loc, lmax=lmax, mmax=ainfo.mmax, spin=(0,))
 		del loc
 		grid = vals.reshape(vals.shape[:-1] + (nt, nphi))

@@ -18,8 +18,13 @@ u2nu_points_plain gathers each point's w x w window, nu2u_spread_plain
 spreads onto it (its transpose). Both work through the points in chunks:
 unchunked, the gathered windows of a million-point set take gigabytes
 (pixell_tpu/fft.py:336-341).
+
+bin_points sorts the points by the fine-grid tile that holds their first
+tap, for the kernels, which take one tile's points in a block with the tile
+and its halo in shared memory.
 """
 from __future__ import annotations
+from typing import NamedTuple
 import torch
 
 GATHER_ELEMS = 1 << 24   # gathered (component, point, tap) values per chunk
@@ -106,3 +111,92 @@ def nu2u_spread_plain(vals, coords, nfine, periodicity, w, beta):
 		fine.index_add_(1, idx, contrib.reshape(C, -1, r))
 	fine = fine.reshape(C, nfy, nfx, r)
 	return torch.view_as_complex(fine) if cplx else fine[..., 0]
+
+
+class Bins(NamedTuple):
+	"""The points binned by tile (bin_points).
+
+	perm    [npt] int64: the points in binned order (point perm[k] is the
+	        k-th), stable: sorted by tile, ties in the original order
+	subs    [nsub_max, 3] int64: per subproblem (tile, start, end), the
+	        points perm[start:end], at most cap of them, all of one tile;
+	        the entries past the last subproblem are empty (start = end = npt)
+	counts  [ntiles] int64: the points of each tile, tiles in row-major order
+	ntiles  (nty, ntx)
+	"""
+	perm: torch.Tensor
+	subs: torch.Tensor
+	counts: torch.Tensor
+	ntiles: tuple
+
+
+def first_taps(coords, nfine, periodicity, w, dtype):
+	"""[npt, 2] int64: each point's first tap (row, column), wrapped, as
+	taps places it (base + floor(f - w/2) + 1, the fraction f cast to dtype)
+	and with the kernels' arithmetic, in float64 throughout: c/per by a true
+	division (a tensor divisor: a CUDA tensor divided by a Python float is
+	multiplied by its reciprocal), minus its floor, times n."""
+	dev = coords.device
+	t = coords/torch.tensor([float(periodicity[0]), float(periodicity[1])], dtype=torch.float64,
+		device=dev)
+	t.sub_(torch.floor(t))
+	t.mul_(torch.tensor([float(nfine[0]), float(nfine[1])], dtype=torch.float64, device=dev))
+	b = torch.floor(t)
+	f = t.sub_(b).to(dtype)
+	first = b.add_(torch.floor(f.sub_(w/2.0))).add_(1).long()
+	return torch.remainder(first, torch.tensor([int(nfine[0]), int(nfine[1])], device=dev))
+
+
+def key_format(ntiles):
+	"""(dtype, offset) of the tile keys: int16 holding tile - 32768 where
+	there are at most 65536 tiles (half the bytes to sort, in the same
+	order), else int32 holding the tile."""
+	return (torch.int16, 32768) if ntiles <= 1 << 16 else (torch.int32, 0)
+
+
+def tile_keys(coords, nfine, periodicity, w, dtype, tile):
+	"""[npt] the key of each point for bin_points: the tile (tile = (Ty,
+	Tx) fine cells, nty = ceil(nfy/Ty) by ntx tiles in row-major order)
+	that holds its first tap (first_taps), in key_format; the plain twin of
+	K12 (csrc/nufft.cu tile_keys_kernel)."""
+	ty, tx = int(tile[0]), int(tile[1])
+	nty, ntx = -(-int(nfine[0])//ty), -(-int(nfine[1])//tx)
+	dt, offset = key_format(nty*ntx)
+	first = first_taps(coords, nfine, periodicity, w, dtype)
+	return ((first[:, 0]//ty)*ntx + first[:, 1]//tx - offset).to(dt)
+
+
+def bin_points(coords, nfine, periodicity, w, dtype, tile, cap, keys=None):
+	"""Bins (above) of the points coords [npt, 2] float64 on a fine grid
+	nfine = (nfy, nfx): each point goes to the tile (tile = (Ty, Tx) fine
+	cells; nty = ceil(nfy/Ty) by ntx tiles, the last row and column of
+	tiles ragged) that holds its first tap, so that the padded tile of (Ty +
+	w - 1) x (Tx + w - 1) cells from the tile's corner, wrapped, holds every
+	tap of every point of the tile. Each tile's points are split into
+	subproblems of at most cap. keys, the points' tile_keys, are computed
+	here unless given (the card's wrappers give K12's). Torch operations
+	with no host synchronisation: nsub_max = npt // cap + min(nty ntx, npt)
+	bounds the subproblem count."""
+	ty, tx = int(tile[0]), int(tile[1])
+	nty, ntx = -(-int(nfine[0])//ty), -(-int(nfine[1])//tx)
+	nt = nty*ntx
+	npt = coords.shape[0]
+	dev = coords.device
+	if keys is None: keys = tile_keys(coords, nfine, periodicity, w, dtype, tile)
+	skey, perm = torch.sort(keys, stable=True)
+	# each tile's range in the sorted order
+	offset = key_format(nt)[1]
+	first = torch.searchsorted(skey, (torch.arange(nt, device=dev) - offset).to(skey.dtype))
+	edges = torch.cat([first, torch.full((1,), npt, dtype=first.dtype, device=dev)])
+	counts = edges[1:] - edges[:-1]
+	nsub = (counts + cap - 1)//cap
+	last = torch.cumsum(nsub, 0)
+	s = torch.arange(npt//cap + min(nt, npt), device=dev)
+	t = torch.searchsorted(last, s, right=True)
+	tc = t.clamp(max=nt - 1)
+	start = edges[tc] + (s - (last[tc] - nsub[tc]))*cap
+	end = torch.minimum(start + cap, edges[tc + 1])
+	past = t >= nt
+	start = torch.where(past, npt, start)
+	end = torch.where(past, npt, end)
+	return Bins(perm, torch.stack([tc, start, end], 1).contiguous(), counts, (nty, ntx))
