@@ -10,7 +10,7 @@ and nufft.cu, all compilers started together) and prints each kernel's
 registers and spills (every float64 instantiation of the bulk kernels and
 all twelve of K10 / K11 / K12 must be built, and none of them may spill),
 then runs the phases below (all of them with no arguments; --phases with a
-choice of k9,kernels,lstop,slice,adjoint,blocked,timing,general runs those
+choice of k9,kernels,lstop,slice,adjoint,blocked,timing,general,flat runs those
 alone, for work on one phase, and gives no verdict; the phases
 "variants", 6. below, and "blkprobe" run only when named). With
 --parent DIR, a directory holding a parent tree's legendre.cu, blockleg.cu
@@ -242,6 +242,28 @@ K10 / K11 (below):
    busy share, launches by mode and dtype and peak memory. Every general
    path, driven with the bins' cache emptied just before, must bin
    through K12.
+8. flat: the flat-sky path, which runs on torch.fft (cuFFT) and plain
+   torch passes, no hand-written kernel (the reference has no pallas_call
+   there). BASELINE config 1 (scripts/benchmark_baseline.py:58-77): a
+   256 x 512 CAR T map, enmap.fft -> calc_ps2d -> a 64-bin spectrum over
+   modlmap -> enmap.ifft(...).real, in float32 and float64, timed with
+   CUDA events (100 steps a repeat, median, min and max of 7 repeats) with
+   the busy share of one profiled repeat; ifft(fft) within 1e-5 / 1e-12
+   of the input and the float64 spectrum within 1e-12 of the same call on
+   CPU tensors. An ACT DR6-sized band (band_geometry of dec -63 .. 23
+   degrees at 0.5 arcmin, 10320 x 43200): IQU float32 white noise from a
+   seeded torch.Generator on the card through map2harm(normalize="phys",
+   spin=[0, 2]) -> lbin(calc_ps2d) -> harm2map, and T float64 through fft
+   -> lbin -> ifft: the step's ms (median, min, max of 7) and each
+   stage's, the busy share and top device ops of one profiled step, the
+   memory peak (under 70 GiB), the plain rotation's and the binning's time
+   against their bytes bound over 3.35 TB/s; harm2map(map2harm) within
+   1e-5 / 1e-12 of the input, the binned spectrum within 1e-6 of numpy's
+   bincount of the same |F|^2 (copied to the host once, outside the
+   timing), and no host <-> device copy above 1 MB in the profiled step.
+   rand_map of IQU at 1024 x 2048 in float64 on the card and on CPU
+   tensors from one seed within 1e-12. With --phases flat alone the
+   hand-written kernels are not built.
 
 It prints the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and yardstick, and as the last line
@@ -1204,9 +1226,9 @@ def roundtrip(lmax, shape, dtype, alm_tol, spin=(0,), device="cuda", seed=0):
 	alm = curvedsky.rand_alm(ps, lmax=lmax, seed=seed, dtype=cdt, device=device)
 	if list(spin) == [0]: alm = alm[0]
 	mshape = gshape if alm.ndim == 1 else (alm.shape[0],) + gshape
-	m = curvedsky.alm2map(alm, enmap.zeros(mshape, wcs, dtype, device), spin=list(spin))
+	m = curvedsky.alm2map(alm, enmap.zeros(mshape, wcs, dtype, device=device), spin=list(spin))
 	alm2 = curvedsky.map2alm(m, lmax=lmax, spin=list(spin))
-	m2 = curvedsky.alm2map(alm2, enmap.zeros(mshape, wcs, dtype, device), spin=list(spin))
+	m2 = curvedsky.alm2map(alm2, enmap.zeros(mshape, wcs, dtype, device=device), spin=list(spin))
 	if device == "cuda": torch.cuda.synchronize()
 	for name, x, want in [("map", m.data, mshape), ("alm", alm2, alm.shape),
 			("map2", m2.data, mshape)]:
@@ -1228,7 +1250,7 @@ def deriv_pair(lmax, shape, dtype, device="cuda", seed=2):
 	gshape, wcs = enmap.fullsky_geometry(shape=shape, variant="fejer1")
 	# drawn in complex128 for both dtypes: rand_alm draws another stream in complex64
 	alm = curvedsky.rand_alm(np.ones(lmax + 1), lmax=lmax, seed=seed, device=device).to(cdt)
-	d = curvedsky.alm2map(alm, enmap.zeros((2,) + gshape, wcs, dtype, device), deriv=True)
+	d = curvedsky.alm2map(alm, enmap.zeros((2,) + gshape, wcs, dtype, device=device), deriv=True)
 	a = curvedsky.map2alm(d, lmax=lmax, deriv=True)
 	if device == "cuda": torch.cuda.synchronize()
 	for x, want in [(d.data, (2,) + gshape), (a, alm.shape)]:
@@ -3168,7 +3190,232 @@ def general_phase(parent=None):
 	return records
 
 
-PHASES = ("k9", "kernels", "lstop", "slice", "adjoint", "blocked", "timing", "general")
+# ---------------------------------------------------------------------------
+# 8. flat: the flat-sky path (BASELINE config 1 and an ACT DR6-sized band)
+# ---------------------------------------------------------------------------
+FLAT_BINS = 64                                  # scripts/benchmark_baseline.py:64
+FLAT_RT_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}   # ifft(fft) / harm2map(map2harm)
+FLAT_CPU_TOL = 1e-12                            # card against CPU tensors, float64
+FLAT_BIN_TOL = 1e-6                             # lbin against numpy's bincount
+FLAT_MEM_GIB = 70
+FLAT_COPY_BYTES = 1 << 20                       # no host <-> device copy above this in a step
+
+
+def flat_time(fn, nstep, nrep=7):
+	"""(median, min, max) ms of one call of fn: CUDA events around nstep
+	calls, nrep times, after one warm-up call."""
+	fn()
+	torch.cuda.synchronize()
+	times = []
+	for _ in range(nrep):
+		t0 = torch.cuda.Event(enable_timing=True)
+		t1 = torch.cuda.Event(enable_timing=True)
+		t0.record()
+		for _ in range(nstep): fn()
+		t1.record()
+		torch.cuda.synchronize()
+		times.append(t0.elapsed_time(t1)/nstep)
+	return float(np.median(times)), min(times), max(times)
+
+
+def flat_profile(fn, rows, label):
+	"""(wall ms, device busy ms) of fn under the profiler, whose device time
+	by op it prints (rows rows); fails on a host <-> device copy above
+	FLAT_COPY_BYTES, read from the trace's memcpy records (their bytes, or
+	where a record has none, a duration above 50 us)."""
+	from torch.profiler import profile, ProfilerActivity
+	with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+		h0 = time.perf_counter()
+		fn()
+		torch.cuda.synchronize()
+		wall = (time.perf_counter() - h0)*1e3
+	ka = prof.key_averages()
+	key = _device_key(ka)
+	busy = sum(getattr(e, key) for e in ka if e.device_type == torch.autograd.DeviceType.CUDA
+		and not getattr(e, "is_user_annotation", False))/1e3
+	print(ka.table(sort_by=key, row_limit=rows, max_name_column_width=56))
+	path = os.path.join(ROOT, "build", "flat_trace.json")
+	os.makedirs(os.path.dirname(path), exist_ok=True)
+	prof.export_chrome_trace(path)
+	with open(path) as f: events = json.load(f)["traceEvents"]
+	os.remove(path)
+	copies = [(e.get("name", ""), (e.get("args") or {}).get("bytes"), e.get("dur", 0)) for e in events
+		if e.get("cat") == "gpu_memcpy" and ("HtoD" in e.get("name", "") or "DtoH" in e.get("name", ""))]
+	big = [c for c in copies if (c[1] is not None and c[1] > FLAT_COPY_BYTES) or (c[1] is None and c[2] > 50)]
+	print("flat %s: one profiled call: wall %.3f ms, device busy %.3f ms (%.1f %%); %d host <-> device "
+		"copies, largest %s bytes" % (label, wall, busy, 100*busy/wall, len(copies),
+		max((c[1] or 0 for c in copies), default=0)))
+	if big: raise RuntimeError("flat %s: host <-> device copies above %d bytes: %s" % (label, FLAT_COPY_BYTES, big))
+	return wall, busy
+
+
+def flat_cfg1_geometry():
+	"""BASELINE config 1's geometry (scripts/benchmark_baseline.py:60-61)."""
+	from pixell_tpu_torch import enmap, utils
+	return enmap.geometry(pos=[[-5*utils.degree, 5*utils.degree], [5*utils.degree, -5*utils.degree]],
+		shape=(256, 512), proj="car")
+
+
+def flat_cfg1_bins(shape, wcs, device):
+	"""Config 1's bin of each Fourier pixel: FLAT_BINS equal bins of |l|
+	from 0 to its largest (scripts/benchmark_baseline.py:62-64), and each
+	bin's count (at least 1)."""
+	from pixell_tpu_torch import enmap
+	l = enmap.modlmap(shape, wcs, device=device).data.reshape(-1)
+	edges = torch.linspace(0, float(l.max()), FLAT_BINS + 1, dtype=torch.float64, device=device)
+	ibin = (torch.searchsorted(edges, l) - 1).clamp_(0, FLAT_BINS - 1)
+	return ibin, torch.bincount(ibin, minlength=FLAT_BINS).clamp_(min=1)
+
+
+def flat_cfg1_step(m, ibin, cnt):
+	"""Config 1's step (scripts/benchmark_baseline.py:65-72): (the map back
+	from ifft(fft), its binned 2d spectrum), the bins summed in float64."""
+	from pixell_tpu_torch import enmap
+	fm = enmap.fft(m)
+	p2d = enmap.calc_ps2d(fm).data.reshape(-1).to(torch.float64)
+	cl = torch.zeros(FLAT_BINS, dtype=torch.float64, device=p2d.device).index_add_(0, ibin, p2d)
+	return enmap.ifft(fm).real.data, (cl/cnt).to(m.dtype)
+
+
+def flat_cfg1(dtype):
+	"""Config 1 in dtype: guards, then the timing and one profile."""
+	from pixell_tpu_torch import enmap
+	shape, wcs = flat_cfg1_geometry()
+	ibin, cnt = flat_cfg1_bins(shape, wcs, DEV)
+	x = torch.from_numpy(np.random.default_rng(0).standard_normal(shape)).to(DEV, dtype)
+	m = enmap.ndmap(x, wcs)
+	back, cl = flat_cfg1_step(m, ibin, cnt)
+	err = relerr(back, x)
+	tag = str(dtype)[6:]
+	line = "flat config 1 %s: ifft(fft) rel err %.3e (bound %.0e)" % (tag, err, FLAT_RT_TOL[dtype])
+	if dtype == torch.float64:
+		cib, ccnt = flat_cfg1_bins(shape, wcs, "cpu")
+		_, ccl = flat_cfg1_step(enmap.ndmap(x.cpu(), wcs), cib, ccnt)
+		cerr = relerr(cl.cpu(), ccl)
+		line += "; spectrum against CPU tensors %.3e (bound %.0e)" % (cerr, FLAT_CPU_TOL)
+		if not cerr <= FLAT_CPU_TOL: raise RuntimeError(line)
+	print(line)
+	if not err <= FLAT_RT_TOL[dtype]: raise RuntimeError(line)
+	med, lo, hi = flat_time(lambda: flat_cfg1_step(m, ibin, cnt), 100)
+	def rep():
+		for _ in range(100): flat_cfg1_step(m, ibin, cnt)
+	wall, busy = flat_profile(rep, 10, "config 1 %s, 100 steps" % tag)
+	print("flat config 1 %s: %.4f ms a step (median of 7 repeats of 100 steps; min %.4f, max %.4f); device "
+		"busy %.1f %% of one profiled repeat" % (tag, med, lo, hi, 100*busy/wall))
+
+
+def flat_bins_host(shape, wcs, ps):
+	"""lbin of ps [..., ny, nx] (a host float64 copy) by numpy: the bin of
+	each Fourier pixel from the host l axes, np.bincount sums and counts."""
+	from pixell_tpu_torch import enmap
+	ly, lx = enmap.laxes(shape, wcs)
+	bsize = min(abs(lx[1]), abs(ly[1]))
+	pix = (np.sqrt(ly[:, None]**2 + lx[None, :]**2)/bsize).astype(int).reshape(-1)
+	nhit = np.bincount(pix)
+	flat = ps.reshape((-1, pix.size))
+	return np.array([np.bincount(pix, weights=f, minlength=nhit.size) for f in flat])/np.maximum(nhit, 1)
+
+
+def flat_dr6(dtype):
+	"""The DR6-sized band in dtype: IQU through map2harm / lbin / harm2map
+	in float32, T through fft / lbin / ifft in float64."""
+	from pixell_tpu_torch import enmap, utils
+	shape, wcs = enmap.band_geometry(np.array([-63, 23])*utils.degree, res=0.5*utils.arcmin)
+	iqu = dtype == torch.float32
+	mshape = ((3,) if iqu else ()) + tuple(shape)
+	tag = "IQU float32" if iqu else "T float64"
+	gen = torch.Generator(device=DEV)
+	gen.manual_seed(17)
+	torch.cuda.synchronize()
+	torch.cuda.reset_peak_memory_stats()
+	m = enmap.ndmap(torch.randn(mshape, generator=gen, device=DEV, dtype=dtype), wcs)
+	if iqu:
+		fwd = lambda x: enmap.map2harm(x, normalize="phys", spin=[0, 2])
+		inv = lambda f: enmap.harm2map(f, normalize="phys", spin=[0, 2])
+	else:
+		fwd = lambda x: enmap.fft(x)
+		inv = lambda f: enmap.ifft(f).real
+	def step():
+		f = fwd(m)
+		vals = enmap.lbin(enmap.calc_ps2d(f))[0]
+		return inv(f), vals
+	back, vals = step()
+	err = relerr(back.data, m.data)
+	del back
+	torch.cuda.synchronize()
+	peak = torch.cuda.max_memory_allocated()/2**30
+	print("flat DR6 %s: %s map, harm2map(map2harm) rel err %.3e (bound %.0e); %d bins; peak device memory "
+		"%.2f GiB (bound %d)" % (tag, mshape, err, FLAT_RT_TOL[dtype], vals.shape[-1], peak, FLAT_MEM_GIB))
+	if not err <= FLAT_RT_TOL[dtype]: raise RuntimeError("flat DR6 %s: roundtrip error %g" % (tag, err))
+	if not peak < FLAT_MEM_GIB: raise RuntimeError("flat DR6 %s: peak memory %.2f GiB" % (tag, peak))
+	# the binned spectrum against numpy's bincount of the same |F|^2
+	f = fwd(m)
+	ps = enmap.calc_ps2d(f)
+	got = enmap.lbin(ps)[0].cpu().numpy().reshape(-1, vals.shape[-1])
+	want = flat_bins_host(shape, wcs, ps.data.cpu().numpy().astype(np.float64))
+	berr = float(np.max(np.abs(got - want))/np.max(np.abs(want)))
+	print("flat DR6 %s: lbin against numpy's bincount of the same |F|^2: rel err %.3e (bound %.0e)" % (
+		tag, berr, FLAT_BIN_TOL))
+	if not berr <= FLAT_BIN_TOL: raise RuntimeError("flat DR6 %s: binned spectrum off by %g" % (tag, berr))
+	# stages, and the two passes a later kernel could take: the rotation (in
+	# place on a copy of f) and the binning, against their bytes bounds
+	n = int(np.prod(shape))
+	esize = torch.finfo(dtype).bits//8
+	stages = [("forward" if not iqu else "map2harm", lambda: fwd(m)), ("calc_ps2d", lambda: enmap.calc_ps2d(f)),
+		("lbin", lambda: enmap.lbin(ps)), ("inverse" if not iqu else "harm2map", lambda: inv(f))]
+	for name, fn in stages:
+		med, lo, hi = flat_time(fn, 1, 3)
+		print("flat DR6 %s: stage %s %.3f ms (median of 3; min %.3f, max %.3f)" % (tag, name, med, lo, hi))
+	nb = ps.data.numel()*esize   # lbin reads |F|^2 once
+	med, lo, hi = flat_time(lambda: enmap.lbin(ps), 1, 3)
+	print("flat DR6 %s: binning %.3f ms, bytes bound %.3f ms (%.1f %%; %.2f GB read)" % (tag, med,
+		1e3*nb/PEAK_BYTES, 100*1e3*nb/PEAK_BYTES/med, nb/1e9))
+	if iqu:
+		from pixell_tpu_torch.enmap import _rotate_spins
+		g = f.data.clone()
+		nr = 4*n*2*esize   # Q and U read and written, complex
+		med, lo, hi = flat_time(lambda: _rotate_spins(g, wcs, [0, 2], False, False), 1, 3)
+		print("flat DR6 %s: QU -> EB rotation %.3f ms, bytes bound %.3f ms (%.1f %%; %.2f GB)" % (tag, med,
+			1e3*nr/PEAK_BYTES, 100*1e3*nr/PEAK_BYTES/med, nr/1e9))
+		del g
+	del f, ps
+	torch.cuda.empty_cache()
+	torch.cuda.reset_peak_memory_stats()
+	med, lo, hi = flat_time(step, 1)
+	wall, busy = flat_profile(step, 12, "DR6 %s step" % tag)
+	print("flat DR6 %s: %.3f ms a step (median of 7; min %.3f, max %.3f); device busy %.1f %% of one profiled "
+		"step; peak %.2f GiB" % (tag, med, lo, hi, 100*busy/wall, torch.cuda.max_memory_allocated()/2**30))
+	del m
+	torch.cuda.empty_cache()
+
+
+def flat_rand_map():
+	"""rand_map of IQU at 1024 x 2048 in float64, on the card and on CPU
+	tensors from one seed."""
+	from pixell_tpu_torch import enmap, utils
+	shape, wcs = enmap.geometry(pos=np.array([[-10, 20], [10, -20]])*utils.degree, shape=(1024, 2048),
+		proj="car")
+	l = np.arange(30000.)
+	cov = np.zeros((3, 3, l.size))
+	cov[0, 0] = 1/(l + 10)**2
+	cov[1, 1] = cov[2, 2] = 0.1/(l + 10)**2
+	cov[0, 1] = cov[1, 0] = 0.2/(l + 10)**2
+	got = enmap.rand_map((3,) + shape, wcs, cov, seed=5, device=DEV)
+	want = enmap.rand_map((3,) + shape, wcs, cov, seed=5, device="cpu")
+	err = relerr(got.data.cpu(), want.data)
+	print("flat rand_map IQU (3, 1024, 2048) float64: card against CPU tensors rel err %.3e (bound %.0e)" % (
+		err, FLAT_CPU_TOL))
+	if not err <= FLAT_CPU_TOL: raise RuntimeError("flat rand_map: card and CPU differ by %g" % err)
+
+
+def flat_phase():
+	"""Config 1 in float32 and float64, the DR6 band, rand_map."""
+	for dt in (torch.float32, torch.float64): flat_cfg1(dt)
+	for dt in (torch.float32, torch.float64): flat_dr6(dt)
+	flat_rand_map()
+
+
+PHASES = ("k9", "kernels", "lstop", "slice", "adjoint", "blocked", "timing", "general", "flat")
 EXTRA_PHASES = ("variants", "blkprobe")   # run only when named
 
 
@@ -3196,24 +3443,26 @@ def main():
 		sys.version.split()[0]))
 	torch.backends.cuda.matmul.allow_tf32 = False
 	torch.backends.cudnn.allow_tf32 = False
-	h0 = time.perf_counter()
-	with ThreadPoolExecutor(2) as ex:   # the parent's build beside this tree's
-		lib = ex.submit(sht_cuda.library)
-		parent = None if args.parent is None else ex.submit(parent_library, args.parent)
-		lib.result()
-		parent = parent and parent.result()
-	print("kernel build + load: %.1f s%s" % (time.perf_counter() - h0, "" if parent is None else
-		" (with the parent's %s from %s)" % (" and ".join(f for f, has in (("legendre.cu",
-		parent.has_legendre), ("blockleg.cu", parent.has_blk), ("nufft.cu", parent.has_nufft)) if has),
-		args.parent)))
-	# the parent's legendre.cu serves the kernels, timing and variants phases, its
-	# blockleg.cu the blocked phase
-	blk_parent = parent if parent is not None and parent.has_blk else None
-	nufft_parent = parent if parent is not None and parent.has_nufft else None
-	parent = parent if parent is not None and parent.has_legendre else None
-	build_rows = print_build_summary((_build.build_dir()/"build.log").read_text())
-	f64_build_check(build_rows)
-	nufft_build_check(build_rows)
+	parent = blk_parent = nufft_parent = None
+	if phases != ["flat"]:   # the flat path runs no hand-written kernel
+		h0 = time.perf_counter()
+		with ThreadPoolExecutor(2) as ex:   # the parent's build beside this tree's
+			lib = ex.submit(sht_cuda.library)
+			parent = None if args.parent is None else ex.submit(parent_library, args.parent)
+			lib.result()
+			parent = parent and parent.result()
+		print("kernel build + load: %.1f s%s" % (time.perf_counter() - h0, "" if parent is None else
+			" (with the parent's %s from %s)" % (" and ".join(f for f, has in (("legendre.cu",
+			parent.has_legendre), ("blockleg.cu", parent.has_blk), ("nufft.cu", parent.has_nufft)) if has),
+			args.parent)))
+		# the parent's legendre.cu serves the kernels, timing and variants phases, its
+		# blockleg.cu the blocked phase
+		blk_parent = parent if parent is not None and parent.has_blk else None
+		nufft_parent = parent if parent is not None and parent.has_nufft else None
+		parent = parent if parent is not None and parent.has_legendre else None
+		build_rows = print_build_summary((_build.build_dir()/"build.log").read_text())
+		f64_build_check(build_rows)
+		nufft_build_check(build_rows)
 	records, kernel_records, f64_records, launches, launches64 = [], {}, {}, {}, {}
 	blk_records, lstop_records, gen_records = {}, {}, []
 	if "k9" in phases:
@@ -3260,6 +3509,9 @@ def main():
 	if "general" in phases:
 		gen_records = general_phase(nufft_parent)
 		print("phase general done at %.1f s" % (time.perf_counter() - t_start))
+	if "flat" in phases:
+		flat_phase()
+		print("phase flat done at %.1f s" % (time.perf_counter() - t_start))
 	if "variants" in phases:
 		variants_phase(parent)
 		print("phase variants done at %.1f s" % (time.perf_counter() - t_start))

@@ -227,7 +227,7 @@ def rand_map(shape, wcs, ps, lmax=None, dtype=torch.float64, seed=None, spin=[0,
 	if lmax is None: lmax = get_lmax_from_map(Bunch(shape=shape, wcs=wcs))
 	cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
 	alm = rand_alm(ps, lmax=lmax, seed=seed, dtype=cdt, device=device)
-	return alm2map(alm, enmap.zeros(shape, wcs, dtype, device), spin=spin, method=method)
+	return alm2map(alm, enmap.zeros(shape, wcs, dtype, device=device), spin=spin, method=method)
 
 def get_lmax_from_map(m):
 	"""Nyquist-ish lmax for a cylindrical map geometry
@@ -430,7 +430,7 @@ def map2alm(map, alm=None, lmax=None, spin=[0, 2], deriv=False, adjoint=False,
 	with sht.accuracy(accuracy):
 		res = run(map.data)
 		for it in range(niter):
-			approx = alm2map(res, enmap.zeros(map.shape, map.wcs, map.dtype, map.device),
+			approx = alm2map(res, enmap.zeros(map.shape, map.wcs, map.dtype, device=map.device),
 				spin=spin, deriv=deriv, ainfo=ainfo, method=method, epsilon=epsilon, locinfo=locinfo)
 			res = res + run(map.data - approx.data)
 	return _into_alm(res, alm, copy, map.dtype)
@@ -789,7 +789,7 @@ def filter(imap, lfilter, ainfo=None, lmax=None):
 	if lmax is None: lmax = get_lmax_from_map(imap)
 	alm = map2alm(imap, lmax=lmax, ainfo=ainfo)
 	alm = almxfl(alm, lfilter, ainfo=alm_info(lmax=lmax) if ainfo is None else ainfo)
-	return alm2map(alm, enmap.zeros(imap.shape, imap.wcs, imap.dtype, imap.device))
+	return alm2map(alm, enmap.zeros(imap.shape, imap.wcs, imap.dtype, device=imap.device))
 
 
 def _op_replace(a, b): return b
@@ -1172,7 +1172,7 @@ def map2buffer(map, flip, pad, obuf=False):
 	zero."""
 	pad = np.asarray(pad, int)
 	shape, wcs = pad_geometry(*flip_geometry(map.shape, map.wcs, flip), pad)
-	buf = enmap.zeros(shape, wcs, map.dtype, map.device)
+	buf = enmap.zeros(shape, wcs, map.dtype, device=map.device)
 	if not obuf:
 		buf.data[..., pad[0, 0]:shape[-2]-pad[1, 0], pad[0, 1]:shape[-1]-pad[1, 1]] = \
 			flip_array(map, flip).data

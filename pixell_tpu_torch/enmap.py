@@ -1,18 +1,35 @@
 """ndmap: a sky map as a torch tensor plus its WCS (counterpart of
 pixell_tpu/enmap.py).
 
-Ports the core the curved-sky SHT path needs: the ndmap container
-(pixell_tpu/enmap.py:33), zeros/empty (on device="cuda" unless told
-otherwise; with no CUDA device they raise), samewcs
-(:319), pix2sky (:418), posaxes (:452), posmap (:460), pixsizemap (:641)
-on the geometries the port takes (separable CAR and plain), slice_geometry
-(:791) and fullsky_geometry (:1029).
-Geometry maths is host numpy; only the pixel data lives in a tensor.
+Ports the ndmap class (pixell_tpu/enmap.py:33-316: numpy-style arithmetic
+keeping the wcs, wcs-aware slicing, an out-of-place at_ updater) with its
+constructors and Geometry (:319-412); the pixel <-> sky coordinates, the
+extent, area and pixel-size functions and the geometry builders (:418-1069,
+:1950-2010), all host numpy as in the reference; and the flat-sky Fourier
+side (:699-789, :1268-1545, :2012-2249): fft / ifft / dct with their
+normalizations and adjoints, map2harm / harm2map with the spin rotation,
+the Fourier coordinates, binning, 2d spectra, filters, shifts and
+derivatives, and the flat random fields.
+
+Only maps live in tensors, and a function that takes a map computes on its
+device and returns there. The functions that make a map from a geometry
+(zeros, empty, ones, full, enmap from host data, posmap, pixsizemap,
+pixmap, lmap, modlmap, lrmap, modrmap, spec2flat, queb_rotmat of host
+data, the rand_* draws) put it on device="cuda" unless told otherwise; with
+no CUDA device they raise. The Fourier side builds nothing map-sized on the
+host: the rotation angles, the |l| of each Fourier pixel and lbin's bin
+index are computed on the device from the two multipole axes (laxes),
+which are copied there once per (shape, wcs, device). Random draws use
+numpy's default_rng(seed), as the reference does, so one seed gives the
+reference's numbers.
 """
 from __future__ import annotations
+import functools
+import operator
 import numpy as np
 import torch
 from . import utils, wcsutils
+from . import fft as enfft
 
 
 def get_unit(wcs):
@@ -20,17 +37,129 @@ def get_unit(wcs):
 	return 1.0 if wcsutils.is_plain(wcs) else utils.degree
 
 
-class ndmap:
-	"""A map: a torch tensor ``data`` and its ``wcs``. Arithmetic is done on
-	``data``; the geometry methods delegate to the module functions."""
-	__slots__ = ("data", "wcs")
+def _torch_dtype(dtype):
+	"""dtype (numpy or torch) as a torch dtype."""
+	if dtype is None or isinstance(dtype, torch.dtype): return dtype
+	return torch.from_numpy(np.empty(0, dtype)).dtype
 
-	def __init__(self, arr, wcs):
+
+def _tensor(x, device):
+	"""x as a tensor: an ndmap's data or a tensor as they are, anything else
+	on device."""
+	if isinstance(x, ndmap): return x.data
+	if isinstance(x, torch.Tensor): return x
+	return torch.as_tensor(np.asarray(x), device=device)
+
+
+# ---------------------------------------------------------------------------
+# Indexing with negative steps: torch refuses them, so a negative-step slice
+# becomes the positive slice over the same elements and the result is
+# flipped along that axis
+# ---------------------------------------------------------------------------
+def _is_int(s):
+	return isinstance(s, (int, np.integer)) and not isinstance(s, bool) or \
+		(isinstance(s, torch.Tensor) and s.ndim == 0 and not s.is_floating_point() and s.dtype != torch.bool)
+
+
+def _positive(sel, shape):
+	"""(sel with positive steps only, the result axes to flip, the input
+	axes to flip). Where sel has advanced (array) indices the result axes
+	cannot be traced, and the input axes are given instead: the caller flips
+	the input and indexes with the mirrored slices returned."""
+	if not isinstance(sel, tuple): sel = (sel,)
+	adv = any(not (s is None or s is Ellipsis or isinstance(s, slice) or _is_int(s)) for s in sel)
+	if Ellipsis in sel:
+		i = sel.index(Ellipsis)
+		nused = sum(1 for s in sel if s is not None and s is not Ellipsis)
+		sel = sel[:i] + (slice(None),)*(len(shape) - nused) + sel[i+1:]
+	out, rflip, iflip, idim, rdim = [], [], [], 0, 0
+	for s in sel:
+		if s is None:
+			out.append(s); rdim += 1
+			continue
+		if isinstance(s, slice):
+			n = shape[idim]
+			start, stop, step = s.indices(n)
+			if step < 0:
+				k = len(range(start, stop, step))
+				if adv:     # the same elements of the input flipped along idim
+					s = slice(n-1-start, n-1-start + k*(-step), -step) if k else slice(0, 0)
+					iflip.append(idim)
+				else:
+					s = slice(start + (k-1)*step, start + 1, -step) if k else slice(0, 0)
+					rflip.append(rdim)
+			out.append(s); idim += 1; rdim += 1
+			continue
+		out.append(s)
+		mask = (isinstance(s, np.ndarray) and s.dtype == bool) or \
+			(isinstance(s, torch.Tensor) and s.dtype == torch.bool)
+		idim += s.ndim if mask else 1
+	return tuple(out), rflip, iflip
+
+
+def _getitem(data, sel):
+	sel, rflip, iflip = _positive(sel, data.shape)
+	if iflip: return data.flip(iflip)[sel]
+	res = data[sel]
+	return res.flip(rflip) if rflip else res
+
+
+def _setitem(data, sel, val):
+	sel, rflip, iflip = _positive(sel, data.shape)
+	if iflip: raise IndexError("negative steps beside array indices are not supported in assignment")
+	if isinstance(val, torch.Tensor): val = val.to(data.device)
+	elif not np.isscalar(val): val = torch.as_tensor(np.asarray(val), device=data.device)
+	if rflip and isinstance(val, torch.Tensor): val = val.expand(data[sel].shape).flip(rflip)
+	data[sel] = val
+
+
+def _operand(x, device):
+	"""The other operand of an ndmap operator: an ndmap's data, a numpy array
+	as a tensor on device, a numpy scalar as a Python number."""
+	if isinstance(x, ndmap): return x.data
+	if isinstance(x, np.ndarray): return torch.as_tensor(x, device=device)
+	if isinstance(x, np.generic): return x.item()
+	return x
+
+
+class ndmap:
+	"""A map: a torch tensor ``data`` [..., ny, nx] and its ``wcs``
+	(pixell_tpu.enmap.ndmap :33).
+
+	Arithmetic works on ``data`` and keeps the wcs, with ndmaps, tensors,
+	numpy arrays and scalars on either side (a numpy array on the left
+	reaches the reflected operator; a torch function given an ndmap unwraps
+	it and wraps a result that keeps its pixel axes). In-place operators
+	write into ``data``. Slicing the pixel axes slices the wcs (negative
+	steps too); an integer or None there gives a bare tensor. ``at_`` is an
+	out-of-place updater: ``m.at_[sel].set(v)`` returns a new ndmap."""
+	__slots__ = ("data", "wcs")
+	__array_ufunc__ = None   # numpy defers to the reflected operators
+
+	def __init__(self, arr, wcs, copy=False, dtype=None):
 		if isinstance(arr, ndmap): arr = arr.data
-		if not isinstance(arr, torch.Tensor): arr = torch.as_tensor(arr)
+		if not isinstance(arr, torch.Tensor): arr = torch.as_tensor(np.asarray(arr))
+		if dtype is not None: arr = arr.to(_torch_dtype(dtype))
+		if copy: arr = arr.clone()
 		self.data = arr
 		self.wcs = wcs
 
+	@classmethod
+	def __torch_function__(cls, func, types, args=(), kwargs=None):
+		ref = []
+		def unwrap(x):
+			if isinstance(x, ndmap):
+				ref.append(x)
+				return x.data
+			if isinstance(x, (tuple, list)): return type(x)(unwrap(y) for y in x)
+			return x
+		res = func(*unwrap(args), **{k: unwrap(v) for k, v in (kwargs or {}).items()})
+		m = ref[0]
+		if isinstance(res, torch.Tensor) and res.ndim >= 2 and tuple(res.shape[-2:]) == m.shape[-2:]:
+			return ndmap(res, m.wcs)
+		return res
+
+	# ----- introspection -----
 	@property
 	def shape(self): return tuple(self.data.shape)
 	@property
@@ -39,14 +168,192 @@ class ndmap:
 	def dtype(self): return self.data.dtype
 	@property
 	def device(self): return self.data.device
+	@property
+	def size(self): return self.data.numel()
+	@property
+	def nbytes(self): return self.data.numel()*self.data.element_size()
+	@property
+	def geometry(self): return self.shape, self.wcs
+	@property
+	def T(self): return ndmap(self.data.permute(*range(self.ndim-1, -1, -1)), self.wcs)
+	@property
+	def real(self): return ndmap(self.data.real, self.wcs)
+	@property
+	def imag(self): return ndmap(self.data.imag, self.wcs)
+	def __len__(self): return len(self.data)
 	def __repr__(self):
 		return "ndmap(%r,%s)" % (self.data, wcsutils.describe(self.wcs))
+	__str__ = __repr__
+
+	# ----- conversion -----
 	def __array__(self, dtype=None, copy=None):
 		return np.asarray(self.data.detach().cpu(), dtype=dtype)
-	def posaxes(self, safe=True, corner=False):
-		return posaxes(self.shape, self.wcs, safe=safe, corner=corner)
-	def pix2sky(self, pix, safe=True, corner=False):
-		return pix2sky(self.shape, self.wcs, pix, safe, corner)
+	def astype(self, dtype, copy=True):
+		return ndmap(self.data.to(_torch_dtype(dtype), copy=copy), self.wcs)
+	def copy(self, order=None):
+		return ndmap(self.data.clone(), self.wcs)
+	def item(self): return self.data.item()
+
+	# ----- array methods (numpy's names and defaults) -----
+	def reshape(self, *shape):
+		if len(shape) == 1 and isinstance(shape[0], (tuple, list)): shape = tuple(shape[0])
+		return ndmap(self.data.reshape(shape), self.wcs)
+	def sum(self, *a, **kw): return _sum(self.data, *a, **kw)
+	def mean(self, *a, **kw): return _mean(self.data, *a, **kw)
+	def std(self, *a, **kw): return _std(self.data, *a, **kw)
+	def var(self, *a, **kw): return _var(self.data, *a, **kw)
+	def min(self, *a, **kw): return _min(self.data, *a, **kw)
+	def max(self, *a, **kw): return _max(self.data, *a, **kw)
+	def conj(self): return ndmap(self.data.conj().resolve_conj(), self.wcs)
+	def ravel(self, *a, **kw): return self.data.reshape(-1)
+	def flatten(self, *a, **kw): return self.data.flatten()
+	def fill(self, val):
+		self.data.fill_(val)
+		return self
+	def preflat(self):
+		"""The map with all its leading dimensions flattened into one."""
+		return self.reshape((-1,) + self.shape[-2:])
+	def npix(self): return int(np.prod(self.shape[-2:]))
+
+	# ----- geometry methods (delegate to the module functions) -----
+	def box(self, npoint=10, corner=True): return box(self.shape, self.wcs, npoint=npoint, corner=corner)
+	def posmap(self, safe=True, corner=False, separable="auto", dtype=np.float64):
+		return posmap(self.shape, self.wcs, safe=safe, corner=corner, separable=separable, dtype=dtype,
+			device=self.device)
+	def posaxes(self, safe=True, corner=False, dtype=np.float64):
+		return posaxes(self.shape, self.wcs, safe=safe, corner=corner, dtype=dtype)
+	def pixmap(self): return pixmap(self.shape, self.wcs, device=self.device)
+	def laxes(self, oversample=1, method="auto"): return laxes(self.shape, self.wcs, oversample=oversample, method=method)
+	def lmap(self, oversample=1): return lmap(self.shape, self.wcs, oversample=oversample, device=self.device)
+	def modlmap(self, oversample=1, min=0):
+		return modlmap(self.shape, self.wcs, oversample=oversample, min=min, device=self.device)
+	def modrmap(self, ref="center", safe=True, corner=False):
+		return modrmap(self.shape, self.wcs, ref=ref, safe=safe, corner=corner, device=self.device)
+	def lform(self): return lform(self)
+	def pix2sky(self, pix, safe=True, corner=False): return pix2sky(self.shape, self.wcs, pix, safe, corner)
+	def sky2pix(self, coords, safe=True, corner=False): return sky2pix(self.shape, self.wcs, coords, safe, corner)
+	def pix2l(self, pix): return pix2l(self.shape, self.wcs, pix)
+	def l2pix(self, ls): return l2pix(self.shape, self.wcs, ls)
+	def contains(self, pos, unit="coord"): return contains(self.shape, self.wcs, pos, unit=unit)
+	def corners(self, npoint=10, corner=True): return corners(self.shape, self.wcs, npoint=npoint, corner=corner)
+	def center(self): return center(self.shape, self.wcs)
+	def extent(self, method="auto", signed=False): return extent(self.shape, self.wcs, method=method, signed=signed)
+	def area(self, method="auto"): return area(self.shape, self.wcs, method=method)
+	def pixsize(self): return pixsize(self.shape, self.wcs)
+	def pixshape(self, signed=False): return pixshape(self.shape, self.wcs, signed=signed)
+	def pixsizemap(self, separable="auto", broadcastable=False):
+		return pixsizemap(self.shape, self.wcs, separable=separable, broadcastable=broadcastable,
+			device=self.device)
+	def pixshapemap(self, separable="auto", signed=False):
+		return pixshapemap(self.shape, self.wcs, separable=separable, signed=signed, device=self.device)
+	def plain(self):
+		"""The same data on a plain coordinate system."""
+		return ndmap(self.data, wcsutils.explicit(crpix=[1, 1], crval=[0, 0], cdelt=[1, 1]))
+	def lbin(self, bsize=None, brel=1.0, return_nhit=False, lop=None):
+		return lbin(self, bsize=bsize, brel=brel, return_nhit=return_nhit, lop=lop)
+	def rbin(self, center=[0, 0], bsize=None, brel=1.0, return_nhit=False):
+		return rbin(self, center=center, bsize=bsize, brel=brel, return_nhit=return_nhit)
+	def lpixsize(self, signed=False, method="auto"):
+		return lpixsize(self.shape, self.wcs, signed=signed, method=method)
+	def lpixshape(self, signed=False, method="auto"):
+		return lpixshape(self.shape, self.wcs, signed=signed, method=method)
+	def fft(self, omap=None, nthread=0, normalize=True, adjoint_ifft=False, dct=False):
+		return fft(self, omap=omap, nthread=nthread, normalize=normalize, adjoint_ifft=adjoint_ifft, dct=dct)
+	def ifft(self, omap=None, nthread=0, normalize=True, adjoint_fft=False, dct=False):
+		return ifft(self, omap=omap, nthread=nthread, normalize=normalize, adjoint_fft=adjoint_fft, dct=dct)
+
+	# ----- indexing -----
+	def __getitem__(self, sel):
+		sel1, sel2 = utils.split_slice(sel, [self.ndim-2, 2])
+		if len(sel2) > 2: raise IndexError("too many indices")
+		if len(sel2) == 0: return ndmap(_getitem(self.data, sel), self.wcs)
+		# an integer, None or an array on a pixel axis: no longer a map
+		if not all(isinstance(s, slice) for s in sel2): return _getitem(self.data, sel)
+		_, wcs = slice_geometry(self.shape[-2:], self.wcs, sel2)
+		return ndmap(_getitem(self.data, sel), wcs)
+
+	def __setitem__(self, sel, val):
+		_setitem(self.data, sel, _operand(val, self.device))
+
+	@property
+	def at_(self): return _NdmapAt(self)
+
+	def __iter__(self):
+		for i in range(self.shape[0]): yield self[i]
+
+
+# the reductions with numpy's parameters (axis, dtype, ddof, keepdims)
+def _sum(d, axis=None, dtype=None, keepdims=False):
+	return torch.sum(d, dim=axis, keepdim=keepdims, dtype=_torch_dtype(dtype))
+def _mean(d, axis=None, dtype=None, keepdims=False):
+	return torch.mean(d, dim=axis, keepdim=keepdims, dtype=_torch_dtype(dtype))
+def _std(d, axis=None, dtype=None, ddof=0, keepdims=False):
+	return torch.std(d, dim=axis, correction=ddof, keepdim=keepdims)
+def _var(d, axis=None, dtype=None, ddof=0, keepdims=False):
+	return torch.var(d, dim=axis, correction=ddof, keepdim=keepdims)
+def _min(d, axis=None, keepdims=False):
+	return d.min() if axis is None else torch.amin(d, axis, keepdims)
+def _max(d, axis=None, keepdims=False):
+	return d.max() if axis is None else torch.amax(d, axis, keepdims)
+
+
+class _NdmapAt:
+	"""m.at_[sel].set(v) (add, multiply, max, min): a new ndmap with the
+	update, m unchanged."""
+	def __init__(self, m): self.m = m
+	def __getitem__(self, sel): return _NdmapAtSel(self.m, sel)
+
+class _NdmapAtSel:
+	def __init__(self, m, sel): self.m, self.sel = m, sel
+	def _apply(self, op, val):
+		data = self.m.data.clone()
+		val = _operand(val, data.device)
+		if op != "set":
+			cur = _getitem(data, self.sel)
+			val = {"add": torch.add, "multiply": torch.mul, "max": torch.maximum,
+				"min": torch.minimum}[op](cur, torch.as_tensor(val, device=data.device))
+		_setitem(data, self.sel, val)
+		return ndmap(data, self.m.wcs)
+	def set(self, val): return self._apply("set", val)
+	def add(self, val): return self._apply("add", val)
+	def multiply(self, val): return self._apply("multiply", val)
+	def max(self, val): return self._apply("max", val)
+	def min(self, val): return self._apply("min", val)
+
+
+def _binop(name, op, reflected=False):
+	def fun(self, other):
+		o = _operand(other, self.device)
+		try: res = op(o, self.data) if reflected else op(self.data, o)
+		except TypeError: return NotImplemented
+		return ndmap(res, self.wcs)
+	fun.__name__ = name
+	return fun
+
+def _ibinop(name, op):
+	def fun(self, other):
+		self.data = op(self.data, _operand(other, self.device))
+		return self
+	fun.__name__ = name
+	return fun
+
+for _name, _op, _iop in [("add", operator.add, operator.iadd), ("sub", operator.sub, operator.isub),
+		("mul", operator.mul, operator.imul), ("truediv", operator.truediv, operator.itruediv),
+		("floordiv", operator.floordiv, operator.ifloordiv), ("mod", operator.mod, operator.imod),
+		("pow", operator.pow, operator.ipow), ("and", operator.and_, operator.iand),
+		("or", operator.or_, operator.ior), ("xor", operator.xor, operator.ixor),
+		("lshift", operator.lshift, operator.ilshift), ("rshift", operator.rshift, operator.irshift),
+		("matmul", operator.matmul, operator.imatmul)]:
+	setattr(ndmap, "__%s__" % _name, _binop("__%s__" % _name, _op))
+	setattr(ndmap, "__r%s__" % _name, _binop("__r%s__" % _name, _op, reflected=True))
+	setattr(ndmap, "__i%s__" % _name, _ibinop("__i%s__" % _name, _iop))
+for _name, _op in [("lt", operator.lt), ("le", operator.le), ("gt", operator.gt),
+		("ge", operator.ge), ("eq", operator.eq), ("ne", operator.ne)]:
+	setattr(ndmap, "__%s__" % _name, _binop("__%s__" % _name, _op))
+ndmap.__neg__ = lambda self: ndmap(-self.data, self.wcs)
+ndmap.__pos__ = lambda self: self
+ndmap.__abs__ = lambda self: ndmap(abs(self.data), self.wcs)
+ndmap.__invert__ = lambda self: ndmap(~self.data, self.wcs)
 
 
 def samewcs(arr, *args):
@@ -58,16 +365,88 @@ def samewcs(arr, *args):
 	return arr
 
 
-def zeros(shape, wcs=None, dtype=torch.float64, device="cuda"):
+# ---------------------------------------------------------------------------
+# Constructors (pixell_tpu/enmap.py:331-412)
+# ---------------------------------------------------------------------------
+def enmap(arr, wcs=None, dtype=None, copy=True, *, device="cuda"):
+	"""An ndmap of arr (pixell_tpu.enmap.enmap :331): a tensor or an ndmap
+	stays on its device, host data goes to device. The wcs defaults to
+	arr's (or the first map's of a list of maps), else a plain one."""
+	if wcs is None:
+		if isinstance(arr, ndmap): wcs = arr.wcs
+		elif isinstance(arr, (list, tuple)) and len(arr) > 0 and isinstance(arr[0], ndmap): wcs = arr[0].wcs
+		else: wcs = wcsutils.WCS(naxis=2)
+	if isinstance(arr, (list, tuple)) and len(arr) > 0 and isinstance(arr[0], (ndmap, torch.Tensor)):
+		arr = torch.stack([_tensor(a, device) for a in arr])
+	elif isinstance(arr, ndmap): arr = arr.data
+	elif not isinstance(arr, torch.Tensor): arr = torch.as_tensor(np.asarray(arr), device=device)
+	if dtype is not None: arr = arr.to(_torch_dtype(dtype))
+	if copy: arr = arr.clone()
+	return ndmap(arr, wcs)
+
+
+def zeros(shape, wcs=None, dtype=torch.float64, *, device="cuda"):
 	if wcs is None: wcs = wcsutils.WCS(naxis=2)
-	return ndmap(torch.zeros(shape, dtype=dtype, device=device), wcs)
+	return ndmap(torch.zeros(shape, dtype=_torch_dtype(dtype), device=device), wcs)
 
-def empty(shape, wcs=None, dtype=torch.float64, device="cuda"):
+def empty(shape, wcs=None, dtype=torch.float64, *, device="cuda"):
 	if wcs is None: wcs = wcsutils.WCS(naxis=2)
-	return ndmap(torch.empty(shape, dtype=dtype, device=device), wcs)
+	return ndmap(torch.empty(shape, dtype=_torch_dtype(dtype), device=device), wcs)
+
+def ones(shape, wcs=None, dtype=None, *, device="cuda"):
+	if wcs is None: wcs = wcsutils.WCS(naxis=2)
+	return ndmap(torch.ones(shape, dtype=_torch_dtype(dtype) or torch.float64, device=device), wcs)
+
+def full(shape, wcs, val, dtype=None, *, device="cuda"):
+	"""A map of val everywhere; the dtype defaults to numpy's for val."""
+	dtype = _torch_dtype(np.asarray(val).dtype if dtype is None else dtype)
+	return ndmap(torch.full(tuple(shape), val, dtype=dtype, device=device), wcs)
 
 
-def pix2sky(shape, wcs, pix, safe=True, corner=False):
+class Geometry:
+	"""A (shape, wcs) pair with wcs-aware slicing (pixell_tpu.enmap.Geometry)."""
+	def __init__(self, shape, wcs=None):
+		if isinstance(shape, Geometry): shape, wcs = shape.shape, shape.wcs
+		elif hasattr(shape, "wcs"): shape, wcs = tuple(shape.shape), shape.wcs
+		self.shape = tuple(shape)
+		self.wcs = wcs
+	@property
+	def npix(self): return int(np.prod(self.shape[-2:]))
+	@property
+	def nopre(self): return Geometry(self.shape[-2:], self.wcs)
+	def scale(self, scale):
+		scale = np.zeros(2) + scale
+		oshape = self.shape[:-2] + tuple(int(n) for n in utils.nint(np.array(self.shape[-2:])*scale))
+		return Geometry(oshape, wcsutils.scale(self.wcs, scale[::-1]))
+	def copy(self): return Geometry(self.shape, self.wcs.deepcopy())
+	def sky2pix(self, coords, safe=True, corner=False): return sky2pix(self.shape, self.wcs, coords, safe, corner)
+	def pix2sky(self, pix, safe=True, corner=False): return pix2sky(self.shape, self.wcs, pix, safe, corner)
+	def l2pix(self, ls): return l2pix(self.shape, self.wcs, ls)
+	def pix2l(self, pix): return pix2l(self.shape, self.wcs, pix)
+	def with_pre(self, pre):
+		"""The same pixels with the leading dimensions pre."""
+		return Geometry(tuple(pre) + self.shape[-2:], self.wcs)
+	def __getitem__(self, sel):
+		sel1, sel2 = utils.split_slice(sel, [len(self.shape)-2, 2])
+		shape, wcs = slice_geometry(self.shape, self.wcs, sel2)
+		pre = np.empty(self.shape[:-2])[sel1].shape if len(self.shape) > 2 else ()
+		return Geometry(pre + shape[-2:], wcs)
+	def __iter__(self):
+		yield self.shape
+		yield self.wcs
+	def __len__(self): return 2
+	def __eq__(self, other):
+		return tuple(self.shape) == tuple(other.shape) and wcsutils.equal(self.wcs, other.wcs)
+	def __repr__(self): return "Geometry(%s,%s)" % (str(self.shape), wcsutils.describe(self.wcs))
+
+
+def geometry_of(m): return Geometry(m.shape, m.wcs)
+
+
+# ---------------------------------------------------------------------------
+# Pixel <-> sky coordinates (pixell_tpu/enmap.py:418-543); host numpy
+# ---------------------------------------------------------------------------
+def pix2sky(shape, wcs, pix, safe=True, corner=False, bcheck=False):
 	"""Pixel coordinates [{y,x},...] -> sky coordinates [{dec,ra},...] in
 	radians, as numpy (pixell_tpu.enmap.pix2sky)."""
 	pix = np.asarray(pix).astype(float)
@@ -82,16 +461,308 @@ def pix2sky(shape, wcs, pix, safe=True, corner=False):
 	return coords
 
 
-def posaxes(shape, wcs, safe=True, corner=False):
+def sky2pix(shape, wcs, coords, safe=True, corner=False, bcheck=False):
+	"""Sky coordinates [{dec,ra},...] in radians -> pixel coordinates
+	[{y,x},...], as numpy (pixell_tpu.enmap.sky2pix :433). safe puts the
+	angle cut as far from the map as possible (safe=2: unwound)."""
+	coords = np.asarray(coords)/get_unit(wcs)
+	x, y = wcsutils.world2pix(wcs, coords[1], coords[0], 0)
+	if corner: x, y = x + 0.5, y + 0.5
+	if safe and not wcsutils.is_plain(wcs):
+		refx = shape[-1]/2. + (0.5 if corner else 0)
+		wn = abs(360./wcs.wcs.cdelt[0])
+		if safe == 1: x = utils.rewind(x, refx, wn)
+		elif np.ndim(x) > 0: x = utils.unwind(x, period=wn, ref=refx, refmode="middle")
+	return np.stack([np.asarray(y), np.asarray(x)])
+
+
+def posaxes(shape, wcs, safe=True, corner=False, dtype=np.float64, bcheck=False):
 	"""(dec[ny], ra[nx]) axes of a separable geometry, in radians
 	(pixell_tpu.enmap.posaxes)."""
 	y = np.arange(shape[-2], dtype=float)
 	x = np.arange(shape[-1], dtype=float)
-	dec = pix2sky(shape, wcs, np.array([y, y*0]), safe=safe, corner=corner)[0]
-	ra = pix2sky(shape, wcs, np.array([x*0, x]), safe=safe, corner=corner)[1]
+	dec = pix2sky(shape, wcs, np.array([y, y*0]), safe=safe, corner=corner)[0].astype(dtype, copy=False)
+	ra = pix2sky(shape, wcs, np.array([x*0, x]), safe=safe, corner=corner)[1].astype(dtype, copy=False)
 	return dec, ra
 
 
+def _posmap_np(shape, wcs, safe=True, corner=False, separable="auto"):
+	"""posmap's [{dec, ra}, ny, nx] as float64 numpy."""
+	if separable == "auto": separable = wcsutils.is_separable(wcs)
+	if separable:
+		dec, ra = posaxes(shape, wcs, safe=safe, corner=corner)
+		res = np.empty((2,) + tuple(shape[-2:]))
+		res[0] = dec[:, None]
+		res[1] = ra[None, :]
+		return res
+	return np.asarray(pix2sky(shape, wcs, np.mgrid[:shape[-2], :shape[-1]], safe, corner), float)
+
+
+def posmap(shape, wcs, safe=True, corner=False, separable="auto", dtype=np.float64, bsize=1e6,
+		bcheck=False, *, device="cuda"):
+	"""The sky coordinates [{dec, ra}, ny, nx] of each pixel, in radians, as
+	an ndmap on device (pixell_tpu.enmap.posmap :460): broadcast on the
+	device from the two axes where the geometry is separable. bsize and
+	bcheck are accepted and ignored."""
+	if separable == "auto": separable = wcsutils.is_separable(wcs)
+	dt = _torch_dtype(dtype)
+	if separable:
+		dec, ra = (torch.from_numpy(a).to(device=device, dtype=dt) for a in posaxes(shape, wcs, safe, corner))
+		res = torch.stack(torch.broadcast_tensors(dec[:, None], ra[None, :]))
+	else:
+		res = torch.from_numpy(_posmap_np(shape, wcs, safe, corner, separable)).to(device=device, dtype=dt)
+	return ndmap(res, wcs)
+
+
+def pixmap(shape, wcs=None, *, device="cuda"):
+	"""The pixel coordinates [{y, x}, ny, nx] of each pixel (int64; an ndmap
+	where wcs is given)."""
+	res = torch.stack(torch.meshgrid(torch.arange(shape[-2], device=device),
+		torch.arange(shape[-1], device=device), indexing="ij"))
+	return res if wcs is None else ndmap(res, wcs)
+
+
+def pix2l(shape, wcs, pix):
+	"""Fourier-pixel coordinates [{y,x},...] -> 2d multipole [{ly,lx},...]."""
+	pix = np.asanyarray(pix)
+	pshape = pixshape(shape, wcs, signed=True)
+	ly = enfft.ind2freq(shape[-2], pix[0], pshape[0]/(2*np.pi))
+	lx = enfft.ind2freq(shape[-1], pix[1], pshape[1]/(2*np.pi))
+	return np.stack([ly, lx])
+
+
+def l2pix(shape, wcs, ls):
+	"""2d multipole [{ly,lx},...] -> Fourier-pixel coordinates [{y,x},...]."""
+	ls = np.asanyarray(ls)
+	pshape = pixshape(shape, wcs, signed=True)
+	py = enfft.freq2ind(shape[-2], ls[0], pshape[0]/(2*np.pi))
+	px = enfft.freq2ind(shape[-1], ls[1], pshape[1]/(2*np.pi))
+	return np.stack([py, px])
+
+
+def contains(shape, wcs, pos, unit="coord"):
+	"""Whether each point pos[{dec,ra},...] (or pixel, unit="pix") lies in
+	the geometry."""
+	pix = np.asarray(sky2pix(shape, wcs, pos) if unit == "coord" else pos)
+	return np.all((pix >= 0) & (pix.T < shape[-2:]).T, 0)
+
+
+def corners(shape, wcs, npoint=10, corner=True):
+	"""The [{from,to},{dec,ra}] coordinates of the first and last pixel (at
+	their outer corners with corner)."""
+	pix = np.array([[-0.5, -0.5], [shape[-2]-0.5, shape[-1]-0.5]]).T if corner else \
+		np.array([[0, 0], [shape[-2]-1., shape[-1]-1.]]).T
+	return np.asarray(pix2sky(shape, wcs, pix)).T
+
+
+def box(shape, wcs, npoint=10, corner=True):
+	"""The bounding box [{from,to},{dec,ra}] of the geometry, from npoint
+	points along its diagonal."""
+	ys = np.linspace(-0.5 if corner else 0, shape[-2]-(0.5 if corner else 1), npoint)
+	xs = np.linspace(-0.5 if corner else 0, shape[-1]-(0.5 if corner else 1), npoint)
+	coords = np.asarray(pix2sky(shape, wcs, np.array([ys, xs])))
+	return np.array([coords[:, 0], coords[:, -1]])
+
+
+def center(shape, wcs):
+	return np.asarray(pix2sky(shape, wcs, np.array([(shape[-2]-1)/2., (shape[-1]-1)/2.])))
+
+
+# ---------------------------------------------------------------------------
+# Extent, area and pixel sizes (pixell_tpu/enmap.py:549-693, :1950-2010);
+# host numpy, the maps copied to the device
+# ---------------------------------------------------------------------------
+def extent(shape, wcs, nsub=None, signed=False, method="auto"):
+	"""The [height, width] of the geometry in radians (pixell_tpu.enmap.extent
+	:549): "intermediate" (the flat cdelt extent; plain), "cylindrical"
+	(width at the area-weighted mean cos dec; cylindrical) or "subgrid"
+	(great-circle lengths along a subgrid; the rest)."""
+	if method == "auto":
+		if   wcsutils.is_plain(wcs): method = "intermediate"
+		elif wcsutils.is_cyl(wcs):   method = "cylindrical"
+		else:                        method = "subgrid"
+	sgn = np.array([np.sign(wcs.wcs.cdelt[1]), -np.sign(wcs.wcs.cdelt[0])])
+	if method in ["inter", "intermediate"]:
+		res = np.array([shape[-2]*abs(wcs.wcs.cdelt[1]), shape[-1]*abs(wcs.wcs.cdelt[0])])*get_unit(wcs)
+	elif method in ["cyl", "cylindrical"]:
+		dec1, dec2 = np.sort([float(pix2sky(shape, wcs, np.array([-0.5, 0]))[0]),
+			float(pix2sky(shape, wcs, np.array([shape[-2]-0.5, 0]))[0])])
+		dec1, dec2 = max(dec1, -np.pi/2), min(dec2, np.pi/2)
+		if abs(dec2-dec1) > 1e-12: mean_cos = (np.sin(dec2) - np.sin(dec1))/(dec2 - dec1)
+		else: mean_cos = np.cos(0.5*(dec1+dec2))
+		res = np.array([dec2 - dec1, shape[-1]*abs(wcs.wcs.cdelt[0])*utils.degree*mean_cos])
+	elif method == "subgrid":
+		if nsub is None: nsub = 16
+		ys = np.linspace(0, shape[-2]-1, nsub+1)
+		xs = np.linspace(0, shape[-1]-1, nsub+1)
+		pix = np.array(np.meshgrid(ys, xs, indexing="ij"))
+		pos = np.asarray(pix2sky(shape, wcs, pix.reshape(2, -1), safe=False)).reshape(2, nsub+1, nsub+1)
+		seg_h = utils.angdist(pos[::-1, :-1, :], pos[::-1, 1:, :], axis=0)
+		seg_w = utils.angdist(pos[::-1, :, :-1], pos[::-1, :, 1:], axis=0)
+		height = np.mean(np.sum(seg_h, 0))*shape[-2]/(shape[-2]-1) if shape[-2] > 1 else 0
+		width = np.mean(np.sum(seg_w, 1))*shape[-1]/(shape[-1]-1) if shape[-1] > 1 else 0
+		res = np.array([height, width])
+	else:
+		raise ValueError("Unrecognized extent method '%s'" % method)
+	return res*sgn if signed else res
+
+
+def extent_intermediate(shape, wcs, signed=False):
+	"""The extent in the WCS's intermediate coordinates."""
+	res = np.array(wcs.wcs.cdelt[::-1])*shape[-2:]*utils.degree
+	return res if signed else np.abs(res)
+
+def extent_cyl(shape, wcs, signed=False):
+	return extent(shape, wcs, signed=signed, method="cylindrical")
+
+def extent_subgrid(shape, wcs, nsub=None, safe=True, signed=False):
+	return extent(shape, wcs, nsub=nsub, signed=signed, method="subgrid")
+
+
+def area(shape, wcs, nsamp=1000, method="auto"):
+	"""The area of the geometry in steradians: exact on plain and separable
+	cylindrical geometries, by the boundary's contour integral otherwise."""
+	if wcsutils.is_plain(wcs): return float(np.prod(extent(shape, wcs)))
+	if wcsutils.is_separable(wcs): return area_cyl(shape, wcs)
+	return area_contour(shape, wcs, nsamp=nsamp)
+
+
+def area_intermediate(shape, wcs):
+	"""The area of a completely flat sky."""
+	return np.abs(shape[-2]*shape[-1]*wcs.wcs.cdelt[0]*wcs.wcs.cdelt[1])*utils.degree**2
+
+def area_cyl(shape, wcs):
+	"""The exact area of a separable cylindrical geometry."""
+	return float(np.sum(pixsizemap_cyl(shape, wcs)[:, 0]))*shape[-1]
+
+
+def area_contour(shape, wcs, nsamp=1000):
+	"""The area by the contour integral of (1 - sin dec) dRA around the
+	boundary through the outer pixel edges."""
+	ny, nx = shape[-2:]
+	t = np.linspace(-0.5, nx - 0.5, nsamp)
+	b = np.linspace(-0.5, ny - 0.5, nsamp)
+	segs = [np.stack([np.full(nsamp, -0.5), t]), np.stack([b, np.full(nsamp, nx - 0.5)]),
+		np.stack([np.full(nsamp, ny - 0.5), t[::-1]]), np.stack([b[::-1], np.full(nsamp, -0.5)])]
+	total = 0.0
+	for seg in segs:
+		pos = np.asarray(pix2sky(shape, wcs, seg))
+		msin = 1 - np.sin(np.clip(pos[0], -np.pi/2, np.pi/2))
+		dra = utils.rewind(pos[1, 1:] - pos[1, :-1])   # the branch cut may cross the boundary
+		total += np.sum(dra*(msin[1:] + msin[:-1])/2)
+	return abs(total)
+
+
+def pixsize(shape, wcs):
+	"""The mean pixel area in steradians."""
+	return area(shape, wcs)/shape[-2]/shape[-1]
+
+def pixshape(shape, wcs, signed=False):
+	"""The mean pixel [height, width] in radians."""
+	return extent(shape, wcs, signed=signed)/np.array(shape[-2:])
+
+
+def _row_decs(shape, wcs, off):
+	y = np.arange(shape[-2], dtype=float)
+	return np.asarray(pix2sky(shape, wcs, np.array([y + off, y*0]), safe=False))[0]
+
+
+def pixshapes_cyl(shape, wcs, signed=False):
+	"""Each row's pixel [height, width][ny] on a cylindrical geometry: the
+	dec extent and dphi cos dec."""
+	top = np.clip(_row_decs(shape, wcs, -0.5), -np.pi/2, np.pi/2)
+	bot = np.clip(_row_decs(shape, wcs, 0.5), -np.pi/2, np.pi/2)
+	widths = abs(wcs.wcs.cdelt[0])*utils.degree*np.cos(np.clip(_row_decs(shape, wcs, 0), -np.pi/2, np.pi/2))
+	res = np.array([np.abs(bot - top), widths])
+	if signed: res = res*np.array([np.sign(wcs.wcs.cdelt[1]), -np.sign(wcs.wcs.cdelt[0])])[:, None]
+	return res
+
+
+def pixsizemap_cyl(shape, wcs):
+	"""The exact pixel areas [ny, 1] of a cylindrical geometry: the sin dec
+	difference of each row's edges times the pixel width."""
+	top = np.clip(_row_decs(shape, wcs, -0.5), -np.pi/2, np.pi/2)
+	bot = np.clip(_row_decs(shape, wcs, 0.5), -np.pi/2, np.pi/2)
+	return np.abs(np.sin(bot) - np.sin(top))[:, None]*abs(wcs.wcs.cdelt[0])*utils.degree
+
+
+def _pixsizemap_np(shape, wcs, separable="auto", broadcastable=False):
+	"""pixsizemap's areas as float64 numpy: exact per row on separable
+	cylindrical geometries, the constant |cdelt_x cdelt_y| on plain ones,
+	else the Jacobian of pix2sky by centred corner differences at the
+	pixel centre's dec."""
+	if separable == "auto": separable = wcsutils.is_separable(wcs)
+	if wcsutils.is_plain(wcs):
+		return np.full((1, 1) if broadcastable else tuple(shape[-2:]),
+			np.abs(wcs.wcs.cdelt[0]*wcs.wcs.cdelt[1]))
+	if separable:
+		col = pixsizemap_cyl(shape, wcs)
+		return col if broadcastable else np.broadcast_to(col, tuple(shape[-2:])).copy()
+	pix = np.mgrid[:shape[-2], :shape[-1]].astype(float)
+	p = {d: np.asarray(pix2sky(shape, wcs, pix + np.array(d)[:, None, None], safe=False))
+		for d in [(-0.5, -0.5), (0.5, -0.5), (-0.5, 0.5), (0.5, 0.5)]}
+	dy = 0.5*((p[0.5, -0.5] + p[0.5, 0.5]) - (p[-0.5, -0.5] + p[-0.5, 0.5]))
+	dx = 0.5*((p[-0.5, 0.5] + p[0.5, 0.5]) - (p[-0.5, -0.5] + p[0.5, -0.5]))
+	# the longitude branch cut can run through the map: rewind the ra steps
+	dy[1] = utils.rewind(dy[1])
+	dx[1] = utils.rewind(dx[1])
+	cosdec = np.cos(p[-0.5, -0.5][0] + 0.5*(dy[0] + dx[0]))
+	return np.abs(dy[0]*dx[1] - dy[1]*dx[0])*cosdec
+
+
+def pixsizemap(shape, wcs, separable="auto", broadcastable=False, *, device="cuda"):
+	"""The area of each pixel in steradians, as a float64 ndmap on device
+	(pixell_tpu.enmap.pixsizemap :641); with broadcastable, [ny, 1] (plain:
+	[1, 1]) where the geometry is separable."""
+	return ndmap(torch.from_numpy(_pixsizemap_np(shape, wcs, separable, broadcastable)).to(device),
+		wcs)
+
+
+def pixsizemap_contour(shape, wcs, bsize=1000, bcheck=False, *, device="cuda"):
+	"""Each pixel's area by the contour integral around its four edges (any
+	geometry), as a float64 ndmap on device."""
+	out = np.zeros(shape[-2:])
+	for y1 in range(0, shape[-2], bsize):
+		y2 = min(y1 + bsize, shape[-2])
+		pixs = np.mgrid[y1:y2+1, :shape[-1]+1] - 0.5
+		poss = np.asarray(pix2sky(shape, wcs, pixs.reshape(2, -1))).reshape(pixs.shape)
+		ra, msin = poss[1], 1 - np.sin(np.clip(poss[0], -np.pi/2, np.pi/2))
+		areas  = (ra[1:, :-1] - ra[:-1, :-1])*(msin[1:, :-1] + msin[:-1, :-1])/2
+		areas += (ra[1:, 1:] - ra[1:, :-1])*(msin[1:, 1:] + msin[1:, :-1])/2
+		areas += (ra[:-1, 1:] - ra[1:, 1:])*(msin[:-1, 1:] + msin[1:, 1:])/2
+		areas += (ra[:-1, :-1] - ra[:-1, 1:])*(msin[:-1, :-1] + msin[:-1, 1:])/2
+		out[y1:y2] = np.abs(areas)
+	return ndmap(torch.from_numpy(out).to(device), wcs)
+
+
+def _pixshapemap_np(shape, wcs, separable="auto", signed=False):
+	if separable == "auto": separable = wcsutils.is_separable(wcs)
+	if separable:
+		hw = pixshapes_cyl(shape, wcs, signed=signed)
+		return np.broadcast_to(hw[:, :, None], (2,) + tuple(shape[-2:])).copy()
+	pix = np.mgrid[:shape[-2], :shape[-1]].astype(float)
+	p = {d: np.asarray(pix2sky(shape, wcs, pix + np.array(d)[:, None, None], safe=False))
+		for d in [(-0.5, 0), (0.5, 0), (0, -0.5), (0, 0.5)]}
+	h = utils.angdist(p[-0.5, 0][::-1], p[0.5, 0][::-1], axis=0)
+	w = utils.angdist(p[0, -0.5][::-1], p[0, 0.5][::-1], axis=0)
+	return np.array([h, w])
+
+
+def pixshapemap(shape, wcs, bsize=1000, separable="auto", signed=False, *, device="cuda"):
+	"""The [height, width] of each pixel in radians, as a float64 ndmap
+	[2, ny, nx] on device."""
+	return ndmap(torch.from_numpy(_pixshapemap_np(shape, wcs, separable, signed)).to(device), wcs)
+
+
+def pixshapebounds(shape, wcs, separable="auto"):
+	"""[[min height, min width], [max height, max width]] of the pixels."""
+	ps = _pixshapemap_np(shape, wcs, separable)
+	return np.array([[ps[0].min(), ps[1].min()], [ps[0].max(), ps[1].max()]])
+
+
+# ---------------------------------------------------------------------------
+# Geometries (pixell_tpu/enmap.py:791-814, :985-1069)
+# ---------------------------------------------------------------------------
 def slice_geometry(shape, wcs, sel, nowrap=False):
 	"""The geometry of map[..., sel[0], sel[1]]: sel is a y slice or a tuple
 	of (y, x) slices, with steps if wanted (pixell_tpu.enmap.slice_geometry
@@ -116,6 +787,28 @@ def slice_geometry(shape, wcs, sel, nowrap=False):
 	return tuple(pre) + tuple(oshape), wcs
 
 
+def geometry(pos, res=None, shape=None, proj="car", variant="cc", deg=False,
+		pre=(), force=False, ref=None, **kwargs):
+	"""The (shape, wcs) covering pos, a [{from,to},{dec,ra}] box or a
+	{dec,ra} centre, at resolution res, in radians unless deg
+	(pixell_tpu.enmap.geometry :985). Unless force, the wcs puts the
+	reference point (0, 0) on a whole pixel."""
+	scale = 1 if deg else 1/utils.degree
+	pos = np.asarray(pos)*scale
+	if res is not None: res = np.asarray(res)*scale
+	try:
+		ref = (ref[1]*scale, ref[0]*scale)
+	except (TypeError, ValueError):
+		pass
+	if ref is None and not force: ref = "standard"
+	wcs = wcsutils.build(pos, res, shape, rowmajor=True, system=proj, ref=ref, **kwargs)
+	if shape is None:
+		nearedge = np.array(wcsutils.world2pix(wcs, pos[0, 1], pos[0, 0]))[::-1]
+		faredge = np.array(wcsutils.world2pix(wcs, pos[1, 1], pos[1, 0]))[::-1]
+		shape = np.round(np.abs(faredge - nearedge)).astype(int)
+	return tuple(pre) + tuple(int(n) for n in shape[-2:]), wcs
+
+
 def fullsky_geometry(res=None, shape=None, dims=(), proj="car", variant="fejer1"):
 	"""Full-sky CAR geometry with SHT-exact ring placement
 	(pixell_tpu.enmap.fullsky_geometry). "cc" puts pixel centres on the
@@ -138,52 +831,578 @@ def fullsky_geometry(res=None, shape=None, dims=(), proj="car", variant="fejer1"
 	return tuple(dims) + (int(ny), int(nx)), wcs
 
 
-def _torch_dtype(dtype):
-	if isinstance(dtype, torch.dtype): return dtype
-	return {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}[np.dtype(dtype)]
+def band_geometry(dec_cut, res=None, shape=None, dims=(), proj="car", variant="fejer1"):
+	"""The rows of the full-sky geometry between two declinations (one
+	value: +-dec_cut) (pixell_tpu.enmap.band_geometry :1052)."""
+	dec_cut = np.atleast_1d(dec_cut)
+	if dec_cut.size == 1: lo, hi = -dec_cut[0], dec_cut[0]
+	elif dec_cut.size == 2: lo, hi = dec_cut
+	else: raise ValueError("dec_cut must have one or two values")
+	if not hi > lo: raise ValueError("empty declination band %s" % str(dec_cut))
+	ishape, iwcs = fullsky_geometry(res=res, shape=shape, dims=dims, proj=proj, variant=variant)
+	start = float(sky2pix(ishape, iwcs, np.array([lo, 0.]))[0])
+	stop = float(sky2pix(ishape, iwcs, np.array([hi, 0.]))[0])
+	start = max(int(np.round(start)), 0)
+	stop = min(int(np.round(stop)), ishape[-2])
+	return slice_geometry(ishape, iwcs, (slice(start, stop), slice(None)))
 
 
-def _posmap_np(shape, wcs, safe=True, corner=False, separable="auto"):
-	"""posmap's [{dec, ra}, ny, nx] as float64 numpy."""
-	if separable == "auto": separable = wcsutils.is_separable(wcs)
-	if separable:
-		dec, ra = posaxes(shape, wcs, safe=safe, corner=corner)
-		res = np.empty((2,) + tuple(shape[-2:]))
-		res[0] = dec[:, None]
-		res[1] = ra[None, :]
-		return res
-	return np.asarray(pix2sky(shape, wcs, np.mgrid[:shape[-2], :shape[-1]], safe, corner), float)
+# ---------------------------------------------------------------------------
+# Fourier-space coordinates (pixell_tpu/enmap.py:699-753, :2012-2025). The
+# axes are host numpy; the maps are built on the device from them
+# ---------------------------------------------------------------------------
+def laxes(shape, wcs, oversample=1, method="auto", broadcastable=False):
+	"""(ly[ny], lx[nx]): the multipole axes of the map's Fourier transform,
+	as float64 numpy."""
+	oversample = int(oversample)
+	step = pixshape(shape, wcs, signed=True)
+	ly = np.fft.fftfreq(shape[-2]*oversample, step[0]/(2*np.pi))
+	lx = np.fft.fftfreq(shape[-1]*oversample, step[1]/(2*np.pi))
+	if oversample > 1:
+		ly, lx = np.roll(ly, ly.size//2, 0), np.roll(lx, lx.size//2, 0)
+	return ly, lx
 
 
-def posmap(shape, wcs, safe=True, corner=False, separable="auto", dtype=np.float64, bsize=1e6,
-		bcheck=False, *, device="cuda"):
-	"""The sky coordinates [{dec, ra}, ny, nx] of each pixel, in radians, as
-	an ndmap on device (pixell_tpu.enmap.posmap :460). bsize and bcheck are
-	accepted and ignored."""
-	res = torch.from_numpy(_posmap_np(shape, wcs, safe, corner, separable))
-	return ndmap(res.to(device=device, dtype=_torch_dtype(dtype)), wcs)
+@functools.lru_cache(maxsize=32)
+def _laxes_np(shape, wcs, oversample):
+	"""laxes, computed once per (shape, wcs, oversample) (callers must not
+	write into them)."""
+	return laxes(shape, wcs, oversample)
 
 
-def _pixsizemap_np(shape, wcs, separable="auto", broadcastable=False):
-	"""pixsizemap's areas as float64 numpy: exact per row on separable
-	cylindrical geometries (the sin(dec) difference of the row's edges times
-	the pixel width), the constant |cdelt_x cdelt_y| on plain ones."""
-	if separable == "auto": separable = wcsutils.is_separable(wcs)
-	if wcsutils.is_plain(wcs):
-		return np.full((1, 1) if broadcastable else tuple(shape[-2:]),
-			np.abs(wcs.wcs.cdelt[0]*wcs.wcs.cdelt[1]))
-	if not separable:
-		raise NotImplementedError("pixsizemap of a non-separable geometry is not ported")
-	y = np.arange(shape[-2], dtype=float)
-	edge = lambda dy: np.clip(pix2sky(shape, wcs, np.array([y + dy, y*0]), safe=False)[0],
-		-np.pi/2, np.pi/2)
-	col = np.abs(np.sin(edge(0.5)) - np.sin(edge(-0.5)))[:, None]*abs(wcs.wcs.cdelt[0])*utils.degree
-	return col if broadcastable else np.broadcast_to(col, tuple(shape[-2:])).copy()
+@functools.lru_cache(maxsize=32)
+def _laxes_on(shape, wcs, oversample, device):
+	"""laxes as float64 tensors on device, copied there once per (shape,
+	wcs, oversample, device) (callers must not write into them)."""
+	return tuple(torch.from_numpy(a).to(device) for a in _laxes_np(shape, wcs, oversample))
 
 
-def pixsizemap(shape, wcs, separable="auto", broadcastable=False, *, device="cuda"):
-	"""The area of each pixel in steradians, as a float64 ndmap on device
-	(pixell_tpu.enmap.pixsizemap :641); with broadcastable, [ny, 1] (plain:
-	[1, 1])."""
-	return ndmap(torch.from_numpy(_pixsizemap_np(shape, wcs, separable, broadcastable)).to(device),
-		wcs)
+def _device(device):
+	"""device as a torch.device with its index (raises for CUDA where there
+	is none)."""
+	d = torch.device(device)
+	if d.type == "cuda" and d.index is None: d = torch.device("cuda", torch.cuda.current_device())
+	return d
+
+
+def _axes_on(shape, wcs, device, oversample=1):
+	return _laxes_on(tuple(int(n) for n in shape[-2:]), wcs, int(oversample), _device(device))
+
+
+def _l2(ly, lx):
+	"""ly^2 + lx^2 on the [ny, nx] grid, float64 (the reference's rounding)."""
+	return (ly*ly)[:, None] + (lx*lx)[None, :]
+
+
+def lmap(shape, wcs, oversample=1, *, device="cuda"):
+	"""The 2d multipole [{ly,lx},ny,nx] of each Fourier pixel, float64 on device."""
+	ly, lx = _axes_on(shape, wcs, device, oversample)
+	return ndmap(torch.stack(torch.broadcast_tensors(ly[:, None], lx[None, :])), wcs)
+
+
+def modlmap(shape, wcs, oversample=1, min=0, *, device="cuda"):
+	"""|l| of each Fourier pixel, float64 on device."""
+	ly, lx = _axes_on(shape, wcs, device, oversample)
+	return ndmap(_l2(ly, lx).sqrt_().clamp_(min=min), wcs)
+
+
+def lrmap(shape, wcs, oversample=1, *, device="cuda"):
+	"""lmap on the real FFT's half plane [{ly,lx},ny,nx//2+1]."""
+	ly, lx = _axes_on(shape, wcs, device, oversample)
+	lx = lx[:shape[-1]//2+1]
+	return ndmap(torch.stack(torch.broadcast_tensors(ly[:, None], lx[None, :])), wcs)
+
+
+def modrmap(shape, wcs, ref="center", safe=True, corner=False, *, device="cuda"):
+	"""The angular distance of each pixel from ref [dec, ra] (radians;
+	"center": the geometry's centre), float64 on device."""
+	pos = posmap(shape, wcs, safe=safe, corner=corner, device=device).data
+	if isinstance(ref, str):
+		if ref != "center": raise ValueError(ref)
+		ref = center(shape, wcs)
+	dec0, ra0 = (float(v) for v in np.asarray(ref, float))
+	dec, dra = pos[0], pos[1] - ra0
+	sd0, cd0 = np.sin(dec0), np.cos(dec0)
+	y = torch.hypot(torch.cos(dec)*torch.sin(dra), cd0*torch.sin(dec) - sd0*torch.cos(dec)*torch.cos(dra))
+	x = sd0*torch.sin(dec) + cd0*torch.cos(dec)*torch.cos(dra)
+	return ndmap(torch.atan2(y, x), wcs)
+
+
+def lform(map, method="auto"):
+	"""The map's Fourier plane with l = 0 in the centre (fftshift)."""
+	return fftshift(map)
+
+
+def lwcs(shape, wcs, method="auto"):
+	"""A plain WCS for l-space maps of the geometry."""
+	lres = 2*np.pi/extent(shape, wcs, signed=True, method=method)
+	ny, nx = shape[-2:]
+	return wcsutils.explicit(crpix=[nx//2+1, ny//2+1], crval=[0, 0],
+		cdelt=list(np.asarray(lres)[::-1]/utils.degree))
+
+def lpixshape(shape, wcs, signed=False, method="auto"):
+	"""The l-space pixel [height, width]."""
+	return 2*np.pi/extent(shape, wcs, signed=signed, method=method)
+
+def lpixsize(shape, wcs, signed=False, method="auto"):
+	return float(np.prod(lpixshape(shape, wcs, signed=signed, method=method)))
+
+
+# ---------------------------------------------------------------------------
+# Radial binning on the device (pixell_tpu/enmap.py:755-789)
+# ---------------------------------------------------------------------------
+def _scalar(x, device):
+	"""x as a 0-d float64 tensor on device: CUDA divides a tensor by a Python
+	number as a product with its reciprocal, which can move a value across
+	a bin edge, but by a device tensor exactly, as numpy does."""
+	return torch.tensor(x, dtype=torch.float64).to(device)
+
+
+def _radial_bin(arr, pix, nbin, bsize, return_nhit=False):
+	"""arr [..., ny, nx] binned by the flat bin index pix [ny*nx] (int64 on
+	arr's device) into nbin bins: the mean of each bin, summed in float64 as
+	numpy's bincount does, then cast to arr's dtype. Returns (vals
+	[..., nbin], bin centres [nbin]) (and the hit counts) as tensors."""
+	pre = arr.shape[:-2]
+	flat = arr.reshape(pre + (-1,))
+	nhit = torch.bincount(pix, minlength=nbin)
+	acc = torch.float64 if not arr.is_complex() else torch.complex128
+	vals = torch.zeros(pre + (nbin,), dtype=acc, device=arr.device)
+	for I in utils.nditer(pre):
+		w = flat[I]
+		s = torch.zeros(nbin, dtype=torch.float64, device=arr.device)
+		s.index_add_(0, pix, w.real.to(torch.float64) if w.is_complex() else w.to(torch.float64))
+		if w.is_complex():
+			si = torch.zeros(nbin, dtype=torch.float64, device=arr.device)
+			s = torch.complex(s, si.index_add_(0, pix, w.imag.to(torch.float64)))
+		vals[I] = s
+	vals = (vals/nhit.clamp(min=1)).to(arr.dtype)
+	cents = (torch.arange(nbin, dtype=torch.float64, device=arr.device) + 0.5)*bsize
+	return (vals, cents, nhit) if return_nhit else (vals, cents)
+
+
+def lbin(map, bsize=None, brel=1.0, return_nhit=False, lop=None):
+	"""The map [..., ny, nx] of a Fourier plane binned in rings of |l| of
+	width bsize*brel (bsize defaults to the smaller l step): (vals
+	[..., nbin], bin centres[, hit counts]), tensors on the map's device.
+	The bin index is computed there from the l axes."""
+	shape = map.shape
+	ly, lx = _axes_on(shape, map.wcs, map.device)
+	if bsize is None:
+		hy, hx = _laxes_np(tuple(shape[-2:]), map.wcs, 1)
+		bsize = min(abs(hx[1]) if shape[-1] > 1 else 1, abs(hy[1]) if shape[-2] > 1 else 1)
+	bsize = bsize*brel
+	pix = _l2(ly, lx).sqrt_().div_(_scalar(bsize, ly.device)).long().reshape(-1)
+	return _radial_bin(map.data, pix, int(pix.max()) + 1, bsize, return_nhit)
+
+
+def rbin(map, center=[0, 0], bsize=None, brel=1.0, return_nhit=False):
+	"""The map binned in rings of angular distance from center [dec, ra]
+	(bsize defaults to the smaller pixel side): as lbin."""
+	r = modrmap(map.shape, map.wcs, ref=center, device=map.device).data
+	if bsize is None: bsize = float(np.min(pixshape(map.shape, map.wcs)))
+	bsize = bsize*brel
+	pix = (r/_scalar(bsize, r.device)).long().reshape(-1)
+	return _radial_bin(map.data, pix, int(pix.max()) + 1, bsize, return_nhit)
+
+
+def radial_average(map, center=[0, 0], step=1.0):
+	"""rbin around center."""
+	return rbin(map, center=center)
+
+
+# ---------------------------------------------------------------------------
+# Shifts (pixell_tpu/enmap.py:1268-1291)
+# ---------------------------------------------------------------------------
+def shift(map, off, keepwcs=False):
+	"""The map cyclically shifted by whole pixels off=[oy, ox]; the wcs
+	moves with it unless keepwcs."""
+	off = np.atleast_1d(np.asarray(off, int))
+	d = map.data if isinstance(map, ndmap) else map
+	d = torch.roll(d, tuple(int(o) for o in off), tuple(range(-len(off), 0)))
+	if keepwcs or len(off) < 2 or not isinstance(map, ndmap): return samewcs(d, map)
+	wcs = map.wcs.deepcopy()
+	wcs.wcs.crpix = wcs.wcs.crpix + np.array([off[-1], off[-2]])
+	return ndmap(d, wcs)
+
+
+def fractional_shift(map, off, keepwcs=False, nofft=False):
+	"""The map shifted by fractional pixels off=[oy, ox] by a Fourier phase."""
+	d = enfft.shift(map.data if isinstance(map, ndmap) else map, off, axes=(-2, -1), nofft=nofft)
+	if keepwcs or not isinstance(map, ndmap): return samewcs(d, map)
+	off = np.zeros(2) + np.asarray(off)
+	wcs = map.wcs.deepcopy()
+	wcs.wcs.crpix = wcs.wcs.crpix + np.array([off[1], off[0]])
+	return ndmap(d, wcs)
+
+
+# ---------------------------------------------------------------------------
+# FFTs and the flat-sky harmonic transforms (pixell_tpu/enmap.py:1297-1410)
+# ---------------------------------------------------------------------------
+def _is_phys(normalize):
+	return isinstance(normalize, str) and normalize in ["phy", "phys", "physical"]
+
+
+def _norm(emap, dct, normalize, pix_up):
+	"""The scalar the transforms multiply by: 1/sqrt(N) if normalize (N the
+	pixels, or the DCTs' logical size), times sqrt(pixsize) ("phys", pix_up)
+	or over it ("phys", not pix_up)."""
+	norm = 1.0
+	if normalize:
+		n = np.array(emap.shape[-2:])
+		norm /= float(np.prod(n*2-2 if dct else n))**0.5
+	if _is_phys(normalize):
+		ps = pixsize(emap.shape, emap.wcs)**0.5
+		norm = norm*ps if pix_up else norm/ps
+	return norm
+
+
+def fft(emap, omap=None, nthread=0, normalize=True, adjoint_ifft=False, dct=False):
+	"""The 2D FFT (or DCT-I) of the map's pixel axes (pixell_tpu.enmap.fft
+	:1297): normalize True divides by sqrt(npix), "phys" also multiplies by
+	sqrt(pixsize) (adjoint_ifft: divides), False leaves it unnormalized. A
+	float32 map gives complex64."""
+	arr = emap.data if isinstance(emap, ndmap) else emap
+	res = enfft.dct(arr, axes=(-2, -1)) if dct else enfft.fft(arr, axes=(-2, -1))
+	norm = _norm(emap, dct, normalize, not adjoint_ifft)
+	if norm != 1: res.mul_(norm)
+	if omap is not None: res = (omap.data if isinstance(omap, ndmap) else omap).copy_(res)
+	return samewcs(res, emap)
+
+
+def ifft(emap, omap=None, nthread=0, normalize=True, adjoint_fft=False, dct=False):
+	"""The inverse of fft with the same normalize (pixell_tpu.enmap.ifft
+	:1315); adjoint_fft gives fft's adjoint instead. Complex output."""
+	arr = emap.data if isinstance(emap, ndmap) else emap
+	res = enfft.idct(arr, axes=(-2, -1)) if dct else enfft.ifft(arr, axes=(-2, -1))
+	norm = _norm(emap, dct, normalize, adjoint_fft)
+	if norm != 1: res.mul_(norm)
+	if omap is not None: res = (omap.data if isinstance(omap, ndmap) else omap).copy_(res)
+	return samewcs(res, emap)
+
+
+def dct(emap, omap=None, nthread=0, normalize=True):
+	return fft(emap, omap=omap, nthread=nthread, normalize=normalize, dct=True)
+
+def idct(emap, omap=None, nthread=0, normalize=True):
+	return ifft(emap, omap=omap, nthread=nthread, normalize=normalize, dct=True)
+
+def fft_adjoint(emap, omap=None, nthread=0, normalize=True):
+	return ifft(emap, omap=omap, nthread=nthread, normalize=normalize, adjoint_fft=True)
+
+def ifft_adjoint(emap, omap=None, nthread=0, normalize=True):
+	return fft(emap, omap=omap, nthread=nthread, normalize=normalize, adjoint_ifft=True)
+
+def dct_adjoint(emap, omap=None, nthread=0, normalize=True):
+	return idct(emap, omap=omap, normalize=normalize)
+
+def idct_adjoint(emap, omap=None, nthread=0, normalize=True):
+	return dct(emap, omap=omap, normalize=normalize)
+
+
+def _rotation(shape, wcs, spin, iau, inverse, device, dtype):
+	"""(cos, sin) [ny, nx] of the QU <-> EB rotation angle spin*atan2(+-lx,
+	ly) in dtype, built on the device from the cached l axes (float64)."""
+	ly, lx = _axes_on(shape, wcs, device)
+	a = torch.atan2((-1 if iau else 1)*lx[None, :], ly[:, None]).mul_(spin)
+	c, s = torch.cos(a).to(dtype), torch.sin(a).to(dtype)
+	return c, (-s if inverse else s)
+
+
+def _rotate_spins(data, wcs, spin, iau, inverse):
+	"""Rotate data [..., ncomp, ny, nx] in place: each spin != 0 pair of
+	components by [[c, -s], [s, c]] (pixell_tpu.enmap.map2harm :1342)."""
+	s0 = None
+	for s, d1, d2 in spin_helper(spin, data.shape[-3]):
+		if s == 0: continue
+		if s != s0:
+			s0 = s
+			c, sn = _rotation(data.shape, wcs, s, iau, inverse, data.device, utils.real_dtype(data.dtype))
+		q, u = data[..., d1, :, :], data[..., d1+1, :, :]
+		q2, u2 = c*q - sn*u, sn*q + c*u
+		q.copy_(q2)
+		u.copy_(u2)
+
+
+def map2harm(emap, nthread=0, normalize=True, iau=False, spin=[0, 2], adjoint_harm2map=False):
+	"""Flat-sky map -> harmonic coefficients: fft, then each spin pair of
+	components rotated from QU to EB (pixell_tpu.enmap.map2harm :1342)."""
+	f = samewcs(fft(emap, normalize=normalize, adjoint_ifft=adjoint_harm2map), emap)
+	if f.ndim > 2: _rotate_spins(f.data, f.wcs, spin, iau, inverse=False)
+	return f
+
+
+def harm2map(emap, nthread=0, normalize=True, iau=False, spin=[0, 2], keep_imag=False,
+		adjoint_map2harm=False):
+	"""The inverse of map2harm: EB -> QU on a copy, then ifft; the real part
+	unless keep_imag (pixell_tpu.enmap.harm2map :1354)."""
+	if emap.ndim > 2:
+		emap = ndmap(emap.data.clone(), emap.wcs)
+		_rotate_spins(emap.data, emap.wcs, spin, iau, inverse=True)
+	res = samewcs(ifft(emap, normalize=normalize, adjoint_fft=adjoint_map2harm), emap)
+	return res if keep_imag else res.real
+
+
+def map2harm_adjoint(emap, nthread=0, normalize=True, iau=False, spin=[0, 2], keep_imag=False):
+	return harm2map(emap, nthread=nthread, normalize=normalize, iau=iau, spin=spin,
+		keep_imag=keep_imag, adjoint_map2harm=True)
+
+def harm2map_adjoint(emap, nthread=0, normalize=True, iau=False, spin=[0, 2]):
+	return map2harm(emap, nthread=nthread, normalize=normalize, iau=iau, spin=spin,
+		adjoint_harm2map=True)
+
+
+def queb_rotmat(lmap, inverse=False, iau=False, spin=2, *, device="cuda"):
+	"""The QU <-> EB rotation matrices [2, 2, ny, nx] of the multipoles
+	lmap [{ly, lx}, ny, nx] (float64 on lmap's device; host data goes to
+	device)."""
+	l = _tensor(lmap, device).to(torch.float64)
+	a = spin*torch.atan2((-1 if iau else 1)*l[1], l[0])
+	c, s = torch.cos(a), torch.sin(a)
+	if inverse: s = -s
+	return samewcs(torch.stack([torch.stack([c, -s]), torch.stack([s, c])]), lmap)
+
+
+def rotate_pol(emap, angle, comps=[-2, -1], spin=2, axis=-3):
+	"""The polarization components comps of emap (along axis) rotated by
+	angle (a number or a map)."""
+	arr = emap.data if isinstance(emap, ndmap) else emap
+	if isinstance(angle, (ndmap, torch.Tensor)):
+		a = _tensor(angle, arr.device)*spin
+		c, s = torch.cos(a), torch.sin(a)
+	else:
+		c, s = np.cos(spin*np.asarray(angle)), np.sin(spin*np.asarray(angle))
+		if np.ndim(c): c, s = (torch.as_tensor(v, device=arr.device) for v in (c, s))
+		else: c, s = float(c), float(s)
+	arr = arr.movedim(axis, 0)
+	q, u = arr[comps[0]], arr[comps[1]]
+	res = arr.clone()
+	res[comps[0] % arr.shape[0]] = c*q - s*u
+	res[comps[1] % arr.shape[0]] = s*q + c*u
+	return samewcs(res.movedim(0, axis), emap)
+
+
+def map_mul(mat, vec):
+	"""mat [..., a, b, ny, nx] times vec [..., b, ny, nx], pixel by pixel."""
+	m = mat.data if isinstance(mat, ndmap) else mat
+	v = vec.data if isinstance(vec, ndmap) else vec
+	return samewcs(torch.einsum("...abyx,...byx->...ayx", m, v), vec, mat)
+
+
+def calc_ps2d(harm, harm2=None):
+	"""The 2d (cross-)power spectrum Re(harm conj(harm2)) of harmonic maps."""
+	h1 = harm.data if isinstance(harm, ndmap) else harm
+	if harm2 is None: ps = h1.real.square() + h1.imag.square() if h1.is_complex() else h1.square()
+	else: ps = (h1*torch.conj(harm2.data if isinstance(harm2, ndmap) else harm2)).real
+	return samewcs(ps, harm)
+
+
+def smooth_spectrum(ps, kernel="gauss", weight="mode", width=1.0):
+	"""A 1d spectrum smoothed by a kernel with mode weighting (host numpy,
+	pixell_tpu.enmap.smooth_spectrum :2059)."""
+	ps = np.asanyarray(ps)
+	pflat = ps.reshape(-1, ps.shape[-1])
+	nspec, nl = pflat.shape
+	l = np.arange(nl)
+	if isinstance(kernel, str):
+		if kernel == "gauss": K = np.exp(-0.5*(l/width)**2)
+		elif kernel == "step": K = (l < int(width)).astype(float)
+		else: raise ValueError("Unknown kernel type %s" % kernel)
+		K = np.broadcast_to(K, (nspec, nl)).copy()
+	else:
+		K = np.zeros((nspec, nl))
+		tmp = np.atleast_2d(kernel)
+		K[:, :tmp.shape[-1]] = tmp[:, :nl]
+	if isinstance(weight, str):
+		if weight == "mode": W = np.broadcast_to((l**2).astype(float), (nspec, nl)).copy()
+		elif weight == "uniform": W = np.ones((nspec, nl))
+		else: raise ValueError("Unknown weighting scheme %s" % weight)
+	else:
+		W = np.broadcast_to(np.atleast_2d(weight), (nspec, nl)).copy()
+	def sym_conv(arr, ker):   # symmetric convolution, reflected at l = 0
+		ext = np.concatenate([arr[:, ::-1], arr, arr[:, ::-1]], -1)
+		out = np.empty_like(arr)
+		for i in range(nspec):
+			out[i] = np.convolve(ext[i], ker[i]/max(ker[i].sum(), 1e-300), mode="same")[nl:2*nl]
+		return out
+	smoothed = sym_conv(pflat*W, K)/np.maximum(sym_conv(W, K), 1e-300)
+	return smoothed.reshape(ps.shape)
+
+
+def smooth_gauss(emap, sigma):
+	"""The map smoothed by a Gaussian of standard deviation sigma (radians),
+	in Fourier space; the filter is built on the device from the l axes."""
+	if np.all(np.asarray(sigma) == 0): return emap.copy()
+	f = map2harm(emap, spin=[0])
+	ly, lx = _axes_on(emap.shape, emap.wcs, emap.device)
+	f.data.mul_(_l2(ly, lx).mul_(-0.5*sigma**2).exp_().to(utils.real_dtype(f.dtype)))
+	res = harm2map(f, spin=[0])
+	return res if emap.dtype.is_complex else res.astype(emap.dtype)
+
+
+def calc_window(shape, order=0, scale=1):
+	"""The pixel window's Fourier response (wy[ny], wx[nx]), host numpy."""
+	wy = np.sinc(np.fft.fftfreq(shape[-2])*scale)**(order+1)
+	wx = np.sinc(np.fft.fftfreq(shape[-1])*scale)**(order+1)
+	return wy, wx
+
+
+def apply_window(emap, pow=1.0, order=0, scale=1, nofft=False):
+	"""The map multiplied by the pixel window to the power pow, in Fourier space."""
+	wy, wx = calc_window(emap.shape, order=order, scale=scale)
+	f = fft(emap, normalize=False)
+	rdt = utils.real_dtype(f.dtype)
+	wy, wx = (torch.from_numpy(w**pow).to(emap.device, rdt) for w in (wy, wx))
+	f.data.mul_(wy[:, None]).mul_(wx[None, :])
+	res = ifft(f, normalize=False).real/float(np.prod(emap.shape[-2:]))
+	return samewcs(res, emap)
+
+
+def unapply_window(emap, pow=1.0, order=0, scale=1, nofft=False):
+	return apply_window(emap, pow=-pow, order=order, scale=scale, nofft=nofft)
+
+
+def _fourier_deriv(m):
+	"""(fft of m, ly, lx) with the axes in the fft's real dtype."""
+	f = fft(m).data
+	ly, lx = (a.to(utils.real_dtype(f.dtype)) for a in _axes_on(m.shape, m.wcs, m.device))
+	return f, ly, lx
+
+
+def grad(m):
+	"""The gradient [{dy, dx}, ...] of the map by FFT."""
+	f, ly, lx = _fourier_deriv(m)
+	g = torch.stack([f*ly[:, None], f*lx[None, :]])*1j
+	return samewcs(ifft(samewcs(g, m)).data.real, m)
+
+
+def grad_pix(m):
+	"""grad in pixel units."""
+	scale = np.array(m.shape[-2:])/np.asarray(extent(m.shape, m.wcs, signed=True))
+	g = grad(m)
+	return samewcs(g.data*torch.as_tensor(scale, device=m.device,
+		dtype=g.dtype).reshape((2,) + (1,)*m.ndim), m)
+
+
+def div(m):
+	"""The divergence of m [{y, x}, ...] by FFT."""
+	f, ly, lx = _fourier_deriv(m)
+	d = (f[0]*ly[:, None] + f[1]*lx[None, :])*1j
+	return samewcs(ifft(samewcs(d, m)).data.real, m)
+
+
+def laplace(m):
+	"""The Laplacian of the map by FFT."""
+	f = fft(m).data
+	ly, lx = _axes_on(m.shape, m.wcs, m.device)
+	f.mul_(_l2(ly, lx).to(utils.real_dtype(f.dtype)))
+	return samewcs(-ifft(samewcs(f, m)).data.real, m)
+
+
+def fftshift(map, inplace=False):
+	return samewcs(torch.fft.fftshift(map.data if isinstance(map, ndmap) else map, dim=(-2, -1)), map)
+
+def ifftshift(map, inplace=False):
+	return samewcs(torch.fft.ifftshift(map.data if isinstance(map, ndmap) else map, dim=(-2, -1)), map)
+
+
+def spin_helper(spin, n):
+	"""(spin, d1, d2) for consecutive component ranges of n components: a
+	spin 0 takes one, any other two; the last spin repeats (a lone last
+	component is spin 0)."""
+	spins = np.atleast_1d(np.asarray(spin, int))
+	i = si = 0
+	while i < n:
+		s = int(spins[min(si, len(spins)-1)])
+		step = 1 if s == 0 else 2
+		if i + step > n: step, s = n - i, 0
+		yield s, i, i+step
+		i += step; si += 1
+
+
+def spin_pre_helper(spin, pre):
+	"""spin_helper over the last of the leading dimensions pre: (spin, index
+	tuple) pairs."""
+	pre = tuple(pre)
+	for I in utils.nditer(pre[:-1]) if len(pre) > 1 else [()]:
+		n = pre[-1] if len(pre) > 0 else 1
+		for s, d1, d2 in spin_helper(spin, n):
+			yield s, I + (slice(d1, d2),)
+
+
+# ---------------------------------------------------------------------------
+# Flat random fields (pixell_tpu/enmap.py:1443-1516)
+# ---------------------------------------------------------------------------
+def spec2flat(shape, wcs, cov, exp=1.0, mode="constant", border="constant", oversample=1,
+		smooth="auto", *, device="cuda"):
+	"""The spectrum cov [{ncomp, ncomp}, nl] (or [nl]) on the 2d Fourier
+	plane: each pixel takes the entry at int(|l|), zero past the spectrum's
+	end (mode "constant"); with exp, each matrix to that power first. Built
+	on device from the l axes (float64)."""
+	cov = np.asarray(cov)
+	oned = cov.ndim == 1
+	if oned: cov = cov[None, None]
+	if exp != 1.0: cov = multi_pow(cov, exp)
+	ly, lx = _axes_on(shape, wcs, device, oversample)
+	l = _l2(ly, lx).sqrt_()
+	nl = cov.shape[-1]
+	res = torch.from_numpy(np.ascontiguousarray(cov)).to(device)[..., l.long().clamp_(max=nl-1)]
+	if mode == "constant": res = res*(l <= nl-1)
+	res = ndmap(res, wcs)
+	return res[0, 0] if oned else res
+
+
+def multi_pow(mat, exp, axes=[0, 1]):
+	"""Each positive-semidefinite matrix mat[:, :, ...] to the power exp (host numpy)."""
+	return utils.eigpow(np.asarray(mat), exp, axes=axes)
+
+
+def rand_gauss(shape, wcs, dtype=None, seed=None, *, device="cuda"):
+	"""White Gaussian noise, drawn on the host by default_rng(seed)."""
+	d = np.random.default_rng(seed).standard_normal(shape)
+	return ndmap(torch.from_numpy(d).to(device, _torch_dtype(dtype) or torch.float64), wcs)
+
+
+def rand_gauss_harm(shape, wcs, seed=None, *, device="cuda"):
+	"""Complex white Gaussian noise (unit variance in each part)."""
+	rng = np.random.default_rng(seed)
+	d = rng.standard_normal(shape) + 1j*rng.standard_normal(shape)
+	return ndmap(torch.from_numpy(d).to(device), wcs)
+
+
+def rand_gauss_iso_harm(shape, wcs, cov, pixel_units=False, seed=None, *, device="cuda"):
+	"""A Gaussian random field's Fourier coefficients with spectrum cov:
+	the matrix square root of spec2flat times white noise, scaled so that
+	map2harm(normalize="phys") gives cov back unless pixel_units."""
+	chol = spec2flat(shape, wcs, np.asarray(cov), exp=0.5, mode="constant", device=device).data
+	if not pixel_units: chol = chol/pixsize(shape, wcs)**0.5
+	noise = rand_gauss_harm(shape, wcs, seed=seed, device=device).data
+	if chol.ndim > 2:
+		d = torch.einsum("ab...,b...->a...", chol.to(noise.dtype),
+			noise.reshape((-1,) + noise.shape[-2:]) if noise.ndim > 2 else noise[None])
+		if noise.ndim == 2: d = d[0]
+	else:
+		d = chol*noise
+	return ndmap(d, wcs)
+
+
+def rand_map(shape, wcs, cov, scalar=False, seed=None, pixel_units=False, iau=False, spin=[0, 2], *,
+		device="cuda"):
+	"""A Gaussian random field with spectrum cov, in real space
+	(pixell_tpu.enmap.rand_map :1496)."""
+	harm = rand_gauss_iso_harm(shape, wcs, cov, pixel_units=pixel_units, seed=seed, device=device)
+	if scalar or harm.ndim == 2: return ifft(harm).real
+	return harm2map(harm, iau=iau, spin=spin)
+
+
+def massage_spectrum(cov, shape):
+	"""cov [n, n, nl] cut or zero-padded to the map's component count."""
+	cov = np.asarray(cov)
+	if cov.ndim == 1: cov = cov[None, None]
+	ncomp = shape[-3] if len(shape) > 2 else 1
+	if cov.shape[0] != ncomp:
+		ocov = np.zeros((ncomp, ncomp) + cov.shape[2:])
+		n = min(ncomp, cov.shape[0])
+		ocov[:n, :n] = cov[:n, :n]
+		cov = ocov
+	return cov

@@ -1,23 +1,29 @@
-"""FFT sizes, spectrum resampling and the ES-kernel NUFFT (counterpart of
-pixell_tpu/fft.py).
+"""FFTs, DCTs, spectrum resampling and the ES-kernel NUFFT (counterpart
+of pixell_tpu/fft.py).
 
-Ports fft_len (pixell_tpu/fft.py:199), resample (:244) with its transpose,
-and the NUFFT suite (:299-658, :878-929): _es_params, the ES kernel, the
-grid correction (host numpy, cached per size and device), the fine-grid
-build (deconvolve, zero-pad, inverse FFT; the real-output Hermitian form
-and the chunked build), the point stage, u2nu, nu2u (its transpose, written
-out: the spread kernel, then the fine-grid build taken back stage by stage,
-where the reference takes jax.linear_transpose), interpol_nufft and
-u2nu_plan. The transforms themselves are torch.fft; the point stage runs in
-the hand-written kernels of ops.nufft_cuda (K10, K11) on the card and in
-their plain PyTorch twins on the CPU. Not ported: iu2nu, inu2u and the
-nufft* aliases; _u2nu_rowband_core and shift_interp (lensing's); and the
-TPU-shaped _block_gather_eval with its GATHER_CHUNK, which the kernels make
-unneeded.
+The transforms are torch.fft (cuFFT on the card): fft / ifft / rfft /
+irfft with FFTW's unnormalized convention and the complex promotion
+(pixell_tpu/fft.py:37-75); the eight DCT / DST types by zero-embedding in
+an FFT (:110-196) with redft00, chebt and ichebt; the Fourier shift, the
+FFT resample (:223-297) and measure_shift; the size and frequency helpers
+and the engine shims (:20-29, :661-760), whose one engine is torch.fft.
+Then fft_len (:199), resample (:244) with its transpose, and the NUFFT
+suite (:299-658, :878-929): _es_params, the ES kernel, the grid correction
+(host numpy, cached per size and device), the fine-grid build (deconvolve,
+zero-pad, inverse FFT; the real-output Hermitian form and the chunked
+build), the point stage, u2nu, nu2u (its transpose, written out: the
+spread kernel, then the fine-grid build taken back stage by stage, where
+the reference takes jax.linear_transpose), interpol_nufft and u2nu_plan.
+The NUFFT's point stage runs in the hand-written kernels of ops.nufft_cuda
+(K10, K11) on the card and in their plain PyTorch twins on the CPU. Not
+ported: iu2nu, inu2u, the nufft* aliases and shift_interp (lensing's); and
+the TPU-shaped _block_gather_eval with its GATHER_CHUNK, which the kernels
+make unneeded.
 
-The entry points that take numpy arrays (u2nu, nu2u, interpol_nufft,
-u2nu_plan) put them on device="cuda" unless told otherwise; tensors stay
-where they are.
+The functions that take arrays put numpy input on device="cuda" unless
+told otherwise; tensors stay where they are, and the result is on their
+device. A float32 input gives complex64 coefficients, a float64 one
+complex128.
 """
 from __future__ import annotations
 import functools
@@ -39,10 +45,11 @@ def fft_len(n, direction="below", factors=None):
 	return max(m, 1)
 
 
-def resample(fa, n, axes=(-1,)):
+def resample(fa, n, axes=(-1,), norm=True):
 	"""Fourier-space resample: truncate or zero-pad the (unshifted) spectrum
 	fa to n samples along each of axes. An even-length Nyquist bin is split
-	symmetrically when padding and absorbs both halves when truncating."""
+	symmetrically when padding and absorbs both halves when truncating.
+	norm is accepted and ignored, as in the reference."""
 	naxes = [int(ax) % fa.ndim for ax in np.atleast_1d(axes)]
 	ns = (np.zeros(len(naxes), int) + np.asarray(n)).tolist()
 	for ax, n_new in zip(naxes, ns):
@@ -91,6 +98,239 @@ def _resample2_t(ft, shape):
 	"""_resample_t along the last two axes, to shape (ny, nx)."""
 	ft = _resample_t(ft, int(shape[1]))
 	return _resample_t(ft.movedim(-2, -1), int(shape[0])).movedim(-1, -2)
+
+
+# ---------------------------------------------------------------------------
+# Transforms on torch.fft (pixell_tpu/fft.py:20-297)
+# ---------------------------------------------------------------------------
+engine = "torch"
+
+def set_engine(name):
+	"""Select the FFT engine; the port has one, "torch" (torch.fft)."""
+	global engine
+	if name != "torch": raise ValueError("Only the 'torch' engine exists in pixell_tpu_torch")
+	engine = name
+
+def nthread_fft(): return 1
+def nthread_ifft(): return 1
+
+
+def _axes(a, axes):
+	if axes is None: return tuple(range(a.ndim))
+	return tuple(int(ax) % a.ndim for ax in np.atleast_1d(axes))
+
+
+def _floating(a):
+	"""a as a floating or complex tensor (integers and bools to float64)."""
+	return a if a.is_floating_point() or a.is_complex() else a.to(torch.float64)
+
+
+def _out(res, out):
+	"""res, copied into out when out is given (then out is returned)."""
+	if out is None: return res
+	if isinstance(out, torch.Tensor): return out.copy_(res)
+	out[...] = res.detach().cpu().numpy()
+	return out
+
+
+def fft(tod, ft=None, nthread=0, axes=(-1,), flags=None, normalize=False, *, device="cuda"):
+	"""Complex FFT along axes, unnormalized (FFTW's convention; with
+	normalize divided by the transform size). Real input is promoted to
+	the complex dtype of its precision. Into ft when given."""
+	a = _tensor(tod, device)
+	a = a.to(_cdtype(_floating(a).dtype))
+	res = torch.fft.fftn(a, dim=_axes(a, axes), norm="forward" if normalize else "backward")
+	return _out(res, ft)
+
+
+def ifft(tod, ft=None, nthread=0, axes=(-1,), flags=None, normalize=False, *, device="cuda"):
+	"""Inverse complex FFT along axes, unnormalized: ifft(fft(x)) = N x
+	unless normalize. The first argument holds the coefficients; into ft
+	when given."""
+	a = _tensor(tod, device)
+	a = a.to(_cdtype(_floating(a).dtype))
+	res = torch.fft.ifftn(a, dim=_axes(a, axes), norm="backward" if normalize else "forward")
+	return _out(res, ft)
+
+
+def rfft(tod, ft=None, nthread=0, axes=(-1,), flags=None, normalize=False, *, device="cuda"):
+	"""Real-to-complex FFT, the half spectrum along the last of axes
+	(complex over the rest); complex input is taken by its real part."""
+	a = _floating(_tensor(tod, device))
+	if a.is_complex(): a = a.real
+	res = torch.fft.rfftn(a, dim=_axes(a, axes), norm="forward" if normalize else "backward")
+	return _out(res, ft)
+
+
+def irfft(ft, tod=None, n=None, nthread=0, axes=(-1,), flags=None, normalize=False, *,
+		device="cuda"):
+	"""Complex-to-real inverse FFT, unnormalized unless normalize. n (else
+	tod's shape, else 2 (m-1)) is the real length of the last of axes."""
+	a = _tensor(ft, device)
+	a = a.to(_cdtype(_floating(a).dtype))
+	axs = _axes(a, axes)
+	if n is None and tod is not None: n = tod.shape[axs[-1]]
+	if n is None: n = 2*(a.shape[axs[-1]]-1)
+	s = [a.shape[ax] for ax in axs[:-1]] + [int(n)]
+	res = torch.fft.irfftn(a, s=s, dim=axs, norm="backward" if normalize else "forward")
+	return _out(res, tod)
+
+
+def redft00(a, b=None, nthread=0, normalize=False, flags=None, *, device="cuda"):
+	"""DCT-I along the last axis (FFTW's REDFT00)."""
+	return _out(dct(a, type="DCT-I", axes=(-1,), normalize=normalize, device=device), b)
+
+
+def _scale_ends(a, fac):
+	a = a.clone()
+	a[..., 0] *= fac
+	a[..., -1] *= fac
+	return a
+
+
+def chebt(a, b=None, nthread=0, *, device="cuda"):
+	"""Chebyshev coefficients of samples at the Chebyshev nodes, by DCT-I."""
+	a = _tensor(a, device)
+	return _out(_scale_ends(redft00(a)/(a.shape[-1]-1), 0.5), b)
+
+
+def ichebt(a, b=None, nthread=0, *, device="cuda"):
+	"""Samples at the Chebyshev nodes of Chebyshev coefficients: chebt's inverse."""
+	return _out(redft00(_scale_ends(_tensor(a, device), 2.0))*0.5, b)
+
+
+# The eight DCT / DST types (FFTW's r2r kinds), unnormalized, by
+# zero-embedding in an FFT along the last axis (pixell_tpu/fft.py:100-196)
+_dct_names = {
+	"dct-i": "redft00", "dct-ii": "redft10", "dct-iii": "redft01", "dct-iv": "redft11",
+	"dst-i": "rodft00", "dst-ii": "rodft10", "dst-iii": "rodft01", "dst-iv": "rodft11",
+	"cos": "redft10", "sin": "rodft10",
+}
+_inverse_kind = {"redft00": "redft00", "redft10": "redft01", "redft01": "redft10",
+	"redft11": "redft11", "rodft00": "rodft00", "rodft10": "rodft01",
+	"rodft01": "rodft10", "rodft11": "rodft11"}
+
+def _canon_type(type):
+	t = str(type).lower()
+	return _dct_names.get(t, t)
+
+
+def _embed(x, size, sl):
+	"""x placed at sl of zeros of length size along the last axis."""
+	z = x.new_zeros(x.shape[:-1] + (size,))
+	z[..., sl] = x
+	return z
+
+
+def _dct1d(x, kind):
+	"""The unnormalized r2r transform of kind along the last axis."""
+	n = x.shape[-1]
+	F = torch.fft.fft
+	if kind == "redft00":
+		if n < 2: return 2.0*x
+		return F(torch.cat([x, x[..., 1:-1].flip(-1)], -1))[..., :n].real
+	if kind == "redft10":
+		return 2*F(_embed(x, 4*n, slice(1, 2*n, 2)))[..., :n].real
+	if kind == "redft01":
+		return 2*F(_embed(x, 4*n, slice(0, n)))[..., 1:2*n:2].real - x[..., :1]
+	if kind == "redft11":
+		return 2*F(_embed(x, 8*n, slice(1, 2*n, 2)))[..., 1:2*n:2].real
+	if kind == "rodft00":
+		return -2*F(_embed(x, 2*(n+1), slice(1, n+1)))[..., 1:n+1].imag
+	if kind == "rodft10":
+		return -2*F(_embed(x, 4*n, slice(1, 2*n, 2)))[..., 1:n+1].imag
+	if kind == "rodft01":
+		sign = torch.ones(n, dtype=x.dtype, device=x.device)
+		sign[::2] = -1
+		return -2*F(_embed(x, 4*n, slice(1, n+1)))[..., 1:2*n:2].imag + x[..., -1:]*sign
+	if kind == "rodft11":
+		return -2*F(_embed(x, 8*n, slice(1, 2*n, 2)))[..., 1:2*n:2].imag
+	raise ValueError("Unknown r2r kind '%s'" % kind)
+
+
+def _logical_size(kind, n):
+	if kind == "redft00": return 2*(n-1)
+	if kind == "rodft00": return 2*(n+1)
+	return 2*n
+
+
+def _r2r(a, kind, axes, normalize, device):
+	x = _floating(_tensor(a, device))
+	if x.is_complex(): x = x.real
+	norm = 1
+	for ax in _axes(x, axes):
+		x = _dct1d(x.movedim(ax, -1), kind).movedim(-1, ax)
+		norm *= _logical_size(kind, x.shape[ax])
+	return x/norm if normalize else x
+
+
+def dct(a, b=None, nthread=0, type="DCT-I", axes=(-2, -1), normalize=False, flags=None, *,
+		device="cuda"):
+	"""The DCT or DST of type (DCT-I ... DST-IV) along axes, unnormalized
+	as in FFTW; normalize divides by the logical transform size."""
+	return _out(_r2r(a, _canon_type(type), axes, normalize, device), b)
+
+
+def idct(a, b=None, nthread=0, type="DCT-I", axes=(-2, -1), normalize=False, flags=None, *,
+		device="cuda"):
+	"""The inverse of dct: FFTW's inverse kind, so idct(dct(x)) is the
+	product of the logical sizes times x unless normalize."""
+	return _out(_r2r(a, _inverse_kind[_canon_type(type)], axes, normalize, device), b)
+
+
+def dst(a, b=None, nthread=0, type="DST-I", axes=(-2, -1), normalize=False, flags=None, *,
+		device="cuda"):
+	return dct(a, b, nthread=nthread, type=type, axes=axes, normalize=normalize, device=device)
+
+
+def idst(a, b=None, nthread=0, type="DST-I", axes=(-2, -1), normalize=False, flags=None, *,
+		device="cuda"):
+	return idct(a, b, nthread=nthread, type=type, axes=axes, normalize=normalize, device=device)
+
+
+def fftfreq(n, d=1.0): return np.fft.fftfreq(n, d)
+def rfftfreq(n, d=1.0): return np.fft.rfftfreq(n, d)
+
+def ind2freq(n, i, d=1.0):
+	"""Fourier bin index -> frequency, wrapped above the Nyquist."""
+	i = np.asanyarray(i)
+	return ((i + n//2) % n - n//2)/(d*n)
+
+def freq2ind(n, f, d=1.0):
+	return (np.asanyarray(f)*d*n) % n
+
+
+def shift(a, shift, axes=None, nofft=False, deriv=None, *, device="cuda"):
+	"""a shifted by a (fractional) number of samples along axes, by a phase
+	ramp in Fourier space (pixell_tpu.fft.shift :223); with nofft a is its
+	own FFT and the shifted FFT is returned. deriv: the derivative along
+	axes[deriv] instead. The ramps are built in float64 on the host (one
+	vector an axis)."""
+	a = _floating(_tensor(a, device))
+	axs = _axes(a, axes)
+	ca = a.to(_cdtype(a.dtype)) if nofft else fft(a, axes=axs)
+	shifts = np.zeros(len(axs)) + np.asarray(shift)
+	for i, ax in enumerate(axs):
+		f = np.fft.fftfreq(a.shape[ax])
+		phase = np.exp(-2j*np.pi*f*shifts[i])
+		if deriv is not None and deriv == i: phase = phase*(2j*np.pi*f)
+		sl = [1]*ca.ndim; sl[ax] = -1
+		ca = ca*torch.from_numpy(phase).to(ca.device, ca.dtype).reshape(sl)
+	if nofft: return ca
+	res = ifft(ca, axes=axs, normalize=True)
+	return res if a.is_complex() else res.real
+
+
+def resample_fft(d, n, axes=(-1,), *, device="cuda"):
+	"""d resampled to n samples along axes by zero-padding or truncating its
+	spectrum (pixell_tpu.fft.resample_fft :283)."""
+	d = _floating(_tensor(d, device))
+	axs = _axes(d, axes)
+	ns = np.zeros(len(axs), int) + np.asarray(n)
+	fd = resample(fft(d, axes=axs), ns, axes=axs)
+	norm = np.prod([fd.shape[ax] for ax in axs])/np.prod([d.shape[ax] for ax in axs])
+	res = ifft(fd, axes=axs, normalize=True)*norm
+	return res if d.is_complex() else res.real
 
 
 # ---------------------------------------------------------------------------
@@ -324,3 +564,103 @@ class u2nu_plan:
 		if not self.complex and res.is_complex(): res = res.real
 		if self.normalize: res = res/self.norm
 		return res
+
+
+# ---------------------------------------------------------------------------
+# Engine shims and small helpers (pixell_tpu/fft.py:661-765): one engine,
+# torch.fft, behind the reference's engine interface
+# ---------------------------------------------------------------------------
+class NumpyEngine:
+	"""The reference's engine interface over this module's transforms."""
+	def fft(self, a, b=None, axes=(-1,), nthread=0, flags=None):
+		return fft(a, b, axes=axes)
+	def ifft(self, a, b=None, axes=(-1,), nthread=0, flags=None, normalize=True):
+		return ifft(a, b, axes=axes, normalize=normalize)
+	def rfft(self, a, b=None, axes=(-1,), nthread=0, flags=None):
+		return rfft(a, b, axes=axes)
+	def irfft(self, a, b=None, n=None, axes=(-1,), nthread=0, flags=None, normalize=True):
+		return irfft(a, b, n=n, axes=axes, normalize=normalize)
+
+_engines = {"numpy": NumpyEngine(), "auto": NumpyEngine(), "torch": NumpyEngine()}
+
+def get_engine(eng):
+	"""The fft engine of that name (any name gives the one engine)."""
+	if isinstance(eng, str): return _engines.get(eng, _engines["auto"])
+	return eng
+
+def numpy_empty_aligned(shape, dtype, n=None):
+	return np.empty(shape, dtype)
+
+
+class numpy_FFTW:
+	"""A plan-style wrapper: calling it transforms a into b (a tensor or a
+	numpy array), forward or backward."""
+	def __init__(self, a, b, axes=(-1,), flags=None, threads=1, direction="FFTW_FORWARD"):
+		self.a, self.b = a, b
+		self.axes = axes
+		self.direction = direction
+	def __call__(self, normalise_idft=False):
+		if self.direction == "FFTW_FORWARD": return fft(self.a, self.b, axes=self.axes)
+		return ifft(self.a, self.b, axes=self.axes, normalize=normalise_idft)
+
+
+def fft_flat(tod, ft, nthread=1, axes=[-1], flags=None, _direction="FFTW_FORWARD"):
+	"""fft of tod into ft (backward: the real part of ifft of ft into tod)."""
+	if _direction == "FFTW_FORWARD": return fft(tod, ft, axes=tuple(axes))
+	_out(ifft(ft, axes=tuple(axes)).real, tod)
+	return ft
+
+
+def ifft_flat(ft, tod, nthread=1, axes=[-1], flags=None):
+	fft_flat(tod, ft, nthread=nthread, axes=axes, _direction="FFTW_BACKWARD")
+	return tod
+
+
+def asfcarray(a):
+	"""a as a float or complex numpy array, integers promoted."""
+	a = np.asarray(a)
+	return np.asarray(a, np.promote_types(a.dtype, np.float32))
+
+
+def empty(shape, dtype):
+	return np.empty(shape, dtype)
+
+
+def rfft_shape(ishape, axes=[-1]):
+	"""The output shape of an rfft over axes."""
+	oshape = list(ishape)
+	oshape[axes[-1]] = ishape[axes[-1]]//2 + 1
+	return tuple(oshape)
+
+
+def irfft_shape(ishape, n=None, axes=[-1]):
+	"""The output shape of an irfft over axes."""
+	oshape = list(ishape)
+	oshape[axes[-1]] = n if n is not None else 2*(ishape[axes[-1]] - 1)
+	return tuple(oshape)
+
+
+def rfreq2ind(freqs, n):
+	"""Real-fft frequency (cycles a sample) -> bin index."""
+	return np.asarray(freqs)*n
+
+
+def int2rfreq(n, i, d=1.0):
+	return np.asarray(i)/(n*d)
+
+
+def measure_shift(a, b, axis=-1, *, device="cuda"):
+	"""The (sub-sample) shift of a against b along axis, from the peak of
+	their circular cross-correlation refined by a parabola through it and
+	its neighbours (pixell_tpu.fft.measure_shift :741)."""
+	a = _floating(_tensor(a, device)); b = _floating(_tensor(b, a.device))
+	n = a.shape[axis]
+	corr = torch.fft.irfft(torch.fft.rfft(a, dim=axis)*torch.conj(torch.fft.rfft(b, dim=axis)),
+		n=n, dim=axis)
+	i = torch.argmax(corr, axis, keepdim=True)
+	at = lambda j: torch.take_along_dim(corr, j, axis).squeeze(axis)
+	c0, cm, cp = at(i), at((i - 1) % n), at((i + 1) % n)
+	denom = cm - 2*c0 + cp
+	frac = torch.where(denom.abs() > 0, 0.5*(cm - cp)/torch.where(denom == 0, 1, denom), 0)
+	sh = i.squeeze(axis) + frac
+	return torch.where(sh > n/2, sh - n, sh)

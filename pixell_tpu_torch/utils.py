@@ -1,12 +1,16 @@
 """Constants and small host-side helpers (counterpart of pixell_tpu/utils.py).
 
-Only what the curved-sky path needs: the angle constants, nint,
-rewind/unwind for the pixel<->sky conversions, eigpow for rand_alm and the
-Minres solver of curvedsky.minres_inverse. All of it is numpy: geometry,
-random draws and that solver's vectors are host work.
+Only what the ported modules call: the angle constants, nint,
+rewind/unwind for the pixel<->sky conversions, eigpow for rand_alm and
+spec2flat, the Minres solver of curvedsky.minres_inverse, and for the flat
+sky split_slice / expand_slice (ndmap indexing), nditer, real_dtype /
+complex_dtype (numpy or torch dtypes) and ang2rect / rect2ang / angdist
+(modrmap, extent's subgrid). Apart from the dtype maps all of it is numpy:
+geometry, random draws and that solver's vectors are host work.
 """
 from __future__ import annotations
 import numpy as np
+import torch
 
 degree = np.pi/180
 arcmin = degree/60
@@ -106,3 +110,90 @@ class Minres:
 		self.i += 1
 		self.err = self.dot(self.r, self.r)**0.5/max(self.bnorm, 1e-300)
 		return self.x
+
+
+# ---------------------------------------------------------------------------
+# Slices, iteration and dtypes (pixell_tpu/utils.py:489-610)
+# ---------------------------------------------------------------------------
+def split_slice(sel, ndims):
+	"""Split a selection tuple into groups covering ndims[0], ndims[1], ...
+	dimensions each, Ellipsis expanded (pixell_tpu.utils.split_slice)."""
+	if not isinstance(sel, tuple): sel = (sel,)
+	ntot = sum(ndims)
+	if Ellipsis in sel:
+		i = sel.index(Ellipsis)
+		ncur = len([s for s in sel if s is not Ellipsis and s is not None])
+		sel = sel[:i] + (slice(None),)*(ntot-ncur) + sel[i+1:]
+	res, i = [], 0
+	for nd in ndims:
+		group = []
+		while i < len(sel) and len([g for g in group if g is not None]) < nd:
+			group.append(sel[i]); i += 1
+		res.append(tuple(group))
+	if i < len(sel): res[-1] = res[-1] + sel[i:]
+	return res
+
+
+def expand_slice(sel, n, nowrap=False):
+	"""sel with explicit start, stop and step for length n
+	(pixell_tpu.utils.expand_slice)."""
+	return slice(*sel.indices(n))
+
+
+def nditer(shape):
+	"""Every index tuple of shape, () for an empty one (pixell_tpu.utils.nditer)."""
+	if len(shape) == 0:
+		yield ()
+		return
+	yield from np.ndindex(*shape)
+
+
+_REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
+_COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
+
+def real_dtype(dtype):
+	"""The real dtype of a possibly complex numpy or torch dtype."""
+	if isinstance(dtype, torch.dtype): return _REAL.get(dtype, dtype)
+	return np.zeros(1, dtype).real.dtype
+
+
+def complex_dtype(dtype):
+	"""The complex dtype of a possibly real numpy or torch dtype (at least
+	complex64, as pixell_tpu.utils.complex_dtype)."""
+	if isinstance(dtype, torch.dtype):
+		return dtype if dtype.is_complex else _COMPLEX.get(dtype, torch.complex64)
+	return np.result_type(dtype, np.complex64)
+
+
+# ---------------------------------------------------------------------------
+# Coordinate geometry (pixell_tpu/utils.py:222-258)
+# ---------------------------------------------------------------------------
+def ang2rect(angs, zenith=False, axis=0):
+	"""[{phi, theta}, ...] angles -> [{x, y, z}, ...] unit vectors; theta
+	is the latitude, or with zenith the colatitude."""
+	phi, theta = np.moveaxis(np.asarray(angs), axis, 0)
+	st, ct = np.sin(theta), np.cos(theta)
+	if zenith: res = np.stack([st*np.cos(phi), st*np.sin(phi), ct])
+	else:      res = np.stack([ct*np.cos(phi), ct*np.sin(phi), st])
+	return np.moveaxis(res, 0, axis)
+
+
+def rect2ang(rect, zenith=False, axis=0):
+	"""The inverse of ang2rect."""
+	x, y, z = np.moveaxis(np.asarray(rect), axis, 0)
+	r = np.sqrt(x*x + y*y)
+	theta = np.arctan2(r, z) if zenith else np.arctan2(z, r)
+	return np.moveaxis(np.stack([np.arctan2(y, x), theta]), 0, axis)
+
+
+def angdist(a, b, zenith=False, axis=0):
+	"""The angle between [{ra, dec}, ...] points a and b, in radians, by
+	Vincenty's formula (robust at small separations)."""
+	ra1, dec1 = np.moveaxis(np.asarray(a), axis, 0)
+	ra2, dec2 = np.moveaxis(np.asarray(b), axis, 0)
+	if zenith: dec1, dec2 = np.pi/2 - dec1, np.pi/2 - dec2
+	dra = ra2 - ra1
+	y = np.hypot(np.cos(dec2)*np.sin(dra),
+		np.cos(dec1)*np.sin(dec2) - np.sin(dec1)*np.cos(dec2)*np.cos(dra))
+	x = np.sin(dec1)*np.sin(dec2) + np.cos(dec1)*np.cos(dec2)*np.cos(dra)
+	return np.arctan2(y, x)

@@ -116,9 +116,9 @@ def record_roundtrip(lmax, shape, spin, launches):
 	alm = curvedsky.rand_alm(ps, lmax=lmax, seed=1, dtype=torch.complex128, device="cpu")
 	mshape = gshape if alm.ndim == 1 else (alm.shape[0],) + gshape
 	launches.clear()
-	m = curvedsky.alm2map(alm, enmap.zeros(mshape, wcs, torch.float64, "cpu"), spin=list(spin))
+	m = curvedsky.alm2map(alm, enmap.zeros(mshape, wcs, torch.float64, device="cpu"), spin=list(spin))
 	a = curvedsky.map2alm(m, lmax=lmax, spin=list(spin))
-	curvedsky.alm2map(a, enmap.zeros(mshape, wcs, torch.float64, "cpu"), spin=list(spin))
+	curvedsky.alm2map(a, enmap.zeros(mshape, wcs, torch.float64, device="cpu"), spin=list(spin))
 	return [(name, mode) + tuple(args[10:13]) for name, mode, _, args in launches]
 
 

@@ -49,9 +49,13 @@ def test_wcs_from_fields_roundtrip():
 	lon, lat = wcsutils.pix2world(w, x, y)
 	for a, b in zip(wcsutils.world2pix(w, lon, lat), jwcs.world2pix(jw, lon, lat)):
 		np.testing.assert_allclose(a, np.asarray(b), atol=1e-9)
-	with pytest.raises(NotImplementedError):
-		wcsutils.pix2world(wcsutils.WCS.from_fields(["RA---TAN", "DEC--TAN"],
-			[0, 0], [1, 1], [1, 1]), x, y)
+	# the other projections are ported too (tests/test_torch_wcsutils.py holds them all)
+	tan = wcsutils.WCS.from_fields(["RA---TAN", "DEC--TAN"], [0, 0], [1, 1], [1, 1])
+	jtan = jwcs.WCS()
+	jtan.wcs.ctype, jtan.wcs.crval = ["RA---TAN", "DEC--TAN"], np.zeros(2)
+	jtan.wcs.crpix, jtan.wcs.cdelt = np.ones(2), np.ones(2)
+	for a, b in zip(wcsutils.pix2world(tan, x/10, y/10), jwcs.pix2world(jtan, x/10, y/10)):
+		np.testing.assert_allclose(a, np.asarray(b), atol=1e-12)
 
 
 def _geoms():

@@ -1,5 +1,5 @@
-"""The public signatures of pixell_tpu_torch.curvedsky and .sht against
-pixell_tpu's: every public name both modules define takes the reference's
+"""The public signatures of pixell_tpu_torch.curvedsky, .sht, .enmap,
+.fft, .wcsutils and .powspec against pixell_tpu's: every public name both modules define takes the reference's
 parameters, by name and in order, and the port's own extras (device=,
 leg_dtype=) come after them and are keyword-only, so a call written for
 the reference means the same in the port. Then the calls themselves: map2alm
@@ -15,12 +15,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from pixell_tpu import curvedsky as jcurvedsky, sht as jsht, enmap as jenmap
-from pixell_tpu_torch import curvedsky, sht, enmap
+from pixell_tpu import curvedsky as jcurvedsky, sht as jsht, enmap as jenmap, fft as jfft, \
+	wcsutils as jwcsutils, powspec as jpowspec
+from pixell_tpu_torch import curvedsky, sht, enmap, fft, wcsutils, powspec
 
 LMAX = 16
 SHAPE = (20, 40)
-PAIRS = {"curvedsky": (jcurvedsky, curvedsky), "sht": (jsht, sht)}
+PAIRS = {"curvedsky": (jcurvedsky, curvedsky), "sht": (jsht, sht), "enmap": (jenmap, enmap),
+	"fft": (jfft, fft), "wcsutils": (jwcsutils, wcsutils), "powspec": (jpowspec, powspec)}
 
 
 def shared_names():
@@ -62,7 +64,9 @@ def test_reference_parameters_come_first(mod, name):
 def test_the_check_covers_the_entry_points():
 	names = {n for _, n in shared_names()}
 	assert {"alm2map", "map2alm", "rand_alm", "rand_alm_white", "rand_map", "lmul", "almxfl",
-		"alm_info.lmul", "alm_info.alm2cl", "prepare_alm", "synthesis", "analysis"} <= names
+		"alm_info.lmul", "alm_info.alm2cl", "prepare_alm", "synthesis", "analysis",
+		"fft", "ifft", "map2harm", "harm2map", "lbin", "geometry", "ndmap.fft", "ndmap.sum", "dct", "build",
+		"pixelization", "read_spectrum", "spec2flat", "rand_map"} <= names
 
 
 def geometry():
