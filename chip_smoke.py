@@ -10,7 +10,7 @@ and nufft.cu, all compilers started together) and prints each kernel's
 registers and spills (every float64 instantiation of the bulk kernels and
 all twelve of K10 / K11 / K12 must be built, and none of them may spill),
 then runs the phases below (all of them with no arguments; --phases with a
-choice of k9,kernels,lstop,slice,adjoint,blocked,timing,general,flat runs those
+choice of k9,kernels,lstop,slice,adjoint,blocked,timing,general,flat,interp runs those
 alone, for work on one phase, and gives no verdict; the phases
 "variants", 6. below, and "blkprobe" run only when named). With
 --parent DIR, a directory holding a parent tree's legendre.cu, blockleg.cu
@@ -264,6 +264,29 @@ K10 / K11 (below):
    rand_map of IQU at 1024 x 2048 in float64 on the card and on CPU
    tensors from one seed within 1e-12. With --phases flat alone the
    hand-written kernels are not built.
+9. interp: the pixel side (interpol, resample, enmap's project / at /
+   cut-outs / resolution changes), plain torch, no hand-written kernel (the
+   reference has no pallas_call there). Guards first, on a 1024 x 2048 CAR
+   map from a numpy seed: project onto a CEA geometry, at 100000 positions,
+   the transpose and deriv=True of map_coordinates there, downgrade 2 and a
+   submap, each on the card against the same call on CPU tensors (1e-12 in
+   float64, 2e-5 in float32), and <A x, y> = <x, A^T y> of map_coordinates
+   in float64 within 1e-12. Then on the DR6-sized band of the flat phase
+   (white noise from a seeded torch.Generator): project of T float64 and
+   IQU float32 onto the CEA geometry of its footprint at 0.5 arcmin
+   (8813 x 43200), order 3, border "constant": the ms (median, min, max of
+   7), the stages positions / prefilter / gather (median of 3) each against
+   its bytes bound over 3.35 TB/s, the busy share of one profiled call and
+   its host <-> device copies (none above 1 MB: both geometries are
+   separable, so only the two axes are copied), the memory peak (under 70
+   GiB), and the order-3 spline at 4 000 000 pixel centres within 1e-12 /
+   1e-5 of the largest value; at of the IQU float32 band at 4 000 000
+   positions drawn uniformly in it (order 3 and 1) with its stages and busy
+   share, and the transpose and deriv=True of map_coordinates at the same
+   points; downgrade 2, upgrade 2, resample 0.5 (fft) and apod 120 against
+   their bytes bounds; a 20 x 20 degree submap across RA = 180 inserted
+   back into zeros, the roundtrip exact. With --phases interp alone (or with
+   flat) the hand-written kernels are not built.
 
 It prints the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and yardstick, and as the last line
@@ -3218,10 +3241,10 @@ def flat_time(fn, nstep, nrep=7):
 	return float(np.median(times)), min(times), max(times)
 
 
-def flat_profile(fn, rows, label):
+def flat_profile(fn, rows, label, limit=FLAT_COPY_BYTES):
 	"""(wall ms, device busy ms) of fn under the profiler, whose device time
 	by op it prints (rows rows); fails on a host <-> device copy above
-	FLAT_COPY_BYTES, read from the trace's memcpy records (their bytes, or
+	limit bytes, read from the trace's memcpy records (their bytes, or
 	where a record has none, a duration above 50 us)."""
 	from torch.profiler import profile, ProfilerActivity
 	with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3241,11 +3264,11 @@ def flat_profile(fn, rows, label):
 	os.remove(path)
 	copies = [(e.get("name", ""), (e.get("args") or {}).get("bytes"), e.get("dur", 0)) for e in events
 		if e.get("cat") == "gpu_memcpy" and ("HtoD" in e.get("name", "") or "DtoH" in e.get("name", ""))]
-	big = [c for c in copies if (c[1] is not None and c[1] > FLAT_COPY_BYTES) or (c[1] is None and c[2] > 50)]
+	big = [c for c in copies if (c[1] is not None and c[1] > limit) or (c[1] is None and c[2] > 50)]
 	print("flat %s: one profiled call: wall %.3f ms, device busy %.3f ms (%.1f %%); %d host <-> device "
 		"copies, largest %s bytes" % (label, wall, busy, 100*busy/wall, len(copies),
 		max((c[1] or 0 for c in copies), default=0)))
-	if big: raise RuntimeError("flat %s: host <-> device copies above %d bytes: %s" % (label, FLAT_COPY_BYTES, big))
+	if big: raise RuntimeError("flat %s: host <-> device copies above %d bytes: %s" % (label, limit, big))
 	return wall, busy
 
 
@@ -3415,7 +3438,245 @@ def flat_phase():
 	flat_rand_map()
 
 
-PHASES = ("k9", "kernels", "lstop", "slice", "adjoint", "blocked", "timing", "general", "flat")
+# ---------------------------------------------------------------------------
+# 9. interp: pixel-space reprojection (project / at, map_coordinates and its
+# transpose, resolution changes, cut-outs) on the DR6-sized band
+# ---------------------------------------------------------------------------
+INTERP_F32_TOL = 2e-5          # float32 against float64 or the CPU (tests/test_torch_enmap_pixel.py)
+INTERP_CPU_TOL = 1e-12         # card against CPU tensors, float64
+INTERP_NODE_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}   # order-3 spline at the pixel centres
+INTERP_ADJ_TOL = 1e-12         # <A x, y> = <x, A^T y>, float64, relative
+INTERP_NPT = 4_000_000         # catalogue positions for at
+INTERP_BSIZE = 1000            # project's block of output rows
+
+
+def interp_band(dtype, seed):
+	"""The DR6-sized band (the flat phase's) with white noise from a seeded
+	generator on the card: IQU in float32, T in float64."""
+	from pixell_tpu_torch import enmap, utils
+	shape, wcs = enmap.band_geometry(np.array([-63, 23])*utils.degree, res=0.5*utils.arcmin)
+	gen = torch.Generator(device=DEV)
+	gen.manual_seed(seed)
+	mshape = ((3,) if dtype == torch.float32 else ()) + tuple(shape)
+	return enmap.ndmap(torch.randn(mshape, generator=gen, device=DEV, dtype=dtype), wcs)
+
+
+def interp_target():
+	"""The CEA geometry of the band's footprint at 0.5 arcmin (8813 x 43200)."""
+	from pixell_tpu_torch import enmap, utils
+	return enmap.geometry(pos=np.array([[-63, 180], [23, -180]])*utils.degree, res=0.5*utils.arcmin, proj="cea")
+
+
+def interp_share(label, ms, nbytes):
+	"""A line with ms against the bytes bound nbytes / 3.35 TB/s."""
+	b = 1e3*nbytes/PEAK_BYTES
+	print("interp %s: %.3f ms, bytes bound %.3f ms (%.2f %% of it; %.2f GB)" % (label, ms, b, 100*b/ms, nbytes/1e9))
+	return b
+
+
+def interp_project(dtype):
+	"""enmap.project of the band onto the CEA geometry at order 3, border
+	"constant": time (median of 7), stages, busy share, peak, bytes bound;
+	the order-3 spline reproducing the map at its own pixel centres."""
+	from pixell_tpu_torch import enmap, interpol
+	tag = "IQU float32" if dtype == torch.float32 else "T float64"
+	torch.cuda.empty_cache()
+	torch.cuda.synchronize()
+	torch.cuda.reset_peak_memory_stats()
+	m = interp_band(dtype, 18)
+	shape, wcs = interp_target()
+	out = enmap.project(m, shape, wcs)
+	torch.cuda.synchronize()
+	peak = torch.cuda.max_memory_allocated()/2**30
+	if tuple(out.shape) != tuple(m.shape[:-2]) + tuple(shape) or not bool(torch.isfinite(out.data).all()):
+		raise RuntimeError("interp project %s: output %s not finite or of the wrong shape" % (tag, out.shape))
+	print("interp project %s: %s -> %s (CEA), peak device memory %.2f GiB (bound %d)" % (tag, m.shape, out.shape,
+		peak, FLAT_MEM_GIB))
+	if not peak < FLAT_MEM_GIB: raise RuntimeError("interp project %s: peak %.2f GiB" % (tag, peak))
+	del out
+	med, lo, hi = flat_time(lambda: enmap.project(m, shape, wcs), 1)
+	print("interp project %s: %.3f ms a call (median of 7; min %.3f, max %.3f)" % (tag, med, lo, hi))
+	esize = torch.finfo(dtype).bits//8
+	ncomp = m.data.numel()//int(np.prod(m.shape[-2:]))
+	npt = int(np.prod(shape))
+	nmap, nout = m.data.numel()*esize, ncomp*npt*esize
+	interp_share("project %s" % tag, med, nmap + nout)
+	# the stages: the positions (the two axes mapped on the host and copied),
+	# the prefilter of the whole map, the gather (rows, then columns, by
+	# blocks of INTERP_BSIZE output rows)
+	data = m.data.reshape((-1,) + m.shape[-2:])
+	pos = lambda: enmap._project_axes(m.shape, m.wcs, shape, wcs, True, DEV)
+	ty, tx = pos()
+	pre = lambda: interpol._coefficients(data, "spline", 3, "constant", True)
+	coef, padded = pre()
+	def gather():
+		for y1 in range(0, shape[-2], INTERP_BSIZE):
+			interpol._gather_grid(coef, ty[y1:y1+INTERP_BSIZE], tx, "spline", 3, "constant", padded, 0.0)
+	for name, fn, nb in [("positions", pos, 8*sum(shape)), ("prefilter", pre, nmap + coef.numel()*esize),
+			("gather", gather, coef.numel()*esize + nout)]:
+		smed, slo, shi = flat_time(fn, 1, 3)
+		print("interp project %s: stage %s %.3f ms (median of 3; min %.3f, max %.3f)" % (tag, name, smed, slo, shi))
+		interp_share("project %s stage %s" % (tag, name), smed, nb)
+	del ty, tx, coef
+	torch.cuda.empty_cache()
+	wall, busy = flat_profile(lambda: enmap.project(m, shape, wcs), 14, "project %s (separable: the axes' copies "
+		"only)" % tag)
+	print("interp project %s: device busy %.1f %% of one profiled call" % (tag, 100*busy/wall))
+	# the order-3 spline at INTERP_NPT of the map's own pixel centres gives
+	# the map back (the coefficients of the whole map, its border included)
+	g = torch.Generator(device=DEV)
+	g.manual_seed(21)
+	iy = torch.randint(0, m.shape[-2], (INTERP_NPT,), generator=g, device=DEV)
+	ix = torch.randint(0, m.shape[-1], (INTERP_NPT,), generator=g, device=DEV)
+	got = interpol.map_coordinates(data, torch.stack([iy, ix]).to(torch.float64), border="constant")
+	err = relerr(got, data[:, iy, ix])
+	print("interp %s: order-3 spline at %d pixel centres, rel err %.3e (bound %.0e)" % (tag, INTERP_NPT, err,
+		INTERP_NODE_TOL[dtype]))
+	if not err <= INTERP_NODE_TOL[dtype]: raise RuntimeError("interp %s: nodes not reproduced (%g)" % (tag, err))
+	return med
+
+
+def interp_at(m):
+	"""enmap.at of the IQU float32 band at INTERP_NPT positions drawn
+	uniformly in it (order 3 and 1), the transpose and deriv=True at the same
+	points: times, stages and bytes bound."""
+	from pixell_tpu_torch import enmap, interpol, utils
+	rng = np.random.default_rng(19)
+	pos = np.array([rng.uniform(-63, 23, INTERP_NPT), rng.uniform(-180, 180, INTERP_NPT)])*utils.degree
+	esize = 4
+	nmap = m.data.numel()*esize
+	nio = INTERP_NPT*(16 + 3*esize)   # positions read, values written
+	res = {}
+	for order in (3, 1):
+		v = enmap.at(m, pos, order=order)
+		if tuple(v.shape) != (3, INTERP_NPT) or not bool(torch.isfinite(v).all()):
+			raise RuntimeError("interp at order %d: %s not finite or of the wrong shape" % (order, v.shape))
+		med, lo, hi = flat_time(lambda: enmap.at(m, pos, order=order), 1)
+		print("interp at IQU float32, %d points, order %d: %.3f ms a call (median of 7; min %.3f, max %.3f)" % (
+			INTERP_NPT, order, med, lo, hi))
+		interp_share("at order %d" % order, med, nmap + nio)
+		res[order] = med
+	pix = torch.from_numpy(enmap.sky2pix(m.shape, m.wcs, pos)).to(DEV)
+	data = m.data
+	stages = [("positions (host sky2pix, one copy)", lambda: torch.from_numpy(enmap.sky2pix(m.shape, m.wcs,
+		pos)).to(DEV), 16*INTERP_NPT),
+		("prefilter", lambda: interpol._coefficients(data, "spline", 3, "constant", True), 2*nmap),
+		("gather", lambda: interpol.map_coordinates(data, pix, order=3, border="constant", prefilter=False), nio)]
+	for name, fn, nb in stages:
+		smed, slo, shi = flat_time(fn, 1, 3)
+		print("interp at order 3: stage %s %.3f ms (median of 3; min %.3f, max %.3f)" % (name, smed, slo, shi))
+		interp_share("at order 3 stage %s" % name, smed, nb)
+	wall, busy = flat_profile(lambda: enmap.at(m, pos), 12, "at order 3", limit=16*INTERP_NPT)
+	print("interp at order 3: device busy %.1f %% of one profiled call" % (100*busy/wall))
+	vals = enmap.at(m, pos).data
+	for label, fn in [("transpose (trans=True)", lambda: interpol.map_coordinates(data, pix, odata=vals, order=3,
+			border="constant", trans=True)),
+			("deriv=True", lambda: interpol.map_coordinates(data, pix, order=3, border="constant", deriv=True))]:
+		r = fn()
+		if not bool(torch.isfinite(r).all()): raise RuntimeError("interp %s: not finite" % label)
+		med, lo, hi = flat_time(fn, 1)
+		print("interp map_coordinates %s, IQU float32 at %d points, order 3: %.3f ms a call (median of 7; "
+			"min %.3f, max %.3f)" % (label, INTERP_NPT, med, lo, hi))
+		interp_share("map_coordinates %s" % label, med, nmap + nio + (INTERP_NPT*3*esize if "deriv" in label else 0))
+		del r
+	return res
+
+
+def interp_pixel_ops(m):
+	"""downgrade / upgrade by 2, resample by 0.5 (fft), apod by 120 pixels,
+	and a 20 x 20 degree submap across RA = 180 inserted back, on the IQU
+	float32 band."""
+	from pixell_tpu_torch import enmap, resample, utils
+	nmap = m.data.numel()*4
+	for label, fn, nb in [("downgrade 2", lambda: enmap.downgrade(m, 2), nmap*5//4),
+			("upgrade 2", lambda: enmap.upgrade(m, 2), nmap*5),
+			("resample 0.5 (fft)", lambda: resample.resample(m, 0.5), nmap*5//4),
+			("apod 120", lambda: enmap.apod(m, 120), 2*nmap)]:
+		r = fn()
+		if not bool(torch.isfinite(r.data).all()): raise RuntimeError("interp %s: not finite" % label)
+		del r
+		med, lo, hi = flat_time(fn, 1, 3)
+		print("interp %s IQU float32: %.3f ms (median of 3; min %.3f, max %.3f)" % (label, med, lo, hi))
+		interp_share(label, med, nb)
+		torch.cuda.empty_cache()
+	box = np.array([[-30, 190], [-10, 170]])*utils.degree
+	s = m.submap(box)
+	back = enmap.zeros(m.shape, m.wcs, m.dtype, device=DEV)
+	enmap.insert(back, s)
+	again = back.submap(box)
+	pb = enmap.subinds(m.shape, m.wcs, box, noflip=True)
+	cols = torch.arange(int(pb[0, 1]), int(pb[1, 1]), device=DEV) % m.shape[-1]   # wrapped in RA
+	inside = m.data[..., int(pb[0, 0]):int(pb[1, 0]), :][..., cols]
+	exact = bool((again.data == s.data).all()) and bool((s.data == inside).all()) and \
+		int((back.data != 0).sum()) == int((s.data != 0).sum())
+	print("interp submap of a 20 x 20 degree box across RA = 180: %s, pixbox %s; insert(submap) roundtrip exact: %s"
+		% (tuple(s.shape), pb.tolist(), exact))
+	if not exact: raise RuntimeError("interp: insert(submap) roundtrip not exact")
+	med, lo, hi = flat_time(lambda: m.submap(box), 1, 3)
+	print("interp submap IQU float32: %.3f ms (median of 3; min %.3f, max %.3f)" % (med, lo, hi))
+	med, lo, hi = flat_time(lambda: enmap.insert(back, s), 1, 3)
+	print("interp insert IQU float32: %.3f ms (median of 3; min %.3f, max %.3f)" % (med, lo, hi))
+
+
+def interp_guards():
+	"""On a 1024 x 2048 map: the card's project / at / transpose / deriv /
+	downgrade / submap against the same functions on CPU tensors (1e-12 in
+	float64, INTERP_F32_TOL in float32), and the adjointness of
+	map_coordinates in float64."""
+	from pixell_tpu_torch import enmap, interpol, utils
+	shape, wcs = enmap.geometry(pos=np.array([[-10, 20], [10, -20]])*utils.degree, shape=(1024, 2048), proj="car")
+	cshape, cwcs = enmap.geometry(pos=np.array([[-9, 19], [9, -19]])*utils.degree, res=1.3*utils.arcmin, proj="cea")
+	rng = np.random.default_rng(20)
+	x = rng.standard_normal((3,) + shape)
+	pos = np.array([rng.uniform(-10, 10, 100_000), rng.uniform(-20, 20, 100_000)])*utils.degree
+	box = np.array([[-3, 5], [4, -2]])*utils.degree
+	y = rng.standard_normal((3, 100_000))
+	for dt, tol in ((torch.float64, INTERP_CPU_TOL), (torch.float32, INTERP_F32_TOL)):
+		maps = {d: enmap.ndmap(torch.from_numpy(x).to(d, dt), wcs) for d in (DEV, "cpu")}
+		pix = {d: torch.from_numpy(enmap.sky2pix(shape, wcs, pos)).to(d) for d in (DEV, "cpu")}
+		ys = {d: torch.from_numpy(y).to(d, dt) for d in (DEV, "cpu")}
+		calls = [("project CAR -> CEA", lambda d: enmap.project(maps[d], cshape, cwcs).data),
+			("at", lambda d: enmap.at(maps[d], pos)),
+			("transpose", lambda d: interpol.map_coordinates(maps[d].data, pix[d], odata=ys[d], border="constant",
+				trans=True)),
+			("deriv", lambda d: interpol.map_coordinates(maps[d].data, pix[d], border="constant", deriv=True)),
+			("downgrade 2", lambda d: enmap.downgrade(maps[d], 2).data),
+			("submap", lambda d: maps[d].submap(box).data)]
+		for label, fn in calls:
+			err = relerr(fn(DEV).cpu(), fn("cpu"))
+			print("interp guard %s %s (1024 x 2048): card against CPU tensors rel err %.3e (bound %.0e)" % (
+				label, str(dt)[6:], err, tol))
+			if not err <= tol: raise RuntimeError("interp guard %s %s: %g" % (label, dt, err))
+	m64 = torch.from_numpy(x).to(DEV)
+	p64 = torch.from_numpy(enmap.sky2pix(shape, wcs, pos)).to(DEV)
+	y64 = torch.from_numpy(y).to(DEV)
+	ax = interpol.map_coordinates(m64, p64, border="constant")
+	aty = interpol.map_coordinates(m64, p64, odata=y64, border="constant", trans=True)
+	lhs, rhs = float((ax*y64).sum()), float((m64*aty).sum())
+	err = abs(lhs - rhs)/max(abs(lhs), abs(rhs))
+	print("interp guard adjointness <A x, y> = <x, A^T y> (float64, order 3, zero border, 100000 points): rel %.3e "
+		"(bound %.0e)" % (err, INTERP_ADJ_TOL))
+	if not err <= INTERP_ADJ_TOL: raise RuntimeError("interp adjointness %g" % err)
+
+
+def interp_phase():
+	"""Guards at 1024 x 2048, then project (IQU float32 and T float64), at
+	and its transpose and gradient, the resolution changes and the
+	cut-outs at full width."""
+	h0 = time.perf_counter()
+	interp_guards()
+	interp_project(torch.float64)
+	interp_project(torch.float32)
+	torch.cuda.empty_cache()
+	m = interp_band(torch.float32, 18)
+	interp_at(m)
+	interp_pixel_ops(m)
+	del m
+	torch.cuda.empty_cache()
+	print("interp phase: %.1f s" % (time.perf_counter() - h0))
+
+
+PHASES = ("k9", "kernels", "lstop", "slice", "adjoint", "blocked", "timing", "general", "flat", "interp")
 EXTRA_PHASES = ("variants", "blkprobe")   # run only when named
 
 
@@ -3444,7 +3705,7 @@ def main():
 	torch.backends.cuda.matmul.allow_tf32 = False
 	torch.backends.cudnn.allow_tf32 = False
 	parent = blk_parent = nufft_parent = None
-	if phases != ["flat"]:   # the flat path runs no hand-written kernel
+	if not set(phases) <= {"flat", "interp"}:   # the flat and interp paths run no hand-written kernel
 		h0 = time.perf_counter()
 		with ThreadPoolExecutor(2) as ex:   # the parent's build beside this tree's
 			lib = ex.submit(sht_cuda.library)
@@ -3512,6 +3773,9 @@ def main():
 	if "flat" in phases:
 		flat_phase()
 		print("phase flat done at %.1f s" % (time.perf_counter() - t_start))
+	if "interp" in phases:
+		interp_phase()
+		print("phase interp done at %.1f s" % (time.perf_counter() - t_start))
 	if "variants" in phases:
 		variants_phase(parent)
 		print("phase variants done at %.1f s" % (time.perf_counter() - t_start))

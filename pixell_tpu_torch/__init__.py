@@ -2,16 +2,20 @@
 
 Sky maps on rectangular pixels, with spherical harmonic transforms whose
 Legendre and NUFFT point stages run in hand-written CUDA kernels for
-NVIDIA Hopper (csrc/) and in plain PyTorch on the CPU, and the flat sky's
-FFTs, spin rotations and binned spectra on torch.fft. Module names mirror
-pixell_tpu's.
+NVIDIA Hopper (csrc/) and in plain PyTorch on the CPU, the flat sky's
+FFTs, spin rotations and binned spectra on torch.fft, and the pixel-space
+reprojection (cut-outs, resolution changes, spline interpolation) in plain
+torch. Module names mirror pixell_tpu's.
 """
 __version__ = "0.1.0"
 
 from . import utils
 from . import bunch
 from . import wcsutils
+from . import interpol
 from . import enmap
+from . import resample
+from . import array_ops
 from . import fft
 from . import sht
 from . import powspec

@@ -4,23 +4,28 @@ pixell_tpu/enmap.py).
 Ports the ndmap class (pixell_tpu/enmap.py:33-316: numpy-style arithmetic
 keeping the wcs, wcs-aware slicing, an out-of-place at_ updater) with its
 constructors and Geometry (:319-412); the pixel <-> sky coordinates, the
-extent, area and pixel-size functions and the geometry builders (:418-1069,
-:1950-2010), all host numpy as in the reference; and the flat-sky Fourier
+extent, area and pixel-size functions and the geometry builders (:418-1135,
+:1880-2106), all host numpy as in the reference; the flat-sky Fourier
 side (:699-789, :1268-1545, :2012-2249): fft / ifft / dct with their
 normalizations and adjoints, map2harm / harm2map with the spin rotation,
 the Fourier coordinates, binning, 2d spectra, filters, shifts and
-derivatives, and the flat random fields.
+derivatives, and the flat random fields; and the pixel side (:505-984,
+:1138-1266, :1546-1575, :1749-1799, :1921-2193): pixel boxes, the extract
+family (submap / extract / insert, wrapped in RA), resolution changes,
+padding, apodization, and reprojection (project / at) through interpol.
 
 Only maps live in tensors, and a function that takes a map computes on its
 device and returns there. The functions that make a map from a geometry
 (zeros, empty, ones, full, enmap from host data, posmap, pixsizemap,
-pixmap, lmap, modlmap, lrmap, modrmap, spec2flat, queb_rotmat of host
-data, the rand_* draws) put it on device="cuda" unless told otherwise; with
-no CUDA device they raise. The Fourier side builds nothing map-sized on the
-host: the rotation angles, the |l| of each Fourier pixel and lbin's bin
-index are computed on the device from the two multipole axes (laxes),
-which are copied there once per (shape, wcs, device). Random draws use
-numpy's default_rng(seed), as the reference does, so one seed gives the
+pixmap, lmap, modlmap, lrmap, modrmap, spec2flat, spec2flat_corr,
+queb_rotmat of host data, the rand_* draws) put it on device="cuda" unless
+told otherwise; with no CUDA device they raise. The Fourier side builds
+nothing map-sized on the host: the rotation angles, the |l| of each
+Fourier pixel and lbin's bin index are computed on the device from the two
+multipole axes (laxes), which are copied there once per (shape, wcs,
+device). project maps only the two axes on the host where both geometries
+are separable, else blocks of rows. Random draws use numpy's
+default_rng(seed), as the reference does, so one seed gives the
 reference's numbers.
 """
 from __future__ import annotations
@@ -28,7 +33,7 @@ import functools
 import operator
 import numpy as np
 import torch
-from . import utils, wcsutils
+from . import utils, wcsutils, interpol
 from . import fft as enfft
 
 
@@ -257,6 +262,37 @@ class ndmap:
 		return lpixsize(self.shape, self.wcs, signed=signed, method=method)
 	def lpixshape(self, signed=False, method="auto"):
 		return lpixshape(self.shape, self.wcs, signed=signed, method=method)
+	def extract(self, shape, wcs, omap=None, wrap="auto", op=None, cval=0, iwcs=None, reverse=False):
+		return extract(self, shape, wcs, omap=omap, wrap=wrap, op=op, cval=cval, iwcs=iwcs, reverse=reverse)
+	def extract_pixbox(self, pixbox, omap=None, wrap="auto", op=None, cval=0, iwcs=None, reverse=False):
+		return extract_pixbox(self, pixbox, omap=omap, wrap=wrap, op=op, cval=cval, iwcs=iwcs, reverse=reverse)
+	def insert(self, imap, wrap="auto", op=None, cval=0, iwcs=None):
+		return insert(self, imap, wrap=wrap, op=op, cval=cval, iwcs=iwcs)
+	def insert_at(self, pix, imap, wrap="auto", op=None, cval=0, iwcs=None):
+		return insert_at(self, pix, imap, wrap=wrap, op=op, cval=cval, iwcs=iwcs)
+	def submap(self, box, mode=None, wrap="auto", recenter=False):
+		return submap(self, box, mode=mode, wrap=wrap, recenter=recenter)
+	def subinds(self, box, mode=None, cap=True, noflip=False, epsilon=1e-4):
+		return subinds(self.shape, self.wcs, box, mode=mode, cap=cap, noflip=noflip, epsilon=epsilon)
+	def stamps(self, pos, shape, aslist=False): return stamps(self, pos, shape, aslist=aslist)
+	def project(self, shape, wcs, order=3, border="constant", cval=0.0, safe=True):
+		return project(self, shape, wcs, order=order, border=border, cval=cval, safe=safe)
+	def at(self_map, pos, order=3, border="constant", cval=0.0, safe=True, unit="coord"):
+		return at(self_map, pos, order=order, border=border, cval=cval, safe=safe, unit=unit)
+	def autocrop(self, method="plain", value="auto", margin=0, factors=None, return_info=False):
+		return autocrop(self, method=method, value=value, margin=margin, factors=factors, return_info=return_info)
+	def apod(self, width, profile="cos", fill="zero"): return apod(self, width, profile=profile, fill=fill)
+	def downgrade(self, factor, op=None, ref=None, off=None):
+		return downgrade(self, factor, op=op, ref=ref, off=off)
+	def upgrade(self, factor, off=None, oshape=None, inclusive=False):
+		return upgrade(self, factor, off=off, oshape=oshape, inclusive=inclusive)
+	def fillbad(self, val=0, inplace=False): return fillbad(self, val=val, inplace=inplace)
+	def argmax(self, unit="coord"): return argmax(self, unit=unit)
+	def argmin(self, unit="coord"): return argmin(self, unit=unit)
+	def pixbox_of(self, oshape, owcs): return pixbox_of(self.wcs, oshape, owcs)
+	def padslice(self, box, default=np.nan): return padslice(self, box, default=default)
+	def resample(self, oshape, off=(0, 0), method="fft", border="wrap", corner=True, order=3):
+		return resample(self, oshape, method=method, mode=border, corner=corner, order=order)
 	def fft(self, omap=None, nthread=0, normalize=True, adjoint_ifft=False, dct=False):
 		return fft(self, omap=omap, nthread=nthread, normalize=normalize, adjoint_ifft=adjoint_ifft, dct=dct)
 	def ifft(self, omap=None, nthread=0, normalize=True, adjoint_fft=False, dct=False):
@@ -414,10 +450,14 @@ class Geometry:
 	def npix(self): return int(np.prod(self.shape[-2:]))
 	@property
 	def nopre(self): return Geometry(self.shape[-2:], self.wcs)
+	def submap(self, box=None, pixbox=None):
+		if pixbox is None: pixbox = subinds(self.shape, self.wcs, box, noflip=True)
+		return Geometry(*slice_geometry(self.shape, self.wcs, (slice(*pixbox[:, 0]), slice(*pixbox[:, 1]))))
 	def scale(self, scale):
 		scale = np.zeros(2) + scale
 		oshape = self.shape[:-2] + tuple(int(n) for n in utils.nint(np.array(self.shape[-2:])*scale))
 		return Geometry(oshape, wcsutils.scale(self.wcs, scale[::-1]))
+	def downgrade(self, factor, op=None): return Geometry(*downgrade_geometry(self.shape, self.wcs, factor))
 	def copy(self): return Geometry(self.shape, self.wcs.deepcopy())
 	def sky2pix(self, coords, safe=True, corner=False): return sky2pix(self.shape, self.wcs, coords, safe, corner)
 	def pix2sky(self, pix, safe=True, corner=False): return pix2sky(self.shape, self.wcs, pix, safe, corner)
@@ -1337,8 +1377,9 @@ def spec2flat(shape, wcs, cov, exp=1.0, mode="constant", border="constant", over
 		smooth="auto", *, device="cuda"):
 	"""The spectrum cov [{ncomp, ncomp}, nl] (or [nl]) on the 2d Fourier
 	plane: each pixel takes the entry at int(|l|), zero past the spectrum's
-	end (mode "constant"); with exp, each matrix to that power first. Built
-	on device from the l axes (float64)."""
+	end with mode "constant", else the last entry; with exp, each matrix to
+	that power first. border and smooth are accepted and ignored, as in
+	pixell_tpu.enmap.spec2flat. Built on device from the l axes (float64)."""
 	cov = np.asarray(cov)
 	oned = cov.ndim == 1
 	if oned: cov = cov[None, None]
@@ -1406,3 +1447,687 @@ def massage_spectrum(cov, shape):
 		ocov[:n, :n] = cov[:n, :n]
 		cov = ocov
 	return cov
+
+
+# ---------------------------------------------------------------------------
+# Pixel boxes (pixell_tpu/enmap.py:505-520, :816-866, :949-966); host numpy
+# ---------------------------------------------------------------------------
+def skybox2pixbox(shape, wcs, skybox, npoint=10, corner=False, include_direction=False):
+	"""The sky box [{from, to}, {dec, ra}] as a pixel box [{from, to}, {y, x}]
+	(with include_direction a third row, the sign of each axis's step),
+	from npoint points along its diagonal (pixell_tpu.enmap.skybox2pixbox)."""
+	coords = np.array([np.linspace(skybox[0][0], skybox[1][0], num=npoint, endpoint=True),
+		np.linspace(skybox[0][1], skybox[1][1], num=npoint, endpoint=True)])
+	pix = sky2pix(shape, wcs, coords, corner=corner, safe=2)
+	res = np.asarray(pix)[:, [0, -1]].T
+	if include_direction: res = np.concatenate([res, np.sign(pix[:, 1] - pix[:, 0])[None]], 0)
+	return res
+
+
+def pixbox2skybox(shape, wcs, pixbox):
+	"""The pixel box [{from, to}, {y, x}] as a sky box [{from, to}, {dec, ra}]."""
+	return np.asarray(pix2sky(shape, wcs, np.asanyarray(pixbox).T)).T
+
+
+def subinds(shape, wcs, box, mode=None, cap=True, noflip=False, epsilon=1e-4):
+	"""The integer pixel box [{from, to}, {y, x}] of the sky box
+	[{from, to}, {dec, ra}], rounded by mode ("floor" by default, "round",
+	"ceil", "inclusive", "exclusive"); counting upwards unless noflip
+	(pixell_tpu.enmap.subinds)."""
+	if mode is None: mode = "floor"
+	bpix = skybox2pixbox(shape, wcs, np.asarray(box), include_direction=True)[:2]
+	if   mode == "floor": bpix = np.floor(bpix + 0.5 + epsilon).astype(int)
+	elif mode == "round": bpix = np.round(bpix).astype(int)
+	elif mode == "ceil":  bpix = np.ceil(bpix - 0.5 - epsilon).astype(int)
+	elif mode == "inclusive":
+		bpix = np.array([np.floor(bpix.min(0) + 0.5 + epsilon), np.ceil(bpix.max(0) + 0.5 - epsilon)]).astype(int)
+	elif mode == "exclusive":
+		bpix = np.array([np.ceil(bpix.min(0) + 0.5 - epsilon), np.floor(bpix.max(0) + 0.5 + epsilon)]).astype(int)
+	else: raise ValueError("Unrecognized mode '%s'" % mode)
+	if not noflip:
+		for i in range(2):
+			if bpix[1, i] < bpix[0, i]: bpix[:, i] = bpix[::-1, i]
+	return bpix
+
+
+def sel2pixbox(shape, sel):
+	"""The pixel box [{from, to}, {y, x}] of the slices sel of the pixel axes."""
+	pixbox = np.zeros((2, 2), int)
+	for i, s in enumerate(sel):
+		s = slice(*s.indices(shape[-2+i]))
+		pixbox[:, i] = [s.start, s.stop]
+	return pixbox
+
+
+def pixbox_of(iwcs, oshape, owcs):
+	"""The integer pixel box, in the pixels of iwcs, of the geometry (oshape,
+	owcs), counting upwards (pixell_tpu.enmap.pixbox_of)."""
+	pix = np.asarray(sky2pix(oshape, iwcs, np.asarray(corners(oshape, owcs, corner=False)).T, safe=2))
+	pixbox = np.array([np.round(pix[:, 0]), np.round(pix[:, -1])+1]).astype(int)
+	for i in range(2):
+		if pixbox[1, i] < pixbox[0, i]: pixbox[:, i] = [pixbox[1, i]+1, pixbox[0, i]+1]
+	return pixbox
+
+
+def overlap(shape, wcs, shape2_or_pixbox, wcs2=None, wrap="auto"):
+	"""The number of pixels [ny, nx] the geometry shares with a pixel box
+	(or with the geometry (shape2, wcs2))."""
+	pixbox = pixbox_of(wcs, shape2_or_pixbox, wcs2) if wcs2 is not None else np.asarray(shape2_or_pixbox)
+	b = np.array([np.maximum([0, 0], pixbox[0]), np.minimum(list(shape[-2:]), pixbox[1])])
+	return np.maximum(b[1]-b[0], 0)
+
+
+def neighborhood_pixboxes(shape, wcs, poss, r):
+	"""The pixel boxes [..., {from, to}, {y, x}] of the squares of radius r
+	around the positions poss [..., {dec, ra}]."""
+	poss = np.asarray(poss)
+	res = [subinds(shape, wcs, np.array([p - r, p + r]), mode="inclusive", noflip=True)
+		for p in poss.reshape(-1, 2)]
+	return np.array(res).reshape(poss.shape[:-1] + (2, 2))
+
+
+# ---------------------------------------------------------------------------
+# The extract family (pixell_tpu/enmap.py:845-984, :1749-1790, :2131-2149):
+# host slice boxes, tensor copies on the map's device
+# ---------------------------------------------------------------------------
+def submap(map, box, mode=None, wrap="auto", recenter=False, iwcs=None):
+	"""The part of the map inside the sky box [{from, to}, {dec, ra}],
+	wrapped in RA, zero outside the map (pixell_tpu.enmap.submap; recenter
+	is accepted and ignored, as there)."""
+	pixbox = subinds(map.shape, map.wcs if iwcs is None else iwcs, box, mode=mode, noflip=True)
+	return extract_pixbox(map, pixbox, wrap=wrap)
+
+
+def extract(map, shape, wcs, omap=None, wrap="auto", op=None, cval=0, iwcs=None, reverse=False):
+	"""The part of map on the geometry (shape, wcs), which must be of map's
+	pixelization; with reverse, omap written into map in place instead
+	(pixell_tpu.enmap.extract)."""
+	if iwcs is None: iwcs = map.wcs
+	res = extract_pixbox(map, pixbox_of(iwcs, shape, wcs), omap=omap, wrap=wrap, op=op, cval=cval,
+		iwcs=iwcs, reverse=reverse)
+	return res if reverse else ndmap(res.data, wcs)
+
+
+def _wrap_segments(shape, wcs, pixbox, wrap):
+	"""(input slices, output slices) of each piece of the pixel box: the
+	sky wraps in RA after nint(360/|cdelt_x|) pixels (not on plain
+	geometries), and whatever lies outside the map is no piece."""
+	nphi = 0 if wcsutils.is_plain(wcs) else utils.nint(abs(360./wcs.wcs.cdelt[0]))
+	wrap = np.array([0, nphi]) if isinstance(wrap, str) and wrap == "auto" else np.zeros(2, int) + np.asarray(wrap)
+	sbox = np.stack([pixbox[0], pixbox[1], np.ones(2, int)], -1)
+	def sl(b): return (Ellipsis,) + tuple(slice(*(None if v is None else int(v) for v in s)) for s in b)
+	return [(sl(ib), sl(ob)) for ib, ob in utils.sbox_wrap(sbox, wrap=wrap, cap=np.array(shape[-2:]))]
+
+
+def extract_pixbox(map, pixbox, omap=None, wrap="auto", op=None, cval=0, iwcs=None, reverse=False):
+	"""The pixels of map in the box [{from, to}, {y, x}], which may reach
+	outside it: wrapped in RA, cval beyond the map. omap, where given, is
+	written in place (through op(omap's pixels, map's) where op is given).
+	With reverse the copy goes the other way: omap's pixels written into
+	map in place (through op(map's pixels, omap's)), and map returned
+	(pixell_tpu.enmap.extract_pixbox)."""
+	if iwcs is None: iwcs = map.wcs
+	pixbox = np.asarray(pixbox)
+	if pixbox.shape[-1] > 2: pixbox = pixbox[..., -2:]
+	oshape = tuple(map.shape[:-2]) + tuple(int(n) for n in pixbox[1] - pixbox[0])
+	_, owcs = slice_geometry(map.shape[-2:], iwcs,
+		(slice(pixbox[0, 0], pixbox[1, 0]), slice(pixbox[0, 1], pixbox[1, 1])), nowrap=True)
+	if omap is None and not reverse:
+		omap = ndmap(torch.full(oshape, cval, dtype=map.dtype, device=map.device), owcs)
+	mdata = map.data if isinstance(map, ndmap) else map
+	odata = omap.data if isinstance(omap, ndmap) else omap
+	for isel, osel in _wrap_segments(map.shape, iwcs, pixbox, wrap):
+		if reverse:
+			src = odata[osel]
+			mdata[isel] = src if op is None else op(mdata[isel], src)
+		else:
+			chunk = mdata[isel]
+			odata[osel] = chunk if op is None else op(odata[osel], chunk)
+	return map if reverse else ndmap(odata, owcs)
+
+
+def insert(omap, imap, wrap="auto", op=None, cval=0, iwcs=None):
+	"""imap written into omap in place where their geometries overlap, by
+	their wcs; omap returned (pixell_tpu.enmap.insert)."""
+	extract(omap, imap.shape, imap.wcs, omap=imap, wrap=wrap, op=op, cval=cval, reverse=True)
+	return omap
+
+
+def insert_at(omap, pix, imap, wrap="auto", op=None, cval=0, iwcs=None):
+	"""imap written into omap in place with its first pixel at pix [y, x]
+	(or into the pixel box pix); omap returned (pixell_tpu.enmap.insert_at)."""
+	pix = np.asarray(pix)
+	pixbox = np.array([pix, pix + np.array(imap.shape[-2:])]) if pix.ndim == 1 else pix
+	extract_pixbox(omap, pixbox, omap=imap, wrap=wrap, op=op, cval=cval, reverse=True)
+	return omap
+
+
+def stamps(map, pos, shape, aslist=False):
+	"""Stamps of shape pixels centred on the pixel nearest each position
+	pos [n, {dec, ra}]: a stacked ndmap (a list with aslist)."""
+	shape = np.zeros(2, int) + shape
+	res = []
+	for p in np.asarray(pos).reshape(-1, 2):
+		cpix = np.round(np.asarray(sky2pix(map.shape, map.wcs, p))).astype(int)
+		res.append(extract_pixbox(map, np.array([cpix - shape//2, cpix - shape//2 + shape])))
+	if aslist: return res
+	return ndmap(torch.stack([r.data for r in res]), res[0].wcs)
+
+
+def padslice(map, box, default=np.nan):
+	"""The pixel box [{from, to}, {y, x}] of the map, default outside it
+	(no wrapping) (pixell_tpu.enmap.padslice)."""
+	box = np.asarray(box, int)
+	_, owcs = slice_geometry(map.shape, map.wcs, (slice(box[0, 0], box[1, 0]), slice(box[0, 1], box[1, 1])),
+		nowrap=True)
+	out = torch.full(tuple(map.shape[:-2]) + tuple(int(n) for n in box[1] - box[0]), default, dtype=map.dtype,
+		device=map.device)
+	i1 = np.maximum(box[0], 0)
+	i2 = np.minimum(box[1], np.array(map.shape[-2:]))
+	if np.all(i2 > i1):
+		o1 = i1 - box[0]; o2 = o1 + (i2 - i1)
+		out[..., o1[0]:o2[0], o1[1]:o2[1]] = map.data[..., i1[0]:i2[0], i1[1]:i2[1]]
+	return ndmap(out, owcs)
+
+
+def padcrop(m, info):
+	"""pad(m, info.pad)[info.slice] (pixell_tpu.enmap.padcrop)."""
+	return pad(m, info.pad)[info.slice]
+
+
+class Padtiler:
+	"""Overlapping tiles of maps: tshape pixels inside, pad and margin
+	pixels more on each side (pixell_tpu.enmap.Padtiler)."""
+	def __init__(self, tshape=600, pad=60, margin=60, mode="auto"):
+		self.tshape = tuple(int(n) for n in np.zeros(2, int) + tshape)
+		self.pad = tuple(int(n) for n in np.zeros(2, int) + pad)
+		self.margin = tuple(int(n) for n in np.zeros(2, int) + margin)
+		self.mode = mode
+	def tiles_for(self, shape):
+		"""The number of tiles (ny, nx) of a map of shape."""
+		return tuple((shape[i] + self.tshape[i] - 1)//self.tshape[i] for i in (-2, -1))
+	def read(self, imap):
+		"""Each padded tile of imap, row by row (extract_pixbox: wrapped,
+		zero outside)."""
+		ny, nx = self.tiles_for(imap.shape)
+		e = (self.pad[0] + self.margin[0], self.pad[1] + self.margin[1])
+		for ty in range(ny):
+			for tx in range(nx):
+				y1, x1 = ty*self.tshape[0] - e[0], tx*self.tshape[1] - e[1]
+				y2 = min((ty+1)*self.tshape[0], imap.shape[-2]) + e[0]
+				x2 = min((tx+1)*self.tshape[1], imap.shape[-1]) + e[1]
+				yield extract_pixbox(imap, np.array([[y1, x1], [y2, x2]]))
+	def write(self, omap, tiles):
+		"""The tiles read() made, less pad and margin, written into omap in place."""
+		ny, nx = self.tiles_for(omap.shape)
+		it = iter(tiles)
+		py, px = self.pad[0] + self.margin[0], self.pad[1] + self.margin[1]
+		for ty in range(ny):
+			for tx in range(nx):
+				tile = next(it)
+				insert_at(omap, [ty*self.tshape[0], tx*self.tshape[1]],
+					tile[..., py:tile.shape[-2]-py, px:tile.shape[-1]-px])
+		return omap
+
+
+def padtiles(*maps, tshape=600, pad=60, margin=60, mode="auto", start=0, step=1):
+	"""The padded tiles of several maps side by side (pixell_tpu.enmap.padtiles)."""
+	tiler = Padtiler(tshape=tshape, pad=pad, margin=margin, mode=mode)
+	for tiles in zip(*[tiler.read(m) for m in maps]):
+		yield tiles if len(tiles) > 1 else tiles[0]
+
+
+# ---------------------------------------------------------------------------
+# Geometry operations (pixell_tpu/enmap.py:1007-1135, :1880-1920,
+# :2033-2106); host numpy
+# ---------------------------------------------------------------------------
+def geometry2(pos=None, res=None, shape=None, proj="car", variant=None, ref=None, pre=()):
+	"""The full-sky pixelization of proj at res, cut to the box pos
+	[{from, to}, {dec, ra}] or to shape around the centre pos [dec, ra]
+	(pixell_tpu.enmap.geometry2)."""
+	system, var2 = wcsutils.parse_system(proj)
+	if variant is None: variant = var2
+	res_deg = None if res is None else np.asarray(res)/utils.degree
+	fshape, fwcs = wcsutils.pixelization(wcsutils.projection(system), res=res_deg, variant=variant)
+	if pos is None: return tuple(pre) + tuple(fshape), fwcs
+	pos = np.asarray(pos)
+	if pos.ndim == 1:
+		if shape is None: raise ValueError("geometry2 with a centre position needs a shape")
+		cpix = np.round(np.asarray(sky2pix(fshape, fwcs, pos))).astype(int)
+		half = np.array(shape[-2:])//2
+		pixbox = np.array([cpix - half, cpix - half + np.array(shape[-2:])])
+	else:
+		pixbox = subinds(fshape, fwcs, pos, noflip=True)
+	oshape, owcs = slice_geometry(fshape, fwcs, (slice(pixbox[0, 0], pixbox[1, 0]), slice(pixbox[0, 1], pixbox[1, 1])))
+	return tuple(pre) + tuple(oshape[-2:]), owcs
+
+
+def fullsky_geometry2(res=None, shape=None, pre=None, deg=False, proj="car", variant=None, dims=None):
+	"""fullsky_geometry with geometry2's arguments (res in degrees with deg)."""
+	if deg and res is not None: res = np.asarray(res)*utils.degree
+	return fullsky_geometry(res=res, shape=shape, dims=tuple(pre or dims or ()), proj=proj,
+		variant=variant or "fejer1")
+
+
+def band_geometry2(decrange, res=None, shape=None, pre=None, deg=False, proj="car", variant=None, dims=None):
+	"""band_geometry with geometry2's arguments."""
+	if deg:
+		decrange = np.asarray(decrange)*utils.degree
+		if res is not None: res = np.asarray(res)*utils.degree
+	return band_geometry(decrange, res=res, shape=shape, dims=tuple(pre or dims or ()), proj=proj,
+		variant=variant or "fejer1")
+
+
+def thumbnail_geometry(r=None, res=None, shape=None, dims=(), proj="tan"):
+	"""A geometry of an odd number of pixels on each side with the pixel
+	(0, 0) in its centre, of radius r and / or resolution res, for stamps
+	around objects (pixell_tpu.enmap.thumbnail_geometry)."""
+	if res is None:
+		if r is None or shape is None: raise ValueError("thumbnail_geometry needs res, or r and shape")
+		res = 2*r/(np.zeros(2, int) + np.asarray(shape[-2:]) - 1)
+	res = np.zeros(2) + res
+	if shape is None:
+		if r is None: raise ValueError("thumbnail_geometry needs r or shape")
+		n = utils.nint(2*r/res) + 1
+	else:
+		n = np.zeros(2, int) + np.asarray(shape[-2:])
+	n = n//2*2 + 1
+	ctype = ["", ""] if proj in ["", "plain"] else ["RA---"+proj.upper(), "DEC--"+proj.upper()]
+	wcs = wcsutils.WCS.from_fields(ctype, [0., 0.], np.array([n[1], n[0]], float)//2 + 1,
+		[-res[1]/utils.degree, res[0]/utils.degree], lonpole=180.0)
+	return tuple(dims) + (int(n[0]), int(n[1])), wcs
+
+
+def union_geometry(geometries):
+	"""The smallest geometry of the first one's pixelization that covers all
+	of geometries (pixell_tpu.enmap.union_geometry)."""
+	ref_shape, ref_wcs = geometries[0][:2]
+	pixboxes = []
+	for shape, wcs in [g[:2] for g in geometries]:
+		cpix = np.round(np.asarray(sky2pix(ref_shape, ref_wcs, np.asarray(corners(shape, wcs, corner=False)).T,
+			safe=2))).astype(int)
+		pixboxes.append(np.sort(cpix, 1).T + np.array([[0, 0], [1, 1]]))
+	pixboxes = np.array(pixboxes)
+	glob = np.array([pixboxes[:, 0].min(0), pixboxes[:, 1].max(0)])
+	return slice_geometry(ref_shape, ref_wcs, (slice(glob[0, 0], glob[1, 0]), slice(glob[0, 1], glob[1, 1])),
+		nowrap=True)
+
+
+def recenter_geo(shape, wcs, on=None):
+	"""The geometry as it is (pixell_tpu.enmap.recenter_geo)."""
+	return shape, wcs
+
+
+def recenter_cyl(shape, wcs):
+	"""The reference point moved along the equator to the middle column."""
+	return shape, wcsutils.recenter_cyl_x(wcs, (shape[-1]-1)/2 + 1)
+
+
+def subgeo(shape, wcs, box=None, pixbox=None, mode=None, noflip=False, recenter=False):
+	"""The geometry of the part inside a sky box or a pixel box."""
+	ibox = np.asarray(pixbox) if pixbox is not None else subinds(shape, wcs, box, mode=mode, noflip=noflip, cap=False)
+	ogeo = slice_geometry(shape, wcs, (slice(*ibox[:, 0]), slice(*ibox[:, 1])), nowrap=True)
+	return recenter_geo(*ogeo) if recenter else ogeo
+
+
+def crop_geometry(shape, wcs, box=None, pixbox=None, oshape=None, recenter=False):
+	"""The geometry cut to a sky or pixel box, or oshape pixels around a
+	point [dec, ra] or pixel [y, x] (pixell_tpu.enmap.crop_geometry)."""
+	if pixbox is None:
+		box = np.asarray(box)
+		pixbox = subinds(shape, wcs, box, cap=False) if box.ndim == 2 else utils.nint(np.asarray(sky2pix(shape, wcs, box)))
+	pixbox = np.asarray(pixbox)
+	if pixbox.ndim == 1:
+		if oshape is None: raise ValueError("crop_geometry needs an output shape for a point box")
+		shp = np.array(oshape[-2:])
+		pixbox = np.array([pixbox - shp//2, pixbox - shp//2 + shp])
+	oshape2 = tuple(shape[:-2]) + tuple(int(n) for n in np.abs(pixbox[1] - pixbox[0]))
+	owcs = wcs.deepcopy()
+	owcs.wcs.crpix = np.asarray(owcs.wcs.crpix) - pixbox[0, ::-1]
+	if recenter: owcs = wcsutils.recenter_cyl_x(owcs, oshape2[-1]//2)
+	return oshape2, owcs
+
+
+def npix(shape):
+	"""The number of pixels of a shape's last two axes."""
+	return int(np.prod(shape[-2:]))
+
+
+def create_wcs(shape, box=None, proj="cea"):
+	"""The wcs of shape pixels over box (default 10 x 10 degrees around 0)."""
+	if box is None: box = np.array([[-5, -5], [5, 5]])*utils.degree
+	return geometry(pos=np.asarray(box), shape=shape[-2:], proj=proj)[1]
+
+
+def downgrade_geometry(shape, wcs, factor):
+	"""The geometry of a map downgraded by whole factors [fy, fx]."""
+	factor = np.zeros(2, int) + np.asarray(factor, int)
+	return tuple(shape[:-2]) + tuple(int(n) for n in np.array(shape[-2:])//factor), \
+		wcsutils.scale(wcs, (1./factor)[::-1])
+
+
+def upgrade_geometry(shape, wcs, factor):
+	"""The geometry of a map upgraded by whole factors [fy, fx]."""
+	factor = np.zeros(2, int) + np.asarray(factor, int)
+	return tuple(shape[:-2]) + tuple(int(n) for n in np.array(shape[-2:])*factor), \
+		wcsutils.scale(wcs, factor.astype(float)[::-1])
+
+
+def scale_geometry(shape, wcs, scale):
+	"""The geometry with its pixel counts scaled by scale [sy, sx]."""
+	scale = np.zeros(2) + scale
+	return tuple(shape[:-2]) + tuple(int(n) for n in utils.nint(np.array(shape[-2:])*scale)), \
+		wcsutils.scale(wcs, scale[::-1])
+
+
+def get_downgrade_offset(shape, wcs, factor, ref=None):
+	"""The pixel offset [oy, ox] that keeps a downgrade aligned with ref
+	[dec, ra] (0 without ref)."""
+	factor = np.zeros(2, int) + factor
+	if ref is None: return np.zeros(2, int)
+	return utils.nint(np.asarray(sky2pix(shape, wcs, ref))) % factor
+
+
+# ---------------------------------------------------------------------------
+# Pixel operations (pixell_tpu/enmap.py:1138-1266, :1921-1948, :2107-2130,
+# :2193): on the map's device
+# ---------------------------------------------------------------------------
+def downgrade(map, factor, op=None, ref=None, off=None, inclusive=False):
+	"""The map averaged (or reduced by op(array, axis)) over blocks of
+	factor [fy, fx] pixels, partial blocks dropped (pixell_tpu.enmap.downgrade;
+	ref, off and inclusive are accepted and ignored, as there)."""
+	if op is None: op = torch.mean
+	factor = np.zeros(2, int) + np.asarray(factor, int)
+	d = map.data
+	ny, nx = d.shape[-2]//factor[0], d.shape[-1]//factor[1]
+	d = d[..., :ny*factor[0], :nx*factor[1]].reshape(d.shape[:-2] + (ny, int(factor[0]), nx, int(factor[1])))
+	_, owcs = downgrade_geometry(map.shape, map.wcs, factor)
+	return ndmap(op(op(d, -1), -2), owcs)
+
+
+def upgrade(map, factor, off=None, oshape=None, inclusive=False):
+	"""Each pixel repeated factor [fy, fx] times, cut to oshape where given
+	(pixell_tpu.enmap.upgrade)."""
+	factor = np.zeros(2, int) + np.asarray(factor, int)
+	d = map.data.repeat_interleave(int(factor[0]), -2).repeat_interleave(int(factor[1]), -1)
+	_, owcs = upgrade_geometry(map.shape, map.wcs, factor)
+	if oshape is not None: d = d[..., :oshape[-2], :oshape[-1]]
+	return ndmap(d, owcs)
+
+
+def downgrade_fft(map, factor):
+	"""The map Fourier-resampled to its shape over factor."""
+	from . import resample as _rs
+	factor = np.zeros(2, int) + np.asarray(factor, int)
+	return _rs.resample(map, tuple(int(n) for n in np.array(map.shape[-2:])//factor), method="fft")
+
+
+def upgrade_fft(map, factor):
+	"""The map Fourier-resampled to its shape times factor."""
+	from . import resample as _rs
+	factor = np.zeros(2, int) + np.asarray(factor, int)
+	return _rs.resample(map, tuple(int(n) for n in np.array(map.shape[-2:])*factor), method="fft")
+
+
+def resample_fft(map, oshape, fwcs=None, off=(0, 0), corner=False, norm="pix", op=None, dummy=False):
+	"""The map Fourier-resampled to oshape (as resample's factors)."""
+	from . import resample as _rs
+	return _rs.resample(map, oshape, method="fft")
+
+
+def resample(map, oshape, off=(0, 0), method="fft", mode="wrap", corner=False, order=3):
+	"""resample.resample of the map to oshape (as its factors)."""
+	from . import resample as _rs
+	return _rs.resample(map, oshape, method=method, mode=mode, corner=corner, order=order)
+
+
+def _pad_pix(pix):
+	"""pix (a number, [y, x] or [{from, to}, {y, x}]) as [{from, to}, {y, x}]."""
+	pix = np.asarray(pix, int)
+	if pix.ndim == 0: pix = np.full((2, 2), pix)
+	if pix.ndim == 1: pix = np.stack([pix, pix])
+	return pix.reshape(2, 2)
+
+
+def pad(emap, pix, return_slice=False, wrap=False, value=0):
+	"""The map padded by pix pixels (see _pad_pix) with value, or wrapped
+	around with wrap; with return_slice also the slice of the old pixels
+	(pixell_tpu.enmap.pad). The wcs moves by the front pad, so the old
+	pixels keep their sky positions (the reference wraps the negative slice
+	start instead, which shifts the wcs by the map's size less the pad)."""
+	pix = _pad_pix(pix)
+	(y0, x0), (y1, x1) = pix.tolist()
+	ny, nx = emap.shape[-2:]
+	_, owcs = slice_geometry(emap.shape[-2:], emap.wcs, (slice(-y0, ny+y1), slice(-x0, nx+x1)), nowrap=True)
+	d = emap.data
+	if wrap:
+		d = d.index_select(-2, torch.from_numpy(np.arange(-y0, ny+y1) % ny).to(d.device))
+		d = d.index_select(-1, torch.from_numpy(np.arange(-x0, nx+x1) % nx).to(d.device))
+	else:
+		d = torch.nn.functional.pad(d, (x0, x1, y0, y1), value=value)
+	res = ndmap(d, owcs)
+	if return_slice: return res, (Ellipsis, slice(y0, y0+ny), slice(x0, x0+nx))
+	return res
+
+
+def crop(emap, npix):
+	"""The map with npix ([ny, nx]) pixels cut from each edge."""
+	npix = np.zeros(2, int) + np.asarray(npix, int)
+	return emap[..., npix[0]:emap.shape[-2]-npix[0], npix[1]:emap.shape[-1]-npix[1]]
+
+
+def autocrop(m, method="plain", value="auto", margin=0, factors=None, return_info=False):
+	"""The map without its edge rows and columns where every component is
+	close to value ("auto": the first pixel's), margin pixels kept; with
+	return_info also the slice taken (pixell_tpu.enmap.autocrop)."""
+	d = m.data
+	flat = d.reshape((-1,) + d.shape[-2:])
+	v = flat.reshape(-1)[0] if isinstance(value, str) and value == "auto" else torch.as_tensor(value,
+		dtype=d.dtype, device=d.device)
+	good = ~torch.isclose(flat, v, equal_nan=True).all(0)
+	rows = torch.nonzero(good.any(1)).reshape(-1).tolist()
+	cols = torch.nonzero(good.any(0)).reshape(-1).tolist()
+	if not rows:
+		res, info = m, (slice(None), slice(None))
+	else:
+		y1, y2 = max(rows[0]-margin, 0), min(rows[-1]+1+margin, m.shape[-2])
+		x1, x2 = max(cols[0]-margin, 0), min(cols[-1]+1+margin, m.shape[-1])
+		info = (Ellipsis, slice(y1, y2), slice(x1, x2))
+		res = m[info]
+	return (res, info) if return_info else res
+
+
+def find_blank_edges(m, value=0):
+	"""The blank margins [{front, back}, {y, x}] of the map: rows and
+	columns where every component is within 1e-6 of value (a number, one
+	per component, "auto": the edges' median that blanks the most, or
+	"none") (pixell_tpu.enmap.find_blank_edges)."""
+	d = m.data if isinstance(m, ndmap) else torch.as_tensor(m)
+	if isinstance(value, str) and value == "auto":
+		host = [d[..., :, i] for i in (0, -1)] + [d[..., i, :] for i in (0, -1)]
+		bs = [find_blank_edges(m, np.median(e.cpu().numpy(), -1)) for e in host]
+		return bs[int(np.argmax([np.prod(np.sum(b, 0)) for b in bs]))]
+	if isinstance(value, str) and value == "none": return np.zeros([2, 2], int)
+	v = torch.as_tensor(np.asarray(value), dtype=d.dtype, device=d.device)
+	v = v.reshape(v.shape + (1, 1))
+	hit = torch.isclose(d, v.expand_as(d) if v.ndim else v, rtol=1e-6, atol=0, equal_nan=True)
+	hit = hit.reshape((-1,) + d.shape[-2:]).all(0)
+	hitrows = torch.nonzero(~hit.all(1)).reshape(-1).tolist()
+	hitcols = torch.nonzero(~hit.all(0)).reshape(-1).tolist()
+	if not hitrows or not hitcols: return np.array([[0, 0], [0, 0]])
+	ny, nx = d.shape[-2:]
+	return np.array([[hitrows[0], hitcols[0]], [ny - 1 - hitrows[-1], nx - 1 - hitcols[-1]]])
+
+
+def apod_profile_lin(x): return x
+def apod_profile_cos(x): return 0.5-0.5*np.cos(np.pi*x)
+
+
+def apod(m, width, profile="cos", fill="zero"):
+	"""The map tapered to 0 over width ([wy, wx]) pixels at each edge by a
+	cosine ("cos") or linear profile; fill "mean" or "median" tapers to the
+	map's mean or median instead (pixell_tpu.enmap.apod)."""
+	arr = m.data if isinstance(m, ndmap) else m
+	width = np.minimum(np.zeros(2, int) + np.asarray(width, int), np.asarray(arr.shape[-2:]))
+	rdt = utils.real_dtype(arr.dtype)
+	def win(n, w):
+		x = torch.ones(n, dtype=torch.float64)
+		if w > 0:
+			t = torch.arange(w, dtype=torch.float64)/float(w)
+			edge = 0.5 - 0.5*torch.cos(np.pi*t) if profile == "cos" else t
+			x[:w] = edge
+			x[n-w:] = edge.flip(0)
+		return x.to(arr.device, rdt)
+	w = win(arr.shape[-2], int(width[0]))[:, None]*win(arr.shape[-1], int(width[1]))[None, :]
+	a = arr*w
+	if fill == "mean":
+		a = a + arr.mean((-2, -1), keepdim=True)*(1 - w)
+	elif fill == "median":
+		s = arr.reshape(arr.shape[:-2] + (-1,)).sort(-1).values
+		n = s.shape[-1]
+		med = s[..., n//2] if n % 2 else (s[..., n//2-1] + s[..., n//2])/2
+		a = a + med[..., None, None]*(1 - w)
+	return samewcs(a, m)
+
+
+def fillbad(map, val=0, inplace=False):
+	"""The map with its non-finite pixels set to val, in place with inplace."""
+	d = map.data if isinstance(map, ndmap) else map
+	if inplace:
+		d.masked_fill_(~torch.isfinite(d), val)
+		return map
+	return samewcs(torch.where(torch.isfinite(d), d, d.new_tensor(val)), map)
+
+
+def _argextreme(map, fun, unit):
+	d = map.data
+	inds = fun(d.reshape(-1, d.shape[-2]*d.shape[-1]), -1).cpu().numpy()
+	pix = np.array(np.unravel_index(inds, d.shape[-2:]), float)
+	res = pix if unit == "pix" else np.asarray(pix2sky(map.shape, map.wcs, pix))
+	return res.T.reshape(tuple(d.shape[:-2]) + (2,))
+
+
+def argmax(map, unit="coord"):
+	"""The position [..., {dec, ra}] (unit "pix": the pixel [..., {y, x}]) of
+	each component's largest value (the first of equal ones)."""
+	return _argextreme(map, torch.argmax, unit)
+
+
+def argmin(map, unit="coord"):
+	"""argmax's counterpart for the smallest value."""
+	return _argextreme(map, torch.argmin, unit)
+
+
+def map_union(map1, map2):
+	"""The two maps on the union of their geometries, summed where they overlap."""
+	oshape, owcs = union_geometry([map1.geometry, map2.geometry])
+	omap = zeros(map1.shape[:-2] + oshape[-2:], owcs, map1.dtype, device=map1.device)
+	insert(omap, map1)
+	return insert(omap, map2, op=lambda a, b: a + b)
+
+
+def tile_maps(maps):
+	"""One map of a 2d list of adjacent tiles, with the first tile's wcs."""
+	m = torch.cat([torch.cat([t.data if isinstance(t, ndmap) else t for t in row], -1) for row in maps], -2)
+	return samewcs(m, maps[0][0])
+
+
+# ---------------------------------------------------------------------------
+# Reprojection (pixell_tpu/enmap.py:1546-1575) through interpol
+# ---------------------------------------------------------------------------
+def _project_axes(ishape, iwcs, shape, wcs, safe=True, device="cuda"):
+	"""(ty [ny], tx [nx]): the input pixel coordinates of the output rows and
+	columns of the geometry (shape, wcs), float64 on device, where both
+	geometries are separable (cylindrical with the reference point on the
+	equator): there the input y depends on the output y alone and x on x
+	alone, so the two axes (ny + nx values) are mapped on the host and
+	copied once. None where either is not separable."""
+	if not (wcsutils.is_separable(wcs) and wcsutils.is_separable(iwcs)): return None
+	dec, ra = posaxes(shape, wcs, safe=safe)
+	iy = sky2pix(ishape, iwcs, np.stack([dec, np.full_like(dec, ra[0])]), safe=safe)[0]
+	ix = sky2pix(ishape, iwcs, np.stack([np.full_like(ra, dec[0]), ra]), safe=safe)[1]
+	return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float64)).to(device) for a in (iy, ix))
+
+
+def _project_points(ishape, iwcs, shape, wcs, safe=True, bsize=1000, device="cuda"):
+	"""(y1, y2, py, px) for each block of bsize output rows of the geometry
+	(shape, wcs): the input pixel coordinates [P] of each output pixel of
+	rows y1:y2, float64 on device, mapped on the host (pix2sky and sky2pix
+	row by row, as the reference's posmap and sky2pix) and copied once."""
+	ny, nx = shape[-2:]
+	for y1 in range(0, ny, bsize):
+		y2 = min(y1 + bsize, ny)
+		opos = pix2sky(shape, wcs, np.mgrid[y1:y2, :nx], safe)
+		ipix = torch.from_numpy(np.ascontiguousarray(sky2pix(ishape, iwcs, opos, safe=safe).reshape(2, -1),
+			np.float64)).to(device)
+		yield y1, y2, ipix[0], ipix[1]
+
+
+def project(map, shape, wcs, order=3, border="constant", cval=0.0, force=False,
+		safe=True, bsize=1000, context=50, ip=None):
+	"""The map interpolated onto the geometry (shape, wcs) by splines of
+	order with the border mode, on the map's device
+	(pixell_tpu.enmap.project). The spline coefficients are computed once
+	for the whole map; the output is made in blocks of bsize rows: where
+	both geometries are separable one axis at a time from the two mapped
+	axes (_project_axes), else point by point (_project_points). context
+	and ip are accepted and ignored."""
+	if not force and wcsutils.is_compatible(map.wcs, wcs) and order in [0, 1, 3]:
+		if wcsutils.equal(map.wcs, wcs) and tuple(map.shape[-2:]) == tuple(shape[-2:]):
+			return map.copy()
+	data = map.data.reshape((-1,) + map.shape[-2:])
+	coef, padded = interpol._coefficients(data, "spline", order, border, True)
+	out = data.new_empty((data.shape[0],) + tuple(shape[-2:]))
+	axes = _project_axes(map.shape, map.wcs, shape, wcs, safe, map.device)
+	if axes is not None:
+		ty, tx = axes
+		for y1 in range(0, shape[-2], bsize):
+			y2 = min(y1 + bsize, shape[-2])
+			out[:, y1:y2] = interpol._gather_grid(coef, ty[y1:y2], tx, "spline", order, border, padded, cval)
+	else:
+		for y1, y2, py, px in _project_points(map.shape, map.wcs, shape, wcs, safe, bsize, map.device):
+			out[:, y1:y2] = interpol._gather(coef, py, px, "spline", order, border, padded, False,
+				cval).reshape(out.shape[0], y2-y1, -1)
+	return ndmap(out.reshape(tuple(map.shape[:-2]) + tuple(shape[-2:])), wcs)
+
+
+def at(map, pos, order=3, border="constant", cval=0.0, safe=True, unit="coord", ip=None):
+	"""The map interpolated at the positions pos [{dec, ra}, ...] (unit
+	"pix": pixel coordinates [{y, x}, ...]), [..., pos...] on the map's
+	device (pixell_tpu.enmap.at). Sky positions are mapped to pixels on the
+	host, as numpy, and the pixels copied once."""
+	if unit == "coord":
+		pos = pos.detach().cpu().numpy() if isinstance(pos, torch.Tensor) else np.asarray(pos)
+		pix = torch.from_numpy(np.ascontiguousarray(sky2pix(map.shape, map.wcs, pos, safe=safe), np.float64))
+	else:
+		pix = pos if isinstance(pos, torch.Tensor) else torch.from_numpy(np.asarray(pos, np.float64))
+	pix = pix.to(map.device)
+	res = interpol.map_coordinates(map.data.reshape((-1,) + map.shape[-2:]), pix, order=order, border=border,
+		cval=cval)
+	return res.reshape(tuple(map.shape[:-2]) + tuple(pix.shape[1:]))
+
+
+def spec2flat_corr(shape, wcs, cov, exp=1.0, border="constant", *, device="cuda"):
+	"""The spectrum cov on the 2d Fourier plane through its correlation
+	function: the curvature-aware counterpart of spec2flat. The correlation
+	function at the angular distance of each pixel from the map's centre
+	(linear interpolation), rolled to put the centre at pixel 0, then its
+	FFT (pixell_tpu.enmap.spec2flat_corr, whose distance computation
+	raises; this is the computation it describes). border is accepted and
+	ignored, as there."""
+	from . import powspec
+	cov = np.asarray(cov)
+	if cov.ndim == 1: cov = cov[None, None]
+	if exp != 1.0: cov = np.moveaxis(utils.eigpow(np.moveaxis(cov, -1, 0), exp), 0, -1)
+	cov = np.nan_to_num(cov)
+	ext = np.asarray(extent(shape, wcs))
+	rmax = np.sum(ext**2)**0.5
+	nr = int(rmax/np.max(ext/np.array(shape[-2:])))
+	corrfun = torch.from_numpy(np.ascontiguousarray(powspec.spec2corr(cov, np.arange(nr)*rmax/nr))).to(device)
+	dpos = posmap(shape, wcs, device=device).data
+	dpos = dpos - dpos[:, shape[-2]//2, shape[-1]//2][:, None, None]
+	ipos = torch.arccos(torch.clamp(torch.cos(dpos[0])*torch.cos(dpos[1]), -1, 1))*(nr/rmax)
+	corr2d = interpol.map_coordinates(corrfun, ipos.reshape(1, -1), order=1, border="nearest")
+	corr2d = corr2d.reshape(corrfun.shape[:-1] + ipos.shape)
+	corr2d = torch.roll(corr2d, (-corr2d.shape[-2]//2, -corr2d.shape[-1]//2), (-2, -1))
+	return fft(ndmap(corr2d, wcs)).real*np.prod(shape[-2:])**0.5

@@ -1,12 +1,16 @@
-"""Constants and small host-side helpers (counterpart of pixell_tpu/utils.py).
+"""Constants and small helpers (counterpart of pixell_tpu/utils.py).
 
 Only what the ported modules call: the angle constants, nint,
-rewind/unwind for the pixel<->sky conversions, eigpow for rand_alm and
-spec2flat, the Minres solver of curvedsky.minres_inverse, and for the flat
-sky split_slice / expand_slice (ndmap indexing), nditer, real_dtype /
-complex_dtype (numpy or torch dtypes) and ang2rect / rect2ang / angdist
-(modrmap, extent's subgrid). Apart from the dtype maps all of it is numpy:
-geometry, random draws and that solver's vectors are host work.
+rewind/unwind for the pixel<->sky conversions, eigpow for rand_alm,
+spec2flat and array_ops, the Minres solver of curvedsky.minres_inverse,
+and for the flat sky split_slice / expand_slice (ndmap indexing), nditer,
+real_dtype / complex_dtype (numpy or torch dtypes) and ang2rect / rect2ang /
+angdist (modrmap, extent's subgrid). For the pixel boxes of enmap's
+extract family: the slice-box algebra (sbox_*) and parse_slice, host numpy;
+for its resolution changes: block_reduce / block_expand and downgrade /
+upgrade, which work on tensors (on their device) as well as numpy arrays.
+eigpow too takes either. The rest is numpy: geometry, random draws and that
+solver's vectors are host work.
 """
 from __future__ import annotations
 import numpy as np
@@ -50,25 +54,29 @@ def eigpow(A, e, axes=[-2, -1], rlim=None, alim=None):
 	"""Raise a (stack of) symmetric matrices to the power e via
 	eigen-decomposition (pixell_tpu.utils.eigpow). Negative eigenvalues are
 	zeroed for non-integer e; tiny ones (rlim relative, alim absolute) are
-	zeroed for e < 0."""
-	A = np.asarray(A)
+	zeroed for e < 0. One code for both kinds of input, as the reference's
+	for numpy and jnp: a tensor is raised in torch on its device, anything
+	else in numpy, which keeps numpy input bit for bit the reference's
+	(rand_alm's draws depend on it)."""
+	xp = torch if isinstance(A, torch.Tensor) else np
+	A = xp.asarray(A)
 	ax1, ax2 = axes[0] % A.ndim, axes[1] % A.ndim
-	A = np.moveaxis(A, (ax1, ax2), (-2, -1))
-	E, V = np.linalg.eigh(A)
-	fdt = E.dtype if E.dtype.kind == "f" else np.dtype(np.float64)
-	if rlim is None: rlim = np.finfo(fdt).resolution*100
-	if alim is None: alim = np.finfo(fdt).tiny*1e4
+	A = xp.moveaxis(A, (ax1, ax2), (-2, -1))
+	E, V = xp.linalg.eigh(A)
+	fi = xp.finfo(E.dtype)
+	if rlim is None: rlim = fi.resolution*100
+	if alim is None: alim = fi.tiny*1e4
 	is_int = float(e) == int(e)
-	mask = np.zeros(E.shape, bool)
+	mask = xp.zeros_like(E, dtype=bool)
 	if not is_int: mask = mask | (E < 0)
 	if e < 0:
-		aE = np.abs(E)
-		mask = mask | (aE < np.max(aE, -1, keepdims=True)*rlim) | (aE < alim)
-	sgn = np.where(E < 0, (-1.0)**int(e) if is_int else 1.0, 1.0)
-	Ez = np.where(mask, 1.0, np.abs(E))
-	Ep = np.where(mask, 0.0, sgn*Ez**e)
-	res = np.einsum("...ij,...j,...kj->...ik", V, Ep, V)
-	return np.moveaxis(res, (-2, -1), (ax1, ax2))
+		aE = xp.abs(E)
+		mask = mask | (aE < xp.amax(aE, -1, keepdims=True)*rlim) | (aE < alim)
+	sgn = xp.where(E < 0, (-1.0)**int(e) if is_int else 1.0, 1.0)
+	Ez = xp.where(mask, 1.0, xp.abs(E))
+	Ep = xp.where(mask, 0.0, sgn*Ez**e)
+	res = xp.einsum("...ij,...j,...kj->...ik", V, Ep, V)
+	return xp.moveaxis(res, (-2, -1), (ax1, ax2))
 
 
 class Minres:
@@ -197,3 +205,220 @@ def angdist(a, b, zenith=False, axis=0):
 		np.cos(dec1)*np.sin(dec2) - np.sin(dec1)*np.cos(dec2)*np.cos(dra))
 	x = np.sin(dec1)*np.sin(dec2) + np.cos(dec1)*np.cos(dec2)*np.cos(dra)
 	return np.arctan2(y, x)
+
+
+def moveaxis(a, o, n):
+	"""a with axis o moved to n (pixell_tpu.utils.moveaxis), a tensor by torch."""
+	return torch.movedim(a, o, n) if isinstance(a, torch.Tensor) else np.moveaxis(a, o, n)
+
+
+def parse_slice(desc):
+	"""A selection written as a string, like '[0,:10,::2]', as a tuple
+	(pixell_tpu.utils.parse_slice)."""
+	if desc is None: return None
+	class Foo:
+		def __getitem__(self, s): return s
+	s = eval("Foo()" + desc, {"Foo": Foo})
+	if not isinstance(s, tuple): s = (s,)
+	return s
+
+
+# ---------------------------------------------------------------------------
+# Block reduce / expand and downgrade / upgrade (pixell_tpu/utils.py:278-300,
+# :2138-2160): tensors stay on their device, numpy stays numpy
+# ---------------------------------------------------------------------------
+def _cat(xs, axis):
+	return torch.cat(xs, axis) if isinstance(xs[0], torch.Tensor) else np.concatenate(xs, axis)
+
+
+def _repeat(a, n, axis):
+	return torch.repeat_interleave(a, n, axis) if isinstance(a, torch.Tensor) else np.repeat(a, n, axis)
+
+
+def block_reduce(a, bsize, axis=-1, off=0, op=None, inclusive=True):
+	"""a reduced by a factor bsize along axis by op (default the mean; a
+	callable taking (array, axis=-1)); with inclusive, a partial last block
+	makes one more output (pixell_tpu.utils.block_reduce)."""
+	if not isinstance(a, torch.Tensor): a = np.asarray(a)
+	if op is None: op = torch.mean if isinstance(a, torch.Tensor) else np.mean
+	a = moveaxis(a, axis, -1)
+	n = a.shape[-1]
+	nfull = (n - off)//bsize
+	nb = (n - off + bsize - 1)//bsize if inclusive else nfull
+	res = op(a[..., off:off+nfull*bsize].reshape(a.shape[:-1] + (nfull, bsize)), axis=-1)
+	if inclusive and nb > nfull:
+		res = _cat([res, op(a[..., off+nfull*bsize:], axis=-1)[..., None]], -1)
+	return moveaxis(res, -1, axis)
+
+
+def block_expand(a, bsize, osize=None, axis=-1, off=0, op="nearest"):
+	"""The inverse of block_reduce: each value repeated bsize times along
+	axis, cut to osize, the first repeated off more times in front
+	(pixell_tpu.utils.block_expand)."""
+	if not isinstance(a, torch.Tensor): a = np.asarray(a)
+	a = moveaxis(a, axis, -1)
+	if osize is None: osize = a.shape[-1]*bsize + off
+	res = _repeat(a, bsize, -1)[..., :osize-off]
+	if off: res = _cat([_repeat(a[..., :1], off, -1), res], -1)
+	return moveaxis(res, -1, axis)
+
+
+def downgrade(arr, down, axes=None, op=None, inclusive=True):
+	"""arr reduced by integer factors down along axes (the last ones by
+	default) by op, the mean unless given (pixell_tpu.utils.downgrade)."""
+	downs = np.atleast_1d(down)
+	if axes is None: axes = range(-len(downs), 0)
+	for d, ax in zip(downs, np.atleast_1d(axes)):
+		arr = block_reduce(arr, int(d), axis=int(ax), op=op, inclusive=inclusive)
+	return arr
+
+
+def upgrade(arr, factor, axes=None, oshape=None, inclusive=True):
+	"""arr with each value repeated by integer factors along axes, cut to
+	oshape where given (pixell_tpu.utils.upgrade)."""
+	if not isinstance(arr, torch.Tensor): arr = np.asarray(arr)
+	factors = np.atleast_1d(factor)
+	if axes is None: axes = range(-len(factors), 0)
+	for f, ax in zip(factors, np.atleast_1d(axes)):
+		ax = int(ax)
+		arr = _repeat(arr, int(f), ax)
+		if oshape is not None:
+			sel = [slice(None)]*arr.ndim
+			sel[ax] = slice(0, oshape[ax])
+			arr = arr[tuple(sel)]
+	return arr
+
+
+# ---------------------------------------------------------------------------
+# Slice boxes [ndim, {start, stop, step}] for extract / insert with the sky
+# wrapped in RA (pixell_tpu/utils.py:513-598, :879-912, :1745-1780); host numpy
+# ---------------------------------------------------------------------------
+def sbox_size(sbox):
+	"""The number of pixels each dimension of a slice box covers."""
+	sbox = np.asarray(sbox)
+	return (np.abs(sbox[:, 1]-sbox[:, 0])+np.abs(sbox[:, 2])-1)//np.abs(sbox[:, 2])
+
+
+def sbox_wrap(sbox, wrap=0, cap=0):
+	"""A slice box that may reach outside an array, split into (inner,
+	outer) pairs of slice boxes: reading each inner box of the array
+	(wrapped by wrap along a dimension where it is not 0, else cut to
+	[0, cap)) and writing to the outer box of the output reproduces the
+	wrapped read (pixell_tpu.utils.sbox_wrap)."""
+	sbox = np.asarray(sbox, int)
+	ndim = len(sbox)
+	wrap = np.zeros(ndim, int) + wrap
+	cap = np.zeros(ndim, int) + cap
+	dim_segments = []
+	for d in range(ndim):
+		start, stop, step = sbox[d]
+		n = (abs(stop-start)+abs(step)-1)//abs(step)
+		w = wrap[d]
+		c = cap[d] if cap[d] else (w if w else None)
+		idx = start + step*np.arange(n)
+		if w == 0:
+			good = (idx >= 0) & (idx < c) if c is not None else np.ones(n, bool)
+		else:
+			idx = idx % w
+			good = idx < c if c is not None and c < w else np.ones(n, bool)
+		dim_segments.append(_runs_to_segs(idx, good, step))
+	res = []
+	def rec(d, ibox, obox):
+		if d == ndim:
+			res.append((list(map(tuple, ibox)), list(map(tuple, obox))))
+			return
+		for iseg, oseg in dim_segments[d]:
+			rec(d+1, ibox+[iseg], obox+[oseg])
+	rec(0, [], [])
+	return res
+
+
+def _runs_to_segs(idx, good, step):
+	"""An explicit index list as maximal contiguous (isel, osel) runs."""
+	n, segs, i = len(idx), [], 0
+	while i < n:
+		if not good[i]:
+			i += 1
+			continue
+		j = i
+		while j+1 < n and good[j+1] and idx[j+1]-idx[j] == step: j += 1
+		i0, i1 = int(idx[i]), int(idx[j])
+		isel = (i0, i1 + (1 if step > 0 else -1), step)
+		if step < 0 and isel[1] < 0: isel = (i0, None, step)
+		segs.append((isel, (i, j+1, 1)))
+		i = j+1
+	return segs
+
+
+def sbox_intersect(a, b, wrap=0):
+	"""The intersection of slice boxes a and b [ndim, {start, stop, step}]
+	with unit steps, or None where it is empty."""
+	a = np.asarray(a); b = np.asarray(b)
+	out = np.zeros((a.shape[-2], 3), int)
+	for d in range(a.shape[-2]):
+		s1, e1 = sorted([a[d, 0], a[d, 1]])
+		s2, e2 = sorted([b[d, 0], b[d, 1]])
+		s, e = max(s1, s2), min(e1, e2)
+		if s >= e: return None
+		out[d] = [s, e, 1]
+	return out
+
+
+def sbox_mul(a, b):
+	"""The slice box of slicing by a, then by b."""
+	a = np.asarray(a); b = np.asarray(b)
+	out = np.zeros_like(a)
+	out[:, 0] = a[:, 0] + b[:, 0]*a[:, 2]
+	out[:, 1] = a[:, 0] + b[:, 1]*a[:, 2]
+	out[:, 2] = a[:, 2]*b[:, 2]
+	return out
+
+
+def sbox_div(a, b):
+	"""The inverse of sbox_mul: the c with sbox_mul(b, c) == a."""
+	a = np.asarray(a); b = np.asarray(b)
+	out = np.zeros_like(a)
+	out[:, 0] = (a[:, 0] - b[:, 0])//b[:, 2]
+	out[:, 1] = (a[:, 1] - b[:, 0])//b[:, 2]
+	out[:, 2] = a[:, 2]//b[:, 2]
+	return out
+
+
+def sbox_flip(sbox):
+	"""The slice box over the same elements in the other direction."""
+	sbox = np.asarray(sbox)
+	return np.stack([sbox[..., 1] - np.sign(sbox[..., 2]),
+		sbox[..., 0] - np.sign(sbox[..., 2]), -sbox[..., 2]], -1)
+
+
+def sbox2slice(sbox):
+	"""A slice box [:, {start, stop, step}] as (Ellipsis, slices...)."""
+	sbox = np.asarray(sbox)
+	if sbox.ndim == 1: sbox = sbox[None]
+	return (Ellipsis,) + tuple(slice(int(s[0]), int(s[1]) if s[1] >= 0 else None
+		if s[1] == -1 and s[2] < 0 else int(s[1]), int(s[2])) for s in sbox)
+
+
+def sbox_fix0(sbox):
+	"""Slice boxes [..., {start, stop}] given unit steps."""
+	sbox = np.asarray(sbox)
+	if sbox.shape[-1] == 2:
+		sbox = np.concatenate([sbox, np.ones(sbox.shape[:-1] + (1,), sbox.dtype)], -1)
+	return sbox
+
+
+def sbox_fix(sbox):
+	"""Slice boxes with positive steps, over the same elements."""
+	sbox = sbox_fix0(sbox)
+	return np.where((sbox[..., 2] < 0)[..., None], sbox_flip(sbox), sbox)
+
+
+def sbox_intersect_1d(a, b, wrap=0):
+	"""The intersections of two 1d slice boxes, with b shifted by -wrap, 0
+	and wrap where wrap is given."""
+	a = sbox_fix(np.asarray(a)); b = sbox_fix(np.asarray(b))
+	res = []
+	for s in ([0] if not wrap else [-wrap, 0, wrap]):
+		lo, hi = max(a[0], b[0] + s), min(a[1], b[1] + s)
+		if hi > lo: res.append([lo, hi, max(a[2], b[2])])
+	return res

@@ -1,5 +1,6 @@
 """The public signatures of pixell_tpu_torch.curvedsky, .sht, .enmap,
-.fft, .wcsutils and .powspec against pixell_tpu's: every public name both modules define takes the reference's
+.fft, .wcsutils, .powspec, .interpol, .resample and .array_ops against
+pixell_tpu's: every public name both modules define takes the reference's
 parameters, by name and in order, and the port's own extras (device=,
 leg_dtype=) come after them and are keyword-only, so a call written for
 the reference means the same in the port. Then the calls themselves: map2alm
@@ -16,13 +17,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from pixell_tpu import curvedsky as jcurvedsky, sht as jsht, enmap as jenmap, fft as jfft, \
-	wcsutils as jwcsutils, powspec as jpowspec
-from pixell_tpu_torch import curvedsky, sht, enmap, fft, wcsutils, powspec
+	wcsutils as jwcsutils, powspec as jpowspec, interpol as jinterpol, resample as jresample, \
+	array_ops as jarray_ops
+from pixell_tpu_torch import curvedsky, sht, enmap, fft, wcsutils, powspec, interpol, resample, array_ops
 
 LMAX = 16
 SHAPE = (20, 40)
 PAIRS = {"curvedsky": (jcurvedsky, curvedsky), "sht": (jsht, sht), "enmap": (jenmap, enmap),
-	"fft": (jfft, fft), "wcsutils": (jwcsutils, wcsutils), "powspec": (jpowspec, powspec)}
+	"fft": (jfft, fft), "wcsutils": (jwcsutils, wcsutils), "powspec": (jpowspec, powspec),
+	"interpol": (jinterpol, interpol), "resample": (jresample, resample), "array_ops": (jarray_ops, array_ops)}
 
 
 def shared_names():
@@ -66,7 +69,12 @@ def test_the_check_covers_the_entry_points():
 	assert {"alm2map", "map2alm", "rand_alm", "rand_alm_white", "rand_map", "lmul", "almxfl",
 		"alm_info.lmul", "alm_info.alm2cl", "prepare_alm", "synthesis", "analysis",
 		"fft", "ifft", "map2harm", "harm2map", "lbin", "geometry", "ndmap.fft", "ndmap.sum", "dct", "build",
-		"pixelization", "read_spectrum", "spec2flat", "rand_map"} <= names
+		"pixelization", "read_spectrum", "spec2flat", "rand_map", "map_coordinates", "spline_filter",
+		"project", "at", "submap", "extract", "extract_pixbox", "insert", "insert_at", "stamps", "downgrade",
+		"upgrade", "ndmap.project", "ndmap.at", "ndmap.submap", "ndmap.insert", "Geometry.submap", "resample",
+		"resample_bin", "make_equispaced", "matmul", "eigpow", "roll_rows", "find_contours", "apod", "pad",
+		"crop", "union_geometry", "geometry2", "thumbnail_geometry", "spec2flat_corr", "Padtiler.read",
+		"ip_linear", "build"} <= names
 
 
 def geometry():
