@@ -10,8 +10,8 @@ and nufft.cu, all compilers started together) and prints each kernel's
 registers and spills (every float64 instantiation of the bulk kernels and
 all twelve of K10 / K11 / K12 must be built, and none of them may spill),
 then runs the phases below (all of them with no arguments; --phases with a
-choice of k9,kernels,lstop,slice,adjoint,blocked,timing,general,flat,interp runs those
-alone, for work on one phase, and gives no verdict; the phases
+choice of k9,kernels,lstop,slice,adjoint,blocked,timing,general,flat,interp,healpix runs
+those alone, for work on one phase, and gives no verdict; the phases
 "variants", 6. below, and "blkprobe" run only when named). With
 --parent DIR, a directory holding a parent tree's legendre.cu, blockleg.cu
 and / or nufft.cu (for example unpacked with git archive under build/),
@@ -287,6 +287,43 @@ K10 / K11 (below):
    their bytes bounds; a 20 x 20 degree submap across RA = 180 inserted
    back into zeros, the roundtrip exact. With --phases interp alone (or with
    flat) the hand-written kernels are not built.
+10. healpix: BASELINE config 3 (IQU SHT + CAR -> HEALPix,
+   scripts/benchmark_baseline.py:100-121) and thumbnails, through
+   pixell_tpu_torch.reproject: the Legendre stages on K1-K4 and their
+   near-pole passes, the general method on K10 / K11, the ring pixels and
+   the cap gather in plain torch. Guards first, IQU at nside 64 and lmax
+   128 from a numpy seed: alm2map_healpix (ring and general),
+   map2alm_healpix (niter 0 and 2, and general), healpix2map and
+   map2healpix in both methods and thumbnails of 3 objects, each on the
+   card against the same call on CPU tensors in float64 (1e-12 of the
+   largest value), and in float32 each side against that float64 result:
+   the card's error within twice the CPU's plus 2e-5 (the card's float32
+   Legendre stages and the CPU's plain float32 scan are two float32
+   algorithms); ring against general (1e-9 / 2e-4);
+   <A x, y> = <x, A^T y> of the ring synthesis in float64 (1e-10); and
+   map2healpix(rot="gal,equ", method="harm")'s I against synthesis_general
+   at the centres transformed by coordinates.transform (1e-9, float64).
+   Then config 3 in float32 and float64: map2alm of a seeded 3 x 2002 x 4004
+   white-noise Fejer-1 map at lmax 2000, alm2map_healpix at nside 1024
+   (12,582,912 pixels: a belt of 2049 rings x 4096, caps of 4,190,208), and
+   alm2map back; the alm roundtrip (2e-3 / 1e-10), ring against general at
+   full size (2e-3 / 1e-9, the lmax-2000 float32 IQU bound), the step's ms (median, min, max of 7), its stages (median of
+   3: map2alm, the HEALPix Legendre stage, belt and caps, alm2map), the cap
+   gather and its index_add_ transpose against their bytes bounds over
+   3.35 TB/s and as shares of the step, the busy share and top ops of one
+   profiled step (no host <-> device copy above 1 MB), its Legendre
+   launches (each path driven with the counts at 0 just before and read
+   just after; its kernels must have launched) and the memory peak (under
+   70 GiB). At nside 1024 and lmax 2000 in both dtypes: the ring and the
+   general synthesis timed, map2alm_healpix with niter 0 and 3,
+   healpix2map ("harm", onto 2002 x 4004) and map2healpix ("spline",
+   boundary="wrap"). thumbnails of the IQU float32 DR6-sized band (the
+   flat phase's) around 10 000 objects drawn uniformly in it (r 10', res
+   0.5', order 3, with polarization): ms (median of 3), the stages
+   positions, prefilter, gather and rotation, busy share; and 5 objects of
+   a 4-degree strip in float64 batched against one call each (1e-12). The
+   kernels JSON line gives each kernel's launches in these paths
+   ("healpix_launches").
 
 It prints the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and yardstick, and as the last line
@@ -3676,7 +3713,358 @@ def interp_phase():
 	print("interp phase: %.1f s" % (time.perf_counter() - h0))
 
 
-PHASES = ("k9", "kernels", "lstop", "slice", "adjoint", "blocked", "timing", "general", "flat", "interp")
+# ---------------------------------------------------------------------------
+# 10. healpix: BASELINE config 3 (IQU SHT + CAR -> HEALPix) and thumbnails
+# ---------------------------------------------------------------------------
+HP_LMAX = 2000                   # scripts/benchmark_baseline.py:104-105
+HP_NSIDE = 1024
+HP_RES = 180.0*60/(HP_LMAX + 2)  # arcmin: the 2002 x 4004 full-sky Fejer-1 map
+HP_GUARD = (64, 128)             # nside, lmax of the guards
+HP_CPU_TOL = {torch.float64: 1e-12, torch.float32: 2e-5}      # card against CPU tensors (f32: hp_guards)
+HP_RING_TOL = {torch.float64: 1e-9, torch.float32: 2e-4}      # ring against general (tests/test_science.py:256)
+HP_RING_TOL_2000 = {torch.float64: 1e-9, torch.float32: 2e-3}  # the same at lmax 2000 (the f32 IQU guard there)
+HP_ALM_TOL = {torch.float64: 1e-10, torch.float32: 2e-3}      # config 3's alm roundtrip (PERF.md section 2)
+HP_ADJ_TOL = 1e-10               # <A x, y> = <x, A^T y>, float64, relative
+HP_ROT_TOL = 1e-9                # rot= against synthesis_general at the transformed centres, float64
+THUMB_NOBJ = 10_000
+THUMB_R, THUMB_RES = 10.0, 0.5   # arcmin
+THUMB_CHECK = 5                  # objects held against one call each, float64
+HP_LAUNCHES = {}                 # launches of the healpix paths, by (kernel, mode or dtype, dtype or kind)
+
+
+def hp_drive(label, fn, want):
+	"""fn with every launch count set to 0 just before and read just after;
+	the counts join HP_LAUNCHES, and each kernel entry in want (sht_cuda's or
+	nufft_cuda's name, or a tuple of names one of which) must have launched.
+	Returns fn's result."""
+	from pixell_tpu_torch.ops import sht_cuda, nufft_cuda
+	sht_cuda.reset_launches()
+	nufft_cuda.reset_launches()
+	out = fn()
+	torch.cuda.synchronize()
+	counts = {k: n for d in (sht_cuda.LAUNCHES_BY_DTYPE, nufft_cuda.LAUNCHES_BY_DTYPE) for k, n in d.items() if n}
+	for k, n in counts.items(): HP_LAUNCHES[k] = HP_LAUNCHES.get(k, 0) + n
+	print("healpix launches in the %s: %s" % (label, counts))
+	missing = [w for w in want if not any(k[0] in (w if isinstance(w, tuple) else (w,)) for k in counts)]
+	if missing: raise RuntimeError("healpix %s: %s not launched" % (label, missing))
+	return out
+
+
+def hp_entries(dtype, synth, anal):
+	"""The Legendre entries a path in dtype must launch: the bulk synthesis
+	and analysis entries named (sym / full, or a tuple of either) in dtype,
+	and in float32 the float64 near-pole passes."""
+	from pixell_tpu_torch.ops import sht_cuda
+	tab = sht_cuda.BULK_KERNELS if dtype == torch.float32 else sht_cuda.BULK_F64
+	out = [tuple(tab[x] for x in n) if isinstance(n, tuple) else tab[n] for n in synth + anal]
+	if dtype == torch.float32:
+		out += ["polar_synthesis"]*bool(synth) + ["polar_analysis"]*bool(anal)
+	return out
+
+
+def hp_count(rec):
+	"""The launches of rec's kernel in the healpix paths: its entry name (the
+	record's name up to "["), its mode where it has one, its dtype for the
+	NUFFT kernels."""
+	entry, inside = rec["name"].split("[", 1)
+	n = 0
+	for (name, a, b), c in HP_LAUNCHES.items():
+		if name != entry: continue
+		if name in ("u2nu_points", "nu2u_spread", "tile_keys"):
+			n += c if inside.startswith(a) else 0
+		elif rec.get("mode") in (None, a):
+			n += c
+	return n
+
+
+def hp_alm(lmax, seed, dtype, device):
+	"""Seeded IQU alm of a flat diagonal spectrum (spectrum(lmax, (0, 2)))."""
+	from pixell_tpu_torch import curvedsky
+	return curvedsky.rand_alm(spectrum(lmax, (0, 2)), lmax=lmax, seed=seed, dtype=dtype, device=device)
+
+
+def hp_guards():
+	"""IQU at nside 64, lmax 128 from a numpy seed: every HEALPix entry on the
+	card against the same call on CPU tensors, ring against general, the
+	ring synthesis's adjointness, rot= against synthesis_general."""
+	from pixell_tpu_torch import reproject, curvedsky, enmap, coordinates, healpix, utils
+	nside, lmax = HP_GUARD
+	shape, wcs = enmap.fullsky_geometry(shape=(2*lmax + 2, 4*lmax + 4), variant="fejer1")
+	a = hp_alm(lmax, 41, torch.complex128, "cpu")
+	m = curvedsky.alm2map(a, enmap.zeros((3,) + shape, wcs, device="cpu"), spin=[0, 2]).data
+	h = reproject.alm2map_healpix(a, nside=nside)
+	rng = np.random.default_rng(42)
+	coords = np.array([rng.uniform(-1.2, 1.2, 3), rng.uniform(0, 2*np.pi, 3)]).T
+	kw = dict(r=5*utils.degree, res=0.5*utils.degree)
+	ref64 = {}
+	for dt in (torch.float64, torch.float32):
+		A = {d: a.to(d, torch.complex128 if dt == torch.float64 else torch.complex64) for d in (DEV, "cpu")}
+		M = {d: enmap.ndmap(m.to(d, dt), wcs) for d in (DEV, "cpu")}
+		H = {d: h.to(d, dt) for d in (DEV, "cpu")}
+		calls = [("alm2map_healpix ring", lambda d: reproject.alm2map_healpix(A[d], nside=nside)),
+			("alm2map_healpix general", lambda d: reproject.alm2map_healpix(A[d], nside=nside, method="general")),
+			("map2alm_healpix niter 0", lambda d: reproject.map2alm_healpix(H[d], lmax=lmax)),
+			("map2alm_healpix niter 2", lambda d: reproject.map2alm_healpix(H[d], lmax=lmax, niter=2)),
+			("map2alm_healpix general", lambda d: reproject.map2alm_healpix(H[d], lmax=lmax, method="general")),
+			("healpix2map harm", lambda d: reproject.healpix2map(H[d], shape, wcs, lmax=lmax).data),
+			("healpix2map spline", lambda d: reproject.healpix2map(H[d], shape, wcs, method="spline").data),
+			("map2healpix harm", lambda d: reproject.map2healpix(M[d], nside=nside, lmax=lmax)),
+			("map2healpix spline", lambda d: reproject.map2healpix(M[d], nside=nside, method="spline")),
+			("thumbnails of 3 objects", lambda d: reproject.thumbnails(M[d], coords, **kw).data)]
+		for label, fn in calls:
+			got, cpu = fn(DEV).cpu(), fn("cpu")
+			err = relerr(got, cpu)
+			line = "healpix guard %s %s (nside %d, lmax %d, IQU): card against CPU tensors rel err %.3e" % (label,
+				str(dt)[6:], nside, lmax, err)
+			if dt == torch.float64:
+				ref64[label] = cpu
+				ok = err <= HP_CPU_TOL[dt]
+				line += " (bound %.0e)" % HP_CPU_TOL[dt]
+			else:
+				# the card's float32 Legendre stages (the bulk kernels, float64 near the poles) and the
+				# CPU's plain float32 scan are two float32 algorithms: each is held to the float64 result
+				ecard, ecpu = relerr(got, ref64[label]), relerr(cpu, ref64[label])
+				ok = ecard <= 2*ecpu + HP_CPU_TOL[dt]
+				line += "; against float64: card %.3e, CPU %.3e (bound: card within twice the CPU's plus %.0e)" % (
+					ecard, ecpu, HP_CPU_TOL[dt])
+			print(line)
+			if not ok: raise RuntimeError(line)
+		err = relerr(calls[0][1](DEV), calls[1][1](DEV))
+		print("healpix guard ring against general %s on the card: rel err %.3e (bound %.0e)" % (str(dt)[6:], err,
+			HP_RING_TOL[dt]))
+		if not err <= HP_RING_TOL[dt]: raise RuntimeError("healpix guard ring against general: %g" % err)
+	# adjointness of the ring synthesis, float64
+	x = a.to(DEV)
+	y = torch.from_numpy(rng.standard_normal((3, healpix.npix(nside)))).to(DEV)
+	lhs = alm_dot(reproject._alm2map_healpix_ring(x, nside, lmax, lmax, (0, 2)), y)
+	rhs = alm_dot(x, reproject._healpix_ring_adjoint(y, nside, lmax, lmax, (0, 2)))
+	err = abs(lhs - rhs)/max(abs(lhs), abs(rhs))
+	print("healpix guard adjointness <A x, y> = <x, A^T y> of the ring synthesis (float64): rel %.3e (bound %.0e)" % (
+		err, HP_ADJ_TOL))
+	if not err <= HP_ADJ_TOL: raise RuntimeError("healpix adjointness %g" % err)
+	# rot="gal,equ": the galactic map's I at each equatorial centre's galactic position
+	got = reproject.map2healpix(enmap.ndmap(m.to(DEV), wcs), nside=nside, lmax=lmax, rot="gal,equ", method="harm")
+	theta, phi = healpix.positions(nside, device=DEV)
+	src = coordinates.transform("equ", "gal", torch.stack([phi, np.pi/2 - theta]))
+	loc = torch.stack([np.pi/2 - src[1], torch.remainder(src[0], 2*np.pi)], -1)
+	want = curvedsky.synthesis_general(x[:1], loc, lmax=lmax, spin=[0])
+	err = relerr(got[:1], want)
+	print("healpix guard map2healpix(rot=\"gal,equ\", method=\"harm\") I against synthesis_general at the "
+		"transformed centres (float64): rel err %.3e (bound %.0e)" % (err, HP_ROT_TOL))
+	if not err <= HP_ROT_TOL: raise RuntimeError("healpix rot= guard %g" % err)
+
+
+def hp_config3_geometry():
+	from pixell_tpu_torch import enmap, utils
+	return enmap.fullsky_geometry(res=HP_RES*utils.arcmin, variant="fejer1")
+
+
+def hp_config3(dtype, step_ms):
+	"""Config 3 in dtype: map2alm of a seeded IQU white-noise map on the
+	2002 x 4004 F1 map at lmax 2000, alm2map_healpix at nside 1024, alm2map
+	back; guards, the step's time, stages, busy share, launches, peak."""
+	from pixell_tpu_torch import enmap, curvedsky, reproject
+	from pixell_tpu_torch.ops import sht_cuda
+	tag = str(dtype)[6:]
+	shape, wcs = hp_config3_geometry()
+	ainfo = curvedsky.alm_info(lmax=HP_LMAX)
+	gen = torch.Generator(device=DEV)
+	gen.manual_seed(33)
+	arr = torch.randn((3,) + tuple(shape), generator=gen, device=DEV, dtype=dtype)
+	def analyse(x):
+		return curvedsky.map2alm(enmap.ndmap(x, wcs), lmax=HP_LMAX, spin=[0, 2])
+	def step():
+		alm = analyse(arr)
+		heal = reproject.alm2map_healpix(alm, nside=HP_NSIDE, spin=[0, 2])
+		omap = curvedsky.alm2map(alm, enmap.zeros((3,) + tuple(shape), wcs, dtype, device=DEV), spin=[0, 2],
+			ainfo=ainfo)
+		return alm, heal, omap.data
+	torch.cuda.synchronize()
+	torch.cuda.reset_peak_memory_stats()
+	alm, heal, omap = hp_drive("config 3 step %s" % tag, step, hp_entries(dtype, ["sym_synthesis",
+		"full_synthesis"], [("sym_analysis", "full_analysis")]))
+	torch.cuda.synchronize()
+	peak = torch.cuda.max_memory_allocated()/2**30
+	counts = {k: n for k, n in sht_cuda.LAUNCHES_BY_DTYPE.items() if n}
+	npix = 12*HP_NSIDE**2
+	ok = tuple(heal.shape) == (3, npix) and tuple(omap.shape) == (3,) + tuple(shape) and \
+		bool(torch.isfinite(heal).all()) and bool(torch.isfinite(omap).all())
+	if not ok: raise RuntimeError("config 3 %s: outputs %s, %s not finite or of the wrong shape" % (tag,
+		tuple(heal.shape), tuple(omap.shape)))
+	aerr = relerr(analyse(omap), alm)
+	print("healpix config 3 %s: %s map -> lmax %d -> nside %d (%d pixels) and back; alm roundtrip rel err %.3e "
+		"(bound %.0e); peak device memory %.2f GiB (bound %d); Legendre launches in a step %s" % (tag, (3,) +
+		tuple(shape), HP_LMAX, HP_NSIDE, npix, aerr, HP_ALM_TOL[dtype], peak, FLAT_MEM_GIB, counts))
+	if not aerr <= HP_ALM_TOL[dtype]: raise RuntimeError("config 3 %s: alm roundtrip %g" % (tag, aerr))
+	if not peak < FLAT_MEM_GIB: raise RuntimeError("config 3 %s: peak %.2f GiB" % (tag, peak))
+	# the HEALPix synthesis alone: its launches, and the ring path against the general one
+	hp_drive("alm2map_healpix ring %s" % tag, lambda: reproject.alm2map_healpix(alm, nside=HP_NSIDE),
+		hp_entries(dtype, ["full_synthesis"], []))
+	gen_heal = hp_drive("alm2map_healpix general %s" % tag, lambda: reproject.alm2map_healpix(alm,
+		nside=HP_NSIDE, method="general"), ["u2nu_points"])
+	err = relerr(heal, gen_heal)
+	del gen_heal
+	print("healpix config 3 %s: alm2map_healpix ring against general at nside %d rel err %.3e (bound %.0e)" % (
+		tag, HP_NSIDE, err, HP_RING_TOL_2000[dtype]))
+	if not err <= HP_RING_TOL_2000[dtype]: raise RuntimeError("config 3 %s: ring against general %g" % (tag, err))
+	del heal, omap
+	torch.cuda.empty_cache()
+	med, lo, hi = flat_time(step, 1, 7)
+	step_ms[dtype] = med
+	print("healpix config 3 %s: %.3f ms a step (median of 7; min %.3f, max %.3f)" % (tag, med, lo, hi))
+	# the stages
+	_, _, w, beta = reproject._ring_params(alm.dtype)
+	geom = reproject._hpix_ring_geom(HP_NSIDE, HP_LMAX, w, np.float32 if dtype == torch.float32 else np.float64,
+		DEV)
+	G, _ = reproject._phases(alm, HP_LMAX, HP_LMAX, (0, 2), False, geom)
+	from pixell_tpu_torch import fft as enfft
+	corr = enfft._correction_on(geom.N, w, beta, dtype, DEV)[:HP_LMAX+1]
+	wx = reproject._es_taps(geom, w, beta)
+	zeros = enmap.zeros((3,) + tuple(shape), wcs, dtype, device=DEV)
+	stages = [("map2alm", lambda: analyse(arr)),
+		("HEALPix Legendre (synthesis_phase, %d rings)" % geom.nring,
+			lambda: reproject._phases(alm, HP_LMAX, HP_LMAX, (0, 2), False, geom)),
+		("HEALPix belt (%d rings x %d)" % (geom.nbelt, 4*HP_NSIDE), lambda: reproject._belt_synthesis(G, geom,
+			HP_NSIDE)),
+		("HEALPix caps (%d rings, N %d, w %d, %d pixels)" % (geom.ncap, geom.N, w, geom.start.numel()),
+			lambda: reproject._cap_gather(reproject._cap_fine(G, geom, corr, w), geom, wx)),
+		("alm2map", lambda: curvedsky.alm2map(alm, zeros, spin=[0, 2], ainfo=ainfo))]
+	for name, fn in stages:
+		smed, slo, shi = flat_time(fn, 1, 3)
+		print("healpix config 3 %s: stage %s %.3f ms (median of 3; min %.3f, max %.3f)" % (tag, name, smed, slo,
+			shi))
+	# the cap gather and its transpose against their bytes bounds
+	fine = reproject._cap_fine(G, geom, corr, w)
+	del G
+	esize = torch.finfo(dtype).bits//8
+	npt = geom.start.numel()
+	capv = reproject._cap_gather(fine, geom, wx)
+	tables = npt*(8 + esize)   # the first tap's index and the fraction, a pixel
+	for name, fn, nb in [("cap gather", lambda: reproject._cap_gather(fine, geom, wx),
+			fine.numel()*esize + tables + capv.numel()*esize),
+			("cap gather transpose (index_add_)", lambda: reproject._cap_gather_t(capv, geom, wx),
+			capv.numel()*esize + tables + fine.numel()*esize)]:
+		smed, slo, shi = flat_time(fn, 1, 3)
+		b = 1e3*nb/PEAK_BYTES
+		print("healpix config 3 %s: %s %.3f ms (median of 3; min %.3f, max %.3f), bytes bound %.3f ms (%.2f %% of "
+			"it; %.3f GB), %.1f %% of the step" % (tag, name, smed, slo, shi, b, 100*b/smed, nb/1e9,
+			100*smed/med))
+	del fine, capv, wx, zeros
+	torch.cuda.empty_cache()
+	wall, busy = flat_profile(step, 14, "healpix config 3 %s step" % tag)
+	print("healpix config 3 %s: device busy %.1f %% of one profiled step" % (tag, 100*busy/wall))
+	return alm
+
+
+def hp_extras(alm, dtype):
+	"""At nside 1024, IQU, lmax 2000: the ring and the general synthesis
+	timed, map2alm_healpix (niter 0 and 3), healpix2map ("harm", onto the
+	2002 x 4004 map) and map2healpix ("spline", wrapped border)."""
+	from pixell_tpu_torch import enmap, curvedsky, reproject
+	tag = str(dtype)[6:]
+	shape, wcs = hp_config3_geometry()
+	heal = reproject.alm2map_healpix(alm, nside=HP_NSIDE)
+	cmap = curvedsky.alm2map(alm, enmap.zeros((3,) + tuple(shape), wcs, dtype, device=DEV), spin=[0, 2])
+	calls = [("alm2map_healpix ring", lambda: reproject.alm2map_healpix(alm, nside=HP_NSIDE), []),
+		("alm2map_healpix general", lambda: reproject.alm2map_healpix(alm, nside=HP_NSIDE, method="general"),
+			["u2nu_points"]),
+		("map2alm_healpix niter 0", lambda: reproject.map2alm_healpix(heal, lmax=HP_LMAX),
+			hp_entries(dtype, [], ["full_analysis"])),
+		("map2alm_healpix niter 3", lambda: reproject.map2alm_healpix(heal, lmax=HP_LMAX, niter=3),
+			hp_entries(dtype, ["full_synthesis"], ["full_analysis"])),
+		("healpix2map harm onto %dx%d" % tuple(shape), lambda: reproject.healpix2map(heal, shape, wcs,
+			lmax=HP_LMAX), hp_entries(dtype, ["sym_synthesis"], ["full_analysis"])),
+		("map2healpix spline, wrapped border", lambda: reproject.map2healpix(cmap, nside=HP_NSIDE,
+			method="spline", boundary="wrap"), [])]
+	for label, fn, want in calls:
+		r = hp_drive("%s %s" % (label, tag), fn, want)
+		r = r.data if isinstance(r, enmap.ndmap) else r
+		if not bool(torch.isfinite(r).all()): raise RuntimeError("healpix %s %s: not finite" % (label, tag))
+		del r
+		med, lo, hi = flat_time(fn, 1, 3)
+		print("healpix %s IQU %s, nside %d, lmax %d: %.3f ms (median of 3; min %.3f, max %.3f)" % (label, tag,
+			HP_NSIDE, HP_LMAX, med, lo, hi))
+		torch.cuda.empty_cache()
+	a0 = reproject.map2alm_healpix(heal, lmax=HP_LMAX, niter=3)
+	err = relerr(a0, alm)
+	print("healpix map2alm_healpix niter 3 %s: alm back rel err %.3e (the pixel window of the ring synthesis "
+		"at lmax %d, nside %d: no exact quadrature)" % (tag, err, HP_LMAX, HP_NSIDE))
+
+
+def hp_thumbnails():
+	"""thumbnails of the IQU float32 DR6-sized band around THUMB_NOBJ objects
+	drawn uniformly in it (r THUMB_R, res THUMB_RES arcmin, order 3, with
+	polarization): time, stages, busy share; THUMB_CHECK objects in float64
+	batched against one call each."""
+	from pixell_tpu_torch import reproject, enmap, interpol, utils
+	m = interp_band(torch.float32, 24)
+	rng = np.random.default_rng(25)
+	coords = np.array([rng.uniform(-63, 23, THUMB_NOBJ), rng.uniform(-180, 180, THUMB_NOBJ)]).T*utils.degree
+	kw = dict(r=THUMB_R*utils.arcmin, res=THUMB_RES*utils.arcmin)
+	th = reproject.thumbnails(m, coords, **kw)
+	if th.shape[:2] != (THUMB_NOBJ, 3) or not bool(torch.isfinite(th.data).all()):
+		raise RuntimeError("thumbnails: %s not finite or of the wrong shape" % (tuple(th.shape),))
+	med, lo, hi = flat_time(lambda: reproject.thumbnails(m, coords, **kw), 1, 3)
+	print("healpix thumbnails of %s IQU float32, %d objects, %s stamps (r %.1f', res %.1f', order 3, pol): %.3f "
+		"ms (median of 3; min %.3f, max %.3f)" % (tuple(m.shape), THUMB_NOBJ, tuple(th.shape[-2:]), THUMB_R,
+		THUMB_RES, med, lo, hi))
+	oshape, owcs = enmap.thumbnail_geometry(**kw)
+	opos = enmap._posmap_np(oshape, owcs, safe=False).reshape(2, -1)
+	pos, ang = reproject._recentered(coords, opos, True, DEV)
+	pix = enmap._sky2pix_on(m.shape, m.wcs, pos.reshape(2, -1))
+	data = m.data
+	vals = th.data
+	stages = [("positions (recentering and sky2pix on the card)", lambda: enmap._sky2pix_on(m.shape, m.wcs,
+			reproject._recentered(coords, opos, True, DEV)[0].reshape(2, -1))),
+		("prefilter", lambda: interpol._coefficients(data, "spline", 3, "constant", True)),
+		("gather", lambda: interpol.map_coordinates(data, pix, order=3, border="constant", prefilter=False)),
+		("rotation", lambda: enmap.rotate_pol(vals, -ang.reshape((THUMB_NOBJ,) + tuple(oshape[-2:]))))]
+	for name, fn in stages:
+		smed, slo, shi = flat_time(fn, 1, 3)
+		print("healpix thumbnails: stage %s %.3f ms (median of 3; min %.3f, max %.3f)" % (name, smed, slo, shi))
+	del pos, ang, pix, vals, th
+	torch.cuda.empty_cache()
+	wall, busy = flat_profile(lambda: reproject.thumbnails(m, coords, **kw), 12, "healpix thumbnails")
+	print("healpix thumbnails: device busy %.1f %% of one profiled call" % (100*busy/wall))
+	# batched against one call each, in float64: THUMB_CHECK objects of a 4-degree strip, on the band's rows
+	# within 2 degrees of it (a float64 IQU copy of the whole band and its prefilter would take ~70 GiB)
+	strip = np.nonzero((coords[:, 0] > -10*utils.degree) & (coords[:, 0] < -6*utils.degree))[0][:THUMB_CHECK]
+	ys = enmap.sky2pix(m.shape, m.wcs, np.array([[-12, -4], [0, 0]])*utils.degree)[0]
+	y0, y1 = int(np.floor(ys.min())), int(np.ceil(ys.max())) + 1
+	m64 = enmap.ndmap(m.data[:, y0:y1].double(), enmap.slice_geometry(m.shape, m.wcs, (slice(y0, y1),
+		slice(None)))[1])
+	del m
+	torch.cuda.empty_cache()
+	sub = coords[strip]
+	batch = reproject.thumbnails(m64, sub, **kw).data
+	err = max(relerr(batch[i], reproject.thumbnails(m64, sub[i], **kw).data[0]) for i in range(len(sub)))
+	print("healpix thumbnails float64: %d objects batched against one call each, rel err %.3e (bound 1e-12; %s "
+		"map)" % (len(sub), err, tuple(m64.shape)))
+	if len(sub) < THUMB_CHECK or not err <= 1e-12:
+		raise RuntimeError("thumbnails: %d objects, batch against single calls %g" % (len(sub), err))
+	del m64
+	torch.cuda.empty_cache()
+
+
+def healpix_phase():
+	"""Guards at nside 64, config 3 in float32 and float64 with its stages,
+	the other HEALPix entries at nside 1024, and the thumbnails."""
+	h0 = time.perf_counter()
+	HP_LAUNCHES.clear()
+	hp_guards()
+	step_ms = {}
+	for dt in (torch.float32, torch.float64):
+		alm = hp_config3(dt, step_ms)
+		hp_extras(alm, dt)
+		del alm
+		torch.cuda.empty_cache()
+	hp_thumbnails()
+	print("healpix launches in all its paths (each driven with the counts at 0): %s" % HP_LAUNCHES)
+	print("healpix phase: %.1f s" % (time.perf_counter() - h0))
+
+
+PHASES = ("k9", "kernels", "lstop", "slice", "adjoint", "blocked", "timing", "general", "flat", "interp",
+	"healpix")
 EXTRA_PHASES = ("variants", "blkprobe")   # run only when named
 
 
@@ -3776,6 +4164,9 @@ def main():
 	if "interp" in phases:
 		interp_phase()
 		print("phase interp done at %.1f s" % (time.perf_counter() - t_start))
+	if "healpix" in phases:
+		healpix_phase()
+		print("phase healpix done at %.1f s" % (time.perf_counter() - t_start))
 	if "variants" in phases:
 		variants_phase(parent)
 		print("phase variants done at %.1f s" % (time.perf_counter() - t_start))
@@ -3806,6 +4197,8 @@ def main():
 		rec["launches"] = sum(c["fma_peak"] for c in launches.values())
 	records = list(kernel_records.values()) + list(f64_records.values()) \
 		+ [r[0] for r in lstop_records.values()] + list(blk_records.values()) + gen_records + records
+	for rec in records:   # the launches of each record's kernel in the healpix paths
+		rec["healpix_launches"] = hp_count(rec)
 	print(card_line())
 	print(json.dumps({"kernels": records}))
 	print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,8 @@ Legendre and NUFFT point stages run in hand-written CUDA kernels for
 NVIDIA Hopper (csrc/) and in plain PyTorch on the CPU, the flat sky's
 FFTs, spin rotations and binned spectra on torch.fft, and the pixel-space
 reprojection (cut-outs, resolution changes, spline interpolation) in plain
-torch. Module names mirror pixell_tpu's.
+torch, and HEALPix with the CAR <-> HEALPix reprojection, thumbnails and
+coordinate transforms. Module names mirror pixell_tpu's.
 """
 __version__ = "0.1.0"
 
@@ -20,3 +21,7 @@ from . import fft
 from . import sht
 from . import powspec
 from . import curvedsky
+from . import sites
+from . import coordinates
+from . import healpix
+from . import reproject

@@ -31,7 +31,9 @@ Legendre recurrence in float64 whatever the map's dtype (sht.accuracy).
 Theta banding (SYNTH_BAND_BYTES) is not ported: it was sized for a 16 GB
 chip. Not ported yet, and raising NotImplementedError: mesh=
 (multi-device), deriv=True in the general method's analysis (as in the
-reference); the HEALPix helpers are absent.
+reference). The HEALPix names (alm2map_healpix, map2alm_healpix,
+get_ring_info_healpix, npix2nside, prepare_healmap, fill_gauss,
+rand_alm_healpy) forward to reproject and healpix as the reference's do.
 """
 from __future__ import annotations
 import functools
@@ -848,6 +850,65 @@ def get_ring_info(theta_or_shape, wcs=None):
 		theta = np.asarray(theta_or_shape)
 		nphi = None; phi0 = None
 	return Bunch(theta=theta, nphi=nphi, phi0=phi0, nring=len(theta))
+
+
+def get_ring_info_healpix(nside):
+	"""Per-ring structure of a HEALPix RING map (pixell_tpu.curvedsky.
+	get_ring_info_healpix), host numpy."""
+	from . import healpix
+	info = healpix.ring_info(nside)
+	return Bunch(theta=info["theta"], nphi=info["nphi"], phi0=info["phi0"],
+		offsets=info["start"], nring=info["nring"])
+
+
+# ---------------------------------------------------------------------------
+# HEALPix (pixell_tpu/curvedsky.py:1136-1221): the transforms are
+# reproject's, forwarded as in the reference
+# ---------------------------------------------------------------------------
+def alm2map_healpix(alm, healmap=None, nside=None, spin=[0, 2], deriv=False,
+		ainfo=None, method="ring", **kw):
+	"""reproject.alm2map_healpix (pixell_tpu.curvedsky.alm2map_healpix); of
+	kw only device= is read (numpy alm go there, "cuda" by default)."""
+	from . import reproject
+	return reproject.alm2map_healpix(alm, healmap=healmap, nside=nside, spin=spin, deriv=deriv,
+		ainfo=ainfo, method=method, device=kw.get("device", "cuda"))
+
+def map2alm_healpix(healmap, alm=None, lmax=None, spin=[0, 2], niter=0,
+		ainfo=None, method="ring", **kw):
+	"""reproject.map2alm_healpix (pixell_tpu.curvedsky.map2alm_healpix); of
+	kw only device= is read (a numpy map goes there, "cuda" by default)."""
+	from . import reproject
+	return reproject.map2alm_healpix(healmap, alm=alm, lmax=lmax, spin=spin, niter=niter,
+		ainfo=ainfo, method=method, device=kw.get("device", "cuda"))
+
+def npix2nside(npix):
+	return utils.nint((npix/12)**0.5)
+
+def prepare_healmap(healmap, nside=None, pre=(), dtype=np.float64, *, device="cuda"):
+	"""healmap, or zeros [*pre, 12 nside^2] of dtype on device."""
+	if healmap is not None: return healmap
+	return torch.zeros(tuple(pre) + (12*nside**2,), dtype=enmap._torch_dtype(dtype), device=device)
+
+def fill_gauss(arr, bsize=65536):
+	"""Fill arr (numpy or a tensor, real or complex) with standard normal
+	noise in place, blockwise from numpy's global generator, so the same
+	numpy seed gives the reference's numbers (pixell_tpu.curvedsky.
+	fill_gauss)."""
+	if not isinstance(arr, torch.Tensor):
+		rtype = np.zeros([0], arr.dtype).real.dtype
+		flat = arr.reshape(-1).view(rtype)
+		for i in range(0, flat.size, bsize):
+			flat[i:i+bsize] = np.random.standard_normal(min(bsize, flat.size - i))
+		return
+	flat = (torch.view_as_real(arr) if arr.is_complex() else arr).view(-1)
+	for i in range(0, flat.numel(), bsize):
+		n = min(bsize, flat.numel() - i)
+		flat[i:i+n] = torch.from_numpy(np.random.standard_normal(n)).to(flat.device, flat.dtype)
+
+def rand_alm_healpy(ps, lmax=None, seed=None, dtype=torch.complex128, *, device="cuda"):
+	"""rand_alm in healpy's (m-major) layout (pixell_tpu.curvedsky.
+	rand_alm_healpy)."""
+	return rand_alm(ps, lmax=lmax, seed=seed, dtype=dtype, m_major=True, device=device)
 
 
 def get_ring_info_radial(r):

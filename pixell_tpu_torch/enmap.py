@@ -287,6 +287,8 @@ class ndmap:
 	def upgrade(self, factor, off=None, oshape=None, inclusive=False):
 		return upgrade(self, factor, off=off, oshape=oshape, inclusive=inclusive)
 	def fillbad(self, val=0, inplace=False): return fillbad(self, val=val, inplace=inplace)
+	def to_healpix(self, nside=0, order=3, omap=None, chunk=100000, destroy_input=False):
+		return to_healpix(self, nside=nside, order=order)
 	def argmax(self, unit="coord"): return argmax(self, unit=unit)
 	def argmin(self, unit="coord"): return argmin(self, unit=unit)
 	def pixbox_of(self, oshape, owcs): return pixbox_of(self.wcs, oshape, owcs)
@@ -2094,9 +2096,13 @@ def project(map, shape, wcs, order=3, border="constant", cval=0.0, force=False,
 def at(map, pos, order=3, border="constant", cval=0.0, safe=True, unit="coord", ip=None):
 	"""The map interpolated at the positions pos [{dec, ra}, ...] (unit
 	"pix": pixel coordinates [{y, x}, ...]), [..., pos...] on the map's
-	device (pixell_tpu.enmap.at). Sky positions are mapped to pixels on the
-	host, as numpy, and the pixels copied once."""
-	if unit == "coord":
+	device (pixell_tpu.enmap.at). Sky positions given as a tensor on the
+	map's device are mapped to pixels there where the geometry is a
+	separable CAR, CEA or MER (_sky2pix_on); others are mapped on the host,
+	as numpy, and the pixels copied once."""
+	if unit == "coord" and _sky2pix_on_device(map, pos, safe):
+		pix = _sky2pix_on(map.shape, map.wcs, pos)
+	elif unit == "coord":
 		pos = pos.detach().cpu().numpy() if isinstance(pos, torch.Tensor) else np.asarray(pos)
 		pix = torch.from_numpy(np.ascontiguousarray(sky2pix(map.shape, map.wcs, pos, safe=safe), np.float64))
 	else:
@@ -2105,6 +2111,60 @@ def at(map, pos, order=3, border="constant", cval=0.0, safe=True, unit="coord", 
 	res = interpol.map_coordinates(map.data.reshape((-1,) + map.shape[-2:]), pix, order=order, border=border,
 		cval=cval)
 	return res.reshape(tuple(map.shape[:-2]) + tuple(pix.shape[1:]))
+
+
+def _sky2pix_on_device(map, pos, safe):
+	"""Whether at maps pos to pixels on the device: a tensor on the map's
+	device, a separable CAR / CEA / MER geometry, and safe=True (safe=2
+	unwinds, on the host)."""
+	return isinstance(pos, torch.Tensor) and pos.device == map.device and safe == 1 \
+		and wcsutils.is_separable(map.wcs) and wcsutils.get_proj(map.wcs) in ("car", "cea", "mer")
+
+
+def _sky2pix_on(shape, wcs, pos):
+	"""sky2pix(shape, wcs, pos, safe=1) of a tensor pos [{dec, ra}, ...] on
+	its device, in float64, for a separable CAR / CEA / MER geometry: the
+	host version's arithmetic (wcsutils.world2pix with the pole at its
+	place, then the rewind of x about the map's centre)."""
+	unit = get_unit(wcs)
+	pos = pos.to(torch.float64)
+	lon, lat = pos[1]/unit, pos[0]/unit
+	u = lon - float(wcs.wcs.crval[0])
+	proj = wcsutils.get_proj(wcs)
+	if proj == "car": v = lat
+	elif proj == "cea": v = torch.sin(lat*wcsutils.deg2rad)*wcsutils.rad2deg/wcs.wcs._pv.get((2, 1), 1.0)
+	else: v = torch.log(torch.tan((45 + lat/2)*wcsutils.deg2rad))*wcsutils.rad2deg
+	x = u/float(wcs.wcs.cdelt[0]) + float(wcs.wcs.crpix[0]) - 1
+	y = v/float(wcs.wcs.cdelt[1]) + float(wcs.wcs.crpix[1]) - 1
+	return torch.stack([y, utils.rewind(x, shape[-1]/2., abs(360./wcs.wcs.cdelt[0]))])
+
+
+# ---------------------------------------------------------------------------
+# HEALPix interop (pixell_tpu/enmap.py:1616-1622, :2390-2440)
+# ---------------------------------------------------------------------------
+def to_healpix(imap, omap=None, nside=0, order=3, chunk=100000, destroy_input=False):
+	"""reproject.map2healpix(imap, nside, order=order) (pixell_tpu.enmap.
+	to_healpix); omap, chunk and destroy_input are accepted and ignored."""
+	from . import reproject
+	return reproject.map2healpix(imap, nside=nside, order=order)
+
+def from_healpix(hmap, shape, wcs, order=3, rot=None, *, device="cuda"):
+	"""reproject.healpix2map(hmap, shape, wcs, order=order, rot=rot)
+	(pixell_tpu.enmap.from_healpix)."""
+	from . import reproject
+	return reproject.healpix2map(hmap, shape, wcs, order=order, rot=rot, device=device)
+
+_DISTANCES = "the HEALPix distance transforms are not ported yet (ROADMAP Queue 1 item 16: distances.py)"
+
+def distance_from_healpix(nside, points, omap=None, odomains=None, domains=False, rmax=None,
+		method="bubble"):
+	raise NotImplementedError(_DISTANCES)
+
+def distance_transform_healpix(mask, omap=None, rmax=None, method="heap"):
+	raise NotImplementedError(_DISTANCES)
+
+def labeled_distance_transform_healpix(labels, omap=None, odomains=None, rmax=None, method="heap"):
+	raise NotImplementedError(_DISTANCES)
 
 
 def spec2flat_corr(shape, wcs, cov, exp=1.0, border="constant", *, device="cuda"):

@@ -4,8 +4,9 @@ Only what the ported modules call: the angle constants, nint,
 rewind/unwind for the pixel<->sky conversions, eigpow for rand_alm,
 spec2flat and array_ops, the Minres solver of curvedsky.minres_inverse,
 and for the flat sky split_slice / expand_slice (ndmap indexing), nditer,
-real_dtype / complex_dtype (numpy or torch dtypes) and ang2rect / rect2ang /
-angdist (modrmap, extent's subgrid). For the pixel boxes of enmap's
+real_dtype / complex_dtype (numpy or torch dtypes), ang2rect / rect2ang /
+angdist (modrmap, extent's subgrid) and rotmatrix (coordinates' Euler
+matrices); rewind also takes tensors. For the pixel boxes of enmap's
 extract family: the slice-box algebra (sbox_*) and parse_slice, host numpy;
 for its resolution changes: block_reduce / block_expand and downgrade /
 upgrade, which work on tensors (on their device) as well as numpy arrays.
@@ -26,10 +27,12 @@ def nint(a):
 
 
 def rewind(a, ref=0, period=2*np.pi):
-	"""Map angles into (ref-period/2, ref+period/2] (pixell_tpu.utils.rewind)."""
-	a = np.asarray(a)
+	"""Map angles into (ref-period/2, ref+period/2] (pixell_tpu.utils.rewind);
+	a tensor on its device, anything else as numpy."""
+	if not isinstance(a, torch.Tensor): a = np.asarray(a)
 	if isinstance(ref, str) and ref == "auto":
-		ref = np.sort(a.reshape(-1))[a.size//2]
+		flat = a.reshape(-1)
+		ref = (torch.sort(flat)[0] if isinstance(a, torch.Tensor) else np.sort(flat))[flat.shape[0]//2]
 	return ref + (a - ref + period/2) % period - period/2
 
 
@@ -205,6 +208,20 @@ def angdist(a, b, zenith=False, axis=0):
 		np.cos(dec1)*np.sin(dec2) - np.sin(dec1)*np.cos(dec2)*np.cos(dra))
 	x = np.sin(dec1)*np.sin(dec2) + np.cos(dec1)*np.cos(dec2)*np.cos(dra)
 	return np.arctan2(y, x)
+
+
+def rotmatrix(ang, raxis):
+	"""The rotation matrix [..., 3, 3] by ang about axis "x", "y" or "z"
+	(pixell_tpu.utils.rotmatrix), numpy float64."""
+	ang = np.asarray(ang)
+	c_, s_ = np.cos(ang), np.sin(ang)
+	one, zero = np.ones_like(c_), np.zeros_like(c_)
+	raxis = raxis.lower()
+	if   raxis == "x": rows = [[one, zero, zero], [zero, c_, -s_], [zero, s_, c_]]
+	elif raxis == "y": rows = [[c_, zero, s_], [zero, one, zero], [-s_, zero, c_]]
+	elif raxis == "z": rows = [[c_, -s_, zero], [s_, c_, zero], [zero, zero, one]]
+	else: raise ValueError("Rotation axis %s not recognized" % raxis)
+	return np.stack([np.stack(r, -1) for r in rows], -2)
 
 
 def moveaxis(a, o, n):

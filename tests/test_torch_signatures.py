@@ -1,6 +1,7 @@
 """The public signatures of pixell_tpu_torch.curvedsky, .sht, .enmap,
-.fft, .wcsutils, .powspec, .interpol, .resample and .array_ops against
-pixell_tpu's: every public name both modules define takes the reference's
+.fft, .wcsutils, .powspec, .interpol, .resample, .array_ops, .healpix,
+.reproject, .coordinates and .sites against pixell_tpu's (and that these
+four have every public name of the reference's modules): every public name both modules define takes the reference's
 parameters, by name and in order, and the port's own extras (device=,
 leg_dtype=) come after them and are keyword-only, so a call written for
 the reference means the same in the port. Then the calls themselves: map2alm
@@ -18,14 +19,18 @@ torch = pytest.importorskip("torch")
 
 from pixell_tpu import curvedsky as jcurvedsky, sht as jsht, enmap as jenmap, fft as jfft, \
 	wcsutils as jwcsutils, powspec as jpowspec, interpol as jinterpol, resample as jresample, \
-	array_ops as jarray_ops
-from pixell_tpu_torch import curvedsky, sht, enmap, fft, wcsutils, powspec, interpol, resample, array_ops
+	array_ops as jarray_ops, healpix as jhealpix, reproject as jreproject, coordinates as jcoordinates, \
+	sites as jsites
+from pixell_tpu_torch import curvedsky, sht, enmap, fft, wcsutils, powspec, interpol, resample, array_ops, \
+	healpix, reproject, coordinates, sites
 
 LMAX = 16
 SHAPE = (20, 40)
 PAIRS = {"curvedsky": (jcurvedsky, curvedsky), "sht": (jsht, sht), "enmap": (jenmap, enmap),
 	"fft": (jfft, fft), "wcsutils": (jwcsutils, wcsutils), "powspec": (jpowspec, powspec),
-	"interpol": (jinterpol, interpol), "resample": (jresample, resample), "array_ops": (jarray_ops, array_ops)}
+	"interpol": (jinterpol, interpol), "resample": (jresample, resample), "array_ops": (jarray_ops, array_ops),
+	"healpix": (jhealpix, healpix), "reproject": (jreproject, reproject), "coordinates": (jcoordinates, coordinates),
+	"sites": (jsites, sites)}
 
 
 def shared_names():
@@ -74,7 +79,19 @@ def test_the_check_covers_the_entry_points():
 		"upgrade", "ndmap.project", "ndmap.at", "ndmap.submap", "ndmap.insert", "Geometry.submap", "resample",
 		"resample_bin", "make_equispaced", "matmul", "eigpow", "roll_rows", "find_contours", "apod", "pad",
 		"crop", "union_geometry", "geometry2", "thumbnail_geometry", "spec2flat_corr", "Padtiler.read",
-		"ip_linear", "build"} <= names
+		"ip_linear", "build", "alm2map_healpix", "map2alm_healpix", "get_ring_info_healpix", "prepare_healmap",
+		"fill_gauss", "rand_alm_healpy", "to_healpix", "from_healpix", "ndmap.to_healpix", "map2healpix",
+		"healpix2map", "thumbnails", "transform", "get_interpol", "positions", "expand_site"} <= names
+
+
+@pytest.mark.parametrize("mod", ["healpix", "reproject", "coordinates", "sites"])
+def test_every_public_name(mod):
+	"""healpix, reproject, coordinates and sites have every public name of
+	the reference's modules (the not yet ported ones among them raise)."""
+	ref, port = PAIRS[mod]
+	public = lambda m: {n for n in dir(m) if not n.startswith("_") and not inspect.ismodule(getattr(m, n))
+		and getattr(getattr(m, n), "__module__", m.__name__) == m.__name__}
+	assert public(ref) - set(dir(port)) == set()
 
 
 def geometry():
