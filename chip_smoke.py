@@ -10,7 +10,7 @@ and nufft.cu, all compilers started together) and prints each kernel's
 registers and spills (every float64 instantiation of the bulk kernels and
 all twelve of K10 / K11 / K12 must be built, and none of them may spill),
 then runs the phases below (all of them with no arguments; --phases with a
-choice of k9,kernels,lstop,slice,adjoint,blocked,timing,general,flat,interp,healpix runs
+choice of k9,kernels,lstop,slice,adjoint,blocked,timing,general,flat,interp,healpix,lensing runs
 those alone, for work on one phase, and gives no verdict; the phases
 "variants", 6. below, and "blkprobe" run only when named). With
 --parent DIR, a directory holding a parent tree's legendre.cu, blockleg.cu
@@ -324,6 +324,39 @@ K10 / K11 (below):
    a 4-degree strip in float64 batched against one call each (1e-12). The
    kernels JSON line gives each kernel's launches in these paths
    ("healpix_launches").
+11. lensing: BASELINE config 4 (curved-sky lensing, then Doppler
+   aberration, scripts/benchmark_baseline.py:124-169) through
+   pixell_tpu_torch.lensing and .aberration: the gradient SHT and the
+   torus synthesis on K1-K4 (and in float32 their near-pole passes), the
+   point stage on K12 and K10 in dec bands, the positions and offsets, the
+   rotations, the spline interpolation and the modulation in plain torch.
+   Guards first, on a 40 x 40 CAR patch at 0.5 degrees, lmax 64, IQU,
+   inputs from a numpy seed: lens_map_curved (output "lupka", unbanded and
+   in bands of 4 degrees), lens_map_flat, delens_map, boost_map (thermo,
+   dipole), fft.shift_interp, inufft, nufft_adjoint and iu2nu (300 points,
+   an 8 x 10 grid, the grid back within 1e-5), each on the card against the
+   same call on CPU tensors, float64 within 1e-12 of the largest value
+   (the lensed map within 1e-11: the fine grid's deconvolution magnifies
+   the devices' torus differences), float32 each side against the CPU's
+   float64 result (the card within twice the CPU's error plus 2e-5). Then config 4 in float32 and float64:
+   the 1200 x 2400 CAR patch (box [[-5, 10], [5, -10]] degrees at 0.5
+   arcmin), IQU alm at lmax 4000 from lensing.rand_alm(seed=1) resident on
+   the card, lens_map_curved(delta_theta=2 degrees) then
+   boost_map(modulation=None): the step's ms (median, min, max of 7), its
+   stages (median of 3: gradient SHT, plan build and its torus synthesis,
+   the band loop with its positions, binning, evaluation and rotation, the
+   aberration with the Aberrator's construction, prefilter, gather and
+   rotation, the modulation; the plain-torch stages against their bytes
+   bounds over 3.35 TB/s and as shares of the step), the busy share and top
+   ops of one profiled step (no host <-> device copy above 1 MB), its
+   launches (K10 and K12 and the Legendre entries of its dtype must
+   launch), the memory peak (under 70 GiB); the float32 lensed map against
+   the float64 one (5e-3), the float64 one at 512 seeded pixels against a
+   direct sum at their displaced positions (offset_by_grad on the CPU in
+   float64; 1e-8), and zero phi_alm giving the unlensed map (1e-9, ten
+   times the NUFFT's epsilon). The
+   kernels JSON line gives each kernel's launches in these paths
+   ("lensing_launches").
 
 It prints the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and yardstick, and as the last line
@@ -3732,21 +3765,22 @@ THUMB_CHECK = 5                  # objects held against one call each, float64
 HP_LAUNCHES = {}                 # launches of the healpix paths, by (kernel, mode or dtype, dtype or kind)
 
 
-def hp_drive(label, fn, want):
+def hp_drive(label, fn, want, store=None, phase="healpix"):
 	"""fn with every launch count set to 0 just before and read just after;
-	the counts join HP_LAUNCHES, and each kernel entry in want (sht_cuda's or
-	nufft_cuda's name, or a tuple of names one of which) must have launched.
-	Returns fn's result."""
+	the counts join store (HP_LAUNCHES by default), and each kernel entry in
+	want (sht_cuda's or nufft_cuda's name, or a tuple of names one of which)
+	must have launched. Returns fn's result."""
 	from pixell_tpu_torch.ops import sht_cuda, nufft_cuda
+	store = HP_LAUNCHES if store is None else store
 	sht_cuda.reset_launches()
 	nufft_cuda.reset_launches()
 	out = fn()
 	torch.cuda.synchronize()
 	counts = {k: n for d in (sht_cuda.LAUNCHES_BY_DTYPE, nufft_cuda.LAUNCHES_BY_DTYPE) for k, n in d.items() if n}
-	for k, n in counts.items(): HP_LAUNCHES[k] = HP_LAUNCHES.get(k, 0) + n
-	print("healpix launches in the %s: %s" % (label, counts))
+	for k, n in counts.items(): store[k] = store.get(k, 0) + n
+	print("%s launches in the %s: %s" % (phase, label, counts))
 	missing = [w for w in want if not any(k[0] in (w if isinstance(w, tuple) else (w,)) for k in counts)]
-	if missing: raise RuntimeError("healpix %s: %s not launched" % (label, missing))
+	if missing: raise RuntimeError("%s %s: %s not launched" % (phase, label, missing))
 	return out
 
 
@@ -3762,13 +3796,13 @@ def hp_entries(dtype, synth, anal):
 	return out
 
 
-def hp_count(rec):
-	"""The launches of rec's kernel in the healpix paths: its entry name (the
-	record's name up to "["), its mode where it has one, its dtype for the
-	NUFFT kernels."""
+def hp_count(rec, store=None):
+	"""The launches of rec's kernel in the healpix paths (or those counted
+	in store): its entry name (the record's name up to "["), its mode where
+	it has one, its dtype for the NUFFT kernels."""
 	entry, inside = rec["name"].split("[", 1)
 	n = 0
-	for (name, a, b), c in HP_LAUNCHES.items():
+	for (name, a, b), c in (HP_LAUNCHES if store is None else store).items():
 		if name != entry: continue
 		if name in ("u2nu_points", "nu2u_spread", "tile_keys"):
 			n += c if inside.startswith(a) else 0
@@ -4063,8 +4097,332 @@ def healpix_phase():
 	print("healpix phase: %.1f s" % (time.perf_counter() - h0))
 
 
+# ---------------------------------------------------------------------------
+# 11. lensing: BASELINE config 4 (curved-sky lensing, then Doppler aberration)
+# ---------------------------------------------------------------------------
+LENS_LMAX = 4000                           # scripts/benchmark_baseline.py:131-137
+LENS_BOX = np.array([[-5, 10], [5, -10]])  # degrees, the same
+LENS_RES = 0.5                             # arcmin
+LENS_DTHETA = 2.0                          # degrees: the point stage's dec bands (:158-159)
+LENS_GUARD = (64, 10.0, 0.5)               # lmax, half side and res in degrees: the guards' 40 x 40 patch
+LENS_CPU_TOL = {torch.float64: 1e-12, torch.float32: 2e-5}   # card against CPU tensors (f32: lens_guards)
+# the lensed map in float64, card against CPU tensors: a tenth of the NUFFT's epsilon 1e-10. The fine grid
+# divides the torus's coefficients by the ES kernel's transform, small near the band edge, and so magnifies
+# the two devices' torus synthesis differences (~1e-14) about a hundredfold (1.6e-12 at lmax 64)
+LENS_NUFFT_CPU_TOL = 1e-11
+LENS_F32_TOL = 5e-3        # config 4's float32 lensed map against the float64 one, of the largest value
+LENS_DIRECT_TOL = 1e-8     # float64 lensed pixels against a direct sum at the displaced positions
+LENS_ZERO_TOL = 1e-9       # zero phi_alm: lensed against unlensed, float64 (ten times the NUFFT's epsilon, as GEN_TOL)
+LENS_NDIRECT = 512         # pixels held against the direct sum
+LENS_SOLVE_TOL = 1e-5      # iu2nu's grid against the one that made the samples, float64
+LENS_LAUNCHES = {}         # launches of the lensing paths, by (kernel, mode or dtype, dtype or kind)
+
+
+def lens_spectra(lmax):
+	"""Config 4's [phi, T, E, B] spectra (scripts/benchmark_baseline.py:138-143)."""
+	ps = np.zeros((4, 4, lmax + 1))
+	l = np.arange(lmax + 1)
+	ps[0, 0] = 1e-8/np.maximum(l*(l + 1), 1)**2
+	ps[1, 1] = 1.0/np.maximum(l, 1)**2
+	ps[2, 2] = 0.1/np.maximum(l, 1)**2
+	ps[3, 3] = 0.01/np.maximum(l, 1)**2
+	return ps
+
+
+def lens_drive(label, fn, want):
+	"""hp_drive into LENS_LAUNCHES, with the NUFFT bins' cache emptied
+	first, so that every path bins its points through K12."""
+	from pixell_tpu_torch.ops import nufft_cuda
+	nufft_cuda.clear_bins()
+	return hp_drive(label, fn, want, LENS_LAUNCHES, "lensing")
+
+
+def lens_guards():
+	"""On the 40 x 40 CAR patch at 0.5 degrees, lmax 64, IQU, inputs from a
+	numpy seed: lens_map_curved ("lupka", unbanded and in bands),
+	lens_map_flat, delens_map, boost_map (thermo, dipole), shift_interp,
+	inufft, nufft_adjoint and iu2nu (300 points, an 8 x 10 grid), each on
+	the card against the same call on CPU tensors: float64 within 1e-12 of
+	the largest value (the lensed map within LENS_NUFFT_CPU_TOL); float32 each side against the CPU's float64 result,
+	the card's error within twice the CPU's plus 2e-5. Returns the failed
+	guards' lines (lensing_phase raises on them at its end)."""
+	from pixell_tpu_torch import lensing, aberration, enmap, fft, utils
+	lmax, half, res = LENS_GUARD
+	shape, wcs = enmap.geometry(pos=np.array([[-half, half], [half, -half]])*utils.degree, res=res*utils.degree,
+		proj="car")
+	phi, cmb = lensing.rand_alm(lens_spectra(lmax), lmax=lmax, seed=51, device="cpu")
+	rng = np.random.default_rng(52)
+	m = rng.standard_normal((3,) + tuple(shape))
+	phimap = 1e-6*rng.standard_normal(tuple(shape))
+	grad = 0.3*res*utils.degree*rng.standard_normal((2,) + tuple(shape))
+	dy, dx = rng.uniform(-2, 2, (2,) + tuple(shape))
+	g = rng.standard_normal((8, 10)) + 1j*rng.standard_normal((8, 10))
+	inds, inds2 = rng.uniform(0, 2*np.pi, (2, 60)), rng.uniform(0, 2*np.pi, (2, 300))
+	v = rng.standard_normal(60) + 1j*rng.standard_normal(60)
+	samples = fft.u2nu(torch.from_numpy(g), torch.from_numpy(inds2.T.copy()), device="cpu").numpy()
+	ref64, failed = {}, []
+	for dt in (torch.float64, torch.float32):
+		ct = torch.complex128 if dt == torch.float64 else torch.complex64
+		w, beta = fft._es_params(1e-10)   # shift_interp's kernel, the same in both dtypes
+		on = lambda x, t: {d: torch.from_numpy(np.asarray(x)).to(d, t) for d in (DEV, "cpu")}
+		P, C = on(phi, ct), on(cmb, ct)
+		M = {d: enmap.ndmap(x, wcs) for d, x in on(m, dt).items()}
+		PHI = {d: enmap.ndmap(x, wcs) for d, x in on(phimap, dt).items()}
+		G, DY, DX = on(grad, dt), on(dy, torch.float64), on(dx, torch.float64)
+		GC, V, I, I2, A = on(g, ct), on(v, ct), on(inds, torch.float64), on(inds2, torch.float64), on(samples, ct)
+		kw = dict(shape=(3,) + tuple(shape), wcs=wcs, dtype=dt, output="lupka")
+		calls = [("lens_map_curved lupka", lambda d: lensing.lens_map_curved(phi_alm=P[d], cmb_alm=C[d], **kw),
+				["u2nu_points", "tile_keys"]),
+			("lens_map_curved lupka in bands of 4 degrees", lambda d: lensing.lens_map_curved(phi_alm=P[d],
+				cmb_alm=C[d], delta_theta=4*utils.degree, **kw), ["u2nu_points", "tile_keys"]),
+			("lens_map_flat", lambda d: lensing.lens_map_flat(M[d], PHI[d]), []),
+			("delens_map", lambda d: lensing.delens_map(M[d], G[d]), []),
+			("boost_map thermo dipole", lambda d: aberration.boost_map(M[d], modulation="thermo", dipole=True), []),
+			("shift_interp w %d" % w, lambda d: fft.shift_interp(M[d].data, DY[d], DX[d], 2, w, beta),
+				["u2nu_points"]),
+			("inufft", lambda d: fft.inufft(GC[d], I[d]), ["u2nu_points"]),
+			("nufft_adjoint", lambda d: fft.nufft_adjoint(V[d], I[d], oshape=(8, 10)), ["nu2u_spread"]),
+			("iu2nu", lambda d: fft.iu2nu(A[d], I2[d], oshape=(8, 10)), ["u2nu_points", "nu2u_spread"])]
+		for label, fn, want in calls:
+			outs = lens_drive("guard %s %s" % (label, str(dt)[6:]), lambda: fn(DEV), want)
+			cpus = fn("cpu")
+			if not isinstance(outs, tuple): outs, cpus = (outs,), (cpus,)
+			for i, (got, cpu) in enumerate(zip(outs, cpus)):
+				got, cpu = [x.data if isinstance(x, enmap.ndmap) else x for x in (got, cpu)]
+				got = got.cpu()
+				name = "%s%s" % (label, "" if len(outs) == 1 else " " + "lupka"[i])
+				err = relerr(got, cpu)
+				line = "lensing guard %s %s (lmax %d, %s): card against CPU tensors rel err %.3e" % (name,
+					str(dt)[6:], lmax, tuple(shape), err)
+				if dt == torch.float64:
+					ref64[name] = cpu
+					tol = LENS_NUFFT_CPU_TOL if name.startswith("lens_map_curved") and name.endswith(" l") \
+						else LENS_CPU_TOL[dt]
+					ok = err <= tol
+					line += " (bound %.0e)" % tol
+				else:
+					ecard, ecpu = relerr(got, ref64[name]), relerr(cpu, ref64[name])
+					ok = ecard <= 2*ecpu + LENS_CPU_TOL[dt]
+					line += "; against float64: card %.3e, CPU %.3e (bound: card within twice the CPU's plus " \
+						"%.0e)" % (ecard, ecpu, LENS_CPU_TOL[dt])
+				print(line)
+				if not ok: failed.append(line)
+	err = relerr(ref64["iu2nu"], torch.from_numpy(g))
+	print("lensing guard iu2nu float64: the grid back from its 300 samples, rel err %.3e (bound %.0e)" % (err,
+		LENS_SOLVE_TOL))
+	if not err <= LENS_SOLVE_TOL: failed.append("lensing guard iu2nu: %g" % err)
+	# where the float64 card and CPU part: the torus synthesis, by ring
+	from pixell_tpu_torch import curvedsky, sht
+	Nt, Np = curvedsky._torus_shape(lmax, lmax)
+	th = curvedsky._torus_theta(Nt)
+	tor = {d: sht.synthesis(cmb.to(d), th, Np, phi0=0.0, lmax=lmax, mmax=lmax, spin=[0, 2],
+		map_dtype=torch.float64).cpu() for d in (DEV, "cpu")}
+	by_ring = ((tor[DEV] - tor["cpu"]).abs().amax((0, 2))/tor["cpu"].abs().max()).numpy()
+	print("lensing guard torus synthesis float64 (lmax %d, %d rings): card against CPU rel err %.3e; by ring, the "
+		"largest at theta %s: %s; without the 3 rings at each pole %.3e" % (lmax, len(th), by_ring.max(),
+		np.round(th[np.argsort(by_ring)[-4:]], 4), by_ring[np.argsort(by_ring)[-4:]], by_ring[3:-3].max()))
+	return failed
+
+
+def lens_config4_geometry():
+	from pixell_tpu_torch import enmap, utils
+	return enmap.geometry(pos=LENS_BOX*utils.degree, res=LENS_RES*utils.arcmin, proj="car")
+
+
+def lens_step_fn(phi, cmb, dtype):
+	"""Config 4's step: lens_map_curved of IQU in dec bands of LENS_DTHETA,
+	then boost_map(modulation=None)."""
+	from pixell_tpu_torch import lensing, aberration, utils
+	shape, wcs = lens_config4_geometry()
+	def step():
+		lensed = lensing.lens_map_curved(shape=(3,) + tuple(shape), wcs=wcs, phi_alm=phi, cmb_alm=cmb,
+			dtype=dtype, delta_theta=LENS_DTHETA*utils.degree)
+		return aberration.boost_map(lensed, modulation=None)
+	return step
+
+
+def lens_share(label, ms, nbytes, step_ms):
+	b = 1e3*nbytes/PEAK_BYTES
+	print("lensing %s: %.3f ms, bytes bound %.3f ms (%.2f %% of it; %.3f GB), %.1f %% of the step" % (label, ms,
+		b, 100*b/ms, nbytes/1e9, 100*ms/step_ms))
+
+
+def lens_stages(phi, cmb, dtype, step_ms):
+	"""The step's stages (median of 3, CUDA events): the gradient SHT, the
+	plan build (the torus synthesis alone beside it), the band loop (the
+	positions and offsets, the binning, the evaluation, the rotation), the
+	aberration (the Aberrator's construction, once per geometry; the cached
+	positions; the prefilter, the gather, the rotation) and the modulation;
+	the plain-torch stages against their bytes bounds."""
+	from pixell_tpu_torch import lensing, aberration, curvedsky, enmap, sht, interpol, utils
+	from pixell_tpu_torch.ops import nufft_cuda
+	tag = str(dtype)[6:]
+	shape, wcs = lens_config4_geometry()
+	shape = tuple(shape)
+	npix = shape[0]*shape[1]
+	esize = torch.finfo(dtype).bits//8
+	def stage(name, fn, nbytes=None):
+		med, lo, hi = flat_time(fn, 1, 3)
+		print("lensing config 4 %s: stage %s %.3f ms (median of 3; min %.3f, max %.3f)" % (tag, name, med, lo, hi))
+		if nbytes is not None: lens_share("config 4 %s %s" % (tag, name), med, nbytes, step_ms)
+		return med
+	zeros2 = enmap.zeros((2,) + shape, wcs, dtype, device=DEV)
+	stage("gradient SHT (deriv alm2map, %d rings)" % shape[0], lambda: curvedsky.alm2map(phi, zeros2, deriv=True))
+	grad = curvedsky.alm2map(phi, zeros2, deriv=True).data
+	Nt, Np = curvedsky._torus_shape(LENS_LMAX, LENS_LMAX)
+	stage("plan build (torus synthesis, FFT, fine grid)", lambda: curvedsky.SynthesisPlan(cmb, lmax=LENS_LMAX,
+		spin=[0, 2]))
+	stage("  of it the torus synthesis (%d rings x %d)" % (Nt//2 + 1, Np), lambda: sht.synthesis(cmb,
+		curvedsky._torus_theta(Nt), Np, phi0=0.0, lmax=LENS_LMAX, mmax=LENS_LMAX, spin=[0, 2], map_dtype=dtype))
+	splan = curvedsky.SynthesisPlan(cmb, lmax=LENS_LMAX, spin=[0, 2])
+	bsize = lensing._band_size(shape[0], wcs, LENS_DTHETA*utils.degree)
+	bands = list(lensing._bands(shape[0], bsize))
+	axes = lensing._pos_axes(shape, wcs, DEV)
+	stage("band loop (%d bands of %d rows)" % (len(bands), bsize), lambda: lensing._lens_bands(splan, grad, wcs,
+		bsize, True, True, True, dtype))
+	def positions():
+		return [lensing._band_points(grad[:, i1:i2], lensing._band_positions(wcs, shape, i1, i2, DEV, axes),
+			True, True) for i1, i2, _ in bands]
+	pts = positions()
+	npt = sum(p[0].shape[0] for p in pts)
+	# grad read, loc and cos / sin written, float64 positions
+	pos_ms = stage("  positions and offsets", positions, npt*(2*esize + 32))
+	up = splan.uplan
+	def binning():
+		nufft_cuda.clear_bins()
+		for loc, _ in pts: nufft_cuda.bins(loc, up.nfine, (2*np.pi, 2*np.pi), up.w, dtype)
+	stage("  binning (K12 keys, sort, subproblems)", binning)
+	stage("  evaluation (binning and K10)", lambda: [splan.eval(loc) for loc, _ in pts])
+	vals = [splan.eval(loc).reshape(3, -1, shape[1]) for loc, _ in pts]
+	rot_ms = stage("  rotation", lambda: [lensing._rotate_band(v, o) for v, (_, o) in zip(vals, pts)],
+		npt*6*esize)
+	lens_share("config 4 %s positions, offsets and rotation" % tag, pos_ms + rot_ms, npt*(8*esize + 32), step_ms)
+	del vals, pts, splan
+	torch.cuda.empty_cache()
+	lensed = lensing.lens_map_curved(shape=(3,) + shape, wcs=wcs, phi_alm=phi, cmb_alm=cmb, dtype=dtype,
+		delta_theta=LENS_DTHETA*utils.degree)
+	h0 = time.perf_counter()
+	ab = aberration.Aberrator(lensed.shape, wcs, device=DEV)
+	torch.cuda.synchronize()
+	print("lensing config 4 %s: Aberrator construction (once per geometry: positions, deflect and its angle "
+		"on the card in float64) %.3f ms" % (tag, 1e3*(time.perf_counter() - h0)))
+	stage("aberration (boost_map, modulate=False, operator cached)", lambda: aberration.boost_map(lensed,
+		modulation=None, modulate=False))
+	stage("  positions from the cache", lambda: ab._cached(dtype))
+	pix, c2, s2 = ab._cached(dtype)
+	data = lensed.data
+	stage("  prefilter", lambda: interpol._coefficients(data, "spline", 3, "cyclic", True), 6*esize*npix)
+	coef = interpol._coefficients(data, "spline", 3, "cyclic", True)[0]
+	stage("  gather", lambda: interpol.map_coordinates(coef, pix, order=3, border="cyclic", prefilter=False),
+		8*esize*npix)
+	res = interpol.map_coordinates(coef, pix, order=3, border="cyclic", prefilter=False)
+	def rotate():
+		q, u = res[-2], res[-1]
+		res[-2], res[-1] = c2*q - s2*u, s2*q + c2*u
+	stage("  rotation", rotate, 6*esize*npix)
+	stage("modulation (boost_map, aberrate=False)", lambda: aberration.boost_map(lensed, modulation=None,
+		aberrate=False), 7*esize*npix)
+	del lensed, coef, res, ab, grad, zeros2
+	torch.cuda.empty_cache()
+
+
+def lens_direct(phi, cmb, lensed, grad):
+	"""The float64 lensed map at LENS_NDIRECT seeded pixels against a direct
+	sum of cmb at their displaced positions (offset_by_grad on the CPU in
+	float64, the gradient the card's), Q and U rotated by the parallel
+	transport."""
+	from pixell_tpu_torch import lensing, enmap
+	shape, wcs = lens_config4_geometry()
+	rng = np.random.default_rng(53)
+	iy, ix = rng.integers(0, shape[0], LENS_NDIRECT), rng.integers(0, shape[1], LENS_NDIRECT)
+	dec, ra = enmap.posaxes(shape, wcs, safe=False)
+	pos = np.array([dec[iy], ra[ix]])
+	g = grad[:, iy, ix].cpu().numpy()
+	opos = lensing.offset_by_grad(pos, g, pol=True)
+	loc = torch.from_numpy(np.stack([np.pi/2 - opos[0], opos[1]], -1)).to(DEV)
+	want = direct_sum(cmb, loc, LENS_LMAX, (0, 2))
+	c2, s2 = (torch.from_numpy(x).to(DEV) for x in opos[2:])
+	want = torch.stack([want[0], c2*want[1] - s2*want[2], s2*want[1] + c2*want[2]])
+	err = relerr(lensed[:, iy, ix], want)
+	print("lensing config 4 float64: %d lensed pixels against a direct sum at their displaced positions rel err "
+		"%.3e (bound %.0e); deflection rms %.3f arcmin" % (LENS_NDIRECT, err, LENS_DIRECT_TOL,
+		float(grad.square().sum(0).mean().sqrt())/np.pi*180*60))
+	if not err <= LENS_DIRECT_TOL: raise RuntimeError("lensing direct sum %g" % err)
+
+
+def lens_config4(phi128, cmb128):
+	"""Config 4 in float32 and float64: guards, the step's time, stages,
+	busy share, launches and memory peak."""
+	from pixell_tpu_torch import lensing, utils
+	shape, wcs = lens_config4_geometry()
+	lensed = {}
+	for dtype in (torch.float32, torch.float64):
+		tag = str(dtype)[6:]
+		ct = torch.complex64 if dtype == torch.float32 else torch.complex128
+		phi, cmb = phi128.to(ct), cmb128.to(ct)
+		step = lens_step_fn(phi, cmb, dtype)
+		want = hp_entries(dtype, [("sym_synthesis", "full_synthesis"), "full_synthesis"], []) + ["u2nu_points",
+			"tile_keys"]
+		torch.cuda.synchronize()
+		torch.cuda.reset_peak_memory_stats()
+		out = lens_drive("config 4 step %s" % tag, step, want)
+		torch.cuda.synchronize()
+		peak = torch.cuda.max_memory_allocated()/2**30
+		ok = tuple(out.shape) == (3,) + tuple(shape) and out.dtype == dtype and bool(torch.isfinite(out.data).all())
+		print("lensing config 4 %s: %s IQU, lmax %d, bands of %.1f degrees, then boost_map: output %s %s; peak "
+			"device memory %.2f GiB (bound %d)" % (tag, tuple(shape), LENS_LMAX, LENS_DTHETA, tuple(out.shape),
+			out.dtype, peak, FLAT_MEM_GIB))
+		if not ok: raise RuntimeError("lensing config 4 %s: output not finite or of the wrong shape" % tag)
+		if not peak < FLAT_MEM_GIB: raise RuntimeError("lensing config 4 %s: peak %.2f GiB" % (tag, peak))
+		del out
+		med, lo, hi = flat_time(step, 1, 7)
+		print("lensing config 4 %s: %.3f ms a step (median of 7; min %.3f, max %.3f)" % (tag, med, lo, hi))
+		lens_stages(phi, cmb, dtype, med)
+		wall, busy = flat_profile(step, 16, "lensing config 4 %s step" % tag)
+		print("lensing config 4 %s: device busy %.1f %% of one profiled step" % (tag, 100*busy/wall))
+		out = lensing.lens_map_curved(shape=(3,) + tuple(shape), wcs=wcs, phi_alm=phi, cmb_alm=cmb, dtype=dtype,
+			delta_theta=LENS_DTHETA*utils.degree, output="la")
+		lensed[dtype] = out
+		del phi, cmb, step
+		torch.cuda.empty_cache()
+	(l32, _), (l64, grad64) = lensed[torch.float32], lensed[torch.float64]
+	err = relerr(l32.data, l64.data)
+	print("lensing config 4: float32 lensed map against float64 rel err %.3e (bound %.0e)" % (err, LENS_F32_TOL))
+	if not err <= LENS_F32_TOL: raise RuntimeError("lensing config 4 float32 against float64 %g" % err)
+	lens_direct(phi128, cmb128, l64.data, grad64.data)
+	del lensed, l32, l64, grad64
+	zero = lensing.lens_map_curved(shape=(3,) + tuple(shape), wcs=wcs, phi_alm=phi128*0, cmb_alm=cmb128,
+		delta_theta=LENS_DTHETA*utils.degree, output="lu")
+	err = relerr(zero[0].data, zero[1].data)
+	print("lensing config 4 float64: zero phi_alm, lensed against unlensed rel err %.3e (bound %.0e)" % (err,
+		LENS_ZERO_TOL))
+	if not err <= LENS_ZERO_TOL: raise RuntimeError("lensing zero phi %g" % err)
+	del zero
+	torch.cuda.empty_cache()
+
+
+def lensing_phase():
+	"""The guards on a small patch, then config 4 at full size in float32
+	and float64."""
+	from pixell_tpu_torch import lensing
+	h0 = time.perf_counter()
+	LENS_LAUNCHES.clear()
+	failed = lens_guards()
+	t0 = time.perf_counter()
+	phi, cmb = lensing.rand_alm(lens_spectra(LENS_LMAX), lmax=LENS_LMAX, seed=1, device=DEV)
+	torch.cuda.synchronize()
+	print("lensing config 4: rand_alm at lmax %d (host numpy draws, then on the card) %.1f s" % (LENS_LMAX,
+		time.perf_counter() - t0))
+	lens_config4(phi, cmb)
+	del phi, cmb
+	torch.cuda.empty_cache()
+	print("lensing launches in all its paths (each driven with the counts at 0): %s" % LENS_LAUNCHES)
+	print("lensing phase: %.1f s" % (time.perf_counter() - h0))
+	if failed: raise RuntimeError("lensing guards failed:\n" + "\n".join(failed))
+
+
 PHASES = ("k9", "kernels", "lstop", "slice", "adjoint", "blocked", "timing", "general", "flat", "interp",
-	"healpix")
+	"healpix", "lensing")
 EXTRA_PHASES = ("variants", "blkprobe")   # run only when named
 
 
@@ -4167,6 +4525,9 @@ def main():
 	if "healpix" in phases:
 		healpix_phase()
 		print("phase healpix done at %.1f s" % (time.perf_counter() - t_start))
+	if "lensing" in phases:
+		lensing_phase()
+		print("phase lensing done at %.1f s" % (time.perf_counter() - t_start))
 	if "variants" in phases:
 		variants_phase(parent)
 		print("phase variants done at %.1f s" % (time.perf_counter() - t_start))
@@ -4197,8 +4558,9 @@ def main():
 		rec["launches"] = sum(c["fma_peak"] for c in launches.values())
 	records = list(kernel_records.values()) + list(f64_records.values()) \
 		+ [r[0] for r in lstop_records.values()] + list(blk_records.values()) + gen_records + records
-	for rec in records:   # the launches of each record's kernel in the healpix paths
+	for rec in records:   # the launches of each record's kernel in the healpix and lensing paths
 		rec["healpix_launches"] = hp_count(rec)
+		rec["lensing_launches"] = hp_count(rec, LENS_LAUNCHES)
 	print(card_line())
 	print(json.dumps({"kernels": records}))
 	print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,8 +5,10 @@ Legendre and NUFFT point stages run in hand-written CUDA kernels for
 NVIDIA Hopper (csrc/) and in plain PyTorch on the CPU, the flat sky's
 FFTs, spin rotations and binned spectra on torch.fft, and the pixel-space
 reprojection (cut-outs, resolution changes, spline interpolation) in plain
-torch, and HEALPix with the CAR <-> HEALPix reprojection, thumbnails and
-coordinate transforms. Module names mirror pixell_tpu's.
+torch, HEALPix with the CAR <-> HEALPix reprojection, thumbnails and
+coordinate transforms, and lensing (flat and curved sky, the curved sky's
+point stage on the NUFFT kernels) with Doppler aberration. Module names
+mirror pixell_tpu's.
 """
 __version__ = "0.1.0"
 
@@ -25,3 +27,6 @@ from . import sites
 from . import coordinates
 from . import healpix
 from . import reproject
+from . import lensing
+from . import aberration
+from . import old_aberration

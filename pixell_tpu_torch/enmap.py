@@ -2121,11 +2121,12 @@ def _sky2pix_on_device(map, pos, safe):
 		and wcsutils.is_separable(map.wcs) and wcsutils.get_proj(map.wcs) in ("car", "cea", "mer")
 
 
-def _sky2pix_on(shape, wcs, pos):
+def _sky2pix_on(shape, wcs, pos, safe=True):
 	"""sky2pix(shape, wcs, pos, safe=1) of a tensor pos [{dec, ra}, ...] on
 	its device, in float64, for a separable CAR / CEA / MER geometry: the
 	host version's arithmetic (wcsutils.world2pix with the pole at its
-	place, then the rewind of x about the map's centre)."""
+	place, then the rewind of x about the map's centre; with safe=False
+	no rewind)."""
 	unit = get_unit(wcs)
 	pos = pos.to(torch.float64)
 	lon, lat = pos[1]/unit, pos[0]/unit
@@ -2136,7 +2137,8 @@ def _sky2pix_on(shape, wcs, pos):
 	else: v = torch.log(torch.tan((45 + lat/2)*wcsutils.deg2rad))*wcsutils.rad2deg
 	x = u/float(wcs.wcs.cdelt[0]) + float(wcs.wcs.crpix[0]) - 1
 	y = v/float(wcs.wcs.cdelt[1]) + float(wcs.wcs.crpix[1]) - 1
-	return torch.stack([y, utils.rewind(x, shape[-1]/2., abs(360./wcs.wcs.cdelt[0]))])
+	if safe: x = utils.rewind(x, shape[-1]/2., abs(360./wcs.wcs.cdelt[0]))
+	return torch.stack([y, x])
 
 
 # ---------------------------------------------------------------------------

@@ -15,10 +15,15 @@ build), the point stage, u2nu, nu2u (its transpose, written out: the
 spread kernel, then the fine-grid build taken back stage by stage, where
 the reference takes jax.linear_transpose), interpol_nufft and u2nu_plan.
 The NUFFT's point stage runs in the hand-written kernels of ops.nufft_cuda
-(K10, K11) on the card and in their plain PyTorch twins on the CPU. Not
-ported: iu2nu, inu2u, the nufft* aliases and shift_interp (lensing's); and
-the TPU-shaped _block_gather_eval with its GATHER_CHUNK, which the kernels
-make unneeded.
+(K10, K11) on the card and in their plain PyTorch twins on the CPU. The
+inverse NUFFTs iu2nu / inu2u (:784-832) and their aliases nufft, inufft,
+nufft_adjoint and inufft_adjoint (:834-877) solve the normal equations by
+ops.solvers.cg_solve on the data's device (the reference's _cg_solve :767
+runs in numpy on the host). shift_interp (:475) is one K10 launch at the
+displaced pixels. Not ported: the TPU-shaped _block_gather_eval with its
+GATHER_CHUNK, which the kernels make unneeded; shift_interp's roll-and-FMA
+form and _u2nu_rowband_core (:409), gather-free evaluations written for the
+TPU's slow gathers, since K10 reads each point's window itself.
 
 The functions that take arrays put numpy input on device="cuda" unless
 told otherwise; tensors stay where they are, and the result is on their
@@ -29,7 +34,7 @@ from __future__ import annotations
 import functools
 import numpy as np
 import torch
-from .ops import nufft_cuda
+from .ops import nufft_cuda, solvers
 
 
 def fft_len(n, direction="below", factors=None):
@@ -103,6 +108,7 @@ def _resample2_t(ft, shape):
 # ---------------------------------------------------------------------------
 # Transforms on torch.fft (pixell_tpu/fft.py:20-297)
 # ---------------------------------------------------------------------------
+engines = {}   # the reference's engine table, kept empty as there
 engine = "torch"
 
 def set_engine(name):
@@ -518,6 +524,127 @@ def interpol_nufft(map, inds, out=None, epsilon=None, nthread=None, nofft=False,
 	return res if out is None else out.copy_(res)
 
 
+def shift_interp(fmap, dy, dx, K, w, beta, *, device="cuda"):
+	"""fmap [..., ny, nx] interpolated by the ES kernel of width w and shape
+	beta at (y + dy[y, x], x + dx[y, x]), both axes periodic
+	(pixell_tpu.fft.shift_interp :475): one K10 launch with fmap as its own
+	fine grid, each output pixel a point. The reference builds the same sum
+	from whole-array rolls and multiply-adds, a form for the TPU's slow
+	gathers; K10 reads each point's w x w window itself, so the
+	displacement bound K is not needed (it is accepted and ignored), and a
+	w outside [2, min(16, ny, nx)] raises. The positions are float64
+	whatever fmap's dtype."""
+	fmap = _tensor(fmap, device)
+	ny, nx = fmap.shape[-2:]
+	dy = _tensor(dy, fmap.device).to(fmap.device, torch.float64)
+	dx = _tensor(dx, fmap.device).to(fmap.device, torch.float64)
+	yy = torch.arange(ny, dtype=torch.float64, device=fmap.device)[:, None] + dy
+	xx = torch.arange(nx, dtype=torch.float64, device=fmap.device)[None, :] + dx
+	coords = torch.stack(torch.broadcast_tensors(yy, xx), -1).reshape(-1, 2)
+	res = nufft_cuda.u2nu_points(fmap.reshape((-1, ny, nx)).contiguous(), coords, (ny, nx), int(w),
+		float(beta))
+	return res.reshape(fmap.shape)
+
+
+# ---------------------------------------------------------------------------
+# Inverse NUFFTs (pixell_tpu/fft.py:767-877): the uniform coefficients of
+# nonuniform samples (iu2nu) or the nonuniform values of a uniform grid
+# (inu2u), by conjugate gradients on the normal equations of the u2nu / nu2u
+# pair, on the data's device
+# ---------------------------------------------------------------------------
+def _cg_solve(A, b, epsilon=1e-6, maxiter=100):
+	"""x with A(x) = b by ops.solvers.cg_solve from x = 0, to a residual
+	norm below epsilon of |b| (pixell_tpu.fft._cg_solve :767); b = 0 gives
+	0, as the reference's floored start does."""
+	if not bool(b.any()): return torch.zeros_like(b)
+	return solvers.cg_solve(A, b, tol=epsilon, maxiter=maxiter)[0]
+
+
+def _inds_coords(inds, device):
+	"""The points of inds ([2, npt], or [npt, 2]) as float64 [npt, 2] on
+	device, built once so that the NUFFT calls of a solve share their bins."""
+	inds = _tensor(inds, device)
+	coords = inds.T if inds.ndim == 2 and inds.shape[0] == 2 else inds
+	return _coords64(coords, device)
+
+
+def iu2nu(a, inds, out=None, oshape=None, axes=None, periodicity=None, epsilon=None, nthread=None,
+		normalize=False, forward=False, *, device="cuda"):
+	"""The uniform Fourier grid of shape oshape (or out's) whose u2nu at the
+	points inds gives the samples a [npt] (pixell_tpu.fft.iu2nu :784): CG on
+	the normal equations nu2u(u2nu(g)) = nu2u(a), nu2u with the opposite
+	convention being u2nu's adjoint; CG's tolerance is epsilon, else 1e-6."""
+	a = _tensor(a, device)
+	per = 2*np.pi if periodicity is None else periodicity
+	if oshape is None and out is not None: oshape = out.shape
+	if oshape is None: raise ValueError("iu2nu needs oshape or out")
+	coords = _inds_coords(inds, a.device)
+	fwd = lambda g: u2nu(g.reshape(oshape), coords, forward=forward, epsilon=epsilon,
+		periodicity=per).reshape(-1)
+	adj = lambda v: nu2u(v, coords, oshape=oshape, forward=not forward, epsilon=epsilon,
+		periodicity=per).reshape(-1)
+	b = adj(a.reshape(-1).to(_cdtype(_floating(a).dtype)))
+	x = _cg_solve(lambda g: adj(fwd(g)), b, epsilon=(epsilon or 1e-6))
+	return _out(x.reshape(oshape), out)
+
+
+def inu2u(fa, inds, out=None, axes=None, periodicity=None, epsilon=None, nthread=None,
+		normalize=False, forward=False, complex=True, *, device="cuda"):
+	"""The nonuniform values at inds whose nu2u onto fa's grid gives fa
+	(pixell_tpu.fft.inu2u :811): CG on the normal equations
+	u2nu(nu2u(v)) = u2nu(fa)."""
+	fa = _tensor(fa, device)
+	per = 2*np.pi if periodicity is None else periodicity
+	coords = _inds_coords(inds, fa.device)
+	fwd = lambda v: nu2u(v, coords, oshape=fa.shape, forward=forward, epsilon=epsilon,
+		periodicity=per).reshape(-1)
+	adj = lambda g: u2nu(g.reshape(fa.shape), coords, forward=not forward, epsilon=epsilon,
+		periodicity=per).reshape(-1)
+	b = adj(fa.to(_cdtype(_floating(fa).dtype)))
+	return _out(_cg_solve(lambda v: adj(fwd(v)), b, epsilon=(epsilon or 1e-6)), out)
+
+
+def nufft(a, inds, out=None, oshape=None, axes=None, periodicity=None, epsilon=None, nthread=None,
+		normalize=False, flip=False, *, device="cuda"):
+	"""Nonuniform samples -> uniform Fourier coefficients: iu2nu with
+	forward=flip (pixell_tpu.fft.nufft :834)."""
+	return iu2nu(a, inds, out=out, oshape=oshape, axes=axes, periodicity=periodicity, epsilon=epsilon,
+		normalize=normalize, forward=flip, device=device)
+
+
+def inufft(fa, inds, out=None, axes=None, periodicity=None, epsilon=None, nthread=None,
+		normalize=False, flip=False, complex=True, op=None, *, device="cuda"):
+	"""Uniform Fourier coefficients -> nonuniform samples: u2nu with
+	forward=flip, its real part unless complex (pixell_tpu.fft.inufft
+	:842); op is accepted and ignored, as in the reference."""
+	fa = _tensor(fa, device)
+	per = 2*np.pi if periodicity is None else periodicity
+	res = u2nu(fa, _inds_coords(inds, fa.device), forward=flip, epsilon=epsilon, periodicity=per)
+	if not complex: res = res.real
+	return _out(res, out)
+
+
+def nufft_adjoint(a, inds, out=None, oshape=None, axes=None, periodicity=None, epsilon=None,
+		nthread=None, normalize=False, flip=False, *, device="cuda"):
+	"""The adjoint NUFFT, gridding of nonuniform samples: nu2u with
+	forward=not flip onto oshape (or out's shape) (pixell_tpu.fft.
+	nufft_adjoint :857)."""
+	a = _tensor(a, device)
+	per = 2*np.pi if periodicity is None else periodicity
+	if oshape is None and out is not None: oshape = out.shape
+	res = nu2u(a, _inds_coords(inds, a.device), oshape=oshape, forward=not flip, epsilon=epsilon,
+		periodicity=per)
+	return _out(res, out)
+
+
+def inufft_adjoint(fa, inds, out=None, axes=None, periodicity=None, epsilon=None, nthread=None,
+		normalize=False, flip=False, complex=True, *, device="cuda"):
+	"""The inverse adjoint NUFFT: inu2u with forward=not flip
+	(pixell_tpu.fft.inufft_adjoint :871)."""
+	return inu2u(fa, inds, out=out, axes=axes, periodicity=periodicity, epsilon=epsilon,
+		normalize=normalize, forward=not flip, complex=complex, device=device)
+
+
 class u2nu_plan:
 	"""The type-2 NUFFT of fixed Fourier fields fa[..., gshape] at point
 	sets given later (pixell_tpu.fft.u2nu_plan :878): the deconvolved,
@@ -602,6 +729,8 @@ class numpy_FFTW:
 	def __call__(self, normalise_idft=False):
 		if self.direction == "FFTW_FORWARD": return fft(self.a, self.b, axes=self.axes)
 		return ifft(self.a, self.b, axes=self.axes, normalize=normalise_idft)
+
+ducc_FFTW = numpy_FFTW
 
 
 def fft_flat(tod, ft, nthread=1, axes=[-1], flags=None, _direction="FFTW_FORWARD"):

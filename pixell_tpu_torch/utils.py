@@ -1,6 +1,7 @@
 """Constants and small helpers (counterpart of pixell_tpu/utils.py).
 
-Only what the ported modules call: the angle constants, nint,
+Only what the ported modules call: the angle constants, the physical
+constants T_cmb, c, h and k (aberration's Doppler modulation), nint,
 rewind/unwind for the pixel<->sky conversions, eigpow for rand_alm,
 spec2flat and array_ops, the Minres solver of curvedsky.minres_inverse,
 and for the flat sky split_slice / expand_slice (ndmap indexing), nditer,
@@ -19,6 +20,10 @@ import torch
 
 degree = np.pi/180
 arcmin = degree/60
+T_cmb = 2.7255          # K
+c = 299792458.0         # m/s
+h = 6.62607004e-34      # J s
+k = 1.38064853e-23      # J/K
 
 
 def nint(a):

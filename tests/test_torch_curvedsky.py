@@ -139,7 +139,8 @@ def test_unported_options_raise():
 def test_import_loads_no_jax():
 	"""The port imports torch and never jax or pixell_tpu."""
 	code = ("import sys, pixell_tpu_torch, pixell_tpu_torch.curvedsky, "
-		"pixell_tpu_torch.ops.sht_cuda, pixell_tpu_torch.ops.fma_peak; "
+		"pixell_tpu_torch.ops.sht_cuda, pixell_tpu_torch.ops.fma_peak, pixell_tpu_torch.lensing, "
+		"pixell_tpu_torch.aberration, pixell_tpu_torch.old_aberration, pixell_tpu_torch.ops.solvers; "
 		"bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
 		"or m == 'pixell_tpu' or m.startswith('pixell_tpu.')]; "
 		"print(bad); sys.exit(1 if bad else 0)")

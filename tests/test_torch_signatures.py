@@ -1,7 +1,10 @@
 """The public signatures of pixell_tpu_torch.curvedsky, .sht, .enmap,
 .fft, .wcsutils, .powspec, .interpol, .resample, .array_ops, .healpix,
-.reproject, .coordinates and .sites against pixell_tpu's (and that these
-four have every public name of the reference's modules): every public name both modules define takes the reference's
+.reproject, .coordinates, .sites, .lensing, .aberration, .old_aberration
+and .ops.solvers against pixell_tpu's (and that healpix, reproject,
+coordinates and sites have every public name of the reference's modules,
+and fft, lensing, aberration, old_aberration and ops.solvers every public
+function and class): every public name both modules define takes the reference's
 parameters, by name and in order, and the port's own extras (device=,
 leg_dtype=) come after them and are keyword-only, so a call written for
 the reference means the same in the port. Then the calls themselves: map2alm
@@ -20,9 +23,11 @@ torch = pytest.importorskip("torch")
 from pixell_tpu import curvedsky as jcurvedsky, sht as jsht, enmap as jenmap, fft as jfft, \
 	wcsutils as jwcsutils, powspec as jpowspec, interpol as jinterpol, resample as jresample, \
 	array_ops as jarray_ops, healpix as jhealpix, reproject as jreproject, coordinates as jcoordinates, \
-	sites as jsites
+	sites as jsites, lensing as jlensing, aberration as jaberration, old_aberration as jold_aberration
+from pixell_tpu.ops import solvers as jsolvers
 from pixell_tpu_torch import curvedsky, sht, enmap, fft, wcsutils, powspec, interpol, resample, array_ops, \
-	healpix, reproject, coordinates, sites
+	healpix, reproject, coordinates, sites, lensing, aberration, old_aberration
+from pixell_tpu_torch.ops import solvers
 
 LMAX = 16
 SHAPE = (20, 40)
@@ -30,7 +35,8 @@ PAIRS = {"curvedsky": (jcurvedsky, curvedsky), "sht": (jsht, sht), "enmap": (jen
 	"fft": (jfft, fft), "wcsutils": (jwcsutils, wcsutils), "powspec": (jpowspec, powspec),
 	"interpol": (jinterpol, interpol), "resample": (jresample, resample), "array_ops": (jarray_ops, array_ops),
 	"healpix": (jhealpix, healpix), "reproject": (jreproject, reproject), "coordinates": (jcoordinates, coordinates),
-	"sites": (jsites, sites)}
+	"sites": (jsites, sites), "lensing": (jlensing, lensing), "aberration": (jaberration, aberration),
+	"old_aberration": (jold_aberration, old_aberration), "solvers": (jsolvers, solvers)}
 
 
 def shared_names():
@@ -81,7 +87,10 @@ def test_the_check_covers_the_entry_points():
 		"crop", "union_geometry", "geometry2", "thumbnail_geometry", "spec2flat_corr", "Padtiler.read",
 		"ip_linear", "build", "alm2map_healpix", "map2alm_healpix", "get_ring_info_healpix", "prepare_healmap",
 		"fill_gauss", "rand_alm_healpy", "to_healpix", "from_healpix", "ndmap.to_healpix", "map2healpix",
-		"healpix2map", "thumbnails", "transform", "get_interpol", "positions", "expand_site"} <= names
+		"healpix2map", "thumbnails", "transform", "get_interpol", "positions", "expand_site",
+		"lens_map_curved", "lens_map", "offset_by_grad", "boost_map", "Aberrator", "Aberrator.aberrate",
+		"Modulator.modulate", "remap", "apply_aberration", "cg_solve", "jacobi_refine", "iu2nu", "inu2u",
+		"nufft", "inufft", "nufft_adjoint", "inufft_adjoint", "shift_interp"} <= names
 
 
 @pytest.mark.parametrize("mod", ["healpix", "reproject", "coordinates", "sites"])
@@ -92,6 +101,19 @@ def test_every_public_name(mod):
 	public = lambda m: {n for n in dir(m) if not n.startswith("_") and not inspect.ismodule(getattr(m, n))
 		and getattr(getattr(m, n), "__module__", m.__name__) == m.__name__}
 	assert public(ref) - set(dir(port)) == set()
+
+
+@pytest.mark.parametrize("mod", ["fft", "lensing", "aberration", "old_aberration", "solvers"])
+def test_every_public_callable(mod):
+	"""fft, lensing, aberration, old_aberration and ops.solvers have every
+	public function and class of the reference's modules. (Of the
+	reference's constants, fft.GATHER_CHUNK and lensing.ROWBAND_MAX_NXS
+	size TPU workarounds that are not ported.)"""
+	ref, port = PAIRS[mod]
+	public = {n for n in dir(ref) if not n.startswith("_") and (inspect.isfunction(getattr(ref, n))
+		or inspect.isclass(getattr(ref, n))) and getattr(ref, n).__module__ == ref.__name__}
+	assert public - set(dir(port)) == set()
+	assert all(callable(getattr(port, n)) for n in public)
 
 
 def geometry():
