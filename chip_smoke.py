@@ -10,7 +10,7 @@ and nufft.cu, all compilers started together) and prints each kernel's
 registers and spills (every float64 instantiation of the bulk kernels and
 all twelve of K10 / K11 / K12 must be built, and none of them may spill),
 then runs the phases below (all of them with no arguments; --phases with a
-choice of k9,kernels,lstop,slice,adjoint,blocked,timing,general,flat,interp,healpix,lensing runs
+choice of k9,kernels,lstop,slice,adjoint,blocked,timing,general,flat,interp,healpix,lensing,config5 runs
 those alone, for work on one phase, and gives no verdict; the phases
 "variants", 6. below, and "blkprobe" run only when named). With
 --parent DIR, a directory holding a parent tree's legendre.cu, blockleg.cu
@@ -72,9 +72,10 @@ K10 / K11 (below):
    K1 on the map's northern rings at lmax 750 and 2000, K2 on the 756
    northern upsampled rings at lmax 750, K4 on the first 2048-ring chunk of
    the 4032 upsampled rings and K3 on all 4032 at lmax 2000, K3 / K4 in
-   wigner mode on 900 / 1512 rings at lmax 750), in every mode against the
-   float64 plain version (1e-11 / 1e-10), at lmax 750 with 2 and with 4
-   coefficient columns (every float64 instantiation), and in scalar and
+   wigner mode on 900 / 1512 rings at lmax 750) against the float64 plain
+   version (1e-11 / 1e-10), at lmax 750 in every mode with 2 and with 4
+   coefficient columns (every float64 instantiation), at lmax 2000 in the
+   timed modes, and in scalar and
    spin2 (wigner) with its time, the plain version's, the bound over the
    FP64 peak and beside it the bound with the accumulation on the FP64
    tensor cores (dmma_bound), the float64 torch.bmm yardstick and its
@@ -357,6 +358,36 @@ K10 / K11 (below):
    times the NUFFT's epsilon). The
    kernels JSON line gives each kernel's launches in these paths
    ("lensing_launches").
+12. config5: BASELINE config 5 (point sources, then wavelets,
+   scripts/benchmark_baseline.py:172-236) through pixell_tpu_torch.pointsrcs,
+   .uharm, .wavelets and .multimap: the wavelet scales' SHTs on K1-K4 (and
+   in float32 their near-pole passes), the painting in plain torch. Guard
+   first: the whole chain in float64 at lmax 64 with 200 sources on the
+   70 x 140 F1 grid, the card against the same calls on CPU tensors (the
+   source map, every scale and the reconstruction within 1e-12 of the
+   largest value). Then config 5 at full size, nothing cut: the 10080 x
+   20160 F1 map (the smallest with >= lmax + 2 rings and a 2357-smooth
+   column count), 10 000 sources from default_rng(0) (dec uniform in +-1.2
+   rad, RA in +-pi, amplitudes 0.5-2), a 2' Gaussian on 1000 radii out to
+   30', sim_objects -> WaveletTransform(UHT(mode="curved", lmax=10000),
+   ButterTrim(step=2)).map2wave -> wave2map (15 scales), in float32: the
+   step's ms (CUDA events, median of 3, min, max) and its stages (srcsim,
+   map2wave, wave2map), its launches (driven with the counts at 0; K1-K4
+   and the near-pole passes must launch), the memory peak (under 70 GiB),
+   the busy share and top ops of one profiled step (no host <-> device copy
+   above 1 MB), sim_objects against its bytes bound, K2 / K4's partial
+   planes (zero-fill and sum, replayed at the step's shapes) as a share of
+   the step; one float64 step (timed once, launches, peak); in each dtype
+   K3 and K4 at lmax 10000 against an independent reference: a sparse alm
+   (58 (l, m) pairs up to l = m = 10000) synthesised by alm2map onto the
+   map's rings and held on 252 of them against a numpy direct sum of the
+   textbook Legendre recurrence, then analysed back by map2alm and held
+   against the sparse alm over the whole triangle (1e-9 in float64, 5e-3
+   in float32); the SHT table caches' resident bytes against their budget
+   (ops/tablecache.py); the float64 identity wave2map(map2wave(m)) =
+   harm2map(sum_i k_i^2 map2harm(m)) at lmax 10000 (1e-9) and the float32
+   reconstruction against the float64 one (5e-3). The kernels JSON line
+   gives each kernel's launches in these paths ("config5_launches").
 
 It prints the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and yardstick, and as the last line
@@ -865,8 +896,8 @@ def kernel_phase(parent=None):
 			C = ncoef(mode)
 			x = torch.from_numpy(kernel_input(name, mode, lmax, mmax, len(theta), i)).to(dev)
 			g64 = sht_cuda.geom(theta, mmax, torch.float64, dev, s)
-			ref = plain(x, g64, lmax, mode)
-			torch.cuda.synchronize()
+			ref, plain_ms = timed_once(lambda: plain(x, g64, lmax, mode))
+			plain_ms = {torch.float64: plain_ms}   # the float64 plain call is args' own in float64
 			# the float32 launches of K1, K3 and K4 at the main path's shapes carry
 			# the dead-tile table, as on the main path
 			dead = None
@@ -894,7 +925,7 @@ def kernel_phase(parent=None):
 					tol, perr = (1e-11 if mode == "scalar" else 1e-10), 0.0
 					ok = err <= tol
 				else:
-					p = plain(*args)
+					p, plain_ms[dt] = timed_once(lambda: plain(*args))
 					perr = relerr(p, ref)
 					tol = 2*perr + 1e-6
 					ok = err <= tol
@@ -936,7 +967,7 @@ def kernel_phase(parent=None):
 				"replaces": REPLACES[name], "mode": mode,
 				"max_abs_err": float((k.double() - ref).abs().max()),
 				"ms": ms, "ms_from": how, "call_ms": cuda_ms(run, 20),
-				"plain_ms": timed_once(lambda: plain(*args))[1],
+				"plain_ms": plain_ms[main_dt],
 				"bound_ms": b_ms, "bound_by": b_by,
 				"library_ms": lib_ms, "library_rel_err": lib_err,
 				"shape": "lmax %d, nm %d, nt %d, C %d, %s%s" % (lmax, mmax + 1, nt, C,
@@ -987,8 +1018,9 @@ def f64_row_cases():
 	on the map's 900 and the 1512 upsampled rings at lmax 750. Every mode
 	the path can give the kernel there is held, at lmax 750 at C = 2 and 4
 	(the column chunks of the wrappers: every float64 instantiation), at
-	lmax 2000 at ncoef's C; scalar and spin2 (wigner for the wigner rows)
-	are timed, at ncoef's C."""
+	lmax 2000 only the timed modes, at ncoef's C (the other modes are held
+	at lmax 750); scalar and spin2 (wigner for the wigner rows) are timed,
+	at ncoef's C."""
 	from pixell_tpu_torch import sht, fft
 	from pixell_tpu_torch.ops import sht_cuda
 	up = lambda lmax: sht.ring_theta("F1", fft.fft_len(2*lmax + 3, direction="above"))
@@ -1001,9 +1033,9 @@ def f64_row_cases():
 		("sym_analysis", 750, up(750)[:sht_cuda.detect_sym(up(750))], both(MODES[:4]), timed),
 		("full_synthesis", 750, m750, both(MODES), ("wigner",)),
 		("full_analysis", 750, up(750), both(MODES), ("wigner",)),
-		("sym_synthesis", 2000, m2000[:sht_cuda.detect_sym(m2000)], one(MODES[:4]), timed),
-		("full_analysis", 2000, up(2000)[:sht_cuda.TCHUNK], one(MODES), timed),
-		("full_synthesis", 2000, up(2000), one(MODES), timed),
+		("sym_synthesis", 2000, m2000[:sht_cuda.detect_sym(m2000)], one(timed), timed),
+		("full_analysis", 2000, up(2000)[:sht_cuda.TCHUNK], one(timed), timed),
+		("full_synthesis", 2000, up(2000), one(timed), timed),
 	]
 
 
@@ -4421,8 +4453,387 @@ def lensing_phase():
 	if failed: raise RuntimeError("lensing guards failed:\n" + "\n".join(failed))
 
 
+# ---------------------------------------------------------------------------
+# 12. config5: BASELINE config 5 (point sources, then wavelets)
+# ---------------------------------------------------------------------------
+C5_LMAX = 10000            # scripts/benchmark_baseline.py:172-236
+C5_NSRC = 10_000
+C5_GUARD = (64, 200)       # lmax and sources of the card-against-CPU guard, on the smallest F1 grid
+C5_ID_TOL = 1e-9           # f64 wave2map(map2wave(m)) against harm2map(sum_i k_i^2 map2harm(m)), of the largest value
+C5_F32_TOL = 5e-3          # the f32 reconstruction against the f64 one (config 4's bound)
+C5_CPU_TOL = 1e-12         # card f64 against CPU f64, the whole chain at C5_GUARD
+C5_LAUNCHES = {}           # launches of the config-5 paths, by (kernel, mode, dtype)
+
+
+def c5_geometry(lmax):
+	"""The smallest full-sky F1 grid with at least lmax + 2 rings and a
+	2357-smooth column count (scripts/benchmark_baseline.py:180-185)."""
+	from pixell_tpu_torch import enmap, utils
+	from pixell_tpu_torch import fft as enfft
+	ny = lmax + 2
+	while enfft.fft_len(2*ny, "above") != 2*ny: ny += 1
+	return enmap.fullsky_geometry(res=180.0*60/ny*utils.arcmin, variant="fejer1")
+
+
+def c5_catalogue(nsrc):
+	"""Config 5's sources: dec uniform in +-1.2 rad, RA in +-pi, amplitudes
+	0.5-2 (float32), a 2' Gaussian profile on 1000 radii out to 30'."""
+	from pixell_tpu_torch import utils
+	rng = np.random.default_rng(0)
+	poss = np.array([rng.uniform(-1.2, 1.2, nsrc), rng.uniform(-np.pi, np.pi, nsrc)])
+	amps = rng.uniform(0.5, 2.0, nsrc).astype(np.float32)
+	r = np.linspace(0, 30*utils.arcmin, 1000)
+	return poss, amps, (r, np.exp(-0.5*(r/(2*utils.arcmin))**2))
+
+
+def c5_transform(lmax, device):
+	from pixell_tpu_torch import uharm, wavelets
+	shape, wcs = c5_geometry(lmax)
+	uht = uharm.UHT(shape, wcs, mode="curved", lmax=lmax, device=device)
+	return wavelets.WaveletTransform(uht, basis=wavelets.ButterTrim(step=2))
+
+
+def c5_step(wt, cat, dtype, device, marks=None):
+	"""sim_objects -> map2wave -> wave2map: (wave, rec); with marks (a list),
+	a recorded CUDA event at each stage boundary."""
+	from pixell_tpu_torch import pointsrcs
+	poss, amps, prof = cat
+	def mark():
+		if marks is None: return
+		e = torch.cuda.Event(enable_timing=True)
+		e.record()
+		marks.append(e)
+	mark()
+	omap = pointsrcs.sim_objects(wt.shape, wt.wcs, poss, amps, prof, dtype=dtype, device=device)
+	mark()
+	wave = wt.map2wave(omap)
+	mark()
+	del omap   # freed before the reconstruction, as the reference's loop does
+	rec = wt.wave2map(wave)
+	mark()
+	return wave, rec
+
+
+def c5_drive(label, fn, dtype, sym=True, full=True):
+	"""fn driven with the counts at 0 just before and read just after, into
+	C5_LAUNCHES; in dtype, K1 and K2 (sym) and K3 and K4 (full), and in
+	float32 the near-pole passes, must have launched."""
+	kinds = ["sym"]*sym + ["full"]*full
+	synth, anal = [k + "_synthesis" for k in kinds], [k + "_analysis" for k in kinds]
+	return hp_drive(label, fn, hp_entries(dtype, synth, anal), C5_LAUNCHES, "config5")
+
+
+def c5_glue(wt, dtype):
+	"""K2 / K4's partial planes in one step: every analysis of the step (the
+	map's in map2wave, each scale's in wave2map) zero-fills [nplanes, nl, nm,
+	2] a chunk launch and sums it with torch (ops/sht_cuda.py
+	_analysis_launch); replayed here at the same shapes with CUDA events.
+	(ms, bytes moved, the largest plane set in bytes)."""
+	from pixell_tpu_torch import sht, curvedsky
+	from pixell_tpu_torch.ops import sht_cuda
+	esize = torch.finfo(dtype).bits//8
+	shapes = {}
+	for u in [wt.uht] + wt.uhts:
+		lmax = u.lmax
+		theta = sht.ring_theta("fejer1", curvedsky._upsampled_rings(None, lmax, u.shape[0]))
+		if dtype == torch.float32:   # the near-pole rings go to the float64 pass
+			nn, ns, _, _ = sht_cuda._polar_split(theta, lmax, lmax)
+			if nn + ns < len(theta) and (nn or ns): theta = theta[nn:len(theta)-ns]
+		nh = sht_cuda.detect_sym(theta)
+		rings = nh if nh is not None else len(theta)
+		for i0 in range(0, rings, sht_cuda.TCHUNK):
+			n = min(sht_cuda.TCHUNK, rings - i0)
+			key = (sht_cuda._planes(-(-n//sht_cuda.TILE_T)), lmax + 1, lmax + 1)
+			shapes[key] = shapes.get(key, 0) + 1
+	ms = nbytes = 0
+	for (P, nl, nm), count in shapes.items():
+		ms += count*cuda_ms(lambda: torch.zeros((P, nl, nm, 2), dtype=dtype, device=DEV).sum(0), 2)
+		nbytes += count*(2*P + 1)*nl*nm*2*esize
+	return ms, nbytes, max(P*nl*nm*2*esize for P, nl, nm in shapes)
+
+
+def c5_guard_cpu():
+	"""The whole chain in float64 on the card against CPU tensors, at
+	C5_GUARD's lmax and sources on the smallest F1 grid: the source map,
+	every scale and the reconstruction within C5_CPU_TOL."""
+	lmax, nsrc = C5_GUARD
+	cat = c5_catalogue(nsrc)
+	outs = {}
+	for dev in (DEV, "cpu"):
+		wt = c5_transform(lmax, dev)
+		from pixell_tpu_torch import pointsrcs
+		m = pointsrcs.sim_objects(wt.shape, wt.wcs, *cat, dtype=torch.float64, device=dev)
+		chain = lambda: (lambda w: (w, wt.wave2map(w)))(wt.map2wave(m))
+		# the guard's small ring sets are all symmetric: K1 and K2 alone
+		wave, rec = chain() if dev == "cpu" else c5_drive("lmax-%d guard" % lmax, chain, torch.float64,
+			full=False)
+		outs[dev] = [m.data.cpu()] + [w.data.cpu() for w in wave.maps] + [rec.data.cpu()]
+	errs = [relerr(a, b) for a, b in zip(outs[DEV], outs["cpu"])]
+	print("config5 guard (lmax %d, %d sources, %s map, %d scales): card against CPU float64 rel err: source map "
+		"%.3e, scales max %.3e, reconstruction %.3e (bound %.0e)" % (lmax, nsrc, tuple(outs["cpu"][0].shape),
+		len(errs) - 2, errs[0], max(errs[1:-1]), errs[-1], C5_CPU_TOL))
+	return [] if max(errs) <= C5_CPU_TOL else ["config5 card against CPU %g" % max(errs)]
+
+
+C5_SPARSE_TOL = {torch.float64: 1e-9, torch.float32: C5_F32_TOL}   # of the largest value
+C5_SPARSE_ROWS = 256       # rings of the config-5 map held against the direct sum
+
+
+def c5_sparse_pairs(lmax):
+	"""(l, m) pairs across the whole triangle: m from 0 to lmax (powers of
+	two and their neighbours, the last m rows), each at l = m, m + 1, the
+	middle of its column and lmax, so that K3 and K4 reach the largest l, m
+	and plane offsets."""
+	ms = sorted({m for m in (0, 1, 2, 3, 17, 255, 256, 1023, 2048, 3001, 4095, 6000, 8191, lmax - 2, lmax - 1,
+		lmax) if 0 <= m <= lmax})
+	return sorted({(l, m) for m in ms for l in (m, m + 1, (m + lmax)//2, lmax) if l <= lmax})
+
+
+def c5_lambda(theta, pairs, lmax):
+	"""lambda_lm(theta) (the orthonormal associated Legendre functions with
+	the Condon-Shortley phase) for the (l, m) in pairs: {(l, m): [ntheta]}
+	numpy float64, by the textbook three-term recurrence in l up from
+	lambda_mm, every m of pairs at once, each value kept as mantissa and
+	log scale so that lambda_mm = O(sin^m theta) does not underflow. It
+	shares no code with the kernels or the plain versions."""
+	ms = np.array(sorted({m for _, m in pairs}), dtype=float)[:, None]
+	want = {}
+	for l, m in pairs: want.setdefault(l, []).append(m)
+	x, ls = np.cos(theta)[None, :], np.log(np.sin(theta))[None, :]
+	# log lambda_mm = log sqrt((2m+1)/4pi prod_k=1^m (2k-1)/(2k)) + m log sin theta
+	lk = np.concatenate([[0.0], np.cumsum(np.log1p(-0.5/np.arange(1, lmax + 1)))])
+	scale = 0.5*np.log((2*ms + 1)/(4*np.pi)) + 0.5*lk[ms.astype(int)] + ms*ls
+	sign = np.where(ms % 2 == 1, -1.0, 1.0)
+	prev, cur = np.zeros_like(scale), np.ones_like(scale)
+	out = {}
+	mi = {int(m): i for i, m in enumerate(ms[:, 0])}
+	big = 1e150
+	for l in range(int(ms[0, 0]), lmax + 1):
+		# cur holds lambda_lm for the rows with m <= l; start each row at l = m
+		start = ms[:, 0] == l
+		if start.any(): prev[start], cur[start] = 0.0, 1.0
+		for m in want.get(l, ()):
+			i = mi[m]
+			with np.errstate(divide="ignore"):
+				out[(l, m)] = sign[i]*np.sign(cur[i])*np.exp(scale[i] + np.log(np.abs(cur[i])))
+		lf = float(l + 1)
+		live = ms <= l
+		a = np.sqrt((4*lf*lf - 1)/np.maximum(lf*lf - ms*ms, 1))
+		b = np.sqrt(np.maximum(l*l - ms*ms, 0)/(4.0*l*l - 1)) if l > 0 else np.zeros_like(ms)
+		nxt = np.where(live, a*(x*cur - b*prev), cur)
+		prev, cur = np.where(live, cur, prev), nxt
+		hi = np.abs(cur) > big
+		if hi.any():
+			cur, prev, scale = np.where(hi, cur/big, cur), np.where(hi, prev/big, prev), scale + hi*np.log(big)
+	return out
+
+
+def c5_sparse(shape, wcs, lmax, rows, pairs, seed=7):
+	"""(alm {(l, m): complex}, rows of the map they synthesise [len(rows),
+	nx] numpy float64): the direct sum sum_lm a_lm lambda_lm(theta)
+	e^(i m phi), real part, m > 0 twice, on the given rows of the full-sky
+	F1 grid (shape, wcs)."""
+	from pixell_tpu_torch import curvedsky, enmap
+	rng = np.random.default_rng(seed)
+	a = {p: complex(rng.uniform(0.5, 2.0), 0 if p[1] == 0 else rng.uniform(-2.0, 2.0)) for p in pairs}
+	ny, nx = shape[-2:]
+	# the F1 rings by their formula (rows from the south pole); the columns'
+	# phases from the first column's phi0 that the transform takes from the
+	# wcs (pix2sky rounds the wcs to ~1e-12 rad, which m = 10000 would see)
+	dec0 = float(np.asarray(enmap.pix2sky(shape, wcs, np.array([0.0, 0.0])))[0])
+	if abs(dec0 + np.pi/2 - np.pi/(2*ny)) > 1e-9: raise ValueError("not a full-sky F1 grid")
+	theta = np.pi - np.pi*(np.asarray(rows) + 0.5)/ny
+	minfo = curvedsky.analyse_geometry(shape, wcs)
+	k = np.arange(nx)[::-1] if minfo.flip[1] else np.arange(nx)
+	ra = minfo.phi0 + 2*np.pi*k/minfo.nphi
+	lam = c5_lambda(theta, pairs, lmax)
+	out = np.zeros((len(rows), nx))
+	for m in sorted({m for _, m in pairs}):
+		F = sum(a[(l, mm)]*lam[(l, mm)] for l, mm in pairs if mm == m)
+		out += (1 if m == 0 else 2)*(F[:, None]*np.exp(1j*m*ra)[None, :]).real
+	return a, out
+
+
+def c5_sparse_rows(ny):
+	"""C5_SPARSE_ROWS rings of ny: both polar caps, a dense band at the
+	equator, the rest spread evenly."""
+	band = np.arange(ny//2 - 48, ny//2 + 48)
+	caps = np.r_[np.arange(8), np.arange(ny - 8, ny)]
+	rest = np.linspace(0, ny - 1, C5_SPARSE_ROWS - len(band) - len(caps)).astype(int)
+	rows = np.unique(np.r_[caps, band, rest])
+	return rows[:C5_SPARSE_ROWS]
+
+
+def c5_sparse_check(shape, wcs, lmax, dtype, device, ref):
+	"""K3 and K4 at config 5's size against an independent reference: the
+	sparse alm of ref (c5_sparse) synthesised by alm2map onto the map's
+	rings, held on ref's rows against the direct sum, then analysed back by
+	map2alm, every (l, m) of the triangle held against the sparse alm;
+	both within C5_SPARSE_TOL of the largest value. Returns (synthesis err,
+	analysis err)."""
+	from pixell_tpu_torch import curvedsky, enmap, sht
+	(a, rows, direct) = ref
+	cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+	alm = torch.zeros(sht.nalm(lmax), dtype=cdt, device=device)
+	idx = torch.tensor([sht.lm2ind(lmax, l, m) for l, m in a], device=device)
+	alm[idx] = torch.tensor(list(a.values()), dtype=cdt, device=device)
+	m = curvedsky.alm2map(alm, enmap.zeros(shape, wcs, dtype, device=device), spin=0)
+	syn = relerr(torch.from_numpy(direct), m.data[torch.as_tensor(rows, device=device)].cpu())
+	back = curvedsky.map2alm(m, lmax=lmax, spin=0)
+	del m
+	ana = relerr(back, alm)
+	return syn, ana
+
+
+def c5_timed(wt, cat, dtype, nrep):
+	"""(step, [srcsim, map2wave, wave2map]) ms of nrep steps (the tables
+	built and cached by an earlier step), CUDA events; each step's outputs
+	freed before the next."""
+	wave = rec = None
+	steps, stages = [], []
+	for it in range(nrep):
+		wave = rec = None
+		marks = []
+		wave, rec = c5_step(wt, cat, dtype, DEV, marks)
+		torch.cuda.synchronize()
+		st = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]
+		stages.append(st)
+		steps.append(marks[0].elapsed_time(marks[-1]))
+	del wave, rec
+	return steps, stages
+
+
+def c5_paint(wt, cat, dtype, step_ms):
+	"""sim_objects alone (median of 3) against its bytes bound: the map
+	written once, the cell tables and sources read once."""
+	from pixell_tpu_torch import pointsrcs
+	poss, amps, prof = cat
+	fn = lambda: pointsrcs.sim_objects(wt.shape, wt.wcs, poss, amps, prof, dtype=dtype, device=DEV)
+	med, lo, hi = flat_time(fn, 1, 3)
+	esize = torch.finfo(dtype).bits//8
+	npix = int(np.prod(wt.shape))
+	nbytes = npix*esize + C5_NSRC*(3*esize + 8) + 2*1000*esize
+	b = 1e3*nbytes/PEAK_BYTES
+	print("config5 %s: sim_objects (%d sources; cells of %d px, host assignment, plain-torch paint) %.3f ms "
+		"(median of 3; min %.3f, max %.3f); bytes bound %.3f ms (%.2f %% of it; %.3f GB); %.2f %% of the step"
+		% (str(dtype)[6:], C5_NSRC, pointsrcs.CSIZE, med, lo, hi, b, 100*b/med, nbytes/1e9, 100*med/step_ms))
+	return med
+
+
+def c5_cache_bytes():
+	"""(device bytes the SHT's table caches hold, their own count of the bytes
+	they hold): allocated before and after clearing them (they are rebuilt
+	on the next call)."""
+	from pixell_tpu_torch.ops import tablecache
+	torch.cuda.synchronize()
+	before, counted = torch.cuda.memory_allocated(), tablecache.held()
+	tablecache.clear()
+	torch.cuda.synchronize()
+	return before - torch.cuda.memory_allocated(), counted
+
+
+def config5_phase():
+	"""Guards at lmax 64 first, then BASELINE config 5 at full size: f32
+	(median of 3) with stages, launches, peak, busy share, painting and
+	glue; one f64 step; the f64 identity and f32 against f64."""
+	from pixell_tpu_torch import curvedsky
+	h0 = time.perf_counter()
+	C5_LAUNCHES.clear()
+	failed = c5_guard_cpu()
+	c5_cache_bytes()   # start from empty table caches: the earlier phases' tables are not config 5's
+	torch.cuda.empty_cache()
+	t0 = time.perf_counter()
+	wt = c5_transform(C5_LMAX, DEV)
+	cat = c5_catalogue(C5_NSRC)
+	print("config5: map %s, lmax %d, %d scales (ButterTrim(step=2)), %.3f G wavelet pixels; transform built in "
+		"%.2f s (host)" % (tuple(wt.shape), C5_LMAX, wt.nlevel, sum(int(np.prod(g[0])) for g in wt.geometries)/1e9,
+		time.perf_counter() - t0))
+	for i, (g, u) in enumerate(zip(wt.geometries, wt.uhts)):
+		print("config5 scale %d: %s lmax %d, support %s" % (i, tuple(g[0]), u.lmax, wt.basis.lbounds(i)))
+	t0 = time.perf_counter()
+	rows = c5_sparse_rows(wt.shape[0])
+	sparse = c5_sparse(wt.shape, wt.wcs, C5_LMAX, rows, c5_sparse_pairs(C5_LMAX))
+	sparse = (sparse[0], rows, sparse[1])
+	print("config5: sparse-alm direct sum on %d rings in %.1f s (host)" % (len(rows), time.perf_counter() - t0))
+	recs = {}
+	for dtype in (torch.float32, torch.float64):
+		tag = str(dtype)[6:]
+		t0 = time.perf_counter()
+		c5_step(wt, cat, dtype, DEV)   # warm-up: builds and caches every table of the step
+		torch.cuda.synchronize()
+		print("config5 %s: first step (tables built on the host) %.1f s" % (tag, time.perf_counter() - t0))
+		torch.cuda.empty_cache()
+		torch.cuda.reset_peak_memory_stats()
+		wave, rec = c5_drive("config 5 step %s" % tag, lambda: c5_step(wt, cat, dtype, DEV), dtype)
+		torch.cuda.synchronize()
+		peak = torch.cuda.max_memory_allocated()/2**30
+		ok = tuple(rec.shape) == tuple(wt.shape) and rec.dtype == dtype and bool(torch.isfinite(rec.data).all()) \
+			and len(wave.maps) == wt.nlevel
+		print("config5 %s: output %s %s, %d wavelet maps; peak device memory %.2f GiB (bound %d)" % (tag,
+			tuple(rec.shape), rec.dtype, len(wave.maps), peak, FLAT_MEM_GIB))
+		if not ok: raise RuntimeError("config5 %s: output not finite or of the wrong shape" % tag)
+		if not peak < FLAT_MEM_GIB: raise RuntimeError("config5 %s: peak %.2f GiB" % (tag, peak))
+		recs[dtype] = rec.data
+		del wave, rec
+		torch.cuda.empty_cache()
+		steps, stages = c5_timed(wt, cat, dtype, 3 if dtype == torch.float32 else 1)
+		med = float(np.median(steps))
+		print("config5 %s: %.3f ms a step (median of %d; min %.3f, max %.3f)" % (tag, med, len(steps), min(steps),
+			max(steps)))
+		for j, name in enumerate(("srcsim", "map2wave", "wave2map")):
+			v = [s[j] for s in stages]
+			print("config5 %s: stage %s %.3f ms (median of %d; min %.3f, max %.3f), %.1f %% of the step" % (tag,
+				name, float(np.median(v)), len(v), min(v), max(v), 100*float(np.median(v))/med))
+		syn, ana = c5_drive("lmax-%d sparse alm %s" % (C5_LMAX, tag), lambda: c5_sparse_check(wt.shape, wt.wcs,
+			C5_LMAX, dtype, DEV, sparse), dtype, sym=False)
+		print("config5 %s: sparse alm (%d (l, m) pairs, up to l = m = %d): alm2map (K3) on %d of the %d rings "
+			"against the numpy direct sum, rel err %.3e; map2alm (K4) back against the sparse alm, rel err %.3e "
+			"(bound %.0e)" % (tag, len(sparse[0]), C5_LMAX, len(sparse[1]), wt.shape[0], syn, ana,
+			C5_SPARSE_TOL[dtype]))
+		if not max(syn, ana) <= C5_SPARSE_TOL[dtype]:
+			failed.append("config5 %s sparse alm: synthesis %g, analysis %g" % (tag, syn, ana))
+		torch.cuda.empty_cache()
+		if dtype == torch.float32:
+			c5_paint(wt, cat, dtype, med)
+			gms, gbytes, gbig = c5_glue(wt, dtype)
+			print("config5 %s: K2 / K4 partial planes (zero-fill and torch sum, replayed at the step's shapes) "
+				"%.3f ms a step, %.1f %% of it; %.2f GB moved, bytes bound %.3f ms; largest plane set %.2f GiB"
+				% (tag, gms, 100*gms/med, gbytes/1e9, 1e3*gbytes/PEAK_BYTES, gbig/2**30))
+			wall, busy = flat_profile(lambda: c5_step(wt, cat, dtype, DEV), 20, "config5 %s step" % tag)
+			print("config5 %s: device busy %.1f %% of one profiled step" % (tag, 100*busy/wall))
+		torch.cuda.empty_cache()
+	from pixell_tpu_torch.ops import tablecache
+	res, counted = c5_cache_bytes()
+	print("config5: SHT table caches resident after both dtypes %.2f GiB (their own count %.2f GiB, budget "
+		"%.2f GiB)" % (res/2**30, counted/2**30, tablecache.budget()/2**30))
+	torch.cuda.empty_cache()
+	# guard 1: the f64 identity, wave2map(map2wave(m)) = harm2map(sum_i k_i^2 map2harm(m))
+	from pixell_tpu_torch import pointsrcs
+	m = pointsrcs.sim_objects(wt.shape, wt.wcs, *cat, dtype=torch.float64, device=DEV)
+	alm = wt.uht.map2harm(m)
+	l = np.arange(C5_LMAX + 1, dtype=float)
+	k2 = sum(np.where(l <= u.lmax, wt.basis.kernel(i, l), 0)**2 for i, u in enumerate(wt.uhts))
+	ref = wt.uht.harm2map(curvedsky.almxfl(alm, k2, ainfo=wt.uht.ainfo)).data
+	del alm, m
+	err = relerr(recs[torch.float64], ref)
+	print("config5 float64: wave2map(map2wave(m)) against harm2map(sum_i k_i^2 map2harm(m)) at lmax %d rel err "
+		"%.3e (bound %.0e); sum_i k_i^2 in [%.6f, %.6f]" % (C5_LMAX, err, C5_ID_TOL, k2.min(), k2.max()))
+	if not err <= C5_ID_TOL: failed.append("config5 f64 identity %g" % err)
+	del ref
+	err = relerr(recs[torch.float32], recs[torch.float64])
+	print("config5: float32 reconstruction against float64 at lmax %d rel err %.3e (bound %.0e)" % (C5_LMAX, err,
+		C5_F32_TOL))
+	if not err <= C5_F32_TOL: failed.append("config5 f32 against f64 %g" % err)
+	del recs, wt
+	c5_cache_bytes()
+	torch.cuda.empty_cache()
+	print("config5 launches in all its paths (each driven with the counts at 0): %s" % C5_LAUNCHES)
+	print("config5 phase: %.1f s" % (time.perf_counter() - h0))
+	if failed: raise RuntimeError("config5 guards failed:\n" + "\n".join(failed))
+
+
 PHASES = ("k9", "kernels", "lstop", "slice", "adjoint", "blocked", "timing", "general", "flat", "interp",
-	"healpix", "lensing")
+	"healpix", "lensing", "config5")
 EXTRA_PHASES = ("variants", "blkprobe")   # run only when named
 
 
@@ -4528,6 +4939,9 @@ def main():
 	if "lensing" in phases:
 		lensing_phase()
 		print("phase lensing done at %.1f s" % (time.perf_counter() - t_start))
+	if "config5" in phases:
+		config5_phase()
+		print("phase config5 done at %.1f s" % (time.perf_counter() - t_start))
 	if "variants" in phases:
 		variants_phase(parent)
 		print("phase variants done at %.1f s" % (time.perf_counter() - t_start))
@@ -4561,6 +4975,7 @@ def main():
 	for rec in records:   # the launches of each record's kernel in the healpix and lensing paths
 		rec["healpix_launches"] = hp_count(rec)
 		rec["lensing_launches"] = hp_count(rec, LENS_LAUNCHES)
+		rec["config5_launches"] = hp_count(rec, C5_LAUNCHES)
 	print(card_line())
 	print(json.dumps({"kernels": records}))
 	print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,8 +7,11 @@ FFTs, spin rotations and binned spectra on torch.fft, and the pixel-space
 reprojection (cut-outs, resolution changes, spline interpolation) in plain
 torch, HEALPix with the CAR <-> HEALPix reprojection, thumbnails and
 coordinate transforms, and lensing (flat and curved sky, the curved sky's
-point stage on the NUFFT kernels) with Doppler aberration. Module names
-mirror pixell_tpu's.
+point stage on the NUFFT kernels) with Doppler aberration, and point
+sources and wavelets: multi-geometry maps (multimap), one harmonic
+interface over the flat and the curved sky (uharm), wavelet transforms on
+the SHT kernels (wavelets) and the cell painter of objects (pointsrcs).
+Module names mirror pixell_tpu's.
 """
 __version__ = "0.1.0"
 
@@ -30,3 +33,7 @@ from . import reproject
 from . import lensing
 from . import aberration
 from . import old_aberration
+from . import multimap
+from . import uharm
+from . import wavelets
+from . import pointsrcs

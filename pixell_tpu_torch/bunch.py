@@ -1,5 +1,7 @@
-"""Bunch: a dict with attribute access (counterpart of pixell_tpu/bunch.py:7)."""
+"""Bunch: a dict with attribute access (counterpart of pixell_tpu/bunch.py:7),
+and its HDF5 read / write (:57-87), which pointsrcs' HDF catalogues use."""
 from __future__ import annotations
+import numpy as np
 
 
 class Bunch:
@@ -34,3 +36,33 @@ class Bunch:
 	def __repr__(self):
 		keys = sorted(self._dict.keys())
 		return "Bunch(" + ", ".join("%s=%r" % (k, self._dict[k]) for k in keys) + ")"
+
+
+def write(fname, bunch):
+	"""bunch to an HDF5 file, a group per nested Bunch."""
+	import h5py
+	with h5py.File(fname, "w") as f:
+		_write_group(f, bunch)
+
+def _write_group(g, bunch):
+	for k, v in bunch.items():
+		if isinstance(v, Bunch): _write_group(g.create_group(k), v)
+		elif isinstance(v, str): g[k] = np.bytes_(v)
+		else: g[k] = v
+
+def read(fname, group=None):
+	"""The Bunch an HDF5 file (or its group) holds."""
+	import h5py
+	with h5py.File(fname, "r") as f:
+		return _read_group(f[group] if group else f)
+
+def _read_group(g):
+	import h5py
+	res = Bunch()
+	for k, v in g.items():
+		if isinstance(v, h5py.Group):
+			res[k] = _read_group(v)
+		else:
+			val = v[()]
+			res[k] = val.decode() if isinstance(val, bytes) else val
+	return res

@@ -1,0 +1,265 @@
+"""ndmaps: maps of different geometries with common pre-dimensions, acting
+as one object (counterpart of pixell_tpu/multimap.py). Each member is an
+enmap.ndmap whose data stays on its own device; arithmetic, the per-map
+FFTs and harmonic transforms and the statistics run map by map there. The
+flat view concatenates the members' pixels into one tensor [*pre, npix].
+
+The reference's jax pytree hooks (tree_flatten / tree_unflatten) have no
+counterpart: a list of tensors needs none. The HDF5 / FITS IO (write_maps,
+read_maps, write_map, read_map) raises NotImplementedError until the IO
+modules are ported (ROADMAP item 18). The geometry queries (posmap,
+pixmap, lmap, modlmap, modrmap, pixsizemap) put their maps on device="cuda"
+unless told otherwise; the ndmaps methods on the members' device.
+"""
+from __future__ import annotations
+import operator
+import numpy as np
+import torch
+from . import enmap
+
+
+class ndmaps:
+	"""Multiple ndmaps with common pre-dimensions. Arithmetic acts on all
+	maps; .maps gives the individual ndmap views (pixell_tpu.multimap.ndmaps
+	:12)."""
+	def __init__(self, maps, pre=None):
+		maps = [m if isinstance(m, enmap.ndmap) else enmap.ndmap(*m) for m in maps]
+		self.maps = list(maps)
+		if pre is None:
+			pre = maps[0].shape[:-2] if maps else ()
+		self.pre = tuple(pre)
+	# --- basic info
+	@property
+	def nmap(self): return len(self.maps)
+	@property
+	def geometries(self): return [m.geometry for m in self.maps]
+	@property
+	def npixs(self): return [m.npix() for m in self.maps]
+	@property
+	def size(self): return sum(m.size for m in self.maps)
+	@property
+	def dtype(self): return self.maps[0].dtype
+	@property
+	def device(self): return self.maps[0].device
+	@property
+	def ndim(self): return len(self.pre) + 1
+	@property
+	def shape(self): return self.pre + (sum(self.npixs),)
+	@property
+	def ntot(self):
+		"""The number of stored elements."""
+		return int(np.prod(self.pre, dtype=int))*sum(self.npixs)
+	def contig(self):
+		"""A contiguous copy."""
+		return self.copy()
+	def flat(self):
+		"""The members' pixels concatenated: [*pre, totpix] on their device."""
+		return torch.cat([m.data.reshape(self.pre + (-1,)) for m in self.maps], -1)
+	# geometry queries mapped over the member maps, on their device
+	def posmap(self, safe=True, corner=False, separable="auto", dtype=np.float64):
+		return posmap(self.geometries, safe=safe, corner=corner, separable=separable, dtype=dtype,
+			device=self.device)
+	def pixmap(self, dtype=np.float64): return pixmap(self.geometries, dtype=dtype, device=self.device)
+	def pixsize(self, dtype=np.float64): return pixsize(self.geometries, dtype=dtype)
+	def lmap(self, oversample=1, dtype=np.float64):
+		return lmap(self.geometries, dtype=dtype, device=self.device)
+	def modlmap(self, oversample=1, dtype=np.float64):
+		return modlmap(self.geometries, dtype=dtype, device=self.device)
+	def modrmap(self, ref="center", safe=True, corner=False, dtype=np.float64):
+		return modrmap(self.geometries, ref=ref, safe=safe, corner=corner, dtype=dtype,
+			device=self.device)
+	def copy(self): return ndmaps([m.copy() for m in self.maps], self.pre)
+	def astype(self, dtype): return ndmaps([m.astype(dtype) for m in self.maps], self.pre)
+	def __len__(self): return self.nmap
+	def __getitem__(self, i):
+		if isinstance(i, (int, np.integer)): return self.maps[i]
+		return ndmaps([m[i] for m in self.maps])
+	def __iter__(self): return iter(self.maps)
+	def __repr__(self):
+		return "ndmaps(pre=%s,%s)" % (str(self.pre),
+			",".join("(%s)" % str(m.shape[-2:]) for m in self.maps))
+
+
+def _mm_binop(op):
+	def fun(self, other):
+		if isinstance(other, ndmaps):
+			return ndmaps([enmap.ndmap(op(a.data, b.data), a.wcs) for a, b in zip(self.maps, other.maps)],
+				self.pre)
+		return ndmaps([enmap.ndmap(op(a.data, other), a.wcs) for a in self.maps], self.pre)
+	return fun
+
+# the reflected operators apply the operator in the same order, as the
+# reference's do (pixell_tpu/multimap.py:88-90)
+for _n in ["add", "sub", "mul", "truediv", "pow"]:
+	setattr(ndmaps, "__%s__" % _n, _mm_binop(getattr(operator, _n)))
+	setattr(ndmaps, "__r%s__" % _n, _mm_binop(getattr(operator, _n)))
+ndmaps.__neg__ = lambda self: ndmaps([-m for m in self.maps], self.pre)
+
+
+def zeros(geometries, dtype=np.float64, *, device="cuda"):
+	"""ndmaps of zeros over a list of (shape, wcs) geometries."""
+	return ndmaps([enmap.zeros(s, w, dtype, device=device) for s, w in geometries])
+
+def empty(geometries, dtype=np.float64, *, device="cuda"):
+	return zeros(geometries, dtype, device=device)
+
+def full(geometries, val, dtype=np.float64, *, device="cuda"):
+	return ndmaps([enmap.full(s, w, val, dtype, device=device) for s, w in geometries])
+
+def from_flat(arr, geometries, pre=None):
+	"""The inverse of ndmaps.flat(): a flat tensor [*pre, totpix] split
+	into the given geometries (views of arr)."""
+	arr = torch.as_tensor(arr)
+	if pre is None: pre = arr.shape[:-1]
+	maps, off = [], 0
+	for shape, wcs in geometries:
+		n = int(np.prod(shape[-2:]))
+		maps.append(enmap.ndmap(arr[..., off:off+n].reshape(tuple(pre) + tuple(shape[-2:])), wcs))
+		off += n
+	return ndmaps(maps, pre)
+
+def map_union(a, b):
+	return ndmaps([x + y for x, y in zip(a.maps, b.maps)])
+
+def samegeos(arr, *args):
+	for a in (arr,) + args:
+		if isinstance(a, ndmaps): return ndmaps(list(arr.maps) if isinstance(arr, ndmaps) else arr)
+	return arr
+
+
+def _io_not_ported(*args, **kwargs):
+	raise NotImplementedError("multimap's file IO is not ported yet: it comes with fits_io "
+		"(ROADMAP item 18)")
+
+def write_maps(fname, mm): _io_not_ported()
+def read_maps(fname): _io_not_ported()
+def write_map(fname, mmap, extra={}): _io_not_ported()
+def read_map(fname, sel=None, box=None, wrap="auto", mode=None, sel_threshold=10e6, verbose=False):
+	_io_not_ported()
+
+
+# ---------------------------------------------------------------------------
+# Per-map operations (pixell_tpu/multimap.py:158-281): each is the enmap
+# operation applied map by map, returning a new ndmaps (or a list for the
+# pixel sizes).
+# ---------------------------------------------------------------------------
+def multimap(maps):
+	"""An ndmaps of a list of maps."""
+	return ndmaps(maps)
+
+def nopre(geometries):
+	"""The geometries without their pre-dimensions."""
+	return [(tuple(s[-2:]), w) for s, w in geometries]
+
+def posmap(geometries, safe=True, corner=False, separable="auto", dtype=np.float64, *, device="cuda"):
+	return ndmaps([enmap.posmap(s, w, safe=safe, corner=corner, device=device) for s, w in geometries])
+
+def pixmap(geometries, dtype=np.float64, *, device="cuda"):
+	return ndmaps([enmap.pixmap(s, w, device=device) for s, w in geometries])
+
+def lmap(geometries, dtype=np.float64, *, device="cuda"):
+	return ndmaps([enmap.lmap(s, w, device=device) for s, w in geometries])
+
+def modlmap(geometries, dtype=np.float64, *, device="cuda"):
+	return ndmaps([enmap.modlmap(s, w, device=device) for s, w in geometries])
+
+def modrmap(geometries, ref="center", safe=True, corner=False, dtype=np.float64, *, device="cuda"):
+	return ndmaps([enmap.modrmap(s, w, ref=ref, safe=safe, corner=corner, device=device)
+		for s, w in geometries])
+
+def pixsize(geometries, dtype=np.float64):
+	return np.array([enmap.pixsize(s, w) for s, w in geometries])
+
+def pixsizemap(geometries, dtype=np.float64, *, device="cuda"):
+	return ndmaps([enmap.pixsizemap(s, w, device=device) for s, w in geometries])
+
+def map_mul(mat, vec):
+	"""Matrix times vector along the pre-dimensions, map by map."""
+	return ndmaps([enmap.map_mul(m, v) for m, v in zip(mat.maps, vec.maps)], vec.pre)
+
+def _area_sums(mmap, fun):
+	"""(sum over all maps of fun(map data) times the pixel area, the total
+	area), the sums over the pixel axes."""
+	tot, area = 0, 0
+	for m in mmap.maps:
+		ps = enmap.pixsizemap(m.shape, m.wcs, broadcastable=True, device=m.device).data
+		tot = tot + torch.sum(fun(m.data)*ps, (-2, -1))
+		area = area + float(torch.sum(ps*torch.ones(m.shape[-2:], dtype=ps.dtype, device=ps.device)))
+	return tot, area
+
+def mean(mmap):
+	"""The area-weighted mean over all maps."""
+	tot, area = _area_sums(mmap, lambda d: d)
+	return tot/area
+
+def median(mmap):
+	"""The median over all pixels (the mean of the middle two for an even
+	count, as numpy's)."""
+	s = torch.sort(mmap.flat(), -1).values
+	n = s.shape[-1]
+	return (s[..., (n-1)//2] + s[..., n//2])/2
+
+def max(mmap):
+	return torch.amax(mmap.flat(), -1)
+
+def min(mmap):
+	return torch.amin(mmap.flat(), -1)
+
+def var(mmap):
+	"""The area-weighted variance over all maps."""
+	mu = mean(mmap)
+	mu_b = mu[..., None, None] if mu.ndim else mu
+	tot, area = _area_sums(mmap, lambda d: (d - mu_b)**2)
+	return tot/area
+
+def std(mmap):
+	return var(mmap)**0.5
+
+def _permap(fun, mmap, **kw):
+	return ndmaps([fun(m, **kw) for m in mmap.maps], mmap.pre)
+
+def fft(mmap, omap=None, nthread=0, normalize=True, adjoint_ifft=False, dct=False):
+	return _permap(enmap.fft, mmap, normalize=normalize)
+
+def ifft(mmap, omap=None, nthread=0, normalize=True, adjoint_fft=False, dct=False):
+	return _permap(enmap.ifft, mmap, normalize=normalize)
+
+def dct(emap, omap=None, nthread=0, normalize=True):
+	return _permap(enmap.dct, emap, normalize=normalize)
+
+def idct(emap, omap=None, nthread=0, normalize=True):
+	return _permap(enmap.idct, emap, normalize=normalize)
+
+def fft_adjoint(emap, omap=None, nthread=0, normalize=True):
+	"""The adjoint of fft: ifft, as the reference has it."""
+	return _permap(enmap.ifft, emap, normalize=normalize)
+
+def ifft_adjoint(emap, omap=None, nthread=0, normalize=True):
+	return _permap(enmap.fft, emap, normalize=normalize)
+
+def dct_adjoint(emap, omap=None, nthread=0, normalize=True):
+	return _permap(enmap.idct, emap, normalize=normalize)
+
+def idct_adjoint(emap, omap=None, nthread=0, normalize=True):
+	return _permap(enmap.dct, emap, normalize=normalize)
+
+def map2harm(mmap, nthread=0, normalize=True, iau=False, spin=[0, 2], adjoint_harm2map=False):
+	return _permap(enmap.map2harm, mmap, normalize=normalize, iau=iau, spin=spin)
+
+def harm2map(mmap, nthread=0, normalize=True, iau=False, spin=[0, 2], keep_imag=False,
+		adjoint_map2harm=False):
+	return _permap(enmap.harm2map, mmap, normalize=normalize, iau=iau, spin=spin, keep_imag=keep_imag)
+
+def map2harm_adjoint(mmap, nthread=0, normalize=True, iau=False, spin=[0, 2], keep_imag=False):
+	return _permap(enmap.map2harm_adjoint, mmap, normalize=normalize, iau=iau, spin=spin)
+
+def harm2map_adjoint(mmap, nthread=0, normalize=True, iau=False, spin=[0, 2]):
+	return _permap(enmap.harm2map_adjoint, mmap, normalize=normalize, iau=iau, spin=spin)
+
+def queb_rotmat(lmap, inverse=False, iau=False, spin=2):
+	mats = [enmap.queb_rotmat(m.data, inverse=inverse, iau=iau, spin=spin, device=m.device)
+		for m in lmap.maps]
+	return ndmaps([enmap.samewcs(r, m) for r, m in zip(mats, lmap.maps)])
+
+def rotate_pol(mmap, angle, comps=[-2, -1]):
+	return _permap(enmap.rotate_pol, mmap, angle=angle, comps=comps)

@@ -91,7 +91,7 @@ import ctypes
 import functools
 import numpy as np
 import torch
-from . import sht_core, _build
+from . import sht_core, _build, tablecache
 from .sht_core import NFUN, PSIGN
 
 SYM_MAX_NH = 1536   # half-sky kernels only up to 2*SYM_MAX_NH rings
@@ -239,7 +239,7 @@ def dead_table(theta, lmax, mmax, tile_m, tile_t, s=0):
 	return (m_lo[:, None] - s) > (lmax*smax[None, :] + slack)
 
 
-@functools.lru_cache(maxsize=32)
+@tablecache.cached
 def _dead_cached(theta_bytes, lmax, mmax, s, device):
 	dead = dead_table(np.frombuffer(theta_bytes, np.float64), lmax, mmax, TILE_M, TILE_T, s)
 	if not dead.any(): return None
@@ -438,13 +438,13 @@ def blk_tables(theta, lmax, mmax, device):
 	return _blk_cached(th.tobytes(), int(lmax), int(mmax), torch.device(device))
 
 
-@functools.lru_cache(maxsize=8)
+@tablecache.cached
 def _coef_cached(nl, nm, dtype, device, s=None):
 	if s is not None: return wigner_tables(nl, nm, s, dtype, device)
 	return coef_tables(nl, nm, dtype, device)
 
 
-@functools.lru_cache(maxsize=16)
+@tablecache.cached
 def _lt_cached(nl, mode, dtype, device):
 	return l_tables(nl, mode, dtype, device)
 
@@ -454,7 +454,7 @@ def _streams_cached(nl, nm, mode, device):
 	return sht_core.blk_stream_tables(nl, nm, mode, torch.float32, device).contiguous()
 
 
-@functools.lru_cache(maxsize=16)
+@tablecache.cached
 def _geom_cached(theta_bytes, mmax, dtype, device, s):
 	theta = np.frombuffer(theta_bytes, np.float64)
 	return sht_core.prepare_geom(theta, mmax, dtype, device, s)

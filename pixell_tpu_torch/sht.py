@@ -18,7 +18,7 @@ import functools
 import numpy as np
 import torch
 from . import fft as enfft
-from .ops import sht_cuda
+from .ops import sht_cuda, tablecache
 
 _CDTYPE = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 _RDTYPE = {torch.complex64: torch.float32, torch.complex128: torch.float64}
@@ -80,7 +80,7 @@ def lm2ind(lmax, l, m):
 	return m*(2*lmax+1-m)//2 + l
 
 
-@functools.lru_cache(maxsize=16)
+@tablecache.cached
 def _rect_index(lmax, mmax, device):
 	"""(gather index [nl*nm] into the triangular alm, validity mask [nl, nm],
 	gather index [nalm] into the flat rect) for (lmax, mmax) on device."""
@@ -161,7 +161,7 @@ def _phase_ramp(nm, phi0, cdtype, sign, device):
 	must not write into it."""
 	return _phase_ramp_cached(int(nm), float(phi0), cdtype, int(sign), torch.device(device))
 
-@functools.lru_cache(maxsize=32)
+@tablecache.cached
 def _phase_ramp_cached(nm, phi0, cdtype, sign, device):
 	ph = sign*np.arange(nm)*phi0
 	return torch.from_numpy(np.cos(ph) + 1j*np.sin(ph)).to(device=device, dtype=cdtype)
@@ -368,7 +368,7 @@ def _ring_weights_on(weights, nphi, dtype, device):
 	return _ring_weights_cached(w.tobytes(), w.dtype.str, w.shape, int(nphi), dtype,
 		torch.device(device))
 
-@functools.lru_cache(maxsize=32)
+@tablecache.cached
 def _ring_weights_cached(wbytes, wdtype, wshape, nphi, dtype, device):
 	w = np.frombuffer(wbytes, wdtype).reshape(wshape)
 	return torch.as_tensor(w*(2*np.pi/nphi), dtype=dtype, device=device)
@@ -436,7 +436,7 @@ def resample_theta_phase(F, variant, nt_out, spins):
 	return parts[0] if len(parts) == 1 else torch.cat(parts, -2)
 
 
-@functools.lru_cache(maxsize=32)
+@tablecache.cached
 def _resample_tables(m0, nm, spins, rdt, cdt, NT_in, NT_out, device):
 	"""The host-built factors of _resample_theta_phase, cached so that their
 	host -> device copies happen once (callers must not write into them):

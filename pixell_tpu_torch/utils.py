@@ -11,8 +11,13 @@ matrices); rewind also takes tensors. For the pixel boxes of enmap's
 extract family: the slice-box algebra (sbox_*) and parse_slice, host numpy;
 for its resolution changes: block_reduce / block_expand and downgrade /
 upgrade, which work on tensors (on their device) as well as numpy arrays.
-eigpow too takes either. The rest is numpy: geometry, random draws and that
-solver's vectors are host work.
+eigpow too takes either. czeros makes zeros on a device; for
+the wavelets' variance basis, RadialFourierTransform (scipy's FFTLog
+Hankel transform, host numpy); for the catalogues, crossmatch (scipy's
+k-d tree). The rest is numpy: geometry, random draws and that solver's
+vectors are host work. Not ported: fence and to_device's complex split,
+which worked around a remote TPU runtime; a tensor's own .to() does their
+work.
 """
 from __future__ import annotations
 import numpy as np
@@ -444,3 +449,77 @@ def sbox_intersect_1d(a, b, wrap=0):
 		lo, hi = max(a[0], b[0] + s), min(a[1], b[1] + s)
 		if hi > lo: res.append([lo, hi, max(a[2], b[2])])
 	return res
+
+
+def czeros(shape, dtype, *, device="cuda"):
+	"""Zeros of a (complex) dtype on device (pixell_tpu.utils.czeros :131)."""
+	return torch.zeros(shape, dtype=dtype if isinstance(dtype, torch.dtype) else
+		torch.from_numpy(np.zeros(0, dtype)).dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Radial Fourier (Hankel) transform (pixell_tpu/utils.py:751), host numpy
+# ---------------------------------------------------------------------------
+class RadialFourierTransform:
+	"""Fast radial Fourier (Hankel) transform between real-space profiles
+	f(r) and harmonic profiles F(l), by FFTLog on logarithmically spaced
+	points; harm2real and real2harm invert each other on the internal grids
+	(pixell_tpu.utils.RadialFourierTransform)."""
+	def __init__(self, lrange=None, rrange=None, n=512, pad=256):
+		if lrange is None and rrange is None: lrange = [0.1, 1e7]
+		if lrange is None: lrange = [1/rrange[1], 1/rrange[0]]
+		logl1, logl2 = np.log(lrange[0]), np.log(lrange[1])
+		self.n = n
+		self.pad = pad
+		ntot = n + 2*pad
+		self.dlog = (logl2 - logl1)/n
+		self.l = np.exp(logl1 + (np.arange(ntot) - pad + 0.5)*self.dlog)
+		self.r = 1/self.l[::-1]
+		self._mu = 0
+	def real2harm(self, rprof):
+		"""f(r) -> F(l) = 2 pi int f(r) J0(lr) r dr, f on self.r (a callable
+		or an array)."""
+		import scipy.fft
+		fr = rprof(self.r) if callable(rprof) else np.asarray(rprof)
+		A = scipy.fft.fht(fr*self.r, self.dlog, mu=0)
+		return 2*np.pi*A/self.l
+	def harm2real(self, hprof):
+		"""F(l) -> f(r) = 1/(2 pi) int F(l) J0(lr) l dl, the inverse of real2harm."""
+		import scipy.fft
+		Fl = hprof(self.l) if callable(hprof) else np.asarray(hprof)
+		a = scipy.fft.ifht(Fl*self.l/(2*np.pi), self.dlog, mu=0)
+		return a/self.r
+	def unpad(self, *arrs):
+		"""The arrays on the internal grids without their padding."""
+		res = tuple(a[..., self.pad:self.pad+self.n] for a in arrs)
+		return res[0] if len(res) == 1 else res
+	def lind(self, l):
+		"""The fractional index of multipole l on the internal log grid."""
+		return (np.log(l) - np.log(self.l[0]))/self.dlog
+	def rind(self, r):
+		"""The fractional index of radius r on the internal log grid."""
+		return (np.log(r) - np.log(self.r[0]))/self.dlog
+
+
+def crossmatch(pos1, pos2, rmax, mode="closest", coords="auto"):
+	"""The pairs (i1, i2) of catalogues pos1 [n1, {dec, ra}] and pos2 [n2,
+	{dec, ra}] (radians) closer than rmax, by a k-d tree of unit vectors
+	(pixell_tpu.utils.crossmatch :853): with mode "closest" each pos1 is
+	matched to its closest pos2 only, else to every pos2 in reach."""
+	import scipy.spatial
+	pos1, pos2 = np.asarray(pos1), np.asarray(pos2)
+	if pos1.ndim == 2 and pos1.shape[0] == 2 and pos1.shape[1] != 2: pos1 = pos1.T
+	if pos2.ndim == 2 and pos2.shape[0] == 2 and pos2.shape[1] != 2: pos2 = pos2.T
+	v1 = ang2rect(np.array([pos1[:, 1], pos1[:, 0]]), axis=0).T
+	v2 = ang2rect(np.array([pos2[:, 1], pos2[:, 0]]), axis=0).T
+	tree = scipy.spatial.cKDTree(v2)
+	chord = 2*np.sin(rmax/2)
+	pairs = []
+	if mode == "closest":
+		d, j = tree.query(v1, k=1)
+		for i in range(len(v1)):
+			if d[i] <= chord: pairs.append((i, int(j[i])))
+	else:
+		for i, js in enumerate(tree.query_ball_point(v1, chord)):
+			for j in js: pairs.append((i, int(j)))
+	return pairs

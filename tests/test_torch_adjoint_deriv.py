@@ -8,6 +8,7 @@ largest reference value.
 import pytest
 
 pytest.importorskip("torch")
+import torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 from test_torch_adjoint_geometries import check_entries
 

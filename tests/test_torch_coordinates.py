@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 from pixell_tpu import coordinates as jcoordinates, sites as jsites, utils as jutils
 from pixell_tpu_torch import coordinates, sites

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 from pixell_tpu import enmap as jenmap, curvedsky as jcurvedsky
 from pixell_tpu_torch import enmap, curvedsky, wcsutils
@@ -140,7 +141,8 @@ def test_import_loads_no_jax():
 	"""The port imports torch and never jax or pixell_tpu."""
 	code = ("import sys, pixell_tpu_torch, pixell_tpu_torch.curvedsky, "
 		"pixell_tpu_torch.ops.sht_cuda, pixell_tpu_torch.ops.fma_peak, pixell_tpu_torch.lensing, "
-		"pixell_tpu_torch.aberration, pixell_tpu_torch.old_aberration, pixell_tpu_torch.ops.solvers; "
+		"pixell_tpu_torch.aberration, pixell_tpu_torch.old_aberration, pixell_tpu_torch.ops.solvers, "
+		"pixell_tpu_torch.multimap, pixell_tpu_torch.uharm, pixell_tpu_torch.wavelets, pixell_tpu_torch.pointsrcs; "
 		"bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
 		"or m == 'pixell_tpu' or m.startswith('pixell_tpu.')]; "
 		"print(bad); sys.exit(1 if bad else 0)")

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 from pixell_tpu import enmap as jenmap, utils as jutils, wcsutils as jwcs, \
 	curvedsky as jcurvedsky, fft as jfft

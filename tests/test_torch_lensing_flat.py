@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 import jax.numpy as jnp
 from pixell_tpu import lensing as jlensing, enmap as jenmap, interpol as jinterpol, curvedsky as jcurvedsky

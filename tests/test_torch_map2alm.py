@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 from pixell_tpu import enmap as jenmap, curvedsky as jcurvedsky
 from pixell_tpu_torch import enmap, curvedsky, sht, wcsutils

@@ -23,6 +23,7 @@ import ctypes
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 from pixell_tpu_torch.ops import nufft_core, nufft_cuda
 

@@ -7,6 +7,7 @@ largest value. No JAX array is involved.
 """
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 from pixell_tpu import powspec as jpowspec
 from pixell_tpu_torch import powspec

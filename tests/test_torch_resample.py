@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 from pixell_tpu import resample as jresample, array_ops as jarray_ops, enmap as jenmap
 from pixell_tpu_torch import resample, array_ops, enmap, utils

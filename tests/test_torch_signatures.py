@@ -1,13 +1,21 @@
 """The public signatures of pixell_tpu_torch.curvedsky, .sht, .enmap,
 .fft, .wcsutils, .powspec, .interpol, .resample, .array_ops, .healpix,
 .reproject, .coordinates, .sites, .lensing, .aberration, .old_aberration
-and .ops.solvers against pixell_tpu's (and that healpix, reproject,
-coordinates and sites have every public name of the reference's modules,
-and fft, lensing, aberration, old_aberration and ops.solvers every public
-function and class): every public name both modules define takes the reference's
+and .ops.solvers, .multimap, .uharm, .wavelets and .pointsrcs against
+pixell_tpu's (and that healpix, reproject, coordinates, sites, multimap,
+uharm and pointsrcs have every public name of the reference's modules, and
+fft, lensing, aberration, old_aberration, ops.solvers and wavelets every
+public function and class), and utils' czeros, RadialFourierTransform and
+crossmatch: every public name both modules define takes the reference's
 parameters, by name and in order, and the port's own extras (device=,
 leg_dtype=) come after them and are keyword-only, so a call written for
-the reference means the same in the port. Then the calls themselves: map2alm
+the reference means the same in the port. Deliberate differences of the
+config-5 modules: mesh= (UHT, WaveletTransform) and offload= are kept in
+the signatures, mesh= raises NotImplementedError (ROADMAP item 17) and
+offload=None means no offload (the reference's OFFLOAD_BYTES threshold is
+not ported); the IO of multimap and pointsrcs' FITS catalogues keep their
+signatures and raise (item 18); device= is the port's keyword-only extra
+where a result is made on a device. Then the calls themselves: map2alm
 and rand_alm with every argument by position, as the reference allows, and
 the out= and copy= arguments, held against the reference at lmax 16 in
 float64 (1e-10 of the largest value; rand_alm draws the same numpy numbers,
@@ -19,14 +27,17 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 from pixell_tpu import curvedsky as jcurvedsky, sht as jsht, enmap as jenmap, fft as jfft, \
 	wcsutils as jwcsutils, powspec as jpowspec, interpol as jinterpol, resample as jresample, \
 	array_ops as jarray_ops, healpix as jhealpix, reproject as jreproject, coordinates as jcoordinates, \
-	sites as jsites, lensing as jlensing, aberration as jaberration, old_aberration as jold_aberration
+	sites as jsites, lensing as jlensing, aberration as jaberration, old_aberration as jold_aberration, \
+	multimap as jmultimap, uharm as juharm, wavelets as jwavelets, pointsrcs as jpointsrcs, utils as jutils
 from pixell_tpu.ops import solvers as jsolvers
 from pixell_tpu_torch import curvedsky, sht, enmap, fft, wcsutils, powspec, interpol, resample, array_ops, \
-	healpix, reproject, coordinates, sites, lensing, aberration, old_aberration
+	healpix, reproject, coordinates, sites, lensing, aberration, old_aberration, multimap, uharm, wavelets, \
+	pointsrcs, utils
 from pixell_tpu_torch.ops import solvers
 
 LMAX = 16
@@ -36,7 +47,9 @@ PAIRS = {"curvedsky": (jcurvedsky, curvedsky), "sht": (jsht, sht), "enmap": (jen
 	"interpol": (jinterpol, interpol), "resample": (jresample, resample), "array_ops": (jarray_ops, array_ops),
 	"healpix": (jhealpix, healpix), "reproject": (jreproject, reproject), "coordinates": (jcoordinates, coordinates),
 	"sites": (jsites, sites), "lensing": (jlensing, lensing), "aberration": (jaberration, aberration),
-	"old_aberration": (jold_aberration, old_aberration), "solvers": (jsolvers, solvers)}
+	"old_aberration": (jold_aberration, old_aberration), "solvers": (jsolvers, solvers),
+	"multimap": (jmultimap, multimap), "uharm": (juharm, uharm), "wavelets": (jwavelets, wavelets),
+	"pointsrcs": (jpointsrcs, pointsrcs)}
 
 
 def shared_names():
@@ -90,30 +103,44 @@ def test_the_check_covers_the_entry_points():
 		"healpix2map", "thumbnails", "transform", "get_interpol", "positions", "expand_site",
 		"lens_map_curved", "lens_map", "offset_by_grad", "boost_map", "Aberrator", "Aberrator.aberrate",
 		"Modulator.modulate", "remap", "apply_aberration", "cg_solve", "jacobi_refine", "iu2nu", "inu2u",
-		"nufft", "inufft", "nufft_adjoint", "inufft_adjoint", "shift_interp"} <= names
+		"nufft", "inufft", "nufft_adjoint", "inufft_adjoint", "shift_interp", "ndmaps", "ndmaps.flat", "from_flat",
+		"UHT", "UHT.map2harm", "UHT.harm2map", "UHT.hmul", "UHT.sum_hprof", "WaveletTransform",
+		"WaveletTransform.map2wave", "WaveletTransform.wave2map", "ButterTrim", "HaarTransform.map2wave",
+		"sim_objects", "radial_sum", "sim_srcs", "crossmatch", "cellify", "read_sauron"} <= names
 
 
-@pytest.mark.parametrize("mod", ["healpix", "reproject", "coordinates", "sites"])
+@pytest.mark.parametrize("mod", ["healpix", "reproject", "coordinates", "sites", "multimap", "uharm", "pointsrcs"])
 def test_every_public_name(mod):
-	"""healpix, reproject, coordinates and sites have every public name of
-	the reference's modules (the not yet ported ones among them raise)."""
+	"""healpix, reproject, coordinates, sites, multimap, uharm and pointsrcs
+	have every public name of the reference's modules (the not yet ported
+	ones among them raise)."""
 	ref, port = PAIRS[mod]
 	public = lambda m: {n for n in dir(m) if not n.startswith("_") and not inspect.ismodule(getattr(m, n))
 		and getattr(getattr(m, n), "__module__", m.__name__) == m.__name__}
 	assert public(ref) - set(dir(port)) == set()
 
 
-@pytest.mark.parametrize("mod", ["fft", "lensing", "aberration", "old_aberration", "solvers"])
+@pytest.mark.parametrize("mod", ["fft", "lensing", "aberration", "old_aberration", "solvers", "wavelets"])
 def test_every_public_callable(mod):
-	"""fft, lensing, aberration, old_aberration and ops.solvers have every
-	public function and class of the reference's modules. (Of the
-	reference's constants, fft.GATHER_CHUNK and lensing.ROWBAND_MAX_NXS
-	size TPU workarounds that are not ported.)"""
+	"""fft, lensing, aberration, old_aberration, ops.solvers and wavelets
+	have every public function and class of the reference's modules. (Of
+	the reference's constants, fft.GATHER_CHUNK, lensing.ROWBAND_MAX_NXS and
+	wavelets.OFFLOAD_BYTES size TPU workarounds that are not ported.)"""
 	ref, port = PAIRS[mod]
 	public = {n for n in dir(ref) if not n.startswith("_") and (inspect.isfunction(getattr(ref, n))
 		or inspect.isclass(getattr(ref, n))) and getattr(ref, n).__module__ == ref.__name__}
 	assert public - set(dir(port)) == set()
 	assert all(callable(getattr(port, n)) for n in public)
+
+
+@pytest.mark.parametrize("name", ["czeros", "RadialFourierTransform", "crossmatch"])
+def test_utils_additions(name):
+	"""The utils names the config-5 modules brought: the reference's
+	parameters first, the port's extras keyword-only."""
+	rp = list(inspect.signature(getattr(jutils, name)).parameters.values())
+	pp = list(inspect.signature(getattr(utils, name)).parameters.values())
+	assert [(p.name, p.kind) for p in pp[:len(rp)]] == [(p.name, p.kind) for p in rp]
+	assert all(p.kind == p.KEYWORD_ONLY for p in pp[len(rp):])
 
 
 def geometry():

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 from pixell_tpu_torch.ops import sht_cuda
 
