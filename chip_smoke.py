@@ -10,7 +10,8 @@ and nufft.cu, all compilers started together) and prints each kernel's
 registers and spills (every float64 instantiation of the bulk kernels and
 all twelve of K10 / K11 / K12 must be built, and none of them may spill),
 then runs the phases below (all of them with no arguments; --phases with a
-choice of k9,kernels,lstop,slice,adjoint,blocked,timing,general,flat,interp,healpix,lensing,config5 runs
+choice of k9,kernels,lstop,slice,adjoint,blocked,timing,general,flat,interp,healpix,lensing,config5,
+analysis runs
 those alone, for work on one phase, and gives no verdict; the phases
 "variants", 6. below, and "blkprobe" run only when named). With
 --parent DIR, a directory holding a parent tree's legendre.cu, blockleg.cu
@@ -389,12 +390,45 @@ K10 / K11 (below):
    reconstruction against the float64 one (5e-3). The kernels JSON line
    gives each kernel's launches in these paths ("config5_launches").
 
+13. analysis: the point-source analysis of the DR6-sized band through
+   pixell_tpu_torch.distances, .enmap's masks and .analysis, on K13
+   (jump_flood_kernel, a launch a flood pass) and K14
+   (nearest_point_kernel, the brute force over <= 1024 points) of
+   csrc/distances.cu. Guards first: K13 and K14 against their plain
+   versions on the card (ops/distances_core.py) on a 1024 x 2048 cut of
+   the band (pixel seeds, int32 and int64, 1000 point seeds, 1000 points)
+   and at nside 256
+   (brute, grid), distances within 1e-13 rad and seeds or domains equal
+   outside such ties; K13 against K14's exact distance there (never
+   shorter by more than 1e-12, within it on >= 99.9 % of pixels); the
+   whole chain in float64 at 64 x 128 on the card against CPU tensors
+   (1e-12 of the largest value). Then the band at full size, T float32:
+   10 000 sources (S/N log-uniform 3-300 from the filter's kappa, a 1.4'
+   Gaussian beam, at least 16 pixels apart) painted by sim_objects with
+   white noise of a smooth ivar; distance_from of the 1000 brightest > 5'
+   (K14); apod_mask of the footprint over 1 degree (K13);
+   FinderMultiSafe over NmatConstcorr (iC = 1, flat UHT) on the apodized
+   map (cuFFT, the host labelling, the circles on K13); inpaint where the
+   bright-source mask is False (K13). The first step driven with the
+   launch counts at 0 and profiled (busy share, device time by kernel, no
+   host <-> device copy above 1 MB outside the finder's named host
+   stages), peak memory under 70 GiB, every injected source of expected
+   S/N >= 10 found within 2 pixels and every found one of S/N >= 10
+   within 2 of an injected one; then 3 steps timed with CUDA events by
+   stage and the host stages by wall time (analysis.HOST_MS). Once, not
+   timed: sim_srcs_dist_transform of all 10 000 sources (K13) against
+   sim_objects, and distance_from_points_healpix at nside 2048 for the
+   1000 bright sources, brute (K14) and grid (K13). The K13 / K14 records
+   (kernel, plain and bound on 256 full-width rows of the band, beside the
+   band's own time a launch) with the step's launches.
+
 It prints the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and yardstick, and as the last line
 {"ok": true, "device": {...}}. Any failure raises, and the exit code is then
 nonzero; without a CUDA device it exits with code 2.
 """
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -573,7 +607,10 @@ def print_build_summary(log, only=None):
 				r"([01])E)?", m.group(1))
 			n = re.search(r"(u2nu_points|nu2u_spread)_kernelI([fd])Lb([01])E", m.group(1))
 			k = re.search(r"tile_keys_kernelI([fd])([si])E", m.group(1))
-			entry = ("fma_peak<%s>" % f.group(1) if f else
+			j = re.search(r"jump_flood_kernelI([ix])E", m.group(1))
+			d = "nearest_point" if "nearest_point_kernel" in m.group(1) else \
+				"jump_flood<%s>" % ("int32" if j.group(1) == "i" else "int64") if j else None
+			entry = d or ("fma_peak<%s>" % f.group(1) if f else
 				"%s<%s,%s>" % (n.group(1), n.group(2), "complex" if n.group(3) == "1" else "real") if n else
 				"tile_keys<%s,%s>" % (k.group(1), "int16" if k.group(2) == "s" else "int32") if k else
 				("blk_%s<C=%s>" % b.groups() if b else
@@ -2773,6 +2810,17 @@ def nufft_build_check(rows):
 			sum(bool(r[3]) for r in got)))
 
 
+def dist_build_check(rows):
+	"""K13 and K14 among print_build_summary's rows: jump_flood_kernel for
+	int32 and int64 seeds and nearest_point_kernel (3), none spilling.
+	Raises otherwise."""
+	got = [r for r in rows if r[1].startswith(("jump_flood<", "nearest_point"))]
+	print("ptxas: %d distance instantiations (of 3): %s" % (len(got), ", ".join(
+		"%s %d registers, %d bytes spilled" % (e, n, b) for _, e, n, b in got)))
+	if len(got) != 3 or any(r[3] for r in got):
+		raise RuntimeError("K13 / K14: %d instantiations built, %d spill" % (len(got), sum(bool(r[3]) for r in got)))
+
+
 def nufft_ops(npt, C, w):
 	"""Operations of one K10 or K11 call: per point and real component 2 w^2
 	(a multiply-add per tap, FMA = 2), and 2 w ES weights of ES_OPS each."""
@@ -4832,8 +4880,587 @@ def config5_phase():
 	if failed: raise RuntimeError("config5 guards failed:\n" + "\n".join(failed))
 
 
+# ---------------------------------------------------------------------------
+# 13. analysis: distance transforms, masks and the matched-filter finder on
+# the DR6-sized band (K13 jump_flood, K14 nearest_point; csrc/distances.cu)
+# ---------------------------------------------------------------------------
+DIST_SOURCE = "pixell_tpu_torch/csrc/distances.cu"
+AN_NSRC = 10_000               # injected sources
+AN_NBRIGHT = 1000              # the brightest, masked out to AN_BRIGHT_R and inpainted
+AN_FWHM = 1.4                  # arcmin, Gaussian beam
+AN_SN = (3.0, 300.0)           # log-uniform S/N of the sources
+AN_BRIGHT_R = 5.0              # arcmin
+AN_APOD = 1.0                  # degrees
+AN_SNMIN = 5                   # the finder's threshold
+AN_CUT = (1024, 2048)          # the twins' cut of the band (from its row ny // 3 and column nx // 2)
+AN_REC_ROWS = 256              # full-width rows of the records' timing cut
+AN_HP = (256, 2048)            # nside of the twins' guard, of the one-shot HEALPix runs
+AN_TWIN_TOL = 1e-13            # K13 / K14 against their twins, radians
+AN_EXACT_TOL = 1e-12           # K13 against K14's exact distance, radians
+AN_EXACT_SHARE = 0.999         # share of pixels K13 must get within AN_EXACT_TOL
+AN_CPU_TOL = 1e-12             # the chain on the card against CPU tensors, float64, of the largest value
+AN_CPU_SHAPE = (64, 128)       # the chain's guard cut (from the band's row ny // 2 and column nx // 2)
+AN_FIND = (10.0, 2.0)          # S/N and pixels of the finder's guard
+# sim_srcs_dist_transform against sim_objects, of the largest value: where it paints (sim_objects interpolates
+# an equispaced resampling of the profile, pointsrcs._equi_profiles, the distance transform the profile
+# itself: 3.5e-6 on the card), and sim_objects' paint beyond its disks (its rim, ~exp(-8) of a peak)
+AN_DT_TOL = (1e-5, 1e-3)
+AN_NREP = 3
+# FP64 operations the two functions need, counted from the work and not from the kernels' Vincenty form: with unit
+# vectors made once a pixel and once a point, a pixel-point pair (K14) or an evaluated candidate (K13) needs a
+# dot product (1 multiply and 2 FMA, 5 operations) and a compare; K14 then needs one angle a pixel, counted as
+# the 10 explicit operations of csrc/distances.cu's vincenty. The unit vectors' and the angle's sincos, hypot
+# and atan2 are not counted, so each bound is a lower bound.
+AN_PAIR_OPS = 6
+AN_ANGLE_OPS = 10
+AN_LAUNCHES = {}               # launches of the analysis paths, by kernel
+
+
+def an_geometry():
+	from pixell_tpu_torch import enmap, utils
+	return enmap.band_geometry(np.array([-63, 23])*utils.degree, res=0.5*utils.arcmin)
+
+
+def an_profile():
+	"""The unit-integral Gaussian beam (r, b(r)) of AN_FWHM on 1000 radii."""
+	from pixell_tpu_torch import utils
+	sigma = AN_FWHM*utils.arcmin*utils.fwhm
+	r = np.linspace(0, 10*sigma, 1000)
+	return np.array([r, np.exp(-0.5*(r/sigma)**2)/(2*np.pi*sigma**2)])
+
+
+def an_drive(label, fn):
+	"""fn() with the distance kernels' counts at 0 just before and read just
+	after, added into AN_LAUNCHES; both kernels must have launched unless
+	the label says which."""
+	from pixell_tpu_torch.ops import distances_cuda
+	distances_cuda.reset_launches()
+	res = fn()
+	torch.cuda.synchronize()
+	got = dict(distances_cuda.LAUNCHES)
+	for k, v in got.items(): AN_LAUNCHES[k] = AN_LAUNCHES.get(k, 0) + v
+	print("analysis %s: launches %s" % (label, got))
+	return res, got
+
+
+@contextlib.contextmanager
+def an_plain(evals=None):
+	"""Inside, distances_cuda's wrappers take their CPU branch on every
+	device: the same calls run the plain versions on the card, and no
+	launch is counted. With evals (a list), each flood pass appends its
+	count of pixels whose candidate is evaluated (a seed, not the pixel's
+	own; at the initial pass, the seeds)."""
+	from pixell_tpu_torch.ops import distances_cuda, distances_core as core
+	on_card, plain = distances_cuda._on_card, dict(distances_cuda.PLAIN)
+
+	def counted(seed, dist, pd, pr, table, sy, sx, wrapx, init=False):
+		if init: evals.append(int((seed >= 0).sum()))
+		else:
+			c = core.shift2d(seed, sy, sx, wrapx, -1)
+			evals.append(int(((c >= 0) & (c != seed)).sum()))
+		return plain["jump_flood"](seed, dist, pd, pr, table, sy, sx, wrapx, init)
+	distances_cuda._on_card = lambda x: False
+	if evals is not None: distances_cuda.PLAIN["jump_flood"] = counted
+	try:
+		yield
+	finally:
+		distances_cuda._on_card = on_card
+		distances_cuda.PLAIN.update(plain)
+
+
+def an_nearest_plain(pd, pr, pt, shape, rows=128):
+	"""K14's wrapper through its plain version on the card, rows rows at a
+	time (the plain version's [pixels, 128] blocks would not fit at once)."""
+	from pixell_tpu_torch.ops import distances_cuda
+	pd, pr = pd.expand(shape), pr.expand(shape)
+	with an_plain():
+		out = [distances_cuda.nearest_point(pd[i:i+rows], pr[i:i+rows], pt[0], pt[1], (min(rows, shape[0]-i),
+			shape[1])) for i in range(0, shape[0], rows)]
+	return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
+
+
+def an_twin_check(label, dk, dp, sk, sp, failed):
+	"""Distances within AN_TWIN_TOL; seeds or domains identical except where
+	the two candidates' distances agree within it."""
+	err = float((dk - dp).abs().max())
+	diff = sk != sp
+	ndiff = int(diff.sum())
+	tie = float((dk - dp)[diff].abs().max()) if ndiff else 0.0
+	print("analysis twin %s: max |d - d_plain| %.3e rad (bound %.0e); %d seeds differ, their distances within "
+		"%.3e" % (label, err, AN_TWIN_TOL, ndiff, tie))
+	if not (err <= AN_TWIN_TOL and tie <= AN_TWIN_TOL): failed.append("twin %s: %g, %d seeds (%g)" % (label, err,
+		ndiff, tie))
+	return err
+
+
+def an_points_on(shape, wcs, n, rng, margin=0):
+	"""n points [{dec, ra}, n] at distinct random pixels of the geometry,
+	displaced by up to 0.3 pixels (no two round to one pixel), and those
+	pixels' flat indices."""
+	from pixell_tpu_torch import enmap
+	ny, nx = shape[-2:]
+	flat = rng.choice((ny - 2*margin)*(nx - 2*margin), n, replace=False)
+	pix = np.array([flat//(nx - 2*margin) + margin, flat % (nx - 2*margin) + margin], float)
+	pix += rng.uniform(-0.3, 0.3, pix.shape)
+	return enmap.pix2sky(shape, wcs, pix), np.round(pix).astype(int)
+
+
+def an_twins(failed):
+	"""K13 and K14 against their plain versions on the card: on a 1024 x 2048
+	cut of the band (pixel seeds, point seeds, 1000 points) and at nside 256
+	(brute, grid); then K13 against K14's exact distance on the cut."""
+	from pixell_tpu_torch import enmap, distances
+	from pixell_tpu_torch.ops import distances_cuda
+	shape, wcs = an_geometry()
+	y0, x0 = shape[-2]//3, shape[-1]//2
+	cshape, cwcs = enmap.slice_geometry(shape, wcs, (slice(y0, y0 + AN_CUT[0]), slice(x0, x0 + AN_CUT[1])))
+	rng = np.random.default_rng(31)
+	pd, pr = distances._positions(cshape, cwcs, DEV)
+	steps, wrapx = distances._steps_for(max(cshape)), distances._is_wrapx(cshape, cwcs)
+	n = int(np.prod(cshape))
+	errs = {}
+	# pixel seeds (the transforms)
+	seed = torch.where(torch.from_numpy(rng.uniform(size=cshape) < 1e-3).to(DEV),
+		torch.arange(n, device=DEV, dtype=torch.int32).reshape(cshape), -1)
+	sk, dk = distances_cuda.jump_flood(seed, pd, pr, wrapx, steps)
+	with an_plain():
+		sp, dp = distances_cuda.jump_flood(seed, pd, pr, wrapx, steps)
+	errs["jump_flood"] = an_twin_check("K13 %s pixel seeds" % (cshape,), dk, dp, sk, sp, failed)
+	# the same flood with int64 seeds (jump_flood_kernel<long long>, for seed tables of 2^31 or more): equal
+	# to the int32 kernel's and to the plain version's
+	s64, d64 = distances_cuda.jump_flood(seed.to(torch.int64), pd, pr, wrapx, steps)
+	same = s64.dtype == torch.int64 and bool((s64 == sk.to(torch.int64)).all()) and bool((d64 == dk).all())
+	print("analysis twin K13 %s pixel seeds, int64: seeds and distances %s the int32 kernel's" % (cshape,
+		"equal to" if same else "DIFFERENT FROM"))
+	if not same: failed.append("K13 int64 seeds differ from int32")
+	an_twin_check("K13 %s pixel seeds, int64" % (cshape,), d64, dp, s64, sp.to(torch.int64), failed)
+	# point seeds (a table), 1000 points: K13, K14, and K13 against K14's exact distance
+	pts, pix = an_points_on(cshape, cwcs, 1000, rng)
+	pt = torch.from_numpy(pts).to(DEV)
+	seed = torch.full(cshape, -1, dtype=torch.int32, device=DEV)
+	seed[torch.from_numpy(pix[0]).to(DEV), torch.from_numpy(pix[1]).to(DEV)] = torch.arange(1000, dtype=torch.int32,
+		device=DEV)
+	sk, dk = distances_cuda.jump_flood(seed, pd, pr, wrapx, steps, (pt[0], pt[1]))
+	with an_plain():
+		sp, dp = distances_cuda.jump_flood(seed, pd, pr, wrapx, steps, (pt[0], pt[1]))
+	errs["jump_flood"] = max(errs["jump_flood"], an_twin_check("K13 %s 1000 point seeds" % (cshape,), dk, dp, sk,
+		sp, failed))
+	ek, ik = distances_cuda.nearest_point(pd, pr, pt[0], pt[1], cshape)
+	ep, ip = an_nearest_plain(pd, pr, pt, cshape)
+	errs["nearest_point"] = an_twin_check("K14 %s 1000 points" % (cshape,), ek, ep, ik, ip, failed)
+	below = float((ek - dk).max())   # K13 shorter than the exact distance by
+	share = float(((dk - ek).abs() <= AN_EXACT_TOL).double().mean())
+	print("analysis K13 against K14's exact distance on %s, 1000 points: K13 shorter by at most %.3e rad (bound "
+		"%.0e); %.5f %% of pixels within %.0e (bound %.1f %%): the flood's rate of misses %.5f %%" % (cshape, below,
+		AN_EXACT_TOL, 100*share, AN_EXACT_TOL, 100*AN_EXACT_SHARE, 100*(1 - share)))
+	if not (below <= AN_EXACT_TOL and share >= AN_EXACT_SHARE):
+		failed.append("K13 against exact: shorter by %g, share %g" % (below, share))
+	# HEALPix at nside 256: brute (K14) and grid (K13) against their plain versions
+	nside = AN_HP[0]
+	info = distances.healpix_info(nside)
+	hp = np.array([np.arcsin(rng.uniform(-1, 1, 500)), rng.uniform(0, 2*np.pi, 500)])
+	for method in ("brute", "grid"):
+		dkh, lkh = distances.distance_from_points_healpix(info, hp, domains=True, method=method, device=DEV)
+		with an_plain():
+			dph, lph = distances.distance_from_points_healpix(info, hp, domains=True, method=method, device=DEV)
+		e = an_twin_check("nside %d %s, 500 points" % (nside, method), dkh, dph, lkh, lph, failed)
+		key = "nearest_point" if method == "brute" else "jump_flood"
+		errs[key] = max(errs[key], e)
+	return errs
+
+
+def an_finder(shape, wcs, ivar, prof, device):
+	"""The step's finder, FinderMultiSafe over one NmatConstcorr (iC = 1,
+	the beam prof, a flat UHT), and that noise model."""
+	from pixell_tpu_torch import analysis, uharm, enmap
+	uht = uharm.UHT(shape, wcs, mode="flat", device=device)
+	B = uht.rprof2hprof(prof[1], prof[0])
+	iC = enmap.ndmap(torch.ones(B.shape, dtype=torch.float64, device=device), wcs)
+	nmat = analysis.NmatConstcorr(iC, ivar, B, uht)
+	return analysis.FinderMultiSafe([nmat], snmin=AN_SNMIN), nmat
+
+
+def an_step(shape, wcs, cat, noise, prof, finder, device, dtype, bright_r, apod_w, marks=None):
+	"""One step: the sources painted plus noise (srcsim); the bright-source
+	mask, distance_from(<brightest>) > bright_r (mask, K14); apod_mask of
+	the footprint over apod_w (apod, K13); the finder on the apodized map
+	(find: matched filter, host labelling, K13 circles); inpaint of the map
+	where the mask is False (inpaint, K13 with indices). (keep, apod,
+	finder's result, inpainted map)."""
+	from pixell_tpu_torch import enmap, pointsrcs
+	poss, flux, bright = cat
+	def mark():
+		if marks is None: return
+		e = torch.cuda.Event(enable_timing=True)
+		e.record()
+		marks.append(e)
+	mark()
+	m = pointsrcs.sim_objects(shape, wcs, poss, flux, prof, dtype=dtype, device=device)
+	m = enmap.ndmap(m.data + noise, wcs)
+	mark()
+	keep = enmap.distance_from(shape, wcs, bright, device=device).data > bright_r
+	mark()
+	apod = enmap.apod_mask(enmap.ndmap(torch.ones(tuple(shape), dtype=torch.bool, device=device), wcs), apod_w)
+	mark()
+	res = finder(enmap.ndmap(m.data*apod.data, wcs))
+	mark()
+	filled = enmap.inpaint(m, ~keep)
+	mark()
+	return keep, apod, res, filled
+
+
+def an_small_chain(device):
+	"""The whole chain in float64 at AN_CPU_SHAPE (a cut of the band) with
+	inputs from a numpy seed: 12 sources, 3 of them bright."""
+	from pixell_tpu_torch import enmap, utils
+	shape, wcs = an_geometry()
+	y0, x0 = shape[-2]//2, shape[-1]//2
+	cshape, cwcs = enmap.slice_geometry(shape, wcs, (slice(y0, y0 + AN_CPU_SHAPE[0]), slice(x0, x0 + AN_CPU_SHAPE[1])))
+	rng = np.random.default_rng(41)
+	poss, _ = an_points_on(cshape, cwcs, 12, rng, margin=8)
+	flux = rng.uniform(1, 3, 12)*1e-6
+	bright = poss[:, np.argsort(flux)[-3:]]
+	ivar = enmap.ndmap(torch.from_numpy(rng.uniform(0.5, 1.5, cshape)*1e4).to(device), cwcs)
+	noise = torch.from_numpy(rng.standard_normal(cshape)*1e-2).to(device)
+	prof = an_profile()
+	finder, _ = an_finder(cshape, cwcs, ivar, prof, device)
+	return an_step(cshape, cwcs, (poss, flux, bright), noise, prof, finder, device, torch.float64,
+		2*utils.arcmin, 5*utils.arcmin)
+
+
+def an_cpu_guard(failed):
+	"""The chain on the card against the same chain on CPU tensors."""
+	(kc, ac, rc, fc), launches = an_drive("chain at %s on the card, float64" % (AN_CPU_SHAPE,),
+		lambda: an_small_chain(DEV))
+	kh, ah, rh, fh = an_small_chain("cpu")
+	errs = {"mask": float((kc.cpu() != kh).sum()), "apod": relerr(ac.data.cpu(), ah.data),
+		"snr": relerr(rc.snr.data.cpu(), rh.snr.data), "inpaint": relerr(fc.data.cpu(), fh.data)}
+	same = len(rc.cat) == len(rh.cat) and len(rc.cat) > 0
+	if same:
+		for f in ("dec", "ra", "flux", "dflux", "snr"):
+			errs["cat." + f] = float(np.max(np.abs(rc.cat[f] - rh.cat[f]))/np.max(np.abs(rh.cat[f])))
+	print("analysis chain %s float64, card against CPU tensors: %d and %d objects found; errors %s (bound %.0e)" % (
+		AN_CPU_SHAPE, len(rc.cat), len(rh.cat), {k: "%.3e" % v for k, v in errs.items()}, AN_CPU_TOL))
+	if not same or not all(v <= AN_CPU_TOL for v in errs.values()) or not all(launches.values()):
+		failed.append("chain card against CPU: %d / %d objects, %s, launches %s" % (len(rc.cat), len(rh.cat), errs,
+			launches))
+
+
+def an_catalogue(shape, wcs, kappa):
+	"""AN_NSRC sources, one in each of as many random cells of 32 x 32
+	pixels, within 8 pixels of its centre (so at least 16 pixels apart, and
+	16 from the band's top and bottom), S/N log-uniform in AN_SN, their
+	fluxes from the filter's kappa at their pixels: (poss, flux, S/N, bright
+	poss, pixels)."""
+	from pixell_tpu_torch import enmap
+	rng = np.random.default_rng(22)
+	ny, nx = shape[-2:]
+	cy, cx = ny//32, nx//32
+	cell = rng.choice(cy*cx, AN_NSRC, replace=False)
+	pix = np.array([(cell//cx)*32 + 16, (cell % cx)*32 + 16]) + rng.integers(-8, 9, (2, AN_NSRC))
+	sn = np.exp(rng.uniform(np.log(AN_SN[0]), np.log(AN_SN[1]), AN_NSRC))
+	k = kappa[torch.from_numpy(pix[0]).to(kappa.device), torch.from_numpy(pix[1]).to(kappa.device)].cpu().numpy()
+	flux = sn/np.sqrt(k)
+	poss = enmap.pix2sky(shape, wcs, pix.astype(float))
+	bright = poss[:, np.argsort(sn)[-AN_NBRIGHT:]]
+	return poss, flux, sn, bright, pix
+
+
+def an_profile_step(fn, label):
+	"""(fn(), wall ms, busy ms, (K13 ms a launch, K14 ms a launch)) of fn
+	under the profiler: device time by op; fails
+	on a host <-> device copy above FLAT_COPY_BYTES whose call was issued
+	outside the finder's named host stages (analysis.<stage>)."""
+	from torch.profiler import profile, ProfilerActivity
+	with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+		h0 = time.perf_counter()
+		out = fn()
+		torch.cuda.synchronize()
+		wall = (time.perf_counter() - h0)*1e3
+	ka = prof.key_averages()
+	key = _device_key(ka)
+	busy = sum(getattr(e, key) for e in ka if e.device_type == torch.autograd.DeviceType.CUDA
+		and not getattr(e, "is_user_annotation", False))/1e3
+	print(ka.table(sort_by=key, row_limit=14, max_name_column_width=56))
+	band = []
+	for pattern in ("jump_flood_kernel", "nearest_point_kernel"):
+		ev = [e for e in ka if re.search(pattern, e.key)]
+		count = sum(e.count for e in ev)
+		band.append(sum(getattr(e, key) for e in ev)/1e3/count if count else None)
+		print("analysis %s: %s %d launches, %.3f ms device time in all" % (label, pattern, count,
+			sum(getattr(e, key) for e in ev)/1e3))
+	path = os.path.join(ROOT, "build", "analysis_trace.json")
+	os.makedirs(os.path.dirname(path), exist_ok=True)
+	prof.export_chrome_trace(path)
+	with open(path) as f: events = json.load(f)["traceEvents"]
+	os.remove(path)
+	stages = [(e["ts"], e["ts"] + e.get("dur", 0), e["name"]) for e in events
+		if str(e.get("name", "")).startswith("analysis.") and e.get("ph") == "X" and e.get("cat") != "gpu_user_annotation"]
+	calls = {(e.get("args") or {}).get("correlation"): e["ts"] for e in events if e.get("cat") == "cuda_runtime"}
+	copies = [e for e in events if e.get("cat") == "gpu_memcpy" and ("HtoD" in e.get("name", "")
+		or "DtoH" in e.get("name", ""))]
+	big, named = [], {}
+	for e in copies:
+		nb = (e.get("args") or {}).get("bytes")
+		if not ((nb is not None and nb > FLAT_COPY_BYTES) or (nb is None and e.get("dur", 0) > 50)): continue
+		t = calls.get((e.get("args") or {}).get("correlation"))
+		inside = [s[2] for s in stages if t is not None and s[0] <= t <= s[1]]
+		if inside: named[inside[0]] = named.get(inside[0], 0) + (nb or 0)
+		else: big.append((e.get("name"), nb, e.get("dur")))
+	print("analysis %s: one profiled step: wall %.3f ms, device busy %.3f ms (%.1f %%); %d host <-> device copies; "
+		"above %d bytes inside the named host stages: %s" % (label, wall, busy, 100*busy/wall, len(copies),
+		FLAT_COPY_BYTES, named))
+	if big: raise RuntimeError("analysis %s: host <-> device copies above %d bytes outside the named host stages: "
+		"%s" % (label, FLAT_COPY_BYTES, big[:5]))
+	return out, wall, busy, band
+
+
+def an_find_guard(res, cat, apod, failed):
+	"""Every injected source of expected S/N >= AN_FIND[0] (its S/N times
+	the apodization at its pixel: the finder runs on the apodized map) found
+	within AN_FIND[1] pixels, and every found source of S/N >= AN_FIND[0]
+	within AN_FIND[1] pixels of an injected one."""
+	from pixell_tpu_torch import enmap
+	import scipy.spatial
+	shape, wcs = an_geometry()
+	poss, flux, sn, bright, pix = cat
+	sn_exp = sn*apod.data[torch.from_numpy(pix[0]).to(DEV), torch.from_numpy(pix[1]).to(DEV)].cpu().numpy()
+	found = enmap.sky2pix(shape, wcs, np.array([res.cat.dec, res.cat.ra]))
+	nx = shape[-1]
+	def tree_pts(p):   # x wrapped onto [0, nx): the band is full-circle
+		return np.array([p[0], np.mod(p[1], nx)]).T
+	inj = tree_pts(pix.astype(float))
+	fnd = tree_pts(found)
+	# distances across the RA seam: also query shifted by +-nx
+	def nearest(a, b):
+		t = scipy.spatial.cKDTree(b)
+		return np.min([t.query(a + [0, s])[0] for s in (-nx, 0, nx)], 0)
+	want = sn_exp >= AN_FIND[0]
+	miss = int(np.sum(nearest(inj[want], fnd) > AN_FIND[1])) if len(fnd) else int(want.sum())
+	strong = res.cat.snr >= AN_FIND[0]
+	spur = int(np.sum(nearest(fnd[strong], inj) > AN_FIND[1])) if strong.any() else 0
+	print("analysis finder at full size: %d objects found (%d at S/N >= %g); of %d injected sources with expected "
+		"S/N >= %g, %d not found within %g pixels; %d found at S/N >= %g not within %g pixels of an injected one"
+		% (len(res.cat), int(strong.sum()), AN_FIND[0], int(want.sum()), AN_FIND[0], miss, AN_FIND[1], spur,
+		AN_FIND[0], AN_FIND[1]))
+	if miss or spur: failed.append("finder: %d missed, %d spurious" % (miss, spur))
+
+
+def an_record(name, kind, replaces, err, ms, plain_ms, bound, library_ms, extra):
+	rec = {"name": name, "route": "cuda", "source": DIST_SOURCE, "replaces": replaces, "launches": 0,
+		"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+		"library_ms": library_ms, "kind": kind}
+	rec.update(extra)
+	return rec
+
+
+def an_timed(fn):
+	"""(fn(), its ms by CUDA events around one call)."""
+	torch.cuda.synchronize()
+	t0 = torch.cuda.Event(enable_timing=True)
+	t1 = torch.cuda.Event(enable_timing=True)
+	t0.record()
+	out = fn()
+	t1.record()
+	torch.cuda.synchronize()
+	return out, t0.elapsed_time(t1)
+
+
+def an_device_ms(fn, pattern):
+	"""(mean device ms a launch, launches) of the kernels matching pattern
+	in one profiled call of fn."""
+	from torch.profiler import profile, ProfilerActivity
+	with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+		fn()
+		torch.cuda.synchronize()
+	ka = prof.key_averages()
+	ev = [e for e in ka if re.search(pattern, e.key)]
+	count = sum(e.count for e in ev)
+	return (sum(getattr(e, _device_key(ka)) for e in ev)/1e3/count if count else None), count
+
+
+def an_records(bright, failed, errs, band):
+	"""K13 and K14 timed on AN_REC_ROWS full-width rows of the band (its
+	width, step list and RA wrap): per launch the kernel's device time, the
+	plain version's time and the bound (bytes over 3.35 TB/s or the counted
+	FP64 operations over 34 TFLOP/s); beside them each kernel's time a
+	launch at the full band in the main path's profiled step (band_ms)."""
+	from pixell_tpu_torch import enmap, distances
+	from pixell_tpu_torch.ops import distances_cuda
+	shape, wcs = an_geometry()
+	y0 = shape[-2]//3
+	cshape, cwcs = enmap.slice_geometry(shape, wcs, (slice(y0, y0 + AN_REC_ROWS), slice(None)))
+	rng = np.random.default_rng(53)
+	pd, pr = distances._positions(cshape, cwcs, DEV)
+	steps, wrapx = distances._steps_for(max(cshape)), distances._is_wrapx(cshape, cwcs)
+	n = int(np.prod(cshape))
+	ny, nx = cshape
+	seed = torch.where(torch.from_numpy(rng.uniform(size=cshape) < 1e-3).to(DEV),
+		torch.arange(n, device=DEV, dtype=torch.int32).reshape(cshape), -1)
+	nl = 1 + 8*len(steps)
+	fn = lambda: distances_cuda.jump_flood(seed, pd, pr, wrapx, steps)
+	sk, dk = fn()
+	k_ms, count = an_device_ms(fn, "jump_flood_kernel")   # the mean over the launches the trace holds
+	if 2*count < nl: failed.append("K13 record: %d launches traced of %d" % (count, nl))
+	with an_plain():
+		(sp, dp), p_ms = an_timed(fn)
+	p_ms /= nl
+	evals = []
+	with an_plain(evals):
+		fn()
+	e13 = an_twin_check("K13 %s (records' cut) pixel seeds" % (cshape,), dk, dp, sk, sp, failed)
+	nb = n*(4 + 8 + 4 + 8) + (ny + nx)*8      # seed and distance read and written a pass, the axes
+	ops = float(np.mean(evals))*AN_PAIR_OPS
+	b13 = max((1e3*nb/PEAK_BYTES, "bytes"), (1e3*ops/PEAK_FLOPS[torch.float64], "operations"))
+	print("K13 row: jump_flood_kernel<int> on %s, %d launches a flood: %.4f ms a launch (profiler, %d launches "
+		"traced), plain %.4f ms, bound %.4f ms (%s; %.1f %%; %.1f M pixels evaluated a pass on average)" % (cshape,
+		nl, k_ms, count, p_ms, b13[0], b13[1], 100*b13[0]/k_ms, np.mean(evals)/1e6))
+	# K14 at the main path's 1000 points
+	pt = torch.from_numpy(np.asarray(bright, np.float64)).to(DEV)
+	fn = lambda: distances_cuda.nearest_point(pd, pr, pt[0], pt[1], cshape)
+	ek, ik = fn()
+	k14_ms, how = kernel_ms(fn, 3, "nearest_point_kernel")
+	(ep, ip), p14_ms = an_timed(lambda: an_nearest_plain(pd, pr, pt, cshape, rows=32))
+	e14 = an_twin_check("K14 %s (records' cut) %d points" % (cshape, pt.shape[1]), ek, ep, ik, ip, failed)
+	nb = n*(8 + 4) + pt.shape[1]*16 + (ny + nx)*8   # distance and domain written
+	ops = float(n)*(pt.shape[1]*AN_PAIR_OPS + AN_ANGLE_OPS)
+	b14 = max((1e3*nb/PEAK_BYTES, "bytes"), (1e3*ops/PEAK_FLOPS[torch.float64], "operations"))
+	print("K14 row: nearest_point_kernel on %s, %d points: %.4f ms (%s), plain %.4f ms, bound %.4f ms (%s; "
+		"%.1f %%)" % (cshape, pt.shape[1], k14_ms, how, p14_ms, b14[0], b14[1], 100*b14[0]/k14_ms))
+	band13, band14 = band
+	nband = float(np.prod(shape))
+	bb13 = 1e3*(nband*(4 + 8 + 4 + 8) + sum(shape)*8)/PEAK_BYTES
+	bb14 = 1e3*nband*(pt.shape[1]*AN_PAIR_OPS + AN_ANGLE_OPS)/PEAK_FLOPS[torch.float64]
+	print("analysis band %s: K13 %.4f ms a launch (bytes bound %.4f ms, %.1f %%), K14 %.4f ms (%d points; "
+		"operations bound %.4f ms, %.1f %%), in the profiled step" % (tuple(shape), band13, bb13, 100*bb13/band13,
+		band14, pt.shape[1], bb14, 100*bb14/band14))
+	recs = [an_record("jump_flood[int32]", "jump_flood", "pixell_tpu/distances.py:34", max(e13, errs["jump_flood"]),
+			k_ms, p_ms, b13, None, {"shape": list(cshape), "band_ms": band13, "band_bound_ms": bb13,
+			"launches_a_flood": nl}),
+		an_record("nearest_point[float64]", "nearest_point", "pixell_tpu/distances.py:124",
+			max(e14, errs["nearest_point"]), k14_ms, p14_ms, b14, None, {"shape": list(cshape),
+			"npoint": int(pt.shape[1]), "band_ms": band14, "band_bound_ms": bb14})]
+	return recs
+
+
+def analysis_phase():
+	"""Twins and exact guards, the chain against CPU tensors, then the
+	DR6-sized band: the step timed (median of 3) with its stages, launches,
+	busy share, memory and copies; the finder guard; the one-shot runs; the
+	K13 / K14 records."""
+	from pixell_tpu_torch import enmap, utils, pointsrcs, analysis, distances
+	from pixell_tpu_torch.ops import distances_cuda
+	h0 = time.perf_counter()
+	AN_LAUNCHES.clear()
+	failed = []
+	errs = an_twins(failed)
+	an_cpu_guard(failed)
+	print("analysis guards done at %.1f s" % (time.perf_counter() - h0))
+	shape, wcs = an_geometry()
+	prof = an_profile()
+	t0 = time.perf_counter()
+	ny, nx = shape
+	gen = torch.Generator(device=DEV)
+	gen.manual_seed(23)
+	y = torch.linspace(0, 1, ny, device=DEV, dtype=torch.float64)[:, None]
+	x = torch.linspace(0, 1, nx, device=DEV, dtype=torch.float64)[None, :]
+	ivar = ((1 + 0.5*torch.sin(2*np.pi*x)*torch.cos(np.pi*y))*4e4).to(torch.float32)   # smooth, per pixel
+	noise = torch.randn(tuple(shape), generator=gen, device=DEV, dtype=torch.float32)*ivar**-0.5
+	ivar = enmap.ndmap(ivar, wcs)
+	finder, nmat = an_finder(shape, wcs, ivar, prof, DEV)
+	zero = enmap.zeros(tuple(shape), wcs, torch.float32, device=DEV)
+	kappa = nmat.matched_filter(zero)[1].data
+	cat = an_catalogue(shape, wcs, kappa)
+	del zero, kappa
+	torch.cuda.empty_cache()
+	print("analysis band %s: set-up (UHT, beam and iC planes, kappa, catalogue) %.1f s; %d sources, S/N %.1f-%.1f; "
+		"%d bright" % (tuple(shape), time.perf_counter() - t0, len(cat[1]), cat[2].min(), cat[2].max(), AN_NBRIGHT))
+	args = (shape, wcs, cat[:2] + (cat[3],), noise, prof, finder, DEV, torch.float32, AN_BRIGHT_R*utils.arcmin,
+		AN_APOD*utils.degree)
+	torch.cuda.reset_peak_memory_stats()
+	t0 = time.perf_counter()
+	# the first step: driven with the counts at 0, profiled (busy share, device time by kernel, copies)
+	((keep, apod, res, filled), wall, busy, band), launches = an_drive("band step", lambda: an_profile_step(
+		lambda: an_step(*args), "band step"))
+	print("analysis band: first step %.1f s (wall, profiled)" % (time.perf_counter() - t0))
+	peak = torch.cuda.max_memory_allocated()/2**30
+	ok = bool(torch.isfinite(filled.data).all()) and bool(torch.isfinite(apod.data).all()) \
+		and tuple(filled.shape) == tuple(shape) and 0 < float(keep.float().mean()) < 1
+	print("analysis band: inpainted map %s %s, apod in [%.3f, %.3f], %.4f %% masked by the bright sources; "
+		"peak device memory %.2f GiB (bound %d)" % (tuple(filled.shape), filled.dtype, float(apod.data.min()),
+		float(apod.data.max()), 100*(1 - float(keep.float().mean())), peak, FLAT_MEM_GIB))
+	if not ok: failed.append("band step: outputs not finite or of the wrong shape")
+	if not peak < FLAT_MEM_GIB: failed.append("band step: peak %.2f GiB" % peak)
+	if not (launches["jump_flood"] and launches["nearest_point"]): failed.append("band step launches %s" % launches)
+	an_find_guard(res, cat, apod, failed)
+	del keep, apod, res, filled
+	torch.cuda.empty_cache()
+	steps, stages, hosts = [], [], []
+	for it in range(AN_NREP):
+		marks = []
+		analysis.reset_host_ms()
+		out = an_step(*args, marks=marks)
+		torch.cuda.synchronize()
+		hosts.append(dict(analysis.HOST_MS))
+		del out
+		stages.append([a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])])
+		steps.append(marks[0].elapsed_time(marks[-1]))
+	med = float(np.median(steps))
+	print("analysis band step: %.3f ms (median of %d; min %.3f, max %.3f)" % (med, AN_NREP, min(steps), max(steps)))
+	for j, name in enumerate(("srcsim", "mask (K14)", "apod (K13)", "find", "inpaint (K13)")):
+		v = [s[j] for s in stages]
+		print("analysis band stage %s: %.3f ms (median of %d; min %.3f, max %.3f), %.1f %% of the step" % (name,
+			float(np.median(v)), len(v), min(v), max(v), 100*float(np.median(v))/med))
+	for name in analysis.HOST_STAGES:
+		v = [h[name] for h in hosts]
+		print("analysis band host stage %s (inside find): %.3f ms wall (median of %d; min %.3f, max %.3f)" % (name,
+			float(np.median(v)), len(v), min(v), max(v)))
+	torch.cuda.empty_cache()
+	# one-shot runs: sim_srcs_dist_transform of every source (> 1024: K13), HEALPix at nside 2048
+	srcs = np.array([cat[0][0], cat[0][1], cat[1]]).T
+	t0 = time.perf_counter()
+	(dt, _) = an_drive("sim_srcs_dist_transform of %d sources" % AN_NSRC, lambda: pointsrcs.sim_srcs_dist_transform(
+		shape, wcs, srcs, (prof[0], prof[1]), dtype=np.float64, device=DEV))
+	print("analysis sim_srcs_dist_transform: %.1f s (wall, once)" % (time.perf_counter() - t0))
+	r, b = prof
+	sigma_eff = r[np.argmin(np.abs(b - b[0]*np.exp(-0.5)))]
+	so = pointsrcs.sim_objects(shape, wcs, cat[0], cat[1], prof, dtype=np.float64, rmax=4*max(sigma_eff, r[1]),
+		vmin=1e-30, device=DEV)
+	on = dt.data != 0
+	top = float(so.data.abs().max())
+	e = float((dt.data - so.data).abs()[on].max())/top
+	rim = float(so.data.abs()[~on].max())/top
+	print("analysis sim_srcs_dist_transform against sim_objects (the same rmax; no two sources' disks overlap): "
+		"rel err %.3e where it paints (bound %.0e), sim_objects' values beyond its disks up to %.3e of the largest "
+		"(bound %.0e)" % (e, AN_DT_TOL[0], rim, AN_DT_TOL[1]))
+	if not (e <= AN_DT_TOL[0] and rim <= AN_DT_TOL[1]):
+		failed.append("sim_srcs_dist_transform against sim_objects %g, %g" % (e, rim))
+	del dt, so
+	torch.cuda.empty_cache()
+	info = distances.healpix_info(AN_HP[1])
+	hp = {}
+	for method in ("brute", "grid"):
+		t0 = time.perf_counter()
+		(hp[method], _) = an_drive("distance_from_points_healpix nside %d %s, %d points" % (AN_HP[1], method,
+			AN_NBRIGHT), lambda: distances.distance_from_points_healpix(info, cat[3], method=method, device=DEV))
+		print("analysis HEALPix nside %d %s: %.3f s (wall, once)" % (AN_HP[1], method, time.perf_counter() - t0))
+	below = float((hp["brute"] - hp["grid"]).max())
+	share = float(((hp["grid"] - hp["brute"]).abs() <= AN_EXACT_TOL).double().mean())
+	print("analysis HEALPix nside %d: grid (K13) shorter than brute (K14) by at most %.3e rad (bound %.0e); %.5f %% "
+		"within %.0e" % (AN_HP[1], below, AN_EXACT_TOL, 100*share, AN_EXACT_TOL))
+	if not below <= AN_EXACT_TOL: failed.append("HEALPix grid shorter than brute by %g" % below)
+	del hp
+	torch.cuda.empty_cache()
+	recs = an_records(cat[3], failed, errs, band)
+	for rec in recs: rec["launches"] = rec["analysis_launches"] = launches[rec["kind"]]
+	print("analysis launches in all its paths (each driven with the counts at 0): %s" % AN_LAUNCHES)
+	print("analysis phase: %.1f s" % (time.perf_counter() - h0))
+	if failed: raise RuntimeError("analysis guards failed:\n" + "\n".join(failed))
+	return recs
+
+
 PHASES = ("k9", "kernels", "lstop", "slice", "adjoint", "blocked", "timing", "general", "flat", "interp",
-	"healpix", "lensing", "config5")
+	"healpix", "lensing", "config5", "analysis")
 EXTRA_PHASES = ("variants", "blkprobe")   # run only when named
 
 
@@ -4881,7 +5508,8 @@ def main():
 		build_rows = print_build_summary((_build.build_dir()/"build.log").read_text())
 		f64_build_check(build_rows)
 		nufft_build_check(build_rows)
-	records, kernel_records, f64_records, launches, launches64 = [], {}, {}, {}, {}
+		dist_build_check(build_rows)
+	records, kernel_records, f64_records, launches, launches64, an_recs = [], {}, {}, {}, {}, []
 	blk_records, lstop_records, gen_records = {}, {}, []
 	if "k9" in phases:
 		records = fma_phase()
@@ -4942,6 +5570,9 @@ def main():
 	if "config5" in phases:
 		config5_phase()
 		print("phase config5 done at %.1f s" % (time.perf_counter() - t_start))
+	if "analysis" in phases:
+		an_recs = analysis_phase()
+		print("phase analysis done at %.1f s" % (time.perf_counter() - t_start))
 	if "variants" in phases:
 		variants_phase(parent)
 		print("phase variants done at %.1f s" % (time.perf_counter() - t_start))
@@ -4971,7 +5602,7 @@ def main():
 	for rec in records:   # K9: summed over every driven path
 		rec["launches"] = sum(c["fma_peak"] for c in launches.values())
 	records = list(kernel_records.values()) + list(f64_records.values()) \
-		+ [r[0] for r in lstop_records.values()] + list(blk_records.values()) + gen_records + records
+		+ [r[0] for r in lstop_records.values()] + list(blk_records.values()) + gen_records + records + an_recs
 	for rec in records:   # the launches of each record's kernel in the healpix and lensing paths
 		rec["healpix_launches"] = hp_count(rec)
 		rec["lensing_launches"] = hp_count(rec, LENS_LAUNCHES)

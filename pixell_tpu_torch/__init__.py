@@ -10,8 +10,11 @@ coordinate transforms, and lensing (flat and curved sky, the curved sky's
 point stage on the NUFFT kernels) with Doppler aberration, and point
 sources and wavelets: multi-geometry maps (multimap), one harmonic
 interface over the flat and the curved sky (uharm), wavelet transforms on
-the SHT kernels (wavelets) and the cell painter of objects (pointsrcs).
-Module names mirror pixell_tpu's.
+the SHT kernels (wavelets) and the cell painter of objects (pointsrcs), and
+angular distance transforms on their own kernels (distances), masks,
+matched filters and source finders (analysis), ephemerides (ephem) and
+atom-graph coordinate systems (coordsys). Module names mirror
+pixell_tpu's.
 """
 __version__ = "0.1.0"
 
@@ -37,3 +40,7 @@ from . import multimap
 from . import uharm
 from . import wavelets
 from . import pointsrcs
+from . import distances
+from . import analysis
+from . import ephem
+from . import coordsys

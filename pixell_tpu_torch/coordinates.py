@@ -10,10 +10,9 @@ float64 where both systems are fixed-matrix ones, recentered or not: the
 whole transform is one rotation matrix, built on the host, applied on the
 device (thumbnails and the spline reprojection transform millions of
 points); other systems go through the host and come back as a tensor.
-
-Not ported yet, and raising NotImplementedError: the ephemeris objects
-(ephem_pos, interpol_pos, and a centre given by a body's name), which need
-ephem.py (ROADMAP Queue 1 item 16).
+The ephemeris objects (ephem_pos, interpol_pos, and a centre given by a
+body's name, "equ:Jupiter") take their positions from ephem.py's default
+ephemeris, on the host.
 """
 from __future__ import annotations
 import numpy as np
@@ -28,8 +27,6 @@ _GAL_CEN_DEC  = -28.93617*utils.degree
 
 # Ecliptic obliquity (J2000)
 _ECL_OBL = 23.4392911*utils.degree
-
-_EPHEM = "ephemeris objects are not ported yet (ROADMAP Queue 1 item 16: ephem.py)"
 
 
 def euler_mat(euler_angles, kind="zyz", xp=np):
@@ -218,8 +215,8 @@ def getsys_full(sys, time=None, site=None, bore=None):
 	position ("10_20" in degrees), where the reference point may itself be
 	given in another system. Returns [base, ref] with ref None or
 	[ref_coords, restore_flag]; ref_coords has 2 rows (recenter on zenith)
-	or 4 (move point A to point B). A centre given by an ephemeris object's
-	name raises NotImplementedError (Queue 1 item 16)."""
+	or 4 (move point A to point B). A centre may be an ephemeris object's
+	name ("Jupiter"), at time (mjd; 55500 where None)."""
 	if site is None: site = default_site
 	if isinstance(sys, str):
 		sys = sys.split(":", 1)
@@ -248,6 +245,8 @@ def getsys_full(sys, time=None, site=None, bore=None):
 					time=time, site=site, bore=bore)
 			except ValueError:
 				r = ephem_pos(r, time if time is not None else 55500)
+				r = transform_raw(["equ", None], [base, None], np.asarray(r).reshape(2, -1), time=time,
+					site=site, bore=bore)
 			ref_expanded += list(np.asarray(r).reshape(2, -1)[:, 0])
 			prevsys = refsys
 		ref = [np.array(ref_expanded), sidelobe]
@@ -389,14 +388,29 @@ def make_mapping(dict_):
 	return {value: key for key in dict_ for value in dict_[key]}
 
 def ephem_pos(name, mjd):
-	"""Equatorial position of a named ephemeris object: not ported yet
-	(ROADMAP Queue 1 item 16)."""
-	raise NotImplementedError(_EPHEM)
+	"""The equatorial position [{ra, dec}, ...] (radians) of a named
+	ephemeris object at mjd (pixell_tpu.coordinates.ephem_pos), from
+	ephem's default ephemeris."""
+	from . import ephem as ephem_mod
+	return ephem_mod.ephem_pos(name, mjd)
 
 def interpol_pos(from_sys, to_sys, name_or_pos, mjd, site=default_site, dt=10):
-	"""Densely-sampled transformed positions of a moving object: not ported
-	yet (ROADMAP Queue 1 item 16)."""
-	raise NotImplementedError(_EPHEM)
+	"""The positions [{ra, dec}, ...] of a moving object (a name) or a fixed
+	one ([{ra, dec}]) transformed at the times mjd: transformed at samples
+	dt seconds apart over their range and interpolated linearly
+	(pixell_tpu.coordinates.interpol_pos)."""
+	mjd = np.asarray(mjd)
+	box = utils.widen_box(np.array([np.min(mjd), np.max(mjd)]), 0.01)
+	sub_nsamp = max(3, int((box[1] - box[0])*24.*3600/dt))
+	sub_mjd = np.linspace(box[0], box[1], sub_nsamp, endpoint=True)
+	if isinstance(name_or_pos, str):
+		sub_from = ephem_pos(name_or_pos, sub_mjd)
+	else:
+		sub_from = np.zeros([2, sub_nsamp])
+		sub_from[:] = np.asarray(name_or_pos)[:, None]
+	sub_to = transform_raw(from_sys, to_sys, sub_from, time=sub_mjd, site=site)
+	ra = utils.unwind(sub_to[0])
+	return np.array([np.interp(mjd, sub_mjd, ra) % (2*np.pi), np.interp(mjd, sub_mjd, sub_to[1])])
 
 def transform_raw(from_sys, to_sys, coords, time=None, site=None, bore=None):
 	"""Transform between equ/gal/ecl/hor(altaz)/tele/bore systems, including

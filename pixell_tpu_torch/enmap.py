@@ -289,6 +289,14 @@ class ndmap:
 	def fillbad(self, val=0, inplace=False): return fillbad(self, val=val, inplace=inplace)
 	def to_healpix(self, nside=0, order=3, omap=None, chunk=100000, destroy_input=False):
 		return to_healpix(self, nside=nside, order=order)
+	def distance_from(self, points, omap=None, odomains=None, domains=False, method="auto", rmax=None,
+			step=1024):
+		return distance_from(self.shape, self.wcs, points, omap=omap, odomains=odomains, domains=domains,
+			method=method, rmax=rmax, step=step, device=self.device)
+	def distance_transform(self, omap=None, rmax=None, method="auto"):
+		return distance_transform(self, omap=omap, rmax=rmax, method=method)
+	def labeled_distance_transform(self, omap=None, odomains=None, rmax=None, method="auto"):
+		return labeled_distance_transform(self, omap=omap, odomains=odomains, rmax=rmax, method=method)
 	def argmax(self, unit="coord"): return argmax(self, unit=unit)
 	def argmin(self, unit="coord"): return argmin(self, unit=unit)
 	def pixbox_of(self, oshape, owcs): return pixbox_of(self.wcs, oshape, owcs)
@@ -2156,17 +2164,137 @@ def from_healpix(hmap, shape, wcs, order=3, rot=None, *, device="cuda"):
 	from . import reproject
 	return reproject.healpix2map(hmap, shape, wcs, order=order, rot=rot, device=device)
 
-_DISTANCES = "the HEALPix distance transforms are not ported yet (ROADMAP Queue 1 item 16: distances.py)"
-
 def distance_from_healpix(nside, points, omap=None, odomains=None, domains=False, rmax=None,
-		method="bubble"):
-	raise NotImplementedError(_DISTANCES)
+		method="bubble", *, device="cuda"):
+	"""The distance from each HEALPix RING pixel to the nearest of
+	points[{dec, ra}, npoint] and with domains that point's index
+	(pixell_tpu.enmap.distance_from_healpix :2390): the largest dot product
+	of the unit vectors by a blocked matrix product on device (torch.matmul)
+	and its arccos. omap and method are accepted and ignored, as there."""
+	from . import healpix as hpx
+	device = torch.device(device)
+	theta, phi = hpx.positions(nside)
+	v = torch.from_numpy(utils.ang2rect(np.stack([phi, np.pi/2 - theta]), axis=0)).to(device)
+	points = _host_array(points).astype(float).reshape(2, -1)
+	vp = torch.from_numpy(utils.ang2rect(np.stack([points[1], points[0]]), axis=0)).to(device)
+	best, dom = [], []
+	for i0 in range(0, v.shape[1], 1 << 20):
+		dots = v[:, i0:i0 + (1 << 20)].T @ vp
+		j = torch.argmax(dots, -1)
+		best.append(torch.arccos(torch.clamp(torch.gather(dots, 1, j[:, None])[:, 0], -1, 1)))
+		dom.append(j.to(torch.int32))
+	best, dom = torch.cat(best), torch.cat(dom)
+	if rmax is not None: best = torch.clamp(best, max=rmax)
+	if domains or odomains is not None: return best, dom
+	return best
 
-def distance_transform_healpix(mask, omap=None, rmax=None, method="heap"):
-	raise NotImplementedError(_DISTANCES)
+def distance_transform_healpix(mask, omap=None, rmax=None, method="heap", *, device="cuda"):
+	"""The distance to the nearest False pixel of a boolean HEALPix map
+	(pixell_tpu.enmap.distance_transform_healpix)."""
+	from . import healpix as hpx
+	mask = _host_array(mask).astype(bool)
+	npixtot = mask.size
+	nside = int(np.sqrt(npixtot/12))
+	bad = np.nonzero(~mask)[0]
+	if len(bad) == 0:
+		return torch.full((npixtot,), rmax if rmax is not None else np.pi, dtype=torch.float64, device=device)
+	theta, phi = hpx.positions(nside)
+	return distance_from_healpix(nside, np.stack([np.pi/2 - theta[bad], phi[bad]]), rmax=rmax, device=device)
 
-def labeled_distance_transform_healpix(labels, omap=None, odomains=None, rmax=None, method="heap"):
-	raise NotImplementedError(_DISTANCES)
+def labeled_distance_transform_healpix(labels, omap=None, odomains=None, rmax=None, method="heap", *,
+		device="cuda"):
+	"""The distance to and the label of the nearest labeled HEALPix pixel
+	(pixell_tpu.enmap.labeled_distance_transform_healpix)."""
+	from . import healpix as hpx
+	labels = _host_array(labels)
+	nside = int(np.sqrt(labels.size/12))
+	src = np.nonzero(labels != 0)[0]
+	theta, phi = hpx.positions(nside)
+	dists, dom = distance_from_healpix(nside, np.stack([np.pi/2 - theta[src], phi[src]]), domains=True,
+		rmax=rmax, device=device)
+	return dists, torch.from_numpy(labels[src]).to(dists.device)[dom.to(torch.int64)]
+
+def _host_array(x):
+	"""x (an ndmap, a tensor or anything numpy takes) as numpy: a tensor is
+	copied from its device."""
+	if isinstance(x, ndmap): x = x.data
+	return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+# ---------------------------------------------------------------------------
+# Distance transforms and masks (pixell_tpu/enmap.py:1575-1610, :1801-1815,
+# :2175-2188), through pixell_tpu_torch.distances on the map's device
+# ---------------------------------------------------------------------------
+def distance_transform(mask, omap=None, rmax=None, method="auto"):
+	"""The angular distance of each pixel to the nearest False pixel of
+	mask (pixell_tpu.enmap.distance_transform). omap and method are
+	accepted and ignored, as there."""
+	from . import distances
+	return distances.distance_transform(mask, rmax=rmax)
+
+def labeled_distance_transform(labels, omap=None, odomains=None, rmax=None, method="auto"):
+	"""(distance, label) of the nearest nonzero-labeled pixel
+	(pixell_tpu.enmap.labeled_distance_transform)."""
+	from . import distances
+	return distances.labeled_distance_transform(labels, rmax=rmax)
+
+def distance_from(shape, wcs, points, omap=None, odomains=None, domains=False, method="auto", rmax=None,
+		step=1024, *, device="cuda"):
+	"""The distance of each pixel from the nearest of points[{dec, ra},
+	npoint] (pixell_tpu.enmap.distance_from): K14 up to 1024 points, else
+	the flood (K13)."""
+	from . import distances
+	return distances.distance_from_points(shape, wcs, points, rmax=rmax, domains=domains, device=device)
+
+def grow_mask(mask, r):
+	"""The True region of mask grown by r radians."""
+	m = _tensor(mask, "cpu")
+	d = distance_transform(ndmap(~m if m.dtype == torch.bool else m == 0, mask.wcs))
+	return ndmap(d.data <= r, mask.wcs)
+
+def shrink_mask(mask, r):
+	"""The True region of mask shrunk by r radians."""
+	res = distance_transform(mask).data > r
+	return ndmap(res, mask.wcs) if isinstance(mask, ndmap) else res
+
+def mask_from(mask): return mask
+
+def inpaint(map, mask, method="nearest"):
+	"""The map with its masked (True) pixels set to the value of the
+	nearest unmasked pixel, from distance_transform's indices (K13; kept
+	raveled, int32).
+	pixell_tpu.enmap.inpaint floods from the masked pixels instead (it
+	passes ~mask, whose False pixels are the masked ones), so every masked
+	pixel finds itself and its map comes back unchanged; this is the fill
+	its docstring describes (ROADMAP Queue 3)."""
+	from . import distances
+	arr = _tensor(map, "cpu")
+	m = _tensor(mask, arr.device) != 0
+	if method != "nearest": raise NotImplementedError(method)
+	wcs = map.wcs if isinstance(map, ndmap) else wcsutils.WCS(naxis=2)
+	src = distances._transform(ndmap(m, wcs))[1][m].to(torch.int64)
+	out = arr.clone()
+	out[..., m] = arr.reshape(arr.shape[:-2] + (-1,))[..., src]
+	return samewcs(out, map)
+
+def _apod_profile_on(profile):
+	"""profile as a function of a tensor: the two named profiles by torch,
+	any other called as it is."""
+	if profile is apod_profile_cos: return lambda x: 0.5 - 0.5*torch.cos(np.pi*x)
+	return profile
+
+def apod_mask(mask, width=1*utils.degree, edge=True, profile=apod_profile_cos):
+	"""A 0/1 mask apodized over width radians from its False pixels (and,
+	with edge, from the map's edges), on its device
+	(pixell_tpu.enmap.apod_mask)."""
+	arr = _tensor(mask, "cpu").to(torch.bool)
+	if edge:
+		arr = arr.clone()
+		arr[..., 0, :] = False; arr[..., -1, :] = False
+		arr[..., :, 0] = False; arr[..., :, -1] = False
+	r = distance_transform(ndmap(arr, mask.wcs), rmax=width)
+	x = torch.clamp(r.data/width, 0, 1)
+	return samewcs(_apod_profile_on(profile)(x), mask)
 
 
 def spec2flat_corr(shape, wcs, cov, exp=1.0, border="constant", *, device="cuda"):

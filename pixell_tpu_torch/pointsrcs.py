@@ -20,8 +20,8 @@ radial_sum's sums are tensors there. Maps are made on device="cuda" unless
 told otherwise (or omap's). Not ported yet, and raising
 NotImplementedError: the FITS catalogue formats (read_fits_cat,
 write_fits_cat, read_dory_fits, read_fits, read_sauron_fits,
-write_sauron_fits; ROADMAP item 18) and sim_srcs_dist_transform (it needs
-distances, item 16). The text and HDF catalogue formats are ported.
+write_sauron_fits; ROADMAP item 18). The text and HDF catalogue formats are
+ported, and sim_srcs_dist_transform, on the distance kernels (K13 / K14).
 """
 from __future__ import annotations
 import numpy as np
@@ -469,8 +469,31 @@ def sim_srcs_python(shape, wcs, srcs, beam, omap=None, dtype=None, nsigma=5, rma
 		pixwin=pixwin, device=device)
 
 def sim_srcs_dist_transform(shape, wcs, srcs, beam, omap=None, dtype=None, nsigma=4, rmax=None, smul=1,
-		pixwin=False, ignore_outside=False, op=None, verbose=False):
-	raise NotImplementedError("sim_srcs_dist_transform needs distances, not ported yet (ROADMAP item 16)")
+		pixwin=False, ignore_outside=False, op=None, verbose=False, *, device="cuda"):
+	"""Point sources painted through a distance transform from their
+	positions (pixell_tpu.pointsrcs.sim_srcs_dist_transform :499): each
+	pixel takes the beam of its nearest source only, out to rmax (nsigma
+	times the beam's sigma by default), so crowded fields cost no more than
+	sparse ones. The distances and domains are distances.distance_from_points
+	(K14 up to 1024 sources, K13 above), on omap's device or device."""
+	from . import distances
+	srcs = np.asarray(srcs)
+	r, b = expand_beam(beam)
+	if rmax is None:
+		sigma_eff = r[np.argmin(np.abs(b - b[0]*np.exp(-0.5)))]
+		rmax = nsigma*max(sigma_eff, r[1])
+	dev = omap.device if omap is not None else torch.device(device)
+	dists, domains = distances.distance_from_points(tuple(shape[-2:]), wcs, srcs[:, :2].T, domains=True,
+		rmax=rmax, device=dev)
+	amp = torch.from_numpy(np.ascontiguousarray(srcs[:, 2]*smul, np.float64)).to(dev)
+	vals = utils.interp(dists.data, torch.from_numpy(np.asarray(r, np.float64)).to(dev),
+		torch.from_numpy(np.asarray(b, np.float64)).to(dev), right=0.0)
+	dom = domains.data
+	out = torch.where(dom >= 0, vals*amp[dom.clamp(0, len(amp)-1).to(torch.int64)], 0.0)
+	res = enmap.ndmap(out.to(_dtypes(dtype or np.float32)[0]), wcs)
+	if omap is not None: res = enmap.samewcs(omap.data + res.data, res)
+	return res
+
 
 def eval_srcs_loop(posmap, poss, amps, beam, cres, nhit, cell_srcs, dtype=np.float64, op=None,
 		verbose=False):

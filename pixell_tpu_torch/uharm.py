@@ -36,8 +36,8 @@ class UHT:
 		self.area = float(enmap.area(self.shape, wcs))
 		self.fsky = self.area/(4*np.pi)
 		if mode == "flat":
-			self.l = enmap.modlmap(shape, wcs, device="cpu").data.numpy()
-			self.lmax = int(np.max(self.l)) if lmax is None else lmax
+			self._l = None   # the host |l| map, made on first use (see l)
+			self.lmax = int(float(enmap.modlmap(shape, wcs, device=self.device).data.max())) if lmax is None else lmax
 			# modes per unit power for sums
 			self.nper = 1/self.fsky
 			self.ntot = self.nper*self.shape[-2]*self.shape[-1]
@@ -45,10 +45,17 @@ class UHT:
 			if lmax is None:
 				lmax = min(curvedsky.get_lmax_from_map(Dummy(shape, wcs)), 2*10**4)
 			self.lmax = lmax
-			self.l = np.arange(lmax+1, dtype=float)
+			self._l = np.arange(lmax+1, dtype=float)
 			self.ainfo = curvedsky.alm_info(lmax=lmax)
 			self.nper = 2*np.arange(lmax+1) + 1
 			self.ntot = int(np.sum(self.nper))
+	@property
+	def l(self):
+		"""The multipoles: |l| of each Fourier pixel (host numpy, made on
+		first use: a survey map's is gigabytes) in flat mode, 0..lmax in
+		curved mode."""
+		if self._l is None: self._l = enmap.modlmap(self.shape, self.wcs, device="cpu").data.numpy()
+		return self._l
 	@property
 	def npix(self): return int(np.prod(self.shape[-2:]))
 	@property
@@ -160,13 +167,15 @@ class UHT:
 		return curvedsky.alm2cl(torch.as_tensor(harm), None if harm2 is None else torch.as_tensor(harm2),
 			ainfo=self.ainfo)
 	def sum_hprof(self, hprof):
-		"""The integral of an l-profile over all modes."""
-		hprof = _host(hprof)
+		"""The integral of an l-profile over all modes (summed on the
+		profile's device where it is a tensor)."""
 		if self.mode == "flat":
 			# the sum over Fourier modes, int h d^2l/(2pi)^2 times 4 pi (so that
 			# a caller's /(4 pi) gives the flat-sky mode integral)
 			area = self.npix*enmap.pixsize(self.shape, self.wcs)
-			return hprof.sum()*4*np.pi/area
+			if isinstance(hprof, (torch.Tensor, enmap.ndmap)): return float(_data(hprof).sum())*4*np.pi/area
+			return _host(hprof).sum()*4*np.pi/area
+		hprof = _host(hprof)
 		l = np.arange(hprof.shape[-1])
 		return np.sum(hprof*(2*l+1))/(4*np.pi)
 	def lmap(self):
@@ -206,12 +215,12 @@ def estimate_distortion(shape, wcs):
 def profile2harm_flat_2d(br, r, shape, wcs, *, device="cuda"):
 	"""A radial real-space profile -> the 2D harmonic profile of a flat map:
 	painted centred on pixel (0, 0) (cyclically) and Fourier transformed, so
-	that B(l) has no phase."""
-	rmap = enmap.modrmap(shape, wcs, device="cpu").data.numpy()
-	prof = np.interp(rmap, np.asarray(r), np.asarray(br), right=0)
-	cy, cx = np.unravel_index(rmap.argmin(), rmap.shape)
-	prof = np.roll(np.roll(prof, -int(cy), 0), -int(cx), 1)
-	m = enmap.ndmap(torch.from_numpy(prof).to(device), wcs)
+	that B(l) has no phase; on device."""
+	rmap = enmap.modrmap(shape, wcs, device=device).data
+	prof = utils.interp(rmap, torch.as_tensor(np.asarray(r, float)).to(device),
+		torch.as_tensor(np.asarray(br, float)).to(device), right=0.0)
+	cy, cx = divmod(int(torch.argmin(rmap)), rmap.shape[-1])
+	m = enmap.ndmap(torch.roll(prof, (-cy, -cx), (0, 1)), wcs)
 	f = enmap.fft(m, normalize=False).real*enmap.pixsize(shape, wcs)
 	return enmap.samewcs(f, m)
 

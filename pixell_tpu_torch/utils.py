@@ -7,7 +7,7 @@ spec2flat and array_ops, the Minres solver of curvedsky.minres_inverse,
 and for the flat sky split_slice / expand_slice (ndmap indexing), nditer,
 real_dtype / complex_dtype (numpy or torch dtypes), ang2rect / rect2ang /
 angdist (modrmap, extent's subgrid) and rotmatrix (coordinates' Euler
-matrices); rewind also takes tensors. For the pixel boxes of enmap's
+matrices); rewind also takes tensors; interp is np.interp on tensors. For the pixel boxes of enmap's
 extract family: the slice-box algebra (sbox_*) and parse_slice, host numpy;
 for its resolution changes: block_reduce / block_expand and downgrade /
 upgrade, which work on tensors (on their device) as well as numpy arrays.
@@ -15,7 +15,10 @@ eigpow too takes either. czeros makes zeros on a device; for
 the wavelets' variance basis, RadialFourierTransform (scipy's FFTLog
 Hankel transform, host numpy); for the catalogues, crossmatch (scipy's
 k-d tree). The rest is numpy: geometry, random draws and that solver's
-vectors are host work. Not ported: fence and to_device's complex split,
+vectors are host work. For the distance, analysis and ephemeris slice: fwhm and AU, the time
+conversions ctime2mjd / mjd2ctime / ctime2djd, widen_box,
+find_equal_groups / find_equal_groups_fast and calc_beam_area (host
+numpy). Not ported: fence and to_device's complex split,
 which worked around a remote TPU runtime; a tensor's own .to() does their
 work.
 """
@@ -29,6 +32,8 @@ T_cmb = 2.7255          # K
 c = 299792458.0         # m/s
 h = 6.62607004e-34      # J s
 k = 1.38064853e-23      # J/K
+fwhm = 1.0/(8*np.log(2))**0.5   # sigma per FWHM
+AU = 149597870700.0     # m
 
 
 def nint(a):
@@ -232,6 +237,18 @@ def rotmatrix(ang, raxis):
 	elif raxis == "z": rows = [[c_, -s_, zero], [s_, c_, zero], [zero, zero, one]]
 	else: raise ValueError("Rotation axis %s not recognized" % raxis)
 	return np.stack([np.stack(r, -1) for r in rows], -2)
+
+
+def interp(x, xp, fp, left=None, right=None):
+	"""np.interp(x, xp, fp, left, right) on x's device (xp and fp float
+	tensors there): fp[0] (or left) below xp[0], fp[-1] (or right) above
+	xp[-1], linear between, as numpy computes it (the slope of the
+	interval times the offset into it, plus its left value)."""
+	j = (torch.searchsorted(xp, x.contiguous(), right=True) - 1).clamp(0, xp.shape[0] - 2)
+	res = (fp[j+1] - fp[j])/(xp[j+1] - xp[j])*(x - xp[j]) + fp[j]
+	res = torch.where(x == xp[-1], fp[-1], res)
+	res = torch.where(x < xp[0], fp[0] if left is None else left, res)
+	return torch.where(x > xp[-1], fp[-1] if right is None else right, res)
 
 
 def moveaxis(a, o, n):
@@ -523,3 +540,55 @@ def crossmatch(pos1, pos2, rmax, mode="closest", coords="auto"):
 		for i, js in enumerate(tree.query_ball_point(v1, chord)):
 			for j in js: pairs.append((i, int(j)))
 	return pairs
+
+
+# ---------------------------------------------------------------------------
+# Times, boxes, groups and beams (pixell_tpu/utils.py:967-981, :1234, :1678,
+# :1891, :2208), host numpy
+# ---------------------------------------------------------------------------
+def ctime2mjd(ctime):
+	"""Unix time -> modified julian date."""
+	return np.asarray(ctime)/86400.0 + 40587.0
+
+def mjd2ctime(mjd):
+	return (np.asarray(mjd) - 40587.0)*86400.0
+
+def ctime2djd(ctime):
+	"""Unix time -> Dublin julian date (pyephem's epoch)."""
+	return np.asarray(ctime)/86400.0 + 40587.0 + 2400000.5 - 2415020
+
+def widen_box(box, margin=1e-3, relative=True):
+	"""A box widened by margin (relative to its size by default)."""
+	box = np.asarray(box, float)
+	m = np.zeros(box.shape[-1] if box.ndim > 1 else ()) + margin
+	if relative: m = m*(box[1] - box[0])
+	return np.array([box[0] - m/2, box[1] + m/2])
+
+def find_equal_groups(a, tol=0):
+	"""The indices of a grouped by equal (within tol) values, groups in
+	increasing value."""
+	a = np.asarray(a)
+	order = np.argsort(a, kind="stable")
+	groups = []
+	cur = [order[0]] if len(a) else []
+	for i in order[1:]:
+		if abs(a[i] - a[cur[-1]]) <= tol: cur.append(i)
+		else:
+			groups.append(cur); cur = [i]
+	if cur: groups.append(cur)
+	return groups
+
+def find_equal_groups_fast(vals):
+	"""(uvals, order, edges): the distinct values of a 1d array, the stable
+	order that sorts it, and each group's range in that order."""
+	vals = np.asarray(vals)
+	order = np.argsort(vals, kind="stable")
+	sv = vals[order]
+	cut = np.nonzero(np.concatenate([[True], sv[1:] != sv[:-1]]))[0]
+	edges = np.concatenate([cut, [len(sv)]])
+	return sv[cut], order, edges
+
+def calc_beam_area(beam_profile):
+	"""The beam area in steradians from profile[{r, b}, :]."""
+	r, b = np.asarray(beam_profile)
+	return np.trapezoid(2*np.pi*np.sin(r)*b, r) if hasattr(np, "trapezoid") else np.trapz(2*np.pi*np.sin(r)*b, r)

@@ -27,7 +27,10 @@ CAR patch at 1 degree:
   rows read as [dec, ra]; the port at [dec, ra], held to the reference
   given the rows swapped;
 - float32 boosts by the float32 rule (each against the float64 reference,
-  the port's error within twice the reference's plus 2e-5).
+  the port's error within twice the reference's plus 2e-5);
+- the pole rows of a Clenshaw-Curtis full sky, where the reference's angle
+  is 0 (asserted) and the port's is its own limit at the pole, the other
+  rows against the reference (ROADMAP Queue 3).
 """
 import numpy as np
 import pytest
@@ -329,3 +332,30 @@ def test_apply_aberration():
 	got = old_aberration.apply_aberration(m, ipos)
 	assert rel(got.data, want) < 1e-12
 	assert rel(np.asarray(jold.apply_aberration(jm, ipos)), want) > 1e-3
+
+
+@pytest.mark.parametrize("beta", [0.01, 0.001235])
+def test_pole_rows(beta):
+	"""IQU on the Clenshaw-Curtis full sky at 5 degrees (37 x 72), whose
+	first and last rows lie on the poles (ROADMAP Queue 3): the reference
+	takes deflect's angle by a finite offset of 5e-7 rad in RA, whose two
+	points coincide on a pole row, so its angle is 0 there at every RA
+	(asserted); the port's closed form gives the limit along the pixel's
+	meridian, held within 1e-6 rad of its own angle 1e-9 rad from the pole
+	(~1e2 times that distance measured). The other rows within POL_TOL of
+	the reference's boost_map."""
+	jshape, jwcs = jenmap.fullsky_geometry(res=5*jutils.degree, variant="CC")
+	shape, wcs = enmap.fullsky_geometry(res=5*utils.degree, variant="CC")
+	m = np.random.default_rng(9).standard_normal((3,) + tuple(jshape))
+	want = np.asarray(jab.boost_map(jenmap.ndmap(m, jwcs), beta=beta, modulation=None))
+	got = aberration.boost_map(enmap.ndmap(torch.from_numpy(m.copy()), wcs), beta=beta, modulation=None)
+	assert rel(got.data[..., 1:-1, :], want[..., 1:-1, :]) < POL_TOL
+	pos = np.asarray(jenmap.posmap(jshape, jwcs))
+	dec, ra = pos[0][[0, -1]], pos[1][[0, -1]]
+	assert np.all(np.abs(np.abs(dec) - np.pi/2) < 1e-12)
+	assert np.all(np.asarray(jab.deflect(dec, ra, jab.dir_equ, beta, return_rot=True)[2]) == 0)
+	ang = np.asarray(aberration.deflect(dec, ra, aberration.dir_equ, beta, return_rot=True)[2])
+	near = np.sign(dec)*(np.pi/2 - 1e-9)
+	ang_near = np.asarray(aberration.deflect(near, ra, aberration.dir_equ, beta, return_rot=True)[2])
+	assert np.abs(jutils.rewind(ang - ang_near)).max() <= 1e-6
+	assert np.abs(jutils.rewind(ang)).max() > 1e-3   # not the reference's 0

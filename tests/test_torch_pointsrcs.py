@@ -30,7 +30,7 @@ inputs made from a numpy seed, float64 unless stated:
 - the text and HDF catalogues (read / write_simple, read_hdf_cat, read_nemo,
   read_dory_txt, the sauron text format) against the reference's readers;
 - the FITS catalogue functions raise NotImplementedError naming ROADMAP
-  item 18, sim_srcs_dist_transform naming item 16.
+  item 18; sim_srcs_dist_transform against the reference's.
 """
 import numpy as np
 import pytest
@@ -290,6 +290,17 @@ def test_fits_raises(call):
 
 
 def test_dist_transform_raises():
+	"""sim_srcs_dist_transform, once NotImplementedError, against the
+	reference (the name is the earlier test's): 40 sources (the brute force,
+	K14's plain version), into an omap, float64 and float32."""
 	ps, pw = patch(enmap)
-	with pytest.raises(NotImplementedError, match="item 16"):
-		pointsrcs.sim_srcs_dist_transform(ps, pw, np.zeros((1, 3)), 0.01)
+	poss, amps = objects(ncomp=0)
+	srcs = np.array([poss[0], poss[1], amps]).T
+	for dtype, tol in ((np.float64, TOL), (np.float32, 1e-6)):
+		want = jpointsrcs.sim_srcs_dist_transform(ps, pw, srcs, 0.3*utils.degree, dtype=dtype, smul=1.5)
+		got = pointsrcs.sim_srcs_dist_transform(ps, pw, srcs, 0.3*utils.degree, dtype=dtype, smul=1.5, device="cpu")
+		assert got.dtype == enmap._torch_dtype(dtype) and rel(got, want) <= tol
+	om = np.random.default_rng(3).standard_normal(ps)
+	want = jpointsrcs.sim_srcs_dist_transform(ps, pw, srcs, 0.3*utils.degree, omap=jenmap.enmap(om, pw))
+	got = pointsrcs.sim_srcs_dist_transform(ps, pw, srcs, 0.3*utils.degree, omap=enmap.enmap(om, pw, device="cpu"))
+	assert rel(got, want) <= TOL

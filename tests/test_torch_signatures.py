@@ -1,9 +1,10 @@
 """The public signatures of pixell_tpu_torch.curvedsky, .sht, .enmap,
 .fft, .wcsutils, .powspec, .interpol, .resample, .array_ops, .healpix,
 .reproject, .coordinates, .sites, .lensing, .aberration, .old_aberration
-and .ops.solvers, .multimap, .uharm, .wavelets and .pointsrcs against
-pixell_tpu's (and that healpix, reproject, coordinates, sites, multimap,
-uharm and pointsrcs have every public name of the reference's modules, and
+and .ops.solvers, .multimap, .uharm, .wavelets, .pointsrcs, .distances,
+.analysis, .ephem and .coordsys against pixell_tpu's (and that healpix,
+reproject, coordinates, sites, multimap, uharm, pointsrcs, distances,
+analysis, ephem and coordsys have every public name of the reference's modules, and
 fft, lensing, aberration, old_aberration, ops.solvers and wavelets every
 public function and class), and utils' czeros, RadialFourierTransform and
 crossmatch: every public name both modules define takes the reference's
@@ -33,11 +34,12 @@ from pixell_tpu import curvedsky as jcurvedsky, sht as jsht, enmap as jenmap, ff
 	wcsutils as jwcsutils, powspec as jpowspec, interpol as jinterpol, resample as jresample, \
 	array_ops as jarray_ops, healpix as jhealpix, reproject as jreproject, coordinates as jcoordinates, \
 	sites as jsites, lensing as jlensing, aberration as jaberration, old_aberration as jold_aberration, \
-	multimap as jmultimap, uharm as juharm, wavelets as jwavelets, pointsrcs as jpointsrcs, utils as jutils
+	multimap as jmultimap, uharm as juharm, wavelets as jwavelets, pointsrcs as jpointsrcs, utils as jutils, \
+	distances as jdistances, analysis as janalysis, ephem as jephem, coordsys as jcoordsys
 from pixell_tpu.ops import solvers as jsolvers
 from pixell_tpu_torch import curvedsky, sht, enmap, fft, wcsutils, powspec, interpol, resample, array_ops, \
 	healpix, reproject, coordinates, sites, lensing, aberration, old_aberration, multimap, uharm, wavelets, \
-	pointsrcs, utils
+	pointsrcs, utils, distances, analysis, ephem, coordsys
 from pixell_tpu_torch.ops import solvers
 
 LMAX = 16
@@ -49,7 +51,8 @@ PAIRS = {"curvedsky": (jcurvedsky, curvedsky), "sht": (jsht, sht), "enmap": (jen
 	"sites": (jsites, sites), "lensing": (jlensing, lensing), "aberration": (jaberration, aberration),
 	"old_aberration": (jold_aberration, old_aberration), "solvers": (jsolvers, solvers),
 	"multimap": (jmultimap, multimap), "uharm": (juharm, uharm), "wavelets": (jwavelets, wavelets),
-	"pointsrcs": (jpointsrcs, pointsrcs)}
+	"pointsrcs": (jpointsrcs, pointsrcs), "distances": (jdistances, distances), "analysis": (janalysis, analysis),
+	"ephem": (jephem, ephem), "coordsys": (jcoordsys, coordsys)}
 
 
 def shared_names():
@@ -109,11 +112,12 @@ def test_the_check_covers_the_entry_points():
 		"sim_objects", "radial_sum", "sim_srcs", "crossmatch", "cellify", "read_sauron"} <= names
 
 
-@pytest.mark.parametrize("mod", ["healpix", "reproject", "coordinates", "sites", "multimap", "uharm", "pointsrcs"])
+@pytest.mark.parametrize("mod", ["healpix", "reproject", "coordinates", "sites", "multimap", "uharm", "pointsrcs",
+	"distances", "analysis", "ephem", "coordsys"])
 def test_every_public_name(mod):
-	"""healpix, reproject, coordinates, sites, multimap, uharm and pointsrcs
-	have every public name of the reference's modules (the not yet ported
-	ones among them raise)."""
+	"""healpix, reproject, coordinates, sites, multimap, uharm, pointsrcs,
+	distances, analysis, ephem and coordsys have every public name of the
+	reference's modules (the not yet ported ones among them raise)."""
 	ref, port = PAIRS[mod]
 	public = lambda m: {n for n in dir(m) if not n.startswith("_") and not inspect.ismodule(getattr(m, n))
 		and getattr(getattr(m, n), "__module__", m.__name__) == m.__name__}
