@@ -8,18 +8,20 @@ It builds the hand-written kernels from pixell_tpu_torch/csrc with nvcc
 (legendre.cu once per mode, blockleg.cu once per Legendre mode, fma_peak.cu
 and nufft.cu, all compilers started together) and prints each kernel's
 registers and spills (every float64 instantiation of the bulk kernels and
-all twelve of K10 / K11 / K12 must be built, and none of them may spill),
+all twelve of K10 / K11 / K12 and the ten of K13 / K14 must be built, and
+none of them may spill),
 then runs the phases below (all of them with no arguments; --phases with a
 choice of k9,kernels,lstop,slice,adjoint,blocked,timing,general,flat,interp,healpix,lensing,config5,
 analysis runs
 those alone, for work on one phase, and gives no verdict; the phases
 "variants", 6. below, and "blkprobe" run only when named). With
---parent DIR, a directory holding a parent tree's legendre.cu, blockleg.cu
-and / or nufft.cu (for example unpacked with git archive under build/),
-those files are built beside the package's: the kernels, variants and
-timing phases run the parent's legendre.cu kernels beside this tree's, the
-blocked phase its blk_synthesis_kernel, the general phase its unbinned
-K10 / K11 (below):
+--parent DIR, a directory holding a parent tree's legendre.cu, blockleg.cu,
+nufft.cu and / or distances.cu (for example unpacked with git archive
+under build/), those files are built beside the package's: the kernels,
+variants and timing phases run the parent's legendre.cu kernels beside
+this tree's, the blocked phase its blk_synthesis_kernel, the general phase
+its unbinned K10 / K11, the analysis phase its distance-carrying K13 / K14
+(below):
 
 1. K9 phase: the FMA-peak kernel against its plain PyTorch chain on a small
    grid (the kernel rounds once per step, the chain twice: within
@@ -392,14 +394,14 @@ K10 / K11 (below):
 
 13. analysis: the point-source analysis of the DR6-sized band through
    pixell_tpu_torch.distances, .enmap's masks and .analysis, on K13
-   (jump_flood_kernel, a launch a flood pass) and K14
+   (jump_flood_kernel, a launch a flood pass and one to finish) and K14
    (nearest_point_kernel, the brute force over <= 1024 points) of
    csrc/distances.cu. Guards first: K13 and K14 against their plain
-   versions on the card (ops/distances_core.py) on a 1024 x 2048 cut of
-   the band (pixel seeds, int32 and int64, 1000 point seeds, 1000 points)
-   and at nside 256
-   (brute, grid), distances within 1e-13 rad and seeds or domains equal
-   outside such ties; K13 against K14's exact distance there (never
+   versions on the card (ops/distances_core.py) bit for bit, distances
+   and seeds or domains, on a 1024 x 2048 cut of the band (pixel seeds,
+   int32 and int64, 1000 point seeds, 1000 points), at nside 256 (brute,
+   grid), and on a near-tie set on both (points mirrored about pixel
+   centres, triples 1e-15 rad apart); K13 against K14's exact distance on the cut (never
    shorter by more than 1e-12, within it on >= 99.9 % of pixels); the
    whole chain in float64 at 64 x 128 on the card against CPU tensors
    (1e-12 of the largest value). Then the band at full size, T float32:
@@ -420,7 +422,11 @@ K10 / K11 (below):
    sim_objects, and distance_from_points_healpix at nside 2048 for the
    1000 bright sources, brute (K14) and grid (K13). The K13 / K14 records
    (kernel, plain and bound on 256 full-width rows of the band, beside the
-   band's own time a launch) with the step's launches.
+   band's own time a launch) with the step's launches; K13 launch by launch
+   on the rows and on the band (the first 8 passes against the last 8).
+   With --parent and a distances.cu whose flood carries a float64 distance
+   beside the seed in DIR, its K13 / K14 on the same
+   rows in turns with this tree's, their results held equal.
 
 It prints the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and yardstick, and as the last line
@@ -607,9 +613,11 @@ def print_build_summary(log, only=None):
 				r"([01])E)?", m.group(1))
 			n = re.search(r"(u2nu_points|nu2u_spread)_kernelI([fd])Lb([01])E", m.group(1))
 			k = re.search(r"tile_keys_kernelI([fd])([si])E", m.group(1))
-			j = re.search(r"jump_flood_kernelI([ix])E", m.group(1))
-			d = "nearest_point" if "nearest_point_kernel" in m.group(1) else \
-				"jump_flood<%s>" % ("int32" if j.group(1) == "i" else "int64") if j else None
+			j = re.search(r"jump_flood_kernelI([ix])Lb([01])E", m.group(1))
+			r = re.search(r"nearest_point_kernelILb([01])E", m.group(1))
+			geo = lambda g: "sep" if g == "1" else "general"
+			d = "nearest_point<%s>" % geo(r.group(1)) if r else \
+				"jump_flood<%s,%s>" % ("int32" if j.group(1) == "i" else "int64", geo(j.group(2))) if j else None
 			entry = d or ("fma_peak<%s>" % f.group(1) if f else
 				"%s<%s,%s>" % (n.group(1), n.group(2), "complex" if n.group(3) == "1" else "real") if n else
 				"tile_keys<%s,%s>" % (k.group(1), "int16" if k.group(2) == "s" else "int32") if k else
@@ -2247,11 +2255,14 @@ class use_library:
 
 def parent_library(csrc):
 	"""The kernel library built from a parent tree's legendre.cu and / or
-	blockleg.cu and / or nufft.cu in the directory csrc (--parent), with
-	the entry points that parent_kernels, blocked_kernels and parent_nufft
-	call declared: the float32 bulk entries and the float64 ones the parent
-	has, its blk_synthesis entries, its unbinned K10 / K11. lib.has_legendre,
-	lib.has_blk and lib.has_nufft say which sources it held.
+	blockleg.cu and / or nufft.cu and / or distances.cu in the directory
+	csrc (--parent), with the entry points that parent_kernels,
+	blocked_kernels, parent_nufft and an_parent_rows call declared: the
+	float32 bulk entries and the float64 ones the parent has, its
+	blk_synthesis entries, its unbinned K10 / K11, its distance-carrying K13 /
+	K14.
+	lib.has_legendre, lib.has_blk, lib.has_nufft and lib.has_dist say which
+	it held.
 	lib.f64_entry maps each float64 bulk entry of this tree
 	(sym_bulk_synthesis_f64, ...) to the parent's: the same, or in a parent
 	that predates them the entry of synthesis_kernel / analysis_kernel
@@ -2263,7 +2274,23 @@ def parent_library(csrc):
 	lib.has_legendre = hasattr(lib, "pt_%s_scalar" % sht_cuda.BULK_KERNELS["sym_synthesis"])
 	lib.has_blk = hasattr(lib, "pt_blk_synthesis_scalar")
 	lib.has_nufft = hasattr(lib, "pt_u2nu_points")
+	dist = Path(csrc)/"distances.cu"
+	# distance-carrying K13 / K14 (a float64 distance beside the seed, an init launch), told by their ABI:
+	# that pt_nearest_point takes 14 arguments, this tree's 16
+	decl = re.search(r'extern "C" int pt_nearest_point\(([^)]*)\)', dist.read_text()) if dist.exists() else None
+	lib.has_dist = decl is not None and len(decl.group(1).split(",")) == 14
 	P, I = ctypes.c_void_p, ctypes.c_int
+	if dist.exists() and not lib.has_dist:
+		print("--parent: its distances.cu does not carry a distance beside the seed; its K13 / K14 are not timed")
+	if lib.has_dist:
+		L = ctypes.c_longlong
+		# idx64, seed_in, d_in, seed_out, d_out, pos_dec, pos_ra, dsy, dsx, rsy, rsx, tab_dec, tab_ra, ny, nx,
+		# sy, sx, wrapx, init, stream
+		lib.pt_jump_flood.argtypes = [I, P, P, P, P, P, P, L, L, L, L, P, P, L, L, L, L, I, I, P]
+		lib.pt_jump_flood.restype = I
+		# pos_dec, pos_ra, dsy, dsx, rsy, rsx, ny, nx, pt_dec, pt_ra, npt, dist, dom, stream
+		lib.pt_nearest_point.argtypes = [P, P, L, L, L, L, L, L, P, P, L, P, P, P]
+		lib.pt_nearest_point.restype = I
 	if lib.has_nufft and not hasattr(lib, "pt_nufft_smem_bytes"):
 		# the unbinned K10 / K11 of a parent before the binned ones: f64, complex, in, coords,
 		# out, C, nfy, nfx, npt, pery, perx, w, beta, stream
@@ -2810,15 +2837,20 @@ def nufft_build_check(rows):
 			sum(bool(r[3]) for r in got)))
 
 
+DIST_INSTANTIATIONS = tuple("jump_flood<%s,%s>" % (t, g) for t in ("int32", "int64") for g in ("sep", "general")) \
+	+ tuple("nearest_point<%s>" % g for g in ("sep", "general"))
+
+
 def dist_build_check(rows):
 	"""K13 and K14 among print_build_summary's rows: jump_flood_kernel for
-	int32 and int64 seeds and nearest_point_kernel (3), none spilling.
-	Raises otherwise."""
+	int32 and int64 seeds and nearest_point_kernel, each for separable and
+	general geometries (DIST_INSTANTIATIONS), none spilling. Raises
+	otherwise."""
 	got = [r for r in rows if r[1].startswith(("jump_flood<", "nearest_point"))]
-	print("ptxas: %d distance instantiations (of 3): %s" % (len(got), ", ".join(
+	print("ptxas: %d distance instantiations (of %d): %s" % (len(got), len(DIST_INSTANTIATIONS), ", ".join(
 		"%s %d registers, %d bytes spilled" % (e, n, b) for _, e, n, b in got)))
-	if len(got) != 3 or any(r[3] for r in got):
-		raise RuntimeError("K13 / K14: %d instantiations built, %d spill" % (len(got), sum(bool(r[3]) for r in got)))
+	if sorted(r[1] for r in got) != sorted(DIST_INSTANTIATIONS) or any(r[3] for r in got):
+		raise RuntimeError("K13 / K14: %s built, %d spill" % ([r[1] for r in got], sum(bool(r[3]) for r in got)))
 
 
 def nufft_ops(npt, C, w):
@@ -4895,7 +4927,7 @@ AN_SNMIN = 5                   # the finder's threshold
 AN_CUT = (1024, 2048)          # the twins' cut of the band (from its row ny // 3 and column nx // 2)
 AN_REC_ROWS = 256              # full-width rows of the records' timing cut
 AN_HP = (256, 2048)            # nside of the twins' guard, of the one-shot HEALPix runs
-AN_TWIN_TOL = 1e-13            # K13 / K14 against their twins, radians
+AN_TWIN_TOL = 1e-13            # a parent's K13 / K14 (--parent) against this tree's, radians
 AN_EXACT_TOL = 1e-12           # K13 against K14's exact distance, radians
 AN_EXACT_SHARE = 0.999         # share of pixels K13 must get within AN_EXACT_TOL
 AN_CPU_TOL = 1e-12             # the chain on the card against CPU tensors, float64, of the largest value
@@ -4906,13 +4938,20 @@ AN_FIND = (10.0, 2.0)          # S/N and pixels of the finder's guard
 # itself: 3.5e-6 on the card), and sim_objects' paint beyond its disks (its rim, ~exp(-8) of a peak)
 AN_DT_TOL = (1e-5, 1e-3)
 AN_NREP = 3
-# FP64 operations the two functions need, counted from the work and not from the kernels' Vincenty form: with unit
-# vectors made once a pixel and once a point, a pixel-point pair (K14) or an evaluated candidate (K13) needs a
-# dot product (1 multiply and 2 FMA, 5 operations) and a compare; K14 then needs one angle a pixel, counted as
-# the 10 explicit operations of csrc/distances.cu's vincenty. The unit vectors' and the angle's sincos, hypot
-# and atan2 are not counted, so each bound is a lower bound.
-AN_PAIR_OPS = 6
+# FP64 operations the two functions need (an FMA 2), counted from the work and not from the kernels' Vincenty
+# form, with unit vectors made once a pixel and once a point or seed. An evaluated candidate of K13 needs a dot
+# product and a compare: 1 multiply and 2 FMA (5) and 1. A pixel-point pair of K14 needs the sign of its dot
+# product less the pixel's threshold: 3 FMA (6, the threshold folded into the chain, the sign an integer test);
+# on a separable geometry the column's cos ra x + sin ra y is shared by every row (a multiply and an FMA, 3, a
+# column and point), which leaves 2 FMA (4) a pair (forming cos dec a + sin dec z, whose second term a row
+# shares, with 1 FMA and comparing it in FP64 takes as many FP64 instructions). K14 then needs one angle a
+# pixel, counted as the 10 explicit operations of csrc/distances.cu's vincenty. The unit vectors' and the
+# angle's sincos, hypot and atan2 are not counted, so each bound is a lower bound.
+AN_EVAL_OPS = 6
+AN_PAIR_OPS = {True: 4, False: 6}    # K14, by separable geometry
+AN_COLUMN_OPS = 3
 AN_ANGLE_OPS = 10
+AN_PAIR_OPS_OLD = 6                  # the earlier count for K14 (a multiply, 2 FMA and an FP64 compare): not the bound
 AN_LAUNCHES = {}               # launches of the analysis paths, by kernel
 
 
@@ -4949,16 +4988,14 @@ def an_plain(evals=None):
 	device: the same calls run the plain versions on the card, and no
 	launch is counted. With evals (a list), each flood pass appends its
 	count of pixels whose candidate is evaluated (a seed, not the pixel's
-	own; at the initial pass, the seeds)."""
+	own)."""
 	from pixell_tpu_torch.ops import distances_cuda, distances_core as core
 	on_card, plain = distances_cuda._on_card, dict(distances_cuda.PLAIN)
 
-	def counted(seed, dist, pd, pr, table, sy, sx, wrapx, init=False):
-		if init: evals.append(int((seed >= 0).sum()))
-		else:
-			c = core.shift2d(seed, sy, sx, wrapx, -1)
-			evals.append(int(((c >= 0) & (c != seed)).sum()))
-		return plain["jump_flood"](seed, dist, pd, pr, table, sy, sx, wrapx, init)
+	def counted(seed, pd, pr, table, sy, sx, wrapx):
+		c = core.shift2d(seed, sy, sx, wrapx, -1)
+		evals.append(int(((c >= 0) & (c != seed)).sum()))
+		return plain["jump_flood"](seed, pd, pr, table, sy, sx, wrapx)
 	distances_cuda._on_card = lambda x: False
 	if evals is not None: distances_cuda.PLAIN["jump_flood"] = counted
 	try:
@@ -4980,16 +5017,14 @@ def an_nearest_plain(pd, pr, pt, shape, rows=128):
 
 
 def an_twin_check(label, dk, dp, sk, sp, failed):
-	"""Distances within AN_TWIN_TOL; seeds or domains identical except where
-	the two candidates' distances agree within it."""
-	err = float((dk - dp).abs().max())
-	diff = sk != sp
-	ndiff = int(diff.sum())
-	tie = float((dk - dp)[diff].abs().max()) if ndiff else 0.0
-	print("analysis twin %s: max |d - d_plain| %.3e rad (bound %.0e); %d seeds differ, their distances within "
-		"%.3e" % (label, err, AN_TWIN_TOL, ndiff, tie))
-	if not (err <= AN_TWIN_TOL and tie <= AN_TWIN_TOL): failed.append("twin %s: %g, %d seeds (%g)" % (label, err,
-		ndiff, tie))
+	"""The kernel's distances and seeds or domains (dk, sk) equal to the
+	plain version's (dp, sp) bit for bit."""
+	err = float((dk - dp).abs().max()) if dk.numel() else 0.0
+	ndiff = int((sk != sp).sum())
+	same = torch.equal(dk, dp) and torch.equal(sk, sp)
+	print("analysis twin %s: %s; max |d - d_plain| %.3e rad, %d seeds differ" % (label,
+		"bit-identical" if same else "DIFFERENT", err, ndiff))
+	if not same: failed.append("twin %s: %g, %d seeds" % (label, err, ndiff))
 	return err
 
 
@@ -5005,10 +5040,80 @@ def an_points_on(shape, wcs, n, rng, margin=0):
 	return enmap.pix2sky(shape, wcs, pix), np.round(pix).astype(int)
 
 
+def an_tie_points(cdec, cra, step, a):
+	"""The near-tie set: for each centre (cdec, cra), four points mirrored
+	about it, step away in RA and in dec; for each point of a [{dec, ra}, m]
+	that point and two more 1e-15 rad from it (in dec, in RA).
+	[{dec, ra}, 4 n + 3 m]."""
+	out = [np.array([cdec, cra + step]), np.array([cdec, cra - step]), np.array([cdec + step, cra]),
+		np.array([cdec - step, cra]), a, a + np.array([[1e-15], [0]]), a + np.array([[0], [1e-15]])]
+	return np.concatenate(out, 1)
+
+
+def an_distinct(idx, n):
+	"""idx (ints in [0, n)) made distinct: a repeat moves on to the next free
+	index, modulo n."""
+	seen, out = set(), []
+	for i in np.asarray(idx).tolist():
+		while i in seen: i = (i + 1) % n
+		seen.add(i)
+		out.append(i)
+	return np.array(out)
+
+
+def an_near_ties(failed, cshape, cwcs, pd, pr, steps, wrapx, rng):
+	"""K13 and K14 against their plain versions, bit for bit, on the
+	near-tie set (an_tie_points): on the cut, 200 pixel centres with points
+	1-3 pixels to either side and 50 triples 1e-15 rad apart (K14; K13 from
+	the same points as a seed table, each seeded at its pixel or the next
+	free one); at nside AN_HP[0] about 200 pixel centres, a ring's pixel to
+	either side in RA and a ring spacing in dec, and 50 triples (brute, K14;
+	grid, K13, each point seeded at a distinct pixel)."""
+	from pixell_tpu_torch import enmap, distances, healpix
+	from pixell_tpu_torch.ops import distances_cuda
+	dec, ra = pd[:, 0].cpu().numpy(), pr[0].cpu().numpy()
+	ny, nx = cshape
+	cy, cx = rng.integers(4, ny - 4, 200), rng.integers(4, nx - 4, 200)
+	a = np.array([rng.uniform(dec.min(), dec.max(), 50), rng.uniform(ra.min(), ra.max(), 50)])
+	tp = an_tie_points(dec[cy], ra[cx], rng.integers(1, 4, 200)*abs(ra[1] - ra[0]), a)
+	pt = torch.from_numpy(tp).to(DEV)
+	ek, ik = distances_cuda.nearest_point(pd, pr, pt[0], pt[1], cshape)
+	ep, ip = an_nearest_plain(pd, pr, pt, cshape)
+	an_twin_check("K14 %s near-tie set, %d points" % (cshape, tp.shape[1]), ek, ep, ik, ip, failed)
+	pix = np.round(np.asarray(enmap.sky2pix(cshape, cwcs, tp))).astype(int)
+	flat = an_distinct(np.clip(pix[0], 0, ny - 1)*nx + np.clip(pix[1], 0, nx - 1), ny*nx)
+	seed = torch.full((ny*nx,), -1, dtype=torch.int32, device=DEV)
+	seed[torch.from_numpy(flat).to(DEV)] = torch.arange(tp.shape[1], dtype=torch.int32, device=DEV)
+	seed = seed.reshape(cshape)
+	sk, dk = distances_cuda.jump_flood(seed, pd, pr, wrapx, steps, (pt[0], pt[1]))
+	with an_plain():
+		sp, dp = distances_cuda.jump_flood(seed, pd, pr, wrapx, steps, (pt[0], pt[1]))
+	an_twin_check("K13 %s near-tie set as seeds" % (cshape,), dk, dp, sk, sp, failed)
+	nside = AN_HP[0]
+	info = distances.healpix_info(nside)
+	c = rng.choice(info.npix, 200, replace=False)
+	y, x = distances.unravel_healpix(info, c)
+	a = np.array([np.arcsin(rng.uniform(-1, 1, 50)), rng.uniform(0, 2*np.pi, 50)])
+	hc = an_tie_points(info.dec[y], info.ra0[y] + x*(2*np.pi)/info.nx[y], np.pi/(4*nside), a)
+	hc[1, :400] = np.concatenate([info.ra0[y] + (x + 1)*(2*np.pi)/info.nx[y], info.ra0[y] + (x - 1)*(2*np.pi)/
+		info.nx[y]])   # the RA mirrors: the neighbouring pixel centres of the ring
+	hc[0] = np.clip(hc[0], -np.pi/2, np.pi/2)
+	pp = an_distinct(np.asarray(healpix.ang2pix(nside, np.pi/2 - hc[0], hc[1])), info.npix)
+	for method in ("brute", "grid"):
+		run = lambda: distances.distance_from_points_healpix(info, hc, point_pix=pp, domains=True, method=method,
+			device=DEV)
+		dkh, lkh = run()
+		with an_plain():
+			dph, lph = run()
+		an_twin_check("nside %d %s, near-tie set of %d points" % (nside, method, hc.shape[1]), dkh, dph, lkh,
+			lph, failed)
+
+
 def an_twins(failed):
-	"""K13 and K14 against their plain versions on the card: on a 1024 x 2048
-	cut of the band (pixel seeds, point seeds, 1000 points) and at nside 256
-	(brute, grid); then K13 against K14's exact distance on the cut."""
+	"""K13 and K14 against their plain versions on the card, bit for bit: on
+	a 1024 x 2048 cut of the band (pixel seeds, point seeds, 1000 points)
+	and at nside 256 (brute, grid), and on the near-tie set (an_near_ties);
+	then K13 against K14's exact distance on the cut."""
 	from pixell_tpu_torch import enmap, distances
 	from pixell_tpu_torch.ops import distances_cuda
 	shape, wcs = an_geometry()
@@ -5066,6 +5171,7 @@ def an_twins(failed):
 		e = an_twin_check("nside %d %s, 500 points" % (nside, method), dkh, dph, lkh, lph, failed)
 		key = "nearest_point" if method == "brute" else "jump_flood"
 		errs[key] = max(errs[key], e)
+	an_near_ties(failed, cshape, cwcs, pd, pr, steps, wrapx, rng)
 	return errs
 
 
@@ -5279,12 +5385,124 @@ def an_device_ms(fn, pattern):
 	return (sum(getattr(e, _device_key(ka)) for e in ev)/1e3/count if count else None), count
 
 
-def an_records(bright, failed, errs, band):
+def an_pass_ms(seed, pd, pr, wrapx, steps):
+	"""A K13 flood launch by launch with a CUDA event after each: (the ms of
+	each of its 8 len(steps) passes and of the finish, the seeds, the
+	distances). The host queues launches faster than they run, so the
+	events measure the card."""
+	from pixell_tpu_torch.ops import distances_cuda
+	tabs = distances_cuda.tables("jump_flood", pd, pr, seed.shape, seed.device)
+	passes = [(dy*step, dx*step) for step in steps for dy, dx in distances_cuda.OFFSETS]
+	ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(passes) + 2)]
+	bufs = [torch.empty_like(seed), torch.empty_like(seed)]
+	s = seed
+	torch.cuda.synchronize()
+	ev[0].record()
+	for i, (sy, sx) in enumerate(passes):
+		s = distances_cuda.flood_pass(s, tabs, sy, sx, wrapx, bufs[i % 2])
+		ev[i + 1].record()
+	d = distances_cuda.flood_finish(s, tabs)
+	ev[-1].record()
+	torch.cuda.synchronize()
+	return [a.elapsed_time(b) for a, b in zip(ev[:-1], ev[1:])], s, d
+
+
+def an_pass_line(label, ms, nb):
+	"""Prints the first 8 passes' mean ms a launch against the last 8's and
+	the finish's, each beside the bytes bound nb (ms); returns them."""
+	first, last, fin = float(np.mean(ms[:8])), float(np.mean(ms[-9:-1])), ms[-1]
+	print("K13 passes %s: first 8 %.4f ms a launch, last 8 %.4f, finish %.4f, all %d %.4f on average (CUDA events; "
+		"12 B bound %.4f ms: %.1f / %.1f / %.1f %%)" % (label, first, last, fin, len(ms), float(np.mean(ms)), nb,
+		100*nb/first, 100*nb/last, 100*nb/fin))
+	return {"first8_ms": first, "last8_ms": last, "finish_ms": fin}
+
+
+def an_parent_flood(lib, seed, pd, pr, wrapx, steps):
+	"""The parent's K13 (the distance-carrying interface: a float64 distance beside the
+	seed, an init launch, then the passes) on seed [ny, nx] of pixel seeds:
+	(seeds, distances)."""
+	from pixell_tpu_torch.ops import distances_cuda
+	ny, nx = seed.shape
+	pdx, prx = pd.expand(seed.shape), pr.expand(seed.shape)
+	strides = (pdx.stride(0), pdx.stride(1), prx.stride(0), prx.stride(1))
+	st = torch.cuda.current_stream().cuda_stream
+	s = [torch.empty_like(seed), torch.empty_like(seed)]
+	d = [torch.empty(seed.shape, dtype=torch.float64, device=seed.device) for _ in range(2)]
+	def launch(si, di, so, do, sy, sx, init):
+		err = lib.pt_jump_flood(int(seed.dtype == torch.int64), si.data_ptr(), di.data_ptr(), so.data_ptr(),
+			do.data_ptr(), pdx.data_ptr(), prx.data_ptr(), *strides, 0, 0, ny, nx, sy, sx, int(wrapx), init, st)
+		if err: raise RuntimeError("the parent's jump_flood launch failed: CUDA error %d" % err)
+	launch(seed, seed, s[0], d[0], 0, 0, 1)
+	i = 0
+	for step in steps:
+		for dy, dx in distances_cuda.OFFSETS:
+			launch(s[i], d[i], s[1 - i], d[1 - i], dy*step, dx*step, 0)
+			i = 1 - i
+	return s[i], d[i]
+
+
+def an_parent_nearest(lib, pd, pr, pt, shape):
+	"""The parent's K14 (the distance-carrying interface): (distances, domains)."""
+	pdx, prx = pd.expand(shape), pr.expand(shape)
+	dec, ra = pt[0].contiguous(), pt[1].contiguous()   # the catalogue's [2, n] may be column-major
+	d = torch.empty(shape, dtype=torch.float64, device=DEV)
+	dom = torch.empty(shape, dtype=torch.int32, device=DEV)
+	err = lib.pt_nearest_point(pdx.data_ptr(), prx.data_ptr(), pdx.stride(0), pdx.stride(1), prx.stride(0),
+		prx.stride(1), shape[0], shape[1], dec.data_ptr(), ra.data_ptr(), pt.shape[1], d.data_ptr(),
+		dom.data_ptr(), torch.cuda.current_stream().cuda_stream)
+	if err: raise RuntimeError("the parent's nearest_point launch failed: CUDA error %d" % err)
+	return d, dom
+
+
+def an_parent_rows(lib, failed, seed, pd, pr, wrapx, steps, pt, cshape, new13, new14, nl):
+	"""The parent's K13 and K14 on the records' rows beside this tree's, in
+	turns (this, parent, this, parent; CUDA events, K13 over a whole flood,
+	a launch on average), their results held equal to this tree's. The
+	record keys of the parent's times."""
+	from pixell_tpu_torch.ops import distances_cuda
+	this13 = lambda: distances_cuda.jump_flood(seed, pd, pr, wrapx, steps)
+	this14 = lambda: distances_cuda.nearest_point(pd, pr, pt[0], pt[1], cshape)
+	old13 = lambda: an_parent_flood(lib, seed, pd, pr, wrapx, steps)
+	old14 = lambda: an_parent_nearest(lib, pd, pr, pt, cshape)
+	t = {k: [] for k in ("this13", "old13", "this14", "old14")}
+	for _ in range(2):
+		for k, fn in (("this13", this13), ("old13", old13), ("this14", this14), ("old14", old14)):
+			t[k].append(cuda_ms(fn, 1)/(nl if k.endswith("13") else 1))
+	(so, do), (eo, io) = old13(), old14()
+	diff = lambda a, b: (float((a[1] - b[1]).abs().max()), int((a[0] != b[0]).sum()))
+	d13, d14 = diff((so, do), new13), diff((io, eo), new14[::-1])
+	print("K13 row, the parent's kernel (jump_flood_kernel with a distance, 24 B a pixel) on the same rows: %.4f, "
+		"%.4f ms a launch against this tree's %.4f, %.4f (in turns, CUDA events over a flood of %d launches): %.2fx; "
+		"distances %.3e apart, %d seeds differ" % (*t["old13"], *t["this13"], nl,
+		np.mean(t["old13"])/np.mean(t["this13"]), *d13))
+	print("K14 row, the parent's kernel (nearest_point_kernel, Vincenty a pair) on the same rows: %.4f, %.4f ms against "
+		"this tree's %.4f, %.4f (in turns, CUDA events): %.2fx; distances %.3e apart, %d domains differ" % (
+		*t["old14"], *t["this14"], np.mean(t["old14"])/np.mean(t["this14"]), *d14))
+	# the parent's kernels were held to their twins within AN_TWIN_TOL, seeds equal outside such ties
+	if not (d13[0] <= AN_TWIN_TOL and d14[0] <= AN_TWIN_TOL):
+		failed.append("the parent's K13 / K14 distances differ from this tree's by %g / %g" % (d13[0], d14[0]))
+	return {"jump_flood": {"parent_ms": t["old13"], "ms_in_turns": t["this13"]},
+		"nearest_point": {"parent_ms": t["old14"], "ms_in_turns": t["this14"]}}
+
+
+def an_k14_ops(pd, pr, shape, npt):
+	"""(K14's counted FP64 operations, the same at AN_PAIR_OPS_OLD a pair)
+	for positions (pd, pr) broadcast to shape and npt points."""
+	n = float(np.prod(shape))
+	sep = pd.expand(shape).stride(1) == 0 and pr.expand(shape).stride(0) == 0   # as the kernel's separable()
+	ops = n*(npt*AN_PAIR_OPS[sep] + AN_ANGLE_OPS) + (shape[1]*npt*AN_COLUMN_OPS if sep else 0)
+	return ops, n*(npt*AN_PAIR_OPS_OLD + AN_ANGLE_OPS)
+
+
+def an_records(bright, failed, errs, band, parent=None):
 	"""K13 and K14 timed on AN_REC_ROWS full-width rows of the band (its
 	width, step list and RA wrap): per launch the kernel's device time, the
 	plain version's time and the bound (bytes over 3.35 TB/s or the counted
-	FP64 operations over 34 TFLOP/s); beside them each kernel's time a
-	launch at the full band in the main path's profiled step (band_ms)."""
+	FP64 operations over 34 TFLOP/s); K13 launch by launch (the first 8
+	passes against the last 8) on the rows and on the whole band; beside
+	them each kernel's time a launch at the full band in the main path's profiled step
+	(band_ms). With parent (a library with a distance-carrying distances.cu), its K13 /
+	K14 on the same rows, in turns with this tree's."""
 	from pixell_tpu_torch import enmap, distances
 	from pixell_tpu_torch.ops import distances_cuda
 	shape, wcs = an_geometry()
@@ -5309,12 +5527,20 @@ def an_records(bright, failed, errs, band):
 	with an_plain(evals):
 		fn()
 	e13 = an_twin_check("K13 %s (records' cut) pixel seeds" % (cshape,), dk, dp, sk, sp, failed)
-	nb = n*(4 + 8 + 4 + 8) + (ny + nx)*8      # seed and distance read and written a pass, the axes
-	ops = float(np.mean(evals))*AN_PAIR_OPS
+	# the function's state is the seed: 12 B a pixel a pass (its seed and the candidate's read, one
+	# written; the finish reads a seed and writes a float64); a 24 B state would carry a float64 distance too
+	tab_b = (2*ny + 3*nx)*8                    # the tables: (sin, cos) of dec; ra, (cos, sin) of ra
+	nb = n*12 + tab_b
+	ops = float(np.mean(evals))*AN_EVAL_OPS
 	b13 = max((1e3*nb/PEAK_BYTES, "bytes"), (1e3*ops/PEAK_FLOPS[torch.float64], "operations"))
+	b13_24 = 1e3*(n*24 + tab_b)/PEAK_BYTES
+	ms, s_ev, d_ev = an_pass_ms(seed, pd, pr, wrapx, steps)
+	rows_passes = an_pass_line("on %s" % (cshape,), ms, b13[0])
+	if not (torch.equal(s_ev, sk) and torch.equal(d_ev, dk)): failed.append("K13 launch by launch differs")
 	print("K13 row: jump_flood_kernel<int> on %s, %d launches a flood: %.4f ms a launch (profiler, %d launches "
-		"traced), plain %.4f ms, bound %.4f ms (%s; %.1f %%; %.1f M pixels evaluated a pass on average)" % (cshape,
-		nl, k_ms, count, p_ms, b13[0], b13[1], 100*b13[0]/k_ms, np.mean(evals)/1e6))
+		"traced), plain %.4f ms, bound %.4f ms (%s, 12 B a pixel; %.1f %%; with a 24 B state: %.4f ms, %.1f %%; %.1f M "
+		"pixels evaluated a pass on average)" % (cshape, nl, k_ms, count, p_ms, b13[0], b13[1], 100*b13[0]/k_ms,
+		b13_24, 100*b13_24/k_ms, np.mean(evals)/1e6))
 	# K14 at the main path's 1000 points
 	pt = torch.from_numpy(np.asarray(bright, np.float64)).to(DEV)
 	fn = lambda: distances_cuda.nearest_point(pd, pr, pt[0], pt[1], cshape)
@@ -5322,32 +5548,55 @@ def an_records(bright, failed, errs, band):
 	k14_ms, how = kernel_ms(fn, 3, "nearest_point_kernel")
 	(ep, ip), p14_ms = an_timed(lambda: an_nearest_plain(pd, pr, pt, cshape, rows=32))
 	e14 = an_twin_check("K14 %s (records' cut) %d points" % (cshape, pt.shape[1]), ek, ep, ik, ip, failed)
-	nb = n*(8 + 4) + pt.shape[1]*16 + (ny + nx)*8   # distance and domain written
-	ops = float(n)*(pt.shape[1]*AN_PAIR_OPS + AN_ANGLE_OPS)
+	nb = n*(8 + 4) + pt.shape[1]*56 + tab_b   # distance and domain written; the points' tables
+	ops, ops_old = an_k14_ops(pd, pr, cshape, pt.shape[1])
 	b14 = max((1e3*nb/PEAK_BYTES, "bytes"), (1e3*ops/PEAK_FLOPS[torch.float64], "operations"))
-	print("K14 row: nearest_point_kernel on %s, %d points: %.4f ms (%s), plain %.4f ms, bound %.4f ms (%s; "
-		"%.1f %%)" % (cshape, pt.shape[1], k14_ms, how, p14_ms, b14[0], b14[1], 100*b14[0]/k14_ms))
-	band13, band14 = band
+	old14 = 1e3*ops_old/PEAK_FLOPS[torch.float64]
+	print("K14 row: nearest_point_kernel on %s, %d points: %.4f ms (%s), plain %.4f ms, bound %.4f ms (%s; %.1f %%; "
+		"at the earlier %d operations a pair, not the bound: %.4f ms, %.1f %%)" % (cshape, pt.shape[1], k14_ms, how,
+		p14_ms, b14[0], b14[1], 100*b14[0]/k14_ms, AN_PAIR_OPS_OLD, old14, 100*old14/k14_ms))
+	bpd, bpr = distances._positions(shape, wcs, DEV)
 	nband = float(np.prod(shape))
-	bb13 = 1e3*(nband*(4 + 8 + 4 + 8) + sum(shape)*8)/PEAK_BYTES
-	bb14 = 1e3*nband*(pt.shape[1]*AN_PAIR_OPS + AN_ANGLE_OPS)/PEAK_FLOPS[torch.float64]
-	print("analysis band %s: K13 %.4f ms a launch (bytes bound %.4f ms, %.1f %%), K14 %.4f ms (%d points; "
-		"operations bound %.4f ms, %.1f %%), in the profiled step" % (tuple(shape), band13, bb13, 100*bb13/band13,
-		band14, pt.shape[1], bb14, 100*bb14/band14))
-	recs = [an_record("jump_flood[int32]", "jump_flood", "pixell_tpu/distances.py:34", max(e13, errs["jump_flood"]),
-			k_ms, p_ms, b13, None, {"shape": list(cshape), "band_ms": band13, "band_bound_ms": bb13,
-			"launches_a_flood": nl}),
+	bops, bops_old = an_k14_ops(bpd, bpr, tuple(shape), pt.shape[1])
+	bb14, bb14_old = (1e3*o/PEAK_FLOPS[torch.float64] for o in (bops, bops_old))
+	torch.cuda.empty_cache()
+	# K13 launch by launch on the whole band, 1e-3 of its pixels seeds
+	gen = torch.Generator(device=DEV)
+	gen.manual_seed(59)
+	bseed = torch.where(torch.rand(tuple(shape), generator=gen, device=DEV, dtype=torch.float32) < 1e-3,
+		torch.arange(int(nband), device=DEV, dtype=torch.int32).reshape(tuple(shape)), -1)
+	bb13 = 1e3*(nband*12 + (2*shape[0] + 3*shape[1])*8)/PEAK_BYTES
+	bb13_24 = 1e3*(nband*24 + (2*shape[0] + 3*shape[1])*8)/PEAK_BYTES
+	ms, _, _ = an_pass_ms(bseed, bpd, bpr, distances._is_wrapx(shape, wcs), distances._steps_for(max(shape)))
+	band_passes = an_pass_line("on the band %s" % (tuple(shape),), ms, bb13)
+	del bseed
+	torch.cuda.empty_cache()
+	band13, band14 = band
+	print("analysis band %s: K13 %.4f ms a launch (bytes bound %.4f ms, 12 B a pixel: %.1f %%; 24 B: %.4f, %.1f %%), "
+		"K14 %.4f ms (%d points; operations bound %.4f ms, %.1f %%; at the earlier %d operations a pair, not the "
+		"bound: %.4f ms, %.1f %%), in the profiled step" % (tuple(shape), band13, bb13, 100*bb13/band13, bb13_24,
+		100*bb13_24/band13, band14, pt.shape[1], bb14, 100*bb14/band14, AN_PAIR_OPS_OLD, bb14_old,
+		100*bb14_old/band14))
+	rec13 = {"shape": list(cshape), "band_ms": band13, "band_bound_ms": bb13, "bound_24B_ms": b13_24,
+		"band_bound_24B_ms": bb13_24, "launches_a_flood": nl, "passes": rows_passes, "band_passes": band_passes}
+	rec14 = {"shape": list(cshape), "npoint": int(pt.shape[1]), "band_ms": band14, "band_bound_ms": bb14,
+		"bound_6ops_ms": old14, "band_bound_6ops_ms": bb14_old}
+	if parent is not None:
+		old = an_parent_rows(parent, failed, seed, pd, pr, wrapx, steps, pt, cshape, (sk, dk), (ek, ik), nl)
+		rec13.update(old["jump_flood"])
+		rec14.update(old["nearest_point"])
+	return [an_record("jump_flood[int32]", "jump_flood", "pixell_tpu/distances.py:34", max(e13, errs["jump_flood"]),
+			k_ms, p_ms, b13, None, rec13),
 		an_record("nearest_point[float64]", "nearest_point", "pixell_tpu/distances.py:124",
-			max(e14, errs["nearest_point"]), k14_ms, p14_ms, b14, None, {"shape": list(cshape),
-			"npoint": int(pt.shape[1]), "band_ms": band14, "band_bound_ms": bb14})]
-	return recs
+			max(e14, errs["nearest_point"]), k14_ms, p14_ms, b14, None, rec14)]
 
 
-def analysis_phase():
+def analysis_phase(parent=None):
 	"""Twins and exact guards, the chain against CPU tensors, then the
 	DR6-sized band: the step timed (median of 3) with its stages, launches,
 	busy share, memory and copies; the finder guard; the one-shot runs; the
-	K13 / K14 records."""
+	K13 / K14 records (with parent, a library with a distance-carrying distances.cu,
+	its kernels beside them)."""
 	from pixell_tpu_torch import enmap, utils, pointsrcs, analysis, distances
 	from pixell_tpu_torch.ops import distances_cuda
 	h0 = time.perf_counter()
@@ -5451,7 +5700,7 @@ def analysis_phase():
 	if not below <= AN_EXACT_TOL: failed.append("HEALPix grid shorter than brute by %g" % below)
 	del hp
 	torch.cuda.empty_cache()
-	recs = an_records(cat[3], failed, errs, band)
+	recs = an_records(cat[3], failed, errs, band, parent)
 	for rec in recs: rec["launches"] = rec["analysis_launches"] = launches[rec["kind"]]
 	print("analysis launches in all its paths (each driven with the counts at 0): %s" % AN_LAUNCHES)
 	print("analysis phase: %.1f s" % (time.perf_counter() - h0))
@@ -5470,9 +5719,10 @@ def main():
 		help="comma-separated choice of %s (default: all but %s)" % (", ".join(PHASES + EXTRA_PHASES),
 		", ".join(EXTRA_PHASES)))
 	ap.add_argument("--parent", default=None, help="a directory holding a parent tree's legendre.cu, "
-		"blockleg.cu and / or nufft.cu: the kernels phase times the float64 kernels it launched beside the "
-		"float64 rows, the variants phase holds its float32 kernels against this tree's, the blocked phase "
-		"times its blk_synthesis_kernel beside this tree's, and the general phase its unbinned K10 / K11")
+		"blockleg.cu, nufft.cu and / or distances.cu: the kernels phase times the float64 kernels it launched "
+		"beside the float64 rows, the variants phase holds its float32 kernels against this tree's, the blocked "
+		"phase times its blk_synthesis_kernel beside this tree's, the general phase its unbinned K10 / K11, and "
+		"the analysis phase its distance-carrying K13 / K14")
 	args = ap.parse_args()
 	phases = args.phases.split(",")
 	if not set(phases) <= set(PHASES + EXTRA_PHASES): ap.error("unknown phase in %s" % phases)
@@ -5488,7 +5738,7 @@ def main():
 		sys.version.split()[0]))
 	torch.backends.cuda.matmul.allow_tf32 = False
 	torch.backends.cudnn.allow_tf32 = False
-	parent = blk_parent = nufft_parent = None
+	parent = blk_parent = nufft_parent = dist_parent = None
 	if not set(phases) <= {"flat", "interp"}:   # the flat and interp paths run no hand-written kernel
 		h0 = time.perf_counter()
 		with ThreadPoolExecutor(2) as ex:   # the parent's build beside this tree's
@@ -5498,12 +5748,13 @@ def main():
 			parent = parent and parent.result()
 		print("kernel build + load: %.1f s%s" % (time.perf_counter() - h0, "" if parent is None else
 			" (with the parent's %s from %s)" % (" and ".join(f for f, has in (("legendre.cu",
-			parent.has_legendre), ("blockleg.cu", parent.has_blk), ("nufft.cu", parent.has_nufft)) if has),
-			args.parent)))
+			parent.has_legendre), ("blockleg.cu", parent.has_blk), ("nufft.cu", parent.has_nufft),
+			("distances.cu", parent.has_dist)) if has), args.parent)))
 		# the parent's legendre.cu serves the kernels, timing and variants phases, its
 		# blockleg.cu the blocked phase
 		blk_parent = parent if parent is not None and parent.has_blk else None
 		nufft_parent = parent if parent is not None and parent.has_nufft else None
+		dist_parent = parent if parent is not None and parent.has_dist else None
 		parent = parent if parent is not None and parent.has_legendre else None
 		build_rows = print_build_summary((_build.build_dir()/"build.log").read_text())
 		f64_build_check(build_rows)
@@ -5571,7 +5822,7 @@ def main():
 		config5_phase()
 		print("phase config5 done at %.1f s" % (time.perf_counter() - t_start))
 	if "analysis" in phases:
-		an_recs = analysis_phase()
+		an_recs = analysis_phase(dist_parent)
 		print("phase analysis done at %.1f s" % (time.perf_counter() - t_start))
 	if "variants" in phases:
 		variants_phase(parent)

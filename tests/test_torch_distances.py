@@ -96,6 +96,48 @@ def test_flood_passes(geo, table):
 	assert distances_cuda.LAUNCHES["jump_flood"] == 0   # CPU tensors take the plain version
 
 
+@pytest.mark.parametrize("geo, table", [(fullsky, False), (patch, True)])
+@pytest.mark.parametrize("k", [0, 1, 4])
+def test_pass_and_finish_twins(geo, table, k):
+	"""K13's plain pass (jump_flood_plain, the seed alone as the state) run
+	pass by pass over the first k trap steps and then its finish
+	(flood_finish_plain) against the reference's _jump_flood over the same
+	steps; k = 0: the finish of the seeds themselves against the
+	reference's initial distances. A pass leaves its input as it was."""
+	shape, wcs = geo()
+	rng = np.random.default_rng(6 + k)
+	pos = np.asarray(jenmap.posmap(shape, wcs, safe=False))
+	n = int(np.prod(shape))
+	pick = rng.choice(n, 6, replace=False)
+	if table:
+		tdec, tra = rng.uniform(-1.3, 1.3, 6), rng.uniform(-np.pi, np.pi, 6)
+		lab, tab = np.arange(6), (torch.from_numpy(tdec), torch.from_numpy(tra))
+	else:
+		tdec, tra, lab, tab = pos[0].reshape(-1)[pick], pos[1].reshape(-1)[pick], pick, None
+	sd = np.full(n, 1e30); sr = np.zeros(n); sl = np.full(n, -1.0)
+	sd[pick], sr[pick], sl[pick] = tdec, tra, lab
+	wrapx = jdist._is_wrapx(shape, wcs)
+	steps = (64, 50, 13, 7, 3, 2, 1)[:k]
+	with jax.disable_jit():
+		ref = jdist._jump_flood(*(jax.numpy.asarray(a.reshape(shape)) for a in (sd, sr, sl)),
+			jax.numpy.asarray(pos[0]), jax.numpy.asarray(pos[1]), wrapx, steps)
+	seed = torch.full((n,), -1, dtype=torch.int64)
+	seed[torch.from_numpy(pick)] = torch.from_numpy(lab)
+	s = seed.reshape(shape)
+	pd, pr = distances._positions(shape, wcs, "cpu")
+	for step in steps:
+		for dy, dx in distances_cuda.OFFSETS:
+			before = s.clone()
+			out = distances_core.jump_flood_plain(s, pd, pr, tab, dy*step, dx*step, wrapx)
+			assert out is not s and torch.equal(s, before)
+			s = out
+	d = distances_core.flood_finish_plain(s, pd, pr, tab)
+	rd, rl = np.asarray(ref[3]), np.asarray(ref[2])
+	assert np.max(np.abs(d.numpy() - rd)) <= TOL
+	assert same_seeds(s.numpy(), rl, d.numpy(), rd)
+	assert torch.equal(d == distances_core.BIG, s < 0)
+
+
 def test_flood_index_dtypes():
 	"""int64 seeds give the int32 seeds' flood."""
 	shape, wcs = patch()
