@@ -12,16 +12,16 @@ all twelve of K10 / K11 / K12 and the ten of K13 / K14 must be built, and
 none of them may spill),
 then runs the phases below (all of them with no arguments; --phases with a
 choice of k9,kernels,lstop,slice,adjoint,blocked,timing,general,flat,interp,healpix,lensing,config5,
-analysis runs
+analysis,mesh runs
 those alone, for work on one phase, and gives no verdict; the phases
 "variants", 6. below, and "blkprobe" run only when named). With
---parent DIR, a directory holding a parent tree's legendre.cu, blockleg.cu,
-nufft.cu and / or distances.cu (for example unpacked with git archive
-under build/), those files are built beside the package's: the kernels,
-variants and timing phases run the parent's legendre.cu kernels beside
-this tree's, the blocked phase its blk_synthesis_kernel, the general phase
-its unbinned K10 / K11, the analysis phase its distance-carrying K13 / K14
-(below):
+--parent DIR, a directory holding a parent tree's legendre.cu, blockleg.cu
+and / or nufft.cu (for example unpacked with git archive under build/),
+those files are built beside the package's (a parent's legendre.cu must
+take the m block's first m, as this tree's does): the kernels, variants and
+timing phases run the parent's legendre.cu kernels beside this tree's, the
+blocked phase its blk_synthesis_kernel, the general phase its unbinned K10
+/ K11 (below):
 
 1. K9 phase: the FMA-peak kernel against its plain PyTorch chain on a small
    grid (the kernel rounds once per step, the chain twice: within
@@ -58,8 +58,9 @@ its unbinned K10 / K11, the analysis phase its distance-carrying K13 / K14
    (those of K4 or K3 on that input). In every mode also on the 202
    near-pole rings of a 3929-ring Clenshaw-Curtis map at lmax 750, poles
    included, and 130 m rows with 6 columns: the ring-tile loop, the pole
-   limits, a ragged m count and two launches into one output; and at the
-   lmax-2000 roundtrips' near-pole shapes (the 2160-ring map's near-pole
+   limits, a ragged m count and two launches into one output; and, in the
+   modes of the lmax-2000 paths (scalar, deriv, spin2, wigner), at their
+   near-pole shapes (the 2160-ring map's near-pole
    rings for synthesis, the upsampled map's for analysis; 128 m rows, or
    max(128, s + 1) in the wigner mode).
    Every float32 launch of K1-K4 runs their float32 bulk redesigned
@@ -90,7 +91,7 @@ its unbinned K10 / K11, the analysis phase its distance-carrying K13 / K14
    K1 on the map's 1080 northern rings (scalar, spin2), K3 on its 2160
    rings (scalar, spin2, wigner), K4 on the two chunks of 2048 and 1906
    upsampled bulk rings that the main path gives it (the first in scalar,
-   spin2 and wigner mode, the second in scalar and wigner), each launched
+   spin2 and wigner mode, the second in scalar), each launched
    with the dead-tile table and without: the table must mark dead tiles,
    the two results differ by at most 1e-9 (scalar) or 1e-7 (spin2, wigner)
    of the largest value, and both times are printed. Each launch with the
@@ -263,8 +264,9 @@ its unbinned K10 / K11, the analysis phase its distance-carrying K13 / K14
    memory peak (under 70 GiB), the plain rotation's and the binning's time
    against their bytes bound over 3.35 TB/s; harm2map(map2harm) within
    1e-5 / 1e-12 of the input, the binned spectrum within 1e-6 of numpy's
-   bincount of the same |F|^2 (copied to the host once, outside the
-   timing), and no host <-> device copy above 1 MB in the profiled step.
+   bincount of the same |F|^2 (its first component, copied to the host once,
+   outside the timing), and no host <-> device copy above 1 MB in the
+   profiled step.
    rand_map of IQU at 1024 x 2048 in float64 on the card and on CPU
    tensors from one seed within 1e-12. With --phases flat alone the
    hand-written kernels are not built.
@@ -374,7 +376,7 @@ its unbinned K10 / K11, the analysis phase its distance-carrying K13 / K14
    rad, RA in +-pi, amplitudes 0.5-2), a 2' Gaussian on 1000 radii out to
    30', sim_objects -> WaveletTransform(UHT(mode="curved", lmax=10000),
    ButterTrim(step=2)).map2wave -> wave2map (15 scales), in float32: the
-   step's ms (CUDA events, median of 3, min, max) and its stages (srcsim,
+   step's ms (CUDA events, median of 2, min, max) and its stages (srcsim,
    map2wave, wave2map), its launches (driven with the counts at 0; K1-K4
    and the near-pole passes must launch), the memory peak (under 70 GiB),
    the busy share and top ops of one profiled step (no host <-> device copy
@@ -424,9 +426,35 @@ its unbinned K10 / K11, the analysis phase its distance-carrying K13 / K14
    (kernel, plain and bound on 256 full-width rows of the band, beside the
    band's own time a launch) with the step's launches; K13 launch by launch
    on the rows and on the band (the first 8 passes against the last 8).
-   With --parent and a distances.cu whose flood carries a float64 distance
-   beside the seed in DIR, its K13 / K14 on the same
-   rows in turns with this tree's, their results held equal.
+
+14. mesh: the multi-device maps and transforms (pixell_tpu_torch.parallel,
+   .tilemap and mesh= of curvedsky, uharm, wavelets, lensing) on the one
+   card, and K1-K4 on an m block (their mfirst argument). The kernel checks
+   first (mesh_kernel_checks): K1-K4 (K7 in wigner mode) in float32 and
+   float64 and the float64 near-pole passes, in the modes of the mesh
+   paths, on the m block 101 .. 129 at lmax 300 (off the m tile), against
+   their plain twins on the same block and against the whole launch's
+   columns (equal). Then R = 4 ranks' own work emulated in turn at full
+   width, the combination (concatenation, the all-to-all by slicing) on
+   the card: IQU alm2map -> map2alm at lmax 2000 on the 2160 x 4320 F1
+   map, ring-sharded synthesis (K3 on a rank's rows) and the 2d phase
+   path's m blocks (K4 with the block's first m), float64: the map within
+   1e-12 of K3 on the whole ring set and 1e-11 of one device (whose
+   symmetric ring set takes K1), the alm 1e-11 of one device; float32 by
+   the float32 rule; the
+   2 x 2 mesh's roundtrip_step(shard="m") at lmax 2000 (K4 / K3 on the
+   column ranks' m blocks) and 750 (K2 / K1), float64 1e-11, float32 by the
+   rule; each rank's ms and bytes beside one device's, and the m-block
+   launches (sht_cuda.LAUNCHES_MBLOCK). Then the public entry points on a
+   one-rank NCCL mesh against no mesh: curvedsky.alm2map / map2alm of IQU
+   and deriv at lmax 2000 (1e-12 / 1e-11), WaveletTransform(UHT(lmax
+   2000), mesh=) (1e-10), lens_map_curved(mesh=) at config 4 (1e-10), and
+   tilemap from_enmap -> distribute -> redistribute -> to_enmap of the
+   DR6-sized band IQU f32 in 500 x 500 tiles (exact). The m-block records
+   of K1-K4 (spin2, float32 and float64, at the mesh paths' blocks and
+   ring sets) join the kernels line: block time beside the whole launch's,
+   bound, chunked torch.bmm, the plain twin's time at the check's shape,
+   the mesh path's launches.
 
 It prints the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and yardstick, and as the last line
@@ -797,25 +825,26 @@ STEP_OPS = 7
 MODE_OPS = {"scalar": 0, "deriv": 7, "spin1": 12, "spin2": 25, "wigner": 16}
 
 
-def kernel_ops(name, mode, lmax, mmax, nt, C, dead=None, split=False):
+def kernel_ops(name, mode, lmax, mmax, nt, C, dead=None, split=False, m0=0):
 	"""The operations of kernel name (either form of synthesis or
-	analysis) in mode: their sum, or with split (recurrence and mode
-	functions, accumulation)."""
+	analysis) in mode, on the m rows m0 .. mmax: their sum, or with split
+	(recurrence and mode functions, accumulation)."""
 	from pixell_tpu_torch.ops import sht_cuda
 	from pixell_tpu_torch.ops.sht_core import NFUN
-	rings = np.full(mmax + 1, nt) if dead is None else \
-		sht_cuda.live_mask(dead, mmax + 1, nt).sum(1).cpu().numpy()
-	first = np.maximum(np.arange(mmax + 1), mode_spin(mode) or 0)   # each row's seed degree
+	rings = np.full(mmax + 1 - m0, nt) if dead is None else \
+		sht_cuda.live_mask(dead, mmax + 1 - m0, nt).sum(1).cpu().numpy()
+	first = np.maximum(np.arange(m0, mmax + 1), mode_spin(mode) or 0)   # each row's seed degree
 	triples = int((rings*np.maximum(lmax + 1 - first, 0)).sum())
 	ops = (triples*(STEP_OPS + MODE_OPS[mode]), triples*2*C*NFUN[mode])
 	return ops if split else sum(ops)
 
 
-def kernel_bytes(name, mode, lmax, mmax, nt, C, esize):
+def kernel_bytes(name, mode, lmax, mmax, nt, C, esize, m0=0):
 	"""Each input read once and each output written once: the alm or ring
-	data, the coefficient and degree tables, the ring rows and seeds."""
+	data, the coefficient and degree tables, the ring rows and seeds, of
+	the m rows m0 .. mmax."""
 	from pixell_tpu_torch.ops.sht_core import NFUN
-	nl, nm, nf = lmax + 1, mmax + 1, NFUN[mode]
+	nl, nm, nf = lmax + 1, mmax + 1 - m0, NFUN[mode]
 	planes = 2 if name.startswith("sym") else 1
 	alm = nl*nm*C*esize
 	rings = nf*C*planes*nm*nt*esize
@@ -1099,13 +1128,22 @@ def f64_rows(parent=None):
 	from pixell_tpu_torch.ops import sht_cuda
 	dev, f64 = torch.device("cuda"), torch.float64
 	records = {}
+	syn_cols = lambda name, a: a[..., :2] if name.endswith("synthesis") else a[:, :2]
+	out_cols = lambda name, a: a[:, :2] if name.endswith("synthesis") else a[..., :2]
 	for i, (name, lmax, theta, held, timed) in enumerate(f64_row_cases()):
 		kern, plain, nt = getattr(sht_cuda, name), sht_cuda.PLAIN[name], len(theta)
-		for mode, C in held:
+		last = {}   # per mode, (input, plain result, ms) at C = 4: a C = 2 hold takes its first two columns
+		for mode, C in sorted(held, key=lambda mc: -mc[1]):
 			s = mode_spin(mode)
-			x = torch.from_numpy(kernel_input(name, mode, lmax, lmax, nt, 80 + i, C)).to(dev)
 			g = sht_cuda.geom(theta, lmax, f64, dev, s)
-			ref, plain_ms = timed_once(lambda: plain(x, g, lmax, mode))
+			if C == 2 and mode in last:
+				x4, ref4, plain_ms = last[mode]
+				x, ref, plain_C = syn_cols(name, x4).contiguous(), out_cols(name, ref4), 4
+			else:
+				x = torch.from_numpy(kernel_input(name, mode, lmax, lmax, nt, 80 + i, C)).to(dev)
+				ref, plain_ms = timed_once(lambda: plain(x, g, lmax, mode))
+				plain_C = C
+				if C == 4: last[mode] = (x, ref, plain_ms)
 			k = kern(x, g, lmax, mode)
 			torch.cuda.synchronize()
 			err, tol = relerr(k, ref), (1e-11 if mode == "scalar" else 1e-10)
@@ -1125,13 +1163,14 @@ def f64_rows(parent=None):
 			if lmax < 1000:
 				lib_ms, lib_err = library_ms(name, mode, x, theta, lmax, lmax, ref)
 			else:
-				lib_ms, lib_err = chunked_library_ms(name, mode, x, theta, lmax)
+				lib_ms, lib_err = chunked_library_ms(name, mode, x, theta, lmax, ref=ref)
 			if not lib_err <= 1e-10:
 				raise RuntimeError("%s %s: the float64 yardstick computes another function" % (name, mode))
 			entry = sht_cuda.BULK_F64[name]
 			rec = {"name": "%s[%s, lmax %d, nt %d]" % (entry, mode, lmax, nt), "route": "cuda",
 				"source": LEGENDRE_SOURCE, "replaces": REPLACES[name], "mode": mode,
 				"max_abs_err": float((k - ref).abs().max()), "rel_err": err, "ms": ms, "ms_from": how,
+				"plain_C": plain_C,
 				"call_ms": cuda_ms(run, n), "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
 				"bound_dmma_ms": dm_ms, "library_ms": lib_ms, "library_rel_err": lib_err, "shape": shape,
 				"path": f64_path(name, lmax, mode)}
@@ -1152,6 +1191,7 @@ def f64_rows(parent=None):
 			records[(name, mode, lmax, nt)] = rec
 			del x, k, ref
 			torch.cuda.empty_cache()
+		del last
 	return records
 
 
@@ -1200,6 +1240,10 @@ def polar_record(pname, mode, args, k_old, ref, old):
 	return rec
 
 
+# the modes of the lmax-2000 paths: the roundtrips (spin 0, IQU, spin [0, 3]) and the mesh phase's deriv
+LMAX2000_MODES = ("scalar", "deriv", "spin2", "wigner")
+
+
 def polar_shapes(pname, mode):
 	"""pname (polar_analysis or polar_synthesis) against its float64 plain
 	version at two more shapes. (1) Where its ring-tile loop runs and no
@@ -1208,7 +1252,8 @@ def polar_shapes(pname, mode):
 	modes take their limits), 130 m rows, and 6 columns, which take two
 	launches (4 + 2) into one output. (2) The lmax-2000 main path's: the
 	near-pole rings of the 2160-ring Fejer-1 map (synthesis) or of its
-	upsampled rings (analysis), the near-pole m rows, the mode's columns."""
+	upsampled rings (analysis), the near-pole m rows, the mode's columns,
+	in the modes of the lmax-2000 paths (LMAX2000_MODES)."""
 	from pixell_tpu_torch import sht, fft
 	from pixell_tpu_torch.ops import sht_cuda
 	s = mode_spin(mode)
@@ -1216,7 +1261,9 @@ def polar_shapes(pname, mode):
 	syn = pname == "polar_synthesis"
 	f1 = sht.ring_theta("F1", 2160 if syn else fft.fft_len(2*2000 + 3, direction="above"))
 	pm = (sht_cuda.POLAR_MMAX if s is None else max(sht_cuda.POLAR_MMAX, s + 1)) - 1
-	for i, (th, lmax, mmax, C) in enumerate(((cc, 750, 129, 6), (f1, 2000, pm, ncoef(mode)))):
+	shapes = [(cc, 750, 129, 6)]
+	if mode in LMAX2000_MODES: shapes.append((f1, 2000, pm, ncoef(mode)))
+	for i, (th, lmax, mmax, C) in enumerate(shapes):
 		nn, ns = sht_cuda.polar_counts(th, lmax)
 		theta = np.concatenate([th[:nn], th[len(th)-ns:]])
 		rng = np.random.default_rng(60 + i)
@@ -1230,20 +1277,25 @@ def polar_shapes(pname, mode):
 		polar_check(pname, mode, "lmax%d-nt%d-nm%d" % (lmax, len(theta), mmax + 1), kp, ref)
 
 
-def chunked_library_ms(name, mode, x, theta, lmax, mchunk=64):
+def chunked_library_ms(name, mode, x, theta, lmax, mchunk=64, ref=None):
 	"""(ms, rel err) of the library yardstick of kernel name at a shape whose
 	mode-function table [nm, nfun*nt, nl] does not fit in memory whole:
 	torch.bmm over m in chunks of mchunk rows, the times of the chunks
 	summed. Each chunk multiplies a table of its own shape; the table is
 	that of the first chunk (m < mchunk), built once, whose product is held
-	against the float64 plain version on those rows. The values do not
+	against the float64 plain version on those rows: ref's, the caller's
+	float64 plain result on all of x, where it has one (its rows m < mchunk
+	are the same numbers), else a plain call on them. The values do not
 	change a dense product's time."""
 	from pixell_tpu_torch.ops import sht_cuda
 	syn = name.endswith("synthesis")
 	head = lambda a: (a[:, :mchunk] if syn else a[..., :mchunk, :]).contiguous()
 	T, Bh, layout = library_call(name, mode, head(x), theta, mchunk - 1, lmax)
-	ref = sht_cuda.PLAIN[name](head(x).double(), sht_cuda.geom(theta, mchunk - 1, torch.float64,
-		x.device, mode_spin(mode)), lmax, mode)
+	if ref is not None:
+		ref = (ref[..., :mchunk, :] if syn else ref[:, :mchunk]).double()
+	else:
+		ref = sht_cuda.PLAIN[name](head(x).double(), sht_cuda.geom(theta, mchunk - 1, torch.float64,
+			x.device, mode_spin(mode)), lmax, mode)
 	err = relerr(layout(torch.bmm(T, Bh)), ref)
 	ms = chunked_bmm_ms(T, library_operand(name, mode, x, len(theta))[0], mchunk)
 	del T, Bh
@@ -1278,7 +1330,8 @@ def lstop_phase():
 	"""The dead-tile skip at the lmax-2000 float32 shapes, the same launch
 	with the table and without: K1 on the map's 1080 northern rings and K3
 	on its 2160 rings (scalar, spin2; K3 also wigner), K4 on the two chunks
-	of the upsampled bulk rings. Each is held against the float64 plain
+	of the upsampled bulk rings (the second in scalar). Each is held against
+	the float64 plain
 	version by the kernel phase's float32 rule. The main path's launches (K1
 	scalar and spin2, K3 wigner, K4 on the first chunk) get their bound and
 	the chunked torch.bmm yardstick. Returns their records, each with the
@@ -1303,7 +1356,7 @@ def lstop_phase():
 		("spin2", 1e-7, (("sym_synthesis", "north", "spin2 lmax 2000"), ("full_synthesis", "map", None),
 			("full_analysis", "chunk 1", "spin2 lmax 2000"))),
 		("wigner", 1e-7, (("full_synthesis", "map", "wigner lmax 2000"),
-			("full_analysis", "chunk 1", "wigner lmax 2000"), ("full_analysis", "chunk 2", None))))
+			("full_analysis", "chunk 1", "wigner lmax 2000"))))
 	records = {}
 	for mode, tol, runs_of_mode in cases:
 		s = mode_spin(mode)
@@ -1350,7 +1403,7 @@ def lstop_phase():
 				raise RuntimeError("%s %s at lmax %d (%s): the bulk kernel disagrees with the float64 "
 					"plain version" % (name, mode, lmax, where))
 			if path is None: continue
-			lib_ms, lib_err = chunked_library_ms(name, mode, x, theta, lmax)
+			lib_ms, lib_err = chunked_library_ms(name, mode, x, theta, lmax, ref=ref)
 			print("library %-14s %-6s lmax %d (%s): torch.bmm over m in chunks of 64 rows %.4f ms, "
 				"rel err %.3e against the float64 plain version on the first chunk (bound 1e-4)" % (
 				name, mode, lmax, where, lib_ms, lib_err))
@@ -1908,7 +1961,7 @@ def blocked_kernels(mode, theta, records, parent=None):
 		k2 = blk(x32, kstate, tab, g32, lmax, mode)
 		torch.cuda.synchronize()
 		if not bool(torch.isfinite(k2).all()): raise RuntimeError("blocked blk_%s: non-finite" % tag)
-		p2 = blk_plain(x32, kstate, tab, g32, lmax, mode)
+		p2, plain_ms = timed_once(lambda: blk_plain(x32, kstate, tab, g32, lmax, mode))
 		r2 = blk_plain(x, kstate.double(), tab64, g64, lmax, mode)
 		held("%s %s suffix from that state" % (blk.__name__, mode), relerr(k2, r2), relerr(p2, r2))
 		# prefix + suffix against the unsplit kernel
@@ -1931,7 +1984,6 @@ def blocked_kernels(mode, theta, records, parent=None):
 			"blk_%s_kernel" % name.split("_")[1])
 		ms_pre, _ = kernel_ms(lambda: kern(x32, g32, lmax, mode, lstop, True), 5, kname)
 		ms_full, _ = kernel_ms(lambda: kern(x32, g32, lmax, mode, dead), 5, kname)
-		plain_ms = cuda_ms(lambda: blk_plain(x32, kstate, tab, g32, lmax, mode), 1)
 		nbytes = blk_bytes(blk.__name__, mode, tab, lmax, nm, nt, C)
 		b_ms, b_by = bound(blk_ops(blk.__name__, mode, tab, lmax, nm, C), nbytes, f32)
 		# the float64 state, unscaled, at level 0
@@ -2203,20 +2255,20 @@ def profile_roundtrips(lmax, shape, nrep=3, spin=(0,)):
 F32_ANA = "constexpr int f32_analysis_rings(bool SYM) { return %s; }"
 F32_SYN = "constexpr int f32_synthesis_rings() { return %s; }"
 F64_ANA = "constexpr int f64_analysis_rings(int C) { return %s; }"
-F64_ANA_B = "constexpr int f64_analysis_blocks(int C) { return %s; }"
+F64_ANA_B = "constexpr int f64_analysis_blocks(int C, bool SYM) { return %s; }"
 F64_SYN = "constexpr int f64_synthesis_rings(int C) { return %s; }"
 F64_SYN_B = "constexpr int f64_synthesis_blocks(int C) { return %s; }"
 F64_SYN_RB = F64_SYN + "\n__host__ __device__ " + F64_SYN_B   # the two lines together
 BULK_VARIANTS = {
 	"R = 2": (F32_ANA % "MODE == SCALAR && !SYM ? 4 : 2", F32_ANA % "2"),
 	"R = 4": (F32_ANA % "MODE == SCALAR && !SYM ? 4 : 2", F32_ANA % "4"),
-	"gl0 == l8": ("else if (gl0 < l8 + BG)", "else if (gl0 == l8)"),
+	"gl0 == l8": ("else if (gl0 < lseed)", "else if (gl0 == l8)"),
 	"synthesis R = 1": (F32_SYN % "MODE == SCALAR ? 2 : 1", F32_SYN % "1"),
 	"synthesis R = 2": (F32_SYN % "MODE == SCALAR ? 2 : 1", F32_SYN % "2"),
 	"north/mirror sums": ("constexpr bool SYNTH_EVEN_ODD = true;", "constexpr bool SYNTH_EVEN_ODD = false;"),
 	"f64 R = 1": (F64_ANA % "MODE == DERIV && C == 4 ? 1 : 2", F64_ANA % "1"),
-	"f64 analysis 3 blocks": (F64_ANA_B % "MODE == DERIV && C == 2 ? 3 : 1", F64_ANA_B % "3"),
-	"f64 analysis uncapped": (F64_ANA_B % "MODE == DERIV && C == 2 ? 3 : 1", F64_ANA_B % "1"),
+	"f64 analysis 3 blocks": (F64_ANA_B % "MODE == DERIV && C == 2 ? (SYM ? 2 : 3) : 1", F64_ANA_B % "3"),
+	"f64 analysis uncapped": (F64_ANA_B % "MODE == DERIV && C == 2 ? (SYM ? 2 : 3) : 1", F64_ANA_B % "1"),
 	"f64 synthesis R = 2": (F64_SYN_RB % ("MODE == SCALAR || (MODE == SPIN1 && C == 4) ? 2 : 1",
 		"MODE == SCALAR || (MODE == SPIN1 && C == 4) ? 1 : 2"), F64_SYN_RB % ("2", "1")),
 	"f64 synthesis R = 1 at 2 blocks": (F64_SYN_RB % ("MODE == SCALAR || (MODE == SPIN1 && C == 4) ? 2 : 1",
@@ -2255,18 +2307,17 @@ class use_library:
 
 def parent_library(csrc):
 	"""The kernel library built from a parent tree's legendre.cu and / or
-	blockleg.cu and / or nufft.cu and / or distances.cu in the directory
-	csrc (--parent), with the entry points that parent_kernels,
-	blocked_kernels, parent_nufft and an_parent_rows call declared: the
-	float32 bulk entries and the float64 ones the parent has, its
-	blk_synthesis entries, its unbinned K10 / K11, its distance-carrying K13 /
-	K14.
-	lib.has_legendre, lib.has_blk, lib.has_nufft and lib.has_dist say which
-	it held.
+	blockleg.cu and / or nufft.cu in the directory csrc (--parent), with the
+	entry points that parent_kernels, blocked_kernels and parent_nufft call
+	declared: the float32 bulk entries and the float64 ones the parent has,
+	its blk_synthesis entries, its unbinned K10 / K11.
+	lib.has_legendre, lib.has_blk and lib.has_nufft say which it held.
 	lib.f64_entry maps each float64 bulk entry of this tree
 	(sym_bulk_synthesis_f64, ...) to the parent's: the same, or in a parent
 	that predates them the entry of synthesis_kernel / analysis_kernel
-	named after the wrapper (sym_synthesis, ...)."""
+	named after the wrapper (sym_synthesis, ...). Its Legendre entries are
+	declared with this tree's arguments, the m block's first m last: a
+	parent's legendre.cu must take it (int mfirst)."""
 	import ctypes
 	from pathlib import Path
 	from pixell_tpu_torch.ops import sht_core, sht_cuda, _build
@@ -2274,23 +2325,7 @@ def parent_library(csrc):
 	lib.has_legendre = hasattr(lib, "pt_%s_scalar" % sht_cuda.BULK_KERNELS["sym_synthesis"])
 	lib.has_blk = hasattr(lib, "pt_blk_synthesis_scalar")
 	lib.has_nufft = hasattr(lib, "pt_u2nu_points")
-	dist = Path(csrc)/"distances.cu"
-	# distance-carrying K13 / K14 (a float64 distance beside the seed, an init launch), told by their ABI:
-	# that pt_nearest_point takes 14 arguments, this tree's 16
-	decl = re.search(r'extern "C" int pt_nearest_point\(([^)]*)\)', dist.read_text()) if dist.exists() else None
-	lib.has_dist = decl is not None and len(decl.group(1).split(",")) == 14
 	P, I = ctypes.c_void_p, ctypes.c_int
-	if dist.exists() and not lib.has_dist:
-		print("--parent: its distances.cu does not carry a distance beside the seed; its K13 / K14 are not timed")
-	if lib.has_dist:
-		L = ctypes.c_longlong
-		# idx64, seed_in, d_in, seed_out, d_out, pos_dec, pos_ra, dsy, dsx, rsy, rsx, tab_dec, tab_ra, ny, nx,
-		# sy, sx, wrapx, init, stream
-		lib.pt_jump_flood.argtypes = [I, P, P, P, P, P, P, L, L, L, L, P, P, L, L, L, L, I, I, P]
-		lib.pt_jump_flood.restype = I
-		# pos_dec, pos_ra, dsy, dsx, rsy, rsx, ny, nx, pt_dec, pt_ra, npt, dist, dom, stream
-		lib.pt_nearest_point.argtypes = [P, P, L, L, L, L, L, L, P, P, L, P, P, P]
-		lib.pt_nearest_point.restype = I
 	if lib.has_nufft and not hasattr(lib, "pt_nufft_smem_bytes"):
 		# the unbinned K10 / K11 of a parent before the binned ones: f64, complex, in, coords,
 		# out, C, nfy, nfx, npt, pery, perx, w, beta, stream
@@ -2313,7 +2348,7 @@ def parent_library(csrc):
 		for name in tuple(sht_cuda.BULK_KERNELS.values()) + tuple(lib.f64_entry.values()):
 			if mode == "wigner" and name.startswith("sym"): continue
 			fn = getattr(lib, "pt_%s_%s" % (name, mode))
-			fn.argtypes = [I] + [P]*9 + [I]*(4 if "synthesis" in name else 5) + [P]*3
+			fn.argtypes = [I] + [P]*9 + [I]*(4 if "synthesis" in name else 5) + [P]*3 + [I]
 			fn.restype = I
 	return lib
 
@@ -3553,9 +3588,11 @@ def flat_dr6(dtype):
 		"%.2f GiB (bound %d)" % (tag, mshape, err, FLAT_RT_TOL[dtype], vals.shape[-1], peak, FLAT_MEM_GIB))
 	if not err <= FLAT_RT_TOL[dtype]: raise RuntimeError("flat DR6 %s: roundtrip error %g" % (tag, err))
 	if not peak < FLAT_MEM_GIB: raise RuntimeError("flat DR6 %s: peak memory %.2f GiB" % (tag, peak))
-	# the binned spectrum against numpy's bincount of the same |F|^2
+	# the binned spectrum against numpy's bincount of the same |F|^2, of the first component (the
+	# binning is the same function on each; the host bincount of all three took ~20 s)
 	f = fwd(m)
 	ps = enmap.calc_ps2d(f)
+	if ps.ndim > 2: ps = ps[:1]
 	got = enmap.lbin(ps)[0].cpu().numpy().reshape(-1, vals.shape[-1])
 	want = flat_bins_host(shape, wcs, ps.data.cpu().numpy().astype(np.float64))
 	berr = float(np.max(np.abs(got - want))/np.max(np.abs(want)))
@@ -4856,7 +4893,7 @@ def config5_phase():
 		recs[dtype] = rec.data
 		del wave, rec
 		torch.cuda.empty_cache()
-		steps, stages = c5_timed(wt, cat, dtype, 3 if dtype == torch.float32 else 1)
+		steps, stages = c5_timed(wt, cat, dtype, 2 if dtype == torch.float32 else 1)
 		med = float(np.median(steps))
 		print("config5 %s: %.3f ms a step (median of %d; min %.3f, max %.3f)" % (tag, med, len(steps), min(steps),
 			max(steps)))
@@ -4927,7 +4964,6 @@ AN_SNMIN = 5                   # the finder's threshold
 AN_CUT = (1024, 2048)          # the twins' cut of the band (from its row ny // 3 and column nx // 2)
 AN_REC_ROWS = 256              # full-width rows of the records' timing cut
 AN_HP = (256, 2048)            # nside of the twins' guard, of the one-shot HEALPix runs
-AN_TWIN_TOL = 1e-13            # a parent's K13 / K14 (--parent) against this tree's, radians
 AN_EXACT_TOL = 1e-12           # K13 against K14's exact distance, radians
 AN_EXACT_SHARE = 0.999         # share of pixels K13 must get within AN_EXACT_TOL
 AN_CPU_TOL = 1e-12             # the chain on the card against CPU tensors, float64, of the largest value
@@ -5417,74 +5453,6 @@ def an_pass_line(label, ms, nb):
 	return {"first8_ms": first, "last8_ms": last, "finish_ms": fin}
 
 
-def an_parent_flood(lib, seed, pd, pr, wrapx, steps):
-	"""The parent's K13 (the distance-carrying interface: a float64 distance beside the
-	seed, an init launch, then the passes) on seed [ny, nx] of pixel seeds:
-	(seeds, distances)."""
-	from pixell_tpu_torch.ops import distances_cuda
-	ny, nx = seed.shape
-	pdx, prx = pd.expand(seed.shape), pr.expand(seed.shape)
-	strides = (pdx.stride(0), pdx.stride(1), prx.stride(0), prx.stride(1))
-	st = torch.cuda.current_stream().cuda_stream
-	s = [torch.empty_like(seed), torch.empty_like(seed)]
-	d = [torch.empty(seed.shape, dtype=torch.float64, device=seed.device) for _ in range(2)]
-	def launch(si, di, so, do, sy, sx, init):
-		err = lib.pt_jump_flood(int(seed.dtype == torch.int64), si.data_ptr(), di.data_ptr(), so.data_ptr(),
-			do.data_ptr(), pdx.data_ptr(), prx.data_ptr(), *strides, 0, 0, ny, nx, sy, sx, int(wrapx), init, st)
-		if err: raise RuntimeError("the parent's jump_flood launch failed: CUDA error %d" % err)
-	launch(seed, seed, s[0], d[0], 0, 0, 1)
-	i = 0
-	for step in steps:
-		for dy, dx in distances_cuda.OFFSETS:
-			launch(s[i], d[i], s[1 - i], d[1 - i], dy*step, dx*step, 0)
-			i = 1 - i
-	return s[i], d[i]
-
-
-def an_parent_nearest(lib, pd, pr, pt, shape):
-	"""The parent's K14 (the distance-carrying interface): (distances, domains)."""
-	pdx, prx = pd.expand(shape), pr.expand(shape)
-	dec, ra = pt[0].contiguous(), pt[1].contiguous()   # the catalogue's [2, n] may be column-major
-	d = torch.empty(shape, dtype=torch.float64, device=DEV)
-	dom = torch.empty(shape, dtype=torch.int32, device=DEV)
-	err = lib.pt_nearest_point(pdx.data_ptr(), prx.data_ptr(), pdx.stride(0), pdx.stride(1), prx.stride(0),
-		prx.stride(1), shape[0], shape[1], dec.data_ptr(), ra.data_ptr(), pt.shape[1], d.data_ptr(),
-		dom.data_ptr(), torch.cuda.current_stream().cuda_stream)
-	if err: raise RuntimeError("the parent's nearest_point launch failed: CUDA error %d" % err)
-	return d, dom
-
-
-def an_parent_rows(lib, failed, seed, pd, pr, wrapx, steps, pt, cshape, new13, new14, nl):
-	"""The parent's K13 and K14 on the records' rows beside this tree's, in
-	turns (this, parent, this, parent; CUDA events, K13 over a whole flood,
-	a launch on average), their results held equal to this tree's. The
-	record keys of the parent's times."""
-	from pixell_tpu_torch.ops import distances_cuda
-	this13 = lambda: distances_cuda.jump_flood(seed, pd, pr, wrapx, steps)
-	this14 = lambda: distances_cuda.nearest_point(pd, pr, pt[0], pt[1], cshape)
-	old13 = lambda: an_parent_flood(lib, seed, pd, pr, wrapx, steps)
-	old14 = lambda: an_parent_nearest(lib, pd, pr, pt, cshape)
-	t = {k: [] for k in ("this13", "old13", "this14", "old14")}
-	for _ in range(2):
-		for k, fn in (("this13", this13), ("old13", old13), ("this14", this14), ("old14", old14)):
-			t[k].append(cuda_ms(fn, 1)/(nl if k.endswith("13") else 1))
-	(so, do), (eo, io) = old13(), old14()
-	diff = lambda a, b: (float((a[1] - b[1]).abs().max()), int((a[0] != b[0]).sum()))
-	d13, d14 = diff((so, do), new13), diff((io, eo), new14[::-1])
-	print("K13 row, the parent's kernel (jump_flood_kernel with a distance, 24 B a pixel) on the same rows: %.4f, "
-		"%.4f ms a launch against this tree's %.4f, %.4f (in turns, CUDA events over a flood of %d launches): %.2fx; "
-		"distances %.3e apart, %d seeds differ" % (*t["old13"], *t["this13"], nl,
-		np.mean(t["old13"])/np.mean(t["this13"]), *d13))
-	print("K14 row, the parent's kernel (nearest_point_kernel, Vincenty a pair) on the same rows: %.4f, %.4f ms against "
-		"this tree's %.4f, %.4f (in turns, CUDA events): %.2fx; distances %.3e apart, %d domains differ" % (
-		*t["old14"], *t["this14"], np.mean(t["old14"])/np.mean(t["this14"]), *d14))
-	# the parent's kernels were held to their twins within AN_TWIN_TOL, seeds equal outside such ties
-	if not (d13[0] <= AN_TWIN_TOL and d14[0] <= AN_TWIN_TOL):
-		failed.append("the parent's K13 / K14 distances differ from this tree's by %g / %g" % (d13[0], d14[0]))
-	return {"jump_flood": {"parent_ms": t["old13"], "ms_in_turns": t["this13"]},
-		"nearest_point": {"parent_ms": t["old14"], "ms_in_turns": t["this14"]}}
-
-
 def an_k14_ops(pd, pr, shape, npt):
 	"""(K14's counted FP64 operations, the same at AN_PAIR_OPS_OLD a pair)
 	for positions (pd, pr) broadcast to shape and npt points."""
@@ -5494,15 +5462,14 @@ def an_k14_ops(pd, pr, shape, npt):
 	return ops, n*(npt*AN_PAIR_OPS_OLD + AN_ANGLE_OPS)
 
 
-def an_records(bright, failed, errs, band, parent=None):
+def an_records(bright, failed, errs, band):
 	"""K13 and K14 timed on AN_REC_ROWS full-width rows of the band (its
 	width, step list and RA wrap): per launch the kernel's device time, the
 	plain version's time and the bound (bytes over 3.35 TB/s or the counted
 	FP64 operations over 34 TFLOP/s); K13 launch by launch (the first 8
 	passes against the last 8) on the rows and on the whole band; beside
 	them each kernel's time a launch at the full band in the main path's profiled step
-	(band_ms). With parent (a library with a distance-carrying distances.cu), its K13 /
-	K14 on the same rows, in turns with this tree's."""
+	(band_ms)."""
 	from pixell_tpu_torch import enmap, distances
 	from pixell_tpu_torch.ops import distances_cuda
 	shape, wcs = an_geometry()
@@ -5581,22 +5548,17 @@ def an_records(bright, failed, errs, band, parent=None):
 		"band_bound_24B_ms": bb13_24, "launches_a_flood": nl, "passes": rows_passes, "band_passes": band_passes}
 	rec14 = {"shape": list(cshape), "npoint": int(pt.shape[1]), "band_ms": band14, "band_bound_ms": bb14,
 		"bound_6ops_ms": old14, "band_bound_6ops_ms": bb14_old}
-	if parent is not None:
-		old = an_parent_rows(parent, failed, seed, pd, pr, wrapx, steps, pt, cshape, (sk, dk), (ek, ik), nl)
-		rec13.update(old["jump_flood"])
-		rec14.update(old["nearest_point"])
 	return [an_record("jump_flood[int32]", "jump_flood", "pixell_tpu/distances.py:34", max(e13, errs["jump_flood"]),
 			k_ms, p_ms, b13, None, rec13),
 		an_record("nearest_point[float64]", "nearest_point", "pixell_tpu/distances.py:124",
 			max(e14, errs["nearest_point"]), k14_ms, p14_ms, b14, None, rec14)]
 
 
-def analysis_phase(parent=None):
+def analysis_phase():
 	"""Twins and exact guards, the chain against CPU tensors, then the
 	DR6-sized band: the step timed (median of 3) with its stages, launches,
 	busy share, memory and copies; the finder guard; the one-shot runs; the
-	K13 / K14 records (with parent, a library with a distance-carrying distances.cu,
-	its kernels beside them)."""
+	K13 / K14 records."""
 	from pixell_tpu_torch import enmap, utils, pointsrcs, analysis, distances
 	from pixell_tpu_torch.ops import distances_cuda
 	h0 = time.perf_counter()
@@ -5700,7 +5662,7 @@ def analysis_phase(parent=None):
 	if not below <= AN_EXACT_TOL: failed.append("HEALPix grid shorter than brute by %g" % below)
 	del hp
 	torch.cuda.empty_cache()
-	recs = an_records(cat[3], failed, errs, band, parent)
+	recs = an_records(cat[3], failed, errs, band)
 	for rec in recs: rec["launches"] = rec["analysis_launches"] = launches[rec["kind"]]
 	print("analysis launches in all its paths (each driven with the counts at 0): %s" % AN_LAUNCHES)
 	print("analysis phase: %.1f s" % (time.perf_counter() - h0))
@@ -5708,8 +5670,444 @@ def analysis_phase(parent=None):
 	return recs
 
 
+# ---------------------------------------------------------------------------
+# the mesh phase: multi-device maps and transforms (parallel/, tilemap, the
+# m block of K1-K4)
+# ---------------------------------------------------------------------------
+MESH_R = 4                       # emulated ranks of the ring-sharded roundtrip
+MESH_LMAX = 2000
+MESH_SHAPE = (2160, 4320)
+# f64 bounds, of the largest value: tests/test_parallel.py's. The emulated ranks' ring-sharded synthesis
+# (K3 on each ring block) is held to "synthesis" against K3 on the whole ring set (no_sym), and to
+# "emulated" against one device, whose symmetric ring set takes K1 (another summation order; K1 alone
+# is 2.7e-11 from the float64 plain version in spin 2 at lmax 2000, the kernels phase): the roundtrip's
+# bound, printed beside the distance of K3 on the whole ring set from K1, its control
+MESH_TOL = {"synthesis": 1e-12, "analysis": 1e-11, "rect": 1e-11, "lensing": 1e-10, "wavelets": 1e-10,
+	"emulated": 1e-11}
+# the kernel checks' m block: lmax, the block's first m (not a multiple of TILE_M), its columns, the rings
+MESH_CHECK = (300, 101, 29, 64)
+MESH_LAUNCHES = {}               # the m-block launches of the mesh phase's main path, by (kernel, mode, dtype)
+
+
+def mesh_cols(name, x, m0, m1):
+	"""Columns m0 .. m1 - 1 of kernel name's input or output x."""
+	from pixell_tpu_torch.ops.sht_core import NFUN
+	axis = {"sym_analysis": 3, "full_analysis": 2, "polar_analysis": 2}.get(name, 1)
+	if name.endswith("analysis") and x.ndim == 3: axis = 1      # an analysis output [nl, nm, C]
+	if name.endswith("synthesis") and x.ndim != 3: axis = x.ndim - 2   # a synthesis output [.., nm, nt]
+	return x.narrow(axis, m0, m1 - m0).contiguous()
+
+
+def mesh_kernel_checks(failed):
+	"""Each of K1-K4 (K7 in wigner mode) in float32 and float64, and the
+	near-pole passes, in the modes the mesh paths give them, on an m block
+	that starts off the m tile (MESH_CHECK): held against its plain twin on
+	the same block (the kernel phase's bounds: float64 1e-11 / 1e-10,
+	float32 twice the float32 plain version's error plus 1e-6, each against
+	the float64 plain version; float32 with the block's dead-tile stops) and
+	against the same columns of the whole launch (without stops, so that
+	both compute every entry: equal). Returns {(wrapper, mode, dtype):
+	(plain ms, rel err, max abs err)}."""
+	from pixell_tpu_torch import sht
+	from pixell_tpu_torch.ops import sht_cuda
+	dev = torch.device("cuda")
+	lmax, m0, nb, nt = MESH_CHECK
+	m1 = m0 + nb
+	full = np.sort(np.random.default_rng(71).uniform(0.02, np.pi - 0.02, nt))
+	north = sht.ring_theta("F1", 2*nt)[:nt]
+	polar = np.concatenate([np.linspace(0.001, 0.08, 8), np.pi - np.linspace(0.001, 0.08, 8)[::-1]])
+	cases = [("sym_synthesis", m, north) for m in ("scalar", "spin2")] \
+		+ [("sym_analysis", m, north) for m in ("scalar", "spin2")] \
+		+ [(k, m, full) for k in ("full_synthesis", "full_analysis") for m in ("scalar", "deriv", "spin2", "wigner")] \
+		+ [(k, m, polar) for k in ("polar_synthesis", "polar_analysis") for m in ("scalar", "spin2")]
+	out = {}
+	for i, (name, mode, theta) in enumerate(cases):
+		s, kern, plain = mode_spin(mode), getattr(sht_cuda, name), sht_cuda.PLAIN[name]
+		base = name.replace("polar", "full")
+		x = torch.from_numpy(kernel_input(base, mode, lmax, lmax, len(theta), 90 + i)).to(dev)
+		xb = mesh_cols(name, x, m0, m1)
+		gb64 = sht_cuda.geom(theta, m1 - 1, torch.float64, dev, s, m0)
+		ref, plain64_ms = timed_once(lambda: plain(xb, gb64, lmax, mode))
+		for dt in ((torch.float64,) if name.startswith("polar") else (torch.float64, torch.float32)):
+			gw, gb = sht_cuda.geom(theta, lmax, dt, dev, s), sht_cuda.geom(theta, m1 - 1, dt, dev, s, m0)
+			whole = kern(x.to(dt), gw, lmax, mode)
+			blk = kern(xb.to(dt), gb, lmax, mode)
+			torch.cuda.synchronize()
+			dwhole = float((blk - mesh_cols(name, whole, m0, m1)).abs().max())
+			if dt == torch.float64:
+				err, tol, perr, pms = relerr(blk, ref), (1e-11 if mode == "scalar" else 1e-10), 0.0, plain64_ms
+			else:
+				stops = None
+				if not name.startswith("sym_analysis"):
+					stops = sht_cuda.dead_stops(theta, lmax, m1 - 1, s or 0, dev, m0)
+				args = (xb.to(dt), gb, lmax, mode) + (() if stops is None else (stops,))
+				blk = kern(*args)
+				p, pms = timed_once(lambda: plain(*args))
+				err, perr = relerr(blk, ref), relerr(p, ref)
+				tol = 2*perr + 1e-6
+			ok = err <= tol and dwhole == 0 and bool(torch.isfinite(blk).all())
+			print("m block %-15s %-6s %s: lmax %d, m %d .. %d (of %d), nt %d: rel err %.3e against the float64 "
+				"plain version on the block (plain %.3e, bound %.3e); the whole launch's columns %s %s" % (name,
+				mode, str(dt)[6:], lmax, m0, m1 - 1, lmax + 1, len(theta), err, perr, tol,
+				"equal" if dwhole == 0 else "differ by %.3e" % dwhole, "ok" if ok else "FAIL"))
+			if not ok: failed.append("m block %s %s %s" % (name, mode, dt))
+			out[(name, mode, str(dt)[6:])] = (pms, err, float((blk.double() - ref).abs().max()))
+	return out
+
+
+class no_sym:
+	"""Within the block the dispatch treats no ring set as north / south
+	symmetric: K3 / K4 on the whole ring set where it would take K1 / K2."""
+	def __enter__(self):
+		from pixell_tpu_torch.ops import sht_cuda
+		self.detect = sht_cuda.detect_sym
+		sht_cuda.detect_sym = lambda theta: None
+	def __exit__(self, *exc):
+		from pixell_tpu_torch.ops import sht_cuda
+		sht_cuda.detect_sym = self.detect
+
+
+def mesh_rank_ms(fn):
+	"""(result, ms): fn() once to warm up (its tables), then once timed with CUDA events."""
+	fn()
+	return timed_once(fn)
+
+
+def mesh_iqu(dtype, ref=None):
+	"""The emulated MESH_R ranks' IQU alm2map -> map2alm at MESH_LMAX on the
+	MESH_SHAPE Fejer-1 map in dtype, each rank's work in turn on the card:
+	synthesis on its ring block (sht_dist._synthesis_local: K3, a block
+	not north / south symmetric), the ring FFTs of its rows, the all-to-all
+	by slicing, the 2d phase path's theta upsample and quadrature on its m
+	block (curvedsky._phase_block: K4 with the block's first m), the
+	all-gather by concatenation; held against the one-device alm2map and
+	map2alm (float64: MESH_TOL; float32 with ref, the float64 results: the
+	float32 rule). Returns (map, alm, rows)."""
+	from pixell_tpu_torch import enmap, curvedsky, sht
+	from pixell_tpu_torch.parallel import sht_dist, mesh as pmesh
+	R, lmax = MESH_R, MESH_LMAX
+	cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+	shape, wcs = enmap.fullsky_geometry(shape=MESH_SHAPE, variant="fejer1")
+	alm = curvedsky.rand_alm(spectrum(lmax, (0, 2)), lmax=lmax, seed=61, device="cuda").to(cdt)
+	ainfo = curvedsky.alm_info(lmax=lmax)
+	minfo = curvedsky.analyse_geometry((3,) + shape, wcs)
+	nm, ny, nphi = lmax + 1, shape[0], minfo.nphi
+	z = lambda: enmap.zeros((3,) + shape, wcs, dtype, device="cuda")
+	m1, one_syn = mesh_rank_ms(lambda: curvedsky.alm2map(alm, z(), spin=[0, 2]))
+	a1, one_ana = mesh_rank_ms(lambda: curvedsky.map2alm(m1, lmax=lmax, spin=[0, 2]))
+	synth = lambda r: sht_dist._synthesis_local(alm, minfo.theta, nphi, r, R, phi0=minfo.phi0, lmax=lmax,
+		mmax=lmax, spin=(0, 2), map_dtype=dtype)
+	d = curvedsky._to_rings(m1.data, minfo)
+	def rows_fft(r):
+		t0, t1 = pmesh.block(ny, R, r)
+		return sht.ring_analysis(d[..., t0:t1, :], minfo.phi0, nm)
+	from pixell_tpu_torch.ops import sht_cuda
+	sht_cuda.reset_launches()
+	parts, fparts, rows = [], [], []
+	for r in range(R):
+		(p, syn_ms), (f, fft_ms) = mesh_rank_ms(lambda: synth(r)), mesh_rank_ms(lambda: rows_fft(r))
+		parts.append(p); fparts.append(f)
+		rows.append({"rank": r, "synthesis_ms": syn_ms, "ring_fft_ms": fft_ms,
+			"map_rows_bytes": p.numel()*p.element_size(), "alm_bytes": alm.numel()*alm.element_size()})
+	F = torch.cat(fparts, -1)                  # the all-to-all, by slicing: each rank's m block on every ring
+	rects = []
+	for r in range(R):
+		b0, b1 = pmesh.block(nm, R, r)
+		Fb = F[..., b0:b1, :].contiguous()
+		rect, ana_ms = mesh_rank_ms(lambda: curvedsky._phase_block(Fb, b0, ainfo, minfo, (0, 2), False, nphi, 3))
+		rects.append(rect)
+		rows[r].update({"m_block": [b0, b1], "analysis_ms": ana_ms, "rect_bytes": rect.numel()*rect.element_size(),
+			"phase_bytes": Fb.numel()*Fb.element_size()})
+	mblock = {k: n for k, n in sht_cuda.LAUNCHES_MBLOCK.items() if n}
+	for k, n in mblock.items(): MESH_LAUNCHES[k] = MESH_LAUNCHES.get(k, 0) + n
+	dm = curvedsky._from_rings(torch.cat(parts, -2), minfo, shape[-1])
+	da = sht.rect2alm(torch.cat(rects, -1), lmax, lmax)
+	tag = "IQU lmax %d %s %s, %d emulated ranks" % (lmax, MESH_SHAPE, str(dtype)[6:], R)
+	for r in rows:
+		print("mesh rank %d of %s: synthesis of rows %d .. %d %.3f ms, their ring FFTs %.3f ms, the m block %d .. "
+			"%d's upsample and quadrature %.3f ms; holds alm %.1f MB (replicated), map rows %.1f MB, phases of "
+			"its m block %.1f MB, rect of its m block %.1f MB" % (r["rank"], tag, *pmesh.block(ny, R, r["rank"]),
+			r["synthesis_ms"], r["ring_fft_ms"], r["m_block"][0], r["m_block"][1] - 1, r["analysis_ms"],
+			r["alm_bytes"]/1e6, r["map_rows_bytes"]/1e6, r["phase_bytes"]/1e6, r["rect_bytes"]/1e6))
+	slow_syn, slow_ana = max(r["synthesis_ms"] for r in rows), max(r["ring_fft_ms"] + r["analysis_ms"] for r in rows)
+	print("mesh %s: slowest rank alm2map %.3f ms against one device %.3f ms; map2alm %.3f ms against %.3f ms "
+		"(contiguous m blocks are not balanced: block 0 holds the most degrees); m-block launches %s" % (tag,
+		slow_syn, one_syn, slow_ana, one_ana, mblock))
+	if ref is None:
+		with no_sym(): mk3 = curvedsky.alm2map(alm, z(), spin=[0, 2]).data
+		ek3, es, ctl, ea = relerr(dm, mk3), relerr(dm, m1.data), relerr(mk3, m1.data), relerr(da, a1)
+		ok = ek3 <= MESH_TOL["synthesis"] and es <= MESH_TOL["emulated"] and ea <= MESH_TOL["analysis"]
+		print("mesh %s: map against K3 on the whole ring set %.3e (bound %.0e), against one device (K1) %.3e "
+			"(bound %.0e; K3 on the whole ring set against K1, the control, %.3e); alm against one device %.3e "
+			"(bound %.0e) %s" % (tag, ek3, MESH_TOL["synthesis"], es, MESH_TOL["emulated"], ctl, ea,
+			MESH_TOL["analysis"], "ok" if ok else "FAIL"))
+		del mk3
+	else:
+		es, eo = relerr(dm, ref[0]), relerr(m1.data, ref[0])
+		ea, eao = relerr(da, ref[1]), relerr(a1, ref[1])
+		ok = es <= 2*eo + 1e-6 and ea <= 2*eao + 1e-6
+		print("mesh %s against the float64 one-device results: map %.3e (one device %.3e, bound %.3e), alm %.3e "
+			"(one device %.3e, bound %.3e) %s" % (tag, es, eo, 2*eo + 1e-6, ea, eao, 2*eao + 1e-6,
+			"ok" if ok else "FAIL"))
+	if not mblock:
+		raise RuntimeError("mesh %s: no launch on an m block" % tag)
+	summary = {"one_device_alm2map_ms": one_syn, "one_device_map2alm_ms": one_ana, "slowest_alm2map_ms": slow_syn,
+		"slowest_map2alm_ms": slow_ana, "ranks": rows, "ok": ok}
+	return dm, da, summary
+
+
+def mesh_step(lmax, dtype, ref=None):
+	"""roundtrip_step(shard="m") of parallel.sht_dist on a 2 x 2 mesh
+	("rows", "cols"), emulated: the two row ranks' ring FFTs, the all-to-all
+	by slicing, the two column ranks' m blocks (K2 / K4 and K1 / K3 with the
+	block's first m) with the per-l filter, the all-to-all back, the row
+	ranks' ring syntheses; against the one-device ring roundtrip (float64:
+	MESH_TOL["rect"]; float32 with ref, the float64 map: the float32 rule).
+	Returns (map, summary)."""
+	from pixell_tpu_torch import sht, curvedsky
+	from pixell_tpu_torch.parallel import sht_dist, mesh as pmesh
+	from pixell_tpu_torch.ops import sht_cuda
+	nt, nphi = 2*lmax + 2, 2*lmax + 4
+	theta, w = sht.ring_theta("F1", nt), sht.ring_weights("F1", nt)
+	maps = torch.from_numpy(np.random.default_rng(62).standard_normal((3, nt, nphi))).to("cuda", dtype)
+	l = np.arange(lmax + 1)
+	flh = np.exp(-0.5*l*(l + 1)*0.01**2)
+	fl = torch.as_tensor(flh, dtype=dtype, device="cuda")
+	mpad = sht_dist._pad_mmax(lmax, lmax, 2)
+	def one():
+		a = curvedsky.almxfl(sht.analysis(maps, theta, lmax, w, spin=(0, 2)), flh, ainfo=curvedsky.alm_info(lmax=lmax))
+		return sht.synthesis(a, theta, nphi, lmax=lmax, spin=(0, 2))
+	om1, one_ms = mesh_rank_ms(one)
+	sht_cuda.reset_launches()
+	F = torch.cat([sht.ring_analysis(maps[..., slice(*pmesh.block(nt, 2, r)), :], 0.0, mpad + 1) for r in range(2)], -1)
+	G, cols = [], []
+	for c in range(2):
+		b0, b1 = pmesh.block(mpad + 1, 2, c)
+		Fc = F[:, b0:b1].contiguous()
+		def col():
+			rect = sht_dist._analysis_m_local(Fc, theta, lmax, w, nphi, b0, lmax, (0, 2))*fl[:, None]
+			return sht_dist._synthesis_m_local(rect, theta, lmax, b0, (0, 2))
+		g, ms = mesh_rank_ms(col)
+		G.append(g)
+		cols.append({"m_block": [b0, b1], "ms": ms, "rect_bytes": 3*(lmax + 1)*(b1 - b0)*2*maps.element_size()})
+	G = torch.cat(G, -2)
+	om = torch.cat([sht.ring_synthesis(G[..., slice(*pmesh.block(nt, 2, r))], 0.0, nphi).to(dtype) for r in range(2)], -2)
+	mblock = {k: n for k, n in sht_cuda.LAUNCHES_MBLOCK.items() if n}
+	for k, n in mblock.items(): MESH_LAUNCHES[k] = MESH_LAUNCHES.get(k, 0) + n
+	tag = "roundtrip_step(shard=\"m\") lmax %d (%d x %d) %s on a 2 x 2 mesh, emulated" % (lmax, nt, nphi,
+		str(dtype)[6:])
+	for c in cols:
+		print("mesh column rank of %s: m %d .. %d, its analysis, filter and Legendre synthesis %.3f ms, holds rect "
+			"%.1f MB of the whole %.1f MB" % (tag, c["m_block"][0], c["m_block"][1] - 1, c["ms"], c["rect_bytes"]/1e6,
+			3*(lmax + 1)*(mpad + 1)*2*maps.element_size()/1e6))
+	if ref is None:
+		err = relerr(om, om1)
+		ok = err <= MESH_TOL["rect"]
+		print("mesh %s: against one device %.3e (bound %.0e), one device %.3f ms, slowest column %.3f ms; m-block "
+			"launches %s %s" % (tag, err, MESH_TOL["rect"], one_ms, max(c["ms"] for c in cols), mblock,
+			"ok" if ok else "FAIL"))
+	else:
+		err, eo = relerr(om, ref), relerr(om1, ref)
+		ok = err <= 2*eo + 1e-6
+		print("mesh %s: against the float64 one-device map %.3e (one device %.3e, bound %.3e), one device %.3f ms, "
+			"slowest column %.3f ms; m-block launches %s %s" % (tag, err, eo, 2*eo + 1e-6, one_ms,
+			max(c["ms"] for c in cols), mblock, "ok" if ok else "FAIL"))
+	if not mblock:
+		raise RuntimeError("mesh %s: no launch on an m block" % tag)
+	return om1 if ref is None else None, {"one_device_ms": one_ms, "columns": cols, "ok": ok}
+
+
+def mesh_public(failed):
+	"""The public entry points on a one-rank NCCL mesh (parallel.mesh.get_mesh
+	on "cuda"), each against the same call without the mesh: curvedsky
+	alm2map / map2alm of IQU and deriv=True at MESH_LMAX (float64),
+	WaveletTransform(UHT(mode="curved", lmax=MESH_LMAX), mesh=) map2wave ->
+	wave2map, lens_map_curved(mesh=) at config 4's size (float64), and
+	tilemap from_enmap -> distribute -> redistribute -> to_enmap of the
+	DR6-sized band, IQU f32, in 500 x 500 tiles (exact)."""
+	import torch.distributed as tdist
+	from pixell_tpu_torch import enmap, curvedsky, uharm, wavelets, lensing, tilemap, utils
+	from pixell_tpu_torch.parallel import mesh as pmesh
+	mesh = pmesh.get_mesh(device="cuda")
+	if tdist.get_backend() != "nccl": raise RuntimeError("the CUDA mesh runs on %s" % tdist.get_backend())
+	try:
+		return mesh_public_paths(mesh, failed)
+	finally:
+		tdist.destroy_process_group()
+
+
+def mesh_public_paths(mesh, failed):
+	"""mesh_public's calls on the one-rank mesh."""
+	from pixell_tpu_torch import enmap, curvedsky, uharm, wavelets, lensing, tilemap, utils
+	from pixell_tpu_torch.parallel import mesh as pmesh
+	lmax = MESH_LMAX
+	shape, wcs = enmap.fullsky_geometry(shape=MESH_SHAPE, variant="fejer1")
+	alm = curvedsky.rand_alm(spectrum(lmax, (0, 2)), lmax=lmax, seed=63, device="cuda")
+	z = lambda pre: enmap.zeros(pre + shape, wcs, torch.float64, device="cuda")
+	res = []
+	def held(label, got, want, tol):
+		err = relerr(got, want)
+		res.append((label, err, tol))
+		print("mesh public %s on a one-rank NCCL mesh against no mesh: %.3e (bound %.0e) %s" % (label, err, tol,
+			"ok" if err <= tol else "FAIL"))
+		if not err <= tol: failed.append("mesh public " + label)
+	m1 = curvedsky.alm2map(alm, z((3,)), spin=[0, 2])
+	held("alm2map IQU lmax %d" % lmax, curvedsky.alm2map(alm, z((3,)), spin=[0, 2], mesh=mesh).data, m1.data,
+		MESH_TOL["synthesis"])
+	held("map2alm IQU lmax %d" % lmax, curvedsky.map2alm(m1, lmax=lmax, spin=[0, 2], mesh=mesh),
+		curvedsky.map2alm(m1, lmax=lmax, spin=[0, 2]), MESH_TOL["analysis"])
+	g1 = curvedsky.alm2map(alm[0], z((2,)), deriv=True)
+	held("alm2map deriv", curvedsky.alm2map(alm[0], z((2,)), deriv=True, mesh=mesh).data, g1.data, MESH_TOL["synthesis"])
+	held("map2alm deriv", curvedsky.map2alm(g1, lmax=lmax, deriv=True, mesh=mesh),
+		curvedsky.map2alm(g1, lmax=lmax, deriv=True), MESH_TOL["analysis"])
+	wt = wavelets.WaveletTransform(uharm.UHT(shape, wcs, mode="curved", lmax=lmax, device="cuda"))
+	wm = wavelets.WaveletTransform(uharm.UHT(shape, wcs, mode="curved", lmax=lmax, mesh=mesh, device="cuda"))
+	w1, w2 = wt.map2wave(m1[0]), wm.map2wave(m1[0])
+	held("map2wave (%d scales)" % len(w1.maps), torch.cat([m.data.reshape(-1) for m in w2.maps]),
+		torch.cat([m.data.reshape(-1) for m in w1.maps]), MESH_TOL["wavelets"])
+	held("wave2map", wm.wave2map(w2).data, wt.wave2map(w1).data, MESH_TOL["wavelets"])
+	del w1, w2, wt, wm
+	# config 4's spectra on white alm drawn on the card (lensing.rand_alm draws on the host, ~7 s at lmax 4000)
+	ainfo = curvedsky.alm_info(lmax=LENS_LMAX)
+	gen = torch.Generator(device="cuda").manual_seed(64)
+	white = lambda n: torch.randn((n, ainfo.nelem), dtype=torch.complex128, device="cuda", generator=gen)
+	ps = np.sqrt(np.diagonal(lens_spectra(LENS_LMAX)).T)            # [4, nl]
+	phi = curvedsky.almxfl(white(1)[0], ps[0], ainfo=ainfo)
+	cmb = torch.stack([curvedsky.almxfl(a, p, ainfo=ainfo) for a, p in zip(white(3), ps[1:])])
+	lshape, lwcs = lens_config4_geometry()
+	kw = dict(shape=(3,) + tuple(lshape), wcs=lwcs, phi_alm=phi, cmb_alm=cmb, dtype=np.float64,
+		delta_theta=LENS_DTHETA*utils.degree)
+	held("lens_map_curved config 4", lensing.lens_map_curved(mesh=mesh, **kw).data,
+		lensing.lens_map_curved(**kw).data, MESH_TOL["lensing"])
+	del phi, cmb
+	bshape, bwcs = an_geometry()
+	band = enmap.ndmap(torch.randn((3,) + tuple(bshape), dtype=torch.float32, device="cuda"), bwcs)
+	t0 = time.perf_counter()
+	tm = tilemap.from_enmap(band, (500, 500))
+	dtm = tilemap.distribute(tm, mesh)
+	rtm = tilemap.redistribute(dtm, sharding=pmesh.replicated(mesh))
+	back = tilemap.to_enmap(tilemap.redistribute(rtm, mesh, axis="rows"))
+	torch.cuda.synchronize()
+	same = bool(torch.equal(back.data, band.data))
+	print("mesh public tilemap of the DR6-sized band %s IQU f32 in 500 x 500 tiles (%d tiles): from_enmap -> "
+		"distribute -> redistribute -> to_enmap %.1f ms, %s" % (tuple(bshape), tm.nactive,
+		1e3*(time.perf_counter() - t0), "equal" if same else "FAIL"))
+	if not same: failed.append("mesh public tilemap")
+	del band, tm, dtm, rtm, back
+	torch.cuda.empty_cache()
+	return res
+
+
+def mesh_records(checks):
+	"""The m-block records of the kernels line: each of K1-K4 in float32 and
+	float64 in spin2, at the block and ring set of the mesh paths' launches
+	(K4 on rank 1's m block of the IQU analysis, 501 .. 1001, on the first
+	2048-ring chunk of the 4032 upsampled rings; K3 on column rank 1's block
+	of the 2 x 2 step at lmax 2000, 1001 .. 2001 of the padded 2002, all
+	4002 rings; K1 / K2 on column rank 1's block at lmax 750, 376 .. 751 of
+	752, the 751 northern of 1502 rings): the block's kernel time beside the
+	whole launch's on the same rings, the bound of the block's work, the
+	chunked torch.bmm yardstick, the plain twin's time at the check's shape
+	(mesh_kernel_checks: the plain version at this shape would take
+	minutes), the launches from the mesh path's run."""
+	from pixell_tpu_torch import sht, fft
+	from pixell_tpu_torch.ops import sht_cuda
+	dev = torch.device("cuda")
+	up = sht.ring_theta("F1", fft.fft_len(2*MESH_LMAX + 3, direction="above"))
+	nn, ns = sht_cuda.polar_counts(up, MESH_LMAX)
+	th750 = sht.ring_theta("F1", 1502)
+	cases = [("full_analysis", MESH_LMAX, 501, 1002, {torch.float32: up[nn:len(up) - ns][:sht_cuda.TCHUNK],
+			torch.float64: up[:sht_cuda.TCHUNK]}),
+		("full_synthesis", MESH_LMAX, 1001, 2002, sht.ring_theta("F1", 2*MESH_LMAX + 2)),
+		("sym_synthesis", 750, 376, 752, th750[:751]),
+		("sym_analysis", 750, 376, 752, th750[:751])]
+	records = []
+	mode, C = "spin2", ncoef("spin2")
+	for name, lmax, m0, m1, rings in cases:
+		kern = getattr(sht_cuda, name)
+		tables = {}   # by ring set: the mode-function table of the rows m < 64, float64
+		for dt in (torch.float32, torch.float64):
+			theta = rings[dt] if isinstance(rings, dict) else rings
+			nt, esize = len(theta), (4 if dt == torch.float32 else 8)
+			mmax = max(m1 - 1, lmax)
+			x = torch.from_numpy(kernel_input(name, mode, lmax, mmax, nt, 95)).to(dev, dt)
+			xb = mesh_cols(name, x, m0, m1)
+			gw = sht_cuda.geom(theta, mmax, dt, dev)
+			gb = sht_cuda.geom(theta, m1 - 1, dt, dev, None, m0)
+			sw = sb = None
+			if dt == torch.float32 and name != "sym_analysis":
+				sw = sht_cuda.dead_stops(theta, lmax, mmax, 0, dev)
+				sb = sht_cuda.dead_stops(theta, lmax, m1 - 1, 0, dev, m0)
+			argb = (xb, gb, lmax, mode) + (() if sb is None else (sb,))
+			argw = (x, gw, lmax, mode) + (() if sw is None else (sw,))
+			pat = kernel_pattern(name, dt)
+			ms, how = kernel_ms(lambda: kern(*argb), 5, pat)
+			whole_ms, _ = kernel_ms(lambda: kern(*argw), 5, pat)
+			b_ms, b_by = bound(kernel_ops(name, mode, lmax, m1 - 1, nt, C, sb, m0=m0),
+				kernel_bytes(name, mode, lmax, m1 - 1, nt, C, esize, m0=m0), dt)
+			tkey = len(theta)
+			if tkey not in tables:
+				tables[tkey] = library_call(name, mode, mesh_cols(name, xb, 0, 64).double(), theta, 63, lmax)[0]
+			lib_ms = chunked_bmm_ms(tables[tkey].to(dt), library_operand(name, mode, xb, nt)[0], 64)
+			key = (name, mode, str(dt)[6:])
+			plain_ms, err, abs_err = checks[key]
+			entry = (sht_cuda.BULK_F64 if dt == torch.float64 else sht_cuda.BULK_KERNELS)[name]
+			launches = MESH_LAUNCHES.get((entry, mode, str(dt)[6:]), 0)
+			rec = {"name": "%s[m block, %s, lmax %d, m %d-%d of %d, nt %d]" % (entry, mode, lmax, m0, m1 - 1,
+				mmax + 1, nt), "route": "cuda", "source": LEGENDRE_SOURCE, "replaces": REPLACES[name], "mode": mode,
+				"launches": launches, "max_abs_err": abs_err, "rel_err": err, "ms": ms, "ms_from": how,
+				"whole_ms": whole_ms, "plain_ms": plain_ms,
+				"plain_shape": "lmax %d, m %d .. %d, nt %d (mesh_kernel_checks; max_abs_err and rel_err there, "
+					"against the float64 plain version)" % (MESH_CHECK[0], MESH_CHECK[1],
+					MESH_CHECK[1] + MESH_CHECK[2] - 1, MESH_CHECK[3]),
+				"bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+				"library_from": "torch.bmm over the block's m in chunks of 64 rows, times summed, with the table of "
+					"the rows m < 64 (a dense product's time does not depend on its values; the yardstick's "
+					"function is held in the lstop phase and the float64 rows)",
+				"shape": "lmax %d, m %d .. %d, nt %d, C %d, %s%s" % (lmax, m0, m1 - 1, nt, C, str(dt)[6:],
+					"" if sb is None else ", dead-tile table")}
+			print("time   m block %-14s %s %s: %s %.4f ms (%s) against the whole launch's %.4f ms (m 0 .. %d), bound "
+				"%.4f ms (%s, %.1f %% of it reached), torch.bmm in chunks %.4f ms; launches on the mesh path %d" % (
+				name, mode, rec["shape"], entry, ms, how, whole_ms, mmax, b_ms, b_by, 100*b_ms/ms, lib_ms, launches))
+			records.append(rec)
+			del x, xb
+			torch.cuda.empty_cache()
+		del tables
+	return records
+
+
+def mesh_phase():
+	"""The mesh phase (13. above). Returns the m-block records."""
+	h0 = time.perf_counter()
+	MESH_LAUNCHES.clear()
+	failed = []
+	checks = mesh_kernel_checks(failed)
+	print("mesh kernel checks done at %.1f s" % (time.perf_counter() - h0))
+	m64, a64, s64 = mesh_iqu(torch.float64)
+	_, _, s32 = mesh_iqu(torch.float32, (m64, a64))
+	del m64, a64
+	print("mesh emulated IQU roundtrips done at %.1f s" % (time.perf_counter() - h0))
+	for lmax in (MESH_LMAX, 750):
+		om64, t64 = mesh_step(lmax, torch.float64)
+		_, t32 = mesh_step(lmax, torch.float32, om64)
+		del om64
+		failed += ["mesh step lmax %d %s" % (lmax, dt) for dt, t in (("f64", t64), ("f32", t32)) if not t["ok"]]
+	failed += ["mesh IQU %s" % dt for dt, s in (("f64", s64), ("f32", s32)) if not s["ok"]]
+	print("mesh emulated steps done at %.1f s" % (time.perf_counter() - h0))
+	print("m-block launches of the mesh path (LAUNCHES_MBLOCK, in LAUNCHES_BY_MODE too): %s" % MESH_LAUNCHES)
+	mesh_public(failed)
+	print("mesh public entry points done at %.1f s" % (time.perf_counter() - h0))
+	records = mesh_records(checks)
+	missing = [r["name"] for r in records if not r["launches"]]
+	if missing: failed.append("m-block kernels not launched by the mesh path: %s" % missing)
+	print(card_line())
+	print("mesh phase: %.1f s" % (time.perf_counter() - h0))
+	if failed: raise RuntimeError("mesh guards failed:\n" + "\n".join(failed))
+	return records
+
+
 PHASES = ("k9", "kernels", "lstop", "slice", "adjoint", "blocked", "timing", "general", "flat", "interp",
-	"healpix", "lensing", "config5", "analysis")
+	"healpix", "lensing", "config5", "analysis", "mesh")
 EXTRA_PHASES = ("variants", "blkprobe")   # run only when named
 
 
@@ -5719,10 +6117,9 @@ def main():
 		help="comma-separated choice of %s (default: all but %s)" % (", ".join(PHASES + EXTRA_PHASES),
 		", ".join(EXTRA_PHASES)))
 	ap.add_argument("--parent", default=None, help="a directory holding a parent tree's legendre.cu, "
-		"blockleg.cu, nufft.cu and / or distances.cu: the kernels phase times the float64 kernels it launched "
-		"beside the float64 rows, the variants phase holds its float32 kernels against this tree's, the blocked "
-		"phase times its blk_synthesis_kernel beside this tree's, the general phase its unbinned K10 / K11, and "
-		"the analysis phase its distance-carrying K13 / K14")
+		"blockleg.cu and / or nufft.cu: the kernels phase times the float64 kernels it launched beside the "
+		"float64 rows, the variants phase holds its float32 kernels against this tree's, the blocked phase "
+		"times its blk_synthesis_kernel beside this tree's, the general phase its unbinned K10 / K11")
 	args = ap.parse_args()
 	phases = args.phases.split(",")
 	if not set(phases) <= set(PHASES + EXTRA_PHASES): ap.error("unknown phase in %s" % phases)
@@ -5738,7 +6135,7 @@ def main():
 		sys.version.split()[0]))
 	torch.backends.cuda.matmul.allow_tf32 = False
 	torch.backends.cudnn.allow_tf32 = False
-	parent = blk_parent = nufft_parent = dist_parent = None
+	parent = blk_parent = nufft_parent = None
 	if not set(phases) <= {"flat", "interp"}:   # the flat and interp paths run no hand-written kernel
 		h0 = time.perf_counter()
 		with ThreadPoolExecutor(2) as ex:   # the parent's build beside this tree's
@@ -5748,19 +6145,18 @@ def main():
 			parent = parent and parent.result()
 		print("kernel build + load: %.1f s%s" % (time.perf_counter() - h0, "" if parent is None else
 			" (with the parent's %s from %s)" % (" and ".join(f for f, has in (("legendre.cu",
-			parent.has_legendre), ("blockleg.cu", parent.has_blk), ("nufft.cu", parent.has_nufft),
-			("distances.cu", parent.has_dist)) if has), args.parent)))
+			parent.has_legendre), ("blockleg.cu", parent.has_blk), ("nufft.cu", parent.has_nufft)) if has),
+			args.parent)))
 		# the parent's legendre.cu serves the kernels, timing and variants phases, its
 		# blockleg.cu the blocked phase
 		blk_parent = parent if parent is not None and parent.has_blk else None
 		nufft_parent = parent if parent is not None and parent.has_nufft else None
-		dist_parent = parent if parent is not None and parent.has_dist else None
 		parent = parent if parent is not None and parent.has_legendre else None
 		build_rows = print_build_summary((_build.build_dir()/"build.log").read_text())
 		f64_build_check(build_rows)
 		nufft_build_check(build_rows)
 		dist_build_check(build_rows)
-	records, kernel_records, f64_records, launches, launches64, an_recs = [], {}, {}, {}, {}, []
+	records, kernel_records, f64_records, launches, launches64, an_recs, mesh_recs = [], {}, {}, {}, {}, [], []
 	blk_records, lstop_records, gen_records = {}, {}, []
 	if "k9" in phases:
 		records = fma_phase()
@@ -5822,8 +6218,11 @@ def main():
 		config5_phase()
 		print("phase config5 done at %.1f s" % (time.perf_counter() - t_start))
 	if "analysis" in phases:
-		an_recs = analysis_phase(dist_parent)
+		an_recs = analysis_phase()
 		print("phase analysis done at %.1f s" % (time.perf_counter() - t_start))
+	if "mesh" in phases:
+		mesh_recs = mesh_phase()
+		print("phase mesh done at %.1f s" % (time.perf_counter() - t_start))
 	if "variants" in phases:
 		variants_phase(parent)
 		print("phase variants done at %.1f s" % (time.perf_counter() - t_start))
@@ -5853,7 +6252,8 @@ def main():
 	for rec in records:   # K9: summed over every driven path
 		rec["launches"] = sum(c["fma_peak"] for c in launches.values())
 	records = list(kernel_records.values()) + list(f64_records.values()) \
-		+ [r[0] for r in lstop_records.values()] + list(blk_records.values()) + gen_records + records + an_recs
+		+ [r[0] for r in lstop_records.values()] + list(blk_records.values()) + gen_records + records + an_recs \
+		+ mesh_recs
 	for rec in records:   # the launches of each record's kernel in the healpix and lensing paths
 		rec["healpix_launches"] = hp_count(rec)
 		rec["lensing_launches"] = hp_count(rec, LENS_LAUNCHES)

@@ -13,8 +13,10 @@ interface over the flat and the curved sky (uharm), wavelet transforms on
 the SHT kernels (wavelets) and the cell painter of objects (pointsrcs), and
 angular distance transforms on their own kernels (distances), masks,
 matched filters and source finders (analysis), ephemerides (ephem) and
-atom-graph coordinate systems (coordsys). Module names mirror
-pixell_tpu's.
+atom-graph coordinate systems (coordsys), and multi-device maps and
+transforms over torch.distributed: meshes, communicators and the ring- and
+m-sharded SHTs (parallel, mpi, mpiutils) and tiled, distributable maps
+(tilemap). Module names mirror pixell_tpu's.
 """
 __version__ = "0.1.0"
 
@@ -44,3 +46,7 @@ from . import distances
 from . import analysis
 from . import ephem
 from . import coordsys
+from . import parallel
+from . import mpi
+from . import mpiutils
+from . import tilemap

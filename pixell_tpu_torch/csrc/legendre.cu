@@ -28,7 +28,7 @@
 // sht_pallas.py:408): scalar emits lambda_lm; deriv [lambda, d lambda/d theta];
 // spin1 [w1, x1]; spin2 [w2, x2], the theta-functions of the spin-weighted
 // harmonics, evaluated per (l, m, theta) in registers from lambda_l and
-// lambda_{l-1} (formulas in pixell_tpu_torch/ops/sht_core.py mode_funcs).
+// lambda_{l-1} (formulas in pixell_tpu_torch/ops/sht_core.py ModeFuncs).
 // The mode is a compile-time constant; this file is compiled once per mode
 // (-DLEGENDRE_MODE=0..4, in parallel), and each object exports the entry
 // points pt_<kernel>_<mode>.
@@ -370,7 +370,8 @@ constexpr int BG = 8;    // degrees reduced together: the renormalization period
 // for, which caps their registers at 65536 / (threads x blocks) (1: no
 // cap; the float32 kernels' bounds give the threads alone), chosen among
 // the settings that do not spill: analysis two rings (one in deriv at
-// C = 4, which spills 16 bytes at two), three blocks in deriv at C = 2;
+// C = 4, which spills 16 bytes at two), three blocks in deriv at C = 2 (two in
+// the half-sky form, which spills 64 bytes at three with the m block's offset);
 // synthesis two rings in scalar mode and in spin1 at C = 4 (which spills
 // at the cap below), else one ring at two blocks, 128 registers. Measured by
 // chip_smoke.py --phases variants, which builds the alternatives
@@ -378,7 +379,7 @@ constexpr int BG = 8;    // degrees reduced together: the renormalization period
 __host__ __device__ constexpr int f32_analysis_rings(bool SYM) { return MODE == SCALAR && !SYM ? 4 : 2; }
 __host__ __device__ constexpr int f32_synthesis_rings() { return MODE == SCALAR ? 2 : 1; }
 __host__ __device__ constexpr int f64_analysis_rings(int C) { return MODE == DERIV && C == 4 ? 1 : 2; }
-__host__ __device__ constexpr int f64_analysis_blocks(int C) { return MODE == DERIV && C == 2 ? 3 : 1; }
+__host__ __device__ constexpr int f64_analysis_blocks(int C, bool SYM) { return MODE == DERIV && C == 2 ? (SYM ? 2 : 3) : 1; }
 __host__ __device__ constexpr int f64_synthesis_rings(int C) { return MODE == SCALAR || (MODE == SPIN1 && C == 4) ? 2 : 1; }
 __host__ __device__ constexpr int f64_synthesis_blocks(int C) { return MODE == SCALAR || (MODE == SPIN1 && C == 4) ? 1 : 2; }
 template <typename T, int C, bool SYM> constexpr int bulk_rings() {
@@ -394,6 +395,16 @@ __host__ __device__ constexpr int anal_lanes(int R) { return R == 1 ? 32 : TX / 
 template <typename T>
 __device__ __forceinline__ T level_factor(int lev) {
   return lev == 0 ? T(1) : (lev == -1 ? Scale<T>::invband() : T(0));
+}
+
+// The end of the degree groups (from l8, the block's first) that hold a
+// seed of the block's MY rows from m = mb (their seeds at max(m, spin) in
+// wigner mode, else at m): l8 + BG, one group, where mb is a multiple of MY
+// (the whole transform's blocks), and up to two groups for an m block that
+// starts elsewhere.
+__device__ __forceinline__ int seed_groups_end(int l8, int mb, int spin) {
+  const int last = MODE == WIGNER ? max(mb + MY - 1, spin) : mb + MY - 1;
+  return max(l8 + BG, (last + BG) & ~(BG - 1));
 }
 
 // One recurrence step at degree l for a row seeded at degree lseed (m; in
@@ -534,7 +545,7 @@ bulk_analysis(const T* __restrict__ F, const T* __restrict__ ab,
               const T* __restrict__ ctl, const T* __restrict__ rows,
               const T* __restrict__ sv, const int* __restrict__ sl,
               T* __restrict__ part, int nl, int nm, int nt, int ntiles,
-              int spin, const int* __restrict__ lstop, T* __restrict__ state) {
+              int spin, int mfirst, const int* __restrict__ lstop, T* __restrict__ state) {
   constexpr int LPR = anal_lanes(R);    // lanes of an m row
   constexpr int TW = LPR * R;           // rings of a tile
   constexpr int THREADS = MY * LPR;
@@ -547,11 +558,14 @@ bulk_analysis(const T* __restrict__ F, const T* __restrict__ ab,
   static_assert(!STOPS || TW == TX, "a block with stop degrees is one tile of the stop table");
   __shared__ BulkStage<T> sm;
   const int tid = threadIdx.x, row = tid / LPR, rl = tid % LPR;
-  const int m0 = blockIdx.y * MY, m = m0 + row;
+  // the block's first row mb and the thread's row mi index the m block's
+  // arrays; m = mfirst + mi is the row's true m
+  const int mb = blockIdx.y * MY, mi = mb + row, m = mfirst + mi;
   const size_t plane = (size_t)nm * nt;
   const T sgs = (spin & 1) ? T(-1) : T(1);
-  const int lbeg = MODE == WIGNER ? max(m0, spin) : m0;
+  const int lbeg = MODE == WIGNER ? max(mfirst + mb, spin) : mfirst + mb;
   const int l8 = lbeg & ~7;  // groups start at multiples of 8
+  const int lseed = seed_groups_end(l8, mfirst + mb, spin);
   // the lane's entries of a group after the butterfly: base .. base + PER - 1
   const bool writer = rl % DUP == 0;
   const int base = rl / DUP * PER;
@@ -568,8 +582,8 @@ bulk_analysis(const T* __restrict__ F, const T* __restrict__ ab,
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int t = tile * TW + rl + LPR * r;
-      const bool valid = t < nt && m < nm;
-      const size_t mt = (size_t)m * nt + t;
+      const bool valid = t < nt && mi < nm;
+      const size_t mt = (size_t)mi * nt + t;
       ring[r] = load_ring(cth, rows, t, nt, valid);
       xlo[r] = ct_low(ctl, t, valid);
       rc[r] = load_recur(sv, sl, mt, plane, m, spin, valid);
@@ -598,8 +612,8 @@ bulk_analysis(const T* __restrict__ F, const T* __restrict__ ab,
     for (int k = 0; k < KST; ++k) {
       const int e = tid + k * THREADS;
       if (e < BULK_NV) {
-        bulk_store(sm, 0, e, bulk_coef(ab, lt, l8, m0, nl, nm, e));
-        kv[k] = bulk_coef(ab, lt, l8 + BLC, m0, nl, nm, e);
+        bulk_store(sm, 0, e, bulk_coef(ab, lt, l8, mb, nl, nm, e));
+        kv[k] = bulk_coef(ab, lt, l8 + BLC, mb, nl, nm, e);
       }
     }
     __syncthreads();
@@ -607,9 +621,10 @@ bulk_analysis(const T* __restrict__ F, const T* __restrict__ ab,
       const int buf = ch & 1, lc0 = l8 + ch * BLC;
       // one group of BG degrees from degree gl0 (chunk index gi0); TAIL: the
       // group the stop cuts, its degrees under a uniform test; SEED: the
-      // first group, which holds every seed of the block's rows (they lie
-      // within 3 degrees of lbeg, and the first group starts at most 7 below
-      // it; a group cut by a stop needs no other case)
+      // groups that hold the seeds of the block's rows (they lie within 3
+      // degrees of lbeg, and the first group starts at most 7 below it: one
+      // group where the block starts on a multiple of MY, else at most two;
+      // a group cut by a stop needs no other case)
       auto group = [&](int gl0, int gi0, auto tail, auto seed) {
         constexpr bool TAIL = decltype(tail)::value, SEED = decltype(seed)::value;
         T w[NV];
@@ -650,24 +665,25 @@ bulk_analysis(const T* __restrict__ F, const T* __restrict__ ab,
           }
         }
         reduce_scatter<NV, LPR / 2>(w, rl);
-        if (writer && m < nm) {
+        if (writer && mi < nm) {
 #pragma unroll
           for (int k = 0; k < PER; ++k) {
             const int d = (base + k) / C, c = (base + k) % C, l = gl0 + d;
             // the same thread owns the same (l, m, c) in every tile of the plane
-            if (l < lend) dst[((size_t)l * nm + m) * C + c] += w[k];
+            if (l < lend) dst[((size_t)l * nm + mi) * C + c] += w[k];
           }
         }
       };
       for (int g = 0; g < BLC / BG; ++g) {
         const int gl0 = lc0 + g * BG;
         if (gl0 >= lend) break;
-        // gl0 < l8 + BG, not the equivalent gl0 == l8: with the latter nvcc's
-        // code was measured slower on an H100 in deriv and spin2
-        // (chip_smoke.py --phases variants; PERF.md section 6)
+        // gl0 < lseed (l8 + BG where the block starts on a multiple of MY),
+        // not the equivalent gl0 == l8: with the latter nvcc's code was
+        // measured slower on an H100 in deriv and spin2 (chip_smoke.py
+        // --phases variants; PERF.md section 6)
         if (gl0 + BG > lend)
           group(gl0, g * BG, std::true_type{}, std::true_type{});
-        else if (gl0 < l8 + BG)
+        else if (gl0 < lseed)
           group(gl0, g * BG, std::false_type{}, std::true_type{});
         else
           group(gl0, g * BG, std::false_type{}, std::false_type{});
@@ -678,7 +694,7 @@ bulk_analysis(const T* __restrict__ F, const T* __restrict__ ab,
         const int e = tid + k * THREADS;
         if (e < BULK_NV) {
           if (ch + 1 < nch) bulk_store(sm, buf ^ 1, e, kv[k]);
-          if (ch + 2 < nch) kv[k] = bulk_coef(ab, lt, l8 + (ch + 2) * BLC, m0, nl, nm, e);
+          if (ch + 2 < nch) kv[k] = bulk_coef(ab, lt, l8 + (ch + 2) * BLC, mb, nl, nm, e);
         }
       }
       __syncthreads();
@@ -687,7 +703,7 @@ bulk_analysis(const T* __restrict__ F, const T* __restrict__ ab,
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int t = tile * TW + rl + LPR * r;
-        if (t < nt && m < nm) dump_state(state, (size_t)m * nt + t, plane, rc[r].s[0]);
+        if (t < nt && mi < nm) dump_state(state, (size_t)mi * nt + t, plane, rc[r].s[0]);
       }
     }
   }
@@ -706,15 +722,17 @@ bulk_analysis(const T* __restrict__ F, const T* __restrict__ ab,
 template <int C, bool SYM, int R, bool STOPS, bool DUMP>
 __global__ void __launch_bounds__(MY * anal_lanes(R))
 bulk_analysis_kernel(BULK_PARAMS(float), int nl, int nm, int nt, int ntiles, int spin,
-                     const int* __restrict__ lstop, float* __restrict__ state) {
-  bulk_analysis<float, C, SYM, R, STOPS, DUMP>(BULK_PASS, nl, nm, nt, ntiles, spin, lstop, state);
+                     int mfirst, const int* __restrict__ lstop, float* __restrict__ state) {
+  bulk_analysis<float, C, SYM, R, STOPS, DUMP>(BULK_PASS, nl, nm, nt, ntiles, spin, mfirst, lstop,
+                                               state);
 }
 
 template <int C, bool SYM, int R>
-__global__ void __launch_bounds__(MY * anal_lanes(R), f64_analysis_blocks(C))
-bulk_analysis_kernel_f64(BULK_PARAMS(double), int nl, int nm, int nt, int ntiles, int spin) {
-  bulk_analysis<double, C, SYM, R, false, false>(BULK_PASS, nl, nm, nt, ntiles, spin, nullptr,
-                                                 nullptr);
+__global__ void __launch_bounds__(MY * anal_lanes(R), f64_analysis_blocks(C, SYM))
+bulk_analysis_kernel_f64(BULK_PARAMS(double), int nl, int nm, int nt, int ntiles, int spin,
+                         int mfirst) {
+  bulk_analysis<double, C, SYM, R, false, false>(BULK_PASS, nl, nm, nt, ntiles, spin, mfirst,
+                                                 nullptr, nullptr);
 }
 
 // K1 / K3, redesigned for Hopper (bulk_synthesis_kernel), in float32 and in
@@ -851,7 +869,7 @@ bulk_synthesis(const T* __restrict__ A, const T* __restrict__ ab,
                const T* __restrict__ lt, const T* __restrict__ cth,
                const T* __restrict__ ctl, const T* __restrict__ rows,
                const T* __restrict__ sv, const int* __restrict__ sl,
-               T* __restrict__ out, int nl, int nm, int nt, int spin,
+               T* __restrict__ out, int nl, int nm, int nt, int spin, int mfirst,
                const int* __restrict__ lstop, T* __restrict__ state) {
   constexpr int LPR = TX / R;           // threads of an m row
   constexpr int THREADS = MY * LPR;
@@ -861,11 +879,13 @@ bulk_synthesis(const T* __restrict__ A, const T* __restrict__ ab,
   static_assert(BLC % BG == 0, "a chunk holds whole groups");
   __shared__ SynthStage<T, C> sm;
   const int tid = threadIdx.x, row = tid / LPR, rl = tid % LPR;
-  const int tile = blockIdx.x, m0 = blockIdx.y * MY, m = m0 + row;
+  // mb and mi index the m block's arrays, m = mfirst + mi is the true m
+  const int tile = blockIdx.x, mb = blockIdx.y * MY, mi = mb + row, m = mfirst + mi;
   const size_t plane = (size_t)nm * nt;
   const T sgs = (spin & 1) ? T(-1) : T(1);
-  const int lbeg = MODE == WIGNER ? max(m0, spin) : m0;
+  const int lbeg = MODE == WIGNER ? max(mfirst + mb, spin) : mfirst + mb;
   const int l8 = lbeg & ~7;  // groups start at multiples of 8
+  const int lseed = seed_groups_end(l8, mfirst + mb, spin);
   const int lend = STOPS ? stop_degree(lstop, blockIdx.y, tile, gridDim.x, nl) : nl;
   // a dead tile (or one whose stop comes before any group) runs no chunk
   const int nch = lend > l8 ? (lend - l8 + BLC - 1) / BLC : 0;
@@ -879,10 +899,10 @@ bulk_synthesis(const T* __restrict__ A, const T* __restrict__ ab,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int t = tile * TX + rl + LPR * r;
-    const bool valid = t < nt && m < nm;
+    const bool valid = t < nt && mi < nm;
     ring[r] = load_ring(cth, rows, t, nt, valid);
     xlo[r] = ct_low(ctl, t, valid);
-    rc[r] = load_recur(sv, sl, (size_t)m * nt + t, plane, m, spin, valid);
+    rc[r] = load_recur(sv, sl, (size_t)mi * nt + t, plane, m, spin, valid);
 #pragma unroll
     for (int br = 0; br < NBR; ++br) fac[r][br] = T(1);
 #pragma unroll
@@ -899,8 +919,8 @@ bulk_synthesis(const T* __restrict__ A, const T* __restrict__ ab,
     for (int k = 0; k < KST; ++k) {
       const int e = tid + k * THREADS;
       if (e < NV) {
-        synth_store(sm, 0, e, synth_coef<C>(ab, lt, A, l8, m0, nl, nm, e));
-        kv[k] = synth_coef<C>(ab, lt, A, l8 + BLC, m0, nl, nm, e);
+        synth_store(sm, 0, e, synth_coef<C>(ab, lt, A, l8, mb, nl, nm, e));
+        kv[k] = synth_coef<C>(ab, lt, A, l8 + BLC, mb, nl, nm, e);
       }
     }
     __syncthreads();
@@ -908,7 +928,7 @@ bulk_synthesis(const T* __restrict__ A, const T* __restrict__ ab,
       const int buf = ch & 1, lc0 = l8 + ch * BLC;
       // one group of BG degrees from degree gl0 (chunk index gi0); TAIL: the
       // group the stop cuts, its degrees under a uniform test; SEED: the
-      // first group, which holds every seed of the block's rows
+      // groups that hold the seeds of the block's rows (below lseed)
       auto group = [&](int gl0, int gi0, auto tail, auto seed) {
         constexpr bool TAIL = decltype(tail)::value, SEED = decltype(seed)::value;
 #pragma unroll
@@ -960,10 +980,10 @@ bulk_synthesis(const T* __restrict__ A, const T* __restrict__ ab,
       for (int g = 0; g < BLC / BG; ++g) {
         const int gl0 = lc0 + g * BG;
         if (gl0 >= lend) break;
-        // gl0 < l8 + BG rather than gl0 == l8, as in bulk_analysis_kernel
+        // gl0 < lseed rather than gl0 == l8, as in bulk_analysis_kernel
         if (gl0 + BG > lend)
           group(gl0, g * BG, std::true_type{}, std::true_type{});
-        else if (gl0 < l8 + BG)
+        else if (gl0 < lseed)
           group(gl0, g * BG, std::false_type{}, std::true_type{});
         else
           group(gl0, g * BG, std::false_type{}, std::false_type{});
@@ -974,7 +994,7 @@ bulk_synthesis(const T* __restrict__ A, const T* __restrict__ ab,
         const int e = tid + k * THREADS;
         if (e < NV) {
           if (ch + 1 < nch) synth_store(sm, buf ^ 1, e, kv[k]);
-          if (ch + 2 < nch) kv[k] = synth_coef<C>(ab, lt, A, l8 + (ch + 2) * BLC, m0, nl, nm, e);
+          if (ch + 2 < nch) kv[k] = synth_coef<C>(ab, lt, A, l8 + (ch + 2) * BLC, mb, nl, nm, e);
         }
       }
       __syncthreads();
@@ -983,8 +1003,8 @@ bulk_synthesis(const T* __restrict__ A, const T* __restrict__ ab,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int t = tile * TX + rl + LPR * r;
-    if (t >= nt || m >= nm) continue;
-    const size_t mt = (size_t)m * nt + t;
+    if (t >= nt || mi >= nm) continue;
+    const size_t mt = (size_t)mi * nt + t;
     if constexpr (DUMP && MODE != WIGNER) dump_state(state, mt, plane, rc[r].s[0]);
 #pragma unroll
     for (int f = 0; f < NFUN; ++f)
@@ -1013,15 +1033,16 @@ bulk_synthesis(const T* __restrict__ A, const T* __restrict__ ab,
 // for f64_synthesis_blocks blocks an SM.
 template <int C, bool SYM, int R, bool STOPS, bool DUMP>
 __global__ void __launch_bounds__(MY * TX / R)
-bulk_synthesis_kernel(BULK_PARAMS(float), int nl, int nm, int nt, int spin,
+bulk_synthesis_kernel(BULK_PARAMS(float), int nl, int nm, int nt, int spin, int mfirst,
                       const int* __restrict__ lstop, float* __restrict__ state) {
-  bulk_synthesis<float, C, SYM, R, STOPS, DUMP>(BULK_PASS, nl, nm, nt, spin, lstop, state);
+  bulk_synthesis<float, C, SYM, R, STOPS, DUMP>(BULK_PASS, nl, nm, nt, spin, mfirst, lstop, state);
 }
 
 template <int C, bool SYM, int R>
 __global__ void __launch_bounds__(MY * TX / R, f64_synthesis_blocks(C))
-bulk_synthesis_kernel_f64(BULK_PARAMS(double), int nl, int nm, int nt, int spin) {
-  bulk_synthesis<double, C, SYM, R, false, false>(BULK_PASS, nl, nm, nt, spin, nullptr, nullptr);
+bulk_synthesis_kernel_f64(BULK_PARAMS(double), int nl, int nm, int nt, int spin, int mfirst) {
+  bulk_synthesis<double, C, SYM, R, false, false>(BULK_PASS, nl, nm, nt, spin, mfirst, nullptr,
+                                                  nullptr);
 }
 
 // K4's float64 near-pole pass, redesigned for Hopper (polar_analysis_kernel):
@@ -1079,12 +1100,13 @@ template <int C> struct PolarSmem {
 
 // Coefficient e = q PLC + i of a chunk starting at degree l0 (q: a, b, e or
 // the wigner mode's c, nrm, hp; i: the degree in the chunk); zero below the
-// seed degree lbeg, where the state stays zero, and from nl on.
+// seed degree lbeg, where the state stays zero, and from nl on; mi is the
+// row in the m block.
 __device__ __forceinline__ double polar_coef(const double* __restrict__ ab,
                                              const double* __restrict__ lt, int l0, int lbeg,
-                                             int m, int nl, int nm, int e) {
+                                             int mi, int nl, int nm, int e) {
   const int q = e / PLC, l = l0 + e % PLC;
-  const size_t nlm = (size_t)nl * nm, lm = (size_t)l * nm + m;
+  const size_t nlm = (size_t)nl * nm, lm = (size_t)l * nm + mi;
   if (l < lbeg || l >= nl) return 0.0;
   if (q < 2) return ab[q * nlm + lm];
   if (q == 2) return MODE != SCALAR ? ab[2 * nlm + lm] : 0.0;
@@ -1195,11 +1217,12 @@ polar_analysis_kernel(const double* __restrict__ F, const double* __restrict__ a
                       const double* __restrict__ lt, const double* __restrict__ cth,
                       const double* __restrict__ rows, const double* __restrict__ sv,
                       const int* __restrict__ sl, double* __restrict__ out, int ldo, int nl,
-                      int nm, int nt, int spin) {
+                      int nm, int nt, int spin, int mfirst) {
   constexpr bool SPLIT = POLAR_SPLIT;
   extern __shared__ __align__(16) unsigned char polar_raw[];
   PolarSmem<C>& sm = *reinterpret_cast<PolarSmem<C>*>(polar_raw);
-  const int tid = threadIdx.x, m = blockIdx.x;
+  // mi indexes the m block's arrays, m = mfirst + mi is the true m
+  const int tid = threadIdx.x, mi = blockIdx.x, m = mfirst + mi;
   const bool producer = tid < PTILE;
   const int rid = tid - PTILE;                  // reducer index
   const int li = rid / PPARTS, part = rid % PPARTS;
@@ -1214,13 +1237,13 @@ polar_analysis_kernel(const double* __restrict__ F, const double* __restrict__ a
   const int nch = nl > lbeg ? (nl - l8 + PLC - 1) / PLC : 0;
   const int lz = ntiles == 0 ? nl : min(lbeg, nl);
   for (int i = tid; i < lz * C; i += PTHREADS)
-    out[((size_t)(i / C) * nm + m) * ldo + i % C] = 0.0;
+    out[((size_t)(i / C) * nm + mi) * ldo + i % C] = 0.0;
   if (nch == 0) return;
   for (int tile = 0; tile < ntiles; ++tile) {
     const int t = tile * PTILE + tid;
     const bool valid = producer && t < nt;
     const double x = valid ? cth[t] : 0.0;
-    Recur<double> rc = load_recur(sv, sl, (size_t)m * nt + t, plane, m, spin, valid);
+    Recur<double> rc = load_recur(sv, sl, (size_t)mi * nt + t, plane, m, spin, valid);
     // a reducer's coefficients of the chunk after next, loaded from device
     // memory one iteration before they are staged, so their latency overlaps
     // the reduction instead of stalling it
@@ -1229,7 +1252,7 @@ polar_analysis_kernel(const double* __restrict__ F, const double* __restrict__ a
       for (int i = rid; i < NFUN * (C / 2) * PTILE; i += PTILE) {
         const int rr = i % PTILE, fc = i / PTILE, f = fc / (C / 2), cp = fc % (C / 2);
         const int tt = tile * PTILE + rr;
-        const size_t at = ((size_t)(f * C + 2 * cp) * nm + m) * nt + tt;
+        const size_t at = ((size_t)(f * C + 2 * cp) * nm + mi) * nt + tt;
         sm.F[f][cp][rr] = tt < nt ? make_double2(F[at], F[at + plane]) : make_double2(0.0, 0.0);
       }
       if (SPLIT) {
@@ -1243,8 +1266,8 @@ polar_analysis_kernel(const double* __restrict__ F, const double* __restrict__ a
       for (int k = 0; k < PCOEF; ++k) {
         const int e = rid + k * PTILE;
         if (e < 5 * PLC) {
-          sm.cs[0][e / PLC][e % PLC] = polar_coef(ab, lt, l8, lbeg, m, nl, nm, e);
-          kv[k] = polar_coef(ab, lt, l8 + PLC, lbeg, m, nl, nm, e);
+          sm.cs[0][e / PLC][e % PLC] = polar_coef(ab, lt, l8, lbeg, mi, nl, nm, e);
+          kv[k] = polar_coef(ab, lt, l8 + PLC, lbeg, mi, nl, nm, e);
         }
       }
     }
@@ -1268,7 +1291,7 @@ polar_analysis_kernel(const double* __restrict__ F, const double* __restrict__ a
           const int e = rid + k * PTILE;
           if (e < 5 * PLC) {
             if (it + 1 < nch) sm.cs[(it + 1) % 3][e / PLC][e % PLC] = kv[k];
-            if (it + 2 < nch) kv[k] = polar_coef(ab, lt, l8 + (it + 2) * PLC, lbeg, m, nl, nm, e);
+            if (it + 2 < nch) kv[k] = polar_coef(ab, lt, l8 + (it + 2) * PLC, lbeg, mi, nl, nm, e);
           }
         }
         if (it >= 1) {
@@ -1310,7 +1333,7 @@ polar_analysis_kernel(const double* __restrict__ F, const double* __restrict__ a
             for (int o = PPARTS / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
             // the same thread owns the same (l, m, c) in every tile
             if (part == 0 && l >= lbeg && l < nl) {
-              double* dst = out + ((size_t)(l0 + li) * nm + m) * ldo + c;
+              double* dst = out + ((size_t)(l0 + li) * nm + mi) * ldo + c;
               *dst = tile == 0 ? v : *dst + v;
             }
           }
@@ -1373,18 +1396,18 @@ template <int C> struct PolarSynthSmem {
 };
 
 // Staged value e of the chunk starting at l0: coefficient e (polar_coef) for
-// e < 5 PLC, else A[l0 + i, m, c] with e - 5 PLC = i C + c, zero outside
-// lbeg <= l < nl. A's columns are at stride lda.
+// e < 5 PLC, else A[l0 + i, mi, c] with e - 5 PLC = i C + c, zero outside
+// lbeg <= l < nl; mi is the row in the m block. A's columns are at stride lda.
 template <int C>
 __device__ __forceinline__ double synth_stage_value(const double* __restrict__ ab,
                                                     const double* __restrict__ lt,
                                                     const double* __restrict__ A, int lda,
-                                                    int l0, int lbeg, int m, int nl, int nm,
+                                                    int l0, int lbeg, int mi, int nl, int nm,
                                                     int e) {
-  if (e < 5 * PLC) return polar_coef(ab, lt, l0, lbeg, m, nl, nm, e);
+  if (e < 5 * PLC) return polar_coef(ab, lt, l0, lbeg, mi, nl, nm, e);
   e -= 5 * PLC;
   const int l = l0 + e / C;
-  return l >= lbeg && l < nl ? A[((size_t)l * nm + m) * lda + e % C] : 0.0;
+  return l >= lbeg && l < nl ? A[((size_t)l * nm + mi) * lda + e % C] : 0.0;
 }
 
 template <int C>
@@ -1408,12 +1431,13 @@ polar_synthesis_kernel(const double* __restrict__ A, const double* __restrict__ 
                        const double* __restrict__ lt, const double* __restrict__ cth,
                        const double* __restrict__ rows, const double* __restrict__ sv,
                        const int* __restrict__ sl, double* __restrict__ out, int lda, int ldo,
-                       int nl, int nm, int nt, int spin) {
+                       int nl, int nm, int nt, int spin, int mfirst) {
   constexpr int NST = 5 * PLC + PLC * C;            // values staged per chunk
   constexpr int KST = (NST + SCONS - 1) / SCONS;    // of them per consumer
   extern __shared__ __align__(16) unsigned char polar_raw[];
   PolarSynthSmem<C>& sm = *reinterpret_cast<PolarSynthSmem<C>*>(polar_raw);
-  const int tid = threadIdx.x, m = blockIdx.x;
+  // mi indexes the m block's arrays, m = mfirst + mi is the true m
+  const int tid = threadIdx.x, mi = blockIdx.x, m = mfirst + mi;
   const bool producer = tid < STILE;
   const int cid = tid - STILE, cw = cid >> 5;       // consumer index and warp
   const int lane = tid & 31, part = lane % SPARTS, r = lane / SPARTS;
@@ -1422,7 +1446,7 @@ polar_synthesis_kernel(const double* __restrict__ A, const double* __restrict__ 
   const int lbeg = MODE == WIGNER ? max(m, spin) : m;
   const int l8 = lbeg & ~7;  // chunks start at multiples of 8, as in polar_analysis
   const int nch = nl > lbeg ? (nl - l8 + PLC - 1) / PLC : 0;
-  double* __restrict__ orow = out + (size_t)m * nt;
+  double* __restrict__ orow = out + (size_t)mi * nt;
   const size_t fstride = (size_t)ldo * plane;       // from function f to f + 1
   if (nch == 0) {  // the seed lies beyond lmax: the row is zero
     for (int i = tid; i < NFUN * C * nt; i += STHREADS)
@@ -1435,7 +1459,7 @@ polar_synthesis_kernel(const double* __restrict__ A, const double* __restrict__ 
     const int t = t0 + tid;
     const bool valid = producer && t < nt;
     const double x = valid ? cth[t] : 0.0;
-    Recur<double> rc = load_recur(sv, sl, (size_t)m * nt + t, plane, m, spin, valid);
+    Recur<double> rc = load_recur(sv, sl, (size_t)mi * nt + t, plane, m, spin, valid);
     // a consumer's slots: ring groups cw, cw + 6, ...; a slot is live when its
     // group holds a ring of the tile (the same for the whole warp)
     bool slive[SSLOTS];
@@ -1458,8 +1482,8 @@ polar_synthesis_kernel(const double* __restrict__ A, const double* __restrict__ 
       for (int k = 0; k < KST; ++k) {
         const int e = cid + k * SCONS;
         if (e < NST) {
-          synth_stage_store(sm, 0, e, synth_stage_value<C>(ab, lt, A, lda, l8, lbeg, m, nl, nm, e));
-          kv[k] = synth_stage_value<C>(ab, lt, A, lda, l8 + PLC, lbeg, m, nl, nm, e);
+          synth_stage_store(sm, 0, e, synth_stage_value<C>(ab, lt, A, lda, l8, lbeg, mi, nl, nm, e));
+          kv[k] = synth_stage_value<C>(ab, lt, A, lda, l8 + PLC, lbeg, mi, nl, nm, e);
         }
       }
     }
@@ -1483,7 +1507,7 @@ polar_synthesis_kernel(const double* __restrict__ A, const double* __restrict__ 
           if (e < NST) {
             if (it + 1 < nch) synth_stage_store(sm, (it + 1) % 3, e, kv[k]);
             if (it + 2 < nch)
-              kv[k] = synth_stage_value<C>(ab, lt, A, lda, l8 + (it + 2) * PLC, lbeg, m, nl, nm, e);
+              kv[k] = synth_stage_value<C>(ab, lt, A, lda, l8 + (it + 2) * PLC, lbeg, mi, nl, nm, e);
           }
         }
         if (it >= 1) {
@@ -1553,14 +1577,14 @@ polar_synthesis_kernel(const double* __restrict__ A, const double* __restrict__ 
 template <typename T, int C, bool SYM>
 int launch_bulk(const void* F, const void* ab, const void* lt, const void* cth,
                 const void* ctl, const void* rows, const void* sv, const void* sl, void* part,
-                int nl, int nm, int nt, int nplanes, int spin, const void* lstop, void* state,
-                cudaStream_t st) {
+                int nl, int nm, int nt, int nplanes, int spin, int mfirst, const void* lstop,
+                void* state, cudaStream_t st) {
   constexpr int R = bulk_rings<T, C, SYM>();
   constexpr int LPR = anal_lanes(R), TW = LPR * R;
   const int ntiles = (nt + TX - 1) / TX;  // the host's tiles, which it sizes the planes by
   const dim3 block(MY * LPR), grid(nplanes, (nm + MY - 1) / MY);
   if (ntiles == 0 || grid.y == 0 || nl == 0) return 0;
-  if (nplanes < 1 || nplanes > ntiles) return (int)cudaErrorInvalidValue;
+  if (nplanes < 1 || nplanes > ntiles || mfirst < 0) return (int)cudaErrorInvalidValue;
   // a state is handed over only at stop degrees, and only by the full form
   if (state != nullptr && (SYM || lstop == nullptr)) return (int)cudaErrorInvalidValue;
   if (SYM && lstop != nullptr) return (int)cudaErrorInvalidValue;
@@ -1572,19 +1596,19 @@ int launch_bulk(const void* F, const void* ab, const void* lt, const void* cth,
   if constexpr (!HAS_LO<T>) {  // float64: no stop degrees, no state
     if (lstop != nullptr) return (int)cudaErrorInvalidValue;
     bulk_analysis_kernel_f64<C, SYM, R><<<grid, block, 0, st>>>(f, KERNEL_ARGS(T), p, nl, nm, nt,
-                                                                 nbt, spin);
+                                                                 nbt, spin, mfirst);
   } else if constexpr (SYM) {
     bulk_analysis_kernel<C, true, R, false, false><<<grid, block, 0, st>>>(
-        f, KERNEL_ARGS(T), p, nl, nm, nt, nbt, spin, nullptr, nullptr);
+        f, KERNEL_ARGS(T), p, nl, nm, nt, nbt, spin, mfirst, nullptr, nullptr);
   } else if (lstop == nullptr) {
     bulk_analysis_kernel<C, false, R, false, false><<<grid, block, 0, st>>>(
-        f, KERNEL_ARGS(T), p, nl, nm, nt, nbt, spin, nullptr, nullptr);
+        f, KERNEL_ARGS(T), p, nl, nm, nt, nbt, spin, mfirst, nullptr, nullptr);
   } else if (state == nullptr) {
     bulk_analysis_kernel<C, false, R, true, false><<<grid, block, 0, st>>>(
-        f, KERNEL_ARGS(T), p, nl, nm, nt, nbt, spin, dd, nullptr);
+        f, KERNEL_ARGS(T), p, nl, nm, nt, nbt, spin, mfirst, dd, nullptr);
   } else {
     bulk_analysis_kernel<C, false, R, true, true><<<grid, block, 0, st>>>(
-        f, KERNEL_ARGS(T), p, nl, nm, nt, nbt, spin, dd, ss);
+        f, KERNEL_ARGS(T), p, nl, nm, nt, nbt, spin, mfirst, dd, ss);
   }
   return (int)cudaGetLastError();
 }
@@ -1595,11 +1619,12 @@ int launch_bulk(const void* F, const void* ab, const void* lt, const void* cth,
 template <typename T, int C, bool SYM>
 int launch_bulk_synthesis(const void* A, const void* ab, const void* lt, const void* cth,
                           const void* ctl, const void* rows, const void* sv, const void* sl,
-                          void* out, int nl, int nm, int nt, int spin, const void* lstop,
-                          void* state, cudaStream_t st) {
+                          void* out, int nl, int nm, int nt, int spin, int mfirst,
+                          const void* lstop, void* state, cudaStream_t st) {
   constexpr int R = synth_rings<T, C>();
   const dim3 block(MY * TX / R), grid((nt + TX - 1) / TX, (nm + MY - 1) / MY);
   if (grid.x == 0 || grid.y == 0 || nl == 0) return 0;
+  if (mfirst < 0) return (int)cudaErrorInvalidValue;
   // a state is handed over only at stop degrees, and only by the full form
   if (state != nullptr && (SYM || lstop == nullptr)) return (int)cudaErrorInvalidValue;
   const T* a = static_cast<const T*>(A);
@@ -1609,16 +1634,16 @@ int launch_bulk_synthesis(const void* A, const void* ab, const void* lt, const v
   if constexpr (!HAS_LO<T>) {  // float64: no stop degrees, no state
     if (lstop != nullptr) return (int)cudaErrorInvalidValue;
     bulk_synthesis_kernel_f64<C, SYM, R><<<grid, block, 0, st>>>(a, KERNEL_ARGS(T), o, nl, nm, nt,
-                                                                  spin);
+                                                                  spin, mfirst);
   } else if (lstop == nullptr) {
     bulk_synthesis_kernel<C, SYM, R, false, false><<<grid, block, 0, st>>>(
-        a, KERNEL_ARGS(T), o, nl, nm, nt, spin, nullptr, nullptr);
+        a, KERNEL_ARGS(T), o, nl, nm, nt, spin, mfirst, nullptr, nullptr);
   } else if (state == nullptr) {
     bulk_synthesis_kernel<C, SYM, R, true, false><<<grid, block, 0, st>>>(
-        a, KERNEL_ARGS(T), o, nl, nm, nt, spin, dd, nullptr);
+        a, KERNEL_ARGS(T), o, nl, nm, nt, spin, mfirst, dd, nullptr);
   } else if constexpr (!SYM) {
     bulk_synthesis_kernel<C, false, R, true, true><<<grid, block, 0, st>>>(
-        a, KERNEL_ARGS(T), o, nl, nm, nt, spin, dd, ss);
+        a, KERNEL_ARGS(T), o, nl, nm, nt, spin, mfirst, dd, ss);
   }
   return (int)cudaGetLastError();
 }
@@ -1626,9 +1651,9 @@ int launch_bulk_synthesis(const void* A, const void* ab, const void* lt, const v
 template <int C>
 int launch_polar(const void* F, const void* ab, const void* lt, const void* cth,
                  const void* rows, const void* sv, const void* sl, void* out, int ldo,
-                 int nl, int nm, int nt, int spin, cudaStream_t st) {
+                 int nl, int nm, int nt, int spin, int mfirst, cudaStream_t st) {
   if (nm == 0 || nl == 0) return 0;
-  if (ldo < C) return (int)cudaErrorInvalidValue;
+  if (ldo < C || mfirst < 0) return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(PolarSmem<C>);
   cudaError_t e = cudaFuncSetAttribute(polar_analysis_kernel<C>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1637,16 +1662,17 @@ int launch_polar(const void* F, const void* ab, const void* lt, const void* cth,
       static_cast<const double*>(F), static_cast<const double*>(ab),
       static_cast<const double*>(lt), static_cast<const double*>(cth),
       static_cast<const double*>(rows), static_cast<const double*>(sv),
-      static_cast<const int*>(sl), static_cast<double*>(out), ldo, nl, nm, nt, spin);
+      static_cast<const int*>(sl), static_cast<double*>(out), ldo, nl, nm, nt, spin, mfirst);
   return (int)cudaGetLastError();
 }
 
 template <int C>
 int launch_polar_synthesis(const void* A, const void* ab, const void* lt, const void* cth,
                            const void* rows, const void* sv, const void* sl, void* out,
-                           int lda, int ldo, int nl, int nm, int nt, int spin, cudaStream_t st) {
+                           int lda, int ldo, int nl, int nm, int nt, int spin, int mfirst,
+                           cudaStream_t st) {
   if (nm == 0 || nt == 0) return 0;  // no output entry to write
-  if (lda < C || ldo < C) return (int)cudaErrorInvalidValue;
+  if (lda < C || ldo < C || mfirst < 0) return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(PolarSynthSmem<C>);
   cudaError_t e = cudaFuncSetAttribute(polar_synthesis_kernel<C>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1655,7 +1681,7 @@ int launch_polar_synthesis(const void* A, const void* ab, const void* lt, const 
       static_cast<const double*>(A), static_cast<const double*>(ab),
       static_cast<const double*>(lt), static_cast<const double*>(cth),
       static_cast<const double*>(rows), static_cast<const double*>(sv),
-      static_cast<const int*>(sl), static_cast<double*>(out), lda, ldo, nl, nm, nt, spin);
+      static_cast<const int*>(sl), static_cast<double*>(out), lda, ldo, nl, nm, nt, spin, mfirst);
   return (int)cudaGetLastError();
 }
 
@@ -1663,7 +1689,9 @@ int launch_polar_synthesis(const void* A, const void* ab, const void* lt, const 
 
 // K2 / K4 (bulk_analysis_kernel) in T: C (2 or 4) is the coefficient
 // count: a block's columns are (re, im) pairs, so C is always even. spin is
-// read in wigner mode only; lstop is the table of stop degrees (int [m
+// read in wigner mode only; mfirst, the last argument, is the true m of row
+// 0 (0 for the whole transform, the block's first m for an m block, whose
+// tables ab and seeds are the block's rows); lstop is the table of stop degrees (int [m
 // blocks, ring tiles of TX], 0 = skip) or null, state the handoff buffer
 // [3, nm, nt] or null: the half-sky form takes neither, the full form a
 // state only with stop degrees, float64 neither. The entry points are named
@@ -1673,36 +1701,40 @@ int launch_polar_synthesis(const void* A, const void* ab, const void* lt, const 
                                 const void* cth, const void* ctl, const void* rows,   \
                                 const void* sv, const void* sl, void* part, int nl,   \
                                 int nm, int nt, int nplanes, int spin,                \
-                                const void* lstop, void* state, void* stream) {       \
+                                const void* lstop, void* state, void* stream,         \
+                                int mfirst) {                                         \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                              \
     switch (C) {                                                                      \
       case 2:                                                                         \
         return launch_bulk<T, 2, SYM>(F, ab, lt, cth, ctl, rows, sv, sl, part, nl, nm, \
-                                      nt, nplanes, spin, lstop, state, st);           \
+                                      nt, nplanes, spin, mfirst, lstop, state, st);   \
       case 4:                                                                         \
         return launch_bulk<T, 4, SYM>(F, ab, lt, cth, ctl, rows, sv, sl, part, nl, nm, \
-                                      nt, nplanes, spin, lstop, state, st);           \
+                                      nt, nplanes, spin, mfirst, lstop, state, st);   \
       default:                                                                        \
         return (int)cudaErrorInvalidValue;                                            \
     }                                                                                 \
   }
 
 // K1 / K3 (bulk_synthesis_kernel) in T: C is 2 or 4; in float both forms
-// take stop degrees, the full form a state with them; float64 neither.
+// take stop degrees, the full form a state with them; float64 neither;
+// mfirst as in BULK_ENTRY.
 #define BULK_SYNTH_ENTRY(NAME, T, SYM)                                                \
   extern "C" int PT_ENTRY(NAME)(int C, const void* A, const void* ab, const void* lt, \
                                 const void* cth, const void* ctl, const void* rows,   \
                                 const void* sv, const void* sl, void* out, int nl,    \
                                 int nm, int nt, int spin, const void* lstop,          \
-                                void* state, void* stream) {                          \
+                                void* state, void* stream, int mfirst) {              \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                              \
     switch (C) {                                                                      \
       case 2:                                                                         \
         return launch_bulk_synthesis<T, 2, SYM>(A, ab, lt, cth, ctl, rows, sv, sl, out,  \
-                                                nl, nm, nt, spin, lstop, state, st);  \
+                                                nl, nm, nt, spin, mfirst, lstop, state, \
+                                                st);                                  \
       case 4:                                                                         \
         return launch_bulk_synthesis<T, 4, SYM>(A, ab, lt, cth, ctl, rows, sv, sl, out,  \
-                                                nl, nm, nt, spin, lstop, state, st);  \
+                                                nl, nm, nt, spin, mfirst, lstop, state, \
+                                                st);                                  \
       default:                                                                        \
         return (int)cudaErrorInvalidValue;                                            \
     }                                                                                 \
@@ -1722,18 +1754,21 @@ BULK_SYNTH_ENTRY(pt_full_bulk_synthesis_f64, double, false)
 // K4's float64 near-pole pass (polar_analysis_kernel), every mode: C (2 or 4)
 // columns of F [NFUN, C, nm, nt], written at column stride ldo into out
 // [nl, nm, ldo]; no stop degrees, no state, and no low part of cos theta
-// (zero in float64).
+// (zero in float64); mfirst as in BULK_ENTRY.
 extern "C" int PT_ENTRY(pt_polar_analysis)(int C, const void* F, const void* ab,
                                            const void* lt, const void* cth,
                                            const void* rows, const void* sv,
                                            const void* sl, void* out, int ldo, int nl,
-                                           int nm, int nt, int spin, void* stream) {
+                                           int nm, int nt, int spin, void* stream,
+                                           int mfirst) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 2:
-      return launch_polar<2>(F, ab, lt, cth, rows, sv, sl, out, ldo, nl, nm, nt, spin, st);
+      return launch_polar<2>(F, ab, lt, cth, rows, sv, sl, out, ldo, nl, nm, nt, spin, mfirst,
+                             st);
     case 4:
-      return launch_polar<4>(F, ab, lt, cth, rows, sv, sl, out, ldo, nl, nm, nt, spin, st);
+      return launch_polar<4>(F, ab, lt, cth, rows, sv, sl, out, ldo, nl, nm, nt, spin, mfirst,
+                             st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1743,20 +1778,21 @@ extern "C" int PT_ENTRY(pt_polar_analysis)(int C, const void* F, const void* ab,
 // 4) columns of A [nl, nm, lda] (from its pointer on, at column stride lda)
 // into out [NFUN, ldo, nm, nt] (from its pointer on: the columns of a launch
 // start there), every entry of those C columns written; no stop degrees, no
-// state, and no low part of cos theta.
+// state, and no low part of cos theta; mfirst as in BULK_ENTRY.
 extern "C" int PT_ENTRY(pt_polar_synthesis)(int C, const void* A, const void* ab,
                                             const void* lt, const void* cth,
                                             const void* rows, const void* sv,
                                             const void* sl, void* out, int lda, int ldo,
-                                            int nl, int nm, int nt, int spin, void* stream) {
+                                            int nl, int nm, int nt, int spin, void* stream,
+                                            int mfirst) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 2:
       return launch_polar_synthesis<2>(A, ab, lt, cth, rows, sv, sl, out, lda, ldo, nl, nm, nt,
-                                       spin, st);
+                                       spin, mfirst, st);
     case 4:
       return launch_polar_synthesis<4>(A, ab, lt, cth, rows, sv, sl, out, lda, ldo, nl, nm, nt,
-                                       spin, st);
+                                       spin, mfirst, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -29,9 +29,16 @@ prof2alm_radial) put them on device="cuda" unless told otherwise; the
 transforms follow the map's device, or the alm's. accuracy="high" runs the
 Legendre recurrence in float64 whatever the map's dtype (sht.accuracy).
 Theta banding (SYNTH_BAND_BYTES) is not ported: it was sized for a 16 GB
-chip. Not ported yet, and raising NotImplementedError: mesh=
-(multi-device), deriv=True in the general method's analysis (as in the
-reference). The HEALPix names (alm2map_healpix, map2alm_healpix,
+chip. mesh= (a DeviceMesh, parallel.mesh) runs the 2d and cyl transforms
+over torch.distributed as the reference's mesh runs them: alm2map
+ring-sharded with no collective, map2alm ring-sharded with one all-reduce
+where the quadrature is native to the map's rings (weights=, cyl, the
+unweighted adjoint), and on the 2d phase path each rank's ring FFTs, one
+all-to-all to m blocks, the theta upsample and quadrature on the rank's m
+block and an all-gather of the alm; both return the whole result on every
+rank. The general method and the niter steps ignore mesh, as in the
+reference. Raising NotImplementedError: deriv=True in the general method's
+analysis (as in the reference). The HEALPix names (alm2map_healpix, map2alm_healpix,
 get_ring_info_healpix, npix2nside, prepare_healmap, fill_gauss,
 rand_alm_healpy) forward to reproject and healpix as the reference's do.
 """
@@ -43,6 +50,7 @@ from . import enmap, wcsutils, utils, sht, powspec
 from . import fft as enfft
 from .bunch import Bunch
 from .ops import nufft_cuda
+from .parallel import mesh as pmesh, sht_dist
 
 _NP_CDTYPE = {torch.complex64: np.complex64, torch.complex128: np.complex128}
 
@@ -309,8 +317,6 @@ def _comp_spins(spin, ncomp):
 # ---------------------------------------------------------------------------
 # Map-level transforms
 # ---------------------------------------------------------------------------
-def _not_ported(mesh=None):
-	if mesh is not None: raise NotImplementedError("mesh= (multi-device) is not ported yet")
 
 
 def _method(method, minfo):
@@ -362,8 +368,11 @@ def alm2map(alm, map, spin=[0, 2], deriv=False, adjoint=False, copy=False,
 	copy) and returns it. With deriv, alm is [nalm] and map [2, ny, nx]
 	receives the gradient (d/ddec, d/dra). accuracy="high" runs the
 	recurrence in float64. With adjoint, its transpose: reads map, writes
-	alm (unless copy) and returns it, as alm2map_adjoint."""
-	_not_ported(mesh)
+	alm (unless copy) and returns it, as alm2map_adjoint. With mesh (a
+	DeviceMesh), the 2d and cyl synthesis runs sharded over the mesh's
+	first axis (parallel.sht_dist.synthesis_dist) and every rank gets the
+	whole map."""
+	mesh = pmesh.check(mesh)
 	alm = torch.as_tensor(alm, device=map.device)
 	if ainfo is None: ainfo = alm_info(nalm=alm.shape[-1])
 	minfo = analyse_geometry(map.shape, map.wcs, tol=pix_tol)
@@ -377,8 +386,13 @@ def alm2map(alm, map, spin=[0, 2], deriv=False, adjoint=False, copy=False,
 			return alm2map_pos(alm, loc=_locinfo_loc(map, locinfo), ainfo=ainfo, map=map, spin=spin,
 				deriv=deriv, copy=copy, epsilon=epsilon)
 		alm2 = alm if (deriv or alm.ndim > 1) else alm[None]
-		d = sht.synthesis(alm2, minfo.theta, minfo.nphi, phi0=minfo.phi0,
-			lmax=ainfo.lmax, mmax=ainfo.mmax, spin=spin, deriv=deriv, map_dtype=map.dtype)
+		if mesh is not None:
+			d = sht_dist.synthesis_dist(alm2, minfo.theta, minfo.nphi, mesh, phi0=minfo.phi0,
+				lmax=ainfo.lmax, mmax=ainfo.mmax, spin=spin, deriv=deriv, map_dtype=map.dtype,
+				row_axis=mesh.mesh_dim_names[0]).full_tensor()
+		else:
+			d = sht.synthesis(alm2, minfo.theta, minfo.nphi, phi0=minfo.phi0,
+				lmax=ainfo.lmax, mmax=ainfo.mmax, spin=spin, deriv=deriv, map_dtype=map.dtype)
 	if deriv:
 		d = alm2_pre(d, deriv)
 	elif alm.ndim == 1:
@@ -419,18 +433,20 @@ def map2alm(map, alm=None, lmax=None, spin=[0, 2], deriv=False, adjoint=False,
 	and the result one alm. Writes into alm when given, or with copy into a
 	copy of it, leaving alm as it was. With adjoint, its transpose: reads
 	alm, writes map and returns it, as map2alm_adjoint (weights and niter
-	are ignored then, as in the reference)."""
-	_not_ported(mesh)
+	are ignored then, as in the reference). With mesh (a DeviceMesh), the
+	first analysis of a 2d or cyl map runs over the mesh as _analysis_linear
+	says, and every rank gets the whole alm."""
+	mesh = pmesh.check(mesh)
 	minfo = analyse_geometry(map.shape, map.wcs, tol=pix_tol)
 	method = _method(method, minfo)
 	if adjoint:
 		with sht.accuracy(accuracy):
 			return _adjoint_map2alm(alm, map, ainfo, minfo, spin, deriv, method, locinfo)
 	ainfo = _ainfo_of(alm, ainfo, lmax)
-	run = lambda d: _analysis(d, map.wcs, ainfo, minfo, method, spin, deriv, weights=weights,
-		epsilon=epsilon, locinfo=locinfo)
+	run = lambda d, mesh=None: _analysis(d, map.wcs, ainfo, minfo, method, spin, deriv,
+		weights=weights, epsilon=epsilon, locinfo=locinfo, mesh=mesh)
 	with sht.accuracy(accuracy):
-		res = run(map.data)
+		res = run(map.data, mesh)
 		for it in range(niter):
 			approx = alm2map(res, enmap.zeros(map.shape, map.wcs, map.dtype, device=map.device),
 				spin=spin, deriv=deriv, ainfo=ainfo, method=method, epsilon=epsilon, locinfo=locinfo)
@@ -482,16 +498,17 @@ def _upsampled_rings(minfo, lmax, ntfull):
 
 
 def _analysis(d, wcs, ainfo, minfo, method, spin, deriv, weighted=True, weights=None,
-		epsilon=None, locinfo=None):
+		epsilon=None, locinfo=None, mesh=None):
 	"""map pixels d -> alm by method (pixell_tpu.curvedsky._map2alm_core
 	:683): the general method's weighted adjoint NUFFT synthesis (weights=
 	is not used there, as in the reference), else _analysis_linear."""
 	if method == "general":
 		return _map2alm_general(enmap.ndmap(d, wcs), ainfo, spin, deriv, weighted, epsilon, locinfo)
-	return _analysis_linear(d, ainfo, minfo, spin, deriv, weighted=weighted, weights=weights)
+	return _analysis_linear(d, ainfo, minfo, spin, deriv, weighted=weighted, weights=weights,
+		mesh=mesh)
 
 
-def _analysis_linear(arr, ainfo, minfo, spin, deriv, weighted=True, weights=None):
+def _analysis_linear(arr, ainfo, minfo, spin, deriv, weighted=True, weights=None, mesh=None):
 	"""map pixels -> alm on a 2d or cyl geometry (pixell_tpu.curvedsky.
 	_analysis_linear :686-813, non-mesh), by minfo.case as the reference
 	decides. Unweighted, the transpose of synthesis on the map's own rings
@@ -499,12 +516,24 @@ def _analysis_linear(arr, ainfo, minfo, spin, deriv, weighted=True, weights=None
 	ring-edge weights, quadrature on the map's own rings. On a 2d
 	(full-sky quadrature) geometry it goes to per-ring phases first, so the
 	y padding, the exact theta upsample and the quadrature run on the
-	[nm]-wide spectrum and the ring FFT happens once."""
+	[nm]-wide spectrum and the ring FFT happens once. With mesh, the map's
+	rows shard over the mesh's first axis: an all-reduce of the ranks'
+	partial alm where the quadrature is native to the map's rings
+	(sht_dist.analysis_dist), else the 2d phase path of _analysis_phase_mesh."""
 	d = _to_rings(arr, minfo)
 	flat2d = (not deriv) and d.ndim == 2
 	if flat2d: d = d[None]
 	d = alm2_pre(d, deriv)
-	if not weighted:
+	if mesh is not None and (not weighted or weights is not None or minfo.case != "2d"):
+		w = None
+		if weighted:
+			if weights is None: w = _edge_weights(minfo.theta)
+			else: w = np.asarray(weights)[::-1] if minfo.flip[0] else weights
+		a = sht_dist.analysis_dist(d, minfo.theta, w, mesh, ainfo.lmax, mmax=ainfo.mmax,
+			phi0=minfo.phi0, spin=spin, deriv=deriv, row_axis=mesh.mesh_dim_names[0]).to_local()
+	elif mesh is not None:
+		a = _analysis_phase_mesh(d, ainfo, minfo, spin, deriv, mesh)
+	elif not weighted:
 		a = sht.adjoint_synthesis(d, minfo.theta, ainfo.lmax, mmax=ainfo.mmax, phi0=minfo.phi0,
 			spin=spin, deriv=deriv)
 	elif weights is not None or minfo.case != "2d":
@@ -525,6 +554,48 @@ def _analysis_linear(arr, ainfo, minfo, spin, deriv, weighted=True, weights=None
 		a = sht.analysis_phase(F, sht.ring_theta(minfo.variant, ntu), ainfo.lmax,
 			sht.ring_weights(minfo.variant, ntu), nphi, mmax=ainfo.mmax, spin=spin, deriv=deriv)
 	return a[..., 0, :] if flat2d else a
+
+
+def _phase_block(F, m0, ainfo, minfo, spin, deriv, nphi, ncomp):
+	"""One m block's part of the 2d phase path: F [..., nb, ny], the ring
+	phases of the columns m0 .. m0 + nb - 1 on the map's rows, -> that
+	block's rect columns [..., nl, nb] (with deriv [nl, nb]): the y
+	padding, the exact theta upsample and the quadrature with its Legendre
+	transpose, all on the block alone (each is elementwise in m)."""
+	nb, ny = F.shape[-2:]
+	lmax = ainfo.lmax
+	if nb == 0:
+		return F.new_zeros((lmax + 1, 0) if deriv else F.shape[:-2] + (lmax + 1, 0))
+	ntfull = ny + minfo.ypad[0] + minfo.ypad[1]
+	if minfo.ypad[0] or minfo.ypad[1]:
+		F = torch.nn.functional.pad(F, (int(minfo.ypad[0]), int(minfo.ypad[1])))
+	ntu = _upsampled_rings(minfo, lmax, ntfull)
+	if ntu != ntfull:
+		spins = [1, 0] if deriv else _comp_spins(spin, ncomp)
+		F = sht.resample_theta_phase(F, minfo.variant, ntu, spins, m0=m0)
+	return sht.analysis_phase(F, sht.ring_theta(minfo.variant, ntu), lmax,
+		sht.ring_weights(minfo.variant, ntu), nphi, mmax=m0 + nb - 1, spin=spin, deriv=deriv,
+		m0=m0, rect_out=True)
+
+
+def _analysis_phase_mesh(d, ainfo, minfo, spin, deriv, mesh):
+	"""The 2d phase path of _analysis_linear over a mesh (pixell_tpu.
+	curvedsky._analysis_linear :745-796): each rank's ring FFTs on its rows
+	(the mesh's first axis), one all-to-all to m blocks (its last axis),
+	the y padding, theta upsample and quadrature on the rank's m block
+	(_phase_block), and an all-gather of the rect blocks into the alm."""
+	row_axis, m_axis = mesh.mesh_dim_names[0], mesh.mesh_dim_names[-1]
+	nm, ny, nphi = ainfo.mmax + 1, d.shape[-2], d.shape[-1]
+	loc = sht_dist._local(d, mesh, {row_axis: d.ndim - 2})
+	F = sht.ring_analysis(loc, minfo.phi0, nm)                              # [..., nm, ny_local]
+	Fd = sht_dist._dtensor(F.contiguous(), mesh, {row_axis: F.ndim - 1}, F.shape[:-1] + (ny,))
+	Fm = sht_dist._local(Fd, mesh, {m_axis: F.ndim - 2})                    # the all-to-all
+	size, rank = pmesh.axis_size(mesh, m_axis)
+	m0 = pmesh.block(nm, size, rank)[0]
+	rect = _phase_block(Fm, m0, ainfo, minfo, spin, deriv, nphi, d.shape[-3])
+	full = sht_dist.full(sht_dist._dtensor(rect.contiguous(), mesh, {m_axis: rect.ndim - 1},
+		rect.shape[:-1] + (nm,)))                                           # the all-gather
+	return sht.rect2alm(full, ainfo.lmax, ainfo.mmax)
 
 
 def _adjoint_map2alm(alm, map, ainfo, minfo, spin, deriv, method="auto", locinfo=None):

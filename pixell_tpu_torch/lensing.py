@@ -27,8 +27,12 @@ fraction (:305-311, :394-411), which K10 makes in float64; the gather-free
 _lens_band_rowband (:188) with fft._u2nu_rowband_core and ROWBAND_MAX_NXS
 (:216), written because the TPU's gathers were slow (K10 reads each
 point's window from the fine grid): point_eval "auto", "gather" and
-"rowband" all run K10; the utils.cached_jit keys (:262-266). mesh= raises
-NotImplementedError (ROADMAP Queue 1 item 17).
+"rowband" all run K10; the utils.cached_jit keys (:262-266). mesh= (a
+DeviceMesh, parallel.mesh) runs the SHTs over the mesh (curvedsky.alm2map
+(mesh=)) and splits each band's point work over the ranks by rows, the
+fine grid replicated, as the reference's _lens_band_core (:151-170): each
+rank runs K12 / K10 on its own rows, and an all-gather puts the band
+together.
 
 Functions that take arrays put numpy input on device="cuda" unless told
 otherwise; tensors and maps stay where they are.
@@ -37,6 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from . import enmap, curvedsky, interpol, utils, wcsutils
+from .parallel import mesh as pmesh, sht_dist
 
 POINT_EVALS = ("auto", "gather", "rowband")   # lens_map_curved's point_eval: all run K10
 
@@ -289,20 +294,34 @@ def _pos_axes(shape, wcs, device):
 		for a in enmap.posaxes(tuple(shape), wcs, safe=False))
 
 
-def _lens_bands(splan, grad, wcs, bsize, pol, geodesic, polrot, rdt, verbose=False):
+def _lens_bands(splan, grad, wcs, bsize, pol, geodesic, polrot, rdt, verbose=False, mesh=None,
+		pre=()):
 	"""The point stage of lens_map_curved: the lensed map [..., ny, nx] of
 	rdt, band by band (_bands): positions moved by grad [2, ny, nx] on the
-	device, splan's values there (K12, K10), Q and U rotated where polrot."""
+	device, splan's values there (K12, K10), Q and U rotated where polrot.
+	With mesh, each rank takes its block of each band's rows (the mesh's
+	first axis) and the band's rows [*pre, nb, nx] are gathered."""
 	shape = tuple(grad.shape[-2:])
 	axes = _pos_axes(shape, wcs, grad.device)
 	parts = []
 	for i1, i2, skip in _bands(shape[0], bsize):
-		pos = _band_positions(wcs, shape, i1, i2, grad.device, axes)
-		loc, opos = _band_points(grad[:, i1:i2, :], pos, pol, geodesic)
-		vals = splan.eval(loc)
-		band = vals.reshape(vals.shape[:-1] + tuple(pos.shape[-2:]))
-		if polrot: band = _rotate_band(band, opos)
-		parts.append(band[..., skip:, :].to(rdt))
+		j1, j2 = i1, i2
+		if mesh is not None:
+			r0, r1 = pmesh.block(i2 - i1, *pmesh.axis_size(mesh, mesh.mesh_dim_names[0]))
+			j1, j2 = i1 + r0, i1 + r1
+		if j2 > j1:
+			pos = _band_positions(wcs, shape, j1, j2, grad.device, axes)
+			loc, opos = _band_points(grad[:, j1:j2, :], pos, pol, geodesic)
+			vals = splan.eval(loc)
+			band = vals.reshape(vals.shape[:-1] + tuple(pos.shape[-2:]))
+			if polrot: band = _rotate_band(band, opos)
+			band = band.to(rdt)
+		else:
+			band = torch.zeros(tuple(pre) + (0, shape[1]), dtype=rdt, device=grad.device)
+		if mesh is not None:
+			band = sht_dist._dtensor(band.contiguous(), mesh, {mesh.mesh_dim_names[0]: band.ndim - 2},
+				band.shape[:-2] + (i2 - i1, shape[1])).full_tensor()
+		parts.append(band[..., skip:, :])
 		if verbose: print("lens band %d / %d" % (i2, shape[0]))
 	return torch.cat(parts, -2) if len(parts) > 1 else parts[0]
 
@@ -319,8 +338,10 @@ def lens_map_curved(shape=None, wcs=None, phi_alm=None, cmb_alm=None, phi_ainfo=
 	the NUFFT's accuracy (SynthesisPlan's default by dtype); pol: rotate Q
 	and U by the parallel transport (by default where cmb_alm has more than
 	one component; done where it has at least three). maplmax and
-	oversample are accepted and ignored, as in the reference."""
-	curvedsky._not_ported(mesh)
+	oversample are accepted and ignored, as in the reference. mesh, a
+	DeviceMesh: the SHTs over the mesh, the point work split by rows
+	(_lens_bands); every rank gets the whole maps."""
+	mesh = pmesh.check(mesh)
 	if point_eval not in POINT_EVALS:
 		raise ValueError("point_eval must be one of %s, not %r" % (POINT_EVALS, point_eval))
 	rdt = enmap._torch_dtype(dtype)
@@ -338,7 +359,7 @@ def lens_map_curved(shape=None, wcs=None, phi_alm=None, cmb_alm=None, phi_ainfo=
 	maps = {}
 	def synth(a, ainfo, pshape, **kw):
 		return curvedsky.alm2map(a, enmap.zeros(tuple(pshape) + (ny, nx), wcs, rdt, device=dev),
-			ainfo=ainfo, **kw).data
+			ainfo=ainfo, mesh=mesh, **kw).data
 	grad = None
 	if "l" in want or "a" in want:
 		grad = synth(phi_alm, phi_ainfo, (2,), deriv=True)
@@ -353,7 +374,7 @@ def lens_map_curved(shape=None, wcs=None, phi_alm=None, cmb_alm=None, phi_ainfo=
 		splan = curvedsky.SynthesisPlan(cmb_alm, lmax=cmb_ainfo.lmax, spin=spin, epsilon=epsilon)
 		if verbose: print("lens: synthesis plan built")
 		lmap = _lens_bands(splan, grad, wcs, _band_size(ny, wcs, delta_theta), bool(pol), bool(geodesic),
-			bool(pol) and ncomp >= 3, rdt, verbose)
+			bool(pol) and ncomp >= 3, rdt, verbose, mesh, pre)
 		del splan
 		maps["l"] = enmap.ndmap(lmap, wcs)
 	res = [maps[c] for c in output if c in maps]

@@ -11,7 +11,7 @@ lambda_mm ~ sin^m(theta) cannot underflow near the poles. Only levels 0 and
 Modes (pixell_tpu.ops.sht_core.MODES): "scalar" emits u_0 = lambda;
 "deriv" [lambda, d lambda/d theta]; "spin1" [w1, x1]; "spin2" [w2, x2],
 the theta-functions of spin-weighted harmonics, closed forms of
-(lambda_l, lambda_{l-1}) (see mode_funcs); "wigner" [w_s, x_s] for any
+(lambda_l, lambda_{l-1}) (see ModeFuncs); "wigner" [w_s, x_s] for any
 spin s from the two Wigner-d branches (see wigner_values), on a geometry
 prepared with that s. Engine contract, nfun = NFUN[mode]:
   synthesis_scan(A[nl,nm,C], theta[nt]) -> G[nfun,C,nm,nt],
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 LBLOCK = 8  # the state is renormalized after every LBLOCK l-steps (l % 8 == 7)
+LCHUNK = 256   # degrees whose per-degree coefficients the plain scans compute at once
 
 MODES = {"scalar": 0, "deriv": 1, "spin1": 2, "spin2": 3, "wigner": 4}
 NFUN = {"scalar": 1, "deriv": 2, "spin1": 2, "spin2": 2, "wigner": 2}
@@ -63,13 +64,16 @@ class Geom:
 	cos/sin, inv_st = 1/sin, inv_st2 = 1/sin^2 (all zero on a pole ring)
 	and notpole (0 on a pole ring, else 1). A geometry prepared for the
 	Wigner mode has s, the spin, and seeds [2, nm, nt]: the +s and -s
-	branches at l = max(m, s) (wigner_seeds); else s is None."""
-	def __init__(self, ct, ct_lo, seed_val, seed_level, rows, s=None):
+	branches at l = max(m, s) (wigner_seeds); else s is None. m0 is the
+	true m of row 0: 0 for the whole transform, the first m of an m block,
+	whose rows are m0 .. m0 + nm - 1."""
+	def __init__(self, ct, ct_lo, seed_val, seed_level, rows, s=None, m0=0):
 		self.ct, self.ct_lo = ct, ct_lo
 		self.seed_val, self.seed_level = seed_val, seed_level
 		self.rows = rows
 		self.ct_st, self.inv_st, self.inv_st2, self.notpole = rows
 		self.s = s
+		self.m0 = int(m0)
 	@property
 	def dtype(self): return self.ct.dtype
 	@property
@@ -146,17 +150,22 @@ def mode_rows(theta, dtype):
 	return tuple(r.astype(_np_dtype(dtype)) for r in rows)
 
 
-def prepare_geom(theta, mmax, dtype, device=None, s=None):
+def prepare_geom(theta, mmax, dtype, device=None, s=None, m0=0):
 	"""Recurrence tables for concrete float64 ring colatitudes theta
 	(pixell_tpu.ops.sht_core._prepare_geom :100), built on the host and
-	moved to device. With s, the seeds are the Wigner mode's for spin s."""
+	moved to device. With s, the seeds are the Wigner mode's for spin s.
+	With m0, the tables of the m block m0 .. mmax: the seeds are running
+	products from m = 0, so they are computed from there and sliced."""
 	if dtype not in (torch.float32, torch.float64):
 		raise TypeError("Legendre recurrence dtype must be float32 or float64")
+	if not 0 <= m0 <= mmax:
+		raise ValueError("the m block's first m %d is not in 0 .. mmax = %d" % (m0, mmax))
 	ct, lo = ct_parts(theta, dtype)
 	sv, sl = scaled_seeds(theta, mmax, dtype) if s is None else \
 		wigner_seeds(theta, mmax, s, dtype)
+	sv, sl = sv[..., m0:, :], sl[..., m0:, :]
 	f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-	return Geom(f(ct), f(lo), f(sv), f(sl), f(np.stack(mode_rows(theta, dtype))), s)
+	return Geom(f(ct), f(lo), f(sv), f(sl), f(np.stack(mode_rows(theta, dtype))), s, m0)
 
 
 def recur_ab(l, marr):
@@ -200,46 +209,70 @@ def l_norms(mode, l):
 	return nrm, torch.sqrt((2*l + 1)/(4*np.pi))/2
 
 
-def mode_funcs(mode, l, marr, g, lam, lam1):
+def degree_chunks(lmax, dtype, device):
+	"""Yields (l0, degrees [k, 1] in dtype) for chunks of LCHUNK degrees
+	over l = 0..lmax: the plain scans compute each chunk's per-degree
+	coefficients in one go (the same operations on each element as one
+	degree at a time, so the same numbers), not a handful of tiny launches
+	per degree."""
+	for l0 in range(0, lmax + 1, LCHUNK):
+		yield l0, torch.arange(l0, min(l0 + LCHUNK, lmax + 1), dtype=dtype, device=device)[:, None]
+
+
+class ModeFuncs:
 	"""Mode functions u_f(l, m, theta) as [nm, nt] tensors from the true
 	lambda_l (lam) and lambda_{l-1} (lam1) (pixell_tpu.ops.sht_core.
-	_funcs_at_l :168):
+	_funcs_at_l :168), in mode on the m values marr of geometry g:
 	  deriv: [lam, dlam],  dlam = (l cos lam - e lam1)/sin
 	  spin1: w1 = -N1 dlam,  x1 = N1 (m/sin) lam
 	  spin2: w2 = N2 (-(2(l - m^2)/sin^2 + l(l-1)) lam + 2 e cos/sin^2 lam1)
 	         x2 = 2 N2 (m/sin^2) (-(l-1) cos lam + e lam1)
 	The 1/sin terms are zeroed on pole rings and replaced by their limits,
-	which are nonzero only at m = 1 (deriv, spin1) and m = 2 (spin2)."""
-	if mode == "scalar": return [lam]
-	dt, dev = lam.dtype, lam.device
-	lf = torch.tensor(float(l), dtype=dt, device=dev)
-	e = recur_e(lf, marr)[:, None]
-	nrm, hp = l_norms(mode, lf)
-	ct, cts, ist, ist2, npole = g.ct, g.ct_st, g.inv_st, g.inv_st2, g.notpole
-	north = (1 - npole)*(ct > 0)
-	south = (1 - npole)*(ct < 0)
-	sgl = 1.0 if l % 2 == 0 else -1.0
-	msel = (marr == (2 if mode == "spin2" else 1))[:, None]
-	zero = torch.zeros((), dtype=dt, device=dev)
-	if mode == "deriv":
-		dlam = (lf*cts*lam - e*ist*lam1)*npole
-		if l >= 1:
-			dlam = dlam + torch.where(msel, -nrm*hp*(north + sgl*south), zero)
-		return [lam, dlam]
-	if l < (1 if mode == "spin1" else 2):
-		return [torch.zeros_like(lam), torch.zeros_like(lam)]
-	wp = torch.where(msel, hp*(north + sgl*south), zero)
-	xp = torch.where(msel, hp*(-north + sgl*south), zero)
-	mcol = marr[:, None]
-	if mode == "spin1":
-		w = -nrm*(lf*cts*lam - e*ist*lam1)*npole
-		x = nrm*mcol*ist*lam*npole
-	else:
-		# l - m^2 in integers, rounded once (exact in f32 while m^2 < 2^24)
-		lmm = (l - torch.arange(marr.shape[0], device=dev)**2).to(dt)[:, None]
-		w = nrm*(-(2*lmm*ist2 + lf*(lf - 1))*lam + 2*e*ct*ist2*lam1)*npole
-		x = 2*nrm*mcol*ist2*(-(lf - 1)*ct*lam + e*lam1)*npole
-	return [w + wp, x + xp]
+	which are nonzero only at m = 1 (deriv, spin1) and m = 2 (spin2).
+	Calls go through l = 0..lmax in order: the per-degree factors (e, the
+	norms) are computed for a chunk of degrees at once (degree_chunks)."""
+	def __init__(self, mode, marr, g, lmax):
+		self.mode, self.marr, self.g = mode, marr, g
+		if mode == "scalar": return
+		dt, dev = marr.dtype, marr.device
+		npole, ct = g.notpole, g.ct
+		self.north, self.south = (1 - npole)*(ct > 0), (1 - npole)*(ct < 0)
+		self.msel = (marr == (2 if mode == "spin2" else 1))[:, None]
+		self.zero = torch.zeros((), dtype=dt, device=dev)
+		self.msq = torch.arange(g.m0, g.m0 + marr.shape[0], device=dev)**2
+		self.chunks = degree_chunks(lmax, dt, dev)
+		self.l0 = self.lf = None
+	def __call__(self, l, lam, lam1):
+		mode = self.mode
+		if mode == "scalar": return [lam]
+		if self.lf is None or l - self.l0 >= self.lf.shape[0]:
+			self.l0, lf = next(self.chunks)
+			self.lf, self.e = lf[:, 0], recur_e(lf, self.marr)
+			self.nrm, self.hp = l_norms(mode, self.lf)
+		i = l - self.l0
+		lf, e, nrm, hp = self.lf[i], self.e[i][:, None], self.nrm[i], self.hp[i]
+		g, msel, zero, north, south = self.g, self.msel, self.zero, self.north, self.south
+		ct, cts, ist, ist2, npole = g.ct, g.ct_st, g.inv_st, g.inv_st2, g.notpole
+		sgl = 1.0 if l % 2 == 0 else -1.0
+		if mode == "deriv":
+			dlam = (lf*cts*lam - e*ist*lam1)*npole
+			if l >= 1:
+				dlam = dlam + torch.where(msel, -nrm*hp*(north + sgl*south), zero)
+			return [lam, dlam]
+		if l < (1 if mode == "spin1" else 2):
+			return [torch.zeros_like(lam), torch.zeros_like(lam)]
+		wp = torch.where(msel, hp*(north + sgl*south), zero)
+		xp = torch.where(msel, hp*(-north + sgl*south), zero)
+		mcol = self.marr[:, None]
+		if mode == "spin1":
+			w = -nrm*(lf*cts*lam - e*ist*lam1)*npole
+			x = nrm*mcol*ist*lam*npole
+		else:
+			# l - m^2 in integers, rounded once (exact in f32 while m^2 < 2^24)
+			lmm = (l - self.msq).to(lam.dtype)[:, None]
+			w = nrm*(-(2*lmm*ist2 + lf*(lf - 1))*lam + 2*e*ct*ist2*lam1)*npole
+			x = 2*nrm*mcol*ist2*(-(lf - 1)*ct*lam + e*lam1)*npole
+		return [w + wp, x + xp]
 
 
 def lambdas(g, lmax, stop=None, state=None):
@@ -251,10 +284,10 @@ def lambdas(g, lmax, stop=None, state=None):
 	min(stop, lmax + 1) - 1, renormalization included: the handoff to the
 	block-Legendre kernels (pixell_tpu.ops.sht_pallas dump_state :1546)."""
 	dt, dev = g.dtype, g.ct.device
-	nm, nt = g.nm, g.nt
+	nm, nt, m0 = g.nm, g.nt, g.m0
 	S = scale_log2(dt)
 	band, invband = 2.0**S, 2.0**-S
-	marr = torch.arange(nm, dtype=dt, device=dev)
+	marr = torch.arange(m0, m0 + nm, dtype=dt, device=dev)
 	one = torch.ones((), dtype=dt, device=dev)
 	fac_m1, zero = one*invband, one*0
 	x, xlo = g.ct[None, :], g.ct_lo[None, :]
@@ -265,14 +298,16 @@ def lambdas(g, lmax, stop=None, state=None):
 		for i, v in enumerate((prev, curr, lev.to(dt))):
 			state[i] = torch.where(sel, v, state[i])
 	stops = set() if state is None else set(torch.unique(stop).tolist())
+	chunks = degree_chunks(lmax, dt, dev)
 	for l in range(lmax + 1):
-		a, b = recur_ab(l, marr)
+		if l % LCHUNK == 0: ab = recur_ab(next(chunks)[1], marr)
+		a, b = ab[0][l % LCHUNK], ab[1][l % LCHUNK]
 		new = a[:, None]*((x*curr + xlo*curr) - b[:, None]*prev)
-		if l < nm:
+		if m0 <= l < m0 + nm:
 			# seed row m = l; the stale previous value there has another scale
-			new[l] = g.seed_val[l]
-			lev[l] = g.seed_level[l]
-			curr[l] = 0
+			new[l - m0] = g.seed_val[l - m0]
+			lev[l - m0] = g.seed_level[l - m0]
+			curr[l - m0] = 0
 		# unscale: only levels 0 and -1 can contribute
 		fac = torch.where(lev == 0, one, torch.where(lev == -1, fac_m1, zero))
 		yield l, new*fac, curr*fac
@@ -396,11 +431,11 @@ def wigner_values(g, lmax):
 	[nm, nt] tensors. The coefficients are computed in float64 and rounded
 	once to the working dtype, as the kernels' tables are."""
 	dt, dev = g.dtype, g.ct.device
-	nm, nt, s = g.nm, g.nt, int(g.s)
+	nm, nt, s, m0 = g.nm, g.nt, int(g.s), g.m0
 	S = scale_log2(dt)
 	band, invband = 2.0**S, 2.0**-S
-	marr = torch.arange(nm, dtype=torch.float64, device=dev)
-	seed_at = torch.clamp(torch.arange(nm, device=dev), min=s)[None, :, None]
+	marr = torch.arange(m0, m0 + nm, dtype=torch.float64, device=dev)
+	seed_at = torch.clamp(torch.arange(m0, m0 + nm, device=dev), min=s)[None, :, None]
 	one = torch.ones((), dtype=dt, device=dev)
 	fac_m1, zero = one*invband, one*0
 	sgs = -1.0 if s % 2 else 1.0
@@ -409,8 +444,10 @@ def wigner_values(g, lmax):
 	prev = torch.zeros((2, nm, nt), dtype=dt, device=dev)
 	curr = torch.zeros_like(prev)
 	lev = torch.zeros((2, nm, nt), dtype=torch.int32, device=dev)
+	chunks = degree_chunks(lmax, torch.float64, dev)
 	for l in range(lmax + 1):
-		a, b, c = (t.to(dt)[None, :, None] for t in wigner_abc(l, marr, s))
+		if l % LCHUNK == 0: abc = [t.to(dt) for t in wigner_abc(next(chunks)[1], marr, s)]
+		a, b, c = (t[l % LCHUNK][None, :, None] for t in abc)
 		new = a*((x*curr + xlo*curr + (sgn*c)*curr) - b*prev)
 		seed = seed_at == l
 		new = torch.where(seed, g.seed_val, new)
@@ -437,9 +474,10 @@ def mode_values(mode, g, lmax, stop=None, state=None):
 		if state is not None: raise ValueError("the wigner mode hands over no state")
 		yield from wigner_values(g, lmax)
 		return
-	marr = torch.arange(g.nm, dtype=g.dtype, device=g.ct.device)
+	marr = torch.arange(g.m0, g.m0 + g.nm, dtype=g.dtype, device=g.ct.device)
+	funcs = ModeFuncs(mode, marr, g, lmax)
 	for l, lam, lam1 in lambdas(g, lmax, stop, state):
-		yield l, mode_funcs(mode, l, marr, g, lam, lam1)
+		yield l, funcs(l, lam, lam1)
 
 
 def _state_buffer(g, stop, dump_state):
@@ -571,6 +609,7 @@ class _BlkRun:
 	state, one block's node chains, and the state's step over a block."""
 	def __init__(self, state, tab, g, nl, mode):
 		if mode not in BLK_FAM: raise ValueError("no block-Legendre path in mode '%s'" % mode)
+		if g.m0: raise NotImplementedError("the block-Legendre split on an m block (m0 = %d)" % g.m0)
 		self.dt, self.dev = state.dtype, state.device
 		self.mode, self.fam = mode, BLK_FAM[mode]
 		self.nm, self.nt, self.nl = g.nm, g.nt, nl
@@ -699,15 +738,17 @@ def blk_analysis(F, state, tab, g, lmax, mode="scalar"):
 	return out[:run.nl, :run.nm]
 
 
-def synthesis_scan(A, theta, lmax, mmax, mode="scalar", dtype=torch.float64):
+def synthesis_scan(A, theta, lmax, mmax, mode="scalar", dtype=torch.float64, *, m0=0):
 	"""G[f,c,m,t] = sum_l u_f(l,m,theta_t) A[l,m,c]
-	(pixell_tpu.ops.sht_core.synthesis_scan :318)."""
-	return synthesis(A, prepare_geom(theta, mmax, dtype, A.device), lmax, mode)
+	(pixell_tpu.ops.sht_core.synthesis_scan :318); with m0, on the m block
+	m0 .. mmax (A [nl, mmax + 1 - m0, C])."""
+	return synthesis(A, prepare_geom(theta, mmax, dtype, A.device, m0=m0), lmax, mode)
 
-def analysis_scan(F, theta, lmax, mmax, mode="scalar", dtype=torch.float64):
+def analysis_scan(F, theta, lmax, mmax, mode="scalar", dtype=torch.float64, *, m0=0):
 	"""A[l,m,c] = sum_f sum_t u_f(l,m,theta_t) F[f,c,m,t]
-	(pixell_tpu.ops.sht_core.analysis_scan :323)."""
-	return analysis(F, prepare_geom(theta, mmax, dtype, F.device), lmax, mode)
+	(pixell_tpu.ops.sht_core.analysis_scan :323); with m0, on the m block
+	m0 .. mmax."""
+	return analysis(F, prepare_geom(theta, mmax, dtype, F.device, m0=m0), lmax, mode)
 
 
 def wigner_synthesis_scan(A, theta, lmax, mmax, s, dtype=torch.float64):

@@ -59,9 +59,21 @@ Legendre-mode launches of K3/K4 at lmax >= BLK_MINL while BLK_ENABLE is set
 Each wrapper takes prepared tables (sht_core.Geom plus the coefficient
 tables built here), checks its arguments, and launches its kernel on a CUDA
 tensor, adding one to LAUNCHES[name], to LAUNCHES_BY_MODE[(name, mode)] and
-to LAUNCHES_BY_DTYPE[(name, mode, "float32" or "float64")].
+to LAUNCHES_BY_DTYPE[(name, mode, "float32" or "float64")], and for a launch
+on an m block (m0 > 0) to LAUNCHES_MBLOCK under the same key.
 On a CPU tensor it runs its plain PyTorch version (PLAIN[name], same
 arguments) instead; on any other device it raises.
+
+An m block: the columns m0 .. mmax of a transform run on their own (the
+m-sharded SHT gives each rank its contiguous block). The geometry
+(geom(..., m0=m0)), the coefficient tables and the dead-tile table are the
+block's rows, and every launch of K1-K4 and of the near-pole passes takes
+the block's first m as its last argument (mfirst in csrc/legendre.cu), from
+which the kernel derives each row's true m: its seed degree, its mode
+functions and its half-sky parity. The dispatch takes m0 (keyword) and runs
+the near-pole pass on the block's columns below its m-extent. The
+block-Legendre split does not run on an m block: it raises
+NotImplementedError.
 
 synthesis_scan / analysis_scan are the engine entry points the SHT calls.
 CPU tensors go to the plain scan (sht_core); CUDA tensors go through the
@@ -121,10 +133,13 @@ KERNELS = tuple(BULK_KERNELS.values()) + tuple(BULK_F64.values()) + POLAR_KERNEL
 LAUNCHES = {name: 0 for name in KERNELS}
 LAUNCHES_BY_MODE = {(name, mode): 0 for name in KERNELS for mode in sht_core.MODES}
 LAUNCHES_BY_DTYPE = {k + (dt,): 0 for k in LAUNCHES_BY_MODE for dt in ("float32", "float64")}
+# the launches of K1-K4 and the near-pole passes on an m block that does not
+# start at m = 0, by (name, mode, dtype), counted in LAUNCHES_BY_DTYPE too
+LAUNCHES_MBLOCK = dict.fromkeys(LAUNCHES_BY_DTYPE, 0)
 
 
 def reset_launches():
-	for d in (LAUNCHES, LAUNCHES_BY_MODE, LAUNCHES_BY_DTYPE):
+	for d in (LAUNCHES, LAUNCHES_BY_MODE, LAUNCHES_BY_DTYPE, LAUNCHES_MBLOCK):
 		for k in d: d[k] = 0
 
 
@@ -153,23 +168,23 @@ def polar_counts(theta, lmax):
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 
-def host_coef(nl, nm, ndt):
+def host_coef(nl, nm, ndt, m0=0):
 	"""[3, nl, nm] numpy ndt: a_lm, b_lm and e_lm by the formulas of
 	sht_core.recur_ab and recur_e, evaluated in ndt with numpy's IEEE
-	(correctly rounded) sqrt and divide."""
+	(correctly rounded) sqrt and divide, for m = m0 .. m0 + nm - 1."""
 	l = np.arange(nl, dtype=ndt)[:, None]
-	m = np.arange(nm, dtype=ndt)[None, :]
+	m = np.arange(m0, m0 + nm, dtype=ndt)[None, :]
 	a = np.sqrt(np.maximum((2*l - 1)*(2*l + 1), 0)/np.maximum((l - m)*(l + m), 0.25))
 	b = np.sqrt(np.maximum((l - 1 - m)*(l - 1 + m), 0)/np.maximum((2*l - 3)*(2*l - 1), 1))
 	e = np.sqrt(np.maximum((l - m)*(l + m)*(2*l + 1), 0)/np.maximum(2*l - 1, 1))
 	return np.stack([a, b, e])
 
 
-def host_wigner(nl, nm, s):
+def host_wigner(nl, nm, s, m0=0):
 	"""[3, nl, nm] float64 numpy: a, b, c of the Wigner-d recurrence at spin s
-	by the formulas of sht_core.wigner_abc."""
+	by the formulas of sht_core.wigner_abc, for m = m0 .. m0 + nm - 1."""
 	l = np.arange(nl, dtype=np.float64)[:, None]
-	m = np.arange(nm, dtype=np.float64)[None, :]
+	m = np.arange(m0, m0 + nm, dtype=np.float64)[None, :]
 	sf = float(s)
 	def v(lv):
 		num = np.maximum((lv - m)*(lv + m)*(lv - sf)*(lv + sf), 0)
@@ -195,23 +210,24 @@ def host_l_norms(mode, nl, ndt):
 	return np.stack([nrm, np.sqrt((2*l + 1)/(4*np.pi))/2])
 
 
-def coef_tables(nl, nm, dtype, device=None):
+def coef_tables(nl, nm, dtype, device=None, m0=0):
 	"""[3, nl, nm]: the recurrence coefficients a_lm, b_lm and the mode
-	functions' e_lm (pixell_tpu.ops.sht_pallas._recur_ab_tables :88),
-	computed on the host in dtype by numpy (host_coef), whose sqrt and
-	divide are correctly rounded, and copied to device."""
-	return torch.from_numpy(host_coef(nl, nm, _NP_DTYPE[dtype])).to(device)
+	functions' e_lm (pixell_tpu.ops.sht_pallas._recur_ab_tables :88) for
+	m = m0 .. m0 + nm - 1, computed on the host in dtype by numpy
+	(host_coef), whose sqrt and divide are correctly rounded, and copied
+	to device."""
+	return torch.from_numpy(host_coef(nl, nm, _NP_DTYPE[dtype], m0)).to(device)
 
 
-def wigner_tables(nl, nm, s, dtype, device=None):
+def wigner_tables(nl, nm, s, dtype, device=None, m0=0):
 	"""[3, nl, nm]: a = 1/v(l), b = v(l-1) and c = m s/((l-1) l) of the
 	Wigner-d recurrence for spin s (sht_core.wigner_abc; pixell_tpu.ops.
 	sht_pallas._wigner_ab_tables :108), zero for l <= max(m, s). The two
 	branches share a and b and take +c and -c. Computed on the host in
 	float64 by numpy (host_wigner) and rounded once to dtype: near the poles
 	the recurrence amplifies the rounding of c by ~l^2, so the float64
-	near-pole pass reads float64 tables."""
-	return torch.from_numpy(host_wigner(nl, nm, s).astype(_NP_DTYPE[dtype])).to(device)
+	near-pole pass reads float64 tables. m as in coef_tables."""
+	return torch.from_numpy(host_wigner(nl, nm, s, m0).astype(_NP_DTYPE[dtype])).to(device)
 
 
 def l_tables(nl, mode, dtype, device=None):
@@ -222,38 +238,40 @@ def l_tables(nl, mode, dtype, device=None):
 	return torch.from_numpy(host_l_norms(mode, nl, _NP_DTYPE[dtype])).to(device)
 
 
-def dead_table(theta, lmax, mmax, tile_m, tile_t, s=0):
+def dead_table(theta, lmax, mmax, tile_m, tile_t, s=0, m0=0):
 	"""[ceil(nm/tile_m), ceil(nt/tile_t)] bool: True where a tile of tile_m
 	m rows by tile_t rings lies wholly beyond the horizon,
 	m_lo - s > lmax max(sin theta) + 1.6 sqrt(lmax) + 20, so that every
 	lambda_lm (or d^l_ms) on it is below ~1e-12 for every l <= lmax
 	(pixell_tpu.ops.sht_pallas._dead_table :677). s is 0 for the Legendre
-	modes, which are all built on lambda_lm, and the spin in wigner mode."""
+	modes, which are all built on lambda_lm, and the spin in wigner mode.
+	On the m block m0 .. mmax (nm = mmax + 1 - m0) the tiles start at row 0
+	of the block, and m_lo is a tile's true first m."""
 	th = np.asarray(theta, np.float64)
-	nmb, ntb = -(-(mmax + 1)//tile_m), -(-len(th)//tile_t)
+	nmb, ntb = -(-(mmax + 1 - m0)//tile_m), -(-len(th)//tile_t)
 	st = np.zeros(ntb*tile_t)
 	st[:len(th)] = np.sin(th)
 	smax = st.reshape(ntb, tile_t).max(1)
 	slack = 1.6*np.sqrt(max(lmax, 1)) + 20
-	m_lo = np.arange(nmb)*tile_m
+	m_lo = m0 + np.arange(nmb)*tile_m
 	return (m_lo[:, None] - s) > (lmax*smax[None, :] + slack)
 
 
 @tablecache.cached
-def _dead_cached(theta_bytes, lmax, mmax, s, device):
-	dead = dead_table(np.frombuffer(theta_bytes, np.float64), lmax, mmax, TILE_M, TILE_T, s)
+def _dead_cached(theta_bytes, lmax, mmax, s, device, m0=0):
+	dead = dead_table(np.frombuffer(theta_bytes, np.float64), lmax, mmax, TILE_M, TILE_T, s, m0)
 	if not dead.any(): return None
 	return torch.from_numpy(np.where(dead, 0, lmax + 1).astype(np.int32)).to(device)
 
 
-def dead_stops(theta, lmax, mmax, s, device):
+def dead_stops(theta, lmax, mmax, s, device, m0=0):
 	"""The stop degrees that make K1/K3/K4 skip their dead blocks on the rings
 	theta: an int32 tensor [ceil(nm/TILE_M), ceil(nt/TILE_T)] on device, 0
 	for a dead block and lmax + 1 (run to the end) for the others, or None
-	where no block is dead (pixell_tpu.ops.sht_pallas._dead_lstop :704).
-	Cached per ring set."""
+	where no block is dead (pixell_tpu.ops.sht_pallas._dead_lstop :704);
+	with m0, for the m block m0 .. mmax. Cached per ring set."""
 	th = np.ascontiguousarray(theta, np.float64)
-	return _dead_cached(th.tobytes(), int(lmax), int(mmax), int(s), torch.device(device))
+	return _dead_cached(th.tobytes(), int(lmax), int(mmax), int(s), torch.device(device), int(m0))
 
 
 def stop_entries(lstop, nm, nt):
@@ -439,9 +457,9 @@ def blk_tables(theta, lmax, mmax, device):
 
 
 @tablecache.cached
-def _coef_cached(nl, nm, dtype, device, s=None):
-	if s is not None: return wigner_tables(nl, nm, s, dtype, device)
-	return coef_tables(nl, nm, dtype, device)
+def _coef_cached(nl, nm, dtype, device, s=None, m0=0):
+	if s is not None: return wigner_tables(nl, nm, s, dtype, device, m0)
+	return coef_tables(nl, nm, dtype, device, m0)
 
 
 @tablecache.cached
@@ -455,18 +473,19 @@ def _streams_cached(nl, nm, mode, device):
 
 
 @tablecache.cached
-def _geom_cached(theta_bytes, mmax, dtype, device, s):
+def _geom_cached(theta_bytes, mmax, dtype, device, s, m0=0):
 	theta = np.frombuffer(theta_bytes, np.float64)
-	return sht_core.prepare_geom(theta, mmax, dtype, device, s)
+	return sht_core.prepare_geom(theta, mmax, dtype, device, s, m0)
 
 
-def geom(theta, mmax, dtype, device, s=None):
+def geom(theta, mmax, dtype, device, s=None, m0=0):
 	"""Seeds, two-part cos(theta) and mode rows for the rings theta, cached
 	per ring set, dtype and device (pixell_tpu.ops.sht_pallas._prep_inputs
-	:468 and _ct_parts :454); with s, for the wigner mode at spin s."""
+	:468 and _ct_parts :454); with s, for the wigner mode at spin s; with
+	m0, for the m block m0 .. mmax."""
 	th = np.ascontiguousarray(theta, np.float64)
 	return _geom_cached(th.tobytes(), int(mmax), dtype, torch.device(device),
-		None if s is None else int(s))
+		None if s is None else int(s), int(m0))
 
 
 # ---------------------------------------------------------------------------
@@ -483,16 +502,16 @@ def library(csrc=_build.CSRC):
 			if mode == "wigner" and name.startswith("sym"): continue   # no half-sky form
 			fn = getattr(lib, "pt_%s_%s" % (name, mode))
 			# C, 9 pointers, (nl, nm, nt[, nplanes], s), the stop degrees, the state,
-			# the stream
-			fn.argtypes = [I] + [P]*9 + [I]*(4 if "synthesis" in name else 5) + [P]*3
+			# the stream, the m block's first m
+			fn.argtypes = [I] + [P]*9 + [I]*(4 if "synthesis" in name else 5) + [P]*3 + [I]
 			fn.restype = I
 		fn = getattr(lib, "pt_polar_analysis_%s" % mode)
-		# C, 8 pointers, (ldo, nl, nm, nt, s), the stream
-		fn.argtypes = [I] + [P]*8 + [I]*5 + [P]
+		# C, 8 pointers, (ldo, nl, nm, nt, s), the stream, the m block's first m
+		fn.argtypes = [I] + [P]*8 + [I]*5 + [P, I]
 		fn.restype = I
 		fn = getattr(lib, "pt_polar_synthesis_%s" % mode)
-		# C, 8 pointers, (lda, ldo, nl, nm, nt, s), the stream
-		fn.argtypes = [I] + [P]*8 + [I]*6 + [P]
+		# C, 8 pointers, (lda, ldo, nl, nm, nt, s), the stream, the m block's first m
+		fn.argtypes = [I] + [P]*8 + [I]*6 + [P, I]
 		fn.restype = I
 		if mode not in sht_core.BLK_FAM: continue
 		for name in BLK_KERNELS:
@@ -547,7 +566,10 @@ def _launch(name, mode, device, f64, *args):
 		raise RuntimeError("%s (%s) kernel launch failed: CUDA error %d" % (name, mode, err))
 	LAUNCHES[name] += 1
 	LAUNCHES_BY_MODE[(name, mode)] += 1
-	LAUNCHES_BY_DTYPE[(name, mode, "float64" if f64 else "float32")] += 1
+	key = (name, mode, "float64" if f64 else "float32")
+	LAUNCHES_BY_DTYPE[key] += 1
+	# the Legendre entries' last argument is the m block's first m
+	if name not in BLK_KERNELS and args and args[-1]: LAUNCHES_MBLOCK[key] += 1
 
 
 def _mode_args(g, nl, mode, lstop, device, dump_state=False):
@@ -567,7 +589,7 @@ def _mode_args(g, nl, mode, lstop, device, dump_state=False):
 			"with stop degrees only")
 	if lstop is not None and g.dtype != torch.float32:
 		raise ValueError("stop degrees are taken by float32 launches only")
-	return (_coef_cached(nl, g.nm, g.dtype, device, g.s), _lt_cached(nl, mode, g.dtype, device),
+	return (_coef_cached(nl, g.nm, g.dtype, device, g.s, g.m0), _lt_cached(nl, mode, g.dtype, device),
 		0 if g.s is None else int(g.s), 0 if lstop is None else lstop.data_ptr())
 
 
@@ -605,7 +627,7 @@ def _synthesis_launch(name, A, g, lmax, mode, out_shape_of, lstop=None, dump_sta
 		out = torch.empty(out_shape_of(c1 - c0), dtype=g.dtype, device=A.device)
 		# every launch of the columns ends in the same state: the first writes it
 		_launch(entry, mode, A.device, f64, c1 - c0, Ac.data_ptr(), *_ptrs(g, ab, lt),
-			out.data_ptr(), nl, nm, g.nt, s, stop_ptr, state_ptr if c0 == 0 else 0, stream)
+			out.data_ptr(), nl, nm, g.nt, s, stop_ptr, state_ptr if c0 == 0 else 0, stream, g.m0)
 		outs.append(out)
 	G = outs[0] if len(outs) == 1 else torch.cat(outs, 1)
 	return (G, state) if dump_state else G
@@ -632,15 +654,16 @@ def _analysis_launch(name, F, g, lmax, mode, lstop=None, dump_state=False):
 		Fc = F[:, c0:c1].contiguous()
 		part = torch.zeros((nplanes, nl, nm, c1 - c0), dtype=g.dtype, device=F.device)
 		_launch(entry, mode, F.device, f64, c1 - c0, Fc.data_ptr(), *_ptrs(g, ab, lt),
-			part.data_ptr(), nl, nm, g.nt, nplanes, s, stop_ptr, state_ptr if c0 == 0 else 0, stream)
+			part.data_ptr(), nl, nm, g.nt, nplanes, s, stop_ptr, state_ptr if c0 == 0 else 0, stream,
+			g.m0)
 		outs.append(part.sum(0))
 	A = torch.cat(outs, -1)
 	return (A, state) if dump_state else A
 
 
-def _parity(nl, nm, dtype, device):
-	"""(-1)^(l+m) as [nl, nm]."""
-	lm = torch.arange(nl, device=device)[:, None] + torch.arange(nm, device=device)[None, :]
+def _parity(nl, nm, dtype, device, m0=0):
+	"""(-1)^(l+m) as [nl, nm], for m = m0 .. m0 + nm - 1."""
+	lm = torch.arange(nl, device=device)[:, None] + torch.arange(m0, m0 + nm, device=device)[None, :]
 	return (1 - 2*(lm % 2)).to(dtype)
 
 
@@ -650,7 +673,7 @@ def _psign(mode, dtype, device):
 
 def _sym_synthesis_plain(A, g, lmax, mode="scalar", lstop=None):
 	C = A.shape[-1]
-	sgn = _parity(lmax + 1, g.nm, A.dtype, A.device)[..., None]
+	sgn = _parity(lmax + 1, g.nm, A.dtype, A.device, g.m0)[..., None]
 	# one pass: the mirror ring is sum_l PSIGN[f] (-1)^(l+m) u_f A; a mirror
 	# ring stops where its northern ring does
 	G = sht_core.synthesis(torch.cat([A, A*sgn], -1), g, lmax, mode,
@@ -670,7 +693,7 @@ def _sym_analysis_plain(EO, g, lmax, mode="scalar"):
 	C = EO.shape[1]
 	# one pass for the even (l+m), one for the odd, selected per (l, m)
 	R = sht_core.analysis(_even_odd(EO, mode), g, lmax, mode)   # [nl, nm, 2C]
-	lodd = _parity(lmax + 1, g.nm, torch.int64, EO.device)[..., None] < 0
+	lodd = _parity(lmax + 1, g.nm, torch.int64, EO.device, g.m0)[..., None] < 0
 	return torch.where(lodd, R[..., C:], R[..., :C])
 
 def _full_synthesis_plain(A, g, lmax, mode="scalar", lstop=None, dump_state=False):
@@ -790,7 +813,7 @@ def polar_analysis(F, g, lmax, mode="scalar"):
 		_launch("polar_analysis", mode, F.device, True, c1 - c0, Fc.data_ptr(), ab.data_ptr(),
 			lt.data_ptr(), g.ct.data_ptr(), g.rows.data_ptr(), g.seed_val.data_ptr(),
 			g.seed_level.data_ptr(), out.data_ptr() + c0*out.element_size(), C, nl, g.nm, g.nt, s,
-			stream)
+			stream, g.m0)
 	return out
 
 
@@ -814,7 +837,7 @@ def polar_synthesis(A, g, lmax, mode="scalar"):
 		_launch("polar_synthesis", mode, A.device, True, c1 - c0, A.data_ptr() + c0*esize,
 			ab.data_ptr(), lt.data_ptr(), g.ct.data_ptr(), g.rows.data_ptr(), g.seed_val.data_ptr(),
 			g.seed_level.data_ptr(), out.data_ptr() + c0*g.nm*g.nt*esize, C, C, nl, g.nm, g.nt, s,
-			stream)
+			stream, g.m0)
 	return out
 
 
@@ -827,6 +850,7 @@ def _blk_args(x, state, tab, g, nl, mode, what):
 		raise ValueError("no block-Legendre kernel in mode '%s'" % mode)
 	if g.dtype != torch.float32 or g.s is not None:
 		raise TypeError("%s: the block kernels run in float32 Legendre modes only" % what)
+	if g.m0: raise NotImplementedError("%s on an m block (m0 = %d)" % (what, g.m0))
 	_check(state, g, (3, g.nm, g.nt), what + " state")
 	want = (-(-g.nm//BLK_TILE_M), -(-g.nt//BLK_TILE_T))
 	if (tab.tile_m, tab.tile_t) != (BLK_TILE_M, BLK_TILE_T) or tuple(tab.start.shape) != want:
@@ -898,32 +922,34 @@ def blk_analysis(F, state, tab, g, lmax, mode="scalar"):
 # ---------------------------------------------------------------------------
 # Dispatch
 # ---------------------------------------------------------------------------
-def synthesis_scan(A, theta, lmax, mmax, mode="scalar", dtype=torch.float32, s=None):
+def synthesis_scan(A, theta, lmax, mmax, mode="scalar", dtype=torch.float32, s=None, *, m0=0):
 	"""G[f,c,m,t] = sum_l u_f(l,m,theta_t) A[l,m,c] with the recurrence in
 	dtype: the plain scan on CPU, the kernels on CUDA. mode "wigner" takes
-	the spin s."""
+	the spin s. With m0, on the m block m0 .. mmax: A [nl, mmax + 1 - m0,
+	C] holds its columns, and so does the result."""
 	if not _on_card(A):
-		return sht_core.synthesis(A, geom(theta, mmax, dtype, A.device, s), lmax, mode)
-	return kernel_synthesis(A, theta, lmax, mmax, mode, dtype, s)
+		return sht_core.synthesis(A, geom(theta, mmax, dtype, A.device, s, m0), lmax, mode)
+	return kernel_synthesis(A, theta, lmax, mmax, mode, dtype, s, m0=m0)
 
 
-def analysis_scan(F, theta, lmax, mmax, mode="scalar", dtype=torch.float32, s=None):
+def analysis_scan(F, theta, lmax, mmax, mode="scalar", dtype=torch.float32, s=None, *, m0=0):
 	"""A[l,m,c] = sum_f sum_t u_f(l,m,theta_t) F[f,c,m,t] with the recurrence
 	in dtype: the plain scan on CPU, the kernels on CUDA. mode "wigner" takes
-	the spin s."""
+	the spin s; m0 as in synthesis_scan."""
 	if not _on_card(F):
-		return sht_core.analysis(F, geom(theta, mmax, dtype, F.device, s), lmax, mode)
-	return kernel_analysis(F, theta, lmax, mmax, mode, dtype, s)
+		return sht_core.analysis(F, geom(theta, mmax, dtype, F.device, s, m0), lmax, mode)
+	return kernel_analysis(F, theta, lmax, mmax, mode, dtype, s, m0=m0)
 
 
-def _polar_split(theta, lmax, mmax, s=None):
+def _polar_split(theta, lmax, mmax, s=None, m0=0):
 	"""(nn, ns, Mp, polar theta) of the near-pole pass; in wigner mode its
 	m-extent covers the spin (pixell_tpu.ops.sht_pallas._wigner_polar_mmax
-	:2142)."""
+	:2142). Mp counts the m block's columns the pass takes: those below the
+	pass's m-extent, from the block's first m0."""
 	nn, ns = polar_counts(theta, lmax)
 	nt = len(theta)
 	Mp = min(mmax + 1, POLAR_MMAX if s is None else max(POLAR_MMAX, int(s) + 1))
-	return nn, ns, Mp, np.concatenate([theta[:nn], theta[nt-ns:]])
+	return nn, ns, max(Mp - m0, 0), np.concatenate([theta[:nn], theta[nt-ns:]])
 
 
 def _check_spin(mode, s):
@@ -932,44 +958,49 @@ def _check_spin(mode, s):
 		raise ValueError("mode '%s' %s a spin s" % (mode, "needs" if s is None else "takes no"))
 
 
-def kernel_synthesis(A, theta, lmax, mmax, mode="scalar", dtype=torch.float32, s=None):
+def kernel_synthesis(A, theta, lmax, mmax, mode="scalar", dtype=torch.float32, s=None, *, m0=0):
 	"""The kernel dispatch of synthesis_scan (pixell_tpu.ops.sht_pallas.
 	synthesis_scan_pallas :498, wigner_synthesis_scan_pallas :2165):
-	A [nl, nm, C] -> [nfun, C, nm, nt]. Runs the kernels' plain versions on
-	CPU tensors."""
+	A [nl, nm, C] -> [nfun, C, nm, nt]; with m0 on the m block m0 .. mmax,
+	every launch taking the block's first m. Runs the kernels' plain
+	versions on CPU tensors."""
 	_check_spin(mode, s)
 	theta = np.asarray(theta, np.float64)
 	nt = len(theta)
 	if dtype == torch.float64:
-		return _synth_rings(A, theta, lmax, mmax, mode, dtype, s)
+		return _synth_rings(A, theta, lmax, mmax, mode, dtype, s, m0)
 	if dtype != torch.float32: raise TypeError("dtype must be float32 or float64")
-	nn, ns, Mp, pth = _polar_split(theta, lmax, mmax, s)
+	nn, ns, Mp, pth = _polar_split(theta, lmax, mmax, s, m0)
 	if nn + ns >= nt:
 		# a ring set that is all near-pole runs entirely in float64
-		return _synth_rings(A, theta, lmax, mmax, mode, torch.float64, s).to(dtype)
-	G = _synth_rings(A, theta, lmax, mmax, mode, dtype, s)
-	if nn or ns:
+		return _synth_rings(A, theta, lmax, mmax, mode, torch.float64, s, m0).to(dtype)
+	G = _synth_rings(A, theta, lmax, mmax, mode, dtype, s, m0)
+	if (nn or ns) and Mp:
 		# overwrite the near-pole rings, for m < Mp, with a float64 pass: the
 		# recurrence amplifies f32 rounding there by ~min(l, 1/theta)^2
 		pol = polar_synthesis(A[:, :Mp].to(torch.float64).contiguous(),
-			geom(pth, Mp - 1, torch.float64, A.device, s), lmax, mode).to(dtype)
+			geom(pth, m0 + Mp - 1, torch.float64, A.device, s, m0), lmax, mode).to(dtype)
 		G[..., :Mp, :nn] = pol[..., :nn]
 		G[..., :Mp, nt-ns:] = pol[..., nn:]
 	return G
 
 
-def _f32_stops(theta, lmax, mmax, dtype, s, device):
+def _f32_stops(theta, lmax, mmax, dtype, s, device, m0=0):
 	"""The dead-tile stops for a K1/K3/K4 launch in dtype: float32 only."""
 	if dtype != torch.float32: return None
-	return dead_stops(theta, lmax, mmax, 0 if s is None else s, device)
+	return dead_stops(theta, lmax, mmax, 0 if s is None else s, device, m0)
 
 
-def blk_ok(mode, dtype, lmax):
+def blk_ok(mode, dtype, lmax, m0=0):
 	"""Whether a K3/K4 launch takes the block-Legendre split
 	(pixell_tpu.ops.sht_pallas._blk_ok :615): enabled, float32, a Legendre
-	mode, lmax >= BLK_MINL."""
-	return bool(BLK_ENABLE) and dtype == torch.float32 and mode in sht_core.BLK_FAM \
+	mode, lmax >= BLK_MINL. The split does not run on an m block: there it
+	raises NotImplementedError."""
+	ok = bool(BLK_ENABLE) and dtype == torch.float32 and mode in sht_core.BLK_FAM \
 		and lmax >= BLK_MINL
+	if ok and m0:
+		raise NotImplementedError("sht.blocked() on an m block (m0 = %d)" % m0)
+	return ok
 
 
 def blocked_synthesis(A, theta, lmax, mmax, mode="scalar"):
@@ -1003,48 +1034,50 @@ def blocked_analysis(F, theta, lmax, mmax, mode="scalar"):
 	return out + blk_analysis(F, state, tab, g, lmax, mode)
 
 
-def _synth_rings(A, theta, lmax, mmax, mode, dtype, s=None):
+def _synth_rings(A, theta, lmax, mmax, mode, dtype, s=None, m0=0):
 	"""[nfun, C, nm, nt] through K1 (symmetric ring set, Legendre modes) or K3,
 	split with the block kernel where blk_ok."""
 	A = A.to(dtype).contiguous()
 	nt = len(theta)
 	nh = None if mode == "wigner" else detect_sym(theta)
 	if nh is None:
-		if blk_ok(mode, dtype, lmax): return blocked_synthesis(A, theta, lmax, mmax, mode)
-		return full_synthesis(A, geom(theta, mmax, dtype, A.device, s), lmax, mode,
-			_f32_stops(theta, lmax, mmax, dtype, s, A.device))
+		if blk_ok(mode, dtype, lmax, m0): return blocked_synthesis(A, theta, lmax, mmax, mode)
+		return full_synthesis(A, geom(theta, mmax, dtype, A.device, s, m0), lmax, mode,
+			_f32_stops(theta, lmax, mmax, dtype, s, A.device, m0))
 	north = theta[:nh]
-	pair = sym_synthesis(A, geom(north, mmax, dtype, A.device), lmax, mode,
-		_f32_stops(north, lmax, mmax, dtype, None, A.device))
+	pair = sym_synthesis(A, geom(north, mmax, dtype, A.device, m0=m0), lmax, mode,
+		_f32_stops(north, lmax, mmax, dtype, None, A.device, m0))
 	return torch.cat([pair[:, :, 0], pair[:, :, 1, :, :nt - nh].flip(-1)], -1)
 
 
-def kernel_analysis(F, theta, lmax, mmax, mode="scalar", dtype=torch.float32, s=None):
+def kernel_analysis(F, theta, lmax, mmax, mode="scalar", dtype=torch.float32, s=None, *, m0=0):
 	"""The kernel dispatch of analysis_scan (pixell_tpu.ops.sht_pallas.
 	analysis_scan_pallas_chunked :2108 with _maybe_polar_analysis :1797,
-	wigner_analysis_scan_pallas :2221): F [nfun, C, nm, nt] -> [nl, nm, C].
-	Runs the kernels' plain versions on CPU tensors."""
+	wigner_analysis_scan_pallas :2221): F [nfun, C, nm, nt] -> [nl, nm, C];
+	with m0 on the m block m0 .. mmax, as kernel_synthesis. Runs the
+	kernels' plain versions on CPU tensors."""
 	_check_spin(mode, s)
 	theta = np.asarray(theta, np.float64)
 	nt = len(theta)
 	if dtype == torch.float64:
-		return _anal_rings(F, theta, lmax, mmax, mode, dtype, s)
+		return _anal_rings(F, theta, lmax, mmax, mode, dtype, s, m0)
 	if dtype != torch.float32: raise TypeError("dtype must be float32 or float64")
-	nn, ns, Mp, pth = _polar_split(theta, lmax, mmax, s)
+	nn, ns, Mp, pth = _polar_split(theta, lmax, mmax, s, m0)
 	if nn + ns >= nt:
-		return _anal_rings(F, theta, lmax, mmax, mode, torch.float64, s).to(dtype)
+		return _anal_rings(F, theta, lmax, mmax, mode, torch.float64, s, m0).to(dtype)
 	if not (nn or ns):
-		return _anal_rings(F, theta, lmax, mmax, mode, dtype, s)
-	out = _anal_rings(F[..., nn:nt-ns], theta[nn:nt-ns], lmax, mmax, mode, dtype, s)
+		return _anal_rings(F, theta, lmax, mmax, mode, dtype, s, m0)
+	out = _anal_rings(F[..., nn:nt-ns], theta[nn:nt-ns], lmax, mmax, mode, dtype, s, m0)
+	if not Mp: return out
 	# near-pole rings contribute through a float64 pass, for m < Mp
 	Fp = torch.cat([F[..., :nn], F[..., nt-ns:]], -1)[..., :Mp, :]
 	pol = polar_analysis(Fp.to(torch.float64).contiguous(),
-		geom(pth, Mp - 1, torch.float64, F.device, s), lmax, mode)
+		geom(pth, m0 + Mp - 1, torch.float64, F.device, s, m0), lmax, mode)
 	out[:, :Mp] += pol.to(dtype)
 	return out
 
 
-def _anal_rings(F, theta, lmax, mmax, mode, dtype, s=None):
+def _anal_rings(F, theta, lmax, mmax, mode, dtype, s=None, m0=0):
 	"""[nl, nm, C] through K2 (symmetric ring set, Legendre modes) or K4, in
 	chunks of TCHUNK rings (pixell_tpu.ops.sht_pallas._analysis_sym_entry
 	:1825, _wigner_anal_full :2195)."""
@@ -1063,11 +1096,11 @@ def _anal_rings(F, theta, lmax, mmax, mode, dtype, s=None):
 		i1 = min(i0 + TCHUNK, len(theta))
 		Fc, th = F[..., i0:i1].contiguous(), theta[i0:i1]
 		if nh is not None:
-			part = sym_analysis(Fc, geom(th, mmax, dtype, F.device), lmax, mode)
-		elif blk_ok(mode, dtype, lmax):
+			part = sym_analysis(Fc, geom(th, mmax, dtype, F.device, m0=m0), lmax, mode)
+		elif blk_ok(mode, dtype, lmax, m0):
 			part = blocked_analysis(Fc, th, lmax, mmax, mode)
 		else:
-			part = full_analysis(Fc, geom(th, mmax, dtype, F.device, s), lmax, mode,
-				_f32_stops(th, lmax, mmax, dtype, s, F.device))
+			part = full_analysis(Fc, geom(th, mmax, dtype, F.device, s, m0), lmax, mode,
+				_f32_stops(th, lmax, mmax, dtype, s, F.device, m0))
 		out = part if out is None else out + part
 	return out

@@ -291,43 +291,105 @@ def synthesis_phase(alm, theta, lmax=None, mmax=None, spin=(0, 2), deriv=False, 
 		Gc = _coef2c(G.to(rdt), 1)[..., 0, :, :]                    # [2(fun), nm, nt]
 		m = torch.arange(mmax+1, dtype=rdt, device=alm.device)[:, None]
 		return torch.stack([Gc[1], _mul_i(m*Gc[0])])
+	return _phases(lambda i1, i2: alm2coef(alm[..., i1:i2, :], lmax, mmax), alm.shape[-2], theta,
+		lmax, mmax, spin, rdt, ldt, 0)
+
+
+def _phases(coef, ncomp, theta, lmax, mmax, spin, rdt, ldt, m0):
+	"""The Legendre stage of synthesis by spin block, from coef(i1, i2), the
+	real coefficient columns [nl, nm, 2k] of components i1 .. i2 - 1 on the
+	m block m0 .. mmax (the whole transform at m0 = 0): per-ring phases
+	[ncomp, nm, nt]."""
 	outs = []
-	for s, i1, i2 in _spin_blocks(spin, alm.shape[-2]):
-		A = alm2coef(alm[..., i1:i2, :], lmax, mmax)         # [nl, nm, 2k]
+	for s, i1, i2 in _spin_blocks(spin, ncomp):
+		A = coef(i1, i2)
 		if s == 0:
-			G = sht_cuda.synthesis_scan(A, theta, lmax, mmax, "scalar", dtype=ldt)
+			G = sht_cuda.synthesis_scan(A, theta, lmax, mmax, "scalar", dtype=ldt, m0=m0)
 			outs.append(_coef2c(G.to(rdt), i2-i1)[0])          # [k, nm, nt]
 			continue
 		mode, ws = _spin_mode(s)
-		G = sht_cuda.synthesis_scan(A, theta, lmax, mmax, mode, dtype=ldt, s=ws)
+		G = sht_cuda.synthesis_scan(A, theta, lmax, mmax, mode, dtype=ldt, s=ws, m0=m0)
 		Gc = _coef2c(G.to(rdt), 2)                            # [2(fun), 2(EB), nm, nt]
 		# P1_m = -(w a_E + i x a_B), P2_m = -(w a_B - i x a_E)
 		outs.append(torch.stack([-(Gc[0, 0] + _mul_i(Gc[1, 1])), -(Gc[0, 1] - _mul_i(Gc[1, 0]))]))
 	return torch.cat(outs, -3)
 
 
+def synthesis_rect_phase(rect, theta, lmax=None, mmax=None, spin=(0, 2), *, m0=0,
+		leg_dtype=None):
+	"""The Legendre stage of synthesis_rect: rect [ncomp, nl, nm] (l-major,
+	zero for l < m) -> per-ring phases [ncomp, nm, nt] of the same m
+	columns. With m0, rect holds the m block m0 .. mmax (mmax defaults to
+	m0 + nm - 1), which runs on its own: the stage is elementwise in m, so
+	an m-sharded rect needs no communication here (the port's form of the
+	reference's GSPMD partition of synthesis_rect, sht.py:667)."""
+	theta = np.asarray(theta, np.float64)
+	if lmax is None: lmax = rect.shape[-2] - 1
+	if mmax is None: mmax = m0 + rect.shape[-1] - 1
+	if rect.shape[-1] != mmax + 1 - m0:
+		raise ValueError("rect has %d m columns, the block %d .. %d %d" % (rect.shape[-1], m0, mmax,
+			mmax + 1 - m0))
+	rdt = _RDTYPE[rect.dtype]
+	return _phases(lambda i1, i2: _c2coef(rect[..., i1:i2, :, :]), rect.shape[-3], theta, lmax,
+		mmax, spin, rdt, _leg_dtype(rdt, leg_dtype), m0)
+
+
+def synthesis_rect(rect, theta, nphi, phi0=0.0, lmax=None, mmax=None, spin=(0, 2),
+		map_dtype=None, *, m0=0, leg_dtype=None):
+	"""Like synthesis, but from the rectangular complex representation
+	rect [ncomp, nl, nm] (l-major, zero for l < m)
+	(pixell_tpu.sht.synthesis_rect :667). With m0, rect holds the m block
+	m0 .. mmax, and the result is that block's share of the map (the other
+	m columns taken as zero)."""
+	if map_dtype is None: map_dtype = _RDTYPE[rect.dtype]
+	G = synthesis_rect_phase(rect, theta, lmax, mmax, spin, m0=m0,
+		leg_dtype=_leg_dtype(map_dtype, leg_dtype))
+	if m0: G = torch.nn.functional.pad(G, (0, 0, m0, 0))
+	return ring_synthesis(G, phi0, nphi).to(map_dtype)
+
+
+def analysis_rect(maps, theta, lmax, weights, mmax=None, phi0=0.0, spin=(0, 2), *, m0=0,
+		leg_dtype=None):
+	"""Quadrature analysis returning the rectangular complex representation
+	[ncomp, nl, nm] instead of the triangular alm
+	(pixell_tpu.sht.analysis_rect :699); with m0, the columns of the m
+	block m0 .. mmax only."""
+	if mmax is None: mmax = lmax
+	nphi = maps.shape[-1]
+	w = _ring_weights_on(weights, nphi, maps.dtype, maps.device)
+	F = ring_analysis(maps*w[:, None], phi0, mmax+1)[..., m0:, :]
+	# m_degeneracy=False: quadrature wants each (l, m) once (no real-map m > 0
+	# doubling)
+	return adjoint_synthesis_phase(F, theta, lmax, mmax=mmax, spin=spin, rect_out=True,
+		m_degeneracy=False, leg_dtype=leg_dtype, m0=m0)
+
+
 def adjoint_synthesis_phase(F, theta, lmax, mmax=None, spin=(0, 2), deriv=False,
-		alm_dtype=None, rect_out=False, m_degeneracy=True, *, leg_dtype=None):
+		alm_dtype=None, rect_out=False, m_degeneracy=True, *, leg_dtype=None, m0=0):
 	"""Transpose of synthesis from the per-ring phases F[..., ncomp, nm, nt]
 	(pixell_tpu.sht.adjoint_synthesis_phase :734); with deriv, F is
 	[2, nm, nt] (d/dtheta, d/dphi) and the result one alm.
 	m_degeneracy=False skips the real-map m > 0 doubling (for quadrature
-	analysis); rect_out returns [..., ncomp, nl, nm] instead of alm."""
+	analysis); rect_out returns [..., ncomp, nl, nm] instead of alm. With
+	m0, F holds the m block m0 .. mmax and the result its rect columns
+	(rect_out only)."""
 	theta = np.asarray(theta, np.float64)
 	if mmax is None: mmax = lmax
+	if m0 and not rect_out:
+		raise ValueError("an m block (m0 = %d) gives its rect columns: pass rect_out=True" % m0)
 	rdt = _RDTYPE[F.dtype]
 	ldt = _leg_dtype(rdt, leg_dtype)
 	cdt = _CDTYPE[rdt] if alm_dtype is None else alm_dtype
-	fac = torch.where(torch.arange(mmax+1, device=F.device) == 0, 1.0, 2.0).to(rdt)
+	fac = torch.where(torch.arange(m0, mmax+1, device=F.device) == 0, 1.0, 2.0).to(rdt)
 	def finish(rect):
 		if m_degeneracy: rect = rect*fac
 		return rect if rect_out else rect2alm(rect, lmax, mmax)
 	if deriv:
-		m = torch.arange(mmax+1, dtype=rdt, device=F.device)[:, None]
+		m = torch.arange(m0, mmax+1, dtype=rdt, device=F.device)[:, None]
 		# transpose of G_dp = i m G_s: F_s = -i m F_dp
 		Fc = torch.stack([-_mul_i(m*F[1]), F[0]])[:, None]      # [2(fun), 1, nm, nt]
 		Fr = torch.cat([Fc.real, Fc.imag], -3)                   # [2(fun), 2, nm, nt]
-		A = sht_cuda.analysis_scan(Fr, theta, lmax, mmax, "deriv", dtype=ldt).to(rdt)
+		A = sht_cuda.analysis_scan(Fr, theta, lmax, mmax, "deriv", dtype=ldt, m0=m0).to(rdt)
 		return finish(torch.complex(A[..., 0], A[..., 1])).to(cdt)
 	outs = []
 	for s, i1, i2 in _spin_blocks(spin, F.shape[-3]):
@@ -336,14 +398,14 @@ def adjoint_synthesis_phase(F, theta, lmax, mmax=None, spin=(0, 2), deriv=False,
 		if s == 0:
 			Fr = torch.stack([Fm.real, Fm.imag], -3)          # [k, 2, nm, nt]
 			Fr = Fr.reshape(Fr.shape[:-4] + (1, 2*k) + tuple(Fr.shape[-2:]))
-			A = sht_cuda.analysis_scan(Fr, theta, lmax, mmax, "scalar", dtype=ldt).to(rdt)
+			A = sht_cuda.analysis_scan(Fr, theta, lmax, mmax, "scalar", dtype=ldt, m0=m0).to(rdt)
 		else:
 			Qf, Uf = Fm[0], Fm[1]
 			# a_E = -sum w Q - i sum x U ;  a_B = -sum w U + i sum x Q
 			Fc = torch.stack([torch.stack([-Qf, -Uf]), torch.stack([-_mul_i(Uf), _mul_i(Qf)])])
 			Fr = torch.stack([Fc.real[:, 0], Fc.imag[:, 0], Fc.real[:, 1], Fc.imag[:, 1]], 1)
 			mode, ws = _spin_mode(s)
-			A = sht_cuda.analysis_scan(Fr, theta, lmax, mmax, mode, dtype=ldt, s=ws).to(rdt)
+			A = sht_cuda.analysis_scan(Fr, theta, lmax, mmax, mode, dtype=ldt, s=ws, m0=m0).to(rdt)
 		A = A.reshape(A.shape[:-1] + (k, 2))
 		outs.append(finish(torch.complex(A[..., 0], A[..., 1]).movedim(-1, -3)))   # [k, nl, nm]
 	return torch.cat(outs, -3 if rect_out else -2).to(cdt)
@@ -386,14 +448,15 @@ def analysis(maps, theta, lmax, weights, mmax=None, phi0=0.0, spin=(0, 2), deriv
 
 
 def analysis_phase(F, theta, lmax, weights, nphi, mmax=None, spin=(0, 2), deriv=False,
-		alm_dtype=None, *, leg_dtype=None):
+		alm_dtype=None, *, leg_dtype=None, m0=0, rect_out=False):
 	"""Quadrature analysis from phase coefficients F[..., ncomp, nm, nt]
 	(pixell_tpu.sht.analysis_phase :835); nphi is the ring length F came
-	from."""
+	from. rect_out and m0 as in adjoint_synthesis_phase: with m0, F holds
+	the m block m0 .. mmax and the result is its rect columns."""
 	if mmax is None: mmax = lmax
 	w = _ring_weights_on(weights, nphi, F.real.dtype, F.device)
 	return adjoint_synthesis_phase(F*w, theta, lmax, mmax=mmax, spin=spin, deriv=deriv,
-		alm_dtype=alm_dtype, m_degeneracy=False, leg_dtype=leg_dtype)
+		alm_dtype=alm_dtype, m_degeneracy=False, leg_dtype=leg_dtype, m0=m0, rect_out=rect_out)
 
 
 def _undo_m_degeneracy(alm, lmax, mmax):
@@ -422,17 +485,18 @@ def adjoint_analysis(alm, theta, nphi, weights, phi0=0.0, lmax=None, mmax=None,
 # ---------------------------------------------------------------------------
 MCHUNK_RESAMPLE = 1024  # m-columns per resample chunk (bounds the torus buffers)
 
-def resample_theta_phase(F, variant, nt_out, spins):
+def resample_theta_phase(F, variant, nt_out, spins, *, m0=0):
 	"""Exactly resample phase coefficients F[..., ncomp, nm, nt] on a
 	full-sky CC/F1 ring grid to nt_out rings of the same variant, via the
 	torus extension in the m-domain: the phi -> phi + pi shift of the
 	southern extension is the factor (-1)^m (pixell_tpu.sht.
-	resample_theta_phase :921 by way of _resample_theta_phase_jit :948)."""
+	resample_theta_phase :921 by way of _resample_theta_phase_jit :948).
+	With m0, F's columns are m = m0 .. m0 + nm - 1 (an m block)."""
 	nm = F.shape[-2]
 	variant = variant.upper()
 	spins = tuple(int(s) for s in spins)
 	parts = [_resample_theta_phase(F[..., i0:i0+MCHUNK_RESAMPLE, :], variant,
-		int(nt_out), spins, i0) for i0 in range(0, nm, MCHUNK_RESAMPLE)]
+		int(nt_out), spins, m0 + i0) for i0 in range(0, nm, MCHUNK_RESAMPLE)]
 	return parts[0] if len(parts) == 1 else torch.cat(parts, -2)
 
 

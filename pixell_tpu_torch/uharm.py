@@ -5,19 +5,16 @@ The transforms follow the device of the map or harmonic coefficients they
 are given; hrand, quad_weights and lmap put their results on the UHT's
 device ("cuda" unless told otherwise). The construction is host work
 (geometry, numpy profiles), and so are the profile helpers (rprof2hprof,
-hprof2rprof, hprof_rpow in curved mode, the l-profiles). mesh= (multi-
-device transforms) raises NotImplementedError until the port's
-torch.distributed mesh lands (ROADMAP item 17).
+hprof2rprof, hprof_rpow in curved mode, the l-profiles). mesh= (a
+DeviceMesh, parallel.mesh) runs the curved map2harm and harm2map over
+torch.distributed, as curvedsky.map2alm / alm2map(mesh=) do; flat mode
+ignores it, as in the reference.
 """
 from __future__ import annotations
 import numpy as np
 import torch
 from . import enmap, curvedsky, utils, wcsutils
-
-
-def _no_mesh(mesh):
-	if mesh is not None:
-		raise NotImplementedError("mesh= (multi-device transforms) is not ported yet (ROADMAP item 17)")
+from .parallel import mesh as pmesh
 
 
 class UHT:
@@ -26,7 +23,7 @@ class UHT:
 	distortion by "auto" (pixell_tpu.uharm.UHT :9)."""
 	def __init__(self, shape, wcs, mode="auto", lmax=None, max_distortion=0.1, tweak=False, mesh=None, *,
 			device="cuda"):
-		_no_mesh(mesh)
+		self.mesh = pmesh.check(mesh)
 		self.shape, self.wcs = tuple(shape[-2:]), wcs
 		self.device = torch.device(device)
 		if mode == "auto":
@@ -69,12 +66,14 @@ class UHT:
 	def map2harm(self, map, spin=0):
 		if self.mode == "flat":
 			return enmap.map2harm(map, spin=np.atleast_1d(spin), normalize="phys")
-		return curvedsky.map2alm(map, ainfo=self.ainfo, lmax=self.lmax, spin=np.atleast_1d(spin))
+		return curvedsky.map2alm(map, ainfo=self.ainfo, lmax=self.lmax, spin=np.atleast_1d(spin),
+			mesh=self.mesh)
 	def harm2map(self, harm, spin=0):
 		if self.mode == "flat":
 			return enmap.harm2map(_aswcs(harm, self), spin=np.atleast_1d(spin), normalize="phys").real
 		harm = torch.as_tensor(harm)
-		return curvedsky.alm2map(harm, self._zeros(harm), ainfo=self.ainfo, spin=np.atleast_1d(spin))
+		return curvedsky.alm2map(harm, self._zeros(harm), ainfo=self.ainfo, spin=np.atleast_1d(spin),
+			mesh=self.mesh)
 	def map2harm_adjoint(self, harm, spin=0):
 		if self.mode == "flat":
 			return enmap.map2harm_adjoint(_aswcs(harm, self), spin=np.atleast_1d(spin), normalize="phys")

@@ -18,7 +18,8 @@ k-d tree). The rest is numpy: geometry, random draws and that solver's
 vectors are host work. For the distance, analysis and ephemeris slice: fwhm and AU, the time
 conversions ctime2mjd / mjd2ctime / ctime2djd, widen_box,
 find_equal_groups / find_equal_groups_fast and calc_beam_area (host
-numpy). Not ported: fence and to_device's complex split,
+numpy). For the communicators (parallel.dist, mpi): allreduce, allgather,
+allgatherv, send and recv, host numpy over any communicator. Not ported: fence and to_device's complex split,
 which worked around a remote TPU runtime; a tensor's own .to() does their
 work.
 """
@@ -592,3 +593,41 @@ def calc_beam_area(beam_profile):
 	"""The beam area in steradians from profile[{r, b}, :]."""
 	r, b = np.asarray(beam_profile)
 	return np.trapezoid(2*np.pi*np.sin(r)*b, r) if hasattr(np, "trapezoid") else np.trapz(2*np.pi*np.sin(r)*b, r)
+
+
+# ---------------------------------------------------------------------------
+# Host-data communication (pixell_tpu/utils.py:731-744, :2857-2866): numpy in
+# and out over a communicator (parallel.dist), the identity without one
+# ---------------------------------------------------------------------------
+def allreduce(a, comm=None, op=None):
+	"""allreduce of a over comm; a itself with no communicator or one rank
+	(pixell_tpu.utils.allreduce :731)."""
+	if comm is None or getattr(comm, "size", 1) == 1: return a
+	return comm.allreduce(a, op=op)
+
+def allgather(a, comm=None):
+	"""[size, ...]: a from every rank (pixell_tpu.utils.allgather :736)."""
+	if comm is None or getattr(comm, "size", 1) == 1:
+		return np.asarray(a)[None]
+	return comm.allgather(a)
+
+def allgatherv(a, comm=None, axis=0):
+	"""Every rank's a, of any length along axis, concatenated in rank order
+	(pixell_tpu.utils.allgatherv :741)."""
+	if comm is None or getattr(comm, "size", 1) == 1:
+		return np.asarray(a)
+	return comm.allgatherv(a, axis=axis)
+
+def send(a, comm, dest=0, tag=0):
+	"""Send a numpy array: its shape and dtype, then its data
+	(pixell_tpu.utils.send :2857)."""
+	a = np.ascontiguousarray(a)
+	comm.send((a.shape, a.dtype.str), dest=dest, tag=tag)
+	comm.Send(a, dest=dest, tag=tag)
+
+def recv(comm, source=0, tag=0):
+	"""The array send sent (pixell_tpu.utils.recv :2863)."""
+	shape, dtype = comm.recv(source=source, tag=tag)
+	res = np.empty(shape, dtype)
+	comm.Recv(res, source=source, tag=tag)
+	return res

@@ -15,12 +15,15 @@ is made) and wave2map moves one scale at a time to the UHT's device
 ("cuda" unless told otherwise); None or False offloads nothing.
 Not ported: the reference's automatic offload above OFFLOAD_BYTES and its
 utils.fence calls, both workarounds for a 16 GB TPU behind a remote
-runtime. mesh= raises NotImplementedError (ROADMAP item 17).
+runtime. mesh= (a DeviceMesh, parallel.mesh) runs every scale's SHT over
+torch.distributed (uharm.UHT(mesh=)); under a mesh, offload=None resolves
+to no offload, as in the reference (:222).
 """
 from __future__ import annotations
 import numpy as np
 import torch
 from . import enmap, uharm, multimap, utils, wcsutils
+from .parallel import mesh as pmesh
 
 
 class Butterworth:
@@ -148,9 +151,6 @@ class CosineNeedlet:
 	def __call__(self, i, l): return self.kernel(i, l)
 
 
-def _no_mesh(mesh):
-	if mesh is not None:
-		raise NotImplementedError("mesh= (multi-device transforms) is not ported yet (ROADMAP item 17)")
 
 
 class WaveletTransform:
@@ -159,13 +159,15 @@ class WaveletTransform:
 	offload=True keeps the scales' maps on the CPU; wave2map moves them to
 	the UHT's device. device is that of the UHT made from a geometry."""
 	def __init__(self, uht_or_geo, basis=None, ores=None, mesh=None, offload=None, *, device="cuda"):
-		_no_mesh(mesh)
+		mesh = pmesh.check(mesh)
 		if isinstance(uht_or_geo, uharm.UHT):
 			self.uht = uht_or_geo
+			if mesh is not None: self.uht.mesh = mesh
 		else:
 			shape, wcs = uht_or_geo
-			self.uht = uharm.UHT(shape, wcs, device=device)
-		self.offload = offload
+			self.uht = uharm.UHT(shape, wcs, mesh=mesh, device=device)
+		self.mesh = mesh
+		self.offload = False if (offload is None and mesh is not None) else offload
 		shape, wcs = self.uht.shape, self.uht.wcs
 		if basis is None: basis = ButterTrim()
 		lmax = self.uht.lmax
@@ -189,7 +191,7 @@ class WaveletTransform:
 				ogeo = make_wavelet_geometry(shape, wcs, hi)
 			self.geometries.append(ogeo)
 			self.uhts.append(uharm.UHT(ogeo[0], ogeo[1], mode=self.uht.mode, lmax=hi_eff,
-				device=self.uht.device))
+				mesh=mesh, device=self.uht.device))
 	@property
 	def nlevel(self): return self.basis.n
 	@property

@@ -88,14 +88,14 @@ def test_f32_launches_reach_bulk_kernel(mode, launches):
 		assert out.shape == (LMAX + 1, MMAX + 1, 6) and out.dtype == torch.float32
 		assert [c[:3] for c in launches] == [(sht_cuda.BULK_KERNELS[name], mode, False)]*2
 		for (_, _, _, args), C in zip(launches, (4, 2)):
-			assert len(args) == 18 and args[0] == C
+			assert len(args) == 19 and args[0] == C and args[18] == 0   # the whole transform: m0 = 0
 			assert args[10:15] == (LMAX + 1, MMAX + 1, len(theta), sht_cuda._planes(3), s or 0)
 			assert (args[15] != 0) == (stops is not None)
 		assert (launches[0][3][16] != 0) == dump and launches[1][3][16] == 0
 		launches.clear()
 		getattr(sht_cuda, name)(x.double(), g64, LMAX, mode)
 		assert [c[:3] for c in launches] == [(sht_cuda.BULK_F64[name], mode, True)]*2
-		assert [(len(c[3]), c[3][0]) for c in launches] == [(18, 4), (18, 2)]
+		assert [(len(c[3]), c[3][0], c[3][-1]) for c in launches] == [(19, 4, 0), (19, 2, 0)]
 
 
 def test_bulk_variants_build_from_edited_copies(tmp_path, monkeypatch):

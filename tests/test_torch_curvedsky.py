@@ -103,19 +103,31 @@ def test_alm_services():
 
 
 def test_unported_options_raise():
-	"""mesh= raises, and so does deriv=True in the general method's analysis
-	(as in the reference). The general method itself runs: forced on a
-	full-sky grid, and chosen for a plain WCS, every entry gives
-	finite output of the right shape, and the synthesis agrees with the 2d
-	path (tests/test_torch_general.py holds the rest against the
-	reference)."""
+	"""mesh= that is no DeviceMesh raises TypeError, and a one-rank gloo mesh
+	gives the one-device results (synthesis 1e-12, analysis 1e-11 of the
+	largest value; tests/test_torch_parallel_mesh.py runs 2 and 4 ranks
+	against the reference's mesh); deriv=True in the general method's
+	analysis raises NotImplementedError (as in the reference). The general
+	method itself runs: forced on a full-sky grid, and chosen for a plain
+	WCS, every entry gives finite output of the right shape, and the
+	synthesis agrees with the 2d path (tests/test_torch_general.py holds
+	the rest against the reference)."""
+	import torch_dist_worker
 	_, wcs = geometry()
 	m = enmap.zeros(SHAPE, wcs, device="cpu")
 	alm = torch.zeros(curvedsky.alm_info(lmax=LMAX).nelem, dtype=torch.complex128)
-	with pytest.raises(NotImplementedError):
+	with pytest.raises(TypeError):
 		curvedsky.alm2map(alm, m, mesh=object())
-	with pytest.raises(NotImplementedError):
+	with pytest.raises(TypeError):
 		curvedsky.map2alm(m, lmax=LMAX, mesh=object())
+	a3 = torch.from_numpy(jcurvedsky.rand_alm(np.ones(LMAX + 1)[None, None]*np.eye(3)[:, :, None], lmax=LMAX,
+		seed=6))
+	one = curvedsky.alm2map(a3, enmap.zeros((3,) + SHAPE, wcs, device="cpu"), spin=[0, 2])
+	with torch_dist_worker.one_rank_mesh() as mesh:
+		got = curvedsky.alm2map(a3, enmap.zeros((3,) + SHAPE, wcs, device="cpu"), spin=[0, 2], mesh=mesh)
+		assert rel(got.data, one.data.numpy()) <= 1e-12
+		back = curvedsky.map2alm(one, lmax=LMAX, spin=[0, 2], mesh=mesh)
+	assert rel(back, curvedsky.map2alm(one, lmax=LMAX, spin=[0, 2]).numpy()) <= 1e-11
 	with pytest.raises(NotImplementedError):
 		curvedsky.map2alm(enmap.zeros((2,) + SHAPE, wcs, device="cpu"), lmax=LMAX, deriv=True,
 			method="general")
@@ -142,7 +154,8 @@ def test_import_loads_no_jax():
 	code = ("import sys, pixell_tpu_torch, pixell_tpu_torch.curvedsky, "
 		"pixell_tpu_torch.ops.sht_cuda, pixell_tpu_torch.ops.fma_peak, pixell_tpu_torch.lensing, "
 		"pixell_tpu_torch.aberration, pixell_tpu_torch.old_aberration, pixell_tpu_torch.ops.solvers, "
-		"pixell_tpu_torch.multimap, pixell_tpu_torch.uharm, pixell_tpu_torch.wavelets, pixell_tpu_torch.pointsrcs; "
+		"pixell_tpu_torch.multimap, pixell_tpu_torch.uharm, pixell_tpu_torch.wavelets, pixell_tpu_torch.pointsrcs, "
+		"pixell_tpu_torch.parallel.sht_dist, pixell_tpu_torch.tilemap, pixell_tpu_torch.mpi, pixell_tpu_torch.mpiutils; "
 		"bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
 		"or m == 'pixell_tpu' or m.startswith('pixell_tpu.')]; "
 		"print(bad); sys.exit(1 if bad else 0)")

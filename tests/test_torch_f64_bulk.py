@@ -62,7 +62,7 @@ def test_f64_launches_reach_f64_entry(mode, launches):
 		assert [c[:3] for c in launches] == [(sht_cuda.BULK_F64[name], mode, True)]*2
 		syn = name.endswith("synthesis")
 		for (_, _, _, args), C in zip(launches, (4, 2)):
-			assert len(args) == (17 if syn else 18) and args[0] == C
+			assert len(args) == (18 if syn else 19) and args[0] == C and args[-1] == 0
 			dims = (LMAX + 1, MMAX + 1, nt) + (() if syn else (sht_cuda._planes(3),)) + (s or 0,)
 			assert args[10:10 + len(dims)] == dims
 			assert args[-3:-1] == (0, 0)   # no stop degrees, no state

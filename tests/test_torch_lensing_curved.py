@@ -15,7 +15,8 @@ CPU, with inputs made from a numpy seed:
 - banded (delta_theta) against unbanded within 1e-14: the tail band
   overlaps the one before, so each pixel is the same point evaluation;
 - every point_eval runs the same evaluation, any other value raises, mesh=
-  raises NotImplementedError;
+  that is no DeviceMesh raises TypeError, and a one-rank gloo mesh gives the
+  one-device map within 1e-10;
 - rand_alm (one seed, and phi_seed) equal to the reference's, and rand_map
   within 1e-9;
 - a non-separable (TAN) patch, banded, within 1e-9.
@@ -145,8 +146,15 @@ def test_lens_map_curved_refusals():
 	_, _, p, c = alms()
 	with pytest.raises(ValueError):
 		lensing.lens_map_curved(shape=shape, wcs=wcs, phi_alm=p, cmb_alm=c, point_eval="shift")
-	with pytest.raises(NotImplementedError):
+	with pytest.raises(TypeError):
 		lensing.lens_map_curved(shape=shape, wcs=wcs, phi_alm=p, cmb_alm=c, mesh=object())
+	# a one-rank gloo mesh gives the one-device map (1e-10 of the largest value;
+	# tests/test_torch_parallel_mesh.py runs 2 and 4 ranks)
+	import torch_dist_worker
+	want = lensing.lens_map_curved(shape=(3,) + shape, wcs=wcs, phi_alm=p, cmb_alm=c, output="l")
+	with torch_dist_worker.one_rank_mesh() as mesh:
+		got = lensing.lens_map_curved(shape=(3,) + shape, wcs=wcs, phi_alm=p, cmb_alm=c, output="l", mesh=mesh)
+	assert rel(got.data.numpy(), want.data.numpy()) <= 1e-10
 
 
 def test_rand_alm_and_rand_map():

@@ -12,7 +12,8 @@ parameters, by name and in order, and the port's own extras (device=,
 leg_dtype=) come after them and are keyword-only, so a call written for
 the reference means the same in the port. Deliberate differences of the
 config-5 modules: mesh= (UHT, WaveletTransform) and offload= are kept in
-the signatures, mesh= raises NotImplementedError (ROADMAP item 17) and
+the signatures, mesh= takes a torch.distributed DeviceMesh (the reference's
+jax Mesh; anything else raises TypeError) and
 offload=None means no offload (the reference's OFFLOAD_BYTES threshold is
 not ported); the IO of multimap and pointsrcs' FITS catalogues keep their
 signatures and raise (item 18); device= is the port's keyword-only extra

@@ -66,14 +66,14 @@ def test_f32_launches_reach_bulk_kernel(mode, launches):
 		assert out.shape == (nf, 6) + planes + (MMAX + 1, len(theta)) and out.dtype == torch.float32
 		assert [c[:3] for c in launches] == [(sht_cuda.BULK_KERNELS[name], mode, False)]*2
 		for (_, _, _, args), C in zip(launches, (4, 2)):
-			assert len(args) == 17 and args[0] == C
+			assert len(args) == 18 and args[0] == C and args[17] == 0   # the whole transform: m0 = 0
 			assert args[10:14] == (LMAX + 1, MMAX + 1, len(theta), s or 0)
 			assert (args[14] != 0) == (stops is not None)
 		assert (launches[0][3][15] != 0) == dump and launches[1][3][15] == 0
 		launches.clear()
 		getattr(sht_cuda, name)(A.double(), g64, LMAX, mode)
 		assert [c[:3] for c in launches] == [(sht_cuda.BULK_F64[name], mode, True)]*2
-		assert [(len(c[3]), c[3][0]) for c in launches] == [(17, 4), (17, 2)]
+		assert [(len(c[3]), c[3][0], c[3][-1]) for c in launches] == [(18, 4, 0), (18, 2, 0)]
 
 
 def dead_rings(lmax, seed):

@@ -13,7 +13,9 @@ value (the transforms, the port SHT tests' tolerance):
   array, which has no wcs, and raises AttributeError; the test asserts it);
 - estimate_distortion, profile2harm_flat_2d, harm2profile_flat_2d,
   res2lmax, beam2res, beam2rmax, profile2harm_flat;
-- mesh= raises NotImplementedError naming ROADMAP item 17.
+- mesh= that is no DeviceMesh raises TypeError; a one-rank gloo mesh gives
+  the one-device transforms (1e-12; tests/test_torch_parallel_mesh.py runs
+  2 and 4 ranks against the reference's mesh).
 """
 import numpy as np
 import pytest
@@ -137,6 +139,14 @@ def test_helpers():
 
 
 def test_mesh_raises():
+	import torch_dist_worker
 	shape, wcs = curved_geometry(enmap)
-	with pytest.raises(NotImplementedError, match="item 17"):
+	with pytest.raises(TypeError, match="DeviceMesh"):
 		uharm.UHT(shape, wcs, mode="curved", lmax=LMAX, mesh=object())
+	one = uharm.UHT(shape, wcs, mode="curved", lmax=LMAX, device="cpu")
+	alm = torch.from_numpy(np.random.default_rng(4).standard_normal(one.nharm) + 0j)
+	m = one.harm2map(alm)
+	with torch_dist_worker.one_rank_mesh() as mesh:
+		u = uharm.UHT(shape, wcs, mode="curved", lmax=LMAX, mesh=mesh, device="cpu")
+		assert rel(u.harm2map(alm), host(m)) <= TOL
+		assert rel(u.map2harm(m), host(one.map2harm(m))) <= TOL

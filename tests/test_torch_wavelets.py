@@ -16,7 +16,9 @@ CPU, with inputs made from a numpy seed, float64:
   holds at lmax 10000: wave2map(map2wave(m)) = harm2map(sum_i k_i^2
   map2harm(m)), within 1e-10;
 - HaarTransform within 1e-12; get_ls, get_variance_transform;
-- mesh= raises NotImplementedError naming ROADMAP item 17.
+- mesh= that is no DeviceMesh raises TypeError; a one-rank gloo mesh gives
+  the one-device decomposition (1e-10) and offload resolves to False
+  (tests/test_torch_parallel_mesh.py runs 2 and 4 ranks).
 CosineNeedlet's curved transform and the flat sky's transforms are in
 test_torch_wavelets_flat.py (each file compiles the reference's programs
 of its own scales).
@@ -212,5 +214,15 @@ def test_variance_transform_and_mesh():
 		basis=wavelets.ButterTrim(step=2))
 	vt = pt.get_variance_transform()
 	assert isinstance(vt.basis, wavelets.VarButter) and vt.nlevel == pt.nlevel
-	with pytest.raises(NotImplementedError, match="item 17"):
+	with pytest.raises(TypeError, match="DeviceMesh"):
 		wavelets.WaveletTransform((ps, pw), mesh=object(), device="cpu")
+	import torch_dist_worker
+	m = pt.uht.harm2map(torch.from_numpy(np.random.default_rng(2).standard_normal(pt.uht.nharm) + 0j))
+	want = pt.map2wave(m)
+	with torch_dist_worker.one_rank_mesh() as mesh:
+		dt = wavelets.WaveletTransform(uharm.UHT(ps, pw, mode="curved", lmax=LMAX, device="cpu"),
+			basis=wavelets.ButterTrim(step=2), mesh=mesh)
+		assert dt.offload is False
+		got = dt.map2wave(m)
+		for a, b in zip(got.maps, want.maps): assert rel(a, host(b)) <= 1e-10
+		assert rel(dt.wave2map(got), host(pt.wave2map(want))) <= 1e-10
