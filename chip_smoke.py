@@ -6,13 +6,15 @@ Run from the repository root with no arguments:
 
 It builds the hand-written kernels from pixell_tpu_torch/csrc with nvcc
 (legendre.cu once per mode, blockleg.cu once per Legendre mode, fma_peak.cu
-and nufft.cu, all compilers started together) and prints each kernel's
+and nufft.cu, all compilers started together; beside them, with g++, the
+native FITS reader pixell_tpu_torch/cpp/fitsio_core.cpp when the io phase
+runs) and prints each kernel's
 registers and spills (every float64 instantiation of the bulk kernels and
 all twelve of K10 / K11 / K12 and the ten of K13 / K14 must be built, and
 none of them may spill),
 then runs the phases below (all of them with no arguments; --phases with a
 choice of k9,kernels,lstop,slice,adjoint,blocked,timing,general,flat,interp,healpix,lensing,config5,
-analysis,mesh runs
+analysis,mesh,io runs
 those alone, for work on one phase, and gives no verdict; the phases
 "variants", 6. below, and "blkprobe" run only when named). With
 --parent DIR, a directory holding a parent tree's legendre.cu, blockleg.cu
@@ -455,6 +457,35 @@ blocked phase its blk_synthesis_kernel, the general phase its unbinned K10
    ring sets) join the kernels line: block time beside the whole launch's,
    bound, chunked torch.bmm, the plain twin's time at the check's shape,
    the mesh path's launches.
+
+15. io: maps on disk (pixell_tpu_torch.fits_io, enmap's IO, tilemap,
+   checkpoint, pointsrcs' FITS catalogues), every file in a temporary
+   directory chosen for its free bytes (printed) and removed at the end. The
+   DR6-sized band (10320 x 43200 at 0.5', dec -63 .. +23, T float32,
+   1.78 GB) made on the card, written to FITS and read back whole; read
+   delayed and sliced to a 20 x 20 degree box through the native box reader,
+   and read with box=; each read equal bit for bit to the map in memory, the
+   box reads to its submap; GB/s of the write (the copy to the host, the
+   conversion to big endian and the file), of the reads, of the native
+   reader into pinned memory alone and of the copy from there to the card
+   (CUDA events), and the box read's time as a share of the whole read's.
+   Then the SHT in between: IQU float32 on the 2160 x 4320 Fejer-1 map at
+   lmax 2000, alm2map of a seeded alm -> write_map -> read_map (equal bit
+   for bit) -> map2alm(spin=[0, 2]) (K4 on the 4032 upsampled rings in two
+   chunks, K4' in float64) -> alm2map (K1 on the 2160 symmetric rings, K3'
+   in float64) -> write_map -> read_map (equal bit for bit), the alm within
+   2e-3 of the seeded one, each SHT stage's ms in CUDA events (the path's
+   call, then a second call), the launches counted with every count set to
+   0 just before and read just after (K1 and K4 must launch). Then the same
+   map and its alm through the other writers: .npy, tilemap in 500 x 500
+   tiles, checkpoint.save_pytree / load_pytree of the alm and the map (each
+   equal bit for bit, with its GB/s), and a FITS catalogue of 10 000
+   sources written and read back (its positions as the degrees the file
+   holds give them) and painted with pointsrcs.sim_objects onto that
+   geometry, equal bit for bit to painting the catalogue it should give
+   (and its distance to the catalogue in memory printed).
+   device.get_device().memuse() before and after, and the card's name and
+   power limit beside the numbers.
 
 It prints the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and yardstick, and as the last line
@@ -6106,8 +6137,216 @@ def mesh_phase():
 	return records
 
 
+IO_LAUNCHES = {}    # launches of the io path's SHTs, by (kernel, mode, dtype)
+IO_NEED = 2.2e9     # bytes the io phase's files take at most at once
+IO_BOX = np.array([[-10, 10], [10, -10]])   # the box reads' 20 x 20 degrees (dec, ra), ra decreasing
+IO_BAND_RES = 0.5    # arcmin: the DR6-sized band's resolution
+IO_SHT_SHAPE = (2160, 4320)
+IO_LMAX = 2000
+IO_NSRC = 10000
+
+
+def io_dir():
+	"""A new temporary directory for the io phase's files, in the first
+	candidate with room for IO_NEED bytes; each candidate's free bytes
+	printed."""
+	import tempfile
+	cands = [tempfile.gettempdir(), os.path.join(ROOT, "build")]
+	for c in cands:
+		os.makedirs(c, exist_ok=True)
+		free = shutil.disk_usage(c).free
+		print("io: %s has %d bytes free (%.2f GB; needed %.2f GB)" % (c, free, free/1e9, IO_NEED/1e9))
+		if free >= 1.25*IO_NEED: return tempfile.mkdtemp(prefix="pixell_io_", dir=c)
+	raise RuntimeError("io: no directory with %.2f GB free among %s" % (1.25*IO_NEED/1e9, cands))
+
+
+def io_timed(fn):
+	"""(fn(), wall seconds) with the card synchronized before and after."""
+	torch.cuda.synchronize()
+	h0 = time.perf_counter()
+	out = fn()
+	torch.cuda.synchronize()
+	return out, time.perf_counter() - h0
+
+
+def io_rate(label, nbytes, sec, card):
+	print("io %s: %d bytes in %.6f s, %.3f GB/s (%s)" % (label, nbytes, sec, nbytes/sec/1e9, card))
+
+
+def io_same(label, got, want, failed):
+	"""got equal to want bit for bit (data, dtype, shape) and, for maps, in wcs."""
+	g, w = (x.data if hasattr(x, "wcs") else x for x in (got, want))
+	ok = g.dtype == w.dtype and g.shape == w.shape and bool(torch.equal(g, w))
+	if hasattr(want, "wcs"): ok = ok and got.wcs.to_header() == want.wcs.to_header()
+	print("io %s: equal bit for bit: %s" % (label, ok))
+	if not ok: failed.append(label)
+
+
+def io_band(d, card, failed):
+	"""The DR6-sized band: write, whole read, the box reads, and the native
+	reader and the copy to the card apart."""
+	from pixell_tpu_torch import enmap, utils
+	shape, wcs = enmap.band_geometry(np.array([-63, 23])*utils.degree, res=IO_BAND_RES*utils.arcmin)
+	gen = torch.Generator(device=DEV)
+	gen.manual_seed(23)
+	m = enmap.ndmap(torch.randn(tuple(shape), generator=gen, device=DEV, dtype=torch.float32), wcs)
+	nb = m.nbytes
+	f = os.path.join(d, "band.fits")
+	_, sec = io_timed(lambda: enmap.write_map(f, m))
+	io_rate("band %s T float32 write_map (FITS)" % (shape,), nb, sec, card)
+	for rep in range(2):
+		r, sec_whole = io_timed(lambda: enmap.read_map(f, device=DEV))
+		io_rate("band read_map whole (FITS, call %d, file warm in the page cache)" % (rep + 1), nb, sec_whole, card)
+	io_same("band whole read", r, m, failed)
+	del r
+	want = m.submap(IO_BOX*utils.degree)
+	proxy = enmap.read_map(f, delayed=True, device=DEV)
+	if not isinstance(proxy, enmap.ndmap_proxy_fits): failed.append("band delayed read: no proxy")
+	bnb = want.nbytes
+	for rep in range(2):
+		got, sec_box = io_timed(lambda: enmap.submap(proxy, IO_BOX*utils.degree))
+		io_rate("band delayed proxy sliced to the %s box (call %d)" % (tuple(want.shape), rep + 1), bnb, sec_box, card)
+	io_same("band delayed box read", got, want, failed)
+	got, sec_kw = io_timed(lambda: enmap.read_map(f, box=IO_BOX*utils.degree, device=DEV))
+	io_rate("band read_map(box=)", bnb, sec_kw, card)
+	io_same("band read_map(box=)", got, want, failed)
+	ys, xs = enmap.subinds(shape, wcs, IO_BOX*utils.degree, noflip=True).T
+	got, sec_sl = io_timed(lambda: proxy[int(ys[0]):int(ys[1]), int(xs[0]):int(xs[1])])
+	io_same("band delayed proxy slice", got, want, failed)
+	print("io band box read: %d of %d bytes (%.4f %%), %.6f s against the whole read's %.6f s: %.2f %% "
+		"of its time (%s)" % (bnb, nb, 100*bnb/nb, sec_box, sec_whole, 100*sec_box/sec_whole, card))
+	# the two halves of a whole read: the native reader into pinned memory, the copy to the card
+	host = enmap._host_buffer(shape, np.float32, DEV)
+	_, sec_nat = io_timed(lambda: proxy.proxy.read_box(0, shape[0], 0, shape[1], out=host.numpy()))
+	io_rate("band native reader into pinned memory", nb, sec_nat, card)
+	dev = torch.empty_like(m.data)
+	h2d = cuda_ms(lambda: dev.copy_(host, non_blocking=True), 5)
+	io_rate("band copy from pinned memory to the card (CUDA events, mean of 5)", nb, h2d/1e3, card)
+	io_same("band native read", dev, m.data, failed)
+	del dev, host, proxy, got, want, m
+
+
+def io_sht(d, card, failed):
+	"""IQU float32 at lmax 2000: alm2map -> disk -> map2alm -> alm2map ->
+	disk, with the launches and each SHT stage's ms. Returns (map, alm)."""
+	from pixell_tpu_torch import enmap, curvedsky
+	shape, wcs = enmap.fullsky_geometry(shape=IO_SHT_SHAPE, variant="fejer1")
+	alm = curvedsky.rand_alm(spectrum(IO_LMAX, (0, 2)), lmax=IO_LMAX, seed=5, dtype=torch.complex64, device=DEV)
+	m = curvedsky.alm2map(alm, enmap.zeros((3,) + shape, wcs, torch.float32, device=DEV), spin=[0, 2])
+	f1, f2 = os.path.join(d, "iqu.fits"), os.path.join(d, "iqu2.fits")
+	_, sec = io_timed(lambda: enmap.write_map(f1, m))
+	io_rate("IQU %s float32 write_map (FITS)" % (m.shape,), m.nbytes, sec, card)
+	r, sec = io_timed(lambda: enmap.read_map(f1, device=DEV))
+	io_rate("IQU read_map (FITS)", m.nbytes, sec, card)
+	io_same("IQU map read back", r, m, failed)
+	ms = {}
+	def stage(name, fn):
+		e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+		e0.record()
+		out = fn()
+		e1.record()
+		torch.cuda.synchronize()
+		ms.setdefault(name, []).append(e0.elapsed_time(e1))
+		return out
+	anal = lambda: curvedsky.map2alm(r, lmax=IO_LMAX, spin=[0, 2])
+	synth = lambda a: curvedsky.alm2map(a, enmap.zeros((3,) + shape, wcs, torch.float32, device=DEV), spin=[0, 2])
+	alm2 = hp_drive("io map2alm of the map read", lambda: stage("map2alm", anal),
+		hp_entries(torch.float32, [], ["full_analysis"]), IO_LAUNCHES, "io")
+	m2 = hp_drive("io alm2map", lambda: stage("alm2map", lambda: synth(alm2)),
+		hp_entries(torch.float32, ["sym_synthesis"], []), IO_LAUNCHES, "io")
+	stage("map2alm", anal); stage("alm2map", lambda: synth(alm2))
+	for name, t in ms.items():
+		print("io SHT %s lmax %d IQU float32: %.3f ms (the path's call), %.3f ms (again), CUDA events (%s)"
+			% (name, IO_LMAX, t[0], t[1], card))
+	ealm = relerr(alm2, alm)
+	print("io alm roundtrip through the disk: rel err %.3e (guard 2e-3; %s)" % (ealm, card))
+	if not (bool(torch.isfinite(m2.data).all()) and ealm <= 2e-3): failed.append("io alm roundtrip %.3e" % ealm)
+	_, sec = io_timed(lambda: enmap.write_map(f2, m2))
+	io_rate("IQU alm2map(map2alm) write_map (FITS)", m2.nbytes, sec, card)
+	r2, sec = io_timed(lambda: enmap.read_map(f2, device=DEV))
+	io_rate("IQU alm2map(map2alm) read_map (FITS)", m2.nbytes, sec, card)
+	io_same("IQU map after the SHTs read back", r2, m2, failed)
+	return m2, alm2
+
+
+def io_writers(d, m, alm, card, failed):
+	"""The map and its alm through .npy, tilemap and checkpoint; the FITS
+	catalogue painted."""
+	from pixell_tpu_torch import enmap, tilemap, checkpoint, pointsrcs, utils, bunch
+	f = os.path.join(d, "iqu.npy")
+	_, sec = io_timed(lambda: enmap.write_map(f, m))
+	io_rate("IQU write_map (.npy)", m.nbytes, sec, card)
+	r, sec = io_timed(lambda: enmap.read_map(f, wcs=m.wcs, device=DEV))
+	io_rate("IQU read_map (.npy)", m.nbytes, sec, card)
+	io_same("IQU .npy", r, m, failed)
+	tm = tilemap.from_enmap(m, (500, 500))
+	f = os.path.join(d, "tiles.fits")
+	for rep in range(2):   # the first call imports torch.distributed.tensor (to_enmap's DTensor test)
+		_, sec = io_timed(lambda: tilemap.write_map(f, tm))
+		io_rate("tilemap (500 x 500 tiles, %d active) write_map (call %d)" % (tm.nactive, rep + 1), m.nbytes, sec,
+			card)
+	t2, sec = io_timed(lambda: tilemap.read_map(f, (500, 500), device=DEV))
+	io_rate("tilemap read_map", m.nbytes, sec, card)
+	io_same("tilemap tiles", t2.data, tm.data, failed)
+	f = os.path.join(d, "state.pt")
+	tree = {"alm": alm, "map": m, "lmax": IO_LMAX}
+	nb = m.nbytes + alm.numel()*alm.element_size()
+	_, sec = io_timed(lambda: checkpoint.save_pytree(f, tree))
+	io_rate("checkpoint.save_pytree of the alm and the map", nb, sec, card)
+	back, sec = io_timed(lambda: checkpoint.load_pytree(f, device=DEV))
+	io_rate("checkpoint.load_pytree", nb, sec, card)
+	io_same("checkpoint alm", back["alm"], alm, failed)
+	io_same("checkpoint map", back["map"], m, failed)
+	if back["lmax"] != IO_LMAX: failed.append("checkpoint lmax")
+	# the catalogue
+	poss, amps, prof = c5_catalogue(IO_NSRC)
+	cat = bunch.Bunch(ra=poss[1], dec=poss[0], I=amps.astype(np.float64))
+	f = os.path.join(d, "cat.fits")
+	_, sec = io_timed(lambda: pointsrcs.write_fits_cat(f, cat))
+	rc, sec2 = io_timed(lambda: pointsrcs.read(f))
+	print("io catalogue of %d sources: write_fits_cat %.6f s, read %.6f s (%s)" % (IO_NSRC, sec, sec2, card))
+	# what a FITS catalogue in degrees gives back: the positions through degrees
+	gives = bunch.Bunch(ra=cat.ra/utils.degree*utils.degree, dec=cat.dec/utils.degree*utils.degree, I=cat.I)
+	for k in ("ra", "dec", "I"):
+		if not np.array_equal(rc[k], gives[k]): failed.append("catalogue %s read back" % k)
+	paint = lambda c: pointsrcs.sim_objects(m.shape[-2:], m.wcs, np.array([c.dec, c.ra]), c.I.astype(np.float32),
+		prof, dtype=np.float32, device=DEV)
+	pr, sec = io_timed(lambda: paint(rc))
+	io_same("catalogue painted (%.3f s; %s)" % (sec, card), pr, paint(gives), failed)
+	pm = paint(cat)
+	print("io catalogue painted against the catalogue in memory (positions %.3e rad apart at most): max abs "
+		"diff %.3e, rel %.3e (%s)" % (max(np.abs(rc.ra - cat.ra).max(), np.abs(rc.dec - cat.dec).max()),
+		float((pr.data - pm.data).abs().max()), relerr(pr.data, pm.data), card))
+
+
+def io_phase():
+	"""The io phase (15. above)."""
+	from pixell_tpu_torch import device as pdevice
+	h0 = time.perf_counter()
+	card = card_line()
+	print(card)
+	dev = pdevice.get_device()
+	print("io: %r memuse before: %d bytes (peak %d; %s)" % (dev, dev.memuse(), dev.memuse("peak"), card))
+	IO_LAUNCHES.clear()
+	failed = []
+	d = io_dir()
+	try:
+		io_band(d, card, failed)
+		print("io band done at %.1f s" % (time.perf_counter() - h0))
+		m, alm = io_sht(d, card, failed)
+		print("io SHT done at %.1f s" % (time.perf_counter() - h0))
+		io_writers(d, m, alm, card, failed)
+	finally:
+		shutil.rmtree(d)
+	print("io: %r memuse after: %d bytes (peak %d; %s)" % (dev, dev.memuse(), dev.memuse("peak"), card))
+	print("io launches: %s" % IO_LAUNCHES)
+	print(card)
+	print("io phase: %.1f s (%s)" % (time.perf_counter() - h0, card))
+	if failed: raise RuntimeError("io checks failed: %s" % failed)
+
+
 PHASES = ("k9", "kernels", "lstop", "slice", "adjoint", "blocked", "timing", "general", "flat", "interp",
-	"healpix", "lensing", "config5", "analysis", "mesh")
+	"healpix", "lensing", "config5", "analysis", "mesh", "io")
 EXTRA_PHASES = ("variants", "blkprobe")   # run only when named
 
 
@@ -6129,6 +6368,7 @@ def main():
 	sys.path.insert(0, ROOT)
 	from concurrent.futures import ThreadPoolExecutor
 	from pixell_tpu_torch.ops import sht_cuda, _build
+	from pixell_tpu_torch import fits_io
 	t_start = time.perf_counter()
 	print(card_line())
 	print("torch %s, CUDA %s, python %s" % (torch.__version__, torch.version.cuda,
@@ -6138,12 +6378,15 @@ def main():
 	parent = blk_parent = nufft_parent = None
 	if not set(phases) <= {"flat", "interp"}:   # the flat and interp paths run no hand-written kernel
 		h0 = time.perf_counter()
-		with ThreadPoolExecutor(2) as ex:   # the parent's build beside this tree's
+		with ThreadPoolExecutor(3) as ex:   # the parent's build and the native FITS reader beside this tree's
 			lib = ex.submit(sht_cuda.library)
 			parent = None if args.parent is None else ex.submit(parent_library, args.parent)
+			fits = ex.submit(fits_io._get_core) if "io" in phases else None
 			lib.result()
 			parent = parent and parent.result()
-		print("kernel build + load: %.1f s%s" % (time.perf_counter() - h0, "" if parent is None else
+			fits = fits and fits.result()
+		print("kernel build + load%s: %.1f s%s" % (" (and the native FITS reader's)" if fits else "",
+			time.perf_counter() - h0, "" if parent is None else
 			" (with the parent's %s from %s)" % (" and ".join(f for f, has in (("legendre.cu",
 			parent.has_legendre), ("blockleg.cu", parent.has_blk), ("nufft.cu", parent.has_nufft)) if has),
 			args.parent)))
@@ -6223,6 +6466,9 @@ def main():
 	if "mesh" in phases:
 		mesh_recs = mesh_phase()
 		print("phase mesh done at %.1f s" % (time.perf_counter() - t_start))
+	if "io" in phases:
+		io_phase()
+		print("phase io done at %.1f s" % (time.perf_counter() - t_start))
 	if "variants" in phases:
 		variants_phase(parent)
 		print("phase variants done at %.1f s" % (time.perf_counter() - t_start))
@@ -6258,6 +6504,7 @@ def main():
 		rec["healpix_launches"] = hp_count(rec)
 		rec["lensing_launches"] = hp_count(rec, LENS_LAUNCHES)
 		rec["config5_launches"] = hp_count(rec, C5_LAUNCHES)
+		rec["io_launches"] = hp_count(rec, IO_LAUNCHES)
 	print(card_line())
 	print(json.dumps({"kernels": records}))
 	print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,7 +16,11 @@ matched filters and source finders (analysis), ephemerides (ephem) and
 atom-graph coordinate systems (coordsys), and multi-device maps and
 transforms over torch.distributed: meshes, communicators and the ring- and
 m-sharded SHTs (parallel, mpi, mpiutils) and tiled, distributable maps
-(tilemap). Module names mirror pixell_tpu's.
+(tilemap), and maps on disk with the runtime around them: FITS through a
+native box reader built at first use (fits_io) with HDF5 and .npy maps
+(enmap's IO), devices and memory figures (device, memory), checkpoints
+(checkpoint), settings (config), sqlite databases (sqlite) and watched
+arrays (warray). Module names mirror pixell_tpu's.
 """
 __version__ = "0.1.0"
 
@@ -50,3 +54,10 @@ from . import parallel
 from . import mpi
 from . import mpiutils
 from . import tilemap
+from . import fits_io
+from . import device
+from . import memory
+from . import checkpoint
+from . import config
+from . import sqlite
+from . import warray

@@ -234,10 +234,15 @@ def rand_map(shape, wcs, ps, lmax=None, dtype=torch.float64, seed=None, spin=[0,
 		method="auto", verbose=False, *, device="cuda"):
 	"""Random realization of ps directly in map space
 	(pixell_tpu.curvedsky.rand_map :304)."""
-	if lmax is None: lmax = get_lmax_from_map(Bunch(shape=shape, wcs=wcs))
+	if lmax is None: lmax = get_lmax_from_map(Bunch2(shape, wcs))
 	cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
 	alm = rand_alm(ps, lmax=lmax, seed=seed, dtype=cdt, device=device)
 	return alm2map(alm, enmap.zeros(shape, wcs, dtype, device=device), spin=spin, method=method)
+
+class Bunch2:
+	"""A geometry as an object with .shape and .wcs, as get_lmax_from_map
+	takes a map (pixell_tpu.curvedsky.Bunch2 :314)."""
+	def __init__(self, shape, wcs): self.shape, self.wcs = shape, wcs
 
 def get_lmax_from_map(m):
 	"""Nyquist-ish lmax for a cylindrical map geometry

@@ -5,9 +5,13 @@ FFTs and harmonic transforms and the statistics run map by map there. The
 flat view concatenates the members' pixels into one tensor [*pre, npix].
 
 The reference's jax pytree hooks (tree_flatten / tree_unflatten) have no
-counterpart: a list of tensors needs none. The HDF5 / FITS IO (write_maps,
-read_maps, write_map, read_map) raises NotImplementedError until the IO
-modules are ported (ROADMAP item 18). The geometry queries (posmap,
+counterpart: a list of tensors needs none. The file IO (write_maps,
+read_maps, write_map, read_map) is the reference's HDF5 container: a group
+"map<i>" per member, its data and its wcs as "wcs_" attributes. write_map
+writes that container too, whatever its name says, as the reference's
+does, and read_map reads it whole (its selection arguments are accepted and
+ignored, as there); reads put the maps on device="cuda" unless told
+otherwise. The geometry queries (posmap,
 pixmap, lmap, modlmap, modrmap, pixsizemap) put their maps on device="cuda"
 unless told otherwise; the ndmaps methods on the members' device.
 """
@@ -127,15 +131,35 @@ def samegeos(arr, *args):
 	return arr
 
 
-def _io_not_ported(*args, **kwargs):
-	raise NotImplementedError("multimap's file IO is not ported yet: it comes with fits_io "
-		"(ROADMAP item 18)")
+def write_maps(fname, mm):
+	"""The members to an HDF5 file, a group "map<i>" each."""
+	import h5py
+	with h5py.File(fname, "w") as f:
+		for i, m in enumerate(mm.maps):
+			g = f.create_group("map%d" % i)
+			g["data"] = enmap._host_array(m)
+			for k, v in m.wcs.to_header().items():
+				g.attrs["wcs_" + k] = v
 
-def write_maps(fname, mm): _io_not_ported()
-def read_maps(fname): _io_not_ported()
-def write_map(fname, mmap, extra={}): _io_not_ported()
-def read_map(fname, sel=None, box=None, wrap="auto", mode=None, sel_threshold=10e6, verbose=False):
-	_io_not_ported()
+def read_maps(fname, *, device="cuda"):
+	"""The ndmaps an HDF5 file of write_maps holds, on device: each group an
+	enmap HDF5 map."""
+	import h5py
+	with h5py.File(fname, "r") as f:
+		names = sorted([k for k in f.keys() if k.startswith("map")], key=lambda s: int(s[3:]))
+	return ndmaps([enmap.read_hdf(fname, address=name, device=device) for name in names])
+
+def write_map(fname, mmap, extra={}):
+	"""write_maps' HDF5 container, whatever the file's name (the reference's
+	docstring says FITS, its code writes this; ROADMAP Queue 3). extra is
+	accepted and ignored, as there."""
+	write_maps(fname, mmap)
+
+def read_map(fname, sel=None, box=None, wrap="auto", mode=None, sel_threshold=10e6, verbose=False, *,
+		device="cuda"):
+	"""read_maps: the whole container (the selection arguments are accepted
+	and ignored, as in the reference)."""
+	return read_maps(fname, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,10 @@ interface, in build/pixell_tpu_torch/<hash of sources and flags>/ beside the
 package; ctypes loads it. A changed source builds into a new directory; an
 unchanged one is reused. There is no fallback: a missing nvcc or a failed
 build raises.
+
+The host libraries of pixell_tpu_torch/cpp (the native FITS reader) are built
+the same way by the host C++ compiler, one library per source, at first use
+(load_host).
 """
 from __future__ import annotations
 import ctypes
@@ -17,6 +21,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+HOST_SRC = Path(__file__).resolve().parent.parent / "cpp"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pixell_tpu_torch"
 # no --use_fast_math: the recurrence needs correctly rounded arithmetic
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -83,5 +88,37 @@ def load(csrc=CSRC):
 		(d/"build.log").write_text("\n".join(logs))
 		if failed:
 			raise RuntimeError("nvcc failed:\n%s" % failed[0][-6000:])
+		os.replace(tmp, lib)
+	return ctypes.CDLL(str(lib))
+
+
+HOST_FLAGS = ["-O3", "-fPIC", "-fopenmp", "-std=c++17", "-shared"]
+
+
+def _cxx():
+	"""g++ from the PATH (not $CXX, which may name a compiler without OpenMP)."""
+	cxx = shutil.which("g++")
+	if cxx is None:
+		raise RuntimeError("g++ not found: the pixell_tpu_torch host libraries cannot be built")
+	return cxx
+
+
+def load_host(name, src=HOST_SRC):
+	"""Build the host library of src/<name>.cpp with the host C++ compiler, if
+	needed, into build/pixell_tpu_torch/host-<hash of source and flags>/, and
+	return it as a ctypes.CDLL. A failed build raises."""
+	source = src/(name + ".cpp")
+	h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+	h.update(source.read_bytes())
+	d = BUILD_ROOT/("host-" + h.hexdigest()[:16])
+	lib = d/("lib%s.so" % name)
+	if not lib.exists():
+		d.mkdir(parents=True, exist_ok=True)
+		tmp = d/("lib%s.%d.so" % (name, os.getpid()))
+		cmd = [_cxx()] + HOST_FLAGS + ["-o", str(tmp), str(source)]
+		r = subprocess.run(cmd, capture_output=True, text=True)
+		(d/("%s.build.log" % name)).write_text(" ".join(cmd) + "\n" + r.stdout + r.stderr)
+		if r.returncode != 0:
+			raise RuntimeError("building %s failed:\n%s" % (source, r.stderr[-6000:]))
 		os.replace(tmp, lib)
 	return ctypes.CDLL(str(lib))

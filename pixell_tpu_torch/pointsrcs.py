@@ -17,16 +17,15 @@ one scatter_add.
 
 Results stay on the map's device: the transpose's amplitudes and
 radial_sum's sums are tensors there. Maps are made on device="cuda" unless
-told otherwise (or omap's). Not ported yet, and raising
-NotImplementedError: the FITS catalogue formats (read_fits_cat,
-write_fits_cat, read_dory_fits, read_fits, read_sauron_fits,
-write_sauron_fits; ROADMAP item 18). The text and HDF catalogue formats are
-ported, and sim_srcs_dist_transform, on the distance kernels (K13 / K14).
+told otherwise (or omap's). The catalogues are host numpy, in every
+format: text, HDF5 and the FITS binary tables (generic, nemo, dory,
+sauron), through fits_io. sim_srcs_dist_transform runs on the distance
+kernels (K13 / K14).
 """
 from __future__ import annotations
 import numpy as np
 import torch
-from . import enmap, utils, wcsutils, bunch as _bunch
+from . import enmap, utils, wcsutils, fits_io, bunch as _bunch
 from .bunch import Bunch
 
 
@@ -399,14 +398,13 @@ def sim_srcs(shape, wcs, srcs, beam, omap=None, dtype=np.float32, nsigma=5, rmax
 
 
 # ---------------------------------------------------------------------------
-# Catalogue IO (pixell_tpu/pointsrcs.py:391-478, 603-752): text and HDF5
+# Catalogue IO (pixell_tpu/pointsrcs.py:391-478, 603-752): text, HDF5 and
+# FITS binary tables
 # ---------------------------------------------------------------------------
-def _fits_not_ported(*args, **kwargs):
-	raise NotImplementedError("FITS catalogues are not ported yet: they come with fits_io (ROADMAP item 18)")
-
 def read(fname, format="auto", amp_factor=None):
-	"""A point-source catalogue: "simple" (text ra dec amp), "hdf"; the FITS
-	formats (fits, nemo, dory, sauron) raise until fits_io is ported."""
+	"""A point-source catalogue: "simple" (text ra dec amp), "hdf", or a
+	FITS binary table, "fits" (ra / dec columns), "nemo" (RADeg / decDeg /
+	deltaT_c), "dory" or "sauron", as read_fits_cat reads them."""
 	if format == "auto":
 		if fname.endswith(".txt") or fname.endswith(".cat"): format = "simple"
 		elif fname.endswith(".hdf") or fname.endswith(".h5"): format = "hdf"
@@ -418,8 +416,45 @@ def read(fname, format="auto", amp_factor=None):
 		return read_fits_cat(fname, format=format)
 	raise ValueError("Unknown catalog format '%s'" % format)
 
-def read_fits_cat(fname, format="fits"): _fits_not_ported()
-def write_fits_cat(fname, cat): _fits_not_ported()
+def read_fits_cat(fname, format="fits"):
+	"""A FITS binary-table catalogue as a Bunch of ra, dec (radians), I and,
+	where the table has them, Q, U and snr: nemo's columns (RADeg, decDeg,
+	deltaT_c / y_c / fixed_y_c), or ra / dec (radians if they fit, else
+	degrees) with amp / flux / flux_T / I / T."""
+	tab = fits_io.read_table(fname)
+	cols = {k.lower(): k for k in tab if not k.startswith("_")}
+	res = Bunch()
+	def get(*names):
+		for n in names:
+			if n.lower() in cols: return np.asarray(tab[cols[n.lower()]])
+		return None
+	if format == "nemo" or (format == "fits" and "radeg" in cols):
+		res.ra = get("RADeg")*utils.degree
+		res.dec = get("decDeg")*utils.degree
+		amp = get("deltaT_c", "y_c", "fixed_y_c")
+		res.I = amp if amp is not None else np.ones(len(res.ra))
+	else:
+		ra = get("ra", "ra_deg")
+		dec = get("dec", "dec_deg")
+		unit = 1.0 if (ra is not None and np.max(np.abs(ra)) <= 2*np.pi+0.1) else utils.degree
+		res.ra = ra*unit
+		res.dec = dec*unit
+		amp = get("amp", "flux", "flux_T", "I", "T")
+		res.I = amp if amp is not None else np.ones(len(res.ra))
+		for key, names in [("Q", ["Q", "flux_Q"]), ("U", ["U", "flux_U"]), ("snr", ["snr", "SNR"])]:
+			v = get(*names)
+			if v is not None: res[key] = v
+	if res.I is not None and res.I.ndim == 2:
+		res.I = res.I[:, 0]
+	return res
+
+def write_fits_cat(fname, cat):
+	"""A catalogue Bunch as a FITS binary table: ra, dec in degrees, amp, and
+	Q, U, snr where it has them."""
+	cols = dict(ra=np.asarray(cat.ra)/utils.degree, dec=np.asarray(cat.dec)/utils.degree, amp=np.asarray(cat.I))
+	for key in ["Q", "U", "snr"]:
+		if key in cat: cols[key] = np.asarray(cat[key])
+	fits_io.write_table_fits(fname, cols)
 
 def read_simple(fname):
 	"""A text catalogue: ra dec amp [amp2 amp3] in degrees and uK."""
@@ -600,7 +635,17 @@ def read_nemo(fname):
 	ocat.dec *= utils.degree
 	return ocat
 
-def read_dory_fits(fname, hdu=1): _fits_not_ported()
+def read_dory_fits(fname, hdu=1):
+	"""The dory FITS catalogue: ra, dec (radians) and I, Q, U (amp in mK, to uK)."""
+	tab = fits_io.read_table(fname, hdu=hdu)
+	d = {k.lower(): v for k, v in tab.items()}
+	ocat = np.zeros(len(d["ra"]), dtype=[("ra", "d"), ("dec", "d"), ("I", "d"), ("Q", "d"),
+		("U", "d")]).view(np.recarray)
+	ocat.ra = d["ra"]*utils.degree
+	ocat.dec = d["dec"]*utils.degree
+	amp = np.asarray(d["amp"])
+	ocat.I, ocat.Q, ocat.U = np.atleast_2d(amp.T)*1e3
+	return ocat
 
 def read_dory_txt(fname):
 	try:
@@ -613,7 +658,17 @@ def read_dory_txt(fname):
 	except (ValueError, IndexError) as e:
 		raise IOError(str(e))
 
-def read_fits(fname, hdu=1, fix=True): _fits_not_ported()
+def read_fits(fname, hdu=1, fix=True):
+	"""A FITS binary-table catalogue as a record array; with fix, nemo's
+	RADeg, decDeg, deltaT_c, err_deltaT_c renamed ra, dec, I, dI.
+	(pixell_tpu.pointsrcs.read_fits passes the table's "_header" entry on as
+	a column and raises ValueError: ROADMAP Queue 3.)"""
+	tab = {k: v for k, v in fits_io.read_table(fname, hdu=hdu).items() if not k.startswith("_")}
+	rec = np.rec.fromarrays(list(tab.values()), names=",".join(tab.keys()))
+	if fix:
+		rec = translate_dtype_keys(rec, {"RADeg": "ra", "decDeg": "dec", "deltaT_c": "I",
+			"err_deltaT_c": "dI"}).view(np.recarray)
+	return rec
 
 def format_sauron(cat):
 	"""A sauron catalogue as text."""
@@ -671,8 +726,24 @@ def read_sauron_txt(ifile, ncomp=3):
 	ocat.contam = raw[:, 1:1+nfreq]
 	return ocat
 
-def write_sauron_fits(ofile, cat): _fits_not_ported()
-def read_sauron_fits(fname): _fits_not_ported()
+def write_sauron_fits(ofile, cat):
+	"""A sauron catalogue (record array) as a FITS binary table, ra / dec in degrees."""
+	ocat = np.array(cat).view(np.recarray)
+	ocat.ra = ocat.ra/utils.degree
+	ocat.dec = ocat.dec/utils.degree
+	cols = [np.ascontiguousarray(ocat[n]) for n in ocat.dtype.names]
+	fits_io.write_table_fits(ofile, dict(zip(ocat.dtype.names, cols)))
+
+def read_sauron_fits(fname):
+	tab = fits_io.read_table(fname, hdu=1)
+	names = [k for k in tab if not k.startswith("_")]
+	dtypes = [(n, tab[n].dtype.str, tab[n].shape[1:]) if np.ndim(tab[n]) > 1 else (n, tab[n].dtype.str)
+		for n in names]
+	cat = np.zeros(len(tab[names[0]]), dtype=dtypes).view(np.recarray)
+	for n in names: cat[n] = tab[n]
+	cat.ra = cat.ra*utils.degree
+	cat.dec = cat.dec*utils.degree
+	return cat
 
 def write_sauron(ofile, cat):
 	if ofile.endswith(".fits"): write_sauron_fits(ofile, cat)

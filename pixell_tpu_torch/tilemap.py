@@ -10,8 +10,9 @@ all-gather to Replicate), and reduce is an all-reduce over the default
 process group. Splitting a map into tiles and putting it back are one pad
 and one permuted copy on the map's device.
 
-Not ported: write_map and read_map wait for fits_io (ROADMAP item 18) and
-raise NotImplementedError, as multimap's IO does.
+write_map writes the assembled map through enmap.write_map (a DTensor's
+tiles gathered first, by every rank: collective, as in the reference; rank
+0 writes), and read_map reads a map file and tiles it.
 """
 from __future__ import annotations
 import numpy as np
@@ -321,13 +322,21 @@ def tree_reduce(tmap, comm=None):
 
 
 def write_map(fname, tmap, comm=None):
-	"""Not ported: the FITS IO waits for fits_io (ROADMAP item 18)."""
-	raise NotImplementedError("tilemap.write_map needs fits_io, which is not ported yet (ROADMAP item 18)")
+	"""The TileMap written as its assembled map (missing tiles zero) by
+	enmap.write_map (pixell_tpu.tilemap.write_map :268). Collective on a
+	mesh: every rank gathers the tiles, rank 0 writes, and the ranks meet
+	after the write."""
+	full = tmap.to_enmap()
+	dist = torch.distributed.is_available() and torch.distributed.is_initialized()
+	if not dist or torch.distributed.get_rank() == 0:
+		enmap.write_map(fname, full)
+	if dist: torch.distributed.barrier()
 
 
-def read_map(fname, tile_shape=(500, 500)):
-	"""Not ported: the FITS IO waits for fits_io (ROADMAP item 18)."""
-	raise NotImplementedError("tilemap.read_map needs fits_io, which is not ported yet (ROADMAP item 18)")
+def read_map(fname, tile_shape=(500, 500), *, device="cuda"):
+	"""The map of a file, read by enmap.read_map onto device and tiled
+	(pixell_tpu.tilemap.read_map :274)."""
+	return from_enmap(enmap.read_map(fname, device=device), tile_shape=tile_shape)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 Only what the ported modules call: the angle constants, the physical
 constants T_cmb, c, h and k (aberration's Doppler modulation), nint,
 rewind/unwind for the pixel<->sky conversions, eigpow for rand_alm,
-spec2flat and array_ops, the Minres solver of curvedsky.minres_inverse,
+spec2flat and array_ops, the Minres solver of curvedsky.minres_inverse
+and the CG solver that checkpoint saves and resumes (on tensors),
 and for the flat sky split_slice / expand_slice (ndmap indexing), nditer,
 real_dtype / complex_dtype (numpy or torch dtypes), ang2rect / rect2ang /
 angdist (modrmap, extent's subgrid) and rotmatrix (coordinates' Euler
@@ -96,6 +97,69 @@ def eigpow(A, e, axes=[-2, -1], rlim=None, alim=None):
 	Ep = xp.where(mask, 0.0, sgn*Ez**e)
 	res = xp.einsum("...ij,...j,...kj->...ik", V, Ep, V)
 	return xp.moveaxis(res, (-2, -1), (ax1, ax2))
+
+
+def _vdot(a, b):
+	"""Re sum(conj(a) b) as a Python float, for tensors (on their device) or numpy."""
+	if isinstance(a, torch.Tensor): return float(torch.sum(a.conj()*b).real)
+	return float(np.sum(np.conj(np.asarray(a))*np.asarray(b)).real)
+
+
+def _copy(a):
+	return a.clone() if isinstance(a, torch.Tensor) else np.array(a)
+
+
+class CG:
+	"""Preconditioned conjugate gradients for A x = b, A (and the
+	preconditioner M) a callable (pixell_tpu.utils.CG :620): tensors stay on
+	their device, numpy arrays on the host. step() improves x; err is rz/rz0.
+	save / load keep x, r, p, rz, rz0 and i in an HDF5 file, so that a run
+	stopped and resumed gives the iterates of one run uninterrupted."""
+	def __init__(self, A, b, x0=None, M=lambda x: x, dot=None):
+		self.A = A; self.M = M
+		self.b = b
+		self.dot = _vdot if dot is None else dot
+		if x0 is None:
+			self.x = torch.zeros_like(b) if isinstance(b, torch.Tensor) else np.zeros_like(np.asarray(b))
+			self.r = _copy(b)
+		else:
+			self.x = x0
+			self.r = b - self.A(self.x)
+		self.z  = self.M(self.r)
+		self.rz = self.dot(self.r, self.z)
+		self.rz0 = float(self.rz)
+		self.p  = self.z
+		self.i  = 0
+		self.err = np.inf
+	def step(self):
+		Ap = self.A(self.p)
+		alpha = self.rz/self.dot(self.p, Ap)
+		self.x = self.x + alpha*self.p
+		self.r = self.r - alpha*Ap
+		self.z = self.M(self.r)
+		next_rz = self.dot(self.r, self.z)
+		beta = next_rz/self.rz
+		self.rz = next_rz
+		self.p = self.z + beta*self.p
+		self.i += 1
+		self.err = self.rz/self.rz0
+		return self.x
+	def save(self, fname):
+		import h5py
+		host = lambda a: a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+		with h5py.File(fname, "w") as f:
+			f["x"] = host(self.x); f["r"] = host(self.r)
+			f["p"] = host(self.p); f["rz"] = self.rz
+			f["rz0"] = self.rz0; f["i"] = self.i
+	def load(self, fname):
+		import h5py
+		back = (lambda a: torch.from_numpy(a).to(self.b.device)) if isinstance(self.b, torch.Tensor) else \
+			(lambda a: a)
+		with h5py.File(fname, "r") as f:
+			self.x = back(f["x"][()]); self.r = back(f["r"][()]); self.p = back(f["p"][()])
+			self.rz = float(f["rz"][()]); self.rz0 = float(f["rz0"][()])
+			self.i = int(f["i"][()])
+			self.z = self.M(self.r)
 
 
 class Minres:

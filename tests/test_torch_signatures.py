@@ -2,9 +2,12 @@
 .fft, .wcsutils, .powspec, .interpol, .resample, .array_ops, .healpix,
 .reproject, .coordinates, .sites, .lensing, .aberration, .old_aberration
 and .ops.solvers, .multimap, .uharm, .wavelets, .pointsrcs, .distances,
-.analysis, .ephem and .coordsys against pixell_tpu's (and that healpix,
-reproject, coordinates, sites, multimap, uharm, pointsrcs, distances,
-analysis, ephem and coordsys have every public name of the reference's modules, and
+.analysis, .ephem, .coordsys, .fits_io, .bunch, .device, .memory,
+.checkpoint, .config, .sqlite and .warray against pixell_tpu's (and that
+healpix, reproject, coordinates, sites, multimap, uharm, pointsrcs,
+distances, analysis, ephem, coordsys, fits_io, bunch, device, memory,
+checkpoint, config, sqlite, warray, curvedsky and enmap have every public
+name of the reference's modules but the ones listed as not ported, and
 fft, lensing, aberration, old_aberration, ops.solvers and wavelets every
 public function and class), and utils' czeros, RadialFourierTransform and
 crossmatch: every public name both modules define takes the reference's
@@ -15,9 +18,10 @@ config-5 modules: mesh= (UHT, WaveletTransform) and offload= are kept in
 the signatures, mesh= takes a torch.distributed DeviceMesh (the reference's
 jax Mesh; anything else raises TypeError) and
 offload=None means no offload (the reference's OFFLOAD_BYTES threshold is
-not ported); the IO of multimap and pointsrcs' FITS catalogues keep their
-signatures and raise (item 18); device= is the port's keyword-only extra
-where a result is made on a device. Then the calls themselves: map2alm
+not ported); the file IO (enmap, multimap, tilemap, pointsrcs' FITS
+catalogues, checkpoint) keeps the reference's signatures and reads onto
+device=; device= is the port's keyword-only extra where a result is made
+on a device. Then the calls themselves: map2alm
 and rand_alm with every argument by position, as the reference allows, and
 the out= and copy= arguments, held against the reference at lmax 16 in
 float64 (1e-10 of the largest value; rand_alm draws the same numpy numbers,
@@ -36,11 +40,14 @@ from pixell_tpu import curvedsky as jcurvedsky, sht as jsht, enmap as jenmap, ff
 	array_ops as jarray_ops, healpix as jhealpix, reproject as jreproject, coordinates as jcoordinates, \
 	sites as jsites, lensing as jlensing, aberration as jaberration, old_aberration as jold_aberration, \
 	multimap as jmultimap, uharm as juharm, wavelets as jwavelets, pointsrcs as jpointsrcs, utils as jutils, \
-	distances as jdistances, analysis as janalysis, ephem as jephem, coordsys as jcoordsys
+	distances as jdistances, analysis as janalysis, ephem as jephem, coordsys as jcoordsys, fits_io as jfits_io, \
+	bunch as jbunch, device as jdevice, memory as jmemory, checkpoint as jcheckpoint, config as jconfig, \
+	sqlite as jsqlite, warray as jwarray
 from pixell_tpu.ops import solvers as jsolvers
 from pixell_tpu_torch import curvedsky, sht, enmap, fft, wcsutils, powspec, interpol, resample, array_ops, \
 	healpix, reproject, coordinates, sites, lensing, aberration, old_aberration, multimap, uharm, wavelets, \
-	pointsrcs, utils, distances, analysis, ephem, coordsys
+	pointsrcs, utils, distances, analysis, ephem, coordsys, fits_io, bunch, device, memory, checkpoint, config, sqlite, \
+	warray
 from pixell_tpu_torch.ops import solvers
 
 LMAX = 16
@@ -53,7 +60,14 @@ PAIRS = {"curvedsky": (jcurvedsky, curvedsky), "sht": (jsht, sht), "enmap": (jen
 	"old_aberration": (jold_aberration, old_aberration), "solvers": (jsolvers, solvers),
 	"multimap": (jmultimap, multimap), "uharm": (juharm, uharm), "wavelets": (jwavelets, wavelets),
 	"pointsrcs": (jpointsrcs, pointsrcs), "distances": (jdistances, distances), "analysis": (janalysis, analysis),
-	"ephem": (jephem, ephem), "coordsys": (jcoordsys, coordsys)}
+	"ephem": (jephem, ephem), "coordsys": (jcoordsys, coordsys), "fits_io": (jfits_io, fits_io),
+	"bunch": (jbunch, bunch), "device": (jdevice, device), "memory": (jmemory, memory),
+	"checkpoint": (jcheckpoint, checkpoint), "config": (jconfig, config), "sqlite": (jsqlite, sqlite),
+	"warray": (jwarray, warray)}
+# public names of the reference's modules that the port leaves out on purpose (ROADMAP "Not ported";
+# enmap's are the next slice's)
+NOT_PORTED = {"device": {"donating_jit", "enable_compilation_cache"}, "curvedsky": {"SYNTH_BAND_BYTES"},
+	"enmap": {"to_flipper", "from_flipper", "posmap_old", "posmap_jax", "fix_python3", "wrapsutils_is_plain"}}
 
 
 def shared_names():
@@ -110,19 +124,27 @@ def test_the_check_covers_the_entry_points():
 		"nufft", "inufft", "nufft_adjoint", "inufft_adjoint", "shift_interp", "ndmaps", "ndmaps.flat", "from_flat",
 		"UHT", "UHT.map2harm", "UHT.harm2map", "UHT.hmul", "UHT.sum_hprof", "WaveletTransform",
 		"WaveletTransform.map2wave", "WaveletTransform.wave2map", "ButterTrim", "HaarTransform.map2wave",
-		"sim_objects", "radial_sum", "sim_srcs", "crossmatch", "cellify", "read_sauron"} <= names
+		"sim_objects", "radial_sum", "sim_srcs", "crossmatch", "cellify", "read_sauron", "read_map", "write_map",
+		"read_fits", "read_hdf", "ndmap_proxy_fits", "ndmap_proxy_fits.read", "ndmap.write", "read_helper",
+		"open_proxy", "read_table", "write_table_fits", "FitsProxy", "read_fits_cat", "save_pytree", "load_pytree",
+		"Workspace.ensure", "get_device", "read_hdf_recursive"} <= names
 
 
 @pytest.mark.parametrize("mod", ["healpix", "reproject", "coordinates", "sites", "multimap", "uharm", "pointsrcs",
-	"distances", "analysis", "ephem", "coordsys"])
+	"distances", "analysis", "ephem", "coordsys", "fits_io", "bunch", "device", "memory", "checkpoint", "config",
+	"sqlite", "warray", "curvedsky", "enmap"])
 def test_every_public_name(mod):
 	"""healpix, reproject, coordinates, sites, multimap, uharm, pointsrcs,
-	distances, analysis, ephem and coordsys have every public name of the
-	reference's modules (the not yet ported ones among them raise)."""
+	distances, analysis, ephem, coordsys, fits_io, bunch, device, memory,
+	checkpoint, config, sqlite, warray, curvedsky and enmap have every public
+	name of the reference's modules but those in NOT_PORTED, and those
+	names are absent."""
 	ref, port = PAIRS[mod]
 	public = lambda m: {n for n in dir(m) if not n.startswith("_") and not inspect.ismodule(getattr(m, n))
 		and getattr(getattr(m, n), "__module__", m.__name__) == m.__name__}
-	assert public(ref) - set(dir(port)) == set()
+	skip = NOT_PORTED.get(mod, set())
+	assert public(ref) - set(dir(port)) == skip
+	assert skip <= public(ref)
 
 
 @pytest.mark.parametrize("mod", ["fft", "lensing", "aberration", "old_aberration", "solvers", "wavelets"])

@@ -7,7 +7,8 @@ maps, and its distribution on two gloo ranks.
   (to_enmap, with_tiles, insert, map_mul, make_binop, samegeo, the
   TileView views and their writes, arithmetic) equal to the reference's
   exactly (they move numbers, they compute nothing but the products, 1e-15);
-  write_map / read_map raise NotImplementedError naming ROADMAP item 18.
+  write_map / read_map against the reference's: each reads the other's
+  file to the same tiles, and the files' bytes are equal.
 - Two ranks (tests/torch_dist_worker.py, no JAX): distribute shards the
   tile axis (each rank holds its share, the count padded to a multiple of
   the ranks, as the reference's distribute pads it), redistribute to
@@ -85,7 +86,7 @@ def test_from_to_enmap(maps, active):
 	assert same(pt.contig(), jt.contig().data)
 
 
-def test_constructors(maps):
+def test_constructors(maps, tmp_path):
 	jm, pm = maps
 	jg, pg = jtilemap.geometry(jm.shape, jm.wcs, TILE), tilemap.geometry(pm.shape, pm.wcs, TILE)
 	assert same(tilemap.zeros(pg, device="cpu"), jtilemap.zeros(jg).data)
@@ -105,9 +106,11 @@ def test_constructors(maps):
 	with pytest.raises(ValueError):
 		tilemap.from_active_tiles(ptiles[:2], pg.copy(active=[0, 1, 2]))
 	assert tilemap.samegeo(pt.data, 3, pt).geometry.nactive == pt.nactive
-	for fn in (lambda: tilemap.write_map("x.fits", pt), lambda: tilemap.read_map("x.fits")):
-		with pytest.raises(NotImplementedError, match="item 18"):
-			fn()
+	p, r = str(tmp_path/"p.fits"), str(tmp_path/"r.fits")
+	tilemap.write_map(p, fp)
+	jtilemap.write_map(r, fj)
+	assert open(p, "rb").read() == open(r, "rb").read()
+	assert same(tilemap.read_map(r, TILE, device="cpu"), jtilemap.read_map(p, TILE).data)
 
 
 def test_operations(maps):

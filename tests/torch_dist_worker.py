@@ -248,8 +248,26 @@ def case_tilemap(meshes, inp):
 	return res
 
 
+def case_tilemap_io(meshes, inp):
+	"""tilemap.write_map of a TileMap distributed over the mesh (collective:
+	rank 0 writes), then read_map on every rank; the file's name comes back
+	for the reference to read."""
+	from pixell_tpu_torch import tilemap, enmap, utils
+	shape, wcs = enmap.fullsky_geometry(res=3*utils.degree)
+	imap = enmap.ndmap(torch.from_numpy(np.random.default_rng(5).standard_normal((2,) + shape)), wcs)
+	fname = os.path.join(inp["dir"], "tilemap_io.fits")
+	dtm = tilemap.distribute(tilemap.from_enmap(imap, tile_shape=(16, 16), active=[0, 3, 5, 11]),
+		next(iter(meshes.values())))
+	tilemap.write_map(fname, dtm)
+	back = tilemap.read_map(fname, tile_shape=(16, 16), device="cpu")
+	import torch.distributed as tdist
+	sums = [torch.zeros(1, dtype=torch.float64) for _ in range(tdist.get_world_size())]
+	tdist.all_gather(sums, back.data.sum().reshape(1))
+	return {"read": _np(back.data), "rank_sums": torch.cat(sums).numpy(), "file": np.array(fname)}
+
+
 CASES = {"ring": case_ring, "m": case_m, "comm": case_comm, "curved": case_curved, "cyl": case_cyl,
-	"uharm": case_uharm, "tilemap": case_tilemap}
+	"uharm": case_uharm, "tilemap": case_tilemap, "tilemap_io": case_tilemap_io}
 
 
 def meshes_of(world):
@@ -268,6 +286,7 @@ def main(rank, world, rdv, out, cases):
 	try:
 		meshes = meshes_of(world)
 		inp = inputs()
+		inp["dir"] = os.path.dirname(out)
 		res = {}
 		for c in cases: res.update({"%s/%s" % (c, k): v for k, v in CASES[c](meshes, inp).items()})
 		if rank == 0: np.savez(out, **res)
