@@ -14,7 +14,7 @@ all twelve of K10 / K11 / K12 and the ten of K13 / K14 must be built, and
 none of them may spill),
 then runs the phases below (all of them with no arguments; --phases with a
 choice of k9,kernels,lstop,slice,adjoint,blocked,timing,general,flat,interp,healpix,lensing,config5,
-analysis,mesh,io runs
+analysis,mesh,io,plot runs
 those alone, for work on one phase, and gives no verdict; the phases
 "variants", 6. below, and "blkprobe" run only when named). With
 --parent DIR, a directory holding a parent tree's legendre.cu, blockleg.cu
@@ -378,13 +378,15 @@ blocked phase its blk_synthesis_kernel, the general phase its unbinned K10
    rad, RA in +-pi, amplitudes 0.5-2), a 2' Gaussian on 1000 radii out to
    30', sim_objects -> WaveletTransform(UHT(mode="curved", lmax=10000),
    ButterTrim(step=2)).map2wave -> wave2map (15 scales), in float32: the
-   step's ms (CUDA events, median of 2, min, max) and its stages (srcsim,
-   map2wave, wave2map), its launches (driven with the counts at 0; K1-K4
+   step's ms (CUDA events, median of 2: the driven step and one more; min,
+   max) and its stages (srcsim, map2wave, wave2map), its launches (driven
+   with the counts at 0; K1-K4
    and the near-pole passes must launch), the memory peak (under 70 GiB),
    the busy share and top ops of one profiled step (no host <-> device copy
    above 1 MB), sim_objects against its bytes bound, K2 / K4's partial
    planes (zero-fill and sum, replayed at the step's shapes) as a share of
-   the step; one float64 step (timed once, launches, peak); in each dtype
+   the step; one float64 step (the driven step timed: launches, peak, ms);
+   in each dtype
    K3 and K4 at lmax 10000 against an independent reference: a sparse alm
    (58 (l, m) pairs up to l = m = 10000) synthesised by alm2map onto the
    map's rings and held on 252 of them against a numpy direct sum of the
@@ -486,6 +488,24 @@ blocked phase its blk_synthesis_kernel, the general phase its unbinned K10
    (and its distance to the catalogue in memory printed).
    device.get_device().memuse() before and after, and the card's name and
    power limit beside the numbers.
+
+16. plot: plotting and the install benchmark (pixell_tpu_torch.scripts,
+   .enplot, .colorize, .utils, .bench). scripts.benchmark_main on the card
+   (40 float32 roundtrips of spin 0 at lmax 750 on the 900 x 1800 Fejer-1
+   map after one of warm-up) with its launches counted (K1, K2 and the
+   near-pole passes must launch), its ms a roundtrip beside PERF.md's
+   spin-0 lmax-750 f32 row. The DR6-sized band (10320 x 43200, T float32, from a seed):
+   enplot.get_color_range and enplot.map_to_color (no PIL) timed with CUDA
+   events (median of 3), the colouring against its bytes bound (4 B read
+   and 4 B written a pixel), one profiled colouring (its ops; no copy to
+   the host above 1 MB), the memory peak (under 70 GiB), and a 1024 x
+   2048 cut's range and colours equal bit for bit to the same calls on CPU
+   tensors; bench.Bench().mark around map_to_color no shorter than its CUDA
+   events. utils.FourierInterpolator on a 2160 x 4320 float64 map at 10^6
+   random positions: K12 and K10 must launch, its values at the first 10^5
+   within 1e-10 of the same call on CPU tensors at those positions, its
+   time. The kernels JSON line gives each
+   kernel's launches in these paths ("plot_launches").
 
 It prints the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and yardstick, and as the last line
@@ -4912,9 +4932,13 @@ def config5_phase():
 		print("config5 %s: first step (tables built on the host) %.1f s" % (tag, time.perf_counter() - t0))
 		torch.cuda.empty_cache()
 		torch.cuda.reset_peak_memory_stats()
-		wave, rec = c5_drive("config 5 step %s" % tag, lambda: c5_step(wt, cat, dtype, DEV), dtype)
+		marks = []
+		wave, rec = c5_drive("config 5 step %s" % tag, lambda: c5_step(wt, cat, dtype, DEV, marks), dtype)
 		torch.cuda.synchronize()
 		peak = torch.cuda.max_memory_allocated()/2**30
+		# the driven step is the first timed one
+		steps = [marks[0].elapsed_time(marks[-1])]
+		stages = [[a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]]
 		ok = tuple(rec.shape) == tuple(wt.shape) and rec.dtype == dtype and bool(torch.isfinite(rec.data).all()) \
 			and len(wave.maps) == wt.nlevel
 		print("config5 %s: output %s %s, %d wavelet maps; peak device memory %.2f GiB (bound %d)" % (tag,
@@ -4924,7 +4948,8 @@ def config5_phase():
 		recs[dtype] = rec.data
 		del wave, rec
 		torch.cuda.empty_cache()
-		steps, stages = c5_timed(wt, cat, dtype, 2 if dtype == torch.float32 else 1)
+		more, more_stages = c5_timed(wt, cat, dtype, 1 if dtype == torch.float32 else 0)
+		steps, stages = steps + more, stages + more_stages
 		med = float(np.median(steps))
 		print("config5 %s: %.3f ms a step (median of %d; min %.3f, max %.3f)" % (tag, med, len(steps), min(steps),
 			max(steps)))
@@ -6345,8 +6370,170 @@ def io_phase():
 	if failed: raise RuntimeError("io checks failed: %s" % failed)
 
 
+# ---------------------------------------------------------------------------
+# 16. plot: the install benchmark, the band's colours, Fourier interpolation
+# and Bench (scripts, enplot, colorize, utils, bench)
+# ---------------------------------------------------------------------------
+PLOT_LAUNCHES = {}                   # launches of the plot paths, by (kernel, mode or dtype, dtype or kind)
+PLOT_BAND_RES = 0.5                  # arcmin: the DR6-sized band, dec -63 .. +23
+PLOT_CUT = (1024, 2048)              # the band's cut held to the same calls on CPU tensors, bit for bit
+PLOT_FI_SHAPE = (2160, 4320)         # FourierInterpolator's map
+PLOT_FI_NPT = 1_000_000              # and its random positions
+PLOT_FI_TOL = 1e-10                  # card against CPU tensors, float64, of the largest value
+PLOT_FI_NCPU = 100_000               # the first positions, held to the same call on CPU tensors (each point's
+                                     # value is its own; all 10^6 take ~26 s on 8 CPU cores)
+PLOT_NREP = 3                        # timed calls (median)
+PLOT_TIMING_MS = (2.5407, 3.4572)    # PERF.md section 5's lmax-750 spin-0 f32 row: the timing phase's roundtrip
+
+
+def plot_events(fn, nrep=PLOT_NREP):
+	"""(last result, [ms of each of nrep calls]) with CUDA events around each call."""
+	out, ms = None, []
+	for _ in range(nrep):
+		out = None
+		e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+		e0.record()
+		out = fn()
+		e1.record()
+		torch.cuda.synchronize()
+		ms.append(e0.elapsed_time(e1))
+	return out, ms
+
+
+def plot_install_benchmark(card, failed):
+	"""scripts.benchmark_main on the card, its launches counted (K1, K2 and
+	the near-pole passes must launch)."""
+	from pixell_tpu_torch import scripts
+	elapsed = hp_drive("install benchmark (scripts.benchmark_main: warm-up + %d roundtrips)" % scripts.NROUND,
+		scripts.benchmark_main, hp_entries(torch.float32, ["sym_synthesis"], ["sym_analysis"]), PLOT_LAUNCHES,
+		"plot")
+	nrt = scripts.NROUND + 1
+	per = {k: n/nrt for k, n in PLOT_LAUNCHES.items()}
+	print("plot install benchmark: %.4f ms a roundtrip (host clock over %d, the card synchronized on either side; "
+		"%s); PERF.md section 5's spin-0 lmax-750 f32 row, the timing phase's CUDA events over the same 40 roundtrips: "
+		"%.4f-%.4f "
+		"ms (the harnesses differ: the host clock around the loop and one warm-up roundtrip here, CUDA events and "
+		"two there)" % (
+		1e3*elapsed/scripts.NROUND, scripts.NROUND, card, *PLOT_TIMING_MS))
+	print("plot install benchmark: launches a roundtrip %s" % per)
+	if not elapsed > 0: failed.append("install benchmark time %r" % elapsed)
+
+
+def plot_band(card, failed):
+	"""The DR6-sized band T float32: get_color_range and map_to_color timed
+	(CUDA events, median of PLOT_NREP) against the bytes bound (4 B read and
+	4 B written a pixel), the memory peak, and a cut of it held bit for bit
+	to the same calls on CPU tensors."""
+	from pixell_tpu_torch import enmap, enplot, utils
+	shape, wcs = enmap.band_geometry(np.array([-63, 23])*utils.degree, res=PLOT_BAND_RES*utils.arcmin)
+	gen = torch.Generator(device=DEV)
+	gen.manual_seed(26)
+	m = enmap.ndmap(torch.randn(tuple(shape), generator=gen, device=DEV, dtype=torch.float32), wcs)
+	npix = m.data.numel()
+	torch.cuda.synchronize()
+	torch.cuda.empty_cache()
+	torch.cuda.reset_peak_memory_stats()
+	crange = enplot.get_color_range(m)
+	_, ms_range = plot_events(lambda: enplot.get_color_range(m))
+	enplot.map_to_color(m, crange, "planck")   # warm-up
+	rgba, ms_color = plot_events(lambda: enplot.map_to_color(m, crange, "planck"))
+	torch.cuda.synchronize()
+	peak = torch.cuda.max_memory_allocated()/2**30
+	nbytes = npix*(4 + 4)
+	bound = 1e3*nbytes/PEAK_BYTES
+	ok = tuple(rgba.shape) == (4,) + tuple(shape) and rgba.dtype == torch.uint8 and bool((rgba[3] == 255).all())
+	med_r, med_c = float(np.median(ms_range)), float(np.median(ms_color))
+	print("plot band %s T float32 (%d pixels): get_color_range %.3f ms (median of %d; min %.3f, max %.3f), range "
+		"[%.17g, %.17g]; map_to_color %.3f ms (median of %d; min %.3f, max %.3f) against its bytes bound %.3f ms "
+		"(4 B read and 4 B written a pixel, %.3f GB over %.2f TB/s; %.2f %% of it reached); output %s %s, every "
+		"pixel opaque: %s; memory peak %.2f GiB (bound %d) (%s)" % (tuple(shape), npix, med_r, len(ms_range),
+		min(ms_range), max(ms_range), crange[0], crange[1], med_c, len(ms_color), min(ms_color), max(ms_color), bound,
+		nbytes/1e9, PEAK_BYTES/1e12, 100*bound/med_c, tuple(rgba.shape), rgba.dtype, ok, peak, FLAT_MEM_GIB, card))
+	if not ok: failed.append("plot band colours of the wrong shape or not opaque")
+	if not peak < FLAT_MEM_GIB: failed.append("plot band peak %.2f GiB" % peak)
+	# by op, and no copy to the host above 1 MB: the map stays on the card
+	flat_profile(lambda: enplot.map_to_color(m, crange, "planck"), 8, "plot band map_to_color")
+	# the cut, card against CPU tensors
+	r0, c0 = shape[0]//3, shape[1]//2
+	cut = m[r0:r0+PLOT_CUT[0], c0:c0+PLOT_CUT[1]]
+	cpu = enmap.ndmap(cut.data.cpu(), cut.wcs)
+	cr_dev, cr_cpu = enplot.get_color_range(cut), enplot.get_color_range(cpu)
+	col_dev, col_cpu = enplot.map_to_color(cut, cr_dev, "planck").cpu(), enplot.map_to_color(cpu, cr_cpu, "planck")
+	same = np.array_equal(cr_dev, cr_cpu) and torch.equal(col_dev, col_cpu)
+	print("plot band cut %s: colour range and colours on the card equal bit for bit to CPU tensors': %s "
+		"(range %r; %d of %d bytes differ)" % (PLOT_CUT, same, cr_dev.tolist(), int((col_dev != col_cpu).sum()),
+		col_cpu.numel()))
+	if not same: failed.append("plot band cut: card and CPU colours differ")
+	return m, crange
+
+
+def plot_fourier(card, failed):
+	"""utils.FourierInterpolator on a float64 map at PLOT_FI_NPT random
+	pixel positions: K12 and K10 must launch; its values at the first
+	PLOT_FI_NCPU positions against the same call on CPU tensors at those;
+	its time (CUDA events, median of PLOT_NREP)."""
+	from pixell_tpu_torch import utils
+	rng = np.random.default_rng(27)
+	ny, nx = PLOT_FI_SHAPE
+	data = torch.from_numpy(rng.standard_normal(PLOT_FI_SHAPE)).to(DEV)
+	pix = np.array([rng.uniform(0, ny, PLOT_FI_NPT), rng.uniform(0, nx, PLOT_FI_NPT)])
+	fi = utils.FourierInterpolator(data)
+	v = hp_drive("FourierInterpolator (%d x %d float64, %d positions)" % (ny, nx, PLOT_FI_NPT), lambda: fi(pix),
+		["tile_keys", "u2nu_points"], PLOT_LAUNCHES, "plot")
+	_, ms = plot_events(lambda: fi(pix))
+	h0 = time.perf_counter()
+	ref = utils.FourierInterpolator(data.cpu())(pix[:, :PLOT_FI_NCPU])
+	sec = time.perf_counter() - h0
+	err = relerr(v[:PLOT_FI_NCPU].cpu(), ref)
+	ok = tuple(v.shape) == (PLOT_FI_NPT,) and v.dtype == torch.float64 and bool(torch.isfinite(v).all()) \
+		and err <= PLOT_FI_TOL
+	print("plot FourierInterpolator: %.3f ms a call (median of %d; min %.3f, max %.3f; CUDA events, the positions "
+		"copied from the host each call); its first %d values against the same call on CPU tensors at those "
+		"positions (%.1f s) rel err %.3e (bound %.0e) %s (%s)" % (float(np.median(ms)), len(ms), min(ms), max(ms),
+		PLOT_FI_NCPU, sec, err, PLOT_FI_TOL, "ok" if ok else "FAIL", card))
+	if not ok: failed.append("plot FourierInterpolator %.3e" % err)
+
+
+def plot_bench_timer(m, crange, failed):
+	"""bench.Bench().mark around a card call takes no less than the call's
+	CUDA-event time."""
+	from pixell_tpu_torch import bench, enplot
+	b = bench.Bench()
+	e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+	with b.mark("map_to_color"):
+		e0.record()
+		enplot.map_to_color(m, crange, "planck")
+		e1.record()
+	torch.cuda.synchronize()
+	ev = e0.elapsed_time(e1)
+	ok = b.n["map_to_color"] == 1 and 1e3*b.t["map_to_color"] >= ev
+	print("plot bench: Bench().mark %.3f ms around a call of %.3f ms in CUDA events %s" % (1e3*b.t["map_to_color"],
+		ev, "ok" if ok else "FAIL"))
+	if not ok: failed.append("plot bench: mark shorter than the call")
+
+
+def plot_phase():
+	"""The plot phase (16. above)."""
+	h0 = time.perf_counter()
+	card = card_line()
+	print(card)
+	PLOT_LAUNCHES.clear()
+	failed = []
+	plot_install_benchmark(card, failed)
+	print("plot install benchmark done at %.1f s" % (time.perf_counter() - h0))
+	m, crange = plot_band(card, failed)
+	print("plot band done at %.1f s" % (time.perf_counter() - h0))
+	plot_bench_timer(m, crange, failed)
+	del m
+	torch.cuda.empty_cache()
+	plot_fourier(card, failed)
+	print("plot launches in all its paths (each driven with the counts at 0): %s" % PLOT_LAUNCHES)
+	print("plot phase: %.1f s (%s)" % (time.perf_counter() - h0, card))
+	if failed: raise RuntimeError("plot checks failed: %s" % failed)
+
+
 PHASES = ("k9", "kernels", "lstop", "slice", "adjoint", "blocked", "timing", "general", "flat", "interp",
-	"healpix", "lensing", "config5", "analysis", "mesh", "io")
+	"healpix", "lensing", "config5", "analysis", "mesh", "io", "plot")
 EXTRA_PHASES = ("variants", "blkprobe")   # run only when named
 
 
@@ -6469,6 +6656,9 @@ def main():
 	if "io" in phases:
 		io_phase()
 		print("phase io done at %.1f s" % (time.perf_counter() - t_start))
+	if "plot" in phases:
+		plot_phase()
+		print("phase plot done at %.1f s" % (time.perf_counter() - t_start))
 	if "variants" in phases:
 		variants_phase(parent)
 		print("phase variants done at %.1f s" % (time.perf_counter() - t_start))
@@ -6505,6 +6695,7 @@ def main():
 		rec["lensing_launches"] = hp_count(rec, LENS_LAUNCHES)
 		rec["config5_launches"] = hp_count(rec, C5_LAUNCHES)
 		rec["io_launches"] = hp_count(rec, IO_LAUNCHES)
+		rec["plot_launches"] = hp_count(rec, PLOT_LAUNCHES)
 	print(card_line())
 	print(json.dumps({"kernels": records}))
 	print(json.dumps({"ok": True, "device": {"platform": "gpu",

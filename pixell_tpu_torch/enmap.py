@@ -295,6 +295,8 @@ class ndmap:
 	def fillbad(self, val=0, inplace=False): return fillbad(self, val=val, inplace=inplace)
 	def to_healpix(self, nside=0, order=3, omap=None, chunk=100000, destroy_input=False):
 		return to_healpix(self, nside=nside, order=order)
+	def to_flipper(self, omap=None, unpack=True):
+		return to_flipper(self, omap=omap, unpack=unpack)
 	def distance_from(self, points, omap=None, odomains=None, domains=False, method="auto", rmax=None,
 			step=1024):
 		return distance_from(self.shape, self.wcs, points, omap=omap, odomains=odomains, domains=domains,
@@ -570,6 +572,21 @@ def posmap(shape, wcs, safe=True, corner=False, separable="auto", dtype=np.float
 	else:
 		res = torch.from_numpy(_posmap_np(shape, wcs, safe, corner, separable)).to(device=device, dtype=dt)
 	return ndmap(res, wcs)
+
+
+def posmap_old(shape, wcs, safe=True, corner=False, *, device="cuda"):
+	"""posmap (pixell_tpu.enmap.posmap_old)."""
+	return posmap(shape, wcs, safe=safe, corner=corner, device=device)
+
+
+def posmap_jax(shape, wcs, safe=True, corner=False, dtype=np.float64, *, device="cuda"):
+	"""The separable posmap [{dec, ra}, ny, nx] broadcast on device from the
+	pixel axes (their coordinates unwound, safe=False, whatever safe says, as
+	pixell_tpu.enmap.posmap_jax :479, the form traced under jit there)."""
+	dt = _torch_dtype(dtype)
+	dec, ra = (torch.from_numpy(np.asarray(a, np.float64)).to(device=device, dtype=dt)
+		for a in posaxes(shape, wcs, safe=False, corner=corner))
+	return ndmap(torch.stack(torch.broadcast_tensors(dec[:, None], ra[None, :])), wcs)
 
 
 def pixmap(shape, wcs=None, *, device="cuda"):
@@ -2158,6 +2175,38 @@ def _sky2pix_on(shape, wcs, pos, safe=True):
 	y = v/float(wcs.wcs.cdelt[1]) + float(wcs.wcs.crpix[1]) - 1
 	if safe: x = utils.rewind(x, shape[-1]/2., abs(360./wcs.wcs.cdelt[0]))
 	return torch.stack([y, x])
+
+
+# ---------------------------------------------------------------------------
+# flipper interop (pixell_tpu/enmap.py:2200-2218), small helpers (:930, :2239)
+# ---------------------------------------------------------------------------
+def to_flipper(imap, omap=None, unpack=True):
+	"""The map as flipper liteMaps, one per field (pixell_tpu.enmap.
+	to_flipper); needs the flipper package, and raises ImportError without
+	it. The fields are copied to the host."""
+	import flipper.liteMap
+	arr = imap.data.detach().cpu().numpy() if isinstance(imap, ndmap) else np.asarray(imap)
+	res = []
+	for sub in arr.reshape((-1,) + arr.shape[-2:]):
+		res.append(flipper.liteMap.liteMapFromDataAndWCS(sub, imap.wcs))
+	res = np.array(res, object).reshape(arr.shape[:-2])
+	return res if unpack and res.ndim else res.reshape(-1)[0]
+
+def from_flipper(imap, omap=None, *, device="cuda"):
+	"""A map on device from flipper liteMap(s): their data stacked, the
+	first one's wcs (pixell_tpu.enmap.from_flipper)."""
+	imap = np.asarray(imap, object)
+	first = imap.reshape(-1)[0]
+	data = np.array([np.asarray(m.data) for m in imap.reshape(-1)])
+	data = data.reshape(imap.shape + data.shape[-2:])
+	return ndmap(torch.as_tensor(data, device=device), first.wcs)
+
+def wrapsutils_is_plain(wcs):
+	return wcsutils.is_plain(wcs)
+
+def fix_python3(s):
+	"""bytes decoded to str; anything else as it is."""
+	return s.decode() if isinstance(s, bytes) else s
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,21 @@ def _np_dtype(dtype):
 	return np.float64 if dtype == torch.float64 else np.float32
 
 
+def seed_log(mmax, dtype=np.float64):
+	"""(log(|lambda_mm| / sin^m(theta)), the (-1)^m sign) for m = 0..mmax,
+	host numpy: lambda_mm = (-1)^m sqrt((2m+1)/(4pi)) sqrt((2m-1)!!/(2m)!!)
+	sin^m (pixell_tpu.ops.sht_core.seed_log :63). The plain scans build
+	their seeds in scaled form (scaled_seeds) instead."""
+	m = np.arange(mmax+1, dtype=np.float64)
+	ratio = np.zeros(mmax+1)
+	if mmax >= 1:
+		k = np.arange(1, mmax+1, dtype=np.float64)
+		ratio[1:] = np.cumsum(np.log((2*k-1)/(2*k)))
+	logc = 0.5*(np.log(2*m+1) - np.log(4*np.pi)) + 0.5*ratio
+	sign = np.where(m.astype(int) % 2 == 0, 1.0, -1.0)
+	return logc.astype(dtype), sign.astype(dtype)
+
+
 def check_mode(mode):
 	if mode not in MODES:
 		raise ValueError("unknown Legendre mode '%s'" % mode)

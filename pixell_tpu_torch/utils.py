@@ -28,14 +28,56 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-degree = np.pi/180
-arcmin = degree/60
-T_cmb = 2.7255          # K
-c = 299792458.0         # m/s
-h = 6.62607004e-34      # J s
-k = 1.38064853e-23      # J/K
-fwhm = 1.0/(8*np.log(2))**0.5   # sigma per FWHM
-AU = 149597870700.0     # m
+# ---------------------------------------------------------------------------
+# Constants (pixell_tpu/utils.py:17-60), the same values: SI units, angles in
+# radians
+# ---------------------------------------------------------------------------
+degree  = np.pi/180
+arcmin  = degree/60
+arcsec  = arcmin/60
+fwhm    = 1.0/(8*np.log(2))**0.5   # sigma per FWHM
+T_cmb   = 2.7255
+c       = 299792458.0
+h       = 6.62607004e-34
+k       = 1.38064853e-23
+e       = 1.60217662e-19
+G       = 6.67430e-11
+sb      = 5.670374419e-8
+day2sec = 86400.
+yr2days = 365.2422
+minute  = 60.
+hour    = 3600.
+day     = 24*hour
+yr      = yr2days*day
+ly      = c*yr
+AU      = 149597870700.0
+pc      = AU/arcsec
+Jy      = 1e-26
+hbar    = h/(2*np.pi)
+sigma_T  = 6.6524587158e-29
+sigma_sb = sb
+m_e     = 9.1093837015e-31
+m_p     = 1.6726219237e-27
+m_n     = 1.6749274980e-27
+# radii, masses and orbit radii of the solar system's bodies
+R_sun     = 695700e3  ; M_sun     = 1.9885e30   ; r_sun     =  29e3*ly; L_sun = 3.827e26
+R_mercury = 2439.5e3  ; M_mercury = 0.330e24    ; r_mercury =  57.9e9
+R_venus   = 6052e3    ; M_venus   = 4.87e24     ; r_venus   = 108.2e9
+R_earth   = 6378.1e3  ; M_earth   = 5.9722e24   ; r_earth   = 149.6e9
+R_moon    = 1737.5e3  ; M_moon    = 0.073e24    ; r_moon    =   0.384e9
+R_mars    = 3396e3    ; M_mars    = 0.642e24    ; r_mars    = 227.9e9
+R_jupiter = 71492e3   ; M_jupiter = 1898e24     ; r_jupiter = 778.6e9
+R_saturn  = 60268e3   ; M_saturn  = 568e24      ; r_saturn  = 1433.5e9
+R_uranus  = 25559e3   ; M_uranus  = 86.8e24     ; r_uranus  = 2872.5e9
+R_neptune = 24764e3   ; M_neptune = 102e24      ; r_neptune = 4495.1e9
+R_pluto   = 1185e3    ; M_pluto   = 0.0146e24   ; r_pluto   = 5906.4e9
+r_l1 = R_earth - 1.4916e9
+r_L2 = R_earth + 1.5016e9
+# the units as 0-d arrays, which coerce what they multiply to arrays
+a    = np.array(1.0)
+adeg = np.array(degree)
+amin = np.array(arcmin)
+asec = np.array(arcsec)
 
 
 def nint(a):
@@ -53,9 +95,9 @@ def rewind(a, ref=0, period=2*np.pi):
 	return ref + (a - ref + period/2) % period - period/2
 
 
-def unwind(a, period=2*np.pi, axes=[-1], ref=None, refmode="left"):
+def unwind(a, period=2*np.pi, axes=[-1], ref=None, refmode="left", mask_nan=False):
 	"""Remove period jumps along axes so the result is continuous
-	(pixell_tpu.utils.unwind)."""
+	(pixell_tpu.utils.unwind; mask_nan is accepted and ignored, as there)."""
 	a = np.asarray(a).astype(float)
 	for ax in axes:
 		a = np.moveaxis(a, ax, -1)
@@ -290,25 +332,29 @@ def angdist(a, b, zenith=False, axis=0):
 	return np.arctan2(y, x)
 
 
-def rotmatrix(ang, raxis):
+def rotmatrix(ang, raxis, xp=np):
 	"""The rotation matrix [..., 3, 3] by ang about axis "x", "y" or "z"
-	(pixell_tpu.utils.rotmatrix), numpy float64."""
-	ang = np.asarray(ang)
-	c_, s_ = np.cos(ang), np.sin(ang)
-	one, zero = np.ones_like(c_), np.zeros_like(c_)
+	(pixell_tpu.utils.rotmatrix): numpy float64, or with xp=torch a tensor
+	on ang's device."""
+	ang = xp.asarray(ang)
+	c_, s_ = xp.cos(ang), xp.sin(ang)
+	one, zero = xp.ones_like(c_), xp.zeros_like(c_)
 	raxis = raxis.lower()
 	if   raxis == "x": rows = [[one, zero, zero], [zero, c_, -s_], [zero, s_, c_]]
 	elif raxis == "y": rows = [[c_, zero, s_], [zero, one, zero], [-s_, zero, c_]]
 	elif raxis == "z": rows = [[c_, -s_, zero], [s_, c_, zero], [zero, zero, one]]
 	else: raise ValueError("Rotation axis %s not recognized" % raxis)
-	return np.stack([np.stack(r, -1) for r in rows], -2)
+	return xp.stack([xp.stack(r, -1) for r in rows], -2)
 
 
-def interp(x, xp, fp, left=None, right=None):
-	"""np.interp(x, xp, fp, left, right) on x's device (xp and fp float
-	tensors there): fp[0] (or left) below xp[0], fp[-1] (or right) above
-	xp[-1], linear between, as numpy computes it (the slope of the
-	interval times the offset into it, plus its left value)."""
+def interp(x, xp_, fp, *, left=None, right=None):
+	"""np.interp(x, xp_, fp, left, right) (pixell_tpu.utils.interp): for a
+	tensor x on its device (xp_ and fp float tensors there): fp[0] (or left)
+	below xp_[0], fp[-1] (or right) above xp_[-1], linear between, as numpy
+	computes it (the slope of the interval times the offset into it, plus
+	its left value); anything else by numpy."""
+	if not isinstance(x, torch.Tensor): return np.interp(x, xp_, fp, left, right)
+	xp = xp_
 	j = (torch.searchsorted(xp, x.contiguous(), right=True) - 1).clamp(0, xp.shape[0] - 2)
 	res = (fp[j+1] - fp[j])/(xp[j+1] - xp[j])*(x - xp[j]) + fp[j]
 	res = torch.where(x == xp[-1], fp[-1], res)
@@ -695,3 +741,427 @@ def recv(comm, source=0, tag=0):
 	res = np.empty(shape, dtype)
 	comm.Recv(res, source=source, tag=tag)
 	return res
+
+
+# ---------------------------------------------------------------------------
+# The device and small helpers (pixell_tpu/utils.py:96-190). A tensor stays on
+# its device; where the reference picks jnp or numpy (_xp), a tensor goes
+# through torch and anything else through numpy.
+# ---------------------------------------------------------------------------
+def _xp(*args):
+	"""torch if any argument is a tensor, else numpy (pixell_tpu.utils._xp)."""
+	return torch if any(isinstance(x, torch.Tensor) for x in args) else np
+
+
+def _torch_dtype(dtype):
+	if dtype is None or isinstance(dtype, torch.dtype): return dtype
+	return torch.from_numpy(np.zeros(0, dtype)).dtype
+
+
+def to_device(x, dtype=None, *, device="cuda"):
+	"""x as a tensor on device, in dtype (numpy or torch) if given
+	(pixell_tpu.utils.to_device :96, without its separate transfer of a
+	complex array's real and imaginary parts, which a remote TPU runtime
+	needed)."""
+	if isinstance(x, torch.Tensor): out = x.to(device)
+	else: out = torch.as_tensor(np.asarray(x), device=device)
+	return out if dtype is None else out.to(_torch_dtype(dtype))
+
+
+def from_device(x):
+	"""x as a numpy array on the host (pixell_tpu.utils.from_device :145)."""
+	if isinstance(x, torch.Tensor): return x.detach().resolve_conj().cpu().numpy()
+	return np.asarray(x)
+
+
+def ceil(a):  return int(np.ceil(a))
+def floor(a): return int(np.floor(a))
+
+
+def first_importable(*args):
+	"""The first of the module names given that imports, or None."""
+	for name in args:
+		try:
+			__import__(name)
+			return name
+		except ImportError:
+			continue
+	return None
+
+
+def cumsum(a, endpoint=False):
+	"""The exclusive cumulative sum [0, a0, a0+a1, ...], with the total at
+	the end if endpoint."""
+	res = np.concatenate([[0], np.cumsum(a)])
+	return res if endpoint else res[:-1]
+
+
+def between_angles(a, range, period=2*np.pi):
+	"""Whether the angles a lie in [range[0], range[1]), modulo period."""
+	a = rewind(a, ref=np.mean(range), period=period)
+	return (a >= range[0]) & (a < range[1])
+
+
+# ---------------------------------------------------------------------------
+# Binning (pixell_tpu/utils.py:314-355), host numpy
+# ---------------------------------------------------------------------------
+def linbin(n, nbin=None, nmin=None, bsize=None):
+	"""Linear bin edges [nbin, {from, to}] for data of length n."""
+	if bsize is None:
+		if nbin is None: nbin = int(np.round(n**0.5))
+		bsize = n/nbin
+	if nmin is not None: bsize = max(bsize, nmin)
+	nbin  = int(np.ceil(n/bsize))
+	edges = np.arange(nbin+1)*bsize
+	return np.stack([edges[:-1], edges[1:]], -1).astype(int)
+
+
+def expbin(n, nbin=None, nmin=8, nmax=0):
+	"""Exponentially growing bin edges [nbin, {from, to}], bins narrower
+	than nmin merged into the next, those wider than nmax (if given)
+	dropped."""
+	if nbin is None: nbin = int(np.round(n**0.5))
+	edges = np.exp(np.linspace(0, np.log(n), nbin+1))
+	edges = np.unique(np.maximum(nint(edges)-1, 0))
+	res = np.stack([edges[:-1], edges[1:]], -1)
+	if nmin:
+		keep = []
+		last = 0
+		for i in range(len(res)):
+			if res[i, 1]-last >= nmin or i == len(res)-1:
+				keep.append((last, res[i, 1])); last = res[i, 1]
+		res = np.array(keep)
+	if nmax:
+		res = res[res[:, 1]-res[:, 0] <= nmax]
+	return res
+
+
+def bin_data(bins, d, op=np.mean):
+	"""op of the last axis of d over each of bins [nbin, {from, to}]."""
+	d  = np.asarray(d)
+	res = np.empty(d.shape[:-1] + (len(bins),), d.dtype)
+	for bi, b in enumerate(bins):
+		res[..., bi] = op(d[..., b[0]:b[1]], -1)
+	return res
+
+
+def interpol(a, inds, order=3, mode="nearest", cval=0.0, prefilter=True):
+	"""a interpolated at the fractional indices inds [ndim, ...] by
+	interpol.map_coordinates with border=mode (pixell_tpu.utils.interpol
+	:343), which keeps a tensor on its device and takes host data to the CPU."""
+	from . import interpol as _ip
+	return _ip.map_coordinates(a, inds, order=order, border=mode, cval=cval, prefilter=prefilter)
+
+
+# ---------------------------------------------------------------------------
+# Beams, spectra and solving (pixell_tpu/utils.py:360-476)
+# ---------------------------------------------------------------------------
+def gauss_beam(l, fwhm_rad):
+	"""The harmonic Gaussian beam b(l) of the given FWHM in radians."""
+	xp = _xp(l)
+	sigma = fwhm_rad*fwhm
+	return xp.exp(-0.5*l*(l+1)*sigma**2)
+
+
+def compress_beam(sigma, phi):
+	"""An elliptical beam's (sigma_x, sigma_y) and angle phi as its three
+	independent inverse-covariance entries."""
+	c = np.cos(2*phi); s = np.sin(2*phi)
+	sx, sy = sigma
+	return np.array([sx**2*c**2+sy**2*s**2, sx**2*s**2+sy**2*c**2, (sx**2-sy**2)*c*s])
+
+
+def expand_beam(irads, return_V=False):
+	"""The inverse of compress_beam: (sigma, phi), and the eigenvectors V
+	with return_V."""
+	C = np.array([[irads[0], irads[2]], [irads[2], irads[1]]])
+	E, V = np.linalg.eigh(C)
+	phi = np.arctan2(V[1, 1], V[0, 1])
+	sigma = E[::-1]**0.5
+	if return_V: return sigma, phi, V
+	return sigma, phi
+
+
+def regularize_beam(bl, cutoff=0.01, nl=None, normalize=False):
+	"""The beam b(l) with its tail below cutoff continued at the constant
+	logarithmic slope of the two degrees before it, so that dividing by it
+	is safe; nl degrees (the last value repeated past the input)."""
+	bl = np.asarray(bl, float)
+	if normalize: bl = bl/bl[0]
+	if nl is None: nl = len(bl)
+	res = np.empty(nl)
+	n   = min(len(bl), nl)
+	res[:n] = bl[:n]
+	if nl > len(bl): res[len(bl):] = bl[-1]
+	below = np.where(res < cutoff)[0]
+	if len(below) > 0:
+		i0 = below[0]
+		if i0 > 1:
+			slope = np.log(res[i0-1]/res[i0-2])
+			l = np.arange(nl-i0)+1
+			res[i0:] = res[i0-1]*np.exp(slope*l)
+		else:
+			res[:] = np.maximum(res, cutoff)
+	return res
+
+
+def solve(A, b, axes=[0, 1], masked=False):
+	"""x with A x = b, A possibly singular (its pseudo-inverse by eigpow):
+	tensors on their device, numpy on the host."""
+	xp = _xp(A, b)
+	iA = eigpow(A, -1, axes=axes)
+	ax1, ax2 = axes
+	return xp.einsum("...ij,...j->...i",
+		xp.moveaxis(iA, (ax1 % iA.ndim, ax2 % iA.ndim), (-2, -1)),
+		xp.moveaxis(b, ax1 % b.ndim, -1))
+
+
+def planck(f, T=T_cmb):
+	"""The Planck spectral radiance B(f, T) [W/sr/m^2/Hz]."""
+	xp = _xp(f, T)
+	return 2*h*f**3/c**2/(xp.exp(h*f/(k*T))-1)
+
+
+def dplanck(f, T=T_cmb):
+	"""dB/dT of the Planck spectrum."""
+	xp = _xp(f, T)
+	x = h*f/(k*T)
+	return 2*h**2*f**4/(c**2*k*T**2)*xp.exp(x)/(xp.exp(x)-1)**2
+
+
+def graybody(f, T=10.0, beta=1.0):
+	return f**beta*planck(f, T)
+
+
+def blackbody(f, T=T_cmb):
+	return planck(f, T)
+
+
+def tsz_spectrum(f, T=T_cmb):
+	"""The thermal SZ frequency dependence in spectral radiance units."""
+	xp = _xp(f)
+	x  = h*f/(k*T)
+	return dplanck(f, T)*T*(x*(xp.exp(x)+1)/(xp.exp(x)-1) - 4)
+
+
+def flux_factor(beam_area, freq, T0=T_cmb):
+	"""The conversion from uK to mJy for a beam solid angle and frequency."""
+	return dplanck(freq, T0)*1e-6*beam_area*1e26*1e3
+
+
+def fix_dtype(dtype):
+	"""dtype as a numpy dtype; a torch dtype is returned as it is."""
+	return dtype if isinstance(dtype, torch.dtype) else np.dtype(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Printing (pixell_tpu/utils.py:716-739)
+# ---------------------------------------------------------------------------
+class Printer:
+	"""Writes to stderr what is at or below its level (exactly at it with
+	exact), behind its prefix; push adds to the prefix, time() times a
+	block and writes the seconds with the description."""
+	def __init__(self, level=1, prefix=""):
+		self.level = level; self.prefix = prefix
+	def write(self, desc, level=1, exact=False, newline=True):
+		if level == self.level or (not exact and level <= self.level):
+			import sys
+			sys.stderr.write("%s%s%s" % (self.prefix, desc, "\n" if newline else ""))
+	def push(self, desc):
+		return Printer(self.level, self.prefix + desc)
+	def time(self, desc, level=1, exact=False):
+		return _PrintTimer(self, desc, level, exact)
+
+
+class _PrintTimer:
+	def __init__(self, printer, desc, level, exact):
+		self.printer, self.desc, self.level, self.exact = printer, desc, level, exact
+	def __enter__(self):
+		import time
+		self.t1 = time.time()
+		return self
+	def __exit__(self, *args):
+		import time
+		self.printer.write("%6.2f %s" % (time.time()-self.t1, self.desc), self.level, self.exact)
+
+
+# ---------------------------------------------------------------------------
+# Log-spaced transforms (pixell_tpu/utils.py:807-862), scipy's FFTLog on the host
+# ---------------------------------------------------------------------------
+def profile_to_tform_hankel(profile_fun, lmin=0.1, lmax=1e7, n=512, pad=256):
+	"""(l, F(l)): the harmonic profile of a radial profile function."""
+	rft = RadialFourierTransform(lrange=[lmin, lmax], n=n, pad=pad)
+	F = rft.real2harm(profile_fun)
+	l, F = rft.unpad(rft.l, F)
+	return l, F
+
+
+class FFTLog:
+	"""The Fourier transform of log-spaced data, from a pair of fast Hankel
+	transforms at mu = -1/2 and +1/2. The domain is xrange = [xmin, xmax]
+	or krange = [kmin, kmax] (one of them); pad widens it by pad points on
+	each side (unpad strips them); bias sets the power-law boundary
+	conditions."""
+	def __init__(self, xrange=None, krange=None, n=512, pad=0, bias=0):
+		if (xrange is None) == (krange is None):
+			raise ValueError("Either xrange xor krange must be given")
+		if xrange is None: xrange = krange[::-1]
+		self.step = (np.log(xrange[1]) - np.log(xrange[0]))/(n - 1)
+		self.pad  = pad
+		self.n    = n
+		self.x  = np.exp(np.linspace(np.log(xrange[0]) - self.step*pad,
+			np.log(xrange[1]) + self.step*pad, n + 2*pad))
+		self.k  = 1/self.x[::-1]
+		self.xh = self.x**(0.5 - bias)
+		self.kh = self.k**(0.5 + bias)
+		# the normalization folded into kh; the inverse keeps a factor 2
+		self.kh /= (np.pi/2)**0.5
+		self.bias = bias
+	def fft(self, a):
+		"""The transform along the last axis of a, sampled at self.x (a
+		callable is evaluated there)."""
+		import scipy.fft
+		try: a = a(self.x)
+		except TypeError: pass
+		xa  = a*self.xh
+		cos = scipy.fft.fht(xa, self.step, -0.5, bias=self.bias)/self.kh
+		sin = scipy.fft.fht(xa, self.step, +0.5, bias=self.bias)/self.kh
+		return cos - 1j*sin
+	def ifft(self, fa):
+		"""The inverse along the last axis of fa, sampled at self.k."""
+		import scipy.fft
+		try: fa = fa(self.k)
+		except TypeError: pass
+		kfa = fa*(self.kh/2)
+		a  = scipy.fft.ifht(kfa.real, self.step, -0.5, bias=self.bias)/self.xh
+		a += scipy.fft.ifht(-kfa.imag, self.step, +0.5, bias=self.bias)/self.xh
+		return a
+	def unpad(self, *arrs):
+		"""The arrays on this object's grids without their padding."""
+		if self.pad == 0: res = arrs
+		else: res = tuple(arr[..., self.pad:arr.shape[-1]-self.pad] for arr in arrs)
+		return res[0] if len(arrs) == 1 else res
+
+
+# ---------------------------------------------------------------------------
+# Interpolators (pixell_tpu/utils.py:941-985): the data stay on their device
+# (host data go to device), and so does the result
+# ---------------------------------------------------------------------------
+def _pix_of(coords, box, n, dev):
+	"""Pixel positions [ndim, ...] of coords inside box [{from, to}, ndim]
+	over n pixels (n - 1 intervals for the spline, n for the Fourier
+	grid), in float64 on dev; without a box, coords themselves."""
+	coords = coords.to(dev, torch.float64) if isinstance(coords, torch.Tensor) else \
+		torch.as_tensor(np.asarray(coords, np.float64), device=dev)
+	if box is None: return coords
+	shp = (-1,) + (1,)*(coords.ndim - 1)
+	lo = torch.as_tensor(box[0], device=dev).reshape(shp)
+	width = torch.as_tensor(box[1] - box[0], device=dev).reshape(shp)
+	return (coords - lo)/width*torch.as_tensor(n, dtype=torch.float64, device=dev).reshape(shp)
+
+
+class SplineInterpolator:
+	"""A spline interpolator of gridded data: data [..., n1, ..., nd] at
+	coords [d, ...], in the box's units if a box [{from, to}, d] is given,
+	else in pixels (pixell_tpu.utils.SplineInterpolator :941)."""
+	def __init__(self, data, box=None, order=3, border="cyclic", *, device="cuda"):
+		self.data = data if isinstance(data, torch.Tensor) else torch.as_tensor(np.asarray(data), device=device)
+		self.box = np.asarray(box) if box is not None else None
+		self.order = order
+		self.border = border
+	def __call__(self, coords):
+		from . import interpol as _ip
+		nd = len(coords)
+		n = np.array(self.data.shape[self.data.ndim-nd:]) - 1
+		pix = _pix_of(coords, self.box, n, self.data.device)
+		return _ip.map_coordinates(self.data, pix, order=self.order, border=self.border)
+
+
+class FourierInterpolator:
+	"""A band-limited interpolator of periodic gridded data [..., ny, nx],
+	at coords [{y, x}, ...] in the box's units (box [{from, to}, 2] spans
+	the whole period) or in pixels, by fft.interpol_nufft: K12 and K10 on
+	the card (pixell_tpu.utils.FourierInterpolator :962)."""
+	def __init__(self, data, box=None, *, device="cuda"):
+		self.data = data if isinstance(data, torch.Tensor) else torch.as_tensor(np.asarray(data), device=device)
+		self.box = np.asarray(box) if box is not None else None
+	def __call__(self, coords):
+		from . import fft as _fft
+		nd = len(coords)
+		n = np.array(self.data.shape[self.data.ndim-nd:])
+		pix = _pix_of(coords, self.box, n, self.data.device)
+		return _fft.interpol_nufft(self.data, pix)
+
+
+def interpolator(data, box=None, mode="spline", order=3, border="cyclic", *, device="cuda"):
+	"""SplineInterpolator (mode spline, conv, lin / linear of order 1,
+	cubic of order 3) or FourierInterpolator (fourier, fft, nufft)."""
+	if mode in ["spline", "conv", "lin", "linear", "cubic"]:
+		o = {"lin": 1, "linear": 1, "cubic": 3}.get(mode, order)
+		return SplineInterpolator(data, box=box, order=o, border=border, device=device)
+	if mode in ["fourier", "fft", "nufft"]:
+		return FourierInterpolator(data, box=box, device=device)
+	raise ValueError(mode)
+
+
+# ---------------------------------------------------------------------------
+# Files, integers, robust means (pixell_tpu/utils.py:987-1012)
+# ---------------------------------------------------------------------------
+def dump(fname, obj):
+	"""obj pickled into fname."""
+	import pickle
+	with open(fname, "wb") as f: pickle.dump(obj, f)
+
+
+def loadtxt(fname): return np.loadtxt(fname)
+
+
+def nint_div(a, b): return (a + b//2)//b
+
+
+def medmean(a, frac=0.5):
+	"""The mean of the central frac of the sorted values, a robust mean: a
+	tensor's on its device (a 0-d tensor), else numpy's."""
+	if isinstance(a, torch.Tensor):
+		a = torch.sort(a.reshape(-1))[0]
+	else:
+		a = np.sort(np.asarray(a).reshape(-1))
+	n = len(a)
+	lo = int(n*(1-frac)/2); hi = n - lo
+	return a[lo:hi].mean()
+
+
+# ---------------------------------------------------------------------------
+# The tSZ cluster profile (pixell_tpu/utils.py:1015-1030): the generalized NFW
+# pressure profile of Battaglia et al. 2012 and its line-of-sight projection
+# ---------------------------------------------------------------------------
+def tsz_profile_raw(x, xc=0.497, alpha=1.0, beta=4.65, gamma=-0.3):
+	"""The dimensionless gNFW pressure profile P(x), x = r/R200c: a tensor
+	on its device, else numpy."""
+	if not isinstance(x, torch.Tensor): x = np.asarray(x)
+	return (x/xc)**gamma*(1 + (x/xc)**alpha)**(-beta)
+
+
+def tsz_profile_los(x, xc=0.497, alpha=1.0, beta=4.65, gamma=-0.3,
+		zmax=1e5, npoint=200, x1=1e-8, x2=1e4):
+	"""The gNFW profile projected on the line of sight at projected radii x:
+	2 int P(sqrt(x^2 + z^2)) dz, by a log-spaced quadrature in z (host numpy)."""
+	x = np.atleast_1d(np.asarray(x, float))
+	t = np.linspace(-8, np.log10(zmax), npoint)
+	z = 10.0**t
+	dz = z*np.log(10)*(t[1]-t[0])
+	r = np.sqrt(x[:, None]**2 + z[None, :]**2)
+	P = tsz_profile_raw(r, xc=xc, alpha=alpha, beta=beta, gamma=gamma)
+	return 2*np.sum(P*dz[None, :], -1)
+
+
+def tsz_profile_los_fast(x, **kwargs):
+	"""tsz_profile_los interpolated in log-log from 400 radii in [1e-6, 1e3]."""
+	xs = np.exp(np.linspace(np.log(1e-6), np.log(1e3), 400))
+	ys = tsz_profile_los(xs, **kwargs)
+	return np.exp(np.interp(np.log(np.maximum(np.asarray(x), 1e-6)),
+		np.log(xs), np.log(np.maximum(ys, 1e-300))))
+
+
+class DataError(Exception): pass
+class DataMissing(DataError): pass

@@ -155,9 +155,28 @@ def test_import_loads_no_jax():
 		"pixell_tpu_torch.ops.sht_cuda, pixell_tpu_torch.ops.fma_peak, pixell_tpu_torch.lensing, "
 		"pixell_tpu_torch.aberration, pixell_tpu_torch.old_aberration, pixell_tpu_torch.ops.solvers, "
 		"pixell_tpu_torch.multimap, pixell_tpu_torch.uharm, pixell_tpu_torch.wavelets, pixell_tpu_torch.pointsrcs, "
-		"pixell_tpu_torch.parallel.sht_dist, pixell_tpu_torch.tilemap, pixell_tpu_torch.mpi, pixell_tpu_torch.mpiutils; "
+		"pixell_tpu_torch.parallel.sht_dist, pixell_tpu_torch.tilemap, pixell_tpu_torch.mpi, pixell_tpu_torch.mpiutils, "
+		"pixell_tpu_torch.enplot, pixell_tpu_torch.cgrid, pixell_tpu_torch.colorize, pixell_tpu_torch.colors, "
+		"pixell_tpu_torch.scripts, pixell_tpu_torch.bench; "
 		"bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
 		"or m == 'pixell_tpu' or m.startswith('pixell_tpu.')]; "
+		"print(bad); sys.exit(1 if bad else 0)")
+	root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+	r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+		timeout=120, cwd=root)
+	assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_plotting_imports_without_pil_or_matplotlib():
+	"""enplot, colorize, cgrid, scripts and bench import where neither PIL
+	nor matplotlib is installed (as on a machine with only the card's
+	stack): the two hidden, colorize has its own schemes and not the
+	matplotlib ones."""
+	code = ("import sys; sys.modules['PIL'] = None; sys.modules['matplotlib'] = None; "
+		"from pixell_tpu_torch import enplot, colorize, cgrid, scripts, bench; "
+		"assert 'viridis' not in colorize.schemes and 'planck' in colorize.schemes; "
+		"assert colorize.colorize([0.5], 'planck').shape == (1, 4); "
+		"bad = [m for m in ('PIL', 'matplotlib') if sys.modules.get(m) is not None]; "
 		"print(bad); sys.exit(1 if bad else 0)")
 	root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 	r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

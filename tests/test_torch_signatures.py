@@ -3,14 +3,16 @@
 .reproject, .coordinates, .sites, .lensing, .aberration, .old_aberration
 and .ops.solvers, .multimap, .uharm, .wavelets, .pointsrcs, .distances,
 .analysis, .ephem, .coordsys, .fits_io, .bunch, .device, .memory,
-.checkpoint, .config, .sqlite and .warray against pixell_tpu's (and that
+.checkpoint, .config, .sqlite, .warray, .enplot, .cgrid, .colorize,
+.colors, .scripts, .bench and .utils against pixell_tpu's (and that
 healpix, reproject, coordinates, sites, multimap, uharm, pointsrcs,
 distances, analysis, ephem, coordsys, fits_io, bunch, device, memory,
-checkpoint, config, sqlite, warray, curvedsky and enmap have every public
-name of the reference's modules but the ones listed as not ported, and
+checkpoint, config, sqlite, warray, curvedsky, enmap, enplot, cgrid,
+colorize, colors, scripts and bench have every public name of the
+reference's modules but the ones listed as not ported, utils every one
+defined up to pixell_tpu/utils.py:1034 but cached_jit and fence, and
 fft, lensing, aberration, old_aberration, ops.solvers and wavelets every
-public function and class), and utils' czeros, RadialFourierTransform and
-crossmatch: every public name both modules define takes the reference's
+public function and class): every public name both modules define takes the reference's
 parameters, by name and in order, and the port's own extras (device=,
 leg_dtype=) come after them and are keyword-only, so a call written for
 the reference means the same in the port. Deliberate differences of the
@@ -42,12 +44,13 @@ from pixell_tpu import curvedsky as jcurvedsky, sht as jsht, enmap as jenmap, ff
 	multimap as jmultimap, uharm as juharm, wavelets as jwavelets, pointsrcs as jpointsrcs, utils as jutils, \
 	distances as jdistances, analysis as janalysis, ephem as jephem, coordsys as jcoordsys, fits_io as jfits_io, \
 	bunch as jbunch, device as jdevice, memory as jmemory, checkpoint as jcheckpoint, config as jconfig, \
-	sqlite as jsqlite, warray as jwarray
+	sqlite as jsqlite, warray as jwarray, enplot as jenplot, cgrid as jcgrid, colorize as jcolorize, colors as jcolors, \
+	scripts as jscripts, bench as jbench
 from pixell_tpu.ops import solvers as jsolvers
 from pixell_tpu_torch import curvedsky, sht, enmap, fft, wcsutils, powspec, interpol, resample, array_ops, \
 	healpix, reproject, coordinates, sites, lensing, aberration, old_aberration, multimap, uharm, wavelets, \
 	pointsrcs, utils, distances, analysis, ephem, coordsys, fits_io, bunch, device, memory, checkpoint, config, sqlite, \
-	warray
+	warray, enplot, cgrid, colorize, colors, scripts, bench
 from pixell_tpu_torch.ops import solvers
 
 LMAX = 16
@@ -63,11 +66,13 @@ PAIRS = {"curvedsky": (jcurvedsky, curvedsky), "sht": (jsht, sht), "enmap": (jen
 	"ephem": (jephem, ephem), "coordsys": (jcoordsys, coordsys), "fits_io": (jfits_io, fits_io),
 	"bunch": (jbunch, bunch), "device": (jdevice, device), "memory": (jmemory, memory),
 	"checkpoint": (jcheckpoint, checkpoint), "config": (jconfig, config), "sqlite": (jsqlite, sqlite),
-	"warray": (jwarray, warray)}
-# public names of the reference's modules that the port leaves out on purpose (ROADMAP "Not ported";
-# enmap's are the next slice's)
+	"warray": (jwarray, warray), "enplot": (jenplot, enplot), "cgrid": (jcgrid, cgrid),
+	"colorize": (jcolorize, colorize), "colors": (jcolors, colors), "scripts": (jscripts, scripts),
+	"bench": (jbench, bench), "utils": (jutils, utils)}
+# public names of the reference's modules that the port leaves out on purpose (ROADMAP "Not ported")
 NOT_PORTED = {"device": {"donating_jit", "enable_compilation_cache"}, "curvedsky": {"SYNTH_BAND_BYTES"},
-	"enmap": {"to_flipper", "from_flipper", "posmap_old", "posmap_jax", "fix_python3", "wrapsutils_is_plain"}}
+	"enmap": set(), "utils": {"cached_jit", "fence"}}
+UTILS_PORTED_TO = 1034   # utils' names are held up to this line of pixell_tpu/utils.py (DataMissing)
 
 
 def shared_names():
@@ -130,21 +135,53 @@ def test_the_check_covers_the_entry_points():
 		"Workspace.ensure", "get_device", "read_hdf_recursive"} <= names
 
 
+def public(m):
+	return {n for n in dir(m) if not n.startswith("_") and not inspect.ismodule(getattr(m, n))
+		and getattr(getattr(m, n), "__module__", m.__name__) == m.__name__}
+
+
 @pytest.mark.parametrize("mod", ["healpix", "reproject", "coordinates", "sites", "multimap", "uharm", "pointsrcs",
 	"distances", "analysis", "ephem", "coordsys", "fits_io", "bunch", "device", "memory", "checkpoint", "config",
-	"sqlite", "warray", "curvedsky", "enmap"])
+	"sqlite", "warray", "curvedsky", "enmap", "enplot", "cgrid", "colorize", "colors", "scripts", "bench"])
 def test_every_public_name(mod):
 	"""healpix, reproject, coordinates, sites, multimap, uharm, pointsrcs,
 	distances, analysis, ephem, coordsys, fits_io, bunch, device, memory,
-	checkpoint, config, sqlite, warray, curvedsky and enmap have every public
-	name of the reference's modules but those in NOT_PORTED, and those
-	names are absent."""
+	checkpoint, config, sqlite, warray, curvedsky, enmap, enplot, cgrid,
+	colorize, colors, scripts and bench have every public name of the
+	reference's modules but those in NOT_PORTED, and those names are
+	absent."""
 	ref, port = PAIRS[mod]
-	public = lambda m: {n for n in dir(m) if not n.startswith("_") and not inspect.ismodule(getattr(m, n))
-		and getattr(getattr(m, n), "__module__", m.__name__) == m.__name__}
 	skip = NOT_PORTED.get(mod, set())
 	assert public(ref) - set(dir(port)) == skip
 	assert skip <= public(ref)
+
+
+def utils_names_in_range():
+	"""The public names pixell_tpu/utils.py defines at its top level up to
+	line UTILS_PORTED_TO (functions, classes and assigned constants), from
+	its source."""
+	import ast
+	tree = ast.parse(inspect.getsource(jutils))
+	names = set()
+	for node in tree.body:
+		if node.lineno > UTILS_PORTED_TO: break
+		if isinstance(node, (ast.FunctionDef, ast.ClassDef)): names.add(node.name)
+		elif isinstance(node, ast.Assign):
+			names |= {n.id for t in node.targets for n in ast.walk(t) if isinstance(n, ast.Name)}
+	return {n for n in names if not n.startswith("_")}
+
+
+def test_utils_names_up_to_data_missing():
+	"""utils has every public name of pixell_tpu/utils.py through DataMissing
+	(:1034) but cached_jit and fence, which worked around the TPU runtime,
+	and those two are absent; the constants have the reference's values."""
+	names = utils_names_in_range()
+	assert len(names) == 141
+	assert {n for n in names if not hasattr(utils, n)} == NOT_PORTED["utils"]
+	for n in names - NOT_PORTED["utils"]:
+		r, p = getattr(jutils, n), getattr(utils, n)
+		if isinstance(r, (float, int, np.ndarray)):
+			assert type(p) is type(r) and np.array_equal(p, r), n
 
 
 @pytest.mark.parametrize("mod", ["fft", "lensing", "aberration", "old_aberration", "solvers", "wavelets"])
