@@ -14,7 +14,7 @@ all twelve of K10 / K11 / K12 and the ten of K13 / K14 must be built, and
 none of them may spill),
 then runs the phases below (all of them with no arguments; --phases with a
 choice of k9,kernels,lstop,slice,adjoint,blocked,timing,general,flat,interp,healpix,lensing,config5,
-analysis,mesh,io,plot runs
+analysis,mesh,io,plot,utils runs
 those alone, for work on one phase, and gives no verdict; the phases
 "variants", 6. below, and "blkprobe" run only when named). With
 --parent DIR, a directory holding a parent tree's legendre.cu, blockleg.cu
@@ -422,8 +422,9 @@ blocked phase its blk_synthesis_kernel, the general phase its unbinned K10
    host <-> device copy above 1 MB outside the finder's named host
    stages), peak memory under 70 GiB, every injected source of expected
    S/N >= 10 found within 2 pixels and every found one of S/N >= 10
-   within 2 of an injected one; then 3 steps timed with CUDA events by
-   stage and the host stages by wall time (analysis.HOST_MS). Once, not
+   within 2 of an injected one; then 2 steps timed with CUDA events by
+   stage and the host stages by wall time (analysis.HOST_MS; 3 before the
+   utils phase came, whose time the third step's ~6 s pays for). Once, not
    timed: sim_srcs_dist_transform of all 10 000 sources (K13) against
    sim_objects, and distance_from_points_healpix at nside 2048 for the
    1000 bright sources, brute (K14) and grid (K13). The K13 / K14 records
@@ -506,6 +507,32 @@ blocked phase its blk_synthesis_kernel, the general phase its unbinned K10
    within 1e-10 of the same call on CPU tensors at those positions, its
    time. The kernels JSON line gives each
    kernel's launches in these paths ("plot_launches").
+
+17. utils: every helper of pixell_tpu_torch.utils that takes a tensor, on
+   the card: the IQU float64 map of 3 x 2160 x 4320 (lmax 2000's size,
+   numpy's draws from one seed; a copy with 0.1 % each of NaN, +inf and
+   -inf; weights; a mask) through tofinite, remove_nan, without_nan,
+   rescale, minmax, medmean2, maskmed, weighted_quantile / _median, the
+   reshaping helpers (partial_flatten / _expand, flatview, moveaxes,
+   addaxes, delaxes, atleast_3d / _Nd, to_Nd, preflat, postflat, blockify),
+   block_mean_filter, slice_downgrade, resize_array, unmask, pixwin_1d,
+   triangle_wave, gnfw, vec_angdist (IQU as 3-vectors), ang2chord /
+   chord2ang, matvec, deslope, sum_by_id, argmax / argmin, find_first /
+   _last; cov2corr, corr2cov, eigsort (E and V E V^T) and nodiag on the
+   3 x 3 covariances of a 540 x 540 cut; bincount of 10^7 indices (and
+   weighted, in two rows), bin_multi; point_in_polygon of 10^6 points
+   against a 16-vertex star and poly_edge_dist of 10^6 sky points from a
+   16-gon. Each result must be CUDA tensors, held against the same call
+   on CPU tensors: bit for bit for integer, boolean and exact elementwise
+   results (IEEE operations only), within 1e-12 of the largest value for
+   reductions, sorts, linear algebra and transcendental functions. The
+   CUDA-event ms (median of 3) of tofinite, maskmed, weighted_median,
+   bincount and point_in_polygon beside the card's name and power limit.
+   No kernel of the port's own: torch runs these on the card. The card
+   runs each call on the whole inputs (its result must be CUDA tensors)
+   and on an eighth of them (the first eighth of the map's rows, of the
+   covariances, of the indices and of the points), which is held against
+   the CPU tensors' call. The phase runs first, before the kernel phases.
 
 It prints the card's name and power limit, one JSON line with each
 kernel's launches, error, time, bound and yardstick, and as the last line
@@ -5029,7 +5056,7 @@ AN_FIND = (10.0, 2.0)          # S/N and pixels of the finder's guard
 # an equispaced resampling of the profile, pointsrcs._equi_profiles, the distance transform the profile
 # itself: 3.5e-6 on the card), and sim_objects' paint beyond its disks (its rim, ~exp(-8) of a peak)
 AN_DT_TOL = (1e-5, 1e-3)
-AN_NREP = 3
+AN_NREP = 2                    # timed steps after the profiled one (3 until the utils phase took their time)
 # FP64 operations the two functions need (an FMA 2), counted from the work and not from the kernels' Vincenty
 # form, with unit vectors made once a pixel and once a point or seed. An evaluated candidate of K13 needs a dot
 # product and a compare: 1 multiply and 2 FMA (5) and 1. A pixel-point pair of K14 needs the sign of its dot
@@ -5612,7 +5639,7 @@ def an_records(bright, failed, errs, band):
 
 def analysis_phase():
 	"""Twins and exact guards, the chain against CPU tensors, then the
-	DR6-sized band: the step timed (median of 3) with its stages, launches,
+	DR6-sized band: the step timed (median of AN_NREP) with its stages, launches,
 	busy share, memory and copies; the finder guard; the one-shot runs; the
 	K13 / K14 records."""
 	from pixell_tpu_torch import enmap, utils, pointsrcs, analysis, distances
@@ -6532,8 +6559,201 @@ def plot_phase():
 	if failed: raise RuntimeError("plot checks failed: %s" % failed)
 
 
+# ---------------------------------------------------------------------------
+# 17. utils: the helpers that take tensors, on an IQU float64 map on the card
+# against the same calls on CPU tensors (pixell_tpu_torch.utils)
+# ---------------------------------------------------------------------------
+UTILS_SHAPE = (3, 2160, 4320)        # IQU float64 at the lmax-2000 map's size
+UTILS_NBIN = 10_000_000              # bincount's and bin_multi's indices
+UTILS_NPT = 1_000_000                # point_in_polygon's and poly_edge_dist's points
+UTILS_NVERT = 16                     # their polygon's vertices
+UTILS_TOL = 1e-12                    # relative, of the largest value: reductions, sorts, linear algebra and
+                                     # transcendental functions (neither device's libm rounds them correctly)
+UTILS_NREP = 3                       # timed calls (median)
+UTILS_CUT = 8                        # the CPU tensors' run: an eighth of the map's rows, of the covariances' rows,
+                                     # of the indices and the points (the card runs the whole and the cut)
+UTILS_TIMED = ("tofinite", "maskmed", "weighted_median", "bincount", "point_in_polygon")
+
+
+def utils_inputs():
+	"""The phase's inputs, numpy's draws from one seed, as CPU tensors: the
+	map, a copy with 0.1 % each of NaN, +inf and -inf, weights, a mask, per
+	pixel covariances of a cut of the map, indices, points in a star-shaped
+	polygon's box and on the sky around a 16-gon there."""
+	rng = np.random.default_rng(28)
+	ny, nx = UTILS_SHAPE[1:]
+	m = rng.standard_normal(UTILS_SHAPE)
+	bad = m.copy()
+	flat = bad.reshape(-1)
+	for v in (np.nan, np.inf, -np.inf): flat[rng.integers(0, flat.size, flat.size//1000)] = v
+	ang = np.linspace(0, 2*np.pi, UTILS_NVERT, endpoint=False)
+	rad = 0.3 + 0.15*np.cos(3*ang)
+	cut = m[:, ::4, ::8]
+	inp = {"m": m, "bad": bad, "ivar": rng.uniform(0.5, 2.0, UTILS_SHAPE), "mask": np.abs(m) < 2,
+		"rowmask": rng.random(nx) < 0.5, "ids": rng.integers(0, 100, ny), "A": rng.standard_normal((3, 3)),
+		"cov": np.einsum("i...,j...->...ij", cut, cut) + np.eye(3),
+		"idx": rng.integers(0, ny*nx, UTILS_NBIN), "w": rng.standard_normal(UTILS_NBIN),
+		"pts": rng.uniform(0, 1, (UTILS_NPT, 2)), "poly": np.array([0.5 + rad*np.cos(ang), 0.5 + rad*np.sin(ang)]).T,
+		"spts": np.array([rng.uniform(0.7, 1.3, UTILS_NPT), rng.uniform(-0.55, -0.05, UTILS_NPT)]).T,
+		"sky": np.array([1.0 + 0.2*np.cos(ang), -0.3 + 0.15*np.sin(ang)]).T}
+	return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in inp.items()}
+
+
+def utils_cut(inp):
+	"""The inputs cut for the CPU tensors' run: the first UTILS_CUT-th of
+	the map's rows (and of their ids), of the covariances' rows, of the
+	indices and weights and of the points."""
+	ny, n = UTILS_SHAPE[1]//UTILS_CUT, UTILS_NBIN//UTILS_CUT
+	out = dict(inp)
+	for k in ("m", "bad", "ivar", "mask"): out[k] = inp[k][:, :ny].contiguous()
+	out["ids"] = inp["ids"][:ny].contiguous()
+	out["cov"] = inp["cov"][:inp["cov"].shape[0]//UTILS_CUT].contiguous()
+	for k in ("idx", "w"): out[k] = inp[k][:n].contiguous()
+	for k in ("pts", "spts"): out[k] = inp[k][:UTILS_NPT//UTILS_CUT].contiguous()
+	return out
+
+
+def utils_cases():
+	"""(label, fn(inputs) -> result, exact) for every helper of utils that
+	takes tensors; the exact ones are held bit for bit."""
+	from pixell_tpu_torch import utils as u
+	ny, nx = UTILS_SHAPE[1:]
+	def flatview(i):
+		arr = i["m"].clone()
+		with u.flatview(arr, axes=[0]) as f: f *= 2
+		return arr
+	def eigsort(i):
+		E, V = u.eigsort(i["cov"])
+		return E, torch.einsum("...ij,...j,...kj->...ik", V, E, V)   # V up to sign
+	return [
+		("tofinite", lambda i: u.tofinite(i["bad"]), True),
+		("remove_nan", lambda i: u.remove_nan(i["bad"].clone()), True),
+		("without_nan", lambda i: u.without_nan(i["bad"]), True),
+		("rescale", lambda i: u.rescale(i["m"]), True),
+		("minmax", lambda i: u.minmax(i["m"], axis=-1), True),
+		("medmean2", lambda i: u.medmean2(i["m"], axis=-1), False),
+		("maskmed", lambda i: u.maskmed(i["m"], i["mask"]), False),
+		("weighted_quantile", lambda i: u.weighted_quantile(i["m"], i["ivar"], 0.3), False),
+		("weighted_median", lambda i: u.weighted_median(i["m"], i["ivar"]), False),
+		("partial_flatten", lambda i: u.partial_flatten(i["m"], [0]), True),
+		("partial_expand", lambda i: u.partial_expand(u.partial_flatten(i["m"], [0]), tuple(i["m"].shape), [0]), True),
+		("flatview", flatview, True),
+		("moveaxes", lambda i: u.moveaxes(i["m"], [0, 1], [2, 0]), True),
+		("addaxes", lambda i: u.addaxes(i["m"], [0, 2]), True),
+		("delaxes", lambda i: u.delaxes(i["m"][:, None, :1], [1, 2]), True),
+		("atleast_3d", lambda i: u.atleast_3d(i["m"][0]), True),
+		("atleast_Nd", lambda i: u.atleast_Nd(i["m"], 5), True),
+		("to_Nd", lambda i: u.to_Nd(i["m"], 2), True),
+		("preflat", lambda i: u.preflat(i["m"], 2), True),
+		("postflat", lambda i: u.postflat(i["m"], 2), True),
+		("blockify", lambda i: u.blockify(i["m"], 16), True),
+		("block_mean_filter", lambda i: u.block_mean_filter(i["m"], 16), False),
+		("slice_downgrade", lambda i: u.slice_downgrade(i["m"], slice(0, None, 4)), False),
+		("resize_array", lambda i: u.resize_array(i["m"], [3, 2000, 4500]), True),
+		("unmask", lambda i: u.unmask(i["m"][..., i["rowmask"]], i["rowmask"], axis=2), True),
+		("pixwin_1d", lambda i: u.pixwin_1d(0.25*i["m"][0], order=1), False),
+		("triangle_wave", lambda i: u.triangle_wave(i["m"], period=0.7), True),
+		("gnfw", lambda i: u.gnfw(i["m"].abs() + 0.01, 0.497, 1.0, 4.65, -0.3), False),
+		("vec_angdist", lambda i: u.vec_angdist(i["m"], torch.roll(i["m"], 1, -1)), False),
+		("ang2chord", lambda i: u.ang2chord(i["m"]), False),
+		("chord2ang", lambda i: u.chord2ang(i["m"].clamp(-2, 2)), False),
+		("matvec", lambda i: u.matvec(i["A"], torch.movedim(i["m"], 0, -1)), False),
+		("cov2corr", lambda i: u.cov2corr(i["cov"]), False),
+		("corr2cov", lambda i: u.corr2cov(*u.cov2corr(i["cov"])), False),
+		("eigsort", eigsort, False),
+		("nodiag", lambda i: u.nodiag(i["cov"]), True),
+		("deslope", lambda i: u.deslope(i["m"], w=4), False),
+		("bincount", lambda i: u.bincount(i["idx"], minlength=ny*nx), True),
+		("bincount (weights, 2 rows)", lambda i: u.bincount(i["idx"].reshape(2, -1), i["w"].reshape(2, -1)), False),
+		("bin_multi", lambda i: u.bin_multi(torch.stack([i["idx"]//nx, i["idx"] % nx]), (ny, nx)), True),
+		("sum_by_id", lambda i: u.sum_by_id(i["m"][0], i["ids"]), False),
+		("argmax", lambda i: u.argmax(i["m"]), True),
+		("argmin", lambda i: u.argmin(i["m"]), True),
+		("find_first", lambda i: u.find_first(i["m"] > 3.5), True),
+		("find_last", lambda i: u.find_last(i["m"] > 3.5, axis=1), True),
+		("point_in_polygon", lambda i: u.point_in_polygon(i["pts"], i["poly"]), True),
+		("poly_edge_dist", lambda i: u.poly_edge_dist(i["spts"], i["sky"]), False),
+	]
+
+
+def utils_held(dev, cpu, exact):
+	"""(ok, err): the card's result (CUDA tensors, leaf by leaf) against the
+	CPU tensors' of the same call, equal bit for bit (NaN where NaN; err the
+	entries that differ) or within UTILS_TOL of the largest value (err the
+	relative error; non-finite entries in the same places)."""
+	if isinstance(cpu, (tuple, list)):
+		res = [utils_held(d, c, exact) for d, c in zip(dev, cpu)]
+		return len(dev) == len(cpu) and all(r[0] for r in res), max(r[1] for r in res)
+	if not (isinstance(dev, torch.Tensor) and dev.is_cuda): return False, float("inf")
+	d = dev.cpu()
+	if d.shape != cpu.shape or d.dtype != cpu.dtype: return False, float("inf")
+	if exact or not d.is_floating_point():
+		if torch.equal(d, cpu): return True, 0.0
+		same = d == cpu
+		if d.is_floating_point(): same |= (d != d) & (cpu != cpu)
+		n = int((~same).sum())
+		return n == 0, float(n)
+	# finite: x - x == 0 (torch's CPU isfinite is several times slower)
+	fin = (cpu - cpu) == 0
+	if not torch.equal(fin, (d - d) == 0): return False, float("inf")
+	if d.numel() == 0: return True, 0.0
+	scale = float(torch.where(fin, cpu, 0.0).abs().max())
+	err = float(torch.where(fin, d - cpu, 0.0).abs().max())/(scale or 1.0)
+	return err <= UTILS_TOL, err
+
+
+def utils_cuda(x):
+	"""Whether every leaf of a result is a CUDA tensor."""
+	if isinstance(x, (tuple, list)): return all(utils_cuda(v) for v in x)
+	return isinstance(x, torch.Tensor) and x.is_cuda
+
+
+def utils_phase():
+	"""The utils phase (17. above)."""
+	h0 = time.perf_counter()
+	card = card_line()
+	print(card)
+	full = utils_inputs()
+	cpu = utils_cut(full)
+	dev = {k: v.to(DEV) for k, v in full.items()}
+	dev_cut = utils_cut(dev)
+	del full
+	print("utils inputs made and copied to the card at %.1f s" % (time.perf_counter() - h0))
+	failed, t_dev, t_cpu, cases = [], 0.0, 0.0, utils_cases()
+	for label, fn, exact in cases:
+		t0 = time.perf_counter()
+		whole = fn(dev)
+		torch.cuda.synchronize()
+		t1 = time.perf_counter()
+		on_cuda = utils_cuda(whole)
+		del whole
+		got = fn(dev_cut)
+		t2 = time.perf_counter()
+		want = fn(cpu)
+		t3 = time.perf_counter()
+		t_dev, t_cpu = t_dev + t2 - t0, t_cpu + t3 - t2
+		ok, err = utils_held(got, want, exact)
+		ok = ok and on_cuda
+		print("utils %s: the whole inputs on the card %s (%.1f ms, first call, host clock); the cut on the card "
+			"against CPU tensors %s: %s (CPU %.1f ms)" % (label, "gave CUDA tensors" if on_cuda else "NOT on the card",
+			1e3*(t1 - t0), ("bit for bit, %d entries differ" % err) if exact else
+			("rel err %.3e (bound %.0e)" % (err, UTILS_TOL)), "ok" if ok else "FAIL", 1e3*(t3 - t2)))
+		if not ok: failed.append(label)
+		del got, want
+	fns = dict((label, fn) for label, fn, _ in cases)
+	for label in UTILS_TIMED:
+		_, ms = plot_events(lambda: fns[label](dev), UTILS_NREP)
+		print("utils timing %s: %.3f ms (median of %d; min %.3f, max %.3f; CUDA events) (%s)" % (label,
+			float(np.median(ms)), len(ms), min(ms), max(ms), card))
+	del dev, dev_cut
+	torch.cuda.empty_cache()
+	print("utils phase: %.1f s (the card's calls %.1f s, the CPU tensors' on the cut %.1f s; %d helpers' calls "
+		"held; %s)" % (time.perf_counter() - h0, t_dev, t_cpu, len(cases), card))
+	if failed: raise RuntimeError("utils checks failed: %s" % failed)
+
+
 PHASES = ("k9", "kernels", "lstop", "slice", "adjoint", "blocked", "timing", "general", "flat", "interp",
-	"healpix", "lensing", "config5", "analysis", "mesh", "io", "plot")
+	"healpix", "lensing", "config5", "analysis", "mesh", "io", "plot", "utils")   # utils runs first
 EXTRA_PHASES = ("variants", "blkprobe")   # run only when named
 
 
@@ -6563,7 +6783,7 @@ def main():
 	torch.backends.cuda.matmul.allow_tf32 = False
 	torch.backends.cudnn.allow_tf32 = False
 	parent = blk_parent = nufft_parent = None
-	if not set(phases) <= {"flat", "interp"}:   # the flat and interp paths run no hand-written kernel
+	if not set(phases) <= {"flat", "interp", "utils"}:   # these paths run no hand-written kernel
 		h0 = time.perf_counter()
 		with ThreadPoolExecutor(3) as ex:   # the parent's build and the native FITS reader beside this tree's
 			lib = ex.submit(sht_cuda.library)
@@ -6588,6 +6808,9 @@ def main():
 		dist_build_check(build_rows)
 	records, kernel_records, f64_records, launches, launches64, an_recs, mesh_recs = [], {}, {}, {}, {}, [], []
 	blk_records, lstop_records, gen_records = {}, {}, []
+	if "utils" in phases:   # first: it needs no kernel, and a fault in it shows before the long phases
+		utils_phase()
+		print("phase utils done at %.1f s" % (time.perf_counter() - t_start))
 	if "k9" in phases:
 		records = fma_phase()
 		print("phase K9 done at %.1f s" % (time.perf_counter() - t_start))

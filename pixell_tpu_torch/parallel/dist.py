@@ -68,6 +68,14 @@ class TorchCommunicator:
 		return res if isinstance(a, np.ndarray) else res[()]
 	def reduce(self, a, op=None, root=0):
 		return self.allreduce(a, op)
+	def Reduce(self, sendbuf, recvbuf, op=None, root=0):
+		"""mpi4py's Reduce: the reduction (op None or "sum", "max", "min") of
+		every rank's sendbuf written into recvbuf on root; recvbuf is not
+		read, and not touched on the other ranks."""
+		if op not in _OPS: raise ValueError(op)
+		x = self._tensor(sendbuf)
+		tdist.reduce(x, dst=root, op=getattr(tdist.ReduceOp, _OPS[op]))
+		if self.rank == root: recvbuf[...] = x.cpu().numpy()
 	def allgather(self, a):
 		x = self._tensor(a)
 		out = [torch.empty_like(x) for _ in range(self.size)]

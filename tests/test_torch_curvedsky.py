@@ -157,7 +157,7 @@ def test_import_loads_no_jax():
 		"pixell_tpu_torch.multimap, pixell_tpu_torch.uharm, pixell_tpu_torch.wavelets, pixell_tpu_torch.pointsrcs, "
 		"pixell_tpu_torch.parallel.sht_dist, pixell_tpu_torch.tilemap, pixell_tpu_torch.mpi, pixell_tpu_torch.mpiutils, "
 		"pixell_tpu_torch.enplot, pixell_tpu_torch.cgrid, pixell_tpu_torch.colorize, pixell_tpu_torch.colors, "
-		"pixell_tpu_torch.scripts, pixell_tpu_torch.bench; "
+		"pixell_tpu_torch.scripts, pixell_tpu_torch.bench, pixell_tpu_torch.utils, pixell_tpu_torch.parallel.dist; "
 		"bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
 		"or m == 'pixell_tpu' or m.startswith('pixell_tpu.')]; "
 		"print(bad); sys.exit(1 if bad else 0)")

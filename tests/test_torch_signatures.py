@@ -8,9 +8,9 @@ and .ops.solvers, .multimap, .uharm, .wavelets, .pointsrcs, .distances,
 healpix, reproject, coordinates, sites, multimap, uharm, pointsrcs,
 distances, analysis, ephem, coordsys, fits_io, bunch, device, memory,
 checkpoint, config, sqlite, warray, curvedsky, enmap, enplot, cgrid,
-colorize, colors, scripts and bench have every public name of the
-reference's modules but the ones listed as not ported, utils every one
-defined up to pixell_tpu/utils.py:1034 but cached_jit and fence, and
+colorize, colors, scripts, bench and utils have every public name of the
+reference's modules but the ones listed as not ported (of utils,
+cached_jit and fence), and
 fft, lensing, aberration, old_aberration, ops.solvers and wavelets every
 public function and class): every public name both modules define takes the reference's
 parameters, by name and in order, and the port's own extras (device=,
@@ -72,7 +72,7 @@ PAIRS = {"curvedsky": (jcurvedsky, curvedsky), "sht": (jsht, sht), "enmap": (jen
 # public names of the reference's modules that the port leaves out on purpose (ROADMAP "Not ported")
 NOT_PORTED = {"device": {"donating_jit", "enable_compilation_cache"}, "curvedsky": {"SYNTH_BAND_BYTES"},
 	"enmap": set(), "utils": {"cached_jit", "fence"}}
-UTILS_PORTED_TO = 1034   # utils' names are held up to this line of pixell_tpu/utils.py (DataMissing)
+UTILS_PORTED_TO = 2921   # utils' names are held up to this line of pixell_tpu/utils.py (its end)
 
 
 def shared_names():
@@ -142,12 +142,12 @@ def public(m):
 
 @pytest.mark.parametrize("mod", ["healpix", "reproject", "coordinates", "sites", "multimap", "uharm", "pointsrcs",
 	"distances", "analysis", "ephem", "coordsys", "fits_io", "bunch", "device", "memory", "checkpoint", "config",
-	"sqlite", "warray", "curvedsky", "enmap", "enplot", "cgrid", "colorize", "colors", "scripts", "bench"])
+	"sqlite", "warray", "curvedsky", "enmap", "enplot", "cgrid", "colorize", "colors", "scripts", "bench", "utils"])
 def test_every_public_name(mod):
 	"""healpix, reproject, coordinates, sites, multimap, uharm, pointsrcs,
 	distances, analysis, ephem, coordsys, fits_io, bunch, device, memory,
 	checkpoint, config, sqlite, warray, curvedsky, enmap, enplot, cgrid,
-	colorize, colors, scripts and bench have every public name of the
+	colorize, colors, scripts, bench and utils have every public name of the
 	reference's modules but those in NOT_PORTED, and those names are
 	absent."""
 	ref, port = PAIRS[mod]
@@ -172,11 +172,12 @@ def utils_names_in_range():
 
 
 def test_utils_names_up_to_data_missing():
-	"""utils has every public name of pixell_tpu/utils.py through DataMissing
-	(:1034) but cached_jit and fence, which worked around the TPU runtime,
-	and those two are absent; the constants have the reference's values."""
+	"""utils has every public name of pixell_tpu/utils.py, from its
+	constants through redistribute (:2921), but cached_jit and fence, which
+	worked around the TPU runtime, and those two are absent; the constants
+	have the reference's values."""
 	names = utils_names_in_range()
-	assert len(names) == 141
+	assert len(names) == 371
 	assert {n for n in names if not hasattr(utils, n)} == NOT_PORTED["utils"]
 	for n in names - NOT_PORTED["utils"]:
 		r, p = getattr(jutils, n), getattr(utils, n)

@@ -266,8 +266,43 @@ def case_tilemap_io(meshes, inp):
 	return {"read": _np(back.data), "rank_sums": torch.cat(sums).numpy(), "file": np.array(fname)}
 
 
+REDIST_SHAPE = (2, 12, 20)   # the global array of the redistribute case: [pre, rows, cols], cols periodic
+REDIST_IBOXES = [[[[0, 6], [0, 11]], [[0, 6], [11, 20]]], [[[6, 12], [0, 20]]]]   # by rank
+REDIST_OBOXES = [[[[2, 9], [15, 26]]], [[[0, 12], [0, 5]], [[5, 7], [-3, 4]]]]   # by rank; cols wrap at 20
+
+
+def redist_global():
+	return np.random.default_rng(27).standard_normal(REDIST_SHAPE)
+
+
+def case_utils(meshes, inp):
+	"""utils.reduce (sum and max, to each root) and utils.redistribute over
+	the ranks, numpy over TorchCommunicator: what the other ranks hold
+	comes to rank 0 by bcast."""
+	from pixell_tpu_torch import utils
+	from pixell_tpu_torch.parallel import dist
+	comm = dist.COMM_WORLD
+	r, n = comm.rank, comm.size
+	v = np.arange(6.0).reshape(2, 3)*(r + 1) + r
+	res = {}
+	for root in range(n):
+		for op in (None, "max"):
+			got = utils.reduce(v, comm, root=root, op=op)
+			key = "reduce_%s_root%d" % (op or "sum", root)
+			res[key] = comm.bcast(got if r == root else None, root=root)
+			res[key + "_others_none"] = np.array(comm.allreduce(int(r != root and got is not None)) == 0)
+	g = redist_global()
+	iarrs = [g[(slice(None),) + tuple(slice(*d) for d in b)] for b in REDIST_IBOXES[r]]
+	oarrs = utils.redistribute(iarrs, REDIST_IBOXES[r], REDIST_OBOXES[r], comm, wrap=[0, REDIST_SHAPE[2]])
+	for src in range(n):
+		got = comm.bcast(oarrs if r == src else None, root=src)
+		for i, a in enumerate(got): res["redistribute_rank%d_%d" % (src, i)] = a
+	return res
+
+
 CASES = {"ring": case_ring, "m": case_m, "comm": case_comm, "curved": case_curved, "cyl": case_cyl,
-	"uharm": case_uharm, "tilemap": case_tilemap, "tilemap_io": case_tilemap_io}
+	"uharm": case_uharm, "tilemap": case_tilemap, "tilemap_io": case_tilemap_io,
+	"utils": case_utils}
 
 
 def meshes_of(world):
